@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the paddle_tpu_torch port: build its CUDA kernels,
-hold each against its plain PyTorch version, and serve a BERT-base
-encoder over HTTP /predict through the kernels.
+hold each against its plain PyTorch version, serve a BERT-base encoder
+over HTTP /predict and train BERT-base, both through the kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -10,7 +10,9 @@ Exits non-zero, printing no result line, when any phase fails or no GPU
 is present.  Phases:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile csrc/flash_attn_fwd.cu from this checkout;
+  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu and
+               fused_xent_fwd.cu from this checkout, one nvcc process
+               each, all at once (ptxas register and spill lines);
   3. kernel  - the flash-attention forward kernel against its plain
                version (paddle_tpu_torch.ops.attention
                .flash_attention_plain) on the same inputs, at the serving
@@ -23,7 +25,17 @@ is present.  Phases:
                JSON line per case: kernel_ms, plain_ms, library_ms (torch
                scaled_dot_product_attention, a yardstick the port never
                calls) and bound_ms (max of FLOPs over peak and bytes over
-               bandwidth, from the H100 SXM datasheet);
+               bandwidth, from the H100 SXM datasheet).
+               Then the flash backward kernels (dQ, dK/dV) against
+               flash_attention_bwd_dq_plain / _dkv_plain at the same six
+               cases; library_ms is the whole backward of torch
+               scaled_dot_product_attention (autograd.grad after one
+               forward), bounds count 6 (dQ) and 8 (dK/dV) x B H pairs D
+               FLOPs.  And the fused cross-entropy kernel against
+               fused_xent_plain at [4096, 30522] in fp32 and bf16, a
+               ragged V = 1000, and rows with a positive and a negative
+               ignore_index; library_ms is F.cross_entropy(reduction=
+               "none"), the bound is bytes.  Same tolerances and reasons;
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -33,14 +45,33 @@ is present.  Phases:
                flash kernel was launched 12 times per batch the server
                ran, and the outputs match the same weights run through
                the flash-off score-matrix program on the card
-               (atol=rtol=2e-4, fp32 over 12 layers).
+               (atol=rtol=2e-4, fp32 over 12 layers);
+  5. train   - models.build_bert_pretrain (bench.build_bert_base) at
+               full width, batch 8, flash and fused cross-entropy on,
+               weights from --seed, one fixed numpy batch.
+               (a) fp32: one Executor.run step of the kernel program
+               against the same weights through the flash-off, fused-off
+               program on the card: loss within rtol 1e-4, the gradients
+               of the word embedding, the first attention projection and
+               the vocab fc within a normalised max error of 1e-3 (fp32
+               over 12 layers; the two attention algorithms and the two
+               cross-entropies sum in different orders).
+               (b) the bench configuration (AMP bf16): 6 steps, every
+               loss finite and the last below the first; step_ms,
+               tokens/s, MFU (6 x params x tokens/s over 989 TFLOP/s, as
+               bench.py reckons it) and peak memory.  Exact launch counts
+               per step: flash forward 24 (12 forward ops + the 12
+               replays of the grad ops, which re-run the forward under
+               torch.func.vjp), dQ 12, dK/dV 12, fused cross-entropy 2
+               (the forward op + its grad op's replay).
 
 `--profile` adds one torch.profiler window around a Predictor.run of
-the served batch (device time by kernel, device busy share) and the
-host time of encoding one /predict response.
+the served batch and one around a training step (device time by kernel,
+device busy share) and the host time of encoding one /predict response.
 
-The line before the last is the kernels summary, the last line
-{"ok": true, "device": {...}}.
+The line before the last is the kernels summary (launches counted over
+the training run of phase 5b), the last line {"ok": true, "device":
+{...}}.
 """
 import argparse
 import json
@@ -61,6 +92,20 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 BERT = dict(vocab=30522, seq=512, hidden=768, layers_n=12, heads=12)
 ROWS_PER_POST = (2, 2, 2, 2)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
+# the kernels of the training path and the TPU kernels they replace
+KERNELS = {
+    "flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+                       "paddle_tpu/ops/attention.py:125"),
+    "flash_attn_bwd_dq": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                          "paddle_tpu/ops/attention.py:240"),
+    "flash_attn_bwd_dkv": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                           "paddle_tpu/ops/attention.py:281"),
+    "fused_xent_fwd": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
+                       "paddle_tpu/ops/fused_xent.py:42"),
+}
 
 
 def log(obj):
@@ -88,6 +133,14 @@ def visible_pairs(sq, sk, causal):
     return sum(max(0, min(sk, i + shift + 1)) for i in range(sq))
 
 
+def roofline(flops, nbytes, dtype):
+    """(bound_ms, bound_by): the larger of FLOPs over the dtype's peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound(b, h, sq, sk, d, dtype, causal):
     """(bound_ms, bound_by) for one forward call: each input read once,
     each output written once; FLOPs of the two products over the
@@ -95,14 +148,25 @@ def bound(b, h, sq, sk, d, dtype, causal):
     esize = 4 if dtype == "float32" else 2
     nbytes = esize * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
     flops = 4.0 * b * h * d * visible_pairs(sq, sk, causal)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, \
-        ("operations" if t_ops >= t_bytes else "bytes")
+    return roofline(flops, nbytes, dtype)
 
 
-def kernel_phase(torch, attn):
-    import torch.nn.functional as F
-    cases = [
+def bwd_bounds(b, h, sq, sk, d, dtype, causal):
+    """{"dq": (bound_ms, bound_by), "dkv": ...}.  Both read q, k, v, dO
+    (input dtype) and lse, D (fp32 [B, H, Sq]); dQ writes dq, dK/dV dk and
+    dv.  FLOPs over the visible pairs: dQ 3 products (S, dP, dS.k), dK/dV
+    4 (S, dP, P^T.dO, dS^T.q), 2 FLOPs per multiply-add."""
+    esize = 4 if dtype == "float32" else 2
+    ins = esize * b * h * d * (2 * sq + 2 * sk) + 8 * b * h * sq
+    pairs = b * h * visible_pairs(sq, sk, causal)
+    return {"dq": roofline(6.0 * pairs * d, ins + esize * b * h * sq * d,
+                           dtype),
+            "dkv": roofline(8.0 * pairs * d,
+                            ins + 2 * esize * b * h * sk * d, dtype)}
+
+
+def attention_cases(torch):
+    return [
         # name, B, H, Sq, Sk, D, dtype, causal, strided head-split views
         ("slice_fp32", 8, 12, 512, 512, 64, torch.float32, False, True),
         ("slice_bf16", 8, 12, 512, 512, 64, torch.bfloat16, False, True),
@@ -113,16 +177,22 @@ def kernel_phase(torch, attn):
         ("ragged_s200_d128", 2, 12, 200, 200, 128, torch.float32, False,
          False),
     ]
+
+
+def attention_inputs(torch, gen, b, h, s, d, dt, strided):
+    if strided:  # [B, S, H*D] -> [B, H, S, D] view, as transpose2
+        x = torch.randn(b, s, h * d, device="cuda", generator=gen)
+        return x.to(dt).reshape(b, s, h, d).permute(0, 2, 1, 3)
+    return torch.randn(b, h, s, d, device="cuda", generator=gen).to(dt)
+
+
+def kernel_phase(torch, attn):
+    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
-    for name, b, h, sq, sk, d, dt, causal, strided in cases:
-        def mk(s):
-            if strided:  # [B, S, H*D] -> [B, H, S, D] view, as transpose2
-                x = torch.randn(b, s, h * d, device="cuda", generator=gen)
-                return x.to(dt).reshape(b, s, h, d).permute(0, 2, 1, 3)
-            return torch.randn(b, h, s, d, device="cuda",
-                               generator=gen).to(dt)
-        q, k, v = mk(sq), mk(sk), mk(sk)
+    for name, b, h, sq, sk, d, dt, causal, strided in attention_cases(torch):
+        q, k, v = (attention_inputs(torch, gen, b, h, s, d, dt, strided)
+                   for s in (sq, sk, sk))
         out, lse = attn.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref, ref_lse = attn.flash_attention_plain(q, k, v, causal=causal)
@@ -156,6 +226,113 @@ def kernel_phase(torch, attn):
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
         log(row)
+        results[name] = row
+    return results
+
+
+def bwd_kernel_phase(torch, attn):
+    """The dQ and dK/dV kernels against their plain versions, at the
+    forward's cases; dO is random, out/lse come from the forward kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    results = {}
+    for name, b, h, sq, sk, d, dt, causal, strided in attention_cases(torch):
+        q, k, v, do = (attention_inputs(torch, gen, b, h, s, d, dt, strided)
+                       for s in (sq, sk, sk, sq))
+        out, lse = attn.flash_attention_cuda(q, k, v, causal=causal)
+        dd = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, dd, causal)
+        dq = attn.flash_attention_bwd_dq_cuda(*args)
+        dk, dv = attn.flash_attention_bwd_dkv_cuda(*args)
+        torch.cuda.synchronize()
+        ref_dq = attn.flash_attention_bwd_dq_plain(*args)
+        ref_dk, ref_dv = attn.flash_attention_bwd_dkv_plain(*args)
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        errs = {}
+        for tag, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                              ("dv", dv, ref_dv)):
+            torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                       atol=tol, msg=lambda m: f"{name} "
+                                       f"{tag}: {m}")
+            errs[tag] = (got.float() - ref.float()).abs().max().item()
+        if causal and sq > sk and not torch.all(dq[:, :, :sq - sk] == 0):
+            raise AssertionError(f"{name}: fully-masked rows have dq != 0")
+        mask = None
+        if causal:  # bottom-right alignment (SDPA's is_causal is top-left)
+            mask = torch.ones(sq, sk, dtype=torch.bool,
+                              device="cuda").tril(sk - sq)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask)
+        # the whole SDPA backward (dq, dk and dv): the yardstick of both
+        library_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                        retain_graph=True), 10)
+        dname = "float32" if dt == torch.float32 else "bfloat16"
+        bounds = bwd_bounds(b, h, sq, sk, d, dname, causal)
+        results[name] = {}
+        for kern, cuda_fn, plain_fn, err in (
+                ("dq", attn.flash_attention_bwd_dq_cuda,
+                 attn.flash_attention_bwd_dq_plain, errs["dq"]),
+                ("dkv", attn.flash_attention_bwd_dkv_cuda,
+                 attn.flash_attention_bwd_dkv_plain,
+                 max(errs["dk"], errs["dv"]))):
+            row = dict(case=name, kernel=kern, shape=[b, h, sq, sk, d],
+                       dtype=dname, causal=causal, strided=strided, tol=tol,
+                       max_abs_err=err,
+                       kernel_ms=cuda_time_ms(lambda: cuda_fn(*args), 10),
+                       plain_ms=cuda_time_ms(lambda: plain_fn(*args), 3),
+                       library_ms=library_ms, bound_ms=bounds[kern][0],
+                       bound_by=bounds[kern][1])
+            log(dict(phase="kernel_bwd", **row))
+            results[name][kern] = row
+    return results
+
+
+def xent_kernel_phase(torch, fx):
+    """The fused cross-entropy kernel against its plain version."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    cases = [  # name, T, V, dtype, ignore_index, share of ignored rows
+        ("train_fp32", 4096, 30522, torch.float32, -100, 0),
+        ("train_bf16", 4096, 30522, torch.bfloat16, -100, 0),
+        ("ragged_v1000", 300, 1000, torch.float32, -100, 0),
+        ("ignore_pos", 512, 30522, torch.float32, 7, 4),
+        ("ignore_neg", 512, 30522, torch.bfloat16, -1, 4),
+    ]
+    results = {}
+    for name, t, v, dt, ign, every in cases:
+        logits = (2.0 * torch.randn(t, v, device="cuda", generator=gen)).to(dt)
+        label = torch.randint(0, v, (t,), device="cuda", generator=gen)
+        if every:
+            label[::every] = ign
+        loss, lse = fx.fused_xent_cuda(logits, label, ign)
+        torch.cuda.synchronize()
+        ref_loss, ref_lse = fx.fused_xent_plain(logits, label, ign)
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(loss, ref_loss, rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+        if every and not torch.all(loss[::every] == 0):
+            raise AssertionError(f"{name}: ignored rows have loss != 0")
+        esize = 4 if dt == torch.float32 else 2
+        dname = "float32" if dt == torch.float32 else "bfloat16"
+        # logits and labels read once, loss and lse written once; ~4
+        # operations per logit (max, subtract, exp, add)
+        bound_ms, bound_by = roofline(4.0 * t * v, esize * t * v + 16 * t,
+                                      dname)
+        lib_label = label.clone()
+        row = dict(case=name, shape=[t, v], dtype=dname, ignore_index=ign,
+                   tol=tol, max_abs_err=(loss - ref_loss).abs().max().item(),
+                   kernel_ms=cuda_time_ms(
+                       lambda: fx.fused_xent_cuda(logits, label, ign), 20),
+                   plain_ms=cuda_time_ms(
+                       lambda: fx.fused_xent_plain(logits, label, ign), 5),
+                   library_ms=cuda_time_ms(
+                       lambda: F.cross_entropy(logits, lib_label,
+                                               ignore_index=ign,
+                                               reduction="none"), 20),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(dict(phase="kernel_xent", **row))
         results[name] = row
     return results
 
@@ -325,11 +502,218 @@ def slice_phase(torch, seed, tmp, profile=False):
     return launches
 
 
+def train_feed(seed):
+    rng = np.random.RandomState(seed)
+    b, seq, vocab = TRAIN_BATCH, BERT["seq"], BERT["vocab"]
+    return {"ids": rng.randint(0, vocab, (b, seq)).astype(np.int64),
+            "pos": np.tile(np.arange(seq, dtype=np.int64), (b, 1)),
+            "labels": rng.randint(0, vocab, (b, seq, 1)).astype(np.int64)}
+
+
+def build_pretrain(flash, use_amp):
+    """build_bert_pretrain with the flash_attention op (flash=True) or the
+    score-matrix graph, from a fresh unique-name state.  The fused
+    cross-entropy is chosen when the program runs (FLAGS_fused_xent)."""
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import build_bert_pretrain
+    from paddle_tpu_torch.ops import attention as attn
+    attn.enable_flash_attention(flash)
+    try:
+        _reset_unique_names()
+        return build_bert_pretrain(use_amp=use_amp, batch=TRAIN_BATCH,
+                                   **BERT)
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+
+
+def checked_params(main):
+    """(word embedding, first attention projection, vocab fc) weights."""
+    h, v = BERT["hidden"], BERT["vocab"]
+    params = main.all_parameters()
+    pick = [next(p for p in params if p.shape == shape)
+            for shape in ((v, h), (h, h), (h, v))]
+    return [p.name for p in pick]
+
+
+def train_correctness(torch, static, fx, seed, feed):
+    """(a): one fp32 step of the kernel program against the flash-off,
+    fused-off program on the same weights."""
+    main, startup, loss = build_pretrain(True, use_amp=False)
+    main_off, _, loss_off = build_pretrain(False, use_amp=False)
+    types = [op.type for op in main.global_block().ops]
+    types_off = [op.type for op in main_off.global_block().ops]
+    if types.count("flash_attention_grad") != BERT["layers_n"] or \
+            "flash_attention" in types_off or "softmax" not in types_off:
+        raise AssertionError("kernel / score-matrix programs are not as "
+                             "built")
+    startup.random_seed = seed
+    exe = static.Executor()
+    names = checked_params(main)
+    fetched = {}
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        exe.run(startup)
+    init = {n: t.clone() for n, t in scope.vars.items() if t is not None}
+    for tag, prog, lv in (("kernels", main, loss), ("plain", main_off,
+                                                    loss_off)):
+        run_scope = static.Scope()
+        for n, t in init.items():
+            run_scope.set(n, t.clone())
+        grads = [prog._grad_map[n] for n in names]
+        fx.enable_fused_xent(tag == "kernels")
+        fx.fused_xent_cuda.launches = 0
+        try:
+            with static.scope_guard(run_scope):
+                fetched[tag] = exe.run(prog, feed=feed,
+                                       fetch_list=[lv] + grads)
+        finally:
+            fx.enable_fused_xent(False)
+        if (fx.fused_xent_cuda.launches > 0) != (tag == "kernels"):
+            raise AssertionError(f"{tag} program: fused cross-entropy "
+                                 f"launched {fx.fused_xent_cuda.launches} "
+                                 "times")
+        del run_scope
+    del init, scope
+    got, ref = fetched["kernels"], fetched["plain"]
+    loss_k, loss_p = float(got[0].reshape(-1)[0]), float(ref[0].reshape(-1)[0])
+    if not np.isfinite(loss_k) or abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError(f"fp32 loss {loss_k} != plain {loss_p}")
+    grad_err = {}
+    for n, g, r in zip(names, got[1:], ref[1:]):
+        if g.shape != r.shape or not np.isfinite(g).all():
+            raise AssertionError(f"grad of {n}: bad {g.shape}")
+        scale = float(np.abs(r).max())
+        if not scale > 0:
+            raise AssertionError(f"grad of {n} is zero in the plain program")
+        grad_err[n] = float(np.abs(g - r).max()) / scale
+        if not grad_err[n] <= 1e-3:
+            raise AssertionError(f"grad of {n}: normalised max error "
+                                 f"{grad_err[n]} > 1e-3")
+    log({"phase": "train_fp32_check", "loss_kernels": loss_k,
+         "loss_plain": loss_p, "grad_normalised_max_err": grad_err})
+
+
+def train_phase(torch, seed, profile=False):
+    """(b) the bench configuration (AMP bf16) for TRAIN_STEPS steps: the
+    main path of this slice.  Returns the per-kernel launch counts."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
+
+    feed = train_feed(seed)
+    train_correctness(torch, static, fx, seed, feed)
+
+    main, startup, loss = build_pretrain(True, use_amp=True)
+    startup.random_seed = seed
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    exe = static.Executor()
+    counters = (attn.flash_attention, attn.flash_attention_bwd_dq_cuda,
+                attn.flash_attention_bwd_dkv_cuda, fx.fused_xent_cuda)
+    losses, step_ms = [], []
+    fx.enable_fused_xent(True)
+    try:
+        with static.scope_guard(static.Scope()):
+            exe.run(startup)
+            exe.run(main, feed=feed, fetch_list=[loss])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path: counts from 0 just before, read just after
+            for c in counters:
+                c.launches = 0
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(np.asarray(lv).reshape(-1)[0]))
+            launches = dict(zip(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                 "flash_attn_bwd_dkv", "fused_xent_fwd"),
+                                (c.launches for c in counters)))
+            # ---- end of the main path
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            if profile:
+                train_profile(torch, exe, main, feed, loss)
+    finally:
+        fx.enable_fused_xent(False)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"AMP losses not finite and falling: {losses}")
+    n = BERT["layers_n"]
+    want = {"flash_attn_fwd": 2 * n, "flash_attn_bwd_dq": n,
+            "flash_attn_bwd_dkv": n, "fused_xent_fwd": 2}
+    for name, per_step in want.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
+                f"expected {per_step} per step")
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    tokens_s = TRAIN_BATCH * BERT["seq"] / (steady / 1e3)
+    log({"phase": "train", "config": "bert-base pretrain, AMP bf16, "
+         "flash + fused CE", "batch": TRAIN_BATCH, "seq": BERT["seq"],
+         "params": n_params, "losses": losses, "step_ms": step_ms,
+         "median_step_ms": steady, "tokens_per_s": tokens_s,
+         "mfu": 6.0 * n_params * tokens_s / PEAK_FLOPS["bfloat16"],
+         "launches": launches, "peak_gpu_mem_gb": peak_gb})
+    return launches
+
+
+def train_profile(torch, exe, main, feed, loss):
+    """Where a training step's time goes: device time by kernel and the
+    device's idle share over one step (torch.profiler), then the host
+    time of each op role and the costliest op types over another step
+    (host clock around each op's dispatch, no synchronisation: the device
+    runs behind)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.static import executor as executor_mod
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exe.run(main, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:15]
+
+    roles = {0: "forward", 256: "forward", 257: "forward", 1: "backward",
+             2: "optimize"}
+    host_ms, by_type = {}, {}
+    run_op = executor_mod._run_op
+
+    def timed(op, env, ctx):
+        t = time.perf_counter()
+        run_op(op, env, ctx)
+        dt = (time.perf_counter() - t) * 1e3
+        role = roles.get(op.attrs.get("op_role", 0), "other")
+        host_ms[role] = host_ms.get(role, 0.0) + dt
+        n, ms = by_type.get(op.type, (0, 0.0))
+        by_type[op.type] = (n + 1, ms + dt)
+
+    executor_mod._run_op = timed
+    try:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss])
+        step_host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        executor_mod._run_op = run_op
+    log({"phase": "train_profile", "step_wall_ms_under_profiler": wall_ms,
+         "device_busy_ms": busy_ms,
+         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+         "top_device_ms": [[e.key[:80], e.count,
+                            e.self_device_time_total / 1e3] for e in top],
+         "step_ms_op_timed": step_host_ms, "host_ms_by_role": host_ms,
+         "top_host_ms_by_op_type": sorted(
+             ([t, n, ms] for t, (n, ms) in by_type.items()),
+             key=lambda r: -r[2])[:12]})
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one served batch")
+                    help="also profile one served batch and one training "
+                    "step")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -338,6 +722,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.core import kernel_build
     from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
     # fp32 means fp32 here: no TF32 in the plain versions or the
     # score-matrix program
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -353,29 +738,43 @@ def main():
          "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    kernel_build.load_library("flash_attn_fwd")
-    secs, out = kernel_build.build_log("flash_attn_fwd")
-    log({"phase": "build", "kernel": "flash_attn_fwd", "nvcc_s": secs,
-         "load_s": time.perf_counter() - t0,
-         "ptxas": [ln.strip() for ln in out.splitlines()
-                   if "registers" in ln or "spill" in ln]})
+    kernel_build.build_libraries(KERNEL_SOURCES)  # one nvcc each, at once
+    for name in KERNEL_SOURCES:
+        kernel_build.load_library(name)
+        secs, out = kernel_build.build_log(name)
+        log({"phase": "build", "kernel": name, "nvcc_s": secs,
+             "ptxas": [ln.strip() for ln in out.splitlines()
+                       if "entry function" in ln or "registers" in ln
+                       or "spill" in ln]})
+    log({"phase": "build", "build_and_load_s": time.perf_counter() - t0})
 
-    cases = kernel_phase(torch, attn)
+    fwd = kernel_phase(torch, attn)
+    bwd = bwd_kernel_phase(torch, attn)
+    xent = xent_kernel_phase(torch, fx)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = slice_phase(torch, args.seed, tmp, args.profile)
+        serve_launches = slice_phase(torch, args.seed, tmp, args.profile)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches = train_phase(torch, args.seed, args.profile)
 
-    s = cases["slice_fp32"]
-    log({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "paddle_tpu/ops/attention.py:125",
-        "launches": launches, "max_abs_err": s["max_abs_err"],
-        "ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
-        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": s["library_ms"]}]})
+    # each kernel at the training shape: [8, 12, 512, 64] attention in
+    # bf16 (the AMP program's dtype), [4096, 30522] bf16 logits
+    rows = {"flash_attn_fwd": fwd["slice_bf16"],
+            "flash_attn_bwd_dq": bwd["slice_bf16"]["dq"],
+            "flash_attn_bwd_dkv": bwd["slice_bf16"]["dkv"],
+            "fused_xent_fwd": xent["train_bf16"]}
+    summary = []
+    for name, r in rows.items():
+        source, replaces = KERNELS[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    summary[0]["launches_serving_path"] = serve_launches
+    log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -6,6 +6,7 @@ interface.  At first use it is compiled with nvcc for Hopper
 `<checkout>/build/paddle_tpu_torch/`, named by a hash of the source and the
 flags, and loaded with ctypes.  Nothing is built at import time, and a
 failed build raises with nvcc's output; there is no fallback.
+`build_libraries` compiles several sources at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -16,10 +17,10 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc",
-           "build_library", "load_library", "build_log"]
+           "build_libraries", "load_library", "build_log"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -50,28 +51,42 @@ def find_nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def build_library(name: str) -> str:
-    """Compile csrc/<name>.cu (if not already built) and return the path
-    of the shared library."""
+def _target(name: str) -> Tuple[str, str]:
+    """(source path, library path named by a hash of source and flags)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        _log.setdefault(name, (0.0, ""))
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {src} failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    _log[name] = (dt, proc.stdout + proc.stderr)
-    return out
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build_libraries(names: Sequence[str]) -> List[str]:
+    """Compile csrc/<name>.cu for every name not built yet, all nvcc
+    processes running at once, and return the libraries' paths."""
+    targets = [_target(n) for n in names]
+    jobs = []
+    for name, (src, out) in zip(names, targets):
+        if os.path.exists(out):
+            _log.setdefault(name, (0.0, ""))
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        jobs.append((name, src, out, tmp, cmd, time.perf_counter(),
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, src, out, tmp, cmd, t0, proc in jobs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"building {src} failed ({' '.join(cmd)}):\n"
+                          f"{text}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
+        _log[name] = (time.perf_counter() - t0, text)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [out for _, out in targets]
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -79,7 +94,7 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_library(name))
+            lib = ctypes.CDLL(build_libraries([name])[0])
             _loaded[name] = lib
         return lib
 

@@ -1,2 +1,2 @@
 """Model builders of the port."""
-from .bert_static import build_bert_base  # noqa: F401
+from .bert_static import build_bert_base, build_bert_pretrain  # noqa: F401

@@ -1,5 +1,5 @@
-"""Attention: the flash-attention forward (hand-written Hopper kernel) and
-the plain score-matrix path.
+"""Attention: flash attention forward and backward (hand-written Hopper
+kernels) and the plain score-matrix path.
 
 Counterpart of paddle_tpu/ops/attention.py.  The flash dispatch flags
 (`enable_flash_attention`, `set_flash_min_seq_len`, `use_flash_for`) are
@@ -13,6 +13,13 @@ the same branch op for op.
     algorithm written in PyTorch: a loop over 64-row K/V tiles with the
     same mask and fully-masked-row semantics.  The CPU tests use it, and
     chip_smoke.py holds the kernel against it.
+
+The call is a `torch.autograd.Function` (counterpart of the JAX package's
+`jax.custom_vjp`): its forward saves out and lse, its backward computes
+D = rowsum(dO * O) as a torch op and then runs the two backward kernels
+of csrc/flash_attn_bwd.cu, dQ and dK/dV (replacing `_flash_bwd_dq_kernel`
+and `_flash_bwd_dkv_kernel`), or on the CPU their plain version
+`flash_attention_bwd_plain`.
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -31,6 +38,9 @@ import math
 import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda",
            "reference_attention", "enable_flash_attention", "use_flash_for",
            "set_flash_min_seq_len", "FLASH_HEAD_DIMS"]
 
@@ -41,6 +51,7 @@ _FLASH_STATE = {"mode": "auto", "min_seq_len": 8192}
 
 FLASH_HEAD_DIMS = (32, 64, 128)
 _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
+_BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -193,27 +204,248 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
     return out, lse
 
 
+def _bwd_tiles(q, k, v, do, lse, dd, causal, scale):
+    """fp32 operands and a function giving P and dS of one (q rows, keys)
+    tile: P recomputed from q, k and lse (0 on rows whose lse is -inf),
+    dS = P * (dP - D)."""
+    sq, sk = q.shape[2], k.shape[2]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    live = torch.isfinite(lse)[..., None]                 # [B, H, Sq, 1]
+    safe_lse = torch.where(live, lse[..., None],
+                           torch.zeros_like(lse)[..., None])
+    ddc = dd[..., None]
+
+    def tile(q0, q1, k0, k1):
+        s = torch.matmul(qf[:, :, q0:q1],
+                         kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)[:, None] + (sk - sq)
+            kpos = torch.arange(k0, k1, device=q.device)[None]
+            s = s.masked_fill(qpos < kpos, -math.inf)
+        p = torch.where(live[:, :, q0:q1],
+                        torch.exp(s - safe_lse[:, :, q0:q1]),
+                        torch.zeros_like(s))
+        dp = torch.matmul(dof[:, :, q0:q1], vf[:, :, k0:k1].transpose(-1, -2))
+        return p, p * (dp - ddc[:, :, q0:q1])
+
+    return qf, kf, dof, tile
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, dd, causal=False,
+                                 scale=None):
+    """The dQ kernel written in PyTorch: a loop over 64-row K/V tiles,
+    dQ += scale * dS k, fp32 throughout.  `dd` is D = rowsum(dO * O)
+    [B, H, Sq] fp32.  Returns dq in the input dtype."""
+    scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
+    sq, sk = q.shape[2], k.shape[2]
+    _, kf, _, tile = _bwd_tiles(q, k, v, do, lse, dd, causal, scale)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, _BLOCK_K):
+        k1 = min(k0 + _BLOCK_K, sk)
+        _, ds = tile(0, sq, k0, k1)
+        dq = dq + torch.matmul(ds, kf[:, :, k0:k1]) * scale
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, dd, causal=False,
+                                  scale=None):
+    """The dK/dV kernel written in PyTorch: a loop over 64-row q tiles,
+    dV += P^T dO and dK += scale * dS^T q, fp32 throughout.  Returns
+    (dk, dv) in the input dtype."""
+    scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
+    sq, sk = q.shape[2], k.shape[2]
+    qf, _, dof, tile = _bwd_tiles(q, k, v, do, lse, dd, causal, scale)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, sq, _BLOCK_Q):
+        q1 = min(q0 + _BLOCK_Q, sq)
+        p, ds = tile(q0, q1, 0, sk)
+        dv = dv + torch.matmul(p.transpose(-1, -2), dof[:, :, q0:q1])
+        dk = dk + torch.matmul(ds.transpose(-1, -2), qf[:, :, q0:q1]) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, do, lse, dd, causal=False,
+                              scale=None):
+    """Both backward kernels' plain versions: (dq, dk, dv)."""
+    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, dd, causal, scale)
+    return (dq,) + flash_attention_bwd_dkv_plain(q, k, v, do, lse, dd,
+                                                 causal, scale)
+
+
+def _bwd_kernel_lib():
+    from ..core.kernel_build import load_library
+    lib = load_library("flash_attn_bwd")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        tail = [i] * 6 + [ll] * 12 + [i, ctypes.c_float, p]
+        lib.flash_attn_bwd_dq.argtypes = [p] * 7 + tail
+        lib.flash_attn_bwd_dkv.argtypes = [p] * 8 + tail
+        lib.flash_attn_bwd_dq.restype = i
+        lib.flash_attn_bwd_dkv.restype = i
+        lib.flash_attn_bwd_error_string.argtypes = [i]
+        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _check_bwd_args(q, k, v, do, lse, dd):
+    if not q.is_cuda:
+        raise ValueError(f"the flash backward kernels need CUDA tensors, "
+                         f"got {q.device}")
+    _check_cuda_args(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(3) != 1:
+        raise ValueError(f"flash backward: dO must match q {tuple(q.shape)} "
+                         f"{q.dtype} with a contiguous head dim, got "
+                         f"{tuple(do.shape)} {do.dtype} strides "
+                         f"{do.stride()}")
+    for name, t in (("lse", lse), ("D", dd)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"flash backward: {name} must be a contiguous "
+                             f"fp32 [B, H, Sq] tensor, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if not (do.device == lse.device == dd.device == q.device):
+        raise ValueError("flash backward: inputs on different devices")
+
+
+def _bwd_launch(fn, outs, q, k, v, do, lse, dd, causal, scale):
+    lib = _bwd_kernel_lib()
+    b, h, sq, d = q.shape
+    strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), *[t.data_ptr() for t in outs],
+            _DTYPE_CODE[q.dtype], b, h, sq, k.shape[2], d, *strides,
+            int(bool(causal)), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn} launch failed: CUDA error {err} "
+            f"({lib.flash_attn_bwd_error_string(err).decode()})")
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd, causal=False,
+                                scale=None):
+    """Launch the dQ kernel (csrc/flash_attn_bwd.cu) on CUDA tensors."""
+    _check_bwd_args(q, k, v, do, lse, dd)
+    scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or k.shape[2] == 0:
+        return dq.zero_()
+    _bwd_launch("flash_attn_bwd_dq", (dq,), q, k, v, do, lse, dd, causal,
+                scale)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd, causal=False,
+                                 scale=None):
+    """Launch the dK/dV kernel (csrc/flash_attn_bwd.cu) on CUDA tensors."""
+    _check_bwd_args(q, k, v, do, lse, dd)
+    scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel() == 0 or q.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    _bwd_launch("flash_attn_bwd_dkv", (dk, dv), q, k, v, do, lse, dd,
+                causal, scale)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
+    """(dq, dk, dv) of flash attention from the saved out and lse: D =
+    rowsum(dO * O) in fp32 (a torch op, as the JAX package leaves it to
+    XLA), then the dQ and dK/dV kernels on CUDA tensors, their plain
+    version on CPU tensors."""
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dd = (do.float() * out.float()).sum(-1)
+    if q.is_cuda:
+        dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd, causal, scale)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd, causal,
+                                              scale)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, lse, dd, causal, scale)
+    raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+
+
+def _flash_fwd(q, k, v, causal, scale):
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward kernels (the port's counterpart
+    of `jax.custom_vjp` around `_flash`).  New-style forward /
+    setup_context, so torch.func.vjp (the grad ops' replay) reaches the
+    backward."""
+
+    @staticmethod
+    def forward(q, k, v, causal, scale):
+        return _flash_fwd(q, k, v, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, g_out,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """The backward kernels as a Function of their own.  Inside
+    torch.func.vjp, `_FlashAttention.backward` is handed functorch's
+    wrapper tensors, which have no data pointer for a kernel; a Function's
+    forward is handed the plain tensors underneath.  Not differentiable
+    (the JAX package's Pallas backward has no grad either)."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, do, causal, scale):
+        return flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no double backward")
+
+
 def flash_attention(q, k, v, bias=None, causal=False, scale=None,
                     return_lse=False):
-    """Flash attention over [B, H, S, D] tensors.  `bias` forces the
-    score-matrix path (as in paddle_tpu).  Mixed q/k/v dtypes promote to
-    a common dtype first.  CUDA tensors go to the Hopper kernel, CPU
-    tensors to its plain version; any other device raises."""
+    """Flash attention over [B, H, S, D] tensors, differentiable.  `bias`
+    forces the score-matrix path (as in paddle_tpu).  Mixed q/k/v dtypes
+    promote to a common dtype first.  CUDA tensors go to the Hopper
+    kernels, CPU tensors to their plain versions; any other device
+    raises."""
     if bias is not None:
         return reference_attention(q, k, v, bias=bias, causal=causal,
                                    scale=scale)
     cdt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     q, k, v = q.to(cdt), k.to(cdt), v.to(cdt)
-    if q.is_cuda:
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    else:
-        raise RuntimeError(f"flash_attention: no kernel for device "
-                           f"{q.device}")
+    scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else float(scale)
+    out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale)
     return (out, lse) if return_lse else out
 
 
-# launches of the Hopper kernel in this process (plain integer; callers
-# reset it to 0 around the run they want to count)
+# launches of each Hopper kernel in this process (plain integers; callers
+# reset them to 0 around the run they want to count)
 flash_attention.launches = 0
+flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.launches = 0

@@ -9,4 +9,7 @@ from . import (  # noqa: F401
     manip,
     nn,
     random,
+    loss,
+    optimizers,
+    amp,
 )

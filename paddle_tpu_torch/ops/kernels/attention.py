@@ -18,10 +18,13 @@ def _infer_flash(ins, attrs):
 
 
 @register_op("flash_attention", inputs=["Q", "K", "V"], outputs=["Out"],
-             infer_shape=_infer_flash)
+             grad="auto", infer_shape=_infer_flash)
 def flash_attention_op(ins, attrs, ctx):
     """Q/K/V: [B, H, S, D].  CUDA tensors launch the Hopper kernel
-    (csrc/flash_attn_fwd.cu), CPU tensors run its plain version."""
+    (csrc/flash_attn_fwd.cu), CPU tensors run its plain version.  The
+    grad op flash_attention_grad replays this under torch.func.vjp, which
+    reaches the backward kernels (csrc/flash_attn_bwd.cu) through the
+    autograd Function of ops/attention.py."""
     return {"Out": flash_attention(ins["Q"], ins["K"], ins["V"],
                                    causal=attrs.get("causal", False))}
 

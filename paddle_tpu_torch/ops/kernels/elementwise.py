@@ -1,7 +1,10 @@
-"""elementwise_add with Paddle's `axis` broadcast: Y's dims align to X's
-starting at `axis` (axis=-1 means numpy-style trailing alignment).
+"""elementwise_add and elementwise_mul with Paddle's `axis` broadcast:
+Y's dims align to X's starting at `axis` (axis=-1 means numpy-style
+trailing alignment).
 Counterpart of paddle_tpu/ops/kernels/elementwise.py."""
 from __future__ import annotations
+
+import torch
 
 from ..registry import register_op
 
@@ -16,7 +19,13 @@ def _broadcast_y(x, y, axis):
     return y
 
 
-@register_op("elementwise_add", inputs=["X", "Y"], outputs=["Out"])
-def elementwise_add(ins, attrs, ctx):
-    x, y = ins["X"], ins["Y"]
-    return {"Out": x + _broadcast_y(x, y, attrs.get("axis", -1))}
+def _ew(name, fn):
+    @register_op(name, inputs=["X", "Y"], outputs=["Out"])
+    def kernel(ins, attrs, ctx):
+        x, y = ins["X"], ins["Y"]
+        return {"Out": fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))}
+    return kernel
+
+
+elementwise_add = _ew("elementwise_add", torch.add)
+elementwise_mul = _ew("elementwise_mul", torch.mul)

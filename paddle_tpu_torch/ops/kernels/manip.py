@@ -1,5 +1,5 @@
-"""Tensor manipulation ops of the slice: reshape2, transpose2,
-fill_constant.  Counterparts of paddle_tpu/ops/kernels/manip.py.
+"""Tensor manipulation ops of the slices: reshape2, transpose2,
+fill_constant, cast.  Counterparts of paddle_tpu/ops/kernels/manip.py.
 
 transpose2 returns a strided view (no copy); the flash kernel reads the
 [B, H, S, D] view through its strides, and the reshape that follows the
@@ -58,3 +58,8 @@ def fill_constant(ins, attrs, ctx):
     if isinstance(value, str):
         value = float(value)
     return {"Out": torch.full(shape, value, dtype=dt, device=ctx.device)}
+
+
+@register_op("cast", inputs=["X"], outputs=["Out"])
+def cast(ins, attrs, ctx):
+    return {"Out": ins["X"].to(torch_dtype(attrs["out_dtype"]))}

@@ -1,4 +1,4 @@
-"""Math ops of the slice: matmul, mul, scale.
+"""Math ops of the slices: matmul, mul, scale, sum, mean.
 
 Counterparts of paddle_tpu/ops/kernels/math.py.  Large products go to
 torch.matmul, as the JAX package leaves them to XLA.  A float32 product
@@ -46,3 +46,19 @@ def scale(ins, attrs, ctx):
     if attrs.get("bias_after_scale", True):
         return {"Out": x * s + b}
     return {"Out": (x + b) * s}
+
+
+@register_op("sum", inputs=["X*"], outputs=["Out"])
+def sum_op(ins, attrs, ctx):
+    """Elementwise sum of the inputs (append_backward accumulates the
+    gradient pieces of a var with it)."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("mean", inputs=["X"], outputs=["Out"])
+def mean(ins, attrs, ctx):
+    return {"Out": ins["X"].mean()}

@@ -6,9 +6,15 @@ executor calls it eagerly on the executor's device.  Slot declarations use
 the same string spec ("X*" duplicable, "X?" optional, "X!" no-grad), so
 op descriptions read the same in both packages.
 
-Not ported yet: the auto-derived `<type>_grad` ops (the JAX package builds
-them with `jax.vjp`); they come with the training slice.  `grad=` is
-accepted and recorded so registrations mirror the reference.
+Gradient ops are auto-derived as in the JAX package: registering `foo`
+with grad="auto" also registers `foo_grad`, whose kernel is
+`torch.func.vjp` of the forward kernel (the JAX package uses `jax.vjp`),
+and one level of grad-of-grad (`foo_grad_grad`).  The grad kernel REPLAYS
+the forward to get its vjp.  Inside the JAX package's whole-block jit,
+XLA CSE merges the replay with the original forward; the eager port has
+no such merge, so each grad op runs its forward a second time (PERF.md
+records the cost).  Ops whose kernel is a hand-written CUDA kernel wrap it
+in a `torch.autograd.Function`, so the vjp reaches their backward kernels.
 
 RNG: `OpContext.generator(attrs)` returns a `torch.Generator`
 seeded from the op's seed attr (or the step seed) folded with the op's
@@ -87,6 +93,13 @@ class OpInfo:
         self.side_effect = side_effect
         self.infer_shape = infer_shape
 
+    @property
+    def has_grad(self):
+        return self.grad is not None
+
+    def grad_op_type(self):
+        return self.type + "_grad"
+
 
 _REGISTRY: Dict[str, OpInfo] = {}
 
@@ -102,11 +115,162 @@ def all_ops() -> List[str]:
 def register_op(type: str, inputs: Sequence, outputs: Sequence,
                 grad: Any = "auto", side_effect: bool = False,
                 infer_shape: Optional[Callable] = None):
-    """Decorator: register a forward kernel."""
+    """Decorator: register a forward kernel.
+
+    grad: "auto"  -> derive `<type>_grad` via torch.func.vjp of this kernel
+          None    -> op is non-differentiable
+          callable-> explicit grad kernel(ins, attrs, ctx) following the
+                     slot convention below."""
 
     def deco(fn):
-        _REGISTRY[type] = OpInfo(type, fn, inputs, outputs, grad,
-                                 side_effect, infer_shape)
+        info = OpInfo(type, fn, inputs, outputs, grad, side_effect,
+                      infer_shape)
+        _REGISTRY[type] = info
+        if grad is not None:
+            _register_grad(info)
         return fn
 
     return deco
+
+
+# ---------------------------------------------------------------------------
+# auto-generated gradient ops (paddle_tpu/ops/registry.py:168-302)
+# ---------------------------------------------------------------------------
+# Grad op slot convention (the JAX package's, the reference's default
+# GradOpMaker):
+#   inputs : every forward input slot (same names), every forward output
+#            slot, and "<out>@GRAD" for every forward output slot
+#   outputs: "<in>@GRAD" for every forward input slot with no_grad=False
+# `depth` registers grads-of-grads one level deep (foo_grad_grad).
+def _register_grad(fwd: OpInfo, depth: int = 1):
+    gtype = fwd.grad_op_type()
+    g_inputs = ([Slot(s.name, s.duplicable, True, s.no_grad)
+                 for s in fwd.inputs]
+                + [Slot(s.name, s.duplicable, True, s.no_grad)
+                   for s in fwd.outputs]
+                + [Slot(s.name + "@GRAD", s.duplicable, True, s.no_grad)
+                   for s in fwd.outputs])
+    g_outputs = [Slot(s.name + "@GRAD", s.duplicable, True)
+                 for s in fwd.inputs if not s.no_grad]
+    kernel = fwd.grad if callable(fwd.grad) else _make_vjp_grad_kernel(fwd)
+    ginfo = OpInfo(gtype, kernel, g_inputs, g_outputs,
+                   grad=("auto" if depth > 0 else None),
+                   infer_shape=_grad_infer_shape(fwd))
+    _REGISTRY[gtype] = ginfo
+    if depth > 0:
+        _register_grad(ginfo, depth=depth - 1)
+
+
+def _is_diff(x):
+    return isinstance(x, torch.Tensor) and (x.is_floating_point()
+                                            or x.is_complex())
+
+
+def _grad_infer_shape(fwd: OpInfo):
+    """Build-time shapes of a grad op: "<in>@GRAD" has the shape and dtype
+    of the floating forward input <in> (what the JAX package's
+    jax.eval_shape of the vjp gives), without replaying the forward."""
+
+    def infer(ins, attrs):
+        outs = {}
+        for slot in fwd.inputs:
+            v = ins.get(slot.name)
+            if slot.no_grad or v is None:
+                continue
+            if slot.duplicable:
+                outs[slot.name + "@GRAD"] = [x if _is_diff(x) else None
+                                             for x in v]
+            elif _is_diff(v):
+                outs[slot.name + "@GRAD"] = v
+        return outs
+
+    return infer
+
+
+def _make_vjp_grad_kernel(fwd: OpInfo):
+    """A grad kernel that replays the forward under torch.func.vjp.
+
+    Primals are the floating inputs of slots without no_grad.  Cotangents
+    flow only through floating outputs (integer outputs are left out of
+    the vjp, as in the JAX package).  An output with no incoming gradient
+    is left out of the vjp too: the JAX package feeds it a zero cotangent,
+    which adds nothing, and leaving it out spares allocating one (the
+    [tokens, vocab] Softmax output of the fused cross-entropy among them).
+    """
+
+    def grad_kernel(ins, attrs, ctx):
+        fwd_vals = {slot.name: ins.get(slot.name) for slot in fwd.inputs}
+        diff = {}
+        for slot in fwd.inputs:
+            v = fwd_vals[slot.name]
+            if slot.no_grad or v is None:
+                continue
+            if slot.duplicable:
+                sel = {str(i): x for i, x in enumerate(v) if _is_diff(x)}
+                if sel:
+                    diff[slot.name] = sel
+            elif _is_diff(v):
+                diff[slot.name] = v
+        # the output cotangents given to this grad op, keyed like `flat`
+        cts = {}
+        for slot in fwd.outputs:
+            g = ins.get(slot.name + "@GRAD")
+            if g is None:
+                continue
+            if slot.duplicable:
+                sel = {str(i): x for i, x in enumerate(g)
+                       if x is not None and _is_diff(x)}
+                if sel:
+                    cts[slot.name] = sel
+            elif _is_diff(g):
+                cts[slot.name] = g
+
+        attrs2 = dict(attrs)
+        attrs2.setdefault("fwd_uid", attrs.get("op_uid", 0))
+
+        def forward(diff_ins):
+            merged = dict(fwd_vals)
+            for name, v in diff_ins.items():
+                if isinstance(v, dict):  # duplicable: realign by position
+                    xs = list(fwd_vals[name])
+                    for k, x in v.items():
+                        xs[int(k)] = x
+                    v = xs
+                merged[name] = v
+            outs = fwd.kernel(merged, attrs2, ctx)
+            flat = {}
+            for name, ct in cts.items():
+                o = outs.get(name)
+                if o is None:
+                    continue
+                if isinstance(ct, dict):
+                    sel = {k: o[int(k)] for k in ct if _is_diff(o[int(k)])}
+                    if sel:
+                        flat[name] = sel
+                elif _is_diff(o):
+                    flat[name] = o
+            return flat
+
+        if not diff:
+            return {}
+        outs, vjp_fn = torch.func.vjp(forward, diff)
+        if outs:
+            (din,) = vjp_fn({
+                name: ({k: cts[name][k] for k in o} if isinstance(o, dict)
+                       else cts[name]) for name, o in outs.items()})
+        else:  # no gradient reaches this op's outputs
+            din = {n: ({k: torch.zeros_like(x) for k, x in v.items()}
+                       if isinstance(v, dict) else torch.zeros_like(v))
+                   for n, v in diff.items()}
+        result = {}
+        for name, g in din.items():
+            if isinstance(g, dict):  # duplicable: back to a positional list
+                full = [None] * len(fwd_vals[name])
+                for k, x in g.items():
+                    full[int(k)] = x
+                g = full
+            result[name + "@GRAD"] = g
+        return result
+
+    return grad_kernel
+

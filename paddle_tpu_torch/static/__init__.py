@@ -1,6 +1,6 @@
-"""paddle_tpu_torch.static — Program construction, the BERT-encoder layer
-subset, and the eager executor (the `paddle.static` surface of the
-ported slice)."""
+"""paddle_tpu_torch.static — Program construction, the BERT layer subset,
+append_backward, the Adam optimizer and the eager executor (the
+`paddle.static` surface of the ported slices)."""
 from ..core.program import (  # noqa: F401
     Program, Block, OpDesc, VarDesc, OpRole, default_main_program,
     default_startup_program, program_guard, name_scope, unique_name,
@@ -18,3 +18,6 @@ from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import nets  # noqa: F401
 from .layers import data  # noqa: F401
+from .backward import append_backward, gradients  # noqa: F401
+from . import optimizer  # noqa: F401
+from .optimizer import Optimizer, Adam, AdamOptimizer  # noqa: F401

@@ -1,0 +1,219 @@
+"""append_backward: graph-level reverse-mode autodiff by op rewriting.
+
+Counterpart of paddle_tpu/static/backward.py (`append_backward`,
+`gradients`, `grad_var_name`).  Walks the block's ops in reverse,
+appending each op's `<type>_grad` op (slot convention of
+ops/registry.py), and accumulates the gradient pieces of a var that
+feeds several ops with a `sum` op.  The rewrite is the same as the JAX
+package's, so a training program built here serializes equal to one
+built there.
+
+Not ported yet: recompute (`checkpoints=`, FLAGS_recompute), which raises
+NotImplementedError and comes with a later slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set
+
+from ..core.program import Block, OpDesc, Program, VarDesc, OpRole, unique_name
+from ..ops.registry import get_op_info
+
+__all__ = ["append_backward", "grad_var_name", "gradients"]
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
+def _requires_grad_vars(block: Block, ops: List[OpDesc]) -> Set[str]:
+    """Forward sweep: vars that (transitively) depend on a trainable param
+    or a non-stop-gradient data var."""
+    req: Set[str] = set()
+    for v in block.program.global_block().vars.values():
+        if (v.is_parameter and v.trainable) or \
+                (v.is_data and not v.stop_gradient):
+            req.add(v.name)
+    for v in block.vars.values():
+        if v.is_data and not v.stop_gradient:
+            req.add(v.name)
+    for op in ops:
+        info = get_op_info(op.type)
+        if info is None or not info.has_grad:
+            continue
+        if any(n in req for slot in info.inputs if not slot.no_grad
+               for n in op.inputs.get(slot.name, [])):
+            for n in op.output_names():
+                try:
+                    if not block.var(n).stop_gradient:
+                        req.add(n)
+                except KeyError:
+                    req.add(n)
+    return req
+
+
+def _find_loss_op_idx(block: Block, loss_name: str) -> int:
+    for i in range(len(block.ops) - 1, -1, -1):
+        if loss_name in block.ops[i].output_names():
+            return i
+    raise ValueError(f"loss var {loss_name!r} is not produced in this block")
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
+    """Append grad ops for `loss` to its program; returns
+    [(param VarDesc, grad VarDesc)].
+
+    `checkpoints` (recompute) is not ported: a non-empty list, or
+    FLAGS_recompute set, raises NotImplementedError."""
+    from ..core.flags import flag
+    recompute = str(flag("recompute", "") or "").strip().lower()
+    if checkpoints or (checkpoints is None and recompute not in
+                       ("", "0", "off", "false", "none")):
+        raise NotImplementedError(
+            "append_backward with recompute (checkpoints= or "
+            "FLAGS_recompute) comes with a later slice of the port "
+            "(ROADMAP.md)")
+    block = loss.block
+    if block is None:
+        from ..core.program import default_main_program
+        block = default_main_program().global_block()
+    program: Program = block.program
+    loss_name = loss.name
+    no_grad = set(no_grad_set or ())
+
+    loss_idx = _find_loss_op_idx(block, loss_name)
+    fwd_ops = block.ops[: loss_idx + 1]
+    req = _requires_grad_vars(block, fwd_ops) - no_grad
+
+    # mark the loss op (op_role Loss), as the reference does
+    block.ops[loss_idx].attrs[OpRole.KEY] = int(OpRole.Forward | OpRole.Loss)
+
+    with program._op_role_guard(OpRole.Backward):
+        # seed: d loss / d loss = 1
+        g_loss = block.create_var(
+            name=grad_var_name(loss_name), shape=loss.shape,
+            dtype=loss.dtype, stop_gradient=True)
+        if loss.shape is not None and all(d is not None and d >= 0
+                                          for d in loss.shape):
+            block.append_op(
+                "fill_constant", outputs={"Out": g_loss},
+                attrs={"shape": list(loss.shape), "dtype": loss.dtype,
+                       "value": 1.0, OpRole.KEY: OpRole.Backward})
+        else:
+            raise NotImplementedError(
+                f"append_backward: loss {loss_name!r} has a dynamic shape "
+                f"{loss.shape}; seeding it needs fill_any_like, not ported "
+                "yet")
+
+        # pending grad pieces per var: var -> [grad piece names]
+        pending: Dict[str, List[str]] = {loss_name: [g_loss.name]}
+        grad_map: Dict[str, str] = {}
+
+        def _settle(name: str) -> Optional[str]:
+            """Collapse the accumulated grad pieces of `name` into one
+            var (a `sum` op when there are several)."""
+            pieces = pending.get(name)
+            if not pieces:
+                return None
+            if len(pieces) == 1:
+                grad_map[name] = pieces[0]
+                return pieces[0]
+            out = grad_var_name(name)
+            if out in pieces or block.has_var(out):
+                out = unique_name(grad_var_name(name) + "@SUM")
+            block.create_var(name=out, stop_gradient=False)
+            block.append_op("sum", inputs={"X": list(pieces)},
+                            outputs={"Out": out})
+            pending[name] = [out]
+            grad_map[name] = out
+            return out
+
+        for op in reversed(fwd_ops):
+            info = get_op_info(op.type)
+            if info is None or not info.has_grad:
+                continue
+            out_has_grad = any(n in pending for n in op.output_names())
+            in_requires = any(
+                n in req for slot in info.inputs if not slot.no_grad
+                for n in op.inputs.get(slot.name, []))
+            if not (out_has_grad and in_requires):
+                continue
+
+            g_inputs: Dict[str, List[str]] = {}
+            for slot in info.inputs:
+                names = op.inputs.get(slot.name, [])
+                if names:
+                    g_inputs[slot.name] = list(names)
+            for slot in info.outputs:
+                names = op.outputs.get(slot.name, [])
+                if names:
+                    g_inputs[slot.name] = list(names)
+                    gnames = [_settle(n) or "" for n in names]
+                    if any(gnames):
+                        g_inputs[slot.name + GRAD_SUFFIX] = gnames
+
+            g_outputs: Dict[str, List[str]] = {}
+            for slot in info.inputs:
+                if slot.no_grad:
+                    continue
+                outs = []
+                for n in op.inputs.get(slot.name, []):
+                    if n not in req or n in no_grad:
+                        outs.append("")
+                        continue
+                    piece = unique_name(grad_var_name(n))
+                    block.create_var(name=piece, stop_gradient=False)
+                    pending.setdefault(n, []).append(piece)
+                    outs.append(piece)
+                if any(outs):
+                    g_outputs[slot.name + GRAD_SUFFIX] = outs
+
+            if not g_outputs:
+                continue
+            gop = block.append_op(info.grad_op_type(), g_inputs, g_outputs,
+                                  attrs=dict(op.attrs))
+            gop.attrs[OpRole.KEY] = OpRole.Backward
+            gop.attrs["fwd_uid"] = op.attrs.get("op_uid", 0)
+
+        # settle every remaining pending var (params & inputs)
+        for name in list(pending):
+            _settle(name)
+
+    program._grad_map.update(grad_map)
+
+    if parameter_list is not None:
+        params = [p if isinstance(p, VarDesc) else
+                  program.global_block().var(p) for p in parameter_list]
+    else:
+        params = [p for p in program.all_parameters() if p.trainable]
+    result = []
+    for p in params:
+        g = grad_map.get(p.name)
+        if g is None:
+            continue
+        gv = block.var(g)
+        gv.shape = p.shape
+        gv.dtype = gv.dtype or p.dtype
+        result.append((p, gv))
+    return result
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """fluid.gradients: grads of one target w.r.t. arbitrary inputs."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if len(targets) != 1:
+        raise ValueError("gradients(): a single target is supported")
+    if target_gradients is not None:
+        raise NotImplementedError("gradients(target_gradients=...) is not "
+                                  "ported yet")
+    append_backward(targets[0], parameter_list=None, no_grad_set=no_grad_set)
+    block = targets[0].block
+    program = block.program
+    outs = []
+    for x in inputs:
+        g = program._grad_map.get(x.name)
+        outs.append(block.var(g) if g else None)
+    return outs

@@ -11,6 +11,13 @@ only bounded retraces) have no counterpart: a batch runs at its own size.
 `Executor(place=None)` runs on CUDAPlace(0) and raises when no CUDA device
 is present; pass CPUPlace() to run on the CPU.
 
+A training program runs the same way: its grad ops are ops like any other
+(each replays its forward under torch.func.vjp), the optimizer ops'
+outputs are bound to the persistable names they write, and every
+persistable the run wrote goes back to the scope.  Grad vars can be
+fetched by name.  Nothing reads a device value back to the host unless
+it is fetched.
+
 Not ported yet: CompiledProgram dispatch, `run_steps`, checkpoint hooks,
 per-step telemetry (later slices, ROADMAP.md).
 """
@@ -153,7 +160,11 @@ class Executor:
         fetch_names = [f.name if hasattr(f, "name") else str(f)
                        for f in (fetch_list or [])]
         block = program.global_block()
-        with torch.inference_mode():
+        # no_grad, not inference_mode: the grad ops' torch.func.vjp needs
+        # tensors that autograd may save (it ignores an outer no_grad, but
+        # refuses inference tensors and, in some torch versions, returns
+        # zero gradients inside inference_mode)
+        with torch.no_grad():
             env = {k: v for k, v in scope.vars.items() if v is not None}
             for name, val in feed.items():
                 env[name] = self._coerce_feed(block, name, val)

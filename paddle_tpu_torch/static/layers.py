@@ -1,6 +1,6 @@
 """Static-graph layer functions: the subset of the fluid.layers API that
-the BERT encoder (`models/bert_static.py`) and the score-matrix attention
-graph use.
+the BERT encoder and its pretraining program (`models/bert_static.py`),
+the score-matrix attention graph, the optimizer and the AMP rewrite use.
 
 Each function is a copy of its namesake in paddle_tpu/static/layers.py, so
 both packages append the same ops with the same attrs, parameter names
@@ -16,8 +16,9 @@ from .initializer import Constant, Xavier
 from .layer_helper import LayerHelper
 
 __all__ = ["data", "fc", "embedding", "layer_norm", "softmax", "matmul",
-           "elementwise_add", "reshape", "transpose", "scale",
-           "fill_constant", "_binary_op"]
+           "elementwise_add", "elementwise_mul", "reshape", "transpose",
+           "scale", "fill_constant", "softmax_with_cross_entropy", "mean",
+           "cast", "create_global_var", "_binary_op"]
 
 
 def _current_block():
@@ -170,11 +171,60 @@ def _binary_op(op_type, x, y, reverse=False, axis=-1):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    out = _binary_op("elementwise_add", x, y, axis=axis)
-    if act:
-        out = LayerHelper("elementwise_add").append_activation(out, act)
+def _make_elementwise(op_type):
+    def f(x, y, axis=-1, act=None, name=None):
+        out = _binary_op(op_type, x, y, axis=axis)
+        if act:
+            out = LayerHelper(op_type).append_activation(out, act)
+        return out
+    f.__name__ = op_type
+    return f
+
+
+elementwise_add = _make_elementwise("elementwise_add")
+elementwise_mul = _make_elementwise("elementwise_mul")
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", inputs={"X": x}, outputs={"Out": out})
     return out
+
+
+def cast(x, dtype):
+    from ..core.dtype import convert_dtype
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, return_softmax=False,
+                               axis=-1, name=None):
+    helper = LayerHelper("softmax_with_cross_entropy", name=name)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": logits, "Label": label},
+                     outputs={"Softmax": softmax_out, "Loss": loss},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    helper = LayerHelper("global_var", name=name)
+    v = helper.create_global_variable(shape, dtype, persistable=persistable,
+                                      name=name)
+    Constant(value)(v, helper.startup_program.global_block())
+    return v
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

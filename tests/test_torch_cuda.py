@@ -1,5 +1,7 @@
-"""Tests of the port that need the card: the hand-written flash kernel
-against its plain version, and the GPU Predictor against the CPU one.
+"""Tests of the port that need the card: the hand-written kernels (flash
+forward, flash backward dQ and dK/dV, fused cross-entropy) against their
+plain versions, the GPU Predictor against the CPU one, and a training step
+on the GPU against the same step on the CPU.
 Marked `cuda`; each skips (inside the test) where no CUDA device is
 present.  On a GPU machine:
 
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import attention as tattn
+from paddle_tpu_torch.ops import fused_xent as tfx
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +77,114 @@ def test_gpu_predictor_matches_cpu_predictor(tmp_path):
     (got,) = create_predictor(Config(str(tmp_path))).run(feeds)
     assert tattn.flash_attention.launches == before + 2
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,dtype,causal", [
+    (2, 4, 128, 128, 64, torch.float32, False),
+    (2, 4, 96, 160, 32, torch.float32, True),
+    (2, 4, 160, 96, 128, torch.bfloat16, True),
+    (1, 2, 200, 200, 64, torch.bfloat16, False),
+])
+def test_backward_kernels_match_plain_version(b, h, sq, sk, d, dtype,
+                                              causal):
+    """Through the autograd Function (torch.func.vjp, as the grad ops run
+    it): one launch each of dQ and dK/dV, results as the plain versions.
+    Tolerance 1e-4 fp32 (summation order), 2e-2 bf16 (both round the
+    outputs to bf16; the plain version is computed in fp32)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda",
+                               generator=g).to(dtype)
+                   for s in (sq, sk, sk, sq))
+    before = (tattn.flash_attention_bwd_dq_cuda.launches,
+              tattn.flash_attention_bwd_dkv_cuda.launches)
+    with torch.no_grad():
+        _, vjp = torch.func.vjp(lambda a, b_, c: tattn.flash_attention(
+            a, b_, c, causal=causal), q, k, v)
+        grads = vjp(do)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_bwd_dq_cuda.launches,
+            tattn.flash_attention_bwd_dkv_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    out, lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    dd = (do.float() * out.float()).sum(-1)
+    ref = tattn.flash_attention_bwd_plain(q, k, v, do, lse, dd, causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(grads, ref):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("t,v,dtype,ignore", [
+    (64, 30522, torch.float32, -100),
+    (64, 30522, torch.bfloat16, 7),
+    (33, 1000, torch.float32, -1),
+])
+def test_fused_xent_kernel_matches_plain_version(t, v, dtype, ignore):
+    """Loss and lse as fused_xent_plain (tolerance 1e-4: summation order),
+    ignored rows 0, and the torch backward through the Function."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    logits = (2 * torch.randn(t, v, device="cuda", generator=g)).to(dtype)
+    label = torch.randint(0, v, (t,), device="cuda", generator=g)
+    label[::5] = ignore
+    before = tfx.fused_xent_cuda.launches
+    loss, lse = tfx.fused_xent_cuda(logits, label, ignore)
+    torch.cuda.synchronize()
+    assert tfx.fused_xent_cuda.launches == before + 1
+    ref_loss, ref_lse = tfx.fused_xent_plain(logits, label, ignore)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    assert torch.all(loss[::5] == 0)
+    _, vjp = torch.func.vjp(
+        lambda x: tfx.fused_softmax_xent(x, label, ignore), logits)
+    (grad,) = vjp(torch.ones(t, device="cuda"))
+    want = tfx.fused_xent_bwd(logits, label, ref_lse, torch.ones(t,
+                                                                device="cuda"),
+                              ignore)
+    torch.testing.assert_close(grad.float(), want.float(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_gpu_training_step_matches_cpu(tmp_path):
+    """Two Adam steps of the small pretraining program (flash and fused CE
+    on, fp32) on the GPU and on the CPU from the same weights: losses
+    within 1e-4 relative (the kernels and cuBLAS sum in other orders)."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.io import load_params_from_numpy
+    from paddle_tpu_torch.models import build_bert_pretrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prev = tattn._FLASH_STATE["mode"]
+    tattn.enable_flash_attention(True)
+    try:
+        _reset_unique_names()
+        main, startup, loss = build_bert_pretrain(
+            vocab=128, seq=64, hidden=128, layers_n=2, heads=2,
+            use_amp=False)
+    finally:
+        tattn._FLASH_STATE["mode"] = prev
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        static.Executor(static.CPUPlace()).run(startup)
+    init = {n: t.numpy().copy() for n, t in scope.vars.items()}
+    rng = np.random.RandomState(0)
+    feed = {"ids": rng.randint(0, 128, (2, 64)),
+            "pos": np.tile(np.arange(64), (2, 1)),
+            "labels": rng.randint(0, 128, (2, 64, 1))}
+    losses = {}
+    tfx.enable_fused_xent(True)
+    try:
+        for place in (static.CPUPlace(), static.CUDAPlace(0)):
+            run_scope = static.Scope()
+            load_params_from_numpy(run_scope, init, place)
+            exe = static.Executor(place)
+            with static.scope_guard(run_scope):
+                losses[str(place)] = [
+                    float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                    for _ in range(2)]
+    finally:
+        tfx.enable_fused_xent(False)
+    cpu, gpu = losses.values()
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-4)

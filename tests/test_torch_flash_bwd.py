@@ -1,0 +1,121 @@
+"""The port's flash-attention backward on the CPU (the plain versions of
+the dQ and dK/dV Hopper kernels, reached through the autograd Function)
+against `jax.vjp` of paddle_tpu's flash attention, whose backward runs the
+Pallas `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel` in interpret mode
+as tests/test_attention.py runs them.  Inputs and the output cotangent come
+from a seeded numpy RNG and go to both packages.
+
+Tolerances: fp32 atol=rtol=1e-5 (same algorithm, different summation
+order); bf16 atol=rtol=2e-2 against the reference in bf16 (the Pallas
+kernels round P and dS to bf16 before their products, the port's plain
+version keeps them fp32, and each output is rounded to bf16 once more;
+gradients here are O(1), so that is a few bf16 ulps).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import attention as jattn
+from paddle_tpu_torch.ops import attention as tattn
+
+FP32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _inputs(b, h, sq, sk, d, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, h, s, d).astype(np.float32)
+            for s in (sq, sk, sk, sq)]  # q, k, v, dO
+
+
+def _grads_both(q, k, v, g, causal, dtype="float32"):
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
+        a, b_, c, causal=causal), jq, jk, jv)
+    ref = [np.asarray(x.astype(jnp.float32)) for x in vjp(jg)]
+    tq, tk, tv, tg = (torch.from_numpy(x).to(tdt) for x in (q, k, v, g))
+    _, tvjp = torch.func.vjp(lambda a, b_, c: tattn.flash_attention(
+        a, b_, c, causal=causal), tq, tk, tv)
+    got = [x.float().numpy() for x in tvjp(tg)]
+    return ref, got
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_bwd_matches_pallas_fp32(causal, d):
+    ref, got = _grads_both(*_inputs(2, 2, 64, 64, d, seed=d), causal)
+    for tag, r, g in zip(("dq", "dk", "dv"), ref, got):
+        np.testing.assert_allclose(g, r, err_msg=tag, **FP32_TOL)
+
+
+@pytest.mark.parametrize("sq,sk", [(32, 96), (96, 32)])
+def test_flash_bwd_cross_length_causal(sq, sk):
+    """Bottom-right causal alignment with Sq != Sk both ways.  For Sq > Sk
+    the first Sq - Sk queries see no key: their dq is 0 on both sides and
+    they add nothing to dk, dv."""
+    ref, got = _grads_both(*_inputs(2, 2, sq, sk, 32, seed=5), True)
+    for tag, r, g in zip(("dq", "dk", "dv"), ref, got):
+        np.testing.assert_allclose(g, r, err_msg=tag, **FP32_TOL)
+    if sq > sk:
+        assert np.all(got[0][:, :, :sq - sk] == 0)
+
+
+def test_flash_bwd_matches_pallas_bf16():
+    ref, got = _grads_both(*_inputs(2, 2, 64, 64, 32, seed=7), False,
+                           dtype="bfloat16")
+    for tag, r, g in zip(("dq", "dk", "dv"), ref, got):
+        np.testing.assert_allclose(g, r, err_msg=tag, **BF16_TOL)
+
+
+def test_plain_dq_dkv_split_equals_whole():
+    """flash_attention_bwd_plain is the dQ and dK/dV plain versions side
+    by side; D = rowsum(dO * O) as the autograd Function computes it."""
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 40, 72, 32, 3))
+    out, lse = tattn.flash_attention_plain(q, k, v, causal=True)
+    dd = (g * out).sum(-1)
+    dq, dk, dv = tattn.flash_attention_bwd_plain(q, k, v, g, lse, dd, True)
+    torch.testing.assert_close(
+        dq, tattn.flash_attention_bwd_dq_plain(q, k, v, g, lse, dd, True),
+        rtol=0, atol=0)
+    dk2, dv2 = tattn.flash_attention_bwd_dkv_plain(q, k, v, g, lse, dd, True)
+    torch.testing.assert_close(dk, dk2, rtol=0, atol=0)
+    torch.testing.assert_close(dv, dv2, rtol=0, atol=0)
+
+
+def test_backward_kernels_get_plain_tensors_under_vjp(monkeypatch):
+    """Inside torch.func.vjp (how the grad ops run) the autograd Function's
+    backward sees functorch wrappers with no data pointer; the backward
+    kernels must still be handed plain tensors, as a CUDA launch needs
+    their addresses.  The CPU dispatch stands in for the launch here."""
+    seen = []
+    plain = tattn.flash_attention_bwd_plain
+
+    def needs_pointers(*args):
+        for t in args:
+            if isinstance(t, torch.Tensor):
+                t.data_ptr()
+        seen.append(True)
+        return plain(*args)
+
+    monkeypatch.setattr(tattn, "flash_attention_bwd_plain", needs_pointers)
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 1, 16, 16, 32, 0))
+    with torch.no_grad():
+        _, vjp = torch.func.vjp(lambda a: tattn.flash_attention(a, k, v), q)
+        (dq,) = vjp(g)
+    assert seen and dq.shape == q.shape and torch.isfinite(dq).all()
+
+
+def test_bwd_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 1, 8, 64)
+    lse, dd = torch.zeros(1, 1, 8), torch.zeros(1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tattn.flash_attention_bwd_dq_cuda(q, q, q, q, lse, dd)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tattn.flash_attention_bwd_dkv_cuda(q, q, q, q, lse, dd)
+    meta = torch.empty(1, 1, 8, 64, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        tattn.flash_attention_bwd(meta, meta, meta, meta, lse, meta)

@@ -1,0 +1,98 @@
+"""The training slice end to end on the CPU: 5 Adam steps of the BERT
+pretraining program (flash attention and fused cross-entropy on) in the
+JAX package's executor and in the port's, from the same weights and the
+same fixed batch.
+
+The reference runs `bench.build_bert_base` under paddle_tpu's Executor
+(Pallas kernels in interpret mode); its startup weights cross into the
+port with `io.load_params_from_numpy`.  Compared: the loss trace, the
+step-1 gradients of the word embedding, the first attention projection
+and the vocab fc, and every parameter after the last step.
+
+Tolerances:
+  * fp32: loss rtol 1e-5; gradients atol 1e-6 (they are <= 0.04 here);
+    final parameters atol 2e-5, because Adam divides by sqrt(v): a
+    relative gradient difference of ~1e-6 on a near-zero gradient becomes
+    a visible share of its ~lr = 1e-4 step.
+  * AMP bf16: loss rtol 1e-3 and gradients atol 1e-3 (bf16 activations,
+    rounded at different places by XLA and by torch); final parameters
+    atol 2e-3: an Adam step moves a parameter by about lr whatever the
+    gradient's size, so a near-zero gradient whose sign differs under bf16
+    rounding can move it by 2 lr a step, 1e-3 over 5 steps, with a factor
+    2 of margin for steps larger than lr.
+"""
+import numpy as np
+import pytest
+
+import bench
+import paddle_tpu.static as jstatic
+from paddle_tpu_torch import static as tstatic
+from paddle_tpu_torch.io import load_params_from_numpy
+from test_torch_train_program import build_both, fused_mode
+
+CFG = dict(vocab=1024, seq=64, hidden=128, layers_n=2, heads=2)
+BATCH = 2
+STEPS = 5
+TOL = {False: dict(loss=1e-5, grad=1e-6, param=2e-5),
+       True: dict(loss=1e-3, grad=1e-3, param=2e-3)}
+
+
+def _feed(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"ids": rng.randint(0, CFG["vocab"], (BATCH, CFG["seq"])),
+            "pos": np.tile(np.arange(CFG["seq"]), (BATCH, 1)),
+            "labels": rng.randint(0, CFG["vocab"], (BATCH, CFG["seq"], 1))}
+
+
+def _train(exe, scope_guard, scope, main, loss, feed, grads):
+    """STEPS runs; returns (losses, step-1 grads)."""
+    losses, first = [], None
+    with scope_guard(scope):
+        for i in range(STEPS):
+            out = exe.run(main, feed=feed,
+                          fetch_list=[loss] + (grads if i == 0 else []))
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if i == 0:
+                first = [np.asarray(g, np.float32) for g in out[1:]]
+    return np.asarray(losses), first
+
+
+@pytest.mark.parametrize("use_amp", [False, True])
+def test_training_matches_reference(use_amp):
+    feed = {k: v.astype(np.int64) for k, v in _feed().items()}
+    with fused_mode(True):  # the fused path is chosen when ops run
+        (jm, js, jl), (tm, ts, tl) = build_both(use_amp, **CFG)
+        checked = ["embedding_0.w_0", "fc_0.w_0",
+                   f"fc_{6 * CFG['layers_n']}.w_0"]
+        grads = [jm._grad_map[n] for n in checked]
+        assert grads == [tm._grad_map[n] for n in checked]
+
+        jscope, jexe = jstatic.Scope(), jstatic.Executor()
+        with jstatic.scope_guard(jscope):
+            jexe.run(js)
+        names = [n for n in jscope.vars
+                 if jscope.find_var(n).get_tensor() is not None]
+        init = {n: np.asarray(jscope.find_var(n).get_tensor())
+                for n in names}
+        tscope = tstatic.Scope()
+        load_params_from_numpy(tscope, init, tstatic.CPUPlace())
+
+        jloss, jgrads = _train(jexe, jstatic.scope_guard, jscope, jm, jl,
+                               feed, grads)
+        tloss, tgrads = _train(tstatic.Executor(tstatic.CPUPlace()),
+                               tstatic.scope_guard, tscope, tm, tl, feed,
+                               grads)
+    tol = TOL[use_amp]
+    assert np.all(np.isfinite(tloss)) and tloss[-1] < tloss[0]
+    np.testing.assert_allclose(tloss, jloss, rtol=tol["loss"])
+    for n, g, r in zip(checked, tgrads, jgrads):
+        assert np.abs(r).max() > 0
+        np.testing.assert_allclose(g, r, rtol=0, atol=tol["grad"],
+                                   err_msg=n)
+    for n in names:
+        ref = np.asarray(jscope.find_var(n).get_tensor())
+        got = tscope.vars[n].numpy()
+        assert got.dtype == ref.dtype, n
+        np.testing.assert_allclose(got.astype(np.float64),
+                                   ref.astype(np.float64), rtol=0,
+                                   atol=tol["param"], err_msg=n)
