@@ -11,23 +11,35 @@ is present.  Phases:
 
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu and
-               fused_xent_fwd.cu from this checkout, one nvcc process
-               each, all at once (ptxas register and spill lines);
+               fused_xent_fwd.cu (with csrc/hopper.cuh) from this
+               checkout, one nvcc process each, all at once (ptxas
+               register, spill and warning lines);
   3. kernel  - the flash-attention forward kernel against its plain
                version (paddle_tpu_torch.ops.attention
                .flash_attention_plain) on the same inputs, at the serving
                shape [8, 12, 512, 64] in fp32 and bf16 (q/k/v as the
                strided head-split views the encoder produces), a causal
-               case with Sq != Sk both ways, and ragged S = 200 at
-               D = 32 and 128.  Tolerances: fp32 atol=rtol=1e-4
-               (summation order differs); bf16 atol=rtol=2e-2 against the
-               plain version run in fp32 on the same bf16 inputs.  One
-               JSON line per case: kernel_ms, plain_ms, library_ms (torch
-               scaled_dot_product_attention, a yardstick the port never
-               calls) and bound_ms (max of FLOPs over peak and bytes over
-               bandwidth, from the H100 SXM datasheet).
+               case with Sq != Sk both ways (the Sq < Sk one in fp32 and
+               bf16), and ragged S = 200 at D = 32 and 128 (fp32 and
+               bf16: fp32 runs the FMA kernels, bf16 the wgmma kernels).
+               Tolerances: fp32 atol=rtol=1e-4 (summation order differs);
+               bf16 atol=rtol=2e-2 against the plain version, which
+               rounds P (and in dK/dV dS) to bf16 where the kernels do.
+               One JSON line per case: kernel_ms, plain_ms and library_ms
+               (torch scaled_dot_product_attention, a yardstick the port
+               never calls) as device time per call (CUDA events around
+               10-20 calls queued behind a spin kernel, so they run back
+               to back; one call of a plain version, whose hundreds of
+               launches fill the device's queue; warm L2);
+               kernel_ms_events (CUDA events around calls made one
+               after another, host launch cost included: the earlier
+               method); bound_ms (max of FLOPs over peak and bytes over
+               bandwidth, from the H100 SXM datasheet).  At
+               [8, 12, 512, 64] bf16 the forward and dK/dV also get
+               kernel_ms_cold: a 64 MB write before every launch, so L2
+               (50 MB) holds none of the inputs.
                Then the flash backward kernels (dQ, dK/dV) against
-               flash_attention_bwd_dq_plain / _dkv_plain at the same six
+               flash_attention_bwd_dq_plain / _dkv_plain at the same nine
                cases; library_ms is the whole backward of torch
                scaled_dot_product_attention (autograd.grad after one
                forward), bounds count 6 (dQ) and 8 (dK/dV) x B H pairs D
@@ -35,7 +47,8 @@ is present.  Phases:
                fused_xent_plain at [4096, 30522] in fp32 and bf16, a
                ragged V = 1000, and rows with a positive and a negative
                ignore_index; library_ms is F.cross_entropy(reduction=
-               "none"), the bound is bytes.  Same tolerances and reasons;
+               "none"), the bound is bytes.  Same tolerances, reasons and
+               timing;
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -126,6 +139,60 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps, flush=None):
+    """Device time of one call of fn: CUDA events around `reps` calls that
+    the host queued while a spin kernel (torch.cuda._sleep) held the
+    device, so the calls run back to back and the host's launch cost is
+    left out; it fails if the device reached the first event before the
+    host had queued the last call.  `flush`, if given, runs before every
+    call, and the time of `reps` flushes alone is subtracted (an L2 flush:
+    each call meets a cold cache)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    if flush is not None:
+        flush()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    def run(body):
+        # hold the device ~10x the host's queueing time (~2 GHz SM
+        # clock); if it still caught up, hold it longer and run again
+        hold_s = 10 * reps * host_s + 0.02
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(2e9 * hold_s))
+            start.record()
+            for _ in range(reps):
+                body()
+            end.record()
+            drained = start.query()
+            torch.cuda.synchronize()
+            if not drained:
+                return start.elapsed_time(end)
+            hold_s *= 4
+        raise AssertionError("device_ms: the device kept catching up with "
+                             "the host; the time would include launch gaps")
+
+    if flush is None:
+        return run(fn) / reps
+
+    def flushed():
+        flush()
+        fn()
+
+    return (run(flushed) - run(flush)) / reps
+
+
+def l2_flush(torch):
+    """A callable that writes 64 MB, more than the H100's 50 MB L2."""
+    buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return buf.zero_
+
+
 def visible_pairs(sq, sk, causal):
     if not causal:
         return sq * sk
@@ -176,6 +243,12 @@ def attention_cases(torch):
         ("ragged_s200_d32", 2, 12, 200, 200, 32, torch.float32, False, False),
         ("ragged_s200_d128", 2, 12, 200, 200, 128, torch.float32, False,
          False),
+        ("causal_sq_lt_sk_bf16", 2, 12, 384, 512, 64, torch.bfloat16, True,
+         False),
+        ("ragged_s200_d32_bf16", 2, 12, 200, 200, 32, torch.bfloat16, False,
+         False),
+        ("ragged_s200_d128_bf16", 2, 12, 200, 200, 128, torch.bfloat16,
+         False, False),
     ]
 
 
@@ -211,20 +284,25 @@ def kernel_phase(torch, attn):
         if causal:  # bottom-right alignment (SDPA's is_causal is top-left)
             mask = torch.ones(sq, sk, dtype=torch.bool,
                               device="cuda").tril(sk - sq)
-        kernel_ms = cuda_time_ms(
-            lambda: attn.flash_attention_cuda(q, k, v, causal=causal), 20)
-        plain_ms = cuda_time_ms(
-            lambda: attn.flash_attention_plain(q, k, v, causal=causal), 5)
-        library_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-            20)
+        def kern():
+            attn.flash_attention_cuda(q, k, v, causal=causal)
+
         dname = "float32" if dt == torch.float32 else "bfloat16"
         bound_ms, bound_by = bound(b, h, sq, sk, d, dname, causal)
         row = dict(case=name, shape=[b, h, sq, sk, d], dtype=dname,
                    causal=causal, strided=strided, max_abs_err=err, tol=tol,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   kernel_ms=device_ms(torch, kern, 20),
+                   kernel_ms_events=cuda_time_ms(kern, 20),
+                   plain_ms=device_ms(
+                       torch, lambda: attn.flash_attention_plain(
+                           q, k, v, causal=causal), 1),
+                   library_ms=device_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask), 20),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        if name == "slice_bf16":
+            row["kernel_ms_cold"] = device_ms(torch, kern, 10,
+                                              flush=l2_flush(torch))
         log(row)
         results[name] = row
     return results
@@ -265,9 +343,9 @@ def bwd_kernel_phase(torch, attn):
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=mask)
         # the whole SDPA backward (dq, dk and dv): the yardstick of both
-        library_ms = cuda_time_ms(
-            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
-                                        retain_graph=True), 10)
+        library_ms = device_ms(
+            torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                               retain_graph=True), 10)
         dname = "float32" if dt == torch.float32 else "bfloat16"
         bounds = bwd_bounds(b, h, sq, sk, d, dname, causal)
         results[name] = {}
@@ -280,10 +358,15 @@ def bwd_kernel_phase(torch, attn):
             row = dict(case=name, kernel=kern, shape=[b, h, sq, sk, d],
                        dtype=dname, causal=causal, strided=strided, tol=tol,
                        max_abs_err=err,
-                       kernel_ms=cuda_time_ms(lambda: cuda_fn(*args), 10),
-                       plain_ms=cuda_time_ms(lambda: plain_fn(*args), 3),
+                       kernel_ms=device_ms(torch, lambda: cuda_fn(*args), 10),
+                       kernel_ms_events=cuda_time_ms(lambda: cuda_fn(*args),
+                                                     10),
+                       plain_ms=device_ms(torch, lambda: plain_fn(*args), 1),
                        library_ms=library_ms, bound_ms=bounds[kern][0],
                        bound_by=bounds[kern][1])
+            if name == "slice_bf16" and kern == "dkv":
+                row["kernel_ms_cold"] = device_ms(
+                    torch, lambda: cuda_fn(*args), 10, flush=l2_flush(torch))
             log(dict(phase="kernel_bwd", **row))
             results[name][kern] = row
     return results
@@ -323,14 +406,18 @@ def xent_kernel_phase(torch, fx):
         lib_label = label.clone()
         row = dict(case=name, shape=[t, v], dtype=dname, ignore_index=ign,
                    tol=tol, max_abs_err=(loss - ref_loss).abs().max().item(),
-                   kernel_ms=cuda_time_ms(
+                   kernel_ms=device_ms(
+                       torch, lambda: fx.fused_xent_cuda(logits, label, ign),
+                       20),
+                   kernel_ms_events=cuda_time_ms(
                        lambda: fx.fused_xent_cuda(logits, label, ign), 20),
-                   plain_ms=cuda_time_ms(
-                       lambda: fx.fused_xent_plain(logits, label, ign), 5),
-                   library_ms=cuda_time_ms(
-                       lambda: F.cross_entropy(logits, lib_label,
-                                               ignore_index=ign,
-                                               reduction="none"), 20),
+                   plain_ms=device_ms(
+                       torch, lambda: fx.fused_xent_plain(logits, label, ign),
+                       1),
+                   library_ms=device_ms(
+                       torch, lambda: F.cross_entropy(logits, lib_label,
+                                                      ignore_index=ign,
+                                                      reduction="none"), 20),
                    bound_ms=bound_ms, bound_by=bound_by)
         log(dict(phase="kernel_xent", **row))
         results[name] = row
@@ -698,9 +785,14 @@ def train_profile(torch, exe, main, feed, loss):
         step_host_ms = (time.perf_counter() - t0) * 1e3
     finally:
         executor_mod._run_op = run_op
+    # the three attention kernels (forward, dQ, dK/dV) by kernel name
+    attn_ms = sum(e.self_device_time_total for e in dev
+                  if "flash_" in e.key) / 1e3
     log({"phase": "train_profile", "step_wall_ms_under_profiler": wall_ms,
          "device_busy_ms": busy_ms,
          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+         "attention_device_ms": attn_ms,
+         "attention_share_of_busy": attn_ms / busy_ms,
          "top_device_ms": [[e.key[:80], e.count,
                             e.self_device_time_total / 1e3] for e in top],
          "step_ms_op_timed": step_host_ms, "host_ms_by_role": host_ms,
@@ -745,11 +837,19 @@ def main():
         log({"phase": "build", "kernel": name, "nvcc_s": secs,
              "ptxas": [ln.strip() for ln in out.splitlines()
                        if "entry function" in ln or "registers" in ln
-                       or "spill" in ln]})
+                       or "spill" in ln or "warning" in ln.lower()
+                       or "Performance" in ln]})
     log({"phase": "build", "build_and_load_s": time.perf_counter() - t0})
 
     fwd = kernel_phase(torch, attn)
     bwd = bwd_kernel_phase(torch, attn)
+    # the two wgmma kernels against their library yardsticks at the
+    # training shape (PERF.md: forward <= 2x SDPA, dK/dV <= 1x the whole
+    # SDPA backward); recorded, not gated
+    f, dkv = fwd["slice_bf16"], bwd["slice_bf16"]["dkv"]
+    log({"phase": "kernel_vs_library",
+         "flash_fwd_bf16": f["kernel_ms"] / f["library_ms"],
+         "flash_bwd_dkv_bf16": dkv["kernel_ms"] / dkv["library_ms"]})
     xent = xent_kernel_phase(torch, fx)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -773,6 +873,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "kernel_ms_cold" in r:
+            summary[-1]["ms_cold"] = r["kernel_ms_cold"]
     summary[0]["launches_serving_path"] = serve_launches
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,11 @@
 Each kernel source under paddle_tpu_torch/csrc/ exposes a plain C
 interface.  At first use it is compiled with nvcc for Hopper
 (`-gencode arch=compute_90a,code=sm_90a`) into a shared library under
-`<checkout>/build/paddle_tpu_torch/`, named by a hash of the source and the
-flags, and loaded with ctypes.  Nothing is built at import time, and a
-failed build raises with nvcc's output; there is no fallback.
+`<checkout>/build/paddle_tpu_torch/`, named by a hash of the source, every
+header `csrc/*.cuh` (the sources include them, so an edit to a header alone
+rebuilds) and the flags, and loaded with ctypes.  Nothing is built at
+import time, and a failed build raises with nvcc's output; there is no
+fallback.
 `build_libraries` compiles several sources at once, one nvcc process each.
 """
 from __future__ import annotations
@@ -52,10 +54,16 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Tuple[str, str]:
-    """(source path, library path named by a hash of source and flags)."""
+    """(source path, library path named by a hash of the source, the
+    headers under csrc/ and the flags)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" +
+                          f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}_{digest.hexdigest()[:16]}.so")
 

@@ -11,49 +11,72 @@
 //   dQ = scale * dS k          (kernel 1: one CTA per q tile, loop over k)
 //   dK = scale * dS^T q        (kernel 2: one CTA per k tile, loop over q)
 //   dV = P^T dO
-// Two kernels, as on the TPU, keep dQ deterministic: no atomics, every
-// output element is summed by one thread in a fixed order.
+// Two kernels, as on the TPU, keep the results deterministic: no atomics,
+// every output element is summed by one thread in a fixed order.
 //
 // Semantics held equal to the TPU kernels:
 //   * P, dP, dS and the accumulators are fp32; outputs are written in the
 //     input dtype (fp32 or bf16);
+//   * in the bf16 dK/dV kernel P and dS are rounded to bf16 before the
+//     P^T dO and dS^T q products (the TPU kernel's `p.astype(do.dtype)`
+//     and `.astype(q.dtype)`);
 //   * the causal mask is aligned bottom-right (query i sees keys
 //     <= i + Sk - Sq), and tiles wholly above the diagonal are skipped
 //     (dQ: key tiles past the q tile's last visible key; dK/dV: q tiles
 //     before the first query that sees the k tile);
 //   * a row whose lse is -inf (fully masked) has P = 0: its dq is 0 and it
 //     adds nothing to dk or dv (the Pallas `where(isfinite(lse), ...)`).
+// Any Sq and Sk; q, k, v and dO are read through batch/head/sequence
+// strides (the [B, H, S, D] views transpose2 produces need no copy) with
+// the head dim contiguous; lse and D are contiguous [B, H, Sq]; dq, dk, dv
+// are written contiguous [B, H, S, D].
 //
-// Design:
-//   * 128 threads per CTA, 64-row tiles on both sides, the thread layout of
-//     flash_attn_fwd.cu: thread t owns 4 rows of the CTA's own tile (row
-//     group t/8) and, of every 64-row tile streamed past it, the 8 rows
-//     t%8 + 8j; the 8 threads of a row group are adjacent lanes.  Both
-//     score products (S and dP) share one loop over the head dim, so each
-//     shared load feeds two FMAs.
-//   * dQ kernel: q and dO tiles, lse and D rows stay resident; K/V tiles
-//     stream; dS goes to shared memory for the dS.k product.
-//   * dK/dV kernel: the tile is computed transposed (rows = keys), so the
-//     thread that accumulates a key row of dK and dV owns that row of P^T
-//     and dS^T.  K and V tiles stay resident; q, dO, lse and D tiles
-//     stream.  At D = 128 that is 4 x 64 x 129 floats of tiles plus two
-//     64 x 66 P/dS tiles: ~166 KB of dynamic shared memory, set once per
-//     device with cudaFuncSetAttribute.
-//   * Any Sq and Sk: rows past the end are loaded as zeros with lse = -inf
-//     (so P = 0) and never stored; keys past Sk are masked.
-//   * q, k, v and dO are read through batch/head/sequence strides (the
-//     [B, H, S, D] views transpose2 produces need no copy); the head dim is
-//     contiguous.  lse and D are contiguous [B, H, Sq]; dq, dk, dv are
-//     written contiguous [B, H, S, D].
+// The kernels, dispatched by dtype in the C entries at the end:
 //
-// What bounds it on an H100 at the training shape B = 8, H = 12, S = 512,
-// D = 64: dQ does 3 products of 2*S*S*D FLOPs per head (S, dP, dS.k) and
-// dK/dV 4 (S, dP, P^T.dO, dS^T.q).  In fp32 that is several times the time
-// of moving the inputs and outputs once, so both kernels are bounded by
-// fp32 FMA throughput (67 TFLOP/s); in bf16 the tensor cores would make
-// the bytes the bound.  These first kernels multiply in fp32 FMAs from
-// shared memory, for fp32 and bf16 inputs alike (~1 shared load per FMA);
-// register tiling, then wgmma fed by TMA, are the later redesigns.
+// dK/dV in bf16 (the AMP training path): `flash_bwd_dkv_wgmma_kernel`.
+//   Bound on an H100 at the training shape B = 8, H = 12, S = 512,
+//   D = 64: 4 products of 2 S^2 D FLOPs per head, 12.9 GFLOP on the 989
+//   TFLOP/s tensor cores (13 us), against 38 MB of inputs and outputs
+//   (11 us): the operations bound it, and only wgmma reaches them.
+//   * One CTA per (128 keys, head, batch), three warpgroups: warpgroups
+//     0 and 1 each own 64 keys (consumers), one warp of warpgroup 2 is
+//     the producer; `setmaxnreg` moves registers from the producer (24)
+//     to the consumers (240).
+//   * K and V are loaded once by TMA and stay resident.  q and dO tiles of
+//     BQ = 64 rows stream through a 2-stage TMA ring (full/empty
+//     mbarriers); the producer warp also stages the tile's lse (in log2
+//     units, +inf where the row is past Sq or fully masked, so P = 0
+//     there without a test) and D rows into shared memory with guarded
+//     loads, so nothing reads past the end of [B, H, Sq].
+//   * Scores are transposed, so each consumer owns its 64 keys as rows:
+//     S^T = k q^T and dP^T = v dO^T by wgmma m64n64k16 (A = the
+//     warpgroup's k or v rows, B = the q or dO tile, both K-major in
+//     shared memory); P^T = exp2(S^T scale log2e - lse log2e) and
+//     dS^T = P^T (dP^T - D) on the fragments, lse and D broadcast along
+//     the fragment's columns (the q index); P^T and dS^T are packed to
+//     bf16 and are the register A operands of dV += P^T dO and
+//     dK += dS^T q (B = the same dO / q tile read MN-major through the
+//     descriptor).  dK and dV stay in registers until the epilogue.
+//   * The causal start tile follows `attention.py:321`: the first q tile
+//     that sees the CTA's first key.
+//   * Keys past Sk are computed on zero-filled k and v and not stored (a
+//     key row of dK/dV depends only on its own row of P^T and dS^T).
+//   At the training shape the grid is 4 x 12 x 8 = 384 CTAs, one per SM.
+//
+// dQ (fp32 and bf16) and dK/dV in fp32: FMA kernels.
+//   128 threads per CTA, 64-row tiles on both sides, the thread layout of
+//   the fp32 forward: thread t owns 4 rows of the CTA's own tile (row
+//   group t/8) and, of every 64-row tile streamed past it, the 8 rows
+//   t%8 + 8j.  Both score products (S and dP) share one loop over the
+//   head dim, so each shared load feeds two FMAs.  dQ: q and dO tiles,
+//   lse and D rows stay resident; K/V tiles stream.  dK/dV: the tile is
+//   computed transposed (rows = keys); K and V tiles stay resident, q,
+//   dO, lse and D tiles stream (~166 KB of shared memory at D = 128).
+//   Rows past the end are loaded as zeros with lse = -inf and never
+//   stored.  In fp32 they are bounded by fp32 FMA throughput (67
+//   TFLOP/s); in bf16 (dQ) they multiply in fp32 FMAs from shared memory
+//   too, ~1 shared load per FMA.  Register tiling for fp32 and a wgmma dQ
+//   are the later redesigns.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -63,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -465,7 +490,322 @@ cudaError_t dq_dispatch(int D, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
+cudaError_t dkv_dispatch_fp32(int D, const void* q, const void* k,
+                              const void* v, const void* dout,
+                              const void* lse, const void* dd, void* dk,
+                              void* dv, int B, int H, int Sq, int Sk,
+                              const Strides& st, int causal, float scale,
+                              cudaStream_t s) {
+  switch (D) {
+    case 32:
+      return launch_dkv<float, 32>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                                   Sk, st, causal, scale, s);
+    case 64:
+      return launch_dkv<float, 64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                                   Sk, st, causal, scale, s);
+    case 128:
+      return launch_dkv<float, 128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                                    Sk, st, causal, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK / dV in bf16: warp-specialized wgmma kernel
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using hopper::Wgmma;
+
+constexpr int BKV = 128;        // keys per CTA: two consumer warpgroups
+constexpr int BQ = 64;          // query rows per streamed tile
+constexpr int THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory: K and V (resident), two stages of q and of dO, each as
+// D / COLS boxes of [rows][COLS] bf16; two stages of the q tile's lse
+// (log2 units) and D rows; then the mbarriers
+template <int D>
+struct Layout {
+  static constexpr int COLS = hopper::box_cols(D);
+  static constexpr int NBOX = D / COLS;
+  static constexpr int SWIZZLE =
+      COLS == 64 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
+  static constexpr uint32_t ROW = COLS * 2;        // bytes of a box row
+  static constexpr uint32_t SBO = 8 * ROW;         // next 8-row group
+  static constexpr uint32_t KV_BOX = BKV * ROW;
+  static constexpr uint32_t Q_BOX = BQ * ROW;
+  static constexpr uint32_t KV_BYTES = NBOX * KV_BOX;
+  static constexpr uint32_t Q_BYTES = NBOX * Q_BOX;
+  static constexpr uint32_t K_OFF = 0;
+  static constexpr uint32_t V_OFF = KV_BYTES;
+  static constexpr uint32_t Q_OFF = 2 * KV_BYTES;
+  static constexpr uint32_t DO_OFF = Q_OFF + 2 * Q_BYTES;
+  static constexpr uint32_t ROWS_OFF = DO_OFF + 2 * Q_BYTES;
+  static constexpr uint32_t BAR_OFF = ROWS_OFF + 2 * 2 * BQ * 4;
+  static constexpr size_t SMEM = BAR_OFF + 5 * 8 + 1024;  // + align slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dd,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int H, int Sq,
+                           int Sk, int causal, float scale) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* rows_all = reinterpret_cast<float*>(smem + L::ROWS_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* kv_full = bars;      // K and V landed
+  uint64_t* q_full = bars + 1;   // [2] the stage's q, dO, lse and D landed
+  uint64_t* q_empty = bars + 3;  // [2] both consumers are done with it
+
+  const int k0 = blockIdx.x * BKV;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  int first = 0;
+  if (causal) {
+    // the first q tile that can see key k0 (attention.py:321)
+    const int lo = k0 - shift;
+    first = lo <= 0 ? 0 : lo / BQ;
+  }
+  const int n_tiles = n_qt - first;  // <= 0: no query sees these keys
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(q_full + s, 32);
+      hopper::mbar_init(q_empty + s, 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int64_t qrow_base = ((int64_t)bb * H + hh) * Sq;
+  if (wg == 2) {
+    // ---- producer warp: TMA loads (lane 0) and the lse / D rows (all)
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 256 + 32 && n_tiles > 0) {
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+        for (int b = 0; b < L::NBOX; ++b) {
+          hopper::tma_load_4d(smem + L::K_OFF + b * L::KV_BOX, &tk, kv_full,
+                              b * L::COLS, k0, hh, bb);
+          hopper::tma_load_4d(smem + L::V_OFF + b * L::KV_BOX, &tv, kv_full,
+                              b * L::COLS, k0, hh, bb);
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it & 1;
+        const int q0 = (first + it) * BQ;
+        // stage s last held tile it - 2: wait for its release
+        if (it >= 2) hopper::mbar_wait(q_empty + s, ((it >> 1) + 1) & 1);
+        float* rows = rows_all + s * 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const int qpos = q0 + r;
+          const float lv = qpos < Sq ? lse[qrow_base + qpos] : -INFINITY;
+          rows[r] = lv == -INFINITY ? INFINITY : lv * kLog2e;
+          rows[BQ + r] = qpos < Sq ? dd[qrow_base + qpos] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(q_full + s, 2 * L::Q_BYTES);
+          for (int b = 0; b < L::NBOX; ++b) {
+            const uint32_t off = s * L::Q_BYTES + b * L::Q_BOX;
+            hopper::tma_load_4d(smem + L::Q_OFF + off, &tq, q_full + s,
+                                b * L::COLS, q0, hh, bb);
+            hopper::tma_load_4d(smem + L::DO_OFF + off, &tdo, q_full + s,
+                                b * L::COLS, q0, hh, bb);
+          }
+        } else {
+          hopper::mbar_arrive(q_full + s);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 as rows
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int SN = BQ / 2;        // S^T / dP^T fragment: 32 fp32
+    constexpr int ON = L::COLS / 2;   // dK / dV fragment per box
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int kw0 = k0 + 64 * wg;                      // first key
+    const int key = kw0 + 16 * (tid / 32) + lane / 4;  // keys key, key + 8
+    const uint8_t* sk = smem + L::K_OFF + 64 * wg * L::ROW;
+    const uint8_t* sv = smem + L::V_OFF + 64 * wg * L::ROW;
+    const float scale_log2 = scale * kLog2e;
+
+    float dk_acc[L::NBOX][ON], dv_acc[L::NBOX][ON];
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
+    float st[SN], dpt[SN];
+#pragma unroll
+    for (int i = 0; i < SN; ++i) st[i] = dpt[i] = 0.f;
+
+    if (n_tiles > 0) hopper::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it & 1;
+      const int q0 = (first + it) * BQ;
+      const uint8_t* sq = smem + L::Q_OFF + s * L::Q_BYTES;
+      const uint8_t* sdo = smem + L::DO_OFF + s * L::Q_BYTES;
+      const float* rows = rows_all + s * 2 * BQ;
+
+      // S^T = k q^T and dP^T = v dO^T: A = the warpgroup's k / v rows,
+      // B = the q / dO tile, both K-major
+      hopper::mbar_wait(q_full + s, (it >> 1) & 1);
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
+        Wgmma<BQ, 0>::ss(
+            st,
+            hopper::make_desc(sk + b * L::KV_BOX + c * 2, 16, L::SBO,
+                              L::SWIZZLE),
+            hopper::make_desc(sq + b * L::Q_BOX + c * 2, 16, L::SBO,
+                              L::SWIZZLE),
+            kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
+        Wgmma<BQ, 0>::ss(
+            dpt,
+            hopper::make_desc(sv + b * L::KV_BOX + c * 2, 16, L::SBO,
+                              L::SWIZZLE),
+            hopper::make_desc(sdo + b * L::Q_BOX + c * 2, 16, L::SBO,
+                              L::SWIZZLE),
+            kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // P^T = exp2(S^T scale log2e - lse log2e) (0 past Sq and on
+      // fully-masked rows: their staged lse is +inf), 0 above the causal
+      // diagonal; dS^T = P^T (dP^T - D).  The fragment's column is the q
+      // row, so lse and D are read per column pair.
+      const bool need_mask = causal && kw0 + 63 > q0 + shift;
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const int col = 8 * (i / 4) + 2 * (lane % 4);
+          const float2 lr = *reinterpret_cast<const float2*>(rows + col);
+          const float2 dr = *reinterpret_cast<const float2*>(rows + BQ + col);
+          float p0 = exp2f(st[i] * scale_log2 - lr.x);
+          float p1 = exp2f(st[i + 1] * scale_log2 - lr.y);
+          if (need_mask) {
+            const int kpos = key + 8 * (r % 2);
+            if (kpos > q0 + col + shift) p0 = 0.f;
+            if (kpos > q0 + col + 1 + shift) p1 = 0.f;
+          }
+          pa[kk][r] = hopper::pack_bf16(p0, p1);
+          dsa[kk][r] = hopper::pack_bf16(p0 * (dpt[i] - dr.x),
+                                         p1 * (dpt[i + 1] - dr.y));
+        }
+
+      // dV += P^T dO and dK += dS^T q: A from registers, B = the same
+      // dO / q tile MN-major, one 16-row slice and one box per instruction
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b) {
+        hopper::fence_regs(dv_acc[b]);
+        hopper::fence_regs(dk_acc[b]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int b = 0; b < L::NBOX; ++b) {
+          const uint32_t off = b * L::Q_BOX + kk * 16 * L::ROW;
+          Wgmma<L::COLS, 1>::rs(
+              dv_acc[b], pa[kk],
+              hopper::make_desc(sdo + off, L::Q_BOX, L::SBO, L::SWIZZLE), 1);
+          Wgmma<L::COLS, 1>::rs(
+              dk_acc[b], dsa[kk],
+              hopper::make_desc(sq + off, L::Q_BOX, L::SBO, L::SWIZZLE), 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b) {
+        hopper::fence_regs(dv_acc[b]);
+        hopper::fence_regs(dk_acc[b]);
+      }
+      hopper::mbar_arrive(q_empty + s);
+    }
+
+    // epilogue: dK scale and dV to bf16; keys past Sk are not stored
+    const int64_t krow_base = ((int64_t)bb * H + hh) * Sk;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kpos = key + 8 * h;
+      if (kpos >= Sk) continue;
+      const int64_t off = (krow_base + kpos) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+        for (int j = 0; j < L::COLS / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          const int64_t at = off + b * L::COLS + 8 * j;
+          *reinterpret_cast<uint32_t*>(dk + at) = hopper::pack_bf16(
+              dk_acc[b][i] * scale, dk_acc[b][i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at) =
+              hopper::pack_bf16(dv_acc[b][i], dv_acc[b][i + 1]);
+        }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* dd,
+                       void* dk, void* dv, int B, int H, int Sq, int Sk,
+                       const Strides& st, int causal, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::encode_bhsd(&tq, q, B, H, Sq, D, st.q_sb,
+                                        st.q_sh, st.q_ss, BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh, st.k_ss,
+                              BKV);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh, st.v_ss,
+                              BKV);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
+                              st.o_ss, BQ);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[kMaxDevices] = {};
+  err = opt_in_smem(flash_bwd_dkv_wgmma_kernel<D>, Layout<D>::SMEM,
+                    smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sk + BKV - 1) / BKV, H, B);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, THREADS, Layout<D>::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Sq, Sk, causal, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* dd,
                          void* dk, void* dv, int B, int H, int Sq, int Sk,
@@ -473,18 +813,20 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
                          cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch_dkv<T, 32>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                               st, causal, scale, s);
+      return launch_dkv<32>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
+                            causal, scale, s);
     case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                               st, causal, scale, s);
+      return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
+                            causal, scale, s);
     case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                                st, causal, scale, s);
+      return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
+                             causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace wg
 
 Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
                      long long k_sb, long long k_sh, long long k_ss,
@@ -499,7 +841,9 @@ Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides (in elements) of q, k, v and
-// dO: batch, head, sequence; the head dim must be contiguous.  lse and D
+// dO: batch, head, sequence; the head dim must be contiguous (bf16 dK/dV:
+// the base addresses 16-byte aligned and the byte strides multiples of 16,
+// as TMA needs).  lse and D
 // are contiguous fp32 [B, H, Sq]; dq [B, H, Sq, D] (and dk, dv
 // [B, H, Sk, D]) are written contiguous in the input dtype.  Each returns
 // the CUDA error code of its launch (0 on success); the kernels are
@@ -541,11 +885,11 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dkv_dispatch<float>(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                              Sk, st, causal, scale, s);
+    err = dkv_dispatch_fp32(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                            st, causal, scale, s);
   else if (dtype == 1)
-    err = dkv_dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, dd, dk, dv, B,
-                                      H, Sq, Sk, st, causal, scale, s);
+    err = wg::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                           st, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -16,44 +16,64 @@
 //   * a fully-masked row (causal with Sq > Sk) is written as 0 with
 //     lse = -inf, like the TPU flash kernel (not like the score-matrix
 //     reference, which averages V there);
+//   * in bf16, P is rounded to bf16 before the P.v product (the TPU
+//     kernel's `p.astype(vs.dtype)`) while the row sum stays on the fp32 P;
 //   * `out` is written in the input dtype (fp32 or bf16).
+// Both kernels take any Sq and Sk (ragged tiles are masked, so the port
+// needs no counterpart of the TPU tiling fallback `_fit_block`) and read
+// q, k, v through batch/head/sequence strides, so the [B, H, S, D] view
+// that transpose2 produces needs no copy; D is contiguous.  out and lse
+// are written contiguous.
 //
-// Design, and how it differs from the TPU kernel:
-//   * One CTA of 128 threads per (64-row q tile, head, batch).  A loop
-//     inside the CTA walks K/V in tiles of 64 rows staged in shared memory.
-//     The TPU kernel instead staged the whole K/V sequence per grid step
-//     (a whole-Sk BlockSpec), which on Hopper would not fit the 227 KB of
-//     shared memory at long S.  Blocks run in parallel here, so nothing is
-//     carried between them.
-//   * Any Sq and Sk: tail tiles are masked (rows past Sq are computed and
-//     not stored, keys past Sk score -inf).  The port therefore needs no
-//     counterpart of the TPU tiling fallback (`_fit_block`/`_tiles_ok`).
-//   * q, k and v are read through batch/head/sequence strides, so the
-//     [B, H, S, D] view that transpose2 produces needs no copy; D is
-//     contiguous.  out and lse are written contiguous.
-//   * Thread layout: thread t owns 4 query rows (row group t/8) and, of
-//     every 64-key tile, the 8 keys t%8 + 8j; the 8 threads of a row group
-//     are adjacent lanes of one warp and combine row max and row sum with
-//     three xor-shuffles.  For the P.V product the same thread owns the
-//     output columns t%8 + 8j of its 4 rows.  Shared-memory rows are padded
-//     (D+1 floats for q/k/v, 66 for P) so the lanes of a warp hit distinct
-//     banks.
-//   * Tiles are converted to fp32 on their way into shared memory and both
-//     products are plain fp32 FMAs, for fp32 and bf16 inputs alike.  For
-//     fp32 this keeps the numbers of an fp32 reference (TF32 would not).
+// Two kernels, dispatched by dtype in the C entry at the end:
 //
-// What bounds it on an H100 at the serving shape S = 512, D = 64:
-//   * fp32: 4*B*H*S^2*D FLOPs against 67 TFLOP/s of fp32 FMA is ~6x the
-//     time of moving q, k, v and out once at 3.35 TB/s, so the kernel is
-//     bounded by fp32 FMA throughput.  The design keeps every FMA operand
-//     in shared memory or registers (no device-memory traffic inside the
-//     loops, each K/V tile read once per CTA) and spends ~12 shared loads
-//     per 32 FMAs; the next step is register tiling with vector loads.
-//   * bf16: the same FLOPs on the 989 TFLOP/s tensor cores take about as
-//     long as moving the (half-size) bytes, so the bound is the bytes.
-//     This first kernel still multiplies in fp32 FMAs, so it runs far above
-//     that bound; moving both products to wgmma with TMA-fed tiles is the
-//     change that would approach it.
+// bf16 (the AMP training path): `flash_fwd_wgmma_kernel`.
+//   Bound on an H100 at the training shape B = 8, H = 12, S = 512,
+//   D = 64: 6.4 GFLOP on the 989 TFLOP/s tensor cores (6.5 us) against
+//   25 MB of q, k, v, out and lse at 3.35 TB/s (7.6 us), so the bytes
+//   bound it.  The tensor cores are reached only through wgmma, and wgmma
+//   wants its operands in shared memory in the swizzled layout that TMA
+//   writes, so:
+//   * one CTA per (128 query rows, head, batch) with three warpgroups:
+//     warpgroups 0 and 1 each own 64 query rows (consumers), one warp of
+//     warpgroup 2 starts every TMA load (producer).  `setmaxnreg` moves
+//     registers from the producer (24) to the consumers (240);
+//   * the producer loads the q tile once, then streams K/V tiles of
+//     BK = 128 keys through a 2-stage ring of shared-memory buffers, each
+//     stage guarded by "full" mbarriers (TMA transaction bytes; K and V
+//     separately, so Q K^T starts before V has landed) and an "empty"
+//     mbarrier (all 256 consumer threads arrive when their wgmma reads of
+//     the stage are done).  A tile's load overlaps the previous tile's
+//     math.  BK = 128 halves the barrier round trips and the O rescales
+//     per key against BK = 64, and the 64-register S fragment plus O (32
+//     or 64) and P (32) stay inside the consumers' 240 registers; two
+//     stages of K and V are 128 KB at D = 128;
+//   * S = Q K^T is one wgmma m64n128k16 per 16 columns of D (A = the
+//     warpgroup's q rows, B = the k tile, both K-major in shared memory);
+//     the online softmax runs on the accumulator fragment in registers,
+//     a row's 32 values spread over a quad of 4 lanes and reduced with
+//     xor-shuffles 1 and 2; scores are kept in log2 units (exp2f);
+//   * P is packed to bf16 in registers and is the register A operand of
+//     O += P v (B = the v tile read MN-major through the descriptor, one
+//     64-column swizzle row per wgmma); O stays in registers;
+//   * keys past Sk are masked in registers (TMA zero-fills them, and a
+//     zero score is not -inf), as are keys above the causal diagonal;
+//     rows past Sq are computed on zero-filled q and not stored;
+//   * D = 128 rows (256 bytes) are loaded as two 64-column boxes; D = 32
+//     uses 64-byte swizzle.
+//   At the training shape the grid is 4 x 12 x 8 = 384 CTAs of 384
+//   threads, one CTA per SM (registers), 2.9 waves on 132 SMs.
+//
+// fp32 (serving, the fp32 check step): `flash_fwd_kernel`, FMAs.
+//   One CTA of 128 threads per (64-row q tile, head, batch); K/V tiles of
+//   64 rows are staged in shared memory as fp32 (rows padded to D + 1
+//   floats so the lanes of a warp hit distinct banks).  Thread t owns 4
+//   query rows (row group t/8) and, of every 64-key tile, the 8 keys
+//   t%8 + 8j; the 8 threads of a row group combine row max and row sum
+//   with three xor-shuffles.  Bound: at S = 512, D = 64 the FLOPs over
+//   67 TFLOP/s of fp32 FMA are ~6x the time of moving the bytes once.
+//   Kept fp32 (TF32 would break the serving path's 2e-4 gate); register
+//   tiling with vector loads is the next step for it.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -64,8 +84,36 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// the shared-memory opt-in is a per-device attribute of each instance:
+// set it on the first launch on each device only (a race between two
+// first launches just sets the same value twice)
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMA kernel
+// ---------------------------------------------------------------------------
 constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 64;        // key rows per K/V tile
 constexpr int THREADS = 128;
@@ -73,31 +121,16 @@ constexpr int ROWS = 4;       // query rows per thread (16 row groups)
 constexpr int GROUP = 8;      // threads sharing a row group
 constexpr int KCOLS = BK / GROUP;  // keys per thread per tile
 constexpr int PP = BK + 2;    // padded P row: 4 row groups -> 4 bank windows
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PP);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Sk,
                  int64_t q_sb, int64_t q_sh, int64_t q_ss,
                  int64_t k_sb, int64_t k_sh, int64_t k_ss,
@@ -117,13 +150,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
-  const T* qb = q + bb * q_sb + hh * q_sh;
-  const T* kb = k + bb * k_sb + hh * k_sh;
-  const T* vb = v + bb * v_sb + hh * v_sh;
+  const float* qb = q + bb * q_sb + hh * q_sh;
+  const float* kb = k + bb * k_sb + hh * k_sh;
+  const float* vb = v + bb * v_sb + hh * v_sh;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D, qr = q0 + r;
-    sQ[r * DP + c] = qr < Sq ? to_f32(qb[(int64_t)qr * q_ss + c]) : 0.f;
+    sQ[r * DP + c] = qr < Sq ? qb[(int64_t)qr * q_ss + c] : 0.f;
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][DCOLS];
@@ -150,8 +183,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D, kr = k0 + r;
       const bool ok = kr < Sk;
-      sK[r * DP + c] = ok ? to_f32(kb[(int64_t)kr * k_ss + c]) : 0.f;
-      sV[r * DP + c] = ok ? to_f32(vb[(int64_t)kr * v_ss + c]) : 0.f;
+      sK[r * DP + c] = ok ? kb[(int64_t)kr * k_ss + c] : 0.f;
+      sV[r * DP + c] = ok ? vb[(int64_t)kr * v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -231,63 +264,318 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + rg * ROWS + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (row0 + qpos) * D;
+    float* orow = o + (row0 + qpos) * D;
 #pragma unroll
-    for (int j = 0; j < DCOLS; ++j)
-      orow[cg + GROUP * j] = from_f32<T>(acc[i][j] / denom);
+    for (int j = 0; j < DCOLS; ++j) orow[cg + GROUP * j] = acc[i][j] / denom;
     if (cg == 0)
       lse[row0 + qpos] = m[i] != -INFINITY ? m[i] + logf(denom) : -INFINITY;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Sq, int Sk,
-                   const long long* st, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  // the shared-memory opt-in is a per-device attribute of this instance:
-  // set it on the first launch on each device only (a race between two
-  // first launches just sets the same value twice)
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int B, int H, int Sq, int Sk,
+                        const long long* st, int causal, float scale,
+                        cudaStream_t stream) {
   static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const size_t smem = smem_bytes<D>();
+  cudaError_t err = opt_in_smem(flash_fwd_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = true;
-  }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), H, Sq, Sk, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, void* lse, int B, int H, int Sq, int Sk,
-                       const long long* st, int causal, float scale,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: warp-specialized wgmma kernel
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using hopper::Wgmma;
+
+constexpr int BQ = 128;         // query rows per CTA: two consumer warpgroups
+constexpr int BK = 128;         // keys per K/V tile
+constexpr int THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+// shared memory: the q tile, then two stages of K and two of V, each as
+// D / COLS boxes of [rows][COLS] bf16, then the mbarriers
+template <int D>
+struct Layout {
+  static constexpr int COLS = hopper::box_cols(D);
+  static constexpr int NBOX = D / COLS;
+  static constexpr int SWIZZLE =
+      COLS == 64 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
+  static constexpr uint32_t ROW = COLS * 2;        // bytes of a box row
+  static constexpr uint32_t SBO = 8 * ROW;         // next 8-row group
+  static constexpr uint32_t Q_BOX = BQ * ROW;
+  static constexpr uint32_t KV_BOX = BK * ROW;
+  static constexpr uint32_t Q_BYTES = NBOX * Q_BOX;
+  static constexpr uint32_t KV_BYTES = NBOX * KV_BOX;
+  static constexpr uint32_t K_OFF = Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + 2 * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + 2 * KV_BYTES;
+  static constexpr size_t SMEM = BAR_OFF + 7 * 8 + 1024;  // + align slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int H, int Sq, int Sk,
+                       int causal, float scale_log2) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_full = bars;        // the q tile landed
+  uint64_t* k_full = bars + 1;    // [2] the stage's K tile landed
+  uint64_t* v_full = bars + 3;    // [2] the stage's V tile landed
+  uint64_t* kv_empty = bars + 5;  // [2] both consumers are done with it
+
+  const int q0 = blockIdx.x * BQ;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    const int hi = q0 + BQ + shift;  // keys visible to the CTA's last row
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
   }
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(kv_empty + s, 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread starts every TMA load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      hopper::mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+      for (int b = 0; b < L::NBOX; ++b)
+        hopper::tma_load_4d(smem + b * L::Q_BOX, &tq, q_full, b * L::COLS,
+                            q0, hh, bb);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t & 1;
+        // stage s last held tile t - 2: wait for its release
+        if (t >= 2) hopper::mbar_wait(kv_empty + s, ((t >> 1) + 1) & 1);
+        uint8_t* sk = smem + L::K_OFF + s * L::KV_BYTES;
+        uint8_t* sv = smem + L::V_OFF + s * L::KV_BYTES;
+        hopper::mbar_arrive_expect_tx(k_full + s, L::KV_BYTES);
+        for (int b = 0; b < L::NBOX; ++b)
+          hopper::tma_load_4d(sk + b * L::KV_BOX, &tk, k_full + s,
+                              b * L::COLS, t * BK, hh, bb);
+        hopper::mbar_arrive_expect_tx(v_full + s, L::KV_BYTES);
+        for (int b = 0; b < L::NBOX; ++b)
+          hopper::tma_load_4d(sv + b * L::KV_BOX, &tv, v_full + s,
+                              b * L::COLS, t * BK, hh, bb);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int SN = BK / 2;        // S fragment: 64 fp32 per thread
+    constexpr int ON = L::COLS / 2;   // O fragment per box
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int qw0 = q0 + 64 * wg;               // the warpgroup's first row
+    const int row = qw0 + 16 * (tid / 32) + lane / 4;  // rows row, row + 8
+    const uint8_t* sq = smem + 64 * wg * L::ROW;  // its rows in box 0
+
+    float o_acc[L::NBOX][ON];
+#pragma unroll
+    for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) o_acc[b][i] = 0.f;
+    float sacc[SN];
+#pragma unroll
+    for (int i = 0; i < SN; ++i) sacc[i] = 0.f;
+    // running max (log2 units) and this thread's share of the row sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t & 1;
+      const uint32_t phase = (t >> 1) & 1;
+      const int k0 = t * BK;
+      const uint8_t* sk = smem + L::K_OFF + s * L::KV_BYTES;
+      const uint8_t* sv = smem + L::V_OFF + s * L::KV_BYTES;
+
+      // S = q k^T: A = the q rows, B = the k tile, both K-major
+      hopper::mbar_wait(k_full + s, phase);
+      hopper::fence_regs(sacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
+        Wgmma<BK, 0>::ss(
+            sacc,
+            hopper::make_desc(sq + b * L::Q_BOX + c * 2, 16, L::SBO,
+                              L::SWIZZLE),
+            hopper::make_desc(sk + b * L::KV_BOX + c * 2, 16, L::SBO,
+                              L::SWIZZLE),
+            kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sacc);
+
+      // scale to log2 units; mask keys past Sk (TMA zero-filled them) and
+      // above the causal diagonal, on the tiles that have such keys
+      const bool need_mask =
+          k0 + BK > Sk || (causal && k0 + BK - 1 > qw0 + shift);
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        float x = sacc[i] * scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          const int qpos = row + 8 * ((i / 2) % 2);
+          if (kpos >= Sk || (causal && kpos > qpos + shift)) x = -INFINITY;
+        }
+        sacc[i] = x;
+      }
+
+      // online softmax, rows row (h = 0) and row + 8 (h = 1); a row's
+      // values sit in the 4 lanes of a quad
+      float alpha[2], safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[h];
+#pragma unroll
+        for (int i = 0; i < SN; ++i)
+          if ((i / 2) % 2 == h) mx = fmaxf(mx, sacc[i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row masked so far keeps m = -inf and P = exp2(-inf - 0) = 0
+        safe[h] = mx == -INFINITY ? 0.f : mx;
+        alpha[h] = m[h] == -INFINITY ? 0.f : exp2f(m[h] - safe[h]);
+        m[h] = mx;
+      }
+      // P in fp32 for the row sum, packed to bf16 as the A operand of P v
+      uint32_t pa[BK / 16][4];
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r, h = r % 2;
+          const float p0 = exp2f(sacc[i] - safe[h]);
+          const float p1 = exp2f(sacc[i + 1] - safe[h]);
+          psum[h] += p0 + p1;
+          pa[kk][r] = hopper::pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + psum[h];
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+        for (int i = 0; i < ON; ++i) o_acc[b][i] *= alpha[(i / 2) % 2];
+
+      // O += P v: A = P from registers, B = the v tile MN-major, one
+      // 16-key slice and one box per instruction
+      hopper::mbar_wait(v_full + s, phase);
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(o_acc[b]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int b = 0; b < L::NBOX; ++b)
+          Wgmma<L::COLS, 1>::rs(
+              o_acc[b], pa[kk],
+              hopper::make_desc(sv + b * L::KV_BOX + kk * 16 * L::ROW,
+                                L::KV_BOX, L::SBO, L::SWIZZLE),
+              1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(o_acc[b]);
+      hopper::mbar_arrive(kv_empty + s);
+    }
+
+    // epilogue: O / l to bf16, lse = (m + log2 l) ln 2; rows past Sq are
+    // not stored
+    const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int qpos = row + 8 * h;
+      if (qpos >= Sq) continue;
+      const float denom = fmaxf(l[h], 1e-30f);
+      const float inv = 1.f / denom;
+      __nv_bfloat16* orow = o + (row_base + qpos) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int b = 0; b < L::NBOX; ++b)
+#pragma unroll
+        for (int j = 0; j < L::COLS / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          *reinterpret_cast<uint32_t*>(orow + b * L::COLS + 8 * j) =
+              hopper::pack_bf16(o_acc[b][i] * inv, o_acc[b][i + 1] * inv);
+        }
+      if (lane % 4 == 0)
+        lse[row_base + qpos] =
+            m[h] == -INFINITY ? -INFINITY : (m[h] + log2f(denom)) * kLn2;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int H, int Sq, int Sk,
+                   const long long* st, int causal, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err =
+      hopper::encode_bhsd(&tq, q, B, H, Sq, D, st[0], st[1], st[2], BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd(&tk, k, B, H, Sk, D, st[3], st[4], st[5], BK);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd(&tv, v, B, H, Sk, D, st[6], st[7], st[8], BK);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[kMaxDevices] = {};
+  err = opt_in_smem(flash_fwd_wgmma_kernel<D>, Layout<D>::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_wgmma_kernel<D><<<grid, THREADS, Layout<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      H, Sq, Sk, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+typedef cudaError_t (*LaunchFn)(const void*, const void*, const void*, void*,
+                                void*, int, int, int, int, const long long*,
+                                int, float, cudaStream_t);
+
+// the kernel instance for (dtype, D): fp32 -> FMA kernel, bf16 -> wgmma
+LaunchFn pick(int dtype, int D) {
+  if (dtype == 0) {
+    if (D == 32) return launch_fp32<32>;
+    if (D == 64) return launch_fp32<64>;
+    if (D == 128) return launch_fp32<128>;
+  } else if (dtype == 1) {
+    if (D == 32) return wg::launch<32>;
+    if (D == 64) return wg::launch<64>;
+    if (D == 128) return wg::launch<128>;
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -295,29 +583,23 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides (in elements) for q, k, v:
-// batch, head, sequence; the head dim must be contiguous.  out is
-// [B, H, Sq, D] and lse [B, H, Sq], both contiguous.  Returns the CUDA
-// error code of the launch (0 on success); the kernel is asynchronous on
-// `stream`.  The caller makes the tensors' device current.
+// batch, head, sequence; the head dim must be contiguous (bf16: the base
+// addresses 16-byte aligned and the byte strides multiples of 16, as TMA
+// needs).  out is [B, H, Sq, D] and lse [B, H, Sq], both contiguous.
+// Returns the CUDA error code of the launch (0 on success); the kernel is
+// asynchronous on `stream`.  The caller makes the tensors' device current.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int dtype, int B, int H, int Sq, int Sk, int D,
                    long long q_sb, long long q_sh, long long q_ss,
                    long long k_sb, long long k_sh, long long k_ss,
                    long long v_sb, long long v_sh, long long v_ss,
                    int causal, float scale, void* stream) {
-  cudaError_t err;
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                            k_ss, v_sb, v_sh, v_ss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = dispatch_d<float>(D, q, k, v, o, lse, B, H, Sq, Sk, st, causal,
-                            scale, s);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Sq, Sk, st,
-                                    causal, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  const LaunchFn fn = pick(dtype, D);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fn(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale,
+                 static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attn_error_string(int err) {

@@ -7,12 +7,12 @@ kept with the same defaults, so a program built in either package takes
 the same branch op for op.
 
 `flash_attention(q, k, v)` over [B, H, S, D] tensors:
-  * a CUDA tensor launches the kernel in csrc/flash_attn_fwd.cu (which
-    replaces the Pallas `_flash_fwd_kernel`), or raises;
+  * a CUDA tensor launches the forward kernel in csrc/flash_attn_fwd.cu
+    (which replaces the Pallas `_flash_fwd_kernel`), or raises;
   * a CPU tensor runs `flash_attention_plain`, the same online-softmax
     algorithm written in PyTorch: a loop over 64-row K/V tiles with the
-    same mask and fully-masked-row semantics.  The CPU tests use it, and
-    chip_smoke.py holds the kernel against it.
+    same mask, fully-masked-row semantics and bf16 rounding of P.  The CPU
+    tests use it, and chip_smoke.py holds the kernel against it.
 
 The call is a `torch.autograd.Function` (counterpart of the JAX package's
 `jax.custom_vjp`): its forward saves out and lse, its backward computes
@@ -21,14 +21,27 @@ of csrc/flash_attn_bwd.cu, dQ and dK/dV (replacing `_flash_bwd_dq_kernel`
 and `_flash_bwd_dkv_kernel`), or on the CPU their plain version
 `flash_attention_bwd_plain`.
 
+Which kernel runs, by dtype (dispatched inside each C entry):
+  * bf16 (the AMP training program): the forward and dK/dV are
+    warp-specialized wgmma kernels fed by TMA (csrc/hopper.cuh holds the
+    building blocks).  At the training shape the forward is bounded by
+    its bytes and dK/dV by its tensor-core operations; the earlier FMA
+    kernels never reached the tensor cores, which only wgmma does, with
+    operands in the swizzled shared-memory layout TMA writes.  TMA needs
+    16-byte aligned base addresses and byte strides that are multiples of
+    16, so the wrappers refuse other bf16 views.  dQ stays on its FMA
+    kernel;
+  * fp32 (serving, the fp32 check step): FMA kernels for all three, fp32
+    throughout (no TF32), bounded by the 67 TFLOP/s of fp32 FMA.
+
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
 kernel; `reference_attention` averages V there instead.  Neither value is
 meaningful; callers must not consume those rows.
 
 The TPU kernel falls back to `reference_attention` for sequence lengths
-that do not tile (`_fit_block`); the Hopper kernel masks ragged tiles and
-takes any length, so the port has no such fallback.
+that do not tile (`_fit_block`); the Hopper kernels mask ragged tiles and
+take any length, so the port has no such fallback.
 """
 from __future__ import annotations
 
@@ -103,7 +116,10 @@ def flash_attention_plain(q, k, v, causal=False, scale=None):
     """The flash forward written in PyTorch: online softmax over 64-row
     K/V tiles, fp32 statistics and accumulator, bottom-right causal mask,
     fully-masked rows -> 0 with lse = -inf.  Returns (out in q.dtype,
-    lse [B, H, Sq] fp32).  Computes in fp32 whatever the input dtype."""
+    lse [B, H, Sq] fp32).  Computes in fp32 whatever the input dtype,
+    except that P is rounded to the input dtype before the P.v product
+    (the TPU kernel's `p.astype(vs.dtype)`); the row sum stays on the fp32
+    P."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
@@ -126,7 +142,7 @@ def flash_attention_plain(q, k, v, causal=False, scale=None):
         alpha = torch.where(torch.isfinite(m), torch.exp(m - safe),
                             torch.zeros_like(m))
         l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = alpha * acc + torch.matmul(p, vs)
+        acc = alpha * acc + torch.matmul(p.to(q.dtype).float(), vs)
         m = m_new
     denom = l.clamp_min(1e-30)
     out = (acc / denom).to(q.dtype)
@@ -156,6 +172,25 @@ def _check_cuda_args(q, k, v):
                              f"head dim; {name} has stride {t.stride(3)}")
     if b > 65535 or h > 65535:
         raise ValueError("flash_attention kernel: B and H must be <= 65535")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma_view(name, t)
+
+
+def _check_tma_view(name, t):
+    """What TMA refuses in the bf16 kernels' tensor maps: a base address
+    that is not 16-byte aligned, a batch, head or sequence stride (of a
+    dim longer than 1) whose byte size is not a multiple of 16."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention bf16 kernels need 16-byte "
+                         f"aligned tensors (TMA); {name} starts at byte "
+                         f"offset {t.data_ptr() % 16} (storage offset "
+                         f"{t.storage_offset()})")
+    for dim in range(3):
+        if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
+            raise ValueError(f"flash_attention bf16 kernels need byte "
+                             f"strides that are multiples of 16 (TMA); "
+                             f"{name} has strides {t.stride()}")
 
 
 def _kernel_lib():
@@ -250,8 +285,10 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, dd, causal=False,
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, dd, causal=False,
                                   scale=None):
     """The dK/dV kernel written in PyTorch: a loop over 64-row q tiles,
-    dV += P^T dO and dK += scale * dS^T q, fp32 throughout.  Returns
-    (dk, dv) in the input dtype."""
+    dV += P^T dO and dK += scale * dS^T q, in fp32 except that P and dS
+    are rounded to the input dtype before the two products (the TPU
+    kernel's `p.astype(do.dtype)`, `.astype(q.dtype)`).  Returns (dk, dv)
+    in the input dtype."""
     scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
     sq, sk = q.shape[2], k.shape[2]
     qf, _, dof, tile = _bwd_tiles(q, k, v, do, lse, dd, causal, scale)
@@ -259,7 +296,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, dd, causal=False,
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     for q0 in range(0, sq, _BLOCK_Q):
         q1 = min(q0 + _BLOCK_Q, sq)
-        p, ds = tile(q0, q1, 0, sk)
+        p, ds = (x.to(q.dtype).float() for x in tile(q0, q1, 0, sk))
         dv = dv + torch.matmul(p.transpose(-1, -2), dof[:, :, q0:q1])
         dk = dk + torch.matmul(ds.transpose(-1, -2), qf[:, :, q0:q1]) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -307,6 +344,8 @@ def _check_bwd_args(q, k, v, do, lse, dd):
                              f"{t.dtype}")
     if not (do.device == lse.device == dd.device == q.device):
         raise ValueError("flash backward: inputs on different devices")
+    if do.dtype == torch.bfloat16:
+        _check_tma_view("dO", do)
 
 
 def _bwd_launch(fn, outs, q, k, v, do, lse, dd, causal, scale):

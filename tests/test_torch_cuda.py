@@ -1,7 +1,9 @@
 """Tests of the port that need the card: the hand-written kernels (flash
 forward, flash backward dQ and dK/dV, fused cross-entropy) against their
-plain versions, the GPU Predictor against the CPU one, and a training step
-on the GPU against the same step on the CPU.
+plain versions (in bf16 the forward and dK/dV are the wgmma kernels: the
+cases cover D = 32, 64, 128, ragged S and causal Sq != Sk), the GPU
+Predictor against the CPU one, and a training step on the GPU against
+the same step on the CPU.
 Marked `cuda`; each skips (inside the test) where no CUDA device is
 present.  On a GPU machine:
 
@@ -28,6 +30,9 @@ def _need_cuda():
     (2, 4, 96, 160, 32, torch.float32, True),
     (2, 4, 160, 96, 128, torch.bfloat16, True),
     (1, 2, 200, 200, 64, torch.bfloat16, False),
+    (1, 2, 200, 200, 32, torch.bfloat16, False),
+    (1, 2, 200, 200, 128, torch.bfloat16, False),
+    (1, 2, 384, 512, 64, torch.bfloat16, True),
 ])
 def test_kernel_matches_plain_version(b, h, sq, sk, d, dtype, causal):
     _need_cuda()
@@ -84,6 +89,9 @@ def test_gpu_predictor_matches_cpu_predictor(tmp_path):
     (2, 4, 96, 160, 32, torch.float32, True),
     (2, 4, 160, 96, 128, torch.bfloat16, True),
     (1, 2, 200, 200, 64, torch.bfloat16, False),
+    (1, 2, 200, 200, 32, torch.bfloat16, False),
+    (1, 2, 200, 200, 128, torch.bfloat16, False),
+    (1, 2, 384, 512, 64, torch.bfloat16, True),
 ])
 def test_backward_kernels_match_plain_version(b, h, sq, sk, d, dtype,
                                               causal):

@@ -6,10 +6,14 @@ as tests/test_attention.py runs them.  Inputs and the output cotangent come
 from a seeded numpy RNG and go to both packages.
 
 Tolerances: fp32 atol=rtol=1e-5 (same algorithm, different summation
-order); bf16 atol=rtol=2e-2 against the reference in bf16 (the Pallas
-kernels round P and dS to bf16 before their products, the port's plain
-version keeps them fp32, and each output is rounded to bf16 once more;
-gradients here are O(1), so that is a few bf16 ulps).
+order); bf16 atol=rtol=2e-2 through the public op against the reference
+in bf16 (the JAX op tiles differently, its dQ kernel rounds dS to bf16
+where the port's dQ plain version keeps it fp32, and each output is
+rounded to bf16 once more; gradients here are O(1), so that is a few bf16
+ulps); atol=rtol=1e-2 for the dK/dV plain version against the Pallas
+`_flash_bwd_dkv_kernel` itself on the same out, lse and D: both round P
+and dS to bf16 before their products, so they differ by the summation
+order and one rounding of the output.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ from paddle_tpu_torch.ops import attention as tattn
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+BF16_KERNEL_TOL = dict(rtol=1e-2, atol=1e-2)
 
 
 def _inputs(b, h, sq, sk, d, seed):
@@ -69,6 +74,56 @@ def test_flash_bwd_matches_pallas_bf16():
                            dtype="bfloat16")
     for tag, r, g in zip(("dq", "dk", "dv"), ref, got):
         np.testing.assert_allclose(g, r, err_msg=tag, **BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_dkv_plain_matches_pallas_kernel(causal, d):
+    """flash_attention_bwd_dkv_plain in bf16 against the Pallas dK/dV
+    kernel (`_flash_bwd`, interpret mode) on the same inputs: out and lse
+    from the Pallas forward, D = rowsum(dO * O) from the same out."""
+    q, k, v, g = _inputs(2, 2, 128, 128, d, seed=20 + d + causal)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    scale = 1.0 / float(np.sqrt(d))
+    out, lse = jattn._flash_fwd(jq, jk, jv, causal, scale, 64, 64,
+                                interpret=True)
+    _, ref_dk, ref_dv = jattn._flash_bwd(jq, jk, jv, out, lse, jg, causal,
+                                         scale, 64, 64, interpret=True)
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v, g))
+    tout = torch.tensor(np.asarray(out.astype(jnp.float32))).to(
+        torch.bfloat16)
+    tlse = torch.tensor(np.asarray(lse)[..., 0])
+    dd = (tg.float() * tout.float()).sum(-1)
+    dk, dv = tattn.flash_attention_bwd_dkv_plain(tq, tk, tv, tg, tlse, dd,
+                                                 causal)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    for tag, got, ref in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   err_msg=tag, **BF16_KERNEL_TOL)
+
+
+def test_dkv_plain_rounds_p_and_ds_like_the_kernels():
+    """In bf16 the dK/dV plain version multiplies P and dS rounded to bf16
+    (one q tile: dV = round(P)^T dO, dK = scale round(dS)^T q exactly)."""
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in _inputs(1, 1, 32, 48, 32, seed=6))
+    scale = 1.0 / np.sqrt(32)
+    out, lse = tattn.flash_attention_plain(q, k, v)
+    dd = (g.float() * out.float()).sum(-1)
+    dk, dv = tattn.flash_attention_bwd_dkv_plain(q, k, v, g, lse, dd)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(g.float(), v.float().transpose(-1, -2)) -
+              dd[..., None])
+    r = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    want_dv = torch.matmul(r(p).transpose(-1, -2), g.float())
+    want_dk = torch.matmul(r(ds).transpose(-1, -2), q.float()) * scale
+    torch.testing.assert_close(dv, want_dv.to(torch.bfloat16), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(dk, want_dk.to(torch.bfloat16), rtol=0,
+                               atol=0)
 
 
 def test_plain_dq_dkv_split_equals_whole():
