@@ -21,10 +21,12 @@ is present.  Phases:
                strided head-split views the encoder produces), a causal
                case with Sq != Sk both ways (the Sq < Sk one in fp32 and
                bf16), and ragged S = 200 at D = 32 and 128 (fp32 and
-               bf16: fp32 runs the FMA kernels, bf16 the wgmma kernels).
-               Tolerances: fp32 atol=rtol=1e-4 (summation order differs);
-               bf16 atol=rtol=2e-2 against the plain version, which
-               rounds P (and in dK/dV dS) to bf16 where the kernels do.
+               bf16: the fp32 forward runs the 3xTF32 kernel and the fp32
+               backward the FMA kernels, bf16 the wgmma kernels).
+               Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
+               3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
+               against the plain version, which rounds P and dS to bf16
+               where the kernels do.
                One JSON line per case: kernel_ms, plain_ms and library_ms
                (torch scaled_dot_product_attention, a yardstick the port
                never calls) as device time per call (CUDA events around
@@ -34,10 +36,13 @@ is present.  Phases:
                kernel_ms_events (CUDA events around calls made one
                after another, host launch cost included: the earlier
                method); bound_ms (max of FLOPs over peak and bytes over
-               bandwidth, from the H100 SXM datasheet).  At
-               [8, 12, 512, 64] bf16 the forward and dK/dV also get
-               kernel_ms_cold: a 64 MB write before every launch, so L2
-               (50 MB) holds none of the inputs.
+               bandwidth, from the H100 SXM datasheet, for the units the
+               kernel uses: the fp32 forward's three TF32 products over
+               the TF32 peak, with fma_bound_ms beside it for fp32
+               FMAs).  At [8, 12, 512, 64] the bf16 forward, dQ and dK/dV
+               and the fp32 forward also get kernel_ms_cold: a 64 MB write
+               before every launch, so L2 (50 MB) holds none of the
+               inputs.
                Then the flash backward kernels (dQ, dK/dV) against
                flash_attention_bwd_dq_plain / _dkv_plain at the same nine
                cases; library_ms is the whole backward of torch
@@ -80,11 +85,13 @@ is present.  Phases:
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a training step (device time by kernel,
-device busy share) and the host time of encoding one /predict response.
+device busy share, the fp32 flash forward's device ms in the served
+batch) and the host time of encoding one /predict response.
 
-The line before the last is the kernels summary (launches counted over
-the training run of phase 5b), the last line {"ok": true, "device":
-{...}}.
+The line before the last is the kernels summary: the four bf16 kernels
+of the training step (launches counted over the training run of phase
+5b) and the fp32 forward at the serving shape (launches counted over the
+served burst of phase 4); the last line {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -100,18 +107,21 @@ import urllib.request
 import numpy as np
 
 # H100 SXM datasheet peaks (dense): fp32 outside the tensor cores, bf16
-# on the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# and TF32 on the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 BERT = dict(vocab=30522, seq=512, hidden=768, layers_n=12, heads=12)
 ROWS_PER_POST = (2, 2, 2, 2)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
 KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
-# the kernels of the training path and the TPU kernels they replace
+# the kernels of the training and serving paths and the TPU kernels they
+# replace
 KERNELS = {
     "flash_attn_fwd": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
                        "paddle_tpu/ops/attention.py:125"),
+    "flash_attn_fwd_fp32": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+                            "paddle_tpu/ops/attention.py:125"),
     "flash_attn_bwd_dq": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
                           "paddle_tpu/ops/attention.py:240"),
     "flash_attn_bwd_dkv": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -209,13 +219,19 @@ def roofline(flops, nbytes, dtype):
 
 
 def bound(b, h, sq, sk, d, dtype, causal):
-    """(bound_ms, bound_by) for one forward call: each input read once,
-    each output written once; FLOPs of the two products over the
-    (query, key) pairs the mask leaves visible."""
+    """(bound_ms, bound_by, fma_bound_ms) for one forward call: each
+    input read once, each output written once; FLOPs of the two products
+    over the (query, key) pairs the mask leaves visible.  Against the
+    units the kernel uses: bf16 on the tensor cores; fp32 as three TF32
+    products each (3xTF32) on the tensor cores, with the bound on fp32
+    FMAs beside it (None in bf16)."""
     esize = 4 if dtype == "float32" else 2
     nbytes = esize * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
     flops = 4.0 * b * h * d * visible_pairs(sq, sk, causal)
-    return roofline(flops, nbytes, dtype)
+    if dtype != "float32":
+        return roofline(flops, nbytes, dtype) + (None,)
+    return roofline(3 * flops, nbytes, "tf32") + \
+        (roofline(flops, nbytes, "float32")[0],)
 
 
 def bwd_bounds(b, h, sq, sk, d, dtype, causal):
@@ -288,7 +304,8 @@ def kernel_phase(torch, attn):
             attn.flash_attention_cuda(q, k, v, causal=causal)
 
         dname = "float32" if dt == torch.float32 else "bfloat16"
-        bound_ms, bound_by = bound(b, h, sq, sk, d, dname, causal)
+        bound_ms, bound_by, fma_bound_ms = bound(b, h, sq, sk, d, dname,
+                                                 causal)
         row = dict(case=name, shape=[b, h, sq, sk, d], dtype=dname,
                    causal=causal, strided=strided, max_abs_err=err, tol=tol,
                    kernel_ms=device_ms(torch, kern, 20),
@@ -300,7 +317,9 @@ def kernel_phase(torch, attn):
                        torch, lambda: F.scaled_dot_product_attention(
                            q, k, v, attn_mask=mask), 20),
                    bound_ms=bound_ms, bound_by=bound_by)
-        if name == "slice_bf16":
+        if fma_bound_ms is not None:
+            row["fma_bound_ms"] = fma_bound_ms
+        if name in ("slice_bf16", "slice_fp32"):
             row["kernel_ms_cold"] = device_ms(torch, kern, 10,
                                               flush=l2_flush(torch))
         log(row)
@@ -364,7 +383,7 @@ def bwd_kernel_phase(torch, attn):
                        plain_ms=device_ms(torch, lambda: plain_fn(*args), 1),
                        library_ms=library_ms, bound_ms=bounds[kern][0],
                        bound_by=bounds[kern][1])
-            if name == "slice_bf16" and kern == "dkv":
+            if name == "slice_bf16":
                 row["kernel_ms_cold"] = device_ms(
                     torch, lambda: cuda_fn(*args), 10, flush=l2_flush(torch))
             log(dict(phase="kernel_bwd", **row))
@@ -433,9 +452,12 @@ def post(url, payload):
     return body, time.perf_counter() - t0
 
 
-def profile_phase(torch, predictor, feeds, reply):
-    """Where a served batch's time goes: device time by kernel over one
-    Predictor.run, and the host time of JSON-encoding one response."""
+def profile_phase(torch, predictor, feeds, reply, runs=3):
+    """Where a served batch's time goes: device time by kernel over
+    `runs` Predictor.runs in one profiler window (per run), and the host
+    time of JSON-encoding one response.  Device busy is given with and
+    without memory copies: the output's copy to pageable host memory
+    varies with the host, the kernels do not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     predictor.run(feeds)
@@ -443,22 +465,33 @@ def profile_phase(torch, predictor, feeds, reply):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        predictor.run(feeds)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(runs):
+            predictor.run(feeds)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / runs
     # device-side events only (kernels, memcpy): the aten:: rows carry
     # the same device time again
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+
+    def per_run_ms(events):
+        return sum(e.self_device_time_total for e in events) / 1e3 / runs
+
+    busy_ms = per_run_ms(dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    flash = [e for e in dev if "flash_fwd" in e.key]
     t0 = time.perf_counter()
     json.dumps(reply)
-    log({"phase": "profile", "rows": int(feeds[0].shape[0]),
+    log({"phase": "profile", "rows": int(feeds[0].shape[0]), "runs": runs,
          "run_wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+         "device_kernel_ms": per_run_ms(
+             [e for e in dev if not e.key.startswith("Mem")]),
          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+         "flash_fwd_fp32_device_ms": per_run_ms(flash),
+         "flash_fwd_fp32_launches": sum(e.count for e in flash) / runs,
          "json_encode_one_reply_ms": (time.perf_counter() - t0) * 1e3,
-         "top_device_ms": [[e.key[:80], e.count,
-                            e.self_device_time_total / 1e3] for e in top]})
+         "top_device_ms_per_run": [[e.key[:80], e.count / runs,
+                                    e.self_device_time_total / 1e3 / runs]
+                                   for e in top]})
 
 
 def slice_phase(torch, seed, tmp, profile=False):
@@ -843,13 +876,16 @@ def main():
 
     fwd = kernel_phase(torch, attn)
     bwd = bwd_kernel_phase(torch, attn)
-    # the two wgmma kernels against their library yardsticks at the
-    # training shape (PERF.md: forward <= 2x SDPA, dK/dV <= 1x the whole
-    # SDPA backward); recorded, not gated
-    f, dkv = fwd["slice_bf16"], bwd["slice_bf16"]["dkv"]
-    log({"phase": "kernel_vs_library",
-         "flash_fwd_bf16": f["kernel_ms"] / f["library_ms"],
-         "flash_bwd_dkv_bf16": dkv["kernel_ms"] / dkv["library_ms"]})
+    # the redesigned kernels against their library yardsticks at the
+    # training / serving shape (PERF.md: bf16 forward <= 2x SDPA, dQ <=
+    # 0.75x and dK/dV <= 1x the whole SDPA backward, fp32 forward <= 1x
+    # SDPA fp32); recorded, not gated
+    log({"phase": "kernel_vs_library", **{
+        tag: r["kernel_ms"] / r["library_ms"] for tag, r in (
+            ("flash_fwd_bf16", fwd["slice_bf16"]),
+            ("flash_bwd_dq_bf16", bwd["slice_bf16"]["dq"]),
+            ("flash_bwd_dkv_bf16", bwd["slice_bf16"]["dkv"]),
+            ("flash_fwd_fp32", fwd["slice_fp32"]))}})
     xent = xent_kernel_phase(torch, fx)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -859,11 +895,15 @@ def main():
     launches = train_phase(torch, args.seed, args.profile)
 
     # each kernel at the training shape: [8, 12, 512, 64] attention in
-    # bf16 (the AMP program's dtype), [4096, 30522] bf16 logits
+    # bf16 (the AMP program's dtype), [4096, 30522] bf16 logits; and the
+    # fp32 forward at the serving shape (a batch of 8 rows: the same
+    # [8, 12, 512, 64] on the head-split views), launches over the burst
+    launches["flash_attn_fwd_fp32"] = serve_launches
     rows = {"flash_attn_fwd": fwd["slice_bf16"],
             "flash_attn_bwd_dq": bwd["slice_bf16"]["dq"],
             "flash_attn_bwd_dkv": bwd["slice_bf16"]["dkv"],
-            "fused_xent_fwd": xent["train_bf16"]}
+            "fused_xent_fwd": xent["train_bf16"],
+            "flash_attn_fwd_fp32": fwd["slice_fp32"]}
     summary = []
     for name, r in rows.items():
         source, replaces = KERNELS[name]
@@ -875,7 +915,9 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "kernel_ms_cold" in r:
             summary[-1]["ms_cold"] = r["kernel_ms_cold"]
-    summary[0]["launches_serving_path"] = serve_launches
+        if "fma_bound_ms" in r:
+            summary[-1]["fma_bound_ms"] = r["fma_bound_ms"]
+    summary[-1]["launches_per_served_batch"] = BERT["layers_n"]
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -64,16 +64,44 @@
 //   At the training shape the grid is 4 x 12 x 8 = 384 CTAs of 384
 //   threads, one CTA per SM (registers), 2.9 waves on 132 SMs.
 //
-// fp32 (serving, the fp32 check step): `flash_fwd_kernel`, FMAs.
-//   One CTA of 128 threads per (64-row q tile, head, batch); K/V tiles of
-//   64 rows are staged in shared memory as fp32 (rows padded to D + 1
-//   floats so the lanes of a warp hit distinct banks).  Thread t owns 4
-//   query rows (row group t/8) and, of every 64-key tile, the 8 keys
-//   t%8 + 8j; the 8 threads of a row group combine row max and row sum
-//   with three xor-shuffles.  Bound: at S = 512, D = 64 the FLOPs over
-//   67 TFLOP/s of fp32 FMA are ~6x the time of moving the bytes once.
-//   Kept fp32 (TF32 would break the serving path's 2e-4 gate); register
-//   tiling with vector loads is the next step for it.
+// fp32 (serving, the fp32 check step): `flash_fwd_tf32_kernel`, 3xTF32 on
+//   the tensor cores.  Bound at S = 512, D = 64: 6.4 GFLOP over the 67
+//   TFLOP/s of fp32 FMA is 96 us, ~6x the time of moving the bytes once,
+//   so a kernel on the FMA units is held to that.  The tensor cores take
+//   fp32 only as TF32 (10-bit mantissa), so each operand x is split into
+//   hi = x with its 13 low mantissa bits cleared and lo = x - hi (exact),
+//   and each product is taken as lo*hi + hi*lo + hi*hi, accumulated in
+//   fp32 (the 3xTF32 of CUTLASS's OpMultiplyAddFastF32): the dropped
+//   lo*lo term and lo's truncation to TF32 leave a relative error of
+//   ~2^-20 per product, at the order of an fp32 rounding and not TF32's
+//   three digits.  The split is one AND and one subtract: the tensor
+//   cores read only a TF32 operand's top 19 bits, so no conversion
+//   instruction is needed (each warp splits every K and V element it
+//   reads, so the split's cost is paid 4 times per tile).  Three TF32
+//   products at 495 TFLOP/s bound the same work at 39 us.
+//   `mma.sync.m16n8k8` rather than wgmma, because wgmma's TF32 B
+//   operand must be K-major and v is MN-major for P v; mma.sync
+//   fragments are loaded per thread, so V needs no transposed copy.
+//   * one CTA of 4 warps per (64 query rows, head, batch), 16 rows per
+//     warp; the warp's q fragments are loaded once, split into hi/lo and
+//     kept in registers for the whole K/V loop (at D = 128 they would
+//     spill, so the raw q waits in the thread's own shared-memory slots
+//     and is split per use);
+//   * K/V tiles of 64 keys are double-buffered in shared memory by
+//     cp.async (16-byte copies where the view's addresses allow it, else
+//     4-byte ones; rows past Sk zero-filled), rows padded by 4 floats so
+//     the fragment loads hit 32 distinct banks;
+//   * S = q k^T and the online softmax run on the C fragment (a row's
+//     values over a quad of 4 lanes, reduced with xor-shuffles 1 and 2;
+//     log2 units, exp2f);
+//   * P's C fragment (columns 2(l%4), +1 of each 8-key tile) is not the
+//     layout of a TF32 A fragment (columns l%4, l%4 + 4).  Rather than
+//     re-lay it with shuffles, the P v product takes the tile's keys in
+//     the permuted order 0, 2, 4, 6, 1, 3, 5, 7: A = P's fragment as it
+//     stands, and B reads v rows 2(l%4) and 2(l%4) + 1 to match.  A sum
+//     over keys does not depend on their order;
+//   * keys past Sk and above the causal diagonal are masked to -inf;
+//     rows past Sq are computed on zero q and not stored.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -112,183 +140,340 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: FMA kernel
+// fp32: 3xTF32 on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // key rows per K/V tile
-constexpr int THREADS = 128;
-constexpr int ROWS = 4;       // query rows per thread (16 row groups)
-constexpr int GROUP = 8;      // threads sharing a row group
-constexpr int KCOLS = BK / GROUP;  // keys per thread per tile
-constexpr int PP = BK + 2;    // padded P row: 4 row groups -> 4 bank windows
+namespace tf32 {
 
+constexpr int BQ = 64;        // query rows per CTA: 16 per warp
+constexpr int BK = 64;        // keys per K/V tile
+constexpr int THREADS = 128;
+constexpr int PAD = 4;        // floats of padding per shared-memory row
+
+// two stages of the K tile and of the V tile, [BK][D + PAD] fp32 each;
+// at D = 128 also the q fragments, D / 2 floats per thread
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PP);
+  return sizeof(float) *
+         (size_t)(4 * BK * (D + PAD) + (D > 64 ? THREADS * D / 2 : 0));
+}
+
+// x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
+// TF32 value), lo = x - hi has at most 13 significant bits and is exact
+// in fp32.  The tensor cores read only the top 19 bits of a .tf32
+// operand, so lo enters its products truncated to TF32 (a relative
+// error of 2^-21 of x), with no conversion instruction.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b: m16n8k8, A row-major (4 TF32 registers), B column-major (2),
+// fp32 accumulator
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two small cross terms first, then hi hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&bhi)[2],
+                                     const uint32_t (&blo)[2]) {
+  mma(d, alo, bhi);
+  mma(d, ahi, blo);
+  mma(d, ahi, bhi);
+}
+
+// the warp's q rows as A fragments, one per 8 columns of D: split into
+// hi/lo once and kept in registers (D <= 64), or kept raw in the
+// thread's own shared-memory slots and split per use (D = 128, where
+// registers would spill)
+template <int D, bool kInRegs = (D <= 64)>
+struct QFrags;
+
+template <int D>
+struct QFrags<D, true> {
+  uint32_t hi[D / 8][4], lo[D / 8][4];
+  __device__ __forceinline__ explicit QFrags(float*) {}
+  __device__ __forceinline__ void set(int ks, int i, float x) {
+    split(x, hi[ks][i], lo[ks][i]);
+  }
+  __device__ __forceinline__ void get(int ks, uint32_t (&h)[4],
+                                      uint32_t (&l)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[i] = hi[ks][i];
+      l[i] = lo[ks][i];
+    }
+  }
+};
+
+template <int D>
+struct QFrags<D, false> {
+  float* x;  // slot (ks, i) of thread t at x[(4 ks + i) THREADS + t]
+  __device__ __forceinline__ explicit QFrags(float* smem)
+      : x(smem + threadIdx.x) {}
+  __device__ __forceinline__ void set(int ks, int i, float v) {
+    x[(4 * ks + i) * THREADS] = v;
+  }
+  __device__ __forceinline__ void get(int ks, uint32_t (&h)[4],
+                                      uint32_t (&l)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(x[(4 * ks + i) * THREADS], h[i], l[i]);
+  }
+};
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool vec16, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  // src-size 0 zero-fills the destination and reads nothing
+  if (vec16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+// rows [k0, k0 + BK) of a strided [Sk, D] head slice into [BK][D + PAD]
+// shared memory; rows past Sk are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int64_t row_stride, int k0, int Sk,
+                                          bool vec16) {
+  constexpr int SD = D + PAD;
+  const int width = vec16 ? 4 : 1;  // floats per copy
+  const int per_row = D / width;
+  for (int i = threadIdx.x; i < BK * per_row; i += THREADS) {
+    const int r = i / per_row, c = (i % per_row) * width, kr = k0 + r;
+    const bool valid = kr < Sk;
+    cp_async(dst + r * SD + c, valid ? src + (int64_t)kr * row_stride + c
+                                     : src,
+             vec16, valid);
+  }
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Sk,
-                 int64_t q_sb, int64_t q_sh, int64_t q_ss,
-                 int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                 int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                 int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DCOLS = D / GROUP;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;             // [BQ][DP]
-  float* sK = sQ + BQ * DP;     // [BK][DP]
-  float* sV = sK + BK * DP;     // [BK][DP]
-  float* sP = sV + BK * DP;     // [BQ][PP]
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int H, int Sq, int Sk,
+                      int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                      int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                      int64_t v_sb, int64_t v_sh, int64_t v_ss, int causal,
+                      float scale_log2, int vec16) {
+  constexpr int SD = D + PAD;   // shared row stride (floats)
+  constexpr int KS = D / 8;     // k8 steps of q k^T / 8-column tiles of O
+  constexpr int NT = BK / 8;    // 8-key tiles of S / k8 steps of P v
+  // q k^T over the head dim: fully unrolled where q sits in registers;
+  // at D = 128 (q in shared memory) partly, which keeps it from spilling
+  constexpr int KS_UNROLL = D <= 64 ? KS : 4;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  // stage s: K at smem + 2 s BK SD, V right after it; then the q slots
 
-  const int tid = threadIdx.x;
-  const int rg = tid / GROUP;
-  const int cg = tid % GROUP;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
   const int q0 = blockIdx.x * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
-  const float* qb = q + bb * q_sb + hh * q_sh;
   const float* kb = k + bb * k_sb + hh * k_sh;
   const float* vb = v + bb * v_sb + hh * v_sh;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D, qr = q0 + r;
-    sQ[r * DP + c] = qr < Sq ? qb[(int64_t)qr * q_ss + c] : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][DCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DCOLS; ++j) acc[i][j] = 0.f;
-  }
+  const int rw0 = q0 + 16 * warp;  // the warp's first row
+  const int row = rw0 + g;         // the thread's rows: row, row + 8
 
   const int shift = Sk - Sq;  // bottom-right causal alignment
   int n_tiles = (Sk + BK - 1) / BK;
   if (causal) {
-    // keys visible to the tile's last row: [0, q0 + BQ + shift)
-    const int hi = q0 + BQ + shift;
-    const int need = hi <= 0 ? 0 : (hi + BK - 1) / BK;
-    n_tiles = min(n_tiles, need);
+    const int hi = q0 + BQ + shift;  // keys visible to the CTA's last row
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
   }
+  if (n_tiles > 0) {
+    load_tile<D>(smem, kb, k_ss, 0, Sk, vec16);
+    load_tile<D>(smem + BK * SD, vb, v_ss, 0, Sk, vec16);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // A fragment of m16n8k8 (TF32): a0 (g, t4), a1 (g + 8, t4),
+  // a2 (g, t4 + 4), a3 (g + 8, t4 + 4); rows past Sq are zero
+  QFrags<D> qf(smem + 4 * BK * SD);
+  {
+    const float* qb = q + bb * q_sb + hh * q_sh;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row + 8 * (i % 2), c = 8 * ks + t4 + 4 * (i / 2);
+        qf.set(ks, i, r < Sq ? __ldg(qb + (int64_t)r * q_ss + c) : 0.f);
+      }
+  }
+
+  float o_acc[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o_acc[j][i] = 0.f;
+  // running max (log2 units) and this thread's share of the row sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // Q is staged / the previous tile's reads are done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D, kr = k0 + r;
-      const bool ok = kr < Sk;
-      sK[r * DP + c] = ok ? kb[(int64_t)kr * k_ss + c] : 0.f;
-      sV[r * DP + c] = ok ? vb[(int64_t)kr * v_ss + c] : 0.f;
+    if (t + 1 < n_tiles) {
+      float* nxt = smem + ((t + 1) & 1) * 2 * BK * SD;
+      load_tile<D>(nxt, kb, k_ss, k0 + BK, Sk, vec16);
+      load_tile<D>(nxt + BK * SD, vb, v_ss, k0 + BK, Sk, vec16);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
-    __syncthreads();
+    __syncthreads();  // tile t has landed for every thread
+    const float* sK = smem + (t & 1) * 2 * BK * SD;
+    const float* sV = sK + BK * SD;
 
-    float s[ROWS][KCOLS];
+    // S = q k^T.  B fragment: b0 (k = t4, n = g), b1 (k = t4 + 4), i.e.
+    // k row 8 nt + g, columns 8 ks + t4 and + 4
+    float sacc[NT][4];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], kv[KCOLS];
+      for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.f;
+#pragma unroll KS_UNROLL
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ahi[4], alo[4];
+      qf.get(ks, ahi, alo);
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = sQ[(rg * ROWS + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < KCOLS; ++j) kv[j] = sK[(cg + GROUP * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < KCOLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qpos = q0 + rg * ROWS + i;
-      float rmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        const int kpos = k0 + cg + GROUP * j;
-        const bool valid = kpos < Sk && (!causal || kpos <= qpos + shift);
-        const float x = valid ? s[i][j] * scale : -INFINITY;
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
-      }
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 4));
-      const float m_new = fmaxf(m[i], rmax);
-      // fully-masked so far: keep everything at zero (exp(-inf - -inf)
-      // would be nan)
-      const bool live = m_new != -INFINITY;
-      const float safe = live ? m_new : 0.f;
-      const float alpha = m[i] != -INFINITY ? expf(m[i] - safe) : 0.f;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        const float p = live ? expf(s[i][j] - safe) : 0.f;
-        sP[(rg * ROWS + i) * PP + cg + GROUP * j] = p;
-        psum += p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 4);
-      l[i] = alpha * l[i] + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DCOLS; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // P tile complete
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = sP[(rg * ROWS + i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DCOLS; ++j) {
-        const float vv = sV[c * DP + cg + GROUP * j];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* kr = sK + (8 * nt + g) * SD + 8 * ks + t4;
+        uint32_t bhi[2], blo[2];
+        split(kr[0], bhi[0], blo[0]);
+        split(kr[4], bhi[1], blo[1]);
+        mma3(sacc[nt], ahi, alo, bhi, blo);
       }
     }
+
+    // scale to log2 units; mask keys past Sk (zero-filled) and above the
+    // causal diagonal.  C fragment: c0, c1 (g, 2 t4, +1), c2, c3 (g + 8)
+    const bool need_mask =
+        k0 + BK > Sk || (causal && k0 + BK - 1 > rw0 + shift);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = sacc[nt][i] * scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * nt + 2 * t4 + (i % 2);
+          const int qpos = row + 8 * (i / 2);
+          if (kpos >= Sk || (causal && kpos > qpos + shift)) x = -INFINITY;
+        }
+        sacc[nt][i] = x;
+      }
+
+    // online softmax, rows row (h = 0) and row + 8 (h = 1)
+    float alpha[2], safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(sacc[nt][2 * h], sacc[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row masked so far keeps m = -inf and P = exp2(-inf - 0) = 0
+      safe[h] = mx == -INFINITY ? 0.f : mx;
+      alpha[h] = m[h] == -INFINITY ? 0.f : exp2f(m[h] - safe[h]);
+      m[h] = mx;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(sacc[nt][i] - safe[i / 2]);
+        psum[i / 2] += p;
+        sacc[nt][i] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + psum[h];
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_acc[j][i] *= alpha[i / 2];
+
+    // O += P v over the keys of 8-key tile nt taken in the order
+    // 0, 2, 4, 6, 1, 3, 5, 7: A k-index t4 is key 2 t4 (P's c0 / c2) and
+    // k-index t4 + 4 is key 2 t4 + 1 (c1 / c3); B reads v rows
+    // 8 nt + 2 t4 (b0) and + 1 (b1), column 8 j + g
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t ahi[4], alo[4];
+      split(sacc[nt][0], ahi[0], alo[0]);
+      split(sacc[nt][2], ahi[1], alo[1]);
+      split(sacc[nt][1], ahi[2], alo[2]);
+      split(sacc[nt][3], ahi[3], alo[3]);
+      const float* vr = sV + (8 * nt + 2 * t4) * SD + g;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t bhi[2], blo[2];
+        split(vr[8 * j], bhi[0], blo[0]);
+        split(vr[SD + 8 * j], bhi[1], blo[1]);
+        mma3(o_acc[j], ahi, alo, bhi, blo);
+      }
+    }
+    __syncthreads();  // stage t & 1 is refilled with tile t + 2
   }
 
-  const int64_t row0 = ((int64_t)bb * H + hh) * Sq;
+  // epilogue: O / l, lse = (m + log2 l) ln 2; rows past Sq are not stored
+  const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qpos = q0 + rg * ROWS + i;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int qpos = row + 8 * h;
     if (qpos >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (row0 + qpos) * D;
+    const float denom = fmaxf(l[h], 1e-30f);
+    float* orow = o + (row_base + qpos) * D + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < DCOLS; ++j) orow[cg + GROUP * j] = acc[i][j] / denom;
-    if (cg == 0)
-      lse[row0 + qpos] = m[i] != -INFINITY ? m[i] + logf(denom) : -INFINITY;
+    for (int j = 0; j < KS; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(o_acc[j][2 * h] / denom, o_acc[j][2 * h + 1] / denom);
+    if (t4 == 0)
+      lse[row_base + qpos] =
+          m[h] == -INFINITY ? -INFINITY : (m[h] + log2f(denom)) * kLn2;
   }
 }
 
 template <int D>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int B, int H, int Sq, int Sk,
-                        const long long* st, int causal, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int H, int Sq, int Sk,
+                   const long long* st, int causal, float scale,
+                   cudaStream_t stream) {
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = opt_in_smem(flash_fwd_kernel<D>, smem, smem_set);
+  cudaError_t err = opt_in_smem(flash_fwd_tf32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
+  // 16-byte cp.async needs every K/V row start 16-byte aligned
+  bool vec16 = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+               reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (int i = 3; i < 9; ++i) vec16 = vec16 && st[i] % 4 == 0;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_tf32_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), H, Sq, Sk, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], causal, scale);
+      st[4], st[5], st[6], st[7], st[8], causal, scale * kLog2e,
+      (int)vec16);
   return cudaGetLastError();
 }
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialized wgmma kernel
@@ -564,12 +749,12 @@ typedef cudaError_t (*LaunchFn)(const void*, const void*, const void*, void*,
                                 void*, int, int, int, int, const long long*,
                                 int, float, cudaStream_t);
 
-// the kernel instance for (dtype, D): fp32 -> FMA kernel, bf16 -> wgmma
+// the kernel instance for (dtype, D): fp32 -> 3xTF32, bf16 -> wgmma
 LaunchFn pick(int dtype, int D) {
   if (dtype == 0) {
-    if (D == 32) return launch_fp32<32>;
-    if (D == 64) return launch_fp32<64>;
-    if (D == 128) return launch_fp32<128>;
+    if (D == 32) return tf32::launch<32>;
+    if (D == 64) return tf32::launch<64>;
+    if (D == 128) return tf32::launch<128>;
   } else if (dtype == 1) {
     if (D == 32) return wg::launch<32>;
     if (D == 64) return wg::launch<64>;

@@ -22,17 +22,20 @@ and `_flash_bwd_dkv_kernel`), or on the CPU their plain version
 `flash_attention_bwd_plain`.
 
 Which kernel runs, by dtype (dispatched inside each C entry):
-  * bf16 (the AMP training program): the forward and dK/dV are
+  * bf16 (the AMP training program): the forward, dQ and dK/dV are
     warp-specialized wgmma kernels fed by TMA (csrc/hopper.cuh holds the
     building blocks).  At the training shape the forward is bounded by
-    its bytes and dK/dV by its tensor-core operations; the earlier FMA
-    kernels never reached the tensor cores, which only wgmma does, with
-    operands in the swizzled shared-memory layout TMA writes.  TMA needs
-    16-byte aligned base addresses and byte strides that are multiples of
-    16, so the wrappers refuse other bf16 views.  dQ stays on its FMA
-    kernel;
-  * fp32 (serving, the fp32 check step): FMA kernels for all three, fp32
-    throughout (no TF32), bounded by the 67 TFLOP/s of fp32 FMA.
+    its bytes, dQ and dK/dV by their tensor-core operations; the tensor
+    cores are reached at full rate only through wgmma, with operands in
+    the swizzled shared-memory layout TMA writes.  TMA needs 16-byte
+    aligned base addresses and byte strides that are multiples of 16, so
+    the wrappers refuse other bf16 views.  All three round P (and dS) to
+    bf16 before the second product, where the TPU kernels do;
+  * fp32 (serving, the fp32 check step): the forward runs on the tensor
+    cores in 3xTF32 (each fp32 operand split into two TF32 halves and
+    each product taken as hi*hi + hi*lo + lo*hi, accumulated in fp32:
+    fp32-level error, not TF32's three digits); dQ and dK/dV stay on FMA
+    kernels, fp32 throughout, bounded by the 67 TFLOP/s of fp32 FMA.
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -269,7 +272,9 @@ def _bwd_tiles(q, k, v, do, lse, dd, causal, scale):
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, dd, causal=False,
                                  scale=None):
     """The dQ kernel written in PyTorch: a loop over 64-row K/V tiles,
-    dQ += scale * dS k, fp32 throughout.  `dd` is D = rowsum(dO * O)
+    dQ += scale * dS k, in fp32 except that dS is rounded to the input
+    dtype before the product (the TPU kernel's `ds.astype(ks.dtype)`; in
+    fp32 the rounding is the identity).  `dd` is D = rowsum(dO * O)
     [B, H, Sq] fp32.  Returns dq in the input dtype."""
     scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
     sq, sk = q.shape[2], k.shape[2]
@@ -278,6 +283,7 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, dd, causal=False,
     for k0 in range(0, sk, _BLOCK_K):
         k1 = min(k0 + _BLOCK_K, sk)
         _, ds = tile(0, sq, k0, k1)
+        ds = ds.to(q.dtype).float()
         dq = dq + torch.matmul(ds, kf[:, :, k0:k1]) * scale
     return dq.to(q.dtype)
 

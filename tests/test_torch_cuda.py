@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the hand-written kernels (flash
 forward, flash backward dQ and dK/dV, fused cross-entropy) against their
-plain versions (in bf16 the forward and dK/dV are the wgmma kernels: the
-cases cover D = 32, 64, 128, ragged S and causal Sq != Sk), the GPU
-Predictor against the CPU one, and a training step on the GPU against
+plain versions (in bf16 the forward, dQ and dK/dV are the wgmma kernels,
+in fp32 the forward is the 3xTF32 kernel: the cases cover D = 32, 64,
+128, ragged S, causal Sq != Sk and the strided head-split views), the
+GPU Predictor against the CPU one, and a training step on the GPU against
 the same step on the CPU.
 Marked `cuda`; each skips (inside the test) where no CUDA device is
 present.  On a GPU machine:
@@ -121,6 +122,109 @@ def test_backward_kernels_match_plain_version(b, h, sq, sk, d, dtype,
     for got, want in zip(grads, ref):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _bhsd(g, b, h, s, d, dtype, strided):
+    if strided:  # [B, S, H*D] -> [B, H, S, D], the view transpose2 makes
+        x = torch.randn(b, s, h * d, device="cuda", generator=g)
+        return x.to(dtype).reshape(b, s, h, d).permute(0, 2, 1, 3)
+    return torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
+
+
+# b, h, sq, sk, d, causal, strided
+_CASES = [
+    (2, 4, 128, 128, 32, False, False),
+    (2, 4, 256, 256, 64, False, True),
+    (2, 4, 128, 128, 128, False, False),
+    (1, 2, 96, 160, 64, True, False),
+    (1, 2, 160, 96, 64, True, False),
+    (1, 2, 200, 200, 64, False, False),
+    (1, 2, 200, 200, 128, True, False),
+    (1, 2, 200, 200, 32, False, True),
+]
+
+
+def _dq_args(b, h, sq, sk, d, causal, strided, seed=3):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (_bhsd(g, b, h, s, d, torch.bfloat16, strided)
+                   for s in (sq, sk, sk, sq))
+    out, lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    dd = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, lse, dd, causal
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,strided", _CASES)
+def test_wgmma_dq_matches_plain_version(b, h, sq, sk, d, causal, strided):
+    """The bf16 dQ kernel (wgmma) against flash_attention_bwd_dq_plain,
+    which rounds dS to bf16 where the kernel does: tolerance 2e-2 (the
+    plain version is computed in fp32, both round dq to bf16).  With
+    causal Sq > Sk the first Sq - Sk rows see no key: their dq is 0."""
+    _need_cuda()
+    args = _dq_args(b, h, sq, sk, d, causal, strided)
+    before = tattn.flash_attention_bwd_dq_cuda.launches
+    dq = tattn.flash_attention_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_bwd_dq_cuda.launches == before + 1
+    assert dq.dtype == torch.bfloat16 and dq.shape == (b, h, sq, d)
+    ref = tattn.flash_attention_bwd_dq_plain(*args)
+    torch.testing.assert_close(dq.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    if causal and sq > sk:
+        assert torch.all(dq[:, :, :sq - sk] == 0)
+
+
+def test_wgmma_dq_is_deterministic():
+    """No atomics: two launches on the same inputs give the same bits."""
+    _need_cuda()
+    args = _dq_args(2, 4, 384, 384, 64, True, True, seed=4)
+    first = tattn.flash_attention_bwd_dq_cuda(*args)
+    second = tattn.flash_attention_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_dq_wrapper_refuses_views_tma_refuses():
+    _need_cuda()
+    q, k, v, do, lse, dd, _ = _dq_args(1, 2, 64, 64, 64, False, False)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(q.shape)  # base address 2 bytes past 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.flash_attention_bwd_dq_cuda(shifted, k, v, do, lse, dd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.flash_attention_bwd_dq_cuda(q, k, v, shifted, lse, dd)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,strided", _CASES + [
+    (1, 2, 130, 70, 64, False, "offset")])
+def test_fp32_forward_matches_plain_version(b, h, sq, sk, d, causal,
+                                            strided):
+    """The fp32 forward (3xTF32 on the tensor cores) against
+    flash_attention_plain at 1e-4 (the serving path's kernel gate): out,
+    lse, the rows whose lse is -inf, and 0 on fully-masked rows.  The
+    "offset" case starts k and v 4 bytes past a 16-byte boundary, so the
+    kernel takes its 4-byte copies."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    if strided == "offset":
+        q = _bhsd(g, b, h, sq, d, torch.float32, False)
+        k, v = (torch.randn(b * h * sk * d + 1, device="cuda",
+                            generator=g)[1:].view(b, h, sk, d)
+                for _ in range(2))
+        assert k.data_ptr() % 16 == 4
+    else:
+        q, k, v = (_bhsd(g, b, h, s, d, torch.float32, strided)
+                   for s in (sq, sk, sk))
+    before = tattn.flash_attention.launches
+    out, lse = tattn.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == before + 1
+    ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], rtol=1e-4, atol=1e-4)
+    if causal and sq > sk:
+        assert torch.all(out[:, :, :sq - sk] == 0)
 
 
 @pytest.mark.parametrize("t,v,dtype,ignore", [

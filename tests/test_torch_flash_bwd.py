@@ -7,13 +7,13 @@ from a seeded numpy RNG and go to both packages.
 
 Tolerances: fp32 atol=rtol=1e-5 (same algorithm, different summation
 order); bf16 atol=rtol=2e-2 through the public op against the reference
-in bf16 (the JAX op tiles differently, its dQ kernel rounds dS to bf16
-where the port's dQ plain version keeps it fp32, and each output is
-rounded to bf16 once more; gradients here are O(1), so that is a few bf16
-ulps); atol=rtol=1e-2 for the dK/dV plain version against the Pallas
-`_flash_bwd_dkv_kernel` itself on the same out, lse and D: both round P
-and dS to bf16 before their products, so they differ by the summation
-order and one rounding of the output.
+in bf16 (the JAX op tiles differently and each output is rounded to bf16
+once more; gradients here are O(1), so that is a few bf16 ulps);
+atol=rtol=1e-2 for the dQ and dK/dV plain versions against the Pallas
+`_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel` themselves on the same
+out, lse and D: both sides round P and dS to bf16 before their products
+(dQ: `ds.astype(ks.dtype)`), so they differ by the summation order and
+one rounding of the output.
 """
 import jax
 import jax.numpy as jnp
@@ -102,6 +102,51 @@ def test_bf16_dkv_plain_matches_pallas_kernel(causal, d):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(ref.astype(jnp.float32)),
                                    err_msg=tag, **BF16_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_dq_plain_matches_pallas_kernel(causal, d):
+    """flash_attention_bwd_dq_plain in bf16 against the Pallas dQ kernel
+    (`_flash_bwd`, interpret mode) on the same inputs: out and lse from
+    the Pallas forward, D = rowsum(dO * O) from the same out."""
+    q, k, v, g = _inputs(2, 2, 128, 128, d, seed=40 + d + causal)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    scale = 1.0 / float(np.sqrt(d))
+    out, lse = jattn._flash_fwd(jq, jk, jv, causal, scale, 64, 64,
+                                interpret=True)
+    ref_dq = jattn._flash_bwd(jq, jk, jv, out, lse, jg, causal, scale, 64,
+                              64, interpret=True)[0]
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v, g))
+    tout = torch.tensor(np.asarray(out.astype(jnp.float32))).to(
+        torch.bfloat16)
+    tlse = torch.tensor(np.asarray(lse)[..., 0])
+    dd = (tg.float() * tout.float()).sum(-1)
+    dq = tattn.flash_attention_bwd_dq_plain(tq, tk, tv, tg, tlse, dd, causal)
+    assert dq.dtype == torch.bfloat16
+    np.testing.assert_allclose(dq.float().numpy(),
+                               np.asarray(ref_dq.astype(jnp.float32)),
+                               **BF16_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dq_plain_rounds_ds_like_the_kernels(dtype):
+    """The dQ plain version multiplies dS rounded to the input dtype (one
+    key tile: dQ = scale round(dS) k exactly); in fp32 the rounding is the
+    identity, so fp32 dQ is the unrounded product to the last bit."""
+    q, k, v, g = (torch.from_numpy(x).to(dtype)
+                  for x in _inputs(1, 1, 48, 32, 32, seed=8))
+    scale = 1.0 / np.sqrt(32)
+    out, lse = tattn.flash_attention_plain(q, k, v)
+    dd = (g.float() * out.float()).sum(-1)
+    dq = tattn.flash_attention_bwd_dq_plain(q, k, v, g, lse, dd)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(g.float(), v.float().transpose(-1, -2)) -
+              dd[..., None])
+    want = torch.matmul(ds.to(dtype).float(), k.float()) * scale
+    torch.testing.assert_close(dq, want.to(dtype), rtol=0, atol=0)
 
 
 def test_dkv_plain_rounds_p_and_ds_like_the_kernels():
