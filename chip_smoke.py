@@ -21,8 +21,8 @@ is present.  Phases:
                strided head-split views the encoder produces), a causal
                case with Sq != Sk both ways (the Sq < Sk one in fp32 and
                bf16), and ragged S = 200 at D = 32 and 128 (fp32 and
-               bf16: the fp32 forward runs the 3xTF32 kernel and the fp32
-               backward the FMA kernels, bf16 the wgmma kernels).
+               bf16: fp32 runs the 3xTF32 kernels, bf16 the wgmma
+               kernels).
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
                against the plain version, which rounds P and dS to bf16
@@ -37,12 +37,11 @@ is present.  Phases:
                after another, host launch cost included: the earlier
                method); bound_ms (max of FLOPs over peak and bytes over
                bandwidth, from the H100 SXM datasheet, for the units the
-               kernel uses: the fp32 forward's three TF32 products over
+               kernel uses: in fp32 three TF32 products per multiply over
                the TF32 peak, with fma_bound_ms beside it for fp32
-               FMAs).  At [8, 12, 512, 64] the bf16 forward, dQ and dK/dV
-               and the fp32 forward also get kernel_ms_cold: a 64 MB write
-               before every launch, so L2 (50 MB) holds none of the
-               inputs.
+               FMAs).  At [8, 12, 512, 64] every attention kernel also
+               gets kernel_ms_cold: a 64 MB write before every launch, so
+               L2 (50 MB) holds none of the inputs.
                Then the flash backward kernels (dQ, dK/dV) against
                flash_attention_bwd_dq_plain / _dkv_plain at the same nine
                cases; library_ms is the whole backward of torch
@@ -74,24 +73,33 @@ is present.  Phases:
                the vocab fc within a normalised max error of 1e-3 (fp32
                over 12 layers; the two attention algorithms and the two
                cross-entropies sum in different orders).
-               (b) the bench configuration (AMP bf16): 6 steps, every
-               loss finite and the last below the first; step_ms,
-               tokens/s, MFU (6 x params x tokens/s over 989 TFLOP/s, as
-               bench.py reckons it) and peak memory.  Exact launch counts
-               per step: flash forward 24 (12 forward ops + the 12
-               replays of the grad ops, which re-run the forward under
-               torch.func.vjp), dQ 12, dK/dV 12, fused cross-entropy 2
-               (the forward op + its grad op's replay).
+               (b) the bench configuration (AMP bf16): 6 steps after a
+               warm-up, every loss finite and the last below the first;
+               step_ms, tokens/s, MFU (6 x params x tokens/s over 989
+               TFLOP/s, as bench.py reckons it) and peak memory.  Exact
+               launch counts per step: flash forward 24 (12 forward ops
+               + the 12 replays of the grad ops, which re-run the forward
+               under torch.func.vjp), dQ 12, dK/dV 12, fused
+               cross-entropy 2 (the forward op + its grad op's replay).
+               (c) the fp32 training configuration (bench.py with
+               BENCH_NO_AMP=1): the same model, 4 steps after a warm-up,
+               the same gates and launch counts per step, through the
+               fp32 kernels (3xTF32 forward, dQ and dK/dV, fp32 fused
+               cross-entropy); MFU over the 67 TFLOP/s of fp32 FMA (its
+               GEMMs run in fp32 with TF32 off).
 
 `--profile` adds one torch.profiler window around a Predictor.run of
-the served batch and one around a training step (device time by kernel,
-device busy share, the fp32 flash forward's device ms in the served
-batch) and the host time of encoding one /predict response.
+the served batch and one around a step of each training configuration
+(device time by kernel, device busy share, the attention kernels' device
+ms; the fp32 flash forward's device ms in the served batch) and the host
+time of encoding one /predict response.
 
 The line before the last is the kernels summary: the four bf16 kernels
 of the training step (launches counted over the training run of phase
-5b) and the fp32 forward at the serving shape (launches counted over the
-served burst of phase 4); the last line {"ok": true, "device": {...}}.
+5b), the fp32 forward at the serving shape (launches counted over the
+served burst of phase 4) and the fp32 dQ and dK/dV (launches counted
+over the fp32 training run of phase 5c); the last line {"ok": true,
+"device": {...}}.
 """
 import argparse
 import json
@@ -114,6 +122,7 @@ BERT = dict(vocab=30522, seq=512, hidden=768, layers_n=12, heads=12)
 ROWS_PER_POST = (2, 2, 2, 2)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
+FP32_TRAIN_STEPS = 4
 KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
 # the kernels of the training and serving paths and the TPU kernels they
 # replace
@@ -126,6 +135,10 @@ KERNELS = {
                           "paddle_tpu/ops/attention.py:240"),
     "flash_attn_bwd_dkv": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
                            "paddle_tpu/ops/attention.py:281"),
+    "flash_attn_bwd_dq_fp32": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                               "paddle_tpu/ops/attention.py:240"),
+    "flash_attn_bwd_dkv_fp32": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                                "paddle_tpu/ops/attention.py:281"),
     "fused_xent_fwd": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
                        "paddle_tpu/ops/fused_xent.py:42"),
 }
@@ -218,34 +231,39 @@ def roofline(flops, nbytes, dtype):
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(b, h, sq, sk, d, dtype, causal):
-    """(bound_ms, bound_by, fma_bound_ms) for one forward call: each
-    input read once, each output written once; FLOPs of the two products
-    over the (query, key) pairs the mask leaves visible.  Against the
-    units the kernel uses: bf16 on the tensor cores; fp32 as three TF32
-    products each (3xTF32) on the tensor cores, with the bound on fp32
-    FMAs beside it (None in bf16)."""
-    esize = 4 if dtype == "float32" else 2
-    nbytes = esize * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
-    flops = 4.0 * b * h * d * visible_pairs(sq, sk, causal)
+def unit_bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by, fma_bound_ms) against the units the kernels
+    use: bf16 on the tensor cores; fp32 as three TF32 products per
+    multiply (3xTF32) on the tensor cores, with the bound on fp32 FMAs
+    beside it (None in bf16)."""
     if dtype != "float32":
         return roofline(flops, nbytes, dtype) + (None,)
     return roofline(3 * flops, nbytes, "tf32") + \
         (roofline(flops, nbytes, "float32")[0],)
 
 
+def bound(b, h, sq, sk, d, dtype, causal):
+    """unit_bound of one forward call: each input read once, each output
+    written once; FLOPs of the two products over the (query, key) pairs
+    the mask leaves visible."""
+    esize = 4 if dtype == "float32" else 2
+    nbytes = esize * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
+    return unit_bound(4.0 * b * h * d * visible_pairs(sq, sk, causal),
+                      nbytes, dtype)
+
+
 def bwd_bounds(b, h, sq, sk, d, dtype, causal):
-    """{"dq": (bound_ms, bound_by), "dkv": ...}.  Both read q, k, v, dO
-    (input dtype) and lse, D (fp32 [B, H, Sq]); dQ writes dq, dK/dV dk and
-    dv.  FLOPs over the visible pairs: dQ 3 products (S, dP, dS.k), dK/dV
-    4 (S, dP, P^T.dO, dS^T.q), 2 FLOPs per multiply-add."""
+    """{"dq": unit_bound, "dkv": unit_bound}.  Both read q, k, v, dO (input
+    dtype) and lse, D (fp32 [B, H, Sq]); dQ writes dq, dK/dV dk and dv.
+    FLOPs over the visible pairs: dQ 3 products (S, dP, dS.k), dK/dV 4
+    (S, dP, P^T.dO, dS^T.q), 2 FLOPs per multiply-add."""
     esize = 4 if dtype == "float32" else 2
     ins = esize * b * h * d * (2 * sq + 2 * sk) + 8 * b * h * sq
     pairs = b * h * visible_pairs(sq, sk, causal)
-    return {"dq": roofline(6.0 * pairs * d, ins + esize * b * h * sq * d,
-                           dtype),
-            "dkv": roofline(8.0 * pairs * d,
-                            ins + 2 * esize * b * h * sk * d, dtype)}
+    return {"dq": unit_bound(6.0 * pairs * d, ins + esize * b * h * sq * d,
+                             dtype),
+            "dkv": unit_bound(8.0 * pairs * d,
+                              ins + 2 * esize * b * h * sk * d, dtype)}
 
 
 def attention_cases(torch):
@@ -383,7 +401,9 @@ def bwd_kernel_phase(torch, attn):
                        plain_ms=device_ms(torch, lambda: plain_fn(*args), 1),
                        library_ms=library_ms, bound_ms=bounds[kern][0],
                        bound_by=bounds[kern][1])
-            if name == "slice_bf16":
+            if bounds[kern][2] is not None:
+                row["fma_bound_ms"] = bounds[kern][2]
+            if name in ("slice_bf16", "slice_fp32"):
                 row["kernel_ms_cold"] = device_ms(
                     torch, lambda: cuda_fn(*args), 10, flush=l2_flush(torch))
             log(dict(phase="kernel_bwd", **row))
@@ -714,16 +734,31 @@ def train_correctness(torch, static, fx, seed, feed):
 
 
 def train_phase(torch, seed, profile=False):
-    """(b) the bench configuration (AMP bf16) for TRAIN_STEPS steps: the
-    main path of this slice.  Returns the per-kernel launch counts."""
+    """(a) the fp32 check step; (b) the bench configuration (AMP bf16) and
+    (c) the fp32 training configuration (bench.py with BENCH_NO_AMP=1),
+    the main paths of this slice.  Returns the per-kernel launch counts of
+    (b) and of (c)."""
     from paddle_tpu_torch import static
-    from paddle_tpu_torch.ops import attention as attn
     from paddle_tpu_torch.ops import fused_xent as fx
 
     feed = train_feed(seed)
     train_correctness(torch, static, fx, seed, feed)
+    amp = train_config(torch, static, fx, seed, feed, True, TRAIN_STEPS,
+                       profile)
+    fp32 = train_config(torch, static, fx, seed, feed, False,
+                        FP32_TRAIN_STEPS, profile)
+    return amp, fp32
 
-    main, startup, loss = build_pretrain(True, use_amp=True)
+
+def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
+    """One training configuration: `steps` Executor.run steps after a
+    warm-up, every loss finite and the last below the first, exact launch
+    counts per step; step_ms, tokens/s, MFU (6 x params x tokens/s over
+    the peak of the dtype the GEMMs run in, as bench.py reckons it) and
+    peak memory.  Returns the launch counts over the timed steps."""
+    from paddle_tpu_torch.ops import attention as attn
+
+    main, startup, loss = build_pretrain(True, use_amp=use_amp)
     startup.random_seed = seed
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
     exe = static.Executor()
@@ -740,7 +775,7 @@ def train_phase(torch, seed, profile=False):
             # ---- the main path: counts from 0 just before, read just after
             for c in counters:
                 c.launches = 0
-            for _ in range(TRAIN_STEPS):
+            for _ in range(steps):
                 t0 = time.perf_counter()
                 (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
                 torch.cuda.synchronize()
@@ -752,36 +787,44 @@ def train_phase(torch, seed, profile=False):
             # ---- end of the main path
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             if profile:
-                train_profile(torch, exe, main, feed, loss)
+                train_profile(torch, exe, main, feed, loss,
+                              "amp" if use_amp else "fp32")
     finally:
         fx.enable_fused_xent(False)
+    tag = "AMP bf16" if use_amp else "fp32"
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"AMP losses not finite and falling: {losses}")
+        raise AssertionError(f"{tag} losses not finite and falling: "
+                             f"{losses}")
     n = BERT["layers_n"]
     want = {"flash_attn_fwd": 2 * n, "flash_attn_bwd_dq": n,
             "flash_attn_bwd_dkv": n, "fused_xent_fwd": 2}
     for name, per_step in want.items():
-        if launches[name] != per_step * TRAIN_STEPS:
+        if launches[name] != per_step * steps:
             raise AssertionError(
-                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
-                f"expected {per_step} per step")
+                f"{tag} {name}: {launches[name]} launches in {steps} "
+                f"steps, expected {per_step} per step")
     steady = sorted(step_ms)[len(step_ms) // 2]
     tokens_s = TRAIN_BATCH * BERT["seq"] / (steady / 1e3)
-    log({"phase": "train", "config": "bert-base pretrain, AMP bf16, "
-         "flash + fused CE", "batch": TRAIN_BATCH, "seq": BERT["seq"],
-         "params": n_params, "losses": losses, "step_ms": step_ms,
-         "median_step_ms": steady, "tokens_per_s": tokens_s,
-         "mfu": 6.0 * n_params * tokens_s / PEAK_FLOPS["bfloat16"],
-         "launches": launches, "peak_gpu_mem_gb": peak_gb})
+    peak = "bfloat16" if use_amp else "float32"
+    log({"phase": "train" if use_amp else "train_fp32",
+         "config": f"bert-base pretrain, {tag}, flash + fused CE",
+         "batch": TRAIN_BATCH, "seq": BERT["seq"], "params": n_params,
+         "losses": losses, "step_ms": step_ms, "median_step_ms": steady,
+         "tokens_per_s": tokens_s,
+         "mfu": 6.0 * n_params * tokens_s / PEAK_FLOPS[peak],
+         "mfu_peak_flops": PEAK_FLOPS[peak], "mfu_peak_dtype": peak,
+         "launches": launches,
+         "launches_per_step": {k: v // steps for k, v in launches.items()},
+         "peak_gpu_mem_gb": peak_gb})
     return launches
 
 
-def train_profile(torch, exe, main, feed, loss):
+def train_profile(torch, exe, main, feed, loss, config):
     """Where a training step's time goes: device time by kernel and the
     device's idle share over one step (torch.profiler), then the host
     time of each op role and the costliest op types over another step
     (host clock around each op's dispatch, no synchronisation: the device
-    runs behind)."""
+    runs behind).  `config` ("amp", "fp32") tags the line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.static import executor as executor_mod
@@ -819,13 +862,17 @@ def train_profile(torch, exe, main, feed, loss):
     finally:
         executor_mod._run_op = run_op
     # the three attention kernels (forward, dQ, dK/dV) by kernel name
-    attn_ms = sum(e.self_device_time_total for e in dev
-                  if "flash_" in e.key) / 1e3
-    log({"phase": "train_profile", "step_wall_ms_under_profiler": wall_ms,
+    attn = {name: sum(e.self_device_time_total for e in dev
+                      if name in e.key) / 1e3
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    attn_ms = sum(attn.values())
+    log({"phase": "train_profile", "config": config,
+         "step_wall_ms_under_profiler": wall_ms,
          "device_busy_ms": busy_ms,
          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
          "attention_device_ms": attn_ms,
          "attention_share_of_busy": attn_ms / busy_ms,
+         "attention_device_ms_by_kernel": attn,
          "top_device_ms": [[e.key[:80], e.count,
                             e.self_device_time_total / 1e3] for e in top],
          "step_ms_op_timed": step_host_ms, "host_ms_by_role": host_ms,
@@ -879,45 +926,63 @@ def main():
     # the redesigned kernels against their library yardsticks at the
     # training / serving shape (PERF.md: bf16 forward <= 2x SDPA, dQ <=
     # 0.75x and dK/dV <= 1x the whole SDPA backward, fp32 forward <= 1x
-    # SDPA fp32); recorded, not gated
+    # SDPA fp32, fp32 dQ <= 0.5x and dK/dV <= 0.65x the whole SDPA fp32
+    # backward); recorded, not gated
     log({"phase": "kernel_vs_library", **{
         tag: r["kernel_ms"] / r["library_ms"] for tag, r in (
             ("flash_fwd_bf16", fwd["slice_bf16"]),
             ("flash_bwd_dq_bf16", bwd["slice_bf16"]["dq"]),
             ("flash_bwd_dkv_bf16", bwd["slice_bf16"]["dkv"]),
-            ("flash_fwd_fp32", fwd["slice_fp32"]))}})
+            ("flash_fwd_fp32", fwd["slice_fp32"]),
+            ("flash_bwd_dq_fp32", bwd["slice_fp32"]["dq"]),
+            ("flash_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         serve_launches = slice_phase(torch, args.seed, tmp, args.profile)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = train_phase(torch, args.seed, args.profile)
+    amp, fp32 = train_phase(torch, args.seed, args.profile)
 
-    # each kernel at the training shape: [8, 12, 512, 64] attention in
-    # bf16 (the AMP program's dtype), [4096, 30522] bf16 logits; and the
-    # fp32 forward at the serving shape (a batch of 8 rows: the same
-    # [8, 12, 512, 64] on the head-split views), launches over the burst
-    launches["flash_attn_fwd_fp32"] = serve_launches
-    rows = {"flash_attn_fwd": fwd["slice_bf16"],
-            "flash_attn_bwd_dq": bwd["slice_bf16"]["dq"],
-            "flash_attn_bwd_dkv": bwd["slice_bf16"]["dkv"],
-            "fused_xent_fwd": xent["train_bf16"],
-            "flash_attn_fwd_fp32": fwd["slice_fp32"]}
+    # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
+    # attention on the head-split views: the four bf16 kernels of the AMP
+    # step ([4096, 30522] bf16 logits), launches over its steps; the fp32
+    # forward at the serving shape (a batch of 8 rows), launches over the
+    # served burst; the fp32 dQ and dK/dV of the fp32 training step,
+    # launches over its steps
+    per_fp32_step = {k: n // FP32_TRAIN_STEPS for k, n in fp32.items()}
+    rows = [("flash_attn_fwd", fwd["slice_bf16"], amp["flash_attn_fwd"], {}),
+            ("flash_attn_bwd_dq", bwd["slice_bf16"]["dq"],
+             amp["flash_attn_bwd_dq"], {}),
+            ("flash_attn_bwd_dkv", bwd["slice_bf16"]["dkv"],
+             amp["flash_attn_bwd_dkv"], {}),
+            ("fused_xent_fwd", xent["train_bf16"], amp["fused_xent_fwd"], {}),
+            ("flash_attn_fwd_fp32", fwd["slice_fp32"], serve_launches,
+             {"launches_per_served_batch": BERT["layers_n"],
+              "launches_per_fp32_train_step":
+                  per_fp32_step["flash_attn_fwd"]}),
+            ("flash_attn_bwd_dq_fp32", bwd["slice_fp32"]["dq"],
+             fp32["flash_attn_bwd_dq"],
+             {"launches_per_fp32_train_step":
+                  per_fp32_step["flash_attn_bwd_dq"]}),
+            ("flash_attn_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"],
+             fp32["flash_attn_bwd_dkv"],
+             {"launches_per_fp32_train_step":
+                  per_fp32_step["flash_attn_bwd_dkv"]})]
     summary = []
-    for name, r in rows.items():
+    for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **extra})
         if "kernel_ms_cold" in r:
             summary[-1]["ms_cold"] = r["kernel_ms_cold"]
         if "fma_bound_ms" in r:
             summary[-1]["fma_bound_ms"] = r["fma_bound_ms"]
-    summary[-1]["launches_per_served_batch"] = BERT["layers_n"]
     log({"kernels": summary})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -87,18 +87,51 @@
 //     zero-filled k and v and not stored (a key row of dK/dV depends only
 //     on its own row of P^T and dS^T).
 //
-// fp32 (the fp32 check step): FMA kernels, `flash_bwd_dq_kernel` and
-//   `flash_bwd_dkv_kernel`.  128 threads per CTA, 64-row tiles on both
-//   sides: thread t owns 4 rows of the CTA's own tile (row group t/8)
-//   and, of every 64-row tile streamed past it, the 8 rows t%8 + 8j.
-//   Both score products (S and dP) share one loop over the head dim, so
-//   each shared load feeds two FMAs.  dQ: q and dO tiles, lse and D rows
-//   stay resident; K/V tiles stream.  dK/dV: the tile is computed
-//   transposed (rows = keys); K and V tiles stay resident, q, dO, lse and
-//   D tiles stream (~166 KB of shared memory at D = 128).  Rows past the
-//   end are loaded as zeros with lse = -inf and never stored.  Bounded
-//   by fp32 FMA throughput (67 TFLOP/s); register tiling is their next
-//   step.
+// fp32 (the fp32 training step): 3xTF32 on the tensor cores,
+//   `flash_bwd_dq_tf32_kernel` and `flash_bwd_dkv_tf32_kernel`.  Bound at
+//   the training shape: dQ's 9.7 GFLOP and dK/dV's 12.9 take 0.144 and
+//   0.192 ms on the 67 TFLOP/s of fp32 FMA.  The tensor cores take fp32
+//   only as TF32, so each operand is split as x = hi + lo (tf32.cuh: one
+//   AND, one subtract) and each product taken as lo*hi + hi*lo + hi*hi in
+//   fp32, which keeps an fp32-level error (~2^-20 per product, not TF32's
+//   three digits): three TF32 products at 495 TFLOP/s bound the same work
+//   at 0.059 and 0.078 ms, against ~0.02 ms of bytes.  The operations
+//   bound both.
+//   `mma.sync.m16n8k8` rather than wgmma: wgmma's TF32 operands must both
+//   be K-major, and the second products (dS k; P^T dO and dS^T q) read
+//   their B operand MN-major.  mma.sync fragments are loaded per thread
+//   from shared memory, rows padded to D + 4 floats so that the loads of
+//   both layouts hit 32 distinct banks, and no operand needs a transposed
+//   copy.
+//   * one CTA of 4 warps, each warp owning 16 of the CTA's 64 rows; the
+//     tiles streamed past them are double-buffered by cp.async (16-byte
+//     copies where every row start of the view is 16-byte aligned, else
+//     4-byte ones, so any strided fp32 view works; rows past the end are
+//     zero-filled);
+//   * a first product's C fragment (columns 2(l%4), +1 of each 8-column
+//     tile) becomes the A fragment of the second product as it stands:
+//     the second product takes each tile's columns in the order 0, 2, 4,
+//     6, 1, 3, 5, 7 and reads B rows 2(l%4) and 2(l%4) + 1 to match;
+//   * dQ: one CTA per (64 query rows, head, batch).  The q and dO A
+//     fragments stay resident, raw and split per use: in registers at
+//     D <= 64, in the thread's own shared-memory slots at D = 128, where
+//     registers would spill; lse (log2 units, +inf past Sq and on fully-
+//     masked rows) and D of the thread's two rows in registers.  K/V tiles
+//     of 64 keys stream.  S = q k^T and dP = dO v^T share one loop over
+//     the head dim; P = exp2(S scale log2e - lse log2e), 0 for keys past
+//     Sk and above the causal diagonal (key tiles wholly above it are
+//     skipped); dS = P (dP - D) in place of S; dQ += dS k;
+//   * dK/dV: one CTA per (64 keys, head, batch), computed transposed
+//     (rows = keys).  The K and V tiles stay in shared memory, their A
+//     fragments read and split per use; q and dO tiles of BQ rows stream
+//     (64, or 32 at D = 128, where the dK and dV accumulators take 128
+//     registers), each with its lse and D rows (4-byte copies; nothing is
+//     read past [B, H, Sq]).  S^T = k q^T and dP^T = v dO^T; P^T and dS^T
+//     on the fragments, lse and D read per column; dV += P^T dO and
+//     dK += dS^T q.  The causal start tile follows `attention.py:321`;
+//     keys past Sk are computed on zero-filled k and v and not stored.
+//   Each output element is summed by one thread in a fixed order: no
+//   atomics, bitwise reproducible.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -110,315 +143,16 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int BT = 64;        // rows per tile, both sides
-constexpr int THREADS = 128;
-constexpr int ROWS = 4;       // own-tile rows per thread (16 row groups)
-constexpr int GROUP = 8;      // threads sharing a row group
-constexpr int COLS = BT / GROUP;  // streamed rows per thread per tile
-constexpr int PP = BT + 2;    // padded P / dS row
 constexpr int kMaxDevices = 64;
-
-// stage rows [r0, r0 + BT) of a strided [S, D] head slice into shared
-// memory ([BT][D + 1]); rows past S are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t row_stride, int r0, int S) {
-  constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
-    const int r = i / D, c = i % D, gr = r0 + r;
-    dst[r * DP + c] = gr < S ? src[(int64_t)gr * row_stride + c] : 0.f;
-  }
-}
 
 struct Strides {
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
       o_ss;
 };
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * BT * (D + 1) + BT * PP);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * BT * (D + 1) + 2 * BT * PP + 2 * BT);
-}
-
-// ---------------------------------------------------------------------------
-// dQ in fp32: one CTA per (q tile, head, batch)
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dd, float* __restrict__ dq, int H,
-                    int Sq, int Sk, Strides st, int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DCOLS = D / GROUP;
-  extern __shared__ float smem[];
-  float* sQ = smem;              // [BT][DP]
-  float* sDO = sQ + BT * DP;     // [BT][DP]
-  float* sK = sDO + BT * DP;     // [BT][DP]
-  float* sV = sK + BT * DP;      // [BT][DP]
-  float* sDS = sV + BT * DP;     // [BT][PP]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / GROUP;
-  const int cg = tid % GROUP;
-  const int q0 = blockIdx.x * BT;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int64_t row0 = ((int64_t)bb * H + hh) * Sq;
-
-  load_tile<D>(sQ, q + bb * st.q_sb + hh * st.q_sh, st.q_ss, q0, Sq);
-  load_tile<D>(sDO, dout + bb * st.o_sb + hh * st.o_sh, st.o_ss, q0, Sq);
-  const float* kb = k + bb * st.k_sb + hh * st.k_sh;
-  const float* vb = v + bb * st.v_sb + hh * st.v_sh;
-
-  float row_lse[ROWS], row_dd[ROWS], acc[ROWS][DCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qpos = q0 + rg * ROWS + i;
-    row_lse[i] = qpos < Sq ? lse[row0 + qpos] : -INFINITY;
-    row_dd[i] = qpos < Sq ? dd[row0 + qpos] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DCOLS; ++j) acc[i][j] = 0.f;
-  }
-
-  const int shift = Sk - Sq;  // bottom-right causal alignment
-  int n_tiles = (Sk + BT - 1) / BT;
-  if (causal) {
-    const int hi = q0 + BT + shift;  // keys visible to the tile's last row
-    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BT - 1) / BT);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BT;
-    __syncthreads();  // previous tile's reads of sK / sV / sDS are done
-    load_tile<D>(sK, kb, st.k_ss, k0, Sk);
-    load_tile<D>(sV, vb, st.v_ss, k0, Sk);
-    __syncthreads();
-
-    float s[ROWS][COLS], dp[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], ov[ROWS], kv[COLS], vv[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        qv[i] = sQ[(rg * ROWS + i) * DP + d];
-        ov[i] = sDO[(rg * ROWS + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        kv[j] = sK[(cg + GROUP * j) * DP + d];
-        vv[j] = sV[(cg + GROUP * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qpos = q0 + rg * ROWS + i;
-      const bool live = row_lse[i] != -INFINITY;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int kpos = k0 + cg + GROUP * j;
-        const bool valid =
-            live && kpos < Sk && (!causal || kpos <= qpos + shift);
-        const float p = valid ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        sDS[(rg * ROWS + i) * PP + cg + GROUP * j] = p * (dp[i][j] - row_dd[i]);
-      }
-    }
-    __syncthreads();  // dS tile complete
-
-    // acc[row][col] += sum_c dS[row][c] * k[c][col], col = cg + 8j
-#pragma unroll 4
-    for (int c = 0; c < BT; ++c) {
-      float dsv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) dsv[i] = sDS[(rg * ROWS + i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DCOLS; ++j) {
-        const float kv = sK[c * DP + cg + GROUP * j];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qpos = q0 + rg * ROWS + i;
-    if (qpos >= Sq) continue;
-    float* out = dq + (row0 + qpos) * D;
-#pragma unroll
-    for (int j = 0; j < DCOLS; ++j) out[cg + GROUP * j] = acc[i][j] * scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK / dV in fp32: one CTA per (k tile, head, batch)
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dd, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Sq, int Sk, Strides st,
-                     int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DCOLS = D / GROUP;
-  extern __shared__ float smem[];
-  float* sK = smem;              // [BT][DP]   resident
-  float* sV = sK + BT * DP;      // [BT][DP]   resident
-  float* sQ = sV + BT * DP;      // [BT][DP]   streamed
-  float* sDO = sQ + BT * DP;     // [BT][DP]   streamed
-  float* sP = sDO + BT * DP;     // [BT keys][PP]  P^T
-  float* sDS = sP + BT * PP;     // [BT keys][PP]  dS^T
-  float* sL = sDS + BT * PP;     // [BT]  lse of the q tile
-  float* sD = sL + BT;           // [BT]  D of the q tile
-
-  const int tid = threadIdx.x;
-  const int rg = tid / GROUP;
-  const int cg = tid % GROUP;
-  const int k0 = blockIdx.x * BT;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int64_t qrow0 = ((int64_t)bb * H + hh) * Sq;
-  const int64_t krow0 = ((int64_t)bb * H + hh) * Sk;
-
-  load_tile<D>(sK, k + bb * st.k_sb + hh * st.k_sh, st.k_ss, k0, Sk);
-  load_tile<D>(sV, v + bb * st.v_sb + hh * st.v_sh, st.v_ss, k0, Sk);
-  const float* qb = q + bb * st.q_sb + hh * st.q_sh;
-  const float* ob = dout + bb * st.o_sb + hh * st.o_sh;
-
-  float acc_k[ROWS][DCOLS], acc_v[ROWS][DCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < DCOLS; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int shift = Sk - Sq;  // bottom-right causal alignment
-  const int n_tiles = (Sq + BT - 1) / BT;
-  int first = 0;
-  if (causal) {
-    // the first query that sees key k0 is k0 - shift
-    const int lo = k0 - shift;
-    first = lo <= 0 ? 0 : lo / BT;
-  }
-
-  for (int t = first; t < n_tiles; ++t) {
-    const int q0 = t * BT;
-    __syncthreads();  // previous tile's reads are done
-    load_tile<D>(sQ, qb, st.q_ss, q0, Sq);
-    load_tile<D>(sDO, ob, st.o_ss, q0, Sq);
-    for (int r = tid; r < BT; r += THREADS) {
-      const int qpos = q0 + r;
-      sL[r] = qpos < Sq ? lse[qrow0 + qpos] : -INFINITY;
-      sD[r] = qpos < Sq ? dd[qrow0 + qpos] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed tile: rows = this CTA's keys, columns = the q tile
-    float s[ROWS][COLS], dp[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[ROWS], vv[ROWS], qv[COLS], ov[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        kv[i] = sK[(rg * ROWS + i) * DP + d];
-        vv[i] = sV[(rg * ROWS + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        qv[j] = sQ[(cg + GROUP * j) * DP + d];
-        ov[j] = sDO[(cg + GROUP * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int kr = rg * ROWS + i;
-      const int kpos = k0 + kr;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int qc = cg + GROUP * j;
-        const int qpos = q0 + qc;
-        const float l = sL[qc];
-        const bool valid = l != -INFINITY && kpos < Sk &&
-                           (!causal || kpos <= qpos + shift);
-        const float p = valid ? expf(s[i][j] * scale - l) : 0.f;
-        sP[kr * PP + qc] = p;
-        sDS[kr * PP + qc] = p * (dp[i][j] - sD[qc]);
-      }
-    }
-    __syncthreads();  // P^T and dS^T tiles complete
-
-    // acc_v[key][col] += sum_c P^T[key][c] dO[c][col];
-    // acc_k[key][col] += sum_c dS^T[key][c] q[c][col]
-#pragma unroll 2
-    for (int c = 0; c < BT; ++c) {
-      float pv[ROWS], dsv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        pv[i] = sP[(rg * ROWS + i) * PP + c];
-        dsv[i] = sDS[(rg * ROWS + i) * PP + c];
-      }
-#pragma unroll
-      for (int j = 0; j < DCOLS; ++j) {
-        const float ov = sDO[c * DP + cg + GROUP * j];
-        const float qv = sQ[c * DP + cg + GROUP * j];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          acc_v[i][j] = fmaf(pv[i], ov, acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv, acc_k[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int kpos = k0 + rg * ROWS + i;
-    if (kpos >= Sk) continue;
-    float* ko = dk + (krow0 + kpos) * D;
-    float* vo = dv + (krow0 + kpos) * D;
-#pragma unroll
-    for (int j = 0; j < DCOLS; ++j) {
-      ko[cg + GROUP * j] = acc_k[i][j] * scale;
-      vo[cg + GROUP * j] = acc_v[i][j];
-    }
-  }
-}
 
 // the shared-memory opt-in is a per-device attribute of each instance:
 // set it on the first launch on each device only (a race between two
@@ -439,85 +173,483 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 on the tensor cores (mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace tf32x3;
+
+constexpr int BT = 64;        // rows per CTA (16 per warp); keys per dQ tile
+constexpr int THREADS = 128;
+constexpr int PAD = 4;        // floats of padding per shared-memory row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dK/dV: query rows per streamed q / dO tile.  At D = 128 the dK and dV
+// accumulators take 128 registers, so the S^T and dP^T fragments shrink
+// to 16 each.
 template <int D>
-cudaError_t launch_dq_fp32(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse, const void* dd,
-                           void* dq, int B, int H, int Sq, int Sk,
-                           const Strides& st, int causal, float scale,
-                           cudaStream_t stream) {
+__host__ __device__ constexpr int dkv_bq() {
+  return D > 64 ? 32 : 64;
+}
+
+// dQ: two stages of the K tile and of the V tile, [BT][D + PAD] each; at
+// D = 128 also the q and dO fragments, D / 2 floats each per thread
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) *
+         (size_t)(4 * BT * (D + PAD) + (D > 64 ? THREADS * D : 0));
+}
+
+// dK/dV: the K and V tiles, two stages of the q and dO tiles and of the
+// q tile's lse and D rows
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) *
+         (size_t)((2 * BT + 4 * dkv_bq<D>()) * (D + PAD) + 4 * dkv_bq<D>());
+}
+
+// ---- dQ: one CTA per (64 query rows, head, batch)
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dd, float* __restrict__ dq,
+                         int H, int Sq, int Sk, Strides st, int causal,
+                         float scale, int vec16) {
+  constexpr int SD = D + PAD;   // shared row stride (floats)
+  constexpr int KS = D / 8;     // k8 steps of S and dP / 8-column tiles of dQ
+  constexpr int NT = BT / 8;    // 8-key tiles of S and dP / k8 steps of dS k
+  // the head-dim loop: fully unrolled where q and dO sit in registers
+  constexpr int KS_UNROLL = D <= 64 ? KS : 4;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  // stage s: K at smem + 2 s BT SD, V right after it; then the q and dO
+  // slots (D = 128)
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int q0 = blockIdx.x * BT;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const float* kb = k + bb * st.k_sb + hh * st.k_sh;
+  const float* vb = v + bb * st.v_sb + hh * st.v_sh;
+  const int rw0 = q0 + 16 * warp;  // the warp's first row
+  const int row = rw0 + g;         // the thread's rows: row, row + 8
+
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  int n_tiles = (Sk + BT - 1) / BT;
+  if (causal) {
+    // keys visible to the CTA's last row (attention.py:273)
+    const int hi = q0 + BT + shift;
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BT - 1) / BT);
+  }
+  if (n_tiles > 0) {
+    load_rows<BT, D, PAD, THREADS>(smem, kb, st.k_ss, 0, Sk, vec16);
+    load_rows<BT, D, PAD, THREADS>(smem + BT * SD, vb, st.v_ss, 0, Sk,
+                                   vec16);
+  }
+  cp_async_commit();
+
+  // q and dO rows as A fragments, rows past Sq zero
+  float* slots = smem + 4 * BT * SD;
+  RowFrags<D, THREADS> qf(slots), of(slots + THREADS * D / 2);
+  {
+    const float* qb = q + bb * st.q_sb + hh * st.q_sh;
+    const float* ob = dout + bb * st.o_sb + hh * st.o_sh;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row + 8 * (i % 2), c = 8 * ks + t4 + 4 * (i / 2);
+        const bool in = r < Sq;
+        qf.set(ks, i, in ? __ldg(qb + (int64_t)r * st.q_ss + c) : 0.f);
+        of.set(ks, i, in ? __ldg(ob + (int64_t)r * st.o_ss + c) : 0.f);
+      }
+  }
+  // lse in log2 units (+inf past Sq and on fully-masked rows: P = 0
+  // there) and D of the thread's two rows
+  const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
+  float lse2[2], drow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = row + 8 * h;
+    const float lv = qpos < Sq ? lse[row_base + qpos] : -INFINITY;
+    lse2[h] = lv == -INFINITY ? INFINITY : lv * kLog2e;
+    drow[h] = qpos < Sq ? dd[row_base + qpos] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BT;
+    if (t + 1 < n_tiles) {
+      float* nxt = smem + ((t + 1) & 1) * 2 * BT * SD;
+      load_rows<BT, D, PAD, THREADS>(nxt, kb, st.k_ss, k0 + BT, Sk, vec16);
+      load_rows<BT, D, PAD, THREADS>(nxt + BT * SD, vb, st.v_ss, k0 + BT,
+                                     Sk, vec16);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t has landed for every thread
+    const float* sK = smem + (t & 1) * 2 * BT * SD;
+    const float* sV = sK + BT * SD;
+
+    // S = q k^T and dP = dO v^T in one loop over the head dim.  B
+    // fragment: k / v row 8 nt + g, columns 8 ks + t4 (b0) and + 4 (b1)
+    float sacc[NT][4], dpacc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sacc[nt][i] = dpacc[nt][i] = 0.f;
+#pragma unroll KS_UNROLL
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qhi[4], qlo[4], ohi[4], olo[4];
+      qf.get(ks, qhi, qlo);
+      of.get(ks, ohi, olo);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int off = (8 * nt + g) * SD + 8 * ks + t4;
+        uint32_t bhi[2], blo[2];
+        split_b(sK[off], sK[off + 4], bhi, blo);
+        mma3(sacc[nt], qhi, qlo, bhi, blo);
+        split_b(sV[off], sV[off + 4], bhi, blo);
+        mma3(dpacc[nt], ohi, olo, bhi, blo);
+      }
+    }
+
+    // P = exp2(S scale log2e - lse log2e), 0 for keys past Sk (zero-
+    // filled, and a zero score is not -inf) and above the causal
+    // diagonal; dS = P (dP - D) in place of S.  C fragment: c0, c1 (row
+    // g, keys 2 t4, +1), c2, c3 (row g + 8)
+    const bool need_mask =
+        k0 + BT > Sk || (causal && k0 + BT - 1 > rw0 + shift);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i / 2;
+        float p = exp2f(fmaf(sacc[nt][i], scale_log2, -lse2[h]));
+        if (need_mask) {
+          const int kpos = k0 + 8 * nt + 2 * t4 + (i % 2);
+          if (kpos >= Sk || (causal && kpos > row + 8 * h + shift)) p = 0.f;
+        }
+        sacc[nt][i] = p * (dpacc[nt][i] - drow[h]);
+      }
+
+    // dQ += dS k over the keys of 8-key tile nt taken in the order
+    // 0, 2, 4, 6, 1, 3, 5, 7: A = dS's C fragment as it stands, B reads
+    // k rows 8 nt + 2 t4 (b0) and + 1 (b1), column 8 j + g
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t ahi[4], alo[4];
+      split_c_as_a(sacc[nt], ahi, alo);
+      const float* kr = sK + (8 * nt + 2 * t4) * SD + g;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t bhi[2], blo[2];
+        split_b(kr[8 * j], kr[SD + 8 * j], bhi, blo);
+        mma3(acc[j], ahi, alo, bhi, blo);
+      }
+    }
+    __syncthreads();  // stage t & 1 is refilled with tile t + 2
+  }
+
+  // epilogue: dQ scale; rows past Sq are not stored
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = row + 8 * h;
+    if (qpos >= Sq) continue;
+    float* out = dq + (row_base + qpos) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+  }
+}
+
+// ---- dK/dV: one CTA per (64 keys, head, batch), computed transposed
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dd,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int H, int Sq, int Sk, Strides st, int causal,
+                          float scale, int vec16) {
+  constexpr int BQ = dkv_bq<D>();
+  constexpr int SD = D + PAD;   // shared row stride (floats)
+  constexpr int KS = D / 8;     // k8 steps of S^T, dP^T / 8-col tiles of dK, dV
+  constexpr int NT = BQ / 8;    // 8-row q tiles of S^T / k8 steps after
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* sK = smem;                       // [BT][SD], resident
+  float* sV = sK + BT * SD;               // [BT][SD], resident
+  float* stages = sV + BT * SD;           // stage s: q, dO [BQ][SD] each
+  float* rows_all = stages + 4 * BQ * SD; // stage s: lse, D [BQ] each
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int k0 = blockIdx.x * BT;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int kw0 = k0 + 16 * warp;  // the warp's first key
+  const int key = kw0 + g;         // the thread's keys: key, key + 8
+  const float* qb = q + bb * st.q_sb + hh * st.q_sh;
+  const float* ob = dout + bb * st.o_sb + hh * st.o_sh;
+  const int64_t qrow_base = ((int64_t)bb * H + hh) * Sq;
+
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  int first = 0;
+  if (causal) {
+    // the first q tile that sees key k0 (attention.py:321)
+    const int lo = k0 - shift;
+    first = lo <= 0 ? 0 : lo / BQ;
+  }
+  const int n_tiles = n_qt - first;  // <= 0: no query sees these keys
+
+  // stage s <- q tile starting at row q0: its q and dO rows, and its lse
+  // and D rows by 4-byte copies (zero past Sq, read nothing there)
+  auto load_stage = [&](int s, int q0) {
+    float* sq = stages + s * 2 * BQ * SD;
+    load_rows<BQ, D, PAD, THREADS>(sq, qb, st.q_ss, q0, Sq, vec16);
+    load_rows<BQ, D, PAD, THREADS>(sq + BQ * SD, ob, st.o_ss, q0, Sq, vec16);
+    float* rows = rows_all + s * 2 * BQ;
+    for (int i = threadIdx.x; i < 2 * BQ; i += THREADS) {
+      const int qpos = q0 + i % BQ;
+      const bool valid = qpos < Sq;
+      cp_async(rows + i,
+               (i < BQ ? lse : dd) + qrow_base + (valid ? qpos : 0), false,
+               valid);
+    }
+  };
+  if (n_tiles > 0) {
+    load_rows<BT, D, PAD, THREADS>(sK, k + bb * st.k_sb + hh * st.k_sh,
+                                   st.k_ss, k0, Sk, vec16);
+    load_rows<BT, D, PAD, THREADS>(sV, v + bb * st.v_sb + hh * st.v_sh,
+                                   st.v_ss, k0, Sk, vec16);
+    load_stage(0, first * BQ);
+  }
+  cp_async_commit();
+
+  float dk_acc[KS][4], dv_acc[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  // the warp's k and v rows (A fragments), at the thread's element
+  const float* ka = sK + (16 * warp + g) * SD + t4;
+  const float* va = sV + (16 * warp + g) * SD + t4;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (first + it) * BQ;
+    if (it + 1 < n_tiles) {
+      load_stage((it + 1) & 1, q0 + BQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and K, V) has landed for every thread
+    const float* sQ = stages + (it & 1) * 2 * BQ * SD;
+    const float* sDO = sQ + BQ * SD;
+    const float* sL = rows_all + (it & 1) * 2 * BQ;
+    const float* sD = sL + BQ;
+
+    // S^T = k q^T and dP^T = v dO^T: A = the warp's k / v rows (raw in
+    // shared memory, split per use), B fragment: q / dO row 8 nt + g,
+    // columns 8 ks + t4 (b0) and + 4 (b1)
+    float st_acc[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st_acc[nt][i] = dpt[nt][i] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t khi[4], klo[4], vhi[4], vlo[4];
+      split_a<SD>(ka + 8 * ks, khi, klo);
+      split_a<SD>(va + 8 * ks, vhi, vlo);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int off = (8 * nt + g) * SD + 8 * ks + t4;
+        uint32_t bhi[2], blo[2];
+        split_b(sQ[off], sQ[off + 4], bhi, blo);
+        mma3(st_acc[nt], khi, klo, bhi, blo);
+        split_b(sDO[off], sDO[off + 4], bhi, blo);
+        mma3(dpt[nt], vhi, vlo, bhi, blo);
+      }
+    }
+
+    // P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T - D).
+    // The fragment's columns are q rows (c0, c1: key g, q rows 2 t4, +1;
+    // c2, c3: key g + 8), so lse and D are read per column pair; columns
+    // past Sq and fully-masked rows (lse = -inf) get P = 0, as do keys
+    // above the causal diagonal
+    const bool need_mask = causal && kw0 + 15 > q0 + shift;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+      const float2 lr = *reinterpret_cast<const float2*>(sL + col);
+      const float2 dr = *reinterpret_cast<const float2*>(sD + col);
+      const float l2[2] = {
+          q0 + col < Sq && lr.x != -INFINITY ? lr.x * kLog2e : INFINITY,
+          q0 + col + 1 < Sq && lr.y != -INFINITY ? lr.y * kLog2e
+                                                 : INFINITY};
+      const float d2[2] = {dr.x, dr.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = i % 2;
+        float p = exp2f(fmaf(st_acc[nt][i], scale_log2, -l2[c]));
+        if (need_mask && key + 8 * (i / 2) > q0 + col + c + shift) p = 0.f;
+        st_acc[nt][i] = p;
+        dpt[nt][i] = p * (dpt[nt][i] - d2[c]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T q over the q rows of 8-row tile nt
+    // taken in the order 0, 2, 4, 6, 1, 3, 5, 7: A = P^T's / dS^T's C
+    // fragment as it stands, B reads dO / q rows 8 nt + 2 t4 (b0) and
+    // + 1 (b1), column 8 j + g
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t phi[4], plo[4], shi[4], slo[4];
+      split_c_as_a(st_acc[nt], phi, plo);
+      split_c_as_a(dpt[nt], shi, slo);
+      const int off = (8 * nt + 2 * t4) * SD + g;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t bhi[2], blo[2];
+        split_b(sDO[off + 8 * j], sDO[off + SD + 8 * j], bhi, blo);
+        mma3(dv_acc[j], phi, plo, bhi, blo);
+        split_b(sQ[off + 8 * j], sQ[off + SD + 8 * j], bhi, blo);
+        mma3(dk_acc[j], shi, slo, bhi, blo);
+      }
+    }
+    __syncthreads();  // stage it & 1 is refilled with tile it + 2
+  }
+
+  // epilogue: dK scale, dV; keys past Sk are not stored
+  const int64_t krow_base = ((int64_t)bb * H + hh) * Sk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kpos = key + 8 * h;
+    if (kpos >= Sk) continue;
+    float* ko = dk + (krow_base + kpos) * D + 2 * t4;
+    float* vo = dv + (krow_base + kpos) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < KS; ++j) {
+      *reinterpret_cast<float2*>(ko + 8 * j) = make_float2(
+          dk_acc[j][2 * h] * scale, dk_acc[j][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(vo + 8 * j) =
+          make_float2(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* dd,
+                      void* dq, int B, int H, int Sq, int Sk,
+                      const Strides& st, int causal, float scale,
+                      cudaStream_t stream) {
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = opt_in_smem(flash_bwd_dq_kernel<D>, smem, smem_set);
+  cudaError_t err = opt_in_smem(flash_bwd_dq_tf32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
+  // K and V tiles stream by cp.async; q and dO are read per element
+  const bool vec16 = rows_16b_aligned(
+      {k, v}, {st.k_sb, st.k_sh, st.k_ss, st.v_sb, st.v_sh, st.v_ss});
   dim3 grid((Sq + BT - 1) / BT, H, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dq_tf32_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<float*>(dq), H, Sq, Sk, st, causal, scale);
+      static_cast<float*>(dq), H, Sq, Sk, st, causal, scale, (int)vec16);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv_fp32(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* dd, void* dk, void* dv, int B, int H,
-                            int Sq, int Sk, const Strides& st, int causal,
-                            float scale, cudaStream_t stream) {
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* dd,
+                       void* dk, void* dv, int B, int H, int Sq, int Sk,
+                       const Strides& st, int causal, float scale,
+                       cudaStream_t stream) {
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = opt_in_smem(flash_bwd_dkv_kernel<D>, smem, smem_set);
+  cudaError_t err = opt_in_smem(flash_bwd_dkv_tf32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
+  const bool vec16 = rows_16b_aligned(
+      {q, k, v, dout}, {st.q_sb, st.q_sh, st.q_ss, st.k_sb, st.k_sh, st.k_ss,
+                        st.v_sb, st.v_sh, st.v_ss, st.o_sb, st.o_sh,
+                        st.o_ss});
   dim3 grid((Sk + BT - 1) / BT, H, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_tf32_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
       static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk, st,
-      causal, scale);
+      causal, scale, (int)vec16);
   return cudaGetLastError();
 }
 
-cudaError_t dq_dispatch_fp32(int D, const void* q, const void* k,
-                             const void* v, const void* dout,
-                             const void* lse, const void* dd, void* dq,
-                             int B, int H, int Sq, int Sk, const Strides& st,
-                             int causal, float scale, cudaStream_t s) {
+cudaError_t dq_dispatch(int D, const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* dd,
+                        void* dq, int B, int H, int Sq, int Sk,
+                        const Strides& st, int causal, float scale,
+                        cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch_dq_fp32<32>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
-                                st, causal, scale, s);
+      return launch_dq<32>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                           causal, scale, s);
     case 64:
-      return launch_dq_fp32<64>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
-                                st, causal, scale, s);
+      return launch_dq<64>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                           causal, scale, s);
     case 128:
-      return launch_dq_fp32<128>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
-                                 st, causal, scale, s);
+      return launch_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                            causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dkv_dispatch_fp32(int D, const void* q, const void* k,
-                              const void* v, const void* dout,
-                              const void* lse, const void* dd, void* dk,
-                              void* dv, int B, int H, int Sq, int Sk,
-                              const Strides& st, int causal, float scale,
-                              cudaStream_t s) {
+cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* dd,
+                         void* dk, void* dv, int B, int H, int Sq, int Sk,
+                         const Strides& st, int causal, float scale,
+                         cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch_dkv_fp32<32>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                 Sk, st, causal, scale, s);
+      return launch_dkv<32>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
+                            causal, scale, s);
     case 64:
-      return launch_dkv_fp32<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                 Sk, st, causal, scale, s);
+      return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
+                            causal, scale, s);
     case 128:
-      return launch_dkv_fp32<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                  Sk, st, causal, scale, s);
+      return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                             st, causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialized wgmma kernels (dK/dV, then dQ)
@@ -1159,8 +1291,8 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dq_dispatch_fp32(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
-                           causal, scale, s);
+    err = tf32::dq_dispatch(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
+                            st, causal, scale, s);
   else if (dtype == 1)
     err = wg::dq_dispatch(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
                           causal, scale, s);
@@ -1183,8 +1315,8 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dkv_dispatch_fp32(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                            st, causal, scale, s);
+    err = tf32::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                             Sk, st, causal, scale, s);
   else if (dtype == 1)
     err = wg::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
                            st, causal, scale, s);

@@ -64,7 +64,7 @@
 //   At the training shape the grid is 4 x 12 x 8 = 384 CTAs of 384
 //   threads, one CTA per SM (registers), 2.9 waves on 132 SMs.
 //
-// fp32 (serving, the fp32 check step): `flash_fwd_tf32_kernel`, 3xTF32 on
+// fp32 (serving, fp32 training): `flash_fwd_tf32_kernel`, 3xTF32 on
 //   the tensor cores.  Bound at S = 512, D = 64: 6.4 GFLOP over the 67
 //   TFLOP/s of fp32 FMA is 96 us, ~6x the time of moving the bytes once,
 //   so a kernel on the FMA units is held to that.  The tensor cores take
@@ -83,10 +83,10 @@
 //   operand must be K-major and v is MN-major for P v; mma.sync
 //   fragments are loaded per thread, so V needs no transposed copy.
 //   * one CTA of 4 warps per (64 query rows, head, batch), 16 rows per
-//     warp; the warp's q fragments are loaded once, split into hi/lo and
-//     kept in registers for the whole K/V loop (at D = 128 they would
-//     spill, so the raw q waits in the thread's own shared-memory slots
-//     and is split per use);
+//     warp; the warp's q fragments are loaded once and kept raw for the
+//     whole K/V loop, in registers (at D = 128 they would spill, so there
+//     they wait in the thread's own shared-memory slots), and split per
+//     use;
 //   * K/V tiles of 64 keys are double-buffered in shared memory by
 //     cp.async (16-byte copies where the view's addresses allow it, else
 //     4-byte ones; rows past Sk zero-filled), rows padded by 4 floats so
@@ -102,6 +102,9 @@
 //     over keys does not depend on their order;
 //   * keys past Sk and above the causal diagonal are masked to -inf;
 //     rows past Sq are computed on zero q and not stored.
+//   The split, the m16n8k8 products, the cp.async copies and the
+//   resident q fragments are in tf32.cuh, shared with the fp32 backward
+//   kernels.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -113,6 +116,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -144,6 +148,8 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
 // ---------------------------------------------------------------------------
 namespace tf32 {
 
+using namespace tf32x3;
+
 constexpr int BQ = 64;        // query rows per CTA: 16 per warp
 constexpr int BK = 64;        // keys per K/V tile
 constexpr int THREADS = 128;
@@ -155,108 +161,6 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          (size_t)(4 * BK * (D + PAD) + (D > 64 ? THREADS * D / 2 : 0));
-}
-
-// x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
-// TF32 value), lo = x - hi has at most 13 significant bits and is exact
-// in fp32.  The tensor cores read only the top 19 bits of a .tf32
-// operand, so lo enters its products truncated to TF32 (a relative
-// error of 2^-21 of x), with no conversion instruction.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b: m16n8k8, A row-major (4 TF32 registers), B column-major (2),
-// fp32 accumulator
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32: the two small cross terms first, then hi hi
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4],
-                                     const uint32_t (&bhi)[2],
-                                     const uint32_t (&blo)[2]) {
-  mma(d, alo, bhi);
-  mma(d, ahi, blo);
-  mma(d, ahi, bhi);
-}
-
-// the warp's q rows as A fragments, one per 8 columns of D: split into
-// hi/lo once and kept in registers (D <= 64), or kept raw in the
-// thread's own shared-memory slots and split per use (D = 128, where
-// registers would spill)
-template <int D, bool kInRegs = (D <= 64)>
-struct QFrags;
-
-template <int D>
-struct QFrags<D, true> {
-  uint32_t hi[D / 8][4], lo[D / 8][4];
-  __device__ __forceinline__ explicit QFrags(float*) {}
-  __device__ __forceinline__ void set(int ks, int i, float x) {
-    split(x, hi[ks][i], lo[ks][i]);
-  }
-  __device__ __forceinline__ void get(int ks, uint32_t (&h)[4],
-                                      uint32_t (&l)[4]) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[i] = hi[ks][i];
-      l[i] = lo[ks][i];
-    }
-  }
-};
-
-template <int D>
-struct QFrags<D, false> {
-  float* x;  // slot (ks, i) of thread t at x[(4 ks + i) THREADS + t]
-  __device__ __forceinline__ explicit QFrags(float* smem)
-      : x(smem + threadIdx.x) {}
-  __device__ __forceinline__ void set(int ks, int i, float v) {
-    x[(4 * ks + i) * THREADS] = v;
-  }
-  __device__ __forceinline__ void get(int ks, uint32_t (&h)[4],
-                                      uint32_t (&l)[4]) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(x[(4 * ks + i) * THREADS], h[i], l[i]);
-  }
-};
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool vec16, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  // src-size 0 zero-fills the destination and reads nothing
-  if (vec16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-
-// rows [k0, k0 + BK) of a strided [Sk, D] head slice into [BK][D + PAD]
-// shared memory; rows past Sk are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t row_stride, int k0, int Sk,
-                                          bool vec16) {
-  constexpr int SD = D + PAD;
-  const int width = vec16 ? 4 : 1;  // floats per copy
-  const int per_row = D / width;
-  for (int i = threadIdx.x; i < BK * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * width, kr = k0 + r;
-    const bool valid = kr < Sk;
-    cp_async(dst + r * SD + c, valid ? src + (int64_t)kr * row_stride + c
-                                     : src,
-             vec16, valid);
-  }
 }
 
 template <int D>
@@ -296,14 +200,14 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
   }
   if (n_tiles > 0) {
-    load_tile<D>(smem, kb, k_ss, 0, Sk, vec16);
-    load_tile<D>(smem + BK * SD, vb, v_ss, 0, Sk, vec16);
+    load_rows<BK, D, PAD, THREADS>(smem, kb, k_ss, 0, Sk, vec16);
+    load_rows<BK, D, PAD, THREADS>(smem + BK * SD, vb, v_ss, 0, Sk, vec16);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 
   // A fragment of m16n8k8 (TF32): a0 (g, t4), a1 (g + 8, t4),
   // a2 (g, t4 + 4), a3 (g + 8, t4 + 4); rows past Sq are zero
-  QFrags<D> qf(smem + 4 * BK * SD);
+  RowFrags<D, THREADS> qf(smem + 4 * BK * SD);
   {
     const float* qb = q + bb * q_sb + hh * q_sh;
 #pragma unroll
@@ -327,12 +231,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = t * BK;
     if (t + 1 < n_tiles) {
       float* nxt = smem + ((t + 1) & 1) * 2 * BK * SD;
-      load_tile<D>(nxt, kb, k_ss, k0 + BK, Sk, vec16);
-      load_tile<D>(nxt + BK * SD, vb, v_ss, k0 + BK, Sk, vec16);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      load_rows<BK, D, PAD, THREADS>(nxt, kb, k_ss, k0 + BK, Sk, vec16);
+      load_rows<BK, D, PAD, THREADS>(nxt + BK * SD, vb, v_ss, k0 + BK, Sk, vec16);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      cp_async_wait<0>();
     }
     __syncthreads();  // tile t has landed for every thread
     const float* sK = smem + (t & 1) * 2 * BK * SD;
@@ -353,8 +257,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int nt = 0; nt < NT; ++nt) {
         const float* kr = sK + (8 * nt + g) * SD + 8 * ks + t4;
         uint32_t bhi[2], blo[2];
-        split(kr[0], bhi[0], blo[0]);
-        split(kr[4], bhi[1], blo[1]);
+        split_b(kr[0], kr[4], bhi, blo);
         mma3(sacc[nt], ahi, alo, bhi, blo);
       }
     }
@@ -414,16 +317,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t ahi[4], alo[4];
-      split(sacc[nt][0], ahi[0], alo[0]);
-      split(sacc[nt][2], ahi[1], alo[1]);
-      split(sacc[nt][1], ahi[2], alo[2]);
-      split(sacc[nt][3], ahi[3], alo[3]);
+      split_c_as_a(sacc[nt], ahi, alo);
       const float* vr = sV + (8 * nt + 2 * t4) * SD + g;
 #pragma unroll
       for (int j = 0; j < KS; ++j) {
         uint32_t bhi[2], blo[2];
-        split(vr[8 * j], bhi[0], blo[0]);
-        split(vr[SD + 8 * j], bhi[1], blo[1]);
+        split_b(vr[8 * j], vr[SD + 8 * j], bhi, blo);
         mma3(o_acc[j], ahi, alo, bhi, blo);
       }
     }
@@ -459,10 +358,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const size_t smem = smem_bytes<D>();
   cudaError_t err = opt_in_smem(flash_fwd_tf32_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  // 16-byte cp.async needs every K/V row start 16-byte aligned
-  bool vec16 = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-               reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  for (int i = 3; i < 9; ++i) vec16 = vec16 && st[i] % 4 == 0;
+  // K and V tiles stream by cp.async; q is read per element
+  const bool vec16 = rows_16b_aligned(
+      {k, v}, {st[3], st[4], st[5], st[6], st[7], st[8]});
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_tf32_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

@@ -31,11 +31,11 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     aligned base addresses and byte strides that are multiples of 16, so
     the wrappers refuse other bf16 views.  All three round P (and dS) to
     bf16 before the second product, where the TPU kernels do;
-  * fp32 (serving, the fp32 check step): the forward runs on the tensor
-    cores in 3xTF32 (each fp32 operand split into two TF32 halves and
-    each product taken as hi*hi + hi*lo + lo*hi, accumulated in fp32:
-    fp32-level error, not TF32's three digits); dQ and dK/dV stay on FMA
-    kernels, fp32 throughout, bounded by the 67 TFLOP/s of fp32 FMA.
+  * fp32 (serving, fp32 training): the forward, dQ and dK/dV run on the
+    tensor cores in 3xTF32 with `mma.sync` (each fp32 operand split into
+    two TF32 halves and each product taken as hi*hi + hi*lo + lo*hi,
+    accumulated in fp32: fp32-level error, not TF32's three digits).
+    They take any strided fp32 view with a contiguous head dim.
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the hand-written kernels (flash
 forward, flash backward dQ and dK/dV, fused cross-entropy) against their
 plain versions (in bf16 the forward, dQ and dK/dV are the wgmma kernels,
-in fp32 the forward is the 3xTF32 kernel: the cases cover D = 32, 64,
-128, ragged S, causal Sq != Sk and the strided head-split views), the
+in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128, ragged S,
+causal Sq != Sk, the strided head-split views and fp32 views 4 bytes
+past a 16-byte boundary), the
 GPU Predictor against the CPU one, and a training step on the GPU against
 the same step on the CPU.
 Marked `cuda`; each skips (inside the test) where no CUDA device is
@@ -225,6 +226,68 @@ def test_fp32_forward_matches_plain_version(b, h, sq, sk, d, causal,
     torch.testing.assert_close(lse[fin], ref_lse[fin], rtol=1e-4, atol=1e-4)
     if causal and sq > sk:
         assert torch.all(out[:, :, :sq - sk] == 0)
+
+
+def _fp32_bwd_args(b, h, sq, sk, d, causal, strided, seed=6):
+    """fp32 q, k, v, dO (the "offset" views start 4 bytes past a 16-byte
+    boundary, so the kernels take their 4-byte copies), lse and D from the
+    plain forward."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided == "offset":
+        q, k, v, do = (torch.randn(b * h * s * d + 1, device="cuda",
+                                   generator=g)[1:].view(b, h, s, d)
+                       for s in (sq, sk, sk, sq))
+        assert all(t.data_ptr() % 16 == 4 for t in (q, k, v, do))
+    else:
+        q, k, v, do = (_bhsd(g, b, h, s, d, torch.float32, strided)
+                       for s in (sq, sk, sk, sq))
+    out, lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    dd = (do * out).sum(-1)
+    return q, k, v, do, lse, dd, causal
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,strided", _CASES + [
+    (1, 2, 130, 70, 64, True, "offset"),
+    (1, 2, 70, 130, 128, False, "offset")])
+def test_fp32_backward_kernels_match_plain_version(b, h, sq, sk, d, causal,
+                                                   strided):
+    """The fp32 dQ and dK/dV kernels (3xTF32 on the tensor cores) against
+    flash_attention_bwd_dq_plain / _dkv_plain at 1e-4 (the kernel gate of
+    chip_smoke.py: summation order, and 3xTF32 keeps an fp32-level
+    error).  With causal Sq > Sk the first Sq - Sk rows see no key: their
+    dq is exactly 0."""
+    _need_cuda()
+    args = _fp32_bwd_args(b, h, sq, sk, d, causal, strided)
+    before = (tattn.flash_attention_bwd_dq_cuda.launches,
+              tattn.flash_attention_bwd_dkv_cuda.launches)
+    dq = tattn.flash_attention_bwd_dq_cuda(*args)
+    dk, dv = tattn.flash_attention_bwd_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_bwd_dq_cuda.launches,
+            tattn.flash_attention_bwd_dkv_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref_dq = tattn.flash_attention_bwd_dq_plain(*args)
+    ref_dk, ref_dv = tattn.flash_attention_bwd_dkv_plain(*args)
+    for tag, got, want in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        assert got.dtype == torch.float32 and got.shape == want.shape, tag
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{tag}: {m}")
+    if causal and sq > sk:
+        assert torch.all(dq[:, :, :sq - sk] == 0)
+
+
+def test_fp32_backward_kernels_are_deterministic():
+    """No atomics: two launches of each fp32 kernel give the same bits."""
+    _need_cuda()
+    args = _fp32_bwd_args(2, 4, 384, 384, 64, True, True, seed=7)
+    first = (tattn.flash_attention_bwd_dq_cuda(*args),
+             *tattn.flash_attention_bwd_dkv_cuda(*args))
+    second = (tattn.flash_attention_bwd_dq_cuda(*args),
+              *tattn.flash_attention_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("t,v,dtype,ignore", [

@@ -14,6 +14,11 @@ atol=rtol=1e-2 for the dQ and dK/dV plain versions against the Pallas
 out, lse and D: both sides round P and dS to bf16 before their products
 (dQ: `ds.astype(ks.dtype)`), so they differ by the summation order and
 one rounding of the output.
+
+The fp32 dQ and dK/dV kernels multiply in 3xTF32 on the tensor cores;
+`test_fp32_kernels_error_model_matches_pallas_kernels` emulates that
+arithmetic here (`_mm_3xtf32`) and holds it to the 1e-4 that
+chip_smoke.py gates the kernels with.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,29 @@ from paddle_tpu_torch.ops import attention as tattn
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_KERNEL_TOL = dict(rtol=1e-2, atol=1e-2)
+FP32_KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+_MATMUL = torch.matmul  # the fp32 product, before a test swaps it
+
+
+def _tf32(x):
+    """x as the tensor cores read an fp32 register as TF32: the 13 low
+    mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the fp32 kernels take it (csrc/tf32.cuh): each operand
+    split as x = hi + lo, hi = x with 13 mantissa bits cleared and lo =
+    x - hi, lo read truncated to TF32 as well; three products lo hi +
+    hi lo + hi hi, summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return _MATMUL(al, bh) + _MATMUL(ah, bl) + _MATMUL(ah, bh)
+
+
+def _mm_tf32(a, b):
+    """a @ b in plain TF32: one product of the hi parts."""
+    return _MATMUL(_tf32(a), _tf32(b))
 
 
 def _inputs(b, h, sq, sk, d, seed):
@@ -169,6 +197,44 @@ def test_dkv_plain_rounds_p_and_ds_like_the_kernels():
                                atol=0)
     torch.testing.assert_close(dk, want_dk.to(torch.bfloat16), rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_kernels_error_model_matches_pallas_kernels(monkeypatch, causal,
+                                                         d):
+    """The plain dQ and dK/dV tile loops with every product taken as the
+    fp32 kernels take it (3xTF32) against the Pallas `_flash_bwd_dq_kernel`
+    / `_flash_bwd_dkv_kernel` in interpret mode in fp32, on the same out,
+    lse and D: within 1e-4.  The same loops in plain TF32 miss 1e-4 on
+    every output, so the three products are what keeps the kernels at an
+    fp32-level error."""
+    q, k, v, g = _inputs(1, 2, 128, 128, d, seed=60 + d + causal)
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    scale = 1.0 / float(np.sqrt(d))
+    out, lse = jattn._flash_fwd(jq, jk, jv, causal, scale, 64, 64,
+                                interpret=True)
+    ref = [np.asarray(x) for x in jattn._flash_bwd(
+        jq, jk, jv, out, lse, jg, causal, scale, 64, 64, interpret=True)]
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    tlse = torch.from_numpy(np.array(lse)[..., 0])
+    dd = (tg * torch.from_numpy(np.array(out))).sum(-1)
+
+    def grads(matmul):
+        monkeypatch.setattr(torch, "matmul", matmul)
+        try:
+            dq = tattn.flash_attention_bwd_dq_plain(tq, tk, tv, tg, tlse, dd,
+                                                    causal)
+            dk, dv = tattn.flash_attention_bwd_dkv_plain(tq, tk, tv, tg,
+                                                         tlse, dd, causal)
+        finally:
+            monkeypatch.setattr(torch, "matmul", _MATMUL)
+        return [x.numpy() for x in (dq, dk, dv)]
+
+    for tag, got, want in zip(("dq", "dk", "dv"), grads(_mm_3xtf32), ref):
+        np.testing.assert_allclose(got, want, err_msg=tag, **FP32_KERNEL_TOL)
+    for tag, got, want in zip(("dq", "dk", "dv"), grads(_mm_tf32), ref):
+        assert not np.allclose(got, want, **FP32_KERNEL_TOL), tag
 
 
 def test_plain_dq_dkv_split_equals_whole():

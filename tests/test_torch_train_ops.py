@@ -136,6 +136,21 @@ CASES = [
       "InBadSteps": np.asarray([1], np.int32)},
      {"incr_every_n_steps": 4, "decr_every_n_nan_or_inf": 2,
       "incr_ratio": 2.0, "decr_ratio": 0.5}, None),
+    # the score-matrix attention of the flash-off program (the fp32 check
+    # step's reference): q k^T scaled, softmax, probs v
+    ("matmul", {"X": _rand(_R, (2, 2, 5, 4)), "Y": _rand(_R, (2, 2, 6, 4))},
+     {"transpose_X": False, "transpose_Y": True, "alpha": 0.5}, ["Out"]),
+    ("matmul", {"X": _rand(_R, (2, 2, 5, 6)), "Y": _rand(_R, (2, 2, 6, 4))},
+     {}, ["Out"]),
+    ("matmul", {"X": _rand(_R, (4, 5)), "Y": _rand(_R, (3, 4))},
+     {"transpose_X": True, "transpose_Y": True}, ["Out"]),
+    ("scale", {"X": _rand(_R, (2, 5, 8))},
+     {"scale": 0.125, "bias": 0.5, "bias_after_scale": True}, ["Out"]),
+    ("scale", {"X": _rand(_R, (2, 5, 8))},
+     {"scale": 2.0, "bias": 1.0, "bias_after_scale": False}, ["Out"]),
+    ("softmax", {"X": _rand(_R, (2, 2, 5, 6))}, {"axis": -1}, ["Out"]),
+    ("softmax", {"X": (_rand(_R, (2, 5, 6)), "bfloat16")}, {"axis": 1},
+     ["Out"]),
 ]
 
 
@@ -176,7 +191,8 @@ def test_op_and_grad_parity(case, fused):
 
 def test_grad_op_slots_follow_the_reference_convention():
     for t in ("mul", "layer_norm", "flash_attention",
-              "softmax_with_cross_entropy", "sum"):
+              "softmax_with_cross_entropy", "sum", "matmul", "scale",
+              "softmax"):
         j, p = jreg.get_op_info(t + "_grad"), treg.get_op_info(t + "_grad")
         assert [s.name for s in p.inputs] == [s.name for s in j.inputs]
         assert [s.name for s in p.outputs] == [s.name for s in j.outputs]
