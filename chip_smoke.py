@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the paddle_tpu_torch port: build its CUDA kernels,
 hold each against its plain PyTorch version, serve a BERT-base encoder
-over HTTP /predict and train BERT-base, both through the kernels.
+over HTTP /predict and train BERT-base, both through the kernels, the
+training step also as a CUDA graph replayed by Executor.run_steps.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -22,11 +23,15 @@ is present.  Phases:
                case with Sq != Sk both ways (the Sq < Sk one in fp32 and
                bf16), and ragged S = 200 at D = 32 and 128 (fp32 and
                bf16: fp32 runs the 3xTF32 kernels, bf16 the wgmma
-               kernels).
+               kernels), fp16 at the training shape (the wgmma kernels'
+               f16 instances), and head dims without a kernel instance,
+               zero-padded by the wrapper: D = 96 (hidden 768 over 8
+               heads) and D = 48 (over 16 heads) in fp32 and bf16 on the
+               head-split views (bounds count the real D).
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
-               against the plain version, which rounds P and dS to bf16
-               where the kernels do.
+               and fp16 5e-3 against the plain version, which rounds P
+               and dS to the input dtype where the kernels do.
                One JSON line per case: kernel_ms, plain_ms and library_ms
                (torch scaled_dot_product_attention, a yardstick the port
                never calls) as device time per call (CUDA events around
@@ -48,11 +53,14 @@ is present.  Phases:
                scaled_dot_product_attention (autograd.grad after one
                forward), bounds count 6 (dQ) and 8 (dK/dV) x B H pairs D
                FLOPs.  And the fused cross-entropy kernel against
-               fused_xent_plain at [4096, 30522] in fp32 and bf16, a
-               ragged V = 1000, and rows with a positive and a negative
+               fused_xent_plain at [4096, 30522] in fp32, bf16 and fp16,
+               a ragged V = 1000, and rows with a positive and a negative
                ignore_index; library_ms is F.cross_entropy(reduction=
                "none"), the bound is bytes.  Same tolerances, reasons and
-               timing;
+               timing.  Last, a bf16 view 4 bytes past a 16-byte
+               boundary (which TMA refuses) is copied by the wrappers and
+               launched: forward, dQ and dK/dV equal to the last bit to
+               the aligned tensors', 5 copies counted;
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -80,13 +88,29 @@ is present.  Phases:
                launch counts per step: flash forward 24 (12 forward ops
                + the 12 replays of the grad ops, which re-run the forward
                under torch.func.vjp), dQ 12, dK/dV 12, fused
-               cross-entropy 2 (the forward op + its grad op's replay).
+               cross-entropy 2 (the forward op + its grad op's replay),
+               and no copy of the head-split views before a launch
+               (flash_attention.view_copies 0: TMA takes them as they
+               are).
                (c) the fp32 training configuration (bench.py with
                BENCH_NO_AMP=1): the same model, 4 steps after a warm-up,
                the same gates and launch counts per step, through the
                fp32 kernels (3xTF32 forward, dQ and dK/dV, fp32 fused
                cross-entropy); MFU over the 67 TFLOP/s of fp32 FMA (its
                GEMMs run in fp32 with TF32 off).
+  6. train_graph - the AMP bf16 and fp32 configurations of phase 5 from
+               the same startup weights, through Executor.run_steps: one
+               CUDA graph of the step captured, then replayed K times per
+               call (K = 6 AMP, 4 fp32); step_ms (wall / K of a call),
+               tokens/s, MFU, device busy per step and idle share over one
+               profiled call (the profiler slows the replay's launches, so
+               the idle share against the unprofiled step is given too),
+               kernels replayed per step counted from the
+               profiler (24 / 12 / 12 / 2, as in the eager step), one
+               capture then hits, peak memory; the first 2K losses equal
+               to 2K eager Executor.run steps from the same weights (to
+               the last bit, else within rtol 1e-5 fp32 / 2e-3 AMP, the
+               largest difference reported), finite and falling.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -97,9 +121,11 @@ time of encoding one /predict response.
 The line before the last is the kernels summary: the four bf16 kernels
 of the training step (launches counted over the training run of phase
 5b), the fp32 forward at the serving shape (launches counted over the
-served burst of phase 4) and the fp32 dQ and dK/dV (launches counted
-over the fp32 training run of phase 5c); the last line {"ok": true,
-"device": {...}}.
+served burst of phase 4), the fp32 dQ, dK/dV and fused cross-entropy
+(launches counted over the fp32 training run of phase 5c), each with its
+launches per graph-replayed step of phase 6, and the fp16 instances
+(kernel cases only, 0 launches: no configuration runs fp16); the last
+line {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -123,6 +149,11 @@ ROWS_PER_POST = (2, 2, 2, 2)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
 FP32_TRAIN_STEPS = 4
+GRAPH_TIMED_CALLS = 3  # run_steps calls timed after the capturing one
+# kernel-case tolerances against the plain versions: fp32 summation order
+# (3xTF32 keeps an fp32-level error); bf16 and fp16 a few ulps of the
+# rounded outputs (2^-8 and 2^-11 relative)
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
 # the kernels of the training and serving paths and the TPU kernels they
 # replace
@@ -141,11 +172,25 @@ KERNELS = {
                                 "paddle_tpu/ops/attention.py:281"),
     "fused_xent_fwd": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
                        "paddle_tpu/ops/fused_xent.py:42"),
+    "fused_xent_fwd_fp32": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
+                            "paddle_tpu/ops/fused_xent.py:42"),
+    "flash_attn_fwd_fp16": ("paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+                            "paddle_tpu/ops/attention.py:125"),
+    "flash_attn_bwd_dq_fp16": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                               "paddle_tpu/ops/attention.py:240"),
+    "flash_attn_bwd_dkv_fp16": ("paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                                "paddle_tpu/ops/attention.py:281"),
+    "fused_xent_fwd_fp16": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
+                            "paddle_tpu/ops/fused_xent.py:42"),
 }
 
 
 def log(obj):
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def dtype_name(dt):
+    return str(dt).replace("torch.", "")
 
 
 def cuda_time_ms(fn, reps):
@@ -237,7 +282,7 @@ def unit_bound(flops, nbytes, dtype):
     multiply (3xTF32) on the tensor cores, with the bound on fp32 FMAs
     beside it (None in bf16)."""
     if dtype != "float32":
-        return roofline(flops, nbytes, dtype) + (None,)
+        return roofline(flops, nbytes, "bfloat16") + (None,)  # fp16: same
     return roofline(3 * flops, nbytes, "tf32") + \
         (roofline(flops, nbytes, "float32")[0],)
 
@@ -283,6 +328,14 @@ def attention_cases(torch):
          False),
         ("ragged_s200_d128_bf16", 2, 12, 200, 200, 128, torch.bfloat16,
          False, False),
+        # fp16 (the wgmma kernels' f16 instances) at the training shape
+        ("slice_fp16", 8, 12, 512, 512, 64, torch.float16, False, True),
+        # head dims without an instance, zero-padded to 128 and 64:
+        # hidden 768 over 8 and over 16 heads, on the head-split views
+        ("pad_d96_fp32", 8, 8, 512, 512, 96, torch.float32, False, True),
+        ("pad_d96_bf16", 8, 8, 512, 512, 96, torch.bfloat16, False, True),
+        ("pad_d48_fp32", 8, 16, 512, 512, 48, torch.float32, False, True),
+        ("pad_d48_bf16", 8, 16, 512, 512, 48, torch.bfloat16, False, True),
     ]
 
 
@@ -303,7 +356,8 @@ def kernel_phase(torch, attn):
         out, lse = attn.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref, ref_lse = attn.flash_attention_plain(q, k, v, causal=causal)
-        tol = 1e-4 if dt == torch.float32 else 2e-2
+        dname = dtype_name(dt)
+        tol = TOL[dname]
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
@@ -321,11 +375,11 @@ def kernel_phase(torch, attn):
         def kern():
             attn.flash_attention_cuda(q, k, v, causal=causal)
 
-        dname = "float32" if dt == torch.float32 else "bfloat16"
         bound_ms, bound_by, fma_bound_ms = bound(b, h, sq, sk, d, dname,
                                                  causal)
         row = dict(case=name, shape=[b, h, sq, sk, d], dtype=dname,
                    causal=causal, strided=strided, max_abs_err=err, tol=tol,
+                   kernel_head_dim=attn.kernel_head_dim(d),
                    kernel_ms=device_ms(torch, kern, 20),
                    kernel_ms_events=cuda_time_ms(kern, 20),
                    plain_ms=device_ms(
@@ -361,7 +415,8 @@ def bwd_kernel_phase(torch, attn):
         torch.cuda.synchronize()
         ref_dq = attn.flash_attention_bwd_dq_plain(*args)
         ref_dk, ref_dv = attn.flash_attention_bwd_dkv_plain(*args)
-        tol = 1e-4 if dt == torch.float32 else 2e-2
+        dname = dtype_name(dt)
+        tol = TOL[dname]
         errs = {}
         for tag, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
                               ("dv", dv, ref_dv)):
@@ -383,7 +438,6 @@ def bwd_kernel_phase(torch, attn):
         library_ms = device_ms(
             torch, lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                                retain_graph=True), 10)
-        dname = "float32" if dt == torch.float32 else "bfloat16"
         bounds = bwd_bounds(b, h, sq, sk, d, dname, causal)
         results[name] = {}
         for kern, cuda_fn, plain_fn, err in (
@@ -395,6 +449,7 @@ def bwd_kernel_phase(torch, attn):
             row = dict(case=name, kernel=kern, shape=[b, h, sq, sk, d],
                        dtype=dname, causal=causal, strided=strided, tol=tol,
                        max_abs_err=err,
+                       kernel_head_dim=attn.kernel_head_dim(d),
                        kernel_ms=device_ms(torch, lambda: cuda_fn(*args), 10),
                        kernel_ms_events=cuda_time_ms(lambda: cuda_fn(*args),
                                                      10),
@@ -418,6 +473,7 @@ def xent_kernel_phase(torch, fx):
     cases = [  # name, T, V, dtype, ignore_index, share of ignored rows
         ("train_fp32", 4096, 30522, torch.float32, -100, 0),
         ("train_bf16", 4096, 30522, torch.bfloat16, -100, 0),
+        ("train_fp16", 4096, 30522, torch.float16, -100, 0),
         ("ragged_v1000", 300, 1000, torch.float32, -100, 0),
         ("ignore_pos", 512, 30522, torch.float32, 7, 4),
         ("ignore_neg", 512, 30522, torch.bfloat16, -1, 4),
@@ -431,17 +487,18 @@ def xent_kernel_phase(torch, fx):
         loss, lse = fx.fused_xent_cuda(logits, label, ign)
         torch.cuda.synchronize()
         ref_loss, ref_lse = fx.fused_xent_plain(logits, label, ign)
-        tol = 1e-4 if dt == torch.float32 else 2e-2
+        dname = dtype_name(dt)
+        tol = TOL[dname]
         torch.testing.assert_close(loss, ref_loss, rtol=tol, atol=tol)
         torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
         if every and not torch.all(loss[::every] == 0):
             raise AssertionError(f"{name}: ignored rows have loss != 0")
         esize = 4 if dt == torch.float32 else 2
-        dname = "float32" if dt == torch.float32 else "bfloat16"
         # logits and labels read once, loss and lse written once; ~4
         # operations per logit (max, subtract, exp, add)
         bound_ms, bound_by = roofline(4.0 * t * v, esize * t * v + 16 * t,
-                                      dname)
+                                      "float32" if esize == 4 else
+                                      "bfloat16")
         lib_label = label.clone()
         row = dict(case=name, shape=[t, v], dtype=dname, ignore_index=ign,
                    tol=tol, max_abs_err=(loss - ref_loss).abs().max().item(),
@@ -461,6 +518,45 @@ def xent_kernel_phase(torch, fx):
         log(dict(phase="kernel_xent", **row))
         results[name] = row
     return results
+
+
+def view_copy_phase(torch, attn):
+    """A bf16 view that TMA refuses (4 bytes past a 16-byte boundary) is
+    copied to a contiguous tensor and then launched: the forward, dQ and
+    dK/dV on the shifted q and dO give the bits of the aligned tensors,
+    and flash_attention.view_copies counts the copies."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    q, k, v, do = (attention_inputs(torch, gen, 2, 12, 512, 64,
+                                    torch.bfloat16, False) for _ in range(4))
+
+    def shifted(t):  # t's values in a view 2 elements past 16 bytes
+        flat = torch.empty(t.numel() + 2, dtype=t.dtype, device="cuda")
+        view = flat[2:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    sq, sdo = shifted(q), shifted(do)
+    if sq.data_ptr() % 16 != 4 or attn.tma_accepts(sq):
+        raise AssertionError("the shifted view is not one TMA refuses")
+    out, lse = attn.flash_attention_cuda(q, k, v)
+    dd = (do.float() * out.float()).sum(-1)
+    want = (out, attn.flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd),
+            *attn.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd))
+    attn.flash_attention.view_copies = 0
+    got = (attn.flash_attention_cuda(sq, k, v)[0],
+           attn.flash_attention_bwd_dq_cuda(sq, k, v, sdo, lse, dd),
+           *attn.flash_attention_bwd_dkv_cuda(sq, k, v, sdo, lse, dd))
+    torch.cuda.synchronize()
+    copies = attn.flash_attention.view_copies
+    if copies != 5:
+        raise AssertionError(f"{copies} view copies, expected 5 (q in each "
+                             "of the three launches, dO in two)")
+    for tag, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} of the copied view differs")
+    log({"phase": "kernel_view_copy", "shape": [2, 12, 512, 64],
+         "dtype": "bfloat16", "offset_bytes": sq.data_ptr() % 16,
+         "view_copies": copies, "bitwise_equal_to_aligned": True})
 
 
 def post(url, payload):
@@ -775,6 +871,7 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
             # ---- the main path: counts from 0 just before, read just after
             for c in counters:
                 c.launches = 0
+            attn.flash_attention.view_copies = 0
             for _ in range(steps):
                 t0 = time.perf_counter()
                 (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
@@ -784,6 +881,7 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
             launches = dict(zip(("flash_attn_fwd", "flash_attn_bwd_dq",
                                  "flash_attn_bwd_dkv", "fused_xent_fwd"),
                                 (c.launches for c in counters)))
+            view_copies = attn.flash_attention.view_copies
             # ---- end of the main path
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             if profile:
@@ -795,6 +893,9 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag} losses not finite and falling: "
                              f"{losses}")
+    if view_copies:  # the head-split views are ones TMA takes as they are
+        raise AssertionError(f"{tag}: {view_copies} view copies before "
+                             "the flash kernels")
     n = BERT["layers_n"]
     want = {"flash_attn_fwd": 2 * n, "flash_attn_bwd_dq": n,
             "flash_attn_bwd_dkv": n, "fused_xent_fwd": 2}
@@ -815,6 +916,7 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
          "mfu_peak_flops": PEAK_FLOPS[peak], "mfu_peak_dtype": peak,
          "launches": launches,
          "launches_per_step": {k: v // steps for k, v in launches.items()},
+         "flash_view_copies": view_copies,
          "peak_gpu_mem_gb": peak_gb})
     return launches
 
@@ -880,6 +982,182 @@ def train_profile(torch, exe, main, feed, loss, config):
              ([t, n, ms] for t, (n, ms) in by_type.items()),
              key=lambda r: -r[2])[:12]})
 
+def count_kernels(prof, names):
+    """{name: launches} of the device kernels whose name contains each
+    substring, from a torch.profiler run (kernels replayed by a CUDA
+    graph are recorded one by one)."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    return {name: sum(e.count for e in dev if sub in e.key)
+            for name, sub in names.items()}, dev
+
+
+def train_graph_phase(torch, seed):
+    """(6) The training step through Executor.run_steps, one CUDA graph
+    captured per configuration and replayed per step: AMP bf16 (K = 6)
+    and fp32 (K = 4).  Returns {config: per-step kernel launches counted
+    by the profiler over one run_steps call}."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import fused_xent as fx
+
+    feed = train_feed(seed)
+    return {tag: train_graph_config(torch, static, fx, seed, feed, use_amp,
+                                    k)
+            for tag, use_amp, k in (("amp", True, TRAIN_STEPS),
+                                    ("fp32", False, FP32_TRAIN_STEPS))}
+
+
+def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
+    """run_steps with K steps per call on the fixed batch, from the
+    startup weights of --seed (those of the eager phase):
+      * call 1 warms up, captures and replays K steps; calls 2 to
+        1 + GRAPH_TIMED_CALLS are timed (host clock around run_steps plus
+        synchronize, per step = wall / K); one more call runs under
+        torch.profiler for the device busy time, the idle share and the
+        kernels replayed per step (24 flash forward, 12 dQ, 12 dK/dV,
+        2 fused cross-entropy, as in the eager step);
+      * the 2K losses of calls 1 and 2 against 2K eager Executor.run
+        steps from the same weights: equal to the last bit (the same
+        kernels on the same inputs), else within rtol 1e-5 (fp32) or
+        2e-3 (AMP bf16), with the largest difference reported;
+      * every loss finite, the last below the first; one capture, then
+        hits (cache_stats); peak memory with the graph's pool."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import attention as attn
+
+    main, startup, loss = build_pretrain(True, use_amp=use_amp)
+    startup.random_seed = seed
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    exe = static.Executor()
+    init_scope = static.Scope()
+    with static.scope_guard(init_scope):
+        exe.run(startup)
+    init = {n: t.clone() for n, t in init_scope.vars.items()
+            if t is not None}
+    del init_scope
+    stacked = {n: np.stack([v] * k) for n, v in feed.items()}
+    counters = (attn.flash_attention, attn.flash_attention_bwd_dq_cuda,
+                attn.flash_attention_bwd_dkv_cuda, fx.fused_xent_cuda)
+    names = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+             "fused_xent_fwd")
+    n = BERT["layers_n"]
+    want = dict(zip(names, (2 * n, n, n, 2)))
+    losses, step_ms = [], []
+    fx.enable_fused_xent(True)
+    try:
+        scope = static.Scope()
+        for name, t in init.items():
+            scope.set(name, t.clone())
+        graph_exe = static.Executor()
+        with static.scope_guard(scope):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- this path: counts from 0 just before, read just after
+            # (the Python counters move when the step is captured, not on
+            # a replay: the profiler below counts the replays)
+            for c in counters:
+                c.launches = 0
+            attn.flash_attention.view_copies = 0
+            t0 = time.perf_counter()
+            (lv,) = graph_exe.run_steps(main, feed=stacked,
+                                        fetch_list=[loss])
+            torch.cuda.synchronize()
+            capture_call_s = time.perf_counter() - t0
+            losses.extend(np.asarray(lv).reshape(-1).tolist())
+            for _ in range(GRAPH_TIMED_CALLS):
+                t0 = time.perf_counter()
+                (lv,) = graph_exe.run_steps(main, feed=stacked,
+                                            fetch_list=[loss])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3 / k)
+                losses.extend(np.asarray(lv).reshape(-1).tolist())
+            capture_launches = dict(zip(names,
+                                        (c.launches for c in counters)))
+            view_copies = attn.flash_attention.view_copies
+            # ---- end of this path
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                graph_exe.run_steps(main, feed=stacked, fetch_list=[loss])
+                torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = graph_exe.cache_stats()
+        graph_exe.close()
+        del scope
+        # the eager reference: 2K run() steps from the same weights
+        eager_scope = static.Scope()
+        for name, t in init.items():
+            eager_scope.set(name, t)
+        with static.scope_guard(eager_scope):
+            eager = [float(np.asarray(exe.run(main, feed=feed,
+                                              fetch_list=[loss])[0])
+                           .reshape(-1)[0]) for _ in range(2 * k)]
+        del eager_scope, init
+    finally:
+        fx.enable_fused_xent(False)
+    tag = "AMP bf16" if use_amp else "fp32"
+    graph = np.asarray(losses[:2 * k], np.float32)
+    eager = np.asarray(eager, np.float32)
+    bitwise = bool(np.array_equal(graph, eager))
+    max_rel = float(np.max(np.abs(graph - eager) / np.abs(eager)))
+    if not bitwise:
+        np.testing.assert_allclose(graph, eager,
+                                   rtol=2e-3 if use_amp else 1e-5, atol=0)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"graph {tag} losses not finite and falling: "
+                             f"{losses}")
+    if view_copies:
+        raise AssertionError(f"graph {tag}: {view_copies} view copies")
+    calls = 2 + GRAPH_TIMED_CALLS
+    if stats != {"hits": calls - 1, "misses": 1, "traces": 1}:
+        raise AssertionError(f"graph {tag}: cache_stats {stats}, expected "
+                             f"1 capture and {calls - 1} hits")
+    replayed, dev = count_kernels(prof, dict(zip(names, (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_xent"))))
+    per_step = {name: c / k for name, c in replayed.items()}
+    for name, per in want.items():
+        # the capturing call ran the step twice outside the replays (the
+        # warm-up and the capture); the profiled call replays K steps
+        if per_step[name] != per or capture_launches[name] != 2 * per:
+            raise AssertionError(
+                f"graph {tag} {name}: {per_step[name]} launches per "
+                f"replayed step, {capture_launches[name]} in the capturing "
+                f"call; expected {per} and {2 * per}")
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    tokens_s = TRAIN_BATCH * BERT["seq"] / (steady / 1e3)
+    peak = "bfloat16" if use_amp else "float32"
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    log({"phase": "train_graph" if use_amp else "train_graph_fp32",
+         "config": f"bert-base pretrain, {tag}, flash + fused CE, "
+                   f"run_steps K={k} (CUDA graph replay)",
+         "batch": TRAIN_BATCH, "seq": BERT["seq"], "params": n_params,
+         "steps_per_call": k, "capture_call_s": capture_call_s,
+         "step_ms": step_ms, "median_step_ms": steady,
+         "tokens_per_s": tokens_s,
+         "mfu": 6.0 * n_params * tokens_s / PEAK_FLOPS[peak],
+         "mfu_peak_dtype": peak,
+         "device_busy_ms_per_step": busy_ms / k,
+         "device_idle_share": max(0.0, 1.0 - busy_ms / prof_wall_ms),
+         "profiled_call_wall_ms": prof_wall_ms,
+         "device_idle_share_of_timed_step":
+             max(0.0, 1.0 - busy_ms / k / steady),
+         "launches_per_replayed_step": per_step,
+         "launches_in_capturing_call": capture_launches,
+         "flash_view_copies": view_copies,
+         "cache_stats": stats, "peak_gpu_mem_gb": peak_gb,
+         "losses": losses, "eager_losses": eager.tolist(),
+         "losses_bitwise_equal_to_eager": bitwise,
+         "losses_max_rel_diff_vs_eager": max_rel,
+         "top_device_ms_per_step": [[e.key[:80], e.count / k,
+                                     e.self_device_time_total / 1e3 / k]
+                                    for e in top]})
+    return per_step
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -937,38 +1215,65 @@ def main():
             ("flash_bwd_dq_fp32", bwd["slice_fp32"]["dq"]),
             ("flash_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
+    view_copy_phase(torch, attn)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         serve_launches = slice_phase(torch, args.seed, tmp, args.profile)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     amp, fp32 = train_phase(torch, args.seed, args.profile)
+    graph = train_graph_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
-    # step ([4096, 30522] bf16 logits), launches over its steps; the fp32
-    # forward at the serving shape (a batch of 8 rows), launches over the
-    # served burst; the fp32 dQ and dK/dV of the fp32 training step,
-    # launches over its steps
+    # step ([4096, 30522] bf16 logits), launches over its eager steps; the
+    # fp32 forward at the serving shape (a batch of 8 rows), launches over
+    # the served burst; the fp32 dQ, dK/dV and fused cross-entropy of the
+    # fp32 training step, launches over its eager steps; beside them the
+    # launches per step of the graph-replayed steps (profiler).  The fp16
+    # instances run on no path yet (no fp16 configuration): their
+    # launches are 0 and their numbers come from the kernel cases.
     per_fp32_step = {k: n // FP32_TRAIN_STEPS for k, n in fp32.items()}
-    rows = [("flash_attn_fwd", fwd["slice_bf16"], amp["flash_attn_fwd"], {}),
+
+    def graph_step(config, name):
+        return {"launches_per_graph_replayed_step": graph[config][name]}
+
+    no_path = {"path": "none (kernel cases only: no fp16 configuration)"}
+    rows = [("flash_attn_fwd", fwd["slice_bf16"], amp["flash_attn_fwd"],
+             graph_step("amp", "flash_attn_fwd")),
             ("flash_attn_bwd_dq", bwd["slice_bf16"]["dq"],
-             amp["flash_attn_bwd_dq"], {}),
+             amp["flash_attn_bwd_dq"], graph_step("amp",
+                                                  "flash_attn_bwd_dq")),
             ("flash_attn_bwd_dkv", bwd["slice_bf16"]["dkv"],
-             amp["flash_attn_bwd_dkv"], {}),
-            ("fused_xent_fwd", xent["train_bf16"], amp["fused_xent_fwd"], {}),
+             amp["flash_attn_bwd_dkv"], graph_step("amp",
+                                                   "flash_attn_bwd_dkv")),
+            ("fused_xent_fwd", xent["train_bf16"], amp["fused_xent_fwd"],
+             graph_step("amp", "fused_xent_fwd")),
             ("flash_attn_fwd_fp32", fwd["slice_fp32"], serve_launches,
              {"launches_per_served_batch": BERT["layers_n"],
               "launches_per_fp32_train_step":
-                  per_fp32_step["flash_attn_fwd"]}),
+                  per_fp32_step["flash_attn_fwd"],
+              **graph_step("fp32", "flash_attn_fwd")}),
             ("flash_attn_bwd_dq_fp32", bwd["slice_fp32"]["dq"],
              fp32["flash_attn_bwd_dq"],
              {"launches_per_fp32_train_step":
-                  per_fp32_step["flash_attn_bwd_dq"]}),
+                  per_fp32_step["flash_attn_bwd_dq"],
+              **graph_step("fp32", "flash_attn_bwd_dq")}),
             ("flash_attn_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"],
              fp32["flash_attn_bwd_dkv"],
              {"launches_per_fp32_train_step":
-                  per_fp32_step["flash_attn_bwd_dkv"]})]
+                  per_fp32_step["flash_attn_bwd_dkv"],
+              **graph_step("fp32", "flash_attn_bwd_dkv")}),
+            ("fused_xent_fwd_fp32", xent["train_fp32"],
+             fp32["fused_xent_fwd"],
+             {"launches_per_fp32_train_step":
+                  per_fp32_step["fused_xent_fwd"],
+              **graph_step("fp32", "fused_xent_fwd")}),
+            ("flash_attn_fwd_fp16", fwd["slice_fp16"], 0, no_path),
+            ("flash_attn_bwd_dq_fp16", bwd["slice_fp16"]["dq"], 0, no_path),
+            ("flash_attn_bwd_dkv_fp16", bwd["slice_fp16"]["dkv"], 0,
+             no_path),
+            ("fused_xent_fwd_fp16", xent["train_fp16"], 0, no_path)]
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -16,8 +16,9 @@
 //
 // Semantics held equal to the TPU kernels:
 //   * P, dP, dS and the accumulators are fp32; outputs are written in the
-//     input dtype (fp32 or bf16);
-//   * in bf16, P and dS are rounded to bf16 before the second products:
+//     input dtype (fp32, bf16 or fp16);
+//   * in bf16 and fp16, P and dS are rounded to the input dtype before the
+//     second products:
 //     dS before dS k in dQ (the TPU kernel's `ds.astype(ks.dtype)`), P
 //     and dS before P^T dO and dS^T q in dK/dV (`p.astype(do.dtype)`,
 //     `.astype(q.dtype)`);
@@ -34,8 +35,11 @@
 //
 // The kernels, dispatched by dtype in the C entries at the end:
 //
-// bf16 (the AMP training path): two warp-specialized wgmma kernels fed
-// by TMA, `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel`.
+// bf16 (the AMP training path) and fp16: two warp-specialized wgmma
+// kernels fed by TMA, `flash_bwd_dq_wgmma_kernel<D, T>` and
+// `flash_bwd_dkv_wgmma_kernel<D, T>`, one source for both 16-bit types
+// (the wgmma type suffix, the tensor-map element type and the packing of
+// P, dS and the outputs differ).
 //   Bound on an H100 at the training shape B = 8, H = 12, S = 512,
 //   D = 64: dQ does 3 products of 2 S^2 D FLOPs per head (9.7 GFLOP,
 //   9.8 us on the 989 TFLOP/s tensor cores) against 32 MB of inputs and
@@ -59,14 +63,15 @@
 //   * S = q k^T and dP = dO v^T by wgmma m64n64k16 (both operands
 //     K-major); P = exp2(S scale log2e - lse log2e) is computed while dP
 //     is still in flight (wgmma wait 1); dS = P (dP - D) on the fragment,
-//     packed to bf16 (the TPU kernel's `ds.astype(ks.dtype)`) as the
-//     register A operand of dQ += dS k, B = the same k tile read MN-major.
+//     packed to the input dtype (the TPU kernel's `ds.astype(ks.dtype)`)
+//     as the register A operand of dQ += dS k, B = the same k tile read
+//     MN-major.
 //   * keys past Sk are masked in registers (TMA zero-fills them, and a
 //     zero score is not -inf), as are keys above the causal diagonal;
 //     key tiles wholly above it are skipped (`attention.py:273`).
-//   * dQ stays in registers until the epilogue (x scale, bf16, rows past
-//     Sq not stored).  Each dQ element is summed by one thread in a fixed
-//     order: no atomics, bitwise reproducible.
+//   * dQ stays in registers until the epilogue (x scale, input dtype,
+//     rows past Sq not stored).  Each dQ element is summed by one thread
+//     in a fixed order: no atomics, bitwise reproducible.
 //   At the training shape the grid is 4 x 12 x 8 = 384 CTAs, one per SM.
 //
 //   dK/dV: one CTA per (128 keys, head, batch).
@@ -79,8 +84,8 @@
 //     S^T = k q^T and dP^T = v dO^T (A = the warpgroup's k or v rows, B =
 //     the q or dO tile, both K-major); P^T and dS^T = P^T (dP^T - D) on
 //     the fragments, lse and D broadcast along the fragment's columns
-//     (the q index), packed to bf16 as the register A operands of
-//     dV += P^T dO and dK += dS^T q (B = the same dO / q tile read
+//     (the q index), packed to the input dtype as the register A operands
+//     of dV += P^T dO and dK += dS^T q (B = the same dO / q tile read
 //     MN-major).  dK and dV stay in registers until the epilogue.
 //   * The causal start tile follows `attention.py:321`: the first q tile
 //     that sees the CTA's first key.  Keys past Sk are computed on
@@ -138,6 +143,7 @@
 // and called through the plain C interface at the end of this file.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -652,7 +658,8 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
 }  // namespace tf32
 
 // ---------------------------------------------------------------------------
-// bf16: warp-specialized wgmma kernels (dK/dV, then dQ)
+// bf16 and fp16: warp-specialized wgmma kernels (dK/dV, then dQ), one
+// source for both 16-bit types T = __nv_bfloat16, __half
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -668,7 +675,8 @@ constexpr int CONSUMER_REGS = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // shared memory: K and V (resident), two stages of q and of dO, each as
-// D / COLS boxes of [rows][COLS] bf16; two stages of the q tile's lse
+// D / COLS boxes of [rows][COLS] 16-bit elements; two stages of the q
+// tile's lse
 // (log2 units) and D rows; then the mbarriers
 template <int D>
 struct Layout {
@@ -691,7 +699,7 @@ struct Layout {
   static constexpr size_t SMEM = BAR_OFF + 5 * 8 + 1024;  // + align slack
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -699,8 +707,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tdo,
                            const float* __restrict__ lse,
                            const float* __restrict__ dd,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int H, int Sq,
+                           T* __restrict__ dk, T* __restrict__ dv, int H,
+                           int Sq,
                            int Sk, int causal, float scale) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -815,7 +823,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<BQ, 0>::ss(
+        Wgmma<BQ, 0, T>::ss(
             st,
             hopper::make_desc(sk + b * L::KV_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -826,7 +834,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<BQ, 0>::ss(
+        Wgmma<BQ, 0, T>::ss(
             dpt,
             hopper::make_desc(sv + b * L::KV_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -860,9 +868,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             if (kpos > q0 + col + shift) p0 = 0.f;
             if (kpos > q0 + col + 1 + shift) p1 = 0.f;
           }
-          pa[kk][r] = hopper::pack_bf16(p0, p1);
-          dsa[kk][r] = hopper::pack_bf16(p0 * (dpt[i] - dr.x),
-                                         p1 * (dpt[i + 1] - dr.y));
+          pa[kk][r] = hopper::pack2<T>(p0, p1);
+          dsa[kk][r] = hopper::pack2<T>(p0 * (dpt[i] - dr.x),
+                                        p1 * (dpt[i + 1] - dr.y));
         }
 
       // dV += P^T dO and dK += dS^T q: A from registers, B = the same
@@ -878,10 +886,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int b = 0; b < L::NBOX; ++b) {
           const uint32_t off = b * L::Q_BOX + kk * 16 * L::ROW;
-          Wgmma<L::COLS, 1>::rs(
+          Wgmma<L::COLS, 1, T>::rs(
               dv_acc[b], pa[kk],
               hopper::make_desc(sdo + off, L::Q_BOX, L::SBO, L::SWIZZLE), 1);
-          Wgmma<L::COLS, 1>::rs(
+          Wgmma<L::COLS, 1, T>::rs(
               dk_acc[b], dsa[kk],
               hopper::make_desc(sq + off, L::Q_BOX, L::SBO, L::SWIZZLE), 1);
         }
@@ -895,7 +903,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::mbar_arrive(q_empty + s);
     }
 
-    // epilogue: dK scale and dV to bf16; keys past Sk are not stored
+    // epilogue: dK scale and dV to T; keys past Sk are not stored
     const int64_t krow_base = ((int64_t)bb * H + hh) * Sk;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -908,46 +916,48 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < L::COLS / 8; ++j) {
           const int i = 4 * j + 2 * h;
           const int64_t at = off + b * L::COLS + 8 * j;
-          *reinterpret_cast<uint32_t*>(dk + at) = hopper::pack_bf16(
+          *reinterpret_cast<uint32_t*>(dk + at) = hopper::pack2<T>(
               dk_acc[b][i] * scale, dk_acc[b][i + 1] * scale);
           *reinterpret_cast<uint32_t*>(dv + at) =
-              hopper::pack_bf16(dv_acc[b][i], dv_acc[b][i + 1]);
+              hopper::pack2<T>(dv_acc[b][i], dv_acc[b][i + 1]);
         }
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int B, int H, int Sq, int Sk,
                        const Strides& st, int causal, float scale,
                        cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = hopper::encode_bhsd(&tq, q, B, H, Sq, D, st.q_sb,
-                                        st.q_sh, st.q_ss, BQ);
+  cudaError_t err = hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st.q_sb,
+                                           st.q_sh, st.q_ss, BQ);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh, st.k_ss,
-                              BKV);
+    err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
+                                 st.k_ss, BKV);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh, st.v_ss,
-                              BKV);
+    err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
+                                 st.v_ss, BKV);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
-                              st.o_ss, BQ);
+    err = hopper::encode_bhsd<T>(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
+                                 st.o_ss, BQ);
   if (err != cudaSuccess) return err;
   static bool smem_set[kMaxDevices] = {};
-  err = opt_in_smem(flash_bwd_dkv_wgmma_kernel<D>, Layout<D>::SMEM,
+  err = opt_in_smem(flash_bwd_dkv_wgmma_kernel<D, T>, Layout<D>::SMEM,
                     smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sk + BKV - 1) / BKV, H, B);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, THREADS, Layout<D>::SMEM, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Sq, Sk, causal, scale);
+  flash_bwd_dkv_wgmma_kernel<D, T>
+      <<<grid, THREADS, Layout<D>::SMEM, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(dd), static_cast<T*>(dk),
+          static_cast<T*>(dv), H, Sq, Sk, causal, scale);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* dd,
                          void* dk, void* dv, int B, int H, int Sq, int Sk,
@@ -955,21 +965,22 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
                          cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch_dkv<32>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
-                            causal, scale, s);
+      return launch_dkv<32, T>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                               st, causal, scale, s);
     case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
-                            causal, scale, s);
+      return launch_dkv<64, T>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                               st, causal, scale, s);
     case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
-                             causal, scale, s);
+      return launch_dkv<128, T>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                                st, causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // dQ shared memory: q and dO (resident), two stages of K and two of V,
-// each as D / COLS boxes of [rows][COLS] bf16; then the mbarriers
+// each as D / COLS boxes of [rows][COLS] 16-bit elements; then the
+// mbarriers
 template <int D>
 struct DqLayout {
   static constexpr int COLS = hopper::box_cols(D);
@@ -990,7 +1001,7 @@ struct DqLayout {
   static constexpr size_t SMEM = BAR_OFF + 7 * 8 + 1024;  // + align slack
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -998,7 +1009,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse,
                           const float* __restrict__ dd,
-                          __nv_bfloat16* __restrict__ dq, int H, int Sq,
+                          T* __restrict__ dq, int H, int Sq,
                           int Sk, int causal, float scale) {
   using L = DqLayout<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -1110,7 +1121,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<DQ_BK, 0>::ss(
+        Wgmma<DQ_BK, 0, T>::ss(
             sacc,
             hopper::make_desc(sq + b * L::Q_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -1124,7 +1135,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<DQ_BK, 0>::ss(
+        Wgmma<DQ_BK, 0, T>::ss(
             dpacc,
             hopper::make_desc(sdo + b * L::Q_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -1151,7 +1162,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         sacc[i] = p;
       }
 
-      // dS = P (dP - D), rounded to bf16 as the register A operand of
+      // dS = P (dP - D), rounded to T as the register A operand of
       // dQ += dS k (the TPU kernel's `ds.astype(ks.dtype)`)
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dpacc);
@@ -1161,8 +1172,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = 8 * kk + 2 * r, h = r % 2;
-          dsa[kk][r] = hopper::pack_bf16(sacc[i] * (dpacc[i] - drow[h]),
-                                         sacc[i + 1] * (dpacc[i + 1] - drow[h]));
+          dsa[kk][r] = hopper::pack2<T>(sacc[i] * (dpacc[i] - drow[h]),
+                                        sacc[i + 1] * (dpacc[i + 1] - drow[h]));
         }
 
       // dQ += dS k: A from registers, B = the same k tile MN-major, one
@@ -1174,7 +1185,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < DQ_BK / 16; ++kk)
 #pragma unroll
         for (int b = 0; b < L::NBOX; ++b)
-          Wgmma<L::COLS, 1>::rs(
+          Wgmma<L::COLS, 1, T>::rs(
               dq_acc[b], dsa[kk],
               hopper::make_desc(sk + b * L::KV_BOX + kk * 16 * L::ROW,
                                 L::KV_BOX, L::SBO, L::SWIZZLE),
@@ -1186,7 +1197,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::mbar_arrive(kv_empty + s);
     }
 
-    // epilogue: dQ scale to bf16; rows past Sq are not stored
+    // epilogue: dQ scale to T; rows past Sq are not stored
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int qpos = row + 8 * h;
@@ -1198,44 +1209,46 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < L::COLS / 8; ++j) {
           const int i = 4 * j + 2 * h;
           *reinterpret_cast<uint32_t*>(dq + off + b * L::COLS + 8 * j) =
-              hopper::pack_bf16(dq_acc[b][i] * scale,
-                                dq_acc[b][i + 1] * scale);
+              hopper::pack2<T>(dq_acc[b][i] * scale,
+                               dq_acc[b][i + 1] * scale);
         }
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dd,
                       void* dq, int B, int H, int Sq, int Sk,
                       const Strides& st, int causal, float scale,
                       cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = hopper::encode_bhsd(&tq, q, B, H, Sq, D, st.q_sb,
-                                        st.q_sh, st.q_ss, DQ_BQ);
+  cudaError_t err = hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st.q_sb,
+                                           st.q_sh, st.q_ss, DQ_BQ);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh, st.k_ss,
-                              DQ_BK);
+    err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
+                                 st.k_ss, DQ_BK);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh, st.v_ss,
-                              DQ_BK);
+    err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
+                                 st.v_ss, DQ_BK);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
-                              st.o_ss, DQ_BQ);
+    err = hopper::encode_bhsd<T>(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
+                                 st.o_ss, DQ_BQ);
   if (err != cudaSuccess) return err;
   static bool smem_set[kMaxDevices] = {};
-  err = opt_in_smem(flash_bwd_dq_wgmma_kernel<D>, DqLayout<D>::SMEM,
+  err = opt_in_smem(flash_bwd_dq_wgmma_kernel<D, T>, DqLayout<D>::SMEM,
                     smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, H, B);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, THREADS, DqLayout<D>::SMEM, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<__nv_bfloat16*>(dq), H, Sq,
-      Sk, causal, scale);
+  flash_bwd_dq_wgmma_kernel<D, T>
+      <<<grid, THREADS, DqLayout<D>::SMEM, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(dd), static_cast<T*>(dq), H, Sq, Sk,
+          causal, scale);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t dq_dispatch(int D, const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dd,
                         void* dq, int B, int H, int Sq, int Sk,
@@ -1243,14 +1256,14 @@ cudaError_t dq_dispatch(int D, const void* q, const void* k, const void* v,
                         cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch_dq<32>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
-                           causal, scale, s);
+      return launch_dq<32, T>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                              causal, scale, s);
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
-                           causal, scale, s);
+      return launch_dq<64, T>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                              causal, scale, s);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
-                            causal, scale, s);
+      return launch_dq<128, T>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                               causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1270,10 +1283,10 @@ Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides (in elements) of q, k, v and
-// dO: batch, head, sequence; the head dim must be contiguous (bf16: the
-// base addresses 16-byte aligned and the byte strides multiples of 16, as
-// TMA needs).  lse and D
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides (in elements) of
+// q, k, v and dO: batch, head, sequence; the head dim must be contiguous
+// (bf16 and fp16: the base addresses 16-byte aligned and the byte strides
+// multiples of 16, as TMA needs).  lse and D
 // are contiguous fp32 [B, H, Sq]; dq [B, H, Sq, D] (and dk, dv
 // [B, H, Sk, D]) are written contiguous in the input dtype.  Each returns
 // the CUDA error code of its launch (0 on success); the kernels are
@@ -1294,8 +1307,11 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
     err = tf32::dq_dispatch(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
                             st, causal, scale, s);
   else if (dtype == 1)
-    err = wg::dq_dispatch(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
-                          causal, scale, s);
+    err = wg::dq_dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, dd, dq, B,
+                                         H, Sq, Sk, st, causal, scale, s);
+  else if (dtype == 2)
+    err = wg::dq_dispatch<__half>(D, q, k, v, dout, lse, dd, dq, B, H, Sq,
+                                  Sk, st, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -1318,8 +1334,11 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
     err = tf32::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
                              Sk, st, causal, scale, s);
   else if (dtype == 1)
-    err = wg::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                           st, causal, scale, s);
+    err = wg::dkv_dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, dd, dk, dv,
+                                          B, H, Sq, Sk, st, causal, scale, s);
+  else if (dtype == 2)
+    err = wg::dkv_dispatch<__half>(D, q, k, v, dout, lse, dd, dk, dv, B, H,
+                                   Sq, Sk, st, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

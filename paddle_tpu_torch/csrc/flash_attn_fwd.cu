@@ -16,9 +16,10 @@
 //   * a fully-masked row (causal with Sq > Sk) is written as 0 with
 //     lse = -inf, like the TPU flash kernel (not like the score-matrix
 //     reference, which averages V there);
-//   * in bf16, P is rounded to bf16 before the P.v product (the TPU
-//     kernel's `p.astype(vs.dtype)`) while the row sum stays on the fp32 P;
-//   * `out` is written in the input dtype (fp32 or bf16).
+//   * in bf16 and fp16, P is rounded to the input dtype before the P.v
+//     product (the TPU kernel's `p.astype(vs.dtype)`) while the row sum
+//     stays on the fp32 P;
+//   * `out` is written in the input dtype (fp32, bf16 or fp16).
 // Both kernels take any Sq and Sk (ragged tiles are masked, so the port
 // needs no counterpart of the TPU tiling fallback `_fit_block`) and read
 // q, k, v through batch/head/sequence strides, so the [B, H, S, D] view
@@ -27,7 +28,9 @@
 //
 // Two kernels, dispatched by dtype in the C entry at the end:
 //
-// bf16 (the AMP training path): `flash_fwd_wgmma_kernel`.
+// bf16 (the AMP training path) and fp16: `flash_fwd_wgmma_kernel<D, T>`,
+//   one source for both 16-bit types (they differ in the wgmma type
+//   suffix, the tensor-map element type and the packing of P and O).
 //   Bound on an H100 at the training shape B = 8, H = 12, S = 512,
 //   D = 64: 6.4 GFLOP on the 989 TFLOP/s tensor cores (6.5 us) against
 //   25 MB of q, k, v, out and lse at 3.35 TB/s (7.6 us), so the bytes
@@ -53,7 +56,7 @@
 //     the online softmax runs on the accumulator fragment in registers,
 //     a row's 32 values spread over a quad of 4 lanes and reduced with
 //     xor-shuffles 1 and 2; scores are kept in log2 units (exp2f);
-//   * P is packed to bf16 in registers and is the register A operand of
+//   * P is packed to T in registers and is the register A operand of
 //     O += P v (B = the v tile read MN-major through the descriptor, one
 //     64-column swizzle row per wgmma); O stays in registers;
 //   * keys past Sk are masked in registers (TMA zero-fills them, and a
@@ -111,6 +114,7 @@
 // and called through the plain C interface at the end of this file.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -374,7 +378,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace tf32
 
 // ---------------------------------------------------------------------------
-// bf16: warp-specialized wgmma kernel
+// bf16 and fp16: warp-specialized wgmma kernel (T = __nv_bfloat16, __half)
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -387,7 +391,7 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
 // shared memory: the q tile, then two stages of K and two of V, each as
-// D / COLS boxes of [rows][COLS] bf16, then the mbarriers
+// D / COLS boxes of [rows][COLS] 16-bit elements, then the mbarriers
 template <int D>
 struct Layout {
   static constexpr int COLS = hopper::box_cols(D);
@@ -406,12 +410,12 @@ struct Layout {
   static constexpr size_t SMEM = BAR_OFF + 7 * 8 + 1024;  // + align slack
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o,
+                       T* __restrict__ o,
                        float* __restrict__ lse, int H, int Sq, int Sk,
                        int causal, float scale_log2) {
   using L = Layout<D>;
@@ -506,7 +510,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<BK, 0>::ss(
+        Wgmma<BK, 0, T>::ss(
             sacc,
             hopper::make_desc(sq + b * L::Q_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -549,7 +553,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         alpha[h] = m[h] == -INFINITY ? 0.f : exp2f(m[h] - safe[h]);
         m[h] = mx;
       }
-      // P in fp32 for the row sum, packed to bf16 as the A operand of P v
+      // P in fp32 for the row sum, packed to T as the A operand of P v
       uint32_t pa[BK / 16][4];
       float psum[2] = {0.f, 0.f};
 #pragma unroll
@@ -560,7 +564,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const float p0 = exp2f(sacc[i] - safe[h]);
           const float p1 = exp2f(sacc[i + 1] - safe[h]);
           psum[h] += p0 + p1;
-          pa[kk][r] = hopper::pack_bf16(p0, p1);
+          pa[kk][r] = hopper::pack2<T>(p0, p1);
         }
 #pragma unroll
       for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + psum[h];
@@ -579,7 +583,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int b = 0; b < L::NBOX; ++b)
-          Wgmma<L::COLS, 1>::rs(
+          Wgmma<L::COLS, 1, T>::rs(
               o_acc[b], pa[kk],
               hopper::make_desc(sv + b * L::KV_BOX + kk * 16 * L::ROW,
                                 L::KV_BOX, L::SBO, L::SWIZZLE),
@@ -591,7 +595,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::mbar_arrive(kv_empty + s);
     }
 
-    // epilogue: O / l to bf16, lse = (m + log2 l) ln 2; rows past Sq are
+    // epilogue: O / l to T, lse = (m + log2 l) ln 2; rows past Sq are
     // not stored
     const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
 #pragma unroll
@@ -602,14 +606,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (qpos >= Sq) continue;
       const float denom = fmaxf(l[h], 1e-30f);
       const float inv = 1.f / denom;
-      __nv_bfloat16* orow = o + (row_base + qpos) * D + 2 * (lane % 4);
+      T* orow = o + (row_base + qpos) * D + 2 * (lane % 4);
 #pragma unroll
       for (int b = 0; b < L::NBOX; ++b)
 #pragma unroll
         for (int j = 0; j < L::COLS / 8; ++j) {
           const int i = 4 * j + 2 * h;
           *reinterpret_cast<uint32_t*>(orow + b * L::COLS + 8 * j) =
-              hopper::pack_bf16(o_acc[b][i] * inv, o_acc[b][i + 1] * inv);
+              hopper::pack2<T>(o_acc[b][i] * inv, o_acc[b][i + 1] * inv);
         }
       if (lane % 4 == 0)
         lse[row_base + qpos] =
@@ -618,26 +622,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Sq, int Sk,
                    const long long* st, int causal, float scale,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err =
-      hopper::encode_bhsd(&tq, q, B, H, Sq, D, st[0], st[1], st[2], BQ);
+      hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st[0], st[1], st[2], BQ);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tk, k, B, H, Sk, D, st[3], st[4], st[5], BK);
+    err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st[3], st[4], st[5],
+                                 BK);
   if (err == cudaSuccess)
-    err = hopper::encode_bhsd(&tv, v, B, H, Sk, D, st[6], st[7], st[8], BK);
+    err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st[6], st[7], st[8],
+                                 BK);
   if (err != cudaSuccess) return err;
   static bool smem_set[kMaxDevices] = {};
-  err = opt_in_smem(flash_fwd_wgmma_kernel<D>, Layout<D>::SMEM, smem_set);
+  err = opt_in_smem(flash_fwd_wgmma_kernel<D, T>, Layout<D>::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_wgmma_kernel<D><<<grid, THREADS, Layout<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      H, Sq, Sk, causal, scale * kLog2e);
+  flash_fwd_wgmma_kernel<D, T><<<grid, THREADS, Layout<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Sk,
+      causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -647,17 +653,25 @@ typedef cudaError_t (*LaunchFn)(const void*, const void*, const void*, void*,
                                 void*, int, int, int, int, const long long*,
                                 int, float, cudaStream_t);
 
-// the kernel instance for (dtype, D): fp32 -> 3xTF32, bf16 -> wgmma
+template <typename T>
+LaunchFn pick_wgmma(int D) {
+  if (D == 32) return wg::launch<32, T>;
+  if (D == 64) return wg::launch<64, T>;
+  if (D == 128) return wg::launch<128, T>;
+  return nullptr;
+}
+
+// the kernel instance for (dtype, D): fp32 -> 3xTF32, bf16 and fp16 ->
+// wgmma
 LaunchFn pick(int dtype, int D) {
   if (dtype == 0) {
     if (D == 32) return tf32::launch<32>;
     if (D == 64) return tf32::launch<64>;
     if (D == 128) return tf32::launch<128>;
-  } else if (dtype == 1) {
-    if (D == 32) return wg::launch<32>;
-    if (D == 64) return wg::launch<64>;
-    if (D == 128) return wg::launch<128>;
+    return nullptr;
   }
+  if (dtype == 1) return pick_wgmma<__nv_bfloat16>(D);
+  if (dtype == 2) return pick_wgmma<__half>(D);
   return nullptr;
 }
 
@@ -665,12 +679,13 @@ LaunchFn pick(int dtype, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  strides (in elements) for q, k, v:
-// batch, head, sequence; the head dim must be contiguous (bf16: the base
-// addresses 16-byte aligned and the byte strides multiples of 16, as TMA
-// needs).  out is [B, H, Sq, D] and lse [B, H, Sq], both contiguous.
-// Returns the CUDA error code of the launch (0 on success); the kernel is
-// asynchronous on `stream`.  The caller makes the tensors' device current.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  strides (in elements)
+// for q, k, v: batch, head, sequence; the head dim must be contiguous
+// (bf16 and fp16: the base addresses 16-byte aligned and the byte strides
+// multiples of 16, as TMA needs).  out is [B, H, Sq, D] and lse
+// [B, H, Sq], both contiguous.  Returns the CUDA error code of the launch
+// (0 on success); the kernel is asynchronous on `stream`.  The caller
+// makes the tensors' device current.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int dtype, int B, int H, int Sq, int Sk, int D,
                    long long q_sb, long long q_sh, long long q_ss,

@@ -10,8 +10,8 @@
 // (the online softmax), so the [T, V] softmax never reaches device memory.
 //
 // Semantics held equal to the TPU kernel:
-//   * statistics and outputs are fp32 whatever the logits dtype (fp32 or
-//     bf16);
+//   * statistics and outputs are fp32 whatever the logits dtype (fp32,
+//     bf16 or fp16);
 //   * loss = 0 where label == ignore_index, whatever the index's sign;
 //     lse is written for every row, ignored ones included;
 //   * a label outside [0, V) that is not ignore_index picks nothing, so
@@ -19,10 +19,10 @@
 //
 // Design:
 //   * one CTA of 256 threads per row.  Each thread walks its share of the
-//     row with 16-byte vector loads (4 fp32 or 8 bf16), keeping its own
-//     running max m and sum s; on each vector it takes the vector's max
-//     first, so it rescales s at most once per vector and spends one exp
-//     per element.  The (m, s) pairs are then merged across the warp with
+//     row with 16-byte vector loads (4 fp32, or 8 bf16 or fp16), keeping
+//     its own running max m and sum s; on each vector it takes the
+//     vector's max first, so it rescales s at most once per vector and
+//     spends one exp per element.  The (m, s) pairs are then merged across the warp with
 //     xor-shuffles and across the 8 warps through shared memory.
 //   * rows need not be 16-byte aligned (at V = 30522 an fp32 row is 122,088
 //     bytes, a bf16 row 61,044): a scalar head runs up to the first aligned
@@ -41,6 +41,7 @@
 // and called through the plain C interface at the end of this file.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,6 +55,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // one 16-byte vector of logits, widened to fp32
 template <typename T>
@@ -78,6 +80,20 @@ struct Vec<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static void load(const __half* p, float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
@@ -172,7 +188,7 @@ fused_xent_kernel(const T* __restrict__ logits,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  logits [T, V] with a contiguous vocab
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  logits [T, V] with a contiguous vocab
 // dim and `row_stride` elements between rows; label [T] int64; loss and
 // lse [T] fp32, contiguous.  Returns the CUDA error code of the launch
 // (0 on success); the kernel is asynchronous on `stream`.  The caller
@@ -193,6 +209,10 @@ int fused_xent_fwd(const void* logits, const void* label, void* loss,
     fused_xent_kernel<__nv_bfloat16><<<T, THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), lbl, lo, ls, V,
         row_stride, ignore_index);
+  else if (dtype == 2)
+    fused_xent_kernel<__half><<<T, THREADS, 0, s>>>(
+        static_cast<const __half*>(logits), lbl, lo, ls, V, row_stride,
+        ignore_index);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

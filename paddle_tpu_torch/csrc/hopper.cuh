@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's bf16 flash-attention
-// kernels: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// the wgmma instructions themselves, register rebalancing, and a host
-// helper that encodes a TMA tensor map for a strided [B, H, S, D] bf16 view.
+// Hopper (sm_90a) building blocks shared by the port's bf16 and fp16
+// flash-attention kernels: mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and the wgmma instructions themselves, register rebalancing,
+// and a host helper that encodes a TMA tensor map for a strided
+// [B, H, S, D] view.
 //
 // Everything is raw PTX (no CUTLASS/CuTe), so a source that includes this
 // header builds with nvcc alone in seconds.  The tensor map is encoded
@@ -9,11 +10,12 @@
 // (cudaGetDriverEntryPoint*), so the shared library needs no -lcuda.
 //
 // Conventions used by the kernels:
-//   * A bf16 tile of R rows x C columns (C * 2 bytes = 128 with 128-byte
-//     swizzle, 64 with 64-byte swizzle) is loaded by one TMA box and lands
-//     row-major in shared memory, 16-byte chunks XOR-swizzled by the row
-//     within each 8-row group.  A head dim wider than one swizzle row
-//     (D = 128) is loaded as D / C boxes stored one after the other.
+//   * A tile of R rows x C columns of a 16-bit type, bf16 or fp16 (C * 2
+//     bytes = 128 with 128-byte swizzle, 64 with 64-byte swizzle), is
+//     loaded by one TMA box and lands row-major in shared memory, 16-byte
+//     chunks XOR-swizzled by the row within each 8-row group.  A head dim
+//     wider than one swizzle row (D = 128) is loaded as D / C boxes stored
+//     one after the other.
 //   * Every tile starts on a 1024-byte boundary, so the descriptors' base
 //     offset is 0.
 //   * K-major operand (the reduction dim contiguous, e.g. q or k rows read
@@ -26,13 +28,14 @@
 //     w = t / 32, l = t % 32, register i:
 //       row = 16 w + l / 4 + 8 ((i / 2) % 2)
 //       col = 8 (i / 4) + 2 (l % 4) + i % 2
-//     and the register A fragment of m64k16 (bf16 pairs) has the same
+//     and the register A fragment of m64k16 (pairs of T) has the same
 //     (row, col) map for i = 0..7, so the accumulator of a product becomes
-//     the A operand of the next one by packing neighbours (pack_bf16).
+//     the A operand of the next one by packing neighbours (pack2<T>).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -133,172 +136,189 @@ __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma.mma_async m64nNk16, bf16 inputs, f32 accumulator in registers.
-//   Wgmma<N, TransB>::ss(d, desc_a, desc_b, scale_d): A and B in shared
+// wgmma.mma_async m64nNk16, 16-bit inputs (T = __nv_bfloat16 or __half),
+// f32 accumulator in registers.
+//   Wgmma<N, TransB, T>::ss(d, desc_a, desc_b, scale_d): A and B in shared
 //     memory, A K-major;
-//   Wgmma<N, TransB>::rs(d, a, desc_b, scale_d): A from registers (four
-//     bf16 pairs, the fragment layout above).
+//   Wgmma<N, TransB, T>::rs(d, a, desc_b, scale_d): A from registers (four
+//     pairs of T, the fragment layout above).
 // TransB = 0: B K-major (stored N x K); 1: B MN-major (stored K x N).
-// scale_d = 0 overwrites d, 1 accumulates into it.
+// scale_d = 0 overwrites d, 1 accumulates into it.  The two element types
+// differ only in the instruction's type suffix (.bf16.bf16 / .f16.f16),
+// so each specialization is written once, as a macro over (T, suffix).
 // ---------------------------------------------------------------------------
-template <int N, int TransB>
+template <int N, int TransB, typename T>
 struct Wgmma;
 
-template <int TransB>
-struct Wgmma<32, TransB> {
-  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, "
-        "p, 1, 1, 0, %19;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
-  }
-  __device__ static __forceinline__ void rs(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, "
-        "p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+#define HOPPER_WGMMA_N32(CT, TY)                                              \
+  template <int TransB>                                                       \
+  struct Wgmma<32, TransB, CT> {                                              \
+    __device__ static __forceinline__ void ss(float (&d)[16], uint64_t da,    \
+                                              uint64_t db, int scale_d) {     \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"        \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+          "%8, %9, %10, %11, %12, %13, %14, %15"                              \
+          "}, %16, %17, "                                                     \
+          "p, 1, 1, 0, %19;\n}\n"                                             \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                \
+          : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));                     \
+    }                                                                         \
+    __device__ static __forceinline__ void rs(float (&d)[16],                 \
+                                              const uint32_t (&a)[4],         \
+                                              uint64_t db, int scale_d) {     \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"        \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+          "%8, %9, %10, %11, %12, %13, %14, %15"                              \
+          "}, {%16, %17, %18, %19}, %20, "                                    \
+          "p, 1, 1, %22;\n}\n"                                                \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+            "r"(scale_d), "n"(TransB));                                       \
+    }                                                                         \
+  };
 
-template <int TransB>
-struct Wgmma<64, TransB> {
-  __device__ static __forceinline__ void ss(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, "
-        "p, 1, 1, 0, %35;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
-  }
-  __device__ static __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, "
-        "p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+#define HOPPER_WGMMA_N64(CT, TY)                                              \
+  template <int TransB>                                                       \
+  struct Wgmma<64, TransB, CT> {                                              \
+    __device__ static __forceinline__ void ss(float (&d)[32], uint64_t da,    \
+                                              uint64_t db, int scale_d) {     \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31"                            \
+          "}, %32, %33, "                                                     \
+          "p, 1, 1, 0, %35;\n}\n"                                             \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+          : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));                     \
+    }                                                                         \
+    __device__ static __forceinline__ void rs(float (&d)[32],                 \
+                                              const uint32_t (&a)[4],         \
+                                              uint64_t db, int scale_d) {     \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31"                            \
+          "}, {%32, %33, %34, %35}, %36, "                                    \
+          "p, 1, 1, %38;\n}\n"                                                \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+            "r"(scale_d), "n"(TransB));                                       \
+    }                                                                         \
+  };
 
-template <int TransB>
-struct Wgmma<128, TransB> {
-  __device__ static __forceinline__ void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, "
-        "p, 1, 1, 0, %67;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
-  }
-  __device__ static __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, "
-        "p, 1, 1, %70;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TransB));
-  }
-};
+#define HOPPER_WGMMA_N128(CT, TY)                                             \
+  template <int TransB>                                                       \
+  struct Wgmma<128, TransB, CT> {                                             \
+    __device__ static __forceinline__ void ss(float (&d)[64], uint64_t da,    \
+                                              uint64_t db, int scale_d) {     \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31, "                          \
+          "%32, %33, %34, %35, %36, %37, %38, %39, "                          \
+          "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+          "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+          "%56, %57, %58, %59, %60, %61, %62, %63"                            \
+          "}, %64, %65, "                                                     \
+          "p, 1, 1, 0, %67;\n}\n"                                             \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),               \
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),               \
+            "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),               \
+            "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),               \
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),               \
+            "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),               \
+            "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),               \
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),               \
+            "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+          : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));                     \
+    }                                                                         \
+    __device__ static __forceinline__ void rs(float (&d)[64],                 \
+                                              const uint32_t (&a)[4],         \
+                                              uint64_t db, int scale_d) {     \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+          "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31, "                          \
+          "%32, %33, %34, %35, %36, %37, %38, %39, "                          \
+          "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+          "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+          "%56, %57, %58, %59, %60, %61, %62, %63"                            \
+          "}, {%64, %65, %66, %67}, %68, "                                    \
+          "p, 1, 1, %70;\n}\n"                                                \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),               \
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),               \
+            "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),               \
+            "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),               \
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),               \
+            "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),               \
+            "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),               \
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),               \
+            "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+            "r"(scale_d), "n"(TransB));                                       \
+    }                                                                         \
+  };
+
+HOPPER_WGMMA_N32(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_N64(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_N128(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_N32(__half, "f16")
+HOPPER_WGMMA_N64(__half, "f16")
+HOPPER_WGMMA_N128(__half, "f16")
+
+#undef HOPPER_WGMMA_N32
+#undef HOPPER_WGMMA_N64
+#undef HOPPER_WGMMA_N128
 
 // order the accumulator registers against the asynchronous wgmma: the
 // compiler must neither read them before wgmma_wait nor move writes past
@@ -337,15 +357,38 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Regs));
 }
 
-// two floats rounded to a bf16 pair (lo in the low half), the register A
-// operand format
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two floats rounded to a pair of T (lo in the low half), the register A
+// operand format; T = __nv_bfloat16 or __half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the tensor-map element type of T
+template <typename T>
+struct TmaType;
+template <>
+struct TmaType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
 // ---------------------------------------------------------------------------
-// host: TMA tensor map of a strided [B, H, S, D] bf16 view
+// host: TMA tensor map of a strided [B, H, S, D] view of 16-bit T
 // ---------------------------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -374,15 +417,16 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // columns of one TMA box for head dim D: one 128-byte swizzle row (64
-// bf16), or the whole 64-byte row at D = 32
+// 16-bit elements), or the whole 64-byte row at D = 32
 __host__ __device__ constexpr int box_cols(int D) { return D < 64 ? D : 64; }
 
-// Encode `map` for the [B, H, S, D] bf16 tensor at `base` with element
+// Encode `map` for the [B, H, S, D] tensor of T at `base` with element
 // strides sb, sh, ss (D contiguous), boxes of box_cols(D) x `box_rows`,
 // rows past S zero-filled.  A stride of a size-1 dim is never used for an
 // address, so it is replaced by a valid one.  Returns cudaSuccess, or
 // cudaErrorInvalidValue where TMA refuses the view (base address not
 // 16-byte aligned, a byte stride not a multiple of 16).
+template <typename T>
 inline cudaError_t encode_bhsd(CUtensorMap* map, const void* base, int B,
                                int H, int S, int D, long long sb, long long sh,
                                long long ss, int box_rows) {
@@ -399,7 +443,7 @@ inline cudaError_t encode_bhsd(CUtensorMap* map, const void* base, int B,
   cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map, TmaType<T>::value, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

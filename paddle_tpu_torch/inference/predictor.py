@@ -74,9 +74,10 @@ class Config:
     # -- precision -----------------------------------------------------------
     def enable_bfloat16(self):
         raise NotImplementedError(
-            "Config.enable_bfloat16: the bf16 Predictor needs the AMP "
-            "program rewrite, which paddle_tpu_torch does not port yet "
-            "(ROADMAP.md); the Predictor runs fp32")
+            "Config.enable_bfloat16: the bf16 Predictor pipeline (the AMP "
+            "rewrite applied to an inference program, and its passes) is "
+            "not ported yet (ROADMAP.md Queue 1 item 4); the Predictor "
+            "runs fp32")
 
     def precision_mode(self):
         return self._precision

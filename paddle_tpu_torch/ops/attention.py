@@ -22,20 +22,30 @@ and `_flash_bwd_dkv_kernel`), or on the CPU their plain version
 `flash_attention_bwd_plain`.
 
 Which kernel runs, by dtype (dispatched inside each C entry):
-  * bf16 (the AMP training program): the forward, dQ and dK/dV are
-    warp-specialized wgmma kernels fed by TMA (csrc/hopper.cuh holds the
-    building blocks).  At the training shape the forward is bounded by
-    its bytes, dQ and dK/dV by their tensor-core operations; the tensor
-    cores are reached at full rate only through wgmma, with operands in
-    the swizzled shared-memory layout TMA writes.  TMA needs 16-byte
-    aligned base addresses and byte strides that are multiples of 16, so
-    the wrappers refuse other bf16 views.  All three round P (and dS) to
-    bf16 before the second product, where the TPU kernels do;
+  * bf16 (the AMP training program) and fp16: the forward, dQ and dK/dV
+    are warp-specialized wgmma kernels fed by TMA (csrc/hopper.cuh holds
+    the building blocks), one source for both 16-bit types.  At the
+    training shape the forward is bounded by its bytes, dQ and dK/dV by
+    their tensor-core operations; the tensor cores are reached at full
+    rate only through wgmma, with operands in the swizzled shared-memory
+    layout TMA writes.  TMA needs 16-byte aligned base addresses and byte
+    strides that are multiples of 16: the wrappers copy a view that TMA
+    refuses to a contiguous tensor first (counted in
+    `flash_attention.view_copies`; the head-split views of the training
+    program need no copy).  All three round P (and dS) to the input dtype
+    before the second product, where the TPU kernels do;
   * fp32 (serving, fp32 training): the forward, dQ and dK/dV run on the
     tensor cores in 3xTF32 with `mma.sync` (each fp32 operand split into
     two TF32 halves and each product taken as hi*hi + hi*lo + lo*hi,
     accumulated in fp32: fp32-level error, not TF32's three digits).
     They take any strided fp32 view with a contiguous head dim.
+
+The kernels have instances for head dims 32, 64 and 128.  Any other head
+dim up to 128 is zero-padded up to the next of them (q, k, v and dO along
+D; the scale stays 1/sqrt(real D)) and out, dq, dk and dv are sliced
+back: zero columns leave q k^T, lse and rowsum(dO * O) unchanged, so this
+is exact, at the cost of the padded columns' bytes and operations (a
+D = 96 head does the work of D = 128).  A head dim above 128 raises.
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -58,17 +68,19 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
            "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda",
            "reference_attention", "enable_flash_attention", "use_flash_for",
-           "set_flash_min_seq_len", "FLASH_HEAD_DIMS"]
+           "set_flash_min_seq_len", "FLASH_HEAD_DIMS", "kernel_head_dim",
+           "kernel_operands", "tma_accepts"]
 
 # same defaults as paddle_tpu: "auto" takes flash only from 8192 up (a
 # threshold that paddle_tpu measured on its TPU, kept so both packages
 # build identical programs; the H100's own crossover is not measured yet)
 _FLASH_STATE = {"mode": "auto", "min_seq_len": 8192}
 
-FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_HEAD_DIMS = (32, 64, 128)  # the kernels' instances; others pad up
 _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
 _BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TMA_DTYPES = (torch.bfloat16, torch.float16)  # the wgmma kernels' inputs
 
 
 def enable_flash_attention(on: bool = True):
@@ -156,14 +168,12 @@ def flash_attention_plain(q, k, v, causal=False, scale=None):
 
 def _check_cuda_args(q, k, v):
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"flash_attention kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention expects [B, H, S, D] tensors")
     b, h, _, d = q.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{FLASH_HEAD_DIMS}, got {d}")
+    kernel_head_dim(d)
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"flash_attention shape mismatch: q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -175,25 +185,46 @@ def _check_cuda_args(q, k, v):
                              f"head dim; {name} has stride {t.stride(3)}")
     if b > 65535 or h > 65535:
         raise ValueError("flash_attention kernel: B and H must be <= 65535")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_tma_view(name, t)
 
 
-def _check_tma_view(name, t):
-    """What TMA refuses in the bf16 kernels' tensor maps: a base address
-    that is not 16-byte aligned, a batch, head or sequence stride (of a
-    dim longer than 1) whose byte size is not a multiple of 16."""
+def kernel_head_dim(d):
+    """The head dim of the kernel instance that runs head dim d: the next
+    of FLASH_HEAD_DIMS (d itself when it is one of them)."""
+    for dp in FLASH_HEAD_DIMS:
+        if 0 < d <= dp:
+            return dp
+    raise ValueError(f"flash_attention kernels take head dims up to "
+                     f"{FLASH_HEAD_DIMS[-1]} (instances {FLASH_HEAD_DIMS}, "
+                     f"others zero-padded up), got {d}")
+
+
+def tma_accepts(t):
+    """Whether the 16-bit kernels' TMA tensor maps take the view t: a
+    16-byte aligned base address, and byte strides that are multiples of
+    16 along batch, head and sequence (a dim of length 1 has no stride
+    that TMA uses)."""
     if t.data_ptr() % 16:
-        raise ValueError(f"flash_attention bf16 kernels need 16-byte "
-                         f"aligned tensors (TMA); {name} starts at byte "
-                         f"offset {t.data_ptr() % 16} (storage offset "
-                         f"{t.storage_offset()})")
-    for dim in range(3):
-        if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
-            raise ValueError(f"flash_attention bf16 kernels need byte "
-                             f"strides that are multiples of 16 (TMA); "
-                             f"{name} has strides {t.stride()}")
+        return False
+    return all(t.shape[dim] <= 1 or (t.stride(dim) * t.element_size()) % 16
+               == 0 for dim in range(3))
+
+
+def kernel_operands(d, *tensors):
+    """The [B, H, S, d] tensors as the kernels take them: zero-padded along
+    D up to kernel_head_dim(d) (a new contiguous tensor), and a bf16 or
+    fp16 view that TMA refuses copied to a contiguous tensor (counted in
+    flash_attention.view_copies).  Returns the kernel's head dim and the
+    tensors."""
+    dp = kernel_head_dim(d)
+    out = []
+    for t in tensors:
+        if dp != d:
+            t = torch.nn.functional.pad(t, (0, dp - d)).contiguous()
+        elif t.dtype in _TMA_DTYPES and not tma_accepts(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            flash_attention.view_copies += 1
+        out.append(t)
+    return dp, out
 
 
 def _kernel_lib():
@@ -220,16 +251,18 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
-    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
+    if q.numel() == 0:
+        return torch.empty_like(q, memory_format=torch.contiguous_format), \
+            lse
+    dp, (q, k, v) = kernel_operands(d, q, k, v)
+    out = torch.empty((b, h, sq, dp), dtype=q.dtype, device=q.device)
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, sq, sk, d,
+            lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, sq, sk, dp,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -239,7 +272,7 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
             f"flash_attn_fwd launch failed: CUDA error {err} "
             f"({lib.flash_attn_error_string(err).decode()})")
     flash_attention.launches += 1
-    return out, lse
+    return (out if dp == d else out[..., :d]), lse
 
 
 def _bwd_tiles(q, k, v, do, lse, dd, causal, scale):
@@ -350,11 +383,11 @@ def _check_bwd_args(q, k, v, do, lse, dd):
                              f"{t.dtype}")
     if not (do.device == lse.device == dd.device == q.device):
         raise ValueError("flash backward: inputs on different devices")
-    if do.dtype == torch.bfloat16:
-        _check_tma_view("dO", do)
 
 
 def _bwd_launch(fn, outs, q, k, v, do, lse, dd, causal, scale):
+    """Launch `fn` on kernel operands (kernel_operands) into `outs`, which
+    have the kernel's head dim."""
     lib = _bwd_kernel_lib()
     b, h, sq, d = q.shape
     strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
@@ -375,28 +408,35 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd, causal=False,
                                 scale=None):
     """Launch the dQ kernel (csrc/flash_attn_bwd.cu) on CUDA tensors."""
     _check_bwd_args(q, k, v, do, lse, dd)
-    scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
+    d = q.shape[3]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    if q.numel() == 0 or k.shape[2] == 0:
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    dp, (q, k, v, do) = kernel_operands(d, q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if dq.numel() == 0 or k.shape[2] == 0:
-        return dq.zero_()
     _bwd_launch("flash_attn_bwd_dq", (dq,), q, k, v, do, lse, dd, causal,
                 scale)
     flash_attention_bwd_dq_cuda.launches += 1
-    return dq
+    return dq if dp == d else dq[..., :d]
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd, causal=False,
                                  scale=None):
     """Launch the dK/dV kernel (csrc/flash_attn_bwd.cu) on CUDA tensors."""
     _check_bwd_args(q, k, v, do, lse, dd)
-    scale = (1.0 / math.sqrt(q.shape[3])) if scale is None else scale
+    d = q.shape[3]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    if k.numel() == 0 or q.shape[2] == 0:
+        return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
+                torch.zeros(v.shape, dtype=v.dtype, device=v.device))
+    dp, (q, k, v, do) = kernel_operands(d, q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    if dk.numel() == 0 or q.shape[2] == 0:
-        return dk.zero_(), dv.zero_()
     _bwd_launch("flash_attn_bwd_dkv", (dk, dv), q, k, v, do, lse, dd,
                 causal, scale)
     flash_attention_bwd_dkv_cuda.launches += 1
+    if dp != d:
+        dk, dv = dk[..., :d], dv[..., :d]
     return dk, dv
 
 
@@ -489,8 +529,10 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     return (out, lse) if return_lse else out
 
 
-# launches of each Hopper kernel in this process (plain integers; callers
-# reset them to 0 around the run they want to count)
+# launches of each Hopper kernel in this process, and the copies of views
+# that TMA refuses (plain integers; callers reset them to 0 around the run
+# they want to count)
 flash_attention.launches = 0
+flash_attention.view_copies = 0
 flash_attention_bwd_dq_cuda.launches = 0
 flash_attention_bwd_dkv_cuda.launches = 0

@@ -39,7 +39,7 @@ __all__ = ["fused_softmax_xent", "fused_xent_plain", "fused_xent_cuda",
            "enable_fused_xent"]
 
 _BLOCK_V = 2048  # vocab block of the plain version (the TPU kernel's bv)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fused_xent_plain(logits, label, ignore_index=-100):
@@ -85,15 +85,15 @@ def _kernel_lib():
 
 
 def fused_xent_cuda(logits, label, ignore_index=-100):
-    """Launch the Hopper kernel on CUDA tensors: logits [T, V] fp32 or
-    bf16 with a contiguous vocab dim (any row stride), label [T] int64.
+    """Launch the Hopper kernel on CUDA tensors: logits [T, V] fp32, bf16
+    or fp16 with a contiguous vocab dim (any row stride), label [T] int64.
     Returns (loss [T], lse [T]), both fp32."""
     if not logits.is_cuda:
         raise ValueError(f"fused_xent_cuda needs CUDA tensors, got "
                          f"{logits.device}")
     if logits.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_xent kernel takes float32 or bfloat16 "
-                        f"logits, got {logits.dtype}")
+        raise TypeError(f"fused_xent kernel takes float32, bfloat16 or "
+                        f"float16 logits, got {logits.dtype}")
     if logits.dim() != 2 or logits.stride(1) != 1:
         raise ValueError(f"fused_xent kernel needs [T, V] logits with a "
                          f"contiguous vocab dim, got {tuple(logits.shape)} "

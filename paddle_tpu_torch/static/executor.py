@@ -18,18 +18,34 @@ persistable the run wrote goes back to the scope.  Grad vars can be
 fetched by name.  Nothing reads a device value back to the host unless
 it is fetched.
 
-Not ported yet: CompiledProgram dispatch, `run_steps`, checkpoint hooks,
-per-step telemetry (later slices, ROADMAP.md).
+`run_steps(program, feed, fetch_list)` runs K steps with every feed
+stacked on a leading steps axis and returns each fetch stacked [K, ...],
+the reference's contract (its `lax.scan` amortizes dispatch over K).  On
+the CPU it loops over `run()`.  On CUDA it captures one step into a CUDA
+graph and replays it K times: eager dispatch of the step's ops (the grad
+ops' vjp replays, Adam) is what bounds the step on the card, and a replay
+launches the same kernels without it.  For the capture every persistable
+of the step lives in a static buffer that the step updates in place (the
+buffers ARE the scope's tensors afterwards) and feeds are copied into
+static per-step buffers before each replay.  Graphs are cached per
+(program, per-step feed shapes and dtypes, fetch names, persistable
+names, flags), so a short final chunk replays the same graph and a new
+per-step batch size captures a new one (no feed bucketing).
+
+Not ported yet: CompiledProgram dispatch, checkpoint hooks, per-step
+telemetry (later slices, ROADMAP.md).
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core import flags as _flags
 from ..core.dtype import torch_dtype
+from ..core.monitor import stat_add
 from ..core.place import Place, resolve_place
 from ..core.program import Program, default_main_program
 from ..ops.registry import get_op_info, OpContext
@@ -143,6 +159,39 @@ def _persistable_names(program: Program) -> List[str]:
                   if v.persistable)
 
 
+# ops that draw from OpContext.generator, whose seed is a host integer per
+# step: a CUDA graph would replay the captured step's draws every time
+_RANDOM_OPS = frozenset({"uniform_random", "gaussian_random"})
+
+
+class _StepGraph:
+    """One captured step: the CUDA graph, the static per-step feed buffers
+    it reads, the persistable buffers it reads and updates in place, and
+    the fetch tensors each replay overwrites."""
+
+    def __init__(self, graph, feeds: Dict[str, torch.Tensor],
+                 state: Dict[str, torch.Tensor],
+                 fetches: List[torch.Tensor]):
+        self.graph, self.feeds, self.state, self.fetches = \
+            graph, feeds, state, fetches
+
+    def bind_state(self, scope: "Scope"):
+        """Point the scope at the buffers.  `run()` rebinds the scope's
+        persistables to new tensors, so a scope tensor that is not the
+        buffer holds the newer value: copy it in first."""
+        for n, buf in self.state.items():
+            cur = scope.vars.get(n)
+            if cur is buf:
+                continue
+            if cur is None or tuple(cur.shape) != tuple(buf.shape):
+                raise ValueError(
+                    f"run_steps: persistable {n!r} is "
+                    f"{None if cur is None else tuple(cur.shape)} in the "
+                    f"scope, the captured step holds {tuple(buf.shape)}")
+            buf.copy_(cur)
+            scope.set(n, buf)
+
+
 class Executor:
     """exe = Executor(CUDAPlace(0)); exe.run(startup); exe.run(main, feed,
     fetch_list) — the reference's two-program contract."""
@@ -151,6 +200,8 @@ class Executor:
         self.place = resolve_place(place)
         self.device = self.place.torch_device()
         self._step = 0
+        self._graphs: Dict[Tuple, _StepGraph] = {}
+        self._stats = {"hits": 0, "misses": 0, "traces": 0}
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -185,9 +236,178 @@ class Executor:
             return [as_numpy(f) for f in fetched]
         return fetched
 
+    def run_steps(self, program=None, feed=None, fetch_list=None,
+                  scope=None, return_numpy=True):
+        """Run K consecutive steps; every array in `feed` carries a leading
+        steps axis K and each fetch comes back stacked [K, ...].  The
+        scope ends holding the state after the K-th step, and the per-step
+        seeds follow the walk of K `run()` calls.  On the CPU this loops
+        over `run()`; on CUDA one captured step (a CUDA graph) is replayed
+        K times, and a program that draws random numbers is refused there.
+        FLAGS_check_nan_inf raises after the K steps on a non-finite fetch
+        or persistable."""
+        program = program if program is not None else default_main_program()
+        if not isinstance(program, Program):
+            raise NotImplementedError(
+                f"run_steps takes a Program, got {type(program).__name__}: "
+                "CompiledProgram is not ported yet (ROADMAP.md Queue 1 "
+                "item 7, distribution)")
+        scope = scope or global_scope()
+        fetch_names = [f.name if hasattr(f, "name") else str(f)
+                       for f in (fetch_list or [])]
+        block = program.global_block()
+        stacked = {n: self._coerce_feed(block, n, v)
+                   for n, v in (feed or {}).items()}
+        if not stacked:
+            raise ValueError("run_steps needs at least one stacked feed "
+                             "to define the number of steps")
+        k = None
+        for n, v in stacked.items():
+            if v.dim() == 0:
+                raise ValueError(
+                    f"run_steps feed {n!r} is a scalar; every feed needs "
+                    f"a leading steps axis (stack K per-step values)")
+            k = v.shape[0] if k is None else k
+            if v.shape[0] != k:
+                raise ValueError(
+                    f"feed {n!r} leading (steps) dim {v.shape[0]} != {k}")
+        if k == 0:
+            raise ValueError("run_steps feeds have 0 steps")
+        if self.device.type == "cuda":
+            fetched = self._replay_steps(program, stacked, k, fetch_names,
+                                         scope)
+        else:
+            steps = [self.run(program, {n: v[i] for n, v in stacked.items()},
+                              fetch_names, scope, return_numpy=False)
+                     for i in range(k)]
+            fetched = [torch.stack([s[j] for s in steps])
+                       for j in range(len(fetch_names))]
+        arrays = as_numpy(fetched) if return_numpy or \
+            _flags.flag("check_nan_inf", False) else None
+        if _flags.flag("check_nan_inf", False):
+            _check_nan_inf(program, fetch_names, arrays, scope, k)
+        return arrays if return_numpy else fetched
+
+    def cache_stats(self) -> Dict[str, int]:
+        """The step-graph cache of this executor: `hits`, `misses` and
+        `traces` (captures; the number that must stop growing after the
+        first `run_steps` call of a shape).  The same counts go to
+        core/monitor.py as executor.graph_cache.*."""
+        return dict(self._stats)
+
+    def close(self):
+        """Drop every captured step graph and free its memory pool."""
+        self._graphs.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _record(self, kind):
+        self._stats[kind] += 1
+        stat_add("executor.graph_cache." + kind)
+
+    def _replay_steps(self, program, stacked, k, fetch_names, scope):
+        block = program.global_block()
+        random_ops = sorted({op.type for op in block.ops} & _RANDOM_OPS)
+        if random_ops:
+            raise NotImplementedError(
+                f"run_steps cannot capture {random_ops} on CUDA: a random "
+                "op's seed is a host integer per step, which a CUDA graph "
+                "would freeze (the graph-safe RNG is ROADMAP.md Queue 1 "
+                "item 6); run the steps with run()")
+        state_names = [n for n in _persistable_names(program)
+                       if scope.get(n) is not None]
+        # the flags are part of the key: one read while the ops run
+        # (FLAGS_fused_xent) picks kernels, and a capture bakes them in
+        key = (program.fingerprint(),
+               tuple(sorted((n, tuple(v.shape[1:]), str(v.dtype))
+                            for n, v in stacked.items())),
+               tuple(fetch_names), tuple(state_names),
+               tuple(sorted((n, repr(v)) for n, v in _flags._FLAGS.items())))
+        with torch.cuda.device(self.device):
+            entry = self._graphs.get(key)
+            if entry is None:
+                self._record("misses")
+                entry = self._capture(block, stacked, fetch_names,
+                                      state_names, scope)
+                self._record("traces")
+                self._graphs[key] = entry
+            else:
+                self._record("hits")
+            entry.bind_state(scope)
+            steps = []
+            for i in range(k):
+                for n, buf in entry.feeds.items():
+                    buf.copy_(stacked[n][i])
+                entry.graph.replay()
+                steps.append([f.clone() for f in entry.fetches])
+        self._step += k
+        return [torch.stack([s[j] for s in steps])
+                for j in range(len(fetch_names))]
+
+    def _capture(self, block, stacked, fetch_names, state_names, scope):
+        """Capture one step of `block` over static buffers.  A warm-up step
+        runs first, eagerly on a side stream (as torch requires before
+        capturing a backward): it builds and loads the hand kernels, sets
+        their shared-memory attributes and lets autograd and cuBLAS make
+        their lazy state.  Its results are dropped, so it changes no
+        state."""
+        state: Dict[str, torch.Tensor] = {}
+        for n in state_names:
+            t = scope.get(n)
+            if t.device != self.device:
+                t = t.to(self.device)
+            if any(t is b for b in state.values()):
+                t = t.clone()  # two names, one tensor: give each a buffer
+            scope.set(n, t)
+            state[n] = t
+        feeds = {n: v[0].clone() for n, v in stacked.items()}
+
+        def step():
+            env = dict(state)
+            env.update(feeds)
+            ctx = OpContext(seed=0, is_test=False, device=self.device)
+            with torch.no_grad():
+                for op in block.ops:
+                    _run_op(op, env, ctx)
+            return env
+
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            env = step()
+            missing = [n for n in fetch_names if n not in env]
+            del env
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        if missing:
+            raise KeyError(f"fetch targets {missing} were not produced")
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                env = step()
+                fetches = [env[n] for n in fetch_names]
+                bufs = list(state.values())
+                written = {}
+                for n, buf in state.items():
+                    v = env[n]
+                    if v is buf:
+                        continue
+                    # a value that is another persistable's buffer would
+                    # be overwritten before it is read
+                    written[n] = v.clone() if any(v is b for b in bufs) \
+                        else v
+                for n, v in written.items():
+                    state[n].copy_(v)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"CUDA graph capture of the step failed: {e}") from e
+        return _StepGraph(graph, feeds, state, fetches)
+
     def _coerce_feed(self, block, name, val):
-        t = val if isinstance(val, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(val))
+        if isinstance(val, torch.Tensor):
+            t = val
+        else:  # ascontiguousarray alone would make a 0-d feed 1-d
+            a = np.asarray(val)
+            t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
         try:
             want = block.var(name).dtype
         except KeyError:
@@ -198,3 +418,45 @@ class Executor:
 
     def _seed_for_step(self, program: Program) -> int:
         return (int(program.random_seed) * 1000003 + self._step) % (2 ** 31)
+
+
+def _check_nan_inf(program, fetch_names, fetched, scope, steps):
+    """FLAGS_check_nan_inf after run_steps (the reference's post-scan
+    check): non-finite values in the stacked fetches (naming the first
+    step whose slice has one) or in the persistables, each named with the
+    op that last wrote it."""
+    bad = []
+    for n, arr in zip(fetch_names, fetched):
+        if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+            step = None
+            if steps > 1 and arr.ndim >= 1 and arr.shape[0] == steps:
+                step = int(np.argmin(np.isfinite(
+                    arr.reshape(steps, -1)).all(axis=1)))
+            bad.append(("fetch", n, arr.dtype, step))
+    for n in _persistable_names(program):
+        v = scope.get(n)
+        if v is None or not v.is_floating_point():
+            continue
+        if not bool(torch.isfinite(v).all()):
+            bad.append(("var", n, str(v.dtype).replace("torch.", ""), None))
+    if not bad:
+        return
+    producers = {}
+    for b in program.blocks:
+        for i, op in enumerate(b.ops):
+            for out_name in op.output_names():
+                if out_name:  # the last writer: the value the step kept
+                    producers[out_name] = (b.idx, i, op)
+    msgs = []
+    for kind, n, dtype, step in bad:
+        msg = f"{kind} {n!r} (dtype {dtype})"
+        if step is not None:
+            msg += f", first non-finite at micro-step {step}"
+        hit = producers.get(n)
+        if hit is not None:
+            bi, oi, op = hit
+            msg += (f", produced by op {op.type!r} (uid "
+                    f"{op.attrs.get('op_uid')}, block {bi} op {oi})")
+        msgs.append(msg)
+    raise RuntimeError("FLAGS_check_nan_inf: non-finite values in "
+                       + "; ".join(msgs))

@@ -17,8 +17,8 @@ def attention_core(q, k, v, d_key, dropout_rate=0.0, merge_shape=None):
     from ..ops.attention import use_flash_for
     if dropout_rate:
         raise NotImplementedError(
-            "attention dropout needs the dropout op, which comes with the "
-            "training slice (ROADMAP.md)")
+            "attention dropout needs the dropout op, which is not ported "
+            "yet (ROADMAP.md Queue 1 item 6, with a graph-safe RNG)")
     seq = q.shape[2] if q.shape is not None and len(q.shape) > 2 else None
     seq = seq if isinstance(seq, int) and seq > 0 else None
     if use_flash_for(seq):
@@ -58,8 +58,8 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
             "bidirectional BERT/ERNIE form")
     if dropout_rate:
         raise NotImplementedError(
-            "attention dropout needs the dropout op, which comes with the "
-            "training slice (ROADMAP.md)")
+            "attention dropout needs the dropout op, which is not ported "
+            "yet (ROADMAP.md Queue 1 item 6, with a graph-safe RNG)")
     d_key = queries.shape[-1] // num_heads
 
     def _split_heads(x):

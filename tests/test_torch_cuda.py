@@ -1,11 +1,18 @@
 """Tests of the port that need the card: the hand-written kernels (flash
 forward, flash backward dQ and dK/dV, fused cross-entropy) against their
-plain versions (in bf16 the forward, dQ and dK/dV are the wgmma kernels,
-in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128, ragged S,
-causal Sq != Sk, the strided head-split views and fp32 views 4 bytes
-past a 16-byte boundary), the
-GPU Predictor against the CPU one, and a training step on the GPU against
-the same step on the CPU.
+plain versions (in bf16 and fp16 the forward, dQ and dK/dV are the wgmma
+kernels, in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128 and
+the zero-padded D = 48, 96, ragged S, causal Sq != Sk, the strided
+head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
+views that TMA refuses, which are copied), the GPU Predictor against the
+CPU one, a training step on the GPU against the same step on the CPU,
+and `Executor.run_steps` (CUDA-graph replay of the step) against eager
+`run()` steps.
+
+Tolerances against the plain versions: fp32 1e-4 (summation order;
+3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
+round P and dS where the TPU kernels do and round the outputs; a bf16 ulp
+is 2^-8 relative, an fp16 ulp 2^-11).
 Marked `cuda`; each skips (inside the test) where no CUDA device is
 present.  On a GPU machine:
 
@@ -19,6 +26,7 @@ from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.ops import fused_xent as tfx
 
 pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 
 
 def _need_cuda():
@@ -35,6 +43,12 @@ def _need_cuda():
     (1, 2, 200, 200, 32, torch.bfloat16, False),
     (1, 2, 200, 200, 128, torch.bfloat16, False),
     (1, 2, 384, 512, 64, torch.bfloat16, True),
+    (2, 4, 128, 128, 64, torch.float16, False),
+    (1, 2, 160, 96, 128, torch.float16, True),
+    (1, 2, 200, 200, 32, torch.float16, False),
+    (2, 4, 128, 128, 48, torch.float32, False),
+    (1, 2, 200, 200, 96, torch.bfloat16, True),
+    (1, 2, 200, 200, 96, torch.float16, False),
 ])
 def test_kernel_matches_plain_version(b, h, sq, sk, d, dtype, causal):
     _need_cuda()
@@ -47,7 +61,8 @@ def test_kernel_matches_plain_version(b, h, sq, sk, d, dtype, causal):
     torch.cuda.synchronize()
     assert tattn.flash_attention.launches == before + 1
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    tol = TOL[dtype]
+    assert out.shape == (b, h, sq, d) and out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     fin = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(lse), fin)
@@ -94,13 +109,20 @@ def test_gpu_predictor_matches_cpu_predictor(tmp_path):
     (1, 2, 200, 200, 32, torch.bfloat16, False),
     (1, 2, 200, 200, 128, torch.bfloat16, False),
     (1, 2, 384, 512, 64, torch.bfloat16, True),
+    (2, 4, 128, 128, 64, torch.float16, False),
+    (1, 2, 160, 96, 128, torch.float16, True),
+    (1, 2, 200, 200, 32, torch.float16, False),
+    (2, 4, 128, 128, 48, torch.float32, False),
+    (1, 2, 200, 200, 96, torch.bfloat16, True),
+    (1, 2, 200, 200, 96, torch.float16, False),
 ])
 def test_backward_kernels_match_plain_version(b, h, sq, sk, d, dtype,
                                               causal):
     """Through the autograd Function (torch.func.vjp, as the grad ops run
     it): one launch each of dQ and dK/dV, results as the plain versions.
-    Tolerance 1e-4 fp32 (summation order), 2e-2 bf16 (both round the
-    outputs to bf16; the plain version is computed in fp32)."""
+    Tolerance TOL (1e-4 fp32, summation order; 2e-2 bf16 and 5e-3 fp16:
+    both round the outputs to the input dtype, the plain version computes
+    in fp32).  D = 48 and 96 run zero-padded to 64 and 128."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(b, h, s, d, device="cuda",
@@ -119,8 +141,9 @@ def test_backward_kernels_match_plain_version(b, h, sq, sk, d, dtype,
     out, lse = tattn.flash_attention_plain(q, k, v, causal=causal)
     dd = (do.float() * out.float()).sum(-1)
     ref = tattn.flash_attention_bwd_plain(q, k, v, do, lse, dd, causal)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    tol = TOL[dtype]
     for got, want in zip(grads, ref):
+        assert got.shape == want.shape and got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
 
@@ -184,15 +207,42 @@ def test_wgmma_dq_is_deterministic():
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
+def _shifted(t, elems=2):
+    """t's values in a view `elems` elements past a 16-byte boundary (a
+    base address TMA refuses)."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = flat[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def test_dq_wrapper_refuses_views_tma_refuses():
+    """A bf16 view that TMA refuses (here 4 bytes past a 16-byte boundary)
+    is copied to a contiguous tensor before each launch, counted in
+    flash_attention.view_copies: the forward, dQ and dK/dV launch and give
+    the bits of the aligned tensors."""
     _need_cuda()
     q, k, v, do, lse, dd, _ = _dq_args(1, 2, 64, 64, 64, False, False)
-    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
-    shifted = flat[1:].view(q.shape)  # base address 2 bytes past 16
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn.flash_attention_bwd_dq_cuda(shifted, k, v, do, lse, dd)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn.flash_attention_bwd_dq_cuda(q, k, v, shifted, lse, dd)
+    sq, sdo = _shifted(q), _shifted(do)
+    assert sq.data_ptr() % 16 == 4 and not tattn.tma_accepts(sq)
+    copies = tattn.flash_attention.view_copies
+    out, lse2 = tattn.flash_attention_cuda(sq, k, v)
+    dq = tattn.flash_attention_bwd_dq_cuda(sq, k, v, sdo, lse, dd)
+    dk, dv = tattn.flash_attention_bwd_dkv_cuda(q, k, v, sdo, lse, dd)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.view_copies == copies + 4
+    want_out, want_lse = tattn.flash_attention_cuda(q, k, v)
+    want_dq = tattn.flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd)
+    want_dk, want_dv = tattn.flash_attention_bwd_dkv_cuda(q, k, v, do, lse,
+                                                          dd)
+    for got, want in ((out, want_out), (lse2, want_lse), (dq, want_dq),
+                      (dk, want_dk), (dv, want_dv)):
+        assert torch.equal(got, want)
+    # the head-split views of the training program take no copy
+    hs = _bhsd(torch.Generator(device="cuda").manual_seed(9), 2, 4, 64, 64,
+               torch.bfloat16, True)
+    tattn.flash_attention_cuda(hs, hs, hs)
+    assert tattn.flash_attention.view_copies == copies + 4
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal,strided", _CASES + [
@@ -294,6 +344,8 @@ def test_fp32_backward_kernels_are_deterministic():
     (64, 30522, torch.float32, -100),
     (64, 30522, torch.bfloat16, 7),
     (33, 1000, torch.float32, -1),
+    (64, 30522, torch.float16, -100),
+    (33, 1000, torch.float16, 3),
 ])
 def test_fused_xent_kernel_matches_plain_version(t, v, dtype, ignore):
     """Loss and lse as fused_xent_plain (tolerance 1e-4: summation order),
@@ -363,3 +415,185 @@ def test_gpu_training_step_matches_cpu(tmp_path):
         tfx.enable_fused_xent(False)
     cpu, gpu = losses.values()
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Executor.run_steps: the training step captured as a CUDA graph
+# ---------------------------------------------------------------------------
+def _small_pretrain(use_amp):
+    """The bench's pretraining program at a small width (flash on), its
+    startup weights as numpy arrays and a fixed batch of K steps."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import build_bert_pretrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prev = tattn._FLASH_STATE["mode"]
+    tattn.enable_flash_attention(True)
+    try:
+        _reset_unique_names()
+        main, startup, loss = build_bert_pretrain(
+            vocab=128, seq=64, hidden=128, layers_n=2, heads=2,
+            use_amp=use_amp)
+    finally:
+        tattn._FLASH_STATE["mode"] = prev
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        static.Executor(static.CPUPlace()).run(startup)
+    init = {n: t.numpy().copy() for n, t in scope.vars.items()}
+    return main, loss, init
+
+
+def _stacked_feed(k, seed=0):
+    rng = np.random.RandomState(seed)
+    return {"ids": rng.randint(0, 128, (k, 2, 64)),
+            "pos": np.tile(np.arange(64), (k, 2, 1)),
+            "labels": rng.randint(0, 128, (k, 2, 64, 1))}
+
+
+def _gpu_scope(init):
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.io import load_params_from_numpy
+    scope = static.Scope()
+    load_params_from_numpy(scope, init, static.CUDAPlace(0))
+    return scope
+
+
+def _eager_losses(main, loss, init, feed, steps):
+    """`steps` Executor.run steps on the GPU; (losses, final scope)."""
+    from paddle_tpu_torch import static
+    exe, scope = static.Executor(), _gpu_scope(init)
+    with static.scope_guard(scope):
+        losses = [float(exe.run(main, feed={n: v[i] for n, v in feed.items()},
+                                fetch_list=[loss])[0]) for i in steps]
+    return np.asarray(losses, np.float32), scope
+
+
+@pytest.mark.parametrize("use_amp", [False, True])
+def test_run_steps_graph_replay_matches_eager_run(use_amp):
+    """K = 3 steps replayed from one captured graph against 3 eager run()
+    steps from the same weights: the same kernels on the same inputs, so
+    the losses and every persistable after the last step are equal to
+    the last bit."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    main, loss, init = _small_pretrain(use_amp)
+    feed = _stacked_feed(3)
+    tfx.enable_fused_xent(True)
+    try:
+        want, eager_scope = _eager_losses(main, loss, init, feed, range(3))
+        exe, scope = static.Executor(), _gpu_scope(init)
+        with static.scope_guard(scope):
+            (got,) = exe.run_steps(main, feed=feed, fetch_list=[loss])
+    finally:
+        tfx.enable_fused_xent(False)
+    assert got.shape == (3,) and np.all(np.isfinite(got))
+    np.testing.assert_array_equal(got.reshape(3), want)
+    assert exe.cache_stats() == {"hits": 0, "misses": 1, "traces": 1}
+    for n, t in eager_scope.vars.items():
+        assert torch.equal(scope.vars[n], t), n
+    exe.close()
+
+
+def test_run_steps_captures_once_then_replays():
+    """A second call of the same shape and a short final chunk (K' < K)
+    replay the captured graph: one capture, then hits; the losses follow
+    the eager walk over all the steps; close() frees the graph's pool."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    main, loss, init = _small_pretrain(False)
+    feed = _stacked_feed(5, seed=1)
+    tfx.enable_fused_xent(True)
+    try:
+        want, _ = _eager_losses(main, loss, init, feed, range(5))
+        exe, scope = static.Executor(), _gpu_scope(init)
+        got = []
+        with static.scope_guard(scope):
+            for lo, hi in ((0, 2), (2, 4), (4, 5)):
+                (lv,) = exe.run_steps(
+                    main, feed={n: v[lo:hi] for n, v in feed.items()},
+                    fetch_list=[loss])
+                got.extend(lv.reshape(-1))
+    finally:
+        tfx.enable_fused_xent(False)
+    assert exe.cache_stats() == {"hits": 2, "misses": 1, "traces": 1}
+    np.testing.assert_array_equal(np.asarray(got, np.float32), want)
+    # the graph's private memory pool outlives empty_cache() until close()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    exe.close()
+    assert torch.cuda.memory_reserved() < held
+
+
+def test_run_steps_interleaved_with_run_trains_current_weights():
+    """run() between two run_steps calls rebinds the scope's persistables
+    to new tensors; the next replay copies them into the captured buffers
+    and trains from them, so the five losses are the eager walk's."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    main, loss, init = _small_pretrain(False)
+    feed = _stacked_feed(5, seed=2)
+    tfx.enable_fused_xent(True)
+    try:
+        want, eager_scope = _eager_losses(main, loss, init, feed, range(5))
+        exe, scope = static.Executor(), _gpu_scope(init)
+        with static.scope_guard(scope):
+            (a,) = exe.run_steps(main, feed={n: v[:2] for n, v in
+                                             feed.items()},
+                                 fetch_list=[loss])
+            (b,) = exe.run(main, feed={n: v[2] for n, v in feed.items()},
+                           fetch_list=[loss])
+            (c,) = exe.run_steps(main, feed={n: v[3:] for n, v in
+                                             feed.items()},
+                                 fetch_list=[loss])
+    finally:
+        tfx.enable_fused_xent(False)
+    got = np.concatenate([a.reshape(-1), np.reshape(b, -1), c.reshape(-1)])
+    np.testing.assert_array_equal(got.astype(np.float32), want)
+    for n, t in eager_scope.vars.items():
+        assert torch.equal(scope.vars[n], t), n
+    exe.close()
+
+
+def test_run_steps_refuses_random_ops():
+    """A program that draws random numbers (the startup program's
+    uniform_random) is refused on CUDA, not run eagerly."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import layers
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 4])
+        layers.fc(x, 2)
+    exe = static.Executor()
+    with static.scope_guard(static.Scope()):
+        with pytest.raises(NotImplementedError, match="graph-safe RNG"):
+            exe.run_steps(startup, feed={"x": np.zeros((2, 3, 4),
+                                                       np.float32)})
+    assert exe.cache_stats()["traces"] == 0
+
+
+def test_run_steps_failing_capture_raises(monkeypatch):
+    """An op that reads a device value back to the host cannot be
+    captured: run_steps raises with the CUDA error and runs nothing
+    eagerly in its place."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import registry
+    main, loss, init = _small_pretrain(False)
+    info = registry.get_op_info("mean")
+    kernel = info.kernel
+
+    def syncing_mean(ins, attrs, ctx):
+        float(ins["X"].sum())  # a host read: refused inside a capture
+        return kernel(ins, attrs, ctx)
+
+    monkeypatch.setattr(info, "kernel", syncing_mean)
+    exe, scope = static.Executor(), _gpu_scope(init)
+    before = {n: t.clone() for n, t in scope.vars.items()}
+    with static.scope_guard(scope):
+        with pytest.raises(RuntimeError, match="capture of the step failed"):
+            exe.run_steps(main, feed=_stacked_feed(2), fetch_list=[loss])
+    monkeypatch.setattr(info, "kernel", kernel)
+    torch.cuda.synchronize()
+    for n, t in before.items():
+        assert torch.equal(scope.vars[n], t), n

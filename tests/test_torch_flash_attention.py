@@ -9,7 +9,8 @@ keys differently, and each side rounds P and the output to bf16), and
 atol=rtol=1e-2 for the plain version against the Pallas kernel itself at
 the same 64-row tiles: both round P to bf16 before the P.V product, so
 they differ by the summation order and one bf16 rounding of the output
-(a bf16 ulp is 2^-8 relative).
+(a bf16 ulp is 2^-8 relative); fp16 atol=rtol=2e-3 for the same
+comparison in fp16 (an fp16 ulp is 2^-11 relative, 8x finer).
 """
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from paddle_tpu_torch.ops import attention as tattn
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_KERNEL_TOL = dict(rtol=1e-2, atol=1e-2)
+FP16_KERNEL_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
 def _inputs(b, h, sq, sk, d, seed=0):
@@ -127,12 +129,19 @@ def test_plain_lse_and_ragged_tiles():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    q = torch.zeros(1, 1, 8, 48)
-    with pytest.raises(ValueError, match="head dims"):
+    """Head dims up to 128 and fp16 reach the kernels (D = 48 is padded,
+    fp16 has wgmma instances); a head dim above 128, a dtype without a
+    kernel, a strided head dim, a CPU tensor handed to the launcher and
+    a device without a kernel still raise."""
+    for ok in (torch.zeros(1, 1, 8, 48), torch.zeros(1, 1, 8, 96),
+               torch.zeros(1, 1, 8, 64, dtype=torch.float16)):
+        tattn._check_cuda_args(ok, ok, ok)
+    q = torch.zeros(1, 1, 8, 256)
+    with pytest.raises(ValueError, match="head dims up to 128"):
         tattn._check_cuda_args(q, q, q)
-    h = torch.zeros(1, 1, 8, 64, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tattn._check_cuda_args(h, h, h)
+    f64 = torch.zeros(1, 1, 8, 64, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tattn._check_cuda_args(f64, f64, f64)
     t = torch.zeros(1, 1, 64, 8).transpose(-1, -2)
     with pytest.raises(ValueError, match="contiguous head dim"):
         tattn._check_cuda_args(t, t, t)
@@ -144,27 +153,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tattn.flash_attention(meta, meta, meta)
 
 
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_matches_pallas(causal, d):
+    """The kernels' path for a head dim without an instance: q, k, v
+    zero-padded to kernel_head_dim(d) (64, 128), the forward at the padded
+    width with the scale of the real d, out sliced back.  Held against the
+    Pallas `_flash_fwd` (interpret mode) at the real d: out and lse.  The
+    zero columns add nothing to q k^T, so fp32 tolerance holds."""
+    q, k, v = _inputs(2, 2, 128, 128, d, seed=30 + d + causal)
+    scale = 1.0 / float(np.sqrt(d))
+    ref, ref_lse = jattn._flash_fwd(*(jnp.asarray(x) for x in (q, k, v)),
+                                    causal, scale, 64, 64, interpret=True)
+    dp, padded = tattn.kernel_operands(
+        d, *(torch.from_numpy(x) for x in (q, k, v)))
+    assert dp == tattn.kernel_head_dim(d) == (64 if d == 48 else 128)
+    assert all(t.shape[-1] == dp and t.is_contiguous() for t in padded)
+    out, lse = tattn.flash_attention_plain(*padded, causal=causal,
+                                           scale=scale)
+    assert torch.all(out[..., d:] == 0)
+    np.testing.assert_allclose(out[..., :d].numpy(), np.asarray(ref),
+                               **FP32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp16_plain_matches_pallas_kernel(causal):
+    """flash_attention_plain in fp16 (the fp16 kernels' plain version: P
+    rounded to fp16 before P.v, the TPU kernel's `p.astype(vs.dtype)`)
+    against the Pallas `_flash_fwd` in interpret mode in fp16 at the same
+    64-row tiles: out within FP16_KERNEL_TOL (summation order and one fp16
+    rounding of the output; an fp16 ulp is 2^-11 relative), lse within
+    fp32 tolerance."""
+    q, k, v = _inputs(2, 2, 128, 128, 64, seed=50 + causal)
+    jq, jk, jv = (jnp.asarray(x, jnp.float16) for x in (q, k, v))
+    ref, ref_lse = jattn._flash_fwd(jq, jk, jv, causal, 0.125, 64, 64,
+                                    interpret=True)
+    got, lse = tattn.flash_attention_plain(
+        *(torch.from_numpy(x).to(torch.float16) for x in (q, k, v)),
+        causal=causal)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **FP16_KERNEL_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               **FP32_TOL)
+
+
 def test_bf16_views_that_tma_refuses():
-    """The bf16 kernels read q, k, v (and dO) through TMA tensor maps:
-    the wrapper refuses a base address that is not 16-byte aligned and a
-    stride whose byte size is not a multiple of 16, and takes the strided
-    head-split view [B, S, H*D] -> [B, H, S, D] of the main path."""
+    """The bf16 and fp16 kernels read q, k, v (and dO) through TMA tensor
+    maps, which need a 16-byte aligned base address and byte strides that
+    are multiples of 16.  kernel_operands copies a view that TMA refuses
+    to a contiguous tensor and counts the copy in
+    flash_attention.view_copies; the strided head-split view [B, S, H*D]
+    -> [B, H, S, D] of the main path, and any fp32 view, pass uncopied."""
     bf16 = torch.bfloat16
-    split = torch.zeros(2, 8, 4 * 64, dtype=bf16).view(2, 8, 4, 64) \
+    split = torch.randn(2, 8, 4 * 64).to(bf16).view(2, 8, 4, 64) \
         .permute(0, 2, 1, 3)
-    tattn._check_cuda_args(split, split, split)
-    flat = torch.zeros(2 * 4 * 8 * 64 + 1, dtype=bf16)
+    flat = torch.randn(2 * 4 * 8 * 64 + 1).to(bf16)
     shifted = flat[1:].view(2, 4, 8, 64)  # storage offset of one element
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn._check_cuda_args(shifted, split, split)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn._check_cuda_args(split, split, shifted)
-    odd = torch.zeros(2, 8, 4 * 64 + 4, dtype=bf16)[..., :256] \
+    odd = torch.randn(2, 8, 4 * 64 + 4).to(bf16)[..., :256] \
         .view(2, 8, 4, 64).permute(0, 2, 1, 3)  # sequence stride 260 x 2 B
-    with pytest.raises(ValueError, match="multiples of 16"):
-        tattn._check_cuda_args(odd, odd, odd)
-    # fp32 takes no TMA path: the same offset view is accepted
+    half = torch.randn(2 * 4 * 8 * 64 + 1).to(torch.float16)[1:] \
+        .view(2, 4, 8, 64)
     f32 = torch.zeros(2 * 4 * 8 * 64 + 1)[1:].view(2, 4, 8, 64)
-    tattn._check_cuda_args(f32, f32, f32)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn._check_tma_view("dO", shifted)
+    assert tattn.tma_accepts(split)
+    assert not any(map(tattn.tma_accepts, (shifted, odd, half)))
+    before = tattn.flash_attention.view_copies
+    dp, (a, b, c) = tattn.kernel_operands(64, split, split, f32)
+    assert dp == 64 and a is split and b is split and c is f32
+    assert tattn.flash_attention.view_copies == before
+    _, copied = tattn.kernel_operands(64, shifted, odd, half)
+    assert tattn.flash_attention.view_copies == before + 3
+    for got, view in zip(copied, (shifted, odd, half)):
+        assert got is not view and tattn.tma_accepts(got)
+        assert got.is_contiguous() and got.dtype == view.dtype
+        assert torch.equal(got, view)

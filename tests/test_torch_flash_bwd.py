@@ -13,7 +13,9 @@ atol=rtol=1e-2 for the dQ and dK/dV plain versions against the Pallas
 `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel` themselves on the same
 out, lse and D: both sides round P and dS to bf16 before their products
 (dQ: `ds.astype(ks.dtype)`), so they differ by the summation order and
-one rounding of the output.
+one rounding of the output; atol=rtol=2e-3 for the same comparison in
+fp16 (an fp16 ulp is 2^-11 relative, 8x finer than bf16's).  The padded
+head dims (48, 96) hold fp32 tolerance: zero columns change no sum.
 
 The fp32 dQ and dK/dV kernels multiply in 3xTF32 on the tensor cores;
 `test_fp32_kernels_error_model_matches_pallas_kernels` emulates that
@@ -33,6 +35,7 @@ FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_KERNEL_TOL = dict(rtol=1e-2, atol=1e-2)
 FP32_KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
+FP16_KERNEL_TOL = dict(rtol=2e-3, atol=2e-3)
 _MATMUL = torch.matmul  # the fp32 product, before a test swaps it
 
 
@@ -156,6 +159,66 @@ def test_bf16_dq_plain_matches_pallas_kernel(causal, d):
     np.testing.assert_allclose(dq.float().numpy(),
                                np.asarray(ref_dq.astype(jnp.float32)),
                                **BF16_KERNEL_TOL)
+
+
+def _pallas_bwd(q, k, v, g, causal, jdt, tdt):
+    """The Pallas forward and backward (interpret mode) at the inputs' own
+    head dim in `jdt`, and the port's operands in `tdt`: q, k, v, dO, and
+    lse and D = rowsum(dO * O) from the Pallas out.  Returns (reference
+    (dq, dk, dv) in fp32, port operands, scale)."""
+    d = q.shape[-1]
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    scale = 1.0 / float(np.sqrt(d))
+    out, lse = jattn._flash_fwd(jq, jk, jv, causal, scale, 64, 64,
+                                interpret=True)
+    ref = [np.asarray(x.astype(jnp.float32)) for x in jattn._flash_bwd(
+        jq, jk, jv, out, lse, jg, causal, scale, 64, 64, interpret=True)]
+    tq, tk, tv, tg = (torch.from_numpy(x).to(tdt) for x in (q, k, v, g))
+    tout = torch.tensor(np.asarray(out.astype(jnp.float32))).to(tdt)
+    tlse = torch.tensor(np.asarray(lse)[..., 0])
+    dd = (tg.float() * tout.float()).sum(-1)
+    return ref, (tq, tk, tv, tg, tlse, dd), scale
+
+
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_bwd_matches_pallas(causal, d):
+    """The kernels' path for a head dim without an instance: q, k, v and
+    dO zero-padded to kernel_head_dim(d), dQ and dK/dV at the padded width
+    with the scale of the real d (lse and D unchanged by zero columns),
+    dq, dk, dv sliced back.  Held against the Pallas `_flash_bwd`
+    (interpret mode) at the real d in fp32: FP32_TOL."""
+    q, k, v, g = _inputs(2, 2, 128, 128, d, seed=70 + d + causal)
+    ref, (tq, tk, tv, tg, tlse, dd), scale = _pallas_bwd(
+        q, k, v, g, causal, jnp.float32, torch.float32)
+    dp, (pq, pk, pv, pg) = tattn.kernel_operands(d, tq, tk, tv, tg)
+    dq = tattn.flash_attention_bwd_dq_plain(pq, pk, pv, pg, tlse, dd,
+                                            causal, scale)
+    dk, dv = tattn.flash_attention_bwd_dkv_plain(pq, pk, pv, pg, tlse, dd,
+                                                 causal, scale)
+    for tag, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.shape[-1] == dp and torch.all(got[..., d:] == 0), tag
+        np.testing.assert_allclose(got[..., :d].numpy(), want, err_msg=tag,
+                                   **FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp16_bwd_plain_matches_pallas_kernels(causal):
+    """flash_attention_bwd_dq_plain and _dkv_plain in fp16 (the fp16
+    kernels' plain versions: P and dS rounded to fp16 before the second
+    products, as the TPU kernels' `.astype`) against the Pallas
+    `_flash_bwd` in interpret mode in fp16 on the same out, lse and D:
+    FP16_KERNEL_TOL (summation order and one fp16 rounding of each
+    output; an fp16 ulp is 2^-11 relative)."""
+    q, k, v, g = _inputs(2, 2, 128, 128, 64, seed=80 + causal)
+    ref, args, _ = _pallas_bwd(q, k, v, g, causal, jnp.float16,
+                               torch.float16)
+    dq = tattn.flash_attention_bwd_dq_plain(*args, causal)
+    dk, dv = tattn.flash_attention_bwd_dkv_plain(*args, causal)
+    for tag, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == torch.float16, tag
+        np.testing.assert_allclose(got.float().numpy(), want, err_msg=tag,
+                                   **FP16_KERNEL_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

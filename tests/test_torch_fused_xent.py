@@ -7,7 +7,8 @@ numpy RNG and go to both packages.
 Tolerances: loss and lse atol=rtol=1e-5, gradient atol=1e-6 rtol=1e-5
 (fp32, the same online max / sumexp in another summation order); bf16
 logits atol=rtol=2e-2 (both sides read the same bf16 values and sum in
-fp32; the JAX backward rounds dlogits to bf16).
+fp32; the JAX backward rounds dlogits to bf16); fp16 logits: loss and
+lse at the fp32 tolerance, the fp16 gradient at atol=rtol=2e-3.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from paddle_tpu_torch.ops import fused_xent as tfx
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+FP16_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
 def _inputs(t, v, seed, ignore=None, every=0):
@@ -85,6 +87,19 @@ def test_fused_xent_bf16_logits():
     got = _port(*args, -100, dtype=torch.bfloat16)
     for tag, r, g in zip(("loss", "lse", "grad"), ref, got):
         np.testing.assert_allclose(g, r, err_msg=tag, **BF16_TOL)
+
+
+def test_fused_xent_fp16_logits():
+    """fp16 logits: loss and lse against the Pallas kernel in interpret
+    mode in fp16 at LOSS_TOL (both read the same fp16 values and keep
+    fp32 statistics, so only the summation order differs); the gradient,
+    rounded to fp16 on both sides, at FP16_TOL (fp16 ulp 2^-11)."""
+    args = _inputs(32, 1000, seed=5)
+    ref = _jax_ref(*args, -100, dtype=jnp.float16)
+    got = _port(*args, -100, dtype=torch.float16)
+    for tag, r, g, tol in zip(("loss", "lse", "grad"), ref, got,
+                              (LOSS_TOL, LOSS_TOL, FP16_TOL)):
+        np.testing.assert_allclose(g, r, err_msg=tag, **tol)
 
 
 def test_out_of_range_label_picks_nothing():
