@@ -154,7 +154,19 @@ GRAPH_TIMED_CALLS = 3  # run_steps calls timed after the capturing one
 # (3xTF32 keeps an fp32-level error); bf16 and fp16 a few ulps of the
 # rounded outputs (2^-8 and 2^-11 relative)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
-KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd",
+                  "flash_attn_d256")
+# phase 7: GPT-2 small widths (random weights from --seed), served through
+# the paged pool of GEN_PLAN with the radix prefix cache
+GPT2 = dict(vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
+            intermediate_size=3072, max_position=1024)
+GEN_PLAN = dict(num_layers=12, num_heads=12, head_dim=64, page_tokens=16,
+                pages=512, max_slots=8, max_context=1024)
+GEN_POSTS = 16        # concurrent /generate posts, prompts of 32-512 tokens
+GEN_SAMPLING = 2      # of them decode with sampling (top_k 40, T 0.8)
+GEN_PREFIX = 256      # every other post starts with one shared prefix
+GEN_MAX_LENGTH = 64
+GEN_TOL = 1e-4        # greedy token vs the teacher-forced top logit
 # the kernels of the training and serving paths and the TPU kernels they
 # replace
 KERNELS = {
@@ -183,6 +195,12 @@ KERNELS = {
     "fused_xent_fwd_fp16": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
                             "paddle_tpu/ops/fused_xent.py:42"),
 }
+# the head dim 129-256 kernels (csrc/flash_attn_d256.cu), by dtype
+for _dt in ("fp32", "bf16", "fp16"):
+    for _name, _line in (("fwd", 125), ("bwd_dq", 240), ("bwd_dkv", 281)):
+        KERNELS[f"flash_attn_d256_{_name}_{_dt}"] = (
+            "paddle_tpu_torch/csrc/flash_attn_d256.cu",
+            f"paddle_tpu/ops/attention.py:{_line}")
 
 
 def log(obj):
@@ -336,6 +354,11 @@ def attention_cases(torch):
         ("pad_d96_bf16", 8, 8, 512, 512, 96, torch.bfloat16, False, True),
         ("pad_d48_fp32", 8, 16, 512, 512, 48, torch.float32, False, True),
         ("pad_d48_bf16", 8, 16, 512, 512, 48, torch.bfloat16, False, True),
+        # head dim 256 (hidden 2048 over 8 heads), the kernels of
+        # csrc/flash_attn_d256.cu
+        ("d256_fp32", 8, 8, 512, 512, 256, torch.float32, False, True),
+        ("d256_bf16", 8, 8, 512, 512, 256, torch.bfloat16, False, True),
+        ("d256_fp16", 8, 8, 512, 512, 256, torch.float16, False, True),
     ]
 
 
@@ -675,6 +698,7 @@ def slice_phase(torch, seed, tmp, profile=False):
         # ---- the main path: counts from 0 just before, read just after
         runs0 = metrics.counter("batch.runs")
         attn.flash_attention.launches = 0
+        zero_d256(attn)
         t_burst = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(len(spans))]
@@ -684,6 +708,7 @@ def slice_phase(torch, seed, tmp, profile=False):
             t.join(timeout=600)
         burst_s = time.perf_counter() - t_burst
         launches = attn.flash_attention.launches
+        record_d256("serve", read_d256(attn))
         batches = metrics.counter("batch.runs") - runs0
         # ---- end of the main path
         if any(t.is_alive() for t in threads) or any(r is None
@@ -735,6 +760,274 @@ def slice_phase(torch, seed, tmp, profile=False):
          "pass_stats": srv.predictor._pass_stats,
          "queue_depth_after": stats.get("queue_depth"),
          "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launches
+
+
+def mha_route_phase(torch, attn, seed):
+    """One port MultiHeadAttention at width 768 / 12 heads on [8, 512, 768]
+    fp32 with no mask: flash forced on (the fp32 flash kernel, one launch)
+    against the score-matrix route with the same weights, 1e-4.  Returns
+    the flash launches of the call."""
+    from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.core.place import CUDAPlace
+    generator.seed(seed)
+    with dygraph.guard(CUDAPlace(0)):
+        mha = nn.MultiHeadAttention(768, 12).eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(8, 512, 768, device="cuda", generator=gen)
+    try:
+        with torch.inference_mode():
+            attn.enable_flash_attention(True)
+            before = attn.flash_attention.launches
+            flash = mha(x)
+            torch.cuda.synchronize()
+            launches = attn.flash_attention.launches - before
+            attn.enable_flash_attention(False)
+            scores = mha(x)
+            if attn.flash_attention.launches - before != launches:
+                raise AssertionError("the score-matrix route launched flash")
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+    if launches != 1:
+        raise AssertionError(f"MHA flash route: {launches} flash launches")
+    torch.testing.assert_close(flash, scores, rtol=1e-4, atol=1e-4)
+    log({"phase": "mha_flash_route", "shape": [8, 512, 768], "heads": 12,
+         "dtype": "float32", "flash_launches": launches,
+         "max_abs_err_vs_score_matrix":
+             (flash - scores).abs().max().item(), "tol": 1e-4})
+    return launches
+
+
+def gen_requests(seed):
+    """The /generate bodies of phase 7: prompt lengths 32-512 from the
+    seed, every other one starting with one shared 256-token prefix;
+    greedy, except GEN_SAMPLING sampling posts (top_k 40, temperature
+    0.8, fixed seeds)."""
+    rng = np.random.RandomState(seed)
+    vocab = GPT2["vocab_size"]
+    prefix = rng.randint(2, vocab, GEN_PREFIX)
+    bodies = []
+    for i in range(GEN_POSTS):
+        if i % 2 == 0:
+            n = int(rng.randint(GEN_PREFIX + 1, 513))
+            ids = np.concatenate([prefix, rng.randint(2, vocab,
+                                                      n - GEN_PREFIX)])
+        else:
+            ids = rng.randint(2, vocab, int(rng.randint(32, 513)))
+        body = {"input_ids": [int(t) for t in ids],
+                "max_length": GEN_MAX_LENGTH}
+        if i in (3, 10)[:GEN_SAMPLING]:
+            body.update(decode_strategy="sampling", top_k=40,
+                        temperature=0.8, seed=100 + i)
+        bodies.append(body)
+    return bodies
+
+
+def pct(values, q):
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def decode_profile(torch, eng, seed):
+    """Device busy and idle over a window of decode steps: 8 greedy
+    requests (128-token prompts, 48 new tokens) into the engine; the
+    window opens after 4 decode steps and closes after 20 more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(seed + 1)
+    s0 = len(eng.step_log)
+    futs = [eng.submit(rng.randint(2, GPT2["vocab_size"], 128),
+                       max_length=48) for _ in range(8)]
+
+    def wait_steps(n):
+        t_end = time.monotonic() + 120
+        while len(eng.step_log) < s0 + n:
+            if time.monotonic() > t_end:
+                raise AssertionError("decode window: the engine stalled")
+            time.sleep(0.001)
+
+    wait_steps(4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n0 = len(eng.step_log)
+        wait_steps(24)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        steps = len(eng.step_log) - n0
+    for f in futs:
+        f.result(timeout=300)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    log({"phase": "generate_profile", "decode_steps": steps,
+         "window_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+         "device_busy_ms_per_step": busy_ms / max(1, steps),
+         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)
+         if busy_ms else None,
+         "top_device_ms_per_step": [[e.key[:80], e.count / max(1, steps),
+                                     e.self_device_time_total / 1e3
+                                     / max(1, steps)] for e in top]})
+
+
+def generate_phase(torch, seed, model_dir, profile=False):
+    """(7) GPT /generate at GPT-2 small widths (random weights from
+    --seed, fp32, TF32 off, eval) through InferenceServer(model_dir,
+    generator=..., gen_slots=8, gen_kv_pool=GEN_PLAN,
+    gen_prefix_cache="auto"): 16 concurrent posts.  Gates: every greedy
+    token within GEN_TOL of the top logit of one teacher-forced
+    GPTModel.forward over its reply, radix hits and shared pages, the KV
+    slabs on the card, the pool drained after stop.  Then the same
+    requests through a fixed-slot engine (the share of equal tokens is
+    printed).  Returns the kernel launches counted over the burst."""
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.inference.server import InferenceServer
+    from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+
+    t0 = time.perf_counter()
+    generator.seed(seed)
+    with dygraph.guard(CUDAPlace(0)):
+        model = GPTForGeneration(GPTModel(GPTConfig(**GPT2))).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    bodies = gen_requests(seed)
+    srv = InferenceServer(model_dir, port=0, generator=model, gen_slots=8,
+                          gen_kv_pool=dict(GEN_PLAN),
+                          gen_prefix_cache="auto")
+    eng, pool = srv.engine, srv.engine.kv_pool
+    if not (pool.k.is_cuda and pool.v.is_cuda):
+        raise AssertionError(f"KV slabs on {pool.k.device}, not the card")
+    log({"phase": "generate_setup", "params": n_params,
+         "pool_bytes": pool.pool_bytes, "kv_device": str(pool.k.device),
+         "build_s": time.perf_counter() - t0})
+    counters = (attn.flash_attention, attn.flash_attention_bwd_dq_cuda,
+                attn.flash_attention_bwd_dkv_cuda, fx.fused_xent_cuda)
+    srv.start()
+    try:
+        url = f"http://{srv.host}:{srv.port}/generate"
+        warm, _ = post(url, {"input_ids": bodies[1]["input_ids"][:16],
+                             "max_length": 4})  # not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0, reqs0 = len(eng.step_log), len(eng.request_log)
+        radix0 = eng.prefix_cache.hits, eng.prefix_cache.hit_tokens
+        shared0 = pool.prefix_hits
+        replies, lat = [None] * GEN_POSTS, [None] * GEN_POSTS
+
+        def client(i):
+            time.sleep(0.02 * i)  # arrival order = post order
+            replies[i], lat[i] = post(url, bodies[i])
+
+        # ---- the main path: counts from 0 just before, read just after
+        for f in counters:
+            f.launches = 0
+        zero_d256(attn)
+        t_burst = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(GEN_POSTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t_burst
+        launches = {"flash_attn_fwd": attn.flash_attention.launches,
+                    "fused_xent_fwd": fx.fused_xent_cuda.launches}
+        record_d256("generate", read_d256(attn))
+        # ---- end of the main path
+        if any(t.is_alive() for t in threads) or None in replies:
+            raise AssertionError("a /generate request did not complete")
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = list(eng.step_log)[steps0:]
+        reqs = list(eng.request_log)[reqs0:]
+        radix = (eng.prefix_cache.hits - radix0[0],
+                 eng.prefix_cache.hit_tokens - radix0[1])
+        shared = pool.prefix_hits - shared0
+        outs = []
+        for body, r in zip(bodies, replies):
+            (out,) = r["output_ids"]
+            out = np.asarray(out, np.int64)
+            p = len(body["input_ids"])
+            if not (p < out.size <= p + GEN_MAX_LENGTH) or \
+                    list(out[:p]) != body["input_ids"] or \
+                    out.min() < 0 or out.max() >= GPT2["vocab_size"]:
+                raise AssertionError(f"bad /generate reply {out.size} "
+                                     f"tokens for a {p}-token prompt")
+            outs.append(out)
+        # every greedy token is the top logit (within GEN_TOL) of one
+        # teacher-forced forward over the reply, on the card
+        worst = 0.0
+        with torch.inference_mode():
+            for body, out in zip(bodies, outs):
+                if body.get("decode_strategy") == "sampling":
+                    continue
+                p = len(body["input_ids"])
+                logits = model.gpt(torch.as_tensor(out[None],
+                                                   device="cuda"))[0]
+                rows = logits[p - 1:out.size - 1]
+                picked = rows.gather(1, torch.as_tensor(
+                    out[p:, None], device="cuda"))[:, 0]
+                worst = max(worst, float((rows.max(1).values - picked)
+                                         .max()))
+        if worst > GEN_TOL:
+            raise AssertionError(f"a greedy token is {worst} below the "
+                                 f"teacher-forced top logit")
+        if radix[0] < 1 or shared < 1:
+            raise AssertionError(f"radix hits {radix[0]}, shared pages "
+                                 f"{shared}: the prefix paths did not run")
+        if profile:
+            decode_profile(torch, eng, seed)
+        stats = srv.stats()
+    finally:
+        srv.stop()
+    pool.assert_drained()
+    # the same requests through the fixed-slot engine
+    fixed = ContinuousBatchingEngine(model, max_slots=8).start()
+    try:
+        futs = []
+        for body in bodies:
+            kw = {k: v for k, v in body.items() if k != "input_ids"}
+            futs.append(fixed.submit(body["input_ids"], **kw))
+        fixed_outs = [f.result(timeout=600) for f in futs]
+    finally:
+        fixed.stop()
+    same = total = 0  # generated positions equal in both, of the longer
+    for body, a, b in zip(bodies, outs, fixed_outs):
+        p, n = len(body["input_ids"]), min(a.size, b.size)
+        total += max(a.size, b.size) - p
+        same += int(np.sum(a[p:n] == b[p:n]))
+    new_tokens = sum(int(o.size) - len(b["input_ids"])
+                     for b, o in zip(bodies, outs))
+    log({"phase": "generate", "posts": GEN_POSTS,
+         "sampling_posts": GEN_SAMPLING,
+         "prompt_tokens": [len(b["input_ids"]) for b in bodies],
+         "new_tokens": new_tokens, "burst_s": burst_s,
+         "generated_tokens_per_s": new_tokens / burst_s,
+         "ttft_ms_p50": pct([r["ttft_s"] for r in reqs], 50) * 1e3,
+         "ttft_ms_p90": pct([r["ttft_s"] for r in reqs], 90) * 1e3,
+         "latency_ms_p50": pct(lat, 50) * 1e3,
+         "latency_ms_p90": pct(lat, 90) * 1e3,
+         "decode_steps": len(steps),
+         "decode_step_ms_p50": pct([s["ms"] for s in steps], 50),
+         "slot_occupancy": float(np.mean([s["rows"] for s in steps]))
+         / GEN_PLAN["max_slots"],
+         "h2d_bytes_per_decode_step":
+             float(np.mean([s["h2d_bytes"] for s in steps])),
+         "d2h_bytes_per_decode_step":
+             float(np.mean([s["d2h_bytes"] for s in steps])),
+         "peak_gpu_mem_gb": peak_gb, "pool_bytes": pool.pool_bytes,
+         "radix_hits": radix[0], "radix_hit_tokens": radix[1],
+         "shared_prompt_pages": shared, "kv_buckets": eng.kv_buckets,
+         "greedy_max_gap_to_teacher_forced_top_logit": worst,
+         "tol": GEN_TOL, "kernel_launches_in_burst": launches,
+         "d256_launches_in_burst": D256_LAUNCHES["generate"],
+         "tokens_equal_to_fixed_slot_share": same / max(1, total),
+         "kv_device": str(pool.k.device),
+         "pool_after": stats["kv_pool"], "warmup_ok": bool(warm)})
     return launches
 
 
@@ -871,6 +1164,7 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
             # ---- the main path: counts from 0 just before, read just after
             for c in counters:
                 c.launches = 0
+            zero_d256(attn)
             attn.flash_attention.view_copies = 0
             for _ in range(steps):
                 t0 = time.perf_counter()
@@ -882,6 +1176,8 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
                                  "flash_attn_bwd_dkv", "fused_xent_fwd"),
                                 (c.launches for c in counters)))
             view_copies = attn.flash_attention.view_copies
+            record_d256("train_amp" if use_amp else "train_fp32",
+                        read_d256(attn))
             # ---- end of the main path
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             if profile:
@@ -982,6 +1278,41 @@ def train_profile(torch, exe, main, feed, loss, config):
              ([t, n, ms] for t, (n, ms) in by_type.items()),
              key=lambda r: -r[2])[:12]})
 
+# launches of the D = 256 kernels (csrc/flash_attn_d256.cu) on each main
+# path, from the wrappers' `launches_d256`: set to 0 just before the path
+# and read just after; the graph-replayed steps add the profiler's count
+D256_LAUNCHES = {}
+# kernel -> the substring of its device name, for the profiler
+D256_DEVICE_NAMES = {"fwd": "flash_fwd_d256", "bwd_dq": "flash_bwd_dq_d256",
+                     "bwd_dkv": "flash_bwd_dkv_d256"}
+
+
+def d256_wrappers(attn):
+    return {"fwd": attn.flash_attention,
+            "bwd_dq": attn.flash_attention_bwd_dq_cuda,
+            "bwd_dkv": attn.flash_attention_bwd_dkv_cuda}
+
+
+def zero_d256(attn):
+    for f in d256_wrappers(attn).values():
+        f.launches_d256 = 0
+
+
+def read_d256(attn):
+    """{kernel: D = 256 launches since zero_d256}."""
+    return {k: f.launches_d256 for k, f in d256_wrappers(attn).items()}
+
+
+def record_d256(path, got):
+    """Record the D = 256 launches `got` of `path` and fail if there is
+    any: every configuration here has head dim 64, so a D = 256 launch on
+    a main path is a misrouted call."""
+    D256_LAUNCHES[path] = got
+    if any(got.values()):
+        raise AssertionError(f"{path}: D = 256 kernel launches {got} on a "
+                             "head-dim-64 configuration")
+
+
 def count_kernels(prof, names):
     """{name: launches} of the device kernels whose name contains each
     substring, from a torch.profiler run (kernels replayed by a CUDA
@@ -1058,6 +1389,7 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
             # a replay: the profiler below counts the replays)
             for c in counters:
                 c.launches = 0
+            zero_d256(attn)
             attn.flash_attention.view_copies = 0
             t0 = time.perf_counter()
             (lv,) = graph_exe.run_steps(main, feed=stacked,
@@ -1075,6 +1407,7 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
             capture_launches = dict(zip(names,
                                         (c.launches for c in counters)))
             view_copies = attn.flash_attention.view_copies
+            capture_d256 = read_d256(attn)
             # ---- end of this path
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             torch.cuda.synchronize()
@@ -1117,6 +1450,10 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
                              f"1 capture and {calls - 1} hits")
     replayed, dev = count_kernels(prof, dict(zip(names, (
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_xent"))))
+    # the capturing call's Python counts and the profiled call's replays
+    replayed_d256 = count_kernels(prof, D256_DEVICE_NAMES)[0]
+    record_d256("train_graph_amp" if use_amp else "train_graph_fp32",
+                {k: n + replayed_d256[k] for k, n in capture_d256.items()})
     per_step = {name: c / k for name, c in replayed.items()}
     for name, per in want.items():
         # the capturing call ran the step twice outside the replays (the
@@ -1216,13 +1553,17 @@ def main():
             ("flash_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
     view_copy_phase(torch, attn)
+    mha_launches = mha_route_phase(torch, attn, args.seed)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         serve_launches = slice_phase(torch, args.seed, tmp, args.profile)
+        amp, fp32 = train_phase(torch, args.seed, args.profile)
+        graph = train_graph_phase(torch, args.seed)
+        # phase 7 serves /predict from phase 4's model beside /generate
+        generate_phase(torch, args.seed, os.path.join(tmp, "bert_flash"),
+                       args.profile)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    amp, fp32 = train_phase(torch, args.seed, args.profile)
-    graph = train_graph_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -1251,6 +1592,7 @@ def main():
              graph_step("amp", "fused_xent_fwd")),
             ("flash_attn_fwd_fp32", fwd["slice_fp32"], serve_launches,
              {"launches_per_served_batch": BERT["layers_n"],
+              "launches_mha_flash_route": mha_launches,
               "launches_per_fp32_train_step":
                   per_fp32_step["flash_attn_fwd"],
               **graph_step("fp32", "flash_attn_fwd")}),
@@ -1274,6 +1616,24 @@ def main():
             ("flash_attn_bwd_dkv_fp16", bwd["slice_fp16"]["dkv"], 0,
              no_path),
             ("fused_xent_fwd_fp16", xent["train_fp16"], 0, no_path)]
+    # the D = 256 kernels: launches measured on every main path (the
+    # wrappers count per kernel, over all dtypes; 0, gated in each path,
+    # since no configuration has a head dim above 128), times from the
+    # kernel cases
+    paths = ("serve", "train_amp", "train_fp32", "train_graph_amp",
+             "train_graph_fp32", "generate")
+    if set(D256_LAUNCHES) != set(paths):
+        raise AssertionError(f"D = 256 launches read on "
+                             f"{sorted(D256_LAUNCHES)}, expected "
+                             f"{sorted(paths)}")
+    for dt in ("fp32", "bf16", "fp16"):
+        case = f"d256_{dt}"
+        for kind, r in (("fwd", fwd[case]), ("bwd_dq", bwd[case]["dq"]),
+                        ("bwd_dkv", bwd[case]["dkv"])):
+            by_path = {p: D256_LAUNCHES[p][kind] for p in paths}
+            rows.append((f"flash_attn_d256_{kind}_{dt}", r,
+                         sum(by_path.values()),
+                         {"launches_by_path_all_dtypes": by_path}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -6,10 +6,13 @@ paddle_tpu.  Entry points run on the GPU (CUDAPlace(0)) unless the caller
 asks for the CPU (CPUPlace(), Config.disable_gpu()).
 
 Ported so far: the `/predict` serving path of a static-graph BERT
-encoder — Program IR, layers, the op kernels it runs, the eager
-executor, model save/load, the inference passes, the Predictor and the
-HTTP InferenceServer — with the flash-attention forward as a
-hand-written Hopper kernel (csrc/flash_attn_fwd.cu).  ROADMAP.md lists
+encoder (Program IR, layers, op kernels, the eager executor, model
+save/load, the inference passes, the Predictor and the HTTP
+InferenceServer), the `bench.py` training step (backward, AMP, Adam,
+`Executor.run_steps`), and the GPT `/generate` path (the dygraph
+`Layer`, the `nn` subset, `models.gpt`, the continuous-batching engine
+with its paged KV pool on the GPU); every Pallas kernel of the JAX
+package as a hand-written Hopper kernel under csrc/.  ROADMAP.md lists
 what comes next.
 """
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401

@@ -1,0 +1,67 @@
+"""Global RNG seeding.
+
+Counterpart of paddle_tpu/core/generator.py.  There one global seed feeds
+JAX threefry keys; here it seeds `torch.Generator`s.  Every eager random
+draw (a dygraph parameter's initializer) runs its op with an `OpContext`
+whose seed is the global seed plus a monotone draw counter
+(`next_eager_uid`), and the op makes an explicit generator on the
+tensor's device from it (`OpContext.generator`).  So a seed fixes every
+draw, in order, on one device type, and nothing on the path reads or
+moves torch's global RNG.  The draws are not the JAX package's: parity
+tests copy weights (`Layer.set_state_dict`) instead of comparing draws.
+"""
+from __future__ import annotations
+
+import threading
+
+__all__ = ["seed", "global_seed", "next_eager_uid", "get_rng_state",
+           "set_rng_state"]
+
+
+class _State:
+    """Process-global generator state (one default generator per device
+    type, as the reference's generator.h; not one per thread)."""
+    seed = 0
+    counter = 0
+
+
+_state = _State()
+_mu = threading.Lock()
+
+
+def seed(s: int) -> int:
+    """paddle.seed: seed every generator and restart the draw counter;
+    the default programs' random_seed follows."""
+    with _mu:
+        _state.seed = int(s)
+        _state.counter = 0
+    from .program import default_main_program, default_startup_program
+    default_main_program().random_seed = int(s)
+    default_startup_program().random_seed = int(s)
+    return _state.seed
+
+
+def global_seed() -> int:
+    return _state.seed
+
+
+def next_eager_uid() -> int:
+    """Monotone uid of eager draws: each one seeds its generator from
+    global_seed() + uid, so two layers built in a row draw differently."""
+    with _mu:
+        _state.counter += 1
+        return _state.counter
+
+
+def get_rng_state() -> dict:
+    """Snapshot (seed, draw counter); restore with `set_rng_state`."""
+    with _mu:
+        return {"seed": _state.seed, "counter": _state.counter}
+
+
+def set_rng_state(state: dict) -> None:
+    """Restore a `get_rng_state` snapshot: the next draws repeat the ones
+    that followed it (the default programs' random_seed is untouched)."""
+    with _mu:
+        _state.seed = int(state.get("seed", _state.seed))
+        _state.counter = int(state.get("counter", _state.counter))

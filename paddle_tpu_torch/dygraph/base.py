@@ -1,0 +1,52 @@
+"""Dygraph guard, grad guards and the eager place.
+
+Counterpart of paddle_tpu/dygraph/base.py (the reference's
+fluid/dygraph/base.py guard / enabled / no_grad).  Imperative mode is
+PyTorch's eager mode and is always on (the port's static-graph API
+builds programs explicitly), so `enabled()` is True; the grad guards are
+torch's own.
+
+`guard(place)` also sets the place that `to_tensor` and new `Layer`
+parameters use.  With no place set that is CUDAPlace(0), which raises
+when no GPU is present (no silent move to the CPU): the CPU tests run
+inside `guard(CPUPlace())`.  The place is process-wide, not per thread,
+so a serving thread sees the place its model was built under.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from ..core.place import resolve_place
+
+__all__ = ["enabled", "guard", "no_grad", "current_place"]
+
+_place = [None]  # the eager place; None = the default (CUDAPlace(0))
+
+
+def enabled() -> bool:
+    return True
+
+
+def current_place():
+    """The eager place: the one `guard` set, else CUDAPlace(0) (raises
+    without a GPU)."""
+    return resolve_place(_place[0])
+
+
+@contextlib.contextmanager
+def guard(place=None):
+    """fluid.dygraph.guard — run a `with` body on `place` when one is
+    given."""
+    prev = _place[0]
+    if place is not None:
+        _place[0] = resolve_place(place)
+    try:
+        yield
+    finally:
+        _place[0] = prev
+
+
+# torch's grad guard (a context manager and a decorator)
+no_grad = torch.no_grad

@@ -1,0 +1,205 @@
+"""nn.Layer — the dygraph module base class, as a `torch.nn.Module`.
+
+Counterpart of paddle_tpu/dygraph/layers.py (the reference's
+fluid/dygraph/layers.py Layer).  Parameters are `torch.nn.Parameter`s,
+so torch autograd, `.to()`, `train()` / `eval()` and `parameters()` work
+as on any module; Paddle's names sit beside them:
+
+  * `create_parameter(shape, attr, dtype, is_bias, default_initializer)`
+    keeps Paddle's shapes (`Linear.weight` is [in, out]) and initializers
+    (Xavier for weights, 0 for biases unless the layer says otherwise).
+    It runs the SAME initializer op a startup program would append, in a
+    throwaway block, on the eager place, with a generator seeded from the
+    global seed and a draw counter (core/generator.py);
+  * `named_sublayers` / `sublayers` walk breadth-first as the JAX package
+    does, and `state_dict()` lists parameters (then persistable buffers)
+    under the JAX package's structured names in that same order;
+  * `set_state_dict(state)` is the weight-carry function: it takes the
+    JAX layer's `state_dict()` (its tensors, numpy arrays or torch
+    tensors) and copies each value into the parameter of the same name,
+    so both packages compute the same thing.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.dtype import convert_dtype, torch_dtype
+from ..core.generator import global_seed, next_eager_uid
+from ..core.program import Program, program_guard, unique_name
+from ..ops.registry import OpContext
+from ..static.initializer import Constant, XavierInitializer
+from ..static.param_attr import ParamAttr
+
+__all__ = ["Layer", "LayerList", "materialize_initializer"]
+
+
+def materialize_initializer(init, shape, dtype="float32", name=None,
+                            device=None) -> torch.Tensor:
+    """Run an initializer's op eagerly on `device` and return the value:
+    the startup-program path's own kernels, so eager and static init
+    draw the same way.  A fresh draw uid per call makes two layers built
+    in a row draw different samples."""
+    from ..static.executor import _run_op
+    prog = Program()
+    prog.random_seed = global_seed()
+    with program_guard(prog, prog):
+        var = prog.global_block().create_var(
+            name=name or unique_name("param_init"), shape=list(shape),
+            dtype=dtype, persistable=True)
+        init(var, prog.global_block())
+    env = {}
+    ctx = OpContext(seed=global_seed() + next_eager_uid(), device=device)
+    for op in prog.global_block().ops:
+        _run_op(op, env, ctx)
+    return env[var.name]
+
+
+def _as_array(val):
+    """A state_dict value as a CPU tensor: a torch tensor, or anything with
+    `.numpy()` (the JAX package's tensors) or that numpy takes."""
+    if isinstance(val, torch.Tensor):
+        return val.detach()
+    if hasattr(val, "numpy"):
+        val = val.numpy()
+    return torch.from_numpy(np.array(val))
+
+
+class Layer(torch.nn.Module):
+    """Base network module (a torch.nn.Module with Paddle's names)."""
+
+    def __init__(self, name_scope=None, dtype="float32"):
+        super().__init__()
+        self._dtype = convert_dtype(dtype) if dtype else "float32"
+        self._full_name = unique_name(
+            name_scope or type(self).__name__.lower())
+
+    def full_name(self):
+        return self._full_name
+
+    # -- parameter creation -------------------------------------------------
+    def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
+                         default_initializer=None):
+        """A new parameter of Paddle's `shape`, initialized on the eager
+        place; None when `attr` is False (bias_attr=False)."""
+        from .base import current_place
+        dtype = convert_dtype(dtype or self._dtype)
+        attr = ParamAttr._to_attr(attr)
+        if attr is False:
+            return None
+        init = (attr.initializer if attr.initializer is not None
+                else default_initializer)
+        if init is None:
+            init = Constant(0.0) if is_bias else XavierInitializer()
+        name = attr.name or unique_name(self._full_name + ".w")
+        value = materialize_initializer(
+            init, shape, dtype, name,
+            device=current_place().torch_device())
+        return torch.nn.Parameter(value.to(torch_dtype(dtype)),
+                                  requires_grad=bool(attr.trainable))
+
+    def add_sublayer(self, name, sublayer):
+        self.add_module(str(name), sublayer)
+        return sublayer
+
+    # -- traversal (breadth-first, as the JAX package) ----------------------
+    def named_sublayers(self, prefix="", include_self=False
+                        ) -> Iterator[Tuple[str, "torch.nn.Module"]]:
+        seen = set()
+        queue = collections.deque([(prefix, self)])
+        first = True
+        while queue:
+            name, lay = queue.popleft()
+            if id(lay) in seen:
+                continue
+            seen.add(id(lay))
+            if include_self or not first:
+                yield name, lay
+            first = False
+            for cname, child in lay._modules.items():
+                if child is not None:
+                    queue.append((f"{name}.{cname}" if name else cname,
+                                  child))
+
+    def sublayers(self, include_self=False) -> List["torch.nn.Module"]:
+        return [l for _, l in self.named_sublayers(include_self=include_self)]
+
+    # -- state dict ---------------------------------------------------------
+    def state_dict(self, destination=None, include_sublayers=True,
+                   structured_name_prefix=""):
+        """{structured name: tensor} of every parameter, then every
+        persistable buffer, in the JAX package's breadth-first order."""
+        dest = collections.OrderedDict() if destination is None \
+            else destination
+        layers = list(self.named_sublayers(
+            prefix=structured_name_prefix.rstrip("."), include_self=True))
+        if not include_sublayers:
+            layers = layers[:1]
+        seen = set()
+        for name, lay in layers:
+            for pname, p in lay._parameters.items():
+                if p is not None and id(p) not in seen:
+                    seen.add(id(p))
+                    dest[f"{name}.{pname}" if name else pname] = p
+        for name, lay in layers:
+            for bname, b in lay._buffers.items():
+                if b is not None and \
+                        bname not in lay._non_persistent_buffers_set:
+                    dest[f"{name}.{bname}" if name else bname] = b
+        return dest
+
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        """Copy every value of `state_dict` into the parameter or buffer of
+        the same structured name (cast to its dtype, moved to its device).
+        Returns (missing, unexpected) names, as the JAX package."""
+        own = self.state_dict()
+        missing, unexpected = [], []
+        with torch.no_grad():
+            for name, t in own.items():
+                if name not in state_dict:
+                    missing.append(name)
+                    continue
+                val = _as_array(state_dict[name])
+                if tuple(val.shape) != tuple(t.shape):
+                    raise ValueError(
+                        f"set_state_dict: {name} has shape "
+                        f"{tuple(t.shape)}, the value {tuple(val.shape)}")
+                t.copy_(val.to(device=t.device, dtype=t.dtype))
+        unexpected = [n for n in state_dict if n not in own]
+        return missing, unexpected
+
+
+class LayerList(Layer):
+    """A list of sublayers, registered under "0", "1", ..."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        for i, l in enumerate(sublayers or []):
+            self.add_sublayer(str(i), l)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return list(self._modules.values())[idx]
+        n = len(self._modules)
+        if not -n <= idx < n:
+            raise IndexError(
+                f"index {idx} out of range for LayerList of length {n}")
+        return self._modules[str(idx % n)]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self)), layer)
+        return self
+
+    def extend(self, layers):
+        for l in layers:
+            self.append(l)
+        return self

@@ -10,22 +10,26 @@ same clients (go/paddle/predictor.go, r/paddle.R) talk to either:
                              -> {"outputs": {name: {"data": flat list,
                                              "shape": [...],
                                              "dtype": "..."}}}
+    POST /generate           <- {"input_ids": [[...]...], "max_length": N,
+                                 "decode_strategy": "greedy_search", ...}
+                             -> {"output_ids": [[...]...]}
     GET  /health             -> {"status": "loading|ok|draining"}
                                 (non-"ok" replies are 503: readiness)
-    GET  /stats              -> serving.* monitor snapshot
+    GET  /stats              -> serving.* monitor snapshot (+ kv_pool and
+                                prefix_cache blocks with a generator)
     GET  /metrics            -> the same registry in Prometheus text
                                 exposition format (core.monitor)
-
-`/generate` (GPT decode on the paged-KV engine) is the next slice of the
-port (ROADMAP.md): the route answers 501 and `generator=` raises
-NotImplementedError until then.
 
 Concurrency model: ThreadingHTTPServer accepts one thread per
 connection, but handler threads never run the model themselves —
 `/predict` rows are admitted into a `serving.DynamicBatcher`, whose ONE
 scheduler thread coalesces concurrent requests into one device batch and
-runs the Predictor (on the GPU unless `place=CPUPlace()`).  Callers block
-on per-request futures and get exactly their rows back.
+runs the Predictor (on the GPU unless `place=CPUPlace()`), and
+`/generate` sequences join the `serving.ContinuousBatchingEngine`'s
+decode batch, whose ONE decode thread owns the model's device work
+(`generator=` / `attach_generator`; the model runs where its parameters
+are).  Callers block on per-request futures and get exactly their rows
+back.
 
 Backpressure is explicit: a full admission queue answers 503 with a
 Retry-After hint, an expired deadline answers 504, and `stop()` flips
@@ -37,17 +41,13 @@ from __future__ import annotations
 import json
 import threading
 import time
+from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 
 __all__ = ["InferenceServer"]
-
-
-_GENERATE_TODO = ("/generate (GPT decode on the paged-KV engine) is the next "
-                  "slice of the paddle_tpu_torch port (ROADMAP.md) and is "
-                  "not served yet")
 
 
 class BadRequest(ValueError):
@@ -177,7 +177,44 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, payload)
 
     def _generate(self, srv: "InferenceServer", req):
-        self._reply_error(501, NotImplementedError(_GENERATE_TODO))
+        from ..serving.batcher import BatcherError, QueueFullError
+        if srv._engine is None:
+            self._reply(501, {"error": "no generation model attached "
+                                       "(InferenceServer(generator=...))"})
+            return
+        try:
+            seqs, kw = srv._parse_generate(req)
+        except Exception as e:
+            self._reply_error(400, e)
+            return
+        futs = []
+        try:
+            futs = [srv._engine.submit(s, **kw) for s in seqs]
+            # ONE deadline across all sequences of the request, not
+            # t_left per future
+            deadline = time.monotonic() + srv._engine.default_timeout_s \
+                + 5.0
+            outs = [f.result(timeout=max(0.0,
+                                         deadline - time.monotonic()))
+                    for f in futs]
+        except Exception as e:  # noqa: BLE001 — mapped to status below
+            # any partial failure: cancel the sequences already admitted
+            # so no decode slot keeps generating into a discarded future
+            for f in futs:
+                f.cancel()
+            if isinstance(e, FuturesTimeout):
+                self._reply_error(504, e)
+            elif isinstance(e, QueueFullError):
+                self._reply_error(e.http_status, e)
+            elif isinstance(e, BatcherError):
+                self._reply_error(e.http_status, e)
+            elif isinstance(e, ValueError):
+                self._reply_error(400, e)
+            else:
+                self._reply_error(500, e)
+            return
+        self._reply(200, {"output_ids": [np.asarray(o).tolist()
+                                         for o in outs]})
 
 
 class InferenceServer:
@@ -190,19 +227,23 @@ class InferenceServer:
 
     ``place`` (CUDAPlace(i) or CPUPlace()) is passed down to the
     Predictor; None means CUDAPlace(0), which raises without a CUDA
-    device.
+    device.  ``generator=`` attaches an autoregressive model (a
+    ``models.GPTForGeneration``, on the device its parameters are on) and
+    serves ``/generate`` through a ContinuousBatchingEngine: ``gen_slots``
+    decode slots, ``gen_kv_pool`` (a plan dict or a ``PagedKVPool``) for
+    the paged KV pool, ``gen_prefix_cache="auto"`` for the radix prefix
+    cache (see ``attach_generator``).
     """
 
     def __init__(self, model_dir: str, host: str = "127.0.0.1",
                  port: int = 0, max_batch: int = 8,
                  max_wait_ms: float = 2.0, max_queue: int = 64,
                  request_timeout_s: float = 30.0, generator=None,
-                 place=None):
+                 place=None, gen_slots: Optional[int] = None,
+                 gen_kv_pool=None, gen_prefix_cache=None):
         from . import Config, create_predictor
         from ..core.place import CPUPlace, CUDAPlace
         from ..serving import DynamicBatcher
-        if generator is not None:
-            raise NotImplementedError(_GENERATE_TODO)
         self._status = "loading"
         config = Config(model_dir)
         if isinstance(place, CPUPlace):
@@ -216,6 +257,11 @@ class InferenceServer:
         self._batcher = DynamicBatcher(
             self._base.run, max_batch=max_batch, max_wait_ms=max_wait_ms,
             max_queue=max_queue, default_timeout_s=request_timeout_s)
+        self._engine = None
+        if generator is not None:
+            self.attach_generator(generator, max_slots=gen_slots,
+                                  kv_pool=gen_kv_pool,
+                                  prefix_cache=gen_prefix_cache)
         self._inflight = 0
         self._inflight_mu = threading.Lock()
         self._inflight_zero = threading.Condition(self._inflight_mu)
@@ -225,9 +271,34 @@ class InferenceServer:
         self._httpd.daemon_threads = True
         self.host, self.port = self._httpd.server_address[:2]
 
+    # -- wiring -------------------------------------------------------------
+    def attach_generator(self, model, max_slots: Optional[int] = None,
+                         max_queue: int = 64, timeout_s: float = 120.0,
+                         kv_pool=None, prefix_cache=None):
+        """Enable /generate: wrap ``model`` in a ContinuousBatchingEngine
+        (started with the server).  ``kv_pool`` (a plan dict or a
+        ``PagedKVPool``) serves decode through the block-paged KV pool on
+        the model's device (admission by free-page count, COW prefix
+        sharing); the plan's batch ceiling applies unless ``max_slots``
+        is given.  ``prefix_cache="auto"`` retains hot prompt prefixes
+        across requests.  ``kv_pool="auto"`` raises (ROADMAP Queue 1
+        items 5 and 8); so does a plan with ``tp_degree`` > 1."""
+        from ..serving import ContinuousBatchingEngine
+        self._engine = ContinuousBatchingEngine(
+            model, max_slots=max_slots, max_queue=max_queue,
+            default_timeout_s=timeout_s, kv_pool=kv_pool,
+            prefix_cache=prefix_cache)
+        if self._status == "ok":
+            self._engine.start()
+        return self._engine
+
     @property
     def status(self) -> str:
         return self._status
+
+    @property
+    def engine(self):
+        return self._engine
 
     @property
     def batcher(self):
@@ -240,9 +311,18 @@ class InferenceServer:
     def stats(self) -> dict:
         """The /stats payload: serving namespace + queue depth."""
         from ..serving.metrics import serving_stats
-        return {"status": self._status, "serving": serving_stats(),
-                "place": repr(self._base.place),
-                "queue_depth": self._batcher.queue_depth}
+        out = {"status": self._status, "serving": serving_stats(),
+               "place": repr(self._base.place),
+               "queue_depth": self._batcher.queue_depth}
+        if self._engine is not None:
+            out["gen_queue_depth"] = self._engine.queue_depth
+            out["gen_active_slots"] = self._engine.active_slots
+            out["gen_kv_buckets"] = self._engine.kv_buckets
+            if self._engine.kv_pool is not None:
+                out["kv_pool"] = self._engine.kv_pool.stats()
+            if self._engine.prefix_cache is not None:
+                out["prefix_cache"] = self._engine.prefix_cache.stats()
+        return out
 
     # -- request plumbing (handler-thread side) -----------------------------
     def _enter_request(self) -> bool:
@@ -279,6 +359,24 @@ class InferenceServer:
             feeds.append(arr)
         return feeds
 
+    @staticmethod
+    def _parse_generate(req):
+        if not isinstance(req, dict) or "input_ids" not in req:
+            raise BadRequest('request body needs "input_ids"')
+        ids = req["input_ids"]
+        if not isinstance(ids, list) or not ids:
+            raise BadRequest('"input_ids" must be a non-empty list')
+        seqs = ids if isinstance(ids[0], list) else [ids]
+        kw = {}
+        for key in ("max_length", "top_k", "seed"):
+            if key in req:
+                kw[key] = int(req[key])
+        if "temperature" in req:
+            kw["temperature"] = float(req["temperature"])
+        if "decode_strategy" in req:
+            kw["decode_strategy"] = str(req["decode_strategy"])
+        return [np.asarray(s, np.int64) for s in seqs], kw
+
     def _run_predict(self, feeds):
         try:
             fut = self._batcher.submit(feeds)
@@ -291,6 +389,8 @@ class InferenceServer:
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> threading.Thread:
         self._batcher.start()
+        if self._engine is not None:
+            self._engine.start()
         t = threading.Thread(target=self._httpd.serve_forever,
                              kwargs={"poll_interval": 0.1}, daemon=True)
         t.start()
@@ -309,6 +409,9 @@ class InferenceServer:
         # finish everything already admitted to the serving tier ...
         self._batcher.stop(drain=True,
                            timeout=max(0.0, deadline - time.monotonic()))
+        if self._engine is not None:
+            self._engine.stop(drain=True,
+                              timeout=max(0.0, deadline - time.monotonic()))
         # ... and wait for handler threads to write their responses before
         # tearing the socket down (the old stop() raced server_close here)
         with self._inflight_mu:

@@ -40,12 +40,17 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     accumulated in fp32: fp32-level error, not TF32's three digits).
     They take any strided fp32 view with a contiguous head dim.
 
-The kernels have instances for head dims 32, 64 and 128.  Any other head
-dim up to 128 is zero-padded up to the next of them (q, k, v and dO along
-D; the scale stays 1/sqrt(real D)) and out, dq, dk and dv are sliced
-back: zero columns leave q k^T, lse and rowsum(dO * O) unchanged, so this
-is exact, at the cost of the padded columns' bytes and operations (a
-D = 96 head does the work of D = 128).  A head dim above 128 raises.
+The kernels have instances for head dims 32, 64, 128 and 256.  Any
+other head dim up to 256 is zero-padded up to the next of them (q, k, v
+and dO along D; the scale stays 1/sqrt(real D)) and out, dq, dk and dv
+are sliced back: zero columns leave q k^T, lse and rowsum(dO * O)
+unchanged, so this is exact, at the cost of the padded columns' bytes and
+operations (a D = 96 head does the work of D = 128).  Head dims 129-256
+run the three kernels of csrc/flash_attn_d256.cu (fp32 FMAs from shared
+memory, fp32, bf16 and fp16 inputs, strided views taken as they are),
+selected by the head dim alone; their launches are counted apart
+(`launches_d256` on each wrapper).  A head dim above 256 raises
+(ROADMAP Queue 3 item 1).
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -76,7 +81,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
 # build identical programs; the H100's own crossover is not measured yet)
 _FLASH_STATE = {"mode": "auto", "min_seq_len": 8192}
 
-FLASH_HEAD_DIMS = (32, 64, 128)  # the kernels' instances; others pad up
+FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the kernels' instances; others pad up
+_D256 = 256  # the head dim of csrc/flash_attn_d256.cu (no TMA, any view)
 _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
 _BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -195,7 +201,8 @@ def kernel_head_dim(d):
             return dp
     raise ValueError(f"flash_attention kernels take head dims up to "
                      f"{FLASH_HEAD_DIMS[-1]} (instances {FLASH_HEAD_DIMS}, "
-                     f"others zero-padded up), got {d}")
+                     f"others zero-padded up; larger head dims are ROADMAP "
+                     f"Queue 3 item 1), got {d}")
 
 
 def tma_accepts(t):
@@ -213,14 +220,14 @@ def kernel_operands(d, *tensors):
     """The [B, H, S, d] tensors as the kernels take them: zero-padded along
     D up to kernel_head_dim(d) (a new contiguous tensor), and a bf16 or
     fp16 view that TMA refuses copied to a contiguous tensor (counted in
-    flash_attention.view_copies).  Returns the kernel's head dim and the
-    tensors."""
+    flash_attention.view_copies; the D = 256 kernels read through strides
+    and take any view).  Returns the kernel's head dim and the tensors."""
     dp = kernel_head_dim(d)
     out = []
     for t in tensors:
         if dp != d:
             t = torch.nn.functional.pad(t, (0, dp - d)).contiguous()
-        elif t.dtype in _TMA_DTYPES and not tma_accepts(t):
+        elif dp != _D256 and t.dtype in _TMA_DTYPES and not tma_accepts(t):
             t = t.clone(memory_format=torch.contiguous_format)
             flash_attention.view_copies += 1
         out.append(t)
@@ -242,6 +249,65 @@ def _kernel_lib():
     return lib
 
 
+def _d256_kernel_lib():
+    """csrc/flash_attn_d256.cu: the forward, dQ and dK/dV at D = 256, with
+    the argument lists of the D <= 128 entries."""
+    from ..core.kernel_build import load_library
+    lib = load_library("flash_attn_d256")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attn_d256_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            ll, ll, ll, ll, ll, ll, ll, ll,
+                                            ll, i, ctypes.c_float, p]
+        tail = [i] * 6 + [ll] * 12 + [i, ctypes.c_float, p]
+        lib.flash_attn_d256_bwd_dq.argtypes = [p] * 7 + tail
+        lib.flash_attn_d256_bwd_dkv.argtypes = [p] * 8 + tail
+        for fn in ("flash_attn_d256_fwd", "flash_attn_d256_bwd_dq",
+                   "flash_attn_d256_bwd_dkv"):
+            getattr(lib, fn).restype = i
+        lib.flash_attn_d256_error_string.argtypes = [i]
+        lib.flash_attn_d256_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+# kernel -> (its C entry at D <= 128, its C entry at D = 256)
+_ENTRIES = {"fwd": ("flash_attn_fwd", "flash_attn_d256_fwd"),
+            "bwd_dq": ("flash_attn_bwd_dq", "flash_attn_d256_bwd_dq"),
+            "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_d256_bwd_dkv")}
+
+
+def _kernel_entry(kind, dp):
+    """The C entry of kernel `kind` ("fwd", "bwd_dq" or "bwd_dkv") at the
+    kernel head dim dp, its library's error-string function and the name of
+    the wrapper's launch count: csrc/flash_attn_d256.cu at D = 256 (counted
+    in `launches_d256`), else csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
+    (counted in `launches`).  The head dim alone selects the kernel."""
+    if dp == _D256:
+        lib = _d256_kernel_lib()
+        return (getattr(lib, _ENTRIES[kind][1]),
+                lib.flash_attn_d256_error_string, "launches_d256")
+    if kind == "fwd":
+        lib = _kernel_lib()
+        return lib.flash_attn_fwd, lib.flash_attn_error_string, "launches"
+    lib = _bwd_kernel_lib()
+    return (getattr(lib, _ENTRIES[kind][0]), lib.flash_attn_bwd_error_string,
+            "launches")
+
+
+def _launch(wrapper, kind, dp, device, *args):
+    """Launch kernel `kind` at kernel head dim dp with `args` on the current
+    stream of `device`; raise on a CUDA error, else add one to the wrapper's
+    launch count."""
+    fn, err_string, count = _kernel_entry(kind, dp)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
+                           f"({err_string(err).decode()})")
+    setattr(wrapper, count, getattr(wrapper, count) + 1)
+
+
 def flash_attention_cuda(q, k, v, causal=False, scale=None):
     """Launch the Hopper kernel on CUDA tensors.  Returns (out, lse)."""
     if not q.is_cuda:
@@ -257,21 +323,13 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
             lse
     dp, (q, k, v) = kernel_operands(d, q, k, v)
     out = torch.empty((b, h, sq, dp), dtype=q.dtype, device=q.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(
+    _launch(flash_attention, "fwd", dp, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, sq, sk, dp,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), scale, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attn_fwd launch failed: CUDA error {err} "
-            f"({lib.flash_attn_error_string(err).decode()})")
-    flash_attention.launches += 1
+            int(bool(causal)), scale)
     return (out if dp == d else out[..., :d]), lse
 
 
@@ -385,23 +443,16 @@ def _check_bwd_args(q, k, v, do, lse, dd):
         raise ValueError("flash backward: inputs on different devices")
 
 
-def _bwd_launch(fn, outs, q, k, v, do, lse, dd, causal, scale):
-    """Launch `fn` on kernel operands (kernel_operands) into `outs`, which
-    have the kernel's head dim."""
-    lib = _bwd_kernel_lib()
+def _bwd_launch(wrapper, kind, outs, q, k, v, do, lse, dd, causal, scale):
+    """Launch backward kernel `kind` on kernel operands (kernel_operands)
+    into `outs`, which have the kernel's head dim."""
     b, h, sq, d = q.shape
     strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, fn)(
+    _launch(wrapper, kind, d, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dd.data_ptr(), *[t.data_ptr() for t in outs],
             _DTYPE_CODE[q.dtype], b, h, sq, k.shape[2], d, *strides,
-            int(bool(causal)), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{fn} launch failed: CUDA error {err} "
-            f"({lib.flash_attn_bwd_error_string(err).decode()})")
+            int(bool(causal)), float(scale))
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd, causal=False,
@@ -414,9 +465,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd, causal=False,
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     dp, (q, k, v, do) = kernel_operands(d, q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_attn_bwd_dq", (dq,), q, k, v, do, lse, dd, causal,
-                scale)
-    flash_attention_bwd_dq_cuda.launches += 1
+    _bwd_launch(flash_attention_bwd_dq_cuda, "bwd_dq", (dq,), q, k, v, do,
+                lse, dd, causal, scale)
     return dq if dp == d else dq[..., :d]
 
 
@@ -432,9 +482,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd, causal=False,
     dp, (q, k, v, do) = kernel_operands(d, q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("flash_attn_bwd_dkv", (dk, dv), q, k, v, do, lse, dd,
-                causal, scale)
-    flash_attention_bwd_dkv_cuda.launches += 1
+    _bwd_launch(flash_attention_bwd_dkv_cuda, "bwd_dkv", (dk, dv), q, k, v,
+                do, lse, dd, causal, scale)
     if dp != d:
         dk, dv = dk[..., :d], dv[..., :d]
     return dk, dv
@@ -529,10 +578,14 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     return (out, lse) if return_lse else out
 
 
-# launches of each Hopper kernel in this process, and the copies of views
+# launches of each Hopper kernel in this process (`launches_d256`: the
+# D = 256 kernels of csrc/flash_attn_d256.cu), and the copies of views
 # that TMA refuses (plain integers; callers reset them to 0 around the run
 # they want to count)
 flash_attention.launches = 0
+flash_attention.launches_d256 = 0
 flash_attention.view_copies = 0
 flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dq_cuda.launches_d256 = 0
 flash_attention_bwd_dkv_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.launches_d256 = 0

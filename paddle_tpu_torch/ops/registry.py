@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 __all__ = ["OpInfo", "register_op", "get_op_info", "all_ops", "OpContext",
-           "Slot"]
+           "Slot", "run_kernel"]
 
 
 class Slot:
@@ -106,6 +106,16 @@ _REGISTRY: Dict[str, OpInfo] = {}
 
 def get_op_info(type: str) -> Optional[OpInfo]:
     return _REGISTRY.get(type)
+
+
+def run_kernel(op_type: str, ins: Dict[str, Any], attrs: Dict[str, Any],
+               ctx: OpContext) -> Dict[str, Any]:
+    """Run one registered kernel directly (the host-side decode loops'
+    entry, as paddle_tpu.ops.registry.run_kernel)."""
+    info = get_op_info(op_type)
+    if info is None:
+        raise NotImplementedError(f"no kernel registered for op {op_type!r}")
+    return info.kernel(ins, attrs, ctx)
 
 
 def all_ops() -> List[str]:

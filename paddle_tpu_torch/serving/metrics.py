@@ -7,12 +7,21 @@ whole serving story from a single ``/stats`` scrape:
 
   counters    serving.requests.admitted / rejected / timeout / completed /
               failed, serving.batch.runs, serving.batch.coalesced,
-              serving.gen.admitted / completed / steps / tokens
+              serving.gen.admitted / rejected / rejected_queue_full /
+              rejected_pages / timeout / cancelled / failed / completed /
+              steps / tokens / prefill_tokens / h2d_bytes / d2h_bytes,
+              serving.kv.prefix_hits / cow_copies / radix_hits /
+              radix_hit_tokens / evictions / admit_blocked
   gauges      serving.queue.depth, serving.batch.last_size,
-              serving.gen.active_slots, serving.server.inflight
+              serving.gen.active_slots / queue.depth / kv_buckets,
+              serving.kv.pages_total / pages_free / pages_shared /
+              pages_reserved / retained_pages / admission_blocked,
+              serving.server.inflight
   histograms  serving.latency_ms (end-to-end request latency),
               serving.batch.occupancy (rows per device run),
-              serving.gen.seq_len (retired sequence lengths)
+              serving.gen.seq_len (retired sequence lengths),
+              serving.gen.step_occupancy (rows per decode step),
+              serving.gen.step_ms, serving.gen.ttft_ms
 
 The histogram percentiles come from core/monitor's bounded reservoir, so
 a week of traffic costs the same memory as a minute.

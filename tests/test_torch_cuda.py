@@ -4,8 +4,9 @@ plain versions (in bf16 and fp16 the forward, dQ and dK/dV are the wgmma
 kernels, in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128 and
 the zero-padded D = 48, 96, ragged S, causal Sq != Sk, the strided
 head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
-views that TMA refuses, which are copied), the GPU Predictor against the
-CPU one, a training step on the GPU against the same step on the CPU,
+views that TMA refuses, which are copied; head dims 129-256 on the
+kernels of csrc/flash_attn_d256.cu), the GPU Predictor against the
+CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 and `Executor.run_steps` (CUDA-graph replay of the step) against eager
 `run()` steps.
 
@@ -597,3 +598,115 @@ def test_run_steps_failing_capture_raises(monkeypatch):
     torch.cuda.synchronize()
     for n, t in before.items():
         assert torch.equal(scope.vars[n], t), n
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,dtype,causal,strided", [
+    (2, 2, 128, 128, 256, torch.float32, False, True),
+    (1, 2, 96, 160, 256, torch.float32, True, False),
+    (1, 2, 200, 200, 256, torch.bfloat16, False, True),
+    (1, 2, 160, 96, 256, torch.bfloat16, True, False),
+    (1, 2, 200, 200, 256, torch.float16, True, False),
+    (1, 2, 128, 128, 160, torch.float32, False, False),
+    (1, 2, 130, 130, 200, torch.bfloat16, True, False),
+])
+def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
+                                           strided):
+    """Head dims 129-256 run the three kernels of csrc/flash_attn_d256.cu
+    (D = 160 and 200 zero-padded to 256), counted in `launches_d256` and
+    not in the D <= 128 kernels' counts: the forward, dQ and dK/dV against
+    their plain versions at TOL (the D <= 128 kernels' tolerances, for the
+    same reasons)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (_bhsd(g, b, h, s, d, dtype, strided)
+                   for s in (sq, sk, sk, sq))
+    counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
+              tattn.flash_attention_bwd_dkv_cuda)
+    before = [(f.launches, f.launches_d256) for f in counts]
+    out, lse = tattn.flash_attention_cuda(q, k, v, causal=causal)
+    dd = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, dd, causal)
+    dq = tattn.flash_attention_bwd_dq_cuda(*args)
+    dk, dv = tattn.flash_attention_bwd_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_d256) for f in counts] == \
+        [(n, m + 1) for n, m in before]
+    tol = TOL[dtype]
+    ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], rtol=tol, atol=tol)
+    ref_dq = tattn.flash_attention_bwd_dq_plain(*args)
+    ref_dk, ref_dv = tattn.flash_attention_bwd_dkv_plain(*args)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.shape[-1] == d and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    if causal and sq > sk:
+        assert torch.all(out[:, :, :sq - sk] == 0)
+        assert torch.all(dq[:, :, :sq - sk] == 0)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        tattn.flash_attention_cuda(*(torch.zeros(1, 1, 8, 264,
+                                                 device="cuda"),) * 3)
+
+
+def test_device_resident_pool_and_engine():
+    """The paged KV pool's slabs live on the card and every write and
+    gather stays there; the paged engine (radix prefix cache on) serves a
+    tiny GPT on the card token-equal to the fixed-slot engine and to one
+    teacher-forced forward over each reply (greedy: every generated token
+    is within 1e-4 of that forward's top logit), and drains."""
+    _need_cuda()
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine, PagedKVPool
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pool = PagedKVPool(num_layers=2, num_heads=2, head_dim=4, page_tokens=4,
+                       num_pages=8, device="cuda")
+    assert pool.k.is_cuda and pool.v.is_cuda
+    t = pool.open_sequence(np.arange(2, 8), torch.randn(2, 2, 6, 4),
+                           torch.randn(2, 2, 6, 4))
+    pool.append_column(t, torch.ones(2, 2, 4, device="cuda"),
+                       torch.ones(2, 2, 4, device="cuda"))
+    k, v = pool.gather(t)
+    kb, _ = pool.gather_batch(
+        torch.from_numpy(pool.page_index([t, None], 16)).cuda(), 16)
+    assert k.is_cuda and k.shape == (2, 2, 7, 4)
+    torch.testing.assert_close(kb[:, 0, :, :7], k, rtol=0, atol=0)
+    pool.close_sequence(t)
+    pool.assert_drained()
+
+    with dygraph.guard(CUDAPlace(0)):
+        m = GPTForGeneration(GPTModel(GPTConfig(
+            vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+            max_position=64, dropout=0.0)))
+    plan = dict(num_layers=2, num_heads=4, head_dim=8, page_tokens=4,
+                pages=40, max_slots=3, max_context=64)
+    rng = np.random.RandomState(0)
+    head = rng.randint(2, 64, 8)
+    prompts = [np.concatenate([head, rng.randint(2, 64, n)]) for n in
+               (1, 3, 5, 2)]
+    outs = {}
+    for name, kw in (("paged", dict(kv_pool=plan, prefix_cache="auto")),
+                     ("fixed", dict(max_slots=3))):
+        eng = ContinuousBatchingEngine(m, **kw).start()
+        try:
+            outs[name] = [eng.submit(p, max_length=6).result(timeout=120)
+                          for p in prompts[:2]] + \
+                [f.result(timeout=120) for f in
+                 [eng.submit(p, max_length=6) for p in prompts[2:]]]
+        finally:
+            eng.stop()
+        if name == "paged":
+            assert eng.kv_pool.k.is_cuda and eng.prefix_cache.hits > 0
+            eng.kv_pool.assert_drained()
+    for reply, p in zip(outs["paged"], prompts):
+        with torch.inference_mode():
+            logits = m.gpt(torch.as_tensor(reply[None], device="cuda"))[0]
+        for pos in range(p.size, reply.size):
+            row = logits[pos - 1]
+            assert float(row.max() - row[int(reply[pos])]) <= 1e-4
+    for a, b in zip(outs["paged"], outs["fixed"]):
+        np.testing.assert_array_equal(a, b)

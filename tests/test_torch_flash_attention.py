@@ -129,15 +129,17 @@ def test_plain_lse_and_ragged_tiles():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    """Head dims up to 128 and fp16 reach the kernels (D = 48 is padded,
-    fp16 has wgmma instances); a head dim above 128, a dtype without a
-    kernel, a strided head dim, a CPU tensor handed to the launcher and
-    a device without a kernel still raise."""
+    """Head dims up to 256 and fp16 reach the kernels (D = 48 is padded,
+    fp16 has wgmma instances, D = 160 pads to the D = 256 kernels); a head
+    dim above 256, a dtype without a kernel, a strided head dim, a CPU
+    tensor handed to the launcher and a device without a kernel still
+    raise."""
     for ok in (torch.zeros(1, 1, 8, 48), torch.zeros(1, 1, 8, 96),
-               torch.zeros(1, 1, 8, 64, dtype=torch.float16)):
+               torch.zeros(1, 1, 8, 64, dtype=torch.float16),
+               torch.zeros(1, 1, 8, 160), torch.zeros(1, 1, 8, 256)):
         tattn._check_cuda_args(ok, ok, ok)
-    q = torch.zeros(1, 1, 8, 256)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    q = torch.zeros(1, 1, 8, 264)
+    with pytest.raises(ValueError, match="head dims up to 256"):
         tattn._check_cuda_args(q, q, q)
     f64 = torch.zeros(1, 1, 8, 64, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
@@ -230,3 +232,41 @@ def test_bf16_views_that_tma_refuses():
         assert got is not view and tattn.tma_accepts(got)
         assert got.is_contiguous() and got.dtype == view.dtype
         assert torch.equal(got, view)
+
+
+@pytest.mark.parametrize("d", [160, 200, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_to_256_match_pallas(causal, d):
+    """Head dims 129-256, the route of the D = 256 kernels: q, k, v and dO
+    zero-padded to 256 by kernel_operands (D = 256 itself unpadded), the
+    forward, dQ and dK/dV plain versions at the padded width with the
+    scale of the real d, sliced back.  Held against the Pallas `_flash_fwd`
+    and `_flash_bwd` (interpret mode) at the real d in fp32: FP32_TOL for
+    out, lse, dq, dk and dv."""
+    q, k, v = _inputs(1, 2, 128, 128, d, seed=90 + d + causal)
+    g = np.random.RandomState(d).randn(*q.shape).astype(np.float32)
+    scale = 1.0 / float(np.sqrt(d))
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    ref, ref_lse = jattn._flash_fwd(jq, jk, jv, causal, scale, 64, 64,
+                                    interpret=True)
+    ref_grads = jattn._flash_bwd(jq, jk, jv, ref, ref_lse, jg, causal,
+                                 scale, 64, 64, interpret=True)
+    assert tattn.kernel_head_dim(d) == 256
+    dp, (pq, pk, pv, pg) = tattn.kernel_operands(
+        d, *(torch.from_numpy(x) for x in (q, k, v, g)))
+    assert dp == 256 and all(t.shape[-1] == 256 for t in (pq, pk, pv, pg))
+    out, lse = tattn.flash_attention_plain(pq, pk, pv, causal=causal,
+                                           scale=scale)
+    np.testing.assert_allclose(out[..., :d].numpy(), np.asarray(ref),
+                               **FP32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               **FP32_TOL)
+    dd = (pg * out).sum(-1)
+    dq = tattn.flash_attention_bwd_dq_plain(pq, pk, pv, pg, lse, dd, causal,
+                                            scale)
+    dk, dv = tattn.flash_attention_bwd_dkv_plain(pq, pk, pv, pg, lse, dd,
+                                                 causal, scale)
+    for tag, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref_grads):
+        assert torch.all(got[..., d:] == 0), tag
+        np.testing.assert_allclose(got[..., :d].numpy(), np.asarray(want),
+                                   err_msg=tag, **FP32_TOL)
