@@ -11,10 +11,10 @@ Exits non-zero, printing no result line, when any phase fails or no GPU
 is present.  Phases:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu and
-               fused_xent_fwd.cu (with csrc/hopper.cuh) from this
-               checkout, one nvcc process each, all at once (ptxas
-               register, spill and warning lines);
+  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu,
+               fused_xent_fwd.cu and flash_attn_d256.cu (with csrc/*.cuh)
+               from this checkout, one nvcc process each, all at once
+               (ptxas register, spill and warning lines);
   3. kernel  - the flash-attention forward kernel against its plain
                version (paddle_tpu_torch.ops.attention
                .flash_attention_plain) on the same inputs, at the serving
@@ -27,7 +27,12 @@ is present.  Phases:
                f16 instances), and head dims without a kernel instance,
                zero-padded by the wrapper: D = 96 (hidden 768 over 8
                heads) and D = 48 (over 16 heads) in fp32 and bf16 on the
-               head-split views (bounds count the real D).
+               head-split views (bounds count the real D); head dim 256
+               (hidden 2048 over 8 heads) in all three dtypes (bf16 and
+               fp16: the wgmma forward and dK/dV; fp32 and the 16-bit
+               dQ: csrc/flash_attn_d256.cu), causal both ways and ragged
+               S = 200 in bf16 and fp16; head dim 512 (hidden 2048 over 4
+               heads) in fp32 and bf16 on the split-D route.
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
                and fp16 5e-3 against the plain version, which rounds P
@@ -60,7 +65,9 @@ is present.  Phases:
                timing.  Last, a bf16 view 4 bytes past a 16-byte
                boundary (which TMA refuses) is copied by the wrappers and
                launched: forward, dQ and dK/dV equal to the last bit to
-               the aligned tensors', 5 copies counted;
+               the aligned tensors', 5 copies counted; the same at D = 256
+               with 3 copies (the wgmma forward and dK/dV copy, the dQ of
+               csrc/flash_attn_d256.cu reads through strides);
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -102,11 +109,13 @@ is present.  Phases:
                the same startup weights, through Executor.run_steps: one
                CUDA graph of the step captured, then replayed K times per
                call (K = 6 AMP, 4 fp32); step_ms (wall / K of a call),
-               tokens/s, MFU, device busy per step and idle share over one
+               tokens/s, MFU, device busy per step and idle share over a
                profiled call (the profiler slows the replay's launches, so
                the idle share against the unprofiled step is given too),
-               kernels replayed per step counted from the
-               profiler (24 / 12 / 12 / 2, as in the eager step), one
+               kernels replayed per step counted from the profiler over
+               two calls (24 / 12 / 12 / 2, as in the eager step; the
+               profiler can lose records, so each kernel's largest count
+               is gated), one
                capture then hits, peak memory; the first 2K losses equal
                to 2K eager Executor.run steps from the same weights (to
                the last bit, else within rtol 1e-5 fp32 / 2e-3 AMP, the
@@ -123,9 +132,11 @@ of the training step (launches counted over the training run of phase
 5b), the fp32 forward at the serving shape (launches counted over the
 served burst of phase 4), the fp32 dQ, dK/dV and fused cross-entropy
 (launches counted over the fp32 training run of phase 5c), each with its
-launches per graph-replayed step of phase 6, and the fp16 instances
-(kernel cases only, 0 launches: no configuration runs fp16); the last
-line {"ok": true, "device": {...}}.
+launches per graph-replayed step of phase 6, the fp16 instances
+(kernel cases only, 0 launches: no configuration runs fp16), and the
+kernels for head dims above 128 (the D = 256 and D = 512 cases; their
+launches on every main path, gated at 0 in each: no configuration has a
+head dim above 128); the last line {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -150,6 +161,9 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 6
 FP32_TRAIN_STEPS = 4
 GRAPH_TIMED_CALLS = 3  # run_steps calls timed after the capturing one
+# run_steps calls profiled after the timed ones: the profiler can lose
+# device records (phase 6 takes each kernel's largest count over them)
+GRAPH_PROFILED_CALLS = 2
 # kernel-case tolerances against the plain versions: fp32 summation order
 # (3xTF32 keeps an fp32-level error); bf16 and fp16 a few ulps of the
 # rounded outputs (2^-8 and 2^-11 relative)
@@ -195,12 +209,29 @@ KERNELS = {
     "fused_xent_fwd_fp16": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
                             "paddle_tpu/ops/fused_xent.py:42"),
 }
-# the head dim 129-256 kernels (csrc/flash_attn_d256.cu), by dtype
-for _dt in ("fp32", "bf16", "fp16"):
-    for _name, _line in (("fwd", 125), ("bwd_dq", 240), ("bwd_dkv", 281)):
-        KERNELS[f"flash_attn_d256_{_name}_{_dt}"] = (
-            "paddle_tpu_torch/csrc/flash_attn_d256.cu",
-            f"paddle_tpu/ops/attention.py:{_line}")
+# the kernels for head dims above 128, by route, kernel and dtype: the
+# 16-bit wgmma forward and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
+# flash_attn_bwd.cu), the kernels of csrc/flash_attn_d256.cu at D = 256
+# (fp32, and the 16-bit dQ) and at D = 256 n, n >= 2 (split-D; the case is
+# D = 512), each with the kernel case whose times it reports
+_TPU_LINE = {"fwd": 125, "bwd_dq": 240, "bwd_dkv": 281}
+WIDE_KERNELS = []  # (summary name, route, kernel, kernel case)
+for _route, _kinds, _dts, _src, _case in (
+        ("wgmma256", ("fwd", "bwd_dkv"), ("bf16", "fp16"), None, "d256"),
+        ("d256", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
+         "d256"),
+        ("d256", ("bwd_dq",), ("bf16", "fp16"), "flash_attn_d256", "d256"),
+        ("split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32", "bf16"),
+         "flash_attn_d256", "d512")):
+    for _kind in _kinds:
+        for _dt in _dts:
+            _name = f"flash_attn_{_route}_{_kind}_{_dt}"
+            _file = _src or ("flash_attn_fwd" if _kind == "fwd" else
+                             "flash_attn_bwd")
+            KERNELS[_name] = (f"paddle_tpu_torch/csrc/{_file}.cu",
+                              f"paddle_tpu/ops/attention.py:"
+                              f"{_TPU_LINE[_kind]}")
+            WIDE_KERNELS.append((_name, _route, _kind, f"{_case}_{_dt}"))
 
 
 def log(obj):
@@ -354,11 +385,24 @@ def attention_cases(torch):
         ("pad_d96_bf16", 8, 8, 512, 512, 96, torch.bfloat16, False, True),
         ("pad_d48_fp32", 8, 16, 512, 512, 48, torch.float32, False, True),
         ("pad_d48_bf16", 8, 16, 512, 512, 48, torch.bfloat16, False, True),
-        # head dim 256 (hidden 2048 over 8 heads), the kernels of
-        # csrc/flash_attn_d256.cu
+        # head dim 256 (hidden 2048 over 8 heads): the 16-bit wgmma
+        # forward and dK/dV, the kernels of csrc/flash_attn_d256.cu in fp32
+        # and for the 16-bit dQ; causal both ways and ragged in 16 bits
         ("d256_fp32", 8, 8, 512, 512, 256, torch.float32, False, True),
         ("d256_bf16", 8, 8, 512, 512, 256, torch.bfloat16, False, True),
         ("d256_fp16", 8, 8, 512, 512, 256, torch.float16, False, True),
+        ("d256_causal_sq_lt_sk_bf16", 2, 8, 384, 512, 256, torch.bfloat16,
+         True, False),
+        ("d256_causal_sq_gt_sk_fp16", 2, 8, 512, 384, 256, torch.float16,
+         True, False),
+        ("d256_ragged_s200_bf16", 2, 8, 200, 200, 256, torch.bfloat16,
+         False, False),
+        ("d256_ragged_s200_causal_fp16", 2, 8, 200, 200, 256,
+         torch.float16, True, False),
+        # head dim 512 (hidden 2048 over 4 heads): the split-D kernels of
+        # csrc/flash_attn_d256.cu, two 256-column chunks
+        ("d512_fp32", 8, 4, 512, 512, 512, torch.float32, False, True),
+        ("d512_bf16", 8, 4, 512, 512, 512, torch.bfloat16, False, True),
     ]
 
 
@@ -545,12 +589,13 @@ def xent_kernel_phase(torch, fx):
 
 def view_copy_phase(torch, attn):
     """A bf16 view that TMA refuses (4 bytes past a 16-byte boundary) is
-    copied to a contiguous tensor and then launched: the forward, dQ and
-    dK/dV on the shifted q and dO give the bits of the aligned tensors,
-    and flash_attention.view_copies counts the copies."""
+    copied to a contiguous tensor where a kernel reads it through TMA and
+    then launched: the forward, dQ and dK/dV on the shifted q and dO give
+    the bits of the aligned tensors, and flash_attention.view_copies
+    counts the copies.  D = 64: 5 copies (q in each of the three launches,
+    dO in two); D = 256: 3 (the wgmma forward and dK/dV copy, the dQ of
+    csrc/flash_attn_d256.cu reads through strides)."""
     gen = torch.Generator(device="cuda").manual_seed(77)
-    q, k, v, do = (attention_inputs(torch, gen, 2, 12, 512, 64,
-                                    torch.bfloat16, False) for _ in range(4))
 
     def shifted(t):  # t's values in a view 2 elements past 16 bytes
         flat = torch.empty(t.numel() + 2, dtype=t.dtype, device="cuda")
@@ -558,28 +603,34 @@ def view_copy_phase(torch, attn):
         view.copy_(t)
         return view
 
-    sq, sdo = shifted(q), shifted(do)
-    if sq.data_ptr() % 16 != 4 or attn.tma_accepts(sq):
-        raise AssertionError("the shifted view is not one TMA refuses")
-    out, lse = attn.flash_attention_cuda(q, k, v)
-    dd = (do.float() * out.float()).sum(-1)
-    want = (out, attn.flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd),
-            *attn.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd))
-    attn.flash_attention.view_copies = 0
-    got = (attn.flash_attention_cuda(sq, k, v)[0],
-           attn.flash_attention_bwd_dq_cuda(sq, k, v, sdo, lse, dd),
-           *attn.flash_attention_bwd_dkv_cuda(sq, k, v, sdo, lse, dd))
-    torch.cuda.synchronize()
-    copies = attn.flash_attention.view_copies
-    if copies != 5:
-        raise AssertionError(f"{copies} view copies, expected 5 (q in each "
-                             "of the three launches, dO in two)")
-    for tag, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{tag} of the copied view differs")
-    log({"phase": "kernel_view_copy", "shape": [2, 12, 512, 64],
-         "dtype": "bfloat16", "offset_bytes": sq.data_ptr() % 16,
-         "view_copies": copies, "bitwise_equal_to_aligned": True})
+    for (b, h, s, d), want_copies in (((2, 12, 512, 64), 5),
+                                      ((2, 8, 512, 256), 3)):
+        q, k, v, do = (attention_inputs(torch, gen, b, h, s, d,
+                                        torch.bfloat16, False)
+                       for _ in range(4))
+        sq, sdo = shifted(q), shifted(do)
+        if sq.data_ptr() % 16 != 4 or attn.tma_accepts(sq):
+            raise AssertionError("the shifted view is not one TMA refuses")
+        out, lse = attn.flash_attention_cuda(q, k, v)
+        dd = (do.float() * out.float()).sum(-1)
+        want = (out, attn.flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd),
+                *attn.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd))
+        attn.flash_attention.view_copies = 0
+        got = (attn.flash_attention_cuda(sq, k, v)[0],
+               attn.flash_attention_bwd_dq_cuda(sq, k, v, sdo, lse, dd),
+               *attn.flash_attention_bwd_dkv_cuda(sq, k, v, sdo, lse, dd))
+        torch.cuda.synchronize()
+        copies = attn.flash_attention.view_copies
+        if copies != want_copies:
+            raise AssertionError(f"D = {d}: {copies} view copies, expected "
+                                 f"{want_copies}")
+        for tag, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"D = {d}: {tag} of the copied view "
+                                     "differs")
+        log({"phase": "kernel_view_copy", "shape": [b, h, s, d],
+             "dtype": "bfloat16", "offset_bytes": sq.data_ptr() % 16,
+             "view_copies": copies, "bitwise_equal_to_aligned": True})
 
 
 def post(url, payload):
@@ -698,7 +749,7 @@ def slice_phase(torch, seed, tmp, profile=False):
         # ---- the main path: counts from 0 just before, read just after
         runs0 = metrics.counter("batch.runs")
         attn.flash_attention.launches = 0
-        zero_d256(attn)
+        zero_wide(attn)
         t_burst = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(len(spans))]
@@ -708,7 +759,7 @@ def slice_phase(torch, seed, tmp, profile=False):
             t.join(timeout=600)
         burst_s = time.perf_counter() - t_burst
         launches = attn.flash_attention.launches
-        record_d256("serve", read_d256(attn))
+        record_wide("serve", read_wide(attn))
         batches = metrics.counter("batch.runs") - runs0
         # ---- end of the main path
         if any(t.is_alive() for t in threads) or any(r is None
@@ -926,7 +977,7 @@ def generate_phase(torch, seed, model_dir, profile=False):
         # ---- the main path: counts from 0 just before, read just after
         for f in counters:
             f.launches = 0
-        zero_d256(attn)
+        zero_wide(attn)
         t_burst = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(GEN_POSTS)]
@@ -937,7 +988,7 @@ def generate_phase(torch, seed, model_dir, profile=False):
         burst_s = time.perf_counter() - t_burst
         launches = {"flash_attn_fwd": attn.flash_attention.launches,
                     "fused_xent_fwd": fx.fused_xent_cuda.launches}
-        record_d256("generate", read_d256(attn))
+        record_wide("generate", read_wide(attn))
         # ---- end of the main path
         if any(t.is_alive() for t in threads) or None in replies:
             raise AssertionError("a /generate request did not complete")
@@ -1024,7 +1075,7 @@ def generate_phase(torch, seed, model_dir, profile=False):
          "shared_prompt_pages": shared, "kv_buckets": eng.kv_buckets,
          "greedy_max_gap_to_teacher_forced_top_logit": worst,
          "tol": GEN_TOL, "kernel_launches_in_burst": launches,
-         "d256_launches_in_burst": D256_LAUNCHES["generate"],
+         "wide_head_dim_launches_in_burst": WIDE_LAUNCHES["generate"],
          "tokens_equal_to_fixed_slot_share": same / max(1, total),
          "kv_device": str(pool.k.device),
          "pool_after": stats["kv_pool"], "warmup_ok": bool(warm)})
@@ -1164,7 +1215,7 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
             # ---- the main path: counts from 0 just before, read just after
             for c in counters:
                 c.launches = 0
-            zero_d256(attn)
+            zero_wide(attn)
             attn.flash_attention.view_copies = 0
             for _ in range(steps):
                 t0 = time.perf_counter()
@@ -1176,8 +1227,8 @@ def train_config(torch, static, fx, seed, feed, use_amp, steps, profile):
                                  "flash_attn_bwd_dkv", "fused_xent_fwd"),
                                 (c.launches for c in counters)))
             view_copies = attn.flash_attention.view_copies
-            record_d256("train_amp" if use_amp else "train_fp32",
-                        read_d256(attn))
+            record_wide("train_amp" if use_amp else "train_fp32",
+                        read_wide(attn))
             # ---- end of the main path
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             if profile:
@@ -1278,39 +1329,51 @@ def train_profile(torch, exe, main, feed, loss, config):
              ([t, n, ms] for t, (n, ms) in by_type.items()),
              key=lambda r: -r[2])[:12]})
 
-# launches of the D = 256 kernels (csrc/flash_attn_d256.cu) on each main
-# path, from the wrappers' `launches_d256`: set to 0 just before the path
-# and read just after; the graph-replayed steps add the profiler's count
-D256_LAUNCHES = {}
-# kernel -> the substring of its device name, for the profiler
-D256_DEVICE_NAMES = {"fwd": "flash_fwd_d256", "bwd_dq": "flash_bwd_dq_d256",
-                     "bwd_dkv": "flash_bwd_dkv_d256"}
+# launches of the kernels for head dims above 128 on each main path, by
+# "route/kernel" (routes wgmma256, d256, split_d of ops.attention), from
+# the wrappers' launch counts of those routes: set to 0 just before the
+# path and read just after; the graph-replayed steps add the profiler's
+# count
+WIDE_ROUTES = ("wgmma256", "d256", "split_d")
+WIDE_LAUNCHES = {}
+# "route/kernel" -> the substring of its device name, for the profiler
+# (csrc/flash_attn_d256.cu runs D = 256 and split-D as one kernel each, so
+# the profiler counts both under d256)
+WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
+                     "wgmma256/bwd_dkv": "flash_bwd_dkv_wgmma_kernel<256",
+                     "d256/fwd": "flash_fwd_d256",
+                     "d256/bwd_dq": "flash_bwd_dq_d256",
+                     "d256/bwd_dkv": "flash_bwd_dkv_d256"}
 
 
-def d256_wrappers(attn):
+def wide_wrappers(attn):
     return {"fwd": attn.flash_attention,
             "bwd_dq": attn.flash_attention_bwd_dq_cuda,
             "bwd_dkv": attn.flash_attention_bwd_dkv_cuda}
 
 
-def zero_d256(attn):
-    for f in d256_wrappers(attn).values():
-        f.launches_d256 = 0
+def zero_wide(attn):
+    for f in wide_wrappers(attn).values():
+        for route in WIDE_ROUTES:
+            setattr(f, attn.LAUNCH_COUNTS[route], 0)
 
 
-def read_d256(attn):
-    """{kernel: D = 256 launches since zero_d256}."""
-    return {k: f.launches_d256 for k, f in d256_wrappers(attn).items()}
+def read_wide(attn):
+    """{"route/kernel": launches since zero_wide}."""
+    return {f"{route}/{kind}": getattr(f, attn.LAUNCH_COUNTS[route])
+            for kind, f in wide_wrappers(attn).items()
+            for route in WIDE_ROUTES}
 
 
-def record_d256(path, got):
-    """Record the D = 256 launches `got` of `path` and fail if there is
-    any: every configuration here has head dim 64, so a D = 256 launch on
-    a main path is a misrouted call."""
-    D256_LAUNCHES[path] = got
+def record_wide(path, got):
+    """Record the head-dim-above-128 launches `got` of `path` and fail if
+    there is any: every configuration here has head dim 64, so such a
+    launch on a main path is a misrouted call."""
+    WIDE_LAUNCHES[path] = got
     if any(got.values()):
-        raise AssertionError(f"{path}: D = 256 kernel launches {got} on a "
-                             "head-dim-64 configuration")
+        raise AssertionError(f"{path}: launches of the kernels for head "
+                             f"dims above 128 {got} on a head-dim-64 "
+                             "configuration")
 
 
 def count_kernels(prof, names):
@@ -1344,10 +1407,12 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
     startup weights of --seed (those of the eager phase):
       * call 1 warms up, captures and replays K steps; calls 2 to
         1 + GRAPH_TIMED_CALLS are timed (host clock around run_steps plus
-        synchronize, per step = wall / K); one more call runs under
-        torch.profiler for the device busy time, the idle share and the
-        kernels replayed per step (24 flash forward, 12 dQ, 12 dK/dV,
-        2 fused cross-entropy, as in the eager step);
+        synchronize, per step = wall / K); GRAPH_PROFILED_CALLS more calls
+        run under torch.profiler for the device busy time, the idle share
+        and the kernels replayed per step (24 flash forward, 12 dQ, 12
+        dK/dV, 2 fused cross-entropy, as in the eager step; each kernel's
+        largest count over the profiled calls, since the profiler can
+        lose records);
       * the 2K losses of calls 1 and 2 against 2K eager Executor.run
         steps from the same weights: equal to the last bit (the same
         kernels on the same inputs), else within rtol 1e-5 (fp32) or
@@ -1389,7 +1454,7 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
             # a replay: the profiler below counts the replays)
             for c in counters:
                 c.launches = 0
-            zero_d256(attn)
+            zero_wide(attn)
             attn.flash_attention.view_copies = 0
             t0 = time.perf_counter()
             (lv,) = graph_exe.run_steps(main, feed=stacked,
@@ -1407,16 +1472,19 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
             capture_launches = dict(zip(names,
                                         (c.launches for c in counters)))
             view_copies = attn.flash_attention.view_copies
-            capture_d256 = read_d256(attn)
+            capture_wide = read_wide(attn)
             # ---- end of this path
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                graph_exe.run_steps(main, feed=stacked, fetch_list=[loss])
+            profiled = []  # (profile, wall ms) of each profiled call
+            for _ in range(GRAPH_PROFILED_CALLS):
                 torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    graph_exe.run_steps(main, feed=stacked,
+                                        fetch_list=[loss])
+                    torch.cuda.synchronize()
+                profiled.append((prof, (time.perf_counter() - t0) * 1e3))
         stats = graph_exe.cache_stats()
         graph_exe.close()
         del scope
@@ -1444,20 +1512,35 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
                              f"{losses}")
     if view_copies:
         raise AssertionError(f"graph {tag}: {view_copies} view copies")
-    calls = 2 + GRAPH_TIMED_CALLS
+    calls = 1 + GRAPH_TIMED_CALLS + GRAPH_PROFILED_CALLS
     if stats != {"hits": calls - 1, "misses": 1, "traces": 1}:
         raise AssertionError(f"graph {tag}: cache_stats {stats}, expected "
                              f"1 capture and {calls - 1} hits")
-    replayed, dev = count_kernels(prof, dict(zip(names, (
-        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_xent"))))
-    # the capturing call's Python counts and the profiled call's replays
-    replayed_d256 = count_kernels(prof, D256_DEVICE_NAMES)[0]
-    record_d256("train_graph_amp" if use_amp else "train_graph_fp32",
-                {k: n + replayed_d256[k] for k, n in capture_d256.items()})
+    # The profiler can lose device records: calls that replay one captured
+    # graph record kernel counts that differ from call to call on the card
+    # (kernels_recorded_per_profiled_call), and once a flash forward went
+    # missing.  A lost record can only lower a count, so each kernel's
+    # count is the largest any profiled call saw (still gated exactly
+    # below); busy time, idle share and the top kernels come from the call
+    # that recorded the most.
+    subs = dict(zip(names, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                            "fused_xent")))
+    per_call = [(count_kernels(p, subs),
+                 count_kernels(p, WIDE_DEVICE_NAMES)[0], ms)
+                for p, ms in profiled]
+    recorded = [sum(e.count for e in dev) for (_, dev), _, _ in per_call]
+    replayed = {n: max(c[0][0][n] for c in per_call) for n in names}
+    (_, dev), _, prof_wall_ms = per_call[recorded.index(max(recorded))]
+    # the capturing call's Python counts and the profiled calls' replays
+    replayed_wide = {key: max(c[1][key] for c in per_call)
+                     for key in WIDE_DEVICE_NAMES}
+    record_wide("train_graph_amp" if use_amp else "train_graph_fp32",
+                {key: n + replayed_wide.get(key, 0)
+                 for key, n in capture_wide.items()})
     per_step = {name: c / k for name, c in replayed.items()}
     for name, per in want.items():
         # the capturing call ran the step twice outside the replays (the
-        # warm-up and the capture); the profiled call replays K steps
+        # warm-up and the capture); a profiled call replays K steps
         if per_step[name] != per or capture_launches[name] != 2 * per:
             raise AssertionError(
                 f"graph {tag} {name}: {per_step[name]} launches per "
@@ -1480,6 +1563,7 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
          "device_busy_ms_per_step": busy_ms / k,
          "device_idle_share": max(0.0, 1.0 - busy_ms / prof_wall_ms),
          "profiled_call_wall_ms": prof_wall_ms,
+         "kernels_recorded_per_profiled_call": recorded,
          "device_idle_share_of_timed_step":
              max(0.0, 1.0 - busy_ms / k / steady),
          "launches_per_replayed_step": per_step,
@@ -1550,7 +1634,9 @@ def main():
             ("flash_bwd_dkv_bf16", bwd["slice_bf16"]["dkv"]),
             ("flash_fwd_fp32", fwd["slice_fp32"]),
             ("flash_bwd_dq_fp32", bwd["slice_fp32"]["dq"]),
-            ("flash_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"]))}})
+            ("flash_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"]),
+            ("flash_fwd_wgmma256_bf16", fwd["d256_bf16"]),
+            ("flash_bwd_dkv_wgmma256_bf16", bwd["d256_bf16"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)
@@ -1616,24 +1702,23 @@ def main():
             ("flash_attn_bwd_dkv_fp16", bwd["slice_fp16"]["dkv"], 0,
              no_path),
             ("fused_xent_fwd_fp16", xent["train_fp16"], 0, no_path)]
-    # the D = 256 kernels: launches measured on every main path (the
-    # wrappers count per kernel, over all dtypes; 0, gated in each path,
-    # since no configuration has a head dim above 128), times from the
-    # kernel cases
+    # the kernels for head dims above 128: launches measured on every
+    # main path (the wrappers count per route and kernel, over all dtypes;
+    # 0, gated in each path, since no configuration has a head dim above
+    # 128), times from the kernel cases
     paths = ("serve", "train_amp", "train_fp32", "train_graph_amp",
              "train_graph_fp32", "generate")
-    if set(D256_LAUNCHES) != set(paths):
-        raise AssertionError(f"D = 256 launches read on "
-                             f"{sorted(D256_LAUNCHES)}, expected "
+    if set(WIDE_LAUNCHES) != set(paths):
+        raise AssertionError(f"head-dim-above-128 launches read on "
+                             f"{sorted(WIDE_LAUNCHES)}, expected "
                              f"{sorted(paths)}")
-    for dt in ("fp32", "bf16", "fp16"):
-        case = f"d256_{dt}"
-        for kind, r in (("fwd", fwd[case]), ("bwd_dq", bwd[case]["dq"]),
-                        ("bwd_dkv", bwd[case]["dkv"])):
-            by_path = {p: D256_LAUNCHES[p][kind] for p in paths}
-            rows.append((f"flash_attn_d256_{kind}_{dt}", r,
-                         sum(by_path.values()),
-                         {"launches_by_path_all_dtypes": by_path}))
+    for name, route, kind, case in WIDE_KERNELS:
+        r = fwd[case] if kind == "fwd" else \
+            bwd[case]["dq" if kind == "bwd_dq" else "dkv"]
+        by_path = {p: WIDE_LAUNCHES[p][f"{route}/{kind}"] for p in paths}
+        rows.append((name, r, sum(by_path.values()),
+                     {"launches_by_path_all_dtypes": by_path,
+                      "case": case}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

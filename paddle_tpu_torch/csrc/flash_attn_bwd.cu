@@ -91,6 +91,29 @@
 //     that sees the CTA's first key.  Keys past Sk are computed on
 //     zero-filled k and v and not stored (a key row of dK/dV depends only
 //     on its own row of P^T and dS^T).
+//   D = 256 (and 129-255, zero-padded by the wrapper; the 16-bit dQ at
+//   D = 256 stays on flash_attn_d256.cu).  The layout above does not fit:
+//   one warpgroup holding dK and dV for 64 keys x 256 columns in fp32
+//   would need 2 x 128 = 256 registers a thread, over the 255 cap, and
+//   K and V resident for 128 keys plus two q/dO stages would need 256 KB
+//   of shared memory.  So a CTA owns 64 keys, shared by both consumer
+//   warpgroups, which split dK and dV by head-dim columns: warpgroup w
+//   owns columns 128 w .. 128 w + 127 of both (boxes 2w, 2w + 1), 64 + 64
+//   accumulator registers, the register budget of the D = 128 instance.
+//   Shared memory: K and V resident (2 x 32,768 B), q and dO in 64-row
+//   tiles through the 2-stage TMA ring (4 x 32,768 B), the stages' lse
+//   and D rows: 198,696 B with the barriers and slack (static_assert
+//   against 232,448).  The score products S^T = k q^T and dP^T = v dO^T
+//   reduce over all 256 columns; each warpgroup computes both in full
+//   (choice (a): 1.5x the tensor-core work of the whole kernel; choice
+//   (b), one warpgroup S^T and the other dP^T, would add a 32 KB fp32
+//   exchange buffer, leaving under 1 KB of the 227 KB, and a named
+//   barrier a tile), then dS^T and its own halves of dV += P^T dO and
+//   dK += dS^T q, q and dO read MN-major from the stage.  Causal tile
+//   skipping, fully-masked rows (lse +inf in log2 units, so P = 0) and
+//   the absence of atomics are as above.  Bound at [8, 8, 512, 256]: 4
+//   products of 2 S^2 D per head, 34.4 GFLOP, 34.7 us on the tensor
+//   cores (operations); the grid is 8 x 8 x 8 = 512 CTAs.
 //
 // fp32 (the fp32 training step): 3xTF32 on the tensor cores,
 //   `flash_bwd_dq_tf32_kernel` and `flash_bwd_dkv_tf32_kernel`.  Bound at
@@ -665,7 +688,6 @@ namespace wg {
 
 using hopper::Wgmma;
 
-constexpr int BKV = 128;        // dK/dV: keys per CTA (two consumers)
 constexpr int BQ = 64;          // dK/dV: query rows per streamed tile
 constexpr int DQ_BQ = 128;      // dQ: query rows per CTA (two consumers)
 constexpr int DQ_BK = 64;       // dQ: keys per streamed K/V tile
@@ -674,14 +696,23 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared memory: K and V (resident), two stages of q and of dO, each as
-// D / COLS boxes of [rows][COLS] 16-bit elements; two stages of the q
-// tile's lse
-// (log2 units) and D rows; then the mbarriers
+// dK/dV shared memory: K and V (resident), two stages of q and of dO, each
+// as D / COLS boxes of [rows][COLS] 16-bit elements; two stages of the q
+// tile's lse (log2 units) and D rows; then the mbarriers.
+// Up to D = 128 a CTA owns 128 keys, 64 per consumer warpgroup, each with
+// all D columns of dK and dV.  At D = 256 that would be 256 accumulator
+// registers a thread (and 256 KB of shared memory): there a CTA owns 64
+// keys, and the two warpgroups split dK and dV by head-dim columns
+// (warpgroup w owns boxes OWN w .. OWN w + OWN - 1), both computing the
+// score products over all of D.
 template <int D>
 struct Layout {
+  static constexpr bool SPLIT = D > 128;  // the warpgroups split columns
+  static constexpr int BKV = SPLIT ? 64 : 128;  // keys per CTA
   static constexpr int COLS = hopper::box_cols(D);
   static constexpr int NBOX = D / COLS;
+  // the boxes of dK and dV that one consumer accumulates
+  static constexpr int OWN = SPLIT ? NBOX / 2 : NBOX;
   static constexpr int SWIZZLE =
       COLS == 64 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
   static constexpr uint32_t ROW = COLS * 2;        // bytes of a box row
@@ -697,6 +728,8 @@ struct Layout {
   static constexpr uint32_t ROWS_OFF = DO_OFF + 2 * Q_BYTES;
   static constexpr uint32_t BAR_OFF = ROWS_OFF + 2 * 2 * BQ * 4;
   static constexpr size_t SMEM = BAR_OFF + 5 * 8 + 1024;  // + align slack
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "dK/dV tiles exceed the shared-memory opt-in");
 };
 
 template <int D, typename T>
@@ -711,6 +744,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            int Sq,
                            int Sk, int causal, float scale) {
   using L = Layout<D>;
+  constexpr int BKV = L::BKV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   float* rows_all = reinterpret_cast<float*>(smem + L::ROWS_OFF);
@@ -786,20 +820,24 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 as rows
+    // (D = 256: both own keys k0 .. k0 + 63, and boxes b0 .. b0 + OWN - 1
+    // of dK and dV)
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
     constexpr int SN = BQ / 2;        // S^T / dP^T fragment: 32 fp32
     constexpr int ON = L::COLS / 2;   // dK / dV fragment per box
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
-    const int kw0 = k0 + 64 * wg;                      // first key
+    const int wrow = L::SPLIT ? 0 : 64 * wg;  // the keys' row in the CTA
+    const int b0 = L::SPLIT ? L::OWN * wg : 0;  // the first own box
+    const int kw0 = k0 + wrow;                         // first key
     const int key = kw0 + 16 * (tid / 32) + lane / 4;  // keys key, key + 8
-    const uint8_t* sk = smem + L::K_OFF + 64 * wg * L::ROW;
-    const uint8_t* sv = smem + L::V_OFF + 64 * wg * L::ROW;
+    const uint8_t* sk = smem + L::K_OFF + wrow * L::ROW;
+    const uint8_t* sv = smem + L::V_OFF + wrow * L::ROW;
     const float scale_log2 = scale * kLog2e;
 
-    float dk_acc[L::NBOX][ON], dv_acc[L::NBOX][ON];
+    float dk_acc[L::OWN][ON], dv_acc[L::OWN][ON];
 #pragma unroll
-    for (int b = 0; b < L::NBOX; ++b)
+    for (int b = 0; b < L::OWN; ++b)
 #pragma unroll
       for (int i = 0; i < ON; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
     float st[SN], dpt[SN];
@@ -873,10 +911,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                         p1 * (dpt[i + 1] - dr.y));
         }
 
-      // dV += P^T dO and dK += dS^T q: A from registers, B = the same
-      // dO / q tile MN-major, one 16-row slice and one box per instruction
+      // dV += P^T dO and dK += dS^T q over the own boxes: A from
+      // registers, B = the same dO / q tile MN-major, one 16-row slice and
+      // one box per instruction
 #pragma unroll
-      for (int b = 0; b < L::NBOX; ++b) {
+      for (int b = 0; b < L::OWN; ++b) {
         hopper::fence_regs(dv_acc[b]);
         hopper::fence_regs(dk_acc[b]);
       }
@@ -884,8 +923,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-        for (int b = 0; b < L::NBOX; ++b) {
-          const uint32_t off = b * L::Q_BOX + kk * 16 * L::ROW;
+        for (int b = 0; b < L::OWN; ++b) {
+          const uint32_t off = (b0 + b) * L::Q_BOX + kk * 16 * L::ROW;
           Wgmma<L::COLS, 1, T>::rs(
               dv_acc[b], pa[kk],
               hopper::make_desc(sdo + off, L::Q_BOX, L::SBO, L::SWIZZLE), 1);
@@ -896,7 +935,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int b = 0; b < L::NBOX; ++b) {
+      for (int b = 0; b < L::OWN; ++b) {
         hopper::fence_regs(dv_acc[b]);
         hopper::fence_regs(dk_acc[b]);
       }
@@ -911,11 +950,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (kpos >= Sk) continue;
       const int64_t off = (krow_base + kpos) * D + 2 * (lane % 4);
 #pragma unroll
-      for (int b = 0; b < L::NBOX; ++b)
+      for (int b = 0; b < L::OWN; ++b)
 #pragma unroll
         for (int j = 0; j < L::COLS / 8; ++j) {
           const int i = 4 * j + 2 * h;
-          const int64_t at = off + b * L::COLS + 8 * j;
+          const int64_t at = off + (b0 + b) * L::COLS + 8 * j;
           *reinterpret_cast<uint32_t*>(dk + at) = hopper::pack2<T>(
               dk_acc[b][i] * scale, dk_acc[b][i + 1] * scale);
           *reinterpret_cast<uint32_t*>(dv + at) =
@@ -936,10 +975,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                                            st.q_sh, st.q_ss, BQ);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
-                                 st.k_ss, BKV);
+                                 st.k_ss, Layout<D>::BKV);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
-                                 st.v_ss, BKV);
+                                 st.v_ss, Layout<D>::BKV);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
                                  st.o_ss, BQ);
@@ -948,6 +987,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   err = opt_in_smem(flash_bwd_dkv_wgmma_kernel<D, T>, Layout<D>::SMEM,
                     smem_set);
   if (err != cudaSuccess) return err;
+  constexpr int BKV = Layout<D>::BKV;
   dim3 grid((Sk + BKV - 1) / BKV, H, B);
   flash_bwd_dkv_wgmma_kernel<D, T>
       <<<grid, THREADS, Layout<D>::SMEM, stream>>>(
@@ -972,6 +1012,9 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
                                st, causal, scale, s);
     case 128:
       return launch_dkv<128, T>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                                st, causal, scale, s);
+    case 256:
+      return launch_dkv<256, T>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
                                 st, causal, scale, s);
     default:
       return cudaErrorInvalidValue;

@@ -1,14 +1,19 @@
-// Flash attention at head dim 256 for NVIDIA Hopper (sm_90a), written by
-// hand: the forward and the two backward kernels (dQ, dK/dV) for fp32,
-// bf16 and fp16 inputs.
+// Flash attention at head dims 256 n (n >= 1) for NVIDIA Hopper (sm_90a),
+// written by hand: the forward and the two backward kernels (dQ, dK/dV) for
+// fp32, bf16 and fp16 inputs, on fp32 FMAs from shared memory.
 //
-// Replaces, for head dims 129-256, the same three Pallas TPU kernels that
+// Replaces, for wide head dims, the same three Pallas TPU kernels that
 // flash_attn_fwd.cu and flash_attn_bwd.cu replace up to 128:
 // paddle_tpu/ops/attention.py::_flash_fwd_kernel, ::_flash_bwd_dq_kernel
 // and ::_flash_bwd_dkv_kernel (the reference takes any head dim).  The
-// wrapper (paddle_tpu_torch/ops/attention.py) zero-pads head dims 129-255
-// up to 256 along D, which leaves q k^T, lse and rowsum(dO * O) unchanged,
-// and selects these kernels by the head dim alone.
+// wrapper (paddle_tpu_torch/ops/attention.py) zero-pads a head dim up to
+// 256 (129-255) or to the next multiple of 256 (above 256), which leaves
+// q k^T, lse and rowsum(dO * O) unchanged.  What runs here:
+//   * D = 256: every fp32 kernel, and the 16-bit dQ (the 16-bit forward
+//     and dK/dV run the wgmma kernels of flash_attn_fwd.cu and
+//     flash_attn_bwd.cu at D = 256);
+//   * D = 256 n, n >= 2 (the split-D route): all three kernels in every
+//     dtype.
 //
 // The functions, held equal to the TPU kernels and to the D <= 128
 // kernels:
@@ -27,15 +32,13 @@
 //     backward (dq = 0, nothing added to dk and dv).
 //
 // Design: the SIMT design of the port's first kernels, with the tile sizes
-// cut to the head dim.  The wgmma and 3xTF32 instances at D = 128 already
-// hold 171-233 registers a thread; a D = 256 instance of them is a design
-// of its own, left for a later change.  Here:
+// cut to a 256-column chunk of the head dim.  Here:
 //   * 128 threads a block; thread t owns ROWS rows of the block's own tile
 //     (row group t/8) and, of every tile streamed past it, the rows
 //     t%8 + 8j; the 8 threads of a row group are adjacent lanes and combine
 //     row max and row sum with xor-shuffles.  For the second product the
-//     same thread owns the output columns t%8 + 8j (32 of them at D = 256).
-//   * Tiles are staged in shared memory as fp32 with rows padded to D + 1
+//     same thread owns the output columns t%8 + 8j (32 of them).
+//   * Tiles are staged in shared memory as fp32 with rows padded to 257
 //     floats (the lanes of a warp hit distinct banks); products are fp32
 //     FMAs from shared memory, for every input dtype.
 //   * Shared memory (dynamic, opted in once per device and instance):
@@ -45,6 +48,22 @@
 //     under the 232,448 B a block may opt in to.  dK/dV keeps 32 own rows
 //     (2 a thread) because each thread accumulates both dK and dV: 2 x 2 x
 //     32 fp32 registers; 64 rows would hold 256 and spill.
+//   * Split D (n >= 2): a grid dimension over the output's 256-column
+//     chunks (O in the forward, dQ, dK and dV), folded into blockIdx.x.
+//     The reductions over D (S = q k^T, and dP = dO v^T in the backward)
+//     stream q and k (dO and v) through the same shared-memory tiles, one
+//     256-column chunk at a time, into the same fp32 registers; then the
+//     block stages its own chunk of v (k; q and dO) for the second
+//     product.  Shared memory does not grow with D.  The price: each of
+//     the n blocks of a tile recomputes the scores over all of D, so the
+//     score work is n times its share (forward and dK/dV 1.5x, dQ 1.67x
+//     the FMA work of a D = 256 block at n = 2), and the tiles that stay
+//     resident at n = 1 (q in the forward; q, dO in dQ; k, v in dK/dV)
+//     are reloaded per streamed tile.  Only chunk 0 writes lse.  Each
+//     kernel has an instance per case (template flag SPLIT): at n = 1 the
+//     chunk loop is compiled away and the kernel is the D = 256 kernel it
+//     was (with the loop left to run time, the 16-bit dQ ran 16% slower
+//     on an H100).
 //   * Any Sq and Sk (ragged tiles masked; rows past the end load as zero
 //     with lse = -inf and are never stored); q, k, v and dO are read
 //     through batch/head/sequence strides with a contiguous head dim; out,
@@ -154,12 +173,13 @@ static_assert(dkv_smem_bytes<HEAD_DIM, DKV_BK, DKV_BQ>() <= kMaxSmem,
 // ---------------------------------------------------------------------------
 // forward: one block per (q tile, head, batch), a loop over key tiles
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK>
+template <typename T, int D, int BQ, int BK, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int H, int Sq, int Sk,
-                      Strides st, int causal, float scale) {
+                      int n_chunks, Strides st, int causal, float scale) {
+  const int nchunk = SPLIT ? n_chunks : 1;
   constexpr int DP = D + 1;
   constexpr int PP = BK + 2;
   constexpr int ROWS = BQ / ROW_GROUPS;  // query rows per thread
@@ -174,12 +194,14 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid / GROUP;
   const int cg = tid % GROUP;
-  const int q0 = blockIdx.x * BQ;
+  const int chunk = blockIdx.x % nchunk;  // the block's output columns
+  const int q0 = blockIdx.x / nchunk * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
+  const T* qb = q + bb * st.q_sb + hh * st.q_sh;
   const T* kb = k + bb * st.k_sb + hh * st.k_sh;
   const T* vb = v + bb * st.v_sb + hh * st.v_sh;
-  load_tile<T, D, BQ>(sQ, q + bb * st.q_sb + hh * st.q_sh, st.q_ss, q0, Sq);
+  if (nchunk == 1) load_tile<T, D, BQ>(sQ, qb, st.q_ss, q0, Sq);  // resident
 
   float m[ROWS], l[ROWS], acc[ROWS][DCOLS];
 #pragma unroll
@@ -199,27 +221,33 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // Q is staged / the previous tile's reads are done
-    load_tile<T, D, BK>(sK, kb, st.k_ss, k0, Sk);
-    load_tile<T, D, BK>(sV, vb, st.v_ss, k0, Sk);
-    __syncthreads();
-
     float s[ROWS][KCOLS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < KCOLS; ++j) s[i][j] = 0.f;
+    // S = q k^T over the head dim, one 256-column chunk at a time; the
+    // last chunk's pass also stages the block's own V columns
+    for (int c = 0; c < nchunk; ++c) {
+      __syncthreads();  // Q is staged / the previous reads are done
+      if (nchunk > 1) load_tile<T, D, BQ>(sQ, qb + c * D, st.q_ss, q0, Sq);
+      load_tile<T, D, BK>(sK, kb + c * D, st.k_ss, k0, Sk);
+      if (c == nchunk - 1)
+        load_tile<T, D, BK>(sV, vb + chunk * D, st.v_ss, k0, Sk);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], kv[KCOLS];
+      for (int d = 0; d < D; ++d) {
+        float qv[ROWS], kv[KCOLS];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = sQ[(rg * ROWS + i) * DP + d];
+        for (int i = 0; i < ROWS; ++i) qv[i] = sQ[(rg * ROWS + i) * DP + d];
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) kv[j] = sK[(cg + GROUP * j) * DP + d];
+        for (int j = 0; j < KCOLS; ++j) kv[j] = sK[(cg + GROUP * j) * DP + d];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
+        for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-        for (int j = 0; j < KCOLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < KCOLS; ++j)
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -280,11 +308,11 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + rg * ROWS + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (row0 + qpos) * D;
+    T* orow = o + (row0 + qpos) * D * nchunk + chunk * D;
 #pragma unroll
     for (int j = 0; j < DCOLS; ++j)
       orow[cg + GROUP * j] = from_f32<T>(acc[i][j] / denom);
-    if (cg == 0)
+    if (cg == 0 && chunk == 0)
       lse[row0 + qpos] = m[i] != -INFINITY ? m[i] + logf(denom) : -INFINITY;
   }
 }
@@ -292,14 +320,15 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // dQ: one block per (q tile, head, batch), a loop over key tiles
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK>
+template <typename T, int D, int BQ, int BK, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ dd, T* __restrict__ dq,
-                         int H, int Sq, int Sk, Strides st, int causal,
-                         float scale) {
+                         int H, int Sq, int Sk, int n_chunks, Strides st,
+                         int causal, float scale) {
+  const int nchunk = SPLIT ? n_chunks : 1;
   constexpr int DP = D + 1;
   constexpr int PP = BK + 2;
   constexpr int ROWS = BQ / ROW_GROUPS;
@@ -315,16 +344,20 @@ flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid / GROUP;
   const int cg = tid % GROUP;
-  const int q0 = blockIdx.x * BQ;
+  const int chunk = blockIdx.x % nchunk;  // the block's dQ columns
+  const int q0 = blockIdx.x / nchunk * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int64_t row0 = ((int64_t)bb * H + hh) * Sq;
 
-  load_tile<T, D, BQ>(sQ, q + bb * st.q_sb + hh * st.q_sh, st.q_ss, q0, Sq);
-  load_tile<T, D, BQ>(sDO, dout + bb * st.o_sb + hh * st.o_sh, st.o_ss, q0,
-                      Sq);
+  const T* qb = q + bb * st.q_sb + hh * st.q_sh;
+  const T* ob = dout + bb * st.o_sb + hh * st.o_sh;
   const T* kb = k + bb * st.k_sb + hh * st.k_sh;
   const T* vb = v + bb * st.v_sb + hh * st.v_sh;
+  if (nchunk == 1) {  // q and dO resident
+    load_tile<T, D, BQ>(sQ, qb, st.q_ss, q0, Sq);
+    load_tile<T, D, BQ>(sDO, ob, st.o_ss, q0, Sq);
+  }
 
   float row_lse[ROWS], row_dd[ROWS], acc[ROWS][DCOLS];
 #pragma unroll
@@ -345,36 +378,42 @@ flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the previous tile's reads of sK / sV / sDS are done
-    load_tile<T, D, BK>(sK, kb, st.k_ss, k0, Sk);
-    load_tile<T, D, BK>(sV, vb, st.v_ss, k0, Sk);
-    __syncthreads();
-
     float s[ROWS][COLS], dp[ROWS][COLS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < COLS; ++j) s[i][j] = dp[i][j] = 0.f;
+    // S = q k^T and dP = dO v^T over the head dim, one chunk at a time
+    for (int c = 0; c < nchunk; ++c) {
+      __syncthreads();  // the previous reads of the tiles / sDS are done
+      if (nchunk > 1) {
+        load_tile<T, D, BQ>(sQ, qb + c * D, st.q_ss, q0, Sq);
+        load_tile<T, D, BQ>(sDO, ob + c * D, st.o_ss, q0, Sq);
+      }
+      load_tile<T, D, BK>(sK, kb + c * D, st.k_ss, k0, Sk);
+      load_tile<T, D, BK>(sV, vb + c * D, st.v_ss, k0, Sk);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], ov[ROWS], kv[COLS], vv[COLS];
+      for (int d = 0; d < D; ++d) {
+        float qv[ROWS], ov[ROWS], kv[COLS], vv[COLS];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        qv[i] = sQ[(rg * ROWS + i) * DP + d];
-        ov[i] = sDO[(rg * ROWS + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        kv[j] = sK[(cg + GROUP * j) * DP + d];
-        vv[j] = sV[(cg + GROUP * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
+        for (int i = 0; i < ROWS; ++i) {
+          qv[i] = sQ[(rg * ROWS + i) * DP + d];
+          ov[i] = sDO[(rg * ROWS + i) * DP + d];
+        }
 #pragma unroll
         for (int j = 0; j < COLS; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          kv[j] = sK[(cg + GROUP * j) * DP + d];
+          vv[j] = sV[(cg + GROUP * j) * DP + d];
         }
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+          for (int j = 0; j < COLS; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -391,7 +430,11 @@ flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
             round_to<T>(p * (dp[i][j] - row_dd[i]));
       }
     }
-    __syncthreads();  // dS tile complete
+    __syncthreads();  // dS tile complete, every read of sK done
+    if (chunk != nchunk - 1) {  // sK holds the last chunk: stage the own
+      load_tile<T, D, BK>(sK, kb + chunk * D, st.k_ss, k0, Sk);
+      __syncthreads();
+    }
 
 #pragma unroll 2
     for (int c = 0; c < BK; ++c) {
@@ -411,7 +454,7 @@ flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int qpos = q0 + rg * ROWS + i;
     if (qpos >= Sq) continue;
-    T* out = dq + (row0 + qpos) * D;
+    T* out = dq + (row0 + qpos) * D * nchunk + chunk * D;
 #pragma unroll
     for (int j = 0; j < DCOLS; ++j)
       out[cg + GROUP * j] = from_f32<T>(acc[i][j] * scale);
@@ -423,7 +466,7 @@ flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // tile is computed transposed (rows = keys), so the thread that accumulates
 // a key row of dK and dV owns that row of P^T and dS^T
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BK, int BQ>
+template <typename T, int D, int BK, int BQ, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -431,7 +474,9 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ lse,
                           const float* __restrict__ dd, T* __restrict__ dk,
                           T* __restrict__ dv, int H, int Sq, int Sk,
-                          Strides st, int causal, float scale) {
+                          int n_chunks, Strides st, int causal,
+                          float scale) {
+  const int nchunk = SPLIT ? n_chunks : 1;
   constexpr int DP = D + 1;
   constexpr int PP = BQ + 2;
   constexpr int ROWS = BK / ROW_GROUPS;  // key rows per thread
@@ -450,16 +495,21 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid / GROUP;
   const int cg = tid % GROUP;
-  const int k0 = blockIdx.x * BK;
+  const int chunk = blockIdx.x % nchunk;  // the block's dK and dV columns
+  const int k0 = blockIdx.x / nchunk * BK;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int64_t qrow0 = ((int64_t)bb * H + hh) * Sq;
   const int64_t krow0 = ((int64_t)bb * H + hh) * Sk;
 
-  load_tile<T, D, BK>(sK, k + bb * st.k_sb + hh * st.k_sh, st.k_ss, k0, Sk);
-  load_tile<T, D, BK>(sV, v + bb * st.v_sb + hh * st.v_sh, st.v_ss, k0, Sk);
+  const T* kb = k + bb * st.k_sb + hh * st.k_sh;
+  const T* vb = v + bb * st.v_sb + hh * st.v_sh;
   const T* qb = q + bb * st.q_sb + hh * st.q_sh;
   const T* ob = dout + bb * st.o_sb + hh * st.o_sh;
+  if (nchunk == 1) {  // k and v resident
+    load_tile<T, D, BK>(sK, kb, st.k_ss, k0, Sk);
+    load_tile<T, D, BK>(sV, vb, st.v_ss, k0, Sk);
+  }
 
   float acc_k[ROWS][DCOLS], acc_v[ROWS][DCOLS];
 #pragma unroll
@@ -477,41 +527,48 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = first; t < n_tiles; ++t) {
     const int q0 = t * BQ;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D, BQ>(sQ, qb, st.q_ss, q0, Sq);
-    load_tile<T, D, BQ>(sDO, ob, st.o_ss, q0, Sq);
-    for (int r = tid; r < BQ; r += THREADS) {
-      const int qpos = q0 + r;
-      sL[r] = qpos < Sq ? lse[qrow0 + qpos] : -INFINITY;
-      sD[r] = qpos < Sq ? dd[qrow0 + qpos] : 0.f;
-    }
-    __syncthreads();
-
     float s[ROWS][COLS], dp[ROWS][COLS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < COLS; ++j) s[i][j] = dp[i][j] = 0.f;
+    // S^T = k q^T and dP^T = v dO^T over the head dim, one chunk at a time
+    for (int c = 0; c < nchunk; ++c) {
+      __syncthreads();  // the previous reads of the tiles are done
+      if (nchunk > 1) {
+        load_tile<T, D, BK>(sK, kb + c * D, st.k_ss, k0, Sk);
+        load_tile<T, D, BK>(sV, vb + c * D, st.v_ss, k0, Sk);
+      }
+      load_tile<T, D, BQ>(sQ, qb + c * D, st.q_ss, q0, Sq);
+      load_tile<T, D, BQ>(sDO, ob + c * D, st.o_ss, q0, Sq);
+      if (c == 0)
+        for (int r = tid; r < BQ; r += THREADS) {
+          const int qpos = q0 + r;
+          sL[r] = qpos < Sq ? lse[qrow0 + qpos] : -INFINITY;
+          sD[r] = qpos < Sq ? dd[qrow0 + qpos] : 0.f;
+        }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[ROWS], vv[ROWS], qv[COLS], ov[COLS];
+      for (int d = 0; d < D; ++d) {
+        float kv[ROWS], vv[ROWS], qv[COLS], ov[COLS];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        kv[i] = sK[(rg * ROWS + i) * DP + d];
-        vv[i] = sV[(rg * ROWS + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        qv[j] = sQ[(cg + GROUP * j) * DP + d];
-        ov[j] = sDO[(cg + GROUP * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
+        for (int i = 0; i < ROWS; ++i) {
+          kv[i] = sK[(rg * ROWS + i) * DP + d];
+          vv[i] = sV[(rg * ROWS + i) * DP + d];
+        }
 #pragma unroll
         for (int j = 0; j < COLS; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          qv[j] = sQ[(cg + GROUP * j) * DP + d];
+          ov[j] = sDO[(cg + GROUP * j) * DP + d];
         }
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+          for (int j = 0; j < COLS; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -530,7 +587,12 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sDS[kr * PP + qc] = round_to<T>(p * (dp[i][j] - sD[qc]));
       }
     }
-    __syncthreads();  // P^T and dS^T tiles complete
+    __syncthreads();  // P^T and dS^T tiles complete, every read of sQ done
+    if (chunk != nchunk - 1) {  // sQ / sDO hold the last chunk: the own
+      load_tile<T, D, BQ>(sQ, qb + chunk * D, st.q_ss, q0, Sq);
+      load_tile<T, D, BQ>(sDO, ob + chunk * D, st.o_ss, q0, Sq);
+      __syncthreads();
+    }
 
 #pragma unroll 2
     for (int c = 0; c < BQ; ++c) {
@@ -557,8 +619,8 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int kpos = k0 + rg * ROWS + i;
     if (kpos >= Sk) continue;
-    T* ko = dk + (krow0 + kpos) * D;
-    T* vo = dv + (krow0 + kpos) * D;
+    T* ko = dk + (krow0 + kpos) * D * nchunk + chunk * D;
+    T* vo = dv + (krow0 + kpos) * D * nchunk + chunk * D;
 #pragma unroll
     for (int j = 0; j < DCOLS; ++j) {
       ko[cg + GROUP * j] = from_f32<T>(acc_k[i][j] * scale);
@@ -588,41 +650,44 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
 
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int Sq, int Sk,
+                       void* lse, int B, int H, int Sq, int Sk, int nchunk,
                        const Strides& st, int causal, float scale,
                        cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
-  static bool smem_set[kMaxDevices] = {};
+  static bool smem_set[2][kMaxDevices] = {};
   const size_t smem = fwd_smem_bytes<D, FWD_BQ, FWD_BK>();
-  auto kernel = flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK>;
-  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
+  auto kernel = nchunk > 1 ? flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK, true>
+                           : flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK, false>;
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set[nchunk > 1]);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ, H, B);
+  dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ * nchunk, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), H, Sq, Sk, st, causal, scale);
+      static_cast<float*>(lse), H, Sq, Sk, nchunk, st, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dd,
-                      void* dq, int B, int H, int Sq, int Sk,
+                      void* dq, int B, int H, int Sq, int Sk, int nchunk,
                       const Strides& st, int causal, float scale,
                       cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
-  static bool smem_set[kMaxDevices] = {};
+  static bool smem_set[2][kMaxDevices] = {};
   const size_t smem = dq_smem_bytes<D, DQ_BQ, DQ_BK>();
-  auto kernel = flash_bwd_dq_d256_kernel<T, D, DQ_BQ, DQ_BK>;
-  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
+  auto kernel = nchunk > 1
+                    ? flash_bwd_dq_d256_kernel<T, D, DQ_BQ, DQ_BK, true>
+                    : flash_bwd_dq_d256_kernel<T, D, DQ_BQ, DQ_BK, false>;
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set[nchunk > 1]);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, H, B);
+  dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ * nchunk, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dq), H, Sq, Sk, st, causal, scale);
+      static_cast<T*>(dq), H, Sq, Sk, nchunk, st, causal, scale);
   return cudaGetLastError();
 }
 
@@ -630,21 +695,23 @@ template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int B, int H, int Sq, int Sk,
-                       const Strides& st, int causal, float scale,
-                       cudaStream_t stream) {
+                       int nchunk, const Strides& st, int causal,
+                       float scale, cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
-  static bool smem_set[kMaxDevices] = {};
+  static bool smem_set[2][kMaxDevices] = {};
   const size_t smem = dkv_smem_bytes<D, DKV_BK, DKV_BQ>();
-  auto kernel = flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ>;
-  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
+  auto kernel = nchunk > 1
+                    ? flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ, true>
+                    : flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ, false>;
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set[nchunk > 1]);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sk + DKV_BK - 1) / DKV_BK, H, B);
+  dim3 grid((Sk + DKV_BK - 1) / DKV_BK * nchunk, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, st, causal,
-      scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, nchunk, st,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -660,10 +727,11 @@ Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D must be 256.  Strides
-// (in elements) of q, k, v (and dO): batch, head, sequence; the head dim
-// must be contiguous.  out [B, H, Sq, D] and lse [B, H, Sq] are written
-// contiguous.  Each entry returns the CUDA error code of its launch (0 on
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D must be a multiple of
+// 256 (256 n: n blocks per tile, one per 256-column chunk of the output).
+// Strides (in elements) of q, k, v (and dO): batch, head, sequence; the
+// head dim must be contiguous.  out [B, H, Sq, D] and lse [B, H, Sq] are
+// written contiguous.  Each entry returns the CUDA error code of its launch (0 on
 // success); the kernels are asynchronous on `stream`.  The caller makes
 // the tensors' device current.
 int flash_attn_d256_fwd(const void* q, const void* k, const void* v, void* o,
@@ -673,19 +741,20 @@ int flash_attn_d256_fwd(const void* q, const void* k, const void* v, void* o,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, int causal, float scale,
                         void* stream) {
-  if (D != HEAD_DIM) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % HEAD_DIM) return (int)cudaErrorInvalidValue;
+  const int n = D / HEAD_DIM;
   const Strides st = make_strides(q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                                   v_sh, v_ss, 0, 0, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_fwd<float>(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale,
-                            s);
+    err = launch_fwd<float>(q, k, v, o, lse, B, H, Sq, Sk, n, st, causal,
+                            scale, s);
   else if (dtype == 1)
-    err = launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, st,
+    err = launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, n, st,
                                     causal, scale, s);
   else if (dtype == 2)
-    err = launch_fwd<__half>(q, k, v, o, lse, B, H, Sq, Sk, st, causal,
+    err = launch_fwd<__half>(q, k, v, o, lse, B, H, Sq, Sk, n, st, causal,
                              scale, s);
   else
     err = cudaErrorInvalidValue;
@@ -703,19 +772,20 @@ int flash_attn_d256_bwd_dq(const void* q, const void* k, const void* v,
                            long long v_ss, long long o_sb, long long o_sh,
                            long long o_ss, int causal, float scale,
                            void* stream) {
-  if (D != HEAD_DIM) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % HEAD_DIM) return (int)cudaErrorInvalidValue;
+  const int n = D / HEAD_DIM;
   const Strides st = make_strides(q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dq<float>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+    err = launch_dq<float>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, n, st,
                            causal, scale, s);
   else if (dtype == 1)
     err = launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
-                                   st, causal, scale, s);
+                                   n, st, causal, scale, s);
   else if (dtype == 2)
-    err = launch_dq<__half>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+    err = launch_dq<__half>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, n, st,
                             causal, scale, s);
   else
     err = cudaErrorInvalidValue;
@@ -731,20 +801,21 @@ int flash_attn_d256_bwd_dkv(const void* q, const void* k, const void* v,
                             long long v_sb, long long v_sh, long long v_ss,
                             long long o_sb, long long o_sh, long long o_ss,
                             int causal, float scale, void* stream) {
-  if (D != HEAD_DIM) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % HEAD_DIM) return (int)cudaErrorInvalidValue;
+  const int n = D / HEAD_DIM;
   const Strides st = make_strides(q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dkv<float>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, st,
-                            causal, scale, s);
+    err = launch_dkv<float>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, n,
+                            st, causal, scale, s);
   else if (dtype == 1)
     err = launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                    Sk, st, causal, scale, s);
+                                    Sk, n, st, causal, scale, s);
   else if (dtype == 2)
     err = launch_dkv<__half>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                             st, causal, scale, s);
+                             n, st, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

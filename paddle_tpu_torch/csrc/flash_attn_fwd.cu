@@ -66,6 +66,21 @@
 //     uses 64-byte swizzle.
 //   At the training shape the grid is 4 x 12 x 8 = 384 CTAs of 384
 //   threads, one CTA per SM (registers), 2.9 waves on 132 SMs.
+//   D = 256 (and 129-255, zero-padded by the wrapper): the same kernel
+//   with BK = 64.  The D = 128 layout (BK = 128, two K/V stages) would
+//   need 64 KB of q and 4 x 64 KB of K/V, more than the 232,448 bytes a
+//   block may opt in to; with BK = 64 the q tile (4 boxes, 65,536 B) and
+//   two stages of K and of V (32,768 B each) take 197,688 B with the
+//   barriers and the alignment slack, one CTA per SM.  Per consumer
+//   thread: O 64 x 256 fp32 over 128 threads = 128 registers, S 32, P
+//   packed 16, inside the 240 of `setmaxnreg`.  S = q k^T is m64n64k16
+//   over 16 k-steps (K-major, from the 4 boxes); O += P v is four n64
+//   products per k16 slice, one per 64-column box of v read MN-major, as
+//   D = 128 issues two.  Bound at [8, 8, 512, 256]: 17.2 GFLOP take
+//   17.4 us on the tensor cores, 67 MB of 16-bit inputs and outputs take
+//   20.1 us, so the bytes bound it; the grid is 4 x 8 x 8 = 256 CTAs, two
+//   waves on 132 SMs.  A view TMA refuses is copied by the wrapper, as at
+//   D <= 128.
 //
 // fp32 (serving, fp32 training): `flash_fwd_tf32_kernel`, 3xTF32 on
 //   the tensor cores.  Bound at S = 512, D = 64: 6.4 GFLOP over the 67
@@ -385,15 +400,18 @@ namespace wg {
 using hopper::Wgmma;
 
 constexpr int BQ = 128;         // query rows per CTA: two consumer warpgroups
-constexpr int BK = 128;         // keys per K/V tile
 constexpr int THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
 // shared memory: the q tile, then two stages of K and two of V, each as
-// D / COLS boxes of [rows][COLS] 16-bit elements, then the mbarriers
+// D / COLS boxes of [rows][COLS] 16-bit elements, then the mbarriers.
+// BK keys per K/V tile: 128 up to D = 128; 64 at D = 256, where 128 keys
+// would need 64 KB of q and 4 x 64 KB of K/V stages, more than a block
+// may hold
 template <int D>
 struct Layout {
+  static constexpr int BK = D > 128 ? 64 : 128;
   static constexpr int COLS = hopper::box_cols(D);
   static constexpr int NBOX = D / COLS;
   static constexpr int SWIZZLE =
@@ -408,6 +426,8 @@ struct Layout {
   static constexpr uint32_t V_OFF = K_OFF + 2 * KV_BYTES;
   static constexpr uint32_t BAR_OFF = V_OFF + 2 * KV_BYTES;
   static constexpr size_t SMEM = BAR_OFF + 7 * 8 + 1024;  // + align slack
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "forward tiles exceed the shared-memory opt-in");
 };
 
 template <int D, typename T>
@@ -419,6 +439,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        float* __restrict__ lse, int H, int Sq, int Sk,
                        int causal, float scale_log2) {
   using L = Layout<D>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -476,7 +497,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
-    constexpr int SN = BK / 2;        // S fragment: 64 fp32 per thread
+    constexpr int SN = BK / 2;        // S fragment: BK / 2 fp32 a thread
     constexpr int ON = L::COLS / 2;   // O fragment per box
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
@@ -632,10 +653,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st[0], st[1], st[2], BQ);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st[3], st[4], st[5],
-                                 BK);
+                                 Layout<D>::BK);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st[6], st[7], st[8],
-                                 BK);
+                                 Layout<D>::BK);
   if (err != cudaSuccess) return err;
   static bool smem_set[kMaxDevices] = {};
   err = opt_in_smem(flash_fwd_wgmma_kernel<D, T>, Layout<D>::SMEM, smem_set);
@@ -658,6 +679,7 @@ LaunchFn pick_wgmma(int D) {
   if (D == 32) return wg::launch<32, T>;
   if (D == 64) return wg::launch<64, T>;
   if (D == 128) return wg::launch<128, T>;
+  if (D == 256) return wg::launch<256, T>;
   return nullptr;
 }
 

@@ -41,6 +41,9 @@
 
 namespace hopper {
 
+// the dynamic shared memory a block may opt in to on sm_90
+constexpr size_t kMaxSmem = 232448;
+
 // ---------------------------------------------------------------------------
 // shared memory addresses
 // ---------------------------------------------------------------------------

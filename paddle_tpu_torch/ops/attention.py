@@ -40,17 +40,25 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     accumulated in fp32: fp32-level error, not TF32's three digits).
     They take any strided fp32 view with a contiguous head dim.
 
-The kernels have instances for head dims 32, 64, 128 and 256.  Any
-other head dim up to 256 is zero-padded up to the next of them (q, k, v
-and dO along D; the scale stays 1/sqrt(real D)) and out, dq, dk and dv
-are sliced back: zero columns leave q k^T, lse and rowsum(dO * O)
-unchanged, so this is exact, at the cost of the padded columns' bytes and
-operations (a D = 96 head does the work of D = 128).  Head dims 129-256
-run the three kernels of csrc/flash_attn_d256.cu (fp32 FMAs from shared
-memory, fp32, bf16 and fp16 inputs, strided views taken as they are),
-selected by the head dim alone; their launches are counted apart
-(`launches_d256` on each wrapper).  A head dim above 256 raises
-(ROADMAP Queue 3 item 1).
+The kernels have instances for head dims 32, 64, 128 and 256, and a
+split-D route for every multiple of 256 above it.  Any other head dim is
+zero-padded up to the next of them (q, k, v and dO along D; the scale
+stays 1/sqrt(real D)): up to 128 the next instance, 129-255 to 256, above
+256 the next multiple of 256 (320 -> 512).  out, dq, dk and dv are
+sliced back: zero columns leave q k^T, lse and rowsum(dO * O) unchanged,
+so this is exact, at the cost of the padded columns' bytes and
+operations (a D = 96 head does the work of D = 128).  The kernel head
+dim and the dtype select the kernel, each counted on its wrapper:
+  * D <= 128: csrc/flash_attn_fwd.cu / flash_attn_bwd.cu (`launches`);
+  * D = 256, bf16 and fp16, the forward and dK/dV: the same wgmma kernels
+    at D = 256 (`launches_wgmma256`);
+  * D = 256 otherwise (fp32, and the 16-bit dQ): csrc/flash_attn_d256.cu,
+    fp32 FMAs from shared memory, strided views taken as they are
+    (`launches_d256`);
+  * D = 256 n, n >= 2, every dtype: the same kernels of
+    csrc/flash_attn_d256.cu with a grid dimension over 256-column chunks
+    of the output; each chunk's block recomputes the scores over all of
+    D, so the score work is n times its share (`launches_split_d`).
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -74,7 +82,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda",
            "reference_attention", "enable_flash_attention", "use_flash_for",
            "set_flash_min_seq_len", "FLASH_HEAD_DIMS", "kernel_head_dim",
-           "kernel_operands", "tma_accepts"]
+           "kernel_operands", "tma_accepts", "LAUNCH_COUNTS"]
 
 # same defaults as paddle_tpu: "auto" takes flash only from 8192 up (a
 # threshold that paddle_tpu measured on its TPU, kept so both packages
@@ -82,7 +90,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
 _FLASH_STATE = {"mode": "auto", "min_seq_len": 8192}
 
 FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the kernels' instances; others pad up
-_D256 = 256  # the head dim of csrc/flash_attn_d256.cu (no TMA, any view)
+_D256 = 256  # csrc/flash_attn_d256.cu: D = 256 n, 256-column chunks
 _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
 _BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -194,15 +202,16 @@ def _check_cuda_args(q, k, v):
 
 
 def kernel_head_dim(d):
-    """The head dim of the kernel instance that runs head dim d: the next
-    of FLASH_HEAD_DIMS (d itself when it is one of them)."""
+    """The head dim of the kernel that runs head dim d: the next of
+    FLASH_HEAD_DIMS, above 256 the next multiple of 256 (the split-D
+    route); d itself when it is one of them."""
+    if d <= 0:
+        raise ValueError(f"flash_attention kernels need a positive head "
+                         f"dim, got {d}")
     for dp in FLASH_HEAD_DIMS:
-        if 0 < d <= dp:
+        if d <= dp:
             return dp
-    raise ValueError(f"flash_attention kernels take head dims up to "
-                     f"{FLASH_HEAD_DIMS[-1]} (instances {FLASH_HEAD_DIMS}, "
-                     f"others zero-padded up; larger head dims are ROADMAP "
-                     f"Queue 3 item 1), got {d}")
+    return -(-d // _D256) * _D256
 
 
 def tma_accepts(t):
@@ -216,18 +225,37 @@ def tma_accepts(t):
                == 0 for dim in range(3))
 
 
-def kernel_operands(d, *tensors):
-    """The [B, H, S, d] tensors as the kernels take them: zero-padded along
-    D up to kernel_head_dim(d) (a new contiguous tensor), and a bf16 or
-    fp16 view that TMA refuses copied to a contiguous tensor (counted in
-    flash_attention.view_copies; the D = 256 kernels read through strides
-    and take any view).  Returns the kernel's head dim and the tensors."""
+def _route(kind, dp, dtype):
+    """Which kernel runs `kind` ("fwd", "bwd_dq" or "bwd_dkv") at kernel
+    head dim dp in `dtype`: "le128" (csrc/flash_attn_fwd.cu /
+    flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma forward
+    and dK/dV at D = 256), "d256" (csrc/flash_attn_d256.cu at D = 256) or
+    "split_d" (the same file at D = 256 n, n >= 2)."""
+    if dp < _D256:
+        return "le128"
+    if dp > _D256:
+        return "split_d"
+    if dtype in _TMA_DTYPES and kind in ("fwd", "bwd_dkv"):
+        return "wgmma256"
+    return "d256"
+
+
+def kernel_operands(d, *tensors, kind="fwd"):
+    """The [B, H, S, d] tensors as kernel `kind` takes them: zero-padded
+    along D up to kernel_head_dim(d) (a new contiguous tensor), and a
+    bf16 or fp16 view that TMA refuses copied to a contiguous tensor
+    (counted in flash_attention.view_copies) where that kernel reads
+    through TMA (the kernels of csrc/flash_attn_d256.cu read through
+    strides and take any view).  Returns the kernel's head dim and the
+    tensors."""
     dp = kernel_head_dim(d)
     out = []
     for t in tensors:
         if dp != d:
             t = torch.nn.functional.pad(t, (0, dp - d)).contiguous()
-        elif dp != _D256 and t.dtype in _TMA_DTYPES and not tma_accepts(t):
+        elif t.dtype in _TMA_DTYPES and \
+                _route(kind, dp, t.dtype) in ("le128", "wgmma256") and \
+                not tma_accepts(t):
             t = t.clone(memory_format=torch.contiguous_format)
             flash_attention.view_copies += 1
         out.append(t)
@@ -250,8 +278,8 @@ def _kernel_lib():
 
 
 def _d256_kernel_lib():
-    """csrc/flash_attn_d256.cu: the forward, dQ and dK/dV at D = 256, with
-    the argument lists of the D <= 128 entries."""
+    """csrc/flash_attn_d256.cu: the forward, dQ and dK/dV at D = 256 n,
+    with the argument lists of the D <= 128 entries."""
     from ..core.kernel_build import load_library
     lib = load_library("flash_attn_d256")
     if not getattr(lib, "_argtypes_set", False):
@@ -271,35 +299,39 @@ def _d256_kernel_lib():
     return lib
 
 
-# kernel -> (its C entry at D <= 128, its C entry at D = 256)
+# kernel -> (its C entry in flash_attn_fwd.cu / flash_attn_bwd.cu, its C
+# entry in flash_attn_d256.cu)
 _ENTRIES = {"fwd": ("flash_attn_fwd", "flash_attn_d256_fwd"),
             "bwd_dq": ("flash_attn_bwd_dq", "flash_attn_d256_bwd_dq"),
             "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_d256_bwd_dkv")}
+# route (see _route) -> the wrapper's launch count
+LAUNCH_COUNTS = {"le128": "launches", "wgmma256": "launches_wgmma256",
+                 "d256": "launches_d256", "split_d": "launches_split_d"}
 
 
-def _kernel_entry(kind, dp):
+def _kernel_entry(kind, dp, dtype):
     """The C entry of kernel `kind` ("fwd", "bwd_dq" or "bwd_dkv") at the
-    kernel head dim dp, its library's error-string function and the name of
-    the wrapper's launch count: csrc/flash_attn_d256.cu at D = 256 (counted
-    in `launches_d256`), else csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
-    (counted in `launches`).  The head dim alone selects the kernel."""
-    if dp == _D256:
+    kernel head dim dp in `dtype`, its library's error-string function and
+    the name of the wrapper's launch count (LAUNCH_COUNTS[_route])."""
+    route = _route(kind, dp, dtype)
+    if route in ("d256", "split_d"):
         lib = _d256_kernel_lib()
         return (getattr(lib, _ENTRIES[kind][1]),
-                lib.flash_attn_d256_error_string, "launches_d256")
+                lib.flash_attn_d256_error_string, LAUNCH_COUNTS[route])
     if kind == "fwd":
         lib = _kernel_lib()
-        return lib.flash_attn_fwd, lib.flash_attn_error_string, "launches"
+        return (lib.flash_attn_fwd, lib.flash_attn_error_string,
+                LAUNCH_COUNTS[route])
     lib = _bwd_kernel_lib()
     return (getattr(lib, _ENTRIES[kind][0]), lib.flash_attn_bwd_error_string,
-            "launches")
+            LAUNCH_COUNTS[route])
 
 
-def _launch(wrapper, kind, dp, device, *args):
-    """Launch kernel `kind` at kernel head dim dp with `args` on the current
-    stream of `device`; raise on a CUDA error, else add one to the wrapper's
-    launch count."""
-    fn, err_string, count = _kernel_entry(kind, dp)
+def _launch(wrapper, kind, dp, dtype, device, *args):
+    """Launch kernel `kind` at kernel head dim dp in `dtype` with `args` on
+    the current stream of `device`; raise on a CUDA error, else add one to
+    the wrapper's launch count of that kernel."""
+    fn, err_string, count = _kernel_entry(kind, dp, dtype)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -321,9 +353,9 @@ def flash_attention_cuda(q, k, v, causal=False, scale=None):
     if q.numel() == 0:
         return torch.empty_like(q, memory_format=torch.contiguous_format), \
             lse
-    dp, (q, k, v) = kernel_operands(d, q, k, v)
+    dp, (q, k, v) = kernel_operands(d, q, k, v, kind="fwd")
     out = torch.empty((b, h, sq, dp), dtype=q.dtype, device=q.device)
-    _launch(flash_attention, "fwd", dp, q.device,
+    _launch(flash_attention, "fwd", dp, q.dtype, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, sq, sk, dp,
             q.stride(0), q.stride(1), q.stride(2),
@@ -448,7 +480,7 @@ def _bwd_launch(wrapper, kind, outs, q, k, v, do, lse, dd, causal, scale):
     into `outs`, which have the kernel's head dim."""
     b, h, sq, d = q.shape
     strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
-    _launch(wrapper, kind, d, q.device,
+    _launch(wrapper, kind, d, q.dtype, q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dd.data_ptr(), *[t.data_ptr() for t in outs],
             _DTYPE_CODE[q.dtype], b, h, sq, k.shape[2], d, *strides,
@@ -463,7 +495,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd, causal=False,
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     if q.numel() == 0 or k.shape[2] == 0:
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
-    dp, (q, k, v, do) = kernel_operands(d, q, k, v, do)
+    dp, (q, k, v, do) = kernel_operands(d, q, k, v, do, kind="bwd_dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch(flash_attention_bwd_dq_cuda, "bwd_dq", (dq,), q, k, v, do,
                 lse, dd, causal, scale)
@@ -479,7 +511,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd, causal=False,
     if k.numel() == 0 or q.shape[2] == 0:
         return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
                 torch.zeros(v.shape, dtype=v.dtype, device=v.device))
-    dp, (q, k, v, do) = kernel_operands(d, q, k, v, do)
+    dp, (q, k, v, do) = kernel_operands(d, q, k, v, do, kind="bwd_dkv")
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch(flash_attention_bwd_dkv_cuda, "bwd_dkv", (dk, dv), q, k, v,
@@ -578,14 +610,11 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     return (out, lse) if return_lse else out
 
 
-# launches of each Hopper kernel in this process (`launches_d256`: the
-# D = 256 kernels of csrc/flash_attn_d256.cu), and the copies of views
-# that TMA refuses (plain integers; callers reset them to 0 around the run
-# they want to count)
-flash_attention.launches = 0
-flash_attention.launches_d256 = 0
+# launches of each Hopper kernel in this process, one count per route
+# (LAUNCH_COUNTS), and the copies of views that TMA refuses (plain
+# integers; callers reset them to 0 around the run they want to count)
+for _wrapper in (flash_attention, flash_attention_bwd_dq_cuda,
+                 flash_attention_bwd_dkv_cuda):
+    for _count in LAUNCH_COUNTS.values():
+        setattr(_wrapper, _count, 0)
 flash_attention.view_copies = 0
-flash_attention_bwd_dq_cuda.launches = 0
-flash_attention_bwd_dq_cuda.launches_d256 = 0
-flash_attention_bwd_dkv_cuda.launches = 0
-flash_attention_bwd_dkv_cuda.launches_d256 = 0

@@ -5,7 +5,9 @@ kernels, in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128 and
 the zero-padded D = 48, 96, ragged S, causal Sq != Sk, the strided
 head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
 views that TMA refuses, which are copied; head dims 129-256 on the
-kernels of csrc/flash_attn_d256.cu), the GPU Predictor against the
+16-bit wgmma forward and dK/dV at D = 256 and the kernels of
+csrc/flash_attn_d256.cu, head dims above 256 on that file's split-D
+route), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 and `Executor.run_steps` (CUDA-graph replay of the step) against eager
 `run()` steps.
@@ -600,55 +602,122 @@ def test_run_steps_failing_capture_raises(monkeypatch):
         assert torch.equal(scope.vars[n], t), n
 
 
+_BF16, _FP16 = torch.bfloat16, torch.float16
+
+
+# strided: True for the head-split view, "refused" for q and dO in a view
+# 4 bytes past a 16-byte boundary (TMA refuses it)
 @pytest.mark.parametrize("b,h,sq,sk,d,dtype,causal,strided", [
     (2, 2, 128, 128, 256, torch.float32, False, True),
     (1, 2, 96, 160, 256, torch.float32, True, False),
-    (1, 2, 200, 200, 256, torch.bfloat16, False, True),
-    (1, 2, 160, 96, 256, torch.bfloat16, True, False),
-    (1, 2, 200, 200, 256, torch.float16, True, False),
+    (1, 2, 200, 200, 256, _BF16, False, True),
+    (1, 2, 160, 96, 256, _BF16, True, False),
+    (1, 2, 200, 200, 256, _FP16, True, False),
     (1, 2, 128, 128, 160, torch.float32, False, False),
-    (1, 2, 130, 130, 200, torch.bfloat16, True, False),
+    (1, 2, 130, 130, 200, _BF16, True, False),
+    # the 16-bit D = 256 wgmma forward and dK/dV: causal Sq < Sk and
+    # Sq > Sk, ragged S, head-split views, views TMA refuses (copied)
+    (1, 2, 96, 160, 256, _BF16, True, False),
+    (1, 2, 96, 160, 256, _FP16, True, False),
+    (1, 2, 160, 96, 256, _FP16, True, False),
+    (1, 2, 200, 200, 256, _FP16, False, True),
+    (2, 2, 256, 256, 256, _BF16, True, True),
+    (1, 2, 130, 70, 256, _BF16, False, "refused"),
+    (1, 2, 130, 70, 256, _FP16, True, "refused"),
+    # head dims above 256: the split-D route (320 padded to 512)
+    (1, 2, 128, 128, 512, torch.float32, False, False),
+    (1, 2, 96, 160, 320, torch.float32, True, True),
+    (1, 2, 96, 160, 512, _BF16, True, True),
+    (1, 2, 200, 200, 320, _BF16, False, False),
+    (1, 2, 200, 200, 512, _FP16, True, False),
+    (1, 2, 160, 96, 320, _FP16, True, True),
+    (1, 2, 130, 130, 512, _BF16, False, "refused"),
 ])
 def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
                                            strided):
-    """Head dims 129-256 run the three kernels of csrc/flash_attn_d256.cu
-    (D = 160 and 200 zero-padded to 256), counted in `launches_d256` and
-    not in the D <= 128 kernels' counts: the forward, dQ and dK/dV against
-    their plain versions at TOL (the D <= 128 kernels' tolerances, for the
-    same reasons)."""
+    """Head dims above 128.  D = 256 (and 160, 200 zero-padded to it): in
+    bf16 and fp16 the forward and dK/dV are the wgmma kernels at D = 256
+    (counted in `launches_wgmma256`) and dQ the kernel of
+    csrc/flash_attn_d256.cu (`launches_d256`); in fp32 all three are the
+    csrc/flash_attn_d256.cu kernels.  D = 256 n, n >= 2 (and 320 padded to
+    512): the split-D kernels of that file in every dtype
+    (`launches_split_d`).  Each launch is counted once, on its own route.
+    A view TMA refuses is copied where a wgmma kernel reads it (q in the
+    forward, q and dO in dK/dV), not for the kernels that read through
+    strides.  The forward, dQ and dK/dV against their plain versions at
+    TOL (the D <= 128 kernels' tolerances, for the same reasons)."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v, do = (_bhsd(g, b, h, s, d, dtype, strided)
+    q, k, v, do = (_bhsd(g, b, h, s, d, dtype, strided is True)
                    for s in (sq, sk, sk, sq))
+    if strided == "refused":
+        q, do = _shifted(q), _shifted(do)
+        assert not tattn.tma_accepts(q) and not tattn.tma_accepts(do)
+    dp = tattn.kernel_head_dim(d)
+    if dp > 256:
+        want = ("launches_split_d",) * 3
+    elif dtype == torch.float32:
+        want = ("launches_d256",) * 3
+    else:
+        want = ("launches_wgmma256", "launches_d256", "launches_wgmma256")
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
-    before = [(f.launches, f.launches_d256) for f in counts]
+    names = tuple(tattn.LAUNCH_COUNTS.values())
+
+    def read():
+        return [{n: getattr(f, n) for n in names} for f in counts]
+
+    before, copies = read(), tattn.flash_attention.view_copies
     out, lse = tattn.flash_attention_cuda(q, k, v, causal=causal)
     dd = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, dd, causal)
     dq = tattn.flash_attention_bwd_dq_cuda(*args)
     dk, dv = tattn.flash_attention_bwd_dkv_cuda(*args)
     torch.cuda.synchronize()
-    assert [(f.launches, f.launches_d256) for f in counts] == \
-        [(n, m + 1) for n, m in before]
+    assert read() == [{n: c[n] + (n == w) for n in names}
+                      for c, w in zip(before, want)]
+    wgmma_copies = 3 if strided == "refused" and dp == d == 256 and \
+        dtype != torch.float32 else 0
+    assert tattn.flash_attention.view_copies == copies + wgmma_copies
     tol = TOL[dtype]
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     fin = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(lse), fin)
     torch.testing.assert_close(lse[fin], ref_lse[fin], rtol=tol, atol=tol)
     ref_dq = tattn.flash_attention_bwd_dq_plain(*args)
     ref_dk, ref_dv = tattn.flash_attention_bwd_dkv_plain(*args)
-    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+    for got, want_t in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.shape[-1] == d and got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+        torch.testing.assert_close(got.float(), want_t.float(), rtol=tol,
                                    atol=tol)
     if causal and sq > sk:
         assert torch.all(out[:, :, :sq - sk] == 0)
         assert torch.all(dq[:, :, :sq - sk] == 0)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        tattn.flash_attention_cuda(*(torch.zeros(1, 1, 8, 264,
-                                                 device="cuda"),) * 3)
+
+
+def test_wide_head_dims_through_autograd():
+    """A CUDA tensor with D = 320 runs `flash_attention` forward and
+    backward (autograd) through the split-D kernels, each a counted launch,
+    and matches the score-matrix reference in fp32."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(1, 2, 96, 320, device="cuda", generator=g)
+               .requires_grad_(True) for _ in range(3))
+    counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
+              tattn.flash_attention_bwd_dkv_cuda)
+    before = [f.launches_split_d for f in counts]
+    out = tattn.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert [f.launches_split_d for f in counts] == [n + 1 for n in before]
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    ref = tattn.reference_attention(ql, kl, vl, causal=True)
+    want = torch.autograd.grad(ref.square().sum(), (ql, kl, vl))
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-4)
 
 
 def test_device_resident_pool_and_engine():

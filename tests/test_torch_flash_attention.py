@@ -129,17 +129,19 @@ def test_plain_lse_and_ragged_tiles():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    """Head dims up to 256 and fp16 reach the kernels (D = 48 is padded,
-    fp16 has wgmma instances, D = 160 pads to the D = 256 kernels); a head
-    dim above 256, a dtype without a kernel, a strided head dim, a CPU
-    tensor handed to the launcher and a device without a kernel still
-    raise."""
+    """Any positive head dim and fp16 reach the kernels (D = 48 is padded,
+    fp16 has wgmma instances, D = 160 pads to the D = 256 kernels, D = 264
+    to the split-D route at 512); an empty head dim, a dtype without a
+    kernel, a strided head dim, a CPU tensor handed to the launcher and a
+    device without a kernel still raise."""
     for ok in (torch.zeros(1, 1, 8, 48), torch.zeros(1, 1, 8, 96),
                torch.zeros(1, 1, 8, 64, dtype=torch.float16),
-               torch.zeros(1, 1, 8, 160), torch.zeros(1, 1, 8, 256)):
+               torch.zeros(1, 1, 8, 160), torch.zeros(1, 1, 8, 256),
+               torch.zeros(1, 1, 8, 264)):
         tattn._check_cuda_args(ok, ok, ok)
-    q = torch.zeros(1, 1, 8, 264)
-    with pytest.raises(ValueError, match="head dims up to 256"):
+    assert tattn.kernel_head_dim(264) == 512
+    q = torch.zeros(1, 1, 8, 0)
+    with pytest.raises(ValueError, match="positive head dim"):
         tattn._check_cuda_args(q, q, q)
     f64 = torch.zeros(1, 1, 8, 64, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
@@ -234,15 +236,12 @@ def test_bf16_views_that_tma_refuses():
         assert torch.equal(got, view)
 
 
-@pytest.mark.parametrize("d", [160, 200, 256])
-@pytest.mark.parametrize("causal", [False, True])
-def test_head_dims_to_256_match_pallas(causal, d):
-    """Head dims 129-256, the route of the D = 256 kernels: q, k, v and dO
-    zero-padded to 256 by kernel_operands (D = 256 itself unpadded), the
-    forward, dQ and dK/dV plain versions at the padded width with the
-    scale of the real d, sliced back.  Held against the Pallas `_flash_fwd`
-    and `_flash_bwd` (interpret mode) at the real d in fp32: FP32_TOL for
-    out, lse, dq, dk and dv."""
+def _wide_head_dim_parity(d, causal, dp):
+    """The padded plain forward, dQ and dK/dV at kernel head dim dp (the
+    route of the D = 256 and split-D kernels: q, k, v and dO zero-padded
+    by kernel_operands, the scale of the real d, sliced back) against the
+    Pallas `_flash_fwd` and `_flash_bwd` (interpret mode) at the real d in
+    fp32: FP32_TOL for out, lse, dq, dk and dv."""
     q, k, v = _inputs(1, 2, 128, 128, d, seed=90 + d + causal)
     g = np.random.RandomState(d).randn(*q.shape).astype(np.float32)
     scale = 1.0 / float(np.sqrt(d))
@@ -251,10 +250,10 @@ def test_head_dims_to_256_match_pallas(causal, d):
                                     interpret=True)
     ref_grads = jattn._flash_bwd(jq, jk, jv, ref, ref_lse, jg, causal,
                                  scale, 64, 64, interpret=True)
-    assert tattn.kernel_head_dim(d) == 256
-    dp, (pq, pk, pv, pg) = tattn.kernel_operands(
+    assert tattn.kernel_head_dim(d) == dp
+    got_dp, (pq, pk, pv, pg) = tattn.kernel_operands(
         d, *(torch.from_numpy(x) for x in (q, k, v, g)))
-    assert dp == 256 and all(t.shape[-1] == 256 for t in (pq, pk, pv, pg))
+    assert got_dp == dp and all(t.shape[-1] == dp for t in (pq, pk, pv, pg))
     out, lse = tattn.flash_attention_plain(pq, pk, pv, causal=causal,
                                            scale=scale)
     np.testing.assert_allclose(out[..., :d].numpy(), np.asarray(ref),
@@ -270,3 +269,55 @@ def test_head_dims_to_256_match_pallas(causal, d):
         assert torch.all(got[..., d:] == 0), tag
         np.testing.assert_allclose(got[..., :d].numpy(), np.asarray(want),
                                    err_msg=tag, **FP32_TOL)
+
+
+@pytest.mark.parametrize("d", [160, 200, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_to_256_match_pallas(causal, d):
+    """Head dims 129-256, the route of the D = 256 kernels (D = 256
+    itself unpadded)."""
+    _wide_head_dim_parity(d, causal, 256)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_above_256_match_pallas(causal, d):
+    """Head dims above 256, the split-D route: padded to the next multiple
+    of 256 (320 -> 512; 512 itself unpadded)."""
+    _wide_head_dim_parity(d, causal, 512)
+
+
+def test_d256_views_that_tma_refuses_by_kernel():
+    """At D = 256 the 16-bit forward and dK/dV read through TMA (the
+    wgmma kernels) and dQ through strides (csrc/flash_attn_d256.cu):
+    kernel_operands copies a bf16 or fp16 view that TMA refuses, and
+    counts the copy, for kind "fwd" and "bwd_dkv" only.  fp32 at D = 256
+    and every dtype on the split-D route (D = 512) read through strides:
+    no copy."""
+    def refused(d, dtype):
+        return torch.randn(2 * 3 * 8 * d + 1).to(dtype)[1:] \
+            .view(2, 3, 8, d)
+
+    for dtype in (torch.bfloat16, torch.float16):
+        view = refused(256, dtype)
+        assert not tattn.tma_accepts(view)
+        for kind, copied in (("fwd", True), ("bwd_dkv", True),
+                             ("bwd_dq", False)):
+            before = tattn.flash_attention.view_copies
+            dp, (got, other) = tattn.kernel_operands(256, view, view,
+                                                     kind=kind)
+            assert dp == 256
+            assert tattn.flash_attention.view_copies == \
+                before + (2 if copied else 0), kind
+            assert (got is not view) == copied, kind
+            assert torch.equal(got, view) and torch.equal(other, view)
+            if copied:
+                assert tattn.tma_accepts(got) and got.is_contiguous()
+    f32 = torch.zeros(2 * 3 * 8 * 256 + 1)[1:].view(2, 3, 8, 256)
+    wide = refused(512, torch.bfloat16)
+    before = tattn.flash_attention.view_copies
+    for kind in ("fwd", "bwd_dq", "bwd_dkv"):
+        _, (a,) = tattn.kernel_operands(256, f32, kind=kind)
+        dp, (b,) = tattn.kernel_operands(512, wide, kind=kind)
+        assert a is f32 and b is wide and dp == 512
+    assert tattn.flash_attention.view_copies == before
