@@ -29,10 +29,13 @@ is present.  Phases:
                heads) and D = 48 (over 16 heads) in fp32 and bf16 on the
                head-split views (bounds count the real D); head dim 256
                (hidden 2048 over 8 heads) in all three dtypes (bf16 and
-               fp16: the wgmma forward and dK/dV; fp32 and the 16-bit
-               dQ: csrc/flash_attn_d256.cu), causal both ways and ragged
+               fp16: the wgmma forward, dQ and dK/dV; fp32:
+               csrc/flash_attn_d256.cu), causal both ways and ragged
                S = 200 in bf16 and fp16; head dim 512 (hidden 2048 over 4
-               heads) in fp32 and bf16 on the split-D route.
+               heads) in all three dtypes and causal with Sq > Sk in
+               fp16, and head dim 768 (hidden 3072 over 4 heads) in bf16,
+               on the split-D routes (the 16-bit forward: the split-D
+               wgmma kernel; the rest: csrc/flash_attn_d256.cu).
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
                and fp16 5e-3 against the plain version, which rounds P
@@ -66,8 +69,10 @@ is present.  Phases:
                boundary (which TMA refuses) is copied by the wrappers and
                launched: forward, dQ and dK/dV equal to the last bit to
                the aligned tensors', 5 copies counted; the same at D = 256
-               with 3 copies (the wgmma forward and dK/dV copy, the dQ of
-               csrc/flash_attn_d256.cu reads through strides);
+               with 5 copies (the wgmma forward, dQ and dK/dV copy) and
+               at D = 512 with 1 (the split-D wgmma forward copies q, the
+               split-D dQ and dK/dV of csrc/flash_attn_d256.cu read
+               through strides);
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -210,18 +215,23 @@ KERNELS = {
                             "paddle_tpu/ops/fused_xent.py:42"),
 }
 # the kernels for head dims above 128, by route, kernel and dtype: the
-# 16-bit wgmma forward and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
-# flash_attn_bwd.cu), the kernels of csrc/flash_attn_d256.cu at D = 256
-# (fp32, and the 16-bit dQ) and at D = 256 n, n >= 2 (split-D; the case is
-# D = 512), each with the kernel case whose times it reports
+# 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
+# flash_attn_bwd.cu), the fp32 kernels of csrc/flash_attn_d256.cu at
+# D = 256, and at D = 256 n, n >= 2 (split-D; the case is D = 512) the
+# 16-bit split-D wgmma forward (csrc/flash_attn_fwd.cu) and the split-D
+# kernels of csrc/flash_attn_d256.cu (the fp32 forward, every dQ and
+# dK/dV), each with the kernel case whose times it reports
 _TPU_LINE = {"fwd": 125, "bwd_dq": 240, "bwd_dkv": 281}
 WIDE_KERNELS = []  # (summary name, route, kernel, kernel case)
 for _route, _kinds, _dts, _src, _case in (
-        ("wgmma256", ("fwd", "bwd_dkv"), ("bf16", "fp16"), None, "d256"),
+        ("wgmma256", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16", "fp16"), None,
+         "d256"),
         ("d256", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
          "d256"),
-        ("d256", ("bwd_dq",), ("bf16", "fp16"), "flash_attn_d256", "d256"),
-        ("split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32", "bf16"),
+        ("wgmma_split_d", ("fwd",), ("bf16", "fp16"), None, "d512"),
+        ("split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",),
+         "flash_attn_d256", "d512"),
+        ("split_d", ("bwd_dq", "bwd_dkv"), ("bf16", "fp16"),
          "flash_attn_d256", "d512")):
     for _kind in _kinds:
         for _dt in _dts:
@@ -399,10 +409,17 @@ def attention_cases(torch):
          False, False),
         ("d256_ragged_s200_causal_fp16", 2, 8, 200, 200, 256,
          torch.float16, True, False),
-        # head dim 512 (hidden 2048 over 4 heads): the split-D kernels of
-        # csrc/flash_attn_d256.cu, two 256-column chunks
+        # head dim 512 (hidden 2048 over 4 heads), two 256-column chunks:
+        # the 16-bit forward on the split-D wgmma kernel, the fp32 forward
+        # and every dQ and dK/dV on the split-D kernels of
+        # csrc/flash_attn_d256.cu; causal with Sq > Sk in fp16
         ("d512_fp32", 8, 4, 512, 512, 512, torch.float32, False, True),
         ("d512_bf16", 8, 4, 512, 512, 512, torch.bfloat16, False, True),
+        ("d512_fp16", 8, 4, 512, 512, 512, torch.float16, False, True),
+        ("d512_causal_sq_gt_sk_fp16", 2, 4, 512, 384, 512, torch.float16,
+         True, False),
+        # head dim 768 (hidden 3072 over 4 heads): three chunks
+        ("d768_bf16", 8, 4, 512, 512, 768, torch.bfloat16, False, True),
     ]
 
 
@@ -592,9 +609,10 @@ def view_copy_phase(torch, attn):
     copied to a contiguous tensor where a kernel reads it through TMA and
     then launched: the forward, dQ and dK/dV on the shifted q and dO give
     the bits of the aligned tensors, and flash_attention.view_copies
-    counts the copies.  D = 64: 5 copies (q in each of the three launches,
-    dO in two); D = 256: 3 (the wgmma forward and dK/dV copy, the dQ of
-    csrc/flash_attn_d256.cu reads through strides)."""
+    counts the copies.  D = 64 and D = 256: 5 copies (q in each of the
+    three launches, dO in two); D = 512: 1 (q in the split-D wgmma
+    forward; the split-D dQ and dK/dV of csrc/flash_attn_d256.cu read
+    through strides)."""
     gen = torch.Generator(device="cuda").manual_seed(77)
 
     def shifted(t):  # t's values in a view 2 elements past 16 bytes
@@ -604,7 +622,8 @@ def view_copy_phase(torch, attn):
         return view
 
     for (b, h, s, d), want_copies in (((2, 12, 512, 64), 5),
-                                      ((2, 8, 512, 256), 3)):
+                                      ((2, 8, 512, 256), 5),
+                                      ((2, 4, 512, 512), 1)):
         q, k, v, do = (attention_inputs(torch, gen, b, h, s, d,
                                         torch.bfloat16, False)
                        for _ in range(4))
@@ -1330,17 +1349,19 @@ def train_profile(torch, exe, main, feed, loss, config):
              key=lambda r: -r[2])[:12]})
 
 # launches of the kernels for head dims above 128 on each main path, by
-# "route/kernel" (routes wgmma256, d256, split_d of ops.attention), from
-# the wrappers' launch counts of those routes: set to 0 just before the
-# path and read just after; the graph-replayed steps add the profiler's
-# count
-WIDE_ROUTES = ("wgmma256", "d256", "split_d")
+# "route/kernel" (routes wgmma256, d256, wgmma_split_d, split_d of
+# ops.attention), from the wrappers' launch counts of those routes: set to
+# 0 just before the path and read just after; the graph-replayed steps add
+# the profiler's count
+WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "split_d")
 WIDE_LAUNCHES = {}
 # "route/kernel" -> the substring of its device name, for the profiler
 # (csrc/flash_attn_d256.cu runs D = 256 and split-D as one kernel each, so
 # the profiler counts both under d256)
 WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
+                     "wgmma256/bwd_dq": "flash_bwd_dq_wgmma_kernel<256",
                      "wgmma256/bwd_dkv": "flash_bwd_dkv_wgmma_kernel<256",
+                     "wgmma_split_d/fwd": "flash_fwd_split_d_wgmma_kernel",
                      "d256/fwd": "flash_fwd_d256",
                      "d256/bwd_dq": "flash_bwd_dq_d256",
                      "d256/bwd_dkv": "flash_bwd_dkv_d256"}
@@ -1626,7 +1647,8 @@ def main():
     # training / serving shape (PERF.md: bf16 forward <= 2x SDPA, dQ <=
     # 0.75x and dK/dV <= 1x the whole SDPA backward, fp32 forward <= 1x
     # SDPA fp32, fp32 dQ <= 0.5x and dK/dV <= 0.65x the whole SDPA fp32
-    # backward); recorded, not gated
+    # backward), and the wide-head-dim wgmma kernels at [8, 8, 512, 256]
+    # and [8, 4, 512, 512]; recorded, not gated
     log({"phase": "kernel_vs_library", **{
         tag: r["kernel_ms"] / r["library_ms"] for tag, r in (
             ("flash_fwd_bf16", fwd["slice_bf16"]),
@@ -1636,7 +1658,10 @@ def main():
             ("flash_bwd_dq_fp32", bwd["slice_fp32"]["dq"]),
             ("flash_bwd_dkv_fp32", bwd["slice_fp32"]["dkv"]),
             ("flash_fwd_wgmma256_bf16", fwd["d256_bf16"]),
-            ("flash_bwd_dkv_wgmma256_bf16", bwd["d256_bf16"]["dkv"]))}})
+            ("flash_bwd_dq_wgmma256_bf16", bwd["d256_bf16"]["dq"]),
+            ("flash_bwd_dkv_wgmma256_bf16", bwd["d256_bf16"]["dkv"]),
+            ("flash_fwd_wgmma_split_d_bf16", fwd["d512_bf16"]),
+            ("flash_fwd_wgmma_split_d_fp16", fwd["d512_fp16"]))}})
     xent = xent_kernel_phase(torch, fx)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)

@@ -73,6 +73,25 @@
 //     rows past Sq not stored).  Each dQ element is summed by one thread
 //     in a fixed order: no atomics, bitwise reproducible.
 //   At the training shape the grid is 4 x 12 x 8 = 384 CTAs, one per SM.
+//   D = 256 (and 129-255, zero-padded by the wrapper): the same kernel with
+//   `DqLayout::BK` = 32.  At BK = 64, q and dO resident (2 x 65,536 B)
+//   plus two stages of K and of V (4 x 32,768 B) would be 256 KB, over the
+//   232,448 B a block may opt in to; with BK = 32 the stages take
+//   4 x 16,384 B, 197,688 B in all with the barriers and the alignment
+//   slack (a third stage would also fit, 230.5 KB, and was no faster in
+//   a trial build on an H100; two are kept, as at D <= 128).  Per consumer thread: the dQ accumulator 64 x 256 fp32 over
+//   128 threads = 128 registers, S and dP m64n32 fragments of 16 each, dS
+//   packed 8, inside the 240 of `setmaxnreg`.  S = q k^T and dP = dO v^T
+//   are m64n32k16 over 16 k-steps (K-major, from the 4 boxes); dQ += dS k
+//   is two k16 slices x four n64 products, one per 64-column box of k read
+//   MN-major.  Bound at [8, 8, 512, 256]: 25.8 GFLOP take 26.1 us on the
+//   tensor cores, 84 MB of inputs and outputs take 25.1 us, so the
+//   operations bound it; the grid is 4 x 8 x 8 = 256 CTAs.  The narrow
+//   key tile doubles the barrier round trips and the dS packs per key
+//   against D <= 128, and n32 products feed the tensor cores half as much
+//   per instruction as n64: the price of holding the 128-register
+//   accumulator beside two score fragments.  Causal tile skipping,
+//   fully-masked rows and the absence of atomics are as above.
 //
 //   dK/dV: one CTA per (128 keys, head, batch).
 //   * K and V are loaded once by TMA and stay resident.  q and dO tiles of
@@ -91,8 +110,8 @@
 //     that sees the CTA's first key.  Keys past Sk are computed on
 //     zero-filled k and v and not stored (a key row of dK/dV depends only
 //     on its own row of P^T and dS^T).
-//   D = 256 (and 129-255, zero-padded by the wrapper; the 16-bit dQ at
-//   D = 256 stays on flash_attn_d256.cu).  The layout above does not fit:
+//   D = 256 (and 129-255, zero-padded by the wrapper).  The layout above
+//   does not fit:
 //   one warpgroup holding dK and dV for 64 keys x 256 columns in fp32
 //   would need 2 x 128 = 256 registers a thread, over the 255 cap, and
 //   K and V resident for 128 keys plus two q/dO stages would need 256 KB
@@ -690,7 +709,6 @@ using hopper::Wgmma;
 
 constexpr int BQ = 64;          // dK/dV: query rows per streamed tile
 constexpr int DQ_BQ = 128;      // dQ: query rows per CTA (two consumers)
-constexpr int DQ_BK = 64;       // dQ: keys per streamed K/V tile
 constexpr int THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
@@ -1023,9 +1041,13 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
 
 // dQ shared memory: q and dO (resident), two stages of K and two of V,
 // each as D / COLS boxes of [rows][COLS] 16-bit elements; then the
-// mbarriers
+// mbarriers.  BK keys per K/V tile: 64 up to D = 128; 32 at D = 256, where
+// 64 keys would need 128 KB of q and dO plus 4 x 32 KB of K/V stages, more
+// than a block may hold (S and dP are then m64n32 fragments, 16 fp32
+// registers each, beside the 128 of the 64 x 256 dQ accumulator)
 template <int D>
 struct DqLayout {
+  static constexpr int BK = D > 128 ? 32 : 64;
   static constexpr int COLS = hopper::box_cols(D);
   static constexpr int NBOX = D / COLS;
   static constexpr int SWIZZLE =
@@ -1033,7 +1055,7 @@ struct DqLayout {
   static constexpr uint32_t ROW = COLS * 2;        // bytes of a box row
   static constexpr uint32_t SBO = 8 * ROW;         // next 8-row group
   static constexpr uint32_t Q_BOX = DQ_BQ * ROW;
-  static constexpr uint32_t KV_BOX = DQ_BK * ROW;
+  static constexpr uint32_t KV_BOX = BK * ROW;
   static constexpr uint32_t Q_BYTES = NBOX * Q_BOX;
   static constexpr uint32_t KV_BYTES = NBOX * KV_BOX;
   static constexpr uint32_t Q_OFF = 0;
@@ -1042,6 +1064,8 @@ struct DqLayout {
   static constexpr uint32_t V_OFF = K_OFF + 2 * KV_BYTES;
   static constexpr uint32_t BAR_OFF = V_OFF + 2 * KV_BYTES;
   static constexpr size_t SMEM = BAR_OFF + 7 * 8 + 1024;  // + align slack
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "dQ tiles exceed the shared-memory opt-in");
 };
 
 template <int D, typename T>
@@ -1055,6 +1079,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           T* __restrict__ dq, int H, int Sq,
                           int Sk, int causal, float scale) {
   using L = DqLayout<D>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -1067,11 +1092,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int shift = Sk - Sq;  // bottom-right causal alignment
-  int n_tiles = (Sk + DQ_BK - 1) / DQ_BK;
+  int n_tiles = (Sk + BK - 1) / BK;
   if (causal) {
     // keys visible to the CTA's last row (attention.py:273)
     const int hi = q0 + DQ_BQ + shift;
-    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + DQ_BK - 1) / DQ_BK);
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
   }
 
   if (threadIdx.x == 0) {
@@ -1106,17 +1131,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::mbar_arrive_expect_tx(k_full + s, L::KV_BYTES);
         for (int b = 0; b < L::NBOX; ++b)
           hopper::tma_load_4d(sk + b * L::KV_BOX, &tk, k_full + s,
-                              b * L::COLS, t * DQ_BK, hh, bb);
+                              b * L::COLS, t * BK, hh, bb);
         hopper::mbar_arrive_expect_tx(v_full + s, L::KV_BYTES);
         for (int b = 0; b < L::NBOX; ++b)
           hopper::tma_load_4d(sv + b * L::KV_BOX, &tv, v_full + s,
-                              b * L::COLS, t * DQ_BK, hh, bb);
+                              b * L::COLS, t * BK, hh, bb);
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
-    constexpr int SN = DQ_BK / 2;     // S / dP fragment: 32 fp32
+    constexpr int SN = BK / 2;        // S / dP fragment: 32 or 16 fp32
     constexpr int ON = L::COLS / 2;   // dQ fragment per box
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
@@ -1151,7 +1176,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t & 1;
       const uint32_t phase = (t >> 1) & 1;
-      const int k0 = t * DQ_BK;
+      const int k0 = t * BK;
       const uint8_t* sk = smem + L::K_OFF + s * L::KV_BYTES;
       const uint8_t* sv = smem + L::V_OFF + s * L::KV_BYTES;
 
@@ -1164,7 +1189,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<DQ_BK, 0, T>::ss(
+        Wgmma<BK, 0, T>::ss(
             sacc,
             hopper::make_desc(sq + b * L::Q_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -1178,7 +1203,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int b = kk * 16 / L::COLS, c = kk * 16 % L::COLS;
-        Wgmma<DQ_BK, 0, T>::ss(
+        Wgmma<BK, 0, T>::ss(
             dpacc,
             hopper::make_desc(sdo + b * L::Q_BOX + c * 2, 16, L::SBO,
                               L::SWIZZLE),
@@ -1193,7 +1218,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sacc);
       const bool need_mask =
-          k0 + DQ_BK > Sk || (causal && k0 + DQ_BK - 1 > qw0 + shift);
+          k0 + BK > Sk || (causal && k0 + BK - 1 > qw0 + shift);
 #pragma unroll
       for (int i = 0; i < SN; ++i) {
         const int h = (i / 2) % 2;
@@ -1209,9 +1234,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // dQ += dS k (the TPU kernel's `ds.astype(ks.dtype)`)
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dpacc);
-      uint32_t dsa[DQ_BK / 16][4];
+      uint32_t dsa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = 8 * kk + 2 * r, h = r % 2;
@@ -1225,7 +1250,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int b = 0; b < L::NBOX; ++b) hopper::fence_regs(dq_acc[b]);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int b = 0; b < L::NBOX; ++b)
           Wgmma<L::COLS, 1, T>::rs(
@@ -1270,10 +1295,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                                            st.q_sh, st.q_ss, DQ_BQ);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
-                                 st.k_ss, DQ_BK);
+                                 st.k_ss, DqLayout<D>::BK);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
-                                 st.v_ss, DQ_BK);
+                                 st.v_ss, DqLayout<D>::BK);
   if (err == cudaSuccess)
     err = hopper::encode_bhsd<T>(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
                                  st.o_ss, DQ_BQ);
@@ -1306,6 +1331,9 @@ cudaError_t dq_dispatch(int D, const void* q, const void* k, const void* v,
                               causal, scale, s);
     case 128:
       return launch_dq<128, T>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
+                               causal, scale, s);
+    case 256:
+      return launch_dq<256, T>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, st,
                                causal, scale, s);
     default:
       return cudaErrorInvalidValue;

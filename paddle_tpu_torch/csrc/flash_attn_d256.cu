@@ -1,6 +1,6 @@
 // Flash attention at head dims 256 n (n >= 1) for NVIDIA Hopper (sm_90a),
-// written by hand: the forward and the two backward kernels (dQ, dK/dV) for
-// fp32, bf16 and fp16 inputs, on fp32 FMAs from shared memory.
+// written by hand: the forward and the two backward kernels (dQ, dK/dV),
+// on fp32 FMAs from shared memory, for what no wgmma kernel runs yet.
 //
 // Replaces, for wide head dims, the same three Pallas TPU kernels that
 // flash_attn_fwd.cu and flash_attn_bwd.cu replace up to 128:
@@ -9,11 +9,16 @@
 // wrapper (paddle_tpu_torch/ops/attention.py) zero-pads a head dim up to
 // 256 (129-255) or to the next multiple of 256 (above 256), which leaves
 // q k^T, lse and rowsum(dO * O) unchanged.  What runs here:
-//   * D = 256: every fp32 kernel, and the 16-bit dQ (the 16-bit forward
-//     and dK/dV run the wgmma kernels of flash_attn_fwd.cu and
+//   * D = 256: the fp32 forward, dQ and dK/dV (the 16-bit forward, dQ and
+//     dK/dV are the wgmma kernels of flash_attn_fwd.cu and
 //     flash_attn_bwd.cu at D = 256);
-//   * D = 256 n, n >= 2 (the split-D route): all three kernels in every
-//     dtype.
+//   * D = 256 n, n >= 2 (the split-D route): the fp32 forward, and the dQ
+//     and dK/dV in fp32, bf16 and fp16 (the 16-bit forward is the split-D
+//     wgmma kernel of flash_attn_fwd.cu).
+// No other instance is compiled: the C entries return
+// cudaErrorInvalidValue for the 16-bit forward and for the 16-bit dQ and
+// dK/dV at n = 1, so a wrong route raises and never runs a replaced
+// kernel.
 //
 // The functions, held equal to the TPU kernels and to the D <= 128
 // kernels:
@@ -62,8 +67,9 @@
 //     are reloaded per streamed tile.  Only chunk 0 writes lse.  Each
 //     kernel has an instance per case (template flag SPLIT): at n = 1 the
 //     chunk loop is compiled away and the kernel is the D = 256 kernel it
-//     was (with the loop left to run time, the 16-bit dQ ran 16% slower
-//     on an H100).
+//     was (with the loop left to run time, the 16-bit D = 256 dQ this
+//     file ran before the wgmma dQ took it over was 16% slower on an
+//     H100).
 //   * Any Sq and Sk (ragged tiles masked; rows past the end load as zero
 //     with lse = -inf and are never stored); q, k, v and dO are read
 //     through batch/head/sequence strides with a contiguous head dim; out,
@@ -648,17 +654,18 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
   return cudaSuccess;
 }
 
-template <typename T>
+// one launcher per (T, SPLIT) instance: SPLIT = false runs D = 256
+// (nchunk 1), SPLIT = true D = 256 n, n >= 2
+template <typename T, bool SPLIT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Sq, int Sk, int nchunk,
                        const Strides& st, int causal, float scale,
                        cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
-  static bool smem_set[2][kMaxDevices] = {};
+  static bool smem_set[kMaxDevices] = {};
   const size_t smem = fwd_smem_bytes<D, FWD_BQ, FWD_BK>();
-  auto kernel = nchunk > 1 ? flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK, true>
-                           : flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK, false>;
-  cudaError_t err = opt_in_smem(kernel, smem, smem_set[nchunk > 1]);
+  auto kernel = flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK, SPLIT>;
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ * nchunk, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -668,19 +675,17 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dd,
                       void* dq, int B, int H, int Sq, int Sk, int nchunk,
                       const Strides& st, int causal, float scale,
                       cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
-  static bool smem_set[2][kMaxDevices] = {};
+  static bool smem_set[kMaxDevices] = {};
   const size_t smem = dq_smem_bytes<D, DQ_BQ, DQ_BK>();
-  auto kernel = nchunk > 1
-                    ? flash_bwd_dq_d256_kernel<T, D, DQ_BQ, DQ_BK, true>
-                    : flash_bwd_dq_d256_kernel<T, D, DQ_BQ, DQ_BK, false>;
-  cudaError_t err = opt_in_smem(kernel, smem, smem_set[nchunk > 1]);
+  auto kernel = flash_bwd_dq_d256_kernel<T, D, DQ_BQ, DQ_BK, SPLIT>;
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ * nchunk, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -691,19 +696,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int B, int H, int Sq, int Sk,
                        int nchunk, const Strides& st, int causal,
                        float scale, cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
-  static bool smem_set[2][kMaxDevices] = {};
+  static bool smem_set[kMaxDevices] = {};
   const size_t smem = dkv_smem_bytes<D, DKV_BK, DKV_BQ>();
-  auto kernel = nchunk > 1
-                    ? flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ, true>
-                    : flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ, false>;
-  cudaError_t err = opt_in_smem(kernel, smem, smem_set[nchunk > 1]);
+  auto kernel = flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ, SPLIT>;
+  cudaError_t err = opt_in_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sk + DKV_BK - 1) / DKV_BK * nchunk, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -729,11 +732,19 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; D must be a multiple of
 // 256 (256 n: n blocks per tile, one per 256-column chunk of the output).
+// What each entry runs, by dtype (anything else returns
+// cudaErrorInvalidValue, so a wrong route raises in the wrapper and runs
+// no replaced kernel):
+//   forward  fp32, D = 256 n, n >= 1 (bf16 and fp16: flash_attn_fwd.cu);
+//   dQ       fp32, n >= 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma dQ
+//            of flash_attn_bwd.cu);
+//   dK/dV    fp32, n >= 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma
+//            dK/dV of flash_attn_bwd.cu).
 // Strides (in elements) of q, k, v (and dO): batch, head, sequence; the
 // head dim must be contiguous.  out [B, H, Sq, D] and lse [B, H, Sq] are
-// written contiguous.  Each entry returns the CUDA error code of its launch (0 on
-// success); the kernels are asynchronous on `stream`.  The caller makes
-// the tensors' device current.
+// written contiguous.  Each entry returns the CUDA error code of its
+// launch (0 on success); the kernels are asynchronous on `stream`.  The
+// caller makes the tensors' device current.
 int flash_attn_d256_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int H, int Sq, int Sk,
                         int D, long long q_sb, long long q_sh,
@@ -741,24 +752,16 @@ int flash_attn_d256_fwd(const void* q, const void* k, const void* v, void* o,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, int causal, float scale,
                         void* stream) {
-  if (D <= 0 || D % HEAD_DIM) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % HEAD_DIM || dtype != 0)
+    return (int)cudaErrorInvalidValue;
   const int n = D / HEAD_DIM;
   const Strides st = make_strides(q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                                   v_sh, v_ss, 0, 0, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch_fwd<float>(q, k, v, o, lse, B, H, Sq, Sk, n, st, causal,
-                            scale, s);
-  else if (dtype == 1)
-    err = launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, n, st,
-                                    causal, scale, s);
-  else if (dtype == 2)
-    err = launch_fwd<__half>(q, k, v, o, lse, B, H, Sq, Sk, n, st, causal,
-                             scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)(n > 1 ? launch_fwd<float, true>(q, k, v, o, lse, B, H, Sq,
+                                               Sk, n, st, causal, scale, s)
+                     : launch_fwd<float, false>(q, k, v, o, lse, B, H, Sq,
+                                                Sk, n, st, causal, scale, s));
 }
 
 // lse and D are contiguous fp32 [B, H, Sq]; dq [B, H, Sq, D] (and dk, dv
@@ -779,14 +782,18 @@ int flash_attn_d256_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dq<float>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, n, st,
-                           causal, scale, s);
+    err = n > 1 ? launch_dq<float, true>(q, k, v, dout, lse, dd, dq, B, H,
+                                         Sq, Sk, n, st, causal, scale, s)
+                : launch_dq<float, false>(q, k, v, dout, lse, dd, dq, B, H,
+                                          Sq, Sk, n, st, causal, scale, s);
+  else if (n == 1)
+    err = cudaErrorInvalidValue;
   else if (dtype == 1)
-    err = launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
-                                   n, st, causal, scale, s);
+    err = launch_dq<__nv_bfloat16, true>(q, k, v, dout, lse, dd, dq, B, H,
+                                         Sq, Sk, n, st, causal, scale, s);
   else if (dtype == 2)
-    err = launch_dq<__half>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk, n, st,
-                            causal, scale, s);
+    err = launch_dq<__half, true>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
+                                  n, st, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -808,14 +815,20 @@ int flash_attn_d256_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dkv<float>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk, n,
-                            st, causal, scale, s);
+    err = n > 1 ? launch_dkv<float, true>(q, k, v, dout, lse, dd, dk, dv, B,
+                                          H, Sq, Sk, n, st, causal, scale, s)
+                : launch_dkv<float, false>(q, k, v, dout, lse, dd, dk, dv,
+                                           B, H, Sq, Sk, n, st, causal,
+                                           scale, s);
+  else if (n == 1)
+    err = cudaErrorInvalidValue;
   else if (dtype == 1)
-    err = launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                    Sk, n, st, causal, scale, s);
+    err = launch_dkv<__nv_bfloat16, true>(q, k, v, dout, lse, dd, dk, dv, B,
+                                          H, Sq, Sk, n, st, causal, scale,
+                                          s);
   else if (dtype == 2)
-    err = launch_dkv<__half>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
-                             n, st, causal, scale, s);
+    err = launch_dkv<__half, true>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                                   Sk, n, st, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

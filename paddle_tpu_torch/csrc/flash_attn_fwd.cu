@@ -26,7 +26,7 @@
 // that transpose2 produces needs no copy; D is contiguous.  out and lse
 // are written contiguous.
 //
-// Two kernels, dispatched by dtype in the C entry at the end:
+// The kernels, dispatched by dtype and head dim in the C entry at the end:
 //
 // bf16 (the AMP training path) and fp16: `flash_fwd_wgmma_kernel<D, T>`,
 //   one source for both 16-bit types (they differ in the wgmma type
@@ -81,6 +81,37 @@
 //   20.1 us, so the bytes bound it; the grid is 4 x 8 x 8 = 256 CTAs, two
 //   waves on 132 SMs.  A view TMA refuses is copied by the wrapper, as at
 //   D <= 128.
+//   D = 256 n, n >= 2 (the split-D route; 257-511 are zero-padded to 512
+//   by the wrapper): `flash_fwd_split_d_wgmma_kernel<T>`, one kernel for
+//   every n.  A resident 128-row q tile is 128 n KB (192 KB at n = 3), so
+//   the D = 256 layout cannot grow with D.  Instead:
+//   * a grid dimension over 256-column chunks of O (folded into
+//     blockIdx.x, the chunks of one q tile adjacent): each CTA owns 128
+//     query rows and one chunk, 64 x 256 fp32 of O per consumer
+//     warpgroup, 128 registers, as at D = 256;
+//   * the reduction over D runs on the tensor cores: per key tile of
+//     BK = 64 the producer streams the 4n (q box, k box) pairs of 64
+//     columns (16,384 + 8,192 B) through a ring of 6 stages, and the
+//     consumers accumulate S in registers with m64n64k16 wgmmas, one
+//     commit group per pair, releasing a stage once the next pair's group
+//     is in flight (wgmma wait 1); then the CTA's own four V boxes (two
+//     V stages of 32,768 B) give O += P v as at D = 256.  The ring and
+//     the V stages take 214,144 B with the barriers and the slack,
+//     whatever n;
+//   * every chunk's CTA computes S with the same instructions in the same
+//     order, so m, l and lse agree to the bit across the chunks and the
+//     normalised chunks of O fit together; only chunk 0 writes lse.
+//   The price: each chunk's CTA recomputes the scores over all of D, n
+//   times the q k^T work (at n = 2, 1.5x the forward's tensor work), and
+//   q is re-read from L2 for every key tile while each CTA reads k over
+//   all of D.  Bound at [8, 4, 512, 512]: 17.2 GFLOP of real work take
+//   17.4 us on the tensor cores (25.8 GFLOP, 26.1 us, with the recompute),
+//   67 MB of inputs and outputs take 20.1 us, so the bytes bound it; the
+//   grid is 4 x 2 x 4 x 8 = 256 CTAs, which read about 0.47 GB from L2
+//   per call (per key tile and CTA 128 KB of q, 64 KB of k, 32 KB of v).
+//   Semantics (bottom-right causal mask with tiles above the diagonal
+//   skipped, fully-masked rows 0 with lse -inf, P rounded to T before
+//   P v) are those of the D <= 256 kernel.
 //
 // fp32 (serving, fp32 training): `flash_fwd_tf32_kernel`, 3xTF32 on
 //   the tensor cores.  Bound at S = 512, D = 64: 6.4 GFLOP over the 67
@@ -668,6 +699,306 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and fp16 at D = 256 n, n >= 2: the split-D forward.  A CTA owns 128
+// query rows and one 256-column chunk of O (64 x 256 fp32 per consumer
+// warpgroup, 128 registers, as at D = 256).  The scores reduce over all of
+// D: (q box, k box) pairs of 64 columns stream by TMA through a ring of
+// STAGES stages, so shared memory does not grow with D, and S accumulates
+// in registers over the 4n pairs (m64n64k16, one commit group per pair).
+// Then the CTA's own four V boxes (two V stages) give O += P v.
+// ---------------------------------------------------------------------------
+struct SplitLayout {
+  static constexpr int BK = 64;        // keys per tile
+  static constexpr int CHUNK = 256;    // output columns per CTA
+  static constexpr int COLS = 64;      // columns of a box
+  static constexpr int OWN = CHUNK / COLS;  // the CTA's V boxes
+  static constexpr int STAGES = 6;     // (q box, k box) pairs in flight
+  static constexpr uint32_t ROW = COLS * 2;        // bytes of a box row
+  static constexpr uint32_t SBO = 8 * ROW;         // next 8-row group
+  static constexpr uint32_t Q_BOX = BQ * ROW;      // 16,384
+  static constexpr uint32_t K_BOX = BK * ROW;      // 8,192
+  static constexpr uint32_t PAIR = Q_BOX + K_BOX;  // one ring stage
+  static constexpr uint32_t V_BYTES = OWN * K_BOX; // one V stage
+  static constexpr uint32_t V_OFF = STAGES * PAIR;
+  static constexpr uint32_t BAR_OFF = V_OFF + 2 * V_BYTES;
+  // pair_full, pair_empty per ring stage; v_full, v_empty per V stage
+  static constexpr size_t SMEM = BAR_OFF + (2 * STAGES + 4) * 8 + 1024;
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "split-D forward tiles exceed the shared-memory opt-in");
+  static_assert(PAIR % 1024 == 0 && V_BYTES % 1024 == 0,
+                "every tile must start on a 1024-byte swizzle atom");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_split_d_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               T* __restrict__ o, float* __restrict__ lse,
+                               int H, int Sq, int Sk, int n_chunks,
+                               int causal, float scale_log2) {
+  using L = SplitLayout;
+  constexpr int BK = L::BK;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* pair_full = bars;                 // [STAGES] q and k box landed
+  uint64_t* pair_empty = bars + STAGES;       // [STAGES] both consumers'
+                                              // wgmmas read the stage
+  uint64_t* v_full = bars + 2 * STAGES;       // [2] the V boxes landed
+  uint64_t* v_empty = v_full + 2;             // [2] both consumers done
+
+  const int chunk = blockIdx.x % n_chunks;    // the CTA's output columns
+  const int q0 = blockIdx.x / n_chunks * BQ;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int nbox = n_chunks * L::OWN;         // 64-column boxes of D
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    const int hi = q0 + BQ + shift;  // keys visible to the CTA's last row
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(pair_full + s, 1);
+      hopper::mbar_init(pair_empty + s, 2 * 128);
+    }
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(v_empty + s, 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread starts every TMA load.  Per key tile the
+    // CTA's V boxes (V stage t & 1), then the 4n (q box, k box) pairs
+    // through the ring; a stage's use u waits for the release of use u - 1
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      int slot = 0, use = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int vs = t & 1;
+        if (t >= 2) hopper::mbar_wait(v_empty + vs, ((t >> 1) + 1) & 1);
+        uint8_t* sv = smem + L::V_OFF + vs * L::V_BYTES;
+        hopper::mbar_arrive_expect_tx(v_full + vs, L::V_BYTES);
+        for (int b = 0; b < L::OWN; ++b)
+          hopper::tma_load_4d(sv + b * L::K_BOX, &tv, v_full + vs,
+                              chunk * L::CHUNK + b * L::COLS, t * BK, hh, bb);
+        for (int j = 0; j < nbox; ++j) {
+          if (use > 0) hopper::mbar_wait(pair_empty + slot, (use - 1) & 1);
+          uint8_t* sp = smem + slot * L::PAIR;
+          hopper::mbar_arrive_expect_tx(pair_full + slot, L::PAIR);
+          hopper::tma_load_4d(sp, &tq, pair_full + slot, j * L::COLS, q0,
+                              hh, bb);
+          hopper::tma_load_4d(sp + L::Q_BOX, &tk, pair_full + slot,
+                              j * L::COLS, t * BK, hh, bb);
+          if (++slot == STAGES) {
+            slot = 0;
+            ++use;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int SN = BK / 2;        // S fragment: 32 fp32 a thread
+    constexpr int ON = L::COLS / 2;   // O fragment per box
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int qw0 = q0 + 64 * wg;               // the warpgroup's first row
+    const int row = qw0 + 16 * (tid / 32) + lane / 4;  // rows row, row + 8
+    const uint32_t q_rows = 64 * wg * L::ROW;   // its rows in a q box
+
+    float o_acc[L::OWN][ON];
+#pragma unroll
+    for (int b = 0; b < L::OWN; ++b)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) o_acc[b][i] = 0.f;
+    float sacc[SN];
+#pragma unroll
+    for (int i = 0; i < SN; ++i) sacc[i] = 0.f;
+    // running max (log2 units) and this thread's share of the row sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    int slot = 0;
+    uint32_t phase = 0;  // parity of the ring's current use
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * BK;
+
+      // S = q k^T over the 4n pairs, in the same order in every chunk's
+      // CTA (so m, l and lse agree to the bit): A = the warpgroup's q rows
+      // of the pair's q box, B = its k box, both K-major.  One commit
+      // group per pair; a stage is released once the next pair's group is
+      // issued and its own has completed (wgmma wait 1)
+      hopper::fence_regs(sacc);
+      int prev = 0;
+      for (int j = 0; j < nbox; ++j) {
+        hopper::mbar_wait(pair_full + slot, phase);
+        const uint8_t* sp = smem + slot * L::PAIR;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::COLS / 16; ++kk)
+          Wgmma<BK, 0, T>::ss(
+              sacc,
+              hopper::make_desc(sp + q_rows + kk * 32, 16, L::SBO,
+                                hopper::kSwizzle128B),
+              hopper::make_desc(sp + L::Q_BOX + kk * 32, 16, L::SBO,
+                                hopper::kSwizzle128B),
+              (j | kk) != 0);
+        hopper::wgmma_commit();
+        if (j > 0) {
+          hopper::wgmma_wait<1>();
+          hopper::mbar_arrive(pair_empty + prev);
+        }
+        prev = slot;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sacc);
+      hopper::mbar_arrive(pair_empty + prev);
+
+      // scale to log2 units; mask keys past Sk (TMA zero-filled them) and
+      // above the causal diagonal, on the tiles that have such keys
+      const bool need_mask =
+          k0 + BK > Sk || (causal && k0 + BK - 1 > qw0 + shift);
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        float x = sacc[i] * scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          const int qpos = row + 8 * ((i / 2) % 2);
+          if (kpos >= Sk || (causal && kpos > qpos + shift)) x = -INFINITY;
+        }
+        sacc[i] = x;
+      }
+
+      // online softmax, rows row (h = 0) and row + 8 (h = 1)
+      float alpha[2], safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[h];
+#pragma unroll
+        for (int i = 0; i < SN; ++i)
+          if ((i / 2) % 2 == h) mx = fmaxf(mx, sacc[i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row masked so far keeps m = -inf and P = exp2(-inf - 0) = 0
+        safe[h] = mx == -INFINITY ? 0.f : mx;
+        alpha[h] = m[h] == -INFINITY ? 0.f : exp2f(m[h] - safe[h]);
+        m[h] = mx;
+      }
+      // P in fp32 for the row sum, packed to T as the A operand of P v
+      uint32_t pa[BK / 16][4];
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r, h = r % 2;
+          const float p0 = exp2f(sacc[i] - safe[h]);
+          const float p1 = exp2f(sacc[i + 1] - safe[h]);
+          psum[h] += p0 + p1;
+          pa[kk][r] = hopper::pack2<T>(p0, p1);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + psum[h];
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b)
+#pragma unroll
+        for (int i = 0; i < ON; ++i) o_acc[b][i] *= alpha[(i / 2) % 2];
+
+      // O += P v: A = P from registers, B = the CTA's V boxes MN-major,
+      // one 16-key slice and one box per instruction
+      const int vs = t & 1;
+      const uint8_t* sv = smem + L::V_OFF + vs * L::V_BYTES;
+      hopper::mbar_wait(v_full + vs, (t >> 1) & 1);
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b) hopper::fence_regs(o_acc[b]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int b = 0; b < L::OWN; ++b)
+          Wgmma<L::COLS, 1, T>::rs(
+              o_acc[b], pa[kk],
+              hopper::make_desc(sv + b * L::K_BOX + kk * 16 * L::ROW,
+                                L::K_BOX, L::SBO, hopper::kSwizzle128B),
+              1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b) hopper::fence_regs(o_acc[b]);
+      hopper::mbar_arrive(v_empty + vs);
+    }
+
+    // epilogue: the chunk's columns of O / l to T; lse = (m + log2 l) ln 2
+    // from chunk 0 only (every chunk computed the same m and l); rows past
+    // Sq are not stored
+    const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
+    const int64_t d_total = (int64_t)n_chunks * L::CHUNK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int qpos = row + 8 * h;
+      if (qpos >= Sq) continue;
+      const float denom = fmaxf(l[h], 1e-30f);
+      const float inv = 1.f / denom;
+      T* orow = o + (row_base + qpos) * d_total + chunk * L::CHUNK +
+                2 * (lane % 4);
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b)
+#pragma unroll
+        for (int j = 0; j < L::COLS / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          *reinterpret_cast<uint32_t*>(orow + b * L::COLS + 8 * j) =
+              hopper::pack2<T>(o_acc[b][i] * inv, o_acc[b][i + 1] * inv);
+        }
+      if (chunk == 0 && lane % 4 == 0)
+        lse[row_base + qpos] =
+            m[h] == -INFINITY ? -INFINITY : (m[h] + log2f(denom)) * kLn2;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_split_d(const void* q, const void* k, const void* v,
+                           void* o, void* lse, int B, int H, int Sq, int Sk,
+                           int D, const long long* st, int causal,
+                           float scale, cudaStream_t stream) {
+  using L = SplitLayout;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err =
+      hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st[0], st[1], st[2], BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st[3], st[4], st[5],
+                                 L::BK);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st[6], st[7], st[8],
+                                 L::BK);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[kMaxDevices] = {};
+  err = opt_in_smem(flash_fwd_split_d_wgmma_kernel<T>, L::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = D / L::CHUNK;
+  dim3 grid((Sq + BQ - 1) / BQ * n_chunks, H, B);
+  flash_fwd_split_d_wgmma_kernel<T><<<grid, THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Sk,
+      n_chunks, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace wg
 
 typedef cudaError_t (*LaunchFn)(const void*, const void*, const void*, void*,
@@ -701,7 +1032,9 @@ LaunchFn pick(int dtype, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  strides (in elements)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 or 256,
+// or in bf16 and fp16 any multiple of 256 (the split-D kernel; fp32 above
+// 256 runs csrc/flash_attn_d256.cu).  strides (in elements)
 // for q, k, v: batch, head, sequence; the head dim must be contiguous
 // (bf16 and fp16: the base addresses 16-byte aligned and the byte strides
 // multiples of 16, as TMA needs).  out is [B, H, Sq, D] and lse
@@ -716,10 +1049,19 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    int causal, float scale, void* stream) {
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                            k_ss, v_sb, v_sh, v_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 256 && D % wg::SplitLayout::CHUNK == 0) {
+    if (dtype == 1)
+      return (int)wg::launch_split_d<__nv_bfloat16>(
+          q, k, v, o, lse, B, H, Sq, Sk, D, st, causal, scale, s);
+    if (dtype == 2)
+      return (int)wg::launch_split_d<__half>(q, k, v, o, lse, B, H, Sq, Sk,
+                                             D, st, causal, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   const LaunchFn fn = pick(dtype, D);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)fn(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale,
-                 static_cast<cudaStream_t>(stream));
+  return (int)fn(q, k, v, o, lse, B, H, Sq, Sk, st, causal, scale, s);
 }
 
 const char* flash_attn_error_string(int err) {

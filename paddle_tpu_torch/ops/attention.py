@@ -50,15 +50,19 @@ so this is exact, at the cost of the padded columns' bytes and
 operations (a D = 96 head does the work of D = 128).  The kernel head
 dim and the dtype select the kernel, each counted on its wrapper:
   * D <= 128: csrc/flash_attn_fwd.cu / flash_attn_bwd.cu (`launches`);
-  * D = 256, bf16 and fp16, the forward and dK/dV: the same wgmma kernels
-    at D = 256 (`launches_wgmma256`);
-  * D = 256 otherwise (fp32, and the 16-bit dQ): csrc/flash_attn_d256.cu,
-    fp32 FMAs from shared memory, strided views taken as they are
-    (`launches_d256`);
-  * D = 256 n, n >= 2, every dtype: the same kernels of
-    csrc/flash_attn_d256.cu with a grid dimension over 256-column chunks
-    of the output; each chunk's block recomputes the scores over all of
-    D, so the score work is n times its share (`launches_split_d`).
+  * D = 256, bf16 and fp16: the same wgmma forward, dQ and dK/dV at
+    D = 256 (`launches_wgmma256`);
+  * D = 256, fp32: csrc/flash_attn_d256.cu, fp32 FMAs from shared memory,
+    strided views taken as they are (`launches_d256`);
+  * D = 256 n, n >= 2, the bf16 and fp16 forward: the split-D wgmma
+    forward of csrc/flash_attn_fwd.cu, a CTA per 256-column chunk of the
+    output, (q, k) box pairs streamed through a TMA ring
+    (`launches_wgmma_split_d`);
+  * D = 256 n, n >= 2, the fp32 forward and every dQ and dK/dV: the
+    kernels of csrc/flash_attn_d256.cu with a grid dimension over
+    256-column chunks of the output (`launches_split_d`).
+    Both split-D routes recompute the scores over all of D in each
+    chunk's CTA, so the score work is n times its share.
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -95,6 +99,8 @@ _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
 _BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TMA_DTYPES = (torch.bfloat16, torch.float16)  # the wgmma kernels' inputs
+# the routes whose 16-bit kernels read q, k, v and dO through TMA
+_TMA_ROUTES = ("le128", "wgmma256", "wgmma_split_d")
 
 
 def enable_flash_attention(on: bool = True):
@@ -228,16 +234,18 @@ def tma_accepts(t):
 def _route(kind, dp, dtype):
     """Which kernel runs `kind` ("fwd", "bwd_dq" or "bwd_dkv") at kernel
     head dim dp in `dtype`: "le128" (csrc/flash_attn_fwd.cu /
-    flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma forward
-    and dK/dV at D = 256), "d256" (csrc/flash_attn_d256.cu at D = 256) or
-    "split_d" (the same file at D = 256 n, n >= 2)."""
+    flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma kernels
+    at D = 256), "d256" (csrc/flash_attn_d256.cu at D = 256, fp32),
+    "wgmma_split_d" (the 16-bit split-D wgmma forward of
+    csrc/flash_attn_fwd.cu at D = 256 n, n >= 2) or "split_d"
+    (csrc/flash_attn_d256.cu at D = 256 n, n >= 2: the fp32 forward and
+    every dQ and dK/dV)."""
     if dp < _D256:
         return "le128"
-    if dp > _D256:
-        return "split_d"
-    if dtype in _TMA_DTYPES and kind in ("fwd", "bwd_dkv"):
-        return "wgmma256"
-    return "d256"
+    wide16 = dtype in _TMA_DTYPES
+    if dp == _D256:
+        return "wgmma256" if wide16 else "d256"
+    return "wgmma_split_d" if wide16 and kind == "fwd" else "split_d"
 
 
 def kernel_operands(d, *tensors, kind="fwd"):
@@ -254,7 +262,7 @@ def kernel_operands(d, *tensors, kind="fwd"):
         if dp != d:
             t = torch.nn.functional.pad(t, (0, dp - d)).contiguous()
         elif t.dtype in _TMA_DTYPES and \
-                _route(kind, dp, t.dtype) in ("le128", "wgmma256") and \
+                _route(kind, dp, t.dtype) in _TMA_ROUTES and \
                 not tma_accepts(t):
             t = t.clone(memory_format=torch.contiguous_format)
             flash_attention.view_copies += 1
@@ -306,7 +314,9 @@ _ENTRIES = {"fwd": ("flash_attn_fwd", "flash_attn_d256_fwd"),
             "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_d256_bwd_dkv")}
 # route (see _route) -> the wrapper's launch count
 LAUNCH_COUNTS = {"le128": "launches", "wgmma256": "launches_wgmma256",
-                 "d256": "launches_d256", "split_d": "launches_split_d"}
+                 "d256": "launches_d256",
+                 "wgmma_split_d": "launches_wgmma_split_d",
+                 "split_d": "launches_split_d"}
 
 
 def _kernel_entry(kind, dp, dtype):

@@ -5,9 +5,9 @@ kernels, in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128 and
 the zero-padded D = 48, 96, ragged S, causal Sq != Sk, the strided
 head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
 views that TMA refuses, which are copied; head dims 129-256 on the
-16-bit wgmma forward and dK/dV at D = 256 and the kernels of
-csrc/flash_attn_d256.cu, head dims above 256 on that file's split-D
-route), the GPU Predictor against the
+16-bit wgmma forward, dQ and dK/dV at D = 256 and the fp32 kernels of
+csrc/flash_attn_d256.cu, head dims above 256 on the 16-bit split-D wgmma
+forward and that file's split-D kernels), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 and `Executor.run_steps` (CUDA-graph replay of the step) against eager
 `run()` steps.
@@ -207,6 +207,20 @@ def test_wgmma_dq_is_deterministic():
     first = tattn.flash_attention_bwd_dq_cuda(*args)
     second = tattn.flash_attention_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_wgmma_dq_d256_is_deterministic():
+    """The wgmma dQ at D = 256 (K/V tiles of 32 keys) has no atomics
+    either: two launches on the same inputs give the same bits, both on
+    the wgmma256 route."""
+    _need_cuda()
+    args = _dq_args(2, 4, 384, 384, 256, True, True, seed=4)
+    before = tattn.flash_attention_bwd_dq_cuda.launches_wgmma256
+    first = tattn.flash_attention_bwd_dq_cuda(*args)
+    second = tattn.flash_attention_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_bwd_dq_cuda.launches_wgmma256 == before + 2
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
@@ -632,20 +646,28 @@ _BF16, _FP16 = torch.bfloat16, torch.float16
     (1, 2, 200, 200, 512, _FP16, True, False),
     (1, 2, 160, 96, 320, _FP16, True, True),
     (1, 2, 130, 130, 512, _BF16, False, "refused"),
+    (1, 2, 160, 96, 512, _BF16, True, False),
+    # D = 768, three 256-column chunks
+    (1, 2, 96, 160, 768, _BF16, True, True),
+    (1, 2, 160, 96, 768, _FP16, True, False),
+    (1, 2, 200, 200, 768, _BF16, False, False),
+    (1, 2, 130, 130, 768, _FP16, False, "refused"),
 ])
 def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
                                            strided):
     """Head dims above 128.  D = 256 (and 160, 200 zero-padded to it): in
-    bf16 and fp16 the forward and dK/dV are the wgmma kernels at D = 256
-    (counted in `launches_wgmma256`) and dQ the kernel of
-    csrc/flash_attn_d256.cu (`launches_d256`); in fp32 all three are the
-    csrc/flash_attn_d256.cu kernels.  D = 256 n, n >= 2 (and 320 padded to
-    512): the split-D kernels of that file in every dtype
+    bf16 and fp16 the forward, dQ and dK/dV are the wgmma kernels at
+    D = 256 (counted in `launches_wgmma256`); in fp32 all three are the
+    csrc/flash_attn_d256.cu kernels (`launches_d256`).  D = 256 n, n >= 2
+    (and 320 padded to 512): the 16-bit forward is the split-D wgmma
+    kernel (`launches_wgmma_split_d`), the fp32 forward and every dQ and
+    dK/dV the split-D kernels of csrc/flash_attn_d256.cu
     (`launches_split_d`).  Each launch is counted once, on its own route.
     A view TMA refuses is copied where a wgmma kernel reads it (q in the
-    forward, q and dO in dK/dV), not for the kernels that read through
-    strides.  The forward, dQ and dK/dV against their plain versions at
-    TOL (the D <= 128 kernels' tolerances, for the same reasons)."""
+    forward, q and dO in dQ and in dK/dV: 5 copies at 16-bit D = 256, 1 at
+    16-bit D > 256), not for the kernels that read through strides.  The
+    forward, dQ and dK/dV against their plain versions at TOL (the
+    D <= 128 kernels' tolerances, for the same reasons)."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (_bhsd(g, b, h, s, d, dtype, strided is True)
@@ -654,12 +676,14 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
         q, do = _shifted(q), _shifted(do)
         assert not tattn.tma_accepts(q) and not tattn.tma_accepts(do)
     dp = tattn.kernel_head_dim(d)
+    wide16 = dtype != torch.float32
     if dp > 256:
-        want = ("launches_split_d",) * 3
-    elif dtype == torch.float32:
-        want = ("launches_d256",) * 3
+        want = ("launches_wgmma_split_d" if wide16 else "launches_split_d",
+                "launches_split_d", "launches_split_d")
+    elif wide16:
+        want = ("launches_wgmma256",) * 3
     else:
-        want = ("launches_wgmma256", "launches_d256", "launches_wgmma256")
+        want = ("launches_d256",) * 3
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
     names = tuple(tattn.LAUNCH_COUNTS.values())
@@ -676,8 +700,9 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     torch.cuda.synchronize()
     assert read() == [{n: c[n] + (n == w) for n in names}
                       for c, w in zip(before, want)]
-    wgmma_copies = 3 if strided == "refused" and dp == d == 256 and \
-        dtype != torch.float32 else 0
+    wgmma_copies = 0
+    if strided == "refused" and dp == d and wide16:
+        wgmma_copies = 5 if d == 256 else 1
     assert tattn.flash_attention.view_copies == copies + wgmma_copies
     tol = TOL[dtype]
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)

@@ -279,45 +279,87 @@ def test_head_dims_to_256_match_pallas(causal, d):
     _wide_head_dim_parity(d, causal, 256)
 
 
-@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("d", [320, 512, 768])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dims_above_256_match_pallas(causal, d):
-    """Head dims above 256, the split-D route: padded to the next multiple
-    of 256 (320 -> 512; 512 itself unpadded)."""
-    _wide_head_dim_parity(d, causal, 512)
+    """Head dims above 256, the split-D routes: padded to the next multiple
+    of 256 (320 -> 512; 512 and 768, three 256-column chunks, unpadded)."""
+    _wide_head_dim_parity(d, causal, -(-d // 256) * 256)
+
+
+# which route (and so which launch count) each kernel takes, by kind,
+# kernel head dim and dtype
+_ROUTES = {
+    (128, False): {"fwd": "le128", "bwd_dq": "le128", "bwd_dkv": "le128"},
+    (128, True): {"fwd": "le128", "bwd_dq": "le128", "bwd_dkv": "le128"},
+    (256, False): {"fwd": "d256", "bwd_dq": "d256", "bwd_dkv": "d256"},
+    (256, True): {"fwd": "wgmma256", "bwd_dq": "wgmma256",
+                  "bwd_dkv": "wgmma256"},
+    (512, False): {"fwd": "split_d", "bwd_dq": "split_d",
+                   "bwd_dkv": "split_d"},
+    (512, True): {"fwd": "wgmma_split_d", "bwd_dq": "split_d",
+                  "bwd_dkv": "split_d"},
+}
+_ROUTES[768, False], _ROUTES[768, True] = _ROUTES[512, False], \
+    _ROUTES[512, True]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dp", [128, 256, 512, 768])
+@pytest.mark.parametrize("kind", ["fwd", "bwd_dq", "bwd_dkv"])
+def test_route_and_launch_count_by_kernel(kind, dp, dtype):
+    """The kernel each (kind, kernel head dim, dtype) runs: up to 128 the
+    kernels of flash_attn_fwd.cu / flash_attn_bwd.cu; at 256 the 16-bit
+    wgmma forward, dQ and dK/dV, fp32 on csrc/flash_attn_d256.cu; above
+    256 the 16-bit forward on the split-D wgmma kernel and the rest on the
+    split-D kernels of csrc/flash_attn_d256.cu.  Each route has its own
+    launch count on all three wrappers, and the routes that read 16-bit
+    operands through TMA are the ones whose refused views are copied."""
+    want = _ROUTES[dp, dtype != torch.float32][kind]
+    assert tattn._route(kind, dp, dtype) == want
+    count = tattn.LAUNCH_COUNTS[want]
+    assert len(set(tattn.LAUNCH_COUNTS.values())) == \
+        len(tattn.LAUNCH_COUNTS) == 5
+    for wrapper in (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
+                    tattn.flash_attention_bwd_dkv_cuda):
+        assert isinstance(getattr(wrapper, count), int)
+    assert (want in tattn._TMA_ROUTES) == (want in ("le128", "wgmma256",
+                                                    "wgmma_split_d"))
 
 
 def test_d256_views_that_tma_refuses_by_kernel():
-    """At D = 256 the 16-bit forward and dK/dV read through TMA (the
-    wgmma kernels) and dQ through strides (csrc/flash_attn_d256.cu):
-    kernel_operands copies a bf16 or fp16 view that TMA refuses, and
-    counts the copy, for kind "fwd" and "bwd_dkv" only.  fp32 at D = 256
-    and every dtype on the split-D route (D = 512) read through strides:
-    no copy."""
+    """At D = 256 the 16-bit forward, dQ and dK/dV all read through TMA
+    (the wgmma kernels): kernel_operands copies a bf16 or fp16 view that
+    TMA refuses, and counts the copy, for every kind.  At D = 512 only the
+    16-bit forward reads through TMA (the split-D wgmma kernel); the
+    split-D dQ and dK/dV of csrc/flash_attn_d256.cu read through strides:
+    no copy.  fp32 at D = 256 and 512 reads through strides: no copy."""
     def refused(d, dtype):
         return torch.randn(2 * 3 * 8 * d + 1).to(dtype)[1:] \
             .view(2, 3, 8, d)
 
     for dtype in (torch.bfloat16, torch.float16):
-        view = refused(256, dtype)
-        assert not tattn.tma_accepts(view)
-        for kind, copied in (("fwd", True), ("bwd_dkv", True),
-                             ("bwd_dq", False)):
+        for d, kind, copied in ((256, "fwd", True), (256, "bwd_dkv", True),
+                                (256, "bwd_dq", True), (512, "fwd", True),
+                                (512, "bwd_dq", False),
+                                (512, "bwd_dkv", False)):
+            view = refused(d, dtype)
+            assert not tattn.tma_accepts(view)
             before = tattn.flash_attention.view_copies
-            dp, (got, other) = tattn.kernel_operands(256, view, view,
+            dp, (got, other) = tattn.kernel_operands(d, view, view,
                                                      kind=kind)
-            assert dp == 256
+            assert dp == d
             assert tattn.flash_attention.view_copies == \
-                before + (2 if copied else 0), kind
-            assert (got is not view) == copied, kind
+                before + (2 if copied else 0), (d, kind)
+            assert (got is not view) == copied, (d, kind)
             assert torch.equal(got, view) and torch.equal(other, view)
             if copied:
                 assert tattn.tma_accepts(got) and got.is_contiguous()
-    f32 = torch.zeros(2 * 3 * 8 * 256 + 1)[1:].view(2, 3, 8, 256)
-    wide = refused(512, torch.bfloat16)
     before = tattn.flash_attention.view_copies
-    for kind in ("fwd", "bwd_dq", "bwd_dkv"):
-        _, (a,) = tattn.kernel_operands(256, f32, kind=kind)
-        dp, (b,) = tattn.kernel_operands(512, wide, kind=kind)
-        assert a is f32 and b is wide and dp == 512
+    for d in (256, 512):
+        f32 = torch.zeros(2 * 3 * 8 * d + 1)[1:].view(2, 3, 8, d)
+        for kind in ("fwd", "bwd_dq", "bwd_dkv"):
+            dp, (a,) = tattn.kernel_operands(d, f32, kind=kind)
+            assert a is f32 and dp == d
     assert tattn.flash_attention.view_copies == before
