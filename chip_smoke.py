@@ -33,9 +33,11 @@ is present.  Phases:
                csrc/flash_attn_d256.cu), causal both ways and ragged
                S = 200 in bf16 and fp16; head dim 512 (hidden 2048 over 4
                heads) in all three dtypes and causal with Sq > Sk in
-               fp16, and head dim 768 (hidden 3072 over 4 heads) in bf16,
-               on the split-D routes (the 16-bit forward: the split-D
-               wgmma kernel; the rest: csrc/flash_attn_d256.cu).
+               fp16, and head dim 768 (hidden 3072 over 4 heads) in fp32
+               and bf16, on the split-D routes (the 16-bit forward: the
+               split-D wgmma kernel; the fp32 forward and dK/dV: the
+               3xTF32 split-D kernels; every dQ and the 16-bit dK/dV:
+               csrc/flash_attn_d256.cu).
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
                and fp16 5e-3 against the plain version, which rounds P
@@ -139,9 +141,10 @@ served burst of phase 4), the fp32 dQ, dK/dV and fused cross-entropy
 (launches counted over the fp32 training run of phase 5c), each with its
 launches per graph-replayed step of phase 6, the fp16 instances
 (kernel cases only, 0 launches: no configuration runs fp16), and the
-kernels for head dims above 128 (the D = 256 and D = 512 cases; their
-launches on every main path, gated at 0 in each: no configuration has a
-head dim above 128); the last line {"ok": true, "device": {...}}.
+kernels for head dims above 128 (the D = 256 and D = 512 cases, and
+D = 768 for the fp32 split-D forward and dK/dV; their launches on every
+main path, gated at 0 in each: no configuration has a head dim above
+128); the last line {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -218,9 +221,11 @@ KERNELS = {
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
 # flash_attn_bwd.cu), the fp32 kernels of csrc/flash_attn_d256.cu at
 # D = 256, and at D = 256 n, n >= 2 (split-D; the case is D = 512) the
-# 16-bit split-D wgmma forward (csrc/flash_attn_fwd.cu) and the split-D
-# kernels of csrc/flash_attn_d256.cu (the fp32 forward, every dQ and
-# dK/dV), each with the kernel case whose times it reports
+# 16-bit split-D wgmma forward (csrc/flash_attn_fwd.cu), the fp32 3xTF32
+# split-D forward and dK/dV (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu;
+# also at D = 768, named with the suffix _d768) and the split-D kernels of
+# csrc/flash_attn_d256.cu (every dQ, the 16-bit dK/dV), each with the
+# kernel case whose times it reports
 _TPU_LINE = {"fwd": 125, "bwd_dq": 240, "bwd_dkv": 281}
 WIDE_KERNELS = []  # (summary name, route, kernel, kernel case)
 for _route, _kinds, _dts, _src, _case in (
@@ -229,13 +234,15 @@ for _route, _kinds, _dts, _src, _case in (
         ("d256", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
          "d256"),
         ("wgmma_split_d", ("fwd",), ("bf16", "fp16"), None, "d512"),
-        ("split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",),
-         "flash_attn_d256", "d512"),
+        ("tf32_split_d", ("fwd", "bwd_dkv"), ("fp32",), None, "d512"),
+        ("tf32_split_d", ("fwd", "bwd_dkv"), ("fp32",), None, "d768"),
+        ("split_d", ("bwd_dq",), ("fp32",), "flash_attn_d256", "d512"),
         ("split_d", ("bwd_dq", "bwd_dkv"), ("bf16", "fp16"),
          "flash_attn_d256", "d512")):
     for _kind in _kinds:
         for _dt in _dts:
-            _name = f"flash_attn_{_route}_{_kind}_{_dt}"
+            _name = f"flash_attn_{_route}_{_kind}_{_dt}" + \
+                ("_d768" if _case == "d768" else "")
             _file = _src or ("flash_attn_fwd" if _kind == "fwd" else
                              "flash_attn_bwd")
             KERNELS[_name] = (f"paddle_tpu_torch/csrc/{_file}.cu",
@@ -411,14 +418,16 @@ def attention_cases(torch):
          torch.float16, True, False),
         # head dim 512 (hidden 2048 over 4 heads), two 256-column chunks:
         # the 16-bit forward on the split-D wgmma kernel, the fp32 forward
-        # and every dQ and dK/dV on the split-D kernels of
-        # csrc/flash_attn_d256.cu; causal with Sq > Sk in fp16
+        # and dK/dV on the 3xTF32 split-D kernels, every dQ and the 16-bit
+        # dK/dV on the split-D kernels of csrc/flash_attn_d256.cu; causal
+        # with Sq > Sk in fp16
         ("d512_fp32", 8, 4, 512, 512, 512, torch.float32, False, True),
         ("d512_bf16", 8, 4, 512, 512, 512, torch.bfloat16, False, True),
         ("d512_fp16", 8, 4, 512, 512, 512, torch.float16, False, True),
         ("d512_causal_sq_gt_sk_fp16", 2, 4, 512, 384, 512, torch.float16,
          True, False),
         # head dim 768 (hidden 3072 over 4 heads): three chunks
+        ("d768_fp32", 8, 4, 512, 512, 768, torch.float32, False, True),
         ("d768_bf16", 8, 4, 512, 512, 768, torch.bfloat16, False, True),
     ]
 
@@ -1349,19 +1358,23 @@ def train_profile(torch, exe, main, feed, loss, config):
              key=lambda r: -r[2])[:12]})
 
 # launches of the kernels for head dims above 128 on each main path, by
-# "route/kernel" (routes wgmma256, d256, wgmma_split_d, split_d of
-# ops.attention), from the wrappers' launch counts of those routes: set to
-# 0 just before the path and read just after; the graph-replayed steps add
-# the profiler's count
-WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "split_d")
+# "route/kernel" (routes wgmma256, d256, wgmma_split_d, tf32_split_d,
+# split_d of ops.attention), from the wrappers' launch counts of those
+# routes: set to 0 just before the path and read just after; the
+# graph-replayed steps add the profiler's count
+WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "tf32_split_d",
+               "split_d")
 WIDE_LAUNCHES = {}
 # "route/kernel" -> the substring of its device name, for the profiler
-# (csrc/flash_attn_d256.cu runs D = 256 and split-D as one kernel each, so
-# the profiler counts both under d256)
+# (csrc/flash_attn_d256.cu runs the D = 256 and split-D dQ and dK/dV as
+# one kernel each, so the profiler counts both under d256)
 WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
                      "wgmma256/bwd_dq": "flash_bwd_dq_wgmma_kernel<256",
                      "wgmma256/bwd_dkv": "flash_bwd_dkv_wgmma_kernel<256",
                      "wgmma_split_d/fwd": "flash_fwd_split_d_wgmma_kernel",
+                     "tf32_split_d/fwd": "flash_fwd_split_d_tf32_kernel",
+                     "tf32_split_d/bwd_dkv":
+                         "flash_bwd_dkv_split_d_tf32_kernel",
                      "d256/fwd": "flash_fwd_d256",
                      "d256/bwd_dq": "flash_bwd_dq_d256",
                      "d256/bwd_dkv": "flash_bwd_dkv_d256"}
@@ -1661,7 +1674,12 @@ def main():
             ("flash_bwd_dq_wgmma256_bf16", bwd["d256_bf16"]["dq"]),
             ("flash_bwd_dkv_wgmma256_bf16", bwd["d256_bf16"]["dkv"]),
             ("flash_fwd_wgmma_split_d_bf16", fwd["d512_bf16"]),
-            ("flash_fwd_wgmma_split_d_fp16", fwd["d512_fp16"]))}})
+            ("flash_fwd_wgmma_split_d_fp16", fwd["d512_fp16"]),
+            ("flash_fwd_tf32_split_d_fp32", fwd["d512_fp32"]),
+            ("flash_bwd_dkv_tf32_split_d_fp32", bwd["d512_fp32"]["dkv"]),
+            ("flash_fwd_tf32_split_d_fp32_d768", fwd["d768_fp32"]),
+            ("flash_bwd_dkv_tf32_split_d_fp32_d768",
+             bwd["d768_fp32"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)

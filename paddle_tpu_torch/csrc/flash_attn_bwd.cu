@@ -179,6 +179,48 @@
 //     keys past Sk are computed on zero-filled k and v and not stored.
 //   Each output element is summed by one thread in a fixed order: no
 //   atomics, bitwise reproducible.
+//   dK/dV at D = 256 n, n >= 2 (the split-D route; 257-511 zero-padded to
+//   512 by the wrapper): `flash_bwd_dkv_split_d_tf32_kernel`.  Resident K
+//   and V tiles would be 2 x 64 n KB, and a warp holding dK and dV for 16
+//   keys x 256 columns would need 256 accumulator registers, so:
+//   * a CTA of two warpgroups owns 64 keys and one 256-column chunk of dK
+//     and dV (folded into blockIdx.x); warpgroup w owns the chunk's
+//     columns 128 w .. + 127 of both, 128 accumulator registers a thread;
+//   * the score products split by role, not by columns: warpgroup 0
+//     computes S^T = k q^T and P^T (lse read per column), warpgroup 1
+//     dP^T = v dO^T and dP^T - D, each once over all of D, and each leaves
+//     its fragments in 32 KB of shared slots for the other.  Computing
+//     both in each warpgroup (the column split of the 16-bit D = 256
+//     kernel) would be 2.5x the tensor work at n = 2; the role split is
+//     1.5x (the scores recomputed per chunk);
+//   * one stream of steps through a 6-stage ring that TMA fills (32 KB a
+//     stage, 230,448 B in all with the slots, the barriers and the
+//     alignment slack, whatever n): per q tile of 64 rows, the 8n score
+//     steps (a k, q, v and dO box of 32 fp32 columns), then 4 steps of the
+//     second products (per warpgroup a q box and a dO box of its
+//     columns): dV += P^T dO and dK += dS^T q, dS^T = P^T (dP^T - D) from
+//     the slots, P^T's and dS^T's C fragments as the A operands.  Boxes
+//     land in 128-byte swizzle, so the fragment loads hit 32 distinct
+//     banks (the addressing of the split-D forward in flash_attn_fwd.cu).
+//     Streamed by cp.async instead (16-byte copies from every thread) the
+//     copies did not overlap the products on an H100, and the kernel ran
+//     2.2x slower at [8, 4, 512, 512];
+//   * the tensor cores round each accumulation toward zero, a bias that
+//     grows with the 8n x 4 x 3 accumulations of a score over all of D,
+//     and dS = P (dP - D) does not cancel it (D is summed apart).  With
+//     dO = 2 O (the gradient of sum(O^2)) at [1, 2, 96, 320] causal on an
+//     H100, dK was off by 8.6e-4 from the score-matrix gradient
+//     (tests/test_torch_cuda.py::test_wide_head_dims_through_autograd,
+//     gate 1e-4).  So each box's products go to a fresh fragment (12
+//     accumulations) that is added to the running sum in fp32, half the q
+//     rows at a time (16 registers), and the test passes;
+//   * the causal start tile, masks and fully-masked rows are those of the
+//     D <= 128 kernel; no atomics.  TMA takes 16-byte aligned views with
+//     byte strides that are multiples of 16: the wrapper copies another
+//     view first, as in bf16.
+//   Bound at [8, 4, 512, 512]: 34.4 GFLOP of real work in 3xTF32 take
+//   0.208 ms (0.312 with the recomputed scores), 168 MB take 0.050 ms;
+//   the grid is 8 x 2 x 4 x 8 = 512 CTAs, one per SM.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -695,6 +737,314 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV at D = 256 n, n >= 2: the split-D dK/dV.  A CTA of two warpgroups
+// owns 64 keys and one 256-column chunk of dK and dV; warpgroup w owns the
+// chunk's columns 128 w .. 128 w + 127 (16 keys x 128 columns of dK and of
+// dV per warp: 128 registers a thread).  The score products split by role:
+// warpgroup 0 computes S^T = k q^T, warpgroup 1 dP^T = v dO^T, each once
+// over all of D, and they hand P^T and dP^T - D over through shared
+// memory.  One stream of steps runs through a ring of stages that TMA
+// fills: per q tile the 8n score steps (k, q, v and dO boxes of 32
+// columns) and then the 4 second-product steps (for each warpgroup a q box
+// and a dO box of its columns).  Shared memory does not grow with D.
+// ---------------------------------------------------------------------------
+struct SplitDkv {
+  static constexpr int THREADS = 256;
+  static constexpr int BKEY = 64;          // keys per CTA, 16 per warp
+  static constexpr int BQ = 64;            // q rows per streamed tile
+  static constexpr int CHUNK = 256;        // output columns per CTA
+  static constexpr int BOX = 32;           // columns of a box (128 bytes)
+  static constexpr uint32_t BOXB = 64 * BOX * 4;  // bytes of a 64-row box
+  static constexpr uint32_t STAGE = 4 * BOXB;     // four boxes a step
+  static constexpr int CSTEPS = CHUNK / 2 / BOX;  // second-product steps
+  static constexpr int XSLOTS = BQ / 8 * 4;  // fragment values a thread
+  static constexpr int STAGES = 6;
+  static constexpr uint32_t X_OFF = STAGES * STAGE;  // P^T and dP^T - D
+  static constexpr uint32_t BAR_OFF = X_OFF + 2 * XSLOTS * 128 * 4;
+  static constexpr size_t SMEM = BAR_OFF + STAGES * 8 + 1024;  // + align
+  static_assert(BKEY == 64 && BQ == 64, "boxes are 64 rows");
+  static_assert(BOXB % 1024 == 0, "every box must start on 1024 bytes");
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "split-D dK/dV stages exceed the shared-memory opt-in");
+};
+
+__global__ void __launch_bounds__(SplitDkv::THREADS, 1)
+flash_bwd_dkv_split_d_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ dd,
+                                  float* __restrict__ dk,
+                                  float* __restrict__ dv, int H, int Sq,
+                                  int Sk, int n_chunks, int causal,
+                                  float scale) {
+  using L = SplitDkv;
+  constexpr int NT = L::BQ / 8;    // 8-row q tiles of S^T / k8 steps after
+  constexpr int CT = L::BOX / 8;   // 8-column tiles of an output box
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(smem + L::X_OFF);  // [2][XSLOTS][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;               // 0: S^T, P^T; 1: dP^T
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int tid = threadIdx.x % 128;     // the thread in its warpgroup
+  const int chunk = blockIdx.x % n_chunks;  // the CTA's output columns
+  const int k0 = blockIdx.x / n_chunks * L::BKEY;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int kw0 = k0 + 16 * (warp % 4);  // the warp's first key
+  const int key = kw0 + g;               // the thread's keys: key, key + 8
+  const int64_t qrow_base = ((int64_t)bb * H + hh) * Sq;
+
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  const int n_qt = (Sq + L::BQ - 1) / L::BQ;
+  int first = 0;
+  if (causal) {
+    // the first q tile that sees key k0 (attention.py:321)
+    const int lo = k0 - shift;
+    first = lo <= 0 ? 0 : lo / L::BQ;
+  }
+  const int n_tiles = max(n_qt - first, 0);  // 0: no query sees these keys
+  const int nbox = n_chunks * L::CHUNK / L::BOX;  // score steps per q tile
+  const int per_tile = nbox + L::CSTEPS;
+  const int total = n_tiles * per_tile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) hopper::mbar_init(full + s, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // thread 0 starts step i into stage i % STAGES (rows past Sq or Sk
+  // zero-filled): a score step's k, q, v and dO boxes, or a second-product
+  // step's q and dO box for each warpgroup's columns
+  auto issue = [&](int i) {
+    if (i >= total) return;
+    const int it = i / per_tile, j = i % per_tile, s = i % L::STAGES;
+    const int q0 = (first + it) * L::BQ;
+    uint8_t* sp = smem + s * L::STAGE;
+    hopper::mbar_arrive_expect_tx(full + s, L::STAGE);
+    if (j < nbox) {
+      const int c = j * L::BOX;
+      hopper::tma_load_4d(sp, &tk, full + s, c, k0, hh, bb);
+      hopper::tma_load_4d(sp + L::BOXB, &tq, full + s, c, q0, hh, bb);
+      hopper::tma_load_4d(sp + 2 * L::BOXB, &tv, full + s, c, k0, hh, bb);
+      hopper::tma_load_4d(sp + 3 * L::BOXB, &tdo, full + s, c, q0, hh, bb);
+    } else {
+      const int c = chunk * L::CHUNK + (j - nbox) * L::BOX;
+      for (int w = 0; w < 2; ++w) {
+        const int cw = c + w * L::CHUNK / 2;
+        hopper::tma_load_4d(sp + 2 * w * L::BOXB, &tq, full + s, cw, q0, hh,
+                            bb);
+        hopper::tma_load_4d(sp + (2 * w + 1) * L::BOXB, &tdo, full + s, cw,
+                            q0, hh, bb);
+      }
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < L::STAGES - 1; ++i) issue(i);
+  // wait for the next step's stage; once every thread is past the step
+  // before it, thread 0 refills that step's stage with the step STAGES - 1
+  // ahead
+  int step = 0;
+  auto next = [&]() -> const float* {
+    const int s = step % L::STAGES;
+    hopper::mbar_wait(full + s, (step / L::STAGES) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0) issue(step + L::STAGES - 1);
+    ++step;
+    return reinterpret_cast<const float*>(smem + s * L::STAGE);
+  };
+
+  float dk_acc[L::CSTEPS * CT][4], dv_acc[L::CSTEPS * CT][4];
+#pragma unroll
+  for (int j = 0; j < L::CSTEPS * CT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+  // the thread's fragment slots: P^T (written by warpgroup 0) and
+  // dP^T - D (by warpgroup 1), slot s of thread t at [s][t]
+  float* xmine = xbuf + wg * L::XSLOTS * 128 + tid;
+  const float* xp = xbuf + tid;
+  const float* xd = xbuf + L::XSLOTS * 128 + tid;
+  const int box_a = 2 * wg, box_b = 2 * wg + 1;  // k, q or v, dO
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (first + it) * L::BQ;
+
+    // warpgroup 0: S^T = k q^T, warpgroup 1: dP^T = v dO^T, over all of D
+    // box by box.  A: the warp's k / v rows 16 (warp % 4) + g (+8),
+    // columns 8 ks + t4 (+4); B: q / dO row 8 nt + g.  Each row index is g
+    // modulo 8, so in the swizzled boxes columns 8 ks + t4 and + 4 sit at
+    // c0 + t4 and (c0 ^ 4) + t4 of the row.  The tensor cores round each
+    // accumulation toward zero, a bias that grows with the number of
+    // accumulations and that dS = P (dP - D) does not cancel: so a box's
+    // products go to a fresh fragment (12 accumulations), added to the
+    // running sum in fp32, half the q rows at a time
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    for (int j = 0; j < nbox; ++j) {
+      const float* sp = next();
+      const float* sa =
+          sp + box_a * (L::BOXB / 4) + (16 * (warp % 4) + g) * L::BOX + t4;
+      const float* sb = sp + box_b * (L::BOXB / 4) + g * L::BOX + t4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float part[NT / 2][4];
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < L::BOX / 8; ++ks) {
+          const int c0 = ((2 * ks ^ g) & 7) << 2, c1 = c0 ^ 4;
+          uint32_t ahi[4], alo[4];
+          split(sa[c0], ahi[0], alo[0]);
+          split(sa[8 * L::BOX + c0], ahi[1], alo[1]);
+          split(sa[c1], ahi[2], alo[2]);
+          split(sa[8 * L::BOX + c1], ahi[3], alo[3]);
+#pragma unroll
+          for (int n = 0; n < NT / 2; ++n) {
+            const float* br = sb + 8 * (half * NT / 2 + n) * L::BOX;
+            uint32_t bhi[2], blo[2];
+            split_b(br[c0], br[c1], bhi, blo);
+            mma3(part[n], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[half * NT / 2 + n][i] += part[n][i];
+      }
+    }
+
+    // The fragment's columns are q rows (c0, c1: key g, q rows 2 t4, +1;
+    // c2, c3: key g + 8).  Warpgroup 0: P^T = exp2(S^T scale log2e - lse
+    // log2e); columns past Sq and fully-masked rows (lse = -inf) get
+    // P = 0, as do keys above the causal diagonal.  Warpgroup 1: dP^T - D.
+    // Both then leave their fragment in their slots (the next step's
+    // barrier orders the writes before the reads)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * t4;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qpos = q0 + col + c;
+        const bool in = qpos < Sq;
+        if (wg == 0) {
+          const float lv = in ? __ldg(lse + qrow_base + qpos) : -INFINITY;
+          const float l2 = lv == -INFINITY ? INFINITY : lv * kLog2e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float p = exp2f(fmaf(acc[nt][2 * h + c], scale_log2, -l2));
+            if (causal && key + 8 * h > qpos + shift) p = 0.f;
+            acc[nt][2 * h + c] = p;
+          }
+        } else {
+          const float dval = in ? __ldg(dd + qrow_base + qpos) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) acc[nt][2 * h + c] -= dval;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xmine[(4 * nt + i) * 128] = acc[nt][i];
+    }
+
+    // dV[:, cols] += P^T dO[:, cols] and dK[:, cols] += dS^T q[:, cols],
+    // dS^T = P^T (dP^T - D), over the q rows of 8-row tile nt taken in the
+    // order 0, 2, 4, 6, 1, 3, 5, 7: A = the C fragments from the slots as
+    // they stand, B reads dO / q rows 8 nt + 2 t4 (b0) and + 1 (b1),
+    // column 8 jj + g of the warpgroup's box (swizzled)
+#pragma unroll
+    for (int cs = 0; cs < L::CSTEPS; ++cs) {
+      const float* sp = next();
+      const float* sq = sp + 2 * wg * (L::BOXB / 4);
+      const float* so = sq + L::BOXB / 4;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = xp[(4 * nt + i) * 128];
+          ds[i] = p[i] * xd[(4 * nt + i) * 128];
+        }
+        uint32_t phi[4], plo[4], shi[4], slo[4];
+        split_c_as_a(p, phi, plo);
+        split_c_as_a(ds, shi, slo);
+        const int r = 8 * nt + 2 * t4;
+#pragma unroll
+        for (int jj = 0; jj < CT; ++jj) {
+          const int o0 = swz128(r, 8 * jj + g), o1 = swz128(r + 1, 8 * jj + g);
+          uint32_t bhi[2], blo[2];
+          split_b(so[o0], so[o1], bhi, blo);
+          mma3(dv_acc[cs * CT + jj], phi, plo, bhi, blo);
+          split_b(sq[o0], sq[o1], bhi, blo);
+          mma3(dk_acc[cs * CT + jj], shi, slo, bhi, blo);
+        }
+      }
+    }
+  }
+
+  // epilogue: the warpgroup's columns of dK (x scale) and dV; keys past Sk
+  // are not stored
+  const int64_t krow_base = ((int64_t)bb * H + hh) * Sk;
+  const int64_t d_total = (int64_t)n_chunks * L::CHUNK;
+  const int col0 = chunk * L::CHUNK + wg * L::CHUNK / 2 + 2 * t4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kpos = key + 8 * h;
+    if (kpos >= Sk) continue;
+    float* ko = dk + (krow_base + kpos) * d_total + col0;
+    float* vo = dv + (krow_base + kpos) * d_total + col0;
+#pragma unroll
+    for (int j = 0; j < L::CSTEPS * CT; ++j) {
+      *reinterpret_cast<float2*>(ko + 8 * j) = make_float2(
+          dk_acc[j][2 * h] * scale, dk_acc[j][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(vo + 8 * j) =
+          make_float2(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+    }
+  }
+}
+
+cudaError_t launch_dkv_split_d(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* dd, void* dk, void* dv, int B,
+                               int H, int Sq, int Sk, int D,
+                               const Strides& st, int causal, float scale,
+                               cudaStream_t stream) {
+  using L = SplitDkv;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::encode_bhsd<float>(&tq, q, B, H, Sq, D, st.q_sb,
+                                               st.q_sh, st.q_ss, L::BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
+                                     st.k_ss, L::BKEY);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
+                                     st.v_ss, L::BKEY);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tdo, dout, B, H, Sq, D, st.o_sb,
+                                     st.o_sh, st.o_ss, L::BQ);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[kMaxDevices] = {};
+  err = opt_in_smem(flash_bwd_dkv_split_d_tf32_kernel, L::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = D / L::CHUNK;
+  dim3 grid((Sk + L::BKEY - 1) / L::BKEY * n_chunks, H, B);
+  flash_bwd_dkv_split_d_tf32_kernel<<<grid, L::THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Sq, Sk, n_chunks, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace tf32
@@ -1354,12 +1704,15 @@ Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Strides (in elements) of
-// q, k, v and dO: batch, head, sequence; the head dim must be contiguous
-// (bf16 and fp16: the base addresses 16-byte aligned and the byte strides
-// multiples of 16, as TMA needs).  lse and D
-// are contiguous fp32 [B, H, Sq]; dq [B, H, Sq, D] (and dk, dv
-// [B, H, Sk, D]) are written contiguous in the input dtype.  Each returns
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 (every
+// dtype), 256 (bf16 and fp16) or, for the fp32 dK/dV, any multiple of 256
+// above it (the split-D kernel); the rest runs csrc/flash_attn_d256.cu.
+// Strides (in elements) of q, k, v and dO: batch, head, sequence; the
+// head dim must be contiguous (bf16 and fp16, and the fp32 dK/dV above
+// 256: the base addresses 16-byte aligned and the byte strides multiples of
+// 16, as TMA needs).  lse and D are contiguous fp32 [B, H, Sq]; dq
+// [B, H, Sq, D] (and dk, dv [B, H, Sk, D]) are written contiguous in the
+// input dtype.  Each returns
 // the CUDA error code of its launch (0 on success); the kernels are
 // asynchronous on `stream`.  The caller makes the tensors' device current.
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -1401,7 +1754,10 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
+  if (dtype == 0 && D > 256 && D % tf32::SplitDkv::CHUNK == 0)
+    err = tf32::launch_dkv_split_d(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                                   Sk, D, st, causal, scale, s);
+  else if (dtype == 0)
     err = tf32::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
                              Sk, st, causal, scale, s);
   else if (dtype == 1)

@@ -12,13 +12,15 @@
 //   * D = 256: the fp32 forward, dQ and dK/dV (the 16-bit forward, dQ and
 //     dK/dV are the wgmma kernels of flash_attn_fwd.cu and
 //     flash_attn_bwd.cu at D = 256);
-//   * D = 256 n, n >= 2 (the split-D route): the fp32 forward, and the dQ
-//     and dK/dV in fp32, bf16 and fp16 (the 16-bit forward is the split-D
-//     wgmma kernel of flash_attn_fwd.cu).
+//   * D = 256 n, n >= 2 (the split-D route): the dQ in fp32, bf16 and
+//     fp16 and the dK/dV in bf16 and fp16 (the 16-bit forward is the
+//     split-D wgmma kernel of flash_attn_fwd.cu, the fp32 forward and dK/dV
+//     the 3xTF32 split-D kernels of flash_attn_fwd.cu and
+//     flash_attn_bwd.cu).
 // No other instance is compiled: the C entries return
-// cudaErrorInvalidValue for the 16-bit forward and for the 16-bit dQ and
-// dK/dV at n = 1, so a wrong route raises and never runs a replaced
-// kernel.
+// cudaErrorInvalidValue for every forward but the fp32 one at D = 256, for
+// the 16-bit dQ and dK/dV at n = 1 and for the fp32 dK/dV at n >= 2, so a
+// wrong route raises and never runs a replaced kernel.
 //
 // The functions, held equal to the TPU kernels and to the D <= 128
 // kernels:
@@ -53,23 +55,21 @@
 //     under the 232,448 B a block may opt in to.  dK/dV keeps 32 own rows
 //     (2 a thread) because each thread accumulates both dK and dV: 2 x 2 x
 //     32 fp32 registers; 64 rows would hold 256 and spill.
-//   * Split D (n >= 2): a grid dimension over the output's 256-column
-//     chunks (O in the forward, dQ, dK and dV), folded into blockIdx.x.
-//     The reductions over D (S = q k^T, and dP = dO v^T in the backward)
-//     stream q and k (dO and v) through the same shared-memory tiles, one
-//     256-column chunk at a time, into the same fp32 registers; then the
-//     block stages its own chunk of v (k; q and dO) for the second
-//     product.  Shared memory does not grow with D.  The price: each of
-//     the n blocks of a tile recomputes the scores over all of D, so the
-//     score work is n times its share (forward and dK/dV 1.5x, dQ 1.67x
-//     the FMA work of a D = 256 block at n = 2), and the tiles that stay
-//     resident at n = 1 (q in the forward; q, dO in dQ; k, v in dK/dV)
-//     are reloaded per streamed tile.  Only chunk 0 writes lse.  Each
-//     kernel has an instance per case (template flag SPLIT): at n = 1 the
-//     chunk loop is compiled away and the kernel is the D = 256 kernel it
-//     was (with the loop left to run time, the 16-bit D = 256 dQ this
-//     file ran before the wgmma dQ took it over was 16% slower on an
-//     H100).
+//   * Split D (n >= 2, dQ and dK/dV): a grid dimension over the output's
+//     256-column chunks (dQ, dK and dV), folded into blockIdx.x.  The
+//     reductions over D (S = q k^T and dP = dO v^T) stream q and k (dO
+//     and v) through the same shared-memory tiles, one 256-column chunk at
+//     a time, into the same fp32 registers; then the block stages its own
+//     chunk of k (q and dO) for the second product.  Shared memory does
+//     not grow with D.  The price: each of the n blocks of a tile
+//     recomputes the scores over all of D, so the score work is n times
+//     its share (dK/dV 1.5x, dQ 1.67x the FMA work of a D = 256 block at
+//     n = 2), and the tiles that stay resident at n = 1 (q, dO in dQ; k, v
+//     in dK/dV) are reloaded per streamed tile.  Each backward kernel has
+//     an instance per case (template flag SPLIT): at n = 1 the chunk loop
+//     is compiled away and the kernel is the D = 256 kernel it was (with
+//     the loop left to run time, the 16-bit D = 256 dQ this file ran
+//     before the wgmma dQ took it over was 16% slower on an H100).
 //   * Any Sq and Sk (ragged tiles masked; rows past the end load as zero
 //     with lse = -inf and are never stored); q, k, v and dO are read
 //     through batch/head/sequence strides with a contiguous head dim; out,
@@ -179,13 +179,12 @@ static_assert(dkv_smem_bytes<HEAD_DIM, DKV_BK, DKV_BQ>() <= kMaxSmem,
 // ---------------------------------------------------------------------------
 // forward: one block per (q tile, head, batch), a loop over key tiles
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK, bool SPLIT>
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int H, int Sq, int Sk,
-                      int n_chunks, Strides st, int causal, float scale) {
-  const int nchunk = SPLIT ? n_chunks : 1;
+                      Strides st, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 2;
   constexpr int ROWS = BQ / ROW_GROUPS;  // query rows per thread
@@ -200,14 +199,13 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid / GROUP;
   const int cg = tid % GROUP;
-  const int chunk = blockIdx.x % nchunk;  // the block's output columns
-  const int q0 = blockIdx.x / nchunk * BQ;
+  const int q0 = blockIdx.x * BQ;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const T* qb = q + bb * st.q_sb + hh * st.q_sh;
   const T* kb = k + bb * st.k_sb + hh * st.k_sh;
   const T* vb = v + bb * st.v_sb + hh * st.v_sh;
-  if (nchunk == 1) load_tile<T, D, BQ>(sQ, qb, st.q_ss, q0, Sq);  // resident
+  load_tile<T, D, BQ>(sQ, qb, st.q_ss, q0, Sq);  // resident
 
   float m[ROWS], l[ROWS], acc[ROWS][DCOLS];
 #pragma unroll
@@ -232,28 +230,23 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < KCOLS; ++j) s[i][j] = 0.f;
-    // S = q k^T over the head dim, one 256-column chunk at a time; the
-    // last chunk's pass also stages the block's own V columns
-    for (int c = 0; c < nchunk; ++c) {
-      __syncthreads();  // Q is staged / the previous reads are done
-      if (nchunk > 1) load_tile<T, D, BQ>(sQ, qb + c * D, st.q_ss, q0, Sq);
-      load_tile<T, D, BK>(sK, kb + c * D, st.k_ss, k0, Sk);
-      if (c == nchunk - 1)
-        load_tile<T, D, BK>(sV, vb + chunk * D, st.v_ss, k0, Sk);
-      __syncthreads();
+    // S = q k^T over the head dim
+    __syncthreads();  // Q is staged / the previous reads are done
+    load_tile<T, D, BK>(sK, kb, st.k_ss, k0, Sk);
+    load_tile<T, D, BK>(sV, vb, st.v_ss, k0, Sk);
+    __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float qv[ROWS], kv[KCOLS];
+    for (int d = 0; d < D; ++d) {
+      float qv[ROWS], kv[KCOLS];
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i) qv[i] = sQ[(rg * ROWS + i) * DP + d];
+      for (int i = 0; i < ROWS; ++i) qv[i] = sQ[(rg * ROWS + i) * DP + d];
 #pragma unroll
-        for (int j = 0; j < KCOLS; ++j) kv[j] = sK[(cg + GROUP * j) * DP + d];
+      for (int j = 0; j < KCOLS; ++j) kv[j] = sK[(cg + GROUP * j) * DP + d];
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i)
+      for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-          for (int j = 0; j < KCOLS; ++j)
-            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
+        for (int j = 0; j < KCOLS; ++j)
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
@@ -314,11 +307,11 @@ flash_fwd_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + rg * ROWS + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (row0 + qpos) * D * nchunk + chunk * D;
+    T* orow = o + (row0 + qpos) * D;
 #pragma unroll
     for (int j = 0; j < DCOLS; ++j)
       orow[cg + GROUP * j] = from_f32<T>(acc[i][j] / denom);
-    if (cg == 0 && chunk == 0)
+    if (cg == 0)
       lse[row0 + qpos] = m[i] != -INFINITY ? m[i] + logf(denom) : -INFINITY;
   }
 }
@@ -654,24 +647,25 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
   return cudaSuccess;
 }
 
-// one launcher per (T, SPLIT) instance: SPLIT = false runs D = 256
-// (nchunk 1), SPLIT = true D = 256 n, n >= 2
-template <typename T, bool SPLIT>
+// the forward runs D = 256 only; the backward has one launcher per
+// (T, SPLIT) instance: SPLIT = false runs D = 256 (nchunk 1), SPLIT = true
+// D = 256 n, n >= 2
+template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int Sq, int Sk, int nchunk,
+                       void* lse, int B, int H, int Sq, int Sk,
                        const Strides& st, int causal, float scale,
                        cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = fwd_smem_bytes<D, FWD_BQ, FWD_BK>();
-  auto kernel = flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK, SPLIT>;
+  auto kernel = flash_fwd_d256_kernel<T, D, FWD_BQ, FWD_BK>;
   cudaError_t err = opt_in_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ * nchunk, H, B);
+  dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), H, Sq, Sk, nchunk, st, causal, scale);
+      static_cast<float*>(lse), H, Sq, Sk, st, causal, scale);
   return cudaGetLastError();
 }
 
@@ -735,11 +729,13 @@ extern "C" {
 // What each entry runs, by dtype (anything else returns
 // cudaErrorInvalidValue, so a wrong route raises in the wrapper and runs
 // no replaced kernel):
-//   forward  fp32, D = 256 n, n >= 1 (bf16 and fp16: flash_attn_fwd.cu);
+//   forward  fp32, D = 256 (bf16 and fp16, and fp32 above 256:
+//            flash_attn_fwd.cu);
 //   dQ       fp32, n >= 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma dQ
 //            of flash_attn_bwd.cu);
-//   dK/dV    fp32, n >= 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma
-//            dK/dV of flash_attn_bwd.cu).
+//   dK/dV    fp32, n = 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma
+//            dK/dV of flash_attn_bwd.cu, fp32 above 256 its 3xTF32
+//            split-D dK/dV).
 // Strides (in elements) of q, k, v (and dO): batch, head, sequence; the
 // head dim must be contiguous.  out [B, H, Sq, D] and lse [B, H, Sq] are
 // written contiguous.  Each entry returns the CUDA error code of its
@@ -752,16 +748,11 @@ int flash_attn_d256_fwd(const void* q, const void* k, const void* v, void* o,
                         long long k_ss, long long v_sb, long long v_sh,
                         long long v_ss, int causal, float scale,
                         void* stream) {
-  if (D <= 0 || D % HEAD_DIM || dtype != 0)
-    return (int)cudaErrorInvalidValue;
-  const int n = D / HEAD_DIM;
+  if (D != HEAD_DIM || dtype != 0) return (int)cudaErrorInvalidValue;
   const Strides st = make_strides(q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                                   v_sh, v_ss, 0, 0, 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(n > 1 ? launch_fwd<float, true>(q, k, v, o, lse, B, H, Sq,
-                                               Sk, n, st, causal, scale, s)
-                     : launch_fwd<float, false>(q, k, v, o, lse, B, H, Sq,
-                                                Sk, n, st, causal, scale, s));
+  return (int)launch_fwd<float>(q, k, v, o, lse, B, H, Sq, Sk, st, causal,
+                                scale, static_cast<cudaStream_t>(stream));
 }
 
 // lse and D are contiguous fp32 [B, H, Sq]; dq [B, H, Sq, D] (and dk, dv
@@ -814,13 +805,10 @@ int flash_attn_d256_bwd_dkv(const void* q, const void* k, const void* v,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = n > 1 ? launch_dkv<float, true>(q, k, v, dout, lse, dd, dk, dv, B,
-                                          H, Sq, Sk, n, st, causal, scale, s)
-                : launch_dkv<float, false>(q, k, v, dout, lse, dd, dk, dv,
-                                           B, H, Sq, Sk, n, st, causal,
-                                           scale, s);
-  else if (n == 1)
+  if (dtype == 0 && n == 1)
+    err = launch_dkv<float, false>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
+                                   Sk, n, st, causal, scale, s);
+  else if (dtype == 0 || n == 1)
     err = cudaErrorInvalidValue;
   else if (dtype == 1)
     err = launch_dkv<__nv_bfloat16, true>(q, k, v, dout, lse, dd, dk, dv, B,

@@ -154,6 +154,47 @@
 //   The split, the m16n8k8 products, the cp.async copies and the
 //   resident q fragments are in tf32.cuh, shared with the fp32 backward
 //   kernels.
+//   D = 256 n, n >= 2 (the split-D route; 257-511 are zero-padded to 512
+//   by the wrapper): `flash_fwd_split_d_tf32_kernel`, the same 3xTF32
+//   products on the structure of the 16-bit split-D kernel above.  A
+//   resident fp32 q tile would be 128 n KB, so:
+//   * a CTA of 8 warps owns 128 query rows (16 a warp) and one 256-column
+//     chunk of O (the chunk folded into blockIdx.x): 16 x 256 fp32 of O a
+//     warp, 128 registers a thread;
+//   * one stream of steps through an 8-stage ring that TMA fills (24 KB a
+//     stage, 197,696 B in all with the barriers and the alignment slack,
+//     whatever n): per key tile of 64, the 8n score steps, each a q box
+//     (128 rows) and a k box (64 rows) of 32 fp32 columns, S accumulating
+//     over all of D in registers; then 4 V steps of 16 keys x the CTA's 256 columns (8
+//     boxes), O += P v with P's C fragment as the A operand (the key order
+//     of the D <= 128 kernel).  A V step splits the P fragments of its own
+//     16 keys only: with 64 columns of all 64 keys a step, the splits the
+//     compiler kept across steps took the kernel to 255 registers and
+//     spilled;
+//   * the boxes land in 128-byte swizzle (a 32-column fp32 row is 128
+//     bytes; 16-byte chunk c of row r at chunk c ^ (r % 8)), so the
+//     fragment loads of q, k (rows g mod 8: chunk 2 ks ^ g) and v (rows
+//     2 t4 mod 8: chunk (2 (jj % 4) + g / 4) ^ 2 t4) hit 32 distinct banks;
+//   * per step: every thread waits on the stage's full barrier, one
+//     __syncthreads, then thread 0 starts the step STAGES - 1 ahead into
+//     the stage the step before left.  Streamed by cp.async instead
+//     (16-byte copies issued by every thread) the loads did not overlap
+//     the products on an H100 (a build without the loads and one without
+//     the products each took well under the full time, together about
+//     all of it), and the kernel ran 1.6x slower at [8, 4, 512, 512];
+//   * every chunk's CTA issues the same products in the same order, so
+//     m, l and lse agree to the bit across the chunks; only chunk 0 writes
+//     lse.  In fp32 the TPU kernel's `p.astype(vs.dtype)` is the identity:
+//     P is not rounded;
+//   * TMA takes 16-byte aligned views with byte strides that are multiples
+//     of 16: the wrapper copies another view first, as in bf16.
+//   Bound at [8, 4, 512, 512]: 17.2 GFLOP of real work as three TF32
+//   products each take 0.104 ms at 495 TFLOP/s; with the scores
+//   recomputed per chunk (n times the q k^T work) 0.156 ms; 134 MB of
+//   inputs and outputs take 0.040 ms, so the operations bound it.  128-row
+//   CTAs read each k and V box for twice the rows of 64-row ones (a
+//   4-warp, 64-row layout was slower on an H100, fed by cp.async); the
+//   grid is 4 x 2 x 4 x 8 = 256 CTAs, one per SM.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -418,6 +459,276 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<float*>(lse), H, Sq, Sk, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], causal, scale * kLog2e,
       (int)vec16);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at D = 256 n, n >= 2: the split-D forward.  A CTA of 8 warps owns
+// 128 query rows (16 a warp) and one 256-column chunk of O (16 x 256 fp32
+// a warp: 128 registers a thread).  One stream of steps runs through a
+// ring of STAGES stages that TMA fills: per key tile, the 8n score steps
+// (a q box and a k box of 32 columns; S accumulates over all of D) and then
+// the 4 V steps (16 keys of the CTA's own V chunk each, O += P v over
+// them: each P fragment is split for one step only, and no split is live
+// across steps).  Shared memory does not grow with D.
+// ---------------------------------------------------------------------------
+struct SplitFwd {
+  static constexpr int THREADS = 256;
+  static constexpr int BQ = 128;           // query rows per CTA, 16 a warp
+  static constexpr int BK = 64;            // keys per tile
+  static constexpr int CHUNK = 256;        // output columns per CTA
+  static constexpr int BOX = 32;           // columns of a box (128 bytes)
+  static constexpr int VKEYS = 16;         // keys of a V step
+  static constexpr int VSTEPS = BK / VKEYS;
+  static constexpr uint32_t Q_BYTES = BQ * BOX * 4;
+  static constexpr uint32_t STAGE = Q_BYTES + BK * BOX * 4;  // q and k box
+  static constexpr uint32_t VBOX = VKEYS * BOX * 4;  // a V box of a step
+  static constexpr int STAGES = 8;
+  static constexpr uint32_t BAR_OFF = STAGES * STAGE;
+  static constexpr size_t SMEM = BAR_OFF + STAGES * 8 + 1024;  // + align
+  static_assert(CHUNK / BOX * VBOX <= STAGE, "a V step must fit a stage");
+  static_assert(STAGE % 1024 == 0 && Q_BYTES % 1024 == 0 && VBOX % 1024 == 0,
+                "every box must start on a 1024-byte swizzle atom");
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "split-D forward stages exceed the shared-memory opt-in");
+};
+
+__global__ void __launch_bounds__(SplitFwd::THREADS, 1)
+flash_fwd_split_d_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              float* __restrict__ o, float* __restrict__ lse,
+                              int H, int Sq, int Sk, int n_chunks,
+                              int causal, float scale_log2) {
+  using L = SplitFwd;
+  constexpr int NT = L::BK / 8;        // 8-key tiles of S
+  constexpr int VNT = L::VKEYS / 8;    // k8 steps of a V step
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int chunk = blockIdx.x % n_chunks;   // the CTA's output columns
+  const int q0 = blockIdx.x / n_chunks * L::BQ;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int rw0 = q0 + 16 * warp;  // the warp's first row
+  const int row = rw0 + g;         // the thread's rows: row, row + 8
+
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  int n_tiles = (Sk + L::BK - 1) / L::BK;
+  if (causal) {
+    const int hi = q0 + L::BQ + shift;  // keys visible to the CTA's last row
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + L::BK - 1) / L::BK);
+  }
+  const int nbox = n_chunks * L::CHUNK / L::BOX;  // score steps per tile
+  const int per_tile = nbox + L::VSTEPS;
+  const int total = n_tiles * per_tile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) hopper::mbar_init(full + s, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // thread 0 starts step i into stage i % STAGES; the stage's barrier
+  // completes when the step's boxes have landed (rows past Sq or Sk
+  // zero-filled)
+  auto issue = [&](int i) {
+    if (i >= total) return;
+    const int t = i / per_tile, j = i % per_tile, s = i % L::STAGES;
+    uint8_t* st = smem + s * L::STAGE;
+    if (j < nbox) {
+      hopper::mbar_arrive_expect_tx(full + s, L::STAGE);
+      hopper::tma_load_4d(st, &tq, full + s, j * L::BOX, q0, hh, bb);
+      hopper::tma_load_4d(st + L::Q_BYTES, &tk, full + s, j * L::BOX,
+                          t * L::BK, hh, bb);
+    } else {
+      const int k0 = t * L::BK + (j - nbox) * L::VKEYS;
+      hopper::mbar_arrive_expect_tx(full + s, L::CHUNK / L::BOX * L::VBOX);
+      for (int b = 0; b < L::CHUNK / L::BOX; ++b)
+        hopper::tma_load_4d(st + b * L::VBOX, &tv, full + s,
+                            chunk * L::CHUNK + b * L::BOX, k0, hh, bb);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < L::STAGES - 1; ++i) issue(i);
+  // wait for the next step's stage; once every thread is past the step
+  // before it, thread 0 refills that step's stage with the step STAGES - 1
+  // ahead
+  int step = 0;
+  auto next = [&]() -> const float* {
+    const int s = step % L::STAGES;
+    hopper::mbar_wait(full + s, (step / L::STAGES) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0) issue(step + L::STAGES - 1);
+    ++step;
+    return reinterpret_cast<const float*>(smem + s * L::STAGE);
+  };
+
+  float o_acc[L::CHUNK / 8][4];
+#pragma unroll
+  for (int j = 0; j < L::CHUNK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o_acc[j][i] = 0.f;
+  // running max (log2 units) and this thread's share of the row sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * L::BK;
+
+    // S = q k^T over all of D, box by box, in the same order in every
+    // chunk's CTA (so m, l and lse agree to the bit).  A fragment: q rows
+    // 16 warp + g (+8), columns 8 ks + t4 (+4); B: k row 8 nt + g.  Each
+    // row index is g modulo 8, so in the swizzled boxes columns 8 ks + t4
+    // and + 4 sit at c0 + t4 and (c0 ^ 4) + t4 of the row
+    float sacc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.f;
+    for (int j = 0; j < nbox; ++j) {
+      const float* sq = next();
+      const float* qa = sq + (16 * warp + g) * L::BOX + t4;
+      const float* kb = sq + L::Q_BYTES / 4 + g * L::BOX + t4;
+#pragma unroll
+      for (int ks = 0; ks < L::BOX / 8; ++ks) {
+        const int c0 = ((2 * ks ^ g) & 7) << 2, c1 = c0 ^ 4;
+        uint32_t ahi[4], alo[4];
+        split(qa[c0], ahi[0], alo[0]);
+        split(qa[8 * L::BOX + c0], ahi[1], alo[1]);
+        split(qa[c1], ahi[2], alo[2]);
+        split(qa[8 * L::BOX + c1], ahi[3], alo[3]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* kr = kb + 8 * nt * L::BOX;
+          uint32_t bhi[2], blo[2];
+          split_b(kr[c0], kr[c1], bhi, blo);
+          mma3(sacc[nt], ahi, alo, bhi, blo);
+        }
+      }
+    }
+
+    // scale to log2 units; mask keys past Sk (zero-filled) and above the
+    // causal diagonal.  C fragment: c0, c1 (g, 2 t4, +1), c2, c3 (g + 8)
+    const bool need_mask =
+        k0 + L::BK > Sk || (causal && k0 + L::BK - 1 > rw0 + shift);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = sacc[nt][i] * scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * nt + 2 * t4 + (i % 2);
+          const int qpos = row + 8 * (i / 2);
+          if (kpos >= Sk || (causal && kpos > qpos + shift)) x = -INFINITY;
+        }
+        sacc[nt][i] = x;
+      }
+
+    // online softmax, rows row (h = 0) and row + 8 (h = 1); P in fp32
+    // (in fp32 the TPU kernel's p.astype(vs.dtype) is the identity)
+    float alpha[2], safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(sacc[nt][2 * h], sacc[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row masked so far keeps m = -inf and P = exp2(-inf - 0) = 0
+      safe[h] = mx == -INFINITY ? 0.f : mx;
+      alpha[h] = m[h] == -INFINITY ? 0.f : exp2f(m[h] - safe[h]);
+      m[h] = mx;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(sacc[nt][i] - safe[i / 2]);
+        psum[i / 2] += p;
+        sacc[nt][i] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + psum[h];
+#pragma unroll
+    for (int j = 0; j < L::CHUNK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_acc[j][i] *= alpha[i / 2];
+
+    // O += P v, 16 keys a step: keys of 8-key tile n in the order
+    // 0, 2, 4, 6, 1, 3, 5, 7 (A = P's C fragment as it stands), B reads v
+    // rows 8 n + 2 t4 (b0) and + 1 (b1) of the step, column 8 jj + g (box
+    // jj / 4, swizzled)
+#pragma unroll
+    for (int vs = 0; vs < L::VSTEPS; ++vs) {
+      const float* sv = next();
+#pragma unroll
+      for (int n = 0; n < VNT; ++n) {
+        uint32_t ahi[4], alo[4];
+        split_c_as_a(sacc[vs * VNT + n], ahi, alo);
+        const int r = 8 * n + 2 * t4;
+#pragma unroll
+        for (int jj = 0; jj < L::CHUNK / 8; ++jj) {
+          const float* vb = sv + jj / 4 * (L::VBOX / 4);
+          const int c = 8 * (jj % 4) + g;
+          uint32_t bhi[2], blo[2];
+          split_b(vb[swz128(r, c)], vb[swz128(r + 1, c)], bhi, blo);
+          mma3(o_acc[jj], ahi, alo, bhi, blo);
+        }
+      }
+    }
+  }
+
+  // epilogue: the chunk's columns of O / l; lse = (m + log2 l) ln 2 from
+  // chunk 0 only (every chunk computed the same m and l); rows past Sq
+  // are not stored
+  const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
+  const int64_t d_total = (int64_t)n_chunks * L::CHUNK;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int qpos = row + 8 * h;
+    if (qpos >= Sq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    float* orow = o + (row_base + qpos) * d_total + chunk * L::CHUNK + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < L::CHUNK / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(o_acc[j][2 * h] / denom, o_acc[j][2 * h + 1] / denom);
+    if (chunk == 0 && t4 == 0)
+      lse[row_base + qpos] =
+          m[h] == -INFINITY ? -INFINITY : (m[h] + log2f(denom)) * kLn2;
+  }
+}
+
+cudaError_t launch_split_d(const void* q, const void* k, const void* v,
+                           void* o, void* lse, int B, int H, int Sq, int Sk,
+                           int D, const long long* st, int causal,
+                           float scale, cudaStream_t stream) {
+  using L = SplitFwd;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = hopper::encode_bhsd<float>(&tq, q, B, H, Sq, D, st[0],
+                                               st[1], st[2], L::BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tk, k, B, H, Sk, D, st[3], st[4],
+                                     st[5], L::BK);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tv, v, B, H, Sk, D, st[6], st[7],
+                                     st[8], L::VKEYS);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[kMaxDevices] = {};
+  err = opt_in_smem(flash_fwd_split_d_tf32_kernel, L::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = D / L::CHUNK;
+  dim3 grid((Sq + L::BQ - 1) / L::BQ * n_chunks, H, B);
+  flash_fwd_split_d_tf32_kernel<<<grid, L::THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), H, Sq,
+      Sk, n_chunks, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1032,12 +1343,12 @@ LaunchFn pick(int dtype, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 or 256,
-// or in bf16 and fp16 any multiple of 256 (the split-D kernel; fp32 above
-// 256 runs csrc/flash_attn_d256.cu).  strides (in elements)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 (every
+// dtype), 256 (bf16 and fp16; fp32 at 256 runs csrc/flash_attn_d256.cu) or
+// any multiple of 256 above it (the split-D kernels).  strides (in elements)
 // for q, k, v: batch, head, sequence; the head dim must be contiguous
-// (bf16 and fp16: the base addresses 16-byte aligned and the byte strides
-// multiples of 16, as TMA needs).  out is [B, H, Sq, D] and lse
+// (bf16 and fp16, and fp32 above 256: the base addresses 16-byte aligned
+// and the byte strides multiples of 16, as TMA needs).  out is [B, H, Sq, D] and lse
 // [B, H, Sq], both contiguous.  Returns the CUDA error code of the launch
 // (0 on success); the kernel is asynchronous on `stream`.  The caller
 // makes the tensors' device current.
@@ -1057,6 +1368,9 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
     if (dtype == 2)
       return (int)wg::launch_split_d<__half>(q, k, v, o, lse, B, H, Sq, Sk,
                                              D, st, causal, scale, s);
+    if (dtype == 0)
+      return (int)tf32::launch_split_d(q, k, v, o, lse, B, H, Sq, Sk, D, st,
+                                       causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   const LaunchFn fn = pick(dtype, D);

@@ -381,6 +381,10 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 template <typename T>
 struct TmaType;
 template <>
+struct TmaType<float> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
 struct TmaType<__nv_bfloat16> {
   static constexpr CUtensorMapDataType value =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -391,7 +395,9 @@ struct TmaType<__half> {
 };
 
 // ---------------------------------------------------------------------------
-// host: TMA tensor map of a strided [B, H, S, D] view of 16-bit T
+// host: TMA tensor map of a strided [B, H, S, D] view of T (16-bit, or
+// fp32 for the 3xTF32 split-D kernels of flash_attn_fwd.cu and
+// flash_attn_bwd.cu)
 // ---------------------------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -424,8 +430,9 @@ inline EncodeTiledFn encode_tiled_fn() {
 __host__ __device__ constexpr int box_cols(int D) { return D < 64 ? D : 64; }
 
 // Encode `map` for the [B, H, S, D] tensor of T at `base` with element
-// strides sb, sh, ss (D contiguous), boxes of box_cols(D) x `box_rows`,
-// rows past S zero-filled.  A stride of a size-1 dim is never used for an
+// strides sb, sh, ss (D contiguous), boxes of one swizzle row (the bytes
+// of box_cols(D) 16-bit columns: 32 columns in fp32) x `box_rows`, rows
+// past S zero-filled.  A stride of a size-1 dim is never used for an
 // address, so it is replaced by a valid one.  Returns cudaSuccess, or
 // cudaErrorInvalidValue where TMA refuses the view (base address not
 // 16-byte aligned, a byte stride not a multiple of 16).
@@ -438,17 +445,19 @@ inline cudaError_t encode_bhsd(CUtensorMap* map, const void* base, int B,
   if (S <= 1) ss = D;
   if (H <= 1) sh = (long long)S * ss;
   if (B <= 1) sb = (long long)H * sh;
-  const int cols = box_cols(D);
+  constexpr int es = (int)sizeof(T);
+  const int cols = box_cols(D) * 2 / es;
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                         (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                           (cuuint64_t)sb * 2};
+  cuuint64_t strides[3] = {(cuuint64_t)ss * es, (cuuint64_t)sh * es,
+                           (cuuint64_t)sb * es};
   cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, TmaType<T>::value, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      cols * es == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

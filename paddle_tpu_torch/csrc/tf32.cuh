@@ -1,8 +1,10 @@
 // 3xTF32 building blocks shared by the port's fp32 flash-attention kernels
 // (the forward in flash_attn_fwd.cu, dQ and dK/dV in flash_attn_bwd.cu):
 // the hi/lo split of an fp32 operand, the m16n8k8 TF32 tensor-core
-// product and its 3xTF32 form, and cp.async copies of a tile of rows of a
-// strided [S, D] head slice into padded shared memory.
+// product and its 3xTF32 form, cp.async copies of a tile of rows of a
+// strided [S, D] head slice into padded shared memory, and the address of
+// an element of an fp32 box that TMA wrote with 128-byte swizzle (the
+// split-D kernels).
 //
 // Fragment layouts of mma.sync.m16n8k8 (TF32), lane l, g = l / 4,
 // t4 = l % 4:
@@ -167,6 +169,13 @@ struct RowFrags<D, THREADS, false> {
     for (int i = 0; i < 4; ++i) split(x[(4 * ks + i) * THREADS], h[i], l[i]);
   }
 };
+
+// the float offset of element (r, c) of a [rows][32] fp32 box that TMA
+// wrote with 128-byte swizzle: 16-byte chunk c / 4 of row r lands at chunk
+// (c / 4) ^ (r % 8) of the row (the box starts on 1024 bytes)
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
 
 // host: whether 16-byte cp.async copies may move the rows of these
 // views, i.e. every row start is 16-byte aligned: each base address a

@@ -38,7 +38,9 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     tensor cores in 3xTF32 with `mma.sync` (each fp32 operand split into
     two TF32 halves and each product taken as hi*hi + hi*lo + lo*hi,
     accumulated in fp32: fp32-level error, not TF32's three digits).
-    They take any strided fp32 view with a contiguous head dim.
+    They take any strided fp32 view with a contiguous head dim (the
+    split-D forward and dK/dV read through TMA: a view it refuses is
+    copied first).
 
 The kernels have instances for head dims 32, 64, 128 and 256, and a
 split-D route for every multiple of 256 above it.  Any other head dim is
@@ -58,11 +60,17 @@ dim and the dtype select the kernel, each counted on its wrapper:
     forward of csrc/flash_attn_fwd.cu, a CTA per 256-column chunk of the
     output, (q, k) box pairs streamed through a TMA ring
     (`launches_wgmma_split_d`);
-  * D = 256 n, n >= 2, the fp32 forward and every dQ and dK/dV: the
+  * D = 256 n, n >= 2, the fp32 forward and dK/dV: 3xTF32 `mma.sync`
+    kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
+    (`flash_fwd_split_d_tf32_kernel`, `flash_bwd_dkv_split_d_tf32_kernel`),
+    a CTA per 256-column chunk of the output, the operands streamed as
+    32-column boxes through a TMA ring; an fp32 view TMA refuses is copied
+    first, as in 16 bits (`launches_tf32_split_d`);
+  * D = 256 n, n >= 2, the fp32 dQ and the bf16 and fp16 dQ and dK/dV: the
     kernels of csrc/flash_attn_d256.cu with a grid dimension over
     256-column chunks of the output (`launches_split_d`).
-    Both split-D routes recompute the scores over all of D in each
-    chunk's CTA, so the score work is n times its share.
+    The split-D routes recompute the scores over all of D in each chunk's
+    CTA, so the score work is n times its share.
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -99,8 +107,10 @@ _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
 _BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TMA_DTYPES = (torch.bfloat16, torch.float16)  # the wgmma kernels' inputs
-# the routes whose 16-bit kernels read q, k, v and dO through TMA
-_TMA_ROUTES = ("le128", "wgmma256", "wgmma_split_d")
+# route -> the dtypes in which its kernels read q, k, v and dO through TMA
+# (in the others they read through strides)
+_TMA_ROUTES = {"le128": _TMA_DTYPES, "wgmma256": _TMA_DTYPES,
+               "wgmma_split_d": _TMA_DTYPES, "tf32_split_d": (torch.float32,)}
 
 
 def enable_flash_attention(on: bool = True):
@@ -237,33 +247,37 @@ def _route(kind, dp, dtype):
     flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma kernels
     at D = 256), "d256" (csrc/flash_attn_d256.cu at D = 256, fp32),
     "wgmma_split_d" (the 16-bit split-D wgmma forward of
-    csrc/flash_attn_fwd.cu at D = 256 n, n >= 2) or "split_d"
-    (csrc/flash_attn_d256.cu at D = 256 n, n >= 2: the fp32 forward and
-    every dQ and dK/dV)."""
+    csrc/flash_attn_fwd.cu at D = 256 n, n >= 2), "tf32_split_d" (the
+    fp32 3xTF32 split-D forward and dK/dV of csrc/flash_attn_fwd.cu /
+    flash_attn_bwd.cu at D = 256 n, n >= 2) or "split_d"
+    (csrc/flash_attn_d256.cu at D = 256 n, n >= 2: the fp32 dQ and the
+    16-bit dQ and dK/dV)."""
     if dp < _D256:
         return "le128"
     wide16 = dtype in _TMA_DTYPES
     if dp == _D256:
         return "wgmma256" if wide16 else "d256"
-    return "wgmma_split_d" if wide16 and kind == "fwd" else "split_d"
+    if kind == "fwd":
+        return "wgmma_split_d" if wide16 else "tf32_split_d"
+    return "split_d" if wide16 or kind == "bwd_dq" else "tf32_split_d"
 
 
 def kernel_operands(d, *tensors, kind="fwd"):
     """The [B, H, S, d] tensors as kernel `kind` takes them: zero-padded
     along D up to kernel_head_dim(d) (a new contiguous tensor), and a
-    bf16 or fp16 view that TMA refuses copied to a contiguous tensor
-    (counted in flash_attention.view_copies) where that kernel reads
-    through TMA (the kernels of csrc/flash_attn_d256.cu read through
-    strides and take any view).  Returns the kernel's head dim and the
+    view that TMA refuses copied to a contiguous tensor (counted in
+    flash_attention.view_copies) where that kernel reads through TMA (the
+    16-bit kernels but the split-D dQ and dK/dV, and the fp32 split-D
+    forward and dK/dV; the other fp32 kernels and those of
+    csrc/flash_attn_d256.cu read through strides and take any view).  Returns the kernel's head dim and the
     tensors."""
     dp = kernel_head_dim(d)
     out = []
     for t in tensors:
         if dp != d:
             t = torch.nn.functional.pad(t, (0, dp - d)).contiguous()
-        elif t.dtype in _TMA_DTYPES and \
-                _route(kind, dp, t.dtype) in _TMA_ROUTES and \
-                not tma_accepts(t):
+        elif t.dtype in _TMA_ROUTES.get(_route(kind, dp, t.dtype), ()) \
+                and not tma_accepts(t):
             t = t.clone(memory_format=torch.contiguous_format)
             flash_attention.view_copies += 1
         out.append(t)
@@ -316,6 +330,7 @@ _ENTRIES = {"fwd": ("flash_attn_fwd", "flash_attn_d256_fwd"),
 LAUNCH_COUNTS = {"le128": "launches", "wgmma256": "launches_wgmma256",
                  "d256": "launches_d256",
                  "wgmma_split_d": "launches_wgmma_split_d",
+                 "tf32_split_d": "launches_tf32_split_d",
                  "split_d": "launches_split_d"}
 
 

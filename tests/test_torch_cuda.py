@@ -357,6 +357,25 @@ def test_fp32_backward_kernels_are_deterministic():
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def test_fp32_split_d_kernels_are_deterministic():
+    """No atomics in the 3xTF32 split-D kernels either: two launches of the
+    forward and of the dK/dV at D = 512 (causal, head-split views) give
+    the same bits, and every chunk's CTA agrees on lse."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (_bhsd(g, 2, 2, s, 512, torch.float32, True)
+                   for s in (384, 320, 320, 384))
+    runs = []
+    for _ in range(2):
+        out, lse = tattn.flash_attention_cuda(q, k, v, causal=True)
+        dd = (do * out).sum(-1)
+        runs.append((out, lse, *tattn.flash_attention_bwd_dkv_cuda(
+            q, k, v, do, lse, dd, causal=True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("t,v,dtype,ignore", [
     (64, 30522, torch.float32, -100),
     (64, 30522, torch.bfloat16, 7),
@@ -647,6 +666,16 @@ _BF16, _FP16 = torch.bfloat16, torch.float16
     (1, 2, 160, 96, 320, _FP16, True, True),
     (1, 2, 130, 130, 512, _BF16, False, "refused"),
     (1, 2, 160, 96, 512, _BF16, True, False),
+    # the fp32 split-D forward and dK/dV (3xTF32): causal Sq < Sk and
+    # Sq > Sk, ragged S, head-split views, views 4 bytes past a 16-byte
+    # boundary (copied: TMA refuses them), D = 320 (padded), 512 and 768
+    (1, 2, 160, 96, 512, torch.float32, True, False),
+    (1, 2, 200, 200, 512, torch.float32, False, True),
+    (1, 2, 130, 70, 512, torch.float32, False, "offset"),
+    (1, 2, 70, 130, 320, torch.float32, True, "offset"),
+    (1, 2, 96, 160, 768, torch.float32, True, False),
+    (1, 2, 200, 200, 768, torch.float32, True, True),
+    (2, 2, 256, 256, 768, torch.float32, False, False),
     # D = 768, three 256-column chunks
     (1, 2, 96, 160, 768, _BF16, True, True),
     (1, 2, 160, 96, 768, _FP16, True, False),
@@ -660,12 +689,15 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     D = 256 (counted in `launches_wgmma256`); in fp32 all three are the
     csrc/flash_attn_d256.cu kernels (`launches_d256`).  D = 256 n, n >= 2
     (and 320 padded to 512): the 16-bit forward is the split-D wgmma
-    kernel (`launches_wgmma_split_d`), the fp32 forward and every dQ and
-    dK/dV the split-D kernels of csrc/flash_attn_d256.cu
+    kernel (`launches_wgmma_split_d`), the fp32 forward and dK/dV the
+    3xTF32 split-D kernels (`launches_tf32_split_d`), the fp32 dQ and the
+    16-bit dQ and dK/dV the split-D kernels of csrc/flash_attn_d256.cu
     (`launches_split_d`).  Each launch is counted once, on its own route.
     A view TMA refuses is copied where a wgmma kernel reads it (q in the
     forward, q and dO in dQ and in dK/dV: 5 copies at 16-bit D = 256, 1 at
-    16-bit D > 256), not for the kernels that read through strides.  The
+    16-bit D > 256) and where the fp32 split-D forward and dK/dV read it
+    ("offset": q, k, v and dO 4 bytes past a 16-byte boundary, 3 + 4
+    copies), not for the kernels that read through strides.  The
     forward, dQ and dK/dV against their plain versions at TOL (the
     D <= 128 kernels' tolerances, for the same reasons)."""
     _need_cuda()
@@ -675,11 +707,17 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     if strided == "refused":
         q, do = _shifted(q), _shifted(do)
         assert not tattn.tma_accepts(q) and not tattn.tma_accepts(do)
+    if strided == "offset":
+        q, k, v, do = (_shifted(t, 1) for t in (q, k, v, do))
+        assert all(t.data_ptr() % 16 == 4 for t in (q, k, v, do))
     dp = tattn.kernel_head_dim(d)
     wide16 = dtype != torch.float32
-    if dp > 256:
-        want = ("launches_wgmma_split_d" if wide16 else "launches_split_d",
-                "launches_split_d", "launches_split_d")
+    if dp > 256 and wide16:
+        want = ("launches_wgmma_split_d", "launches_split_d",
+                "launches_split_d")
+    elif dp > 256:
+        want = ("launches_tf32_split_d", "launches_split_d",
+                "launches_tf32_split_d")
     elif wide16:
         want = ("launches_wgmma256",) * 3
     else:
@@ -703,6 +741,8 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     wgmma_copies = 0
     if strided == "refused" and dp == d and wide16:
         wgmma_copies = 5 if d == 256 else 1
+    if strided == "offset" and dp == d and dp > 256:
+        wgmma_copies = 7
     assert tattn.flash_attention.view_copies == copies + wgmma_copies
     tol = TOL[dtype]
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
@@ -724,19 +764,27 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
 
 def test_wide_head_dims_through_autograd():
     """A CUDA tensor with D = 320 runs `flash_attention` forward and
-    backward (autograd) through the split-D kernels, each a counted launch,
-    and matches the score-matrix reference in fp32."""
+    backward (autograd) through the split-D kernels, each a counted launch
+    (the fp32 forward and dK/dV on `launches_tf32_split_d`, the dQ on
+    `launches_split_d`), and matches the score-matrix reference in fp32."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(8)
     q, k, v = (torch.randn(1, 2, 96, 320, device="cuda", generator=g)
                .requires_grad_(True) for _ in range(3))
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
-    before = [f.launches_split_d for f in counts]
+    names = ("launches_tf32_split_d", "launches_split_d",
+             "launches_tf32_split_d")
+
+    def read():
+        return [(getattr(f, n), f.launches_tf32_split_d + f.launches_split_d)
+                for f, n in zip(counts, names)]
+
+    before = read()
     out = tattn.flash_attention(q, k, v, causal=True)
     grads = torch.autograd.grad(out.square().sum(), (q, k, v))
     torch.cuda.synchronize()
-    assert [f.launches_split_d for f in counts] == [n + 1 for n in before]
+    assert read() == [(n + 1, both + 1) for n, both in before]
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     ref = tattn.reference_attention(ql, kl, vl, causal=True)
     want = torch.autograd.grad(ref.square().sum(), (ql, kl, vl))

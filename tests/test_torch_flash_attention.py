@@ -295,8 +295,8 @@ _ROUTES = {
     (256, False): {"fwd": "d256", "bwd_dq": "d256", "bwd_dkv": "d256"},
     (256, True): {"fwd": "wgmma256", "bwd_dq": "wgmma256",
                   "bwd_dkv": "wgmma256"},
-    (512, False): {"fwd": "split_d", "bwd_dq": "split_d",
-                   "bwd_dkv": "split_d"},
+    (512, False): {"fwd": "tf32_split_d", "bwd_dq": "split_d",
+                   "bwd_dkv": "tf32_split_d"},
     (512, True): {"fwd": "wgmma_split_d", "bwd_dq": "split_d",
                   "bwd_dkv": "split_d"},
 }
@@ -312,20 +312,25 @@ def test_route_and_launch_count_by_kernel(kind, dp, dtype):
     """The kernel each (kind, kernel head dim, dtype) runs: up to 128 the
     kernels of flash_attn_fwd.cu / flash_attn_bwd.cu; at 256 the 16-bit
     wgmma forward, dQ and dK/dV, fp32 on csrc/flash_attn_d256.cu; above
-    256 the 16-bit forward on the split-D wgmma kernel and the rest on the
-    split-D kernels of csrc/flash_attn_d256.cu.  Each route has its own
-    launch count on all three wrappers, and the routes that read 16-bit
-    operands through TMA are the ones whose refused views are copied."""
+    256 the 16-bit forward on the split-D wgmma kernel, the fp32 forward
+    and dK/dV on the 3xTF32 split-D kernels and every dQ and the 16-bit
+    dK/dV on the split-D kernels of csrc/flash_attn_d256.cu.  Each route
+    has its own launch count on all three wrappers, and the routes (and
+    dtypes) that read their operands through TMA are the ones whose
+    refused views are copied."""
     want = _ROUTES[dp, dtype != torch.float32][kind]
     assert tattn._route(kind, dp, dtype) == want
     count = tattn.LAUNCH_COUNTS[want]
     assert len(set(tattn.LAUNCH_COUNTS.values())) == \
-        len(tattn.LAUNCH_COUNTS) == 5
+        len(tattn.LAUNCH_COUNTS) == 6
     for wrapper in (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
                     tattn.flash_attention_bwd_dkv_cuda):
         assert isinstance(getattr(wrapper, count), int)
-    assert (want in tattn._TMA_ROUTES) == (want in ("le128", "wgmma256",
-                                                    "wgmma_split_d"))
+    assert tuple(tattn._TMA_ROUTES.get(want, ())) == {
+        "le128": (torch.bfloat16, torch.float16),
+        "wgmma256": (torch.bfloat16, torch.float16),
+        "wgmma_split_d": (torch.bfloat16, torch.float16),
+        "tf32_split_d": (torch.float32,)}.get(want, ())
 
 
 def test_d256_views_that_tma_refuses_by_kernel():
@@ -334,7 +339,9 @@ def test_d256_views_that_tma_refuses_by_kernel():
     TMA refuses, and counts the copy, for every kind.  At D = 512 only the
     16-bit forward reads through TMA (the split-D wgmma kernel); the
     split-D dQ and dK/dV of csrc/flash_attn_d256.cu read through strides:
-    no copy.  fp32 at D = 256 and 512 reads through strides: no copy."""
+    no copy.  fp32 at D = 256 and the fp32 dQ at D = 512 read through
+    strides: no copy; the fp32 split-D forward and dK/dV read through TMA:
+    copied and counted."""
     def refused(d, dtype):
         return torch.randn(2 * 3 * 8 * d + 1).to(dtype)[1:] \
             .view(2, 3, 8, d)
@@ -356,10 +363,12 @@ def test_d256_views_that_tma_refuses_by_kernel():
             assert torch.equal(got, view) and torch.equal(other, view)
             if copied:
                 assert tattn.tma_accepts(got) and got.is_contiguous()
-    before = tattn.flash_attention.view_copies
     for d in (256, 512):
-        f32 = torch.zeros(2 * 3 * 8 * d + 1)[1:].view(2, 3, 8, d)
+        f32 = torch.randn(2 * 3 * 8 * d + 1)[1:].view(2, 3, 8, d)
         for kind in ("fwd", "bwd_dq", "bwd_dkv"):
+            copied = d == 512 and kind != "bwd_dq"
+            before = tattn.flash_attention.view_copies
             dp, (a,) = tattn.kernel_operands(d, f32, kind=kind)
-            assert a is f32 and dp == d
-    assert tattn.flash_attention.view_copies == before
+            assert dp == d and (a is not f32) == copied, (d, kind)
+            assert torch.equal(a, f32)
+            assert tattn.flash_attention.view_copies == before + copied
