@@ -34,10 +34,11 @@ is present.  Phases:
                S = 200 in bf16 and fp16; head dim 512 (hidden 2048 over 4
                heads) in all three dtypes and causal with Sq > Sk in
                fp16, and head dim 768 (hidden 3072 over 4 heads) in fp32
-               and bf16, on the split-D routes (the 16-bit forward: the
-               split-D wgmma kernel; the fp32 forward and dK/dV: the
-               3xTF32 split-D kernels; every dQ and the 16-bit dK/dV:
-               csrc/flash_attn_d256.cu).
+               and bf16, causal Sq < Sk and Sq > Sk and ragged S = 200 at
+               D = 512 and 768 in fp32 and bf16, on the split-D routes
+               (the 16-bit forward and dK/dV: the split-D wgmma kernels;
+               the fp32 forward, dQ and dK/dV: the 3xTF32 split-D
+               kernels; the 16-bit dQ: csrc/flash_attn_d256.cu).
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
                and fp16 5e-3 against the plain version, which rounds P
@@ -58,7 +59,7 @@ is present.  Phases:
                gets kernel_ms_cold: a 64 MB write before every launch, so
                L2 (50 MB) holds none of the inputs.
                Then the flash backward kernels (dQ, dK/dV) against
-               flash_attention_bwd_dq_plain / _dkv_plain at the same nine
+               flash_attention_bwd_dq_plain / _dkv_plain at the same
                cases; library_ms is the whole backward of torch
                scaled_dot_product_attention (autograd.grad after one
                forward), bounds count 6 (dQ) and 8 (dK/dV) x B H pairs D
@@ -72,9 +73,9 @@ is present.  Phases:
                launched: forward, dQ and dK/dV equal to the last bit to
                the aligned tensors', 5 copies counted; the same at D = 256
                with 5 copies (the wgmma forward, dQ and dK/dV copy) and
-               at D = 512 with 1 (the split-D wgmma forward copies q, the
-               split-D dQ and dK/dV of csrc/flash_attn_d256.cu read
-               through strides);
+               at D = 512 with 3 (the split-D wgmma forward copies q,
+               the split-D wgmma dK/dV q and dO, the split-D dQ of
+               csrc/flash_attn_d256.cu reads through strides);
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -220,12 +221,12 @@ KERNELS = {
 # the kernels for head dims above 128, by route, kernel and dtype: the
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
 # flash_attn_bwd.cu), the fp32 kernels of csrc/flash_attn_d256.cu at
-# D = 256, and at D = 256 n, n >= 2 (split-D; the case is D = 512) the
-# 16-bit split-D wgmma forward (csrc/flash_attn_fwd.cu), the fp32 3xTF32
-# split-D forward and dK/dV (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu;
-# also at D = 768, named with the suffix _d768) and the split-D kernels of
-# csrc/flash_attn_d256.cu (every dQ, the 16-bit dK/dV), each with the
-# kernel case whose times it reports
+# D = 256, and at D = 256 n, n >= 2 (split-D; the case is D = 512, and
+# D = 768 named with the suffix _d768) the 16-bit split-D wgmma forward
+# and dK/dV, the fp32 3xTF32 split-D forward, dQ and dK/dV
+# (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu) and the 16-bit split-D dQ of
+# csrc/flash_attn_d256.cu, each with the kernel case whose times it
+# reports
 _TPU_LINE = {"fwd": 125, "bwd_dq": 240, "bwd_dkv": 281}
 WIDE_KERNELS = []  # (summary name, route, kernel, kernel case)
 for _route, _kinds, _dts, _src, _case in (
@@ -233,12 +234,15 @@ for _route, _kinds, _dts, _src, _case in (
          "d256"),
         ("d256", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
          "d256"),
-        ("wgmma_split_d", ("fwd",), ("bf16", "fp16"), None, "d512"),
-        ("tf32_split_d", ("fwd", "bwd_dkv"), ("fp32",), None, "d512"),
-        ("tf32_split_d", ("fwd", "bwd_dkv"), ("fp32",), None, "d768"),
-        ("split_d", ("bwd_dq",), ("fp32",), "flash_attn_d256", "d512"),
-        ("split_d", ("bwd_dq", "bwd_dkv"), ("bf16", "fp16"),
-         "flash_attn_d256", "d512")):
+        ("wgmma_split_d", ("fwd", "bwd_dkv"), ("bf16", "fp16"), None,
+         "d512"),
+        ("wgmma_split_d", ("fwd", "bwd_dkv"), ("bf16",), None, "d768"),
+        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
+         "d512"),
+        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
+         "d768"),
+        ("split_d", ("bwd_dq",), ("bf16", "fp16"), "flash_attn_d256",
+         "d512")):
     for _kind in _kinds:
         for _dt in _dts:
             _name = f"flash_attn_{_route}_{_kind}_{_dt}" + \
@@ -417,10 +421,10 @@ def attention_cases(torch):
         ("d256_ragged_s200_causal_fp16", 2, 8, 200, 200, 256,
          torch.float16, True, False),
         # head dim 512 (hidden 2048 over 4 heads), two 256-column chunks:
-        # the 16-bit forward on the split-D wgmma kernel, the fp32 forward
-        # and dK/dV on the 3xTF32 split-D kernels, every dQ and the 16-bit
-        # dK/dV on the split-D kernels of csrc/flash_attn_d256.cu; causal
-        # with Sq > Sk in fp16
+        # the 16-bit forward and dK/dV on the split-D wgmma kernels, the
+        # fp32 forward, dQ and dK/dV on the 3xTF32 split-D kernels, the
+        # 16-bit dQ on the split-D kernel of csrc/flash_attn_d256.cu;
+        # causal with Sq > Sk in fp16
         ("d512_fp32", 8, 4, 512, 512, 512, torch.float32, False, True),
         ("d512_bf16", 8, 4, 512, 512, 512, torch.bfloat16, False, True),
         ("d512_fp16", 8, 4, 512, 512, 512, torch.float16, False, True),
@@ -429,6 +433,22 @@ def attention_cases(torch):
         # head dim 768 (hidden 3072 over 4 heads): three chunks
         ("d768_fp32", 8, 4, 512, 512, 768, torch.float32, False, True),
         ("d768_bf16", 8, 4, 512, 512, 768, torch.bfloat16, False, True),
+        # the fp32 split-D dQ and the 16-bit split-D dK/dV (and the
+        # forwards): causal Sq < Sk and Sq > Sk, ragged S = 200
+        ("d512_causal_sq_lt_sk_fp32", 2, 4, 384, 512, 512, torch.float32,
+         True, False),
+        ("d512_causal_sq_gt_sk_fp32", 2, 4, 512, 384, 512, torch.float32,
+         True, False),
+        ("d512_ragged_s200_fp32", 2, 4, 200, 200, 512, torch.float32, False,
+         False),
+        ("d512_causal_sq_lt_sk_bf16", 2, 4, 384, 512, 512, torch.bfloat16,
+         True, False),
+        ("d512_ragged_s200_causal_bf16", 2, 4, 200, 200, 512,
+         torch.bfloat16, True, False),
+        ("d768_ragged_s200_causal_fp32", 2, 4, 200, 200, 768, torch.float32,
+         True, False),
+        ("d768_causal_sq_gt_sk_bf16", 2, 4, 512, 384, 768, torch.bfloat16,
+         True, False),
     ]
 
 
@@ -619,9 +639,9 @@ def view_copy_phase(torch, attn):
     then launched: the forward, dQ and dK/dV on the shifted q and dO give
     the bits of the aligned tensors, and flash_attention.view_copies
     counts the copies.  D = 64 and D = 256: 5 copies (q in each of the
-    three launches, dO in two); D = 512: 1 (q in the split-D wgmma
-    forward; the split-D dQ and dK/dV of csrc/flash_attn_d256.cu read
-    through strides)."""
+    three launches, dO in two); D = 512: 3 (q in the split-D wgmma
+    forward, q and dO in the split-D wgmma dK/dV; the split-D dQ of
+    csrc/flash_attn_d256.cu reads through strides)."""
     gen = torch.Generator(device="cuda").manual_seed(77)
 
     def shifted(t):  # t's values in a view 2 elements past 16 bytes
@@ -632,7 +652,7 @@ def view_copy_phase(torch, attn):
 
     for (b, h, s, d), want_copies in (((2, 12, 512, 64), 5),
                                       ((2, 8, 512, 256), 5),
-                                      ((2, 4, 512, 512), 1)):
+                                      ((2, 4, 512, 512), 3)):
         q, k, v, do = (attention_inputs(torch, gen, b, h, s, d,
                                         torch.bfloat16, False)
                        for _ in range(4))
@@ -1366,13 +1386,16 @@ WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "tf32_split_d",
                "split_d")
 WIDE_LAUNCHES = {}
 # "route/kernel" -> the substring of its device name, for the profiler
-# (csrc/flash_attn_d256.cu runs the D = 256 and split-D dQ and dK/dV as
-# one kernel each, so the profiler counts both under d256)
+# (csrc/flash_attn_d256.cu runs the D = 256 and split-D dQ as one kernel,
+# so the profiler counts both under d256)
 WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
                      "wgmma256/bwd_dq": "flash_bwd_dq_wgmma_kernel<256",
                      "wgmma256/bwd_dkv": "flash_bwd_dkv_wgmma_kernel<256",
                      "wgmma_split_d/fwd": "flash_fwd_split_d_wgmma_kernel",
+                     "wgmma_split_d/bwd_dkv":
+                         "flash_bwd_dkv_split_d_wgmma_kernel",
                      "tf32_split_d/fwd": "flash_fwd_split_d_tf32_kernel",
+                     "tf32_split_d/bwd_dq": "flash_bwd_dq_split_d_tf32_kernel",
                      "tf32_split_d/bwd_dkv":
                          "flash_bwd_dkv_split_d_tf32_kernel",
                      "d256/fwd": "flash_fwd_d256",
@@ -1660,8 +1683,9 @@ def main():
     # training / serving shape (PERF.md: bf16 forward <= 2x SDPA, dQ <=
     # 0.75x and dK/dV <= 1x the whole SDPA backward, fp32 forward <= 1x
     # SDPA fp32, fp32 dQ <= 0.5x and dK/dV <= 0.65x the whole SDPA fp32
-    # backward), and the wide-head-dim wgmma kernels at [8, 8, 512, 256]
-    # and [8, 4, 512, 512]; recorded, not gated
+    # backward), and the wide-head-dim tensor-core kernels at
+    # [8, 8, 512, 256], [8, 4, 512, 512] and [8, 4, 512, 768] (the
+    # backward ones beside the whole SDPA backward); recorded, not gated
     log({"phase": "kernel_vs_library", **{
         tag: r["kernel_ms"] / r["library_ms"] for tag, r in (
             ("flash_fwd_bf16", fwd["slice_bf16"]),
@@ -1679,7 +1703,13 @@ def main():
             ("flash_bwd_dkv_tf32_split_d_fp32", bwd["d512_fp32"]["dkv"]),
             ("flash_fwd_tf32_split_d_fp32_d768", fwd["d768_fp32"]),
             ("flash_bwd_dkv_tf32_split_d_fp32_d768",
-             bwd["d768_fp32"]["dkv"]))}})
+             bwd["d768_fp32"]["dkv"]),
+            ("flash_bwd_dq_tf32_split_d_fp32", bwd["d512_fp32"]["dq"]),
+            ("flash_bwd_dq_tf32_split_d_fp32_d768", bwd["d768_fp32"]["dq"]),
+            ("flash_bwd_dkv_wgmma_split_d_bf16", bwd["d512_bf16"]["dkv"]),
+            ("flash_bwd_dkv_wgmma_split_d_fp16", bwd["d512_fp16"]["dkv"]),
+            ("flash_bwd_dkv_wgmma_split_d_bf16_d768",
+             bwd["d768_bf16"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)

@@ -133,6 +133,43 @@
 //   the absence of atomics are as above.  Bound at [8, 8, 512, 256]: 4
 //   products of 2 S^2 D per head, 34.4 GFLOP, 34.7 us on the tensor
 //   cores (operations); the grid is 8 x 8 x 8 = 512 CTAs.
+//   dK/dV at D = 256 n, n >= 2 (257-511 zero-padded to 512 by the
+//   wrapper): `flash_bwd_dkv_split_d_wgmma_kernel<T>`, the design of the
+//   fp32 split-D dK/dV below on wgmma.  Resident K and V would be 64 n KB
+//   each, so:
+//   * a CTA owns 64 keys and one 256-column chunk of dK and dV (folded
+//     into blockIdx.x); consumer warpgroup w owns the chunk's columns
+//     128 w .. + 127 of both (two 64-column boxes, 128 registers), and a
+//     producer warp fills a 6-stage ring by TMA;
+//   * warpgroup 0 computes S^T = k q^T and P^T, warpgroup 1 dP^T = v dO^T
+//     and dP^T - D, each once over all of D (m64n64k16 over the 4n
+//     (k, q) or (v, dO) box pairs of a step, one commit group a step; a
+//     stage is released once the next step's group is issued and its own
+//     is done).  Both m64n64 fragments have the same layout, so each
+//     warpgroup leaves its own in fp32 shared slots (2 x 16 KB, slot i of
+//     thread t at [i][t]) between two named barriers of the 256 consumer
+//     threads, and reads the other's as it stands; both then form
+//     dS^T = P^T (dP^T - D) (the same product, the same bits), pack P^T
+//     and dS^T to T as register A operands, and run dV += P^T dO and
+//     dK += dS^T q on their own q and dO boxes (MN-major) of the two
+//     second-product steps that follow the score steps of each q tile.
+//     Computing both scores in each warpgroup (the D = 256 column split)
+//     would be 2.5x the tensor work at n = 2; the role split is 1.5x;
+//   * shared memory: 6 stages of 4 x 8 KB, the slots, 12 barriers:
+//     230,496 B whatever n (static_assert against 232,448);
+//   * the lse (log2 units) and D of the fragment's 16 q rows are read per
+//     q tile with __ldg while the score products run; the causal start
+//     tile, masks, fully-masked rows and keys past Sk are as at D = 256.
+//   Bound at [8, 4, 512, 512]: 34.4 GFLOP of real work, 34.7 us on the
+//   tensor cores (52 us with the scores recomputed per chunk); ~1.3 GB of
+//   boxes read from L2 per call; the grid is 8 x 2 x 4 x 8 = 512 CTAs, one
+//   an SM.  On an H100 it ran 0.25 ms there (PERF.md), and builds without
+//   the loads after the ring's first fill, without the score products or
+//   without the second products each took 94-96% of that (88-94% at
+//   D = 768), and without all three 80% (72%; chip_diag.py): neither L2
+//   nor the tensor cores bound it, but the skeleton of a q tile (stage
+//   barriers, slot exchange, softmax, one CTA an SM), not measured part
+//   by part.
 //
 // fp32 (the fp32 training step): 3xTF32 on the tensor cores,
 //   `flash_bwd_dq_tf32_kernel` and `flash_bwd_dkv_tf32_kernel`.  Bound at
@@ -221,6 +258,30 @@
 //   Bound at [8, 4, 512, 512]: 34.4 GFLOP of real work in 3xTF32 take
 //   0.208 ms (0.312 with the recomputed scores), 168 MB take 0.050 ms;
 //   the grid is 8 x 2 x 4 x 8 = 512 CTAs, one per SM.
+//   dQ at D = 256 n, n >= 2: `flash_bwd_dq_split_d_tf32_kernel<W>`, the
+//   split-D dK/dV turned around (rows are queries, the loop runs over key
+//   tiles of 64):
+//   * a CTA of two warpgroups owns 64 query rows and one chunk of 2 C
+//     columns of dQ, C = 32 W columns a warpgroup (16 rows x C a warp:
+//     C / 2 registers a thread).  C is 256 where n is even, 192 where 3
+//     divides n, else 128: at D = 512 one CTA computes the scores once for
+//     all of dQ, at D = 768 two chunks compute them twice.  On an H100 the
+//     128-column chunk everywhere took 1.62x as long at D = 512 and 1.40x
+//     at D = 768 (PERF.md);
+//   * warpgroup 0 computes S = q k^T and P, warpgroup 1 dP = dO v^T and
+//     dP - D, each once over all of D from the score steps' (q, k) and
+//     (dO, v) boxes, each box's products summed in a fresh fragment (the
+//     accuracy lesson of the dK/dV); they leave their fragments in the
+//     32 KB of slots, and each second-product step (two k boxes of each
+//     warpgroup's columns) reads P and dP - D back to form dS = P (dP - D)
+//     and its C fragment as the A operand of dQ += dS k.  Holding dS in
+//     registers across the steps instead spilled 220 bytes at W = 8;
+//   * the lse (log2 units; warpgroup 0) or D (warpgroup 1) of the thread's
+//     two rows stays in registers; keys past Sk and above the causal
+//     diagonal get P = 0; key tiles wholly above it are skipped; the ring,
+//     its barriers and its 230,448 B are those of the dK/dV.
+//   Bound at [8, 4, 512, 512]: 25.8 GFLOP in 3xTF32 take 0.156 ms; the
+//   grid is 8 x 4 x 8 = 256 CTAs.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -751,24 +812,30 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
 // columns) and then the 4 second-product steps (for each warpgroup a q box
 // and a dO box of its columns).  Shared memory does not grow with D.
 // ---------------------------------------------------------------------------
-struct SplitDkv {
+// The ring of the two fp32 split-D backward kernels (dK/dV here, dQ
+// below): 64-row boxes of 32 fp32 columns, four a stage, and two
+// warpgroups' 64 x 64 score fragments handed over through shared slots.
+struct SplitRing {
   static constexpr int THREADS = 256;
-  static constexpr int BKEY = 64;          // keys per CTA, 16 per warp
-  static constexpr int BQ = 64;            // q rows per streamed tile
-  static constexpr int CHUNK = 256;        // output columns per CTA
+  static constexpr int ROWS = 64;          // rows of every box
   static constexpr int BOX = 32;           // columns of a box (128 bytes)
-  static constexpr uint32_t BOXB = 64 * BOX * 4;  // bytes of a 64-row box
-  static constexpr uint32_t STAGE = 4 * BOXB;     // four boxes a step
-  static constexpr int CSTEPS = CHUNK / 2 / BOX;  // second-product steps
-  static constexpr int XSLOTS = BQ / 8 * 4;  // fragment values a thread
+  static constexpr uint32_t BOXB = ROWS * BOX * 4;  // bytes of a box
+  static constexpr uint32_t STAGE = 4 * BOXB;       // four boxes a step
+  static constexpr int XSLOTS = ROWS / 8 * 4;  // fragment values a thread
   static constexpr int STAGES = 6;
-  static constexpr uint32_t X_OFF = STAGES * STAGE;  // P^T and dP^T - D
+  static constexpr uint32_t X_OFF = STAGES * STAGE;  // the two fragments
   static constexpr uint32_t BAR_OFF = X_OFF + 2 * XSLOTS * 128 * 4;
   static constexpr size_t SMEM = BAR_OFF + STAGES * 8 + 1024;  // + align
-  static_assert(BKEY == 64 && BQ == 64, "boxes are 64 rows");
   static_assert(BOXB % 1024 == 0, "every box must start on 1024 bytes");
   static_assert(SMEM <= hopper::kMaxSmem,
-                "split-D dK/dV stages exceed the shared-memory opt-in");
+                "split-D stages exceed the shared-memory opt-in");
+};
+
+struct SplitDkv : SplitRing {
+  static constexpr int BKEY = ROWS;        // keys per CTA, 16 per warp
+  static constexpr int BQ = ROWS;          // q rows per streamed tile
+  static constexpr int CHUNK = 256;        // output columns per CTA
+  static constexpr int CSTEPS = CHUNK / 2 / BOX;  // second-product steps
 };
 
 __global__ void __launch_bounds__(SplitDkv::THREADS, 1)
@@ -1045,6 +1112,313 @@ cudaError_t launch_dkv_split_d(const void* q, const void* k, const void* v,
       static_cast<const float*>(dd), static_cast<float*>(dk),
       static_cast<float*>(dv), H, Sq, Sk, n_chunks, causal, scale);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ at D = 256 n, n >= 2: the split-D dQ, the split-D dK/dV turned
+// around (rows are queries, the loop runs over key tiles).  A CTA of two
+// warpgroups owns 64 query rows and one chunk of 2 C columns of dQ;
+// warpgroup w owns the chunk's columns C w .. C w + C - 1 (16 rows x C
+// columns per warp: C / 2 registers a thread, C = 32 W).  Warpgroup 0
+// computes S = q k^T and P, warpgroup 1 dP = dO v^T and dP - D, each once
+// over all of D, and they hand their fragments over through shared slots.
+// Per key tile the ring carries the 8n score steps (q, k, dO and v boxes
+// of 32 columns) and then W / 2 steps of k boxes for dQ += dS k (two boxes
+// of its own columns per warpgroup).
+// ---------------------------------------------------------------------------
+template <int W>
+__global__ void __launch_bounds__(SplitRing::THREADS, 1)
+flash_bwd_dq_split_d_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ dd,
+                                 float* __restrict__ dq, int H, int Sq,
+                                 int Sk, int n_chunks, int causal,
+                                 float scale) {
+  using L = SplitRing;
+  constexpr int BQ = L::ROWS;         // query rows per CTA, 16 a warp
+  constexpr int BK = L::ROWS;         // keys per tile
+  constexpr int NT = BK / 8;          // 8-key tiles of S / k8 steps of dS k
+  constexpr int CT = L::BOX / 8;      // 8-column tiles of a box
+  constexpr int CSTEPS = W / 2;       // second-product steps
+  static_assert(W % 2 == 0, "a second-product step holds two own boxes");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(smem + L::X_OFF);  // [2][XSLOTS][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;               // 0: S, P; 1: dP
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int tid = threadIdx.x % 128;     // the thread in its warpgroup
+  const int chunk = blockIdx.x % n_chunks;  // the CTA's dQ columns
+  const int q0 = blockIdx.x / n_chunks * BQ;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int rw0 = q0 + 16 * (warp % 4);  // the warp's first row
+  const int row = rw0 + g;               // the thread's rows: row, row + 8
+
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    // keys visible to the CTA's last row (attention.py:273)
+    const int hi = q0 + BQ + shift;
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
+  }
+  const int nbox = n_chunks * 2 * W;  // D / BOX: score steps per key tile
+  const int per_tile = nbox + CSTEPS;
+  const int total = n_tiles * per_tile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) hopper::mbar_init(full + s, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // thread 0 starts step i into stage i % STAGES (rows past Sq or Sk
+  // zero-filled): a score step's q, k, dO and v boxes, or a second-product
+  // step's two k boxes of each warpgroup's columns
+  auto issue = [&](int i) {
+    if (i >= total) return;
+    const int t = i / per_tile, j = i % per_tile, s = i % L::STAGES;
+    const int k0 = t * BK;
+    uint8_t* sp = smem + s * L::STAGE;
+    hopper::mbar_arrive_expect_tx(full + s, L::STAGE);
+    if (j < nbox) {
+      const int c = j * L::BOX;
+      hopper::tma_load_4d(sp, &tq, full + s, c, q0, hh, bb);
+      hopper::tma_load_4d(sp + L::BOXB, &tk, full + s, c, k0, hh, bb);
+      hopper::tma_load_4d(sp + 2 * L::BOXB, &tdo, full + s, c, q0, hh, bb);
+      hopper::tma_load_4d(sp + 3 * L::BOXB, &tv, full + s, c, k0, hh, bb);
+    } else {
+      const int cs = j - nbox;
+      for (int w = 0; w < 2; ++w)
+        for (int b = 0; b < 2; ++b)
+          hopper::tma_load_4d(sp + (2 * w + b) * L::BOXB, &tk, full + s,
+                              ((2 * chunk + w) * W + 2 * cs + b) * L::BOX,
+                              k0, hh, bb);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < L::STAGES - 1; ++i) issue(i);
+  // wait for the next step's stage; once every thread is past the step
+  // before it, thread 0 refills that step's stage with the step STAGES - 1
+  // ahead
+  int step = 0;
+  auto next = [&]() -> const float* {
+    const int s = step % L::STAGES;
+    hopper::mbar_wait(full + s, (step / L::STAGES) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0) issue(step + L::STAGES - 1);
+    ++step;
+    return reinterpret_cast<const float*>(smem + s * L::STAGE);
+  };
+
+  // of the thread's two rows, warpgroup 0 keeps the lse in log2 units
+  // (+inf past Sq and on fully-masked rows: P = 0 there), warpgroup 1 D
+  const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
+  float rowv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = row + 8 * h;
+    if (wg == 0) {
+      const float lv = qpos < Sq ? __ldg(lse + row_base + qpos) : -INFINITY;
+      rowv[h] = lv == -INFINITY ? INFINITY : lv * kLog2e;
+    } else {
+      rowv[h] = qpos < Sq ? __ldg(dd + row_base + qpos) : 0.f;
+    }
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[W * CT][4];
+#pragma unroll
+  for (int j = 0; j < W * CT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // the thread's fragment slots: P (written by warpgroup 0) and dP - D (by
+  // warpgroup 1), slot s of thread t at [s][t]
+  float* xmine = xbuf + wg * L::XSLOTS * 128 + tid;
+  const float* xp = xbuf + tid;
+  const float* xd = xbuf + L::XSLOTS * 128 + tid;
+  const int box_a = 2 * wg, box_b = 2 * wg + 1;  // q, k or dO, v
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+
+    // warpgroup 0: S = q k^T, warpgroup 1: dP = dO v^T, over all of D box
+    // by box.  A: the warp's q / dO rows 16 (warp % 4) + g (+8), columns
+    // 8 ks + t4 (+4); B: k / v row 8 nt + g.  Each row index is g modulo
+    // 8, so in the swizzled boxes columns 8 ks + t4 and + 4 sit at c0 + t4
+    // and (c0 ^ 4) + t4 of the row.  As in the dK/dV kernel, a box's
+    // products go to a fresh fragment (12 accumulations), added to the
+    // running sum in fp32, half the keys at a time: the tensor cores round
+    // each accumulation toward zero, and dS = P (dP - D) keeps that bias
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    for (int j = 0; j < nbox; ++j) {
+      const float* sp = next();
+      const float* sa =
+          sp + box_a * (L::BOXB / 4) + (16 * (warp % 4) + g) * L::BOX + t4;
+      const float* sb = sp + box_b * (L::BOXB / 4) + g * L::BOX + t4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float part[NT / 2][4];
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < L::BOX / 8; ++ks) {
+          const int c0 = ((2 * ks ^ g) & 7) << 2, c1 = c0 ^ 4;
+          uint32_t ahi[4], alo[4];
+          split(sa[c0], ahi[0], alo[0]);
+          split(sa[8 * L::BOX + c0], ahi[1], alo[1]);
+          split(sa[c1], ahi[2], alo[2]);
+          split(sa[8 * L::BOX + c1], ahi[3], alo[3]);
+#pragma unroll
+          for (int n = 0; n < NT / 2; ++n) {
+            const float* br = sb + 8 * (half * NT / 2 + n) * L::BOX;
+            uint32_t bhi[2], blo[2];
+            split_b(br[c0], br[c1], bhi, blo);
+            mma3(part[n], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[half * NT / 2 + n][i] += part[n][i];
+      }
+    }
+
+    // C fragment: c0, c1 (row, keys 8 nt + 2 t4, +1), c2, c3 (row + 8).
+    // Warpgroup 0: P = exp2(S scale log2e - lse log2e), 0 for keys past Sk
+    // (zero-filled, and a zero score is not -inf) and above the causal
+    // diagonal.  Warpgroup 1: dP - D.  Both leave the fragment in their
+    // slots (the next step's barrier orders the writes before the reads)
+    const bool need_mask =
+        k0 + BK > Sk || (causal && k0 + BK - 1 > rw0 + shift);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i / 2;
+        float x;
+        if (wg == 0) {
+          x = exp2f(fmaf(s[nt][i], scale_log2, -rowv[h]));
+          if (need_mask) {
+            const int kpos = k0 + 8 * nt + 2 * t4 + (i % 2);
+            if (kpos >= Sk || (causal && kpos > row + 8 * h + shift)) x = 0.f;
+          }
+        } else {
+          x = s[nt][i] - rowv[h];
+        }
+        xmine[(4 * nt + i) * 128] = x;
+      }
+
+    // dQ[:, cols] += dS k[:, cols], dS = P (dP - D) from the slots (the
+    // same product in both warpgroups), over the keys of 8-key tile nt
+    // taken in the order 0, 2, 4, 6, 1, 3, 5, 7: A = dS's C fragment as it
+    // stands, B reads k rows 8 nt + 2 t4 (b0) and + 1 (b1), column 8 jj + g
+    // of the warpgroup's box (swizzled)
+#pragma unroll
+    for (int cs = 0; cs < CSTEPS; ++cs) {
+      const float* sp = next();
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ds[i] = xp[(4 * nt + i) * 128] * xd[(4 * nt + i) * 128];
+        uint32_t ahi[4], alo[4];
+        split_c_as_a(ds, ahi, alo);
+        const int r = 8 * nt + 2 * t4;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const float* kb = sp + (2 * wg + b) * (L::BOXB / 4);
+#pragma unroll
+          for (int jj = 0; jj < CT; ++jj) {
+            const int c = 8 * jj + g;
+            uint32_t bhi[2], blo[2];
+            split_b(kb[swz128(r, c)], kb[swz128(r + 1, c)], bhi, blo);
+            mma3(acc[(2 * cs + b) * CT + jj], ahi, alo, bhi, blo);
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue: the warpgroup's columns of dQ (x scale); rows past Sq are
+  // not stored
+  const int64_t d_total = (int64_t)n_chunks * 2 * W * L::BOX;
+  const int col0 = (2 * chunk + wg) * W * L::BOX + 2 * t4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = row + 8 * h;
+    if (qpos >= Sq) continue;
+    float* out = dq + (row_base + qpos) * d_total + col0;
+#pragma unroll
+    for (int j = 0; j < W * CT; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
+  }
+}
+
+template <int W>
+cudaError_t launch_dq_split_d_w(const CUtensorMap& tq, const CUtensorMap& tk,
+                                const CUtensorMap& tv, const CUtensorMap& tdo,
+                                const void* lse, const void* dd, void* dq,
+                                int B, int H, int Sq, int Sk, int D,
+                                int causal, float scale,
+                                cudaStream_t stream) {
+  using L = SplitRing;
+  static bool smem_set[kMaxDevices] = {};
+  cudaError_t err =
+      opt_in_smem(flash_bwd_dq_split_d_tf32_kernel<W>, L::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = D / (2 * W * L::BOX);
+  dim3 grid((Sq + L::ROWS - 1) / L::ROWS * n_chunks, H, B);
+  flash_bwd_dq_split_d_tf32_kernel<W><<<grid, L::THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<float*>(dq), H, Sq, Sk,
+      n_chunks, causal, scale);
+  return cudaGetLastError();
+}
+
+// D = 256 n: each warpgroup owns C = 256 columns where n is even (one CTA
+// a q tile at D = 512: the scores are computed once), 192 where n is a
+// multiple of 3 (two chunks at D = 768), else 128 (n chunks)
+cudaError_t launch_dq_split_d(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* dd, void* dq, int B, int H, int Sq,
+                              int Sk, int D, const Strides& st, int causal,
+                              float scale, cudaStream_t stream) {
+  using L = SplitRing;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::encode_bhsd<float>(&tq, q, B, H, Sq, D, st.q_sb,
+                                               st.q_sh, st.q_ss, L::ROWS);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
+                                     st.k_ss, L::ROWS);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
+                                     st.v_ss, L::ROWS);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<float>(&tdo, dout, B, H, Sq, D, st.o_sb,
+                                     st.o_sh, st.o_ss, L::ROWS);
+  if (err != cudaSuccess) return err;
+  if (D % 512 == 0)
+    return launch_dq_split_d_w<8>(tq, tk, tv, tdo, lse, dd, dq, B, H, Sq, Sk,
+                                  D, causal, scale, stream);
+  if (D % 384 == 0)
+    return launch_dq_split_d_w<6>(tq, tk, tv, tdo, lse, dd, dq, B, H, Sq, Sk,
+                                  D, causal, scale, stream);
+  return launch_dq_split_d_w<4>(tq, tk, tv, tdo, lse, dd, dq, B, H, Sq, Sk,
+                                D, causal, scale, stream);
 }
 
 }  // namespace tf32
@@ -1389,6 +1763,353 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dK/dV at D = 256 n, n >= 2: the split-D dK/dV, the 3xTF32 split-D
+// dK/dV's design on wgmma.  A CTA owns 64 keys and one 256-column chunk of
+// dK and dV; consumer warpgroup w owns the chunk's columns 128 w .. 128 w
+// + 127 of both (two 64-column boxes: 128 accumulator registers, as at
+// D = 256).  The score products split by role: warpgroup 0 computes
+// S^T = k q^T and P^T, warpgroup 1 dP^T = v dO^T and dP^T - D, each once
+// over all of D, and they hand their m64n64 fragments over through fp32
+// shared slots (the same fragment layout in both, so a thread reads the
+// slots of its own index in the other warpgroup).  One stream of steps
+// runs through a ring of stages that the producer warp fills by TMA: per
+// q tile the 4n score steps (k, q, v and dO boxes of 64 columns), then two
+// second-product steps (for each warpgroup a q box and a dO box of its
+// columns).  Shared memory does not grow with D.
+// ---------------------------------------------------------------------------
+struct SplitDkvLayout {
+  static constexpr int BKEY = 64;          // keys per CTA
+  static constexpr int CHUNK = 256;        // output columns per CTA
+  static constexpr int COLS = 64;          // columns of a box (128 bytes)
+  static constexpr int OWN = CHUNK / 2 / COLS;  // a consumer's dK, dV boxes
+  static constexpr int STAGES = 6;
+  static constexpr uint32_t ROW = COLS * 2;        // bytes of a box row
+  static constexpr uint32_t SBO = 8 * ROW;         // next 8-row group
+  static constexpr uint32_t BOX = BQ * ROW;        // 8,192: a 64-row box
+  static constexpr uint32_t STAGE = 4 * BOX;       // four boxes a step
+  static constexpr int SN = BQ / 2;                // S^T fragment: 32 fp32
+  static constexpr uint32_t X_OFF = STAGES * STAGE;  // P^T and dP^T - D
+  static constexpr uint32_t BAR_OFF = X_OFF + 2 * SN * 128 * 4;
+  // full and empty per stage
+  static constexpr size_t SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;
+  static_assert(BKEY == BQ, "k and q boxes have the same rows");
+  static_assert(BOX % 1024 == 0, "every box must start on 1024 bytes");
+  static_assert(SMEM <= hopper::kMaxSmem,
+                "split-D dK/dV stages exceed the shared-memory opt-in");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_split_d_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ dd,
+                                   T* __restrict__ dk, T* __restrict__ dv,
+                                   int H, int Sq, int Sk, int n_chunks,
+                                   int causal, float scale) {
+  using L = SplitDkvLayout;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(smem + L::X_OFF);  // [2][SN][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bars;             // [STAGES] the step's boxes landed
+  uint64_t* empty = bars + STAGES;   // [STAGES] both consumers are done
+
+  const int chunk = blockIdx.x % n_chunks;  // the CTA's output columns
+  const int k0 = blockIdx.x / n_chunks * L::BKEY;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  int first = 0;
+  if (causal) {
+    // the first q tile that sees key k0 (attention.py:321)
+    const int lo = k0 - shift;
+    first = lo <= 0 ? 0 : lo / BQ;
+  }
+  const int n_tiles = max(n_qt - first, 0);  // 0: no query sees these keys
+  const int nbox = n_chunks * L::CHUNK / L::COLS;  // score steps per q tile
+  const int per_tile = nbox + L::OWN;
+  const int total = n_tiles * per_tile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread starts every TMA load; step i goes into
+    // stage i % STAGES once both consumers released its use before
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < total; ++i) {
+        const int s = i % STAGES, use = i / STAGES;
+        if (use > 0) hopper::mbar_wait(empty + s, (use - 1) & 1);
+        const int it = i / per_tile, j = i % per_tile;
+        const int q0 = (first + it) * BQ;
+        uint8_t* sp = smem + s * L::STAGE;
+        hopper::mbar_arrive_expect_tx(full + s, L::STAGE);
+        if (j < nbox) {  // a score step: k, q, v and dO boxes
+          const int c = j * L::COLS;
+          hopper::tma_load_4d(sp, &tk, full + s, c, k0, hh, bb);
+          hopper::tma_load_4d(sp + L::BOX, &tq, full + s, c, q0, hh, bb);
+          hopper::tma_load_4d(sp + 2 * L::BOX, &tv, full + s, c, k0, hh, bb);
+          hopper::tma_load_4d(sp + 3 * L::BOX, &tdo, full + s, c, q0, hh,
+                              bb);
+        } else {  // a second-product step: each consumer's q and dO box
+          const int c = chunk * L::CHUNK + (j - nbox) * L::COLS;
+          for (int w = 0; w < 2; ++w) {
+            const int cw = c + w * L::CHUNK / 2;
+            hopper::tma_load_4d(sp + 2 * w * L::BOX, &tq, full + s, cw, q0,
+                                hh, bb);
+            hopper::tma_load_4d(sp + (2 * w + 1) * L::BOX, &tdo, full + s,
+                                cw, q0, hh, bb);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: both own keys k0 .. k0 + 63 as rows; warpgroup wg
+    // computes S^T (0) or dP^T (1) and owns boxes OWN wg .. of the chunk's
+    // dK and dV
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int SN = L::SN;
+    constexpr int ON = L::COLS / 2;   // dK / dV fragment per box
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int key = k0 + 16 * (tid / 32) + lane / 4;  // keys key, key + 8
+    const float scale_log2 = scale * kLog2e;
+    const int64_t qrow_base = ((int64_t)bb * H + hh) * Sq;
+    // the thread's slots: P^T (written by warpgroup 0) and dP^T - D (by
+    // warpgroup 1), slot i of thread t at [i][t]
+    float* xmine = xbuf + wg * SN * 128 + tid;
+    const float* xother = xbuf + (1 - wg) * SN * 128 + tid;
+    // a score step's A (k or v) and B (q or dO) boxes
+    const uint32_t box_a = 2 * wg * L::BOX, box_b = box_a + L::BOX;
+
+    float dk_acc[L::OWN][ON], dv_acc[L::OWN][ON];
+#pragma unroll
+    for (int b = 0; b < L::OWN; ++b)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) dk_acc[b][i] = dv_acc[b][i] = 0.f;
+    float acc[SN];
+#pragma unroll
+    for (int i = 0; i < SN; ++i) acc[i] = 0.f;
+
+    int slot = 0;
+    uint32_t phase = 0;  // parity of the ring's current use
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = (first + it) * BQ;
+      // the fragment's 16 columns are q rows 8 j + 2 (lane % 4) + c:
+      // warpgroup 0 reads their lse (log2 units, +inf past Sq and on
+      // fully-masked rows, so P = 0 there), warpgroup 1 their D, while
+      // the score products run
+      float rowv[BQ / 8][2];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qpos = q0 + 8 * j + 2 * (lane % 4) + c;
+          if (wg == 0) {
+            const float lv =
+                qpos < Sq ? __ldg(lse + qrow_base + qpos) : -INFINITY;
+            rowv[j][c] = lv == -INFINITY ? INFINITY : lv * kLog2e;
+          } else {
+            rowv[j][c] = qpos < Sq ? __ldg(dd + qrow_base + qpos) : 0.f;
+          }
+        }
+
+      // warpgroup 0: S^T = k q^T, warpgroup 1: dP^T = v dO^T, over the 4n
+      // boxes of D (m64n64k16, both operands K-major).  One commit group
+      // per box; a stage is released once the next box's group is issued
+      // and its own has completed (wgmma wait 1)
+      hopper::fence_regs(acc);
+      int prev = 0;
+      for (int j = 0; j < nbox; ++j) {
+        hopper::mbar_wait(full + slot, phase);
+        const uint8_t* sp = smem + slot * L::STAGE;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::COLS / 16; ++kk)
+          Wgmma<BQ, 0, T>::ss(
+              acc,
+              hopper::make_desc(sp + box_a + kk * 32, 16, L::SBO,
+                                hopper::kSwizzle128B),
+              hopper::make_desc(sp + box_b + kk * 32, 16, L::SBO,
+                                hopper::kSwizzle128B),
+              (j | kk) != 0);
+        hopper::wgmma_commit();
+        if (j > 0) {
+          hopper::wgmma_wait<1>();
+          hopper::mbar_arrive(empty + prev);
+        }
+        prev = slot;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::mbar_arrive(empty + prev);
+
+      // warpgroup 0: P^T = exp2(S^T scale log2e - lse log2e), 0 above the
+      // causal diagonal; warpgroup 1: dP^T - D.  Both leave the fragment in
+      // their slots; the barrier before the writes keeps them behind the
+      // other warpgroup's reads of the last tile, the one after them
+      // orders them before this tile's reads
+      const bool need_mask = causal && k0 + L::BKEY - 1 > q0 + shift;
+      if (it > 0) hopper::named_barrier_sync(1, 2 * 128);
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        const int j = i / 4, c = i % 2;
+        float x;
+        if (wg == 0) {
+          x = exp2f(acc[i] * scale_log2 - rowv[j][c]);
+          if (need_mask &&
+              key + 8 * ((i / 2) % 2) > q0 + 8 * j + 2 * (lane % 4) + c +
+                                            shift)
+            x = 0.f;
+        } else {
+          x = acc[i] - rowv[j][c];
+        }
+        acc[i] = x;
+        xmine[i * 128] = x;
+      }
+      hopper::named_barrier_sync(1, 2 * 128);
+
+      // dS^T = P^T (dP^T - D) (the same product in both warpgroups); P^T
+      // and dS^T rounded to T as the register A operands (the TPU
+      // kernel's `p.astype(do.dtype)`, `.astype(q.dtype)`)
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float o0 = xother[i * 128], o1 = xother[(i + 1) * 128];
+          const float p0 = wg == 0 ? acc[i] : o0;
+          const float p1 = wg == 0 ? acc[i + 1] : o1;
+          pa[kk][r] = hopper::pack2<T>(p0, p1);
+          dsa[kk][r] = hopper::pack2<T>(acc[i] * o0, acc[i + 1] * o1);
+        }
+
+      // dV[:, own] += P^T dO[:, own] and dK[:, own] += dS^T q[:, own]: A
+      // from registers, B = the step's q / dO box of the warpgroup's
+      // columns read MN-major, one 16-row slice per instruction
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b) {
+        hopper::fence_regs(dv_acc[b]);
+        hopper::fence_regs(dk_acc[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b) {
+        hopper::mbar_wait(full + slot, phase);
+        const uint8_t* sq = smem + slot * L::STAGE + 2 * wg * L::BOX;
+        const uint8_t* sdo = sq + L::BOX;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          Wgmma<L::COLS, 1, T>::rs(
+              dv_acc[b], pa[kk],
+              hopper::make_desc(sdo + kk * 16 * L::ROW, L::BOX, L::SBO,
+                                hopper::kSwizzle128B),
+              1);
+          Wgmma<L::COLS, 1, T>::rs(
+              dk_acc[b], dsa[kk],
+              hopper::make_desc(sq + kk * 16 * L::ROW, L::BOX, L::SBO,
+                                hopper::kSwizzle128B),
+              1);
+        }
+        hopper::wgmma_commit();
+        if (b > 0) {
+          hopper::wgmma_wait<1>();
+          hopper::mbar_arrive(empty + prev);
+        }
+        prev = slot;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b) {
+        hopper::fence_regs(dv_acc[b]);
+        hopper::fence_regs(dk_acc[b]);
+      }
+      hopper::mbar_arrive(empty + prev);
+    }
+
+    // epilogue: the warpgroup's columns of dK (x scale) and dV to T; keys
+    // past Sk are not stored
+    const int64_t krow_base = ((int64_t)bb * H + hh) * Sk;
+    const int64_t d_total = (int64_t)n_chunks * L::CHUNK;
+    const int col0 = chunk * L::CHUNK + wg * L::CHUNK / 2 + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kpos = key + 8 * h;
+      if (kpos >= Sk) continue;
+      T* ko = dk + (krow_base + kpos) * d_total + col0;
+      T* vo = dv + (krow_base + kpos) * d_total + col0;
+#pragma unroll
+      for (int b = 0; b < L::OWN; ++b)
+#pragma unroll
+        for (int j = 0; j < L::COLS / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          const int at = b * L::COLS + 8 * j;
+          *reinterpret_cast<uint32_t*>(ko + at) = hopper::pack2<T>(
+              dk_acc[b][i] * scale, dk_acc[b][i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(vo + at) =
+              hopper::pack2<T>(dv_acc[b][i], dv_acc[b][i + 1]);
+        }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dkv_split_d(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* dd, void* dk, void* dv, int B,
+                               int H, int Sq, int Sk, int D,
+                               const Strides& st, int causal, float scale,
+                               cudaStream_t stream) {
+  using L = SplitDkvLayout;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st.q_sb,
+                                           st.q_sh, st.q_ss, BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
+                                 st.k_ss, L::BKEY);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
+                                 st.v_ss, L::BKEY);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
+                                 st.o_ss, BQ);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[kMaxDevices] = {};
+  err = opt_in_smem(flash_bwd_dkv_split_d_wgmma_kernel<T>, L::SMEM,
+                    smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = D / L::CHUNK;
+  dim3 grid((Sk + L::BKEY - 1) / L::BKEY * n_chunks, H, B);
+  flash_bwd_dkv_split_d_wgmma_kernel<T><<<grid, THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<T*>(dk), static_cast<T*>(dv),
+      H, Sq, Sk, n_chunks, causal, scale);
+  return cudaGetLastError();
+}
+
 // dQ shared memory: q and dO (resident), two stages of K and two of V,
 // each as D / COLS boxes of [rows][COLS] 16-bit elements; then the
 // mbarriers.  BK keys per K/V tile: 64 up to D = 128; 32 at D = 256, where
@@ -1705,12 +2426,13 @@ Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 (every
-// dtype), 256 (bf16 and fp16) or, for the fp32 dK/dV, any multiple of 256
-// above it (the split-D kernel); the rest runs csrc/flash_attn_d256.cu.
-// Strides (in elements) of q, k, v and dO: batch, head, sequence; the
-// head dim must be contiguous (bf16 and fp16, and the fp32 dK/dV above
-// 256: the base addresses 16-byte aligned and the byte strides multiples of
-// 16, as TMA needs).  lse and D are contiguous fp32 [B, H, Sq]; dq
+// dtype), 256 (bf16 and fp16) or any multiple of 256 above it (the split-D
+// kernels: the fp32 dQ and dK/dV, the bf16 and fp16 dK/dV); the rest (the
+// fp32 dQ and dK/dV at 256, the 16-bit dQ above 256) runs
+// csrc/flash_attn_d256.cu.  Strides (in elements) of q, k, v and dO:
+// batch, head, sequence; the head dim must be contiguous (bf16 and fp16,
+// and fp32 above 256: the base addresses 16-byte aligned and the byte
+// strides multiples of 16, as TMA needs).  lse and D are contiguous fp32 [B, H, Sq]; dq
 // [B, H, Sq, D] (and dk, dv [B, H, Sk, D]) are written contiguous in the
 // input dtype.  Each returns
 // the CUDA error code of its launch (0 on success); the kernels are
@@ -1727,7 +2449,10 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
+  if (dtype == 0 && D > 256 && D % 256 == 0)
+    err = tf32::launch_dq_split_d(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
+                                  D, st, causal, scale, s);
+  else if (dtype == 0)
     err = tf32::dq_dispatch(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
                             st, causal, scale, s);
   else if (dtype == 1)
@@ -1760,6 +2485,13 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   else if (dtype == 0)
     err = tf32::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
                              Sk, st, causal, scale, s);
+  else if (dtype == 1 && D > 256 && D % wg::SplitDkvLayout::CHUNK == 0)
+    err = wg::launch_dkv_split_d<__nv_bfloat16>(q, k, v, dout, lse, dd, dk,
+                                                dv, B, H, Sq, Sk, D, st,
+                                                causal, scale, s);
+  else if (dtype == 2 && D > 256 && D % wg::SplitDkvLayout::CHUNK == 0)
+    err = wg::launch_dkv_split_d<__half>(q, k, v, dout, lse, dd, dk, dv, B,
+                                         H, Sq, Sk, D, st, causal, scale, s);
   else if (dtype == 1)
     err = wg::dkv_dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, dd, dk, dv,
                                           B, H, Sq, Sk, st, causal, scale, s);

@@ -1,6 +1,6 @@
-// Flash attention at head dims 256 n (n >= 1) for NVIDIA Hopper (sm_90a),
-// written by hand: the forward and the two backward kernels (dQ, dK/dV),
-// on fp32 FMAs from shared memory, for what no wgmma kernel runs yet.
+// Flash attention at head dim 256 (and the 16-bit dQ at 256 n, n >= 2) for
+// NVIDIA Hopper (sm_90a), written by hand on fp32 FMAs from shared memory,
+// for what no tensor-core kernel runs yet.
 //
 // Replaces, for wide head dims, the same three Pallas TPU kernels that
 // flash_attn_fwd.cu and flash_attn_bwd.cu replace up to 128:
@@ -12,15 +12,15 @@
 //   * D = 256: the fp32 forward, dQ and dK/dV (the 16-bit forward, dQ and
 //     dK/dV are the wgmma kernels of flash_attn_fwd.cu and
 //     flash_attn_bwd.cu at D = 256);
-//   * D = 256 n, n >= 2 (the split-D route): the dQ in fp32, bf16 and
-//     fp16 and the dK/dV in bf16 and fp16 (the 16-bit forward is the
-//     split-D wgmma kernel of flash_attn_fwd.cu, the fp32 forward and dK/dV
-//     the 3xTF32 split-D kernels of flash_attn_fwd.cu and
-//     flash_attn_bwd.cu).
+//   * D = 256 n, n >= 2 (the split-D route): the bf16 and fp16 dQ.  Every
+//     other split-D kernel runs on the tensor cores: the 16-bit forward
+//     and dK/dV on wgmma, the fp32 forward, dQ and dK/dV on 3xTF32
+//     (flash_attn_fwd.cu, flash_attn_bwd.cu).
 // No other instance is compiled: the C entries return
-// cudaErrorInvalidValue for every forward but the fp32 one at D = 256, for
-// the 16-bit dQ and dK/dV at n = 1 and for the fp32 dK/dV at n >= 2, so a
-// wrong route raises and never runs a replaced kernel.
+// cudaErrorInvalidValue for every forward but the fp32 one at D = 256,
+// for the 16-bit dQ at n = 1 and the fp32 dQ at n >= 2, and for every
+// dK/dV but the fp32 one at n = 1, so a wrong route raises and never runs
+// a replaced kernel.
 //
 // The functions, held equal to the TPU kernels and to the D <= 128
 // kernels:
@@ -55,21 +55,19 @@
 //     under the 232,448 B a block may opt in to.  dK/dV keeps 32 own rows
 //     (2 a thread) because each thread accumulates both dK and dV: 2 x 2 x
 //     32 fp32 registers; 64 rows would hold 256 and spill.
-//   * Split D (n >= 2, dQ and dK/dV): a grid dimension over the output's
-//     256-column chunks (dQ, dK and dV), folded into blockIdx.x.  The
-//     reductions over D (S = q k^T and dP = dO v^T) stream q and k (dO
-//     and v) through the same shared-memory tiles, one 256-column chunk at
-//     a time, into the same fp32 registers; then the block stages its own
-//     chunk of k (q and dO) for the second product.  Shared memory does
-//     not grow with D.  The price: each of the n blocks of a tile
-//     recomputes the scores over all of D, so the score work is n times
-//     its share (dK/dV 1.5x, dQ 1.67x the FMA work of a D = 256 block at
-//     n = 2), and the tiles that stay resident at n = 1 (q, dO in dQ; k, v
-//     in dK/dV) are reloaded per streamed tile.  Each backward kernel has
-//     an instance per case (template flag SPLIT): at n = 1 the chunk loop
-//     is compiled away and the kernel is the D = 256 kernel it was (with
-//     the loop left to run time, the 16-bit D = 256 dQ this file ran
-//     before the wgmma dQ took it over was 16% slower on an H100).
+//   * The 16-bit split-D dQ (n >= 2): a grid dimension over dQ's
+//     256-column chunks, folded into blockIdx.x.  The reductions over D
+//     (S = q k^T and dP = dO v^T) stream q and k (dO and v) through the
+//     same shared-memory tiles, one 256-column chunk at a time, into the
+//     same fp32 registers; then the block stages its own chunk of k for
+//     the second product.  Shared memory does not grow with D.  The price:
+//     each of the n blocks of a tile recomputes the scores over all of D
+//     (1.67x the FMA work of a D = 256 block at n = 2), and q and dO,
+//     resident at n = 1, are reloaded per key tile.  The dQ kernel has an
+//     instance per case (template flag SPLIT): at n = 1 the chunk loop is
+//     compiled away and the kernel is the D = 256 kernel it was (with the
+//     loop left to run time, the 16-bit D = 256 dQ this file ran before
+//     the wgmma dQ took it over was 16% slower on an H100).
 //   * Any Sq and Sk (ragged tiles masked; rows past the end load as zero
 //     with lse = -inf and are never stored); q, k, v and dO are read
 //     through batch/head/sequence strides with a contiguous head dim; out,
@@ -77,13 +75,12 @@
 //     element is summed by one thread in a fixed order.
 //
 // What bounds it on an H100 at [8, 8, 512, 256]: the forward does
-// 4 B H S^2 D = 17.2 GFLOP against 134 MB of fp32 inputs and outputs (67
-// MB in bf16 or fp16); on fp32 FMAs (67 TFLOP/s) that is 256 us against
-// 40 us of bytes, so the bound is operations; on the tensor cores it is
-// 104 us of 3xTF32 products in fp32 (operations) and 20 us of bytes in
-// bf16 or fp16.  These kernels run on fp32 FMAs from shared memory (about
-// one shared load per FMA) with one block per SM: they are right first,
-// and slow; PERF.md records their times beside every bound.
+// 4 B H S^2 D = 17.2 GFLOP against 134 MB of fp32 inputs and outputs; on
+// fp32 FMAs (67 TFLOP/s) that is 256 us against 40 us of bytes, so the
+// bound is operations; on the tensor cores it is 104 us of 3xTF32
+// products.  These kernels run on fp32 FMAs from shared memory (about one
+// shared load per FMA) with one block per SM: they are right first, and
+// slow; PERF.md records their times beside every bound.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -465,7 +462,7 @@ flash_bwd_dq_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // tile is computed transposed (rows = keys), so the thread that accumulates
 // a key row of dK and dV owns that row of P^T and dS^T
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BK, int BQ, bool SPLIT>
+template <typename T, int D, int BK, int BQ>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -473,9 +470,7 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ lse,
                           const float* __restrict__ dd, T* __restrict__ dk,
                           T* __restrict__ dv, int H, int Sq, int Sk,
-                          int n_chunks, Strides st, int causal,
-                          float scale) {
-  const int nchunk = SPLIT ? n_chunks : 1;
+                          Strides st, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BQ + 2;
   constexpr int ROWS = BK / ROW_GROUPS;  // key rows per thread
@@ -494,8 +489,7 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid / GROUP;
   const int cg = tid % GROUP;
-  const int chunk = blockIdx.x % nchunk;  // the block's dK and dV columns
-  const int k0 = blockIdx.x / nchunk * BK;
+  const int k0 = blockIdx.x * BK;
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int64_t qrow0 = ((int64_t)bb * H + hh) * Sq;
@@ -505,10 +499,8 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bb * st.v_sb + hh * st.v_sh;
   const T* qb = q + bb * st.q_sb + hh * st.q_sh;
   const T* ob = dout + bb * st.o_sb + hh * st.o_sh;
-  if (nchunk == 1) {  // k and v resident
-    load_tile<T, D, BK>(sK, kb, st.k_ss, k0, Sk);
-    load_tile<T, D, BK>(sV, vb, st.v_ss, k0, Sk);
-  }
+  load_tile<T, D, BK>(sK, kb, st.k_ss, k0, Sk);  // resident
+  load_tile<T, D, BK>(sV, vb, st.v_ss, k0, Sk);
 
   float acc_k[ROWS][DCOLS], acc_v[ROWS][DCOLS];
 #pragma unroll
@@ -531,43 +523,36 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < ROWS; ++i)
 #pragma unroll
       for (int j = 0; j < COLS; ++j) s[i][j] = dp[i][j] = 0.f;
-    // S^T = k q^T and dP^T = v dO^T over the head dim, one chunk at a time
-    for (int c = 0; c < nchunk; ++c) {
-      __syncthreads();  // the previous reads of the tiles are done
-      if (nchunk > 1) {
-        load_tile<T, D, BK>(sK, kb + c * D, st.k_ss, k0, Sk);
-        load_tile<T, D, BK>(sV, vb + c * D, st.v_ss, k0, Sk);
-      }
-      load_tile<T, D, BQ>(sQ, qb + c * D, st.q_ss, q0, Sq);
-      load_tile<T, D, BQ>(sDO, ob + c * D, st.o_ss, q0, Sq);
-      if (c == 0)
-        for (int r = tid; r < BQ; r += THREADS) {
-          const int qpos = q0 + r;
-          sL[r] = qpos < Sq ? lse[qrow0 + qpos] : -INFINITY;
-          sD[r] = qpos < Sq ? dd[qrow0 + qpos] : 0.f;
-        }
-      __syncthreads();
+    // S^T = k q^T and dP^T = v dO^T over the head dim
+    __syncthreads();  // the previous reads of the q and dO tiles are done
+    load_tile<T, D, BQ>(sQ, qb, st.q_ss, q0, Sq);
+    load_tile<T, D, BQ>(sDO, ob, st.o_ss, q0, Sq);
+    for (int r = tid; r < BQ; r += THREADS) {
+      const int qpos = q0 + r;
+      sL[r] = qpos < Sq ? lse[qrow0 + qpos] : -INFINITY;
+      sD[r] = qpos < Sq ? dd[qrow0 + qpos] : 0.f;
+    }
+    __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[ROWS], vv[ROWS], qv[COLS], ov[COLS];
+    for (int d = 0; d < D; ++d) {
+      float kv[ROWS], vv[ROWS], qv[COLS], ov[COLS];
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          kv[i] = sK[(rg * ROWS + i) * DP + d];
-          vv[i] = sV[(rg * ROWS + i) * DP + d];
-        }
+      for (int i = 0; i < ROWS; ++i) {
+        kv[i] = sK[(rg * ROWS + i) * DP + d];
+        vv[i] = sV[(rg * ROWS + i) * DP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        qv[j] = sQ[(cg + GROUP * j) * DP + d];
+        ov[j] = sDO[(cg + GROUP * j) * DP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
 #pragma unroll
         for (int j = 0; j < COLS; ++j) {
-          qv[j] = sQ[(cg + GROUP * j) * DP + d];
-          ov[j] = sDO[(cg + GROUP * j) * DP + d];
+          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
         }
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-          for (int j = 0; j < COLS; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
     }
 
 #pragma unroll
@@ -586,12 +571,7 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sDS[kr * PP + qc] = round_to<T>(p * (dp[i][j] - sD[qc]));
       }
     }
-    __syncthreads();  // P^T and dS^T tiles complete, every read of sQ done
-    if (chunk != nchunk - 1) {  // sQ / sDO hold the last chunk: the own
-      load_tile<T, D, BQ>(sQ, qb + chunk * D, st.q_ss, q0, Sq);
-      load_tile<T, D, BQ>(sDO, ob + chunk * D, st.o_ss, q0, Sq);
-      __syncthreads();
-    }
+    __syncthreads();  // P^T and dS^T tiles complete
 
 #pragma unroll 2
     for (int c = 0; c < BQ; ++c) {
@@ -618,8 +598,8 @@ flash_bwd_dkv_d256_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int kpos = k0 + rg * ROWS + i;
     if (kpos >= Sk) continue;
-    T* ko = dk + (krow0 + kpos) * D * nchunk + chunk * D;
-    T* vo = dv + (krow0 + kpos) * D * nchunk + chunk * D;
+    T* ko = dk + (krow0 + kpos) * D;
+    T* vo = dv + (krow0 + kpos) * D;
 #pragma unroll
     for (int j = 0; j < DCOLS; ++j) {
       ko[cg + GROUP * j] = from_f32<T>(acc_k[i][j] * scale);
@@ -647,7 +627,7 @@ cudaError_t opt_in_smem(Kernel kernel, size_t smem, bool* done) {
   return cudaSuccess;
 }
 
-// the forward runs D = 256 only; the backward has one launcher per
+// the forward and dK/dV run D = 256 only; dQ has one launcher per
 // (T, SPLIT) instance: SPLIT = false runs D = 256 (nchunk 1), SPLIT = true
 // D = 256 n, n >= 2
 template <typename T>
@@ -690,25 +670,25 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, bool SPLIT>
+template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dd,
                        void* dk, void* dv, int B, int H, int Sq, int Sk,
-                       int nchunk, const Strides& st, int causal,
-                       float scale, cudaStream_t stream) {
+                       const Strides& st, int causal, float scale,
+                       cudaStream_t stream) {
   constexpr int D = HEAD_DIM;
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = dkv_smem_bytes<D, DKV_BK, DKV_BQ>();
-  auto kernel = flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ, SPLIT>;
+  auto kernel = flash_bwd_dkv_d256_kernel<T, D, DKV_BK, DKV_BQ>;
   cudaError_t err = opt_in_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sk + DKV_BK - 1) / DKV_BK * nchunk, H, B);
+  dim3 grid((Sk + DKV_BK - 1) / DKV_BK, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, nchunk, st,
-      causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, st, causal,
+      scale);
   return cudaGetLastError();
 }
 
@@ -731,11 +711,11 @@ extern "C" {
 // no replaced kernel):
 //   forward  fp32, D = 256 (bf16 and fp16, and fp32 above 256:
 //            flash_attn_fwd.cu);
-//   dQ       fp32, n >= 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma dQ
-//            of flash_attn_bwd.cu);
-//   dK/dV    fp32, n = 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma
-//            dK/dV of flash_attn_bwd.cu, fp32 above 256 its 3xTF32
-//            split-D dK/dV).
+//   dQ       fp32, n = 1; bf16 and fp16, n >= 2 (at D = 256 the wgmma dQ
+//            of flash_attn_bwd.cu, fp32 above 256 its 3xTF32 split-D dQ);
+//   dK/dV    fp32, n = 1 (at D = 256 the 16-bit wgmma dK/dV of
+//            flash_attn_bwd.cu, above 256 its wgmma and 3xTF32 split-D
+//            dK/dV).
 // Strides (in elements) of q, k, v (and dO): batch, head, sequence; the
 // head dim must be contiguous.  out [B, H, Sq, D] and lse [B, H, Sq] are
 // written contiguous.  Each entry returns the CUDA error code of its
@@ -772,12 +752,10 @@ int flash_attn_d256_bwd_dq(const void* q, const void* k, const void* v,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = n > 1 ? launch_dq<float, true>(q, k, v, dout, lse, dd, dq, B, H,
-                                         Sq, Sk, n, st, causal, scale, s)
-                : launch_dq<float, false>(q, k, v, dout, lse, dd, dq, B, H,
-                                          Sq, Sk, n, st, causal, scale, s);
-  else if (n == 1)
+  if (dtype == 0 && n == 1)
+    err = launch_dq<float, false>(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
+                                  n, st, causal, scale, s);
+  else if (dtype == 0 || n == 1)
     err = cudaErrorInvalidValue;
   else if (dtype == 1)
     err = launch_dq<__nv_bfloat16, true>(q, k, v, dout, lse, dd, dq, B, H,
@@ -799,27 +777,12 @@ int flash_attn_d256_bwd_dkv(const void* q, const void* k, const void* v,
                             long long v_sb, long long v_sh, long long v_ss,
                             long long o_sb, long long o_sh, long long o_ss,
                             int causal, float scale, void* stream) {
-  if (D <= 0 || D % HEAD_DIM) return (int)cudaErrorInvalidValue;
-  const int n = D / HEAD_DIM;
+  if (D != HEAD_DIM || dtype != 0) return (int)cudaErrorInvalidValue;
   const Strides st = make_strides(q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && n == 1)
-    err = launch_dkv<float, false>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                   Sk, n, st, causal, scale, s);
-  else if (dtype == 0 || n == 1)
-    err = cudaErrorInvalidValue;
-  else if (dtype == 1)
-    err = launch_dkv<__nv_bfloat16, true>(q, k, v, dout, lse, dd, dk, dv, B,
-                                          H, Sq, Sk, n, st, causal, scale,
-                                          s);
-  else if (dtype == 2)
-    err = launch_dkv<__half, true>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
-                                   Sk, n, st, causal, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)launch_dkv<float>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Sk,
+                                st, causal, scale,
+                                static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attn_d256_error_string(int err) {

@@ -347,6 +347,13 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory");
 }
 
+// a barrier of `count` threads (a multiple of 32) on hardware barrier `id`
+// (1-15; 0 is __syncthreads): the consumer warpgroups of a kernel whose
+// producer warp does not take part, ordering their shared-memory accesses
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // register rebalancing between warpgroups (all 128 threads execute it)
 // ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     two TF32 halves and each product taken as hi*hi + hi*lo + lo*hi,
     accumulated in fp32: fp32-level error, not TF32's three digits).
     They take any strided fp32 view with a contiguous head dim (the
-    split-D forward and dK/dV read through TMA: a view it refuses is
+    split-D forward, dQ and dK/dV read through TMA: a view it refuses is
     copied first).
 
 The kernels have instances for head dims 32, 64, 128 and 256, and a
@@ -56,21 +56,24 @@ dim and the dtype select the kernel, each counted on its wrapper:
     D = 256 (`launches_wgmma256`);
   * D = 256, fp32: csrc/flash_attn_d256.cu, fp32 FMAs from shared memory,
     strided views taken as they are (`launches_d256`);
-  * D = 256 n, n >= 2, the bf16 and fp16 forward: the split-D wgmma
-    forward of csrc/flash_attn_fwd.cu, a CTA per 256-column chunk of the
-    output, (q, k) box pairs streamed through a TMA ring
-    (`launches_wgmma_split_d`);
-  * D = 256 n, n >= 2, the fp32 forward and dK/dV: 3xTF32 `mma.sync`
-    kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
-    (`flash_fwd_split_d_tf32_kernel`, `flash_bwd_dkv_split_d_tf32_kernel`),
+  * D = 256 n, n >= 2, the bf16 and fp16 forward and dK/dV: the split-D
+    wgmma kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
+    (`flash_fwd_split_d_wgmma_kernel`, `flash_bwd_dkv_split_d_wgmma_kernel`),
     a CTA per 256-column chunk of the output, the operands streamed as
-    32-column boxes through a TMA ring; an fp32 view TMA refuses is copied
-    first, as in 16 bits (`launches_tf32_split_d`);
-  * D = 256 n, n >= 2, the fp32 dQ and the bf16 and fp16 dQ and dK/dV: the
-    kernels of csrc/flash_attn_d256.cu with a grid dimension over
-    256-column chunks of the output (`launches_split_d`).
+    64-column boxes through a TMA ring (`launches_wgmma_split_d`);
+  * D = 256 n, n >= 2, the fp32 forward, dQ and dK/dV: 3xTF32 `mma.sync`
+    kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
+    (`flash_fwd_split_d_tf32_kernel`, `flash_bwd_dq_split_d_tf32_kernel`,
+    `flash_bwd_dkv_split_d_tf32_kernel`), a CTA per chunk of the output
+    (256 columns; dQ up to 512), the operands streamed as 32-column boxes
+    through a TMA ring; an fp32 view TMA refuses is copied first, as in 16
+    bits (`launches_tf32_split_d`);
+  * D = 256 n, n >= 2, the bf16 and fp16 dQ: the kernel of
+    csrc/flash_attn_d256.cu with a grid dimension over 256-column chunks
+    of dQ (`launches_split_d`).
     The split-D routes recompute the scores over all of D in each chunk's
-    CTA, so the score work is n times its share.
+    CTA, so the score work is n times its share (the fp32 dQ at D = 512
+    computes them once).
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -246,20 +249,19 @@ def _route(kind, dp, dtype):
     head dim dp in `dtype`: "le128" (csrc/flash_attn_fwd.cu /
     flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma kernels
     at D = 256), "d256" (csrc/flash_attn_d256.cu at D = 256, fp32),
-    "wgmma_split_d" (the 16-bit split-D wgmma forward of
-    csrc/flash_attn_fwd.cu at D = 256 n, n >= 2), "tf32_split_d" (the
-    fp32 3xTF32 split-D forward and dK/dV of csrc/flash_attn_fwd.cu /
-    flash_attn_bwd.cu at D = 256 n, n >= 2) or "split_d"
-    (csrc/flash_attn_d256.cu at D = 256 n, n >= 2: the fp32 dQ and the
-    16-bit dQ and dK/dV)."""
+    "wgmma_split_d" (the 16-bit split-D wgmma forward and dK/dV of
+    csrc/flash_attn_fwd.cu / flash_attn_bwd.cu at D = 256 n, n >= 2),
+    "tf32_split_d" (the fp32 3xTF32 split-D forward, dQ and dK/dV of the
+    same files at D = 256 n, n >= 2) or "split_d"
+    (csrc/flash_attn_d256.cu at D = 256 n, n >= 2: the 16-bit dQ)."""
     if dp < _D256:
         return "le128"
     wide16 = dtype in _TMA_DTYPES
     if dp == _D256:
         return "wgmma256" if wide16 else "d256"
-    if kind == "fwd":
-        return "wgmma_split_d" if wide16 else "tf32_split_d"
-    return "split_d" if wide16 or kind == "bwd_dq" else "tf32_split_d"
+    if not wide16:
+        return "tf32_split_d"
+    return "split_d" if kind == "bwd_dq" else "wgmma_split_d"
 
 
 def kernel_operands(d, *tensors, kind="fwd"):
@@ -267,10 +269,10 @@ def kernel_operands(d, *tensors, kind="fwd"):
     along D up to kernel_head_dim(d) (a new contiguous tensor), and a
     view that TMA refuses copied to a contiguous tensor (counted in
     flash_attention.view_copies) where that kernel reads through TMA (the
-    16-bit kernels but the split-D dQ and dK/dV, and the fp32 split-D
-    forward and dK/dV; the other fp32 kernels and those of
-    csrc/flash_attn_d256.cu read through strides and take any view).  Returns the kernel's head dim and the
-    tensors."""
+    16-bit kernels but the split-D dQ, and the fp32 split-D forward, dQ
+    and dK/dV; the other fp32 kernels and those of csrc/flash_attn_d256.cu
+    read through strides and take any view).  Returns the kernel's head
+    dim and the tensors."""
     dp = kernel_head_dim(d)
     out = []
     for t in tensors:

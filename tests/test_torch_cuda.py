@@ -7,7 +7,8 @@ head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
 views that TMA refuses, which are copied; head dims 129-256 on the
 16-bit wgmma forward, dQ and dK/dV at D = 256 and the fp32 kernels of
 csrc/flash_attn_d256.cu, head dims above 256 on the 16-bit split-D wgmma
-forward and that file's split-D kernels), the GPU Predictor against the
+forward and dK/dV, the fp32 3xTF32 split-D forward, dQ and dK/dV and the
+16-bit split-D dQ of csrc/flash_attn_d256.cu), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 and `Executor.run_steps` (CUDA-graph replay of the step) against eager
 `run()` steps.
@@ -359,8 +360,8 @@ def test_fp32_backward_kernels_are_deterministic():
 
 def test_fp32_split_d_kernels_are_deterministic():
     """No atomics in the 3xTF32 split-D kernels either: two launches of the
-    forward and of the dK/dV at D = 512 (causal, head-split views) give
-    the same bits, and every chunk's CTA agrees on lse."""
+    forward, the dQ and the dK/dV at D = 512 (causal, head-split views)
+    give the same bits, and every chunk's CTA agrees on lse."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(11)
     q, k, v, do = (_bhsd(g, 2, 2, s, 512, torch.float32, True)
@@ -369,11 +370,33 @@ def test_fp32_split_d_kernels_are_deterministic():
     for _ in range(2):
         out, lse = tattn.flash_attention_cuda(q, k, v, causal=True)
         dd = (do * out).sum(-1)
-        runs.append((out, lse, *tattn.flash_attention_bwd_dkv_cuda(
-            q, k, v, do, lse, dd, causal=True)))
+        args = (q, k, v, do, lse, dd, True)
+        runs.append((out, lse, tattn.flash_attention_bwd_dq_cuda(*args),
+                     *tattn.flash_attention_bwd_dkv_cuda(*args)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_split_d_dkv_is_deterministic(dtype):
+    """No atomics in the wgmma split-D dK/dV: two launches at D = 768
+    (three chunks, causal, head-split views) give the same bits."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, do = (_bhsd(g, 2, 2, s, 768, dtype, True)
+                   for s in (384, 320, 320, 384))
+    out, lse = tattn.flash_attention_cuda(q, k, v, causal=True)
+    dd = (do.float() * out.float()).sum(-1)
+    before = tattn.flash_attention_bwd_dkv_cuda.launches_wgmma_split_d
+    runs = [tattn.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd,
+                                               causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_bwd_dkv_cuda.launches_wgmma_split_d == \
+        before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("t,v,dtype,ignore", [
@@ -681,6 +704,15 @@ _BF16, _FP16 = torch.bfloat16, torch.float16
     (1, 2, 160, 96, 768, _FP16, True, False),
     (1, 2, 200, 200, 768, _BF16, False, False),
     (1, 2, 130, 130, 768, _FP16, False, "refused"),
+    # the fp32 split-D dQ (a 512-column chunk at D = 512 and 1024, 384 at
+    # D = 768) and the 16-bit split-D dK/dV: causal Sq > Sk at D = 768,
+    # ragged causal S = 200 at D = 320 on head-split views, D = 1000
+    # (padded to 1024: two dQ chunks, four dK/dV chunks)
+    (1, 2, 160, 96, 768, torch.float32, True, False),
+    (1, 2, 200, 200, 320, torch.float32, True, True),
+    (1, 1, 130, 100, 1000, torch.float32, True, True),
+    (1, 2, 200, 200, 320, _FP16, True, True),
+    (1, 1, 100, 130, 1000, _BF16, True, False),
 ])
 def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
                                            strided):
@@ -688,16 +720,17 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     bf16 and fp16 the forward, dQ and dK/dV are the wgmma kernels at
     D = 256 (counted in `launches_wgmma256`); in fp32 all three are the
     csrc/flash_attn_d256.cu kernels (`launches_d256`).  D = 256 n, n >= 2
-    (and 320 padded to 512): the 16-bit forward is the split-D wgmma
-    kernel (`launches_wgmma_split_d`), the fp32 forward and dK/dV the
-    3xTF32 split-D kernels (`launches_tf32_split_d`), the fp32 dQ and the
-    16-bit dQ and dK/dV the split-D kernels of csrc/flash_attn_d256.cu
-    (`launches_split_d`).  Each launch is counted once, on its own route.
-    A view TMA refuses is copied where a wgmma kernel reads it (q in the
-    forward, q and dO in dQ and in dK/dV: 5 copies at 16-bit D = 256, 1 at
-    16-bit D > 256) and where the fp32 split-D forward and dK/dV read it
-    ("offset": q, k, v and dO 4 bytes past a 16-byte boundary, 3 + 4
-    copies), not for the kernels that read through strides.  The
+    (and 320 padded to 512): the 16-bit forward and dK/dV are the split-D
+    wgmma kernels (`launches_wgmma_split_d`), the fp32 forward, dQ and
+    dK/dV the 3xTF32 split-D kernels (`launches_tf32_split_d`), the 16-bit
+    dQ the split-D kernel of csrc/flash_attn_d256.cu (`launches_split_d`).
+    Each launch is counted once, on its own route.  A view TMA refuses is
+    copied where a wgmma kernel reads it (q in the forward, q and dO in dQ
+    and in dK/dV: 5 copies at 16-bit D = 256, 3 at 16-bit D > 256, where
+    the split-D dQ reads through strides) and where the fp32 split-D
+    forward, dQ and dK/dV read it ("offset": q, k, v and dO 4 bytes past a
+    16-byte boundary, 3 + 4 + 4 copies), not for the kernels that read
+    through strides.  The
     forward, dQ and dK/dV against their plain versions at TOL (the
     D <= 128 kernels' tolerances, for the same reasons)."""
     _need_cuda()
@@ -714,10 +747,9 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     wide16 = dtype != torch.float32
     if dp > 256 and wide16:
         want = ("launches_wgmma_split_d", "launches_split_d",
-                "launches_split_d")
+                "launches_wgmma_split_d")
     elif dp > 256:
-        want = ("launches_tf32_split_d", "launches_split_d",
-                "launches_tf32_split_d")
+        want = ("launches_tf32_split_d",) * 3
     elif wide16:
         want = ("launches_wgmma256",) * 3
     else:
@@ -740,9 +772,9 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
                       for c, w in zip(before, want)]
     wgmma_copies = 0
     if strided == "refused" and dp == d and wide16:
-        wgmma_copies = 5 if d == 256 else 1
+        wgmma_copies = 5 if d == 256 else 3
     if strided == "offset" and dp == d and dp > 256:
-        wgmma_copies = 7
+        wgmma_copies = 11
     assert tattn.flash_attention.view_copies == copies + wgmma_copies
     tol = TOL[dtype]
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
@@ -762,35 +794,73 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
         assert torch.all(dq[:, :, :sq - sk] == 0)
 
 
-def test_wide_head_dims_through_autograd():
-    """A CUDA tensor with D = 320 runs `flash_attention` forward and
-    backward (autograd) through the split-D kernels, each a counted launch
-    (the fp32 forward and dK/dV on `launches_tf32_split_d`, the dQ on
-    `launches_split_d`), and matches the score-matrix reference in fp32."""
-    _need_cuda()
+def _wide_autograd(dtype, names):
+    """flash_attention forward and backward (autograd, dO = 2 O) at
+    D = 320 causal, each kernel a counted launch on its route (`names`:
+    forward, dQ, dK/dV).  fp32: against the fp32 score-matrix reference on
+    the same values at 1e-4.  16 bits: against the same autograd on CPU
+    copies, which runs the plain versions (they round P, dS and the
+    outputs where the kernels do and sum in fp32, so a biased tensor-core
+    sum shows against them) at TOL[dtype]; and no further from the fp32
+    score-matrix reference than the plain versions are, plus TOL[dtype]
+    (the rounding to 16 bits alone puts the plain path up to ~0.1 from
+    it)."""
     g = torch.Generator(device="cuda").manual_seed(8)
     q, k, v = (torch.randn(1, 2, 96, 320, device="cuda", generator=g)
-               .requires_grad_(True) for _ in range(3))
+               .to(dtype).requires_grad_(True) for _ in range(3))
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
-    names = ("launches_tf32_split_d", "launches_split_d",
-             "launches_tf32_split_d")
+    routes = tuple(tattn.LAUNCH_COUNTS.values())
 
     def read():
-        return [(getattr(f, n), f.launches_tf32_split_d + f.launches_split_d)
+        return [(getattr(f, n), sum(getattr(f, r) for r in routes))
                 for f, n in zip(counts, names)]
 
     before = read()
     out = tattn.flash_attention(q, k, v, causal=True)
     grads = torch.autograd.grad(out.square().sum(), (q, k, v))
     torch.cuda.synchronize()
-    assert read() == [(n + 1, both + 1) for n, both in before]
-    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    assert read() == [(n + 1, every + 1) for n, every in before]
+    ql, kl, vl = (t.detach().float().requires_grad_(True) for t in (q, k, v))
     ref = tattn.reference_attention(ql, kl, vl, causal=True)
     want = torch.autograd.grad(ref.square().sum(), (ql, kl, vl))
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-    for got, w in zip(grads, want):
-        torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-4)
+    tol = TOL[dtype]
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        for got, w in zip(grads, want):
+            torch.testing.assert_close(got, w, rtol=tol, atol=tol)
+        return
+    qc, kc, vc = (t.detach().cpu().requires_grad_(True) for t in (q, k, v))
+    out_c = tattn.flash_attention(qc, kc, vc, causal=True)
+    plain = torch.autograd.grad(out_c.square().sum(), (qc, kc, vc))
+    for got, p, w in ((out, out_c, ref),) + tuple(zip(grads, plain, want)):
+        assert got.dtype == p.dtype == dtype
+        got, p = got.detach().float(), p.detach().float().cuda()
+        torch.testing.assert_close(got, p, rtol=tol, atol=tol)
+        assert (got - w).abs().max() <= (p - w).abs().max() + tol
+
+
+def test_wide_head_dims_through_autograd():
+    """A CUDA tensor with D = 320 runs `flash_attention` forward and
+    backward (autograd) through the 3xTF32 split-D kernels, all three
+    counted on `launches_tf32_split_d`, and matches the score-matrix
+    reference in fp32 (1e-4: the gate that caught the bias of long
+    tensor-core sums in dS = P (dP - D))."""
+    _need_cuda()
+    _wide_autograd(torch.float32, ("launches_tf32_split_d",) * 3)
+
+
+def test_wide_head_dims_through_autograd_bf16():
+    """The same in bf16: the split-D wgmma forward and dK/dV
+    (`launches_wgmma_split_d`) and the split-D dQ of
+    csrc/flash_attn_d256.cu (`launches_split_d`), at the bf16 tolerance
+    against the plain versions, and against the fp32 score-matrix
+    reference as far as the plain versions are from it, so that a bias in
+    the wgmma sums over all of D would show."""
+    _need_cuda()
+    _wide_autograd(torch.bfloat16, ("launches_wgmma_split_d",
+                                    "launches_split_d",
+                                    "launches_wgmma_split_d"))
 
 
 def test_device_resident_pool_and_engine():

@@ -295,10 +295,10 @@ _ROUTES = {
     (256, False): {"fwd": "d256", "bwd_dq": "d256", "bwd_dkv": "d256"},
     (256, True): {"fwd": "wgmma256", "bwd_dq": "wgmma256",
                   "bwd_dkv": "wgmma256"},
-    (512, False): {"fwd": "tf32_split_d", "bwd_dq": "split_d",
+    (512, False): {"fwd": "tf32_split_d", "bwd_dq": "tf32_split_d",
                    "bwd_dkv": "tf32_split_d"},
     (512, True): {"fwd": "wgmma_split_d", "bwd_dq": "split_d",
-                  "bwd_dkv": "split_d"},
+                  "bwd_dkv": "wgmma_split_d"},
 }
 _ROUTES[768, False], _ROUTES[768, True] = _ROUTES[512, False], \
     _ROUTES[512, True]
@@ -312,9 +312,9 @@ def test_route_and_launch_count_by_kernel(kind, dp, dtype):
     """The kernel each (kind, kernel head dim, dtype) runs: up to 128 the
     kernels of flash_attn_fwd.cu / flash_attn_bwd.cu; at 256 the 16-bit
     wgmma forward, dQ and dK/dV, fp32 on csrc/flash_attn_d256.cu; above
-    256 the 16-bit forward on the split-D wgmma kernel, the fp32 forward
-    and dK/dV on the 3xTF32 split-D kernels and every dQ and the 16-bit
-    dK/dV on the split-D kernels of csrc/flash_attn_d256.cu.  Each route
+    256 the 16-bit forward and dK/dV on the split-D wgmma kernels, the
+    fp32 forward, dQ and dK/dV on the 3xTF32 split-D kernels and the
+    16-bit dQ on the split-D kernel of csrc/flash_attn_d256.cu.  Each route
     has its own launch count on all three wrappers, and the routes (and
     dtypes) that read their operands through TMA are the ones whose
     refused views are copied."""
@@ -336,12 +336,12 @@ def test_route_and_launch_count_by_kernel(kind, dp, dtype):
 def test_d256_views_that_tma_refuses_by_kernel():
     """At D = 256 the 16-bit forward, dQ and dK/dV all read through TMA
     (the wgmma kernels): kernel_operands copies a bf16 or fp16 view that
-    TMA refuses, and counts the copy, for every kind.  At D = 512 only the
-    16-bit forward reads through TMA (the split-D wgmma kernel); the
-    split-D dQ and dK/dV of csrc/flash_attn_d256.cu read through strides:
-    no copy.  fp32 at D = 256 and the fp32 dQ at D = 512 read through
-    strides: no copy; the fp32 split-D forward and dK/dV read through TMA:
-    copied and counted."""
+    TMA refuses, and counts the copy, for every kind.  At D = 512 the
+    16-bit forward and dK/dV read through TMA (the split-D wgmma
+    kernels): copied; the 16-bit split-D dQ of csrc/flash_attn_d256.cu
+    reads through strides: no copy.  fp32 at D = 256 reads through
+    strides: no copy; the fp32 split-D forward, dQ and dK/dV read through
+    TMA: copied and counted."""
     def refused(d, dtype):
         return torch.randn(2 * 3 * 8 * d + 1).to(dtype)[1:] \
             .view(2, 3, 8, d)
@@ -350,7 +350,7 @@ def test_d256_views_that_tma_refuses_by_kernel():
         for d, kind, copied in ((256, "fwd", True), (256, "bwd_dkv", True),
                                 (256, "bwd_dq", True), (512, "fwd", True),
                                 (512, "bwd_dq", False),
-                                (512, "bwd_dkv", False)):
+                                (512, "bwd_dkv", True)):
             view = refused(d, dtype)
             assert not tattn.tma_accepts(view)
             before = tattn.flash_attention.view_copies
@@ -366,7 +366,7 @@ def test_d256_views_that_tma_refuses_by_kernel():
     for d in (256, 512):
         f32 = torch.randn(2 * 3 * 8 * d + 1)[1:].view(2, 3, 8, d)
         for kind in ("fwd", "bwd_dq", "bwd_dkv"):
-            copied = d == 512 and kind != "bwd_dq"
+            copied = d == 512
             before = tattn.flash_attention.view_copies
             dp, (a,) = tattn.kernel_operands(d, f32, kind=kind)
             assert dp == d and (a is not f32) == copied, (d, kind)

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of paddle_tpu_torch/, nor chip_smoke.py,
-imports jax, jaxlib or paddle_tpu (an AST scan: a sys.modules check
+"""The port stands alone: no file of paddle_tpu_torch/, nor chip_smoke.py
+or chip_diag.py, imports jax, jaxlib or paddle_tpu (an AST scan: a sys.modules check
 cannot work, since the test interpreter imports jax at start), and its
 entry points refuse to fall back to the CPU when no GPU is present."""
 import ast
@@ -14,7 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "chip_diag.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "paddle_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
