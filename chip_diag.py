@@ -2,21 +2,28 @@
 """What bounds a split-D flash backward kernel on the card: builds of
 csrc/flash_attn_bwd.cu with one part of a kernel taken out or changed.
 
-    python3 chip_diag.py
+    python3 chip_diag.py [VARIANT_PREFIX ...]
 
 Needs one CUDA GPU (Hopper) and nvcc.  For the 16-bit split-D dK/dV
-(`flash_bwd_dkv_split_d_wgmma_kernel`, bf16) and the fp32 split-D dQ
-(`flash_bwd_dq_split_d_tf32_kernel`) it builds, one nvcc each and all at
-once, a copy of the source with the kernel's TMA loads after the ring's
-first fill dropped (the stage barriers still complete), with its score
-products dropped, with its second products dropped, or (the dK/dV) with
-all three dropped (timing only: these compute wrong results), and one with the dQ's chunk held at 128 columns a
-warpgroup for every D (the narrowest the kernel has; right results, the
-scores recomputed in each of n chunks; held against the plain version at
-1e-4).  It times each build's kernels (device ms per call,
-chip_smoke.device_ms) at [8, 4, 512, 512] and [8, 4, 512, 768] on the
-head-split views, beside the unchanged source, in two rounds.  One JSON
-line per build and round, after the card's name and power limit.
+(`flash_bwd_dkv_split_d_wgmma_kernel`, bf16), the fp32 split-D dQ
+(`flash_bwd_dq_split_d_tf32_kernel`) and the 16-bit split-D dQ
+(`flash_bwd_dq_split_d_wgmma_kernel`, bf16) it builds, one nvcc each and
+all at once, a copy of the source with the kernel's TMA loads after the
+ring's first fill dropped (the stage barriers still complete), with its
+score products dropped, with its second products dropped, or (the 16-bit
+kernels) with all three dropped (timing only: these compute wrong
+results); one with each dQ's chunk held at 128 columns a warpgroup for
+every D (the narrowest the kernel has; right results, the scores
+recomputed in each of n chunks); and one with the 16-bit dQ's stage release taken back to
+one arrival per consumer thread (256 a stage, as in the dK/dV) from one
+per consumer warpgroup (right results).  The builds with right results
+are held against the plain versions (1e-4 fp32, 2e-2 bf16).  It times
+each build's kernels (device ms per call, chip_smoke.device_ms) at
+[8, 4, 512, 512] and [8, 4, 512, 768] on the head-split views, beside
+the unchanged source, in two rounds.  Arguments, if any, keep only the
+variants whose names start with one of them (the unchanged source
+always runs).  One JSON line per build and round, after the card's name
+and power limit.
 """
 import ctypes
 import json
@@ -30,6 +37,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 DKV = "flash_bwd_dkv_split_d_wgmma_kernel(const"
 DQ = "flash_bwd_dq_split_d_tf32_kernel(const"
+DQ16 = "flash_bwd_dq_split_d_wgmma_kernel(const"
 # variant -> (the kernel it changes, [(text, replacement)] applied to the
 # first occurrence after the kernel's definition)
 VARIANTS = {
@@ -64,11 +72,33 @@ VARIANTS = {
         "              mma3(acc[(2 * cs + b) * CT + jj], ahi, alo, bhi, blo);")]),
     "dq_chunk_128": (DQ, [("  if (D % 512 == 0)\n", "  if (false)\n"),
                           ("  if (D % 384 == 0)\n", "  if (false)\n")]),
+    "dq16_no_loads": (DQ16, [(
+        "        if (j < nbox) {  // a score step",
+        "        if (i >= STAGES) { hopper::mbar_arrive(full + s); continue; }\n"
+        "        if (j < nbox) {  // a score step")]),
+    "dq16_no_score_products": (DQ16, [(
+        "          Wgmma<BK, 0, T>::ss(\n              acc,",
+        "          if (!n_chunks) Wgmma<BK, 0, T>::ss(\n              acc,")]),
+    "dq16_no_second_products": (DQ16, [(
+        "            Wgmma<L::COLS, 1, T>::rs(\n                dq_acc",
+        "            if (!n_chunks) Wgmma<L::COLS, 1, T>::rs(\n"
+        "                dq_acc")]),
+    "dq16_chunk_128": (DQ16, [("  if (n % 2 == 0)\n", "  if (false)\n"),
+                              ("  if (n % 3 == 0)\n", "  if (false)\n")]),
+    "dq16_empty_256": (DQ16, [
+        ("      hopper::mbar_init(empty + s, 2);",
+         "      hopper::mbar_init(empty + s, 2 * 128);"),
+        ("      if (tid == 0) hopper::mbar_arrive(empty + s);",
+         "      hopper::mbar_arrive(empty + s);")]),
 }
-# the dK/dV's skeleton: its barriers, exchange, softmax and epilogue alone
-VARIANTS["dkv_no_loads_no_products"] = (DKV, [
-    r for v in ("dkv_no_loads", "dkv_no_score_products",
-                "dkv_no_second_products") for r in VARIANTS[v][1]])
+# the builds that compute right results: held against the plain versions
+CHECKED = ("dq_chunk_128", "dq16_chunk_128", "dq16_empty_256")
+# the skeletons of the 16-bit split-D kernels: their barriers, exchange,
+# softmax and epilogue alone
+for _k, _m in (("dkv", DKV), ("dq16", DQ16)):
+    VARIANTS[f"{_k}_no_loads_no_products"] = (_m, [
+        r for v in ("no_loads", "no_score_products", "no_second_products")
+        for r in VARIANTS[f"{_k}_{v}"][1]])
 
 
 def variant_source(src, marker, reps):
@@ -82,6 +112,11 @@ def variant_source(src, marker, reps):
 
 
 def main():
+    keep = sys.argv[1:]
+    for name in list(VARIANTS):
+        if name != "unchanged" and keep and \
+                not any(name.startswith(k) for k in keep):
+            del VARIANTS[name]
     import torch
     if not torch.cuda.is_available():
         print("chip_diag: no CUDA device available", file=sys.stderr)
@@ -133,19 +168,20 @@ def run(torch, cs, kernel_build, attn, out_dir):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, refs = {}, {}
     for d in (512, 768):
-        for dt, kind in ((torch.float32, "dq"), (torch.bfloat16, "dkv")):
+        for dt, kind in ((torch.float32, "dq"), (torch.bfloat16, "dkv"),
+                         (torch.bfloat16, "dq16")):
             q, k, v, do = (cs.attention_inputs(torch, gen, 8, 4, 512, d, dt,
                                                True) for _ in range(4))
             out, lse = attn.flash_attention_cuda(q, k, v)
             dd = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, dd, False)
-            if kind == "dq":
-                cases[f"dq_d{d}_ms"] = (attn.flash_attention_bwd_dq_cuda,
-                                        args)
-                refs[f"dq_d{d}_ms"] = attn.flash_attention_bwd_dq_plain(*args)
+            key = f"{kind}_d{d}_ms"
+            if kind == "dkv":
+                cases[key] = (attn.flash_attention_bwd_dkv_cuda, args)
             else:
-                cases[f"dkv_d{d}_ms"] = (attn.flash_attention_bwd_dkv_cuda,
-                                         args)
+                cases[key] = (attn.flash_attention_bwd_dq_cuda, args)
+                refs[key] = (attn.flash_attention_bwd_dq_plain(*args),
+                             cs.TOL[cs.dtype_name(dt)])
     for rnd in range(2):
         for name in VARIANTS:
             # the wrappers load the library through kernel_build's cache
@@ -153,9 +189,12 @@ def run(torch, cs, kernel_build, attn, out_dir):
                 os.path.join(out_dir, f"{name}.so"))
             row = {"variant": name, "round": rnd}
             for key, (fn, args) in cases.items():
-                if name == "dq_chunk_128" and key in refs:
-                    torch.testing.assert_close(fn(*args), refs[key],
-                                               rtol=1e-4, atol=1e-4)
+                if name in CHECKED and key.startswith(name.split("_")[0] +
+                                                      "_d"):
+                    ref, tol = refs[key]
+                    torch.testing.assert_close(fn(*args).float(),
+                                               ref.float(), rtol=tol,
+                                               atol=tol)
                 row[key] = cs.device_ms(torch, lambda: fn(*args), 10)
             print(json.dumps(row), flush=True)
 

@@ -29,16 +29,18 @@ is present.  Phases:
                heads) and D = 48 (over 16 heads) in fp32 and bf16 on the
                head-split views (bounds count the real D); head dim 256
                (hidden 2048 over 8 heads) in all three dtypes (bf16 and
-               fp16: the wgmma forward, dQ and dK/dV; fp32:
+               fp16: the wgmma forward, dQ and dK/dV; fp32: the 3xTF32
+               split-D forward, the dQ and dK/dV of
                csrc/flash_attn_d256.cu), causal both ways and ragged
-               S = 200 in bf16 and fp16; head dim 512 (hidden 2048 over 4
-               heads) in all three dtypes and causal with Sq > Sk in
-               fp16, and head dim 768 (hidden 3072 over 4 heads) in fp32
-               and bf16, causal Sq < Sk and Sq > Sk and ragged S = 200 at
-               D = 512 and 768 in fp32 and bf16, on the split-D routes
-               (the 16-bit forward and dK/dV: the split-D wgmma kernels;
-               the fp32 forward, dQ and dK/dV: the 3xTF32 split-D
-               kernels; the 16-bit dQ: csrc/flash_attn_d256.cu).
+               S = 200 in bf16 and fp16, causal Sq > Sk in fp32; head dim
+               512 (hidden 2048 over 4 heads) in all three dtypes and
+               causal with Sq > Sk in fp16, and head dim 768 (hidden 3072
+               over 4 heads) in fp32 and bf16, causal Sq < Sk and Sq > Sk
+               and ragged S = 200 at D = 512 and 768 in fp32 and bf16, on
+               the split-D routes
+               (the 16-bit forward, dQ and dK/dV: the split-D wgmma
+               kernels; the fp32 forward, dQ and dK/dV: the 3xTF32
+               split-D kernels).
                Tolerances: fp32 atol=rtol=1e-4 (summation order differs;
                3xTF32 keeps an fp32-level error); bf16 atol=rtol=2e-2
                and fp16 5e-3 against the plain version, which rounds P
@@ -63,7 +65,8 @@ is present.  Phases:
                cases; library_ms is the whole backward of torch
                scaled_dot_product_attention (autograd.grad after one
                forward), bounds count 6 (dQ) and 8 (dK/dV) x B H pairs D
-               FLOPs.  And the fused cross-entropy kernel against
+               FLOPs; a second launch of each gives the same bits (no
+               atomics).  And the fused cross-entropy kernel against
                fused_xent_plain at [4096, 30522] in fp32, bf16 and fp16,
                a ragged V = 1000, and rows with a positive and a negative
                ignore_index; library_ms is F.cross_entropy(reduction=
@@ -72,10 +75,8 @@ is present.  Phases:
                boundary (which TMA refuses) is copied by the wrappers and
                launched: forward, dQ and dK/dV equal to the last bit to
                the aligned tensors', 5 copies counted; the same at D = 256
-               with 5 copies (the wgmma forward, dQ and dK/dV copy) and
-               at D = 512 with 3 (the split-D wgmma forward copies q,
-               the split-D wgmma dK/dV q and dO, the split-D dQ of
-               csrc/flash_attn_d256.cu reads through strides);
+               and at D = 512 with 5 copies (the wgmma and split-D wgmma
+               forward copy q, dQ and dK/dV q and dO);
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -143,7 +144,7 @@ served burst of phase 4), the fp32 dQ, dK/dV and fused cross-entropy
 launches per graph-replayed step of phase 6, the fp16 instances
 (kernel cases only, 0 launches: no configuration runs fp16), and the
 kernels for head dims above 128 (the D = 256 and D = 512 cases, and
-D = 768 for the fp32 split-D forward and dK/dV; their launches on every
+D = 768 for every split-D kernel in fp32 and bf16; their launches on every
 main path, gated at 0 in each: no configuration has a head dim above
 128); the last line {"ok": true, "device": {...}}.
 """
@@ -220,33 +221,33 @@ KERNELS = {
 }
 # the kernels for head dims above 128, by route, kernel and dtype: the
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
-# flash_attn_bwd.cu), the fp32 kernels of csrc/flash_attn_d256.cu at
-# D = 256, and at D = 256 n, n >= 2 (split-D; the case is D = 512, and
-# D = 768 named with the suffix _d768) the 16-bit split-D wgmma forward
-# and dK/dV, the fp32 3xTF32 split-D forward, dQ and dK/dV
-# (csrc/flash_attn_fwd.cu, flash_attn_bwd.cu) and the 16-bit split-D dQ of
-# csrc/flash_attn_d256.cu, each with the kernel case whose times it
-# reports
+# flash_attn_bwd.cu), the fp32 dQ and dK/dV of csrc/flash_attn_d256.cu at
+# D = 256, and the split-D kernels (the 16-bit wgmma forward, dQ and dK/dV,
+# the fp32 3xTF32 forward, dQ and dK/dV of csrc/flash_attn_fwd.cu,
+# flash_attn_bwd.cu) at D = 512 and 768 (named with the suffix _d768) and
+# the fp32 split-D forward at D = 256 (suffix _d256), each with the kernel
+# case whose times it reports
 _TPU_LINE = {"fwd": 125, "bwd_dq": 240, "bwd_dkv": 281}
 WIDE_KERNELS = []  # (summary name, route, kernel, kernel case)
 for _route, _kinds, _dts, _src, _case in (
         ("wgmma256", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16", "fp16"), None,
          "d256"),
-        ("d256", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
+        ("d256", ("bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
          "d256"),
-        ("wgmma_split_d", ("fwd", "bwd_dkv"), ("bf16", "fp16"), None,
-         "d512"),
-        ("wgmma_split_d", ("fwd", "bwd_dkv"), ("bf16",), None, "d768"),
-        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
-         "d512"),
-        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
+        ("tf32_split_d", ("fwd",), ("fp32",), None, "d256"),
+        ("wgmma_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16", "fp16"),
+         None, "d512"),
+        ("wgmma_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16",), None,
          "d768"),
-        ("split_d", ("bwd_dq",), ("bf16", "fp16"), "flash_attn_d256",
-         "d512")):
+        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
+         "d512"),
+        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
+         "d768")):
     for _kind in _kinds:
         for _dt in _dts:
             _name = f"flash_attn_{_route}_{_kind}_{_dt}" + \
-                ("_d768" if _case == "d768" else "")
+                (f"_{_case}" if "split_d" in _route and _case != "d512"
+                 else "")
             _file = _src or ("flash_attn_fwd" if _kind == "fwd" else
                              "flash_attn_bwd")
             KERNELS[_name] = (f"paddle_tpu_torch/csrc/{_file}.cu",
@@ -407,9 +408,12 @@ def attention_cases(torch):
         ("pad_d48_fp32", 8, 16, 512, 512, 48, torch.float32, False, True),
         ("pad_d48_bf16", 8, 16, 512, 512, 48, torch.bfloat16, False, True),
         # head dim 256 (hidden 2048 over 8 heads): the 16-bit wgmma
-        # forward and dK/dV, the kernels of csrc/flash_attn_d256.cu in fp32
-        # and for the 16-bit dQ; causal both ways and ragged in 16 bits
+        # forward, dQ and dK/dV; in fp32 the 3xTF32 split-D forward and the
+        # dQ and dK/dV of csrc/flash_attn_d256.cu; causal both ways and
+        # ragged in 16 bits, causal Sq > Sk in fp32
         ("d256_fp32", 8, 8, 512, 512, 256, torch.float32, False, True),
+        ("d256_causal_sq_gt_sk_fp32", 2, 8, 512, 384, 256, torch.float32,
+         True, False),
         ("d256_bf16", 8, 8, 512, 512, 256, torch.bfloat16, False, True),
         ("d256_fp16", 8, 8, 512, 512, 256, torch.float16, False, True),
         ("d256_causal_sq_lt_sk_bf16", 2, 8, 384, 512, 256, torch.bfloat16,
@@ -421,9 +425,8 @@ def attention_cases(torch):
         ("d256_ragged_s200_causal_fp16", 2, 8, 200, 200, 256,
          torch.float16, True, False),
         # head dim 512 (hidden 2048 over 4 heads), two 256-column chunks:
-        # the 16-bit forward and dK/dV on the split-D wgmma kernels, the
-        # fp32 forward, dQ and dK/dV on the 3xTF32 split-D kernels, the
-        # 16-bit dQ on the split-D kernel of csrc/flash_attn_d256.cu;
+        # the 16-bit forward, dQ and dK/dV on the split-D wgmma kernels,
+        # the fp32 forward, dQ and dK/dV on the 3xTF32 split-D kernels;
         # causal with Sq > Sk in fp16
         ("d512_fp32", 8, 4, 512, 512, 512, torch.float32, False, True),
         ("d512_bf16", 8, 4, 512, 512, 512, torch.bfloat16, False, True),
@@ -433,8 +436,8 @@ def attention_cases(torch):
         # head dim 768 (hidden 3072 over 4 heads): three chunks
         ("d768_fp32", 8, 4, 512, 512, 768, torch.float32, False, True),
         ("d768_bf16", 8, 4, 512, 512, 768, torch.bfloat16, False, True),
-        # the fp32 split-D dQ and the 16-bit split-D dK/dV (and the
-        # forwards): causal Sq < Sk and Sq > Sk, ragged S = 200
+        # the split-D dQ and dK/dV (and the forwards): causal Sq < Sk and
+        # Sq > Sk, ragged S = 200
         ("d512_causal_sq_lt_sk_fp32", 2, 4, 384, 512, 512, torch.float32,
          True, False),
         ("d512_causal_sq_gt_sk_fp32", 2, 4, 512, 384, 512, torch.float32,
@@ -525,7 +528,12 @@ def bwd_kernel_phase(torch, attn):
         args = (q, k, v, do, lse, dd, causal)
         dq = attn.flash_attention_bwd_dq_cuda(*args)
         dk, dv = attn.flash_attention_bwd_dkv_cuda(*args)
+        again = (attn.flash_attention_bwd_dq_cuda(*args),
+                 *attn.flash_attention_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
+        for tag, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name} {tag}: two launches differ")
         ref_dq = attn.flash_attention_bwd_dq_plain(*args)
         ref_dk, ref_dv = attn.flash_attention_bwd_dkv_plain(*args)
         dname = dtype_name(dt)
@@ -638,10 +646,8 @@ def view_copy_phase(torch, attn):
     copied to a contiguous tensor where a kernel reads it through TMA and
     then launched: the forward, dQ and dK/dV on the shifted q and dO give
     the bits of the aligned tensors, and flash_attention.view_copies
-    counts the copies.  D = 64 and D = 256: 5 copies (q in each of the
-    three launches, dO in two); D = 512: 3 (q in the split-D wgmma
-    forward, q and dO in the split-D wgmma dK/dV; the split-D dQ of
-    csrc/flash_attn_d256.cu reads through strides)."""
+    counts the copies: 5 at D = 64, 256 and 512 (q in each of the three
+    launches, dO in the dQ and the dK/dV)."""
     gen = torch.Generator(device="cuda").manual_seed(77)
 
     def shifted(t):  # t's values in a view 2 elements past 16 bytes
@@ -652,7 +658,7 @@ def view_copy_phase(torch, attn):
 
     for (b, h, s, d), want_copies in (((2, 12, 512, 64), 5),
                                       ((2, 8, 512, 256), 5),
-                                      ((2, 4, 512, 512), 3)):
+                                      ((2, 4, 512, 512), 5)):
         q, k, v, do = (attention_inputs(torch, gen, b, h, s, d,
                                         torch.bfloat16, False)
                        for _ in range(4))
@@ -1378,27 +1384,26 @@ def train_profile(torch, exe, main, feed, loss, config):
              key=lambda r: -r[2])[:12]})
 
 # launches of the kernels for head dims above 128 on each main path, by
-# "route/kernel" (routes wgmma256, d256, wgmma_split_d, tf32_split_d,
-# split_d of ops.attention), from the wrappers' launch counts of those
-# routes: set to 0 just before the path and read just after; the
-# graph-replayed steps add the profiler's count
-WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "tf32_split_d",
-               "split_d")
+# "route/kernel" (routes wgmma256, d256, wgmma_split_d, tf32_split_d of
+# ops.attention), from the wrappers' launch counts of those routes: set
+# to 0 just before the path and read just after; the graph-replayed steps
+# add the profiler's count
+WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "tf32_split_d")
 WIDE_LAUNCHES = {}
 # "route/kernel" -> the substring of its device name, for the profiler
-# (csrc/flash_attn_d256.cu runs the D = 256 and split-D dQ as one kernel,
-# so the profiler counts both under d256)
+# (every route/kernel pair has a kernel of its own; d256/fwd has none)
 WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
                      "wgmma256/bwd_dq": "flash_bwd_dq_wgmma_kernel<256",
                      "wgmma256/bwd_dkv": "flash_bwd_dkv_wgmma_kernel<256",
                      "wgmma_split_d/fwd": "flash_fwd_split_d_wgmma_kernel",
+                     "wgmma_split_d/bwd_dq":
+                         "flash_bwd_dq_split_d_wgmma_kernel",
                      "wgmma_split_d/bwd_dkv":
                          "flash_bwd_dkv_split_d_wgmma_kernel",
                      "tf32_split_d/fwd": "flash_fwd_split_d_tf32_kernel",
                      "tf32_split_d/bwd_dq": "flash_bwd_dq_split_d_tf32_kernel",
                      "tf32_split_d/bwd_dkv":
                          "flash_bwd_dkv_split_d_tf32_kernel",
-                     "d256/fwd": "flash_fwd_d256",
                      "d256/bwd_dq": "flash_bwd_dq_d256",
                      "d256/bwd_dkv": "flash_bwd_dkv_d256"}
 
@@ -1709,7 +1714,11 @@ def main():
             ("flash_bwd_dkv_wgmma_split_d_bf16", bwd["d512_bf16"]["dkv"]),
             ("flash_bwd_dkv_wgmma_split_d_fp16", bwd["d512_fp16"]["dkv"]),
             ("flash_bwd_dkv_wgmma_split_d_bf16_d768",
-             bwd["d768_bf16"]["dkv"]))}})
+             bwd["d768_bf16"]["dkv"]),
+            ("flash_bwd_dq_wgmma_split_d_bf16", bwd["d512_bf16"]["dq"]),
+            ("flash_bwd_dq_wgmma_split_d_fp16", bwd["d512_fp16"]["dq"]),
+            ("flash_bwd_dq_wgmma_split_d_bf16_d768", bwd["d768_bf16"]["dq"]),
+            ("flash_fwd_tf32_split_d_fp32_d256", fwd["d256_fp32"]))}})
     xent = xent_kernel_phase(torch, fx)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)

@@ -170,6 +170,30 @@
 //   nor the tensor cores bound it, but the skeleton of a q tile (stage
 //   barriers, slot exchange, softmax, one CTA an SM), not measured part
 //   by part.
+//   dQ at D = 256 n, n >= 2: `flash_bwd_dq_split_d_wgmma_kernel<T, NB>`,
+//   the 3xTF32 split-D dQ below turned onto wgmma, with the roles and the
+//   ring of the split-D dK/dV.  q and dO resident would be 2 x 64 n KB, so:
+//   * a CTA owns 64 query rows and one chunk of 2 C dQ columns (folded into
+//     blockIdx.x), C = 64 NB: 256 where n is even (one CTA a q tile at
+//     D = 512, the scores computed once), 192 where 3 divides n (two
+//     chunks at D = 768), else 128.  Consumer warpgroup w owns the chunk's
+//     columns C w .. + C - 1 (NB boxes, 32 NB accumulator registers);
+//   * per 64-key tile the ring carries the 4n score steps ((q, k, dO, v)
+//     64-column boxes): warpgroup 0 computes S = q k^T and P, warpgroup 1
+//     dP = dO v^T and dP - D, each once over all of D; they swap their
+//     m64n64 fragments through the slots between two named barriers, and
+//     both form dS = P (dP - D), packed to T (`ds.astype(ks.dtype)`) as
+//     the register A operand of dQ += dS k.  Then (NB + 1) / 2 steps carry
+//     up to two k boxes of each warpgroup's own columns, read MN-major;
+//   * a stage's empty barrier counts one arrival per consumer warpgroup
+//     (one thread, after the wgmma wait that covers the stage), not one per
+//     thread as in the dK/dV;
+//   * the lse (log2 units) or D of the thread's two rows stays in
+//     registers; keys past Sk and above the causal diagonal get P = 0, key
+//     tiles wholly above it are skipped, rows past Sq are not stored.
+//   Bound at [8, 4, 512, 512]: 25.8 GFLOP take 26.1 us on the tensor
+//   cores (operations; 84 MB of inputs and outputs take 25 us); the grid
+//   is 8 x 4 x 8 = 256 CTAs.
 //
 // fp32 (the fp32 training step): 3xTF32 on the tensor cores,
 //   `flash_bwd_dq_tf32_kernel` and `flash_bwd_dkv_tf32_kernel`.  Bound at
@@ -1778,8 +1802,11 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
 // second-product steps (for each warpgroup a q box and a dO box of its
 // columns).  Shared memory does not grow with D.
 // ---------------------------------------------------------------------------
-struct SplitDkvLayout {
-  static constexpr int BKEY = 64;          // keys per CTA
+// The ring of the two 16-bit split-D backward kernels (dK/dV here, dQ
+// below): 64-row boxes of 64 16-bit columns, four a stage, and the two
+// warpgroups' m64n64 score fragments handed over through fp32 slots.
+struct SplitBwdLayout {
+  static constexpr int BKEY = 64;          // keys per dK/dV CTA, dQ tile
   static constexpr int CHUNK = 256;        // output columns per CTA
   static constexpr int COLS = 64;          // columns of a box (128 bytes)
   static constexpr int OWN = CHUNK / 2 / COLS;  // a consumer's dK, dV boxes
@@ -1810,7 +1837,7 @@ flash_bwd_dkv_split_d_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                    T* __restrict__ dk, T* __restrict__ dv,
                                    int H, int Sq, int Sk, int n_chunks,
                                    int causal, float scale) {
-  using L = SplitDkvLayout;
+  using L = SplitBwdLayout;
   constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
@@ -2083,7 +2110,7 @@ cudaError_t launch_dkv_split_d(const void* q, const void* k, const void* v,
                                int H, int Sq, int Sk, int D,
                                const Strides& st, int causal, float scale,
                                cudaStream_t stream) {
-  using L = SplitDkvLayout;
+  using L = SplitBwdLayout;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st.q_sb,
                                            st.q_sh, st.q_ss, BQ);
@@ -2108,6 +2135,343 @@ cudaError_t launch_dkv_split_d(const void* q, const void* k, const void* v,
       static_cast<const float*>(dd), static_cast<T*>(dk), static_cast<T*>(dv),
       H, Sq, Sk, n_chunks, causal, scale);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ at D = 256 n, n >= 2: the split-D dQ, the 3xTF32 split-D dQ's design
+// on wgmma with the warp roles of the split-D dK/dV.  A CTA owns 64 query
+// rows and one chunk of 2 C dQ columns, C = 64 NB; consumer warpgroup w owns
+// the chunk's columns C w .. C w + C - 1 (NB 64-column boxes: 32 NB
+// accumulator registers a thread).  Warpgroup 0 computes S = q k^T and P,
+// warpgroup 1 dP = dO v^T and dP - D, each once over all of D (m64n64k16
+// over the 4n (q, k) or (dO, v) box pairs of a key tile's score steps), and
+// they hand their fragments over through the fp32 slots.  Both then form
+// dS = P (dP - D), rounded to T as the register A operand of dQ += dS k, B
+// = the k boxes of the warpgroup's own columns (MN-major) that the
+// second-product steps carry: per key tile, (NB + 1) / 2 steps of up to two
+// boxes a warpgroup.  The ring and its 230,496 B are the dK/dV's.  A
+// stage's empty barrier takes one arrival per consumer warpgroup, from one
+// thread once the warpgroup's products on the stage have completed (wgmma
+// wait), the way CUTLASS's TMA pipeline releases a stage.
+// ---------------------------------------------------------------------------
+template <typename T, int NB>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_split_d_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ dd,
+                                  T* __restrict__ dq, int H, int Sq, int Sk,
+                                  int n_chunks, int causal, float scale) {
+  using L = SplitBwdLayout;
+  constexpr int STAGES = L::STAGES;
+  constexpr int BK = L::BKEY;           // keys per tile
+  constexpr int C = NB * L::COLS;       // dQ columns of a warpgroup
+  constexpr int CSTEPS = (NB + 1) / 2;  // second-product steps per key tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(smem + L::X_OFF);  // [2][SN][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bars;             // [STAGES] the step's boxes landed
+  uint64_t* empty = bars + STAGES;   // [STAGES] both consumers are done
+
+  const int chunk = blockIdx.x % n_chunks;  // the CTA's dQ columns
+  const int q0 = blockIdx.x / n_chunks * BQ;
+  const int hh = blockIdx.y;
+  const int bb = blockIdx.z;
+  const int shift = Sk - Sq;  // bottom-right causal alignment
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    // keys visible to the CTA's last row (attention.py:273)
+    const int hi = q0 + BQ + shift;
+    n_tiles = min(n_tiles, hi <= 0 ? 0 : (hi + BK - 1) / BK);
+  }
+  const int nbox = n_chunks * 2 * NB;  // D / 64: score steps per key tile
+  const int per_tile = nbox + CSTEPS;
+  const int total = n_tiles * per_tile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 2);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread starts every TMA load (rows past Sq or Sk
+    // zero-filled); step i goes into stage i % STAGES once both consumers
+    // released its use before
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < total; ++i) {
+        const int s = i % STAGES, use = i / STAGES;
+        if (use > 0) hopper::mbar_wait(empty + s, (use - 1) & 1);
+        const int t = i / per_tile, j = i % per_tile;
+        const int k0 = t * BK;
+        uint8_t* sp = smem + s * L::STAGE;
+        if (j < nbox) {  // a score step: q, k, dO and v boxes
+          const int c = j * L::COLS;
+          hopper::mbar_arrive_expect_tx(full + s, L::STAGE);
+          hopper::tma_load_4d(sp, &tq, full + s, c, q0, hh, bb);
+          hopper::tma_load_4d(sp + L::BOX, &tk, full + s, c, k0, hh, bb);
+          hopper::tma_load_4d(sp + 2 * L::BOX, &tdo, full + s, c, q0, hh,
+                              bb);
+          hopper::tma_load_4d(sp + 3 * L::BOX, &tv, full + s, c, k0, hh, bb);
+        } else {  // a second-product step: each warpgroup's own k boxes
+          const int b0 = 2 * (j - nbox);
+          const int nb = min(2, NB - b0);
+          hopper::mbar_arrive_expect_tx(full + s, 2 * nb * L::BOX);
+          for (int w = 0; w < 2; ++w)
+            for (int b = 0; b < nb; ++b)
+              hopper::tma_load_4d(sp + (2 * w + b) * L::BOX, &tk, full + s,
+                                  (2 * chunk + w) * C + (b0 + b) * L::COLS,
+                                  k0, hh, bb);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: both own query rows q0 .. q0 + 63; warpgroup wg
+    // computes S (0) or dP (1) and owns the chunk's dQ boxes NB wg ..
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    constexpr int SN = L::SN;         // S / dP fragment: 32 fp32
+    constexpr int ON = L::COLS / 2;   // dQ fragment per box
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int rw0 = q0 + 16 * (tid / 32);  // the warp's first row
+    const int row = rw0 + lane / 4;        // the thread's rows: row, row + 8
+    const float scale_log2 = scale * kLog2e;
+    const int64_t row_base = ((int64_t)bb * H + hh) * Sq;
+    // of the thread's two rows, warpgroup 0 keeps the lse in log2 units
+    // (+inf past Sq and on fully-masked rows: P = 0 there), warpgroup 1 D
+    float rowv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = row + 8 * h;
+      if (wg == 0) {
+        const float lv = qpos < Sq ? __ldg(lse + row_base + qpos) : -INFINITY;
+        rowv[h] = lv == -INFINITY ? INFINITY : lv * kLog2e;
+      } else {
+        rowv[h] = qpos < Sq ? __ldg(dd + row_base + qpos) : 0.f;
+      }
+    }
+    // the thread's slots: P (written by warpgroup 0) and dP - D (by
+    // warpgroup 1), slot i of thread t at [i][t]
+    float* xmine = xbuf + wg * SN * 128 + tid;
+    const float* xother = xbuf + (1 - wg) * SN * 128 + tid;
+    // a score step's A (q or dO) and B (k or v) boxes
+    const uint32_t box_a = 2 * wg * L::BOX, box_b = box_a + L::BOX;
+    // one thread arrives for its warpgroup on a stage's empty barrier
+    auto release = [&](int s) {
+      if (tid == 0) hopper::mbar_arrive(empty + s);
+    };
+
+    float dq_acc[NB][ON];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) dq_acc[b][i] = 0.f;
+    float acc[SN];
+#pragma unroll
+    for (int i = 0; i < SN; ++i) acc[i] = 0.f;
+
+    int slot = 0;
+    uint32_t phase = 0;  // parity of the ring's current use
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * BK;
+
+      // warpgroup 0: S = q k^T, warpgroup 1: dP = dO v^T, over the 4n
+      // boxes of D (both operands K-major).  One commit group per box; a
+      // stage is released once the next box's group is issued and its own
+      // has completed (wgmma wait 1)
+      hopper::fence_regs(acc);
+      int prev = 0;
+      for (int j = 0; j < nbox; ++j) {
+        hopper::mbar_wait(full + slot, phase);
+        const uint8_t* sp = smem + slot * L::STAGE;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < L::COLS / 16; ++kk)
+          Wgmma<BK, 0, T>::ss(
+              acc,
+              hopper::make_desc(sp + box_a + kk * 32, 16, L::SBO,
+                                hopper::kSwizzle128B),
+              hopper::make_desc(sp + box_b + kk * 32, 16, L::SBO,
+                                hopper::kSwizzle128B),
+              (j | kk) != 0);
+        hopper::wgmma_commit();
+        if (j > 0) {
+          hopper::wgmma_wait<1>();
+          release(prev);
+        }
+        prev = slot;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(prev);
+
+      // warpgroup 0: P = exp2(S scale log2e - lse log2e), 0 for keys past
+      // Sk (zero-filled, and a zero score is not -inf) and above the causal
+      // diagonal; warpgroup 1: dP - D.  Both leave the fragment in their
+      // slots; the barrier before the writes keeps them behind the other
+      // warpgroup's reads of the last tile, the one after them orders
+      // them before this tile's reads
+      const bool need_mask =
+          k0 + BK > Sk || (causal && k0 + BK - 1 > rw0 + shift);
+      if (t > 0) hopper::named_barrier_sync(1, 2 * 128);
+#pragma unroll
+      for (int i = 0; i < SN; ++i) {
+        const int h = (i / 2) % 2;
+        float x;
+        if (wg == 0) {
+          x = exp2f(acc[i] * scale_log2 - rowv[h]);
+          if (need_mask) {
+            const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+            if (kpos >= Sk || (causal && kpos > row + 8 * h + shift))
+              x = 0.f;
+          }
+        } else {
+          x = acc[i] - rowv[h];
+        }
+        acc[i] = x;
+        xmine[i * 128] = x;
+      }
+      hopper::named_barrier_sync(1, 2 * 128);
+
+      // dS = P (dP - D) (the same product in both warpgroups), rounded to
+      // T as the register A operand (the TPU kernel's
+      // `ds.astype(ks.dtype)`)
+      uint32_t dsa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          dsa[kk][r] = hopper::pack2<T>(acc[i] * xother[i * 128],
+                                        acc[i + 1] * xother[(i + 1) * 128]);
+        }
+
+      // dQ[:, own] += dS k[:, own]: A from registers, B = the step's k
+      // boxes of the warpgroup's columns read MN-major, one 16-key slice
+      // per instruction
+#pragma unroll
+      for (int b = 0; b < NB; ++b) hopper::fence_regs(dq_acc[b]);
+#pragma unroll
+      for (int cs = 0; cs < CSTEPS; ++cs) {
+        hopper::mbar_wait(full + slot, phase);
+        const uint8_t* sk = smem + slot * L::STAGE + 2 * wg * L::BOX;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int bi = 0; bi < 2; ++bi) {
+          if (2 * cs + bi >= NB) continue;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            Wgmma<L::COLS, 1, T>::rs(
+                dq_acc[2 * cs + bi], dsa[kk],
+                hopper::make_desc(sk + bi * L::BOX + kk * 16 * L::ROW, L::BOX,
+                                  L::SBO, hopper::kSwizzle128B),
+                1);
+        }
+        hopper::wgmma_commit();
+        if (cs > 0) {
+          hopper::wgmma_wait<1>();
+          release(prev);
+        }
+        prev = slot;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) hopper::fence_regs(dq_acc[b]);
+      release(prev);
+    }
+
+    // epilogue: the warpgroup's columns of dQ (x scale) to T; rows past Sq
+    // are not stored
+    const int64_t d_total = (int64_t)n_chunks * 2 * C;
+    const int col0 = (2 * chunk + wg) * C + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = row + 8 * h;
+      if (qpos >= Sq) continue;
+      T* out = dq + (row_base + qpos) * d_total + col0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < L::COLS / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          *reinterpret_cast<uint32_t*>(out + b * L::COLS + 8 * j) =
+              hopper::pack2<T>(dq_acc[b][i] * scale,
+                               dq_acc[b][i + 1] * scale);
+        }
+    }
+  }
+}
+
+template <typename T, int NB>
+cudaError_t launch_dq_split_d_nb(const CUtensorMap& tq, const CUtensorMap& tk,
+                                 const CUtensorMap& tv,
+                                 const CUtensorMap& tdo, const void* lse,
+                                 const void* dd, void* dq, int B, int H,
+                                 int Sq, int Sk, int D, int causal,
+                                 float scale, cudaStream_t stream) {
+  using L = SplitBwdLayout;
+  static bool smem_set[kMaxDevices] = {};
+  cudaError_t err = opt_in_smem(flash_bwd_dq_split_d_wgmma_kernel<T, NB>,
+                                L::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = D / (2 * NB * L::COLS);
+  dim3 grid((Sq + BQ - 1) / BQ * n_chunks, H, B);
+  flash_bwd_dq_split_d_wgmma_kernel<T, NB>
+      <<<grid, THREADS, L::SMEM, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(dd), static_cast<T*>(dq), H, Sq, Sk,
+          n_chunks, causal, scale);
+  return cudaGetLastError();
+}
+
+// D = 256 n: each warpgroup owns C = 256 columns where n is even (one CTA
+// a q tile at D = 512: the scores are computed once), 192 where n is a
+// multiple of 3 (two chunks at D = 768), else 128 (n chunks)
+template <typename T>
+cudaError_t launch_dq_split_d(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* dd, void* dq, int B, int H, int Sq,
+                              int Sk, int D, const Strides& st, int causal,
+                              float scale, cudaStream_t stream) {
+  using L = SplitBwdLayout;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::encode_bhsd<T>(&tq, q, B, H, Sq, D, st.q_sb,
+                                           st.q_sh, st.q_ss, BQ);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tk, k, B, H, Sk, D, st.k_sb, st.k_sh,
+                                 st.k_ss, L::BKEY);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tv, v, B, H, Sk, D, st.v_sb, st.v_sh,
+                                 st.v_ss, L::BKEY);
+  if (err == cudaSuccess)
+    err = hopper::encode_bhsd<T>(&tdo, dout, B, H, Sq, D, st.o_sb, st.o_sh,
+                                 st.o_ss, BQ);
+  if (err != cudaSuccess) return err;
+  const int n = D / L::CHUNK;
+  if (n % 2 == 0)
+    return launch_dq_split_d_nb<T, 4>(tq, tk, tv, tdo, lse, dd, dq, B, H, Sq,
+                                      Sk, D, causal, scale, stream);
+  if (n % 3 == 0)
+    return launch_dq_split_d_nb<T, 3>(tq, tk, tv, tdo, lse, dd, dq, B, H, Sq,
+                                      Sk, D, causal, scale, stream);
+  return launch_dq_split_d_nb<T, 2>(tq, tk, tv, tdo, lse, dd, dq, B, H, Sq,
+                                    Sk, D, causal, scale, stream);
 }
 
 // dQ shared memory: q and dO (resident), two stages of K and two of V,
@@ -2427,8 +2791,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 (every
 // dtype), 256 (bf16 and fp16) or any multiple of 256 above it (the split-D
-// kernels: the fp32 dQ and dK/dV, the bf16 and fp16 dK/dV); the rest (the
-// fp32 dQ and dK/dV at 256, the 16-bit dQ above 256) runs
+// kernels: the fp32 dQ and dK/dV on 3xTF32, the bf16 and fp16 dQ and dK/dV
+// on wgmma); the rest (the fp32 dQ and dK/dV at 256) runs
 // csrc/flash_attn_d256.cu.  Strides (in elements) of q, k, v and dO:
 // batch, head, sequence; the head dim must be contiguous (bf16 and fp16,
 // and fp32 above 256: the base addresses 16-byte aligned and the byte
@@ -2455,6 +2819,13 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   else if (dtype == 0)
     err = tf32::dq_dispatch(D, q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
                             st, causal, scale, s);
+  else if (dtype == 1 && D > 256 && D % wg::SplitBwdLayout::CHUNK == 0)
+    err = wg::launch_dq_split_d<__nv_bfloat16>(q, k, v, dout, lse, dd, dq, B,
+                                               H, Sq, Sk, D, st, causal,
+                                               scale, s);
+  else if (dtype == 2 && D > 256 && D % wg::SplitBwdLayout::CHUNK == 0)
+    err = wg::launch_dq_split_d<__half>(q, k, v, dout, lse, dd, dq, B, H, Sq,
+                                        Sk, D, st, causal, scale, s);
   else if (dtype == 1)
     err = wg::dq_dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, dd, dq, B,
                                          H, Sq, Sk, st, causal, scale, s);
@@ -2485,11 +2856,11 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   else if (dtype == 0)
     err = tf32::dkv_dispatch(D, q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
                              Sk, st, causal, scale, s);
-  else if (dtype == 1 && D > 256 && D % wg::SplitDkvLayout::CHUNK == 0)
+  else if (dtype == 1 && D > 256 && D % wg::SplitBwdLayout::CHUNK == 0)
     err = wg::launch_dkv_split_d<__nv_bfloat16>(q, k, v, dout, lse, dd, dk,
                                                 dv, B, H, Sq, Sk, D, st,
                                                 causal, scale, s);
-  else if (dtype == 2 && D > 256 && D % wg::SplitDkvLayout::CHUNK == 0)
+  else if (dtype == 2 && D > 256 && D % wg::SplitBwdLayout::CHUNK == 0)
     err = wg::launch_dkv_split_d<__half>(q, k, v, dout, lse, dd, dk, dv, B,
                                          H, Sq, Sk, D, st, causal, scale, s);
   else if (dtype == 1)

@@ -154,10 +154,11 @@
 //   The split, the m16n8k8 products, the cp.async copies and the
 //   resident q fragments are in tf32.cuh, shared with the fp32 backward
 //   kernels.
-//   D = 256 n, n >= 2 (the split-D route; 257-511 are zero-padded to 512
-//   by the wrapper): `flash_fwd_split_d_tf32_kernel`, the same 3xTF32
-//   products on the structure of the 16-bit split-D kernel above.  A
-//   resident fp32 q tile would be 128 n KB, so:
+//   D = 256 n, n >= 1 (the split-D route; 129-255 are zero-padded to 256,
+//   257-511 to 512 by the wrapper): `flash_fwd_split_d_tf32_kernel`, the
+//   same 3xTF32 products on the structure of the 16-bit split-D kernel
+//   above.  A resident fp32 q tile would be 128 n KB (at n = 1 already
+//   more than half of shared memory beside K and V), so:
 //   * a CTA of 8 warps owns 128 query rows (16 a warp) and one 256-column
 //     chunk of O (the chunk folded into blockIdx.x): 16 x 256 fp32 of O a
 //     warp, 128 registers a thread;
@@ -194,7 +195,10 @@
 //   inputs and outputs take 0.040 ms, so the operations bound it.  128-row
 //   CTAs read each k and V box for twice the rows of 64-row ones (a
 //   4-warp, 64-row layout was slower on an H100, fed by cp.async); the
-//   grid is 4 x 2 x 4 x 8 = 256 CTAs, one per SM.
+//   grid is 4 x 2 x 4 x 8 = 256 CTAs, one per SM.  At n = 1 (D = 256) a
+//   key tile is 8 score steps and 4 V steps and no score is recomputed;
+//   bound at [8, 8, 512, 256] 0.104 ms (3xTF32 operations), the grid
+//   4 x 8 x 8 = 256 CTAs.
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -463,7 +467,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 at D = 256 n, n >= 2: the split-D forward.  A CTA of 8 warps owns
+// fp32 at D = 256 n, n >= 1: the split-D forward.  A CTA of 8 warps owns
 // 128 query rows (16 a warp) and one 256-column chunk of O (16 x 256 fp32
 // a warp: 128 registers a thread).  One stream of steps runs through a
 // ring of STAGES stages that TMA fills: per key tile, the 8n score steps
@@ -1344,11 +1348,12 @@ LaunchFn pick(int dtype, int D) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 (every
-// dtype), 256 (bf16 and fp16; fp32 at 256 runs csrc/flash_attn_d256.cu) or
-// any multiple of 256 above it (the split-D kernels).  strides (in elements)
-// for q, k, v: batch, head, sequence; the head dim must be contiguous
-// (bf16 and fp16, and fp32 above 256: the base addresses 16-byte aligned
-// and the byte strides multiples of 16, as TMA needs).  out is [B, H, Sq, D] and lse
+// dtype), 256 (bf16 and fp16: the wgmma kernel; fp32: the 3xTF32 split-D
+// kernel at n = 1) or any multiple of 256 above it (the split-D kernels).
+// strides (in elements) for q, k, v: batch, head, sequence; the head dim
+// must be contiguous (bf16 and fp16, and fp32 from 256 up: the base
+// addresses 16-byte aligned and the byte strides multiples of 16, as TMA
+// needs).  out is [B, H, Sq, D] and lse
 // [B, H, Sq], both contiguous.  Returns the CUDA error code of the launch
 // (0 on success); the kernel is asynchronous on `stream`.  The caller
 // makes the tensors' device current.
@@ -1361,6 +1366,9 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                            k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D >= 256 && D % tf32::SplitFwd::CHUNK == 0)
+    return (int)tf32::launch_split_d(q, k, v, o, lse, B, H, Sq, Sk, D, st,
+                                     causal, scale, s);
   if (D > 256 && D % wg::SplitLayout::CHUNK == 0) {
     if (dtype == 1)
       return (int)wg::launch_split_d<__nv_bfloat16>(
@@ -1368,9 +1376,6 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
     if (dtype == 2)
       return (int)wg::launch_split_d<__half>(q, k, v, o, lse, B, H, Sq, Sk,
                                              D, st, causal, scale, s);
-    if (dtype == 0)
-      return (int)tf32::launch_split_d(q, k, v, o, lse, B, H, Sq, Sk, D, st,
-                                       causal, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   const LaunchFn fn = pick(dtype, D);

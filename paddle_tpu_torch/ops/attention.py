@@ -43,10 +43,11 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     copied first).
 
 The kernels have instances for head dims 32, 64, 128 and 256, and a
-split-D route for every multiple of 256 above it.  Any other head dim is
-zero-padded up to the next of them (q, k, v and dO along D; the scale
-stays 1/sqrt(real D)): up to 128 the next instance, 129-255 to 256, above
-256 the next multiple of 256 (320 -> 512).  out, dq, dk and dv are
+split-D route for every multiple of 256 above it (the fp32 forward's from
+256 up).  Any other head dim is zero-padded up to the next of them (q, k,
+v and dO along D; the scale stays 1/sqrt(real D)): up to 128 the next
+instance, 129-255 to 256, above 256 the next multiple of 256 (320 ->
+512).  out, dq, dk and dv are
 sliced back: zero columns leave q k^T, lse and rowsum(dO * O) unchanged,
 so this is exact, at the cost of the padded columns' bytes and
 operations (a D = 96 head does the work of D = 128).  The kernel head
@@ -54,25 +55,23 @@ dim and the dtype select the kernel, each counted on its wrapper:
   * D <= 128: csrc/flash_attn_fwd.cu / flash_attn_bwd.cu (`launches`);
   * D = 256, bf16 and fp16: the same wgmma forward, dQ and dK/dV at
     D = 256 (`launches_wgmma256`);
-  * D = 256, fp32: csrc/flash_attn_d256.cu, fp32 FMAs from shared memory,
-    strided views taken as they are (`launches_d256`);
-  * D = 256 n, n >= 2, the bf16 and fp16 forward and dK/dV: the split-D
-    wgmma kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
-    (`flash_fwd_split_d_wgmma_kernel`, `flash_bwd_dkv_split_d_wgmma_kernel`),
-    a CTA per 256-column chunk of the output, the operands streamed as
-    64-column boxes through a TMA ring (`launches_wgmma_split_d`);
-  * D = 256 n, n >= 2, the fp32 forward, dQ and dK/dV: 3xTF32 `mma.sync`
-    kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
+  * D = 256, the fp32 dQ and dK/dV: csrc/flash_attn_d256.cu, fp32 FMAs
+    from shared memory, strided views taken as they are (`launches_d256`);
+  * D = 256 n, n >= 2, the bf16 and fp16 forward, dQ and dK/dV: the
+    split-D wgmma kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
+    (`flash_fwd_split_d_wgmma_kernel`, `flash_bwd_dq_split_d_wgmma_kernel`,
+    `flash_bwd_dkv_split_d_wgmma_kernel`), a CTA per chunk of the output
+    (256 columns; dQ up to 512), the operands streamed as 64-column boxes
+    through a TMA ring (`launches_wgmma_split_d`);
+  * D = 256 n, the fp32 forward (n >= 1), dQ and dK/dV (n >= 2): 3xTF32
+    `mma.sync` kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
     (`flash_fwd_split_d_tf32_kernel`, `flash_bwd_dq_split_d_tf32_kernel`,
     `flash_bwd_dkv_split_d_tf32_kernel`), a CTA per chunk of the output
     (256 columns; dQ up to 512), the operands streamed as 32-column boxes
     through a TMA ring; an fp32 view TMA refuses is copied first, as in 16
-    bits (`launches_tf32_split_d`);
-  * D = 256 n, n >= 2, the bf16 and fp16 dQ: the kernel of
-    csrc/flash_attn_d256.cu with a grid dimension over 256-column chunks
-    of dQ (`launches_split_d`).
+    bits (`launches_tf32_split_d`).
     The split-D routes recompute the scores over all of D in each chunk's
-    CTA, so the score work is n times its share (the fp32 dQ at D = 512
+    CTA, so the score work is n times its share (the dQ at D = 512
     computes them once).
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
@@ -105,7 +104,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
 _FLASH_STATE = {"mode": "auto", "min_seq_len": 8192}
 
 FLASH_HEAD_DIMS = (32, 64, 128, 256)  # the kernels' instances; others pad up
-_D256 = 256  # csrc/flash_attn_d256.cu: D = 256 n, 256-column chunks
+_D256 = 256  # the widest instance; above it, split-D in 256-column chunks
 _BLOCK_K = 64  # K/V tile of the plain version (the kernel's BK)
 _BLOCK_Q = 64  # q tile of the plain dK/dV loop (the dkv kernel's BQ)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -248,20 +247,18 @@ def _route(kind, dp, dtype):
     """Which kernel runs `kind` ("fwd", "bwd_dq" or "bwd_dkv") at kernel
     head dim dp in `dtype`: "le128" (csrc/flash_attn_fwd.cu /
     flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma kernels
-    at D = 256), "d256" (csrc/flash_attn_d256.cu at D = 256, fp32),
-    "wgmma_split_d" (the 16-bit split-D wgmma forward and dK/dV of
-    csrc/flash_attn_fwd.cu / flash_attn_bwd.cu at D = 256 n, n >= 2),
-    "tf32_split_d" (the fp32 3xTF32 split-D forward, dQ and dK/dV of the
-    same files at D = 256 n, n >= 2) or "split_d"
-    (csrc/flash_attn_d256.cu at D = 256 n, n >= 2: the 16-bit dQ)."""
+    at D = 256), "d256" (csrc/flash_attn_d256.cu: the fp32 dQ and dK/dV
+    at D = 256), "wgmma_split_d" (the 16-bit split-D wgmma forward, dQ and
+    dK/dV of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu at D = 256 n,
+    n >= 2) or "tf32_split_d" (the fp32 3xTF32 split-D forward at
+    D = 256 n, n >= 1, and dQ and dK/dV at n >= 2, of the same files)."""
     if dp < _D256:
         return "le128"
-    wide16 = dtype in _TMA_DTYPES
-    if dp == _D256:
-        return "wgmma256" if wide16 else "d256"
-    if not wide16:
-        return "tf32_split_d"
-    return "split_d" if kind == "bwd_dq" else "wgmma_split_d"
+    if dtype in _TMA_DTYPES:
+        return "wgmma256" if dp == _D256 else "wgmma_split_d"
+    if dp == _D256 and kind != "fwd":
+        return "d256"
+    return "tf32_split_d"
 
 
 def kernel_operands(d, *tensors, kind="fwd"):
@@ -269,9 +266,9 @@ def kernel_operands(d, *tensors, kind="fwd"):
     along D up to kernel_head_dim(d) (a new contiguous tensor), and a
     view that TMA refuses copied to a contiguous tensor (counted in
     flash_attention.view_copies) where that kernel reads through TMA (the
-    16-bit kernels but the split-D dQ, and the fp32 split-D forward, dQ
-    and dK/dV; the other fp32 kernels and those of csrc/flash_attn_d256.cu
-    read through strides and take any view).  Returns the kernel's head
+    16-bit kernels, and the fp32 split-D forward, dQ and dK/dV; the other
+    fp32 kernels and those of csrc/flash_attn_d256.cu read through strides
+    and take any view).  Returns the kernel's head
     dim and the tensors."""
     dp = kernel_head_dim(d)
     out = []
@@ -302,20 +299,16 @@ def _kernel_lib():
 
 
 def _d256_kernel_lib():
-    """csrc/flash_attn_d256.cu: the forward, dQ and dK/dV at D = 256 n,
-    with the argument lists of the D <= 128 entries."""
+    """csrc/flash_attn_d256.cu: the fp32 dQ and dK/dV at D = 256, with
+    the argument lists of the flash_attn_bwd.cu entries."""
     from ..core.kernel_build import load_library
     lib = load_library("flash_attn_d256")
     if not getattr(lib, "_argtypes_set", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attn_d256_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            ll, ll, ll, ll, ll, ll, ll, ll,
-                                            ll, i, ctypes.c_float, p]
         tail = [i] * 6 + [ll] * 12 + [i, ctypes.c_float, p]
         lib.flash_attn_d256_bwd_dq.argtypes = [p] * 7 + tail
         lib.flash_attn_d256_bwd_dkv.argtypes = [p] * 8 + tail
-        for fn in ("flash_attn_d256_fwd", "flash_attn_d256_bwd_dq",
-                   "flash_attn_d256_bwd_dkv"):
+        for fn in ("flash_attn_d256_bwd_dq", "flash_attn_d256_bwd_dkv"):
             getattr(lib, fn).restype = i
         lib.flash_attn_d256_error_string.argtypes = [i]
         lib.flash_attn_d256_error_string.restype = ctypes.c_char_p
@@ -323,17 +316,15 @@ def _d256_kernel_lib():
     return lib
 
 
-# kernel -> (its C entry in flash_attn_fwd.cu / flash_attn_bwd.cu, its C
-# entry in flash_attn_d256.cu)
-_ENTRIES = {"fwd": ("flash_attn_fwd", "flash_attn_d256_fwd"),
-            "bwd_dq": ("flash_attn_bwd_dq", "flash_attn_d256_bwd_dq"),
+# backward kernel -> (its C entry in flash_attn_bwd.cu, its C entry in
+# flash_attn_d256.cu)
+_ENTRIES = {"bwd_dq": ("flash_attn_bwd_dq", "flash_attn_d256_bwd_dq"),
             "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_d256_bwd_dkv")}
 # route (see _route) -> the wrapper's launch count
 LAUNCH_COUNTS = {"le128": "launches", "wgmma256": "launches_wgmma256",
                  "d256": "launches_d256",
                  "wgmma_split_d": "launches_wgmma_split_d",
-                 "tf32_split_d": "launches_tf32_split_d",
-                 "split_d": "launches_split_d"}
+                 "tf32_split_d": "launches_tf32_split_d"}
 
 
 def _kernel_entry(kind, dp, dtype):
@@ -341,7 +332,7 @@ def _kernel_entry(kind, dp, dtype):
     kernel head dim dp in `dtype`, its library's error-string function and
     the name of the wrapper's launch count (LAUNCH_COUNTS[_route])."""
     route = _route(kind, dp, dtype)
-    if route in ("d256", "split_d"):
+    if route == "d256":
         lib = _d256_kernel_lib()
         return (getattr(lib, _ENTRIES[kind][1]),
                 lib.flash_attn_d256_error_string, LAUNCH_COUNTS[route])

@@ -5,10 +5,10 @@ kernels, in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128 and
 the zero-padded D = 48, 96, ragged S, causal Sq != Sk, the strided
 head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
 views that TMA refuses, which are copied; head dims 129-256 on the
-16-bit wgmma forward, dQ and dK/dV at D = 256 and the fp32 kernels of
-csrc/flash_attn_d256.cu, head dims above 256 on the 16-bit split-D wgmma
-forward and dK/dV, the fp32 3xTF32 split-D forward, dQ and dK/dV and the
-16-bit split-D dQ of csrc/flash_attn_d256.cu), the GPU Predictor against the
+16-bit wgmma forward, dQ and dK/dV at D = 256, the fp32 3xTF32 split-D
+forward and the fp32 dQ and dK/dV of csrc/flash_attn_d256.cu, head dims
+above 256 on the 16-bit split-D wgmma forward, dQ and dK/dV and the fp32
+3xTF32 split-D forward, dQ and dK/dV), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 and `Executor.run_steps` (CUDA-graph replay of the step) against eager
 `run()` steps.
@@ -399,6 +399,62 @@ def test_16bit_split_d_dkv_is_deterministic(dtype):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_split_d_dq_is_deterministic(dtype):
+    """No atomics in the wgmma split-D dQ: two launches at D = 512 (one
+    512-column chunk) and D = 768 (two 384-column chunks), causal, on
+    head-split views, give the same bits, each counted on
+    `launches_wgmma_split_d`."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for d in (512, 768):
+        q, k, v, do = (_bhsd(g, 2, 2, s, d, dtype, True)
+                       for s in (384, 320, 320, 384))
+        out, lse = tattn.flash_attention_cuda(q, k, v, causal=True)
+        dd = (do.float() * out.float()).sum(-1)
+        before = tattn.flash_attention_bwd_dq_cuda.launches_wgmma_split_d
+        first, second = (tattn.flash_attention_bwd_dq_cuda(
+            q, k, v, do, lse, dd, causal=True) for _ in range(2))
+        torch.cuda.synchronize()
+        assert tattn.flash_attention_bwd_dq_cuda.launches_wgmma_split_d == \
+            before + 2
+        assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_d256_entries_refuse_what_the_tensor_cores_run():
+    """csrc/flash_attn_d256.cu keeps only the fp32 dQ and dK/dV at
+    D = 256: it has no forward entry (the fp32 D = 256 forward is the
+    3xTF32 split-D kernel of flash_attn_fwd.cu), and its dQ and dK/dV
+    entries return cudaErrorInvalidValue (1) for the 16-bit dQ and dK/dV at
+    D = 256 and above and for fp32 above 256, launching nothing."""
+    _need_cuda()
+    lib = tattn._d256_kernel_lib()
+    assert not hasattr(lib, "flash_attn_d256_fwd")
+    fn, _, count = tattn._kernel_entry("fwd", 256, torch.float32)
+    assert fn.__name__ == "flash_attn_fwd" and \
+        count == "launches_tf32_split_d"
+    g = torch.Generator(device="cuda").manual_seed(13)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, d in ((torch.bfloat16, 512), (torch.float16, 768),
+                     (torch.bfloat16, 256), (torch.float16, 256),
+                     (torch.float32, 512)):
+        q, k, v, do = (_bhsd(g, 1, 2, 64, d, dtype, False)
+                       for _ in range(4))
+        lse = torch.zeros(1, 2, 64, device="cuda")
+        dd = torch.zeros_like(lse)
+        dq, dk, dv = (torch.full_like(q, 7.0) for _ in range(3))
+        strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
+        tail = (tattn._DTYPE_CODE[dtype], 1, 2, 64, 64, d, *strides, 0,
+                0.125, stream)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), dd.data_ptr())
+        assert lib.flash_attn_d256_bwd_dq(*ins, dq.data_ptr(), *tail) == 1
+        assert lib.flash_attn_d256_bwd_dkv(*ins, dk.data_ptr(),
+                                           dv.data_ptr(), *tail) == 1
+        torch.cuda.synchronize()
+        assert all(torch.all(t == 7.0) for t in (dq, dk, dv)), (dtype, d)
+
+
 @pytest.mark.parametrize("t,v,dtype,ignore", [
     (64, 30522, torch.float32, -100),
     (64, 30522, torch.bfloat16, 7),
@@ -713,26 +769,40 @@ _BF16, _FP16 = torch.bfloat16, torch.float16
     (1, 1, 130, 100, 1000, torch.float32, True, True),
     (1, 2, 200, 200, 320, _FP16, True, True),
     (1, 1, 100, 130, 1000, _BF16, True, False),
+    # the fp32 D = 256 forward on the 3xTF32 split-D kernel: causal
+    # Sq > Sk, and q, k, v and dO 4 bytes past a 16-byte boundary (the
+    # forward copies q, k and v; the dQ and dK/dV of
+    # csrc/flash_attn_d256.cu read through strides)
+    (1, 2, 160, 96, 256, torch.float32, True, False),
+    (1, 2, 130, 70, 256, torch.float32, False, "offset"),
+    (1, 2, 96, 160, 200, torch.float32, True, "offset"),
+    # the 16-bit split-D dQ: D = 1000 (padded to 1024: two 512-column
+    # chunks), causal D = 768 in fp16 (two 384-column chunks), D = 1280
+    # (five 256-column chunks)
+    (1, 1, 130, 100, 1000, _FP16, True, True),
+    (1, 2, 96, 160, 768, _FP16, True, True),
+    (1, 2, 200, 200, 768, _FP16, True, False),
+    (1, 1, 96, 130, 1280, _BF16, True, False),
 ])
 def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
                                            strided):
     """Head dims above 128.  D = 256 (and 160, 200 zero-padded to it): in
     bf16 and fp16 the forward, dQ and dK/dV are the wgmma kernels at
-    D = 256 (counted in `launches_wgmma256`); in fp32 all three are the
-    csrc/flash_attn_d256.cu kernels (`launches_d256`).  D = 256 n, n >= 2
-    (and 320 padded to 512): the 16-bit forward and dK/dV are the split-D
-    wgmma kernels (`launches_wgmma_split_d`), the fp32 forward, dQ and
-    dK/dV the 3xTF32 split-D kernels (`launches_tf32_split_d`), the 16-bit
-    dQ the split-D kernel of csrc/flash_attn_d256.cu (`launches_split_d`).
-    Each launch is counted once, on its own route.  A view TMA refuses is
-    copied where a wgmma kernel reads it (q in the forward, q and dO in dQ
-    and in dK/dV: 5 copies at 16-bit D = 256, 3 at 16-bit D > 256, where
-    the split-D dQ reads through strides) and where the fp32 split-D
-    forward, dQ and dK/dV read it ("offset": q, k, v and dO 4 bytes past a
-    16-byte boundary, 3 + 4 + 4 copies), not for the kernels that read
-    through strides.  The
-    forward, dQ and dK/dV against their plain versions at TOL (the
-    D <= 128 kernels' tolerances, for the same reasons)."""
+    D = 256 (counted in `launches_wgmma256`); in fp32 the forward is the
+    3xTF32 split-D kernel at n = 1 (`launches_tf32_split_d`), the dQ and
+    dK/dV the csrc/flash_attn_d256.cu kernels (`launches_d256`).
+    D = 256 n, n >= 2 (and 320 padded to 512, 1000 to 1024): the 16-bit
+    forward, dQ and dK/dV are the split-D wgmma kernels
+    (`launches_wgmma_split_d`), the fp32 ones the 3xTF32 split-D kernels
+    (`launches_tf32_split_d`).  Each launch is counted once, on its own
+    route.  A view TMA refuses is copied where a wgmma kernel reads it (q
+    in the forward, q and dO in dQ and in dK/dV: 5 copies in 16 bits) and
+    where a 3xTF32 split-D kernel reads it ("offset": q, k, v and dO 4
+    bytes past a 16-byte boundary; the forward copies q, k and v, the dQ
+    and dK/dV q, k, v and dO: 3 copies at D = 256, 3 + 4 + 4 above),
+    not for the kernels that read through strides.  The forward, dQ and
+    dK/dV against their plain versions at TOL (the D <= 128 kernels'
+    tolerances, for the same reasons)."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (_bhsd(g, b, h, s, d, dtype, strided is True)
@@ -746,14 +816,13 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     dp = tattn.kernel_head_dim(d)
     wide16 = dtype != torch.float32
     if dp > 256 and wide16:
-        want = ("launches_wgmma_split_d", "launches_split_d",
-                "launches_wgmma_split_d")
+        want = ("launches_wgmma_split_d",) * 3
     elif dp > 256:
         want = ("launches_tf32_split_d",) * 3
     elif wide16:
         want = ("launches_wgmma256",) * 3
     else:
-        want = ("launches_d256",) * 3
+        want = ("launches_tf32_split_d", "launches_d256", "launches_d256")
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
     names = tuple(tattn.LAUNCH_COUNTS.values())
@@ -770,12 +839,12 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     torch.cuda.synchronize()
     assert read() == [{n: c[n] + (n == w) for n in names}
                       for c, w in zip(before, want)]
-    wgmma_copies = 0
+    tma_copies = 0
     if strided == "refused" and dp == d and wide16:
-        wgmma_copies = 5 if d == 256 else 3
-    if strided == "offset" and dp == d and dp > 256:
-        wgmma_copies = 11
-    assert tattn.flash_attention.view_copies == copies + wgmma_copies
+        tma_copies = 5
+    if strided == "offset" and dp == d:
+        tma_copies = 11 if dp > 256 else 3
+    assert tattn.flash_attention.view_copies == copies + tma_copies
     tol = TOL[dtype]
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
     assert out.shape == q.shape and out.dtype == dtype
@@ -851,16 +920,13 @@ def test_wide_head_dims_through_autograd():
 
 
 def test_wide_head_dims_through_autograd_bf16():
-    """The same in bf16: the split-D wgmma forward and dK/dV
-    (`launches_wgmma_split_d`) and the split-D dQ of
-    csrc/flash_attn_d256.cu (`launches_split_d`), at the bf16 tolerance
-    against the plain versions, and against the fp32 score-matrix
-    reference as far as the plain versions are from it, so that a bias in
-    the wgmma sums over all of D would show."""
+    """The same in bf16: the split-D wgmma forward, dQ and dK/dV (all
+    three on `launches_wgmma_split_d`), at the bf16 tolerance against the
+    plain versions, and against the fp32 score-matrix reference as far as
+    the plain versions are from it, so that a bias in the wgmma sums over
+    all of D would show."""
     _need_cuda()
-    _wide_autograd(torch.bfloat16, ("launches_wgmma_split_d",
-                                    "launches_split_d",
-                                    "launches_wgmma_split_d"))
+    _wide_autograd(torch.bfloat16, ("launches_wgmma_split_d",) * 3)
 
 
 def test_device_resident_pool_and_engine():

@@ -287,17 +287,59 @@ def test_head_dims_above_256_match_pallas(causal, d):
     _wide_head_dim_parity(d, causal, -(-d // 256) * 256)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_16bit_head_dims_above_256_bwd_match_pallas(causal, d, dtype):
+    """The 16-bit split-D dQ and dK/dV's plain versions at the padded
+    kernel head dim (320 -> 512: q, k, v and dO zero-padded by
+    kernel_operands, the scale of the real d, sliced back) against the
+    Pallas `_flash_bwd` in interpret mode at the real d in the same dtype,
+    on the Pallas forward's out and lse: both round P and dS to the dtype
+    before the second products, so they differ by the summation order and
+    one rounding of each output (BF16_KERNEL_TOL, FP16_KERNEL_TOL)."""
+    jdt, tdt, tol = {
+        "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_KERNEL_TOL),
+        "float16": (jnp.float16, torch.float16, FP16_KERNEL_TOL)}[dtype]
+    q, k, v = _inputs(1, 2, 128, 128, d, seed=110 + d + causal)
+    g = np.random.RandomState(d + 1).randn(*q.shape).astype(np.float32)
+    scale = 1.0 / float(np.sqrt(d))
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    out, lse = jattn._flash_fwd(jq, jk, jv, causal, scale, 64, 64,
+                                interpret=True)
+    ref = jattn._flash_bwd(jq, jk, jv, out, lse, jg, causal, scale, 64, 64,
+                           interpret=True)
+    tout = torch.tensor(np.asarray(out.astype(jnp.float32))).to(tdt)
+    tlse = torch.tensor(np.asarray(lse)[..., 0])
+    tg = torch.from_numpy(g).to(tdt)
+    dd = (tg.float() * tout.float()).sum(-1)
+    dp, (pq, pk, pv, pg) = tattn.kernel_operands(
+        d, *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), tg,
+        kind="bwd_dq")
+    assert dp == 512
+    dq = tattn.flash_attention_bwd_dq_plain(pq, pk, pv, pg, tlse, dd, causal,
+                                            scale)
+    dk, dv = tattn.flash_attention_bwd_dkv_plain(pq, pk, pv, pg, tlse, dd,
+                                                 causal, scale)
+    for tag, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == tdt and torch.all(got[..., d:] == 0), tag
+        np.testing.assert_allclose(got[..., :d].float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   err_msg=tag, **tol)
+
+
 # which route (and so which launch count) each kernel takes, by kind,
 # kernel head dim and dtype
 _ROUTES = {
     (128, False): {"fwd": "le128", "bwd_dq": "le128", "bwd_dkv": "le128"},
     (128, True): {"fwd": "le128", "bwd_dq": "le128", "bwd_dkv": "le128"},
-    (256, False): {"fwd": "d256", "bwd_dq": "d256", "bwd_dkv": "d256"},
+    (256, False): {"fwd": "tf32_split_d", "bwd_dq": "d256",
+                   "bwd_dkv": "d256"},
     (256, True): {"fwd": "wgmma256", "bwd_dq": "wgmma256",
                   "bwd_dkv": "wgmma256"},
     (512, False): {"fwd": "tf32_split_d", "bwd_dq": "tf32_split_d",
                    "bwd_dkv": "tf32_split_d"},
-    (512, True): {"fwd": "wgmma_split_d", "bwd_dq": "split_d",
+    (512, True): {"fwd": "wgmma_split_d", "bwd_dq": "wgmma_split_d",
                   "bwd_dkv": "wgmma_split_d"},
 }
 _ROUTES[768, False], _ROUTES[768, True] = _ROUTES[512, False], \
@@ -311,18 +353,18 @@ _ROUTES[768, False], _ROUTES[768, True] = _ROUTES[512, False], \
 def test_route_and_launch_count_by_kernel(kind, dp, dtype):
     """The kernel each (kind, kernel head dim, dtype) runs: up to 128 the
     kernels of flash_attn_fwd.cu / flash_attn_bwd.cu; at 256 the 16-bit
-    wgmma forward, dQ and dK/dV, fp32 on csrc/flash_attn_d256.cu; above
-    256 the 16-bit forward and dK/dV on the split-D wgmma kernels, the
-    fp32 forward, dQ and dK/dV on the 3xTF32 split-D kernels and the
-    16-bit dQ on the split-D kernel of csrc/flash_attn_d256.cu.  Each route
-    has its own launch count on all three wrappers, and the routes (and
-    dtypes) that read their operands through TMA are the ones whose
+    wgmma forward, dQ and dK/dV, the fp32 forward on the 3xTF32 split-D
+    kernel and the fp32 dQ and dK/dV on csrc/flash_attn_d256.cu; above
+    256 the 16-bit forward, dQ and dK/dV on the split-D wgmma kernels and
+    the fp32 forward, dQ and dK/dV on the 3xTF32 split-D kernels.  Each
+    route has its own launch count on all three wrappers, and the routes
+    (and dtypes) that read their operands through TMA are the ones whose
     refused views are copied."""
     want = _ROUTES[dp, dtype != torch.float32][kind]
     assert tattn._route(kind, dp, dtype) == want
     count = tattn.LAUNCH_COUNTS[want]
     assert len(set(tattn.LAUNCH_COUNTS.values())) == \
-        len(tattn.LAUNCH_COUNTS) == 6
+        len(tattn.LAUNCH_COUNTS) == 5
     for wrapper in (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
                     tattn.flash_attention_bwd_dkv_cuda):
         assert isinstance(getattr(wrapper, count), int)
@@ -336,12 +378,12 @@ def test_route_and_launch_count_by_kernel(kind, dp, dtype):
 def test_d256_views_that_tma_refuses_by_kernel():
     """At D = 256 the 16-bit forward, dQ and dK/dV all read through TMA
     (the wgmma kernels): kernel_operands copies a bf16 or fp16 view that
-    TMA refuses, and counts the copy, for every kind.  At D = 512 the
-    16-bit forward and dK/dV read through TMA (the split-D wgmma
-    kernels): copied; the 16-bit split-D dQ of csrc/flash_attn_d256.cu
-    reads through strides: no copy.  fp32 at D = 256 reads through
-    strides: no copy; the fp32 split-D forward, dQ and dK/dV read through
-    TMA: copied and counted."""
+    TMA refuses, and counts the copy, for every kind.  At D = 512 so do
+    the 16-bit split-D wgmma forward, dQ and dK/dV.  fp32 at D = 256: the
+    forward (the 3xTF32 split-D kernel) reads through TMA, so its view is
+    copied and counted; the dQ and dK/dV of csrc/flash_attn_d256.cu read
+    through strides: no copy.  The fp32 split-D forward, dQ and dK/dV at
+    D = 512 read through TMA: copied and counted."""
     def refused(d, dtype):
         return torch.randn(2 * 3 * 8 * d + 1).to(dtype)[1:] \
             .view(2, 3, 8, d)
@@ -349,7 +391,7 @@ def test_d256_views_that_tma_refuses_by_kernel():
     for dtype in (torch.bfloat16, torch.float16):
         for d, kind, copied in ((256, "fwd", True), (256, "bwd_dkv", True),
                                 (256, "bwd_dq", True), (512, "fwd", True),
-                                (512, "bwd_dq", False),
+                                (512, "bwd_dq", True),
                                 (512, "bwd_dkv", True)):
             view = refused(d, dtype)
             assert not tattn.tma_accepts(view)
@@ -366,7 +408,7 @@ def test_d256_views_that_tma_refuses_by_kernel():
     for d in (256, 512):
         f32 = torch.randn(2 * 3 * 8 * d + 1)[1:].view(2, 3, 8, d)
         for kind in ("fwd", "bwd_dq", "bwd_dkv"):
-            copied = d == 512
+            copied = d == 512 or kind == "fwd"
             before = tattn.flash_attention.view_copies
             dp, (a,) = tattn.kernel_operands(d, f32, kind=kind)
             assert dp == d and (a is not f32) == copied, (d, kind)
