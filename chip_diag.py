@@ -4,26 +4,28 @@ csrc/flash_attn_bwd.cu with one part of a kernel taken out or changed.
 
     python3 chip_diag.py [VARIANT_PREFIX ...]
 
-Needs one CUDA GPU (Hopper) and nvcc.  For the 16-bit split-D dK/dV
-(`flash_bwd_dkv_split_d_wgmma_kernel`, bf16), the fp32 split-D dQ
-(`flash_bwd_dq_split_d_tf32_kernel`) and the 16-bit split-D dQ
-(`flash_bwd_dq_split_d_wgmma_kernel`, bf16) it builds, one nvcc each and
-all at once, a copy of the source with the kernel's TMA loads after the
-ring's first fill dropped (the stage barriers still complete), with its
-score products dropped, with its second products dropped, or (the 16-bit
-kernels) with all three dropped (timing only: these compute wrong
-results); one with each dQ's chunk held at 128 columns a warpgroup for
-every D (the narrowest the kernel has; right results, the scores
-recomputed in each of n chunks); and one with the 16-bit dQ's stage release taken back to
-one arrival per consumer thread (256 a stage, as in the dK/dV) from one
-per consumer warpgroup (right results).  The builds with right results
-are held against the plain versions (1e-4 fp32, 2e-2 bf16).  It times
-each build's kernels (device ms per call, chip_smoke.device_ms) at
-[8, 4, 512, 512] and [8, 4, 512, 768] on the head-split views, beside
-the unchanged source, in two rounds.  Arguments, if any, keep only the
-variants whose names start with one of them (the unchanged source
-always runs).  One JSON line per build and round, after the card's name
-and power limit.
+Needs one CUDA GPU (Hopper) and nvcc. For the 16-bit split-D dK/dV
+(`flash_bwd_dkv_split_d_wgmma_kernel`, bf16, variants "dkv_"), the fp32
+split-D dQ (`flash_bwd_dq_split_d_tf32_kernel`, "dq_"), the fp32 split-D
+dK/dV (`flash_bwd_dkv_split_d_tf32_kernel`, "tdkv_") and the 16-bit
+split-D dQ (`flash_bwd_dq_split_d_wgmma_kernel`, bf16, "dq16_") it
+builds, one nvcc each and all at once, a copy of the source with the
+kernel's TMA loads after the ring's first fill dropped (the stage
+barriers still complete), with its score products dropped, with its
+second products dropped, or with all three dropped (timing only: these
+compute wrong results); one with each dQ's chunk held at 128 columns a
+warpgroup for every D (the narrowest the kernel has; right results, the
+scores recomputed in each of n chunks); and one with the 16-bit dQ's
+stage release taken back to one arrival per consumer thread (256 a
+stage, as in the dK/dV) from one per consumer warpgroup (right results).
+The builds with right results are held against the plain versions (1e-4
+fp32, 2e-2 bf16). It times each build's kernels (device ms per call,
+chip_smoke.device_ms) at [8, 4, 512, 512] and [8, 4, 512, 768] on the
+head-split views, and the fp32 ones also at [8, 8, 512, 256] (one chunk:
+the fp32 D = 256 dQ and dK/dV run these kernels), beside the unchanged
+source, in two rounds. Arguments, if any, keep only the variants whose
+names start with one of them (the unchanged source always runs). One
+JSON line per build and round, after the card's name and power limit.
 """
 import ctypes
 import json
@@ -37,6 +39,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 DKV = "flash_bwd_dkv_split_d_wgmma_kernel(const"
 DQ = "flash_bwd_dq_split_d_tf32_kernel(const"
+TDKV = "flash_bwd_dkv_split_d_tf32_kernel(const"
 DQ16 = "flash_bwd_dq_split_d_wgmma_kernel(const"
 # variant -> (the kernel it changes, [(text, replacement)] applied to the
 # first occurrence after the kernel's definition)
@@ -70,6 +73,21 @@ VARIANTS = {
         "            mma3(acc[(2 * cs + b) * CT + jj], ahi, alo, bhi, blo);",
         "            if (!n_chunks)\n"
         "              mma3(acc[(2 * cs + b) * CT + jj], ahi, alo, bhi, blo);")]),
+    "tdkv_no_loads": (TDKV, [(
+        "    if (i >= total) return;\n",
+        "    if (i >= total) return;\n    if (i >= L::STAGES) {\n"
+        "      hopper::mbar_arrive(full + i % L::STAGES);\n      return;\n"
+        "    }\n")]),
+    "tdkv_no_score_products": (TDKV, [(
+        "            mma3(part[n], ahi, alo, bhi, blo);",
+        "            if (!n_chunks) mma3(part[n], ahi, alo, bhi, blo);")]),
+    "tdkv_no_second_products": (TDKV, [
+        ("          mma3(dv_acc[cs * CT + jj], phi, plo, bhi, blo);",
+         "          if (!n_chunks)\n"
+         "            mma3(dv_acc[cs * CT + jj], phi, plo, bhi, blo);"),
+        ("          mma3(dk_acc[cs * CT + jj], shi, slo, bhi, blo);",
+         "          if (!n_chunks)\n"
+         "            mma3(dk_acc[cs * CT + jj], shi, slo, bhi, blo);")]),
     "dq_chunk_128": (DQ, [("  if (D % 512 == 0)\n", "  if (false)\n"),
                           ("  if (D % 384 == 0)\n", "  if (false)\n")]),
     "dq16_no_loads": (DQ16, [(
@@ -93,9 +111,9 @@ VARIANTS = {
 }
 # the builds that compute right results: held against the plain versions
 CHECKED = ("dq_chunk_128", "dq16_chunk_128", "dq16_empty_256")
-# the skeletons of the 16-bit split-D kernels: their barriers, exchange,
-# softmax and epilogue alone
-for _k, _m in (("dkv", DKV), ("dq16", DQ16)):
+# the skeletons of the split-D kernels: their barriers, exchange, softmax
+# and epilogue alone
+for _k, _m in (("dkv", DKV), ("dq", DQ), ("tdkv", TDKV), ("dq16", DQ16)):
     VARIANTS[f"{_k}_no_loads_no_products"] = (_m, [
         r for v in ("no_loads", "no_score_products", "no_second_products")
         for r in VARIANTS[f"{_k}_{v}"][1]])
@@ -167,16 +185,20 @@ def run(torch, cs, kernel_build, attn, out_dir):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, refs = {}, {}
-    for d in (512, 768):
-        for dt, kind in ((torch.float32, "dq"), (torch.bfloat16, "dkv"),
-                         (torch.bfloat16, "dq16")):
-            q, k, v, do = (cs.attention_inputs(torch, gen, 8, 4, 512, d, dt,
+    # head dim -> heads of the [8, H, 512, D] views; at D = 256 the 16-bit
+    # dQ and dK/dV are the wgmma256 kernels, not split-D: fp32 only there
+    for d, h in ((256, 8), (512, 4), (768, 4)):
+        for dt, kind in ((torch.float32, "dq"), (torch.float32, "tdkv"),
+                         (torch.bfloat16, "dkv"), (torch.bfloat16, "dq16")):
+            if d == 256 and dt != torch.float32:
+                continue
+            q, k, v, do = (cs.attention_inputs(torch, gen, 8, h, 512, d, dt,
                                                True) for _ in range(4))
             out, lse = attn.flash_attention_cuda(q, k, v)
             dd = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, dd, False)
             key = f"{kind}_d{d}_ms"
-            if kind == "dkv":
+            if kind in ("dkv", "tdkv"):
                 cases[key] = (attn.flash_attention_bwd_dkv_cuda, args)
             else:
                 cases[key] = (attn.flash_attention_bwd_dq_cuda, args)

@@ -11,8 +11,8 @@ Exits non-zero, printing no result line, when any phase fails or no GPU
 is present.  Phases:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu,
-               fused_xent_fwd.cu and flash_attn_d256.cu (with csrc/*.cuh)
+  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu and
+               fused_xent_fwd.cu (with csrc/*.cuh)
                from this checkout, one nvcc process each, all at once
                (ptxas register, spill and warning lines);
   3. kernel  - the flash-attention forward kernel against its plain
@@ -30,9 +30,9 @@ is present.  Phases:
                head-split views (bounds count the real D); head dim 256
                (hidden 2048 over 8 heads) in all three dtypes (bf16 and
                fp16: the wgmma forward, dQ and dK/dV; fp32: the 3xTF32
-               split-D forward, the dQ and dK/dV of
-               csrc/flash_attn_d256.cu), causal both ways and ragged
-               S = 200 in bf16 and fp16, causal Sq > Sk in fp32; head dim
+               split-D forward, dQ and dK/dV at n = 1), causal both ways
+               and ragged S = 200 in bf16 and fp16, causal Sq > Sk and
+               ragged causal S = 200 in fp32; head dim
                512 (hidden 2048 over 4 heads) in all three dtypes and
                causal with Sq > Sk in fp16, and head dim 768 (hidden 3072
                over 4 heads) in fp32 and bf16, causal Sq < Sk and Sq > Sk
@@ -57,16 +57,20 @@ is present.  Phases:
                bandwidth, from the H100 SXM datasheet, for the units the
                kernel uses: in fp32 three TF32 products per multiply over
                the TF32 peak, with fma_bound_ms beside it for fp32
-               FMAs).  At [8, 12, 512, 64] every attention kernel also
-               gets kernel_ms_cold: a 64 MB write before every launch, so
-               L2 (50 MB) holds none of the inputs.
+               FMAs).  At [8, 12, 512, 64] every attention kernel, and at
+               [8, 8, 512, 256] the fp32 ones, also get kernel_ms_cold: a
+               64 MB write before every launch, so L2 (50 MB) holds none
+               of the inputs.
                Then the flash backward kernels (dQ, dK/dV) against
                flash_attention_bwd_dq_plain / _dkv_plain at the same
                cases; library_ms is the whole backward of torch
                scaled_dot_product_attention (autograd.grad after one
                forward), bounds count 6 (dQ) and 8 (dK/dV) x B H pairs D
                FLOPs; a second launch of each gives the same bits (no
-               atomics).  And the fused cross-entropy kernel against
+               atomics); at [8, 8, 512, 256] fp32 the profiler names the
+               device kernels that ran (the 3xTF32 split-D forward, dQ
+               and dK/dV, each counted on launches_tf32_split_d).  And the
+               fused cross-entropy kernel against
                fused_xent_plain at [4096, 30522] in fp32, bf16 and fp16,
                a ragged V = 1000, and rows with a positive and a negative
                ignore_index; library_ms is F.cross_entropy(reduction=
@@ -76,7 +80,9 @@ is present.  Phases:
                launched: forward, dQ and dK/dV equal to the last bit to
                the aligned tensors', 5 copies counted; the same at D = 256
                and at D = 512 with 5 copies (the wgmma and split-D wgmma
-               forward copy q, dQ and dK/dV q and dO);
+               forward copy q, dQ and dK/dV q and dO), and an fp32 view at
+               D = 256 (the 3xTF32 split-D forward, dQ and dK/dV: 5
+               copies);
   4. slice   - the BERT-base encoder (vocab 30522, seq 512, hidden 768,
                12 layers, 12 heads) built with flash on, random weights
                from --seed, saved with save_inference_model and served by
@@ -178,8 +184,9 @@ GRAPH_PROFILED_CALLS = 2
 # (3xTF32 keeps an fp32-level error); bf16 and fp16 a few ulps of the
 # rounded outputs (2^-8 and 2^-11 relative)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
-KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd",
-                  "flash_attn_d256")
+# kernel cases also timed with a cold L2 (kernel_ms_cold)
+COLD_CASES = ("slice_bf16", "slice_fp32", "d256_fp32")
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
 # phase 7: GPT-2 small widths (random weights from --seed), served through
 # the paged pool of GEN_PLAN with the radix prefix cache
 GPT2 = dict(vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
@@ -221,35 +228,27 @@ KERNELS = {
 }
 # the kernels for head dims above 128, by route, kernel and dtype: the
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
-# flash_attn_bwd.cu), the fp32 dQ and dK/dV of csrc/flash_attn_d256.cu at
-# D = 256, and the split-D kernels (the 16-bit wgmma forward, dQ and dK/dV,
-# the fp32 3xTF32 forward, dQ and dK/dV of csrc/flash_attn_fwd.cu,
-# flash_attn_bwd.cu) at D = 512 and 768 (named with the suffix _d768) and
-# the fp32 split-D forward at D = 256 (suffix _d256), each with the kernel
-# case whose times it reports
+# flash_attn_bwd.cu), and the split-D kernels of the same files (the
+# 16-bit wgmma forward, dQ and dK/dV, the fp32 3xTF32 forward, dQ and
+# dK/dV) at D = 512 and 768 (named with the suffix _d768) and the fp32
+# ones at D = 256 (suffix _d256), each with the kernel case whose times
+# it reports
 _TPU_LINE = {"fwd": 125, "bwd_dq": 240, "bwd_dkv": 281}
+_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
 WIDE_KERNELS = []  # (summary name, route, kernel, kernel case)
-for _route, _kinds, _dts, _src, _case in (
-        ("wgmma256", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16", "fp16"), None,
-         "d256"),
-        ("d256", ("bwd_dq", "bwd_dkv"), ("fp32",), "flash_attn_d256",
-         "d256"),
-        ("tf32_split_d", ("fwd",), ("fp32",), None, "d256"),
-        ("wgmma_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16", "fp16"),
-         None, "d512"),
-        ("wgmma_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("bf16",), None,
-         "d768"),
-        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
-         "d512"),
-        ("tf32_split_d", ("fwd", "bwd_dq", "bwd_dkv"), ("fp32",), None,
-         "d768")):
-    for _kind in _kinds:
+for _route, _dts, _case in (
+        ("wgmma256", ("bf16", "fp16"), "d256"),
+        ("tf32_split_d", ("fp32",), "d256"),
+        ("wgmma_split_d", ("bf16", "fp16"), "d512"),
+        ("wgmma_split_d", ("bf16",), "d768"),
+        ("tf32_split_d", ("fp32",), "d512"),
+        ("tf32_split_d", ("fp32",), "d768")):
+    for _kind in _KINDS:
         for _dt in _dts:
             _name = f"flash_attn_{_route}_{_kind}_{_dt}" + \
                 (f"_{_case}" if "split_d" in _route and _case != "d512"
                  else "")
-            _file = _src or ("flash_attn_fwd" if _kind == "fwd" else
-                             "flash_attn_bwd")
+            _file = "flash_attn_fwd" if _kind == "fwd" else "flash_attn_bwd"
             KERNELS[_name] = (f"paddle_tpu_torch/csrc/{_file}.cu",
                               f"paddle_tpu/ops/attention.py:"
                               f"{_TPU_LINE[_kind]}")
@@ -408,12 +407,14 @@ def attention_cases(torch):
         ("pad_d48_fp32", 8, 16, 512, 512, 48, torch.float32, False, True),
         ("pad_d48_bf16", 8, 16, 512, 512, 48, torch.bfloat16, False, True),
         # head dim 256 (hidden 2048 over 8 heads): the 16-bit wgmma
-        # forward, dQ and dK/dV; in fp32 the 3xTF32 split-D forward and the
-        # dQ and dK/dV of csrc/flash_attn_d256.cu; causal both ways and
-        # ragged in 16 bits, causal Sq > Sk in fp32
+        # forward, dQ and dK/dV; in fp32 the 3xTF32 split-D forward, dQ
+        # and dK/dV at n = 1; causal both ways and ragged in 16 bits,
+        # causal Sq > Sk and ragged causal in fp32
         ("d256_fp32", 8, 8, 512, 512, 256, torch.float32, False, True),
         ("d256_causal_sq_gt_sk_fp32", 2, 8, 512, 384, 256, torch.float32,
          True, False),
+        ("d256_ragged_s200_causal_fp32", 2, 8, 200, 200, 256,
+         torch.float32, True, False),
         ("d256_bf16", 8, 8, 512, 512, 256, torch.bfloat16, False, True),
         ("d256_fp16", 8, 8, 512, 512, 256, torch.float16, False, True),
         ("d256_causal_sq_lt_sk_bf16", 2, 8, 384, 512, 256, torch.bfloat16,
@@ -507,7 +508,7 @@ def kernel_phase(torch, attn):
                    bound_ms=bound_ms, bound_by=bound_by)
         if fma_bound_ms is not None:
             row["fma_bound_ms"] = fma_bound_ms
-        if name in ("slice_bf16", "slice_fp32"):
+        if name in COLD_CASES:
             row["kernel_ms_cold"] = device_ms(torch, kern, 10,
                                               flush=l2_flush(torch))
         log(row)
@@ -579,7 +580,7 @@ def bwd_kernel_phase(torch, attn):
                        bound_by=bounds[kern][1])
             if bounds[kern][2] is not None:
                 row["fma_bound_ms"] = bounds[kern][2]
-            if name in ("slice_bf16", "slice_fp32"):
+            if name in COLD_CASES:
                 row["kernel_ms_cold"] = device_ms(
                     torch, lambda: cuda_fn(*args), 10, flush=l2_flush(torch))
             log(dict(phase="kernel_bwd", **row))
@@ -641,26 +642,58 @@ def xent_kernel_phase(torch, fx):
     return results
 
 
+def device_names_phase(torch, attn):
+    """The fp32 forward, dQ and dK/dV at [8, 8, 512, 256] under
+    torch.profiler: each runs its 3xTF32 split-D device kernel (named in
+    WIDE_DEVICE_NAMES), counted on its wrapper's launches_tf32_split_d,
+    and no other kernel of the routes for head dims above 128 ran."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (attention_inputs(torch, gen, 8, 8, 512, 256,
+                                    torch.float32, True) for _ in range(4))
+    zero_wide(attn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, lse = attn.flash_attention_cuda(q, k, v)
+        dd = (do * out).sum(-1)
+        attn.flash_attention_bwd_dq_cuda(q, k, v, do, lse, dd)
+        attn.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, dd)
+        torch.cuda.synchronize()
+    counted = read_wide(attn)
+    seen = count_kernels(prof, WIDE_DEVICE_NAMES)[0]
+    want = {f"tf32_split_d/{kind}": 1 for kind in _KINDS}
+    for name, got in (("launch counts", counted), ("profiler", seen)):
+        if {key: n for key, n in got.items() if n} != want:
+            raise AssertionError(f"fp32 D = 256: {name} {got}, expected "
+                                 f"{want}")
+    log({"phase": "kernel_device_names", "shape": [8, 8, 512, 256],
+         "dtype": "float32", "device_kernels": seen,
+         "launch_counts": counted})
+
+
 def view_copy_phase(torch, attn):
-    """A bf16 view that TMA refuses (4 bytes past a 16-byte boundary) is
+    """A view that TMA refuses (4 bytes past a 16-byte boundary) is
     copied to a contiguous tensor where a kernel reads it through TMA and
     then launched: the forward, dQ and dK/dV on the shifted q and dO give
     the bits of the aligned tensors, and flash_attention.view_copies
-    counts the copies: 5 at D = 64, 256 and 512 (q in each of the three
-    launches, dO in the dQ and the dK/dV)."""
+    counts the copies: 5 in bf16 at D = 64, 256 and 512 and in fp32 at
+    D = 256 (q in each of the three launches, dO in the dQ and the
+    dK/dV)."""
     gen = torch.Generator(device="cuda").manual_seed(77)
 
-    def shifted(t):  # t's values in a view 2 elements past 16 bytes
-        flat = torch.empty(t.numel() + 2, dtype=t.dtype, device="cuda")
-        view = flat[2:].view(t.shape)
+    def shifted(t):  # t's values in a view 4 bytes past 16 bytes
+        pad = 4 // t.element_size()
+        flat = torch.empty(t.numel() + pad, dtype=t.dtype, device="cuda")
+        view = flat[pad:].view(t.shape)
         view.copy_(t)
         return view
 
-    for (b, h, s, d), want_copies in (((2, 12, 512, 64), 5),
-                                      ((2, 8, 512, 256), 5),
-                                      ((2, 4, 512, 512), 5)):
-        q, k, v, do = (attention_inputs(torch, gen, b, h, s, d,
-                                        torch.bfloat16, False)
+    for (b, h, s, d), dt, want_copies in (
+            ((2, 12, 512, 64), torch.bfloat16, 5),
+            ((2, 8, 512, 256), torch.bfloat16, 5),
+            ((2, 4, 512, 512), torch.bfloat16, 5),
+            ((2, 8, 512, 256), torch.float32, 5)):
+        q, k, v, do = (attention_inputs(torch, gen, b, h, s, d, dt, False)
                        for _ in range(4))
         sq, sdo = shifted(q), shifted(do)
         if sq.data_ptr() % 16 != 4 or attn.tma_accepts(sq):
@@ -683,7 +716,7 @@ def view_copy_phase(torch, attn):
                 raise AssertionError(f"D = {d}: {tag} of the copied view "
                                      "differs")
         log({"phase": "kernel_view_copy", "shape": [b, h, s, d],
-             "dtype": "bfloat16", "offset_bytes": sq.data_ptr() % 16,
+             "dtype": dtype_name(dt), "offset_bytes": sq.data_ptr() % 16,
              "view_copies": copies, "bitwise_equal_to_aligned": True})
 
 
@@ -1384,14 +1417,14 @@ def train_profile(torch, exe, main, feed, loss, config):
              key=lambda r: -r[2])[:12]})
 
 # launches of the kernels for head dims above 128 on each main path, by
-# "route/kernel" (routes wgmma256, d256, wgmma_split_d, tf32_split_d of
+# "route/kernel" (routes wgmma256, wgmma_split_d, tf32_split_d of
 # ops.attention), from the wrappers' launch counts of those routes: set
 # to 0 just before the path and read just after; the graph-replayed steps
 # add the profiler's count
-WIDE_ROUTES = ("wgmma256", "d256", "wgmma_split_d", "tf32_split_d")
+WIDE_ROUTES = ("wgmma256", "wgmma_split_d", "tf32_split_d")
 WIDE_LAUNCHES = {}
 # "route/kernel" -> the substring of its device name, for the profiler
-# (every route/kernel pair has a kernel of its own; d256/fwd has none)
+# (every route/kernel pair has a kernel of its own)
 WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
                      "wgmma256/bwd_dq": "flash_bwd_dq_wgmma_kernel<256",
                      "wgmma256/bwd_dkv": "flash_bwd_dkv_wgmma_kernel<256",
@@ -1403,9 +1436,7 @@ WIDE_DEVICE_NAMES = {"wgmma256/fwd": "flash_fwd_wgmma_kernel<256",
                      "tf32_split_d/fwd": "flash_fwd_split_d_tf32_kernel",
                      "tf32_split_d/bwd_dq": "flash_bwd_dq_split_d_tf32_kernel",
                      "tf32_split_d/bwd_dkv":
-                         "flash_bwd_dkv_split_d_tf32_kernel",
-                     "d256/bwd_dq": "flash_bwd_dq_d256",
-                     "d256/bwd_dkv": "flash_bwd_dkv_d256"}
+                         "flash_bwd_dkv_split_d_tf32_kernel"}
 
 
 def wide_wrappers(attn):
@@ -1718,8 +1749,12 @@ def main():
             ("flash_bwd_dq_wgmma_split_d_bf16", bwd["d512_bf16"]["dq"]),
             ("flash_bwd_dq_wgmma_split_d_fp16", bwd["d512_fp16"]["dq"]),
             ("flash_bwd_dq_wgmma_split_d_bf16_d768", bwd["d768_bf16"]["dq"]),
-            ("flash_fwd_tf32_split_d_fp32_d256", fwd["d256_fp32"]))}})
+            ("flash_fwd_tf32_split_d_fp32_d256", fwd["d256_fp32"]),
+            ("flash_bwd_dq_tf32_split_d_fp32_d256", bwd["d256_fp32"]["dq"]),
+            ("flash_bwd_dkv_tf32_split_d_fp32_d256",
+             bwd["d256_fp32"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
+    device_names_phase(torch, attn)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -240,10 +240,10 @@
 //     keys past Sk are computed on zero-filled k and v and not stored.
 //   Each output element is summed by one thread in a fixed order: no
 //   atomics, bitwise reproducible.
-//   dK/dV at D = 256 n, n >= 2 (the split-D route; 257-511 zero-padded to
-//   512 by the wrapper): `flash_bwd_dkv_split_d_tf32_kernel`.  Resident K
-//   and V tiles would be 2 x 64 n KB, and a warp holding dK and dV for 16
-//   keys x 256 columns would need 256 accumulator registers, so:
+//   dK/dV at D = 256 n, n >= 1 (the split-D route; 129-255 zero-padded to
+//   256, 257-511 to 512 by the wrapper): `flash_bwd_dkv_split_d_tf32_kernel`.
+//   Resident K and V tiles would be 2 x 64 n KB, and a warp holding dK and
+//   dV for 16 keys x 256 columns would need 256 accumulator registers, so:
 //   * a CTA of two warpgroups owns 64 keys and one 256-column chunk of dK
 //     and dV (folded into blockIdx.x); warpgroup w owns the chunk's
 //     columns 128 w .. + 127 of both, 128 accumulator registers a thread;
@@ -253,7 +253,8 @@
 //     its fragments in 32 KB of shared slots for the other.  Computing
 //     both in each warpgroup (the column split of the 16-bit D = 256
 //     kernel) would be 2.5x the tensor work at n = 2; the role split is
-//     1.5x (the scores recomputed per chunk);
+//     1.5x (the scores recomputed per chunk), and 1x at n = 1 (one chunk:
+//     8 score steps and 4 second-product steps a q tile);
 //   * one stream of steps through a 6-stage ring that TMA fills (32 KB a
 //     stage, 230,448 B in all with the slots, the barriers and the
 //     alignment slack, whatever n): per q tile of 64 rows, the 8n score
@@ -281,15 +282,17 @@
 //     view first, as in bf16.
 //   Bound at [8, 4, 512, 512]: 34.4 GFLOP of real work in 3xTF32 take
 //   0.208 ms (0.312 with the recomputed scores), 168 MB take 0.050 ms;
-//   the grid is 8 x 2 x 4 x 8 = 512 CTAs, one per SM.
-//   dQ at D = 256 n, n >= 2: `flash_bwd_dq_split_d_tf32_kernel<W>`, the
+//   the grid is 8 x 2 x 4 x 8 = 512 CTAs, one per SM.  At [8, 8, 512, 256]
+//   the same 34.4 GFLOP over 8 x 8 x 8 = 512 CTAs of one chunk each.
+//   dQ at D = 256 n, n >= 1: `flash_bwd_dq_split_d_tf32_kernel<W>`, the
 //   split-D dK/dV turned around (rows are queries, the loop runs over key
 //   tiles of 64):
 //   * a CTA of two warpgroups owns 64 query rows and one chunk of 2 C
 //     columns of dQ, C = 32 W columns a warpgroup (16 rows x C a warp:
 //     C / 2 registers a thread).  C is 256 where n is even, 192 where 3
-//     divides n, else 128: at D = 512 one CTA computes the scores once for
-//     all of dQ, at D = 768 two chunks compute them twice.  On an H100 the
+//     divides n, else 128: at D = 256 and 512 one CTA computes the scores
+//     once for all of dQ, at D = 768 two chunks compute them twice.  On an
+//     H100 the
 //     128-column chunk everywhere took 1.62x as long at D = 512 and 1.40x
 //     at D = 768 (PERF.md);
 //   * warpgroup 0 computes S = q k^T and P, warpgroup 1 dP = dO v^T and
@@ -305,7 +308,8 @@
 //     diagonal get P = 0; key tiles wholly above it are skipped; the ring,
 //     its barriers and its 230,448 B are those of the dK/dV.
 //   Bound at [8, 4, 512, 512]: 25.8 GFLOP in 3xTF32 take 0.156 ms; the
-//   grid is 8 x 4 x 8 = 256 CTAs.
+//   grid is 8 x 4 x 8 = 256 CTAs (8 x 8 x 8 = 512 at [8, 8, 512, 256], the
+//   same work).
 //
 // Built by paddle_tpu_torch/core/kernel_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -825,7 +829,7 @@ cudaError_t dkv_dispatch(int D, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV at D = 256 n, n >= 2: the split-D dK/dV.  A CTA of two warpgroups
+// dK/dV at D = 256 n, n >= 1: the split-D dK/dV.  A CTA of two warpgroups
 // owns 64 keys and one 256-column chunk of dK and dV; warpgroup w owns the
 // chunk's columns 128 w .. 128 w + 127 (16 keys x 128 columns of dK and of
 // dV per warp: 128 registers a thread).  The score products split by role:
@@ -1139,7 +1143,7 @@ cudaError_t launch_dkv_split_d(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// dQ at D = 256 n, n >= 2: the split-D dQ, the split-D dK/dV turned
+// dQ at D = 256 n, n >= 1: the split-D dQ, the split-D dK/dV turned
 // around (rows are queries, the loop runs over key tiles).  A CTA of two
 // warpgroups owns 64 query rows and one chunk of 2 C columns of dQ;
 // warpgroup w owns the chunk's columns C w .. C w + C - 1 (16 rows x C
@@ -1415,7 +1419,8 @@ cudaError_t launch_dq_split_d_w(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // D = 256 n: each warpgroup owns C = 256 columns where n is even (one CTA
 // a q tile at D = 512: the scores are computed once), 192 where n is a
-// multiple of 3 (two chunks at D = 768), else 128 (n chunks)
+// multiple of 3 (two chunks at D = 768), else 128 (n chunks; one at
+// D = 256)
 cudaError_t launch_dq_split_d(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* dd, void* dq, int B, int H, int Sq,
@@ -2790,13 +2795,13 @@ Strides make_strides(long long q_sb, long long q_sh, long long q_ss,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; D is 32, 64, 128 (every
-// dtype), 256 (bf16 and fp16) or any multiple of 256 above it (the split-D
-// kernels: the fp32 dQ and dK/dV on 3xTF32, the bf16 and fp16 dQ and dK/dV
-// on wgmma); the rest (the fp32 dQ and dK/dV at 256) runs
-// csrc/flash_attn_d256.cu.  Strides (in elements) of q, k, v and dO:
-// batch, head, sequence; the head dim must be contiguous (bf16 and fp16,
-// and fp32 above 256: the base addresses 16-byte aligned and the byte
-// strides multiples of 16, as TMA needs).  lse and D are contiguous fp32 [B, H, Sq]; dq
+// dtype) or a multiple of 256: the fp32 dQ and dK/dV there run the 3xTF32
+// split-D kernels (D = 256 n, n >= 1), the bf16 and fp16 ones the wgmma
+// kernels at D = 256 and the split-D wgmma kernels above it; any other D
+// returns cudaErrorInvalidValue and launches nothing.  Strides (in
+// elements) of q, k, v and dO: batch, head, sequence; the head dim must be
+// contiguous (bf16 and fp16, and fp32 from 256 up: the base addresses
+// 16-byte aligned and the byte strides multiples of 16, as TMA needs).  lse and D are contiguous fp32 [B, H, Sq]; dq
 // [B, H, Sq, D] (and dk, dv [B, H, Sk, D]) are written contiguous in the
 // input dtype.  Each returns
 // the CUDA error code of its launch (0 on success); the kernels are
@@ -2813,7 +2818,7 @@ int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0 && D > 256 && D % 256 == 0)
+  if (dtype == 0 && D >= 256 && D % 256 == 0)
     err = tf32::launch_dq_split_d(q, k, v, dout, lse, dd, dq, B, H, Sq, Sk,
                                   D, st, causal, scale, s);
   else if (dtype == 0)
@@ -2850,7 +2855,7 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   v_sh, v_ss, o_sb, o_sh, o_ss);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0 && D > 256 && D % tf32::SplitDkv::CHUNK == 0)
+  if (dtype == 0 && D >= 256 && D % tf32::SplitDkv::CHUNK == 0)
     err = tf32::launch_dkv_split_d(q, k, v, dout, lse, dd, dk, dv, B, H, Sq,
                                    Sk, D, st, causal, scale, s);
   else if (dtype == 0)

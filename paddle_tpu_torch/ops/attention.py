@@ -39,11 +39,11 @@ Which kernel runs, by dtype (dispatched inside each C entry):
     two TF32 halves and each product taken as hi*hi + hi*lo + lo*hi,
     accumulated in fp32: fp32-level error, not TF32's three digits).
     They take any strided fp32 view with a contiguous head dim (the
-    split-D forward, dQ and dK/dV read through TMA: a view it refuses is
-    copied first).
+    split-D forward, dQ and dK/dV, from head dim 256 up, read through TMA:
+    a view it refuses is copied first).
 
 The kernels have instances for head dims 32, 64, 128 and 256, and a
-split-D route for every multiple of 256 above it (the fp32 forward's from
+split-D route for every multiple of 256 above it (the fp32 kernels' from
 256 up).  Any other head dim is zero-padded up to the next of them (q, k,
 v and dO along D; the scale stays 1/sqrt(real D)): up to 128 the next
 instance, 129-255 to 256, above 256 the next multiple of 256 (320 ->
@@ -55,15 +55,13 @@ dim and the dtype select the kernel, each counted on its wrapper:
   * D <= 128: csrc/flash_attn_fwd.cu / flash_attn_bwd.cu (`launches`);
   * D = 256, bf16 and fp16: the same wgmma forward, dQ and dK/dV at
     D = 256 (`launches_wgmma256`);
-  * D = 256, the fp32 dQ and dK/dV: csrc/flash_attn_d256.cu, fp32 FMAs
-    from shared memory, strided views taken as they are (`launches_d256`);
   * D = 256 n, n >= 2, the bf16 and fp16 forward, dQ and dK/dV: the
     split-D wgmma kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
     (`flash_fwd_split_d_wgmma_kernel`, `flash_bwd_dq_split_d_wgmma_kernel`,
     `flash_bwd_dkv_split_d_wgmma_kernel`), a CTA per chunk of the output
     (256 columns; dQ up to 512), the operands streamed as 64-column boxes
     through a TMA ring (`launches_wgmma_split_d`);
-  * D = 256 n, the fp32 forward (n >= 1), dQ and dK/dV (n >= 2): 3xTF32
+  * D = 256 n, n >= 1, the fp32 forward, dQ and dK/dV: 3xTF32
     `mma.sync` kernels of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu
     (`flash_fwd_split_d_tf32_kernel`, `flash_bwd_dq_split_d_tf32_kernel`,
     `flash_bwd_dkv_split_d_tf32_kernel`), a CTA per chunk of the output
@@ -71,8 +69,8 @@ dim and the dtype select the kernel, each counted on its wrapper:
     through a TMA ring; an fp32 view TMA refuses is copied first, as in 16
     bits (`launches_tf32_split_d`).
     The split-D routes recompute the scores over all of D in each chunk's
-    CTA, so the score work is n times its share (the dQ at D = 512
-    computes them once).
+    CTA, so the score work is n times its share (the fp32 kernels at
+    D = 256 and the dQ at D = 512 compute them once).
 
 Fully-masked rows (causal with Sq > Sk leaves the first Sq - Sk queries
 no visible key) output ZERO on both flash paths, like the TPU flash
@@ -247,17 +245,14 @@ def _route(kind, dp, dtype):
     """Which kernel runs `kind` ("fwd", "bwd_dq" or "bwd_dkv") at kernel
     head dim dp in `dtype`: "le128" (csrc/flash_attn_fwd.cu /
     flash_attn_bwd.cu), "wgmma256" (the same files' 16-bit wgmma kernels
-    at D = 256), "d256" (csrc/flash_attn_d256.cu: the fp32 dQ and dK/dV
     at D = 256), "wgmma_split_d" (the 16-bit split-D wgmma forward, dQ and
-    dK/dV of csrc/flash_attn_fwd.cu / flash_attn_bwd.cu at D = 256 n,
-    n >= 2) or "tf32_split_d" (the fp32 3xTF32 split-D forward at
-    D = 256 n, n >= 1, and dQ and dK/dV at n >= 2, of the same files)."""
+    dK/dV of the same files at D = 256 n, n >= 2) or "tf32_split_d" (the
+    fp32 3xTF32 split-D forward, dQ and dK/dV of the same files at
+    D = 256 n, n >= 1)."""
     if dp < _D256:
         return "le128"
     if dtype in _TMA_DTYPES:
         return "wgmma256" if dp == _D256 else "wgmma_split_d"
-    if dp == _D256 and kind != "fwd":
-        return "d256"
     return "tf32_split_d"
 
 
@@ -266,10 +261,9 @@ def kernel_operands(d, *tensors, kind="fwd"):
     along D up to kernel_head_dim(d) (a new contiguous tensor), and a
     view that TMA refuses copied to a contiguous tensor (counted in
     flash_attention.view_copies) where that kernel reads through TMA (the
-    16-bit kernels, and the fp32 split-D forward, dQ and dK/dV; the other
-    fp32 kernels and those of csrc/flash_attn_d256.cu read through strides
-    and take any view).  Returns the kernel's head
-    dim and the tensors."""
+    16-bit kernels, and the fp32 split-D forward, dQ and dK/dV from head
+    dim 256 up; the fp32 kernels up to 128 read through strides and take
+    any view).  Returns the kernel's head dim and the tensors."""
     dp = kernel_head_dim(d)
     out = []
     for t in tensors:
@@ -298,31 +292,10 @@ def _kernel_lib():
     return lib
 
 
-def _d256_kernel_lib():
-    """csrc/flash_attn_d256.cu: the fp32 dQ and dK/dV at D = 256, with
-    the argument lists of the flash_attn_bwd.cu entries."""
-    from ..core.kernel_build import load_library
-    lib = load_library("flash_attn_d256")
-    if not getattr(lib, "_argtypes_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tail = [i] * 6 + [ll] * 12 + [i, ctypes.c_float, p]
-        lib.flash_attn_d256_bwd_dq.argtypes = [p] * 7 + tail
-        lib.flash_attn_d256_bwd_dkv.argtypes = [p] * 8 + tail
-        for fn in ("flash_attn_d256_bwd_dq", "flash_attn_d256_bwd_dkv"):
-            getattr(lib, fn).restype = i
-        lib.flash_attn_d256_error_string.argtypes = [i]
-        lib.flash_attn_d256_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
-
-
-# backward kernel -> (its C entry in flash_attn_bwd.cu, its C entry in
-# flash_attn_d256.cu)
-_ENTRIES = {"bwd_dq": ("flash_attn_bwd_dq", "flash_attn_d256_bwd_dq"),
-            "bwd_dkv": ("flash_attn_bwd_dkv", "flash_attn_d256_bwd_dkv")}
+# backward kernel -> its C entry in flash_attn_bwd.cu
+_ENTRIES = {"bwd_dq": "flash_attn_bwd_dq", "bwd_dkv": "flash_attn_bwd_dkv"}
 # route (see _route) -> the wrapper's launch count
 LAUNCH_COUNTS = {"le128": "launches", "wgmma256": "launches_wgmma256",
-                 "d256": "launches_d256",
                  "wgmma_split_d": "launches_wgmma_split_d",
                  "tf32_split_d": "launches_tf32_split_d"}
 
@@ -331,18 +304,13 @@ def _kernel_entry(kind, dp, dtype):
     """The C entry of kernel `kind` ("fwd", "bwd_dq" or "bwd_dkv") at the
     kernel head dim dp in `dtype`, its library's error-string function and
     the name of the wrapper's launch count (LAUNCH_COUNTS[_route])."""
-    route = _route(kind, dp, dtype)
-    if route == "d256":
-        lib = _d256_kernel_lib()
-        return (getattr(lib, _ENTRIES[kind][1]),
-                lib.flash_attn_d256_error_string, LAUNCH_COUNTS[route])
+    count = LAUNCH_COUNTS[_route(kind, dp, dtype)]
     if kind == "fwd":
         lib = _kernel_lib()
-        return (lib.flash_attn_fwd, lib.flash_attn_error_string,
-                LAUNCH_COUNTS[route])
+        return lib.flash_attn_fwd, lib.flash_attn_error_string, count
     lib = _bwd_kernel_lib()
-    return (getattr(lib, _ENTRIES[kind][0]), lib.flash_attn_bwd_error_string,
-            LAUNCH_COUNTS[route])
+    return (getattr(lib, _ENTRIES[kind]), lib.flash_attn_bwd_error_string,
+            count)
 
 
 def _launch(wrapper, kind, dp, dtype, device, *args):

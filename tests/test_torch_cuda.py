@@ -5,9 +5,8 @@ kernels, in fp32 the 3xTF32 kernels: the cases cover D = 32, 64, 128 and
 the zero-padded D = 48, 96, ragged S, causal Sq != Sk, the strided
 head-split views, fp32 views 4 bytes past a 16-byte boundary and 16-bit
 views that TMA refuses, which are copied; head dims 129-256 on the
-16-bit wgmma forward, dQ and dK/dV at D = 256, the fp32 3xTF32 split-D
-forward and the fp32 dQ and dK/dV of csrc/flash_attn_d256.cu, head dims
-above 256 on the 16-bit split-D wgmma forward, dQ and dK/dV and the fp32
+16-bit wgmma forward, dQ and dK/dV at D = 256, head dims above 256 on
+the 16-bit split-D wgmma forward, dQ and dK/dV, and from 256 up the fp32
 3xTF32 split-D forward, dQ and dK/dV), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 and `Executor.run_steps` (CUDA-graph replay of the step) against eager
@@ -421,38 +420,63 @@ def test_16bit_split_d_dq_is_deterministic(dtype):
         assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
-def test_d256_entries_refuse_what_the_tensor_cores_run():
-    """csrc/flash_attn_d256.cu keeps only the fp32 dQ and dK/dV at
-    D = 256: it has no forward entry (the fp32 D = 256 forward is the
-    3xTF32 split-D kernel of flash_attn_fwd.cu), and its dQ and dK/dV
-    entries return cudaErrorInvalidValue (1) for the 16-bit dQ and dK/dV at
-    D = 256 and above and for fp32 above 256, launching nothing."""
+def test_fp32_bwd_entries_take_d256_refuse_d384():
+    """The fp32 dQ and dK/dV C entries of csrc/flash_attn_bwd.cu run the
+    3xTF32 split-D kernels at D = 256 (one chunk) and return
+    cudaErrorInvalidValue (1) for fp32 D = 384, which is not a multiple of
+    256 (the wrapper pads it to 512), launching nothing."""
     _need_cuda()
-    lib = tattn._d256_kernel_lib()
-    assert not hasattr(lib, "flash_attn_d256_fwd")
-    fn, _, count = tattn._kernel_entry("fwd", 256, torch.float32)
-    assert fn.__name__ == "flash_attn_fwd" and \
-        count == "launches_tf32_split_d"
+    lib = tattn._bwd_kernel_lib()
     g = torch.Generator(device="cuda").manual_seed(13)
     stream = torch.cuda.current_stream().cuda_stream
-    for dtype, d in ((torch.bfloat16, 512), (torch.float16, 768),
-                     (torch.bfloat16, 256), (torch.float16, 256),
-                     (torch.float32, 512)):
-        q, k, v, do = (_bhsd(g, 1, 2, 64, d, dtype, False)
+    for d, want in ((256, 0), (384, 1)):
+        q, k, v, do = (_bhsd(g, 1, 2, 64, d, torch.float32, False)
                        for _ in range(4))
-        lse = torch.zeros(1, 2, 64, device="cuda")
-        dd = torch.zeros_like(lse)
+        out, lse = tattn.flash_attention_plain(q, k, v)
+        dd = (do * out).sum(-1)
         dq, dk, dv = (torch.full_like(q, 7.0) for _ in range(3))
         strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
-        tail = (tattn._DTYPE_CODE[dtype], 1, 2, 64, 64, d, *strides, 0,
-                0.125, stream)
+        tail = (tattn._DTYPE_CODE[torch.float32], 1, 2, 64, 64, d, *strides,
+                0, 1.0 / d ** 0.5, stream)
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), dd.data_ptr())
-        assert lib.flash_attn_d256_bwd_dq(*ins, dq.data_ptr(), *tail) == 1
-        assert lib.flash_attn_d256_bwd_dkv(*ins, dk.data_ptr(),
-                                           dv.data_ptr(), *tail) == 1
+        assert lib.flash_attn_bwd_dq(*ins, dq.data_ptr(), *tail) == want
+        assert lib.flash_attn_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                      *tail) == want
         torch.cuda.synchronize()
-        assert all(torch.all(t == 7.0) for t in (dq, dk, dv)), (dtype, d)
+        if want:
+            assert all(torch.all(t == 7.0) for t in (dq, dk, dv)), d
+            continue
+        args = (q, k, v, do, lse, dd, False)
+        ref_dk, ref_dv = tattn.flash_attention_bwd_dkv_plain(*args)
+        for got, ref in ((dq, tattn.flash_attention_bwd_dq_plain(*args)),
+                         (dk, ref_dk), (dv, ref_dv)):
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_fp32_split_d_bwd_d256_is_deterministic():
+    """No atomics in the 3xTF32 split-D dQ and dK/dV at D = 256 (one chunk
+    each): two launches, causal, on head-split views, give the same bits,
+    each counted on `launches_tf32_split_d`."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v, do = (_bhsd(g, 2, 2, s, 256, torch.float32, True)
+                   for s in (384, 320, 320, 384))
+    out, lse = tattn.flash_attention_cuda(q, k, v, causal=True)
+    dd = (do * out).sum(-1)
+    args = (q, k, v, do, lse, dd, True)
+    wrappers = (tattn.flash_attention_bwd_dq_cuda,
+                tattn.flash_attention_bwd_dkv_cuda)
+    before = [f.launches_tf32_split_d for f in wrappers]
+    first = (tattn.flash_attention_bwd_dq_cuda(*args),
+             *tattn.flash_attention_bwd_dkv_cuda(*args))
+    second = (tattn.flash_attention_bwd_dq_cuda(*args),
+              *tattn.flash_attention_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    assert [f.launches_tf32_split_d for f in wrappers] == \
+        [n + 2 for n in before]
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("t,v,dtype,ignore", [
@@ -769,11 +793,12 @@ _BF16, _FP16 = torch.bfloat16, torch.float16
     (1, 1, 130, 100, 1000, torch.float32, True, True),
     (1, 2, 200, 200, 320, _FP16, True, True),
     (1, 1, 100, 130, 1000, _BF16, True, False),
-    # the fp32 D = 256 forward on the 3xTF32 split-D kernel: causal
-    # Sq > Sk, and q, k, v and dO 4 bytes past a 16-byte boundary (the
-    # forward copies q, k and v; the dQ and dK/dV of
-    # csrc/flash_attn_d256.cu read through strides)
+    # the fp32 D = 256 forward, dQ and dK/dV on the 3xTF32 split-D
+    # kernels at n = 1: causal Sq > Sk, ragged causal S = 200 on
+    # head-split views, and q, k, v and dO 4 bytes past a 16-byte boundary
+    # (copied by all three: TMA refuses them; D = 200 is padded instead)
     (1, 2, 160, 96, 256, torch.float32, True, False),
+    (1, 2, 200, 200, 256, torch.float32, True, True),
     (1, 2, 130, 70, 256, torch.float32, False, "offset"),
     (1, 2, 96, 160, 200, torch.float32, True, "offset"),
     # the 16-bit split-D dQ: D = 1000 (padded to 1024: two 512-column
@@ -788,19 +813,16 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
                                            strided):
     """Head dims above 128.  D = 256 (and 160, 200 zero-padded to it): in
     bf16 and fp16 the forward, dQ and dK/dV are the wgmma kernels at
-    D = 256 (counted in `launches_wgmma256`); in fp32 the forward is the
-    3xTF32 split-D kernel at n = 1 (`launches_tf32_split_d`), the dQ and
-    dK/dV the csrc/flash_attn_d256.cu kernels (`launches_d256`).
-    D = 256 n, n >= 2 (and 320 padded to 512, 1000 to 1024): the 16-bit
-    forward, dQ and dK/dV are the split-D wgmma kernels
-    (`launches_wgmma_split_d`), the fp32 ones the 3xTF32 split-D kernels
+    D = 256 (counted in `launches_wgmma256`).  D = 256 n, n >= 2 (and 320
+    padded to 512, 1000 to 1024): the 16-bit forward, dQ and dK/dV are the
+    split-D wgmma kernels (`launches_wgmma_split_d`).  D = 256 n, n >= 1:
+    the fp32 forward, dQ and dK/dV are the 3xTF32 split-D kernels
     (`launches_tf32_split_d`).  Each launch is counted once, on its own
     route.  A view TMA refuses is copied where a wgmma kernel reads it (q
     in the forward, q and dO in dQ and in dK/dV: 5 copies in 16 bits) and
     where a 3xTF32 split-D kernel reads it ("offset": q, k, v and dO 4
     bytes past a 16-byte boundary; the forward copies q, k and v, the dQ
-    and dK/dV q, k, v and dO: 3 copies at D = 256, 3 + 4 + 4 above),
-    not for the kernels that read through strides.  The forward, dQ and
+    and dK/dV q, k, v and dO: 3 + 4 + 4 copies).  The forward, dQ and
     dK/dV against their plain versions at TOL (the D <= 128 kernels'
     tolerances, for the same reasons)."""
     _need_cuda()
@@ -817,12 +839,10 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     wide16 = dtype != torch.float32
     if dp > 256 and wide16:
         want = ("launches_wgmma_split_d",) * 3
-    elif dp > 256:
-        want = ("launches_tf32_split_d",) * 3
     elif wide16:
         want = ("launches_wgmma256",) * 3
     else:
-        want = ("launches_tf32_split_d", "launches_d256", "launches_d256")
+        want = ("launches_tf32_split_d",) * 3
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
     names = tuple(tattn.LAUNCH_COUNTS.values())
@@ -843,7 +863,7 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
     if strided == "refused" and dp == d and wide16:
         tma_copies = 5
     if strided == "offset" and dp == d:
-        tma_copies = 11 if dp > 256 else 3
+        tma_copies = 11
     assert tattn.flash_attention.view_copies == copies + tma_copies
     tol = TOL[dtype]
     ref, ref_lse = tattn.flash_attention_plain(q, k, v, causal=causal)
@@ -863,9 +883,9 @@ def test_d256_kernels_match_plain_versions(b, h, sq, sk, d, dtype, causal,
         assert torch.all(dq[:, :, :sq - sk] == 0)
 
 
-def _wide_autograd(dtype, names):
-    """flash_attention forward and backward (autograd, dO = 2 O) at
-    D = 320 causal, each kernel a counted launch on its route (`names`:
+def _wide_autograd(dtype, names, d=320):
+    """flash_attention forward and backward (autograd, dO = 2 O) at head
+    dim d causal, each kernel a counted launch on its route (`names`:
     forward, dQ, dK/dV).  fp32: against the fp32 score-matrix reference on
     the same values at 1e-4.  16 bits: against the same autograd on CPU
     copies, which runs the plain versions (they round P, dS and the
@@ -875,7 +895,7 @@ def _wide_autograd(dtype, names):
     (the rounding to 16 bits alone puts the plain path up to ~0.1 from
     it)."""
     g = torch.Generator(device="cuda").manual_seed(8)
-    q, k, v = (torch.randn(1, 2, 96, 320, device="cuda", generator=g)
+    q, k, v = (torch.randn(1, 2, 96, d, device="cuda", generator=g)
                .to(dtype).requires_grad_(True) for _ in range(3))
     counts = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
               tattn.flash_attention_bwd_dkv_cuda)
@@ -917,6 +937,16 @@ def test_wide_head_dims_through_autograd():
     tensor-core sums in dS = P (dP - D))."""
     _need_cuda()
     _wide_autograd(torch.float32, ("launches_tf32_split_d",) * 3)
+
+
+def test_d256_fp32_through_autograd():
+    """D = 200 (zero-padded to 256) in fp32 runs the forward, dQ and dK/dV
+    through the 3xTF32 split-D kernels at n = 1, all three counted on
+    `launches_tf32_split_d`, and matches the score-matrix reference's
+    gradients at 1e-4 (the gate of test_wide_head_dims_through_autograd,
+    which would show a toward-zero bias of the tensor-core sums)."""
+    _need_cuda()
+    _wide_autograd(torch.float32, ("launches_tf32_split_d",) * 3, d=200)
 
 
 def test_wide_head_dims_through_autograd_bf16():
