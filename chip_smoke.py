@@ -2,7 +2,9 @@
 """GPU smoke run of the paddle_tpu_torch port: build its CUDA kernels,
 hold each against its plain PyTorch version, serve a BERT-base encoder
 over HTTP /predict and train BERT-base, both through the kernels, the
-training step also as a CUDA graph replayed by Executor.run_steps.
+training step also as a CUDA graph replayed by Executor.run_steps, and
+train BERT-base with google-research/bert's pretraining recipe (dropout,
+AdamW, gradient clipping, lr schedule, gradient merge).
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -11,8 +13,8 @@ Exits non-zero, printing no result line, when any phase fails or no GPU
 is present.  Phases:
 
   1. device  - the card's name and power limit (nvidia-smi);
-  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu and
-               fused_xent_fwd.cu (with csrc/*.cuh)
+  2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu,
+               fused_xent_fwd.cu and dropout_philox.cu (with csrc/*.cuh)
                from this checkout, one nvcc process each, all at once
                (ptxas register, spill and warning lines);
   3. kernel  - the flash-attention forward kernel against its plain
@@ -75,7 +77,15 @@ is present.  Phases:
                a ragged V = 1000, and rows with a positive and a negative
                ignore_index; library_ms is F.cross_entropy(reduction=
                "none"), the bound is bytes.  Same tolerances, reasons and
-               timing.  Last, a bf16 view 4 bytes past a 16-byte
+               timing.  And the dropout kernel against dropout_plain (the
+               same Philox-4x32-10 bits in PyTorch integer arithmetic)
+               at [8, 12, 512, 512] and [8, 512, 768] in fp32, bf16 and
+               fp16, Out and Mask equal to the last bit, the keep rate
+               over the [8, 12, 512, 512] mask within 0.001 of 0.9, and
+               bitwise in four more cases (downgrade_in_infer, a host
+               seed, an unaligned view, a ragged tail); library_ms is
+               F.dropout, the bound is bytes.  Last, a bf16 view 4
+               bytes past a 16-byte
                boundary (which TMA refuses) is copied by the wrappers and
                launched: forward, dQ and dK/dV equal to the last bit to
                the aligned tensors', 5 copies counted; the same at D = 256
@@ -135,6 +145,25 @@ is present.  Phases:
                to 2K eager Executor.run steps from the same weights (to
                the last bit, else within rtol 1e-5 fp32 / 2e-3 AMP, the
                largest difference reported), finite and falling.
+  8. recipe  - google-research/bert's pretraining recipe at the same
+               width (build_recipe: dropout 0.1 after the embedding
+               layer_norm, on the attention weights, the attention output
+               and the FFN output; AdamW weight decay 0.01 without biases
+               and layer_norm; global-norm clip 1.0; linear warmup then
+               polynomial decay from 1e-4; AMP bf16; gradient merge k = 2),
+               fused CE on, in two variants: attention dropout 0.1 (the
+               score-matrix route) and 0 (the flash kernels).  4 eager
+               steps (the scheduler stepped after each), then run_steps
+               calls of K = 4 (one capture, 3 timed, 2 profiled).  Gates:
+               launches per step (dropout 37 / 25, fused CE 2, flash 0 / 0
+               / 0 and 24 / 12 / 12), twice that in the capturing call,
+               the same per replayed step from the profiler; parameters
+               unchanged after the first micro-step of each window and
+               accumulators zero after its commit; the first call's
+               losses equal to the last bit to 4 eager steps from the
+               same state and seeds; the embedding dropout's mask new in
+               every replayed step; one capture, then hits; losses
+               finite, the last below the first; wide launches 0.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -142,7 +171,9 @@ the served batch and one around a step of each training configuration
 ms; the fp32 flash forward's device ms in the served batch) and the host
 time of encoding one /predict response.
 
-The line before the last is the kernels summary: the four bf16 kernels
+The line before the last is the kernels summary (the dropout kernel's
+row last: its times at [8, 12, 512, 512] bf16, launches over phase 8's
+eager steps with attention dropout): the four bf16 kernels
 of the training step (launches counted over the training run of phase
 5b), the fp32 forward at the serving shape (launches counted over the
 served burst of phase 4), the fp32 dQ, dK/dV and fused cross-entropy
@@ -186,7 +217,8 @@ GRAPH_PROFILED_CALLS = 2
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 # kernel cases also timed with a cold L2 (kernel_ms_cold)
 COLD_CASES = ("slice_bf16", "slice_fp32", "d256_fp32")
-KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd")
+KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd",
+                  "dropout_philox")
 # phase 7: GPT-2 small widths (random weights from --seed), served through
 # the paged pool of GEN_PLAN with the radix prefix cache
 GPT2 = dict(vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
@@ -225,6 +257,9 @@ KERNELS = {
                                 "paddle_tpu/ops/attention.py:281"),
     "fused_xent_fwd_fp16": ("paddle_tpu_torch/csrc/fused_xent_fwd.cu",
                             "paddle_tpu/ops/fused_xent.py:42"),
+    "dropout_philox": ("paddle_tpu_torch/csrc/dropout_philox.cu",
+                       "no TPU kernel: `jax.random.bernoulli` under XLA, "
+                       "`paddle_tpu/ops/kernels/nn.py:490`"),
 }
 # the kernels for head dims above 128, by route, kernel and dtype: the
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
@@ -639,6 +674,83 @@ def xent_kernel_phase(torch, fx):
                    bound_ms=bound_ms, bound_by=bound_by)
         log(dict(phase="kernel_xent", **row))
         results[name] = row
+    return results
+
+
+DROPOUT_SHAPES = (("attn_weights", (8, 12, 512, 512)),  # B, H, S, S
+                  ("hidden", (8, 512, 768)))              # B, S, hidden
+DROPOUT_P = 0.1
+
+
+def dropout_kernel_phase(torch, dr):
+    """The dropout kernel against its plain version (the same Philox bits
+    in PyTorch integer arithmetic, on the card): Out and Mask equal to the
+    last bit in fp32, bf16 and fp16 at the attention-weights and hidden
+    shapes of the recipe (upscale_in_train, the seed read through a
+    device pointer), and in four more cases: downgrade_in_infer, a host
+    seed (fix_seed), a view 2 bytes past a 16-byte boundary (the scalar
+    path) and a ragged tail.  The keep rate over the [8, 12, 512, 512]
+    mask within 0.001 of 1 - p.  library_ms is F.dropout (it draws other
+    numbers: a yardstick the port never calls); the bound is bytes, each
+    input read once and Out and Mask written once."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    seed = torch.tensor([20241017], dtype=torch.int64, device="cuda")
+
+    def same_bits(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            torch.equal(a.contiguous().view(torch.uint8),
+                        b.contiguous().view(torch.uint8))
+
+    def check(name, x, p, key, upscale):
+        out, mask = dr.dropout_cuda(x, p, key, 123, upscale)
+        torch.cuda.synchronize()
+        ref_out, ref_mask = dr.dropout_plain(x, p, key, 123, upscale)
+        if not (same_bits(out, ref_out) and same_bits(mask, ref_mask)):
+            raise AssertionError(f"dropout {name}: kernel and plain version "
+                                 "differ")
+        return out, mask
+
+    results = {}
+    for shape_name, shape in DROPOUT_SHAPES:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = torch.randn(shape, device="cuda", generator=gen).to(dt)
+            dname = dtype_name(dt)
+            name = f"{shape_name}_{dname}"
+            _, mask = check(name, x, DROPOUT_P, seed, True)
+            keep = mask.double().mean().item()
+            if shape_name == "attn_weights" and \
+                    abs(keep - (1 - DROPOUT_P)) > 1e-3:
+                raise AssertionError(f"dropout {name}: keep rate {keep}")
+            esize = x.element_size()
+            n = x.numel()
+            row = dict(case=name, shape=list(shape), dtype=dname,
+                       p=DROPOUT_P, keep_rate=keep, max_abs_err=0.0,
+                       kernel_ms=device_ms(
+                           torch, lambda: dr.dropout_cuda(
+                               x, DROPOUT_P, seed, 123, True), 20),
+                       plain_ms=device_ms(
+                           torch, lambda: dr.dropout_plain(
+                               x, DROPOUT_P, seed, 123, True), 1),
+                       library_ms=device_ms(
+                           torch, lambda: F.dropout(x, DROPOUT_P,
+                                                    training=True), 20),
+                       # read x, write Out and the uint8 Mask
+                       bound_ms=n * (2 * esize + 1) / PEAK_BYTES * 1e3,
+                       bound_by="bytes")
+            log(dict(phase="kernel_dropout", **row))
+            results[name] = row
+    x = torch.randn(4099, 37, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    check("downgrade_in_infer", x, 0.3, seed, False)
+    check("host_seed", x, 0.5, 987654321, True)
+    flat = torch.randn(1 << 20, device="cuda", generator=gen).to(
+        torch.float16)
+    check("unaligned_view", flat[1:], DROPOUT_P, seed, True)
+    check("ragged_tail", torch.randn(1001, device="cuda", generator=gen),
+          DROPOUT_P, seed, True)
+    log({"phase": "kernel_dropout_cases", "bitwise_equal": [
+        "downgrade_in_infer", "host_seed", "unaligned_view", "ragged_tail"]})
     return results
 
 
@@ -1672,6 +1784,338 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
     return per_step
 
 
+# phase 8: google-research/bert's pretraining recipe at BERT-base width
+RECIPE_STEPS = 4        # eager steps, then run_steps calls of K micro-steps
+RECIPE_K = 4
+RECIPE_MERGE = 2        # gradient merge: one commit every 2 micro-steps
+RECIPE_WARMUP = 2       # lr warmup steps, then polynomial decay
+RECIPE_DECAY = 1000
+RECIPE_VARIANTS = (("attn_dropout", 0.1), ("flash", 0.0))
+
+
+def build_recipe(attn_dropout, vocab=30522, seq=512, hidden=768,
+                 layers_n=12, heads=12, hidden_dropout=0.1, use_amp=True,
+                 k_steps=RECIPE_MERGE, warmup_steps=RECIPE_WARMUP,
+                 decay_steps=RECIPE_DECAY):
+    """The recipe of tests/test_torch_recipe.py (its build_recipe, for the
+    port only): bench.build_bert_base's encoder with dropout 0.1 after the
+    embedding layer_norm, on the attention weights (nets), on the
+    attention output projection and on the FFN output; AdamW(weight_decay
+    0.01, biases and layer_norm excluded), GradientClipByGlobalNorm(1.0),
+    LinearWarmup(PolynomialDecay(1e-4, ...)); bf16 AMP; gradient merge k.
+    Returns (main, startup, loss, lr scheduler, dropout Mask names)."""
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch.optimizer import lr_scheduler as lr
+    from paddle_tpu_torch.static import layers, nets
+
+    def no_decay(name):
+        return not (name.endswith(".b_0") or name.startswith("layer_norm"))
+
+    def drop(x):
+        return layers.dropout(x, hidden_dropout,
+                              dropout_implementation="upscale_in_train")
+
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        ids = layers.data("ids", [-1, seq], dtype="int64")
+        pos = layers.data("pos", [-1, seq], dtype="int64")
+        labels = layers.data("labels", [-1, seq, 1], dtype="int64")
+        h = layers.elementwise_add(layers.embedding(ids, size=[vocab, hidden]),
+                                   layers.embedding(pos, size=[seq, hidden]))
+        h = drop(layers.layer_norm(h, begin_norm_axis=2))
+        for _ in range(layers_n):
+            q = layers.fc(h, hidden, num_flatten_dims=2)
+            k = layers.fc(h, hidden, num_flatten_dims=2)
+            v = layers.fc(h, hidden, num_flatten_dims=2)
+            ctx = nets.scaled_dot_product_attention(
+                q, k, v, num_heads=heads, dropout_rate=attn_dropout)
+            attn_out = drop(layers.fc(ctx, hidden, num_flatten_dims=2))
+            h = layers.layer_norm(layers.elementwise_add(h, attn_out),
+                                  begin_norm_axis=2)
+            ffn = layers.fc(h, hidden * 4, num_flatten_dims=2, act="gelu")
+            ffn = drop(layers.fc(ffn, hidden, num_flatten_dims=2))
+            h = layers.layer_norm(layers.elementwise_add(h, ffn),
+                                  begin_norm_axis=2)
+        logits = layers.fc(h, vocab, num_flatten_dims=2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, labels))
+        sched = lr.LinearWarmup(
+            lr.PolynomialDecay(1e-4, decay_steps, end_lr=0.0, power=1.0),
+            warmup_steps, 0.0, 1e-4)
+        opt = static.optimizer.AdamW(
+            learning_rate=sched, weight_decay=0.01,
+            apply_decay_param_fun=no_decay,
+            grad_clip=static.optimizer.GradientClipByGlobalNorm(1.0))
+        if use_amp:
+            opt = amp.decorate(opt, init_loss_scaling=1.0,
+                               use_dynamic_loss_scaling=False,
+                               dest_dtype="bfloat16")
+        _, params_grads = opt.minimize(loss)
+        static.gradient_merge(main, k_steps, startup,
+                              params_grads=params_grads)
+    masks = [op.outputs["Mask"][0] for op in main.global_block().ops
+             if op.type == "dropout"]
+    return main, startup, loss, sched, masks
+
+
+def recipe_phase(torch, seed):
+    """(8) The recipe at BERT-base width (vocab 30522, seq 512, hidden 768,
+    12 layers, 12 heads), batch 8, AMP bf16, fused CE on, in two variants:
+    attention dropout 0.1 (the score-matrix route) and 0 (hidden dropout
+    only, the flash kernels).  Returns {variant: result}."""
+    feed = train_feed(seed)
+    return {variant: recipe_config(torch, seed, feed, variant, rate)
+            for variant, rate in RECIPE_VARIANTS}
+
+
+def recipe_config(torch, seed, feed, variant, attn_dropout):
+    """One variant: RECIPE_STEPS eager Executor.run steps from the startup
+    weights of --seed, the scheduler stepped after each, then
+    Executor.run_steps calls of K = RECIPE_K (the first captures); gates:
+      * launches per eager step: dropout 1 + 3 x 12 = 37 with attention
+        dropout, 1 + 2 x 12 = 25 without; fused CE 2; flash forward / dQ /
+        dK/dV 0 / 0 / 0 with attention dropout, 24 / 12 / 12 without; the
+        capturing call twice each (warm-up and capture); per replayed step
+        the same counts from the profiler (each kernel's largest count over
+        two profiled calls); wide launches 0;
+      * gradient merge k = 2: every parameter unchanged after the first
+        micro-step of each window, every accumulator zero after its commit;
+      * the first run_steps call's losses equal to the last bit to K eager
+        run() steps from the same state and seeds (the lr held, as it is
+        over a call); the embedding dropout's mask differs between
+        consecutive replayed steps;
+      * every loss finite, the last (of eager and replayed) below the
+        first."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+
+    attn.enable_flash_attention(True)  # taken where attention has no dropout
+    try:
+        _reset_unique_names()
+        main, startup, loss, sched, masks = build_recipe(attn_dropout,
+                                                         **BERT)
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+    startup.random_seed = seed
+    n = BERT["layers_n"]
+    names = ("dropout", "flash_attn_fwd", "flash_attn_bwd_dq",
+             "flash_attn_bwd_dkv", "fused_xent_fwd")
+    counters = dict(zip(names, (dr.dropout_cuda, attn.flash_attention,
+                                attn.flash_attention_bwd_dq_cuda,
+                                attn.flash_attention_bwd_dkv_cuda,
+                                fx.fused_xent_cuda)))
+    flash = 0 if attn_dropout else 1
+    want = dict(zip(names, (1 + (3 if attn_dropout else 2) * n,
+                            2 * n * flash, n * flash, n * flash, 2)))
+    if len(masks) != want["dropout"]:
+        raise AssertionError(f"recipe {variant}: {len(masks)} dropout ops")
+    params = [p.name for p in main.all_parameters()]
+    accs = main._gm_meta["accs"]
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    exe, scope = static.Executor(), static.Scope()
+    losses, step_ms, lrs = [], [], []
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+        zero_wide(attn)
+
+    fx.enable_fused_xent(True)
+    try:
+        with static.scope_guard(scope):
+            exe.run(startup)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path (eager): counts from 0 just before
+            zero_counts()
+            for step in range(RECIPE_STEPS):
+                first = step % RECIPE_MERGE == 0
+                before = {p: scope.vars[p].clone() for p in params} \
+                    if first else None
+                lrs.append(float(scope.vars[sched._var.name].reshape(-1)[0]))
+                t0 = time.perf_counter()
+                (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                sched.step()
+                losses.append(float(np.asarray(lv).reshape(-1)[0]))
+                if first:
+                    moved = [p for p in params
+                             if not torch.equal(scope.vars[p], before[p])]
+                    if moved:
+                        raise AssertionError(
+                            f"recipe {variant}: step {step} (first of its "
+                            f"window) moved {len(moved)} parameters")
+                    del before
+                elif any(bool(scope.vars[a].any()) for a in accs):
+                    raise AssertionError(f"recipe {variant}: accumulators "
+                                         f"not zero after commit {step}")
+            launches = {k: c.launches for k, c in counters.items()}
+            record_wide(f"recipe_{variant}", read_wide(attn))
+            # ---- end of the main path
+            eager_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            state = {k: t.clone() for k, t in scope.vars.items()
+                     if t is not None}
+        step0 = exe._step
+        del scope
+        for name, per in want.items():
+            if launches[name] != per * RECIPE_STEPS:
+                raise AssertionError(
+                    f"recipe {variant} {name}: {launches[name]} launches in "
+                    f"{RECIPE_STEPS} steps, expected {per} per step")
+
+        stacked = {k: np.stack([v] * RECIPE_K) for k, v in feed.items()}
+        graph_exe, gscope = static.Executor(), static.Scope()
+        graph_exe._step = step0  # the seeds continue the eager walk
+        for k, t in state.items():
+            gscope.set(k, t.clone())
+        with static.scope_guard(gscope):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the replayed path: counts from 0 just before (they move
+            # in the capturing call; the profiler counts the replays)
+            zero_counts()
+            t0 = time.perf_counter()
+            fetch = [loss, masks[0]]  # one fetch list: one captured graph
+            graph_loss, graph_mask = graph_exe.run_steps(
+                main, feed=stacked, fetch_list=fetch)
+            torch.cuda.synchronize()
+            capture_call_s = time.perf_counter() - t0
+            capture_launches = {k: c.launches for k, c in counters.items()}
+            capture_wide = read_wide(attn)
+            # ---- end of the replayed path's capture
+            graph_step_ms, timed_loss = [], np.zeros(0, np.float32)
+            for _ in range(GRAPH_TIMED_CALLS):
+                t0 = time.perf_counter()
+                (lv, _) = graph_exe.run_steps(main, feed=stacked,
+                                              fetch_list=fetch)
+                torch.cuda.synchronize()
+                graph_step_ms.append((time.perf_counter() - t0) * 1e3 /
+                                     RECIPE_K)
+                timed_loss = np.concatenate([timed_loss, lv])
+            # the graph alone: K replays of the captured step, nothing of
+            # run_steps around them (no feed, seed or fetch copies)
+            (entry,) = graph_exe._graphs.values()
+            t0 = time.perf_counter()
+            for _ in range(RECIPE_K):
+                entry.graph.replay()
+            torch.cuda.synchronize()
+            replay_only_ms = (time.perf_counter() - t0) * 1e3 / RECIPE_K
+            graph_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            profiled = []  # (profile, wall ms) of each profiled call
+            for _ in range(GRAPH_PROFILED_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    (lv, _) = graph_exe.run_steps(main, feed=stacked,
+                                                  fetch_list=fetch)
+                    torch.cuda.synchronize()
+                profiled.append((prof, (time.perf_counter() - t0) * 1e3))
+                timed_loss = np.concatenate([timed_loss, lv])
+        cache = graph_exe.cache_stats()
+        graph_exe.close()
+        del gscope
+        # the eager reference of the first call: K run() steps from the
+        # same state and step count, the lr held
+        ref_exe, rscope = static.Executor(), static.Scope()
+        ref_exe._step = step0
+        for k, t in state.items():
+            rscope.set(k, t)
+        with static.scope_guard(rscope):
+            eager_ref = [float(np.asarray(ref_exe.run(
+                main, feed=feed, fetch_list=[loss])[0]).reshape(-1)[0])
+                for _ in range(RECIPE_K)]
+        del rscope, state
+    finally:
+        fx.enable_fused_xent(False)
+        torch.cuda.empty_cache()
+    calls = 1 + GRAPH_TIMED_CALLS + GRAPH_PROFILED_CALLS
+    if cache != {"hits": calls - 1, "misses": 1, "traces": 1}:
+        raise AssertionError(f"recipe {variant}: cache_stats {cache}, "
+                             f"expected 1 capture and {calls - 1} hits")
+    graph = np.asarray(graph_loss, np.float32).reshape(-1)
+    if not np.array_equal(graph, np.asarray(eager_ref, np.float32)):
+        raise AssertionError(f"recipe {variant}: replayed losses {graph} != "
+                             f"eager {eager_ref}")
+    same = [bool(np.array_equal(graph_mask[i], graph_mask[i + 1]))
+            for i in range(RECIPE_K - 1)]
+    if any(same):
+        raise AssertionError(f"recipe {variant}: a replayed step drew the "
+                             f"mask of the step before ({same})")
+    everything = losses + graph.tolist() + \
+        np.asarray(timed_loss).reshape(-1).tolist()
+    if not all(np.isfinite(everything)) or \
+            not everything[-1] < everything[0]:
+        raise AssertionError(f"recipe {variant}: losses not finite and "
+                             f"falling: {everything}")
+    subs = dict(zip(names, ("dropout_philox", "flash_fwd", "flash_bwd_dq",
+                            "flash_bwd_dkv", "fused_xent")))
+    counted = [(count_kernels(p, subs), count_kernels(
+        p, WIDE_DEVICE_NAMES)[0], ms) for p, ms in profiled]
+    replayed = {k: max(c[0][0][k] for c in counted) / RECIPE_K
+                for k in names}
+    # busy time and idle share from the call that recorded the most
+    recorded = [sum(e.count for e in c[0][1]) for c in counted]
+    (_, dev), _, prof_ms = counted[recorded.index(max(recorded))]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    record_wide(f"recipe_graph_{variant}", {
+        key: n_cap + max(c[1][key] for c in counted)
+        for key, n_cap in capture_wide.items()})
+    for name, per in want.items():
+        if replayed[name] != per or capture_launches[name] != 2 * per:
+            raise AssertionError(
+                f"recipe {variant} {name}: {replayed[name]} launches per "
+                f"replayed step, {capture_launches[name]} in the capturing "
+                f"call; expected {per} and {2 * per}")
+    tokens = TRAIN_BATCH * BERT["seq"]
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    graph_steady = sorted(graph_step_ms)[len(graph_step_ms) // 2]
+    result = {"phase": "recipe", "variant": variant,
+              "config": "bert-base pretrain recipe (google-research/bert): "
+                        f"dropout 0.1 hidden, {attn_dropout} attention; "
+                        "AdamW wd 0.01, global-norm clip 1.0, warmup + "
+                        f"linear decay, gradient merge k={RECIPE_MERGE}; "
+                        "AMP bf16, fused CE",
+              "batch": TRAIN_BATCH, "seq": BERT["seq"], "params": n_params,
+              "eager_losses": losses, "eager_lr": lrs,
+              "eager_step_ms": step_ms, "median_eager_step_ms": steady,
+              "eager_tokens_per_s": tokens / (steady / 1e3),
+              "graph_capture_call_s": capture_call_s,
+              "graph_step_ms": graph_step_ms,
+              "median_graph_step_ms": graph_steady,
+              "graph_tokens_per_s": tokens / (graph_steady / 1e3),
+              "graph_replay_only_ms": replay_only_ms,
+              "graph_device_kernels_per_step":
+                  sum(e.count for e in dev) / RECIPE_K,
+              "graph_device_busy_ms_per_step": busy_ms / RECIPE_K,
+              "graph_device_idle_share": max(0.0, 1.0 - busy_ms / prof_ms),
+              "graph_device_idle_share_of_timed_step":
+                  max(0.0, 1.0 - busy_ms / RECIPE_K / graph_steady),
+              "graph_top_device_ms_per_step": [
+                  [e.key[:80], e.count / RECIPE_K,
+                   e.self_device_time_total / 1e3 / RECIPE_K]
+                  for e in sorted(dev, key=lambda e:
+                                  -e.self_device_time_total)[:8]],
+              "graph_losses": graph.tolist(),
+              "graph_losses_bitwise_equal_to_eager": True,
+              "graph_later_losses": np.asarray(timed_loss).reshape(-1)
+              .tolist(),
+              "launches": launches,
+              "launches_per_step": {k: v // RECIPE_STEPS
+                                    for k, v in launches.items()},
+              "launches_in_capturing_call": capture_launches,
+              "launches_per_replayed_step": replayed,
+              "cache_stats": cache,
+              "peak_gpu_mem_gb": {"eager": eager_peak_gb,
+                                  "graph": graph_peak_gb}}
+    log(result)
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1686,6 +2130,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.core import kernel_build
     from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
     from paddle_tpu_torch.ops import fused_xent as fx
     # fp32 means fp32 here: no TF32 in the plain versions or the
     # score-matrix program
@@ -1754,6 +2199,7 @@ def main():
             ("flash_bwd_dkv_tf32_split_d_fp32_d256",
              bwd["d256_fp32"]["dkv"]))}})
     xent = xent_kernel_phase(torch, fx)
+    drop = dropout_kernel_phase(torch, dr)
     device_names_phase(torch, attn)
     view_copy_phase(torch, attn)
     mha_launches = mha_route_phase(torch, attn, args.seed)
@@ -1762,6 +2208,7 @@ def main():
         serve_launches = slice_phase(torch, args.seed, tmp, args.profile)
         amp, fp32 = train_phase(torch, args.seed, args.profile)
         graph = train_graph_phase(torch, args.seed)
+        recipe = recipe_phase(torch, args.seed)
         # phase 7 serves /predict from phase 4's model beside /generate
         generate_phase(torch, args.seed, os.path.join(tmp, "bert_flash"),
                        args.profile)
@@ -1824,7 +2271,9 @@ def main():
     # 0, gated in each path, since no configuration has a head dim above
     # 128), times from the kernel cases
     paths = ("serve", "train_amp", "train_fp32", "train_graph_amp",
-             "train_graph_fp32", "generate")
+             "train_graph_fp32", "generate") + tuple(
+                 f"recipe{g}_{v}" for g in ("", "_graph")
+                 for v, _ in RECIPE_VARIANTS)
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -1836,6 +2285,22 @@ def main():
         rows.append((name, r, sum(by_path.values()),
                      {"launches_by_path_all_dtypes": by_path,
                       "case": case}))
+    # the dropout kernel (no TPU kernel: the JAX package draws its mask
+    # under XLA): times at [8, 12, 512, 512] bf16, the attention weights;
+    # launches over the eager steps of the attention-dropout variant
+    rows.append(("dropout_philox", drop["attn_weights_bfloat16"],
+                 recipe["attn_dropout"]["launches"]["dropout"],
+                 {"case": "attn_weights_bfloat16",
+                  "hidden_bfloat16": {
+                      k: drop["hidden_bfloat16"][k] for k in (
+                          "kernel_ms", "plain_ms", "library_ms",
+                          "bound_ms")},
+                  "launches_per_step": {
+                      v: recipe[v]["launches_per_step"]["dropout"]
+                      for v, _ in RECIPE_VARIANTS},
+                  "launches_per_replayed_step": {
+                      v: recipe[v]["launches_per_replayed_step"]["dropout"]
+                      for v, _ in RECIPE_VARIANTS}}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -1,9 +1,10 @@
 """Graph pass framework — registry + pipeline over Program IR.
 
 Copy of paddle_tpu/core/pass_framework.py (the registry, PassContext,
-apply_passes and the applied-pass history), without the training-graph
-passes and the verifier hook, which come with later slices.  Passes walk
-and rewrite the IR only; no tensor math happens here.
+apply_passes, the applied-pass history and `finish_pass`, the epilogue of
+a program rewrite such as gradient merge), without the verifier hook
+(static/verifier.py's post-rewrite self-check, ROADMAP.md Queue 1 item 7).
+Passes walk and rewrite the IR only; no tensor math happens here.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Callable, Dict, List, Optional
 from .program import Program
 
 __all__ = ["register_pass", "get_pass", "apply_passes", "PassContext",
-           "all_passes", "record_applied", "applied_passes", "has_applied"]
+           "all_passes", "record_applied", "applied_passes", "has_applied",
+           "finish_pass"]
 
 _PASSES: Dict[str, Callable] = {}
 
@@ -53,6 +55,13 @@ def applied_passes(program: Program) -> List[dict]:
 
 def has_applied(program: Program, name: str) -> bool:
     return any(e.get("pass") == name for e in applied_passes(program))
+
+
+def finish_pass(program: Program, name: str, startup=None, **meta) -> dict:
+    """The rewrite-pass epilogue: record the application in the registry.
+    (The reference then runs its env-gated post-rewrite verification,
+    which the port has not ported.)"""
+    return record_applied(program, name, **meta)
 
 
 class PassContext:

@@ -13,4 +13,6 @@ from . import (  # noqa: F401
     optimizers,
     amp,
     decode,
+    reduce,
+    control,
 )

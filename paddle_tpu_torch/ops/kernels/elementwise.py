@@ -1,6 +1,7 @@
-"""elementwise_add and elementwise_mul with Paddle's `axis` broadcast:
+"""elementwise_{add,sub,mul,div,max,mod} with Paddle's `axis` broadcast:
 Y's dims align to X's starting at `axis` (axis=-1 means numpy-style
-trailing alignment).
+trailing alignment).  `elementwise_mod` is Python's (and jnp.mod's)
+modulo, the sign of the divisor, and has no gradient.
 Counterpart of paddle_tpu/ops/kernels/elementwise.py."""
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ def _broadcast_y(x, y, axis):
     return y
 
 
-def _ew(name, fn):
-    @register_op(name, inputs=["X", "Y"], outputs=["Out"])
+def _ew(name, fn, grad="auto"):
+    @register_op(name, inputs=["X", "Y"], outputs=["Out"], grad=grad)
     def kernel(ins, attrs, ctx):
         x, y = ins["X"], ins["Y"]
         return {"Out": fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))}
@@ -28,4 +29,8 @@ def _ew(name, fn):
 
 
 elementwise_add = _ew("elementwise_add", torch.add)
+elementwise_sub = _ew("elementwise_sub", torch.sub)
 elementwise_mul = _ew("elementwise_mul", torch.mul)
+elementwise_div = _ew("elementwise_div", torch.div)
+elementwise_max = _ew("elementwise_max", torch.maximum)
+elementwise_mod = _ew("elementwise_mod", torch.remainder, grad=None)

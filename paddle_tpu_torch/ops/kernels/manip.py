@@ -1,5 +1,6 @@
 """Tensor manipulation ops of the slices: reshape2, transpose2,
-fill_constant, cast.  Counterparts of paddle_tpu/ops/kernels/manip.py.
+fill_constant, cast, and gradient merge's where and fill_zeros_like.
+Counterparts of paddle_tpu/ops/kernels/manip.py.
 
 transpose2 returns a strided view (no copy); the flash kernel reads the
 [B, H, S, D] view through its strides, and the reshape that follows the
@@ -63,3 +64,13 @@ def fill_constant(ins, attrs, ctx):
 @register_op("cast", inputs=["X"], outputs=["Out"])
 def cast(ins, attrs, ctx):
     return {"Out": ins["X"].to(torch_dtype(attrs["out_dtype"]))}
+
+
+@register_op("where", inputs=["Condition!", "X", "Y"], outputs=["Out"])
+def where(ins, attrs, ctx):
+    return {"Out": torch.where(ins["Condition"].bool(), ins["X"], ins["Y"])}
+
+
+@register_op("fill_zeros_like", inputs=["X!"], outputs=["Out"], grad=None)
+def fill_zeros_like(ins, attrs, ctx):
+    return {"Out": torch.zeros_like(ins["X"])}

@@ -1,4 +1,5 @@
-"""Math ops of the slices: matmul, mul, scale, sum, mean.
+"""Math ops of the slices: matmul, mul, scale, sum, mean, and the
+gradient clips' clip and clip_by_norm and gradient merge's increment.
 
 Counterparts of paddle_tpu/ops/kernels/math.py.  Large products go to
 torch.matmul, as the JAX package leaves them to XLA.  A float32 product
@@ -62,3 +63,37 @@ def sum_op(ins, attrs, ctx):
 @register_op("mean", inputs=["X"], outputs=["Out"])
 def mean(ins, attrs, ctx):
     return {"Out": ins["X"].mean()}
+
+
+@register_op("clip", inputs=["X", "Min?!", "Max?!"], outputs=["Out"])
+def clip(ins, attrs, ctx):
+    lo = ins.get("Min")
+    hi = ins.get("Max")
+    lo = attrs.get("min", -math.inf) if lo is None else lo
+    hi = attrs.get("max", math.inf) if hi is None else hi
+    x = ins["X"]
+    if not isinstance(lo, torch.Tensor):
+        lo = torch.full((), lo, dtype=x.dtype, device=x.device)
+    if not isinstance(hi, torch.Tensor):
+        hi = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return {"Out": torch.clamp(x, lo, hi)}
+
+
+@register_op("clip_by_norm", inputs=["X"], outputs=["Out"])
+def clip_by_norm(ins, attrs, ctx):
+    """x * max_norm / norm(x) where norm(x) > max_norm, in fp32."""
+    x = ins["X"]
+    max_norm = attrs["max_norm"]
+    xf = x.float()
+    norm = torch.sqrt(torch.sum(torch.square(xf)))
+    factor = torch.where(norm > max_norm,
+                         max_norm / torch.clamp(norm, min=1e-12),
+                         torch.ones_like(norm))
+    return {"Out": (xf * factor).to(x.dtype)}
+
+
+@register_op("increment", inputs=["X"], outputs=["Out"], grad=None)
+def increment(ins, attrs, ctx):
+    x = ins["X"]
+    return {"Out": x + torch.full((), attrs.get("step", 1.0), dtype=x.dtype,
+                                  device=x.device)}

@@ -1,15 +1,20 @@
-"""NN ops of the slice: layer_norm, softmax, lookup_table_v2.
+"""NN ops of the slices: layer_norm, softmax, dropout, lookup_table_v2,
+fc.
 
 Counterparts of the kernels of the same names in
 paddle_tpu/ops/kernels/nn.py, with the same attrs and dtype rules:
 normalization and softmax compute in fp32 for half-precision inputs and
-return the input dtype."""
+return the input dtype.  `dropout` draws its mask with the Philox kernel
+of ops/dropout.py (not the JAX package's threefry bits) and has an
+explicit gradient that reads the saved Mask: a vjp replay of the forward
+would draw again."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from ..dropout import apply_mask, dropout_fwd
 from ..registry import register_op
 
 
@@ -45,6 +50,46 @@ def softmax(ins, attrs, ctx):
     x = ins["X"]
     out = torch.softmax(x.to(_cdt(x)), dim=attrs.get("axis", -1))
     return {"Out": out.to(x.dtype)}
+
+
+def _dropout_mode(attrs, ctx):
+    """(p, upscale_in_train?, test mode?) of a dropout op."""
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    return (float(attrs.get("dropout_prob", 0.5)), impl == "upscale_in_train",
+            bool(attrs.get("is_test", False) or ctx.is_test))
+
+
+def _infer_dropout(ins, attrs):
+    x = ins["X"]
+    return {"Out": torch.empty_like(x, device="meta"),
+            "Mask": torch.empty(x.shape, dtype=torch.uint8, device="meta")}
+
+
+def _dropout_grad(ins, attrs, ctx):
+    """dX from the saved Mask, scaled as the forward was: keep ? dOut / q
+    : 0 (upscale_in_train) or keep ? dOut : 0 in training; dOut or
+    dOut (1 - p) in test mode (the vjp of the JAX package's kernel with
+    the same keep mask)."""
+    dout = ins["Out@GRAD"]
+    p, upscale, test = _dropout_mode(attrs, ctx)
+    if test:
+        return {"X@GRAD": dout if upscale else
+                dout * float(torch.tensor(1.0 - p, dtype=dout.dtype))}
+    return {"X@GRAD": apply_mask(dout, ins["Mask"].bool(), p, upscale)}
+
+
+@register_op("dropout", inputs=["X", "Seed?!"], outputs=["Out", "Mask"],
+             grad=_dropout_grad, infer_shape=_infer_dropout)
+def dropout(ins, attrs, ctx):
+    x = ins["X"]
+    p, upscale, test = _dropout_mode(attrs, ctx)
+    if test:
+        out = x if upscale else \
+            x * float(torch.tensor(1.0 - p, dtype=x.dtype))
+        return {"Out": out, "Mask": torch.ones_like(x, dtype=torch.uint8)}
+    seed, uid = ctx.draw_key(attrs, ins.get("Seed"))
+    out, mask = dropout_fwd(x.contiguous(), p, seed, uid, upscale)
+    return {"Out": out, "Mask": mask}
 
 
 def _embedding(w, ids, attrs):

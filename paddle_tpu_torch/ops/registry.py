@@ -16,11 +16,16 @@ no such merge, so each grad op runs its forward a second time (PERF.md
 records the cost).  Ops whose kernel is a hand-written CUDA kernel wrap it
 in a `torch.autograd.Function`, so the vjp reaches their backward kernels.
 
-RNG: `OpContext.generator(attrs)` returns a `torch.Generator`
-seeded from the op's seed attr (or the step seed) folded with the op's
-build-time uid, in place of the JAX package's threefry
-`fold_in(PRNGKey(seed), uid)`.  The two never produce the same numbers,
-so parity tests copy parameters instead of comparing draws.
+RNG: a random draw is keyed by (the step seed, or the op's `seed` attr
+when it sets `fix_seed`, and the op's build-time uid), as the JAX
+package's threefry `fold_in(PRNGKey(seed), uid)` is.
+`OpContext.generator(attrs)` returns a `torch.Generator` seeded from that
+pair (the initializers `uniform_random` / `gaussian_random`);
+`OpContext.draw_key(attrs)` gives the pair for the dropout kernel, whose
+step seed is `OpContext.seed_tensor`, a one-element int64 tensor on the
+executor's device that a captured CUDA graph reads afresh on every
+replay.  Neither draws the JAX package's numbers, so parity tests copy
+parameters, or inject the port's masks into the reference.
 """
 from __future__ import annotations
 
@@ -58,16 +63,40 @@ class Slot:
 
 
 class OpContext:
-    """Per-execution context handed to kernels: the step seed, the
-    test-mode flag and the device that ops without tensor inputs
-    (fill_constant, the random initializers) create their outputs on."""
+    """Per-execution context handed to kernels: the step seed (a host
+    integer and, for kernels that read it on the device, `seed_tensor`),
+    the test-mode flag and the device that ops without tensor inputs
+    (fill_constant, the random initializers) create their outputs on.
+
+    `seed_tensor` is the one-element int64 tensor given (the seed buffer of
+    a captured step), else one made from `seed` on `device` at first use."""
 
     def __init__(self, seed: int = 0, is_test: bool = False,
-                 device=None):
+                 device=None, seed_tensor: Optional[torch.Tensor] = None):
         self.seed = int(seed)
         self.is_test = is_test
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
+        self._seed_tensor = seed_tensor
+
+    @property
+    def seed_tensor(self) -> torch.Tensor:
+        if self._seed_tensor is None:
+            self._seed_tensor = torch.tensor([self.seed], dtype=torch.int64,
+                                             device=self.device)
+        return self._seed_tensor
+
+    def draw_key(self, attrs: Dict[str, Any], seed_input=None):
+        """(seed, uid) of a draw: the `Seed` input tensor when the op has
+        one, else the op's `seed` attr when it sets `fix_seed` (an int),
+        else the step's `seed_tensor`; uid is the op's `fwd_uid` or
+        `op_uid`."""
+        uid = int(attrs.get("fwd_uid", attrs.get("op_uid", 0)))
+        if seed_input is not None:
+            return seed_input.reshape(1).to(torch.int64), uid
+        if attrs.get("fix_seed", False):
+            return int(attrs.get("seed", 0)), uid
+        return self.seed_tensor, uid
 
     def generator(self, attrs: Dict[str, Any]) -> torch.Generator:
         uid = int(attrs.get("fwd_uid", attrs.get("op_uid", 0)))

@@ -30,7 +30,14 @@ buffers ARE the scope's tensors afterwards) and feeds are copied into
 static per-step buffers before each replay.  Graphs are cached per
 (program, per-step feed shapes and dtypes, fetch names, persistable
 names, flags), so a short final chunk replays the same graph and a new
-per-step batch size captures a new one (no feed bucketing).
+per-step batch size captures a new one (no feed bucketing).  The step
+seed is a one-element device buffer the graph reads (the dropout kernel
+takes it by pointer), refilled before each replay with the seed of that
+step in the walk of K `run()` calls, so a replayed step draws the masks
+of the same step run eagerly.  The random initializers
+(`uniform_random`, `gaussian_random`) draw from a host-seeded
+torch.Generator, which a capture would freeze: run_steps refuses them on
+CUDA.
 
 Not ported yet: CompiledProgram dispatch, checkpoint hooks, per-step
 telemetry (later slices, ROADMAP.md).
@@ -161,19 +168,20 @@ def _persistable_names(program: Program) -> List[str]:
 
 # ops that draw from OpContext.generator, whose seed is a host integer per
 # step: a CUDA graph would replay the captured step's draws every time
+# (dropout reads the step seed from a device buffer and is not one)
 _RANDOM_OPS = frozenset({"uniform_random", "gaussian_random"})
 
 
 class _StepGraph:
     """One captured step: the CUDA graph, the static per-step feed buffers
-    it reads, the persistable buffers it reads and updates in place, and
-    the fetch tensors each replay overwrites."""
+    and the step-seed buffer it reads, the persistable buffers it reads
+    and updates in place, and the fetch tensors each replay overwrites."""
 
     def __init__(self, graph, feeds: Dict[str, torch.Tensor],
-                 state: Dict[str, torch.Tensor],
+                 seed: torch.Tensor, state: Dict[str, torch.Tensor],
                  fetches: List[torch.Tensor]):
-        self.graph, self.feeds, self.state, self.fetches = \
-            graph, feeds, state, fetches
+        self.graph, self.feeds, self.seed, self.state, self.fetches = \
+            graph, feeds, seed, state, fetches
 
     def bind_state(self, scope: "Scope"):
         """Point the scope at the buffers.  `run()` rebinds the scope's
@@ -243,7 +251,8 @@ class Executor:
         scope ends holding the state after the K-th step, and the per-step
         seeds follow the walk of K `run()` calls.  On the CPU this loops
         over `run()`; on CUDA one captured step (a CUDA graph) is replayed
-        K times, and a program that draws random numbers is refused there.
+        K times, and a program with a random initializer op is refused
+        there (dropout replays, each step with its own seed).
         FLAGS_check_nan_inf raises after the K steps on a non-finite fetch
         or persistable."""
         program = program if program is not None else default_main_program()
@@ -251,7 +260,7 @@ class Executor:
             raise NotImplementedError(
                 f"run_steps takes a Program, got {type(program).__name__}: "
                 "CompiledProgram is not ported yet (ROADMAP.md Queue 1 "
-                "item 7, distribution)")
+                "item 6, distribution)")
         scope = scope or global_scope()
         fetch_names = [f.name if hasattr(f, "name") else str(f)
                        for f in (fetch_list or [])]
@@ -310,10 +319,10 @@ class Executor:
         random_ops = sorted({op.type for op in block.ops} & _RANDOM_OPS)
         if random_ops:
             raise NotImplementedError(
-                f"run_steps cannot capture {random_ops} on CUDA: a random "
-                "op's seed is a host integer per step, which a CUDA graph "
-                "would freeze (the graph-safe RNG is ROADMAP.md Queue 1 "
-                "item 6); run the steps with run()")
+                f"run_steps cannot capture {random_ops} on CUDA: the "
+                "initializers draw from a host-seeded torch.Generator, "
+                "which a CUDA graph would freeze (a graph-safe RNG for them "
+                "is ROADMAP.md Queue 1 item 5); run the steps with run()")
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
         # the flags are part of the key: one read while the ops run
@@ -323,12 +332,16 @@ class Executor:
                             for n, v in stacked.items())),
                tuple(fetch_names), tuple(state_names),
                tuple(sorted((n, repr(v)) for n, v in _flags._FLAGS.items())))
+        # the seeds of K run() calls, uploaded once, copied per step
+        seeds = torch.tensor([[self._seed_for_step(program) + i]
+                              for i in range(k)], dtype=torch.int64,
+                             device=self.device)
         with torch.cuda.device(self.device):
             entry = self._graphs.get(key)
             if entry is None:
                 self._record("misses")
-                entry = self._capture(block, stacked, fetch_names,
-                                      state_names, scope)
+                entry = self._capture(block, stacked, seeds[0],
+                                      fetch_names, state_names, scope)
                 self._record("traces")
                 self._graphs[key] = entry
             else:
@@ -338,19 +351,22 @@ class Executor:
             for i in range(k):
                 for n, buf in entry.feeds.items():
                     buf.copy_(stacked[n][i])
+                entry.seed.copy_(seeds[i])
                 entry.graph.replay()
                 steps.append([f.clone() for f in entry.fetches])
         self._step += k
         return [torch.stack([s[j] for s in steps])
                 for j in range(len(fetch_names))]
 
-    def _capture(self, block, stacked, fetch_names, state_names, scope):
-        """Capture one step of `block` over static buffers.  A warm-up step
-        runs first, eagerly on a side stream (as torch requires before
-        capturing a backward): it builds and loads the hand kernels, sets
-        their shared-memory attributes and lets autograd and cuBLAS make
-        their lazy state.  Its results are dropped, so it changes no
-        state."""
+    def _capture(self, block, stacked, seed, fetch_names, state_names,
+                 scope):
+        """Capture one step of `block` over static buffers, the step seed
+        read from a one-element buffer (`seed` is its first value).  A
+        warm-up step runs first, eagerly on a side stream (as torch
+        requires before capturing a backward): it builds and loads the
+        hand kernels, sets their shared-memory attributes and lets
+        autograd and cuBLAS make their lazy state.  Its results are
+        dropped, so it changes no state."""
         state: Dict[str, torch.Tensor] = {}
         for n in state_names:
             t = scope.get(n)
@@ -361,11 +377,13 @@ class Executor:
             scope.set(n, t)
             state[n] = t
         feeds = {n: v[0].clone() for n, v in stacked.items()}
+        seed_buf = seed.clone()
 
         def step():
             env = dict(state)
             env.update(feeds)
-            ctx = OpContext(seed=0, is_test=False, device=self.device)
+            ctx = OpContext(seed=0, is_test=False, device=self.device,
+                            seed_tensor=seed_buf)
             with torch.no_grad():
                 for op in block.ops:
                     _run_op(op, env, ctx)
@@ -400,7 +418,7 @@ class Executor:
         except RuntimeError as e:
             raise RuntimeError(
                 f"CUDA graph capture of the step failed: {e}") from e
-        return _StepGraph(graph, feeds, state, fetches)
+        return _StepGraph(graph, feeds, seed_buf, state, fetches)
 
     def _coerce_feed(self, block, name, val):
         if isinstance(val, torch.Tensor):

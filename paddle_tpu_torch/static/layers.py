@@ -1,6 +1,7 @@
 """Static-graph layer functions: the subset of the fluid.layers API that
 the BERT encoder and its pretraining program (`models/bert_static.py`),
-the score-matrix attention graph, the optimizer and the AMP rewrite use.
+the score-matrix attention graph, dropout, the optimizers, gradient
+clipping, the regularizers and the AMP rewrite use.
 
 Each function is a copy of its namesake in paddle_tpu/static/layers.py, so
 both packages append the same ops with the same attrs, parameter names
@@ -15,8 +16,10 @@ from ..core.program import VarDesc, default_main_program
 from .initializer import Constant, Xavier
 from .layer_helper import LayerHelper
 
-__all__ = ["data", "fc", "embedding", "layer_norm", "softmax", "matmul",
-           "elementwise_add", "elementwise_mul", "reshape", "transpose",
+__all__ = ["data", "fc", "embedding", "layer_norm", "dropout", "softmax",
+           "matmul", "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max", "reduce_sum", "sqrt",
+           "square", "clip", "clip_by_norm", "sums", "reshape", "transpose",
            "scale", "fill_constant", "softmax_with_cross_entropy", "mean",
            "cast", "create_global_var", "_binary_op"]
 
@@ -137,6 +140,19 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(y, act)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None,
+            dropout_implementation="downgrade_in_infer", name=None):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    helper.append_op(
+        "dropout", inputs={"X": x}, outputs={"Out": out, "Mask": mask},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed or 0, "fix_seed": seed is not None,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
 def softmax(input, axis=-1, name=None):
     helper = LayerHelper("softmax", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -165,7 +181,10 @@ def _binary_op(op_type, x, y, reverse=False, axis=-1):
     if reverse:
         x, y = y, x
     helper = LayerHelper(op_type)
-    out = helper.create_variable_for_type_inference(x.dtype)
+    cmp_ops = {"less_than", "less_equal", "greater_than", "greater_equal",
+               "equal", "not_equal"}
+    dtype = "bool" if op_type in cmp_ops else x.dtype
+    out = helper.create_variable_for_type_inference(dtype)
     helper.append_op(op_type, inputs={"X": x, "Y": y}, outputs={"Out": out},
                      attrs={"axis": axis})
     return out
@@ -182,7 +201,61 @@ def _make_elementwise(op_type):
 
 
 elementwise_add = _make_elementwise("elementwise_add")
+elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")
+elementwise_max = _make_elementwise("elementwise_max")
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+    else:
+        d = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"reduce_all": False, "dim": list(d), "keep_dim": keep_dim}
+    helper.append_op("reduce_sum", inputs={"X": input}, outputs={"Out": out},
+                     attrs=attrs)
+    return out
+
+
+def _make_unary(op_type):
+    def f(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": x}, outputs={"Out": out})
+        return out
+    f.__name__ = op_type
+    return f
+
+
+sqrt = _make_unary("sqrt")
+square = _make_unary("square")
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"max_norm": max_norm})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": input}, outputs={"Out": out})
+    return out
 
 
 def mean(x, name=None):

@@ -1,8 +1,9 @@
 """Composite nets: the attention builders of paddle_tpu/static/nets.py.
 
 `attention_core` emits the `flash_attention` op when
-`ops.attention.use_flash_for(seq)` holds, else the score-matrix graph
-(scale -> matmul -> softmax -> matmul), exactly as the JAX package does.
+`ops.attention.use_flash_for(seq)` holds and there is no attention
+dropout, else the score-matrix graph (scale -> matmul -> softmax ->
+[dropout] -> matmul), exactly as the JAX package does.
 """
 from __future__ import annotations
 
@@ -15,13 +16,9 @@ def attention_core(q, k, v, d_key, dropout_rate=0.0, merge_shape=None):
     """Attention over already-head-split [b, h, t, d] tensors; dispatches
     to the flash op when enabled.  Returns merged [b, t, h*d]."""
     from ..ops.attention import use_flash_for
-    if dropout_rate:
-        raise NotImplementedError(
-            "attention dropout needs the dropout op, which is not ported "
-            "yet (ROADMAP.md Queue 1 item 6, with a graph-safe RNG)")
     seq = q.shape[2] if q.shape is not None and len(q.shape) > 2 else None
     seq = seq if isinstance(seq, int) and seq > 0 else None
-    if use_flash_for(seq):
+    if use_flash_for(seq) and not dropout_rate:
         helper = layers.LayerHelper("flash_attention")
         ctx = helper.create_variable_for_type_inference(q.dtype)
         ctx.shape = tuple(q.shape)
@@ -32,6 +29,8 @@ def attention_core(q, k, v, d_key, dropout_rate=0.0, merge_shape=None):
         scaled = layers.scale(q, scale=d_key ** -0.5)
         logits = layers.matmul(scaled, k, transpose_y=True)
         weights = layers.softmax(logits)
+        if dropout_rate:
+            weights = layers.dropout(weights, dropout_prob=dropout_rate)
         ctx = layers.matmul(weights, v)
     ctx = layers.transpose(ctx, [0, 2, 1, 3])  # [b, t, h, d]
     if merge_shape is None:
@@ -49,17 +48,13 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
     if sequence_parallel:
         raise NotImplementedError(
             "scaled_dot_product_attention(sequence_parallel=True) emits "
-            "ring_attention, which belongs to the distribution slice of "
-            "ROADMAP.md and is not ported yet")
+            "ring_attention, which belongs to the distribution slice "
+            "(ROADMAP.md Queue 1 item 6) and is not ported yet")
     if causal:
         raise NotImplementedError(
             "causal masking is only wired for the sequence_parallel "
             "(ring_attention) path; the score-matrix graph here is the "
             "bidirectional BERT/ERNIE form")
-    if dropout_rate:
-        raise NotImplementedError(
-            "attention dropout needs the dropout op, which is not ported "
-            "yet (ROADMAP.md Queue 1 item 6, with a graph-safe RNG)")
     d_key = queries.shape[-1] // num_heads
 
     def _split_heads(x):
@@ -74,5 +69,7 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
         scaled = layers.scale(q, scale=d_key ** -0.5)
         logits = layers.matmul(scaled, k, transpose_y=True)
         weights = layers.softmax(logits)
+        if dropout_rate:
+            weights = layers.dropout(weights, dropout_prob=dropout_rate)
         return layers.matmul(weights, v)
-    return attention_core(q, k, v, d_key)
+    return attention_core(q, k, v, d_key, dropout_rate)

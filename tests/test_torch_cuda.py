@@ -9,8 +9,9 @@ views that TMA refuses, which are copied; head dims 129-256 on the
 the 16-bit split-D wgmma forward, dQ and dK/dV, and from 256 up the fp32
 3xTF32 split-D forward, dQ and dK/dV), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
-and `Executor.run_steps` (CUDA-graph replay of the step) against eager
-`run()` steps.
+`Executor.run_steps` (CUDA-graph replay of the step) against eager
+`run()` steps, and the dropout kernel (csrc/dropout_philox.cu) against
+its plain version, bit for bit, alone and replayed in a captured step.
 
 Tolerances against the plain versions: fp32 1e-4 (summation order;
 3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
@@ -736,6 +737,115 @@ def test_run_steps_failing_capture_raises(monkeypatch):
     torch.cuda.synchronize()
     for n, t in before.items():
         assert torch.equal(scope.vars[n], t), n
+
+
+# ---------------------------------------------------------------------------
+# the dropout kernel: Philox bits from a seed in device memory
+# ---------------------------------------------------------------------------
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("shape,dtype,p,upscale,host_seed", [
+    ((8, 12, 128, 128), torch.bfloat16, 0.1, True, False),
+    ((4, 128, 768), torch.float32, 0.1, True, False),
+    ((4, 128, 768), torch.float16, 0.5, True, True),
+    ((1001,), torch.float32, 0.3, False, False),
+    ((37, 41), torch.bfloat16, 0.0, True, False),
+    ((37, 41), torch.float16, 1.0, True, False),
+])
+def test_dropout_kernel_matches_plain_version(shape, dtype, p, upscale,
+                                              host_seed):
+    """Out and Mask equal to the plain version's to the last bit, the seed
+    read through a device pointer or given as a host integer."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import dropout as tdrop
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    seed = 12345 if host_seed else torch.tensor([12345], device="cuda")
+    before = tdrop.dropout_cuda.launches
+    out, mask = tdrop.dropout_cuda(x, p, seed, 7, upscale)
+    torch.cuda.synchronize()
+    assert tdrop.dropout_cuda.launches == before + 1
+    ref_out, ref_mask = tdrop.dropout_plain(x, p, seed, 7, upscale)
+    assert _same_bits(out, ref_out) and _same_bits(mask, ref_mask)
+    assert _same_bits(mask, tdrop.dropout_plain(x.cpu(), p, 12345, 7,
+                                                upscale)[1].cuda())
+
+
+def test_dropout_kernel_unaligned_view_and_wrong_seed():
+    """A view 2 bytes past a 16-byte boundary takes the scalar path, with
+    the same bits; a seed on the host or of another dtype is refused."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import dropout as tdrop
+    g = torch.Generator(device="cuda").manual_seed(4)
+    flat = torch.randn(4099, device="cuda", generator=g).to(torch.bfloat16)
+    seed = torch.tensor([5], device="cuda")
+    out, mask = tdrop.dropout_cuda(flat[1:], 0.2, seed, 1, True)
+    ref_out, ref_mask = tdrop.dropout_plain(flat[1:], 0.2, seed, 1, True)
+    assert _same_bits(out, ref_out) and _same_bits(mask, ref_mask)
+    for bad in (torch.tensor([5]), torch.tensor([5], dtype=torch.int32,
+                                                device="cuda")):
+        with pytest.raises(ValueError, match="seed"):
+            tdrop.dropout_cuda(flat, 0.2, bad, 1, True)
+
+
+def _dropout_fc(static, layers):
+    """fc -> dropout (upscale) -> fc -> dropout (downgrade) regression,
+    Adam; returns (main, startup, loss, the two Mask names)."""
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 64])
+        y = layers.data("y", [-1, 1])
+        h = layers.dropout(layers.fc(x, 256, act="gelu"), 0.2,
+                           dropout_implementation="upscale_in_train")
+        h = layers.dropout(layers.fc(h, 1), 0.1)
+        diff = layers.elementwise_add(h, layers.scale(y, -1.0))
+        loss = layers.mean(layers.elementwise_mul(diff, diff))
+        static.Adam(1e-3).minimize(loss)
+    masks = [op.outputs["Mask"][0] for op in main.global_block().ops
+             if op.type == "dropout"]
+    return main, startup, loss, masks
+
+
+def test_run_steps_with_dropout_matches_run():
+    """A program with dropout is captured (no refusal): K = 4 replayed
+    steps against 4 eager run() steps from the same state and step count,
+    losses, masks and persistables to the last bit; every replayed step
+    draws a new mask (the first dropout's); the kernel launched in the warm-up and the capture
+    only (twice per dropout op), not on a replay."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import dropout as tdrop
+    from paddle_tpu_torch.static import layers
+    main, startup, loss, masks = _dropout_fc(static, layers)
+    rng = np.random.RandomState(0)
+    xs = rng.randn(4, 32, 64).astype(np.float32)
+    feed = {"x": xs, "y": xs.sum(-1, keepdims=True).astype(np.float32)}
+    exe, scope = static.Executor(), static.Scope()
+    with static.scope_guard(scope):
+        exe.run(startup)
+    twin, twin_exe = static.Scope(), static.Executor()
+    for n, t in scope.vars.items():
+        twin.set(n, t.clone())
+    twin_exe._step = exe._step
+    before = tdrop.dropout_cuda.launches
+    with static.scope_guard(scope):
+        got = exe.run_steps(main, feed=feed, fetch_list=[loss] + masks)
+    assert tdrop.dropout_cuda.launches - before == 2 * len(masks)
+    with static.scope_guard(twin):
+        want = [twin_exe.run(main, feed={n: v[i] for n, v in feed.items()},
+                             fetch_list=[loss] + masks) for i in range(4)]
+    for j in range(1 + len(masks)):
+        np.testing.assert_array_equal(
+            got[j], np.stack([np.asarray(w[j]) for w in want]).reshape(
+                got[j].shape))
+    m = got[1]  # the first dropout's [32, 256] masks
+    assert all(not np.array_equal(m[i], m[i + 1]) for i in range(3))
+    for n, t in twin.vars.items():
+        assert torch.equal(scope.vars[n], t), n
+    exe.close()
 
 
 _BF16, _FP16 = torch.bfloat16, torch.float16
