@@ -2,9 +2,11 @@
 """GPU smoke run of the paddle_tpu_torch port: build its CUDA kernels,
 hold each against its plain PyTorch version, serve a BERT-base encoder
 over HTTP /predict and train BERT-base, both through the kernels, the
-training step also as a CUDA graph replayed by Executor.run_steps, and
-train BERT-base with google-research/bert's pretraining recipe (dropout,
-AdamW, gradient clipping, lr schedule, gradient merge).
+training step also as a CUDA graph replayed by Executor.run_steps, train
+BERT-base with google-research/bert's pretraining recipe (dropout,
+AdamW, gradient clipping, lr schedule, gradient merge), serve GPT
+/generate, and train BERT-base through the dygraph 2.0 API (autograd,
+auto_cast and GradScaler, paddle.optimizer, models.bert, hapi).
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -164,6 +166,40 @@ is present.  Phases:
                same state and seeds; the embedding dropout's mask new in
                every replayed step; one capture, then hits; losses
                finite, the last below the first; wide launches 0.
+  9. dygraph - BertForPretraining(BertModel(BertConfig())) (the JAX
+               package's defaults: google-research/bert base, vocab
+               30522, hidden 768, 12 layers, 12 heads, FFN 3072, 512
+               positions, dropout 0.1), batch 8 x seq 512, no padding
+               mask, weights from --seed, one fixed batch (MLM labels at
+               every position, NSP labels); AdamW(weight decay 0.01,
+               ClipGradByGlobalNorm(1.0), LinearWarmup(2 steps,
+               PolynomialDecay(1e-4, 1000))); each step auto_cast + a
+               GradScaler, loss.backward() on torch autograd, the
+               scaler's minimize, clear_grad, the scheduler's step; fused
+               CE on, flash forced on (taken where attention has no
+               dropout).  Three variants: (a) "published", attention
+               dropout 0.1, O1 (the score-matrix route); (b) "flash",
+               attention dropout 0, O1 (q, k, v and the logits are fp32
+               there: the fp32 flash and fused CE kernels); (c)
+               "flash_o2", as (b) at O2 (the bf16 kernels).  Each: one
+               warm-up step, 6 timed steps (step ms, tokens/s, MFU over
+               989 TFLOP/s, peak memory), two profiled steps, the second
+               read (device busy, kernels a step, idle share of the
+               profiled and of the median timed step).  Gates: launches per step
+               exact (dropout 37 / 25 / 25, fused CE 2, flash forward /
+               dQ / dK/dV 0 / 0 / 0 and 12 / 12 / 12: autograd keeps the
+               forward's Out and lse, so no forward replay), every flash
+               and fused CE launch in the variant's dtype (each wrapper
+               counts launches by dtype), wide launches 0, losses finite
+               and the last below the first.  Then hapi: Model(net)
+               .prepare(AdamW, criterion, amp_configs={"level": "O1"}),
+               2 train_batch steps equal to the last bit (losses and
+               parameters) to 2 bare-loop steps from the same weights and
+               draw state; and one fp32 step of (b)'s model through the
+               kernels against flash and fused CE off (the same dropout
+               masks): loss rtol 1e-4, the gradients of the word
+               embedding, the first layer's q, k and v projections and
+               the MLM transform within a normalised max error of 1e-3.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -183,7 +219,9 @@ launches per graph-replayed step of phase 6, the fp16 instances
 kernels for head dims above 128 (the D = 256 and D = 512 cases, and
 D = 768 for every split-D kernel in fp32 and bf16; their launches on every
 main path, gated at 0 in each: no configuration has a head dim above
-128); the last line {"ok": true, "device": {...}}.
+128); each row also gives its kernel's launches per dygraph step in each
+phase 9 variant, in the row's dtype (`launches_per_dygraph_step`); the
+last line {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -2116,6 +2154,320 @@ def recipe_config(torch, seed, feed, variant, attn_dropout):
     return result
 
 
+# phase 9: BERT-base pretraining through the dygraph 2.0 API
+DYGRAPH_STEPS = 6       # timed steps, after one warm-up step
+# (variant, attention dropout, auto_cast level, dtype at the flash and
+# fused cross-entropy kernels: O1 keeps q, k, v and the logits in fp32)
+DYGRAPH_VARIANTS = (("published", 0.1, "O1", "float32"),
+                    ("flash", 0.0, "O1", "float32"),
+                    ("flash_o2", 0.0, "O2", "bfloat16"))
+DYGRAPH_HIDDEN_DROPOUTS = 1 + 2 * BERT["layers_n"]  # embeddings, 2 a layer
+
+
+def dygraph_batch(torch, seed):
+    """One fixed batch: ids and MLM labels at every position [8, 512],
+    NSP labels [8], on the card."""
+    rng = np.random.RandomState(seed)
+    b, seq, vocab = TRAIN_BATCH, BERT["seq"], BERT["vocab"]
+    return tuple(torch.from_numpy(a).cuda() for a in (
+        rng.randint(0, vocab, (b, seq)).astype(np.int64),
+        rng.randint(0, vocab, (b, seq)).astype(np.int64),
+        rng.randint(0, 2, (b,)).astype(np.int64)))
+
+
+def dygraph_model(seed, attn_dropout):
+    """BertForPretraining(BertModel(BertConfig())) at the JAX package's
+    defaults (google-research/bert base: hidden and attention dropout 0.1)
+    with the attention dropout given, weights from `seed`, on
+    CUDAPlace(0); and its criterion."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertModel, BertPretrainingCriterion)
+    _reset_unique_names()
+    paddle.seed(seed)
+    cfg = BertConfig(attention_probs_dropout_prob=attn_dropout)
+    if (cfg.vocab_size, cfg.hidden_size, cfg.num_hidden_layers,
+            cfg.num_attention_heads, cfg.max_position_embeddings) != (
+            BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
+            BERT["seq"]):
+        raise AssertionError("BertConfig() is not BERT-base")
+    return (BertForPretraining(BertModel(cfg)),
+            BertPretrainingCriterion(cfg.vocab_size))
+
+
+def dygraph_optimizer(net, lr=None):
+    """AdamW(weight decay 0.01, global-norm clip 1.0) over LinearWarmup(2
+    steps, PolynomialDecay(1e-4, 1000)), or a constant `lr`."""
+    from paddle_tpu_torch import optimizer as opt
+    sched = opt.lr.LinearWarmup(opt.lr.PolynomialDecay(1e-4, 1000), 2, 0.0,
+                                1e-4) if lr is None else lr
+    return opt.AdamW(learning_rate=sched, parameters=net.parameters(),
+                     weight_decay=0.01,
+                     grad_clip=opt.ClipGradByGlobalNorm(1.0))
+
+
+def dygraph_counters(attn, dr, fx):
+    return {"dropout": dr.dropout_cuda, "flash_attn_fwd": attn.flash_attention,
+            "flash_attn_bwd_dq": attn.flash_attention_bwd_dq_cuda,
+            "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv_cuda,
+            "fused_xent_fwd": fx.fused_xent_cuda}
+
+
+def zero_dygraph_counts(attn, dr, fx):
+    import collections
+    for c in dygraph_counters(attn, dr, fx).values():
+        c.launches = 0
+        c.dtype_launches = collections.Counter()
+    zero_wide(attn)
+
+
+def dygraph_phase(torch, seed):
+    """(9) BERT-base pretraining through the dygraph 2.0 API: three
+    variants, the fp32 kernels-against-plain step and hapi.train_batch
+    against the bare loop.  Returns {variant: result}."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    batch = dygraph_batch(torch, seed)
+    out = {}
+    try:
+        attn.enable_flash_attention(True)  # taken where attention has no
+        fx.enable_fused_xent(True)         # dropout
+        for variant, attn_dropout, level, dtype in DYGRAPH_VARIANTS:
+            out[variant] = dygraph_config(torch, attn, dr, fx, seed, batch,
+                                          variant, attn_dropout, level,
+                                          dtype)
+            torch.cuda.empty_cache()
+        dygraph_hapi(torch, seed, batch)
+        torch.cuda.empty_cache()
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+        fx.enable_fused_xent(False)
+    dygraph_correctness(torch, attn, dr, fx, seed, batch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def dygraph_step(net, crit, opt, scaler, batch, level):
+    """One step of the bare loop: forward and loss under auto_cast, the
+    scaled backward, unscale / skip-on-inf / step / scale update, then
+    clear the gradients and step the lr scheduler."""
+    from paddle_tpu_torch import amp
+    ids, labels, nsp = batch
+    with amp.auto_cast(level=level):
+        loss = crit(*net(ids), labels, nsp)
+    scaler.scale(loss).backward()
+    scaler.minimize(opt, loss)
+    opt.clear_grad()
+    opt._learning_rate.step()
+    return loss
+
+
+def dygraph_config(torch, attn, dr, fx, seed, batch, variant, attn_dropout,
+                   level, dtype):
+    """One variant: a warm-up step, DYGRAPH_STEPS timed steps (the main
+    path: counts from 0 just before), two profiled steps (the second is
+    read: device busy ms, kernels, idle share of its wall time and of the
+    median timed step, since the profiler slows the host).  Gates: launches
+    per step (dropout 37 with attention dropout, 25 without; fused
+    cross-entropy 2; flash forward / dQ / dK/dV 0 / 0 / 0 with attention
+    dropout, 12 / 12 / 12 without), all of them in `dtype`; wide launches
+    0; losses finite, the last below the first."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import amp
+    net, crit = dygraph_model(seed, attn_dropout)
+    opt = dygraph_optimizer(net)
+    scaler = amp.GradScaler()
+    n_params = sum(p.numel() for p in net.parameters())
+    net.train()
+    n = BERT["layers_n"]
+    flash = 0 if attn_dropout else 1
+    want = {"dropout": DYGRAPH_HIDDEN_DROPOUTS + (n if attn_dropout else 0),
+            "flash_attn_fwd": n * flash, "flash_attn_bwd_dq": n * flash,
+            "flash_attn_bwd_dkv": n * flash, "fused_xent_fwd": 2}
+    losses = [float(dygraph_step(net, crit, opt, scaler, batch,
+                                 level).detach())]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before
+    zero_dygraph_counts(attn, dr, fx)
+    step_ms = []
+    for _ in range(DYGRAPH_STEPS):
+        t0 = time.perf_counter()
+        loss = dygraph_step(net, crit, opt, scaler, batch, level)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    counters = dygraph_counters(attn, dr, fx)
+    launches = {k: c.launches for k, c in counters.items()}
+    by_dtype = {k: dict(c.dtype_launches) for k, c in counters.items()
+                if k != "dropout"}
+    record_wide(f"dygraph_{variant}", read_wide(attn))
+    # ---- end of the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # two profiled steps, the second one read: the first window pays the
+    # profiler's start-up (7.9 s of wall time in a first chip run)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss = dygraph_step(net, crit, opt, scaler, batch, level)
+            torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss.detach()))
+    (_, dev) = count_kernels(prof, {})
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    for name, per in want.items():
+        if launches[name] != per * DYGRAPH_STEPS:
+            raise AssertionError(
+                f"dygraph {variant} {name}: {launches[name]} launches in "
+                f"{DYGRAPH_STEPS} steps, expected {per} per step")
+        if name != "dropout" and per and \
+                by_dtype[name] != {dtype: per * DYGRAPH_STEPS}:
+            raise AssertionError(f"dygraph {variant} {name}: launches by "
+                                 f"dtype {by_dtype[name]}, expected all "
+                                 f"{dtype}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dygraph {variant}: losses not finite and "
+                             f"falling: {losses}")
+    tokens = TRAIN_BATCH * BERT["seq"]
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    result = {"phase": "dygraph", "variant": variant,
+              "config": "BertForPretraining(BertModel(BertConfig())) "
+                        f"(bert-base, hidden dropout 0.1, attention "
+                        f"{attn_dropout}); AdamW wd 0.01, global-norm clip "
+                        f"1.0, warmup + linear decay; auto_cast {level} + "
+                        "GradScaler; fused CE",
+              "batch": TRAIN_BATCH, "seq": BERT["seq"], "params": n_params,
+              "losses": losses, "step_ms": step_ms,
+              "median_step_ms": steady,
+              "tokens_per_s": tokens / (steady / 1e3),
+              "mfu": 6 * n_params * tokens / (steady / 1e3)
+              / PEAK_FLOPS["bfloat16"],
+              "peak_gpu_mem_gb": peak_gb,
+              "profiled_step_ms": prof_ms,
+              "device_busy_ms": busy_ms,
+              "device_idle_share": max(0.0, 1.0 - busy_ms / prof_ms),
+              "device_idle_share_of_timed_step":
+                  max(0.0, 1.0 - busy_ms / steady),
+              "device_kernels_per_step": sum(e.count for e in dev),
+              "top_device_ms": [[e.key[:80], e.count,
+                                 e.self_device_time_total / 1e3]
+                                for e in sorted(dev, key=lambda e:
+                                                -e.self_device_time_total)
+                                [:8]],
+              "launches": launches,
+              "launches_per_step": {k: v // DYGRAPH_STEPS
+                                    for k, v in launches.items()},
+              "launches_by_dtype": by_dtype,
+              "loss_scale": scaler.get_loss_scaling()}
+    log(result)
+    del net, opt, prof
+    return result
+
+
+def dygraph_correctness(torch, attn, dr, fx, seed, batch):
+    """One fp32 step (no auto_cast) of the flash variant's model through
+    the kernels (flash and fused cross-entropy on) against the same
+    weights and dropout masks with both off (the score-matrix route and
+    the cross-entropy in torch ops): loss within rtol 1e-4; the gradients
+    of the word embedding, the first layer's q, k and v projections and
+    the MLM transform within a normalised max error of 1e-3."""
+    from paddle_tpu_torch.core.generator import get_rng_state, set_rng_state
+    net, crit = dygraph_model(seed, 0.0)
+    net.train()
+    attn0 = net.bert.encoder.layers[0].self_attn
+    checked = {"word_embedding": net.bert.embeddings.word_embeddings.weight,
+               "q_proj_0": attn0.q_proj.weight,
+               "k_proj_0": attn0.k_proj.weight,
+               "v_proj_0": attn0.v_proj.weight,
+               "mlm_transform": net.cls.transform.weight}
+    ids, labels, nsp = batch
+    rng = get_rng_state()
+    got = {}
+    for tag in ("kernels", "plain"):
+        attn.enable_flash_attention(tag == "kernels")
+        fx.enable_fused_xent(tag == "kernels")
+        set_rng_state(rng)  # the same dropout masks in both runs
+        zero_dygraph_counts(attn, dr, fx)
+        try:
+            loss = crit(*net(ids), labels, nsp)
+            loss.backward()
+        finally:
+            attn._FLASH_STATE["mode"] = "auto"
+            fx.enable_fused_xent(False)
+        counts = {k: c.launches
+                  for k, c in dygraph_counters(attn, dr, fx).items()}
+        expect = {"dropout": DYGRAPH_HIDDEN_DROPOUTS,
+                  **dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                   "flash_attn_bwd_dkv"),
+                                  BERT["layers_n"] if tag == "kernels"
+                                  else 0),
+                  "fused_xent_fwd": 2 if tag == "kernels" else 0}
+        if counts != expect:
+            raise AssertionError(f"dygraph fp32 {tag}: launches {counts}, "
+                                 f"expected {expect}")
+        got[tag] = (float(loss.detach()), {k: p.grad.detach().clone()
+                                  for k, p in checked.items()})
+        net.clear_gradients()
+    (loss_k, gk), (loss_p, gp) = got["kernels"], got["plain"]
+    if not np.isfinite(loss_k) or abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError(f"dygraph fp32 loss {loss_k} != plain {loss_p}")
+    err = {}
+    for k in checked:
+        scale = float(gp[k].abs().max())
+        if not scale > 0 or not bool(torch.isfinite(gk[k]).all()):
+            raise AssertionError(f"dygraph fp32 grad of {k}: bad")
+        err[k] = float((gk[k] - gp[k]).abs().max()) / scale
+        if not err[k] <= 1e-3:
+            raise AssertionError(f"dygraph fp32 grad of {k}: normalised "
+                                 f"max error {err[k]} > 1e-3")
+    log({"phase": "dygraph_fp32_check", "loss_kernels": loss_k,
+         "loss_plain": loss_p, "grad_normalised_max_err": err})
+    del net, got
+
+
+def dygraph_hapi(torch, seed, batch):
+    """hapi.Model(net).prepare(AdamW, criterion, amp_configs={"level":
+    "O1"}): 2 train_batch steps against 2 bare-loop steps (auto_cast O1,
+    no loss scaling) from the same weights and eager draw state: losses
+    and every parameter equal to the last bit."""
+    from paddle_tpu_torch import amp, hapi
+    from paddle_tpu_torch.core.generator import get_rng_state, set_rng_state
+    net, crit = dygraph_model(seed, 0.0)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    rng = get_rng_state()
+    model = hapi.Model(net)
+    model.prepare(dygraph_optimizer(net, lr=1e-4), crit,
+                  amp_configs={"level": "O1"})
+    ids, labels, nsp = batch
+    via_hapi = [model.train_batch([ids], [labels, nsp])[0]
+                for _ in range(2)]
+    after = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    net.set_state_dict(init)
+    opt = dygraph_optimizer(net, lr=1e-4)
+    set_rng_state(rng)
+    bare = []
+    for _ in range(2):
+        net.train()
+        with amp.auto_cast(level="O1"):
+            loss = crit(*net(ids), labels, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        bare.append(float(loss.detach()))
+    same = all(torch.equal(after[k], v)
+               for k, v in net.state_dict().items())
+    if via_hapi != bare or not same:
+        raise AssertionError(f"hapi train_batch {via_hapi} != bare loop "
+                             f"{bare} (parameters equal: {same})")
+    log({"phase": "dygraph_hapi", "train_batch_losses": via_hapi,
+         "bare_loop_losses": bare, "bitwise_equal": True})
+    del net, model, opt, init, after
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2214,6 +2566,7 @@ def main():
                        args.profile)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    dygraph = dygraph_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -2266,6 +2619,15 @@ def main():
             ("flash_attn_bwd_dkv_fp16", bwd["slice_fp16"]["dkv"], 0,
              no_path),
             ("fused_xent_fwd_fp16", xent["train_fp16"], 0, no_path)]
+    # launches per dygraph step (phase 9) of each row's kernel in its dtype
+    row_dtype = {"": "bfloat16", "_fp32": "float32", "_fp16": "float16"}
+    rows = [(name, r, n, dict(extra)) for name, r, n, extra in rows]
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        dt = row_dtype[name[len(base):]]
+        extra["launches_per_dygraph_step"] = {
+            v: r["launches_by_dtype"][base].get(dt, 0) / DYGRAPH_STEPS
+            for v, r in dygraph.items()}
     # the kernels for head dims above 128: launches measured on every
     # main path (the wrappers count per route and kernel, over all dtypes;
     # 0, gated in each path, since no configuration has a head dim above
@@ -2273,7 +2635,8 @@ def main():
     paths = ("serve", "train_amp", "train_fp32", "train_graph_amp",
              "train_graph_fp32", "generate") + tuple(
                  f"recipe{g}_{v}" for g in ("", "_graph")
-                 for v, _ in RECIPE_VARIANTS)
+                 for v, _ in RECIPE_VARIANTS) + tuple(
+                 f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS)
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -2300,7 +2663,10 @@ def main():
                       for v, _ in RECIPE_VARIANTS},
                   "launches_per_replayed_step": {
                       v: recipe[v]["launches_per_replayed_step"]["dropout"]
-                      for v, _ in RECIPE_VARIANTS}}))
+                      for v, _ in RECIPE_VARIANTS},
+                  "launches_per_dygraph_step": {
+                      v: r["launches_per_step"]["dropout"]
+                      for v, r in dygraph.items()}}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

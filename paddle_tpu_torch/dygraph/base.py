@@ -3,8 +3,13 @@
 Counterpart of paddle_tpu/dygraph/base.py (the reference's
 fluid/dygraph/base.py guard / enabled / no_grad).  Imperative mode is
 PyTorch's eager mode and is always on (the port's static-graph API
-builds programs explicitly), so `enabled()` is True; the grad guards are
-torch's own.
+builds programs explicitly), so `enabled()` and `in_dygraph_mode()` are
+True; the grad guards are torch's own, and "tape recording" is torch
+autograd recording:
+
+  * `no_grad` (a context manager and, as `no_grad()`, a decorator),
+    `enable_grad`, `set_grad_enabled(flag)` and `is_grad_enabled()` are
+    torch.no_grad / enable_grad / set_grad_enabled / is_grad_enabled.
 
 `guard(place)` also sets the place that `to_tensor` and new `Layer`
 parameters use.  With no place set that is CUDAPlace(0), which raises
@@ -20,13 +25,18 @@ import torch
 
 from ..core.place import resolve_place
 
-__all__ = ["enabled", "guard", "no_grad", "current_place"]
+__all__ = ["enabled", "in_dygraph_mode", "guard",
+           "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
+           "current_place"]
 
 _place = [None]  # the eager place; None = the default (CUDAPlace(0))
 
 
 def enabled() -> bool:
     return True
+
+
+in_dygraph_mode = enabled
 
 
 def current_place():
@@ -48,5 +58,10 @@ def guard(place=None):
         _place[0] = prev
 
 
-# torch's grad guard (a context manager and a decorator)
+# torch's grad guards (no_grad and enable_grad are context managers and
+# decorators; set_grad_enabled(flag) is a context manager that also sets
+# the mode when called alone)
 no_grad = torch.no_grad
+enable_grad = torch.enable_grad
+set_grad_enabled = torch.set_grad_enabled
+is_grad_enabled = torch.is_grad_enabled

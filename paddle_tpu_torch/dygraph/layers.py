@@ -2,15 +2,25 @@
 
 Counterpart of paddle_tpu/dygraph/layers.py (the reference's
 fluid/dygraph/layers.py Layer).  Parameters are `torch.nn.Parameter`s,
-so torch autograd, `.to()`, `train()` / `eval()` and `parameters()` work
-as on any module; Paddle's names sit beside them:
+so torch autograd, `.to()`, `train()` / `eval()` (which reach every
+sublayer) and `parameters()` work as on any module; Paddle's names sit
+beside them:
 
   * `create_parameter(shape, attr, dtype, is_bias, default_initializer)`
     keeps Paddle's shapes (`Linear.weight` is [in, out]) and initializers
     (Xavier for weights, 0 for biases unless the layer says otherwise).
     It runs the SAME initializer op a startup program would append, in a
     throwaway block, on the eager place, with a generator seeded from the
-    global seed and a draw counter (core/generator.py);
+    global seed and a draw counter (core/generator.py).  The parameter
+    carries its Paddle name (`paddle_name`, unique_name(layer + ".w")) and
+    `need_clip` (the 2.0 optimizers' clip leaves it out when False);
+  * `copy.deepcopy` of a layer names each copied parameter
+    `<name>_deepcopy_<n>`, as Paddle's ParamBase.__deepcopy__ does (the
+    JAX package's copies keep the original names, ROADMAP.md Queue 3);
+  * `register_forward_pre_hook(hook(layer, inputs))` and
+    `register_forward_post_hook(hook(layer, inputs, outputs))` are torch's
+    forward pre-hook and forward hook (a non-None return replaces the
+    inputs or outputs); `clear_gradients()` drops every gradient;
   * `named_sublayers` / `sublayers` walk breadth-first as the JAX package
     does, and `state_dict()` lists parameters (then persistable buffers)
     under the JAX package's structured names in that same order;
@@ -22,6 +32,7 @@ as on any module; Paddle's names sit beside them:
 from __future__ import annotations
 
 import collections
+import copy
 from typing import Iterator, List, Tuple
 
 import numpy as np
@@ -34,7 +45,8 @@ from ..ops.registry import OpContext
 from ..static.initializer import Constant, XavierInitializer
 from ..static.param_attr import ParamAttr
 
-__all__ = ["Layer", "LayerList", "materialize_initializer"]
+__all__ = ["Layer", "Sequential", "LayerList", "ParameterList",
+           "materialize_initializer"]
 
 
 def materialize_initializer(init, shape, dtype="float32", name=None,
@@ -98,8 +110,39 @@ class Layer(torch.nn.Module):
         value = materialize_initializer(
             init, shape, dtype, name,
             device=current_place().torch_device())
-        return torch.nn.Parameter(value.to(torch_dtype(dtype)),
-                                  requires_grad=bool(attr.trainable))
+        p = torch.nn.Parameter(value.to(torch_dtype(dtype)),
+                               requires_grad=bool(attr.trainable))
+        p.paddle_name = name
+        p.need_clip = bool(attr.need_clip)
+        return p
+
+    def __deepcopy__(self, memo):
+        """A copy whose parameters keep `need_clip` and take new names
+        (`<name>_deepcopy_<n>`; torch's Parameter.__deepcopy__ drops
+        attributes)."""
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            new.__dict__[k] = copy.deepcopy(v, memo)
+        for key, p in self._parameters.items():
+            q = new._parameters.get(key)
+            if p is None or q is None or hasattr(q, "paddle_name"):
+                continue
+            if hasattr(p, "need_clip"):
+                q.need_clip = p.need_clip
+            if hasattr(p, "paddle_name"):
+                q.paddle_name = p.paddle_name + unique_name("_deepcopy")
+        return new
+
+    # -- Paddle's hook and gradient names -----------------------------------
+    def register_forward_post_hook(self, hook):
+        """hook(layer, inputs, outputs); a non-None return replaces the
+        outputs.  Returns a handle with `.remove()`."""
+        return self.register_forward_hook(hook)
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.grad = None
 
     def add_sublayer(self, name, sublayer):
         self.add_module(str(name), sublayer)
@@ -170,6 +213,54 @@ class Layer(torch.nn.Module):
                 t.copy_(val.to(device=t.device, dtype=t.dtype))
         unexpected = [n for n in state_dict if n not in own]
         return missing, unexpected
+
+
+class Sequential(Layer):
+    """nn.Sequential: layers, or (name, layer) pairs, run in order."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
+                layers[0] and isinstance(layers[0][0], (list, tuple)):
+            layers = layers[0]
+        for i, l in enumerate(layers):
+            if isinstance(l, (list, tuple)):
+                self.add_sublayer(str(l[0]), l[1])
+            else:
+                self.add_sublayer(str(i), l)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def forward(self, x):
+        for l in self._modules.values():
+            x = l(x)
+        return x
+
+
+class ParameterList(Layer):
+    """A list of parameters, registered under "0", "1", ..."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for i, p in enumerate(parameters or []):
+            self.register_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.register_parameter(str(len(self)), parameter)
+        return self
 
 
 class LayerList(Layer):

@@ -1,19 +1,32 @@
 """paddle_tpu_torch.nn — the paddle-2.0 neural-net API, as far as the GPT
-`/generate` slice runs it.
+`/generate` slice and the dygraph BERT training slice run it.
 
-Counterpart of paddle_tpu/nn/: `Layer` / `LayerList` (dygraph/layers.py),
-the functional forms the slice calls (functional.py), `Linear`,
-`Embedding`, `Dropout` (layer/common.py), `LayerNorm` (layer/norm.py),
-`MultiHeadAttention` (layer/transformer.py) and the default initializers
-(initializer.py).  The other layer families (conv, pooling, rnn, loss,
-the transformer encoder/decoder classes, ...) wait for ROADMAP Queue 1
-item 5.
+Counterpart of paddle_tpu/nn/: `Layer`, `Sequential`, `LayerList`,
+`ParameterList` (dygraph/layers.py), the functional forms
+(functional.py), `Identity`, `Linear`, `Embedding`, `Dropout`
+(layer/common.py), `LayerNorm` (layer/norm.py), `ReLU`, `Tanh`,
+`GELU`, `Softmax`, `LogSoftmax` (layer/activation.py),
+`CrossEntropyLoss`, `MSELoss` (layer/loss.py), `MultiHeadAttention`,
+`TransformerEncoderLayer`, `TransformerEncoder` (layer/transformer.py),
+the default initializers (initializer.py) and, as paddle 2.0 exports
+them here, the gradient clips `ClipGradByValue` / `ByNorm` /
+`ByGlobalNorm`.  The other layer families (conv, pooling, rnn, the
+transformer decoder, ...) wait for ROADMAP Queue 1 item 8.
 """
-from ..dygraph.layers import Layer, LayerList  # noqa: F401
+from ..dygraph.layers import (  # noqa: F401
+    Layer, Sequential, LayerList, ParameterList,
+)
 from ..dygraph.base import no_grad  # noqa: F401
+from ..static.optimizer import (  # noqa: F401
+    GradientClipByValue as ClipGradByValue,
+    GradientClipByNorm as ClipGradByNorm,
+    GradientClipByGlobalNorm as ClipGradByGlobalNorm,
+)
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
-from .layer import common, norm, transformer  # noqa: F401
+from .layer import activation, common, loss, norm, transformer  # noqa: F401
+from .layer.activation import *  # noqa: F401,F403
 from .layer.common import *  # noqa: F401,F403
+from .layer.loss import *  # noqa: F401,F403
 from .layer.norm import *  # noqa: F401,F403
 from .layer.transformer import *  # noqa: F401,F403

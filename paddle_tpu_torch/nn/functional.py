@@ -1,32 +1,56 @@
-"""paddle.nn.functional — the subset the GPT `/generate` slice calls.
+"""paddle.nn.functional — the subset the GPT `/generate` slice and the
+dygraph BERT training slice call.
 
-Counterpart of paddle_tpu/nn/functional.py (`linear` :137, `embedding`
-:335, `layer_norm` :248, `gelu` :49, `softmax` :97, `dropout` :318),
-written as torch ops on torch tensors with Paddle's conventions: a
-`linear` weight is [in, features_out]; `embedding` writes zeros for
-`padding_idx`; `gelu` defaults to the exact erf form; `dropout` is the
-identity in eval ("upscale_in_train") or scales by 1 - p
-("downgrade_in_infer").  Dropout in training draws a mask, which waits
-for the dygraph training slice: it raises there (p > 0).
+Counterpart of paddle_tpu/nn/functional.py, written as torch ops on torch
+tensors with Paddle's conventions: a `linear` weight is [in,
+features_out]; `embedding` writes zeros for `padding_idx`; `gelu`
+defaults to the exact erf form.  Each function first calls
+`dygraph.tracer.amp_inputs` with the op type(s) the JAX package traces
+for it (`linear` is `matmul_v2` then `elementwise_add`), so under
+`amp.auto_cast` the casts are the JAX package's.
+
+  * `dropout`: the identity in eval ("upscale_in_train") or a scale by
+    1 - p ("downgrade_in_infer"), and the identity at p = 0.  In training
+    it is `_DropoutFn`: the forward is `ops.dropout.dropout_fwd` (the
+    Philox kernel on a CUDA tensor, its plain version on a CPU one), keyed
+    by `global_seed()` and `next_eager_uid()`; the backward is the
+    explicit gradient from the saved Mask (`apply_mask`, as the static
+    `dropout` op's grad), so nothing is drawn twice;
+  * `cross_entropy` / `softmax_with_cross_entropy` run the port's
+    `softmax_with_cross_entropy` kernel (reductions, `ignore_index`,
+    `weight`, soft labels), so with FLAGS_fused_xent on, hard labels over
+    the last axis take the fused cross-entropy kernel (ops/fused_xent.py),
+    as the static op does (the JAX package fuses only under a trace);
+  * `mse_loss`, and the activations `relu`, `tanh`, `gelu`, `softmax`,
+    `log_softmax`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["linear", "embedding", "layer_norm", "gelu", "softmax",
-           "dropout"]
+from ..dygraph.tracer import amp_inputs, eager_draw_key
+from ..ops.dropout import apply_mask, dropout_fwd
+
+__all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "tanh",
+           "softmax", "log_softmax", "dropout", "dropout_with_mask",
+           "cross_entropy", "softmax_with_cross_entropy", "mse_loss"]
 
 
 def linear(x, weight, bias=None, name=None):
     """x @ weight (+ bias), weight [in, out] (Paddle's layout)."""
+    x, weight = amp_inputs("matmul_v2", x, weight)
     out = torch.matmul(x, weight)
-    return out if bias is None else out + bias
+    if bias is None:
+        return out
+    out, bias = amp_inputs("elementwise_add", out, bias)
+    return out + bias
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of `weight` [V, E] at ids `x`; rows of `padding_idx` are 0
     (the lookup_table_v2 contract)."""
+    (weight,) = amp_inputs("lookup_table_v2", weight)
     out = torch.nn.functional.embedding(x, weight)
     if padding_idx is not None and padding_idx != -1:
         pad = padding_idx % weight.shape[0]
@@ -36,26 +60,128 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                name=None):
+    x, weight, bias = amp_inputs("layer_norm", x, weight, bias)
     shape = [normalized_shape] if np.isscalar(normalized_shape) \
         else list(normalized_shape)
     return torch.nn.functional.layer_norm(x, shape, weight, bias, epsilon)
 
 
+def _unary(op_type, fn):
+    def f(x, name=None):
+        (x,) = amp_inputs(op_type, x)
+        return fn(x)
+    f.__name__ = op_type
+    return f
+
+
+relu = _unary("relu", torch.relu)
+tanh = _unary("tanh", torch.tanh)
+
+
 def gelu(x, approximate=False, name=None):
+    (x,) = amp_inputs("gelu", x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = amp_inputs("softmax", x)
     return torch.softmax(x, dim=int(axis))
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = amp_inputs("log_softmax", x)
+    return torch.log_softmax(x, dim=int(axis))
+
+
+class _DropoutFn(torch.autograd.Function):
+    """Dropout in training: (Out, Mask) from the Philox kernel (its plain
+    version on the CPU); the gradient is Out@GRAD through the saved Mask,
+    scaled as the forward was."""
+
+    @staticmethod
+    def forward(x, p, seed, uid, upscale):
+        return dropout_fwd(x.contiguous(), p, seed, uid, upscale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, p, _, _, upscale = inputs
+        ctx.save_for_backward(output[1])
+        ctx.p, ctx.upscale = p, upscale
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g_out, g_mask):
+        (mask,) = ctx.saved_tensors
+        return (apply_mask(g_out, mask.bool(), ctx.p, ctx.upscale),
+                None, None, None, None)
+
+
+def dropout_with_mask(x, p=0.5, training=True, mode="upscale_in_train"):
+    """(Out, Mask uint8) of the `dropout` op: the JAX package's kernel
+    outputs, with the port's draw (Philox keyed by the global seed and
+    the next eager uid) in training."""
+    (x,) = amp_inputs("dropout", x)
+    upscale = mode != "downgrade_in_infer"
+    if not training:
+        out = x if upscale else \
+            x * float(torch.tensor(1.0 - p, dtype=x.dtype))
+        return out, torch.ones_like(x, dtype=torch.uint8)
+    seed, uid = eager_draw_key()
+    return _DropoutFn.apply(x, float(p), seed, uid, upscale)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
-    if not training or p == 0:
-        if not training and mode == "downgrade_in_infer":
-            return x * (1.0 - p)
-        return x
-    raise NotImplementedError(
-        "dropout in training (p > 0) needs the dygraph training slice "
-        "(ROADMAP Queue 1 item 5): call .eval() or use p = 0")
+    if axis is not None:
+        raise NotImplementedError("dropout along an axis is not ported "
+                                  "(ROADMAP Queue 1 item 8)")
+    if training and p == 0:
+        return x  # every element kept, x / 1: no draw, no launch
+    return dropout_with_mask(x, p, training, mode)[0]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _reduce_loss(loss, reduction):
+    from ..tensor import math as M
+    if reduction == "mean":
+        return M.mean(loss)
+    if reduction == "sum":
+        return M.sum(loss)
+    return loss
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
+                               ignore_index=-100, return_softmax=False,
+                               name=None):
+    from ..ops.kernels.loss import softmax_with_cross_entropy as kernel
+    (logits,) = amp_inputs("softmax_with_cross_entropy", logits)
+    outs = kernel({"Logits": logits, "Label": label},
+                  {"soft_label": bool(soft_label), "axis": int(axis),
+                   "ignore_index": ignore_index}, None)
+    return (outs["Loss"], outs["Softmax"]) if return_softmax \
+        else outs["Loss"]
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, name=None):
+    from ..tensor import math as M
+    loss = softmax_with_cross_entropy(input, label, soft_label, axis,
+                                      ignore_index)
+    if weight is not None and not soft_label:
+        lbl = label.squeeze(-1) if label.shape[-1] == 1 else label
+        (weight,) = amp_inputs("gather", weight)
+        w = weight[lbl.long()]
+        w = w.unsqueeze(-1) if w.dim() < loss.dim() else w
+        loss = M.multiply(loss, w)
+        if reduction == "mean":
+            return M.divide(M.sum(loss), M.sum(w))
+    return _reduce_loss(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    input, label = amp_inputs("mse_loss", input, label)
+    return _reduce_loss(torch.square(input - label), reduction)

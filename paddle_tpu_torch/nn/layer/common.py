@@ -1,7 +1,8 @@
-"""paddle.nn common layers: Linear, Embedding, Dropout.  Counterpart of
-paddle_tpu/nn/layer/common.py, with Paddle's parameter shapes and
-default initializers (Linear: Xavier-uniform weight [in, out], zero bias;
-Embedding: Normal(0, 1) table)."""
+"""paddle.nn common layers: Identity, Linear, Embedding, Dropout.
+Counterpart of paddle_tpu/nn/layer/common.py, with Paddle's parameter
+shapes and default initializers (Linear: Xavier-uniform weight [in, out],
+zero bias; Embedding: Normal(0, 1) table).  Dropout draws its mask in
+training (F.dropout: the Philox kernel) and is the identity in eval."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +11,15 @@ from ...dygraph.layers import Layer
 from ...static.initializer import Normal, XavierInitializer
 from .. import functional as F
 
-__all__ = ["Linear", "Dropout", "Embedding"]
+__all__ = ["Identity", "Linear", "Dropout", "Embedding"]
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):

@@ -1,31 +1,44 @@
-"""paddle.nn MultiHeadAttention (counterpart of
-paddle_tpu/nn/layer/transformer.py:39), with its `Cache` (incremental
-decode: new K/V columns appended) and `StaticCache` (precomputed K/V,
-cross-attention) and `gen_cache`.
+"""paddle.nn transformer layers (counterpart of
+paddle_tpu/nn/layer/transformer.py): MultiHeadAttention (`:39`), with its
+`Cache` (incremental decode: new K/V columns appended) and `StaticCache`
+(precomputed K/V, cross-attention) and `gen_cache`;
+TransformerEncoderLayer (post-LN, or pre-LN with `normalize_before`) and
+TransformerEncoder, which deep-copies the first layer for the others
+(`:188-190`: every layer starts from the same weights).
 
-Two routes, chosen as the JAX package chooses them (`:88-104`):
+Attention takes one of two routes, chosen as the JAX package chooses
+them (`:88-104`):
   * flash — when `ops.attention.use_flash_for(L)` holds, there is no
-    mask, no attention weights are asked for and dropout is off: the
-    port's `flash_attention` over the [B, H, L, Dh] head-split views, so
-    a CUDA tensor runs the Hopper flash kernel (a CPU tensor its plain
-    version);
-  * score matrix — otherwise: softmax(q k^T / sqrt(Dh) + mask) v with
-    torch matmuls.  GPT always passes a mask and takes this route.
+    mask, no attention weights are asked for and attention dropout is off
+    (or the layer is in eval): the port's `flash_attention` over the
+    [B, H, L, Dh] head-split views, differentiable, so a CUDA tensor runs
+    the Hopper flash forward, dQ and dK/dV kernels (a CPU tensor their
+    plain versions).  No AMP cast is applied to it (the JAX package
+    traces it as a raw function): under O1 q, k and v are fp32 (a bf16
+    product plus an fp32 bias), under O2 bf16;
+  * score matrix — otherwise: softmax(q k^T / sqrt(Dh) + mask) v, with
+    dropout on the attention weights in training.  GPT always passes a
+    mask and takes this route.
 A bool or integer mask (1 = keep) becomes an additive one of 0 / -1e4,
-as in the JAX package.  The encoder / decoder classes wait for ROADMAP
-Queue 1 item 5.
+as in the JAX package.  The decoder classes wait for ROADMAP Queue 1
+item 8.
 """
 from __future__ import annotations
 
 import collections
+import copy
 
 import torch
 
-from ...dygraph.layers import Layer
+from ...dygraph.layers import Layer, LayerList
+from ...tensor import math as M
+from ...tensor.linalg import matmul
 from .. import functional as F
-from .common import Linear
+from .common import Dropout, Linear
+from .norm import LayerNorm
 
-__all__ = ["MultiHeadAttention"]
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder"]
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -33,7 +46,7 @@ def _convert_attention_mask(attn_mask, dtype):
         return None
     if attn_mask.dtype in (torch.bool, torch.int32, torch.int64):
         # True/1 = keep: additive 0 where kept, -1e4 where dropped
-        return (attn_mask.to(dtype) - 1.0) * 1e4
+        return M.scale(M.scale(attn_mask.to(dtype), -1.0, 1.0), -1e4)
     return attn_mask
 
 
@@ -94,16 +107,16 @@ class MultiHeadAttention(Layer):
                 return out, cache
             return out
 
-        scores = torch.matmul(q, k.transpose(-1, -2)) * \
-            (self.head_dim ** -0.5)
+        scores = M.scale(matmul(q, k, transpose_y=True),
+                         scale=self.head_dim ** -0.5)
         mask = _convert_attention_mask(attn_mask, scores.dtype)
         if mask is not None:
-            scores = scores + mask
+            scores = M.add(scores, mask)
         weights = F.softmax(scores, axis=-1)
         if self.dropout:
             weights = F.dropout(weights, self.dropout,
                                 training=self.training)
-        out = self.out_proj(self._merge(torch.matmul(weights, v)))
+        out = self.out_proj(self._merge(matmul(weights, v)))
         outs = [out]
         if self.need_weights:
             outs.append(weights)
@@ -121,3 +134,70 @@ class MultiHeadAttention(Layer):
         return self.Cache(
             torch.zeros(shape, dtype=key.dtype, device=key.device),
             torch.zeros(shape, dtype=key.dtype, device=key.device))
+
+
+class TransformerEncoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.act_dropout = Dropout(act_dropout)
+        self._activation = activation
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = M.add(residual, self.dropout1(src))
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        act = getattr(F, self._activation)
+        src = self.linear2(self.act_dropout(act(self.linear1(src))))
+        src = M.add(residual, self.dropout2(src))
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src if cache is None else (src, cache)
+
+
+class TransformerEncoder(Layer):
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList(
+            [encoder_layer] +
+            [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output = src
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, new_cache = mod(output, src_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)

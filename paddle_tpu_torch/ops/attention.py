@@ -83,10 +83,13 @@ take any length, so the port has no such fallback.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
 import torch
+
+from ..core.dtype import dtype_name
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_bwd", "flash_attention_bwd_plain",
@@ -316,7 +319,8 @@ def _kernel_entry(kind, dp, dtype):
 def _launch(wrapper, kind, dp, dtype, device, *args):
     """Launch kernel `kind` at kernel head dim dp in `dtype` with `args` on
     the current stream of `device`; raise on a CUDA error, else add one to
-    the wrapper's launch count of that kernel."""
+    the wrapper's launch count of that kernel and to its count of launches
+    in `dtype` (`dtype_launches`, keyed "float32", "bfloat16", ...)."""
     fn, err_string, count = _kernel_entry(kind, dp, dtype)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -324,6 +328,7 @@ def _launch(wrapper, kind, dp, dtype, device, *args):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
                            f"({err_string(err).decode()})")
     setattr(wrapper, count, getattr(wrapper, count) + 1)
+    wrapper.dtype_launches[dtype_name(dtype)] += 1
 
 
 def flash_attention_cuda(q, k, v, causal=False, scale=None):
@@ -597,10 +602,12 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
 
 
 # launches of each Hopper kernel in this process, one count per route
-# (LAUNCH_COUNTS), and the copies of views that TMA refuses (plain
-# integers; callers reset them to 0 around the run they want to count)
+# (LAUNCH_COUNTS) and one per dtype (`dtype_launches`, a Counter), and the
+# copies of views that TMA refuses (callers reset them to 0 around the run
+# they want to count)
 for _wrapper in (flash_attention, flash_attention_bwd_dq_cuda,
                  flash_attention_bwd_dkv_cuda):
     for _count in LAUNCH_COUNTS.values():
         setattr(_wrapper, _count, 0)
+    _wrapper.dtype_launches = collections.Counter()
 flash_attention.view_copies = 0

@@ -29,10 +29,13 @@ kernel handles one row per block.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
 import torch
+
+from ..core.dtype import dtype_name
 
 __all__ = ["fused_softmax_xent", "fused_xent_plain", "fused_xent_cuda",
            "fused_xent_bwd", "maybe_fused_xent", "fused_xent_enabled",
@@ -123,6 +126,7 @@ def fused_xent_cuda(logits, label, ignore_index=-100):
             f"fused_xent_fwd launch failed: CUDA error {err} "
             f"({lib.fused_xent_error_string(err).decode()})")
     fused_xent_cuda.launches += 1
+    fused_xent_cuda.dtype_launches[dtype_name(logits.dtype)] += 1
     return loss, lse
 
 
@@ -203,6 +207,7 @@ def maybe_fused_xent(logits, label, axis, soft_label, ignore_index):
     return loss.reshape(*lead, 1)
 
 
-# launches of the Hopper kernel in this process (plain integer; callers
-# reset it to 0 around the run they want to count)
+# launches of the Hopper kernel in this process, in all and by logits
+# dtype (callers reset them around the run they want to count)
 fused_xent_cuda.launches = 0
+fused_xent_cuda.dtype_launches = collections.Counter()

@@ -12,11 +12,14 @@ Scope beside the parameters.  A learning rate may be a float, a var or an
 `optimizer.lr_scheduler.LRScheduler`, whose `step()` writes the new value
 into the scope.
 
+The clips also have the dygraph `_eager_apply(params_grads)` that the 2.0
+optimizers (optimizer/optimizer.py) call on torch gradients: the same
+arithmetic in fp32, the result in each gradient's dtype.
+
 Not ported yet (ROADMAP.md Queue 1 item 5): the other optimizers (Adamax,
 Adagrad, Adadelta, RMSProp, Ftrl, LarsMomentum, DecayedAdagrad, Dpsgd,
 ProximalGD, ProximalAdagrad), ExponentialMovingAverage, ModelAverage,
-Lookahead, RecomputeOptimizer, `Adam(lazy_mode=True)` and the clips'
-dygraph `_eager_apply` (the port's dygraph has no optimizer yet).
+Lookahead, RecomputeOptimizer and `Adam(lazy_mode=True)`.
 """
 from __future__ import annotations
 
@@ -75,6 +78,10 @@ class GradientClipByValue:
         return [(p, layers.clip(g, self.min, self.max))
                 for p, g in params_grads]
 
+    def _eager_apply(self, params_grads):
+        return [(p, torch.clamp(g, self.min, self.max))
+                for p, g in params_grads]
+
 
 class GradientClipByNorm:
     def __init__(self, clip_norm):
@@ -83,6 +90,16 @@ class GradientClipByNorm:
     def apply(self, params_grads):
         return [(p, layers.clip_by_norm(g, self.clip_norm))
                 for p, g in params_grads]
+
+    def _eager_apply(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            gf = g.float()
+            norm = torch.sqrt(torch.sum(torch.square(gf)))
+            scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
+                                max=1.0)
+            out.append((p, (gf * scale).to(g.dtype)))
+        return out
 
 
 class GradientClipByGlobalNorm:
@@ -97,6 +114,15 @@ class GradientClipByGlobalNorm:
             max_norm,
             layers.elementwise_max(global_norm, max_norm))
         return [(p, layers.elementwise_mul(g, scale))
+                for p, g in params_grads]
+
+    def _eager_apply(self, params_grads):
+        if not params_grads:
+            return params_grads
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for _, g in params_grads))
+        scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
+        return [(p, (g.float() * scale).to(g.dtype))
                 for p, g in params_grads]
 
 

@@ -1,0 +1,61 @@
+"""Elementwise, scale and reduction functions (counterpart of
+paddle_tpu/tensor/math.py and the eager Tensor's operators): each is the
+op the JAX package traces (`elementwise_add`, `scale`, `reduce_mean`,
+...), AMP-cast as that op, then a torch op.  Python scalars stay scalars
+(the result keeps the tensor's dtype, as the JAX package's `wrap_data`
+makes a scalar operand of the tensor's dtype)."""
+from __future__ import annotations
+
+import torch
+
+from ..dygraph.tracer import amp_inputs
+
+__all__ = ["add", "subtract", "multiply", "divide", "scale", "mean", "sum"]
+
+
+def _binary(op_type, fn):
+    def f(x, y, name=None):
+        x, y = amp_inputs(op_type, x, y)
+        return fn(x, y)
+    f.__name__ = op_type.split("_", 1)[1]
+    return f
+
+
+add = _binary("elementwise_add", torch.add)
+subtract = _binary("elementwise_sub", torch.sub)
+multiply = _binary("elementwise_mul", torch.mul)
+divide = _binary("elementwise_div", torch.div)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    (x,) = amp_inputs("scale", x)
+    if not bias:  # x * scale + 0 is x * scale (but for the sign of 0)
+        out = x * scale
+    else:
+        out = x * scale + bias if bias_after_scale else (x + bias) * scale
+    if act is not None:
+        out = getattr(torch, act)(out)
+    return out
+
+
+def _dims(axis):
+    if axis is None:
+        return None
+    return [axis] if isinstance(axis, int) else list(axis)
+
+
+def mean(x, axis=None, keepdim=False, name=None):
+    (x,) = amp_inputs("reduce_mean", x)
+    dims = _dims(axis)
+    return x.mean() if dims is None and not keepdim else \
+        x.mean(dim=dims, keepdim=keepdim)
+
+
+def sum(x, axis=None, keepdim=False, name=None):
+    (x,) = amp_inputs("reduce_sum", x)
+    dims = _dims(axis)
+    return x.sum() if dims is None and not keepdim else \
+        x.sum(dim=dims, keepdim=keepdim)
+
+

@@ -10,8 +10,13 @@ the 16-bit split-D wgmma forward, dQ and dK/dV, and from 256 up the fp32
 3xTF32 split-D forward, dQ and dK/dV), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 `Executor.run_steps` (CUDA-graph replay of the step) against eager
-`run()` steps, and the dropout kernel (csrc/dropout_philox.cu) against
-its plain version, bit for bit, alone and replayed in a captured step.
+`run()` steps, the dropout kernel (csrc/dropout_philox.cu) against
+its plain version, bit for bit, alone and replayed in a captured step,
+and the dygraph training path: backward through the flash kernels from a
+MultiHeadAttention (fp32 and bf16, D = 64) against the same module on the
+CPU, F.cross_entropy through the fused kernel and its gradient against
+torch ops, the dropout Function's gradient equal to grad * Mask / (1 - p)
+bit for bit, and GradScaler over CUDA gradients.
 
 Tolerances against the plain versions: fp32 1e-4 (summation order;
 3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
@@ -1128,3 +1133,142 @@ def test_device_resident_pool_and_engine():
             assert float(row.max() - row[int(reply[pos])]) <= 1e-4
     for a, b in zip(outs["paged"], outs["fixed"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the dygraph training path (2.0 API) on the card
+# ---------------------------------------------------------------------------
+def _mha_pair(dtype, seed=31):
+    """A MultiHeadAttention (hidden 128, 2 heads: D = 64) on the card and
+    its copy on the CPU, flash forced on; inputs [2, 128, 128] in
+    `dtype`."""
+    from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
+    with dygraph.guard(CUDAPlace(0)):
+        gpu = nn.MultiHeadAttention(128, 2)
+    with dygraph.guard(CPUPlace()):
+        cpu = nn.MultiHeadAttention(128, 2)
+    cpu.set_state_dict(gpu.state_dict())
+    gpu, cpu = gpu.to(dtype), cpu.to(dtype)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 128, 128, generator=g).to(dtype)
+    return gpu, cpu, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dygraph_backward_through_flash(dtype):
+    """Dygraph MultiHeadAttention, flash on, loss.backward(): the card's
+    flash forward, dQ and dK/dV kernels (one launch each, in `dtype`)
+    against the same module on the CPU (the plain versions)."""
+    _need_cuda()
+    gpu, cpu, x = _mha_pair(dtype)
+    prev = tattn._FLASH_STATE["mode"]
+    tattn.enable_flash_attention(True)
+    wrappers = (tattn.flash_attention, tattn.flash_attention_bwd_dq_cuda,
+                tattn.flash_attention_bwd_dkv_cuda)
+    before = [w.dtype_launches[str(dtype)[6:]] for w in wrappers]
+    try:
+        xs = {"gpu": x.cuda().requires_grad_(True),
+              "cpu": x.clone().requires_grad_(True)}
+        outs = {}
+        for tag, m in (("gpu", gpu), ("cpu", cpu)):
+            out = m(xs[tag])
+            (out.float() * torch.linspace(-1, 1, 128, device=out.device))\
+                .sum().backward()
+            outs[tag] = out
+    finally:
+        tattn._FLASH_STATE["mode"] = prev
+    assert [w.dtype_launches[str(dtype)[6:]] - b
+            for w, b in zip(wrappers, before)] == [1, 1, 1]
+    tol = TOL[dtype]
+    torch.testing.assert_close(outs["gpu"].float().cpu(),
+                               outs["cpu"].float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(xs["gpu"].grad.float().cpu(),
+                               xs["cpu"].grad.float(), atol=tol, rtol=tol)
+    for (k, p), q in zip(gpu.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.float().cpu(), q.grad.float(),
+                                   atol=tol, rtol=tol, msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dygraph_fused_cross_entropy_and_grad(dtype):
+    """F.cross_entropy with FLAGS_fused_xent on (the kernel, one launch)
+    against the same call with it off (torch ops), loss and dlogits."""
+    _need_cuda()
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn(512, 3000, device="cuda", generator=g).to(dtype)
+    labels = torch.randint(0, 3000, (512,), device="cuda", generator=g)
+    labels[::7] = -100
+    got = {}
+    for fused in (True, False):
+        tfx.enable_fused_xent(fused)
+        try:
+            x = logits.clone().requires_grad_(True)
+            n0 = tfx.fused_xent_cuda.launches
+            loss = F.cross_entropy(x, labels)
+            loss.backward()
+            assert tfx.fused_xent_cuda.launches - n0 == int(fused)
+            got[fused] = (loss.detach(), x.grad)
+        finally:
+            tfx.enable_fused_xent(False)
+    torch.testing.assert_close(got[True][0], got[False][0], atol=1e-5,
+                               rtol=1e-5)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got[True][1].float(), got[False][1].float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dygraph_dropout_grad_is_grad_times_mask_over_q(dtype):
+    """F.dropout in training on the card: the Philox kernel's Out and Mask
+    equal to the plain version's to the last bit, and the gradient equal
+    to grad * Mask / (1 - p) (the quotient in fp32, as the forward)."""
+    _need_cuda()
+    import paddle_tpu_torch
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import dropout as tdrop
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(8, 512, 768, device="cuda", generator=g).to(dtype)
+    gy = torch.randn(8, 512, 768, device="cuda", generator=g).to(dtype)
+    paddle_tpu_torch.seed(9)
+    n0 = tdrop.dropout_cuda.launches
+    xg = x.clone().requires_grad_(True)
+    out, mask = F.dropout_with_mask(xg, 0.1)
+    assert tdrop.dropout_cuda.launches - n0 == 1
+    ref_out, ref_mask = tdrop.dropout_plain(x.cpu(), 0.1, 9, 1, True)
+    assert torch.equal(mask.cpu(), ref_mask)
+    assert torch.equal(out.detach().cpu(), ref_out)
+    out.backward(gy)
+    q = torch.tensor(tdrop.scale_divisor(0.1, dtype), device="cuda")
+    want = torch.where(mask.bool(), (gy.float() / q).to(dtype),
+                       torch.zeros((), dtype=dtype, device="cuda"))
+    assert torch.equal(xg.grad, want)
+
+
+def test_grad_scaler_on_cuda_tensors():
+    """GradScaler over CUDA gradients: an overflowing loss skips the step
+    and halves the scale; a finite one steps (unscaled gradients: the
+    same update as without the scaler)."""
+    _need_cuda()
+    from paddle_tpu_torch import amp, dygraph, nn, optimizer
+    from paddle_tpu_torch.core.place import CUDAPlace
+    with dygraph.guard(CUDAPlace(0)):
+        lin = nn.Linear(16, 4)
+        ref = nn.Linear(16, 4)
+        ref.set_state_dict(lin.state_dict())
+        opt = optimizer.SGD(0.1, parameters=lin.parameters())
+        ref_opt = optimizer.SGD(0.1, parameters=ref.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=1024.0)
+    x = torch.randn(4, 16, device="cuda")
+    w0 = lin.weight.detach().clone()
+    scaler.scale(lin(torch.full_like(x, 3e37)).sum()).backward()
+    scaler.minimize(opt, None)
+    opt.clear_grad()
+    assert torch.equal(lin.weight, w0) and scaler.get_loss_scaling() == 512.0
+    scaler.scale(lin(x).sum()).backward()
+    scaler.minimize(opt, None)
+    ref(x).sum().backward()
+    ref_opt.step()
+    torch.testing.assert_close(lin.weight, ref.weight, atol=1e-6, rtol=1e-6)
+    assert lin.weight.grad.is_cuda

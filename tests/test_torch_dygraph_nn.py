@@ -226,7 +226,8 @@ def test_seed_and_rng_state_fix_the_draws():
 def test_dygraph_place_and_to_tensor(monkeypatch):
     """to_tensor lands on the eager place; with no place set that is
     CUDAPlace(0), which raises without a GPU (no silent CPU); dropout in
-    training raises, naming the ROADMAP item."""
+    training draws a mask (the Philox kernel's plain version on a CPU
+    tensor) and scales the kept elements by 1 / (1 - p)."""
     with dygraph.guard(CPUPlace()):
         t = dygraph.to_tensor([1.5, 2.0])
         assert t.device.type == "cpu" and t.dtype == torch.float32
@@ -238,8 +239,8 @@ def test_dygraph_place_and_to_tensor(monkeypatch):
         dygraph.to_tensor([1.0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        nn.functional.dropout(torch.ones(3), 0.5, training=True)
+    kept = nn.functional.dropout(torch.ones(64), 0.5, training=True)
+    assert set(kept.tolist()) == {0.0, 2.0}
     x = torch.ones(3)
     assert nn.functional.dropout(x, 0.5, training=False) is x
     torch.testing.assert_close(

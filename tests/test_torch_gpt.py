@@ -129,14 +129,17 @@ def test_generate_rejects_as_jax(pair):
 
 def test_gpt_forward_stays_on_the_model_device_and_eval_mode(pair):
     """The mask is cached per (length, device) on the model's device,
-    and a model with dropout in train mode refuses to run (dropout in
-    training waits for the dygraph training slice) until eval()."""
+    and a model with dropout in train mode draws a new attention-dropout
+    mask every call (the Philox kernel's plain version here) until
+    eval(), after which it is deterministic."""
     _, tm = pair
     m = tm.gpt._mask(5)
     assert m.device == tm.gpt.device and m is tm.gpt._mask(5)
     assert torch.equal(m, torch.full((5, 5), -1e9).triu(1))
     _, drop = tiny_pair(seed=1, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        drop.gpt(torch.from_numpy(_ids(1, 3)))
+    ids = torch.from_numpy(_ids(1, 3))
+    a, b = drop.gpt(ids), drop.gpt(ids)
+    assert a.shape == (1, 3, 64) and not torch.equal(a, b)
     drop.eval()
-    assert drop.gpt(torch.from_numpy(_ids(1, 3))).shape == (1, 3, 64)
+    assert drop.gpt(ids).shape == (1, 3, 64)
+    assert torch.equal(drop.gpt(ids), drop.gpt(ids))

@@ -79,3 +79,22 @@ def test_entry_points_raise_without_gpu(tmp_path, monkeypatch):
     cfg.disable_gpu()
     (out,) = create_predictor(cfg).run([np.ones((3, 4), np.float32)])
     assert out.shape == (3, 2)
+    # the dygraph training entry points: a model, an optimizer and a
+    # hapi.Model built without a place take CUDAPlace(0) and raise
+    from paddle_tpu_torch import dygraph, hapi, optimizer
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertModel)
+    tiny = dict(vocab_size=16, hidden_size=8, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=16,
+                max_position_embeddings=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BertForPretraining(BertModel(BertConfig(**tiny)))
+    with dygraph.guard(CPUPlace()):
+        net = BertForPretraining(BertModel(BertConfig(**tiny)))
+        assert optimizer.AdamW(parameters=net.parameters())._device == \
+            torch.device("cpu")
+        assert hapi.Model(net).parameters()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        optimizer.AdamW(parameters=net.parameters())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hapi.Model(net)
