@@ -5,8 +5,10 @@ over HTTP /predict and train BERT-base, both through the kernels, the
 training step also as a CUDA graph replayed by Executor.run_steps, train
 BERT-base with google-research/bert's pretraining recipe (dropout,
 AdamW, gradient clipping, lr schedule, gradient merge), serve GPT
-/generate, and train BERT-base through the dygraph 2.0 API (autograd,
-auto_cast and GradScaler, paddle.optimizer, models.bert, hapi).
+/generate, train BERT-base through the dygraph 2.0 API (autograd,
+auto_cast and GradScaler, paddle.optimizer, models.bert, hapi), and
+train the BASELINE configs LeNet-5, ResNet-50 and Transformer-big (static,
+eager and replayed) and vision.models.resnet50() in dygraph.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -201,6 +203,40 @@ is present.  Phases:
                embedding, the first layer's q, k and v projections and
                the MLM transform within a normalised max error of 1e-3.
 
+ 10. baseline - the BASELINE configs at the widths the JAX package's
+               tools run on the chip, weights from --seed, one fixed numpy
+               batch each (the tools' synthetic data): (a) LeNet-5
+               (models.build_lenet), batch 256 x 1x28x28, fp32, SGD 0.01,
+               K = 10; (b) ResNet-50 v1.5 (build_resnet50), batch 128 x
+               3x224x224, 1000 classes, bf16 AMP, Momentum 0.1 / 0.9, K =
+               4; (c) Transformer-big (build_transformer_big), 6 + 6
+               layers, d 1024, 16 heads, FFN 4096, vocab 32000, src = trg
+               = 256, batch 16, bf16 AMP, Adam 2e-4, label smoothing 0.1,
+               K = 4.  Each: K eager Executor.run steps from the startup
+               weights, then run_steps calls of K steps from the same
+               weights (one capture, 2 timed, 1 profiled): step ms,
+               images or tokens/s and MFU (ResNet: 3 x 4.1 GFLOP an image
+               at 224; Transformer-big: tools/bench_transformer.py's
+               count; LeNet: 3 x its forward's 2 x MACs; over 989 TFLOP/s
+               bf16, 67 fp32) eager and replayed, peak memory, device
+               busy, kernels a step and idle share from the profiled
+               call.  Gates: losses finite, the last below the first
+               (eager and replayed); the first batch_norm's running mean
+               (fetched each step) new at every step, eager and
+               replayed; the capturing call's K losses equal to the K
+               eager ones (to the last bit, else rtol 1e-5 fp32 / 2e-3
+               AMP, the largest difference reported); one capture, then
+               hits; no launch of a hand kernel (flash, fused CE,
+               dropout, the wide routes).  After (a), one fp32 LeNet step
+               on the card against the same program and weights on the
+               CPU with cuDNN's TF32 flag switched on around it (the
+               conv2d kernel must turn it off itself): loss rtol 1e-5,
+               the conv weight gradients within a normalised 1e-4.  (d)
+               vision.models.resnet50(), batch 128 at 224, auto_cast O1,
+               F.cross_entropy, loss.backward(),
+               optimizer.Momentum(0.1, 0.9): a warm-up step, 10 timed
+               steps, 1 profiled; the same gates (bn1's running mean).
+
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
 (device time by kernel, device busy share, the attention kernels' device
@@ -220,8 +256,10 @@ kernels for head dims above 128 (the D = 256 and D = 512 cases, and
 D = 768 for every split-D kernel in fp32 and bf16; their launches on every
 main path, gated at 0 in each: no configuration has a head dim above
 128); each row also gives its kernel's launches per dygraph step in each
-phase 9 variant, in the row's dtype (`launches_per_dygraph_step`); the
-last line {"ok": true, "device": {...}}.
+phase 9 variant, in the row's dtype (`launches_per_dygraph_step`), and
+its launches on each phase 10 path (`launches_on_baseline_paths`, all 0:
+those paths run no hand kernel); the last line
+{"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -2468,6 +2506,389 @@ def dygraph_hapi(torch, seed, batch):
     del net, model, opt, init, after
 
 
+# phase 10: the BASELINE configs LeNet-5, ResNet-50 and Transformer-big
+# at the widths the JAX package's tools run on the chip
+LENET_BATCH, LENET_K = 256, 10
+RESNET_BATCH, RESNET_IMG, RESNET_CLASSES, RESNET_K = 128, 224, 1000, 4
+TRANSFORMER_BIG = dict(src_len=256, trg_len=256, vocab=32000, d_model=1024,
+                       heads=16, n_layers=6, d_inner=4096)
+TRANSFORMER_BATCH, TRANSFORMER_K = 16, 4
+# timed steps, after one warm-up step.  Momentum 0.1 / 0.9 on one fixed
+# batch overshoots: the loss falls for 2 steps, climbs for ~6, then falls
+# again (NVIDIA H100, --seed 0, static and dygraph alike), so 4 steps end
+# above the first loss and 10 below it
+DYGRAPH_RESNET_STEPS = 10
+# forward FLOPs of one 1x28x28 image through LeNet-5: 2 x the MACs of
+# conv 6@5x5 (pad 2) over 28x28, conv 16@5x5 over 10x10 and fc 400-120-84-10
+LENET_FWD_FLOPS = 2 * (28 * 28 * 6 * 25 + 10 * 10 * 16 * 150
+                       + 400 * 120 + 120 * 84 + 84 * 10)
+
+
+def baseline_feed(name, seed):
+    """One fixed numpy batch per configuration (the tools' synthetic data,
+    drawn from `seed`)."""
+    rng = np.random.RandomState(seed)
+    if name == "lenet":
+        return {"image": rng.rand(LENET_BATCH, 1, 28, 28).astype(np.float32),
+                "label": rng.randint(0, 10, (LENET_BATCH, 1)).astype(
+                    np.int64)}
+    if name == "resnet50":
+        return {"image": rng.rand(RESNET_BATCH, 3, RESNET_IMG,
+                                  RESNET_IMG).astype(np.float32),
+                "label": rng.randint(0, RESNET_CLASSES, (
+                    RESNET_BATCH, 1)).astype(np.int64)}
+    b, t, vocab = (TRANSFORMER_BATCH, TRANSFORMER_BIG["src_len"],
+                   TRANSFORMER_BIG["vocab"])
+    causal = np.triu(np.full((t, t), -1e9, np.float32), 1)
+    return {"src_ids": rng.randint(0, vocab, (b, t)).astype(np.int64),
+            "trg_ids": rng.randint(0, vocab, (b, t)).astype(np.int64),
+            "labels": rng.randint(0, vocab, (b, t, 1)).astype(np.int64),
+            "trg_bias": np.broadcast_to(causal, (b, 1, t, t)).copy(),
+            "src_pos": np.tile(np.arange(t, dtype=np.int64), (b, 1)),
+            "trg_pos": np.tile(np.arange(t, dtype=np.int64), (b, 1))}
+
+
+def baseline_build(name):
+    """(main, startup, loss, forward FLOPs x 3 a step, work units a step
+    and their name, MFU dtype) of one configuration."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    _reset_unique_names()
+    if name == "lenet":
+        main, startup, loss = models.build_lenet()
+        return (main, startup, loss, 3 * LENET_FWD_FLOPS * LENET_BATCH,
+                LENET_BATCH, "images", "float32")
+    if name == "resnet50":
+        main, startup, loss = models.build_resnet50(
+            RESNET_BATCH, RESNET_IMG, RESNET_CLASSES)
+        flops = 3 * 4.1e9 * (RESNET_IMG / 224.0) ** 2 * RESNET_BATCH
+        return (main, startup, loss, flops, RESNET_BATCH, "images",
+                "bfloat16")
+    cfg = TRANSFORMER_BIG
+    main, startup, loss = models.build_transformer_big(**cfg)
+    tokens = TRANSFORMER_BATCH * (cfg["src_len"] + cfg["trg_len"])
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    # tools/bench_transformer.py's count: 6 x params x tokens / 2 (each
+    # stack sees half the tokens) + the score and context products
+    flops = (6 * n_params * tokens / 2
+             + 12 * cfg["n_layers"] * cfg["src_len"] * cfg["d_model"]
+             * tokens)
+    return main, startup, loss, flops, tokens, "tokens", "bfloat16"
+
+
+def first_bn_mean(main):
+    """The running mean of the program's first batch_norm, or None."""
+    for op in main.global_block().ops:
+        if op.type == "batch_norm":
+            return op.inputs["Mean"][0]
+    return None
+
+
+def check_stats_move(tag, means):
+    """Each step's running mean differs from the one before it."""
+    for i in range(1, len(means)):
+        if np.array_equal(means[i], means[i - 1]):
+            raise AssertionError(f"{tag}: the first batch_norm's running "
+                                 f"mean did not move at step {i}")
+
+
+def profiled_window(torch, fn, steps):
+    """Run fn() under torch.profiler; (device busy ms a step, device
+    kernels a step, idle share of the window, wall ms, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    (_, dev) = count_kernels(prof, {})
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return (busy / steps, sum(e.count for e in dev) / steps,
+            max(0.0, 1.0 - busy / wall), wall,
+            [[e.key[:80], e.count / steps,
+              e.self_device_time_total / 1e3 / steps] for e in top])
+
+
+def baseline_static(torch, name, seed, k):
+    """One static configuration: K eager Executor.run steps from the
+    startup weights of `seed`, then run_steps calls of K steps from the
+    same weights (one capture, 2 timed, 1 profiled).  Gates: losses finite
+    and the last below the first (eager and replayed); the first
+    batch_norm's running mean new at every step, eager and replayed (it
+    is fetched each step); the capturing call's K losses equal to the K
+    eager ones (to the last bit, else rtol 1e-5 fp32 / 2e-3 AMP, the
+    largest difference reported); one capture, then hits; no launch of a
+    hand kernel (flash, fused CE, dropout, the wide routes)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    main, startup, loss, flops, units, unit, peak = baseline_build(name)
+    startup.random_seed = seed
+    feed = baseline_feed(name, seed)
+    mean = first_bn_mean(main)
+    fetch = [loss.name] + ([mean] if mean else [])
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    amp_on = any(op.type == "cast" for op in main.global_block().ops)
+    exe = static.Executor()
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        exe.run(startup)
+    init = {n: t.clone() for n, t in scope.vars.items() if t is not None}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- this path: counts from 0 just before, read just after
+    zero_dygraph_counts(attn, dr, fx)
+    eager, eager_ms, eager_means = [], [], []
+    with static.scope_guard(scope):
+        for _ in range(k):
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=fetch)
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            eager.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if mean:
+                eager_means.append(np.asarray(out[1]))
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del scope
+    gscope = static.Scope()
+    for n, t in init.items():
+        gscope.set(n, t.clone())
+    del init
+    stacked = {n: np.stack([v] * k) for n, v in feed.items()}
+    gexe = static.Executor()
+    losses, step_ms, graph_means = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with static.scope_guard(gscope):
+        t0 = time.perf_counter()
+        out = gexe.run_steps(main, feed=stacked, fetch_list=fetch)
+        capture_call_s = time.perf_counter() - t0
+        losses.extend(np.asarray(out[0]).reshape(-1).tolist())
+        if mean:
+            graph_means.extend(np.asarray(out[1]))
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = gexe.run_steps(main, feed=stacked, fetch_list=fetch)
+            step_ms.append((time.perf_counter() - t0) * 1e3 / k)
+            losses.extend(np.asarray(out[0]).reshape(-1).tolist())
+            if mean:
+                graph_means.extend(np.asarray(out[1]))
+        launches = {n: c.launches for n, c in
+                    dygraph_counters(attn, dr, fx).items()}
+        record_wide(f"baseline_{name}", read_wide(attn))
+        # ---- end of this path
+        graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy, kernels, idle, prof_wall, top = profiled_window(
+            torch, lambda: gexe.run_steps(main, feed=stacked,
+                                          fetch_list=fetch), k)
+    stats = gexe.cache_stats()
+    gexe.close()
+    del gscope, stacked
+    torch.cuda.empty_cache()
+    tag = f"baseline {name}"
+    graph = np.asarray(losses[:k], np.float32)
+    ref = np.asarray(eager, np.float32)
+    bitwise = bool(np.array_equal(graph, ref))
+    max_rel = float(np.max(np.abs(graph - ref) / np.abs(ref)))
+    if not bitwise:
+        np.testing.assert_allclose(graph, ref, rtol=2e-3 if amp_on
+                                   else 1e-5, atol=0)
+    for what, trace in (("eager", eager), ("replayed", losses)):
+        if not all(np.isfinite(trace)) or not trace[-1] < trace[0]:
+            raise AssertionError(f"{tag}: {what} losses not finite and "
+                                 f"falling: {trace}")
+    if mean:
+        check_stats_move(f"{tag} eager", eager_means)
+        check_stats_move(f"{tag} replayed", graph_means)
+    if stats != {"hits": 3, "misses": 1, "traces": 1}:
+        raise AssertionError(f"{tag}: cache_stats {stats}, expected 1 "
+                             "capture and 3 hits")
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: hand-kernel launches {launches}")
+    eager_med = sorted(eager_ms)[len(eager_ms) // 2]
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    result = {"phase": "baseline", "variant": name,
+              "config": {"lenet": "LeNet-5, MNIST shapes, fp32, SGD 0.01",
+                         "resnet50": "ResNet-50 v1.5, ImageNet shapes, "
+                                     "bf16 AMP, Momentum 0.1 / 0.9",
+                         "transformer_big": "Transformer-big 6+6, WMT14 "
+                                            "en-de shapes, bf16 AMP, Adam "
+                                            "2e-4, label smoothing 0.1"
+                         }[name],
+              "params": n_params, f"{unit}_per_step": units,
+              "steps_per_call": k, "eager_step_ms": eager_ms,
+              "eager_median_step_ms": eager_med,
+              f"eager_{unit}_per_s": units / (eager_med / 1e3),
+              "eager_mfu": flops / (eager_med / 1e3) / PEAK_FLOPS[peak],
+              "capture_call_s": capture_call_s,
+              "replayed_step_ms": step_ms,
+              "replayed_median_step_ms": steady,
+              f"replayed_{unit}_per_s": units / (steady / 1e3),
+              "replayed_mfu": flops / (steady / 1e3) / PEAK_FLOPS[peak],
+              "mfu_peak_dtype": peak, "flops_per_step": flops,
+              "peak_gpu_mem_gb_eager": eager_peak,
+              "peak_gpu_mem_gb_replayed": graph_peak,
+              "device_busy_ms_per_step": busy,
+              "device_kernels_per_step": kernels,
+              "device_idle_share_profiled": idle,
+              "device_idle_share_of_replayed_step":
+                  max(0.0, 1.0 - busy / steady),
+              "profiled_call_wall_ms": prof_wall,
+              "losses_eager": eager, "losses_replayed": losses,
+              "losses_bitwise_equal_to_eager": bitwise,
+              "losses_max_rel_diff_vs_eager": max_rel,
+              "bn_mean_moved_every_step": bool(mean),
+              "cache_stats": stats, "hand_kernel_launches": launches,
+              "top_device_ms_per_step": top}
+    log(result)
+    return result
+
+
+def lenet_cpu_check(torch):
+    """One fp32 LeNet step on the card against the same program and
+    weights on the CPU, with cuDNN's TF32 switched ON process-wide around
+    it: the conv2d kernel must turn it off itself.  Loss rtol 1e-5, the
+    two convolutions' weight gradients within a normalised 1e-4 (TF32
+    rounds each product's operands to 10 bits, ~1e-3)."""
+    from paddle_tpu_torch import static
+    main, startup, loss, *_ = baseline_build("lenet")
+    feed = baseline_feed("lenet", 1)
+    grads = [main._grad_map[p] for p in ("conv2d_0.w_0", "conv2d_1.w_0")]
+    exe = static.Executor()
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        exe.run(startup)
+    cpu_scope = static.Scope()
+    for n, t in scope.vars.items():
+        if t is not None:
+            cpu_scope.set(n, t.cpu())
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with static.scope_guard(scope):
+            card = exe.run(main, feed=feed, fetch_list=[loss] + grads)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    with static.scope_guard(cpu_scope):
+        cpu = static.Executor(static.CPUPlace()).run(
+            main, feed=feed, fetch_list=[loss] + grads)
+    loss_c, loss_h = float(card[0].reshape(-1)[0]), float(
+        cpu[0].reshape(-1)[0])
+    if abs(loss_c - loss_h) > 1e-5 * abs(loss_h):
+        raise AssertionError(f"lenet card loss {loss_c} != CPU {loss_h}")
+    err = {}
+    for name, g, r in zip(("conv2d_0", "conv2d_1"), card[1:], cpu[1:]):
+        err[name] = float(np.abs(g - r).max() / np.abs(r).max())
+        if not err[name] <= 1e-4:
+            raise AssertionError(f"lenet {name} weight gradient: card vs "
+                                 f"CPU normalised error {err[name]}")
+    log({"phase": "baseline_lenet_cpu_check", "tf32_flag_on": True,
+         "loss_card": loss_c, "loss_cpu": loss_h,
+         "conv_grad_normalised_max_err": err})
+
+
+def baseline_dygraph(torch, seed):
+    """(d) vision.models.resnet50() in dygraph: auto_cast O1, F.cross_
+    entropy, loss.backward(), optimizer.Momentum(0.1, 0.9); one warm-up
+    step, DYGRAPH_RESNET_STEPS timed (the main path) and one profiled.
+    Gates: losses finite, the last below the first; bn1's running mean new
+    at every step; no hand-kernel launch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, nn, optimizer, vision
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    _reset_unique_names()
+    paddle.seed(seed)
+    net = vision.models.resnet50(num_classes=RESNET_CLASSES)
+    net.train()
+    opt = optimizer.Momentum(0.1, 0.9, parameters=net.parameters())
+    feed = baseline_feed("resnet50", seed)
+    x = torch.from_numpy(feed["image"]).cuda()
+    y = torch.from_numpy(feed["label"]).cuda()
+    n_params = sum(p.numel() for p in net.parameters())
+    means = []
+
+    def step():
+        with amp.auto_cast(level="O1"):
+            loss = nn.functional.cross_entropy(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        means.append(net.bn1._mean.detach().cpu().numpy())
+        return float(loss.detach())
+
+    losses = [step()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0 just before
+    zero_dygraph_counts(attn, dr, fx)
+    step_ms = []
+    for _ in range(DYGRAPH_RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: c.launches for n, c in
+                dygraph_counters(attn, dr, fx).items()}
+    record_wide("baseline_resnet50_dygraph", read_wide(attn))
+    # ---- end of the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy, kernels, idle, prof_wall, top = profiled_window(
+        torch, lambda: losses.append(step()), 1)
+    check_stats_move("baseline resnet50_dygraph", means)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"baseline resnet50_dygraph: losses not "
+                             f"finite and falling: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"baseline resnet50_dygraph: hand-kernel "
+                             f"launches {launches}")
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    flops = 3 * 4.1e9 * (RESNET_IMG / 224.0) ** 2 * RESNET_BATCH
+    result = {"phase": "baseline", "variant": "resnet50_dygraph",
+              "config": "vision.models.resnet50(), ImageNet shapes, "
+                        "auto_cast O1, Momentum 0.1 / 0.9",
+              "params": n_params, "images_per_step": RESNET_BATCH,
+              "step_ms": step_ms, "median_step_ms": steady,
+              "images_per_s": RESNET_BATCH / (steady / 1e3),
+              "mfu": flops / (steady / 1e3) / PEAK_FLOPS["bfloat16"],
+              "mfu_peak_dtype": "bfloat16", "peak_gpu_mem_gb": peak_gb,
+              "device_busy_ms_per_step": busy,
+              "device_kernels_per_step": kernels,
+              "device_idle_share_profiled": idle,
+              "device_idle_share_of_timed_step":
+                  max(0.0, 1.0 - busy / steady),
+              "profiled_step_ms": prof_wall, "losses": losses,
+              "hand_kernel_launches": launches,
+              "top_device_ms_per_step": top}
+    log(result)
+    del net, opt, x, y
+    torch.cuda.empty_cache()
+    return result
+
+
+BASELINE_STATIC = (("lenet", LENET_K), ("resnet50", RESNET_K),
+                   ("transformer_big", TRANSFORMER_K))
+
+
+def baseline_phase(torch, seed):
+    """(10) LeNet-5, ResNet-50 and Transformer-big through the static
+    executor (eager and run_steps), the LeNet card-vs-CPU fp32 check, and
+    vision.models.resnet50() in dygraph.  Returns {variant: result}."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, k in BASELINE_STATIC:
+        out[name] = baseline_static(torch, name, seed, k)
+        if name == "lenet":
+            lenet_cpu_check(torch)
+    out["resnet50_dygraph"] = baseline_dygraph(torch, seed)
+    log({"phase": "baseline_done", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2567,6 +2988,7 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     dygraph = dygraph_phase(torch, args.seed)
+    baseline = baseline_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -2628,6 +3050,8 @@ def main():
         extra["launches_per_dygraph_step"] = {
             v: r["launches_by_dtype"][base].get(dt, 0) / DYGRAPH_STEPS
             for v, r in dygraph.items()}
+        extra["launches_on_baseline_paths"] = {
+            v: r["hand_kernel_launches"][base] for v, r in baseline.items()}
     # the kernels for head dims above 128: launches measured on every
     # main path (the wrappers count per route and kernel, over all dtypes;
     # 0, gated in each path, since no configuration has a head dim above
@@ -2636,7 +3060,8 @@ def main():
              "train_graph_fp32", "generate") + tuple(
                  f"recipe{g}_{v}" for g in ("", "_graph")
                  for v, _ in RECIPE_VARIANTS) + tuple(
-                 f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS)
+                 f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS) + tuple(
+                 f"baseline_{v}" for v in baseline)
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -2666,7 +3091,10 @@ def main():
                       for v, _ in RECIPE_VARIANTS},
                   "launches_per_dygraph_step": {
                       v: r["launches_per_step"]["dropout"]
-                      for v, r in dygraph.items()}}))
+                      for v, r in dygraph.items()},
+                  "launches_on_baseline_paths": {
+                      v: r["hand_kernel_launches"]["dropout"]
+                      for v, r in baseline.items()}}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

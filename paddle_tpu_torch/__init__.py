@@ -15,13 +15,17 @@ InferenceServer), the `bench.py` training step (backward, AMP, Adam,
 continuous-batching engine with its paged KV pool on the GPU), and
 dygraph training through the 2.0 API (torch autograd as the tape,
 `amp.auto_cast` / `GradScaler`, `optimizer`, the encoder layers,
-`models.bert`, `hapi.Model.train_batch`); every Pallas kernel of the JAX
-package as a hand-written Hopper kernel under csrc/.  ROADMAP.md lists
-what comes next.
+`models.bert`, `hapi.Model.train_batch`), the training programs of the
+BASELINE configs LeNet-5, ResNet-50 and Transformer-big
+(`models.build_lenet` / `build_resnet50` / `build_transformer_big`, on
+the conv2d, pool2d, batch_norm, relu, one_hot_v2 and label_smooth ops)
+and `vision.models` (LeNet, ResNet) on the dygraph `nn` vision layers;
+every Pallas kernel of the JAX package as a hand-written Hopper kernel
+under csrc/.  ROADMAP.md lists what comes next.
 
 The top-level names: `seed`, `to_tensor`, `matmul`, `grad`, `no_grad`,
 `Model`, `CPUPlace`, `CUDAPlace` (and the subpackages `amp`, `nn`,
-`optimizer`, `models`, `hapi`, `dygraph`, `static`, ...).
+`optimizer`, `models`, `hapi`, `dygraph`, `static`, `vision`, ...).
 """
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.generator import seed  # noqa: F401
@@ -29,7 +33,7 @@ from .dygraph.base import no_grad  # noqa: F401
 from .dygraph.engine import grad  # noqa: F401
 from .dygraph.tensor import to_tensor  # noqa: F401
 from .tensor.linalg import matmul  # noqa: F401
-from . import amp, nn, optimizer  # noqa: F401
+from . import amp, nn, optimizer, vision  # noqa: F401
 from .hapi.model import Model  # noqa: F401
 
 __version__ = "0.1.0"

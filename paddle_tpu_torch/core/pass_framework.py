@@ -3,7 +3,7 @@
 Copy of paddle_tpu/core/pass_framework.py (the registry, PassContext,
 apply_passes, the applied-pass history and `finish_pass`, the epilogue of
 a program rewrite such as gradient merge), without the verifier hook
-(static/verifier.py's post-rewrite self-check, ROADMAP.md Queue 1 item 7).
+(static/verifier.py's post-rewrite self-check, ROADMAP.md Queue 1, Analysis and planner tiers).
 Passes walk and rewrite the IR only; no tensor math happens here.
 """
 from __future__ import annotations

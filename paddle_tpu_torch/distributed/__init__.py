@@ -2,4 +2,4 @@
 single-device training uses: the gradient-merge rewrite of
 fleet/meta_optimizers (behind `static.gradient_merge`).  Data parallel,
 ZeRO, tensor parallel and the fleet strategy are the distribution slice
-(ROADMAP.md Queue 1 item 6)."""
+(ROADMAP.md Queue 1, Distribution)."""

@@ -11,7 +11,7 @@ straight-line, so it runs the same eagerly and as the CUDA graph that
 Not ported: the ZeRO-2/3 composition (accumulating the reduce-scattered
 bucket shard, which needs the sharding rewrite) and the strategy-driven
 `GradientMergeOptimizer` wrapper (fleet): both are the distribution slice,
-ROADMAP.md Queue 1 item 6.
+ROADMAP.md Queue 1, Distribution.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def apply_gradient_merge(program, startup, params_grads, k_steps, avg=True):
         raise NotImplementedError(
             "gradient_merge over a ZeRO stage >= 2 program accumulates the "
             "reduce-scattered shards, which needs the sharding rewrite of "
-            "the distribution slice (ROADMAP.md Queue 1 item 6)")
+            "the distribution slice (ROADMAP.md Queue 1, Distribution)")
     block = program.global_block()
     opt_start = next((i for i, op in enumerate(block.ops)
                       if op.op_role == OpRole.Optimize), len(block.ops))

@@ -17,6 +17,11 @@ beside them:
   * `copy.deepcopy` of a layer names each copied parameter
     `<name>_deepcopy_<n>`, as Paddle's ParamBase.__deepcopy__ does (the
     JAX package's copies keep the original names, ROADMAP.md Queue 3);
+  * `register_buffer(name, tensor, persistable=True)` keeps a tensor
+    (a numpy array is converted, on the eager place) as a torch buffer:
+    `.to()` moves it, and a persistable one is in `state_dict`, so
+    batch_norm's running stats cross with `set_state_dict` as parameters
+    do;
   * `register_forward_pre_hook(hook(layer, inputs))` and
     `register_forward_post_hook(hook(layer, inputs, outputs))` are torch's
     forward pre-hook and forward hook (a non-None return replaces the
@@ -115,6 +120,18 @@ class Layer(torch.nn.Module):
         p.paddle_name = name
         p.need_clip = bool(attr.need_clip)
         return p
+
+    def register_buffer(self, name, tensor, persistable=True,
+                        persistent=None):
+        """Paddle's `register_buffer(name, tensor, persistable)` (torch's
+        `persistent` keyword is accepted too); returns the buffer."""
+        from .base import current_place
+        if persistent is not None:
+            persistable = persistent
+        if tensor is not None and not isinstance(tensor, torch.Tensor):
+            tensor = _as_array(tensor).to(current_place().torch_device())
+        super().register_buffer(name, tensor, persistent=bool(persistable))
+        return tensor
 
     def __deepcopy__(self, memo):
         """A copy whose parameters keep `need_clip` and take new names

@@ -14,7 +14,7 @@ tensors.
 Not ported yet, each raising: `fit`, `evaluate` and `predict` (they need
 `io.DataLoader`, `metric/` and hapi/callbacks.py), `save` / `load`
 (`checkpoint/`), `summary`, `prepare(use_jit=True)` (`jit/`) and
-`metrics` (`metric/`) — ROADMAP.md Queue 1 item 8.
+`metrics` (`metric/`) — ROADMAP.md Queue 1, The rest.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from ..dygraph.tensor import to_tensor
 
 __all__ = ["Model"]
 
-_QUEUE = "ROADMAP.md Queue 1 item 8"
+_QUEUE = "ROADMAP.md Queue 1, The rest"
 
 
 def _to_list(x):

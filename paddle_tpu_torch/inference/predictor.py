@@ -76,7 +76,7 @@ class Config:
         raise NotImplementedError(
             "Config.enable_bfloat16: the bf16 Predictor pipeline (the AMP "
             "rewrite applied to an inference program, and its passes) is "
-            "not ported yet (ROADMAP.md Queue 1 item 4); the Predictor "
+            "not ported yet (ROADMAP.md Queue 1, Serving remainders); the Predictor "
             "runs fp32")
 
     def precision_mode(self):

@@ -281,8 +281,8 @@ class InferenceServer:
         the model's device (admission by free-page count, COW prefix
         sharing); the plan's batch ceiling applies unless ``max_slots``
         is given.  ``prefix_cache="auto"`` retains hot prompt prefixes
-        across requests.  ``kv_pool="auto"`` raises (ROADMAP Queue 1
-        items 5 and 8); so does a plan with ``tp_degree`` > 1."""
+        across requests.  ``kv_pool="auto"`` raises (ROADMAP.md Queue
+        1, Serving remainders); so does a plan with ``tp_degree`` > 1."""
         from ..serving import ContinuousBatchingEngine
         self._engine = ContinuousBatchingEngine(
             model, max_slots=max_slots, max_queue=max_queue,

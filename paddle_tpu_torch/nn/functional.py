@@ -22,7 +22,17 @@ for it (`linear` is `matmul_v2` then `elementwise_add`), so under
     the last axis take the fused cross-entropy kernel (ops/fused_xent.py),
     as the static op does (the JAX package fuses only under a trace);
   * `mse_loss`, and the activations `relu`, `tanh`, `gelu`, `softmax`,
-    `log_softmax`.
+    `log_softmax`;
+  * the vision functions: `conv2d` (the conv2d op's kernel, cuDNN with
+    TF32 off for fp32 operands in the forward and the backward, then the
+    bias as an `elementwise_add`), `max_pool2d`, `avg_pool2d`,
+    `adaptive_avg_pool2d` (the `pool2d` kernel, with its reference
+    quirks: `ceil_mode` is not read, adaptive windows are in // out), and
+    `batch_norm` (the batch_norm kernel's statistics and gradient; in
+    training it writes the new running stats into the buffers it was
+    given, as the JAX package's `set_value` does).  Under `auto_cast`
+    conv2d is white, batch_norm black and pool2d gray, as listed in
+    amp/fp16_lists.py.
 """
 from __future__ import annotations
 
@@ -31,10 +41,13 @@ import torch
 
 from ..dygraph.tracer import amp_inputs, eager_draw_key
 from ..ops.dropout import apply_mask, dropout_fwd
+from ..ops.kernels.nn import BatchNormFn, conv2d_forward, pool2d_forward
 
 __all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "tanh",
            "softmax", "log_softmax", "dropout", "dropout_with_mask",
-           "cross_entropy", "softmax_with_cross_entropy", "mse_loss"]
+           "cross_entropy", "softmax_with_cross_entropy", "mse_loss",
+           "conv2d", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
+           "batch_norm"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -64,6 +77,85 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     shape = [normalized_shape] if np.isscalar(normalized_shape) \
         else list(normalized_shape)
     return torch.nn.functional.layer_norm(x, shape, weight, bias, epsilon)
+
+
+def _pair(v, n=2):
+    return [v] * n if np.isscalar(v) else list(v)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """The conv2d op over `x` ([N, C, H, W], or NHWC) and `weight` [out,
+    in / groups, kh, kw]; `padding` an int, 2 or 4 values, or "SAME" /
+    "VALID"."""
+    attrs = {"strides": _pair(stride), "paddings": _pair(padding),
+             "dilations": _pair(dilation), "groups": groups,
+             "data_format": data_format}
+    if isinstance(padding, str):
+        attrs["paddings"] = [0, 0]
+        attrs["padding_algorithm"] = padding.upper()
+    x, weight = amp_inputs("conv2d", x, weight)
+    out = conv2d_forward(x, weight, attrs)
+    if bias is None:
+        return out
+    out, bias = amp_inputs("elementwise_add", out, bias)
+    return out + bias.reshape((1, -1, 1, 1) if data_format.startswith("NC")
+                              else (1, 1, 1, -1))
+
+
+def _pool2d(x, attrs):
+    (x,) = amp_inputs("pool2d", x)
+    return pool2d_forward(x, attrs)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    if return_mask:
+        raise NotImplementedError(
+            "max_pool2d(return_mask=True) needs max_pool2d_with_index, not "
+            "ported yet (ROADMAP.md Queue 1, The rest)")
+    ks = _pair(kernel_size)
+    return _pool2d(x, {"pooling_type": "max", "ksize": ks,
+                       "strides": _pair(stride) if stride is not None
+                       else ks, "paddings": _pair(padding),
+                       "ceil_mode": ceil_mode, "global_pooling": False,
+                       "data_format": data_format, "exclusive": True})
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, data_format="NCHW", name=None):
+    ks = _pair(kernel_size)
+    return _pool2d(x, {"pooling_type": "avg", "ksize": ks,
+                       "strides": _pair(stride) if stride is not None
+                       else ks, "paddings": _pair(padding),
+                       "ceil_mode": ceil_mode, "global_pooling": False,
+                       "data_format": data_format, "exclusive": exclusive})
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    return _pool2d(x, {"pooling_type": "avg", "ksize": _pair(output_size),
+                       "adaptive": True, "strides": [1, 1],
+                       "paddings": [0, 0], "global_pooling": False,
+                       "data_format": data_format, "exclusive": True})
+
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False,
+               momentum=0.9, epsilon=1e-5, data_format="NCHW",
+               use_global_stats=None, name=None):
+    """Batch norm over the channel axis; in training (and without
+    `use_global_stats`) on the batch statistics, the running stats
+    updated in place: mean * momentum + batch mean * (1 - momentum)."""
+    attrs = {"momentum": momentum, "epsilon": epsilon,
+             "data_format": data_format, "is_test": not training,
+             "use_global_stats": bool(use_global_stats)}
+    x, weight, bias = amp_inputs("batch_norm", x, weight, bias)
+    y, mean_out, var_out, _, _ = BatchNormFn.apply(
+        x, weight, bias, running_mean, running_var, attrs)
+    if training:
+        with torch.no_grad():
+            running_mean.copy_(mean_out)
+            running_var.copy_(var_out)
+    return y
 
 
 def _unary(op_type, fn):
@@ -135,7 +227,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     if axis is not None:
         raise NotImplementedError("dropout along an axis is not ported "
-                                  "(ROADMAP Queue 1 item 8)")
+                                  "(ROADMAP.md Queue 1, The rest)")
     if training and p == 0:
         return x  # every element kept, x / 1: no draw, no launch
     return dropout_with_mask(x, p, training, mode)[0]

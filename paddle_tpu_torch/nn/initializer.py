@@ -4,7 +4,7 @@ LayerNorm's scale), Normal (Embedding) and Xavier-uniform (Linear).  They
 are the static initializers of paddle_tpu_torch/static/initializer.py; a
 dygraph layer runs their op eagerly
 (dygraph.layers.materialize_initializer).  The other 2.0 names wait for
-ROADMAP Queue 1 item 5."""
+ROADMAP.md Queue 1, The rest."""
 from ..static.initializer import (  # noqa: F401
     Constant, Normal, Xavier, XavierInitializer,
 )

@@ -1,7 +1,7 @@
 """paddle.nn activation layers (counterpart of
 paddle_tpu/nn/layer/activation.py): ReLU, Tanh, GELU, Softmax and
 LogSoftmax over the functional forms.  The other activation layers
-wait for ROADMAP Queue 1 item 8."""
+wait for ROADMAP.md Queue 1, The rest."""
 from __future__ import annotations
 
 from ...dygraph.layers import Layer

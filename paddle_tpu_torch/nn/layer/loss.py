@@ -1,6 +1,6 @@
 """paddle.nn loss layers (counterpart of paddle_tpu/nn/layer/loss.py):
 CrossEntropyLoss and MSELoss over the functional forms.  The other loss
-layers wait for ROADMAP Queue 1 item 8."""
+layers wait for ROADMAP.md Queue 1, The rest."""
 from __future__ import annotations
 
 from ...dygraph.layers import Layer

@@ -20,8 +20,8 @@ them (`:88-104`):
     dropout on the attention weights in training.  GPT always passes a
     mask and takes this route.
 A bool or integer mask (1 = keep) becomes an additive one of 0 / -1e4,
-as in the JAX package.  The decoder classes wait for ROADMAP Queue 1
-item 8.
+as in the JAX package.  The decoder classes wait for ROADMAP.md Queue
+1, The rest.
 """
 from __future__ import annotations
 

@@ -15,4 +15,5 @@ from . import (  # noqa: F401
     decode,
     reduce,
     control,
+    op_gaps,
 )

@@ -1,12 +1,26 @@
-"""gelu (exact (erf) by default, the tanh form when attr `approximate`
-is set), square and sqrt (the global-norm gradient clip).  Counterpart of
-paddle_tpu/ops/kernels/activation.py."""
+"""relu, gelu (exact (erf) by default, the tanh form when attr
+`approximate` is set), square and sqrt (the global-norm gradient clip).
+Counterpart of paddle_tpu/ops/kernels/activation.py.  relu's grad op
+reads the forward's Out (dX = dOut where Out > 0, else 0: jax.nn.relu's
+gradient, 0 at 0) instead of replaying the forward."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..registry import register_op
+
+
+def _relu_grad(ins, attrs, ctx):
+    g = ins.get("Out@GRAD")
+    if g is None:
+        return {}
+    return {"X@GRAD": torch.ops.aten.threshold_backward(g, ins["Out"], 0)}
+
+
+@register_op("relu", inputs=["X"], outputs=["Out"], grad=_relu_grad)
+def relu(ins, attrs, ctx):
+    return {"Out": torch.relu(ins["X"])}
 
 
 @register_op("gelu", inputs=["X"], outputs=["Out"])

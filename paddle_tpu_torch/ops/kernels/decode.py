@@ -4,8 +4,8 @@ Counterpart of paddle_tpu/ops/kernels/decode.py:31-66 (reference:
 beam_search_op.cc).  Beams are a dense [batch, beam] axis: the op takes
 [batch*beam, V] log-probs and emits the top-`beam` continuations per
 batch group (top-k over the flattened beam*V axis).  The other decode ops
-of that module (gather_tree, py_func, ...) wait for ROADMAP Queue 1
-item 9.
+of that module (gather_tree, py_func, ...) wait for ROADMAP.md Queue
+1, The rest.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Tensor manipulation ops of the slices: reshape2, transpose2,
-fill_constant, cast, and gradient merge's where and fill_zeros_like.
+fill_constant, cast, one_hot_v2, and gradient merge's where and
+fill_zeros_like.
 Counterparts of paddle_tpu/ops/kernels/manip.py.
 
 transpose2 returns a strided view (no copy); the flash kernel reads the
@@ -74,3 +75,13 @@ def where(ins, attrs, ctx):
 @register_op("fill_zeros_like", inputs=["X!"], outputs=["Out"], grad=None)
 def fill_zeros_like(ins, attrs, ctx):
     return {"Out": torch.zeros_like(ins["X"])}
+
+
+@register_op("one_hot_v2", inputs=["X!"], outputs=["Out"], grad=None)
+def one_hot_v2(ins, attrs, ctx):
+    """float32 one-hot rows over `depth` classes; an id outside [0, depth)
+    gives a row of zeros, as jax.nn.one_hot (torch's F.one_hot would fail
+    on it, on the card only at a device assert)."""
+    ids = ins["X"].long().unsqueeze(-1)
+    classes = torch.arange(int(attrs["depth"]), device=ids.device)
+    return {"Out": (ids == classes).to(torch.float32)}

@@ -8,7 +8,7 @@ updated in place.  Arithmetic is fp32 whatever the stored dtype.
 
 Not ported yet: `lazy_mode` and sparse (SelectedRows) gradients, lamb's
 ZeRO-sharded trust ratio (`reduce_norms_ring_id`), and the other
-optimizers (ROADMAP.md Queue 1 item 5).
+optimizers (ROADMAP.md Queue 1, Training breadth).
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ def lamb(ins, attrs, ctx):
     if attrs.get("reduce_norms_ring_id") is not None:
         raise NotImplementedError(
             "lamb over a ZeRO-sharded parameter (reduce_norms_ring_id) "
-            "needs the distribution slice (ROADMAP.md Queue 1 item 6)")
+            "needs the distribution slice (ROADMAP.md Queue 1, Distribution)")
     p = ins["Param"].float()
     g = ins["Grad"].float()
     m1 = ins["Moment1"].float()

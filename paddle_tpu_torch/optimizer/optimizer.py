@@ -29,8 +29,8 @@ parameter, as the JAX package does (`:248-256`; ROADMAP.md Queue 3).
 The optimizer takes the eager place when it is built (CUDAPlace(0) unless
 a `dygraph.guard(place)` says otherwise; it raises without a GPU) and
 refuses parameters on another device.  Adamax, Adagrad, Adadelta and
-RMSProp have no ported kernel yet: they raise (ROADMAP.md Queue 1 item
-5).
+RMSProp have no ported kernel yet: they raise (ROADMAP.md Queue 1,
+Training breadth).
 """
 from __future__ import annotations
 
@@ -144,7 +144,7 @@ class Optimizer:
         if self._op_type is None:
             raise NotImplementedError(
                 f"{type(self).__name__} has no ported kernel yet "
-                "(ROADMAP.md Queue 1 item 5)")
+                "(ROADMAP.md Queue 1, Training breadth)")
         lr = torch.full((1,), self.get_lr(), dtype=torch.float32,
                         device=self._device)
         ctx = OpContext(device=self._device)
@@ -232,7 +232,7 @@ class Adam(Optimizer):
         if lazy_mode:
             raise NotImplementedError(
                 "Adam(lazy_mode=True) needs sparse gradients "
-                "(ROADMAP.md Queue 1 item 5)")
+                "(ROADMAP.md Queue 1, Training breadth)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, beta1=beta1, beta2=beta2, epsilon=epsilon)
 
@@ -276,7 +276,7 @@ class _NotPorted(Optimizer):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             f"paddle.optimizer.{type(self).__name__} has no ported kernel "
-            "yet (ROADMAP.md Queue 1 item 5)")
+            "yet (ROADMAP.md Queue 1, Training breadth)")
 
 
 class Adamax(_NotPorted):

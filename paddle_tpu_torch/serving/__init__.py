@@ -13,8 +13,8 @@ HTTP surface (inference/server.py) and the model.
 * metrics (metrics.py) — the ``serving.*`` counters, gauges and
   histograms, dumped by ``/stats`` and ``/metrics``.
 
-Speculative decoding, tp-sharded decode and int8 decode wait for ROADMAP
-Queue 1 item 5.
+Speculative decoding, tp-sharded decode and int8 decode wait for
+ROADMAP.md Queue 1, Serving remainders.
 """
 from .batcher import (  # noqa: F401
     DynamicBatcher, BatcherError, QueueFullError, DeadlineExceededError,

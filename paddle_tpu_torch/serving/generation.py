@@ -38,9 +38,9 @@ The decode thread sets the model's CUDA device and runs under
 to ``submit``.
 
 Still raising, each naming its ROADMAP item: ``speculative=``,
-``tp_degree > 1``, ``weight_dtype="int8"`` (Queue 1 item 5), and
+``tp_degree > 1``, ``weight_dtype="int8"`` (Queue 1, Serving remainders), and
 ``kv_pool="auto"`` (it sizes the pool with ``static.planner.page_budget``,
-Queue 1 item 8).
+Queue 1, Serving remainders).
 """
 from __future__ import annotations
 
@@ -134,8 +134,8 @@ class ContinuousBatchingEngine:
                  weight_dtype: Optional[str] = None):
         if speculative is not None:
             raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue 1 "
-                "item 5)")
+                "speculative decoding is not ported yet (ROADMAP.md Queue 1, "
+                "Serving remainders)")
         plan_of = (kv_pool.plan or {}) if isinstance(kv_pool, PagedKVPool) \
             else kv_pool if isinstance(kv_pool, dict) else {}
         if tp_degree is None:
@@ -143,7 +143,7 @@ class ContinuousBatchingEngine:
         if int(tp_degree) > 1:
             raise NotImplementedError(
                 "tp-sharded decode (tp_degree > 1, serving/tp_decode.py) is "
-                "not ported yet (ROADMAP Queue 1 item 5)")
+                "not ported yet (ROADMAP.md Queue 1, Serving remainders)")
         if weight_dtype is None:
             weight_dtype = plan_of.get("weight_dtype", "float32")
         if weight_dtype not in ("float32", "int8"):
@@ -153,7 +153,7 @@ class ContinuousBatchingEngine:
         if weight_dtype == "int8":
             raise NotImplementedError(
                 "int8 decode weights (serving/int8_decode.py) are not "
-                "ported yet (ROADMAP Queue 1 item 5)")
+                "ported yet (ROADMAP.md Queue 1, Serving remainders)")
         self._model = getattr(model, "gpt", model)
         self.config = self._model.config
         self.device = self._model.device
@@ -162,8 +162,8 @@ class ContinuousBatchingEngine:
             if kv_pool == "auto":
                 raise NotImplementedError(
                     "kv_pool='auto' sizes the pool with static.planner."
-                    "page_budget, which is not ported yet (ROADMAP Queue 1 "
-                    "items 5 and 8): pass a plan dict or a PagedKVPool")
+                    "page_budget, which is not ported yet (ROADMAP.md Queue 1, "
+                    "Serving remainders): pass a plan dict or a PagedKVPool")
             if isinstance(kv_pool, PagedKVPool):
                 self._pool = kv_pool
             elif isinstance(kv_pool, dict):

@@ -24,10 +24,10 @@ The reservation, refcount, prefix-key and pin bookkeeping stays on the
 host, in Python, as in the JAX package: it is a few integers per page
 and never touches the slabs.
 
-Still raising (ROADMAP Queue 1 item 5): ``kv_dtype="int8"`` pages.
+Still raising (ROADMAP.md Queue 1, Serving remainders): ``kv_dtype="int8"`` pages.
 ``budget_drift`` compares the live geometry with the recorded plan; the
 re-derivation through ``static.planner.page_budget`` waits for that
-planner (Queue 1 item 8).
+planner (Queue 1, Serving remainders).
 """
 from __future__ import annotations
 
@@ -92,7 +92,7 @@ class PagedKVPool:
         name = convert_dtype(kv_dtype if kv_dtype is not None else dtype)
         if name == "int8":
             raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP Queue 1 item 5)")
+                "int8 KV pages are not ported yet (ROADMAP.md Queue 1, Serving remainders)")
         if name not in ("float32", "float16", "bfloat16"):
             raise ValueError(f"kv pages must be a float dtype, got {name}")
         self.num_layers = int(num_layers)
@@ -143,7 +143,7 @@ class PagedKVPool:
         if int(plan.get("tp_degree", 1)) > 1:
             raise NotImplementedError(
                 "a tp-sharded pool (tp_degree > 1) waits for serving/"
-                "tp_decode.py (ROADMAP Queue 1 item 5)")
+                "tp_decode.py (ROADMAP.md Queue 1, Serving remainders)")
         return cls(num_layers=int(plan["num_layers"]),
                    num_heads=int(plan["num_heads"]),
                    head_dim=int(plan["head_dim"]),
@@ -542,7 +542,7 @@ def budget_drift(pool: PagedKVPool, model=None) -> List[str]:
     geometry (pages, page_tokens, layers, heads, head_dim), and the model's
     geometry when one is given.  The JAX package also re-derives the plan
     through `static.page_budget` under its recorded inputs; that waits
-    for the port's planner (ROADMAP Queue 1 item 8)."""
+    for the port's planner (ROADMAP.md Queue 1, Analysis and planner tiers)."""
     if pool.plan is None:
         return ["pool carries no recorded plan (hand-built, not "
                 "page_budget-sized)"]

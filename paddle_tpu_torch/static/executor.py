@@ -12,11 +12,14 @@ only bounded retraces) have no counterpart: a batch runs at its own size.
 is present; pass CPUPlace() to run on the CPU.
 
 A training program runs the same way: its grad ops are ops like any other
-(each replays its forward under torch.func.vjp), the optimizer ops'
-outputs are bound to the persistable names they write, and every
-persistable the run wrote goes back to the scope.  Grad vars can be
-fetched by name.  Nothing reads a device value back to the host unless
-it is fetched.
+(each replays its forward under torch.func.vjp, or has an explicit
+gradient), the optimizer ops' outputs are bound to the persistable names
+they write, and every persistable the run wrote goes back to the scope.
+Grad vars can be fetched by name.  A value that is neither persistable
+nor fetched is dropped after the last op that reads or writes it (the
+reference's eager deletion), so a step holds the live activations, not
+every value it made.  Nothing reads a device value back to the host
+unless it is fetched.
 
 `run_steps(program, feed, fetch_list)` runs K steps with every feed
 stacked on a leading steps axis and returns each fetch stacked [K, ...],
@@ -166,6 +169,33 @@ def _persistable_names(program: Program) -> List[str]:
                   if v.persistable)
 
 
+def _release_plan(program: Program, keep) -> List[List[str]]:
+    """For each op of the global block, the names no later op reads or
+    writes: values to drop from the environment after it, leaving out the
+    persistables and `keep` (the fetches)."""
+    keep = set(keep) | set(_persistable_names(program))
+    ops = program.global_block().ops
+    last = {}
+    for i, op in enumerate(ops):
+        for n in op.input_names() + op.output_names():
+            if n:
+                last[n] = i
+    plan: List[List[str]] = [[] for _ in ops]
+    for n, i in last.items():
+        if n not in keep:
+            plan[i].append(n)
+    return plan
+
+
+def _run_ops(ops, plan, env, ctx):
+    """Run `ops` in order over `env`, dropping each value after its last
+    use (`plan`, from _release_plan)."""
+    for op, dead in zip(ops, plan):
+        _run_op(op, env, ctx)
+        for n in dead:
+            env.pop(n, None)
+
+
 # ops that draw from OpContext.generator, whose seed is a host integer per
 # step: a CUDA graph would replay the captured step's draws every time
 # (dropout reads the step seed from a device buffer and is not one)
@@ -229,8 +259,8 @@ class Executor:
                 env[name] = self._coerce_feed(block, name, val)
             ctx = OpContext(seed=self._seed_for_step(program),
                             is_test=False, device=self.device)
-            for op in block.ops:
-                _run_op(op, env, ctx)
+            _run_ops(block.ops, _release_plan(program, fetch_names), env,
+                     ctx)
         self._step += 1
         # persistables written by the program (startup initializers) stay
         for n in _persistable_names(program):
@@ -259,8 +289,8 @@ class Executor:
         if not isinstance(program, Program):
             raise NotImplementedError(
                 f"run_steps takes a Program, got {type(program).__name__}: "
-                "CompiledProgram is not ported yet (ROADMAP.md Queue 1 "
-                "item 6, distribution)")
+                "CompiledProgram is not ported yet (ROADMAP.md Queue 1, "
+                "Distribution)")
         scope = scope or global_scope()
         fetch_names = [f.name if hasattr(f, "name") else str(f)
                        for f in (fetch_list or [])]
@@ -322,7 +352,7 @@ class Executor:
                 f"run_steps cannot capture {random_ops} on CUDA: the "
                 "initializers draw from a host-seeded torch.Generator, "
                 "which a CUDA graph would freeze (a graph-safe RNG for them "
-                "is ROADMAP.md Queue 1 item 5); run the steps with run()")
+                "is ROADMAP.md Queue 1, Training breadth); run the steps with run()")
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
         # the flags are part of the key: one read while the ops run
@@ -378,6 +408,7 @@ class Executor:
             state[n] = t
         feeds = {n: v[0].clone() for n, v in stacked.items()}
         seed_buf = seed.clone()
+        plan = _release_plan(block.program, fetch_names)
 
         def step():
             env = dict(state)
@@ -385,8 +416,7 @@ class Executor:
             ctx = OpContext(seed=0, is_test=False, device=self.device,
                             seed_tensor=seed_buf)
             with torch.no_grad():
-                for op in block.ops:
-                    _run_op(op, env, ctx)
+                _run_ops(block.ops, plan, env, ctx)
             return env
 
         side = torch.cuda.Stream(self.device)

@@ -1,7 +1,9 @@
 """Static-graph layer functions: the subset of the fluid.layers API that
 the BERT encoder and its pretraining program (`models/bert_static.py`),
-the score-matrix attention graph, dropout, the optimizers, gradient
-clipping, the regularizers and the AMP rewrite use.
+the BASELINE configs' programs (`models/baseline_static.py`: conv2d,
+pool2d, batch_norm, relu, one_hot, label_smooth), the score-matrix
+attention graph, dropout, the optimizers, gradient clipping, the
+regularizers and the AMP rewrite use.
 
 Each function is a copy of its namesake in paddle_tpu/static/layers.py, so
 both packages append the same ops with the same attrs, parameter names
@@ -13,15 +15,17 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.program import VarDesc, default_main_program
-from .initializer import Constant, Xavier
+from .initializer import Constant, Normal, Xavier
 from .layer_helper import LayerHelper
+from .param_attr import ParamAttr
 
-__all__ = ["data", "fc", "embedding", "layer_norm", "dropout", "softmax",
-           "matmul", "elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "elementwise_max", "reduce_sum", "sqrt",
-           "square", "clip", "clip_by_norm", "sums", "reshape", "transpose",
-           "scale", "fill_constant", "softmax_with_cross_entropy", "mean",
-           "cast", "create_global_var", "_binary_op"]
+__all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "dropout", "softmax", "matmul", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "reduce_sum", "relu", "sqrt", "square",
+           "clip", "clip_by_norm", "sums", "reshape", "transpose", "scale",
+           "fill_constant", "softmax_with_cross_entropy", "label_smooth",
+           "one_hot", "mean", "cast", "create_global_var", "_binary_op"]
 
 
 def _current_block():
@@ -113,6 +117,94 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                "is_sparse": bool(is_sparse),
                "is_distributed": bool(is_distributed)})
     return out
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [int(v)] * 2
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """fluid.layers.conv2d: the conv2d op (filter Normal(0, sqrt(2 /
+    fan_in))), the bias as an elementwise_add over the channel axis, then
+    `act`."""
+    helper = LayerHelper("conv2d", name=name)
+    c_in = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    ks = _pair(filter_size)
+    w_shape = [num_filters, c_in // groups] + ks
+    fan_in = (c_in // groups) * ks[0] * ks[1]
+    w = helper.create_parameter(
+        param_attr, w_shape, input.dtype,
+        default_initializer=Normal(0.0, float(np.sqrt(2.0 / fan_in))))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "conv2d", inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "data_format": data_format})
+    b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                is_bias=True)
+    if b is not None:
+        pre_act = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": out, "Y": b},
+                         outputs={"Out": pre_act},
+                         attrs={"axis": 1 if data_format == "NCHW" else 3})
+    else:
+        pre_act = out
+    return helper.append_activation(pre_act, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride), "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False, name=None):
+    """fluid.layers.batch_norm.  The running stats are persistable
+    non-trainable parameters that the op updates in the graph: MeanOut /
+    VarianceOut are the Mean / Variance vars themselves.  The attr is
+    `data_layout`, which the kernel does not read (it reads
+    `data_format`), as in the reference."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [c], "float32",
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], "float32", is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False), [c], "float32",
+        default_initializer=Constant(0.0))
+    var = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False), [c], "float32",
+        default_initializer=Constant(1.0))
+    mean.stop_gradient = True
+    var.stop_gradient = True
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference("float32", True)
+    saved_var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": var},
+        outputs={"Y": y, "MeanOut": mean, "VarianceOut": var,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "data_layout": data_layout, "is_test": is_test,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y, act)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -230,6 +322,7 @@ def _make_unary(op_type):
     return f
 
 
+relu = _make_unary("relu")
 sqrt = _make_unary("sqrt")
 square = _make_unary("square")
 
@@ -289,6 +382,26 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(label.dtype)
+    ins = {"X": label}
+    if prior_dist is not None:
+        ins["PriorDist"] = prior_dist
+    helper.append_op("label_smooth", inputs=ins, outputs={"Out": out},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False, name=None):
+    helper = LayerHelper("one_hot_v2", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot_v2", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"depth": depth,
+                            "allow_out_of_range": allow_out_of_range})
+    return out
 
 
 def create_global_var(shape, value, dtype, persistable=False,

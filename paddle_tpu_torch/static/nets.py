@@ -49,7 +49,7 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
         raise NotImplementedError(
             "scaled_dot_product_attention(sequence_parallel=True) emits "
             "ring_attention, which belongs to the distribution slice "
-            "(ROADMAP.md Queue 1 item 6) and is not ported yet")
+            "(ROADMAP.md Queue 1, Distribution) and is not ported yet")
     if causal:
         raise NotImplementedError(
             "causal masking is only wired for the sequence_parallel "

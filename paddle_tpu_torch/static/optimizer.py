@@ -16,7 +16,7 @@ The clips also have the dygraph `_eager_apply(params_grads)` that the 2.0
 optimizers (optimizer/optimizer.py) call on torch gradients: the same
 arithmetic in fp32, the result in each gradient's dtype.
 
-Not ported yet (ROADMAP.md Queue 1 item 5): the other optimizers (Adamax,
+Not ported yet (ROADMAP.md Queue 1, Training breadth): the other optimizers (Adamax,
 Adagrad, Adadelta, RMSProp, Ftrl, LarsMomentum, DecayedAdagrad, Dpsgd,
 ProximalGD, ProximalAdagrad), ExponentialMovingAverage, ModelAverage,
 Lookahead, RecomputeOptimizer and `Adam(lazy_mode=True)`.
@@ -259,7 +259,7 @@ class AdamOptimizer(Optimizer):
         if lazy_mode:
             raise NotImplementedError(
                 "Adam(lazy_mode=True) needs sparse gradients, not ported "
-                "yet (ROADMAP.md Queue 1 item 5)")
+                "yet (ROADMAP.md Queue 1, Training breadth)")
         super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 

@@ -1,0 +1,16 @@
+"""Tensor manipulation functions (counterpart of
+paddle_tpu/tensor/manipulation.py): `flatten`, the op
+`flatten_contiguous_range` the JAX package traces, AMP-cast as that op
+(gray: no cast), then torch.flatten."""
+from __future__ import annotations
+
+import torch
+
+from ..dygraph.tracer import amp_inputs
+
+__all__ = ["flatten"]
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    (x,) = amp_inputs("flatten_contiguous_range", x)
+    return torch.flatten(x, start_axis, stop_axis)

@@ -1272,3 +1272,154 @@ def test_grad_scaler_on_cuda_tensors():
     ref_opt.step()
     torch.testing.assert_close(lin.weight, ref.weight, atol=1e-6, rtol=1e-6)
     assert lin.weight.grad.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# the BASELINE configs' ops (cuDNN / ATen through torch, no hand kernel)
+# ---------------------------------------------------------------------------
+_VISION_CASES = [
+    ("conv2d", {"Input": (4, 16, 28, 28), "Filter": (32, 16, 3, 3)},
+     {"strides": [2, 2], "paddings": [1, 1]}, "Output"),
+    ("conv2d", {"Input": (2, 3, 30, 31), "Filter": (8, 3, 7, 7)},
+     {"strides": [2, 2], "paddings": [3, 2, 1, 3]}, "Output"),
+    ("conv2d", {"Input": (2, 9, 12, 8), "Filter": (6, 4, 3, 3)},
+     {"groups": 2, "dilations": [2, 1], "padding_algorithm": "SAME",
+      "data_format": "NHWC"}, "Output"),
+    ("pool2d", {"X": (4, 8, 17, 17)}, {"pooling_type": "max", "ksize": [3, 3],
+                                       "strides": [2, 2],
+                                       "paddings": [1, 1]}, "Out"),
+    ("pool2d", {"X": (4, 8, 17, 17)}, {"pooling_type": "avg", "ksize": [3, 3],
+                                       "strides": [2, 2],
+                                       "paddings": [2, 1, 0, 2]}, "Out"),
+    ("pool2d", {"X": (4, 8, 7, 7)}, {"pooling_type": "avg",
+                                     "global_pooling": True}, "Out"),
+    ("batch_norm", {"X": (8, 16, 14, 14)}, {"momentum": 0.9}, "Y"),
+    ("batch_norm", {"X": (8, 16, 14, 14)}, {"use_global_stats": True}, "Y"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_VISION_CASES)))
+def test_vision_ops_on_the_card_match_float64_on_the_cpu(case):
+    """conv2d, pool2d and batch_norm and their grad ops on the card (fp32)
+    against the same port ops on the CPU in float64, with cuDNN's TF32
+    switched ON process-wide: the conv2d kernel turns it off for itself,
+    so every output holds a normalised max error of 1e-5 (TF32 rounds
+    each operand to 10 bits of mantissa and would miss it by ~100x)."""
+    _need_cuda()
+    from paddle_tpu_torch.ops.registry import OpContext, get_op_info
+    op, shapes, attrs, out_slot = _VISION_CASES[case]
+    g = torch.Generator().manual_seed(case)
+    ins = {k: torch.randn(s, generator=g, dtype=torch.float64)
+           for k, s in shapes.items()}
+    if op == "batch_norm":
+        c = shapes["X"][1]
+        ins.update(Scale=torch.randn(c, generator=g, dtype=torch.float64),
+                   Bias=torch.randn(c, generator=g, dtype=torch.float64),
+                   Mean=torch.randn(c, generator=g, dtype=torch.float64),
+                   Variance=torch.rand(c, generator=g,
+                                       dtype=torch.float64) + 0.5)
+    fwd, grad = get_op_info(op), get_op_info(op + "_grad")
+    res = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            x = {k: v.to(dev, dt) for k, v in ins.items()}
+            ctx = OpContext(device=dev)
+            out = fwd.kernel(x, attrs, ctx)
+            gin = dict(x, **out)
+            gin[out_slot + "@GRAD"] = torch.linspace(
+                -1, 1, out[out_slot].numel(), dtype=dt,
+                device=dev).reshape(out[out_slot].shape)
+            res[dev] = dict(out, **grad.kernel(gin, attrs, ctx))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert set(res["cuda"]) == set(res["cpu"])
+    for k, ref in res["cpu"].items():
+        got = res["cuda"][k].cpu().double()
+        err = float((got - ref).abs().max() / ref.abs().max().clamp_min(
+            1e-30))
+        assert err <= 1e-5, (op, k, err)
+
+
+def test_conv2d_autograd_on_the_card_is_fp32_under_the_tf32_flag():
+    """Conv2dFn's forward and backward (what nn.Conv2D runs) on the card
+    against float64 on the CPU with the TF32 flag on, at ResNet's 3x3 /
+    256 channels (sums of 2,304 products): normalised 1e-4.  cuDNN's fp32
+    algorithms here (Winograd among them) measured 3.9e-5 on the card;
+    TF32 (10-bit operands) errs ~1e-3."""
+    _need_cuda()
+    from paddle_tpu_torch.ops.kernels.nn import Conv2dFn
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(8, 256, 14, 14, generator=g, dtype=torch.float64)
+    w = torch.randn(256, 256, 3, 3, generator=g, dtype=torch.float64)
+    res = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            xv = x.to(dev, dt).requires_grad_(True)
+            wv = w.to(dev, dt).requires_grad_(True)
+            out = Conv2dFn.apply(xv, wv, [1, 1], [1, 1], [1, 1], 1)
+            (out * out.detach().sin()).sum().backward()
+            res[dev] = (out.detach(), xv.grad, wv.grad)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.backends.cudnn.allow_tf32 == prev
+    for got, ref in zip(res["cuda"], res["cpu"]):
+        err = float((got.cpu().double() - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-4, err
+
+
+def test_run_steps_replays_batch_norm_running_stats():
+    """A conv_bn + pool + fc program (bf16 AMP, Momentum) through
+    run_steps (K = 3): the losses equal 3 eager run() steps' (to the last
+    bit, else rtol 2e-3), and the fetched running mean of the batch norm
+    is new in every replayed step and equal to the eager one's."""
+    _need_cuda()
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch.models.baseline_static import conv_bn
+    from paddle_tpu_torch.static import layers
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        im = layers.data("image", [-1, 3, 32, 32])
+        label = layers.data("label", [-1, 1], dtype="int64")
+        h = conv_bn(layers, im, 16, 3, act="relu")
+        h = layers.pool2d(h, 3, pool_type="max", pool_stride=2,
+                          pool_padding=1)
+        h = layers.pool2d(h, pool_type="avg", global_pooling=True)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.fc(h, 10), label))
+        amp.decorate(static.Momentum(0.1, 0.9), init_loss_scaling=1.0,
+                     use_dynamic_loss_scaling=False,
+                     dest_dtype="bfloat16").minimize(loss)
+    mean = [op for op in main.global_block().ops
+            if op.type == "batch_norm"][0].inputs["Mean"][0]
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.rand(8, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (8, 1)).astype(np.int64)}
+    exe = static.Executor()
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        exe.run(startup)
+    init = {n: t.clone() for n, t in scope.vars.items() if t is not None}
+    with static.scope_guard(scope):
+        eager = [exe.run(main, feed=feed, fetch_list=[loss, mean])
+                 for _ in range(3)]
+    gscope = static.Scope()
+    for n, t in init.items():
+        gscope.set(n, t)
+    with static.scope_guard(gscope):
+        gexe = static.Executor()
+        losses, means = gexe.run_steps(
+            main, feed={n: np.stack([v] * 3) for n, v in feed.items()},
+            fetch_list=[loss, mean])
+    assert gexe.cache_stats()["traces"] == 1
+    np.testing.assert_allclose(losses.reshape(-1),
+                               [float(e[0].reshape(-1)[0]) for e in eager],
+                               rtol=2e-3)
+    for i in range(3):
+        np.testing.assert_allclose(means[i], eager[i][1], rtol=1e-5,
+                                   atol=1e-6)
+        assert i == 0 or not np.array_equal(means[i], means[i - 1])
+    gexe.close()

@@ -161,7 +161,7 @@ def test_engine_rejections_match_jax(pair):
         ContinuousBatchingEngine(tm).submit([2], decode_strategy="beam_search")
     for kw in ({"speculative": "auto"}, {"tp_degree": 2},
                {"kv_pool": "auto"}, {"weight_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
             ContinuousBatchingEngine(tm, **kw)
     with pytest.raises(ValueError, match="geometry mismatch"):
         ContinuousBatchingEngine(tm, kv_pool=dict(PLAN, num_heads=2,

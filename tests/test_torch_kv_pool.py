@@ -173,7 +173,7 @@ def test_plan_geometry_drift_and_what_still_raises():
     assert budget_drift(pool) == ["pages: pool has 7, plan records 6"]
     assert budget_drift(PagedKVPool(device="cpu", **GEOM))[0].startswith(
         "pool carries no recorded plan")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
         PagedKVPool(kv_dtype="int8", device="cpu", **GEOM)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
         PagedKVPool.from_plan(dict(plan, tp_degree=2), device="cpu")

@@ -163,7 +163,7 @@ def test_server_rejects_generator_and_stops_unstarted(model_dir):
     plan = dict(num_layers=1, num_heads=2, head_dim=8, page_tokens=4,
                 pages=8, tp_degree=2)
     for kw in ({"gen_kv_pool": "auto"}, {"gen_kv_pool": plan}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
             InferenceServer(model_dir, place=CPUPlace(), generator=gen,
                             **kw)
     srv = InferenceServer(model_dir, place=CPUPlace())
