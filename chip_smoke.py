@@ -8,7 +8,9 @@ AdamW, gradient clipping, lr schedule, gradient merge), serve GPT
 /generate, train BERT-base through the dygraph 2.0 API (autograd,
 auto_cast and GradScaler, paddle.optimizer, models.bert, hapi), and
 train the BASELINE configs LeNet-5, ResNet-50 and Transformer-big (static,
-eager and replayed) and vision.models.resnet50() in dygraph.
+eager and replayed) and vision.models.resnet50() in dygraph, and serve the
+remainders: bf16 and PTQ-int8 /predict, a conv-bn-folded ResNet-50, and
+speculative and int8 /generate.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -236,6 +238,42 @@ is present.  Phases:
                F.cross_entropy, loss.backward(),
                optimizer.Momentum(0.1, 0.9): a warm-up step, 10 timed
                steps, 1 profiled; the same gates (bn1's running mean).
+ 11. remainders - the serving remainders, on phase 4's model dir and
+               phase 7's model and posts (run after phase 7): (a) bf16
+               /predict: Config(dir).enable_bfloat16() (the AMP rewrite
+               after the passes) on the served 8 x 512 rows, exactly 12
+               bf16 flash-forward launches a run, relative RMS error
+               against the fp32 Predictor within 5e-2; (b) int8 /predict:
+               slim.PostTrainingQuantization of the loaded program (4
+               calibration batches from --seed), saved and loaded in a
+               Predictor: quant_int8_pass rewrites 2-D activations only,
+               as the JAX package's does, so no int8_matmul op and no
+               int8 product a run, 72 fp32 products over dequantized int8
+               weights and 12 fp32 flash launches a run; one
+               projection's int32 accumulators at the served shape
+               (torch._int_mm) equal to the plain version; max |int8 -
+               fp32| / max |fp32| within 0.1
+               (tests/test_int8_execution.py's bound); (c) ResNet-50
+               inference: build_resnet50(use_amp=False) at batch 32 x 224,
+               batch-norm statistics, scale and bias from --seed, saved,
+               run through the full pipeline (53 conv_bn_fuse_pass folds,
+               no batch_norm left) and with delete_pass(
+               "conv_bn_fuse_pass"), normalised max error within 1e-4
+               (fp32, TF32 off); (d) speculative /generate: phase 7's
+               server setup with gen_speculative="auto" (a 2-layer stamp,
+               k = 4) and its 16 posts: each reply equal to phase 7's, or
+               a greedy divergence at a top-2 margin under 1e-4 of the
+               fp32 model (reported); the same with a 2-layer draft of
+               its own weights, block weights doubled (rejected
+               proposals rolled back, replies held the same way); a full-depth stamp over 4 greedy
+               posts accepts every proposal; the distinct tokens of each
+               plain reply reported; (e) int8 /generate: the same
+               posts with weight_dtype="int8" over a kv_dtype="int8" pool
+               of GEN_PLAN's bytes (3.98x the pages): no scale clip,
+               every product through torch._int_mm, divergences from
+               phase 7's replies reported with the fp32 top-2 margin
+               (docs/serving.md's rule).  Each: run ms, peak memory,
+               tokens/s, TTFT; every pool drained.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -1354,7 +1392,8 @@ def generate_phase(torch, seed, model_dir, profile=False):
          "tokens_equal_to_fixed_slot_share": same / max(1, total),
          "kv_device": str(pool.k.device),
          "pool_after": stats["kv_pool"], "warmup_ok": bool(warm)})
-    return launches
+    return {"launches": launches, "model": model, "bodies": bodies,
+            "outs": outs, "tokens_per_s": new_tokens / burst_s}
 
 
 def train_feed(seed):
@@ -2889,6 +2928,563 @@ def baseline_phase(torch, seed):
     return out
 
 
+# phase 11: the serving remainders (bf16 and int8 /predict, the conv-bn
+# fold, speculative and int8 /generate), on the models of phases 4 and 7
+BF16_RMS_TOL = 5e-2    # bf16 /predict vs fp32: relative RMS over 12 layers
+INT8_MAX_TOL = 0.1     # int8 /predict vs fp32: max |q - f| / max |f|,
+#                        tests/test_int8_execution.py's bound
+FOLD_TOL = 1e-4        # ResNet-50 folded vs unfolded: normalised max error
+PTQ_CALIB = 4          # calibration batches of 8 x 512 rows
+RESNET_INFER = dict(batch=32, img=224, classes=1000)
+SPEC_K = 4
+SPEC_FULL_POSTS = (0, 1, 2, 4)   # greedy posts run with a full-depth stamp
+NEAR_TIE = 1e-4        # a W-wide GEMM may sum in another order
+
+
+def predict_rows(seed):
+    """8 x 512 rows (phase 4's served batch: the same ids)."""
+    rng = np.random.RandomState(seed)
+    rows = sum(ROWS_PER_POST)
+    ids = rng.randint(0, BERT["vocab"], (rows, BERT["seq"])).astype(np.int64)
+    pos = np.tile(np.arange(BERT["seq"], dtype=np.int64), (rows, 1))
+    return [ids, pos]
+
+
+def timed_run(torch, pred, feeds, runs=3):
+    """Median ms of `runs` Predictor.run calls after one warm-up, and the
+    peak device memory over them."""
+    out = pred.run(feeds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = pred.run(feeds)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out[0], float(np.median(ms)), \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def predict_bf16(torch, attn, model_dir, feeds):
+    """(a) phase 4's BERT-base model dir through Config.enable_bfloat16():
+    exactly 12 bf16 flash-forward launches a run, outputs against the fp32
+    Predictor within BF16_RMS_TOL."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    f32 = create_predictor(Config(model_dir))
+    out32, ms32, mem32 = timed_run(torch, f32, feeds)
+    cfg = Config(model_dir)
+    cfg.enable_bfloat16()
+    b16 = create_predictor(cfg)
+    b16.run(feeds)  # warm-up, not counted
+    torch.cuda.synchronize()
+    # ---- the main path: counts from 0 just before, read just after
+    attn.flash_attention.launches = 0
+    attn.flash_attention.dtype_launches.clear()
+    zero_wide(attn)
+    (out16,) = b16.run(feeds)
+    torch.cuda.synchronize()
+    launches = dict(attn.flash_attention.dtype_launches)
+    record_wide("predict_bf16", read_wide(attn))
+    # ---- end of the main path
+    if launches != {"bfloat16": BERT["layers_n"]}:
+        raise AssertionError(f"bf16 /predict flash launches {launches}, "
+                             f"want 12 bf16")
+    _, ms16, mem16 = timed_run(torch, b16, feeds)
+    rms = float(np.sqrt(np.mean((out16 - out32) ** 2))
+                / np.sqrt(np.mean(out32 ** 2)))
+    if out16.dtype != np.float32 or not np.isfinite(out16).all() or \
+            rms > BF16_RMS_TOL:
+        raise AssertionError(f"bf16 /predict: relative RMS {rms} vs fp32 "
+                             f"(tol {BF16_RMS_TOL})")
+    ops = b16._program.global_block().ops
+    result = {"flash_launches_by_dtype": launches,
+              "rel_rms_err_vs_fp32": rms, "tol": BF16_RMS_TOL,
+              "max_abs_err_vs_fp32": float(np.abs(out16 - out32).max()),
+              "run_ms": ms16, "run_ms_fp32": ms32,
+              "peak_gpu_mem_gb": mem16, "peak_gpu_mem_gb_fp32": mem32,
+              "cast_ops": sum(op.type == "cast" for op in ops)}
+    del b16, f32
+    return result, out32
+
+
+def predict_int8(torch, attn, tmp, model_dir, feeds, out32, seed):
+    """(b) PostTrainingQuantization of phase 4's program (PTQ_CALIB
+    calibration batches from the seed), saved and loaded in a Predictor.
+    quant_int8_pass rewrites a product over a 2-D activation only, as the
+    JAX package's does, so BERT's 72 [B, S, H] projections stay on the
+    fp32 product of their dequantized int8 weights: no int8_matmul op, no
+    int8 product a run, 12 fp32 flash launches a run; one projection's
+    int32 accumulators at the served shape (its input from this run, its
+    int8 weight) through torch._int_mm equal to the plain version; the
+    error against fp32 within INT8_MAX_TOL."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.io import load_inference_model, \
+        save_inference_model
+    from paddle_tpu_torch.ops.kernels import quantize as tq
+    from paddle_tpu_torch.slim import PostTrainingQuantization
+    t0 = time.perf_counter()
+    exe, scope = static.Executor(), static.Scope()
+    with static.scope_guard(scope):
+        prog, feed_names, targets = load_inference_model(model_dir, exe)
+        rng = np.random.RandomState(seed + 11)
+        calib = [{"ids": rng.randint(0, BERT["vocab"], feeds[0].shape)
+                  .astype(np.int64), "pos": feeds[1]}
+                 for _ in range(PTQ_CALIB)]
+        quant = PostTrainingQuantization(exe, prog, feed_names,
+                                         scope=scope).quantize(calib)
+        qdir = os.path.join(tmp, "bert_int8")
+        save_inference_model(qdir, feed_names, targets, exe, quant)
+    del scope
+    ptq_s = time.perf_counter() - t0
+    pred = create_predictor(Config(qdir))
+    block = pred._program.global_block()
+    producer = {n: op for op in block.ops for n in op.output_names()}
+    int8_ops = [op for op in block.ops if op.type == "int8_matmul"]
+    # the products over a dequantized int8 weight the pass left fp32
+    deq_muls = [op for op in block.ops if op.type == "mul" and
+                producer.get(op.inputs["Y"][0]) is not None and
+                producer[op.inputs["Y"][0]].type.startswith(
+                    "fake_channel_wise_dequantize") and
+                block.var(producer[op.inputs["Y"][0]].inputs["X"][0])
+                .dtype == "int8"]
+    if int8_ops or len(deq_muls) != 6 * BERT["layers_n"]:
+        raise AssertionError(f"{len(int8_ops)} int8_matmul ops (want 0), "
+                             f"{len(deq_muls)} products over int8 weights "
+                             f"(want 72)")
+    pred.run(feeds)  # warm-up, not counted
+    torch.cuda.synchronize()
+    # ---- the main path: counts from 0 just before, read just after
+    attn.flash_attention.launches = 0
+    attn.flash_attention.dtype_launches.clear()
+    tq.int8_product.launches = 0
+    tq.int8_product.padded_calls = 0
+    zero_wide(attn)
+    (out8,) = pred.run(feeds)
+    torch.cuda.synchronize()
+    flash = dict(attn.flash_attention.dtype_launches)
+    products = tq.int8_product.launches
+    padded = tq.int8_product.padded_calls
+    record_wide("predict_int8", read_wide(attn))
+    # ---- end of the main path
+    if flash != {"float32": BERT["layers_n"]} or products:
+        raise AssertionError(f"int8 /predict: flash {flash}, int8 products "
+                             f"{products} (want 12 fp32, 0)")
+    _, ms8, mem8 = timed_run(torch, pred, feeds)
+    # one projection's accumulators: its input from this run, quantized as
+    # int8_matmul does, through torch._int_mm and through the plain version
+    op = deq_muls[0]
+    (x,) = pred._exe.run(pred._program,
+                         feed=dict(zip(pred.get_input_names(), feeds)),
+                         fetch_list=[op.inputs["X"][0]], scope=pred._scope,
+                         return_numpy=False)
+    xq, _ = tq.quantize_activation(x)
+    xq = xq.reshape(-1, xq.shape[-1])
+    w = pred._scope.get(producer[op.inputs["Y"][0]].inputs["X"][0]).to(
+        torch.int8)
+    acc = tq.int8_product(xq, w)
+    plain = tq.int8_product_plain(xq, w)
+    if not torch.equal(acc, plain):
+        raise AssertionError("int8 accumulators differ from the plain "
+                             "version")
+    err = float(np.abs(out8 - out32).max() / np.abs(out32).max())
+    rms = float(np.sqrt(np.mean((out8 - out32) ** 2))
+                / np.sqrt(np.mean(out32 ** 2)))
+    if not np.isfinite(out8).all() or err > INT8_MAX_TOL:
+        raise AssertionError(f"int8 /predict: normalised max error {err} "
+                             f"vs fp32 (tol {INT8_MAX_TOL})")
+    return {"int8_matmul_ops": len(int8_ops),
+            "fp32_products_over_int8_weights": len(deq_muls),
+            "int8_products_per_run": products,
+            "padded_products_per_run": padded,
+            "flash_launches_by_dtype": flash,
+            "accumulators_equal_plain": True,
+            "acc_shape": list(acc.shape),
+            "norm_max_err_vs_fp32": err, "rel_rms_err_vs_fp32": rms,
+            "tol": INT8_MAX_TOL, "run_ms": ms8, "peak_gpu_mem_gb": mem8,
+            "ptq_calibrate_freeze_save_s": ptq_s,
+            "pass_stats": pred._pass_stats}
+
+
+def resnet_fold(torch, attn, tmp, seed):
+    """(c) build_resnet50(use_amp=False) at batch 32 x 224 with running
+    stats, scale and bias drawn from the seed, saved with
+    save_inference_model, run through the full pipeline (53 folds, no
+    batch_norm left) and with delete_pass("conv_bn_fuse_pass"): outputs
+    within FOLD_TOL (fp32, TF32 off)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.io import save_inference_model
+    from paddle_tpu_torch.models import build_resnet50
+    main, startup, _ = build_resnet50(use_amp=False, **RESNET_INFER)
+    ops = main.global_block().ops
+    logits = [op for op in ops if op.type == "softmax_with_cross_entropy"][
+        0].inputs["Logits"][0]
+    exe, scope = static.Executor(), static.Scope()
+    rng = np.random.RandomState(seed + 13)
+    d = os.path.join(tmp, "resnet50_infer")
+    with static.scope_guard(scope):
+        exe.run(startup)
+        for op in ops:
+            if op.type != "batch_norm":
+                continue
+            c = scope.get(op.inputs["Scale"][0]).shape
+            for slot, draw in (("Scale", lambda: rng.rand(*c) + 0.5),
+                               ("Bias", lambda: rng.randn(*c)),
+                               ("Mean", lambda: rng.randn(*c) * 0.1),
+                               ("Variance", lambda: rng.rand(*c) + 0.5)):
+                scope.set(op.inputs[slot][0], torch.as_tensor(
+                    draw(), dtype=torch.float32, device=exe.device))
+        save_inference_model(d, ["image"], [main.global_block().var(logits)],
+                             exe, main)
+    del scope
+    x = np.random.RandomState(seed + 14).rand(
+        RESNET_INFER["batch"], 3, RESNET_INFER["img"],
+        RESNET_INFER["img"]).astype(np.float32)
+    folded = create_predictor(Config(d))
+    cfg = Config(d)
+    cfg.delete_pass("conv_bn_fuse_pass")
+    plain = create_predictor(cfg)
+    types = [op.type for op in folded._program.global_block().ops]
+    folds = folded._pass_stats.get("conv_bn_fused", 0)
+    if folds != 53 or "batch_norm" in types:
+        raise AssertionError(f"conv_bn_fuse_pass folded {folds} (want 53), "
+                             f"{types.count('batch_norm')} batch_norm left")
+    zero_wide(attn)
+    attn.flash_attention.launches = 0
+    out_f, ms_f, mem_f = timed_run(torch, folded, [x])
+    out_p, ms_p, mem_p = timed_run(torch, plain, [x])
+    record_wide("resnet50_infer", read_wide(attn))
+    if attn.flash_attention.launches:
+        raise AssertionError("ResNet-50 inference launched flash")
+    err = float(np.abs(out_f - out_p).max() / np.abs(out_p).max())
+    if out_f.shape != (RESNET_INFER["batch"], RESNET_INFER["classes"]) or \
+            not np.isfinite(out_f).all() or err > FOLD_TOL:
+        raise AssertionError(f"folded ResNet-50: normalised max error {err} "
+                             f"(tol {FOLD_TOL}), shape {out_f.shape}")
+    return {"folds": folds, "batch_norm_left": types.count("batch_norm"),
+            "norm_max_err_vs_unfolded": err, "tol": FOLD_TOL,
+            "run_ms_folded": ms_f, "run_ms_unfolded": ms_p,
+            "images_per_s_folded": RESNET_INFER["batch"] / ms_f * 1e3,
+            "peak_gpu_mem_gb_folded": mem_f,
+            "peak_gpu_mem_gb_unfolded": mem_p,
+            "ops_folded": len(types),
+            "ops_unfolded": len(plain._program.global_block().ops)}
+
+
+def top2_margin(torch, model, out, step):
+    """The fp32 model's top-2 logit margin at generated position `step`
+    of the token sequence `out` (teacher-forced)."""
+    with torch.inference_mode():
+        logits = model.gpt(torch.as_tensor(out[None, :step],
+                                           device=model.gpt.device))[0, -1]
+        top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def compare_posts(torch, model, bodies, got, want, tag):
+    """Post by post: equal, or the first differing position with its
+    prefix equal and the fp32 engine's top-2 margin there; greedy
+    divergences must sit at a margin under NEAR_TIE, sampling posts must
+    be equal.  Returns the list of divergences."""
+    diverged = []
+    for i, (body, a, b) in enumerate(zip(bodies, got, want)):
+        if a.size == b.size and np.array_equal(a, b):
+            continue
+        n = min(a.size, b.size)
+        step = int(np.argmax(a[:n] != b[:n])) if not np.array_equal(
+            a[:n], b[:n]) else n
+        margin = top2_margin(torch, model, b, step) if step < b.size \
+            else None
+        diverged.append({"post": i, "step": step - len(body["input_ids"]),
+                         "fp32_top2_margin": margin,
+                         "sampling": body.get("decode_strategy")
+                         == "sampling"})
+    return diverged
+
+
+def serve_posts(torch, srv, bodies):
+    """The 16 posts of phase 7 against `srv` (arrival order = post order);
+    returns (token arrays, wall seconds)."""
+    url = f"http://{srv.host}:{srv.port}/generate"
+    replies = [None] * len(bodies)
+
+    def client(i):
+        time.sleep(0.02 * i)
+        replies[i], _ = post(url, bodies[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or None in replies:
+        raise AssertionError("a /generate request did not complete")
+    outs = []
+    for body, r in zip(bodies, replies):
+        out = np.asarray(r["output_ids"][0], np.int64)
+        p = len(body["input_ids"])
+        if not (p < out.size <= p + GEN_MAX_LENGTH) or \
+                list(out[:p]) != body["input_ids"] or out.min() < 0 or \
+                out.max() >= GPT2["vocab_size"]:
+            raise AssertionError(f"bad /generate reply {out.size} tokens "
+                                 f"for a {p}-token prompt")
+        outs.append(out)
+    return outs, wall
+
+
+def gen_stats(eng, reqs0, steps0, outs, bodies, wall):
+    steps = list(eng.step_log)[steps0:]
+    reqs = list(eng.request_log)[reqs0:]
+    new = sum(int(o.size) - len(b["input_ids"]) for b, o in zip(bodies, outs))
+    return {"new_tokens": new, "burst_s": wall,
+            "generated_tokens_per_s": new / wall,
+            "ttft_ms_p50": pct([r["ttft_s"] for r in reqs], 50) * 1e3,
+            "decode_steps": len(steps),
+            "decode_step_ms_p50": pct([s["ms"] for s in steps], 50)}
+
+
+def spec_burst(torch, attn, model, model_dir, bodies, speculative, path):
+    """Phase 7's server setup with gen_speculative=`speculative` and its
+    posts (the `path` main path, counts from 0 just before, read just
+    after).  Returns (token arrays, gen_stats, the spec counters of the
+    burst, the server's speculative stats, flash launches)."""
+    from paddle_tpu_torch.inference.server import InferenceServer
+    from paddle_tpu_torch.serving import metrics
+    srv = InferenceServer(model_dir, port=0, generator=model, gen_slots=8,
+                          gen_kv_pool=dict(GEN_PLAN),
+                          gen_prefix_cache="auto",
+                          gen_speculative=speculative)
+    eng, pool = srv.engine, srv.engine.kv_pool
+    if eng.speculative.config.num_layers != 2 or eng.speculative.k != SPEC_K:
+        raise AssertionError(f"{path}: the draft is not a 2-layer k=4 one")
+    srv.start()
+    try:
+        post(f"http://{srv.host}:{srv.port}/generate",
+             {"input_ids": bodies[1]["input_ids"][:16], "max_length": 4})
+        torch.cuda.synchronize()
+        steps0, reqs0 = len(eng.step_log), len(eng.request_log)
+        c0 = {n: metrics.counter(n) for n in (
+            "spec.proposed", "spec.accepted", "spec.rollback_cols")}
+        # ---- the main path: counts from 0 just before, read just after
+        attn.flash_attention.launches = 0
+        zero_wide(attn)
+        outs, wall = serve_posts(torch, srv, bodies)
+        flash = attn.flash_attention.launches
+        record_wide(path, read_wide(attn))
+        # ---- end of the main path
+        counts = {n: metrics.counter(n) - v for n, v in c0.items()}
+        stats = gen_stats(eng, reqs0, steps0, outs, bodies, wall)
+        stats["accepted_per_step"] = float(np.mean(
+            [s["committed"] / s["rows"]
+             for s in list(eng.step_log)[steps0:]]))
+        spec_stats = srv.stats()["speculative"]
+    finally:
+        srv.stop()
+    pool.assert_drained()
+    return outs, stats, counts, spec_stats, flash
+
+
+def spec_divergences(torch, model, bodies, outs, plain, tag):
+    """compare_posts, failing on a divergence that is not a greedy near
+    tie of the fp32 model."""
+    diverged = compare_posts(torch, model, bodies, outs, plain, tag)
+    bad = [d for d in diverged if d["sampling"]
+           or d["fp32_top2_margin"] is None
+           or d["fp32_top2_margin"] >= NEAR_TIE]
+    if bad:
+        raise AssertionError(f"{tag} /generate parts from the plain "
+                             f"engine: {bad}")
+    return diverged
+
+
+def generate_spec(torch, attn, model, model_dir, bodies, plain, seed):
+    """(d) phase 7's engine and posts with gen_speculative="auto" (a
+    2-layer stamp, k = 4): tokens equal to phase 7's post by post (or a
+    near-tie divergence), the pool drained; the same with a 2-layer draft
+    of its own weights (from the seed, block weights doubled), whose
+    rejected proposals must roll columns back; then a full-depth stamp over SPEC_FULL_POSTS accepts
+    every proposal."""
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          SpeculativeDecoder, metrics,
+                                          stamp_draft)
+    outs, stats, counts, spec_stats, flash = spec_burst(
+        torch, attn, model, model_dir, bodies, "auto", "generate_spec")
+    diverged = spec_divergences(torch, model, bodies, outs, plain, "spec")
+    # a draft with its own weights, whose proposals part from the target's
+    # chain, so pool.truncate and the decoder's commit rollback run on the
+    # card.  A random GPT-2 is a copy model: its std-1 tied embedding
+    # makes the last token the argmax, so a draft of its own weights at
+    # the init scale guesses every proposal.  Block weights at twice
+    # their init scale let the blocks outweigh the copy at some positions
+    # and not at others: some proposals are accepted, some rolled back.
+    generator.seed(seed + 17)
+    draft = stamp_draft(model, 2, copy_weights=False)
+    with torch.no_grad():
+        for p in draft.gpt.blocks.parameters():
+            if p.dim() == 2:
+                p.mul_(2.0)
+    own = SpeculativeDecoder(draft, k=SPEC_K)
+    o_outs, o_stats, o_counts, _, o_flash = spec_burst(
+        torch, attn, model, model_dir, bodies, own,
+        "generate_spec_own_draft")
+    o_div = spec_divergences(torch, model, bodies, o_outs, plain,
+                             "spec_own_draft")
+    if o_counts["spec.rollback_cols"] < 1 or \
+            o_counts["spec.accepted"] >= o_counts["spec.proposed"]:
+        raise AssertionError(f"own-weights draft: {o_counts} (want "
+                             f"rejections rolled back)")
+    # a full-depth stamp: every proposal accepted
+    full = SpeculativeDecoder(stamp_draft(model, GPT2["num_layers"]),
+                              k=SPEC_K)
+    eng2 = ContinuousBatchingEngine(model, kv_pool=dict(GEN_PLAN),
+                                    speculative=full).start()
+    c1 = {n: metrics.counter(n) for n in ("spec.proposed", "spec.accepted")}
+    try:
+        futs = [eng2.submit(bodies[i]["input_ids"],
+                            max_length=GEN_MAX_LENGTH)
+                for i in SPEC_FULL_POSTS]
+        full_outs = [f.result(timeout=600) for f in futs]
+    finally:
+        eng2.stop()
+    eng2.kv_pool.assert_drained()
+    fc = {n: metrics.counter(n) - v for n, v in c1.items()}
+    full_steps = list(eng2.step_log)
+    full_div = compare_posts(torch, model,
+                             [bodies[i] for i in SPEC_FULL_POSTS],
+                             full_outs, [plain[i] for i in SPEC_FULL_POSTS],
+                             "spec_full")
+    if fc["spec.accepted"] != fc["spec.proposed"] or \
+            fc["spec.proposed"] < 1 or any(
+                d["fp32_top2_margin"] is None
+                or d["fp32_top2_margin"] >= NEAR_TIE for d in full_div):
+        raise AssertionError(f"full-depth stamp: accepted "
+                             f"{fc['spec.accepted']} of "
+                             f"{fc['spec.proposed']}, divergences {full_div}")
+    # how much the equality gates prove: the distinct tokens each plain
+    # reply generated
+    distinct = [len(set(o[len(b["input_ids"]):].tolist()))
+                for b, o in zip(bodies, plain)]
+    return {**stats, "flash_launches_in_burst": flash,
+            "proposed": counts["spec.proposed"],
+            "accepted": counts["spec.accepted"],
+            "rollback_cols": counts["spec.rollback_cols"],
+            "draft_tokens": spec_stats["draft_tokens"],
+            "posts_equal_to_plain": len(bodies) - len(diverged),
+            "divergences": diverged,
+            "plain_distinct_generated_tokens": distinct,
+            "plain_distinct_generated_tokens_all": len(set(
+                t for b, o in zip(bodies, plain)
+                for t in o[len(b["input_ids"]):].tolist())),
+            "own_draft": {**o_stats, "flash_launches_in_burst": o_flash,
+                          "proposed": o_counts["spec.proposed"],
+                          "accepted": o_counts["spec.accepted"],
+                          "rollback_cols": o_counts["spec.rollback_cols"],
+                          "posts_equal_to_plain": len(bodies) - len(o_div),
+                          "divergences": o_div},
+            "full_depth": {"posts": len(SPEC_FULL_POSTS),
+                           "proposed": fc["spec.proposed"],
+                           "accepted": fc["spec.accepted"],
+                           "tokens_per_step": float(np.mean(
+                               [s["committed"] / s["rows"]
+                                for s in full_steps])),
+                           "divergences": full_div}}
+
+
+def generate_int8(torch, attn, model, model_dir, bodies, plain):
+    """(e) phase 7's posts through weight_dtype="int8" over a
+    kv_dtype="int8" pool of the same bytes as GEN_PLAN's: no clip, the
+    pool drained, every product through torch._int_mm (72 a forward);
+    tokens equal to the fp32 engine, or a divergence step reported with
+    the fp32 top-2 margin there (docs/serving.md's rule)."""
+    from paddle_tpu_torch.inference.server import InferenceServer
+    from paddle_tpu_torch.ops.kernels import quantize as tq
+    L, H, T, Dh = (GEN_PLAN["num_layers"], GEN_PLAN["num_heads"],
+                   GEN_PLAN["page_tokens"], GEN_PLAN["head_dim"])
+    fp32_page = 2 * L * H * T * Dh * 4
+    int8_page = 2 * L * H * T * Dh + 2 * L * H * 4
+    pages = GEN_PLAN["pages"] * fp32_page // int8_page
+    plan = dict(GEN_PLAN, pages=pages, kv_dtype="int8", weight_dtype="int8")
+    srv = InferenceServer(model_dir, port=0, generator=model, gen_slots=8,
+                          gen_kv_pool=plan, gen_prefix_cache="auto")
+    eng, pool = srv.engine, srv.engine.kv_pool
+    if not (pool.is_quantized and pool.k.device == model.gpt.device and
+            eng.weight_dtype == "int8"):
+        raise AssertionError("the int8 engine did not resolve its dtypes")
+    srv.start()
+    try:
+        post(f"http://{srv.host}:{srv.port}/generate",
+             {"input_ids": bodies[1]["input_ids"][:16], "max_length": 4})
+        torch.cuda.synchronize()
+        steps0, reqs0 = len(eng.step_log), len(eng.request_log)
+        # ---- the main path: counts from 0 just before, read just after
+        tq.int8_product.launches = 0
+        tq.int8_product.padded_calls = 0
+        attn.flash_attention.launches = 0
+        zero_wide(attn)
+        outs, wall = serve_posts(torch, srv, bodies)
+        products = tq.int8_product.launches
+        padded = tq.int8_product.padded_calls
+        flash = attn.flash_attention.launches
+        record_wide("generate_int8", read_wide(attn))
+        # ---- end of the main path
+        stats = gen_stats(eng, reqs0, steps0, outs, bodies, wall)
+        kv = srv.stats()["kv_pool"]
+    finally:
+        srv.stop()
+    pool.assert_drained()
+    per_forward = 6 * GPT2["num_layers"]
+    if products < per_forward or products % per_forward or \
+            kv["quant_scale_clips"] != 0:
+        raise AssertionError(f"int8 /generate: {products} int8 products, "
+                             f"{kv['quant_scale_clips']} clips")
+    diverged = compare_posts(torch, model, bodies, outs, plain, "int8")
+    return {**stats, "int8_products_in_burst": products,
+            "padded_products_in_burst": padded,
+            "flash_launches_in_burst": flash,
+            "pages_int8": pages, "pages_fp32": GEN_PLAN["pages"],
+            "kv_device": str(pool.k.device),
+            "page_bytes_int8": kv["page_bytes"], "page_bytes_fp32": fp32_page,
+            "pool_bytes_int8": kv["pool_bytes"],
+            "pool_bytes_fp32": GEN_PLAN["pages"] * fp32_page,
+            "quant_scale_clips": kv["quant_scale_clips"],
+            "posts_equal_to_fp32": len(bodies) - len(diverged),
+            "divergences": diverged}
+
+
+def remainders_phase(torch, attn, seed, tmp, gen):
+    """(11) the serving remainders: (a) bf16 /predict, (b) int8 /predict,
+    (c) the ResNet-50 conv-bn fold, (d) speculative /generate, (e) int8
+    /generate.  Returns {part: result}."""
+    t0 = time.perf_counter()
+    model_dir = os.path.join(tmp, "bert_flash")
+    feeds = predict_rows(seed)
+    out = {}
+    out["bf16_predict"], out32 = predict_bf16(torch, attn, model_dir, feeds)
+    log({"phase": "remainders_bf16_predict", **out["bf16_predict"]})
+    out["int8_predict"] = predict_int8(torch, attn, tmp, model_dir, feeds,
+                                       out32, seed)
+    log({"phase": "remainders_int8_predict", **out["int8_predict"]})
+    out["resnet50_fold"] = resnet_fold(torch, attn, tmp, seed)
+    log({"phase": "remainders_resnet50_fold", **out["resnet50_fold"]})
+    out["spec_generate"] = generate_spec(torch, attn, gen["model"],
+                                         model_dir, gen["bodies"],
+                                         gen["outs"], seed)
+    log({"phase": "remainders_spec_generate", **out["spec_generate"]})
+    out["int8_generate"] = generate_int8(torch, attn, gen["model"],
+                                         model_dir, gen["bodies"],
+                                         gen["outs"])
+    log({"phase": "remainders_int8_generate", **out["int8_generate"],
+         "plain_generated_tokens_per_s": gen["tokens_per_s"]})
+    log({"phase": "remainders_done", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2983,8 +3579,11 @@ def main():
         graph = train_graph_phase(torch, args.seed)
         recipe = recipe_phase(torch, args.seed)
         # phase 7 serves /predict from phase 4's model beside /generate
-        generate_phase(torch, args.seed, os.path.join(tmp, "bert_flash"),
-                       args.profile)
+        gen = generate_phase(torch, args.seed,
+                             os.path.join(tmp, "bert_flash"), args.profile)
+        # phase 11 reads phase 4's model dir and phase 7's replies
+        remainders = remainders_phase(torch, attn, args.seed, tmp, gen)
+        del gen
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     dygraph = dygraph_phase(torch, args.seed)
@@ -3005,8 +3604,15 @@ def main():
         return {"launches_per_graph_replayed_step": graph[config][name]}
 
     no_path = {"path": "none (kernel cases only: no fp16 configuration)"}
+    # phase 11: the bf16 forward's launches a bf16 /predict run (a), the
+    # fp32 forward's a PTQ-int8 /predict run (b); 0 on (c)-(e)
+    remainder_runs = {
+        "bfloat16": remainders["bf16_predict"]["flash_launches_by_dtype"],
+        "float32": remainders["int8_predict"]["flash_launches_by_dtype"]}
     rows = [("flash_attn_fwd", fwd["slice_bf16"], amp["flash_attn_fwd"],
-             graph_step("amp", "flash_attn_fwd")),
+             {**graph_step("amp", "flash_attn_fwd"),
+              "launches_per_bf16_predict_run":
+                  remainder_runs["bfloat16"].get("bfloat16", 0)}),
             ("flash_attn_bwd_dq", bwd["slice_bf16"]["dq"],
              amp["flash_attn_bwd_dq"], graph_step("amp",
                                                   "flash_attn_bwd_dq")),
@@ -3017,6 +3623,8 @@ def main():
              graph_step("amp", "fused_xent_fwd")),
             ("flash_attn_fwd_fp32", fwd["slice_fp32"], serve_launches,
              {"launches_per_served_batch": BERT["layers_n"],
+              "launches_per_int8_predict_run":
+                  remainder_runs["float32"].get("float32", 0),
               "launches_mha_flash_route": mha_launches,
               "launches_per_fp32_train_step":
                   per_fp32_step["flash_attn_fwd"],
@@ -3057,7 +3665,9 @@ def main():
     # 0, gated in each path, since no configuration has a head dim above
     # 128), times from the kernel cases
     paths = ("serve", "train_amp", "train_fp32", "train_graph_amp",
-             "train_graph_fp32", "generate") + tuple(
+             "train_graph_fp32", "generate", "predict_bf16", "predict_int8",
+             "resnet50_infer", "generate_spec", "generate_spec_own_draft",
+             "generate_int8") + tuple(
                  f"recipe{g}_{v}" for g in ("", "_graph")
                  for v, _ in RECIPE_VARIANTS) + tuple(
                  f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS) + tuple(

@@ -2,18 +2,18 @@
 
 Copy of paddle_tpu/inference/passes.py: the same registry names and the
 same DEFAULT_INFERENCE_PASSES pipeline, so a model loaded by either
-package is rewritten identically.  The passes walk the IR only.
-
-Two passes of the pipeline are not ported yet (ROADMAP.md):
-`quant_int8_pass` (its int8_matmul op has no kernel here) and
-`conv_bn_fuse_pass` (it rewrites conv weights in the scope).  In their
-place stand guards of the same names that leave a program they would not
-touch unchanged, and raise NotImplementedError on a program they would
-rewrite, so a model is never served with a fold silently skipped.
+package is rewritten identically.  The passes walk the IR; two of them
+also touch the scope: `conv_bn_fuse_pass` writes the folded conv filter
+and bias, and `quant_int8_pass` reads which weights are int8.  One
+difference: `quant_int8_pass` also rewrites a mul / fc over a
+higher-rank activation that contracts its last axis (see the pass).
 """
 from __future__ import annotations
 
 from typing import Dict, List
+
+import numpy as np
+import torch
 
 from ..core.program import Program, OpDesc, OpRole
 # the framework core lives in core/pass_framework.py (shared with training
@@ -399,42 +399,183 @@ _DEQUANT_TYPES = ("fake_dequantize_max_abs",
 
 @register_pass("quant_int8_pass")
 def quant_int8_pass(program: Program, ctx: PassContext) -> Program:
-    """Guard for paddle_tpu's quant_int8_pass: that pass fires only on a
-    frozen int8 program (a fake_dequantize op reading an int8 weight);
-    the port has no int8_matmul kernel yet, so such a program raises."""
+    """INT8 execution rewrite (the reference's cpu_quantize_pass role): in
+    a QuantizationFreezePass-frozen program, collapse
+    fake_dequantize_max_abs(w_int8) -> mul / matmul / fc into ONE
+    int8_matmul op, so the frozen program runs an int8 product (int32
+    accumulation) instead of dequantize-then-fp32-matmul.  Fires only
+    where the dequant input var really is int8: float programs are left
+    as they are."""
     block = program.global_block()
+    producer: Dict[str, OpDesc] = {}
+    consumers: Dict[str, int] = {}
     for op in block.ops:
-        if op.type not in _DEQUANT_TYPES:
-            continue
-        wname = op.inputs.get("X", [None])[0]
-        if block.has_var(wname) and block.var(wname).dtype == "int8":
-            raise NotImplementedError(
-                f"quant_int8_pass would rewrite {op.type} over int8 weight "
-                f"{wname!r} into int8_matmul, which paddle_tpu_torch does "
-                "not port yet (ROADMAP.md)")
+        for n in op.input_names():
+            consumers[n] = consumers.get(n, 0) + 1
+        for n in op.output_names():
+            producer[n] = op
+
+    def _int8_weight(deq: OpDesc):
+        wname = deq.inputs["X"][0]
+        try:
+            if block.var(wname).dtype != "int8":
+                return None
+        except KeyError:
+            return None
+        return wname
+
+    kept: List[OpDesc] = []
+    removed_deq: set = set()
+    for op in block.ops:
+        rewritten = False
+        wslot = {"mul": "Y", "matmul": "Y", "matmul_v2": "Y",
+                 "fc": "W"}.get(op.type)
+        # int8_matmul computes plain X[..., K] @ W[K, N] only: any
+        # transpose, alpha or non-default column flattening keeps the float
+        # path (the float kernels honour those attrs)
+        plain = (wslot is not None
+                 and not op.attrs.get("transpose_Y")
+                 and not op.attrs.get("trans_y")
+                 and not op.attrs.get("transpose_X")
+                 and not op.attrs.get("trans_x")
+                 and float(op.attrs.get("alpha", 1.0)) == 1.0
+                 and int(op.attrs.get("x_num_col_dims", 1)) == 1
+                 and int(op.attrs.get("in_num_col_dims", 1)) == 1)
+        if plain and op.type in ("mul", "fc"):
+            # mul / fc flatten X at axis 1; int8_matmul contracts the LAST
+            # axis: the same for 2-D activations only
+            xn = op.inputs.get("Input" if op.type == "fc" else "X",
+                               [None])[0]
+            try:
+                xshape = block.var(xn).shape
+            except KeyError:
+                xshape = None
+            plain = xshape is not None and len(xshape) == 2
+        if plain:
+            wname = op.inputs.get(wslot, [None])[0]
+            deq = producer.get(wname)
+            if deq is not None and deq.type in _DEQUANT_TYPES \
+                    and _int8_weight(deq) is not None:
+                sc_slot = ("Scale" if deq.type ==
+                           "fake_dequantize_max_abs" else "Scales")
+                scales = deq.inputs[sc_slot]
+                # channel-wise only on the out-channel axis of [K, N] with
+                # single-level scales; anything else keeps the float path
+                if deq.type.startswith("fake_channel_wise") and (
+                        deq.attrs.get("quant_axis", 0) != 1
+                        or len(scales) != 1):
+                    kept.append(op)
+                    continue
+                xslot = "Input" if op.type == "fc" else "X"
+                ins = {"X": op.inputs[xslot],
+                       "W": [deq.inputs["X"][0]],
+                       "WScale": [scales[0]]}
+                if op.type == "fc" and op.inputs.get("Bias"):
+                    ins["Bias"] = op.inputs["Bias"]
+                kept.append(OpDesc(
+                    "int8_matmul", ins, {"Out": op.outputs["Out"]},
+                    {"max_range": float(deq.attrs.get("max_range",
+                                                      127.0)),
+                     "op_uid": program._next_uid(),
+                     OpRole.KEY: OpRole.Forward}))
+                if consumers.get(wname, 0) == 1:
+                    removed_deq.add(id(deq))
+                ctx.hit("int8_matmul_rewritten")
+                rewritten = True
+        if not rewritten:
+            kept.append(op)
+    block.ops = [op for op in kept if id(op) not in removed_deq]
+    program._fingerprint_cache = None
     return program
+
+
+def _host(value) -> np.ndarray:
+    """A scope value as a host numpy array (the fold runs in numpy)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _set_like(scope, name, value: np.ndarray, like):
+    """Write a host array into the scope on the device of `like`."""
+    dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+    scope.set(name, torch.from_numpy(np.ascontiguousarray(value)).to(dev))
 
 
 @register_pass("conv_bn_fuse_pass")
 def conv_bn_fuse_pass(program: Program, ctx: PassContext) -> Program:
-    """Guard for paddle_tpu's conv_bn_fuse_pass: raises on the pattern it
-    folds (an is_test batch_norm over conv2d, or over conv2d + bias add,
-    with the scope loaded), which the port does not fold yet."""
+    """ir/conv_bn_fuse_pass.cc: fold an inference batch_norm into the
+    preceding conv2d's filter and bias (needs the loaded scope).  The fold
+    runs on the host in fp32 numpy in the JAX package's order (alpha =
+    scale / sqrt(var + eps)), so the folded weights are bitwise its own;
+    they go back to the device the scope held them on."""
     if ctx.scope is None:
         return program
     block = program.global_block()
-    producer = {n: op for op in block.ops for n in op.output_names()}
+    by_out = {}
+    kept: List[OpDesc] = []
+    consumers: Dict[str, int] = {}
     for op in block.ops:
-        if op.type != "batch_norm" or not op.attrs.get("is_test"):
-            continue
-        prev = producer.get(op.inputs.get("X", [None])[0])
-        if prev is not None and prev.type == "elementwise_add":
-            prev = producer.get(prev.inputs.get("X", [None])[0])
-        if prev is not None and prev.type == "conv2d":
-            raise NotImplementedError(
-                "conv_bn_fuse_pass would fold batch_norm into the "
-                "preceding conv2d; paddle_tpu_torch does not port that "
-                "fold yet (ROADMAP.md)")
+        for n in op.input_names():
+            consumers[n] = consumers.get(n, 0) + 1
+    for op in block.ops:
+        if op.type == "batch_norm" and op.attrs.get("is_test"):
+            xin = op.inputs.get("X", [None])[0]
+            prev = by_out.get(xin)
+            # pattern: bn(conv(x)) or bn(add(conv(x), conv_bias))
+            conv = None
+            conv_bias_name = None
+            if prev is not None and consumers.get(xin, 0) == 1:
+                if prev.type == "conv2d":
+                    conv = prev
+                elif prev.type == "elementwise_add":
+                    maybe_conv = by_out.get(prev.inputs.get("X",
+                                                            [None])[0])
+                    if maybe_conv is not None and \
+                            maybe_conv.type == "conv2d" and \
+                            consumers.get(prev.inputs["X"][0], 0) == 1:
+                        conv = maybe_conv
+                        conv_bias_name = prev.inputs.get("Y", [None])[0]
+            if conv is not None:
+                s = ctx.scope
+                w_dev = s.get(conv.inputs["Filter"][0])
+                w = _host(w_dev)
+                scale = _host(s.get(op.inputs["Scale"][0]))
+                bn_bias = _host(s.get(op.inputs["Bias"][0]))
+                mean = _host(s.get(op.inputs["Mean"][0]))
+                var = _host(s.get(op.inputs["Variance"][0]))
+                eps = float(op.attrs.get("epsilon", 1e-5))
+                alpha = scale / np.sqrt(var + eps)
+                _set_like(s, conv.inputs["Filter"][0],
+                          w * alpha[:, None, None, None], w_dev)
+                cb = (_host(s.get(conv_bias_name)).reshape(-1)
+                      if conv_bias_name is not None
+                      else np.zeros_like(mean))
+                folded = alpha * (cb - mean) + bn_bias
+                out_bias = conv_bias_name or op.inputs["Bias"][0]
+                _set_like(s, out_bias, folded, w_dev)
+                if conv_bias_name is not None:
+                    # keep the existing add, rewire its output to bn's
+                    kept.remove(prev)
+                    kept.append(OpDesc(
+                        "elementwise_add", dict(prev.inputs),
+                        {"Out": op.outputs["Y"]},
+                        {"axis": prev.attrs.get("axis", 1),
+                         "op_uid": program._next_uid(),
+                         OpRole.KEY: OpRole.Forward}))
+                else:
+                    kept.append(OpDesc(
+                        "elementwise_add",
+                        {"X": [xin], "Y": [out_bias]},
+                        {"Out": op.outputs["Y"]},
+                        {"axis": 1, "op_uid": program._next_uid(),
+                         OpRole.KEY: OpRole.Forward}))
+                ctx.hit("conv_bn_fused")
+                continue
+        kept.append(op)
+        for n in op.output_names():
+            by_out[n] = op
+    block.ops = kept
     return program
 
 
@@ -457,7 +598,8 @@ DEFAULT_INFERENCE_PASSES = [
     "embedding_eltwise_layernorm_fuse_pass",
     "multihead_matmul_fuse_pass",
     "fc_fuse_pass",
-    # guards in the port (see the module docstring)
+    # after fc_fuse so frozen fake_dequantize -> fc chains are seen fused;
+    # leaves float programs alone (fires only on real int8 weight vars)
     "quant_int8_pass",
     "conv_bn_fuse_pass",
     "prune_feed_fetch_pass",

@@ -1,4 +1,4 @@
-"""Predictor: load -> inference passes -> run, in fp32.
+"""Predictor: load -> inference passes -> (bf16 rewrite) -> run.
 
 Counterpart of paddle_tpu/inference/predictor.py (Config / Predictor /
 create_predictor / ZeroCopyTensor, the AnalysisPredictor surface).  The
@@ -8,9 +8,18 @@ as the reference's `Config._use_xla = True` selects its accelerator, and
 `Config.disable_gpu()` selects the CPU.  With no CUDA device and no CPU
 request, creating a Predictor raises.
 
-Not ported yet (ROADMAP.md): `enable_bfloat16` (needs the AMP rewrite),
-the PADDLE_TPU_VERIFY post-pipeline self-check (needs the verifier), and
-the binary proto model format.  The JAX Predictor's pow2 feed bucketing
+`Config.enable_bfloat16()` (or `enable_tensorrt_engine(precision_mode=
+PrecisionType.Bfloat16)`) runs the AMP rewrite (`amp.rewrite_program`)
+on the program after the passes, as the JAX Predictor does: white ops
+(matmuls, fc, flash_attention) run in bf16, black ones (and ops on no
+list, such as fused_embedding_eltwise_layernorm) in fp32.  numpy has no
+bfloat16, so a bf16 fetch comes back as its exact float32 upcast (the
+JAX package returns ml_dtypes bfloat16 arrays: equal values, another
+dtype).
+
+Not ported yet (ROADMAP.md Queue 1, Analysis and planner tiers): the
+PADDLE_TPU_VERIFY post-pipeline self-check (needs the verifier); the
+binary proto model format waits too.  The JAX Predictor's pow2 feed bucketing
 bounded jit retraces; the eager executor has none to bound, so a request
 batch runs at its own size.
 """
@@ -23,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..core.place import CPUPlace, CUDAPlace
+from ..ops.kernels.quantize import column_major
 from .passes import apply_passes, PassContext, DEFAULT_INFERENCE_PASSES
 
 __all__ = ["Config", "AnalysisConfig", "Predictor", "create_predictor",
@@ -72,12 +82,17 @@ class Config:
         return CUDAPlace(self._device_id) if self._use_gpu else CPUPlace()
 
     # -- precision -----------------------------------------------------------
+    def enable_tensorrt_engine(self, workspace_size=1 << 30,
+                               max_batch_size=1, min_subgraph_size=3,
+                               precision_mode=PrecisionType.Float32,
+                               use_static=False, use_calib_mode=False):
+        """No TensorRT here: the precision request is honoured (Bfloat16
+        runs the AMP rewrite after the passes); the other knobs are
+        accepted and unused, as in the JAX package."""
+        self._precision = precision_mode
+
     def enable_bfloat16(self):
-        raise NotImplementedError(
-            "Config.enable_bfloat16: the bf16 Predictor pipeline (the AMP "
-            "rewrite applied to an inference program, and its passes) is "
-            "not ported yet (ROADMAP.md Queue 1, Serving remainders); the Predictor "
-            "runs fp32")
+        self._precision = PrecisionType.Bfloat16
 
     def precision_mode(self):
         return self._precision
@@ -194,6 +209,15 @@ class Predictor:
             # passes may rename pruned-through fetch targets
             self._fetch_names = list(getattr(prog, "_fetch_names",
                                              self._fetch_names))
+        # int8_matmul's product takes its weight column-major: lay each
+        # int8 weight out so once here, not on every run
+        for op in prog.global_block().ops:
+            if op.type == "int8_matmul":
+                w = op.inputs["W"][0]
+                self._scope.set(w, column_major(self._scope.get(w)))
+        if self._config._precision == PrecisionType.Bfloat16:
+            from ..amp import rewrite_program
+            rewrite_program(prog)
         self._program = prog
 
     @property

@@ -232,7 +232,8 @@ class InferenceServer:
     serves ``/generate`` through a ContinuousBatchingEngine: ``gen_slots``
     decode slots, ``gen_kv_pool`` (a plan dict or a ``PagedKVPool``) for
     the paged KV pool, ``gen_prefix_cache="auto"`` for the radix prefix
-    cache (see ``attach_generator``).
+    cache, ``gen_speculative="auto"`` for speculative decoding through a
+    stamped 2-layer draft (see ``attach_generator``).
     """
 
     def __init__(self, model_dir: str, host: str = "127.0.0.1",
@@ -240,7 +241,8 @@ class InferenceServer:
                  max_wait_ms: float = 2.0, max_queue: int = 64,
                  request_timeout_s: float = 30.0, generator=None,
                  place=None, gen_slots: Optional[int] = None,
-                 gen_kv_pool=None, gen_prefix_cache=None):
+                 gen_kv_pool=None, gen_prefix_cache=None,
+                 gen_speculative=None):
         from . import Config, create_predictor
         from ..core.place import CPUPlace, CUDAPlace
         from ..serving import DynamicBatcher
@@ -261,7 +263,8 @@ class InferenceServer:
         if generator is not None:
             self.attach_generator(generator, max_slots=gen_slots,
                                   kv_pool=gen_kv_pool,
-                                  prefix_cache=gen_prefix_cache)
+                                  prefix_cache=gen_prefix_cache,
+                                  speculative=gen_speculative)
         self._inflight = 0
         self._inflight_mu = threading.Lock()
         self._inflight_zero = threading.Condition(self._inflight_mu)
@@ -274,20 +277,25 @@ class InferenceServer:
     # -- wiring -------------------------------------------------------------
     def attach_generator(self, model, max_slots: Optional[int] = None,
                          max_queue: int = 64, timeout_s: float = 120.0,
-                         kv_pool=None, prefix_cache=None):
+                         kv_pool=None, prefix_cache=None,
+                         speculative=None):
         """Enable /generate: wrap ``model`` in a ContinuousBatchingEngine
         (started with the server).  ``kv_pool`` (a plan dict or a
         ``PagedKVPool``) serves decode through the block-paged KV pool on
         the model's device (admission by free-page count, COW prefix
         sharing); the plan's batch ceiling applies unless ``max_slots``
-        is given.  ``prefix_cache="auto"`` retains hot prompt prefixes
-        across requests.  ``kv_pool="auto"`` raises (ROADMAP.md Queue
-        1, Serving remainders); so does a plan with ``tp_degree`` > 1."""
+        is given, and its ``kv_dtype`` / ``weight_dtype`` ("int8") select
+        int8 pages and int8 decode matmuls.  ``prefix_cache="auto"``
+        retains hot prompt prefixes across requests;
+        ``speculative="auto"`` decodes through a stamped 2-layer draft
+        (both need paged KV).  ``kv_pool="auto"`` raises (ROADMAP.md
+        Queue 1, Analysis and planner tiers); so does a plan with
+        ``tp_degree`` > 1 (ROADMAP.md Queue 1, Distribution)."""
         from ..serving import ContinuousBatchingEngine
         self._engine = ContinuousBatchingEngine(
             model, max_slots=max_slots, max_queue=max_queue,
             default_timeout_s=timeout_s, kv_pool=kv_pool,
-            prefix_cache=prefix_cache)
+            prefix_cache=prefix_cache, speculative=speculative)
         if self._status == "ok":
             self._engine.start()
         return self._engine
@@ -322,6 +330,8 @@ class InferenceServer:
                 out["kv_pool"] = self._engine.kv_pool.stats()
             if self._engine.prefix_cache is not None:
                 out["prefix_cache"] = self._engine.prefix_cache.stats()
+            if self._engine.speculative is not None:
+                out["speculative"] = self._engine.speculative.stats()
         return out
 
     # -- request plumbing (handler-thread side) -----------------------------

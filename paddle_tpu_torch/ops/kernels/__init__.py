@@ -16,4 +16,5 @@ from . import (  # noqa: F401
     reduce,
     control,
     op_gaps,
+    quantize,
 )

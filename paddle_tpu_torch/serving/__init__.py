@@ -10,11 +10,17 @@ HTTP surface (inference/server.py) and the model.
   page reservation, ``budget_drift``.
 * ``RadixPrefixCache`` (prefix_cache.py) — retained radix tree over
   committed prefixes (reused prefill on a hit).
+* ``SpeculativeDecoder`` (speculative.py) — draft/target speculative
+  decoding: ``stamp_draft`` builds the small sibling, the engine verifies
+  k proposals per batched step and rolls rejections back by page-table
+  truncation.
+* int8 decode (int8_decode.py + ``PagedKVPool(kv_dtype="int8")``) —
+  weight-only quantized decode matmuls (``Int8Linear`` /
+  ``quantize_decode_model``) over int8 KV pages with fp32 scale sidecars.
 * metrics (metrics.py) — the ``serving.*`` counters, gauges and
   histograms, dumped by ``/stats`` and ``/metrics``.
 
-Speculative decoding, tp-sharded decode and int8 decode wait for
-ROADMAP.md Queue 1, Serving remainders.
+tp-sharded decode waits for ROADMAP.md Queue 1, Distribution.
 """
 from .batcher import (  # noqa: F401
     DynamicBatcher, BatcherError, QueueFullError, DeadlineExceededError,
@@ -27,11 +33,16 @@ from .kv_pool import (  # noqa: F401
     PagedKVPool, PageTable, PagePoolExhaustedError, budget_drift,
 )
 from .prefix_cache import RadixPrefixCache  # noqa: F401
+from .int8_decode import Int8Linear, quantize_decode_model  # noqa: F401
+from .speculative import (  # noqa: F401
+    SpeculativeDecoder, stamp_draft, longest_accepted,
+)
 from .metrics import serving_stats, reset_serving_stats  # noqa: F401
 
 __all__ = ["DynamicBatcher", "BatcherError", "QueueFullError",
            "DeadlineExceededError", "BatcherStoppedError",
            "ContinuousBatchingEngine", "GenerationRequest",
            "PagedKVPool", "PageTable", "PagePoolExhaustedError",
-           "budget_drift", "RadixPrefixCache", "serving_stats",
-           "reset_serving_stats"]
+           "budget_drift", "RadixPrefixCache", "Int8Linear",
+           "quantize_decode_model", "SpeculativeDecoder", "stamp_draft",
+           "longest_accepted", "serving_stats", "reset_serving_stats"]

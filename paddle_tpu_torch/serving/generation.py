@@ -37,10 +37,21 @@ The decode thread sets the model's CUDA device and runs under
 ``torch.inference_mode()``; HTTP handler threads only hand numpy prompts
 to ``submit``.
 
-Still raising, each naming its ROADMAP item: ``speculative=``,
-``tp_degree > 1``, ``weight_dtype="int8"`` (Queue 1, Serving remainders), and
-``kv_pool="auto"`` (it sizes the pool with ``static.planner.page_budget``,
-Queue 1, Serving remainders).
+``speculative=`` (``"auto"``: a 2-layer ``stamp_draft`` with k = 4, or a
+ready ``SpeculativeDecoder``; paged mode only) decodes through
+``_step_spec``: the draft proposes, the target verifies the pending token
+and the proposals in ONE W-wide forward (bucket ``("spec", lpad, W)``),
+all W new columns go through ``append_column`` and the pool is truncated
+to the committed length; emission replays the plain greedy loop, so the
+tokens equal ``_step``'s.  Only the argmax of every (row, position) and
+the logits of ``sampling`` rows come down.  ``weight_dtype="int8"``
+(given, or recorded in the pool's plan) serves an ``Int8Linear`` sibling
+of the model (``serving/int8_decode.py``); ``kv_dtype="int8"`` is the
+pool's.
+
+Still raising, each naming its ROADMAP item: ``tp_degree > 1`` (Queue 1,
+Distribution) and ``kv_pool="auto"`` (it sizes the pool with
+``static.planner.page_budget``: Queue 1, Analysis and planner tiers).
 """
 from __future__ import annotations
 
@@ -58,6 +69,7 @@ from ..core.compile_cache import next_pow2 as _next_pow2
 from .batcher import (BatcherStoppedError, DeadlineExceededError,
                       QueueFullError, _jittered)
 from .kv_pool import PagedKVPool, PageTable
+from .speculative import longest_accepted
 
 __all__ = ["ContinuousBatchingEngine", "GenerationRequest"]
 
@@ -132,28 +144,26 @@ class ContinuousBatchingEngine:
                  prefix_cache=None, speculative=None,
                  tp_degree: Optional[int] = None,
                  weight_dtype: Optional[str] = None):
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md Queue 1, "
-                "Serving remainders)")
         plan_of = (kv_pool.plan or {}) if isinstance(kv_pool, PagedKVPool) \
             else kv_pool if isinstance(kv_pool, dict) else {}
         if tp_degree is None:
             tp_degree = int(plan_of.get("tp_degree", 1))
-        if int(tp_degree) > 1:
+        self.tp_degree = int(tp_degree)
+        if self.tp_degree > 1:
             raise NotImplementedError(
                 "tp-sharded decode (tp_degree > 1, serving/tp_decode.py) is "
-                "not ported yet (ROADMAP.md Queue 1, Serving remainders)")
+                "not ported yet (ROADMAP.md Queue 1, Distribution)")
         if weight_dtype is None:
             weight_dtype = plan_of.get("weight_dtype", "float32")
-        if weight_dtype not in ("float32", "int8"):
+        self.weight_dtype = str(weight_dtype)
+        if self.weight_dtype not in ("float32", "int8"):
             raise ValueError(
                 f"weight_dtype must be float32 or int8, got "
                 f"{weight_dtype!r}")
-        if weight_dtype == "int8":
-            raise NotImplementedError(
-                "int8 decode weights (serving/int8_decode.py) are not "
-                "ported yet (ROADMAP.md Queue 1, Serving remainders)")
+        if self.weight_dtype == "int8":
+            # a quantized sibling; the float model stays as it is
+            from .int8_decode import quantize_decode_model
+            model = quantize_decode_model(model)
         self._model = getattr(model, "gpt", model)
         self.config = self._model.config
         self.device = self._model.device
@@ -162,8 +172,9 @@ class ContinuousBatchingEngine:
             if kv_pool == "auto":
                 raise NotImplementedError(
                     "kv_pool='auto' sizes the pool with static.planner."
-                    "page_budget, which is not ported yet (ROADMAP.md Queue 1, "
-                    "Serving remainders): pass a plan dict or a PagedKVPool")
+                    "page_budget, which is not ported yet (ROADMAP.md Queue "
+                    "1, Analysis and planner tiers): pass a plan dict or a "
+                    "PagedKVPool")
             if isinstance(kv_pool, PagedKVPool):
                 self._pool = kv_pool
             elif isinstance(kv_pool, dict):
@@ -189,6 +200,13 @@ class ContinuousBatchingEngine:
                     raise ValueError(
                         f"kv_pool geometry mismatch: model {name}={want} "
                         f"but pool was built for {got}")
+            plan_wd = str((self._pool.plan or {}).get(
+                "weight_dtype", self.weight_dtype))
+            if plan_wd != self.weight_dtype:
+                raise ValueError(
+                    f"weight_dtype mismatch: engine serves "
+                    f"{self.weight_dtype} weights but the pool plan "
+                    f"budgeted for {plan_wd}")
         plan = self._pool.plan if self._pool is not None else None
         if max_slots is None:
             max_slots = int(plan["max_slots"]) if plan else 4
@@ -220,6 +238,24 @@ class ContinuousBatchingEngine:
                     raise ValueError(
                         "prefix_cache is bound to a different pool")
                 self._radix = prefix_cache
+        self._spec = None
+        if speculative is not None:
+            if self._pool is None:
+                raise ValueError(
+                    "speculative decoding requires paged KV (kv_pool=): "
+                    "rollback is page-table truncation")
+            if speculative == "auto":
+                from .speculative import SpeculativeDecoder, stamp_draft
+                self._spec = SpeculativeDecoder(
+                    stamp_draft(self._model, num_layers=2),
+                    kv_bucket_floor=self._kv_floor)
+            else:
+                self._spec = speculative
+            self._spec.geometry_check(self.config)
+            self._spec.track_buckets(
+                self._kv_buckets,
+                on_change=lambda: metrics.gauge(
+                    "gen.kv_buckets", len(self._kv_buckets)))
         self.bytes_h2d = 0
         self.bytes_d2h = 0
         self.step_log = collections.deque(maxlen=4096)
@@ -242,6 +278,10 @@ class ContinuousBatchingEngine:
     @property
     def prefix_cache(self):
         return self._radix
+
+    @property
+    def speculative(self):
+        return self._spec
 
     @property
     def kv_buckets(self) -> int:
@@ -293,6 +333,8 @@ class ContinuousBatchingEngine:
                 if slot.table is not None:
                     self._pool.close_sequence(slot.table)
                 self._slots[i] = None
+        if self._spec is not None:
+            self._spec.close_all()
 
     # -- admission ----------------------------------------------------------
     def _retry_hint(self, depth: int) -> float:
@@ -382,7 +424,10 @@ class ContinuousBatchingEngine:
                     req.future.set_exception(e)
             try:
                 if any(self._slots):
-                    self._step()
+                    if self._spec is not None:
+                        self._step_spec()
+                    else:
+                        self._step()
             except Exception as e:  # noqa: BLE001 — fail loud, stay alive
                 self._fail_all(e)
 
@@ -438,6 +483,8 @@ class ContinuousBatchingEngine:
                     if slot.table is not None:
                         self._pool.close_sequence(slot.table)
                     self._slots[i] = None
+            if self._spec is not None:
+                self._spec.close_all()
             metrics.gauge("gen.active_slots", 0)
             self._idle.notify_all()
 
@@ -586,6 +633,10 @@ class ContinuousBatchingEngine:
             self._slots[idx] = slot
             metrics.gauge("gen.active_slots",
                           sum(s is not None for s in self._slots))
+        if self._spec is not None:
+            # seed the draft's dense KV for this slot (the decode thread
+            # owns both models, so this cannot race a step)
+            self._spec.open(idx, slot.tokens)
 
     def _step(self):
         """One decode step over every active slot (ONE device batch).
@@ -687,6 +738,148 @@ class ContinuousBatchingEngine:
         ms = (time.perf_counter() - t0) * 1e3
         metrics.observe("gen.step_ms", ms)
         self.step_log.append({"ms": ms, "rows": len(active), "lpad": lpad,
+                              "sampling_rows": int(sampling.size),
+                              "h2d_bytes": self.bytes_h2d - h2d0,
+                              "d2h_bytes": self.bytes_d2h - d2h0})
+
+    def _step_spec(self):
+        """One SPECULATIVE decode step over every active slot: the draft
+        proposes up to k tokens per greedy row, the target verifies the
+        pending token and the proposals in ONE batched forward (query
+        width W), every fed column is written through the page table and
+        the rejected tail rolled back with ``pool.truncate``.  Emission
+        replays the plain greedy loop over the verified chain, so the
+        tokens equal ``_step``'s whatever the draft proposed.  Sampling
+        rows ride along at width 1.  Down come the argmax of every
+        (row, position) and the position-0 logits of sampling rows."""
+        from ..nn import MultiHeadAttention
+        t0 = time.perf_counter()
+        h2d0, d2h0 = self.bytes_h2d, self.bytes_d2h
+        with self._mu:
+            for i, s in enumerate(self._slots):
+                if s is not None and s.req.future.cancelled():
+                    metrics.count("gen.cancelled")
+                    self._pool.close_sequence(s.table)
+                    self._spec.close(i)
+                    self._slots[i] = None
+            active = [(i, s) for i, s in enumerate(self._slots)
+                      if s is not None]
+        if not active:
+            return
+        S = self.max_slots
+        cfg = self.config
+        L = cfg.num_layers
+        max_ln = max(s.kv_len for _, s in active)
+        # query width: the pending token and up to k proposals, shrunk
+        # only where a row's positions ln .. ln + W - 1 would leave wpe
+        W = max(1, min(1 + self._spec.k, int(cfg.max_position) - max_ln))
+        fed = {}
+        for i, s in active:
+            w = max(1, min(W, s.req.max_new - s.n_new,
+                           self.max_context - s.kv_len))
+            row = [s.next_id]
+            if w > 1 and s.req.strategy == "greedy_search":
+                row += self._spec.propose(i, s.tokens, s.next_id,
+                                          n=w - 1)
+            fed[i] = row
+        lpad = _next_pow2(max_ln, self._kv_floor)
+        self._bucket(("spec", lpad, W))
+
+        # one copy up: the fed ids [S, W], lengths, the active rows, the
+        # sampling rows among them and the page-index table
+        ids_lens = np.zeros((S, W + 1), np.int64)
+        ids_lens[:, :W] = cfg.eos_id
+        slot_tables = [None] * S
+        for i, s in active:
+            ids_lens[i, :len(fed[i])] = fed[i]
+            ids_lens[i, W] = s.kv_len
+            slot_tables[i] = s.table
+        rows = np.asarray([i for i, _ in active], np.int64)
+        sampling = np.asarray([j for j, (_, s) in enumerate(active)
+                               if s.req.strategy == "sampling"], np.int64)
+        pages = self._pool.page_index(slot_tables, lpad)
+        up = self._upload(np.concatenate(
+            [ids_lens.ravel(), rows, sampling, pages.ravel()]))
+        ids_lens_d = up[:S * (W + 1)].view(S, W + 1)
+        ids, lens = ids_lens_d[:, :W], ids_lens_d[:, W]
+        up = up[S * (W + 1):]
+        rows_d, up = up[:rows.size], up[rows.size:]
+        sampling_d, pages_d = up[:sampling.size], up[sampling.size:]
+        # additive mask [S, 1, W, lpad + W]: a query sees its row's valid
+        # history and the new columns up to its own (causal), pads -inf
+        cols = torch.arange(lpad + W, device=self.device)
+        qpos = torch.arange(W, device=self.device)
+        hist = cols[None, None, :] < lens[:, None, None]
+        new = (cols[None, :] >= lpad) & (cols[None, :] - lpad
+                                         <= qpos[:, None])
+        mask = torch.where(hist | new[None], 0.0, _NEG_INF)[:, None]
+        k_b, v_b = self._pool.gather_batch(pages_d.view(S, -1), lpad)
+        caches = [MultiHeadAttention.Cache(k_b[li], v_b[li])
+                  for li in range(L)]
+        logits, new_caches = self._model.forward(
+            ids, cache=caches, pos_offset=lens, attn_mask=mask)
+        k_new = torch.stack([c.k[:, :, lpad:] for c in new_caches])
+        v_new = torch.stack([c.v[:, :, lpad:] for c in new_caches])
+        act = logits.index_select(0, rows_d)            # [n, W, V]
+        greedy = self._download(torch.argmax(act, dim=-1))
+        sampled = {}
+        if sampling.size:
+            got = self._download(act[:, 0].index_select(0, sampling_d)
+                                 .float())
+            sampled = dict(zip(sampling.tolist(), got))
+        metrics.count("gen.steps")
+        metrics.count("spec.steps")
+        metrics.observe("gen.step_occupancy", len(active))
+
+        retired, n_committed = [], 0
+        for j, (i, s) in enumerate(active):
+            row = fed[i]
+            w = len(row)
+            base = s.kv_len
+            # the verify produced a KV column for every fed token: write
+            # them all, then roll the rejected tail back
+            for t in range(w):
+                self._pool.append_column(s.table, k_new[:, i, :, t],
+                                         v_new[:, i, :, t])
+            # the pending token and the accepted proposals, each followed
+            # by the target's own next token, stop at EOS or max_new
+            accepted = longest_accepted(row[1:], greedy[j, :w - 1])
+            committed, done = 0, False
+            for t in range(accepted + 1):
+                s.tokens.append(row[t])
+                nxt = self._sample(s.req, sampled[j]) if j in sampled \
+                    else int(greedy[j, t])
+                s.next_id = nxt
+                s.n_new += 1
+                committed = t + 1
+                if nxt == cfg.eos_id or s.n_new >= s.req.max_new:
+                    s.tokens.append(nxt)
+                    done = True
+                    break
+            if committed < w:
+                self._pool.truncate(s.table, base + committed)
+                metrics.count("spec.rollback_cols", w - committed)
+            metrics.observe("spec.accepted_per_step", committed)
+            metrics.count("spec.proposed", w - 1)
+            metrics.count("spec.accepted", committed - 1)
+            metrics.count("gen.tokens", committed)
+            n_committed += committed
+            if done:
+                self._spec.close(i)
+                retired.append(i)
+            else:
+                # the draft's rollback to the committed stream
+                self._spec.commit(i, s.tokens, s.next_id)
+        with self._mu:
+            for i in retired:
+                slot, self._slots[i] = self._slots[i], None
+                self._finish(slot)
+            metrics.gauge("gen.active_slots",
+                          sum(s is not None for s in self._slots))
+        ms = (time.perf_counter() - t0) * 1e3
+        metrics.observe("gen.step_ms", ms)
+        self.step_log.append({"ms": ms, "rows": len(active), "lpad": lpad,
+                              "width": W, "committed": n_committed,
                               "sampling_rows": int(sampling.size),
                               "h2d_bytes": self.bytes_h2d - h2d0,
                               "d2h_bytes": self.bytes_d2h - d2h0})

@@ -24,10 +24,23 @@ The reservation, refcount, prefix-key and pin bookkeeping stays on the
 host, in Python, as in the JAX package: it is a few integers per page
 and never touches the slabs.
 
-Still raising (ROADMAP.md Queue 1, Serving remainders): ``kv_dtype="int8"`` pages.
+int8 pages (``kv_dtype="int8"``): the slabs hold int8 with a
+per-(layer, page, head) fp32 dequant scale sidecar on the device
+(``x ~ q * scale``, ``scale = absmax / 127``), quantized on write
+(``rint(x / scale)``, the JAX package's order) and dequantized inside
+``gather`` and ``gather_batch``, so page tables, copy-on-write (which
+copies the scale rows with the page), radix adoption and ``truncate``
+ride unchanged on page ids.  A decode column hotter than its page's
+scale grows the scale and requantizes the resident columns under it
+(requantize-on-grow), written branch-free on the device: ``new =
+max(old, col_absmax / 127)``, residents times ``old / new`` (exactly 1
+where the scale did not grow), so no column costs a host read.  Any
+element a defensive clamp saturates is counted on the device;
+``quant_scale_clips`` reads the count (one host read, in ``stats()``).
+
 ``budget_drift`` compares the live geometry with the recorded plan; the
 re-derivation through ``static.planner.page_budget`` waits for that
-planner (Queue 1, Serving remainders).
+planner (ROADMAP.md Queue 1, Analysis and planner tiers).
 """
 from __future__ import annotations
 
@@ -90,11 +103,9 @@ class PagedKVPool:
                 f"need positive page_tokens/num_pages, got "
                 f"{page_tokens}/{num_pages}")
         name = convert_dtype(kv_dtype if kv_dtype is not None else dtype)
-        if name == "int8":
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP.md Queue 1, Serving remainders)")
-        if name not in ("float32", "float16", "bfloat16"):
-            raise ValueError(f"kv pages must be a float dtype, got {name}")
+        if name not in ("float32", "float16", "bfloat16", "int8"):
+            raise ValueError(
+                f"kv pages must be a float dtype or int8, got {name}")
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -102,6 +113,7 @@ class PagedKVPool:
         self.num_pages = int(num_pages)
         self.kv_dtype = name
         self.dtype = torch_dtype(name)
+        self.is_quantized = name == "int8"
         if device is None:
             from ..core.place import resolve_place
             device = resolve_place(None).torch_device()
@@ -113,6 +125,17 @@ class PagedKVPool:
                  self.page_tokens, self.head_dim)
         self.k = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if self.is_quantized:
+            # per-(layer, page, head) fp32 dequant scale: x ~ q * scale
+            sshape = (self.num_layers, self.num_pages, self.num_heads)
+            self.k_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        # elements a defensive clamp saturated, counted on the device
+        self._clips = torch.zeros((), dtype=torch.int64, device=self.device)
+        # the int8 grid's 127 as a device tensor: a Python-scalar divisor
+        # makes a CUDA division multiply by the reciprocal instead
+        self._q127 = torch.full((), 127.0, device=self.device)
         self._refcount = np.zeros(self.num_pages, np.int32)
         self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
         self._reserved_unallocated = 0
@@ -143,7 +166,7 @@ class PagedKVPool:
         if int(plan.get("tp_degree", 1)) > 1:
             raise NotImplementedError(
                 "a tp-sharded pool (tp_degree > 1) waits for serving/"
-                "tp_decode.py (ROADMAP.md Queue 1, Serving remainders)")
+                "tp_decode.py (ROADMAP.md Queue 1, Distribution)")
         return cls(num_layers=int(plan["num_layers"]),
                    num_heads=int(plan["num_heads"]),
                    head_dim=int(plan["head_dim"]),
@@ -155,14 +178,25 @@ class PagedKVPool:
     # -- geometry -----------------------------------------------------------
     @property
     def page_bytes(self) -> int:
-        """Bytes one page occupies across both tensors and all layers."""
-        return 2 * self.num_layers * self.num_heads * self.page_tokens \
+        """Bytes one page occupies across both tensors and all layers; for
+        int8 pages the int8 data plus the fp32 scale sidecar rows of K and
+        V."""
+        data = 2 * self.num_layers * self.num_heads * self.page_tokens \
             * self.head_dim * self.k.element_size()
+        if self.is_quantized:
+            data += 2 * self.num_layers * self.num_heads * 4
+        return data
 
     @property
     def pool_bytes(self) -> int:
-        """Bytes of both slabs on the device."""
+        """Bytes of both slabs (and scale sidecars) on the device."""
         return self.page_bytes * self.num_pages
+
+    @property
+    def quant_scale_clips(self) -> int:
+        """Elements a defensive clamp saturated (0 by construction under
+        requantize-on-grow); reading it is one host read."""
+        return int(self._clips)
 
     def pages_needed(self, n_tokens: int) -> int:
         """Worst-case pages a sequence of ``n_tokens`` total (prompt +
@@ -337,7 +371,63 @@ class PagedKVPool:
 
     # -- sequence lifecycle -------------------------------------------------
     def _as_kv(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        dtype = torch.float32 if self.is_quantized else self.dtype
+        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+
+    # -- int8 page quantization ---------------------------------------------
+    def _quantize(self, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """int8 of fp32 ``x`` [L, H, n, Dh] under the per-(L, H) scale
+        ``s``: rint(x / s), 0 where s is 0.  The scale always covers the
+        absmax, so the clamp is defensive; what it saturates is counted on
+        the device."""
+        s4 = s[:, :, None, None]
+        q = torch.round(torch.where(s4 > 0, x / s4, torch.zeros_like(x)))
+        self._clips += (q.abs() > 127).sum()
+        return torch.clamp(q, -127, 127).to(torch.int8)
+
+    def _store_page_chunk(self, pid: int, ncols: int, k_chunk, v_chunk):
+        """Install columns [0, ncols) of a FRESHLY allocated page (the
+        prefill write); int8 pages take the chunk's per-(layer, head)
+        absmax as the page scale."""
+        if not self.is_quantized:
+            self.k[:, pid, :, :ncols] = k_chunk
+            self.v[:, pid, :, :ncols] = v_chunk
+            return
+        for slab, scale, x in ((self.k, self.k_scale, k_chunk),
+                               (self.v, self.v_scale, v_chunk)):
+            s = x.abs().amax(dim=(2, 3)) / self._q127
+            scale[:, pid] = s
+            slab[:, pid, :, :ncols] = self._quantize(x, s)
+
+    def _store_column(self, pid: int, off: int, k_col, v_col):
+        """Write one decode column at ``off`` of an EXCLUSIVE page.  int8
+        pages requantize-on-grow, branch-free: new = max(old, col absmax /
+        127), the resident columns rint(q * old / new) (the identity where
+        the scale did not grow; the ratio is <= 1, so the rewrite never
+        clips), then the column under the new scale."""
+        if not self.is_quantized:
+            self.k[:, pid, :, off] = k_col
+            self.v[:, pid, :, off] = v_col
+            return
+        for slab, scale, col in ((self.k, self.k_scale, k_col),
+                                 (self.v, self.v_scale, v_col)):
+            need = col.abs().amax(dim=2) / self._q127     # [L, H]
+            cur = scale[:, pid]
+            new = torch.maximum(cur, need)
+            if off:
+                ratio = torch.where(new > 0, cur / new,
+                                    torch.ones_like(cur))
+                resident = slab[:, pid, :, :off].float()
+                slab[:, pid, :, :off] = torch.round(
+                    resident * ratio[:, :, None, None]).to(torch.int8)
+            scale[:, pid] = new
+            slab[:, pid, :, off:off + 1] = self._quantize(col[:, :, None],
+                                                          new)
+
+    def _dequantize(self, q: torch.Tensor, scale: torch.Tensor):
+        """fp32 of int8 pages ``q`` [..., H, T, Dh] under ``scale``
+        [..., H] (the same leading page index)."""
+        return q.float() * scale[..., None, None]
 
     def open_sequence(self, prompt: np.ndarray, k_prompt, v_prompt,
                       table: Optional[PageTable] = None,
@@ -383,10 +473,9 @@ class PagedKVPool:
                     metrics.count("kv.prefix_hits")
                 else:
                     pid = self._alloc(table)
-                    self.k[:, pid, :, :b - a] = \
-                        k_prompt[:, :, a - start:b - start]
-                    self.v[:, pid, :, :b - a] = \
-                        v_prompt[:, :, a - start:b - start]
+                    self._store_page_chunk(
+                        pid, b - a, k_prompt[:, :, a - start:b - start],
+                        v_prompt[:, :, a - start:b - start])
                     self._prefix[key] = pid
                     self._page_key[pid] = key
                 table.pages.append(pid)
@@ -415,13 +504,16 @@ class PagedKVPool:
                 new = self._alloc(table)
                 self.k[:, new] = self.k[:, pid]
                 self.v[:, new] = self.v[:, pid]
+                if self.is_quantized:
+                    self.k_scale[:, new] = self.k_scale[:, pid]
+                    self.v_scale[:, new] = self.v_scale[:, pid]
                 self._decref(pid)
                 table.pages[j] = new
                 pid = new
                 self.cow_copies += 1
                 metrics.count("kv.cow_copies")
-            self.k[:, pid, :, off] = self._as_kv(k_col)
-            self.v[:, pid, :, off] = self._as_kv(v_col)
+            self._store_column(pid, off, self._as_kv(k_col),
+                               self._as_kv(v_col))
             table.length = pos + 1
         self._publish()
 
@@ -432,15 +524,25 @@ class PagedKVPool:
         L, H, T, D = (self.num_layers, self.num_heads, self.page_tokens,
                       self.head_dim)
         if not table.pages:
-            empty = torch.zeros((L, H, 0, D), dtype=self.dtype,
-                                device=self.device)
+            empty = torch.zeros(
+                (L, H, 0, D), device=self.device,
+                dtype=torch.float32 if self.is_quantized else self.dtype)
             return empty, empty.clone()
         idx = torch.as_tensor(table.pages, dtype=torch.int64,
                               device=self.device)
         n = idx.numel()
-        k = self.k[:, idx].permute(0, 2, 1, 3, 4).reshape(L, H, n * T, D)
-        v = self.v[:, idx].permute(0, 2, 1, 3, 4).reshape(L, H, n * T, D)
+        k, v = self._pages(idx)
+        k = k.permute(0, 2, 1, 3, 4).reshape(L, H, n * T, D)
+        v = v.permute(0, 2, 1, 3, 4).reshape(L, H, n * T, D)
         return k[:, :, :table.length], v[:, :, :table.length]
+
+    def _pages(self, idx: torch.Tensor):
+        """The K and V pages ``idx`` indexes (any shape of page ids after
+        the layer axis), dequantized to fp32 for int8 pages."""
+        if not self.is_quantized:
+            return self.k[:, idx], self.v[:, idx]
+        return (self._dequantize(self.k[:, idx], self.k_scale[:, idx]),
+                self._dequantize(self.v[:, idx], self.v_scale[:, idx]))
 
     def page_index(self, tables: Sequence[Optional[PageTable]],
                    width: int) -> np.ndarray:
@@ -470,11 +572,12 @@ class PagedKVPool:
         if n * T < width:
             raise ValueError(f"{n} pages of {T} tokens < width {width}")
 
-        def dense(slab):
-            return slab[:, idx].permute(0, 1, 3, 2, 4, 5) \
+        def dense(pages):
+            return pages.permute(0, 1, 3, 2, 4, 5) \
                 .reshape(L, S, H, n * T, D)[:, :, :, :width]
 
-        return dense(self.k), dense(self.v)
+        k, v = self._pages(idx)
+        return dense(k), dense(v)
 
     def close_sequence(self, table: PageTable):
         """Retire a sequence THE MOMENT it finishes: drop every page
@@ -489,7 +592,9 @@ class PagedKVPool:
 
     # -- observability ------------------------------------------------------
     def stats(self) -> Dict:
-        """The /stats payload: geometry, occupancy, sharing."""
+        """The /stats payload: geometry, occupancy, sharing; for int8 pages
+        the clip count (one host read)."""
+        metrics.gauge("kv.quant_scale_clips", self.quant_scale_clips)
         with self._mu:
             free = len(self._free)
             return {
@@ -504,6 +609,7 @@ class PagedKVPool:
                 "prefix_hits": self.prefix_hits,
                 "cow_copies": self.cow_copies,
                 "kv_dtype": self.kv_dtype,
+                "quant_scale_clips": self.quant_scale_clips,
                 "occupancy": round(1.0 - free / self.num_pages, 4),
                 "device": str(self.device),
                 "pool_bytes": self.pool_bytes,
@@ -516,6 +622,9 @@ class PagedKVPool:
         metrics.gauge("kv.pages_shared", self.pages_shared)
         metrics.gauge("kv.pages_reserved", self._reserved_unallocated)
         metrics.gauge("kv.retained_pages", self.pages_retained)
+        # 1 = int8 pages (Prometheus has no string series); the clip count
+        # is a device value, published by stats() where it is read
+        metrics.gauge("kv.kv_dtype_int8", int(self.is_quantized))
 
     def assert_drained(self):
         """Post-drain leak check: every page free OR retained-by-radix,
@@ -542,7 +651,8 @@ def budget_drift(pool: PagedKVPool, model=None) -> List[str]:
     geometry (pages, page_tokens, layers, heads, head_dim), and the model's
     geometry when one is given.  The JAX package also re-derives the plan
     through `static.page_budget` under its recorded inputs; that waits
-    for the port's planner (ROADMAP.md Queue 1, Analysis and planner tiers)."""
+    for the port's planner (ROADMAP.md Queue 1, Analysis and planner
+    tiers)."""
     if pool.plan is None:
         return ["pool carries no recorded plan (hand-built, not "
                 "page_budget-sized)"]

@@ -124,9 +124,13 @@ class scope_guard:
 
 
 def as_numpy(x):
+    """A fetch on the host.  numpy has no bfloat16: a bf16 tensor comes
+    back as its exact float32 upcast."""
     if isinstance(x, (list, tuple)):
         return [as_numpy(i) for i in x]
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

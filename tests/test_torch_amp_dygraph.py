@@ -52,6 +52,7 @@ from paddle_tpu_torch.ops import attention as tattn
 from test_torch_dygraph_train import (assert_loss_trace,
                                       assert_params_close, bert_batch,
                                       tiny_bert_pair)
+from test_torch_gpt import jax_generator_restored  # noqa: F401
 
 OPS = ["matmul_v2", "elementwise_add", "layer_norm", "reduce_mean",
        "softmax_with_cross_entropy", "lookup_table_v2", "gelu", "dropout",

@@ -1423,3 +1423,217 @@ def test_run_steps_replays_batch_norm_running_stats():
                                    atol=1e-6)
         assert i == 0 or not np.array_equal(means[i], means[i - 1])
     gexe.close()
+
+
+# ---------------------------------------------------------------------------
+# the serving remainders on the card: int8_matmul, int8 pages, the
+# speculative engine
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n", [(1, 768, 768), (8, 768, 3072),
+                                   (16, 64, 64), (17, 32, 24), (8, 32, 32),
+                                   (17, 64, 64), (33, 32, 96), (24, 16, 32),
+                                   (4096, 768, 768), (5, 12, 20)])
+def test_int8_product_matches_plain_version(m, k, n):
+    """torch._int_mm through int8_product (the weight handed over
+    column-major): the int32 accumulators EQUAL to the plain version's;
+    rows <= 16 (a decode step's) and K or N not a multiple of 8 are
+    zero-padded, and each padded call counted."""
+    _need_cuda()
+    from paddle_tpu_torch.ops.kernels import quantize as tq
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=g)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda",
+                      generator=g)
+    calls0, pads0 = tq.int8_product.launches, tq.int8_product.padded_calls
+    acc = tq.int8_product(x, w)
+    assert acc.dtype == torch.int32 and acc.shape == (m, n) and acc.is_cuda
+    assert torch.equal(acc, tq.int8_product_plain(x, w))
+    assert tq.int8_product.launches == calls0 + 1
+    padded = m <= 16 or k % 8 or n % 8
+    assert tq.int8_product.padded_calls == pads0 + bool(padded)
+
+
+def test_int8_product_shape_sweep():
+    """Every product of a 336-shape sweep (rows 17-4096, K 16-3072, N
+    16-3072) through torch._int_mm with the weight column-major equals
+    the plain version: a row-major weight made cuBLASLt refuse some of
+    them (CUBLAS_STATUS_NOT_SUPPORTED) on the H100."""
+    _need_cuda()
+    import itertools
+    from paddle_tpu_torch.ops.kernels import quantize as tq
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = list(itertools.product((17, 24, 32, 33, 40, 64, 128, 4096),
+                                    (16, 32, 64, 96, 768, 3072),
+                                    (16, 24, 32, 64, 96, 768, 3072)))
+    for m, k, n in shapes:
+        x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                          device="cuda", generator=g)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                          device="cuda", generator=g)
+        assert torch.equal(tq.int8_product(x, w),
+                           tq.int8_product_plain(x, w)), (m, k, n)
+    assert len(shapes) == 336
+
+
+def test_int8_matmul_op_on_card_matches_cpu():
+    """The int8_matmul op on the card against the same op on the CPU
+    (plain product): the same quantized activation, int32 accumulators
+    and fp32 output (atol=rtol=1e-6)."""
+    _need_cuda()
+    from paddle_tpu_torch.ops.registry import OpContext, run_kernel
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 4, 64).astype(np.float32)
+    w = rng.randint(-127, 128, (64, 48)).astype(np.int8)
+    s = np.abs(rng.randn(48)).astype(np.float32) + 0.1
+    b = rng.randn(48).astype(np.float32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        ins = {k: torch.from_numpy(v).to(dev) for k, v in
+               (("X", x), ("W", w), ("WScale", s), ("Bias", b))}
+        outs.append(run_kernel("int8_matmul", ins, {"max_range": 127.0},
+                               OpContext(device=dev))["Out"].cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-6, atol=1e-6)
+
+
+def test_int8_pool_on_card_matches_cpu_pool():
+    """int8 pages on the card: the slabs, scale sidecars and gathers after
+    prefill, copy-on-write, requantize-on-grow and truncate equal to the
+    last bit to the same writes on a CPU pool; no clip; drained."""
+    _need_cuda()
+    from paddle_tpu_torch.serving import PagedKVPool
+    rng = np.random.RandomState(1)
+    prompt = rng.randint(2, 30, 6)
+    k = rng.randn(2, 2, 6, 4).astype(np.float32)
+    v = rng.randn(2, 2, 6, 4).astype(np.float32)
+    cols = [(rng.randn(2, 2, 4) * s).astype(np.float32) for s in
+            (10.0, 0.1, 50.0)]
+    pools = []
+    for dev in ("cpu", "cuda"):
+        pool = PagedKVPool(num_layers=2, num_heads=2, head_dim=4,
+                           page_tokens=4, num_pages=8, kv_dtype="int8",
+                           device=dev)
+        t1 = pool.open_sequence(prompt, k, v)
+        t2 = pool.open_sequence(prompt, k, v, reserved=4)
+        for c in cols:
+            pool.append_column(t2, c, -c)
+        g = [x.cpu() for x in pool.gather(t2)]
+        pool.truncate(t2, 7)
+        assert pool.cow_copies == 1 and pool.quant_scale_clips == 0
+        pools.append((pool, g, t1, t2))
+    (cp, cg, _, _), (gp, gg, t1, t2) = pools
+    assert gp.k.is_cuda and gp.k_scale.is_cuda
+    for a, b in ((cp.k, gp.k), (cp.v, gp.v), (cp.k_scale, gp.k_scale),
+                 (cp.v_scale, gp.v_scale)):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(cg, gg):
+        assert torch.equal(a, b)
+    gp.close_sequence(t1)
+    gp.close_sequence(t2)
+    gp.assert_drained()
+
+
+def test_spec_and_int8_engines_on_card():
+    """A tiny GPT on the card: the speculative engine (a 2-layer stamp of
+    a 2-layer model: every proposal accepted) token-equal to the plain
+    paged engine, and the int8 engine over int8 pages (its products
+    through torch._int_mm); both drained, no clip."""
+    _need_cuda()
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
+    from paddle_tpu_torch.ops.kernels import quantize as tq
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine, metrics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with dygraph.guard(CUDAPlace(0)):
+        m = GPTForGeneration(GPTModel(GPTConfig(
+            vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+            max_position=64, dropout=0.0))).eval()
+    plan = dict(num_layers=2, num_heads=4, head_dim=8, page_tokens=4,
+                pages=40, max_slots=3, max_context=64)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(2, 64, n) for n in (3, 9, 5, 12)]
+
+    def serve(**kw):
+        eng = ContinuousBatchingEngine(m, **kw).start()
+        try:
+            return eng, [f.result(timeout=120) for f in
+                         [eng.submit(p, max_length=8) for p in prompts]]
+        finally:
+            eng.stop()
+
+    _, plain = serve(kv_pool=dict(plan))
+    acc0, prop0 = (metrics.counter("spec.accepted"),
+                   metrics.counter("spec.proposed"))
+    spec, outs = serve(kv_pool=dict(plan), speculative="auto")
+    assert metrics.counter("spec.proposed") > prop0
+    assert metrics.counter("spec.accepted") - acc0 == \
+        metrics.counter("spec.proposed") - prop0
+    for a, b in zip(outs, plain):
+        np.testing.assert_array_equal(a, b)
+    spec.kv_pool.assert_drained()
+    launches0 = tq.int8_product.launches
+    int8, outs8 = serve(kv_pool=dict(plan, kv_dtype="int8",
+                                     weight_dtype="int8"))
+    assert tq.int8_product.launches > launches0
+    assert int8.kv_pool.k.dtype == torch.int8 and int8.kv_pool.k.is_cuda
+    assert int8.kv_pool.quant_scale_clips == 0
+    int8.kv_pool.assert_drained()
+    # int8 tokens may part from fp32 at a near-tie (docs/serving.md's
+    # rule); what is checked here is a well-formed reply
+    for p, a in zip(prompts, outs8):
+        assert list(a[:p.size]) == list(p) and \
+            p.size < a.size <= p.size + 8 and 0 <= a.min() and a.max() < 64
+
+
+def test_spec_engine_rollback_on_card():
+    """A draft with its own weights on the card: its proposals part from
+    the target's chain, so rejected columns are truncated from the pages
+    and the draft rolls back.  Over fp32 pages the replies equal the plain
+    engine's; over int8 pages with int8 weights (requantize after a
+    truncate) the replies are well formed, nothing clips, both pools
+    drained."""
+    _need_cuda()
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          SpeculativeDecoder, metrics,
+                                          stamp_draft)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    generator.seed(7)
+    with dygraph.guard(CUDAPlace(0)):
+        m = GPTForGeneration(GPTModel(GPTConfig(
+            vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+            max_position=64, dropout=0.0))).eval()
+    plan = dict(num_layers=2, num_heads=4, head_dim=8, page_tokens=4,
+                pages=40, max_slots=3, max_context=64)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(2, 64, n) for n in (3, 9, 5, 12)]
+
+    def serve(**kw):
+        eng = ContinuousBatchingEngine(m, **kw).start()
+        try:
+            return eng, [f.result(timeout=120) for f in
+                         [eng.submit(p, max_length=12) for p in prompts]]
+        finally:
+            eng.stop()
+
+    _, plain = serve(kv_pool=dict(plan))
+    for p8 in (dict(plan), dict(plan, kv_dtype="int8", weight_dtype="int8")):
+        rb0 = metrics.counter("spec.rollback_cols")
+        spec = SpeculativeDecoder(stamp_draft(m, 2, copy_weights=False), k=4)
+        eng, outs = serve(kv_pool=p8, speculative=spec)
+        assert metrics.counter("spec.rollback_cols") > rb0
+        assert spec.open_slots == 0
+        eng.kv_pool.assert_drained()
+        if "kv_dtype" not in p8:
+            for a, b in zip(outs, plain):
+                np.testing.assert_array_equal(a, b)
+            continue
+        assert eng.kv_pool.k.is_cuda and eng.kv_pool.quant_scale_clips == 0
+        for p, a in zip(prompts, outs):
+            assert list(a[:p.size]) == list(p) and \
+                p.size < a.size <= p.size + 12 and 0 <= a.min() and \
+                a.max() < 64

@@ -55,6 +55,7 @@ from paddle_tpu_torch.core.program import (_reset_unique_names as
                                            torch_reset_names)
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.ops import attention as tattn
+from test_torch_gpt import jax_generator_restored  # noqa: F401
 
 TINY = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=2, intermediate_size=64,

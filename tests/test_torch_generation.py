@@ -38,7 +38,7 @@ from paddle_tpu_torch.serving import (BatcherStoppedError,
                                       DeadlineExceededError, QueueFullError,
                                       budget_drift)
 
-from test_torch_gpt import tiny_pair
+from test_torch_gpt import jax_generator_restored, tiny_pair  # noqa: F401
 from test_torch_predictor import save_reference_model
 
 PLAN = dict(num_layers=2, num_heads=4, head_dim=8, page_tokens=4, pages=48,
@@ -159,9 +159,25 @@ def test_engine_rejections_match_jax(pair):
         eng.kv_pool.assert_drained()
     with pytest.raises(ValueError, match="beam search is whole"):
         ContinuousBatchingEngine(tm).submit([2], decode_strategy="beam_search")
-    for kw in ({"speculative": "auto"}, {"tp_degree": 2},
-               {"kv_pool": "auto"}, {"weight_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
+    # what this slice ported builds now; what is left raises, naming the
+    # ROADMAP item that holds it
+    spec = ContinuousBatchingEngine(tm, kv_pool=dict(PLAN),
+                                    speculative="auto")
+    assert spec.speculative.k == 4 and \
+        spec.speculative.config.num_layers == 2
+    int8 = ContinuousBatchingEngine(tm, weight_dtype="int8")
+    assert int8.weight_dtype == "int8" and \
+        type(int8._model.blocks[0].fc1).__name__ == "Int8Linear"
+    with pytest.raises(ValueError, match="requires paged KV"):
+        ContinuousBatchingEngine(tm, speculative="auto")
+    with pytest.raises(ValueError, match="weight_dtype mismatch"):
+        ContinuousBatchingEngine(tm, kv_pool=dict(PLAN, weight_dtype="int8"),
+                                 weight_dtype="float32")
+    for kw, item in (({"tp_degree": 2}, "Distribution"),
+                     ({"kv_pool": dict(PLAN, tp_degree=2)}, "Distribution"),
+                     ({"kv_pool": "auto"}, "Analysis and planner tiers")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1, {item}"):
             ContinuousBatchingEngine(tm, **kw)
     with pytest.raises(ValueError, match="geometry mismatch"):
         ContinuousBatchingEngine(tm, kv_pool=dict(PLAN, num_heads=2,

@@ -22,6 +22,19 @@ from paddle_tpu_torch.core.place import CPUPlace
 from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
 from paddle_tpu_torch.nn import MultiHeadAttention
 
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_generator_restored():
+    """The JAX package's global generator as it was before the module: its
+    models draw from it (and tiny_pair seeds it), and a later test in the
+    same worker that builds a model without a seed would otherwise get
+    other weights (ROADMAP.md Queue 3 item 2)."""
+    from paddle_tpu.core import generator
+    state = generator.get_rng_state()
+    yield
+    generator.set_rng_state(state)
+
+
 TINY = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
             max_position=64, dropout=0.0)
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -173,7 +173,10 @@ def test_plan_geometry_drift_and_what_still_raises():
     assert budget_drift(pool) == ["pages: pool has 7, plan records 6"]
     assert budget_drift(PagedKVPool(device="cpu", **GEOM))[0].startswith(
         "pool carries no recorded plan")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
-        PagedKVPool(kv_dtype="int8", device="cpu", **GEOM)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
+    # int8 pages are ported (tests/test_torch_int8_serving.py); a
+    # tp-sharded pool still raises, naming its ROADMAP item
+    pool8 = PagedKVPool(kv_dtype="int8", device="cpu", **GEOM)
+    assert pool8.is_quantized and pool8.k.dtype == torch.int8
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1, Distribution"):
         PagedKVPool.from_plan(dict(plan, tp_degree=2), device="cpu")

@@ -152,7 +152,8 @@ def test_stop_drains_in_flight_requests(model_dir):
 def test_server_rejects_generator_and_stops_unstarted(model_dir):
     """A generator is served now (tests/test_torch_generation.py); what
     the port has not ported yet still raises, naming its ROADMAP item:
-    kv_pool="auto" and a plan sized for tp-sharded decode."""
+    kv_pool="auto" (Analysis and planner tiers) and a plan sized for
+    tp-sharded decode (Distribution)."""
     from paddle_tpu_torch import dygraph
     from paddle_tpu_torch.models import (GPTConfig, GPTForGeneration,
                                          GPTModel)
@@ -162,8 +163,10 @@ def test_server_rejects_generator_and_stops_unstarted(model_dir):
             max_position=32, dropout=0.0)))
     plan = dict(num_layers=1, num_heads=2, head_dim=8, page_tokens=4,
                 pages=8, tp_degree=2)
-    for kw in ({"gen_kv_pool": "auto"}, {"gen_kv_pool": plan}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Serving remainders"):
+    for kw, item in (({"gen_kv_pool": "auto"}, "Analysis and planner tiers"),
+                     ({"gen_kv_pool": plan}, "Distribution")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1, {item}"):
             InferenceServer(model_dir, place=CPUPlace(), generator=gen,
                             **kw)
     srv = InferenceServer(model_dir, place=CPUPlace())
