@@ -10,7 +10,10 @@ auto_cast and GradScaler, paddle.optimizer, models.bert, hapi), and
 train the BASELINE configs LeNet-5, ResNet-50 and Transformer-big (static,
 eager and replayed) and vision.models.resnet50() in dygraph, and serve the
 remainders: bf16 and PTQ-int8 /predict, a conv-bn-folded ResNet-50, and
-speculative and int8 /generate.
+speculative and int8 /generate, and train BERT-base with the breadth of
+the training API (recompute, the other optimizers, EMA, ModelAverage,
+Lookahead, sparse embedding gradients, graph-safe random ops, static
+O2).
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -20,7 +23,8 @@ is present.  Phases:
 
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - compile csrc/flash_attn_fwd.cu, flash_attn_bwd.cu,
-               fused_xent_fwd.cu and dropout_philox.cu (with csrc/*.cuh)
+               fused_xent_fwd.cu, dropout_philox.cu and philox_random.cu
+               (with csrc/*.cuh)
                from this checkout, one nvcc process each, all at once
                (ptxas register, spill and warning lines);
   3. kernel  - the flash-attention forward kernel against its plain
@@ -222,8 +226,11 @@ is present.  Phases:
                count; LeNet: 3 x its forward's 2 x MACs; over 989 TFLOP/s
                bf16, 67 fp32) eager and replayed, peak memory, device
                busy, kernels a step and idle share from the profiled
-               call.  Gates: losses finite, the last below the first
-               (eager and replayed); the first batch_norm's running mean
+               call.  Gates: losses finite, the eager ones' last below
+               the first (the replayed trace is not read so: Momentum
+               0.1 / 0.9 swings for ~20 steps on one batch, so its end
+               reads the swing; it is held to the eager steps instead);
+               the first batch_norm's running mean
                (fetched each step) new at every step, eager and
                replayed; the capturing call's K losses equal to the K
                eager ones (to the last bit, else rtol 1e-5 fp32 / 2e-3
@@ -275,6 +282,60 @@ is present.  Phases:
                (docs/serving.md's rule).  Each: run ms, peak memory,
                tokens/s, TTFT; every pool drained.
 
+ 12. breadth - BERT-base width (vocab 30522, seq 512, hidden 768, 12
+               layers, 12 heads), batch 8, weights from --seed (the
+               startup programs through the Philox kernel, one launch per
+               random op), one fixed numpy batch.  (d) first: the Philox
+               kernel (csrc/philox_random.cu) against its plain version
+               on the card at [30522, 768] and [1000003] in fp32 and bf16,
+               uniform equal to the last bit, normal within 4 ulps of the
+               output dtype, mean and variance within 5 sigma; times
+               (library_ms: torch.rand / torch.randn, bound: bytes written
+               over 3.35 TB/s); uniform_random and gaussian_random in a
+               main program under run_steps: new draws on each replay,
+               equal to eager run() bitwise.  (a) recompute: phase 5b's
+               AMP program (flash, fused CE) with FLAGS_recompute="always",
+               serialized equal to the same program through
+               RecomputeOptimizer(Adam) at select_layer_checkpoints'
+               picks; 4 eager steps against the program without
+               recompute from the same weights: launches per step as the
+               program implies (35 flash forwards: 12 + 11 segment
+               replays + 12 vjp replays; 12 dQ, 12 dK/dV, 2 fused CE),
+               losses equal to the last bit (else rtol 2e-3), peak memory
+               lower; then run_steps K = 4 (one capturing call equal to
+               the eager steps, 2 timed calls, one profiled): step ms,
+               tokens/s, MFU (6 x params x tokens/s over 989 TFLOP/s),
+               device busy and idle share; and phase 8's recipe with
+               attention dropout 0.1 (gradient merge k = 2) with and
+               without recompute: losses equal bitwise, the replayed
+               dropouts launched.  (b) LarsMomentum, Adamax, Adagrad,
+               DecayedAdagrad, Adadelta, RMSProp, ProximalGD,
+               ProximalAdagrad, Ftrl, Dpsgd and Adam on the bench AMP
+               program: 4 eager steps (accumulators non-zero after the
+               first) and one run_steps call of K = 4 from the same
+               weights, losses equal (else rtol 2e-3), finite; each new
+               op at [30522, 768] on the card against the CPU
+               (normalised max error 1e-5: an element that cancels to
+               near 0 has no bounded relative error; the largest
+               elementwise relative error is reported); dpsgd's noise new on each
+               replay and equal to eager; EMA shadows after K replayed
+               steps equal to K eager steps and apply / restore bitwise;
+               ModelAverage apply / restore bitwise; Lookahead(Adam, k =
+               5, alpha 0.5): fast == slow after step 5 only, the
+               replayed state equal to eager; the 2.0 Adamax, Adagrad,
+               Adadelta and RMSProp, 3 steps on phase 9's variant (b)
+               model: losses finite.  (c) sparse: `bench_program`'s copy
+               with is_sparse on the word embedding, fp32: SGD against
+               dense SGD over 4 steps (losses rtol 1e-5, embedding within
+               1e-5); sparse SGD and Adam(lazy_mode=True) each replayed
+               K = 4 (the capturing call) equal to its 4 eager steps,
+               losses and every persistable to the last bit; lazy Adam's
+               untouched rows and moments bitwise unchanged, touched rows
+               moved.
+               (e) amp.cast_model_to_fp16 on the bench program: 4 eager
+               steps and one run_steps call, every flash and fused-CE
+               launch bf16, losses finite.
+
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
 (device time by kernel, device busy share, the attention kernels' device
@@ -296,7 +357,10 @@ main path, gated at 0 in each: no configuration has a head dim above
 128); each row also gives its kernel's launches per dygraph step in each
 phase 9 variant, in the row's dtype (`launches_per_dygraph_step`), and
 its launches on each phase 10 path (`launches_on_baseline_paths`, all 0:
-those paths run no hand kernel); the last line
+those paths run no hand kernel); the random kernel's row after the
+dropout's: its times at [30522, 768] fp32 uniform, its launches on each
+phase 12 path (`launches_by_phase12_path`) and the other cases' times;
+the last line
 {"ok": true, "device": {...}}.
 """
 import argparse
@@ -332,7 +396,7 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 # kernel cases also timed with a cold L2 (kernel_ms_cold)
 COLD_CASES = ("slice_bf16", "slice_fp32", "d256_fp32")
 KERNEL_SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "fused_xent_fwd",
-                  "dropout_philox")
+                  "dropout_philox", "philox_random")
 # phase 7: GPT-2 small widths (random weights from --seed), served through
 # the paged pool of GEN_PLAN with the radix prefix cache
 GPT2 = dict(vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
@@ -374,6 +438,10 @@ KERNELS = {
     "dropout_philox": ("paddle_tpu_torch/csrc/dropout_philox.cu",
                        "no TPU kernel: `jax.random.bernoulli` under XLA, "
                        "`paddle_tpu/ops/kernels/nn.py:490`"),
+    "philox_random": ("paddle_tpu_torch/csrc/philox_random.cu",
+                      "no TPU kernel: `jax.random.uniform` / "
+                      "`jax.random.normal` under XLA, "
+                      "`paddle_tpu/ops/kernels/random.py:20,40`"),
 }
 # the kernels for head dims above 128, by route, kernel and dtype: the
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
@@ -2654,13 +2722,19 @@ def profiled_window(torch, fn, steps):
 def baseline_static(torch, name, seed, k):
     """One static configuration: K eager Executor.run steps from the
     startup weights of `seed`, then run_steps calls of K steps from the
-    same weights (one capture, 2 timed, 1 profiled).  Gates: losses finite
-    and the last below the first (eager and replayed); the first
-    batch_norm's running mean new at every step, eager and replayed (it
-    is fetched each step); the capturing call's K losses equal to the K
-    eager ones (to the last bit, else rtol 1e-5 fp32 / 2e-3 AMP, the
-    largest difference reported); one capture, then hits; no launch of a
-    hand kernel (flash, fused CE, dropout, the wide routes)."""
+    same weights (one capture, 2 timed, 1 profiled).  Gates: the K eager
+    losses finite and the last below the first; the 3 K replayed losses
+    finite, the capturing call's K equal to the K eager ones (to the last
+    bit, else rtol 1e-5 fp32 / 2e-3 AMP, the largest difference reported);
+    the first batch_norm's running mean new at every step, eager and
+    replayed (it is fetched each step); one capture, then hits; no launch
+    of a hand kernel (flash, fused CE, dropout, the wide routes).
+
+    The replayed trace is not read for "the last below the first":
+    Momentum 0.1 / 0.9 on one fixed batch (ResNet-50) swings with a
+    period of some 20 steps, so the loss at step 3 K reads where the
+    swing is, not whether the step trains.  That the replayed steps train
+    as the eager ones do is held by their equality."""
     from paddle_tpu_torch import static
     from paddle_tpu_torch.ops import attention as attn
     from paddle_tpu_torch.ops import dropout as dr
@@ -2735,10 +2809,11 @@ def baseline_static(torch, name, seed, k):
     if not bitwise:
         np.testing.assert_allclose(graph, ref, rtol=2e-3 if amp_on
                                    else 1e-5, atol=0)
-    for what, trace in (("eager", eager), ("replayed", losses)):
-        if not all(np.isfinite(trace)) or not trace[-1] < trace[0]:
-            raise AssertionError(f"{tag}: {what} losses not finite and "
-                                 f"falling: {trace}")
+    if not all(np.isfinite(eager)) or not eager[-1] < eager[0]:
+        raise AssertionError(f"{tag}: eager losses not finite and "
+                             f"falling: {eager}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: replayed losses not finite: {losses}")
     if mean:
         check_stats_move(f"{tag} eager", eager_means)
         check_stats_move(f"{tag} replayed", graph_means)
@@ -3485,6 +3560,969 @@ def remainders_phase(torch, attn, seed, tmp, gen):
     return out
 
 
+# phase 12: training breadth at BERT-base width (recompute, the other
+# optimizers with EMA / ModelAverage / Lookahead, sparse embedding
+# gradients, graph-safe random ops, static O2)
+BREADTH_STEPS = 4       # eager steps; run_steps calls of K = 4
+BREADTH_K = 4
+BREADTH_TIMED_CALLS = 2  # recompute: run_steps calls timed after the capture
+BREADTH_RECIPE_STEPS = 2  # the dropout variant, with and without recompute
+LOOKAHEAD_K = 5
+OPT_OP_SHAPE = (30522, 768)  # the word embedding
+CARD = "cuda"
+OPT_OP_TOL = 1e-5        # card against CPU, normalised max error
+RANDOM_CASES = (("word_embedding", (30522, 768)), ("odd", (1000003,)))
+RANDOM_ULPS = 4          # the normal: the card's logf / sincosf vs plain
+# the static optimizers of the port's module 3 and Adam(lazy_mode=False),
+# each on the bench AMP program
+BREADTH_OPTIMIZERS = (
+    ("lars_momentum", lambda s: s.LarsMomentum(1e-3, momentum=0.9)),
+    ("adamax", lambda s: s.Adamax(1e-4)),
+    ("adagrad", lambda s: s.Adagrad(1e-3)),
+    ("decayed_adagrad", lambda s: s.DecayedAdagrad(1e-3)),
+    ("adadelta", lambda s: s.Adadelta(1.0)),
+    ("rmsprop", lambda s: s.RMSProp(1e-4)),
+    ("proximal_gd", lambda s: s.ProximalGD(1e-2, l1=1e-6, l2=1e-4)),
+    ("proximal_adagrad", lambda s: s.ProximalAdagrad(1e-2, l1=1e-6,
+                                                     l2=1e-4)),
+    ("ftrl", lambda s: s.Ftrl(1e-2, l1=1e-6, l2=1e-4)),
+    ("dpsgd", lambda s: s.Dpsgd(1e-3, clip=1.0, batch_size=8.0, sigma=1.0)),
+    ("adam", lambda s: s.Adam(1e-4, lazy_mode=False)))
+
+
+def bench_program(make_opt, use_amp=True, is_sparse=False, o2=False,
+                  recompute_picks=False, outer=None, after=None):
+    """A copy of models.build_bert_pretrain (bench.build_bert_base) at
+    BERT-base width, flash on, from a fresh unique-name state, with the
+    optimizer `make_opt(static)`: `is_sparse` on the word embedding; `o2`
+    casts the forward with amp.cast_model_to_fp16 (no decorate);
+    `recompute_picks` wraps the optimizer in RecomputeOptimizer at
+    select_layer_checkpoints' picks; `outer(static, opt)` wraps the
+    (decorated) optimizer; `after(static)` runs after minimize inside the
+    program guard.  Returns (main, startup, loss, extra: what `outer` or
+    `after` returned)."""
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.static import layers, nets
+    vocab, seq, hidden = BERT["vocab"], BERT["seq"], BERT["hidden"]
+    attn.enable_flash_attention(True)
+    try:
+        _reset_unique_names()
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            ids = layers.data("ids", [-1, seq], dtype="int64")
+            pos = layers.data("pos", [-1, seq], dtype="int64")
+            labels = layers.data("labels", [-1, seq, 1], dtype="int64")
+            h = layers.elementwise_add(
+                layers.embedding(ids, size=[vocab, hidden],
+                                 is_sparse=is_sparse),
+                layers.embedding(pos, size=[seq, hidden]))
+            h = layers.layer_norm(h, begin_norm_axis=2)
+            for _ in range(BERT["layers_n"]):
+                q = layers.fc(h, hidden, num_flatten_dims=2)
+                k = layers.fc(h, hidden, num_flatten_dims=2)
+                v = layers.fc(h, hidden, num_flatten_dims=2)
+                ctx = nets.scaled_dot_product_attention(
+                    q, k, v, num_heads=BERT["heads"])
+                attn_out = layers.fc(ctx, hidden, num_flatten_dims=2)
+                h = layers.layer_norm(layers.elementwise_add(h, attn_out),
+                                      begin_norm_axis=2)
+                ffn = layers.fc(h, hidden * 4, num_flatten_dims=2,
+                                act="gelu")
+                ffn = layers.fc(ffn, hidden, num_flatten_dims=2)
+                h = layers.layer_norm(layers.elementwise_add(h, ffn),
+                                      begin_norm_axis=2)
+            logits = layers.fc(h, vocab, num_flatten_dims=2)
+            loss = layers.mean(
+                layers.softmax_with_cross_entropy(logits, labels))
+            if o2:
+                amp.cast_model_to_fp16(main)
+                if loss.dtype != "float32":
+                    loss = layers.cast(loss, "float32")
+            opt = make_opt(static)
+            if recompute_picks:
+                picks = static.select_layer_checkpoints(main)
+                opt = static.RecomputeOptimizer(opt)
+                opt._set_checkpoints(picks)
+            if use_amp:
+                opt = amp.decorate(opt, init_loss_scaling=1.0,
+                                   use_dynamic_loss_scaling=False,
+                                   dest_dtype="bfloat16")
+            extra = outer(static, opt) if outer is not None else None
+            (extra or opt).minimize(loss)
+            if after is not None:
+                extra = after(static)
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+    return main, startup, loss, extra
+
+
+def startup_weights(torch, static, rnd, startup, seed):
+    """Run `startup` (random_seed = seed) on the card; returns (the
+    persistables, the Philox kernel's launches, the random ops in it)."""
+    startup.random_seed = seed
+    n_random = sum(op.type in ("uniform_random", "gaussian_random")
+                   for op in startup.global_block().ops)
+    scope = static.Scope()
+    before = rnd.random_cuda.launches
+    with static.scope_guard(scope):
+        static.Executor().run(startup)
+    torch.cuda.synchronize()
+    launches = rnd.random_cuda.launches - before
+    check_equal("startup philox_random", launches, n_random)
+    return {n: t for n, t in scope.vars.items() if t is not None}, \
+        launches, n_random
+
+
+def scope_of(static, init):
+    """A scope holding copies of `init` (a captured step updates its
+    persistables in place)."""
+    scope = static.Scope()
+    for n, t in init.items():
+        scope.set(n, t.clone())
+    return scope
+
+
+def eager_run(torch, static, main, loss, init, feed, steps, each=None,
+              fetch=()):
+    """`steps` Executor.run steps from `init` (a fresh executor, so the
+    step seeds are those of a fresh run_steps call); `each(i, scope)`
+    after every step.  Returns (losses, scope, step ms, fetches)."""
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    losses, ms, fetched = [], [], []
+    with static.scope_guard(scope):
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[loss] + list(fetch))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            fetched.append(out[1:])
+            if each is not None:
+                each(i, scope)
+    return losses, scope, ms, fetched
+
+
+def replayed_run(torch, static, main, loss, init, feed, k, fetch=()):
+    """One run_steps call of K steps from `init` (the capturing call);
+    returns (losses, scope, executor, fetches)."""
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    stacked = {n: np.stack([v] * k) for n, v in feed.items()}
+    with static.scope_guard(scope):
+        out = exe.run_steps(main, feed=stacked,
+                            fetch_list=[loss] + list(fetch))
+    return np.asarray(out[0], np.float32).reshape(-1).tolist(), scope, exe, \
+        out[1:]
+
+
+def same_losses(tag, got, want, rtol):
+    """Equal to the last bit, else within rtol (largest reported)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: losses {got} against {want}")
+    bitwise = bool(np.array_equal(got, want))
+    max_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not bitwise and not max_rel <= rtol:
+        raise AssertionError(f"{tag}: losses {got.tolist()} against "
+                             f"{want.tolist()}: rel diff {max_rel} > {rtol}")
+    return bitwise, max_rel
+
+
+def kernel_counts(counters):
+    return {n: c.launches for n, c in counters.items()}
+
+
+def check_equal(tag, got, want):
+    """Fail unless a count (launches on a path, graph captures) is as the
+    path implies."""
+    if got != want:
+        raise AssertionError(f"{tag}: {got}, expected {want}")
+
+
+def breadth_phase(torch, seed):
+    """(12) Training breadth at BERT-base width: (a) recompute, (b) the
+    optimizers, EMA, ModelAverage, Lookahead and the 2.0 optimizers, (c)
+    sparse embedding gradients, (d) the random ops and their kernel, (e)
+    static O2.  Returns {part: result}."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    feed = train_feed(seed)
+    out, philox = {}, {}
+
+    def part(name, fn, *args):
+        rnd.random_cuda.launches = 0  # this path: counts from 0
+        out[name] = fn(*args)
+        philox[name] = rnd.random_cuda.launches  # read just after
+        torch.cuda.empty_cache()
+
+    part("random", breadth_random, torch, static, rnd, seed)
+    zero_wide(attn)
+    fx.enable_fused_xent(True)
+    try:
+        part("recompute", breadth_recompute, torch, static, attn, dr, fx,
+             rnd, seed, feed)
+        part("optimizers", breadth_optimizers, torch, static, rnd, seed,
+             feed)
+        part("sparse", breadth_sparse, torch, static, rnd, seed, feed)
+        part("o2", breadth_o2, torch, static, attn, fx, rnd, seed, feed)
+        part("dygraph_optimizers", breadth_dygraph, torch, seed)
+    finally:
+        fx.enable_fused_xent(False)
+    record_wide("breadth", read_wide(attn))
+    out["philox_launches_by_path"] = philox
+    if not all(philox[p] > 0 for p in ("random", "recompute", "optimizers",
+                                       "sparse", "o2")):
+        raise AssertionError(f"phase 12 paths without a Philox launch: "
+                             f"{philox}")
+    return out
+
+
+def breadth_recompute(torch, static, attn, dr, fx, rnd, seed, feed):
+    """(a) The bench AMP program (flash, fused CE) with
+    FLAGS_recompute="always" and through RecomputeOptimizer(Adam) at
+    select_layer_checkpoints' picks (the two serialize equal), against
+    the same program without recompute: 4 eager steps each from the same
+    weights (losses equal, peak memory lower, launches per step exact),
+    then run_steps K = 4 (one capturing call equal to the eager steps,
+    timed calls, one profiled call); and the recipe with attention
+    dropout 0.1 with and without recompute (losses equal bit for bit)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.core.flags import set_flags
+    n = BERT["layers_n"]
+    main_p, startup, loss_p = build_pretrain(True, use_amp=True)
+    set_flags({"recompute": "always"})
+    try:
+        main_r, _, loss_r = build_pretrain(True, use_amp=True)
+    finally:
+        set_flags({"recompute": ""})
+    main_o, _, _, _ = bench_program(lambda s: s.Adam(learning_rate=1e-4),
+                                    recompute_picks=True)
+    if main_o.serialize_to_string() != main_r.serialize_to_string():
+        raise AssertionError("FLAGS_recompute=always and RecomputeOptimizer"
+                             " programs differ")
+    types = [op.type for op in main_r.global_block().ops]
+    want = {"flash_attn_fwd": types.count("flash_attention")
+            + types.count("flash_attention_grad"),
+            "flash_attn_bwd_dq": types.count("flash_attention_grad"),
+            "flash_attn_bwd_dkv": types.count("flash_attention_grad"),
+            "fused_xent_fwd": types.count("softmax_with_cross_entropy")
+            + types.count("softmax_with_cross_entropy_grad")}
+    if want["flash_attn_bwd_dq"] != n:
+        raise AssertionError(f"recompute program: {want}")
+    counters = {"flash_attn_fwd": attn.flash_attention,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq_cuda,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv_cuda,
+                "fused_xent_fwd": fx.fused_xent_cuda}
+    init, startup_launches, n_random = startup_weights(torch, static, rnd,
+                                                       startup, seed)
+    n_params = sum(int(np.prod(p.shape)) for p in main_r.all_parameters())
+    res = {"startup_philox_launches": startup_launches,
+           "startup_random_ops": n_random,
+           "barriers": types.count("optimization_barrier"),
+           "launches_per_step_implied": want}
+    runs = {}
+    for tag, main, loss in (("plain", main_p, loss_p),
+                            ("recompute", main_r, loss_r)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():  # this path: counts from 0
+            c.launches = 0
+        losses, scope, ms, _ = eager_run(torch, static, main, loss, init,
+                                         feed, BREADTH_STEPS)
+        counts = kernel_counts(counters)  # read just after
+        runs[tag] = {"losses": losses, "step_ms": ms,
+                     "peak_gpu_mem_gb":
+                         torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "launches_per_step": {k: v / BREADTH_STEPS
+                                           for k, v in counts.items()}}
+        del scope
+    rc, pl = runs["recompute"], runs["plain"]
+    for name, per in want.items():
+        check_equal(f"recompute {name} per step",
+                       rc["launches_per_step"][name], per)
+    if not rc["peak_gpu_mem_gb"] < pl["peak_gpu_mem_gb"]:
+        raise AssertionError(f"recompute peak {rc['peak_gpu_mem_gb']} GB "
+                             f"not below {pl['peak_gpu_mem_gb']} GB")
+    bitwise, max_rel = same_losses("recompute vs plain", rc["losses"],
+                                   pl["losses"], 2e-3)
+    res.update(eager=runs, losses_bitwise_equal_to_plain=bitwise,
+               losses_max_rel_diff_vs_plain=max_rel)
+    # run_steps K = 4 from the same weights
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    stacked = {k: np.stack([v] * BREADTH_K) for k, v in feed.items()}
+    step_ms = []
+    with static.scope_guard(scope):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (lv,) = exe.run_steps(main_r, feed=stacked, fetch_list=[loss_r])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        graph_losses = np.asarray(lv).reshape(-1).tolist()
+        for _ in range(BREADTH_TIMED_CALLS):
+            t0 = time.perf_counter()
+            (lv,) = exe.run_steps(main_r, feed=stacked, fetch_list=[loss_r])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3 / BREADTH_K)
+            graph_losses += np.asarray(lv).reshape(-1).tolist()
+        graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run_steps(main_r, feed=stacked, fetch_list=[loss_r])
+            torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    stats = exe.cache_stats()
+    exe.close()
+    del scope
+    g_bitwise, g_rel = same_losses("recompute run_steps vs eager",
+                                   graph_losses[:BREADTH_K], rc["losses"],
+                                   2e-3)
+    if not np.isfinite(graph_losses).all() or \
+            not graph_losses[-1] < graph_losses[0]:
+        raise AssertionError(f"recompute replayed losses {graph_losses}")
+    check_equal("recompute run_steps cache_stats", stats,
+                {"hits": BREADTH_TIMED_CALLS + 1, "misses": 1, "traces": 1})
+    subs = {"flash_attn_fwd": "flash_fwd", "flash_attn_bwd_dq":
+            "flash_bwd_dq", "flash_attn_bwd_dkv": "flash_bwd_dkv",
+            "fused_xent_fwd": "fused_xent", "philox_random":
+            "philox_random"}
+    replayed, dev = count_kernels(prof, subs)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    steady = sorted(step_ms)[len(step_ms) // 2]
+    tokens_s = TRAIN_BATCH * BERT["seq"] / (steady / 1e3)
+    eager_steady = sorted(rc["step_ms"][1:])[len(rc["step_ms"][1:]) // 2]
+    res.update(
+        run_steps_losses=graph_losses,
+        run_steps_bitwise_equal_to_eager=g_bitwise,
+        run_steps_max_rel_diff_vs_eager=g_rel, capture_call_s=capture_s,
+        step_ms=step_ms, median_step_ms=steady, tokens_per_s=tokens_s,
+        mfu=6.0 * n_params * tokens_s / PEAK_FLOPS["bfloat16"],
+        eager_median_step_ms=eager_steady,
+        eager_tokens_per_s=TRAIN_BATCH * BERT["seq"] / (eager_steady / 1e3),
+        plain_eager_median_step_ms=sorted(pl["step_ms"][1:])[
+            len(pl["step_ms"][1:]) // 2],
+        device_busy_ms_per_step=busy_ms / BREADTH_K,
+        device_idle_share=max(0.0, 1.0 - busy_ms / prof_ms),
+        device_idle_share_of_timed_step=max(
+            0.0, 1.0 - busy_ms / BREADTH_K / steady),
+        launches_per_replayed_step={k: v / BREADTH_K
+                                    for k, v in replayed.items()},
+        graph_peak_gpu_mem_gb=graph_peak, cache_stats=stats,
+        params=n_params)
+    del init
+    res["dropout_variant"] = breadth_recompute_dropout(torch, static, dr,
+                                                       rnd, seed, feed)
+    log({"phase": "breadth_recompute",
+         "config": "bert-base pretrain, AMP bf16, flash + fused CE, "
+                   "FLAGS_recompute=always (== RecomputeOptimizer at "
+                   "select_layer_checkpoints' picks)",
+         "batch": TRAIN_BATCH, "seq": BERT["seq"], **res})
+    return res
+
+
+def breadth_recompute_dropout(torch, static, dr, rnd, seed, feed):
+    """Phase 8's recipe with attention dropout 0.1 (gradient merge k = 2
+    included), with and without FLAGS_recompute="always": the same
+    losses to the last bit from the same weights and step seeds (a
+    replayed dropout redraws its mask)."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    _reset_unique_names()
+    main_p, startup, loss_p, sched_p, _ = build_recipe(0.1)
+    set_flags({"recompute": "always"})
+    try:
+        _reset_unique_names()
+        main_r, _, loss_r, sched_r, _ = build_recipe(0.1)
+    finally:
+        set_flags({"recompute": ""})
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    losses = {}
+    for tag, main, loss, sched in (("plain", main_p, loss_p, sched_p),
+                                   ("recompute", main_r, loss_r, sched_r)):
+        dr.dropout_cuda.launches = 0
+        losses[tag], scope, _, _ = eager_run(
+            torch, static, main, loss, init, feed, BREADTH_RECIPE_STEPS,
+            each=lambda i, s, sched=sched: sched.step())
+        losses[tag + "_dropout_launches"] = dr.dropout_cuda.launches
+        del scope
+    if losses["plain"] != losses["recompute"]:
+        raise AssertionError(f"recipe with attention dropout: recompute "
+                             f"losses {losses['recompute']} != "
+                             f"{losses['plain']}")
+    check_equal("recompute replays the dropout kernel",
+                losses["recompute_dropout_launches"]
+                > losses["plain_dropout_launches"], True)
+    types = [op.type for op in main_r.global_block().ops]
+    return {"gradient_merge": 2, "losses": losses,
+            "replayed_dropout_ops": types.count("dropout")
+            - [op.type for op in main_p.global_block().ops].count(
+                "dropout")}
+
+
+def breadth_optimizers(torch, static, rnd, seed, feed):
+    """(b) Each optimizer of BREADTH_OPTIMIZERS on the bench AMP program:
+    4 eager steps from the startup weights (accumulators non-zero after
+    the first), and one run_steps call of K = 4 from the same weights:
+    losses equal to the eager ones to the last bit (else rtol 2e-3, the
+    largest reported), finite.  Then each new op at [30522, 768] on the
+    card against the CPU, dpsgd's noise new on every replay, EMA,
+    ModelAverage and Lookahead."""
+    out = {"ops": breadth_optimizer_ops(torch, rnd),
+           "dpsgd_noise": breadth_dpsgd_noise(torch, static, rnd)}
+    for name, make in BREADTH_OPTIMIZERS:
+        main, startup, loss, _ = bench_program(make)
+        init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+        accs = [v.name for v in main.global_block().vars.values()
+                if v.attrs.get("accum_of") and "pow" not in v.name]
+        moved = {}
+
+        def first(i, scope, accs=accs, moved=moved):
+            if i == 0:
+                moved.update({a: bool(scope.vars[a].float().abs().sum() > 0)
+                              for a in accs})
+        eager, scope, ms, _ = eager_run(torch, static, main, loss, init,
+                                        feed, BREADTH_STEPS, each=first)
+        del scope
+        graph, scope, exe, _ = replayed_run(torch, static, main, loss, init,
+                                            feed, BREADTH_K)
+        exe.close()
+        del scope, init
+        if accs and not any(moved.values()):
+            raise AssertionError(f"{name}: accumulators all zero after the "
+                                 f"first step: {moved}")
+        bitwise, max_rel = same_losses(f"{name} run_steps vs eager", graph,
+                                       eager, 2e-3)
+        out[name] = {"losses": eager, "run_steps_losses": graph,
+                     "bitwise_equal": bitwise, "max_rel_diff": max_rel,
+                     "accumulators": len(accs),
+                     "accumulators_nonzero_after_step_1":
+                         sum(moved.values()),
+                     "eager_step_ms": ms}
+        torch.cuda.empty_cache()
+    out["ema"] = breadth_ema(torch, static, rnd, seed, feed)
+    torch.cuda.empty_cache()
+    out["model_average"] = breadth_model_average(torch, static, rnd, seed,
+                                                 feed)
+    torch.cuda.empty_cache()
+    out["lookahead"] = breadth_lookahead(torch, static, rnd, seed, feed)
+    log({"phase": "breadth_optimizers",
+         "config": "bert-base pretrain, AMP bf16, flash + fused CE, "
+                   "4 eager steps and run_steps K=4 per optimizer",
+         **out})
+    return out
+
+
+def opt_op_inputs(rng, op):
+    """Inputs of one optimizer op at OPT_OP_SHAPE (numpy, fp32)."""
+    s = OPT_OP_SHAPE
+
+    def arr(pos):
+        return rng.rand(*s).astype(np.float32) + (0.5 if pos else -0.5)
+    lr = np.asarray([0.05], np.float32)
+    slots = {"lars_momentum": ("Velocity",), "adamax": ("Moment",),
+             "adagrad": (), "decayed_adagrad": (), "adadelta": (),
+             "rmsprop": ("MeanGrad", "Moment"), "ftrl": (
+                 "LinearAccumulator",), "dpsgd": (), "proximal_gd": (),
+             "proximal_adagrad": ()}[op]
+    pos = {"adamax": ("InfNorm",), "adagrad": ("Moment",),
+           "decayed_adagrad": ("Moment",), "adadelta": (
+               "AvgSquaredGrad", "AvgSquaredUpdate"), "rmsprop": (
+               "MeanSquare",), "ftrl": ("SquaredAccumulator",),
+           "proximal_adagrad": ("Moment",)}.get(op, ())
+    ins = {"Param": arr(False), "Grad": arr(False)}
+    ins.update({k: arr(False) for k in slots})
+    ins.update({k: arr(True) for k in pos})
+    if op != "adadelta":
+        ins["LearningRate"] = lr
+    if op == "adamax":
+        ins["Beta1Pow"] = np.asarray([0.81], np.float32)
+    return ins
+
+
+OPT_OP_ATTRS = {
+    "lars_momentum": {"mu": 0.9, "lars_coeff": 0.001,
+                      "lars_weight_decay": 0.0005},
+    "adamax": {}, "adagrad": {}, "decayed_adagrad": {}, "adadelta": {},
+    "rmsprop": {"decay": 0.9, "momentum": 0.5, "centered": True},
+    "ftrl": {"l1": 0.01, "l2": 0.02, "lr_power": -0.5},
+    "dpsgd": {"clip": 1.0, "batch_size": 8.0, "sigma": 1.0, "op_uid": 5},
+    "proximal_gd": {"l1": 0.01, "l2": 0.02},
+    "proximal_adagrad": {"l1": 0.01, "l2": 0.02},
+}
+
+
+def breadth_optimizer_ops(torch, rnd):
+    """Each new optimizer op (and average_accumulates) at [30522, 768] on
+    the card against the same op on the CPU from the same inputs:
+    normalised max error (over the slot's largest magnitude) within
+    OPT_OP_TOL, the largest reported, and the largest elementwise relative
+    error over the nonzero CPU values reported (not gated: an element that
+    cancels to near 0 has no bounded relative error)."""
+    from paddle_tpu_torch.ops.registry import OpContext, get_op_info
+    rng = np.random.RandomState(11)
+    errs, rel = {}, {}
+    for op, attrs in OPT_OP_ATTRS.items():
+        ins = opt_op_inputs(rng, op)
+        outs = {}
+        for dev in (CARD, "cpu"):
+            ctx = OpContext(seed=3, device=dev)
+            outs[dev] = get_op_info(op).kernel(
+                {k: torch.from_numpy(v).to(dev) for k, v in ins.items()},
+                dict(attrs), ctx)
+        errs[op] = {}
+        for slot, c in outs["cpu"].items():
+            g = outs[CARD][slot].cpu().double()
+            c = c.double()
+            err = float((g - c).abs().max() / c.abs().max().clamp(min=1e-30))
+            nz = c != 0
+            rel[f"{op}.{slot}"] = float(((g - c)[nz] / c[nz]).abs().max()) \
+                if bool(nz.any()) else 0.0
+            errs[op][slot] = err
+            if not err <= OPT_OP_TOL:
+                raise AssertionError(f"{op}.{slot} on the card: normalised "
+                                     f"max error {err} > {OPT_OP_TOL}")
+        del outs
+    # ModelAverage's op over a window turnover
+    p = rng.randn(*OPT_OP_SHAPE).astype(np.float32)
+    state = {"in_sum_1": p, "in_sum_2": p * 0.5, "in_sum_3": p * 0.25,
+             "in_num_accumulates": np.asarray([3], np.int64),
+             "in_old_num_accumulates": np.asarray([2], np.int64),
+             "in_num_updates": np.asarray([9], np.int64)}
+    attrs = {"average_window": 0.5, "min_average_window": 2,
+             "max_average_window": 4}
+    outs = {dev: get_op_info("average_accumulates").kernel(
+        {k: torch.from_numpy(v).to(dev) for k, v in
+         dict(state, param=p).items()}, dict(attrs), OpContext(device=dev))
+        for dev in (CARD, "cpu")}
+    for slot, c in outs["cpu"].items():  # elementwise adds: exact
+        if not torch.equal(outs[CARD][slot].cpu(), c):
+            raise AssertionError(f"average_accumulates.{slot} on the card "
+                                 "differs from the CPU")
+    errs["average_accumulates"] = "bitwise"
+    return {"shape": list(OPT_OP_SHAPE), "normalised_max_err": errs,
+            "elementwise_max_rel_err": rel}
+
+
+def breadth_dpsgd_noise(torch, static, rnd):
+    """dpsgd under run_steps: a [4096, 1] fc weight with a zero gradient
+    (loss scaled by 0) moves by the noise alone; two replayed steps move
+    it differently, and the capturing call equals eager run() steps of
+    the same seeds to the last bit."""
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.static import layers
+    _reset_unique_names()
+    main, startup = static.Program(), static.Program()
+    main.random_seed = startup.random_seed = 5
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 4096])
+        loss = layers.scale(layers.mean(layers.fc(x, 1)), 0.0)
+        static.Dpsgd(1.0, clip=1.0, batch_size=1.0, sigma=1.0).minimize(loss)
+    w = next(p.name for p in main.all_parameters() if p.shape == (4096, 1))
+    feed = {"x": np.ones((2, 4096), np.float32)}
+    init, _, _ = startup_weights(torch, static, rnd, startup, 5)
+    _, _, _, eager = eager_run(torch, static, main, loss, init, feed, 3,
+                               fetch=[w])
+    graph, _, exe, (ws,) = replayed_run(torch, static, main, loss, init,
+                                        feed, 3, fetch=[w])
+    exe.close()
+    w0 = init[w].cpu().numpy()
+    ws = np.asarray(ws)
+    eager = np.stack([np.asarray(e[0]) for e in eager])
+    d1, d2 = ws[0] - w0, ws[1] - ws[0]
+    if not np.array_equal(ws, eager):
+        raise AssertionError("dpsgd: replayed weights differ from eager")
+    if np.array_equal(d1, d2) or not np.abs(d1).max() > 0:
+        raise AssertionError("dpsgd: the replayed steps drew one noise")
+    return {"replays_equal_eager": True,
+            "noise_std_step_1": float(d1.std()),
+            "noise_std_step_2": float(d2.std())}
+
+
+def breadth_ema(torch, static, rnd, seed, feed):
+    """EMA(0.999) updated every step after Adam: the shadows after K
+    replayed steps equal K eager steps bit for bit; apply() then
+    restore() leaves the parameters bitwise as they were."""
+    main, startup, loss, ema = bench_program(
+        lambda s: s.Adam(1e-4), after=lambda s: _ema(s))
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    eager, scope_e, _, _ = eager_run(torch, static, main, loss, init, feed,
+                                     BREADTH_K)
+    graph, scope_g, exe, _ = replayed_run(torch, static, main, loss, init,
+                                          feed, BREADTH_K)
+    exe.close()
+    same_losses("ema run_steps vs eager", graph, eager, 2e-3)
+    shadows = [s.name for _, s in ema._shadows]
+    diff = [n for n in shadows
+            if not torch.equal(scope_e.vars[n], scope_g.vars[n])]
+    if diff:
+        raise AssertionError(f"EMA shadows after K replayed steps differ "
+                             f"from eager: {diff[:3]}")
+    params = {p.name: scope_e.vars[p.name].clone() for p, _ in ema._shadows}
+    with static.scope_guard(scope_e):
+        ema.apply(None)
+        applied = all(torch.equal(scope_e.vars[p.name], scope_e.vars[s.name])
+                      for p, s in ema._shadows)
+        ema.restore(None)
+    if not applied or not all(torch.equal(scope_e.vars[n], t)
+                              for n, t in params.items()):
+        raise AssertionError("EMA apply/restore did not round-trip")
+    return {"shadows": len(shadows), "losses": eager,
+            "shadows_bitwise_equal": True, "apply_restore_bitwise": True}
+
+
+def _ema(s):
+    ema = s.ExponentialMovingAverage(0.999)
+    ema.update()
+    return ema
+
+
+def breadth_model_average(torch, static, rnd, seed, feed):
+    """ModelAverage(0.15, windows 2-4) after Adam, 4 eager steps: the
+    averages differ from the parameters inside `with apply()`, and the
+    parameters are bitwise as they were after it."""
+    main, startup, loss, ma = bench_program(
+        lambda s: s.Adam(1e-4),
+        after=lambda s: s.ModelAverage(0.15, min_average_window=2,
+                                       max_average_window=4))
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    eager, scope, _, _ = eager_run(torch, static, main, loss, init, feed,
+                                   BREADTH_STEPS)
+    names = [p.name for p, _ in ma._accs]
+    before = {n: scope.vars[n].clone() for n in names}
+    with static.scope_guard(scope):
+        with ma.apply(None):
+            moved = sum(not torch.equal(scope.vars[n], before[n])
+                        for n in names)
+    if not moved or not all(torch.equal(scope.vars[n], t)
+                            for n, t in before.items()):
+        raise AssertionError(f"ModelAverage apply/restore: {moved} moved")
+    return {"params": len(names), "averaged_params_differing": moved,
+            "losses": eager, "apply_restore_bitwise": True}
+
+
+def breadth_lookahead(torch, static, rnd, seed, feed):
+    """Lookahead(Adam, k = 5, alpha = 0.5) with K = 5: the fast weights
+    equal the slow ones bit for bit after step 5 and not before (eager),
+    and one run_steps call of 5 steps ends in the eager state."""
+    main, startup, loss, _ = bench_program(
+        lambda s: s.Adam(1e-4),
+        outer=lambda s, opt: s.LookaheadOptimizer(opt, alpha=0.5, k=5))
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    params = [p.name for p in main.all_parameters()]
+    slow = {p: next(n for n in main.global_block().vars
+                    if n.startswith(p + "_slow")) for p in params}
+    synced = []
+
+    def check(i, scope):
+        synced.append(all(torch.equal(scope.vars[p], scope.vars[s])
+                          for p, s in slow.items()))
+    eager, scope_e, _, _ = eager_run(torch, static, main, loss, init, feed,
+                                     LOOKAHEAD_K, each=check)
+    if synced != [False] * (LOOKAHEAD_K - 1) + [True]:
+        raise AssertionError(f"lookahead fast == slow per step: {synced}")
+    graph, scope_g, exe, _ = replayed_run(torch, static, main, loss, init,
+                                          feed, LOOKAHEAD_K)
+    exe.close()
+    same_losses("lookahead run_steps vs eager", graph, eager, 2e-3)
+    diff = [n for n in list(slow) + list(slow.values())
+            if not torch.equal(scope_e.vars[n], scope_g.vars[n])]
+    if diff:
+        raise AssertionError(f"lookahead replayed state differs: {diff[:3]}")
+    return {"params": len(params), "synced_per_step": synced,
+            "losses": eager, "run_steps_losses": graph,
+            "replayed_state_bitwise": True}
+
+
+def breadth_dygraph(torch, seed):
+    """The four 2.0 optimizers (Adamax, Adagrad, Adadelta, RMSProp), 3
+    steps each on phase 9's variant (b) model (attention dropout 0, O1,
+    flash and fused CE): losses finite."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
+    batch = dygraph_batch(torch, seed)
+    ids, labels, nsp = batch
+    out = {}
+    try:
+        attn.enable_flash_attention(True)
+        fx.enable_fused_xent(True)
+        for name, make in (
+                ("Adamax", lambda p: opt.Adamax(1e-4, parameters=p)),
+                ("Adagrad", lambda p: opt.Adagrad(1e-3, parameters=p)),
+                ("Adadelta", lambda p: opt.Adadelta(1.0, parameters=p)),
+                ("RMSProp", lambda p: opt.RMSProp(1e-4, parameters=p))):
+            net, crit = dygraph_model(seed, 0.0)
+            o = make(net.parameters())
+            losses = []
+            for _ in range(3):
+                with amp.auto_cast(level="O1"):
+                    loss = crit(*net(ids), labels, nsp)
+                loss.backward()
+                o.step()
+                o.clear_grad()
+                losses.append(float(loss))
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"2.0 {name}: losses {losses}")
+            out[name] = losses
+            del net, crit, o
+            torch.cuda.empty_cache()
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+        fx.enable_fused_xent(False)
+    log({"phase": "breadth_dygraph_optimizers", "losses": out})
+    return out
+
+
+def breadth_sparse(torch, static, rnd, seed, feed):
+    """(c) `bench_program`'s copy with `is_sparse=True` on the word
+    embedding, fp32 (no AMP, no clip): sparse SGD against dense SGD from
+    the same weights (K eager steps: losses rtol 1e-5, the word embedding
+    within a normalised max error of 1e-5); sparse SGD and
+    Adam(lazy_mode=True) each over one run_steps call of K steps (the
+    capturing call) against its K eager steps: losses and every
+    persistable to the last bit; lazy Adam's rows and moments that no id
+    touched bitwise unchanged, the touched rows moved."""
+    runs = {}
+    for tag, sparse in (("dense", False), ("sparse", True)):
+        main, startup, loss, _ = bench_program(lambda s: s.SGD(1e-2),
+                                               use_amp=False,
+                                               is_sparse=sparse)
+        init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+        emb = next(p.name for p in main.all_parameters()
+                   if p.shape == (BERT["vocab"], BERT["hidden"]))
+        losses, scope, ms, _ = eager_run(torch, static, main, loss, init,
+                                         feed, BREADTH_K)
+        runs[tag] = (losses, scope, ms)
+        if sparse:
+            sgd_replayed = sparse_replay(torch, static, "sparse sgd", main,
+                                         loss, init, feed, losses, scope)
+        del init
+    (ld, sd, _), (ls, ss, ms_s) = runs["dense"], runs["sparse"]
+    np.testing.assert_allclose(ls, ld, rtol=1e-5)
+    wd, ws = sd.vars[emb], ss.vars[emb]
+    w_err = float((ws - wd).abs().max() / wd.abs().max())
+    if not w_err <= 1e-5:
+        raise AssertionError(f"sparse SGD word embedding: {w_err}")
+    del runs, sd, ss, wd, ws
+    main, startup, loss, _ = bench_program(
+        lambda s: s.Adam(1e-3, lazy_mode=True), use_amp=False,
+        is_sparse=True)
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    emb = next(p.name for p in main.all_parameters()
+               if p.shape == (BERT["vocab"], BERT["hidden"]))
+    moments = [n for n in main.global_block().vars
+               if n.startswith(emb + "_moment")]
+    eager, scope_e, ms, _ = eager_run(torch, static, main, loss, init, feed,
+                                      BREADTH_K)
+    adam_replayed, scope_g = sparse_replay(
+        torch, static, "lazy adam", main, loss, init, feed, eager, scope_e,
+        keep=True)
+    touched = torch.zeros(BERT["vocab"], dtype=torch.bool,
+                          device=init[emb].device)
+    touched[torch.from_numpy(feed["ids"]).reshape(-1)] = True
+    for n in [emb] + moments:
+        for sc in (scope_e, scope_g):
+            if not torch.equal(sc.vars[n][~touched], init[n][~touched]):
+                raise AssertionError(f"lazy adam moved untouched rows of {n}")
+    if torch.equal(scope_g.vars[emb][touched], init[emb][touched]):
+        raise AssertionError("lazy adam left the touched rows")
+    res = {"sgd_losses_dense": ld, "sgd_losses_sparse": ls,
+           "sgd_word_embedding_normalised_max_err": w_err,
+           "sgd_sparse_step_ms": ms_s, "sgd_sparse_replayed": sgd_replayed,
+           "lazy_adam_losses": eager, "lazy_adam_replayed": adam_replayed,
+           "rows_touched": int(touched.sum())}
+    log({"phase": "breadth_sparse",
+         "config": "bert-base pretrain, fp32, is_sparse word embedding",
+         **res})
+    return res
+
+
+def sparse_replay(torch, static, tag, main, loss, init, feed, eager,
+                  scope_e, keep=False):
+    """One run_steps call of K steps from `init` (the capturing call)
+    against the K eager steps that left `scope_e`: the losses and every
+    persistable equal to the last bit.  Returns the record (and the
+    replayed scope when `keep`)."""
+    graph, scope_g, exe, _ = replayed_run(torch, static, main, loss, init,
+                                          feed, BREADTH_K)
+    stats = exe.cache_stats()
+    exe.close()
+    check_equal(f"{tag} run_steps captures", stats["traces"], 1)
+    if graph != eager:
+        raise AssertionError(f"{tag}: replayed losses {graph} against "
+                             f"eager {eager}")
+    differ = {}
+    for n, t in scope_e.vars.items():
+        if t is not None and not torch.equal(scope_g.vars[n], t):
+            differ[n] = float((scope_g.vars[n].double() - t.double())
+                              .abs().max())
+    if differ:
+        raise AssertionError(f"{tag}: replayed state differs from eager "
+                             f"(largest difference by name): {differ}")
+    rec = {"run_steps_losses": graph, "losses_bitwise_equal": True,
+           "state_bitwise_equal": True,
+           "persistables_compared": sum(t is not None
+                                        for t in scope_e.vars.values())}
+    return (rec, scope_g) if keep else rec
+
+
+def breadth_random(torch, static, rnd, seed):
+    """(d) The Philox kernel against its plain version (on the card) at
+    [30522, 768] and [1000003], fp32 and bf16, uniform and normal: the
+    uniform equal to the last bit, the normal within RANDOM_ULPS ulps of
+    the output dtype; mean and variance within 5 sigma; times (kernel,
+    plain version, torch.rand / torch.randn, bound = bytes written over
+    3.35 TB/s); then a program of uniform_random and gaussian_random under
+    run_steps: new draws on every replay, equal to eager run()."""
+    cases = {}
+    seed_t = torch.tensor([seed + 12345], dtype=torch.int64, device="cuda")
+    for tag, shape in RANDOM_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            for dist, a, b, lib in (
+                    (rnd.UNIFORM, -0.1, 0.1, torch.rand),
+                    (rnd.NORMAL, 0.0, 0.02, torch.randn)):
+                def kernel():
+                    return rnd.random_cuda(shape, dt, dist, a, b, seed_t, 7,
+                                           "cuda")
+
+                def plain():
+                    return rnd.random_plain(shape, dt, dist, a, b, seed_t, 7,
+                                            "cuda")
+                got, want = kernel(), plain()
+                if dist == rnd.UNIFORM:
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"uniform {tag} {dt}: kernel "
+                                             "differs from plain")
+                    ulps = 0.0
+                else:
+                    scale = torch.finfo(dt).eps * torch.clamp(
+                        want.float().abs(), min=b)
+                    ulps = float(((got.float() - want.float()).abs()
+                                  / scale).max())
+                    if not ulps <= RANDOM_ULPS:
+                        raise AssertionError(f"normal {tag} {dt}: {ulps} "
+                                             "ulps from plain")
+                x = got.double()
+                n = x.numel()
+                mean, var = ((a + b) / 2, (b - a) ** 2 / 12) \
+                    if dist == rnd.UNIFORM else (a, b * b)
+                var_sd = var * (np.sqrt(0.8) if dist == rnd.UNIFORM
+                                else np.sqrt(2.0)) / np.sqrt(n)
+                m, v = float(x.mean()), float(x.var())
+                if dt == torch.float32 and (
+                        abs(m - mean) > 5 * np.sqrt(var / n)
+                        or abs(v - var) > 5 * var_sd):
+                    raise AssertionError(f"{tag} {dt} dist {dist}: mean {m}"
+                                         f" var {v} vs {mean} {var}")
+                nbytes = n * got.element_size()
+                key = f"{tag}_{dtype_name(dt)}_" + \
+                    ("uniform" if dist == rnd.UNIFORM else "normal")
+                cases[key] = {
+                    "shape": list(shape), "max_abs_err": float(
+                        (got.float() - want.float()).abs().max()),
+                    "max_ulps": ulps, "mean": m, "var": v,
+                    "kernel_ms": device_ms(torch, kernel, 20),
+                    "plain_ms": cuda_time_ms(plain, 2),
+                    "library_ms": device_ms(
+                        torch, lambda: lib(shape, dtype=dt, device="cuda"),
+                        20),
+                    "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                    "bound_by": "bytes"}
+                del got, want, x
+    res = {"cases": cases, **breadth_random_ops(torch, static, rnd, seed)}
+    log({"phase": "breadth_random", **res})
+    return res
+
+
+def breadth_random_ops(torch, static, rnd, seed):
+    """A program of uniform_random and gaussian_random ops (the step seed,
+    no seed attr) under run_steps: new draws on every replay, equal to
+    3 eager run() steps to the last bit."""
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.static import layers
+    _reset_unique_names()
+    main, startup = static.Program(), static.Program()
+    main.random_seed = seed
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 768])
+        u = layers.uniform_random([512, 768], min=-1.0, max=1.0)
+        g = layers.gaussian_random([512, 768], mean=0.0, std=1.0)
+        y = layers.elementwise_add(x, layers.elementwise_mul(u, g))
+    feed = {"x": np.zeros((512, 768), np.float32)}
+    before = rnd.random_cuda.launches
+    eager_exe = static.Executor()
+    with static.scope_guard(static.Scope()):
+        eager = [eager_exe.run(main, feed=feed, fetch_list=[u, g, y])
+                 for _ in range(3)]
+    exe = static.Executor()
+    with static.scope_guard(static.Scope()):
+        replayed = exe.run_steps(
+            main, feed={"x": np.stack([feed["x"]] * 3)},
+            fetch_list=[u, g, y])
+    stats = exe.cache_stats()
+    exe.close()
+    graph_launches = rnd.random_cuda.launches - before
+    # 3 eager steps, the warm-up and the capture: 2 draws each
+    check_equal("random ops run + run_steps", graph_launches, 10)
+    for j in range(3):
+        if not np.array_equal(np.asarray(replayed[j]),
+                              np.stack([e[j] for e in eager])):
+            raise AssertionError("random ops under run_steps differ from "
+                                 "eager run()")
+    if np.array_equal(replayed[0][0], replayed[0][1]):
+        raise AssertionError("random ops: two replays drew the same")
+    return {"run_steps_equal_eager": True, "run_steps_cache_stats": stats,
+            "philox_launches_run_and_run_steps": graph_launches}
+
+
+def breadth_o2(torch, static, attn, fx, rnd, seed, feed):
+    """(e) amp.cast_model_to_fp16 on the bench program (Adam, no
+    decorate): 4 eager steps and one run_steps call of K = 4 from the
+    startup weights; every flash and fused-CE launch in bf16 (counted by
+    dtype), losses finite."""
+    import collections
+    main, startup, loss, _ = bench_program(lambda s: s.Adam(1e-4),
+                                           use_amp=False, o2=True)
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    counters = {"flash_attn_fwd": attn.flash_attention,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq_cuda,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv_cuda,
+                "fused_xent_fwd": fx.fused_xent_cuda}
+    for c in counters.values():  # this path: counts from 0
+        c.launches = 0
+        c.dtype_launches = collections.Counter()
+    eager, scope, ms, _ = eager_run(torch, static, main, loss, init, feed,
+                                    BREADTH_STEPS)
+    del scope
+    graph, scope, exe, _ = replayed_run(torch, static, main, loss, init,
+                                        feed, BREADTH_K)
+    exe.close()
+    by_dtype = {n: dict(c.dtype_launches) for n, c in counters.items()}
+    check_equal("O2 kernel dtypes", sorted(
+        {dt for d in by_dtype.values() for dt in d}), ["bfloat16"])
+    if not np.isfinite(eager + graph).all():
+        raise AssertionError(f"O2 losses {eager} {graph}")
+    bitwise, max_rel = same_losses("O2 run_steps vs eager", graph, eager,
+                                   2e-3)
+    res = {"losses": eager, "run_steps_losses": graph,
+           "bitwise_equal": bitwise, "max_rel_diff": max_rel,
+           "launches_by_dtype": by_dtype, "eager_step_ms": ms}
+    log({"phase": "breadth_o2",
+         "config": "bert-base pretrain, cast_model_to_fp16 (O2 bf16), "
+                   "flash + fused CE", **res})
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3588,6 +4626,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     dygraph = dygraph_phase(torch, args.seed)
     baseline = baseline_phase(torch, args.seed)
+    breadth = breadth_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -3671,7 +4710,7 @@ def main():
                  f"recipe{g}_{v}" for g in ("", "_graph")
                  for v, _ in RECIPE_VARIANTS) + tuple(
                  f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS) + tuple(
-                 f"baseline_{v}" for v in baseline)
+                 f"baseline_{v}" for v in baseline) + ("breadth",)
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -3705,6 +4744,20 @@ def main():
                   "launches_on_baseline_paths": {
                       v: r["hand_kernel_launches"]["dropout"]
                       for v, r in baseline.items()}}))
+    # the random kernel (no TPU kernel: the JAX package draws under XLA):
+    # times at [30522, 768] fp32 uniform (the word embedding's
+    # initializer shape), launches on each phase 12 path
+    philox = breadth["philox_launches_by_path"]
+    rows.append(("philox_random",
+                 breadth["random"]["cases"]["word_embedding_float32_uniform"],
+                 sum(philox.values()),
+                 {"case": "word_embedding_float32_uniform",
+                  "launches_by_phase12_path": philox,
+                  "other_cases": {
+                      k: {m: c[m] for m in ("kernel_ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "max_abs_err", "max_ulps")}
+                      for k, c in breadth["random"]["cases"].items()}}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -5,6 +5,9 @@ the forward block, classifies each op white / black / gray and inserts
 `cast` ops so white ops consume the low dtype and black ops fp32.
 Parameters stay fp32 (master weights); casts are inserted per use.  The
 rule set is the JAX package's, so both packages emit the same program.
+`cast_model_to_fp16` is the pure low-precision mode (O2): the same
+rewrite with every gray op taken as white, so all but the black list run
+in the low dtype.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from ..core.pass_framework import record_applied
 from ..core.program import Program, OpDesc, OpRole, unique_name
 from .fp16_lists import AutoMixedPrecisionLists
 
-__all__ = ["rewrite_program"]
+__all__ = ["rewrite_program", "cast_model_to_fp16"]
 
 _FLOAT = ("float32", "float64")
 
@@ -142,3 +145,14 @@ def rewrite_program(main_program: Program, amp_lists=None,
     main_program._fingerprint_cache = None
     record_applied(main_program, "amp", dest_dtype=dest_dtype)
     return main_program
+
+
+def cast_model_to_fp16(program: Program, amp_lists=None,
+                       dest_dtype: str = "bfloat16"):
+    """fp16_utils.py cast_model_to_fp16 (pure low precision, O2): every
+    float var and op flipped to `dest_dtype` except the black list."""
+    amp_lists = amp_lists or AutoMixedPrecisionLists()
+    lists = AutoMixedPrecisionLists(
+        custom_white_list=amp_lists.gray_list | amp_lists.white_list,
+        custom_black_list=amp_lists.black_list)
+    return rewrite_program(program, lists, dest_dtype)

@@ -1,14 +1,15 @@
 """Global RNG seeding.
 
 Counterpart of paddle_tpu/core/generator.py.  There one global seed feeds
-JAX threefry keys; here it seeds `torch.Generator`s.  Every eager random
-draw (a dygraph parameter's initializer) runs its op with an `OpContext`
-whose seed is the global seed plus a monotone draw counter
-(`next_eager_uid`), and the op makes an explicit generator on the
-tensor's device from it (`OpContext.generator`).  So a seed fixes every
-draw, in order, on one device type, and nothing on the path reads or
-moves torch's global RNG.  The draws are not the JAX package's: parity
-tests copy weights (`Layer.set_state_dict`) instead of comparing draws.
+JAX threefry keys; here it keys the port's Philox generator
+(ops/random.py, ops/dropout.py).  Every eager random draw (a dygraph
+parameter's initializer) runs its op with an `OpContext` whose seed is
+the global seed plus a monotone draw counter (`next_eager_uid`), and the
+op draws from (that seed, its uid) on the tensor's device: the Philox
+kernel on the card, its plain version on the CPU.  So a seed fixes every
+draw, in order, and nothing on the path reads or moves torch's global
+RNG.  The draws are not the JAX package's: parity tests copy weights
+(`Layer.set_state_dict`) instead of comparing draws.
 """
 from __future__ import annotations
 

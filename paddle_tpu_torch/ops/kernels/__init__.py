@@ -17,4 +17,5 @@ from . import (  # noqa: F401
     control,
     op_gaps,
     quantize,
+    stragglers,
 )

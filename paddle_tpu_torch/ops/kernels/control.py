@@ -1,5 +1,6 @@
-"""Comparisons of the slices: equal (gradient merge's step mask),
-greater_than and less_than (the L1 decay's sign).  Counterpart of the ops
+"""Comparisons of the slices: equal (gradient merge's and Lookahead's step
+masks), greater_than and less_than (the L1 decay's sign), and
+optimization_barrier (the recompute rewrite's).  Counterpart of the ops
 of the same names in paddle_tpu/ops/kernels/control.py; none has a
 gradient."""
 from __future__ import annotations
@@ -19,3 +20,16 @@ def _binary(name, fn):
 less_than = _binary("less_than", torch.lt)
 greater_than = _binary("greater_than", torch.gt)
 equal = _binary("equal", torch.eq)
+
+
+@register_op("optimization_barrier", inputs=["X*"], outputs=["Out*"],
+             grad=None, side_effect=True)
+def optimization_barrier(ins, attrs, ctx):
+    """The recompute rewrite routes a replayed segment's inputs through
+    this op.  In the JAX package it is `jax.lax.optimization_barrier`, so
+    that XLA cannot merge the replay with the original forward inside its
+    whole-block jit.  The eager port runs every op as it comes and has no
+    such merge, so here it is an identity.  It returns copies, not its
+    inputs: an output never aliases a buffer that a captured step
+    (`Executor.run_steps`) updates in place."""
+    return {"Out": [x.clone() for x in ins["X"]]}

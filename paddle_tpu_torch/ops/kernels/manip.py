@@ -1,6 +1,7 @@
 """Tensor manipulation ops of the slices: reshape2, transpose2,
-fill_constant, cast, one_hot_v2, and gradient merge's where and
-fill_zeros_like.
+fill_constant, cast, one_hot_v2, gradient merge's where and
+fill_zeros_like, assign (EMA's and Lookahead's state writes) and
+fill_any_like (the backward seed of a loss with a dynamic shape).
 Counterparts of paddle_tpu/ops/kernels/manip.py.
 
 transpose2 returns a strided view (no copy); the flash kernel reads the
@@ -85,3 +86,22 @@ def one_hot_v2(ins, attrs, ctx):
     ids = ins["X"].long().unsqueeze(-1)
     classes = torch.arange(int(attrs["depth"]), device=ids.device)
     return {"Out": (ids == classes).to(torch.float32)}
+
+
+@register_op("assign", inputs=["X"], outputs=["Out"])
+def assign(ins, attrs, ctx):
+    """Out = X (the value itself, as the JAX package's).  When it binds
+    one persistable's tensor to another's name, a captured step
+    (`Executor.run_steps`) still gives each name its own buffer."""
+    return {"Out": ins["X"]}
+
+
+@register_op("fill_any_like", inputs=["X!"], outputs=["Out"], grad=None)
+def fill_any_like(ins, attrs, ctx):
+    """`value` at X's runtime shape, in `dtype` (X's when it is None or
+    -1): append_backward's seed of a loss with a dynamic shape."""
+    x = ins["X"]
+    dt = attrs.get("dtype", None)
+    dt = x.dtype if dt in (None, -1) else torch_dtype(dt)
+    return {"Out": torch.full(tuple(x.shape), attrs.get("value", 0.0),
+                              dtype=dt, device=x.device)}

@@ -11,6 +11,7 @@ import math
 import torch
 
 from ..registry import register_op
+from ...core.selected_rows import SelectedRows
 
 
 @register_op("matmul", inputs=["X", "Y"], outputs=["Out"])
@@ -42,6 +43,13 @@ def mul(ins, attrs, ctx):
 @register_op("scale", inputs=["X"], outputs=["Out"])
 def scale(ins, attrs, ctx):
     x = ins["X"]
+    if isinstance(x, SelectedRows):
+        # scale a sparse gradient's values (a bias would densify it)
+        if attrs.get("bias", 0.0) != 0.0:
+            raise ValueError("scale(bias!=0) on SelectedRows would densify")
+        s = torch.tensor(attrs.get("scale", 1.0), dtype=x.values.dtype,
+                         device=x.values.device)
+        return {"Out": SelectedRows(x.rows, x.values * s, x.height)}
     s = attrs.get("scale", 1.0)
     b = attrs.get("bias", 0.0)
     if attrs.get("bias_after_scale", True):
@@ -52,8 +60,17 @@ def scale(ins, attrs, ctx):
 @register_op("sum", inputs=["X*"], outputs=["Out"])
 def sum_op(ins, attrs, ctx):
     """Elementwise sum of the inputs (append_backward accumulates the
-    gradient pieces of a var with it)."""
+    gradient pieces of a var with it).  Over SelectedRows only, the sum
+    is the concatenation (scatter-add semantics); mixed with dense ones,
+    each SelectedRows is densified first."""
     xs = ins["X"]
+    if any(isinstance(x, SelectedRows) for x in xs):
+        if all(isinstance(x, SelectedRows) for x in xs):
+            return {"Out": SelectedRows(
+                torch.cat([x.rows for x in xs]),
+                torch.cat([x.values for x in xs]), xs[0].height)}
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+              for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

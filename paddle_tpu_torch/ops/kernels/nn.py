@@ -1,5 +1,5 @@
 """NN ops of the slices: conv2d, pool2d, batch_norm, layer_norm, softmax,
-dropout, lookup_table_v2, fc.
+dropout, lookup_table and lookup_table_v2, fc.
 
 Counterparts of the kernels of the same names in
 paddle_tpu/ops/kernels/nn.py, with the same attrs and dtype rules:
@@ -7,7 +7,8 @@ normalization and softmax compute in fp32 for half-precision inputs and
 return the input dtype.  `dropout` draws its mask with the Philox kernel
 of ops/dropout.py (not the JAX package's threefry bits) and has an
 explicit gradient that reads the saved Mask: a vjp replay of the forward
-would draw again.
+would draw again.  The embeddings have the JAX package's explicit
+gradient too: a scatter-add, or with `is_sparse` a SelectedRows.
 
 The JAX package computes conv2d, pool2d and batch_norm outside any Pallas
 kernel (`lax.conv_general_dilated`, `lax.reduce_window`, jnp), so here
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 
 from ..dropout import apply_mask, dropout_fwd
 from ..registry import register_op
+from ...core.selected_rows import SelectedRows
 
 
 def _cdt(x):
@@ -125,7 +127,42 @@ def _embedding(w, ids, attrs):
     return out
 
 
-@register_op("lookup_table_v2", inputs=["W", "Ids!"], outputs=["Out"])
+def _lookup_table_grad(squeeze_trailing):
+    """The embedding's gradient, explicit as the JAX package's
+    (paddle_tpu/ops/kernels/nn.py:499): Out@GRAD's rows (zero at
+    `padding_idx`) scatter-added into a [vocab, width] gradient, or, with
+    `is_sparse`, handed on as a SelectedRows {ids, rows} pair that the
+    optimizer scatter-adds itself (the dense gradient never exists)."""
+
+    def grad_kernel(ins, attrs, ctx):
+        w, ids, og = ins["W"], ins["Ids"], ins["Out@GRAD"]
+        if squeeze_trailing and ids.shape[-1] == 1:
+            ids = ids.squeeze(-1)
+        rows = ids.reshape(-1).long()
+        vals = og.reshape((-1,) + tuple(w.shape[1:])).to(w.dtype)
+        padding_idx = attrs.get("padding_idx", -1)
+        if padding_idx is not None and padding_idx != -1:
+            pid = padding_idx if padding_idx >= 0 else w.shape[0] + padding_idx
+            vals = torch.where((rows != pid)[:, None], vals,
+                               torch.zeros_like(vals))
+        if attrs.get("is_sparse", False):
+            return {"W@GRAD": SelectedRows(rows, vals, w.shape[0])}
+        return {"W@GRAD": torch.zeros_like(w).index_put_(
+            (rows,), vals, accumulate=True)}
+
+    return grad_kernel
+
+
+@register_op("lookup_table", inputs=["W", "Ids!"], outputs=["Out"],
+             grad=_lookup_table_grad(squeeze_trailing=True))
+def lookup_table(ins, attrs, ctx):
+    ids = ins["Ids"]
+    ids = ids.squeeze(-1) if ids.shape[-1] == 1 else ids
+    return {"Out": _embedding(ins["W"], ids, attrs)}
+
+
+@register_op("lookup_table_v2", inputs=["W", "Ids!"], outputs=["Out"],
+             grad=_lookup_table_grad(squeeze_trailing=False))
 def lookup_table_v2(ins, attrs, ctx):
     return {"Out": _embedding(ins["W"], ins["Ids"], attrs)}
 

@@ -1,0 +1,187 @@
+"""Uniform and normal draws on a counter-based generator whose seed lives
+in device memory (hand-written Hopper kernel).
+
+There is no TPU kernel to replace: the JAX package's `uniform_random` and
+`gaussian_random` ops draw with `jax.random.uniform` / `jax.random.normal`
+under XLA (paddle_tpu/ops/kernels/random.py:20,40).  The port needs a
+kernel for the reason dropout does (ops/dropout.py): no library call draws
+from a seed held in device memory, so a CUDA graph of a step that draws
+(an initializer, dpsgd's noise) would replay one draw forever.
+
+The generator is dropout's Philox-4x32-10 with dropout's keying: key
+(seed mod 2^32, uid mod 2^32), counter (g mod 2^32, g >> 32, 0, 0) for the
+group g = e // 4 of the element e (row-major), word e % 4 of the result
+its 32-bit draw w(e).  From it:
+
+  * uniform: u(e) = (w(e) >> 8) 2^-24 in [0, 1), exact in fp32; the
+    output is u * span + lo in fp32, each step rounded on its own (no
+    fused multiply-add), span = fp32(fp32(max) - fp32(min)), lo =
+    fp32(min), then rounded to the op's dtype;
+  * normal: Box-Muller over the pair of draws (w(2j), w(2j + 1)) of the
+    element pair j = e // 2: u1 = ((w(2j) >> 8) + 1) 2^-24 in (0, 1],
+    u2 = (w(2j + 1) >> 8) 2^-24, theta = fp32(2 pi u2) (2 pi rounded to
+    fp32), r = sqrt(-2 log u1), z = r cos(theta) for the even element and
+    r sin(theta) for the odd one; the output is mean + std z in fp32, then
+    rounded to the op's dtype.  The kernel computes r and z in fp32
+    (`logf`, `sqrtf`, `sincosf`); the plain version computes them in
+    float64 and rounds z once, so it is the correctly rounded z to within
+    a float64 ulp, and the kernel's z lies within a few fp32 ulps of it.
+
+A CUDA tensor launches the kernel in csrc/philox_random.cu (or raises); a
+CPU (or meta) device runs `random_plain`, the same function in PyTorch:
+the uniform equal bit for bit, the normal within a few ulps (the card's
+fp32 `logf` / `sincosf` against float64).  The kernel is built without fast math, so the
+accurate `logf` and `sincosf` run.  `torch.rand` / `torch.randn` are only
+the yardsticks of its speed: they draw other numbers.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from .dropout import _seed_word, philox4x32, _MASK32
+
+__all__ = ["random_plain", "random_cuda", "random_draw", "uniform",
+           "normal", "UNIFORM", "NORMAL"]
+
+UNIFORM, NORMAL = 0, 1
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TWO_PI = float(np.float32(2.0 * math.pi))
+_U24 = 2.0 ** -24
+
+
+def _words(n: int, seed, uid: int, device):
+    """The int64 draws w(0..n-1) of dropout's generator."""
+    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(g)
+    words = philox4x32(g & _MASK32, g >> 32, zero, zero,
+                       _seed_word(seed, device), int(uid) & _MASK32)
+    return torch.stack(words, dim=1).reshape(-1)[:n]
+
+
+def _f32(x, device):
+    """A 0-d fp32 tensor: scalar operands of the plain arithmetic stay fp32
+    and are never folded into a reciprocal or a double."""
+    return torch.tensor(float(np.float32(x)), dtype=torch.float32,
+                        device=device)
+
+
+def affine(dist: int, a: float, b: float):
+    """The kernel's two fp32 constants: (lo, span) of a uniform over
+    [a, b), (mean, std) of a normal."""
+    if dist == UNIFORM:
+        lo = np.float32(a)
+        return float(lo), float(np.float32(np.float32(b) - lo))
+    return float(np.float32(a)), float(np.float32(b))
+
+
+def random_plain(shape, dtype, dist: int, a: float, b: float, seed, uid: int,
+                 device="cpu"):
+    """The kernel's function in PyTorch: a uniform over [a, b) (dist
+    UNIFORM) or a normal of mean a and std b (dist NORMAL), `shape`, in
+    `dtype`, keyed by (seed, uid)."""
+    n = int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
+    device = torch.device(device)
+    c0, c1 = (_f32(v, device) for v in affine(dist, a, b))
+    if n == 0:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    if dist == UNIFORM:
+        u = (_words(n, seed, uid, device) >> 8).to(torch.float32) * _U24
+        out = u * c1 + c0
+    else:
+        w = _words(n + (n & 1), seed, uid, device).reshape(-1, 2)
+        u1 = ((w[:, 0] >> 8) + 1).to(torch.float32) * _U24
+        u2 = (w[:, 1] >> 8).to(torch.float32) * _U24
+        theta = u2 * _f32(_TWO_PI, device)
+        # the transcendental part in float64, rounded once to fp32: the
+        # CPU's vectorized fp32 log / sin / cos may round differently from
+        # call to call (their path depends on alignment), float64 does not
+        # show through the rounding
+        r = torch.sqrt(torch.log(u1.double()) * -2.0)
+        theta = theta.double()
+        z = torch.stack([r * torch.cos(theta), r * torch.sin(theta)],
+                        dim=1).reshape(-1)[:n].to(torch.float32)
+        out = z * c1 + c0
+    return out.reshape(tuple(shape)).to(dtype)
+
+
+def _kernel_lib():
+    from ..core.kernel_build import load_library
+    lib = load_library("philox_random")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        lib.philox_random_fill.argtypes = [p, ll, i, i, p, ll, ll, f, f, p]
+        lib.philox_random_fill.restype = i
+        lib.philox_random_error_string.argtypes = [i]
+        lib.philox_random_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def random_cuda(shape, dtype, dist: int, a: float, b: float, seed, uid: int,
+                device):
+    """Launch the Hopper kernel into a new tensor on the CUDA `device`;
+    seed a one-element int64 tensor on that device or an int."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"random_cuda needs a CUDA device, got {device}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"philox_random kernel writes float32, bfloat16 or "
+                        f"float16, got {dtype}")
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    seed_ptr, seed_value = None, 0
+    if isinstance(seed, torch.Tensor):
+        if seed.device != out.device or seed.dtype != torch.int64 or \
+                seed.numel() != 1:
+            raise ValueError(f"philox_random kernel reads a one-element "
+                             f"int64 seed on {out.device}, got "
+                             f"{tuple(seed.shape)} {seed.dtype} on "
+                             f"{seed.device}")
+        seed_ptr = seed.data_ptr()
+    else:
+        seed_value = int(seed)
+    n = out.numel()
+    if n == 0:
+        return out
+    c0, c1 = affine(dist, a, b)
+    lib = _kernel_lib()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.philox_random_fill(out.data_ptr(), n, _DTYPE_CODE[dtype],
+                                     int(dist), seed_ptr, seed_value,
+                                     int(uid), c0, c1, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"philox_random_fill launch failed: CUDA error {err} "
+            f"({lib.philox_random_error_string(err).decode()})")
+    random_cuda.launches += 1
+    return out
+
+
+def random_draw(shape, dtype, dist: int, a: float, b: float, seed, uid: int,
+                device):
+    """The kernel on a CUDA device, the plain version on a CPU (or meta)
+    one."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return random_cuda(shape, dtype, dist, a, b, seed, uid, device)
+    if device.type in ("cpu", "meta"):
+        return random_plain(shape, dtype, dist, a, b, seed, uid, device)
+    raise RuntimeError(f"philox_random: no kernel for device {device}")
+
+
+def uniform(shape, dtype, lo, hi, seed, uid, device):
+    return random_draw(shape, dtype, UNIFORM, lo, hi, seed, uid, device)
+
+
+def normal(shape, dtype, mean, std, seed, uid, device):
+    return random_draw(shape, dtype, NORMAL, mean, std, seed, uid, device)
+
+
+# launches of the Hopper kernel in this process (plain integer; callers
+# reset it to 0 around the run they want to count)
+random_cuda.launches = 0

@@ -17,15 +17,16 @@ records the cost).  Ops whose kernel is a hand-written CUDA kernel wrap it
 in a `torch.autograd.Function`, so the vjp reaches their backward kernels.
 
 RNG: a random draw is keyed by (the step seed, or the op's `seed` attr
-when it sets `fix_seed`, and the op's build-time uid), as the JAX
-package's threefry `fold_in(PRNGKey(seed), uid)` is.
-`OpContext.generator(attrs)` returns a `torch.Generator` seeded from that
-pair (the initializers `uniform_random` / `gaussian_random`);
-`OpContext.draw_key(attrs)` gives the pair for the dropout kernel, whose
-step seed is `OpContext.seed_tensor`, a one-element int64 tensor on the
-executor's device that a captured CUDA graph reads afresh on every
-replay.  Neither draws the JAX package's numbers, so parity tests copy
-parameters, or inject the port's masks into the reference.
+when it sets `fix_seed` (dropout) or is not 0 (the initializers), and the
+op's build-time uid), as the JAX package's threefry
+`fold_in(PRNGKey(seed), uid)` is.  `OpContext.draw_key(attrs)` gives the
+pair; the step seed is `OpContext.seed_tensor`, a one-element int64
+tensor on the executor's device that a captured CUDA graph reads afresh
+on every replay.  Every draw (dropout, `uniform_random`,
+`gaussian_random`, dpsgd's noise) runs on one Philox-4x32-10 generator
+(ops/dropout.py, ops/random.py) whose kernels read that seed through a
+pointer.  None of it draws the JAX package's numbers, so parity tests
+copy parameters, or inject the port's draws into the reference.
 """
 from __future__ import annotations
 
@@ -88,24 +89,16 @@ class OpContext:
 
     def draw_key(self, attrs: Dict[str, Any], seed_input=None):
         """(seed, uid) of a draw: the `Seed` input tensor when the op has
-        one, else the op's `seed` attr when it sets `fix_seed` (an int),
-        else the step's `seed_tensor`; uid is the op's `fwd_uid` or
-        `op_uid`."""
+        one, else the op's `seed` attr (a host int) when it sets
+        `fix_seed` (dropout) or is not 0 (the initializers, dpsgd), else
+        the step's `seed_tensor`; uid is the op's `fwd_uid` or `op_uid`."""
         uid = int(attrs.get("fwd_uid", attrs.get("op_uid", 0)))
         if seed_input is not None:
             return seed_input.reshape(1).to(torch.int64), uid
-        if attrs.get("fix_seed", False):
-            return int(attrs.get("seed", 0)), uid
+        seed = int(attrs.get("seed", 0) or 0)
+        if attrs.get("fix_seed", False) or seed:
+            return seed, uid
         return self.seed_tensor, uid
-
-    def generator(self, attrs: Dict[str, Any]) -> torch.Generator:
-        uid = int(attrs.get("fwd_uid", attrs.get("op_uid", 0)))
-        seed = int(attrs.get("seed", 0) or self.seed)
-        g = torch.Generator(device=self.device)
-        # fold the uid into the seed (splitmix-style odd multiplier) so
-        # every op of one step draws an independent stream
-        g.manual_seed((seed * 0x9E3779B97F4A7C15 + uid) % (2 ** 63))
-        return g
 
 
 class OpInfo:

@@ -10,7 +10,8 @@ parameters (those with `need_clip` False left out), then per parameter
 the coupled weight decay, then the kernel.
 
   * `SGD`, `Momentum`, `Adam`, `AdamW` (decoupled decay: the adamw
-    kernel's `coeff`), `Lamb` (the lamb kernel's own decay);
+    kernel's `coeff`), `Lamb` (the lamb kernel's own decay), `Adamax`,
+    `Adagrad`, `Adadelta` and `RMSProp`;
   * `weight_decay`: a float or `L2Decay` adds coeff * param to the
     gradient, `L1Decay` coeff * sign(param) (the JAX package applies an
     L1Decay as an L2 one);
@@ -21,16 +22,15 @@ the coupled weight decay, then the kernel.
   * accumulators are fp32 tensors on the parameter's device, kept per
     parameter under its Paddle name (`param.paddle_name`);
     `state_dict()` / `set_state_dict()` key them `{name}_{accumulator}`
-    (moment1, moment2, beta1_pow, beta2_pow, velocity) beside
-    "LR_Scheduler", as the JAX package does.
+    (moment1, moment2, beta1_pow, beta2_pow, velocity, moment, inf_norm,
+    avg_squared_grad, avg_squared_update, mean_square, mean_grad,
+    momentum_acc) beside "LR_Scheduler", as the JAX package does.
 
 AdamW accepts and ignores `apply_decay_param_fun` and decays every
 parameter, as the JAX package does (`:248-256`; ROADMAP.md Queue 3).
 The optimizer takes the eager place when it is built (CUDAPlace(0) unless
 a `dygraph.guard(place)` says otherwise; it raises without a GPU) and
-refuses parameters on another device.  Adamax, Adagrad, Adadelta and
-RMSProp have no ported kernel yet: they raise (ROADMAP.md Queue 1,
-Training breadth).
+refuses parameters on another device.
 """
 from __future__ import annotations
 
@@ -143,8 +143,7 @@ class Optimizer:
     def step(self):
         if self._op_type is None:
             raise NotImplementedError(
-                f"{type(self).__name__} has no ported kernel yet "
-                "(ROADMAP.md Queue 1, Training breadth)")
+                f"{type(self).__name__} names no optimizer kernel")
         lr = torch.full((1,), self.get_lr(), dtype=torch.float32,
                         device=self._device)
         ctx = OpContext(device=self._device)
@@ -229,10 +228,8 @@ class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, name=None):
-        if lazy_mode:
-            raise NotImplementedError(
-                "Adam(lazy_mode=True) needs sparse gradients "
-                "(ROADMAP.md Queue 1, Training breadth)")
+        # dygraph gradients are dense, so lazy_mode changes nothing (the
+        # JAX package accepts and ignores it too)
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, beta1=beta1, beta2=beta2, epsilon=epsilon)
 
@@ -270,26 +267,58 @@ class Lamb(Adam):
         self._attrs["weight_decay"] = float(lamb_weight_decay)
 
 
-class _NotPorted(Optimizer):
-    """An optimizer whose kernel is not ported: building it raises."""
+class Adamax(Optimizer):
+    _op_type = "adamax"
+    _accums = (("Moment", "moment", 0.0, False),
+               ("InfNorm", "inf_norm", 0.0, False),
+               ("Beta1Pow", "beta1_pow", None, True))
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"paddle.optimizer.{type(self).__name__} has no ported kernel "
-            "yet (ROADMAP.md Queue 1, Training breadth)")
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, beta1=beta1, beta2=beta2, epsilon=epsilon)
 
-
-class Adamax(_NotPorted):
-    pass
-
-
-class Adagrad(_NotPorted):
-    pass
-
-
-class Adadelta(_NotPorted):
-    pass
+    def _fill(self, key, fill):
+        # the beta1 pow accumulator starts at beta1
+        return self._attrs["beta1"] if fill is None else fill
 
 
-class RMSProp(_NotPorted):
-    pass
+class Adagrad(Optimizer):
+    _op_type = "adagrad"
+    _accums = (("Moment", "moment", 0.0, False),)
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, epsilon=epsilon)
+        if initial_accumulator_value:
+            self._accums = (("Moment", "moment",
+                             initial_accumulator_value, False),)
+
+
+class Adadelta(Optimizer):
+    _op_type = "adadelta"
+    _accums = (("AvgSquaredGrad", "avg_squared_grad", 0.0, False),
+               ("AvgSquaredUpdate", "avg_squared_update", 0.0, False))
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, epsilon=epsilon, rho=rho)
+
+
+class RMSProp(Optimizer):
+    _op_type = "rmsprop"
+    _accums = (("MeanSquare", "mean_square", 0.0, False),
+               ("MeanGrad", "mean_grad", 0.0, False),
+               ("Moment", "momentum_acc", 0.0, False))
+
+    def __init__(self, learning_rate=0.001, rho=0.95, epsilon=1e-6,
+                 momentum=0.0, centered=False, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, decay=rho, epsilon=epsilon, momentum=momentum,
+                         centered=centered)

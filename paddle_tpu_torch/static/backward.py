@@ -8,8 +8,18 @@ feeds several ops with a `sum` op.  The rewrite is the same as the JAX
 package's, so a training program built here serializes equal to one
 built there.
 
-Not ported yet: recompute (`checkpoints=`, FLAGS_recompute), which raises
-NotImplementedError and comes with a later slice (ROADMAP.md).
+Recompute: `checkpoints=` (a list of vars or names) routes the backward
+through static/recompute_rewrite.py; with `checkpoints=None`,
+FLAGS_recompute="always" checkpoints every transformer layer boundary
+(`memory_analysis.select_layer_checkpoints`), and `checkpoints=[]` forces
+the plain backward whatever the flag says.  FLAGS_recompute="auto"
+(rewrite only when the predicted peak exceeds the HBM budget) needs the
+liveness walk of ROADMAP.md Queue 1, "Analysis and planner tiers", and
+raises.
+
+One difference from the JAX package: `gradients(target_gradients=...)`
+seeds the backward with the given gradient; the JAX package accepts the
+argument and seeds ones (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -60,21 +70,33 @@ def _find_loss_op_idx(block: Block, loss_name: str) -> int:
     raise ValueError(f"loss var {loss_name!r} is not produced in this block")
 
 
+def _auto_remat_checkpoints(program: Program):
+    """FLAGS_recompute's checkpoints (None = the plain backward):
+    "always" picks every transformer layer boundary; "auto" raises."""
+    from ..core.flags import flag
+    mode = str(flag("recompute", "") or "").strip().lower()
+    if mode in ("", "0", "off", "false", "none"):
+        return None
+    if mode == "auto":
+        raise NotImplementedError(
+            "FLAGS_recompute=\"auto\" rewrites only when the predicted peak "
+            "exceeds the HBM budget; that needs analyze_program, not ported "
+            "yet (ROADMAP.md Queue 1, Analysis and planner tiers): use "
+            "\"always\" or checkpoints=")
+    from .memory_analysis import select_layer_checkpoints
+    return select_layer_checkpoints(program) or None
+
+
 def append_backward(loss, parameter_list=None, no_grad_set=None,
-                    callbacks=None, checkpoints=None):
+                    callbacks=None, checkpoints=None, _seed=None):
     """Append grad ops for `loss` to its program; returns
     [(param VarDesc, grad VarDesc)].
 
-    `checkpoints` (recompute) is not ported: a non-empty list, or
-    FLAGS_recompute set, raises NotImplementedError."""
-    from ..core.flags import flag
-    recompute = str(flag("recompute", "") or "").strip().lower()
-    if checkpoints or (checkpoints is None and recompute not in
-                       ("", "0", "off", "false", "none")):
-        raise NotImplementedError(
-            "append_backward with recompute (checkpoints= or "
-            "FLAGS_recompute) comes with a later slice of the port "
-            "(ROADMAP.md)")
+    `checkpoints`: vars (or names) to segment the forward at for
+    recompute (static/recompute_rewrite.py).  With None, FLAGS_recompute
+    decides ("always": every layer boundary); [] forces the plain
+    backward.  `_seed`: a var holding d loss (gradients()'
+    target_gradients) instead of ones."""
     block = loss.block
     if block is None:
         from ..core.program import default_main_program
@@ -82,6 +104,13 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     program: Program = block.program
     loss_name = loss.name
     no_grad = set(no_grad_set or ())
+
+    if checkpoints is None:
+        checkpoints = _auto_remat_checkpoints(program)
+    if checkpoints:
+        from .recompute_rewrite import append_backward_with_checkpoints
+        return append_backward_with_checkpoints(
+            block, loss, parameter_list, no_grad, checkpoints, seed=_seed)
 
     loss_idx = _find_loss_op_idx(block, loss_name)
     fwd_ops = block.ops[: loss_idx + 1]
@@ -91,21 +120,29 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     block.ops[loss_idx].attrs[OpRole.KEY] = int(OpRole.Forward | OpRole.Loss)
 
     with program._op_role_guard(OpRole.Backward):
-        # seed: d loss / d loss = 1
+        # seed: d loss / d loss = 1 (or the given target gradient)
         g_loss = block.create_var(
             name=grad_var_name(loss_name), shape=loss.shape,
             dtype=loss.dtype, stop_gradient=True)
-        if loss.shape is not None and all(d is not None and d >= 0
-                                          for d in loss.shape):
+        static_shape = (loss.shape is not None
+                        and all(d is not None and d >= 0
+                                for d in loss.shape))
+        if _seed is not None:
+            block.append_op("assign", inputs={"X": [_seed.name]},
+                            outputs={"Out": g_loss},
+                            attrs={OpRole.KEY: OpRole.Backward})
+        elif static_shape:
             block.append_op(
                 "fill_constant", outputs={"Out": g_loss},
                 attrs={"shape": list(loss.shape), "dtype": loss.dtype,
                        "value": 1.0, OpRole.KEY: OpRole.Backward})
         else:
-            raise NotImplementedError(
-                f"append_backward: loss {loss_name!r} has a dynamic shape "
-                f"{loss.shape}; seeding it needs fill_any_like, not ported "
-                "yet")
+            # a target with a dynamic batch dim (gradients() on an
+            # intermediate var): seed ones at the runtime shape
+            block.append_op(
+                "fill_any_like", inputs={"X": [loss_name]},
+                outputs={"Out": g_loss},
+                attrs={"value": 1.0, OpRole.KEY: OpRole.Backward})
 
         # pending grad pieces per var: var -> [grad piece names]
         pending: Dict[str, List[str]] = {loss_name: [g_loss.name]}
@@ -201,15 +238,23 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
 
 
 def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
-    """fluid.gradients: grads of one target w.r.t. arbitrary inputs."""
+    """fluid.gradients: grads of one target w.r.t. arbitrary inputs;
+    `target_gradients` (a var, or a one-element list) seeds d target
+    instead of ones."""
     targets = targets if isinstance(targets, (list, tuple)) else [targets]
     inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
     if len(targets) != 1:
         raise ValueError("gradients(): a single target is supported")
+    seed = None
     if target_gradients is not None:
-        raise NotImplementedError("gradients(target_gradients=...) is not "
-                                  "ported yet")
-    append_backward(targets[0], parameter_list=None, no_grad_set=no_grad_set)
+        tg = target_gradients if isinstance(target_gradients,
+                                            (list, tuple)) \
+            else [target_gradients]
+        if len(tg) != 1:
+            raise ValueError("gradients(): one target gradient per target")
+        seed = tg[0]
+    append_backward(targets[0], parameter_list=None, no_grad_set=no_grad_set,
+                    _seed=seed)
     block = targets[0].block
     program = block.program
     outs = []

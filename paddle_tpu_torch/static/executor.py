@@ -37,10 +37,16 @@ per-step batch size captures a new one (no feed bucketing).  The step
 seed is a one-element device buffer the graph reads (the dropout kernel
 takes it by pointer), refilled before each replay with the seed of that
 step in the walk of K `run()` calls, so a replayed step draws the masks
-of the same step run eagerly.  The random initializers
-(`uniform_random`, `gaussian_random`) draw from a host-seeded
-torch.Generator, which a capture would freeze: run_steps refuses them on
-CUDA.
+of the same step run eagerly; so do the random ops (`uniform_random`,
+`gaussian_random`, dpsgd's noise), whose Philox kernel reads the same
+buffer.
+
+A value of the environment need not be a tensor: the `is_sparse`
+embedding's gradient is a SelectedRows (core/selected_rows.py), carried
+and released by name like any other.  A step may bind one tensor to two
+persistable names (`assign` returns its input); the capture gives each
+name a buffer of its own, and the in-place writes of a captured step
+copy a value that is another name's buffer before any write.
 
 Not ported yet: CompiledProgram dispatch, checkpoint hooks, per-step
 telemetry (later slices, ROADMAP.md).
@@ -200,12 +206,6 @@ def _run_ops(ops, plan, env, ctx):
             env.pop(n, None)
 
 
-# ops that draw from OpContext.generator, whose seed is a host integer per
-# step: a CUDA graph would replay the captured step's draws every time
-# (dropout reads the step seed from a device buffer and is not one)
-_RANDOM_OPS = frozenset({"uniform_random", "gaussian_random"})
-
-
 class _StepGraph:
     """One captured step: the CUDA graph, the static per-step feed buffers
     and the step-seed buffer it reads, the persistable buffers it reads
@@ -285,8 +285,8 @@ class Executor:
         scope ends holding the state after the K-th step, and the per-step
         seeds follow the walk of K `run()` calls.  On the CPU this loops
         over `run()`; on CUDA one captured step (a CUDA graph) is replayed
-        K times, and a program with a random initializer op is refused
-        there (dropout replays, each step with its own seed).
+        K times, each step drawing with its own seed (dropout, the random
+        ops).
         FLAGS_check_nan_inf raises after the K steps on a non-finite fetch
         or persistable."""
         program = program if program is not None else default_main_program()
@@ -350,13 +350,6 @@ class Executor:
 
     def _replay_steps(self, program, stacked, k, fetch_names, scope):
         block = program.global_block()
-        random_ops = sorted({op.type for op in block.ops} & _RANDOM_OPS)
-        if random_ops:
-            raise NotImplementedError(
-                f"run_steps cannot capture {random_ops} on CUDA: the "
-                "initializers draw from a host-seeded torch.Generator, "
-                "which a CUDA graph would freeze (a graph-safe RNG for them "
-                "is ROADMAP.md Queue 1, Training breadth); run the steps with run()")
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
         # the flags are part of the key: one read while the ops run

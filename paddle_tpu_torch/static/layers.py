@@ -22,7 +22,8 @@ from .param_attr import ParamAttr
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "softmax", "matmul", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
-           "elementwise_max", "reduce_sum", "relu", "sqrt", "square",
+           "elementwise_max", "elementwise_mod", "equal", "assign",
+           "ones_like", "uniform_random", "gaussian_random", "reduce_sum", "relu", "sqrt", "square",
            "clip", "clip_by_norm", "sums", "reshape", "transpose", "scale",
            "fill_constant", "softmax_with_cross_entropy", "label_smooth",
            "one_hot", "mean", "cast", "create_global_var", "_binary_op"]
@@ -297,6 +298,58 @@ elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
+elementwise_mod = _make_elementwise("elementwise_mod")
+
+
+def equal(x, y, cond=None, axis=-1, name=None):
+    if cond is None:
+        return _binary_op("equal", x, y, axis=axis)
+    helper = LayerHelper("equal", name=name)
+    helper.append_op("equal", inputs={"X": x, "Y": y},
+                     outputs={"Out": cond}, attrs={"axis": axis})
+    return cond
+
+
+def assign(input, output=None):
+    """Out = input (a var; array constants need assign_value, not
+    ported)."""
+    if not isinstance(input, VarDesc):
+        raise TypeError("assign of an array constant needs assign_value, "
+                        "not ported yet")
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("assign", inputs={"X": input}, outputs={"Out": output})
+    return output
+
+
+def ones_like(x, out=None, name=None):
+    helper = LayerHelper("fill_any_like", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_any_like", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"value": 1.0, "dtype": x.dtype})
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0,
+                   name=None):
+    helper = LayerHelper("uniform_random", name=name)
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("uniform_random", outputs={"Out": out},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "min": min, "max": max, "seed": seed})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
+                    name=None):
+    helper = LayerHelper("gaussian_random", name=name)
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("gaussian_random", outputs={"Out": out},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "mean": mean, "std": std, "seed": seed})
+    return out
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):

@@ -10,8 +10,10 @@ the 16-bit split-D wgmma forward, dQ and dK/dV, and from 256 up the fp32
 3xTF32 split-D forward, dQ and dK/dV), the GPU Predictor against the
 CPU one, the paged KV pool and the generation engine on the card, a training step on the GPU against the same step on the CPU,
 `Executor.run_steps` (CUDA-graph replay of the step) against eager
-`run()` steps, the dropout kernel (csrc/dropout_philox.cu) against
+`run()` steps (sparse SGD and lazy Adam too), the dropout kernel (csrc/dropout_philox.cu) against
 its plain version, bit for bit, alone and replayed in a captured step,
+the random kernel (csrc/philox_random.cu) against its plain version
+(uniform bit for bit, normal within 4 ulps) and under run_steps,
 and the dygraph training path: backward through the flash kernels from a
 MultiHeadAttention (fp32 and bf16, D = 64) against the same module on the
 CPU, F.cross_entropy through the fused kernel and its gradient against
@@ -700,21 +702,140 @@ def test_run_steps_interleaved_with_run_trains_current_weights():
 
 
 def test_run_steps_refuses_random_ops():
-    """A program that draws random numbers (the startup program's
-    uniform_random) is refused on CUDA, not run eagerly."""
+    """A program that draws random numbers is no longer refused on CUDA:
+    the startup program's uniform_random runs under run_steps through the
+    Philox kernel (its seed read from the step seed buffer), each replay
+    draws anew, and the draws equal eager run() calls for the same step
+    seeds bit for bit."""
     _need_cuda()
     from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import random as trandom
     from paddle_tpu_torch.static import layers
     main, startup = static.Program(), static.Program()
+    startup.random_seed = 7
     with static.program_guard(main, startup):
         x = layers.data("x", [-1, 4])
         layers.fc(x, 2)
-    exe = static.Executor()
+    w = next(p.name for p in main.all_parameters() if p.shape == (4, 2))
+    feed = {"x": np.zeros((3, 2, 4), np.float32)}
+    exe, eager = static.Executor(), []
     with static.scope_guard(static.Scope()):
-        with pytest.raises(NotImplementedError, match="graph-safe RNG"):
-            exe.run_steps(startup, feed={"x": np.zeros((2, 3, 4),
-                                                       np.float32)})
-    assert exe.cache_stats()["traces"] == 0
+        for i in range(3):
+            exe.run(startup, feed={"x": feed["x"][i]})
+            eager.append(static.global_scope().vars[w].clone())
+    exe2 = static.Executor()
+    before = trandom.random_cuda.launches
+    with static.scope_guard(static.Scope()):
+        (got,) = exe2.run_steps(startup, feed=feed, fetch_list=[w])
+    assert trandom.random_cuda.launches > before
+    assert exe2.cache_stats()["traces"] == 1
+    np.testing.assert_array_equal(got, torch.stack(eager).cpu().numpy())
+    assert not np.array_equal(got[0], got[1])
+    exe2.close()
+
+
+def _sparse_embedding_program(make_opt):
+    """A 64-row `is_sparse` embedding under a mean-pooled fc, trained by
+    `make_opt(static)`; (main, startup, loss)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.static import layers
+    _reset_unique_names()
+    main, startup = static.Program(), static.Program()
+    startup.random_seed = 5
+    with static.program_guard(main, startup):
+        ids = layers.data("ids", [-1, 16], dtype="int64")
+        y = layers.data("y", [-1, 1])
+        emb = layers.embedding(ids, size=[64, 32], is_sparse=True)
+        pred = layers.fc(layers.scale(layers.reduce_sum(emb, dim=1),
+                                      1.0 / 16), size=1)
+        loss = layers.mean(layers.square(layers.elementwise_sub(pred, y)))
+        make_opt(static).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("opt", ["sgd", "lazy_adam"])
+def test_run_steps_sparse_update_matches_run(opt):
+    """Sparse SGD and Adam(lazy_mode=True) under run_steps (the capturing
+    call, K = 4, ids with duplicates) against 4 eager run() steps from the
+    same weights: the losses and every persistable bit for bit.  The
+    capture's warm-up step changes no state, so the embedding trains 4
+    times, not 5."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    make = {"sgd": lambda s: s.SGD(0.5),
+            "lazy_adam": lambda s: s.Adam(0.05, lazy_mode=True)}[opt]
+    main, startup, loss = _sparse_embedding_program(make)
+    with static.scope_guard(static.Scope()):
+        static.Executor().run(startup)
+        init = {n: t for n, t in static.global_scope().vars.items()
+                if t is not None}
+    rng = np.random.RandomState(3)
+    k = 4
+    feed = {"ids": rng.randint(0, 64, (k, 8, 16)).astype(np.int64),
+            "y": rng.rand(k, 8, 1).astype(np.float32)}
+
+    def scope_of_init():
+        scope = static.Scope()
+        for n, t in init.items():
+            scope.set(n, t.clone())
+        return scope
+    exe, eager_scope = static.Executor(), scope_of_init()
+    with static.scope_guard(eager_scope):
+        want = [float(exe.run(main, feed={n: v[i] for n, v in feed.items()},
+                              fetch_list=[loss])[0]) for i in range(k)]
+    exe2, scope = static.Executor(), scope_of_init()
+    with static.scope_guard(scope):
+        (got,) = exe2.run_steps(main, feed=feed, fetch_list=[loss])
+    assert exe2.cache_stats()["traces"] == 1
+    np.testing.assert_array_equal(np.asarray(got, np.float32).reshape(-1),
+                                  np.asarray(want, np.float32))
+    for n, t in eager_scope.vars.items():
+        if t is not None:
+            assert torch.equal(scope.vars[n], t), n
+    exe2.close()
+
+
+@pytest.mark.parametrize("n", [30522 * 768, 1000003, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_philox_random_kernel_matches_plain_version(n, dtype):
+    """The uniform equal to the plain version bit for bit; the normal
+    within 4 ulps of the output dtype (the card's logf / sincosf against
+    the CPU's log / cos / sin), from a device seed and a host seed."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import random as trandom
+    seed_t = torch.tensor([987654321], dtype=torch.int64, device="cuda")
+    for seed in (seed_t, 12345):
+        for dist, a, b in ((trandom.UNIFORM, -0.25, 0.75),
+                           (trandom.NORMAL, 0.0, 0.02)):
+            before = trandom.random_cuda.launches
+            got = trandom.random_draw((n,), dtype, dist, a, b, seed, 17,
+                                      "cuda")
+            assert trandom.random_cuda.launches == before + 1
+            want = trandom.random_plain((n,), dtype, dist, a, b,
+                                        seed.cpu() if torch.is_tensor(seed)
+                                        else seed, 17)
+            got = got.cpu()
+            if dist == trandom.UNIFORM:
+                assert torch.equal(got, want)
+            else:
+                ulp = torch.finfo(dtype).eps * torch.maximum(
+                    want.float().abs(), torch.tensor(b))
+                assert ((got.float() - want.float()).abs()
+                        <= 4 * ulp).all()
+
+
+def test_philox_random_wrong_seed_and_no_fallback():
+    _need_cuda()
+    from paddle_tpu_torch.ops import random as trandom
+    with pytest.raises(ValueError, match="one-element int64 seed"):
+        trandom.random_cuda((8,), torch.float32, trandom.UNIFORM, 0.0, 1.0,
+                            torch.tensor([1], dtype=torch.int32,
+                                         device="cuda"), 0, "cuda")
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        trandom.random_cuda((8,), torch.float64, trandom.UNIFORM, 0.0, 1.0,
+                            1, 0, "cuda")
 
 
 def test_run_steps_failing_capture_raises(monkeypatch):
@@ -1587,12 +1708,14 @@ def test_spec_and_int8_engines_on_card():
 
 
 def test_spec_engine_rollback_on_card():
-    """A draft with its own weights on the card: its proposals part from
-    the target's chain, so rejected columns are truncated from the pages
-    and the draft rolls back.  Over fp32 pages the replies equal the plain
-    engine's; over int8 pages with int8 weights (requantize after a
-    truncate) the replies are well formed, nothing clips, both pools
-    drained."""
+    """A draft with its own weights on the card, its block weights doubled
+    (as chip_smoke.py phase 11's own draft: at the init scale a random
+    GPT's draft copies its target's chain and can guess every proposal):
+    its proposals part from the target's chain, so rejected columns are
+    truncated from the pages and the draft rolls back.  Over fp32 pages
+    the replies equal the plain engine's; over int8 pages with int8
+    weights (requantize after a truncate) the replies are well formed,
+    nothing clips, both pools drained."""
     _need_cuda()
     from paddle_tpu_torch import dygraph
     from paddle_tpu_torch.core import generator
@@ -1623,7 +1746,12 @@ def test_spec_engine_rollback_on_card():
     _, plain = serve(kv_pool=dict(plan))
     for p8 in (dict(plan), dict(plan, kv_dtype="int8", weight_dtype="int8")):
         rb0 = metrics.counter("spec.rollback_cols")
-        spec = SpeculativeDecoder(stamp_draft(m, 2, copy_weights=False), k=4)
+        draft = stamp_draft(m, 2, copy_weights=False)
+        with torch.no_grad():
+            for p in draft.gpt.blocks.parameters():
+                if p.dim() == 2:
+                    p.mul_(2.0)
+        spec = SpeculativeDecoder(draft, k=4)
         eng, outs = serve(kv_pool=p8, speculative=spec)
         assert metrics.counter("spec.rollback_cols") > rb0
         assert spec.open_slots == 0

@@ -421,9 +421,12 @@ def test_optimizer_state_dict_matches_jax(name):
 def test_optimizers_without_kernel_raise_and_lr_api():
     _, tm = _mlp_pair()
     with tdg.guard(CPUPlace()):
-        for cls in (topt.Adamax, topt.Adagrad, topt.Adadelta, topt.RMSProp):
-            with pytest.raises(NotImplementedError, match="Queue 1, Training breadth"):
-                cls(parameters=tm.parameters())
+        # each names its ported kernel (tests/test_torch_optimizer_breadth
+        # .py holds them against the JAX package)
+        for cls, op in ((topt.Adamax, "adamax"), (topt.Adagrad, "adagrad"),
+                        (topt.Adadelta, "adadelta"),
+                        (topt.RMSProp, "rmsprop")):
+            assert cls(parameters=tm.parameters())._op_type == op
         with pytest.raises(ValueError, match="parameters"):
             topt.SGD(0.1)
         o = topt.SGD(0.1, parameters=tm.parameters())

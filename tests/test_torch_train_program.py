@@ -81,13 +81,27 @@ def test_bench_op_counts():
 
 
 def test_recompute_is_refused():
+    """Only FLAGS_recompute="auto" is refused (it needs the HBM liveness
+    walk of ROADMAP Queue 1, Analysis and planner tiers); checkpoints=
+    and Adam(lazy_mode=True) build (tests/test_torch_recompute.py and
+    tests/test_torch_sparse.py hold them against the JAX package)."""
     from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.static import layers
     main, startup = static.Program(), static.Program()
     with static.program_guard(main, startup):
         x = layers.data("x", [-1, 4])
-        loss = layers.mean(layers.fc(x, 1))
-        with pytest.raises(NotImplementedError, match="later slice"):
-            static.append_backward(loss, checkpoints=["x"])
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        static.Adam(1e-3, lazy_mode=True)
+        h = layers.layer_norm(layers.fc(x, 4), begin_norm_axis=1)
+        loss = layers.mean(layers.fc(h, 1))
+        set_flags({"recompute": "auto"})
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="Analysis and planner tiers"):
+                static.append_backward(loss)
+        finally:
+            set_flags({"recompute": ""})
+        pg = static.append_backward(loss, checkpoints=[h])
+    assert pg and "optimization_barrier" not in \
+        [op.type for op in main.global_block().ops]  # h's segment is fresh
+    opt = static.Adam(1e-3, lazy_mode=True)
+    assert opt._lazy_mode
