@@ -13,7 +13,8 @@ remainders: bf16 and PTQ-int8 /predict, a conv-bn-folded ResNet-50, and
 speculative and int8 /generate, and train BERT-base with the breadth of
 the training API (recompute, the other optimizers, EMA, ModelAverage,
 Lookahead, sparse embedding gradients, graph-safe random ops, static
-O2).
+O2), and train it data-parallel (fleet, CompiledProgram, DataParallel
+over gloo ranks, and NCCL at world size 1 with a captured step).
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -335,6 +336,43 @@ is present.  Phases:
                (e) amp.cast_model_to_fp16 on the bench program: 4 eager
                steps and one run_steps call, every flash and fused-CE
                launch bf16, losses finite.
+ 13. dp      - data parallel over torch.distributed, bench.py's step at
+               a global batch of 8.  2 ranks (paddle_tpu_torch.distributed
+               .spawn, both on cuda:0, gloo: NCCL refuses two ranks on one
+               device), each: (d) the collective API on CUDA tensors
+               (all_reduce sum / max / min / prod, broadcast, all_gather,
+               the c_reducescatter op, alltoall, barrier) equal to numpy;
+               (a) fleet.init(is_collective=True) + amp strategy (bf16,
+               the bench's loss scale) + distributed_optimizer(Adam) and
+               fleet.main_program (CompiledProgram.with_data_parallel), 3
+               Executor.run steps of the global batch from a startup of
+               seed + rank (the start broadcast makes rank 1 rank 0's),
+               sound, then with rank 1's gradients zeroed before their
+               allreduce (a planted fault); (c) phase 9's variant (c)
+               under DataParallel (scale_loss, apply_collective_grads), 3
+               steps of its half batch, with BERT's hidden dropout 0.1,
+               then every dropout 0, sound and with the planted fault.
+               Gates: the ranks' parameters bitwise equal after every
+               step; a rank-step's launches: 24 / 12 / 12 / 2 (static)
+               and 12 / 12 / 12 / 2 (dygraph) flash forward / dQ / dK/dV /
+               fused CE, all bf16, 25 dropouts with hidden dropout on,
+               else 0, no random draw; its collective calls: one
+               allreduce a gradient and one for the loss (and the start
+               broadcast in a static run's first step); step 1's mean
+               loss within DP_LOSS_RTOL and the update gap
+               (||update - update_ref|| / ||update_ref||) within
+               DP_UPDATE_TOL of one process at batch 8 from the same
+               start (every dropout 0), the fault's gap above it; each
+               rank's step ms and, in step 2 of (a), the collectives'
+               synchronised share.  Then (b) in this process under NCCL
+               at world 1: (d) again, and the static program through 2
+               eager steps and 2 run_steps calls of K = 4 (one captured
+               graph holding the NCCL allreduces): every loss bitwise the
+               plain Executor's, launches as the step implies (twice that
+               in the capturing call), the allreduces of each eager step,
+               the capture's warm-up and its captured step reaching the
+               NCCL group, none in the replaying call, the replayed step
+               ms beside phase 6's.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -360,6 +398,11 @@ its launches on each phase 10 path (`launches_on_baseline_paths`, all 0:
 those paths run no hand kernel); the random kernel's row after the
 dropout's: its times at [30522, 768] fp32 uniform, its launches on each
 phase 12 path (`launches_by_phase12_path`) and the other cases' times;
+every row its launches on phase 13's paths as counted there
+(`phase13_launches`: a rank-step of each run of (a) and (c), an eager
+step and the capturing call of (b), in the row's dtype; the random
+kernel's also at each path's start; the kernels for head dims above 128
+over each whole path);
 the last line
 {"ok": true, "device": {...}}.
 """
@@ -1775,6 +1818,9 @@ def count_kernels(prof, names):
             for name, sub in names.items()}, dev
 
 
+GRAPH_STEP_MS = {}  # config -> median replayed step ms (phase 6)
+
+
 def train_graph_phase(torch, seed):
     """(6) The training step through Executor.run_steps, one CUDA graph
     captured per configuration and replayed per step: AMP bf16 (K = 6)
@@ -1936,6 +1982,7 @@ def train_graph_config(torch, static, fx, seed, feed, use_amp, k):
                 f"call; expected {per} and {2 * per}")
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     steady = sorted(step_ms)[len(step_ms) // 2]
+    GRAPH_STEP_MS["amp" if use_amp else "fp32"] = steady
     tokens_s = TRAIN_BATCH * BERT["seq"] / (steady / 1e3)
     peak = "bfloat16" if use_amp else "float32"
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -2320,18 +2367,19 @@ def dygraph_batch(torch, seed):
         rng.randint(0, 2, (b,)).astype(np.int64)))
 
 
-def dygraph_model(seed, attn_dropout):
+def dygraph_model(seed, attn_dropout, hidden_dropout=0.1):
     """BertForPretraining(BertModel(BertConfig())) at the JAX package's
     defaults (google-research/bert base: hidden and attention dropout 0.1)
-    with the attention dropout given, weights from `seed`, on
-    CUDAPlace(0); and its criterion."""
+    with the dropouts given, weights from `seed`, on CUDAPlace(0); and its
+    criterion."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.core.program import _reset_unique_names
     from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
                                          BertModel, BertPretrainingCriterion)
     _reset_unique_names()
     paddle.seed(seed)
-    cfg = BertConfig(attention_probs_dropout_prob=attn_dropout)
+    cfg = BertConfig(attention_probs_dropout_prob=attn_dropout,
+                     hidden_dropout_prob=hidden_dropout)
     if (cfg.vocab_size, cfg.hidden_size, cfg.num_hidden_layers,
             cfg.num_attention_heads, cfg.max_position_embeddings) != (
             BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
@@ -4523,6 +4571,779 @@ def breadth_o2(torch, static, attn, fx, rnd, seed, feed):
     return res
 
 
+# phase 13: data-parallel training over torch.distributed, bench.py's
+# step at the global batch TRAIN_BATCH
+DP_RANKS = 2            # gloo ranks on the one card (NCCL refuses two)
+DP_STEPS = 3            # steps of each two-rank run and of its reference
+DP_EAGER, DP_K = 2, 4   # NCCL at world 1: eager steps, then run_steps K
+# step 1's mean loss against one process at batch TRAIN_BATCH (the
+# forward alone: nothing is updated yet).  The static fetch is fp32, the
+# mean over the ranks of two batch-4 losses; it matched the batch-8 loss
+# to the last bit on the card (PERF.md), so 1e-5 (about 80 ulps).  The
+# dygraph O2 loss is bf16: two rounded losses averaged against one, so
+# one bf16 ulp (at most 2^-7 of the value)
+DP_LOSS_RTOL = {"static": 1e-5, "dygraph": 2.0 ** -7}
+# the parameters' update over DP_STEPS steps against the reference's,
+# ||update - update_ref|| / ||update_ref||, a tolerance a path, set
+# between the sound run's reading and the planted fault's (one rank's
+# gradients zeroed before their allreduce, the ranks still in step),
+# which every run measures and requires above it.  On the card (PERF.md)
+# static reads 0.161 sound (Adam moves each element by about lr whatever
+# its gradient's size, so bf16 rounding flips the sign of the tiny
+# gradients' steps) and 0.873 faulted; dygraph (its lr warms up from 0,
+# AdamW, clip) 0.034 and 0.334
+DP_UPDATE_TOL = {"static": 0.4, "dygraph": 0.1}
+DP_AMP = {"init_loss_scaling": 1.0, "use_dynamic_loss_scaling": False,
+          "dtype": "bfloat16"}
+DP_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+              "fused_xent_fwd")
+# every hand kernel a phase 13 path may launch: the four above (counted
+# by dtype too), the dropout kernel and the random kernel
+DP_COUNTED = DP_KERNELS + ("dropout_philox", "philox_random")
+
+
+def dp_counters(attn, dr, fx, rnd):
+    return dict(zip(DP_COUNTED, (attn.flash_attention,
+                                 attn.flash_attention_bwd_dq_cuda,
+                                 attn.flash_attention_bwd_dkv_cuda,
+                                 fx.fused_xent_cuda, dr.dropout_cuda,
+                                 rnd.random_cuda)))
+
+
+def dp_zero(counters):
+    import collections
+    for name, c in counters.items():
+        c.launches = 0
+        if name in DP_KERNELS:
+            c.dtype_launches = collections.Counter()
+
+
+def dp_read(counters):
+    """The launches since dp_zero: {kernel: n}, and {kernel: {dtype: n}}
+    of DP_KERNELS."""
+    return ({n: c.launches for n, c in counters.items()},
+            {n: dict(counters[n].dtype_launches) for n in DP_KERNELS})
+
+
+def dp_want(dygraph=False, dropout=False):
+    """Launches a step on each rank: bench.py's static step 24 flash
+    forwards (12, and 12 replayed by the vjp), the dygraph step 12
+    (autograd keeps the forward's outputs); 12 dQ, 12 dK/dV, 2 fused CE,
+    every one bf16; DYGRAPH_HIDDEN_DROPOUTS dropouts where BERT's hidden
+    dropout is on (the static step has none); no random op."""
+    n = BERT["layers_n"]
+    return dict(zip(DP_COUNTED, (n if dygraph else 2 * n, n, n, 2,
+                                 DYGRAPH_HIDDEN_DROPOUTS if dropout else 0,
+                                 0)))
+
+
+def dp_check_launches(tag, launches, by_dtype, want):
+    check_equal(f"{tag} launches", launches, want)
+    check_equal(f"{tag} launches by dtype", by_dtype,
+                {n: {"bfloat16": want[n]} for n in DP_KERNELS})
+
+
+def dp_program():
+    """bench.py's step through fleet: bench_program's forward (flash on),
+    `fleet.init(is_collective=True)`, DistributedStrategy amp with the
+    bench's AMP settings (bf16, loss scale 1, not dynamic) and
+    `fleet.distributed_optimizer(Adam(1e-4), strategy).minimize(loss)`.
+    Returns (main, startup, loss, fleet.main_program: the
+    CompiledProgram)."""
+    import paddle_tpu_torch.distributed.fleet as fleet
+
+    def outer(static, opt):
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = True
+        strategy.amp_configs.update(DP_AMP)
+        return fleet.distributed_optimizer(opt, strategy)
+    main, startup, loss, _ = bench_program(lambda s: s.Adam(1e-4),
+                                           use_amp=False, outer=outer)
+    if fleet.applied_meta_list() != ["AMPOptimizer",
+                                     "GraphExecutionOptimizer"]:
+        raise AssertionError(f"fleet chose {fleet.applied_meta_list()}")
+    return main, startup, loss, fleet.main_program
+
+
+def dp_grad_allreduces(main, compiled):
+    """The rewritten program's gradient allreduces: one a parameter."""
+    n = sum(op.type == "c_allreduce_sum"
+            for op in compiled._get_program().global_block().ops)
+    check_equal("gradient allreduce ops", n, len(main.all_parameters()))
+    return n
+
+
+def dp_api(torch, device):
+    """(d) The collective API on `device` tensors over the default group:
+    all_reduce sum / max / min / prod, broadcast, all_gather,
+    reduce_scatter (the c_reducescatter op), alltoall and barrier, each
+    against numpy (small integers: every result exact).  Returns
+    {case: True}."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.ops.registry import OpContext, run_kernel
+    w, r = tdist.get_world_size(), tdist.get_rank()
+
+    def x_of(rank):
+        return np.arange(4 * w * 2, dtype=np.float32).reshape(4 * w, 2) \
+            + 10 * rank + 1
+
+    xs = [x_of(i) for i in range(w)]
+    out = {}
+
+    def check(case, got, want):
+        got = got.detach().float().cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{case} on {device} over {w} ranks: "
+                                 f"{got.tolist()} against {want.tolist()}")
+        out[case] = True
+
+    for op, fn in ((pdist.ReduceOp.SUM, np.sum), (pdist.ReduceOp.MAX,
+                                                   np.max),
+                   (pdist.ReduceOp.MIN, np.min), (pdist.ReduceOp.PROD,
+                                                  np.prod)):
+        t = torch.tensor(x_of(r)[:2], device=device)
+        pdist.all_reduce(t, op=op)
+        check(f"all_reduce_{op}", t, fn(np.stack([x[:2] for x in xs]),
+                                        axis=0))
+    t = torch.tensor(x_of(r), device=device)
+    pdist.broadcast(t, src=w - 1)
+    check("broadcast", t, xs[-1])
+    parts = []
+    pdist.all_gather(parts, torch.tensor(x_of(r), device=device))
+    check("all_gather", torch.stack(parts), np.stack(xs))
+    got = run_kernel("c_reducescatter",
+                     {"X": torch.tensor(x_of(r), device=device)}, {},
+                     OpContext(device=device))["Out"]
+    check("reduce_scatter", got, np.sum(xs, axis=0)[4 * r:4 * (r + 1)])
+    parts = []
+    pdist.alltoall([torch.tensor(x_of(r)[4 * j:4 * (j + 1)], device=device)
+                    for j in range(w)], parts)
+    check("alltoall", torch.cat(parts),
+          np.concatenate([x[4 * r:4 * (r + 1)] for x in xs]))
+    pdist.barrier()
+    out["barrier"] = True
+    return out
+
+
+def dp_tensors_differing(torch, tensors):
+    """Every rank's `tensors` against rank 0's (a broadcast), to the last
+    bit: the count of differing tensors summed over the ranks."""
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    group = kc.ring_group(0)
+    differ = sum(int(not torch.equal(kc.broadcast(t, 0, group), t))
+                 for t in tensors)
+    total = kc.all_reduce(torch.tensor([differ], device=tensors[0].device),
+                          "sum", group)
+    return int(total.item())
+
+
+def dp_rank(seed, out_dir, prepare=None):
+    """One rank of phases 13 (a), (c) and (d) (a `spawn` worker): a gloo
+    process group over the PADDLE_* contract, the collective API on CUDA
+    tensors, the static data-parallel runs, then the dygraph ones; writes
+    rank<r>.json and, on rank 0, the parameters after each run held
+    against one process.  `prepare()`, when given, runs first (a CPU
+    rehearsal patches the device there)."""
+    import torch
+    import torch.distributed as tdist
+    if prepare is not None:
+        prepare()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.core import kernel_build
+    kernel_build.build_libraries(KERNEL_SOURCES)  # the parent built them
+    env = pdist.init_parallel_env(backend="gloo")
+    try:
+        torch.cuda.set_device(env.device_id)
+        res = {"rank": env.rank, "world": env.world_size,
+               "device": torch.cuda.get_device_name(env.device_id),
+               "api": dp_api(torch, CARD)}
+        res["static"] = dp_static_rank(torch, seed, env.rank, out_dir)
+        torch.cuda.empty_cache()
+        res["dygraph"] = dp_dygraph_rank(torch, seed, env.rank, out_dir)
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_static_rank(torch, seed, rank, out_dir):
+    """(a) on one rank: a sound run (dp_static_run, step 2 with the
+    collectives timed), then one with rank 1's gradients zeroed before
+    their allreduce; rank 0 saves the parameters after each."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    fx.enable_fused_xent(True)
+    try:
+        main, startup, loss, compiled = dp_program()
+        params = [p.name for p in main.all_parameters()]
+        counters = dp_counters(attn, dr, fx, rnd)
+        torch.cuda.reset_peak_memory_stats()
+        zero_wide(attn)
+        out = {}
+        for run in ("sound", "fault"):
+            out[run], scope = dp_static_run(
+                torch, static, compiled, startup, loss, params, seed, rank,
+                counters, timed=run == "sound",
+                fault=run == "fault" and rank == 1)
+            if rank == 0:
+                torch.save({n: scope.vars[n].cpu() for n in params},
+                           os.path.join(out_dir, f"static_{run}.pt"))
+            del scope
+        out.update(wide=read_wide(attn),
+                   peak_gpu_mem_gb=torch.cuda.max_memory_allocated()
+                   / 2 ** 30,
+                   grad_allreduces=dp_grad_allreduces(main, compiled))
+    finally:
+        fx.enable_fused_xent(False)
+    return out
+
+
+def dp_static_run(torch, static, compiled, startup, loss, params, seed,
+                  rank, counters, timed=False, fault=False):
+    """DP_STEPS Executor.run steps of `compiled` (fleet.main_program) on
+    the global batch from a fresh scope, its startup drawn with
+    random_seed seed + rank (rank 1 starts elsewhere; the start broadcast
+    makes it rank 0's); after each step the launches, the collective
+    calls and the ranks' parameters compared bitwise.  `timed`: step 2
+    runs with the collectives synchronised and timed (the allreduce
+    share).  `fault`: this rank's gradients are zeroed before their
+    allreduce (the c_allreduce_sum kernel wrapped for the run).  Returns
+    (the record, the scope)."""
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from paddle_tpu_torch.ops.registry import get_op_info
+    from paddle_tpu_torch.static.executor import _persistable_names
+    feed = train_feed(seed)
+    startup.random_seed = seed + rank
+    exe, scope = static.Executor(), static.Scope()
+    dp_zero(counters)
+    with static.scope_guard(scope):
+        exe.run(startup)
+    torch.cuda.synchronize()
+    rec = {"philox_at_start": counters["philox_random"].launches,
+           "start_broadcasts": sum(
+               scope.get(n) is not None
+               for n in _persistable_names(compiled._get_program())),
+           "losses": [], "step_ms": [], "launches": [],
+           "launches_by_dtype": [], "collective_calls": [],
+           "tensors_differing_after_each_step": []}
+    info = get_op_info("c_allreduce_sum")
+    kernel = info.kernel
+    if fault:
+        info.kernel = lambda ins, attrs, ctx: kernel(
+            {**ins, "X": torch.zeros_like(ins["X"])}, attrs, ctx)
+    try:
+        with static.scope_guard(scope):
+            for i in range(DP_STEPS):
+                dp_zero(counters)
+                kc.reset_comm_stats()
+                kc.time_collectives(timed and i == 1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = exe.run(compiled, feed=feed, fetch_list=[loss])
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                kc.time_collectives(False)
+                if timed and i == 1:
+                    rec["allreduce"] = {
+                        "step_ms": rec["step_ms"][-1],
+                        "collective_ms": kc.COMM_STATS["seconds"] * 1e3,
+                        "calls": kc.COMM_STATS["calls"],
+                        "bytes": kc.COMM_STATS["bytes"]}
+                rec["collective_calls"].append(
+                    dict(kc.COMM_STATS["calls_by_kind"]))
+                launches, by_dtype = dp_read(counters)
+                rec["launches"].append(launches)
+                rec["launches_by_dtype"].append(by_dtype)
+                rec["losses"].append(float(np.asarray(out[0]).reshape(-1)[0]))
+                rec["tensors_differing_after_each_step"].append(
+                    dp_tensors_differing(torch,
+                                         [scope.vars[n] for n in params]))
+    finally:
+        info.kernel = kernel
+    return rec, scope
+
+
+def dp_dygraph_step(torch, model, crit, opt, scaler, batch, level,
+                    fault=False):
+    """One DataParallel step: the rank's loss over the world size
+    (scale_loss), the scaled backward, the gradients allreduced (zeroed
+    first with `fault`), then the GradScaler's unscale / step; returns
+    the mean loss over the ranks."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    ids, labels, nsp = batch
+    with amp.auto_cast(level=level):
+        loss = crit(*model(ids), labels, nsp)
+    scaler.scale(model.scale_loss(loss)).backward()
+    if fault:
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.zero_()
+    model.apply_collective_grads()
+    scaler.minimize(opt, loss)
+    opt.clear_grad()
+    opt._learning_rate.step()
+    group = kc.ring_group(0)
+    return kc.all_reduce(loss.detach().float(), "sum", group) \
+        / kc.world_of(group)
+
+
+# (c)'s runs: (name, BERT's hidden dropout); "dropout" is phase 9's
+# variant (c), whose masks no one process reproduces (both ranks draw
+# the same ones), "sound" and "fault" are held against one process
+DP_DYGRAPH_RUNS = (("dropout", 0.1), ("sound", 0.0), ("fault", 0.0))
+
+
+def dp_dygraph_rank(torch, seed, rank, out_dir):
+    """(c) on one rank: DP_DYGRAPH_RUNS (dp_dygraph_run), "fault" with
+    rank 1's gradients zeroed before apply_collective_grads; rank 0 saves
+    the parameters after "sound" and "fault"."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    import torch.distributed as tdist
+    w = tdist.get_world_size()
+    full = dygraph_batch(torch, seed)
+    n = TRAIN_BATCH // w
+    batch = tuple(t[rank * n:(rank + 1) * n] for t in full)
+    attn.enable_flash_attention(True)
+    fx.enable_fused_xent(True)
+    try:
+        counters = dp_counters(attn, dr, fx, rnd)
+        torch.cuda.reset_peak_memory_stats()
+        zero_wide(attn)
+        out = {}
+        for run, hidden in DP_DYGRAPH_RUNS:
+            out[run], params = dp_dygraph_run(
+                torch, seed, batch, counters, hidden,
+                fault=run == "fault" and rank == 1)
+            if rank == 0 and run != "dropout":
+                torch.save(params, os.path.join(out_dir, f"dygraph_{run}.pt"))
+            del params
+            torch.cuda.empty_cache()
+        out.update(wide=read_wide(attn),
+                   peak_gpu_mem_gb=torch.cuda.max_memory_allocated()
+                   / 2 ** 30)
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+        fx.enable_fused_xent(False)
+    return out
+
+
+def dp_dygraph_run(torch, seed, batch, counters, hidden_dropout,
+                   fault=False):
+    """DP_STEPS steps of phase 9's variant (c) (models.bert from --seed,
+    flash, O2, AdamW, GradScaler) at `hidden_dropout` under DataParallel
+    on the rank's half of the batch; after each step the launches, the
+    collective calls and the ranks' parameters compared bitwise.  Returns
+    (the record, the parameters on the host)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    dp_zero(counters)
+    net, crit = dygraph_model(seed, 0.0, hidden_dropout)
+    torch.cuda.synchronize()
+    rec = {"philox_at_start": counters["philox_random"].launches,
+           "trainable": sum(bool(p.requires_grad) for p in net.parameters()),
+           "losses": [], "step_ms": [], "launches": [],
+           "launches_by_dtype": [], "collective_calls": [],
+           "tensors_differing_after_each_step": []}
+    model = pdist.DataParallel(net)
+    opt = dygraph_optimizer(net)
+    scaler = amp.GradScaler()
+    net.train()
+    for _ in range(DP_STEPS):
+        dp_zero(counters)
+        kc.reset_comm_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = dp_dygraph_step(torch, model, crit, opt, scaler, batch, "O2",
+                               fault)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collective_calls"].append(dict(kc.COMM_STATS["calls_by_kind"]))
+        launches, by_dtype = dp_read(counters)
+        rec["launches"].append(launches)
+        rec["launches_by_dtype"].append(by_dtype)
+        rec["losses"].append(float(loss))
+        rec["tensors_differing_after_each_step"].append(dp_tensors_differing(
+            torch, [p.detach() for p in net.parameters()]))
+    return rec, {k: p.detach().cpu() for k, p in net.named_parameters()}
+
+
+def dp_update_gap(torch, before, got, want):
+    """||(got - before) - (want - before)|| / ||want - before|| over every
+    tensor of `want`, and the largest elementwise difference."""
+    num = den = 0.0
+    worst = 0.0
+    for n, w in want.items():
+        b = before[n].double().cpu()
+        g, w = got[n].double().cpu(), w.double().cpu()
+        num += float(((g - b) - (w - b)).pow(2).sum())
+        den += float((w - b).pow(2).sum())
+        worst = max(worst, float((g - w).abs().max()))
+    return (num / den) ** 0.5, worst
+
+
+def dp_check_run(tag, ranks, path, run, want, calls, at_start):
+    """One two-rank run's records: the ranks equal after each step and
+    fetching the same losses; the random kernel's launches at the run's
+    start `at_start`, each step's hand-kernel launches as `want` and its
+    collective calls as `calls(record, step)` on every rank."""
+    for r in ranks:
+        rec = r[path][run]
+        check_equal(f"{tag} rank {r['rank']} philox_random launches at "
+                    "the start", rec["philox_at_start"], at_start)
+        if any(rec["tensors_differing_after_each_step"]):
+            raise AssertionError(
+                f"{tag}: ranks differ after a step: "
+                f"{rec['tensors_differing_after_each_step']}")
+        for i, (got, by_dtype, c) in enumerate(zip(
+                rec["launches"], rec["launches_by_dtype"],
+                rec["collective_calls"])):
+            step = f"{tag} rank {r['rank']} step {i}"
+            dp_check_launches(step, got, by_dtype, want)
+            check_equal(f"{step} collective calls", c, calls(rec, i))
+    if [r[path][run]["losses"] for r in ranks][1:] != \
+            [ranks[0][path][run]["losses"]] * (len(ranks) - 1):
+        raise AssertionError(f"{tag}: the ranks fetched different losses")
+
+
+def dp_gate(torch, tag, kind, tmp, before, want, losses, ref_losses):
+    """A sound run within the tolerances of one process (step 1's loss,
+    the update gap) and the planted fault's gap above the latter.
+    Returns (step 1's relative loss difference, {run: (gap, max abs
+    parameter difference)})."""
+    gaps = {run: dp_update_gap(torch, before, torch.load(
+        os.path.join(tmp, f"{kind}_{run}.pt")), want)
+        for run in ("sound", "fault")}
+    rel = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    tol = DP_UPDATE_TOL[kind]
+    if not np.isfinite(losses).all() or not rel <= DP_LOSS_RTOL[kind] \
+            or not gaps["sound"][0] <= tol or not gaps["fault"][0] > tol:
+        raise AssertionError(
+            f"{tag} against one process: losses {losses} / {ref_losses} "
+            f"(step 1 rel {rel}, tolerance {DP_LOSS_RTOL[kind]}), update "
+            f"gap {gaps['sound'][0]} (tolerance {tol}), planted fault's "
+            f"gap {gaps['fault'][0]} (must exceed it)")
+    return rel, gaps
+
+
+def dp_path_launches(rec, step=-1):
+    """A path's launches for the kernels line: a step's (gated above)
+    and the random kernel's at the path's start."""
+    return {"launches": rec["launches"][step],
+            "by_dtype": rec["launches_by_dtype"][step],
+            "philox_at_start": rec["philox_at_start"]}
+
+
+def dp_phase(torch, seed, prepare=None):
+    """(13) Data parallel at BERT-base width, global batch TRAIN_BATCH:
+    (a) static (fleet + CompiledProgram) and (c) dygraph DataParallel on
+    DP_RANKS gloo ranks sharing the card, against one process at the
+    global batch; (d) the collective API on CUDA tensors on those ranks;
+    (b) the static step under NCCL at world 1, eager then run_steps.
+    Returns the records, with each path's launches."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pdist.spawn(dp_rank, args=(seed, tmp, prepare), nprocs=DP_RANKS,
+                    selected_devices=",".join(["0"] * DP_RANKS))
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log({"phase": "dp_api", "backend": "gloo", "ranks": DP_RANKS,
+             "device": CARD, "cases": ranks[0]["api"]})
+        static_rec = dp_static_check(torch, static, fx, rnd, seed, tmp,
+                                     ranks)
+        dygraph_rec = dp_dygraph_check(torch, attn, fx, seed, tmp, ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nccl, nccl_launches = dp_nccl(torch, static, attn, dr, fx, rnd, seed)
+    for path, rec in (("dp_static", static_rec), ("dp_dygraph", dygraph_rec)):
+        record_wide(path, rec["wide"])
+    log({"phase": "dp", "ranks_process_s": spawn_s})
+    r0 = ranks[0]
+    launches = {f"static_gloo_{run}": dp_path_launches(r0["static"][run])
+                for run in ("sound", "fault")}
+    launches.update({f"dygraph_gloo_{run}": dp_path_launches(
+        r0["dygraph"][run]) for run, _ in DP_DYGRAPH_RUNS})
+    launches.update(nccl_launches)
+    return {"static": static_rec, "dygraph": dygraph_rec, "nccl": nccl,
+            "launches": launches}
+
+
+def dp_static_check(torch, static, fx, rnd, seed, tmp, ranks):
+    """(a) gated: each run's records, then the sound run and the fault
+    against one process: the same program's plain main at the global
+    batch, DP_STEPS Executor.run steps from the startup of --seed (rank
+    0's)."""
+    n_ar = ranks[0]["static"]["grad_allreduces"]
+
+    def calls(rec, i):
+        """The gradients' and the loss fetch's allreduces, and in the
+        first step the start broadcast."""
+        c = {"all_reduce": n_ar + 1}
+        return {**c, "broadcast": rec["start_broadcasts"]} if i == 0 else c
+    main, startup, loss, compiled = dp_program()
+    n_random = sum(op.type in ("uniform_random", "gaussian_random")
+                   for op in startup.global_block().ops)
+    for run in ("sound", "fault"):
+        dp_check_run(f"static data parallel ({run})", ranks, "static", run,
+                     dp_want(), calls, n_random)
+    plain = compiled._program
+    fx.enable_fused_xent(True)
+    try:
+        init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+        feed = train_feed(seed)
+        losses, scope, ms, _ = eager_run(torch, static, plain, loss, init,
+                                         feed, DP_STEPS)
+    finally:
+        fx.enable_fused_xent(False)
+    want = {p.name: scope.vars[p.name] for p in main.all_parameters()}
+    dp = ranks[0]["static"]["sound"]
+    rel, gaps = dp_gate(torch, "static data parallel", "static", tmp, init,
+                        want, dp["losses"], losses)
+    for r in ranks:
+        a = r["static"]["sound"]["allreduce"]
+        a["share_of_step"] = a["collective_ms"] / a["step_ms"]
+    res = {"config": "bert-base pretrain, fleet amp (bf16) + Adam 1e-4, "
+                     "flash + fused CE, CompiledProgram.with_data_"
+                     f"parallel over {DP_RANKS} gloo ranks on one card",
+           "global_batch": TRAIN_BATCH, "losses": dp["losses"],
+           "single_process_losses": losses, "step1_loss_rel_diff": rel,
+           "update_gap": gaps["sound"][0],
+           "param_max_abs_diff": gaps["sound"][1],
+           "fault_losses": ranks[0]["static"]["fault"]["losses"],
+           "fault_update_gap": gaps["fault"][0],
+           "fault_param_max_abs_diff": gaps["fault"][1],
+           "single_process_step_ms": ms,
+           "step_ms_by_rank": [r["static"]["sound"]["step_ms"]
+                               for r in ranks],
+           "allreduce_by_rank": [r["static"]["sound"]["allreduce"]
+                                 for r in ranks],
+           "collective_calls_per_step": dp["collective_calls"],
+           "peak_gpu_mem_gb_by_rank": [r["static"]["peak_gpu_mem_gb"]
+                                       for r in ranks],
+           "launches_per_step": dp["launches"][-1],
+           "philox_startup_launches": dp["philox_at_start"],
+           "ranks_bitwise_equal_after_each_step": True,
+           "wide": ranks[0]["static"]["wide"]}
+    log({"phase": "dp_static", **res})
+    return res
+
+
+def dp_dygraph_check(torch, attn, fx, seed, tmp, ranks):
+    """(c) gated: each run's records, then "sound" and "fault" against
+    one process: the same model (every dropout 0), optimizer and scaler
+    at the global batch, DP_STEPS steps."""
+    from paddle_tpu_torch import amp
+
+    def calls(rec, i):
+        """The gradients' and the loss's allreduces."""
+        return {"all_reduce": rec["trainable"] + 1}
+    # the model's initializers draw through the random kernel
+    at_start = ranks[0]["dygraph"]["dropout"]["philox_at_start"]
+    if not at_start > 0:
+        raise AssertionError("dygraph DataParallel: the model's build "
+                             "launched no philox_random")
+    for run, hidden in DP_DYGRAPH_RUNS:
+        dp_check_run(f"dygraph DataParallel ({run})", ranks, "dygraph", run,
+                     dp_want(dygraph=True, dropout=hidden > 0), calls,
+                     at_start)
+    batch = dygraph_batch(torch, seed)
+    attn.enable_flash_attention(True)
+    fx.enable_fused_xent(True)
+    try:
+        net, crit = dygraph_model(seed, 0.0, 0.0)
+        before = {k: p.detach().clone() for k, p in net.named_parameters()}
+        opt = dygraph_optimizer(net)
+        scaler = amp.GradScaler()
+        net.train()
+        losses, ms = [], []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(dygraph_step(net, crit, opt, scaler, batch,
+                                             "O2").detach()))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        want = {k: p.detach() for k, p in net.named_parameters()}
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+        fx.enable_fused_xent(False)
+    dp = ranks[0]["dygraph"]["sound"]
+    rel, gaps = dp_gate(torch, "dygraph DataParallel", "dygraph", tmp, before,
+                        want, dp["losses"], losses)
+    res = {"config": "BertForPretraining (bert-base), flash, auto_cast O2, "
+                     "AdamW + GradScaler, DataParallel over "
+                     f"{DP_RANKS} gloo ranks on one card; runs: hidden "
+                     "dropout 0.1 (phase 9's variant (c)), every dropout "
+                     "0 (held against one process), and its planted fault",
+           "global_batch": TRAIN_BATCH, "losses": dp["losses"],
+           "single_process_losses": losses, "step1_loss_rel_diff": rel,
+           "update_gap": gaps["sound"][0],
+           "param_max_abs_diff": gaps["sound"][1],
+           "fault_update_gap": gaps["fault"][0],
+           "fault_param_max_abs_diff": gaps["fault"][1],
+           "dropout_run_losses": ranks[0]["dygraph"]["dropout"]["losses"],
+           "single_process_step_ms": ms,
+           "step_ms_by_rank": {run: [r["dygraph"][run]["step_ms"]
+                                     for r in ranks]
+                               for run, _ in DP_DYGRAPH_RUNS},
+           "collective_calls_per_step": dp["collective_calls"],
+           "peak_gpu_mem_gb_by_rank": [r["dygraph"]["peak_gpu_mem_gb"]
+                                       for r in ranks],
+           "launches_per_step": {run: ranks[0]["dygraph"][run]["launches"][-1]
+                                 for run, _ in DP_DYGRAPH_RUNS},
+           "ranks_bitwise_equal_after_each_step": True,
+           "wide": ranks[0]["dygraph"]["wide"]}
+    log({"phase": "dp_dygraph", **res})
+    return res
+
+
+def dp_nccl(torch, static, attn, dr, fx, rnd, seed):
+    """(b) and (d) under NCCL at world size 1 in this process: the
+    collective API on the card, then dp_nccl_steps.  Returns (its record,
+    its paths' launches)."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed.spawn import get_free_ports
+    port = get_free_ports(1)[0]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0)
+    try:
+        api = dp_api(torch, CARD)
+        log({"phase": "dp_api", "backend": "nccl", "ranks": 1,
+             "device": CARD, "cases": api})
+        fx.enable_fused_xent(True)
+        try:
+            return dp_nccl_steps(torch, static, attn, dr, fx, rnd, seed)
+        finally:
+            fx.enable_fused_xent(False)
+    finally:
+        tdist.destroy_process_group()
+
+
+def dp_nccl_steps(torch, static, attn, dr, fx, rnd, seed):
+    """The static data-parallel step under NCCL at world 1: DP_EAGER
+    eager Executor.run steps and two run_steps calls of K = DP_K (the
+    first captures one CUDA graph of the step and its collectives, the
+    second replays it, timed), against DP_EAGER + 2 DP_K plain Executor
+    steps from the same weights: every loss equal to the last bit (an
+    allreduce over one rank is a copy; the 1/W scale is off at W = 1).
+    The collectives reach the NCCL group: each eager step, and the
+    capturing call's warm-up and captured step, call one allreduce a
+    gradient and one for the loss fetch (the first step also the start
+    broadcast); the replaying call calls none."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from paddle_tpu_torch.static.executor import _persistable_names
+    check_equal("NCCL world 1 backend", tdist.get_backend(kc.ring_group(0)),
+                "nccl")
+    main, startup, loss, compiled = dp_program()
+    init, philox, _ = startup_weights(torch, static, rnd, startup, seed)
+    feed = train_feed(seed)
+    n = DP_EAGER + 2 * DP_K
+    plain, _, plain_ms, _ = eager_run(torch, static, compiled._program,
+                                      loss, init, feed, n)
+    step_calls = {"all_reduce": dp_grad_allreduces(main, compiled) + 1}
+    counters = dp_counters(attn, dr, fx, rnd)
+    want = dp_want()
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    start_broadcasts = sum(scope.get(v) is not None for v in
+                           _persistable_names(compiled._get_program()))
+    stacked = {k: np.stack([v] * DP_K) for k, v in feed.items()}
+    zero_wide(attn)
+    eager, calls, launches, by_dtype = [], [], [], []
+
+    def count():
+        got, dt = dp_read(counters)
+        launches.append(got)
+        by_dtype.append(dt)
+        calls.append(dict(kc.COMM_STATS["calls_by_kind"]))
+        dp_zero(counters)
+        kc.reset_comm_stats()
+    dp_zero(counters)
+    kc.reset_comm_stats()
+    with static.scope_guard(scope):
+        for _ in range(DP_EAGER):
+            out = exe.run(compiled, feed=feed, fetch_list=[loss])
+            eager.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            count()
+        first = exe.run_steps(compiled, feed=stacked, fetch_list=[loss])[0]
+        count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second = exe.run_steps(compiled, feed=stacked, fetch_list=[loss])[0]
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / DP_K
+        count()
+    stats = exe.cache_stats()
+    exe.close()
+    record_wide("dp_nccl", read_wide(attn))
+    replayed = np.concatenate([np.asarray(first, np.float32).reshape(-1),
+                               np.asarray(second, np.float32).reshape(-1)])
+    got = np.concatenate([np.asarray(eager, np.float32), replayed])
+    if not np.array_equal(got, np.asarray(plain, np.float32)):
+        raise AssertionError(f"NCCL world 1: losses {got.tolist()} against "
+                             f"the plain Executor's {plain}")
+    for i in range(DP_EAGER):
+        dp_check_launches(f"NCCL eager step {i}", launches[i], by_dtype[i],
+                          want)
+        check_equal(f"NCCL eager step {i} collective calls", calls[i],
+                    {**step_calls, "broadcast": start_broadcasts}
+                    if i == 0 else step_calls)
+    dp_check_launches("NCCL run_steps capturing call", launches[DP_EAGER],
+                      by_dtype[DP_EAGER], {k: 2 * v for k, v in want.items()})
+    check_equal("NCCL run_steps capturing call collective calls",
+                calls[DP_EAGER], {k: 2 * v for k, v in step_calls.items()})
+    check_equal("NCCL run_steps replaying call collective calls",
+                calls[DP_EAGER + 1], {})
+    check_equal("NCCL run_steps captures", stats["traces"], 1)
+    res = {"config": "bert-base pretrain, fleet amp (bf16) + Adam 1e-4, "
+                     "flash + fused CE, CompiledProgram under NCCL, world "
+                     "size 1", "batch": TRAIN_BATCH,
+           "eager_losses": eager, "replayed_losses": replayed.tolist(),
+           "plain_losses": plain, "bitwise_equal": True,
+           "replayed_step_ms": replay_ms,
+           "phase6_replayed_amp_step_ms": GRAPH_STEP_MS.get("amp"),
+           "plain_eager_step_ms": plain_ms,
+           "collective_calls": {"eager_steps": calls[:DP_EAGER],
+                                "capturing_call": calls[DP_EAGER],
+                                "replaying_call": calls[DP_EAGER + 1]},
+           "launches_per_eager_step": launches[DP_EAGER - 1],
+           "launches_in_capturing_call": launches[DP_EAGER],
+           "cache_stats": stats}
+    log({"phase": "dp_nccl", **res})
+    at_start = {"philox_at_start": philox}
+    return res, {
+        "static_nccl_eager_step": {"launches": launches[DP_EAGER - 1],
+                                   "by_dtype": by_dtype[DP_EAGER - 1],
+                                   **at_start},
+        "static_nccl_capturing_call": {"launches": launches[DP_EAGER],
+                                       "by_dtype": by_dtype[DP_EAGER],
+                                       **at_start}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4627,6 +5448,7 @@ def main():
     dygraph = dygraph_phase(torch, args.seed)
     baseline = baseline_phase(torch, args.seed)
     breadth = breadth_phase(torch, args.seed)
+    dp = dp_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -4710,7 +5532,8 @@ def main():
                  f"recipe{g}_{v}" for g in ("", "_graph")
                  for v, _ in RECIPE_VARIANTS) + tuple(
                  f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS) + tuple(
-                 f"baseline_{v}" for v in baseline) + ("breadth",)
+                 f"baseline_{v}" for v in baseline) + (
+                     "breadth", "dp_static", "dp_dygraph", "dp_nccl")
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -4758,6 +5581,28 @@ def main():
                                             "library_ms", "bound_ms",
                                             "max_abs_err", "max_ulps")}
                       for k, c in breadth["random"]["cases"].items()}}))
+    # phase 13: every row's launches on each data-parallel path, as
+    # counted there: a rank-step of each run of (a) and (c), an eager step
+    # and the capturing call of (b), in the row's dtype; the dropout and
+    # random kernels' too, the random kernel's also at each path's start
+    # (the startup program, the dygraph model's build)
+    dp_paths = dp["launches"]
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {p: r["by_dtype"][base].get(dt, 0)
+                   for p, r in dp_paths.items()}
+        elif name == "dropout_philox":
+            got = {p: r["launches"][name] for p, r in dp_paths.items()}
+        elif name == "philox_random":
+            got = {p: {"per_step": r["launches"][name],
+                       "at_start": r["philox_at_start"]}
+                   for p, r in dp_paths.items()}
+        else:  # head dims above 128: over each whole path, all dtypes
+            got = {p: extra["launches_by_path_all_dtypes"][p]
+                   for p in ("dp_static", "dp_dygraph", "dp_nccl")}
+        extra["phase13_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -8,18 +8,20 @@ buffers every step; the optimizer ops run every step into temps and a
 straight-line, so it runs the same eagerly and as the CUDA graph that
 `Executor.run_steps` replays.
 
-Not ported: the ZeRO-2/3 composition (accumulating the reduce-scattered
-bucket shard, which needs the sharding rewrite) and the strategy-driven
-`GradientMergeOptimizer` wrapper (fleet): both are the distribution slice,
-ROADMAP.md Queue 1, Distribution.
+`GradientMergeOptimizer` is fleet's strategy-driven wrapper
+(strategy.gradient_merge, k_steps > 1).  Not ported: the ZeRO-2/3
+composition (accumulating the reduce-scattered bucket shard, which needs
+the sharding rewrite; ROADMAP.md Queue 1, Distribution).
 """
 from __future__ import annotations
 
-from ....core.program import OpDesc, OpRole, unique_name
+from ....core.program import OpDesc, OpRole, default_startup_program, \
+    unique_name
+from .meta_optimizer_base import MetaOptimizerBase
 from .rewrite_utils import (append_masked_step_counter,
                             retarget_op_outputs_masked, new_tmp_var, _op)
 
-__all__ = ["apply_gradient_merge"]
+__all__ = ["GradientMergeOptimizer", "apply_gradient_merge"]
 
 
 def apply_gradient_merge(program, startup, params_grads, k_steps, avg=True):
@@ -108,3 +110,24 @@ def apply_gradient_merge(program, startup, params_grads, k_steps, avg=True):
     finish_pass(program, "gradient_merge", startup=startup,
                 k=int(k_steps), zero_stage=0)
     return program, mask
+
+
+class GradientMergeOptimizer(MetaOptimizerBase):
+    def _can_apply(self):
+        s = self.user_defined_strategy
+        return bool(s.gradient_merge) and \
+            s.gradient_merge_configs.get("k_steps", 1) > 1
+
+    def _disable_strategy(self, dist_strategy):
+        dist_strategy.gradient_merge = False
+
+    def minimize_impl(self, loss, startup_program=None, parameter_list=None,
+                      no_grad_set=None):
+        ops, params_grads = self.inner_opt.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        c = self.user_defined_strategy.gradient_merge_configs
+        program = loss.block.program
+        startup = startup_program or default_startup_program()
+        apply_gradient_merge(program, startup, params_grads,
+                             c.get("k_steps", 2), c.get("avg", True))
+        return ops, params_grads

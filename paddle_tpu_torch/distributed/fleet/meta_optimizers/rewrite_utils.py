@@ -1,9 +1,9 @@
 """Shared program-rewrite helpers for meta-optimizers.
 
 Copy of paddle_tpu/distributed/fleet/meta_optimizers/rewrite_utils.py, so
-both packages emit the same ops.  k-step behaviours (gradient merge) are
-MASKED UPDATES instead of conditional sub-blocks: every step computes the
-update and `where(mask, new, old)` commits it, the mask a scalar derived
+both packages emit the same ops.  k-step behaviours (gradient merge,
+LocalSGD) are MASKED UPDATES instead of conditional sub-blocks: every
+step computes the update and `where(mask, new, old)` commits it, the mask a scalar derived
 from a persistable step counter.  The step stays straight-line: no host
 read decides anything, so the port's eager step and its captured CUDA
 graph (`Executor.run_steps`) run the same ops every step.
@@ -37,14 +37,14 @@ def new_tmp_var(block, like=None, name_hint="tmp", dtype="float32",
 
 
 def append_masked_step_counter(program: Program, startup: Program,
-                               k_steps: int, prefix: str = "gm") -> str:
+                               k_steps: int, begin_step: int = 0,
+                               prefix: str = "gm") -> str:
     """Append a persistable step counter and return the name of a bool[1]
-    mask var that is True every k-th step.  (The reference's `begin_step`,
-    which LocalSGD uses, is left out: gradient merge never passes it.)
+    mask var that is True every k-th step (past begin_step, LocalSGD's).
 
     Ops appended (all straight-line):
         step = step + 1                (persistable write-back)
-        mask = (step % k == 0)
+        mask = (step % k == 0) [& step >= begin]
 
     Every op is stamped with a ``gm_role`` attr, as in the reference, so
     a commit-tail hoist (paddle_tpu's distributed/scan_window.py, not
@@ -84,6 +84,18 @@ def append_masked_step_counter(program: Program, startup: Program,
     mask = new_tmp_var(block, name_hint=f"@{prefix}_mask", dtype="bool")
     _op(program, block, "equal", {"X": [rem], "Y": [zero]}, {"Out": [mask]},
         {"gm_role": "mask"})
+    if begin_step > 0:
+        beg = new_tmp_var(block, name_hint=f"@{prefix}_begin", dtype="int32")
+        _op(program, block, "fill_constant", {}, {"Out": [beg]},
+            {"shape": [1], "value": int(begin_step), "dtype": "int32",
+             "gm_role": "mask"})
+        past = new_tmp_var(block, name_hint=f"@{prefix}_past", dtype="bool")
+        _op(program, block, "greater_equal", {"X": [step], "Y": [beg]},
+            {"Out": [past]}, {"gm_role": "mask"})
+        both = new_tmp_var(block, name_hint=f"@{prefix}_both", dtype="bool")
+        _op(program, block, "logical_and", {"X": [mask], "Y": [past]},
+            {"Out": [both]}, {"gm_role": "mask"})
+        mask = both
     return mask
 
 

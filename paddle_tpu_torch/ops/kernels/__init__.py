@@ -18,4 +18,5 @@ from . import (  # noqa: F401
     op_gaps,
     quantize,
     stragglers,
+    collective,
 )

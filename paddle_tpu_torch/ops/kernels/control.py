@@ -1,5 +1,6 @@
 """Comparisons of the slices: equal (gradient merge's and Lookahead's step
-masks), greater_than and less_than (the L1 decay's sign), and
+masks), greater_than and less_than (the L1 decay's sign), greater_equal
+and logical_and (LocalSGD's begin step), and
 optimization_barrier (the recompute rewrite's).  Counterpart of the ops
 of the same names in paddle_tpu/ops/kernels/control.py; none has a
 gradient."""
@@ -20,6 +21,8 @@ def _binary(name, fn):
 less_than = _binary("less_than", torch.lt)
 greater_than = _binary("greater_than", torch.gt)
 equal = _binary("equal", torch.eq)
+greater_equal = _binary("greater_equal", torch.ge)
+logical_and = _binary("logical_and", torch.logical_and)
 
 
 @register_op("optimization_barrier", inputs=["X*"], outputs=["Out*"],

@@ -1,6 +1,7 @@
 """Optimizer ops: sgd, momentum, lars_momentum, adam, adamw, adamax,
-adagrad, decayed_adagrad, adadelta, rmsprop, ftrl, lamb, dpsgd and
-average_accumulates (ModelAverage's windowed sums).
+adagrad, decayed_adagrad, adadelta, rmsprop, ftrl, lamb, dpsgd,
+average_accumulates (ModelAverage's windowed sums) and dgc (fleet's
+Deep Gradient Compression sparsifier).
 
 Counterpart of paddle_tpu/ops/kernels/optimizers.py.  As there, the "Out"
 slots are new values that the executor binds to the persistable names
@@ -14,8 +15,8 @@ rows' parameter and moments.  dpsgd's noise is the Philox normal
 (ops/random.py) keyed by (step seed, op uid), so a captured step draws
 new noise on each replay.
 
-Not ported here: lamb's ZeRO-sharded trust ratio (`reduce_norms_ring_id`)
-and `dgc` (ROADMAP.md Queue 1, Distribution).
+Not ported here: lamb's ZeRO-sharded trust ratio (`reduce_norms_ring_id`,
+ROADMAP.md Queue 1, Distribution).
 """
 from __future__ import annotations
 
@@ -380,3 +381,29 @@ def average_accumulates(ins, attrs, ctx):
             "out_old_num_accumulates": ona_new.reshape(
                 ins["in_old_num_accumulates"].shape),
             "out_num_updates": nu.reshape(ins["in_num_updates"].shape)}
+
+
+@register_op("dgc", inputs=["U", "Grad", "Param?"],
+             outputs=["UOut", "EncodedGrad", "GradOut"],
+             grad=None, side_effect=True)
+def dgc(ins, attrs, ctx):
+    """Deep Gradient Compression (arXiv:1712.01887), the JAX package's
+    dense form: u = m u + g (momentum correction; one rounding, as XLA
+    fuses it), keep the top (1 - sparsity) share of |u| (at least one
+    element, ties at the threshold kept), the kept values are the
+    gradient and the rest stays in u as the local residual.  The encoded
+    gradient stays dense and rides the normal c_allreduce_sum."""
+    u, g = ins["U"], ins["Grad"]
+    m = float(attrs.get("m", 0.9))
+    sparsity = float(attrs.get("sparsity", 0.999))
+    m64 = torch.tensor(m, dtype=torch.float32).double()
+    u_new = (m64 * u.double() + g.double()).float()
+    flat = u_new.reshape(-1)
+    k = max(1, int(flat.numel() * (1.0 - sparsity)))
+    thresh = torch.topk(flat.abs(), k).values[-1]
+    mask = u_new.abs() >= thresh
+    zero = torch.zeros((), dtype=torch.float32, device=u_new.device)
+    encoded = torch.where(mask, u_new, zero)
+    u_out = torch.where(mask, zero, u_new)  # the residual stays local
+    return {"UOut": u_out.to(u.dtype), "EncodedGrad": encoded.to(g.dtype),
+            "GradOut": encoded.to(g.dtype)}

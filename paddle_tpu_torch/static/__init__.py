@@ -1,8 +1,8 @@
 """paddle_tpu_torch.static — Program construction, the BERT layer subset,
 append_backward (with recompute), the optimizers with their regularizers,
 gradient clips, gradient merge, EMA, ModelAverage, Lookahead and
-Recompute, checkpoint selection, and the eager executor (the
-`paddle.static` surface of the ported slices)."""
+Recompute, checkpoint selection, the eager executor and CompiledProgram
+(data parallel; the `paddle.static` surface of the ported slices)."""
 from ..core.program import (  # noqa: F401
     Program, Block, OpDesc, VarDesc, OpRole, default_main_program,
     default_startup_program, program_guard, name_scope, unique_name,
@@ -36,4 +36,7 @@ from .optimizer import (  # noqa: F401
     ExponentialMovingAverage, ModelAverage, LookaheadOptimizer,
     RecomputeOptimizer, L1Decay, L2Decay, GradientClipByValue,
     GradientClipByNorm, GradientClipByGlobalNorm, gradient_merge,
+)
+from ..distributed.compiled_program import (  # noqa: F401
+    CompiledProgram, BuildStrategy, ExecutionStrategy,
 )

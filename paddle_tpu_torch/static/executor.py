@@ -48,8 +48,16 @@ persistable names (`assign` returns its input); the capture gives each
 name a buffer of its own, and the in-place writes of a captured step
 copy a value that is another name's buffer before any write.
 
-Not ported yet: CompiledProgram dispatch, checkpoint hooks, per-step
-telemetry (later slices, ROADMAP.md).
+`run` and `run_steps` also take a `CompiledProgram`
+(distributed/compiled_program.py: data parallel, one process a rank) and
+hand it the call.  Its `run_steps` under NCCL captures the step with
+its collectives and replays it like any other; under gloo, whose
+collectives run on the host and cannot be captured, it runs the K steps
+eagerly, one `run` each, as on the CPU.  Neither takes the other's
+place: a failed NCCL capture raises.
+
+Not ported yet: checkpoint hooks, per-step telemetry (later slices,
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -174,6 +182,26 @@ def _run_op(op, env: Dict[str, Any], ctx: OpContext):
             env[names[0]] = val
 
 
+def _fetch_names(fetch_list) -> List[str]:
+    return [f.name if hasattr(f, "name") else str(f)
+            for f in (fetch_list or [])]
+
+
+def _is_compiled(program) -> bool:
+    """True for a CompiledProgram; False for a Program; raises for any
+    other kind (pipeline and parameter-server trainer programs, which
+    the JAX package's executor also dispatches, are not ported)."""
+    from ..distributed.compiled_program import CompiledProgram
+    if isinstance(program, CompiledProgram):
+        return True
+    if isinstance(program, Program):
+        return False
+    raise NotImplementedError(
+        f"the executor takes a Program or a CompiledProgram, got "
+        f"{type(program).__name__}: pipeline and parameter-server programs "
+        "are not ported yet (ROADMAP.md Queue 1, Distribution)")
+
+
 def _persistable_names(program: Program) -> List[str]:
     return sorted(v.name for b in program.blocks for v in b.vars.values()
                   if v.persistable)
@@ -248,10 +276,20 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         program = program if program is not None else default_main_program()
+        if _is_compiled(program):
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         scope = scope or global_scope()
-        feed = feed or {}
-        fetch_names = [f.name if hasattr(f, "name") else str(f)
-                       for f in (fetch_list or [])]
+        fetched = self._run_program(program, feed or {},
+                                    _fetch_names(fetch_list), scope,
+                                    self._seed_for_step(program))
+        self._step += 1
+        if return_numpy:
+            return [as_numpy(f) for f in fetched]
+        return fetched
+
+    def _run_program(self, program, feed, fetch_names, scope, seed):
+        """One step of `program` with the step seed `seed`: the fetched
+        tensors; the persistables it wrote go back to `scope`."""
         block = program.global_block()
         # no_grad, not inference_mode: the grad ops' torch.func.vjp needs
         # tensors that autograd may save (it ignores an outer no_grad, but
@@ -261,11 +299,9 @@ class Executor:
             env = {k: v for k, v in scope.vars.items() if v is not None}
             for name, val in feed.items():
                 env[name] = self._coerce_feed(block, name, val)
-            ctx = OpContext(seed=self._seed_for_step(program),
-                            is_test=False, device=self.device)
+            ctx = OpContext(seed=seed, is_test=False, device=self.device)
             _run_ops(block.ops, _release_plan(program, fetch_names), env,
                      ctx)
-        self._step += 1
         # persistables written by the program (startup initializers) stay
         for n in _persistable_names(program):
             if n in env and env[n] is not scope.vars.get(n):
@@ -273,10 +309,7 @@ class Executor:
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not produced")
-        fetched = [env[n] for n in fetch_names]
-        if return_numpy:
-            return [as_numpy(f) for f in fetched]
-        return fetched
+        return [env[n] for n in fetch_names]
 
     def run_steps(self, program=None, feed=None, fetch_list=None,
                   scope=None, return_numpy=True):
@@ -286,18 +319,15 @@ class Executor:
         seeds follow the walk of K `run()` calls.  On the CPU this loops
         over `run()`; on CUDA one captured step (a CUDA graph) is replayed
         K times, each step drawing with its own seed (dropout, the random
-        ops).
+        ops).  A CompiledProgram runs its own steps (module docstring).
         FLAGS_check_nan_inf raises after the K steps on a non-finite fetch
         or persistable."""
         program = program if program is not None else default_main_program()
-        if not isinstance(program, Program):
-            raise NotImplementedError(
-                f"run_steps takes a Program, got {type(program).__name__}: "
-                "CompiledProgram is not ported yet (ROADMAP.md Queue 1, "
-                "Distribution)")
+        compiled = None
+        if _is_compiled(program):
+            compiled, program = program, program._get_program()
         scope = scope or global_scope()
-        fetch_names = [f.name if hasattr(f, "name") else str(f)
-                       for f in (fetch_list or [])]
+        fetch_names = _fetch_names(fetch_list)
         block = program.global_block()
         stacked = {n: self._coerce_feed(block, n, v)
                    for n, v in (feed or {}).items()}
@@ -316,7 +346,10 @@ class Executor:
                     f"feed {n!r} leading (steps) dim {v.shape[0]} != {k}")
         if k == 0:
             raise ValueError("run_steps feeds have 0 steps")
-        if self.device.type == "cuda":
+        if compiled is not None:
+            fetched = compiled._run_steps(self, stacked, k, fetch_names,
+                                          scope)
+        elif self.device.type == "cuda":
             fetched = self._replay_steps(program, stacked, k, fetch_names,
                                          scope)
         else:
@@ -348,7 +381,12 @@ class Executor:
         self._stats[kind] += 1
         stat_add("executor.graph_cache." + kind)
 
-    def _replay_steps(self, program, stacked, k, fetch_names, scope):
+    def _replay_steps(self, program, stacked, k, fetch_names, scope,
+                      seed_offset=0, finish=None, key_extra=()):
+        """K replays of one captured step.  `seed_offset` is added to each
+        step's seed (a data-parallel rank's); `finish(fetches)` runs inside
+        the captured step on its fetches (a data-parallel rank's
+        reduction over the ranks); `key_extra` joins the graph's key."""
         block = program.global_block()
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
@@ -358,17 +396,19 @@ class Executor:
                tuple(sorted((n, tuple(v.shape[1:]), str(v.dtype))
                             for n, v in stacked.items())),
                tuple(fetch_names), tuple(state_names),
-               tuple(sorted((n, repr(v)) for n, v in _flags._FLAGS.items())))
+               tuple(sorted((n, repr(v)) for n, v in _flags._FLAGS.items())),
+               tuple(key_extra))
         # the seeds of K run() calls, uploaded once, copied per step
-        seeds = torch.tensor([[self._seed_for_step(program) + i]
-                              for i in range(k)], dtype=torch.int64,
-                             device=self.device)
+        seeds = torch.tensor([[self._seed_for_step(program) + i
+                               + seed_offset] for i in range(k)],
+                             dtype=torch.int64, device=self.device)
         with torch.cuda.device(self.device):
             entry = self._graphs.get(key)
             if entry is None:
                 self._record("misses")
                 entry = self._capture(block, stacked, seeds[0],
-                                      fetch_names, state_names, scope)
+                                      fetch_names, state_names, scope,
+                                      finish)
                 self._record("traces")
                 self._graphs[key] = entry
             else:
@@ -386,14 +426,15 @@ class Executor:
                 for j in range(len(fetch_names))]
 
     def _capture(self, block, stacked, seed, fetch_names, state_names,
-                 scope):
+                 scope, finish=None):
         """Capture one step of `block` over static buffers, the step seed
         read from a one-element buffer (`seed` is its first value).  A
         warm-up step runs first, eagerly on a side stream (as torch
         requires before capturing a backward): it builds and loads the
         hand kernels, sets their shared-memory attributes and lets
-        autograd and cuBLAS make their lazy state.  Its results are
-        dropped, so it changes no state."""
+        autograd and cuBLAS make their lazy state (and NCCL its
+        communicator, when `finish` or the step holds collectives).  Its
+        results are dropped, so it changes no state."""
         state: Dict[str, torch.Tensor] = {}
         for n in state_names:
             t = scope.get(n)
@@ -414,22 +455,25 @@ class Executor:
                             seed_tensor=seed_buf)
             with torch.no_grad():
                 _run_ops(block.ops, plan, env, ctx)
-            return env
+                missing = [n for n in fetch_names if n not in env]
+                if missing:
+                    raise KeyError(
+                        f"fetch targets {missing} were not produced")
+                fetches = [env[n] for n in fetch_names]
+                if finish is not None:
+                    fetches = finish(fetches)
+            return env, fetches
 
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            env = step()
-            missing = [n for n in fetch_names if n not in env]
-            del env
+            env, fetches = step()
+            del env, fetches
         torch.cuda.current_stream(self.device).wait_stream(side)
-        if missing:
-            raise KeyError(f"fetch targets {missing} were not produced")
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
-                env = step()
-                fetches = [env[n] for n in fetch_names]
+                env, fetches = step()
                 bufs = list(state.values())
                 written = {}
                 for n, buf in state.items():

@@ -1,0 +1,310 @@
+"""Rank processes of the port's data-parallel CPU tests.
+
+Each function runs in one process of a world started with
+`paddle_tpu_torch.distributed.spawn` (the tests pass it by reference, so
+this module is importable and imports no JAX): it forms a gloo process
+group through `init_parallel_env` over a `file://` rendezvous, does its
+part on its rank's inputs and writes `rank<r>.npz` (or `.json`) into
+`out_dir` for the test process to hold against the JAX package.  Each
+worker destroys its process group before returning.
+"""
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def _init(init_file):
+    torch.set_num_threads(1)
+    from paddle_tpu_torch import distributed as dist
+    env = dist.init_parallel_env(backend="gloo",
+                                 init_method="file://" + init_file)
+    return env.rank, env.world_size
+
+
+def _finish():
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+
+
+def _kernel(op, ins, attrs):
+    from paddle_tpu_torch.ops.registry import OpContext, run_kernel
+    return run_kernel(op, ins, dict(attrs), OpContext(seed=0))
+
+
+def collective_ops(init_file, in_path, out_dir, cases):
+    """Every case of `cases` ({name: (op, attrs)}) on this rank's slice of
+    the global input `in_path[name]` (dim 0 = ranks x rows); then the
+    Python API (eager) and the fleet metrics on fixed rank values."""
+    r, w = _init(init_file)
+    data = np.load(in_path)
+    out = {}
+
+    def mine(name):
+        a = data[name]
+        n = a.shape[0] // w
+        return torch.from_numpy(np.ascontiguousarray(a[r * n:(r + 1) * n]))
+
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    for name, (op, attrs) in cases.items():
+        if op == "sparse":
+            x = SelectedRows(mine(name + "/rows"), mine(name + "/values"),
+                             int(data[name + "/height"]))
+            o = _kernel("c_allreduce_sum", {"X": x}, attrs)["Out"]
+            o = _kernel("scale_by_world_size", {"X": o}, {})["Out"]
+            out[name + "/rows"] = o.rows.numpy()
+            out[name + "/values"] = o.values.numpy()
+        elif op == "dgc":
+            o = _kernel("dgc", {"U": mine(name + "/U"),
+                                "Grad": mine(name + "/Grad")}, attrs)
+            red = _kernel("c_allreduce_sum", {"X": o["EncodedGrad"]},
+                          {})["Out"]
+            out[name + "/UOut"] = o["UOut"].numpy()
+            out[name + "/Encoded"] = o["EncodedGrad"].numpy()
+            out[name + "/Reduced"] = red.numpy()
+        else:
+            x = mine(name)
+            o = _kernel(op, {"X": x}, attrs)["Out"]
+            out[name] = o.float().numpy()
+            if not torch.equal(x, mine(name)):
+                raise AssertionError(f"{op} wrote into its input")
+    out.update(_api(r, w))
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def _api(r, w):
+    """The eager collective API and fleet's metrics, on values made from
+    the rank."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.fleet.metrics import metric
+    out = {}
+    t = torch.arange(6, dtype=torch.float32).reshape(3, 2) + 10 * r
+    dist.all_reduce(t)
+    out["api/all_reduce"] = t.numpy()
+    t = torch.full((2,), float(r + 1))
+    dist.all_reduce(t, op=dist.ReduceOp.PROD)
+    out["api/all_reduce_prod"] = t.numpy()
+    t = torch.full((2,), float(r))
+    dist.reduce(t, dst=0, op=dist.ReduceOp.MAX)
+    out["api/reduce_max"] = t.numpy()
+    t = torch.full((3,), float(r))
+    dist.broadcast(t, src=w - 1)
+    out["api/broadcast"] = t.numpy()
+    parts = []
+    dist.all_gather(parts, torch.full((2, 2), float(r)))
+    out["api/all_gather"] = np.stack([p.numpy() for p in parts])
+    t = torch.zeros(2)
+    dist.scatter(t, [torch.full((2,), float(10 * i)) for i in range(w)]
+                 if r == 1 else None, src=1)
+    out["api/scatter"] = t.numpy()
+    got = []
+    dist.alltoall([torch.full((1, 2), float(10 * r + j)) for j in range(w)],
+                  got)
+    out["api/alltoall"] = np.concatenate([g.numpy() for g in got])
+    dist.barrier()
+    g = dist.new_group([0, 2])
+    t = torch.full((2,), float(r + 1))
+    dist.all_reduce(t, group=g)
+    out["api/sub_group"] = t.numpy()
+    t = torch.full((4,), float(r) + 0.5, dtype=torch.bfloat16)
+    dist.all_reduce(t)
+    out["api/all_reduce_bf16"] = t.float().numpy()
+    # the fleet metrics over the default group
+    pos = np.array([r, 1, 2, 0], np.float64)
+    neg = np.array([1, r, 0, 3], np.float64)
+    out["metric/sum"] = np.asarray(metric.sum(np.array([r, 1.0])))
+    out["metric/max"] = np.asarray(metric.max(np.array([r, -r])))
+    out["metric/min"] = np.asarray(metric.min(np.array([r, -r])))
+    out["metric/mae"] = np.asarray(metric.mae(np.array([r * 0.5]),
+                                              np.array([r + 1])))
+    out["metric/rmse"] = np.asarray(metric.rmse(np.array([r * 0.25]),
+                                                np.array([2])))
+    out["metric/acc"] = np.asarray(metric.acc(np.array([r]),
+                                              np.array([w])))
+    out["metric/auc"] = np.asarray(metric.auc(pos, neg))
+    out.update(_comm_stats(w))
+    return out
+
+
+COMM_KINDS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
+              "all_to_all")
+
+
+def _comm_stats(w):
+    """COMM_STATS over one call of each collective from the eager API and
+    the ops: the calls by kind (COMM_KINDS), then the calls and bytes in
+    all."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    kc.reset_comm_stats()
+    dist.all_reduce(torch.ones(2))
+    dist.broadcast(torch.ones(3), src=0)
+    dist.all_gather([], torch.ones(4))
+    _kernel("c_reducescatter", {"X": torch.ones(w, 5)}, {})
+    _kernel("alltoall", {"X": torch.ones(w, 6)}, {})
+    by_kind = kc.COMM_STATS["calls_by_kind"]
+    return {"comm/by_kind": np.array([by_kind.get(k, 0)
+                                      for k in COMM_KINDS]),
+            "comm/total": np.array([kc.COMM_STATS["calls"],
+                                    kc.COMM_STATS["bytes"]])}
+
+
+def static_dp(init_file, out_dir, cfg):
+    """cfg: bert (build_bert_pretrain kwargs), weights (npz of the
+    startup values), feed (npz of the global batch), run_steps (plain
+    run() steps), k (then one run_steps call of k steps),
+    fetch_aggregation, scramble (rank > 0 perturbs its start: the
+    start broadcast must undo it).  Writes the fetched losses and every
+    persistable."""
+    r, w = _init(init_file)
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.io import load_params_from_numpy
+    from paddle_tpu_torch.models import build_bert_pretrain
+    from paddle_tpu_torch.ops import attention, fused_xent
+    attention.enable_flash_attention(False)
+    fused_xent.enable_fused_xent(False)
+    _reset_unique_names()
+    main, _, loss = build_bert_pretrain(use_amp=False, **cfg["bert"])
+    scope = static.Scope()
+    init = dict(np.load(cfg["weights"]))
+    if cfg.get("scramble") and r > 0:
+        init = {n: (v + 1 if v.dtype.kind == "f" else v)
+                for n, v in init.items()}
+    load_params_from_numpy(scope, init, static.CPUPlace())
+    feed = dict(np.load(cfg["feed"]))
+    bs = static.BuildStrategy()
+    bs.fetch_aggregation = cfg["fetch_aggregation"]
+    compiled = static.CompiledProgram(main, build_strategy=bs) \
+        .with_data_parallel(loss_name=loss.name)
+    exe = static.Executor(static.CPUPlace())
+    fetched = []
+    with static.scope_guard(scope):
+        for _ in range(cfg["run_steps"]):
+            fetched.append(exe.run(compiled, feed=feed,
+                                   fetch_list=[loss])[0])
+        if cfg["k"]:
+            stacked = {n: np.stack([v] * cfg["k"]) for n, v in feed.items()}
+            out = exe.run_steps(compiled, feed=stacked, fetch_list=[loss])
+            fetched.extend(list(out[0]))
+    _finish()
+    res = {"loss/" + str(i): np.asarray(v) for i, v in enumerate(fetched)}
+    prog = compiled._get_program()
+    for n, v in scope.vars.items():
+        if v is not None:
+            res["var/" + n] = v.numpy()
+    res["ops"] = np.array([op.type for op in prog.global_block().ops])
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **res)
+
+
+def dygraph_dp(init_file, out_dir, data_path):
+    """A Linear-Tanh-Linear MLP under DataParallel, Adam, one step a
+    global batch (this rank's rows), from the weights in `data_path`."""
+    r, w = _init(init_file)
+    from paddle_tpu_torch import dygraph, nn, optimizer
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.core.place import CPUPlace
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    data = np.load(data_path)
+    _reset_unique_names()
+    with dygraph.guard(CPUPlace()):
+        net = dygraph.Sequential(nn.Linear(6, 8), nn.Tanh(),
+                                 nn.Linear(8, 3))
+        net.set_state_dict({k[len("w/"):]: data[k] for k in data.files
+                            if k.startswith("w/")})
+        model = dist.DataParallel(net)
+        opt = optimizer.Adam(0.01, parameters=model.parameters())
+    losses = []
+    for i in range(int(data["steps"])):
+        x, y = data[f"x{i}"], data[f"y{i}"]
+        n = x.shape[0] // w
+        xs = torch.from_numpy(x[r * n:(r + 1) * n])
+        ys = torch.from_numpy(y[r * n:(r + 1) * n])
+        loss = nn.functional.mse_loss(model(xs), ys)
+        losses.append(float(loss))
+        model.scale_loss(loss).backward()
+        model.apply_collective_grads()
+        opt.step()
+        opt.clear_grad()
+    _finish()
+    res = {"param/" + k: v.detach().numpy()
+           for k, v in net.state_dict().items()}
+    res["losses"] = np.asarray(losses)
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **res)
+
+
+def env_dump(out_dir):
+    """The PADDLE_* contract as this process sees it."""
+    keys = ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+            "PADDLE_CURRENT_ENDPOINT", "PADDLE_TRAINER_ENDPOINTS",
+            "FLAGS_selected_gpus")
+    r = os.environ["PADDLE_TRAINER_ID"]
+    with open(os.path.join(out_dir, f"env{r}.json"), "w") as f:
+        json.dump({k: os.environ.get(k) for k in keys}, f)
+
+
+def fail_or_wait(bad_rank, out_dir):
+    """Rank `bad_rank` raises at once; the others wait (as a rank waits in
+    a collective for a dead peer) and record that they were still
+    running."""
+    import time
+    r = int(os.environ["PADDLE_TRAINER_ID"])
+    if r == bad_rank:
+        raise RuntimeError(f"rank {r} fails on purpose")
+    with open(os.path.join(out_dir, f"alive{r}"), "w") as f:
+        f.write(str(os.getpid()))
+    time.sleep(120)
+
+
+def build_localsgd(k_steps):
+    """A one-layer regression through fleet with strategy.localsgd (k
+    steps, from step 1): (main, startup, loss, fc weight name)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.static import layers
+    _reset_unique_names()
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 4])
+        y = layers.data("y", [-1, 1])
+        loss = layers.mean(layers.square(
+            layers.elementwise_sub(layers.fc(x, 1), y)))
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.localsgd = True
+        strategy.localsgd_configs = {"k_steps": k_steps, "begin_step": 1}
+        fleet.distributed_optimizer(static.SGD(0.1), strategy) \
+            .minimize(loss)
+    return main, startup, loss
+
+
+def localsgd_steps(data_path, rank):
+    """Two steps of the LocalSGD program on rank `rank`'s batches: the
+    persistables after each."""
+    from paddle_tpu_torch import static
+    data = np.load(data_path)
+    main, startup, loss = build_localsgd(2)
+    exe = static.Executor(static.CPUPlace())
+    scope = static.Scope()
+    out = {}
+    with static.scope_guard(scope):
+        exe.run(startup)
+        for n in [p.name for p in main.all_parameters()]:
+            scope.set(n, torch.from_numpy(data["w/" + n]))
+        for i in range(2):
+            exe.run(main, feed={"x": data[f"x{rank}_{i}"],
+                                "y": data[f"y{rank}_{i}"]},
+                    fetch_list=[loss])
+            for p in main.all_parameters():
+                out[f"step{i}/{p.name}"] = scope.vars[p.name].numpy().copy()
+    return out
+
+
+def localsgd_rank(init_file, out_dir, data_path):
+    r, _ = _init(init_file)
+    out = localsgd_steps(data_path, r)
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
