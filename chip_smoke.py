@@ -14,7 +14,8 @@ speculative and int8 /generate, and train BERT-base with the breadth of
 the training API (recompute, the other optimizers, EMA, ModelAverage,
 Lookahead, sparse embedding gradients, graph-safe random ops, static
 O2), and train it data-parallel (fleet, CompiledProgram, DataParallel
-over gloo ranks, and NCCL at world size 1 with a captured step).
+over gloo ranks, and NCCL at world size 1 with a captured step), with
+ZeRO stages 1-3, and train the static transformer LM tensor-parallel.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -373,6 +374,40 @@ is present.  Phases:
                the capture's warm-up and its captured step reaching the
                NCCL group, none in the replaying call, the replayed step
                ms beside phase 6's.
+ 14. zero_tp - ZeRO stages 1-3 and Megatron tensor parallelism over
+               torch.distributed, 2 gloo ranks on cuda:0 as phase 13,
+               global batch 8.  (a) phase 13 (a)'s fleet step with
+               strategy.sharding at stage 1, stage 2 with gradient merge
+               k = 2, and stage 3 (distributed/sharding.py), 3 Executor
+               .run steps each, sound and with rank 1's gradient buckets
+               zeroed before their reduce-scatter (a planted fault);
+               (b) models.build_transformer_lm(30522, 768, 12, 12, 512,
+               tensor_parallel_degree=2) with AMP bf16 and Adam, the tp =
+               1 program's startup carried in through the placement
+               (io.load_params_from_numpy(..., compiled=)), 3 steps.
+               Gates: the ranks' replicated state bitwise equal after
+               every step and their gathered global state
+               (CompiledProgram.global_state) after the last; a rank-step's
+               launches 24 / 12 / 12 / 2 flash forward / dQ / dK/dV /
+               fused CE, all bf16, no random draw; its collective calls
+               by op as the program holds (one reduce-scatter a bucket,
+               one all-gather a bucket at stages 1-2, one a bucket and
+               phase at stage 3; (b): one mp_allreduce_sum and one
+               c_identity gradient a Megatron block, the ring-0
+               allreduces); step 1's loss and the update gap against one
+               process (the same sharded program with no process group;
+               (b) the tp = 1 program of the same weights) within
+               DP_LOSS_RTOL / DP_UPDATE_TOL (b: TP_LOSS_RTOL /
+               TP_UPDATE_TOL), the faults' gaps above; each rank holding
+               1/2 of the padded optimizer-slot buckets (stage 3 also of
+               the parameter buckets) and each tp-sharded weight at half
+               its bytes; stage 3's per-rank peak memory below stage
+               1's.  (c) in this process under NCCL at world 1: the
+               stage-3 program through 2 eager steps and 2 run_steps
+               calls of K = 4 (one captured graph): every loss bitwise
+               the plain Executor's, the reduce-scatters and all-gathers
+               of each eager step and of the capture reaching the NCCL
+               group, none in the replaying call.  Prints its seconds.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -402,7 +437,9 @@ every row its launches on phase 13's paths as counted there
 (`phase13_launches`: a rank-step of each run of (a) and (c), an eager
 step and the capturing call of (b), in the row's dtype; the random
 kernel's also at each path's start; the kernels for head dims above 128
-over each whole path);
+over each whole path), and on phase 14's (`phase14_launches`: a
+rank-step of each ZeRO run and of the tp run, an eager step and the
+capturing call of the stage-3 NCCL run);
 the last line
 {"ok": true, "device": {...}}.
 """
@@ -5344,6 +5381,701 @@ def dp_nccl_steps(torch, static, attn, dr, fx, rnd, seed):
                                        **at_start}}
 
 
+# phase 14: ZeRO stages 1-3 (strategy.sharding) and Megatron tensor
+# parallelism (models/static_lm.py at tensor_parallel_degree 2) over
+# torch.distributed
+# (tag, ZeRO stage, gradient-merge k) of (a)'s runs
+ZT_STAGES = (("stage1", 1, 1), ("stage2_gm2", 2, 2), ("stage3", 3, 1))
+TP_DEGREE = 2
+# (b) against the tp = 1 program of the same weights in one process.  The
+# tp step sums each row-parallel product's two bf16 halves (each rounded
+# to bf16 before the sum) where tp = 1 rounds one product once, so step
+# 1's loss may differ by a few bf16 roundings averaged over 4096 tokens:
+# 1e-3 of the loss.  The update gap is phase 13's static tolerance: Adam
+# moves each element by about lr whatever its gradient's size, and bf16
+# noise flips the tiny gradients' steps either way
+TP_LOSS_RTOL = 1e-3
+TP_UPDATE_TOL = DP_UPDATE_TOL["static"]
+# op types whose calls a step makes on a process group (COMM_STATS
+# "calls_by_op"), counted in the rewritten program
+ZT_COMM_OPS = ("c_reducescatter", "c_allgather", "c_allreduce_sum",
+               "mp_allreduce_sum", "c_identity_grad")
+
+
+def zt_program(stage, gm):
+    """bench.py's step through fleet as dp_program, with strategy.sharding
+    at ZeRO `stage` for DP_RANKS ranks (and gradient merge over `gm`
+    steps).  Returns (main, startup, loss, fleet.main_program)."""
+    import paddle_tpu_torch.distributed.fleet as fleet
+
+    def outer(static, opt):
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = True
+        strategy.amp_configs.update(DP_AMP)
+        strategy.sharding = True
+        strategy.sharding_configs = {"stage": stage, "dp_degree": DP_RANKS}
+        if gm > 1:
+            strategy.gradient_merge = True
+            strategy.gradient_merge_configs = {"k_steps": gm, "avg": True}
+        return fleet.distributed_optimizer(opt, strategy)
+    import warnings
+    with warnings.catch_warnings():
+        # under AMP gradient merge keeps full-size accumulators (the
+        # buckets read the unscaled gradients), as the JAX package does
+        warnings.simplefilter("ignore", RuntimeWarning)
+        main, startup, loss, _ = bench_program(lambda s: s.Adam(1e-4),
+                                               use_amp=False, outer=outer)
+    want = ["AMPOptimizer", "ShardingOptimizer"] + (
+        ["GradientMergeOptimizer"] if gm > 1 else []) + \
+        ["GraphExecutionOptimizer"]
+    check_equal("fleet meta-optimizers", fleet.applied_meta_list(), want)
+    if not main._zero_shard_plan.buckets:
+        raise AssertionError(f"ZeRO stage {stage}: nothing was sharded")
+    return main, startup, loss, fleet.main_program
+
+
+def zt_tp_program(tp):
+    """models.build_transformer_lm at bench.py's BERT-base width and
+    `tensor_parallel_degree` tp, flash on, AMP bf16 (the bench's loss
+    scale), Adam 1e-4.  Returns (main, startup, loss, parameters in
+    creation order)."""
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import build_transformer_lm
+    from paddle_tpu_torch.ops import attention as attn
+    attn.enable_flash_attention(True)
+    try:
+        _reset_unique_names()
+        main, startup, loss, _ = build_transformer_lm(
+            BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
+            BERT["seq"], tensor_parallel_degree=tp)
+        with static.program_guard(main, startup):
+            amp.decorate(static.Adam(1e-4), init_loss_scaling=1.0,
+                         use_dynamic_loss_scaling=False,
+                         dest_dtype="bfloat16").minimize(loss)
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+    return main, startup, loss, [p.name for p in main.all_parameters()]
+
+
+def zt_tp_names(m1, m2):
+    """{tp = 2 parameter: tp = 1 parameter} of the two builds' programs:
+    they create their parameters in the same order at the same global
+    shapes."""
+    p1, p2 = m1.all_parameters(), m2.all_parameters()
+    if [tuple(p.shape) for p in p1] != [tuple(p.shape) for p in p2]:
+        raise AssertionError("tp = 1 and tp = 2 parameters differ in shape")
+    return {b.name: a.name for a, b in zip(p1, p2)}
+
+
+def zt_program_comms(compiled):
+    """The collective ops of the program each rank runs, by ZT_COMM_OPS
+    type (the calls a step makes)."""
+    ops = compiled._get_program().global_block().ops
+    got = {t: sum(op.type == t for op in ops) for t in ZT_COMM_OPS}
+    return {t: n for t, n in got.items() if n}
+
+
+def zt_scope_bytes(scope, plan):
+    """This rank's bytes of the optimizer slots and (stage 3) the
+    parameter buckets, beside the unsharded program's (each parameter's
+    own moments, the parameters themselves) and the padded global
+    buckets'."""
+    def held(names):
+        return sum(scope.vars[n].numel() * scope.vars[n].element_size()
+                   for n in names)
+    slots = [n for b in plan.buckets for n in b["slots"].values()]
+    n_slots = {b["name"]: len(b["slots"]) for b in plan.buckets}
+    # a bucket pads fewer than dp_degree elements
+    pad = 4 * (plan.dp_degree - 1)
+    out = {"slots_rank": held(slots),
+           "slots_pad_max": sum(pad * n_slots[b["name"]]
+                                for b in plan.buckets),
+           "slots_unsharded": sum(4 * b["raw_len"] * n_slots[b["name"]]
+                                  for b in plan.buckets),
+           "slots_global_padded": sum(4 * b["padded_len"] *
+                                      n_slots[b["name"]]
+                                      for b in plan.buckets),
+           "scope_rank": sum(t.numel() * t.element_size()
+                             for t in scope.vars.values() if t is not None)}
+    pb = plan.param_bucket_names()
+    if pb:
+        packed = [b for b in plan.buckets if b.get("param_bucket")]
+        out.update(params_rank=held(pb),
+                   params_pad_max=pad * len(packed),
+                   params_unsharded=sum(4 * b["raw_len"] for b in packed),
+                   params_global_padded=sum(4 * b["padded_len"]
+                                            for b in packed))
+    return out
+
+
+def zt_check_bytes(tag, got, world):
+    """A rank's shard of each sharded surface: 1/world of the padded
+    global buckets, and the padding under world elements a bucket."""
+    for kind in ("slots", "params"):
+        if kind + "_rank" not in got:
+            continue
+        rank, padded = got[kind + "_rank"], got[kind + "_global_padded"]
+        unsharded = got[kind + "_unsharded"]
+        if rank * world != padded or not 0 <= padded - unsharded <= \
+                got[kind + "_pad_max"]:
+            raise AssertionError(
+                f"{tag}: a rank holds {rank} bytes of {kind}, the padded "
+                f"global buckets {padded}, the unsharded {unsharded}")
+
+
+def zt_rank(seed, out_dir, prepare=None):
+    """One rank of phase 14 (a) and (b) (a `spawn` worker): a gloo
+    process group; (a) each ZT_STAGES run, sound and with a planted fault;
+    (b) the tp = 2 language model.  Writes rank<r>.json and, on rank 0,
+    the gathered parameters after each run."""
+    import torch
+    import torch.distributed as tdist
+    if prepare is not None:
+        prepare()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.core import kernel_build
+    kernel_build.build_libraries(KERNEL_SOURCES)  # the parent built them
+    env = pdist.init_parallel_env(backend="gloo")
+    try:
+        torch.cuda.set_device(env.device_id)
+        res = {"rank": env.rank, "world": env.world_size, "zero": {}}
+        for tag, stage, gm in ZT_STAGES:
+            res["zero"][tag] = zt_zero_rank(torch, seed, env.rank, out_dir,
+                                            tag, stage, gm)
+            torch.cuda.empty_cache()
+        res["tp"] = zt_tp_rank(torch, seed, env.rank, out_dir)
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def zt_zero_rank(torch, seed, rank, out_dir, tag, stage, gm):
+    """(a) on one rank at one stage: a sound run, then one with rank 1's
+    gradient buckets zeroed before their reduce-scatter; rank 0 saves the
+    gathered parameters (stage 3: the parameter buckets) after each."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    fx.enable_fused_xent(True)
+    try:
+        main, startup, loss, compiled = zt_program(stage, gm)
+        plan = main._zero_shard_plan
+        names = plan.param_bucket_names() if stage == 3 else \
+            [p.name for p in main.all_parameters()]
+        counters = dp_counters(attn, dr, fx, rnd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_wide(attn)
+        out = {}
+        for run in ("sound", "fault"):
+            out[run], scope = zt_run(
+                torch, static, compiled, startup, loss, seed, rank,
+                counters, fault=run == "fault" and rank == 1)
+            if run == "sound":
+                out["bytes"] = zt_scope_bytes(scope, plan)
+            got = compiled.global_state(scope, names)
+            if rank == 0:
+                torch.save({n: t.cpu() for n, t in got.items()},
+                           os.path.join(out_dir, f"zero_{tag}_{run}.pt"))
+            del scope, got
+        torch.cuda.synchronize()
+        out.update(wide=read_wide(attn),
+                   peak_gpu_mem_gb=torch.cuda.max_memory_allocated()
+                   / 2 ** 30,
+                   buckets=len(plan.buckets),
+                   param_buckets=len(plan.param_bucket_names()),
+                   program_comms=zt_program_comms(compiled))
+    finally:
+        fx.enable_fused_xent(False)
+    return out
+
+
+def zt_run(torch, static, compiled, startup, loss, seed, rank, counters,
+           fault=False, feed=None, steps=DP_STEPS, carry=None):
+    """`steps` Executor.run steps of `compiled` on the global batch from a
+    fresh scope (startup random_seed seed + rank; `carry(scope)` then
+    writes the start), after each: the launches, the collective calls by
+    op and whether the ranks' replicated state (after the last step their
+    whole gathered global state) is bitwise equal (but for gradient
+    merge's full-size accumulators, which hold the rank's own
+    gradients).  `fault`: this rank's gradient buckets are zeroed
+    before their reduce-scatter (the c_reducescatter kernel wrapped).
+    Returns (the record, the scope)."""
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from paddle_tpu_torch.ops.registry import get_op_info
+    feed = feed if feed is not None else train_feed(seed)
+    startup.random_seed = seed + rank
+    exe, scope = static.Executor(), static.Scope()
+    dp_zero(counters)
+    with static.scope_guard(scope):
+        exe.run(startup)
+        if carry is not None:
+            carry(scope)
+    torch.cuda.synchronize()
+    rec = {"philox_at_start": counters["philox_random"].launches,
+           "losses": [], "step_ms": [], "launches": [],
+           "launches_by_dtype": [], "collective_calls": [],
+           "state_tensors_differing_after_each_step": []}
+    # gradient merge's full-size accumulators hold each rank's own
+    # gradients until the commit reduces them (as under plain data
+    # parallel): every other persistable is compared across the ranks
+    program = compiled._get_program()
+    gm = getattr(program, "_gm_meta", None) or {}
+    local = {n for n in gm.get("accs", ())
+             if not program.global_block().var(n).attrs.get("dp_shard")}
+    rec["rank_local_accumulators"] = len(local)
+    from paddle_tpu_torch.static.executor import _persistable_names
+    names = [n for n in _persistable_names(program)
+             if scope.get(n) is not None]
+    replicated = [n for n, p in compiled._placements(names).items()
+                  if p == "replicated"]
+    info = get_op_info("c_reducescatter")
+    kernel = info.kernel
+    if fault:
+        info.kernel = lambda ins, attrs, ctx: kernel(
+            {**ins, "X": torch.zeros_like(ins["X"])}, attrs, ctx)
+    try:
+        with static.scope_guard(scope):
+            for step in range(steps):
+                dp_zero(counters)
+                kc.reset_comm_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = exe.run(compiled, feed=feed, fetch_list=[loss])
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["collective_calls"].append(
+                    dict(kc.COMM_STATS["calls_by_op"]))
+                launches, by_dtype = dp_read(counters)
+                rec["launches"].append(launches)
+                rec["launches_by_dtype"].append(by_dtype)
+                rec["losses"].append(float(np.asarray(out[0]).reshape(-1)[0]))
+                # a gathered shard is the same on every rank by the
+                # all-gather; what may differ is the replicated state, so
+                # it is compared after every step and the whole gathered
+                # state after the last
+                state = compiled.global_state(
+                    scope, replicated if step < steps - 1 else None)
+                rec["state_tensors_differing_after_each_step"].append(
+                    dp_tensors_differing(torch, [
+                        t for n, t in state.items() if n not in local]))
+                del state
+    finally:
+        info.kernel = kernel
+    return rec, scope
+
+
+def zt_tp_rank(torch, seed, rank, out_dir):
+    """(b) on one rank: the tp = 2 language model from the tp = 1
+    program's startup (random_seed = seed), carried in through the
+    CompiledProgram's placement, DP_STEPS steps of the global batch;
+    after each the replicated parameters compared bitwise across the
+    ranks (zt_run's gathered state too).  Rank 0 saves the gathered
+    parameters under their tp = 1 names."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.compiled_program import (
+        CompiledProgram, BuildStrategy)
+    from paddle_tpu_torch.io import load_params_from_numpy
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    main1, startup1, _, _ = zt_tp_program(1)
+    main, startup, loss, params = zt_tp_program(TP_DEGREE)
+    to_tp1 = zt_tp_names(main1, main)
+    counters = dp_counters(attn, dr, fx, rnd)
+    init1, _, _ = startup_weights(torch, static, rnd, startup1, seed)
+    params1 = {n: init1[n] for n in to_tp1.values()}
+    del init1, main1, startup1
+    bs = BuildStrategy()
+    bs.tensor_parallel_degree = TP_DEGREE
+    compiled = CompiledProgram(main, bs).with_data_parallel(
+        loss_name=loss.name)
+
+    def carry(scope):
+        load_params_from_numpy(scope, {n: params1[to_tp1[n]]
+                                       for n in params},
+                               compiled=compiled)
+    fx.enable_fused_xent(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_wide(attn)
+        rec, scope = zt_run(torch, static, compiled, startup, loss, seed,
+                            rank, counters, carry=carry)
+        sharded = [n for n in params
+                   if main.global_block().var(n).attrs.get("dist_attr")]
+        replicated = [n for n in params if n not in sharded]
+        rec["replicated_differing"] = dp_tensors_differing(
+            torch, [scope.vars[n] for n in replicated])
+        rec["sharded_bytes"] = {
+            n: [scope.vars[n].numel() * scope.vars[n].element_size(),
+                int(np.prod(main.global_block().var(n).shape)) * 4]
+            for n in sharded}
+        got = compiled.global_state(scope, params)
+        if rank == 0:
+            torch.save({to_tp1[n]: t.cpu() for n, t in got.items()},
+                       os.path.join(out_dir, "tp_sound.pt"))
+        torch.cuda.synchronize()
+        rec.update(wide=read_wide(attn),
+                   peak_gpu_mem_gb=torch.cuda.max_memory_allocated()
+                   / 2 ** 30,
+                   program_comms=zt_program_comms(compiled),
+                   n_sharded=len(sharded), n_replicated=len(replicated))
+    finally:
+        fx.enable_fused_xent(False)
+    return rec
+
+
+def zt_phase(torch, seed, prepare=None):
+    """(14) ZeRO and tensor parallelism at BERT-base width, global batch
+    TRAIN_BATCH, on DP_RANKS gloo ranks sharing the card: (a) each
+    ZT_STAGES run and (b) the tp = 2 language model against one process;
+    (c) the stage-3 step under NCCL at world 1, eager then run_steps.
+    Returns the records, with each path's launches."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zt_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pdist.spawn(zt_rank, args=(seed, tmp, prepare), nprocs=DP_RANKS,
+                    selected_devices=",".join(["0"] * DP_RANKS))
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        zero = {tag: zt_zero_check(torch, static, fx, rnd, seed, tmp, ranks,
+                                   tag, stage, gm)
+                for tag, stage, gm in ZT_STAGES}
+        tp = zt_tp_check(torch, static, fx, rnd, seed, tmp, ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peaks = {tag: max(r["zero"][tag]["peak_gpu_mem_gb"] for r in ranks)
+             for tag, _, _ in ZT_STAGES}
+    if not peaks["stage3"] < peaks["stage1"]:
+        raise AssertionError(f"ZeRO per-rank peak memory: stage 3 "
+                             f"{peaks['stage3']} GB is not below stage 1 "
+                             f"{peaks['stage1']} GB")
+    nccl, nccl_launches = zt_nccl(torch, static, attn, dr, fx, rnd, seed)
+    for r in ranks:
+        for tag, _, _ in ZT_STAGES:
+            record_wide(f"zero_{tag}_rank{r['rank']}",
+                        r["zero"][tag]["wide"])
+        record_wide(f"tp_rank{r['rank']}", r["tp"]["wide"])
+    r0 = ranks[0]
+    launches = {f"zero_{tag}_gloo_{run}": dp_path_launches(
+        r0["zero"][tag][run]) for tag, _, _ in ZT_STAGES
+        for run in ("sound", "fault")}
+    launches["tp2_gloo"] = dp_path_launches(r0["tp"])
+    launches.update(nccl_launches)
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "zero_tp", "ranks_process_s": spawn_s,
+         "peak_gpu_mem_gb_by_stage": peaks, "seconds": seconds})
+    return {"zero": zero, "tp": tp, "nccl": nccl, "launches": launches,
+            "seconds": seconds}
+
+
+def zt_gate(torch, tag, tmp, kind, before, want, losses, ref_losses,
+            loss_rtol, update_tol, runs=("sound", "fault")):
+    """A sound run within `loss_rtol` (step 1's loss) and `update_tol`
+    (the update gap) of one process, and a planted fault's gap above the
+    latter.  Returns (step 1's relative loss difference, {run: (gap, max
+    abs difference)})."""
+    gaps = {run: dp_update_gap(torch, before, torch.load(
+        os.path.join(tmp, f"{kind}_{run}.pt")), want) for run in runs}
+    rel = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    bad = not np.isfinite(losses).all() or not rel <= loss_rtol or \
+        not gaps["sound"][0] <= update_tol
+    if "fault" in gaps and not gaps["fault"][0] > update_tol:
+        bad = True
+    if bad:
+        raise AssertionError(
+            f"{tag} against one process: losses {losses} / {ref_losses} "
+            f"(step 1 rel {rel}, tolerance {loss_rtol}), update gaps "
+            f"{gaps} (tolerance {update_tol}; a planted fault's must "
+            "exceed it)")
+    return rel, gaps
+
+
+def zt_check_ranks(tag, ranks, get, comms, want_launches, at_start):
+    """One two-rank run's records (`get(rank's json)`): the gathered state
+    equal on the ranks after each step, the same losses, the random
+    kernel's launches at the start, each step's launches and its
+    collective calls by op as the program holds (`comms(rank's json)`)."""
+    for r in ranks:
+        rec = get(r)
+        check_equal(f"{tag} rank {r['rank']} philox_random launches at "
+                    "the start", rec["philox_at_start"], at_start)
+        if any(rec["state_tensors_differing_after_each_step"]):
+            raise AssertionError(
+                f"{tag}: the ranks' gathered state differs after a step: "
+                f"{rec['state_tensors_differing_after_each_step']}")
+        for i, (got, by_dtype, c) in enumerate(zip(
+                rec["launches"], rec["launches_by_dtype"],
+                rec["collective_calls"])):
+            step = f"{tag} rank {r['rank']} step {i}"
+            dp_check_launches(step, got, by_dtype, want_launches)
+            check_equal(f"{step} collective calls by op", c, comms(r))
+    if [get(r)["losses"] for r in ranks][1:] != \
+            [get(ranks[0])["losses"]] * (len(ranks) - 1):
+        raise AssertionError(f"{tag}: the ranks fetched different losses")
+
+
+def zt_zero_check(torch, static, fx, rnd, seed, tmp, ranks, tag, stage, gm):
+    """(a) gated at one stage: each run's records and scope bytes, then
+    the sound run and the fault against one process: the same sharded
+    program with no process group (every collective the identity, the
+    shard the whole bucket), DP_STEPS Executor.run steps from the
+    startup of --seed (rank 0's)."""
+    main, startup, loss, compiled = zt_program(stage, gm)
+    n_random = sum(op.type in ("uniform_random", "gaussian_random")
+                   for op in startup.global_block().ops)
+    for run in ("sound", "fault"):
+        zt_check_ranks(f"ZeRO {tag} ({run})", ranks,
+                       lambda r: r["zero"][tag][run],
+                       lambda r: r["zero"][tag]["program_comms"],
+                       dp_want(), n_random)
+    for r in ranks:
+        zt_check_bytes(f"ZeRO {tag} rank {r['rank']}",
+                       r["zero"][tag]["bytes"], DP_RANKS)
+    plan = main._zero_shard_plan
+    names = plan.param_bucket_names() if stage == 3 else \
+        [p.name for p in main.all_parameters()]
+    fx.enable_fused_xent(True)
+    try:
+        init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+        losses, scope, ms, _ = eager_run(torch, static, compiled._program,
+                                         loss, init, train_feed(seed),
+                                         DP_STEPS)
+    finally:
+        fx.enable_fused_xent(False)
+    want = {n: scope.vars[n] for n in names}
+    before = {n: init[n] for n in names}
+    dp = ranks[0]["zero"][tag]["sound"]
+    rel, gaps = zt_gate(torch, f"ZeRO {tag}", tmp, f"zero_{tag}", before,
+                        want, dp["losses"], losses, DP_LOSS_RTOL["static"],
+                        DP_UPDATE_TOL["static"])
+    res = {"config": "bert-base pretrain, fleet amp (bf16) + sharding "
+                     f"(ZeRO stage {stage}"
+                     + (f", gradient merge k = {gm}" if gm > 1 else "")
+                     + f") + Adam 1e-4, flash + fused CE, {DP_RANKS} gloo "
+                     "ranks on one card",
+           "global_batch": TRAIN_BATCH, "losses": dp["losses"],
+           "single_process_losses": losses, "step1_loss_rel_diff": rel,
+           "update_gap": gaps["sound"][0],
+           "param_max_abs_diff": gaps["sound"][1],
+           "fault_losses": ranks[0]["zero"][tag]["fault"]["losses"],
+           "fault_update_gap": gaps["fault"][0],
+           "single_process_step_ms": ms,
+           "step_ms_by_rank": [r["zero"][tag]["sound"]["step_ms"]
+                               for r in ranks],
+           "buckets": ranks[0]["zero"][tag]["buckets"],
+           "param_buckets": ranks[0]["zero"][tag]["param_buckets"],
+           "collective_calls_per_step_by_op":
+               ranks[0]["zero"][tag]["program_comms"],
+           "bytes_by_rank": [r["zero"][tag]["bytes"] for r in ranks],
+           "peak_gpu_mem_gb_by_rank": [r["zero"][tag]["peak_gpu_mem_gb"]
+                                       for r in ranks],
+           "launches_per_step": dp["launches"][-1],
+           "ranks_state_bitwise_equal": "replicated after each step, gathered after the last"}
+    log({"phase": f"zero_{tag}", **res})
+    return res
+
+
+def zt_tp_check(torch, static, fx, rnd, seed, tmp, ranks):
+    """(b) gated: the records (launches, collective calls, the ranks'
+    gathered state and replicated parameters bitwise equal, each sharded
+    weight's bytes halved), then against the tp = 1 program of the same
+    weights in one process, DP_STEPS steps of the global batch."""
+    main1, startup1, loss1, params1 = zt_tp_program(1)
+    n_random = sum(op.type in ("uniform_random", "gaussian_random")
+                   for op in zt_tp_program(TP_DEGREE)[1].global_block().ops)
+    zt_check_ranks("tensor parallel", ranks, lambda r: r["tp"],
+                   lambda r: r["tp"]["program_comms"], dp_want(), n_random)
+    for r in ranks:
+        rec = r["tp"]
+        if rec["replicated_differing"]:
+            raise AssertionError(f"tensor parallel rank {r['rank']}: "
+                                 f"{rec['replicated_differing']} replicated "
+                                 "parameters differ across the ranks")
+        for n, (held, whole) in rec["sharded_bytes"].items():
+            if held * TP_DEGREE != whole:
+                raise AssertionError(f"tensor parallel rank {r['rank']}: "
+                                     f"{n} holds {held} of {whole} bytes")
+    fx.enable_fused_xent(True)
+    try:
+        init, _, _ = startup_weights(torch, static, rnd, startup1, seed)
+        losses, scope, ms, _ = eager_run(torch, static, main1, loss1, init,
+                                         train_feed(seed), DP_STEPS)
+    finally:
+        fx.enable_fused_xent(False)
+    want = {n: scope.vars[n] for n in params1}
+    before = {n: init[n] for n in params1}
+    tp = ranks[0]["tp"]
+    rel, gaps = zt_gate(torch, "tensor parallel", tmp, "tp", before, want,
+                        tp["losses"], losses, TP_LOSS_RTOL, TP_UPDATE_TOL,
+                        runs=("sound",))
+    res = {"config": "models.build_transformer_lm(30522, 768, 12, 12, 512, "
+                     f"tensor_parallel_degree={TP_DEGREE}), AMP bf16 + Adam "
+                     "1e-4, flash + fused CE, 2 gloo ranks on one card, "
+                     "weights carried from the tp = 1 program",
+           "global_batch": TRAIN_BATCH, "losses": tp["losses"],
+           "tp1_single_process_losses": losses, "step1_loss_rel_diff": rel,
+           "loss_rtol": TP_LOSS_RTOL, "update_gap": gaps["sound"][0],
+           "update_tol": TP_UPDATE_TOL,
+           "param_max_abs_diff": gaps["sound"][1],
+           "tp1_single_process_step_ms": ms,
+           "step_ms_by_rank": [r["tp"]["step_ms"] for r in ranks],
+           "collective_calls_per_step_by_op": tp["program_comms"],
+           "sharded_weights": tp["n_sharded"],
+           "replicated_parameters": tp["n_replicated"],
+           "sharded_bytes_rank0_of_whole": sum(
+               h for h, _ in tp["sharded_bytes"].values()) / sum(
+               w for _, w in tp["sharded_bytes"].values()),
+           "peak_gpu_mem_gb_by_rank": [r["tp"]["peak_gpu_mem_gb"]
+                                       for r in ranks],
+           "launches_per_step": tp["launches"][-1],
+           "ranks_state_bitwise_equal": "replicated after each step, gathered after the last"}
+    log({"phase": "tp", **res})
+    return res
+
+
+def zt_nccl(torch, static, attn, dr, fx, rnd, seed):
+    """(c) the stage-3 step under NCCL at world 1 in this process: DP_EAGER
+    eager Executor.run steps and two run_steps calls of K = DP_K (the
+    first captures one CUDA graph of the step, its reduce-scatters and
+    all-gathers included, the second replays it) against DP_EAGER + 2
+    DP_K plain Executor steps of the same program from the same weights:
+    every loss equal to the last bit.  The collectives reach the NCCL
+    group: each eager step, and the capturing call's warm-up and captured
+    step, call one reduce-scatter a bucket, one all-gather a bucket and
+    phase, and one allreduce for the loss fetch (the first step also the
+    start broadcast); the replaying call calls none."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed.spawn import get_free_ports
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from paddle_tpu_torch.static.executor import _persistable_names
+    port = get_free_ports(1)[0]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0)
+    fx.enable_fused_xent(True)
+    try:
+        check_equal("NCCL world 1 backend",
+                    tdist.get_backend(kc.ring_group(0)), "nccl")
+        main, startup, loss, compiled = zt_program(3, 1)
+        init, philox, _ = startup_weights(torch, static, rnd, startup, seed)
+        feed = train_feed(seed)
+        n = DP_EAGER + 2 * DP_K
+        plain, _, plain_ms, _ = eager_run(torch, static, compiled._program,
+                                          loss, init, feed, n)
+        ops = compiled._get_program().global_block().ops
+        kinds = {"c_reducescatter": "reduce_scatter",
+                 "c_allgather": "all_gather", "c_allreduce_sum": "all_reduce"}
+        step_calls = {}
+        for op in ops:
+            if op.type in kinds:
+                k = kinds[op.type]
+                step_calls[k] = step_calls.get(k, 0) + 1
+        step_calls["all_reduce"] = step_calls.get("all_reduce", 0) + 1
+        counters = dp_counters(attn, dr, fx, rnd)
+        want = dp_want()
+        exe = static.Executor()
+        scope = scope_of(static, init)
+        start_broadcasts = sum(scope.get(v) is not None for v in
+                               _persistable_names(compiled._get_program()))
+        stacked = {k: np.stack([v] * DP_K) for k, v in feed.items()}
+        eager, calls, launches, by_dtype = [], [], [], []
+
+        def count():
+            got, dt = dp_read(counters)
+            launches.append(got)
+            by_dtype.append(dt)
+            calls.append(dict(kc.COMM_STATS["calls_by_kind"]))
+            dp_zero(counters)
+            kc.reset_comm_stats()
+        zero_wide(attn)
+        dp_zero(counters)
+        kc.reset_comm_stats()
+        with static.scope_guard(scope):
+            for _ in range(DP_EAGER):
+                out = exe.run(compiled, feed=feed, fetch_list=[loss])
+                eager.append(float(np.asarray(out[0]).reshape(-1)[0]))
+                count()
+            first = exe.run_steps(compiled, feed=stacked,
+                                  fetch_list=[loss])[0]
+            count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            second = exe.run_steps(compiled, feed=stacked,
+                                   fetch_list=[loss])[0]
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t0) * 1e3 / DP_K
+            count()
+        stats = exe.cache_stats()
+        exe.close()
+        record_wide("zero_nccl", read_wide(attn))
+    finally:
+        fx.enable_fused_xent(False)
+        tdist.destroy_process_group()
+    replayed = np.concatenate([np.asarray(first, np.float32).reshape(-1),
+                               np.asarray(second, np.float32).reshape(-1)])
+    got = np.concatenate([np.asarray(eager, np.float32), replayed])
+    if not np.array_equal(got, np.asarray(plain, np.float32)):
+        raise AssertionError(f"ZeRO-3 NCCL world 1: losses {got.tolist()} "
+                             f"against the plain Executor's {plain}")
+    for i in range(DP_EAGER):
+        dp_check_launches(f"ZeRO-3 NCCL eager step {i}", launches[i],
+                          by_dtype[i], want)
+        check_equal(f"ZeRO-3 NCCL eager step {i} collective calls",
+                    calls[i], {**step_calls, "broadcast": start_broadcasts}
+                    if i == 0 else step_calls)
+    dp_check_launches("ZeRO-3 NCCL run_steps capturing call",
+                      launches[DP_EAGER], by_dtype[DP_EAGER],
+                      {k: 2 * v for k, v in want.items()})
+    check_equal("ZeRO-3 NCCL run_steps capturing call collective calls",
+                calls[DP_EAGER], {k: 2 * v for k, v in step_calls.items()})
+    check_equal("ZeRO-3 NCCL run_steps replaying call collective calls",
+                calls[DP_EAGER + 1], {})
+    check_equal("ZeRO-3 NCCL run_steps captures", stats["traces"], 1)
+    res = {"config": "bert-base pretrain, fleet amp (bf16) + sharding (ZeRO "
+                     f"stage 3, dp_degree {DP_RANKS}) + Adam 1e-4, flash + "
+                     "fused CE, CompiledProgram under NCCL, world size 1",
+           "batch": TRAIN_BATCH, "eager_losses": eager,
+           "replayed_losses": replayed.tolist(), "plain_losses": plain,
+           "bitwise_equal": True, "replayed_step_ms": replay_ms,
+           "plain_eager_step_ms": plain_ms,
+           "collective_calls": {"eager_steps": calls[:DP_EAGER],
+                                "capturing_call": calls[DP_EAGER],
+                                "replaying_call": calls[DP_EAGER + 1]},
+           "launches_per_eager_step": launches[DP_EAGER - 1],
+           "launches_in_capturing_call": launches[DP_EAGER],
+           "cache_stats": stats}
+    log({"phase": "zero_nccl", **res})
+    at_start = {"philox_at_start": philox}
+    return res, {
+        "zero3_nccl_eager_step": {"launches": launches[DP_EAGER - 1],
+                                  "by_dtype": by_dtype[DP_EAGER - 1],
+                                  **at_start},
+        "zero3_nccl_capturing_call": {"launches": launches[DP_EAGER],
+                                      "by_dtype": by_dtype[DP_EAGER],
+                                      **at_start}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5449,6 +6181,7 @@ def main():
     baseline = baseline_phase(torch, args.seed)
     breadth = breadth_phase(torch, args.seed)
     dp = dp_phase(torch, args.seed)
+    zt = zt_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -5533,7 +6266,10 @@ def main():
                  for v, _ in RECIPE_VARIANTS) + tuple(
                  f"dygraph_{v[0]}" for v in DYGRAPH_VARIANTS) + tuple(
                  f"baseline_{v}" for v in baseline) + (
-                     "breadth", "dp_static", "dp_dygraph", "dp_nccl")
+                     "breadth", "dp_static", "dp_dygraph", "dp_nccl") + tuple(
+                 f"zero_{tag}_rank{r}" for tag, _, _ in ZT_STAGES
+                 for r in range(DP_RANKS)) + tuple(
+                 f"tp_rank{r}" for r in range(DP_RANKS)) + ("zero_nccl",)
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -5603,6 +6339,27 @@ def main():
             got = {p: extra["launches_by_path_all_dtypes"][p]
                    for p in ("dp_static", "dp_dygraph", "dp_nccl")}
         extra["phase13_launches"] = got
+    # phase 14: the same on its paths: a rank-step of each ZeRO run
+    # (sound and faulted) and of the tp = 2 run, an eager step and the
+    # capturing call of the stage-3 NCCL run
+    zt_paths = zt["launches"]
+    wide_zt = tuple(p for p in paths if p.startswith(("zero_", "tp_rank")))
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {p: r["by_dtype"][base].get(dt, 0)
+                   for p, r in zt_paths.items()}
+        elif name == "dropout_philox":
+            got = {p: r["launches"][name] for p, r in zt_paths.items()}
+        elif name == "philox_random":
+            got = {p: {"per_step": r["launches"][name],
+                       "at_start": r["philox_at_start"]}
+                   for p, r in zt_paths.items()}
+        else:  # head dims above 128: over each whole path, all dtypes
+            got = {p: extra["launches_by_path_all_dtypes"][p]
+                   for p in wide_zt}
+        extra["phase14_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

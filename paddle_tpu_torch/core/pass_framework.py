@@ -1,8 +1,9 @@
 """Graph pass framework — registry + pipeline over Program IR.
 
 Copy of paddle_tpu/core/pass_framework.py (the registry, PassContext,
-apply_passes, the applied-pass history and `finish_pass`, the epilogue of
-a program rewrite such as gradient merge), without the verifier hook
+apply_passes, the applied-pass history, `built_tp_degree` and
+`finish_pass`, the epilogue of a program rewrite such as gradient merge
+or ZeRO sharding), without the verifier hook
 (static/verifier.py's post-rewrite self-check, ROADMAP.md Queue 1, Analysis and planner tiers).
 Passes walk and rewrite the IR only; no tensor math happens here.
 """
@@ -14,7 +15,7 @@ from .program import Program
 
 __all__ = ["register_pass", "get_pass", "apply_passes", "PassContext",
            "all_passes", "record_applied", "applied_passes", "has_applied",
-           "finish_pass"]
+           "finish_pass", "built_tp_degree"]
 
 _PASSES: Dict[str, Callable] = {}
 
@@ -55,6 +56,18 @@ def applied_passes(program: Program) -> List[dict]:
 
 def has_applied(program: Program, name: str) -> bool:
     return any(e.get("pass") == name for e in applied_passes(program))
+
+
+def built_tp_degree(program: Program) -> int:
+    """The tensor-parallel degree a program was BUILT with (0 for plain
+    builds): the `tensor_parallel` builders record themselves in this
+    registry and stamp their ops with ``tp_degree``."""
+    d = max([int(e.get("tp_degree") or 0) for e in applied_passes(program)
+             if e.get("pass") == "tensor_parallel"] or [0])
+    if d:
+        return d
+    return max([int(op.attrs.get("tp_degree") or 0)
+                for b in program.blocks for op in b.ops] or [0])
 
 
 def finish_pass(program: Program, name: str, startup=None, **meta) -> dict:

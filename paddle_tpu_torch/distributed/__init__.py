@@ -5,15 +5,16 @@ Counterpart of paddle_tpu/distributed/: the collective API
 of a launched rank (parallel.py: `init_parallel_env`, `DataParallel`;
 parallel_env.py: the PADDLE_* contract), the launchers (spawn.py,
 launch.py, launch_utils.py), `CompiledProgram.with_data_parallel`
-(compiled_program.py) and fleet's collective mode with its
-meta-optimizers (fleet/).  The JAX package is one controller over a
+(compiled_program.py: data parallel, ZeRO stages 1-3 and dp×tp tensor
+parallelism), the ZeRO rewrite (sharding.py) with its rule engine
+(partition_spec.py), the Megatron layers (tensor_parallel.py) and
+fleet's collective mode with its meta-optimizers (fleet/).  The JAX package is one controller over a
 mesh; the port runs one process a rank over torch.distributed: NCCL for
 CUDA tensors where each rank has a device of its own, gloo otherwise.
 
-Not ported yet (ROADMAP.md Queue 1, Distribution): ZeRO (sharding.py,
-partition_spec.py), tensor parallel, scan_window, ring attention,
-elastic training and fleet_control, pipeline/ and the parameter-server
-tier.
+Not ported yet (ROADMAP.md Queue 1, Distribution): tp decode
+(serving), scan_window, ring attention, elastic training and
+fleet_control, pipeline/ and the parameter-server tier.
 """
 from .collective import (  # noqa: F401
     ReduceOp, broadcast, all_reduce, reduce, all_gather, scatter, barrier,
@@ -26,5 +27,13 @@ from .parallel import (  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from .compiled_program import (  # noqa: F401
     CompiledProgram, BuildStrategy, ExecutionStrategy,
+)
+from .sharding import (  # noqa: F401
+    shard_optimizer_states, ShardingPlan, unshard_state, reshard_state,
+)
+from .partition_spec import (  # noqa: F401
+    match_partition_rules, zero_stage_rules, build_sharding_specs,
+    tensor_parallel_rules, PartitionRule, REPLICATED, DP_SHARD,
+    MP_COL, MP_ROW,
 )
 from . import fleet  # noqa: F401

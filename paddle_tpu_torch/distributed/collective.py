@@ -274,6 +274,9 @@ def wait(tensor, group=None, use_calc_stream=True):
 
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
+    """paddle.distributed.split: refused, as the JAX package refuses it;
+    the tensor-parallel layers are distributed/tensor_parallel.py's."""
     raise NotImplementedError(
-        f"paddle.distributed.split (tensor-parallel layers) is not ported "
-        f"yet ({_LATER})")
+        "paddle_tpu_torch: use the tensor-parallel layers of "
+        "paddle_tpu_torch.distributed.tensor_parallel (mesh axis 'mp') "
+        "instead of split()")

@@ -22,13 +22,14 @@ What each rank does on `Executor.run(compiled, feed, fetch_list)`:
     replicas start equal however each scope was filled.
   * **Feed.** Every rank is handed the same global feed, as the JAX
     package's run is, and keeps its dim-0 shard where dim 0 divides by
-    the world size W, the whole array otherwise (the JAX package's
+    the dp degree, the whole array otherwise (the JAX package's
     `place_feed` rule).  `run_steps` shards the per-step axis 1 and
     raises where it does not divide, as the JAX package's scan does.
-  * **Seed.** The step seed plus the rank, as the JAX package
-    decorrelates the replicas' draws.
+  * **Seed.** The step seed plus the dp index, as the JAX package
+    decorrelates the replicas' draws (the tp ranks of one dp index draw
+    alike).
   * **Fetches.** BuildStrategy.fetch_aggregation "reduce": float fetches
-    are the mean over the ranks, others the max; "concat": gathered
+    are the mean over the dp ranks, others the max; "concat": gathered
     along dim 0 in rank order, a scalar stacked to [W].
 
 `Executor.run_steps(compiled, ...)` under NCCL captures one step, its
@@ -37,15 +38,33 @@ replays it K times; a failed capture raises.  Under gloo (host
 collectives, which a graph cannot hold) and on the CPU the K steps run
 eagerly, one `run` each.
 
+The world is a dp × tp grid (BuildStrategy.tensor_parallel_degree = tp,
+dp = W / tp): rank r has dp index r // tp and tp index r % tp, the JAX
+mesh's `devs.reshape(dp, tp)` order.  Ring 0 is the rank's dp group
+(the ranks of its tp index) and TP_RING_ID (102) its tp group (the ranks
+of its dp index); every rank makes every group, in the same order.  At
+tp = 1 ring 0 is the whole world and TP_RING_ID the identity.
+
+State lives sharded, as the JAX package's `shard_map` places it
+(partition_spec.state_partition_specs decides): after the start
+broadcast each rank's scope keeps its dp slice of dim 0 of a `dp_shard`
+var (ZeRO's buckets, distributed/sharding.py), its tp slice of a
+`dist_attr` parameter (tensor_parallel.shard_param) and of the
+accumulators that inherit from it, and everything else whole.
+`global_state(scope)` gathers a rank's scope back to the global arrays
+the JAX package's scope holds.  A scope already holding shards (the
+carry function, io.load_params_from_numpy(..., compiled=)) is synced
+within the ranks that share each shard.
+
 Not ported (ROADMAP.md Queue 1, Distribution; each raises):
-sequence_parallel_degree or tensor_parallel_degree above 1, ZeRO
-programs (`dp_shard` vars), elastic programs (`_elastic_meta`) and
-sync_batch_norm.  The BuildStrategy knobs the JAX package leaves to XLA
+sequence_parallel_degree above 1, elastic programs (`_elastic_meta`)
+and sync_batch_norm.  The BuildStrategy knobs the JAX package leaves to XLA
 (fusions, memory options, debug_graphviz_path) are accepted and do
 nothing here either.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import weakref
 from typing import Any, Dict, List
@@ -55,6 +74,9 @@ import torch
 
 from ..core.program import Program, OpRole, unique_name
 from ..ops.kernels import collective as _kc
+from .partition_spec import (Mesh, PLACE_REPLICATED, state_partition_specs,
+                             feed_partition_specs)
+from .tensor_parallel import TP_RING_ID
 
 __all__ = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy",
            "insert_grad_allreduce"]
@@ -241,12 +263,85 @@ def insert_grad_allreduce(program: Program, num_replicas_axis="dp",
 
 
 def _shard_rows(v, axis: int, w: int, r: int):
-    """Rank r's slice of `v` along `axis` (a numpy array or a tensor)."""
+    """Rank r's slice of `v` along `axis` (a numpy array or a tensor; a
+    tensor's slice is a copy, so the whole array can be freed)."""
     n = v.shape[axis] // w
     if isinstance(v, torch.Tensor):
-        return v.narrow(axis, r * n, n).contiguous()
+        return v.narrow(axis, r * n, n).clone(
+            memory_format=torch.contiguous_format)
     return np.ascontiguousarray(
         np.take(v, np.arange(r * n, (r + 1) * n), axis=axis))
+
+
+class _World:
+    """One rank's place in the dp × tp grid and its groups (None where
+    no process group is initialised)."""
+
+    def __init__(self, tp: int):
+        import torch.distributed as dist
+        self.tp = max(1, int(tp))
+        self.whole = None
+        w, r = 1, 0
+        if dist.is_available() and dist.is_initialized():
+            self.whole = dist.group.WORLD
+            w, r = dist.get_world_size(), dist.get_rank()
+        if w % self.tp:
+            raise ValueError(
+                f"BuildStrategy.tensor_parallel_degree={self.tp} does not "
+                f"divide the world of {w} ranks")
+        self.size = w
+        self.dp = w // self.tp
+        self.dp_index, self.tp_index = r // self.tp, r % self.tp
+        self.dp_group, self.tp_group = self.whole, None
+        if self.whole is not None and self.tp > 1:
+            # every rank makes every group, in the same order
+            for t in range(self.tp):
+                g = dist.new_group([d * self.tp + t for d in range(self.dp)])
+                if t == self.tp_index:
+                    self.dp_group = g
+            for d in range(self.dp):
+                g = dist.new_group([d * self.tp + t for t in range(self.tp)])
+                if d == self.dp_index:
+                    self.tp_group = g
+        self.mesh = Mesh({"dp": self.dp, "tp": self.tp} if self.tp > 1
+                         else {"dp": self.dp})
+
+    def __deepcopy__(self, memo):
+        # process groups are handles of this process: a program deep copy
+        # (insert_grad_allreduce) that reaches the CompiledProgram (fleet
+        # keeps it on the program) shares them
+        return self
+
+    def index(self, axis):
+        return self.dp_index if axis == "dp" else self.tp_index
+
+    def degree(self, axis):
+        return self.dp if axis == "dp" else self.tp
+
+    def group(self, axis):
+        return self.dp_group if axis == "dp" else self.tp_group
+
+    def sharers(self, axis):
+        """The group of the ranks that hold the same `axis` shard."""
+        return self.tp_group if axis == "dp" else self.dp_group
+
+    @contextlib.contextmanager
+    def bind(self):
+        """Ring 0 and TP_RING_ID bound to this rank's dp and tp groups
+        while a step runs (the bindings before are restored after)."""
+        rings = {0: self.dp_group, TP_RING_ID: self.tp_group} \
+            if self.tp > 1 else {TP_RING_ID: None}
+        saved = {k: _kc._RINGS[k] for k in rings if k in _kc._RINGS}
+        for k, g in rings.items():
+            _kc.register_ring(k, g)
+        try:
+            yield
+        finally:
+            for k in rings:
+                if k in saved:
+                    _kc._RINGS[k] = saved[k]
+                else:
+                    _kc._RINGS.pop(k, None)
 
 
 class CompiledProgram:
@@ -262,7 +357,8 @@ class CompiledProgram:
         self._places = None
         self._share_vars_from = None
         self._rewritten = None
-        self._synced = weakref.WeakSet()  # scopes broadcast from rank 0
+        self._world = None
+        self._synced = weakref.WeakSet()  # scopes synced and sharded
 
     def with_data_parallel(self, loss_name=None, build_strategy=None,
                            exec_strategy=None, share_vars_from=None,
@@ -277,26 +373,23 @@ class CompiledProgram:
         return self
 
     # -- the world ---------------------------------------------------------
-    @staticmethod
-    def _group():
-        return _kc.ring_group(0)
+    def _get_world(self) -> _World:
+        if self._world is None:
+            self._check_supported()
+            self._world = _World(int(getattr(
+                self._build_strategy, "tensor_parallel_degree", 1)))
+        return self._world
 
     def _check_supported(self):
         bs = self._build_strategy
-        for knob in ("sequence_parallel_degree", "tensor_parallel_degree"):
-            if int(getattr(bs, knob, 1)) > 1:
-                raise NotImplementedError(
-                    f"BuildStrategy.{knob} > 1 (sequence / tensor "
-                    f"parallel) is not ported yet ({_LATER})")
+        if int(getattr(bs, "sequence_parallel_degree", 1)) > 1:
+            raise NotImplementedError(
+                f"BuildStrategy.sequence_parallel_degree > 1 (sequence "
+                f"parallel) is not ported yet ({_LATER})")
         if bs.sync_batch_norm:
             raise NotImplementedError(
                 f"BuildStrategy.sync_batch_norm is not ported yet "
                 f"({_LATER})")
-        if any(v.attrs.get("dp_shard") for b in self._program.blocks
-               for v in b.vars.values()):
-            raise NotImplementedError(
-                f"ZeRO programs (shard_optimizer_states, dp_shard vars) "
-                f"are not ported yet ({_LATER})")
         if getattr(self._program, "_elastic_meta", None) is not None:
             raise NotImplementedError(
                 f"elastic programs (elasticize) are not ported yet "
@@ -310,8 +403,8 @@ class CompiledProgram:
         """The program each rank runs (rewritten once, at the first run:
         the world is read then)."""
         if self._rewritten is None:
-            self._check_supported()
-            n = _kc.world_of(self._group())
+            world = self._get_world()
+            n = world.size
             if self._places is not None and len(self._places) != n:
                 raise ValueError(
                     f"with_data_parallel(places=...) names "
@@ -326,17 +419,90 @@ class CompiledProgram:
                 self._rewritten = self._program
         return self._rewritten
 
-    def _sync_start(self, scope, state_names, group):
-        """Broadcast every persistable in `scope` from rank 0, once a
-        scope."""
-        if group is None or scope in self._synced:
+    # -- placement ---------------------------------------------------------
+    def _placements(self, names):
+        return state_partition_specs(self._get_program(),
+                                     self._get_world().mesh, names)
+
+    def _declared(self, name):
+        try:
+            return tuple(self._get_program().global_block().var(name).shape
+                         or ())
+        except KeyError:
+            return None
+
+    def _is_global(self, name, t, place) -> bool:
+        """Whether `t` (the scope's value of `name`) is the whole array
+        rather than this rank's shard of it."""
+        axis, dim = place
+        shape = self._declared(name)
+        if not shape or shape[dim] is None or int(shape[dim]) < 0:
+            return True
+        return int(t.shape[dim]) == int(shape[dim])
+
+    def shard_of(self, name, value):
+        """This rank's shard of the global array `value` of persistable
+        `name` (the value itself where the var is replicated)."""
+        place = self._placements([name])[name]
+        if place == PLACE_REPLICATED:
+            return value
+        world = self._get_world()
+        axis, dim = place
+        return _shard_rows(value, dim, world.degree(axis), world.index(axis))
+
+    def _sync_start(self, scope, state_names, world):
+        """Once a scope: every persistable broadcast from rank 0 and cut
+        to this rank's shard; a value that already is a shard is
+        broadcast within the ranks that share it."""
+        if scope in self._synced:
             return
+        places = self._placements(state_names)
         for n in state_names:
-            scope.set(n, _kc.broadcast(scope.get(n), 0, group))
+            t, place = scope.get(n), places[n]
+            if place == PLACE_REPLICATED:
+                if world.whole is not None:
+                    scope.set(n, _kc.broadcast(t, 0, world.whole))
+                continue
+            axis, dim = place
+            if self._is_global(n, t, place):
+                if world.whole is not None:
+                    t = _kc.broadcast(t, 0, world.whole)
+                if world.degree(axis) > 1:
+                    t = _shard_rows(t, dim, world.degree(axis),
+                                    world.index(axis))
+            elif world.sharers(axis) is not None:
+                t = _kc.broadcast(t, 0, world.sharers(axis))
+            scope.set(n, t)
         self._synced.add(scope)
 
+    def global_state(self, scope=None, names=None) -> Dict[str, Any]:
+        """The persistables of `scope` (default: the global scope) in
+        their global layout, as the JAX package's scope holds them: each
+        shard gathered over its axis's group.  Every rank must call it
+        (it runs collectives), in the same order."""
+        from ..static.executor import global_scope, _persistable_names
+        scope = scope or global_scope()
+        world = self._get_world()
+        if names is None:
+            names = [n for n in _persistable_names(self._get_program())
+                     if scope.get(n) is not None]
+        places = self._placements(names)
+        out = {}
+        for n in names:
+            t, place = scope.get(n), places[n]
+            if place == PLACE_REPLICATED or self._is_global(n, t, place):
+                out[n] = t
+                continue
+            axis, dim = place
+            g = world.group(axis)
+            moved = t.movedim(dim, 0)
+            out[n] = _kc.gather_rows(moved, g).movedim(0, dim).contiguous() \
+                if g is not None else t
+        return out
+
     def _aggregate(self, fetched, group):
-        """The fetches across the ranks (BuildStrategy.fetch_aggregation)."""
+        """The fetches across the dp ranks
+        (BuildStrategy.fetch_aggregation)."""
         w = _kc.world_of(group)
         out = []
         for v in fetched:
@@ -357,64 +523,75 @@ class CompiledProgram:
     def _prepare(self, scope):
         from ..static.executor import _persistable_names
         program = self._get_program()
-        group = self._group()
+        world = self._get_world()
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
-        self._sync_start(scope, state_names, group)
-        return program, group
+        self._sync_start(scope, state_names, world)
+        return program, world
+
+    def _local_feed(self, program, feed, world, axis_offset=0):
+        """Each feed cut as its placement says: a batch to this rank's dp
+        rows (where they divide), a tp-placed feed to its tp slice."""
+        places = feed_partition_specs(program, world.mesh, list(feed))
+        local = {}
+        for n, v in feed.items():
+            if not isinstance(v, torch.Tensor):
+                v = np.asarray(v)
+            place = places[n]
+            if place != PLACE_REPLICATED and v.ndim > place[1] + \
+                    axis_offset:
+                axis, dim = place
+                dim += axis_offset
+                deg = world.degree(axis)
+                if axis_offset and axis == "dp" and v.shape[dim] % deg:
+                    raise ValueError(
+                        f"run_steps feed {n!r} per-step batch "
+                        f"{v.shape[dim]} does not divide the dp world "
+                        f"{deg} (stacked feeds shard axis 1 over dp, like "
+                        "run() shards axis 0)")
+                if v.shape[dim] % deg == 0:
+                    v = _shard_rows(v, dim, deg, world.index(axis))
+            local[n] = v
+        return local
 
     # -- Executor.run / run_steps ------------------------------------------
     def _run(self, executor, feed, fetch_list, scope, return_numpy):
         from ..static.executor import global_scope, as_numpy, _fetch_names
         scope = scope or global_scope()
-        program, group = self._prepare(scope)
-        w, r = _kc.world_of(group), _kc.rank_of(group)
-        local = {}
-        for n, v in (feed or {}).items():
-            if not isinstance(v, torch.Tensor):
-                v = np.asarray(v)
-            if v.ndim >= 1 and v.shape[0] % w == 0:
-                v = _shard_rows(v, 0, w, r)
-            local[n] = v
-        fetched = self._step(executor, program, local, _fetch_names(
-            fetch_list), scope, group, r)
+        program, world = self._prepare(scope)
+        local = self._local_feed(program, feed or {}, world)
+        with world.bind():
+            fetched = self._step(executor, program, local, _fetch_names(
+                fetch_list), scope, world)
         return as_numpy(fetched) if return_numpy else fetched
 
-    def _step(self, executor, program, feed, fetch_names, scope, group, r):
-        seed = executor._seed_for_step(program) + r
+    def _step(self, executor, program, feed, fetch_names, scope, world):
+        seed = executor._seed_for_step(program) + world.dp_index
         fetched = executor._run_program(program, feed, fetch_names, scope,
                                         seed)
         executor._step += 1
-        return self._aggregate(fetched, group)
+        return self._aggregate(fetched, world.dp_group)
 
     def _run_steps(self, executor, stacked, k, fetch_names, scope):
         """K steps from feeds stacked [K, global batch, ...] (device
         tensors): the stacked fetches.  NCCL (or no process group) on
         CUDA: one captured step replayed; gloo or CPU: K eager steps."""
-        program, group = self._prepare(scope)
-        w, r = _kc.world_of(group), _kc.rank_of(group)
-        local = {}
-        for n, v in stacked.items():
-            if v.dim() >= 2:
-                if v.shape[1] % w:
-                    raise ValueError(
-                        f"run_steps feed {n!r} per-step batch "
-                        f"{v.shape[1]} does not divide the dp world {w} "
-                        "(stacked feeds shard axis 1 over dp, like run() "
-                        "shards axis 0)")
-                v = _shard_rows(v, 1, w, r)
-            local[n] = v
+        program, world = self._prepare(scope)
+        local = self._local_feed(program, stacked, world, axis_offset=1)
         import torch.distributed as dist
-        gloo = group is not None and dist.get_backend(group) == "gloo"
-        if executor.device.type == "cuda" and not gloo:
-            agg = self._build_strategy.fetch_aggregation
-            return executor._replay_steps(
-                program, local, k, fetch_names, scope, seed_offset=r,
-                finish=lambda f: self._aggregate(f, group),
-                key_extra=("data_parallel", agg, w))
-        steps = [self._step(executor, program,
-                            {n: v[i] for n, v in local.items()},
-                            fetch_names, scope, group, r)
-                 for i in range(k)]
+        gloo = world.whole is not None and \
+            dist.get_backend(world.whole) == "gloo"
+        with world.bind():
+            if executor.device.type == "cuda" and not gloo:
+                agg = self._build_strategy.fetch_aggregation
+                return executor._replay_steps(
+                    program, local, k, fetch_names, scope,
+                    seed_offset=world.dp_index,
+                    finish=lambda f: self._aggregate(f, world.dp_group),
+                    key_extra=("data_parallel", agg, world.size, world.tp))
+            steps = [self._step(executor, program,
+                                {n: v[i] for n, v in local.items()},
+                                fetch_names, scope, world)
+                     for i in range(k)]
         return [torch.stack([s[j] for s in steps])
                 for j in range(len(fetch_names))]

@@ -12,9 +12,10 @@ Counterpart of paddle_tpu/distributed/fleet/__init__.py:
 
 `fleet.main_program` is a CompiledProgram with data parallel over the
 process group (one process a rank).  The meta-optimizers: lars, lamb,
-dgc, recompute, amp, fp16_allreduce, gradient_merge, localsgd and
-adaptive_localsgd; sharding (ZeRO), pipeline and the parameter server
-raise (ROADMAP.md Queue 1, Distribution).
+dgc, recompute, amp, fp16_allreduce, sharding (ZeRO stages 1-3),
+gradient_merge, localsgd and adaptive_localsgd; strategy.tensor_parallel
+sets the CompiledProgram's tensor_parallel_degree.  The pipeline and the
+parameter server raise (ROADMAP.md Queue 1, Distribution).
 """
 from .base.distributed_strategy import DistributedStrategy  # noqa: F401
 from .base.role_maker import (  # noqa: F401

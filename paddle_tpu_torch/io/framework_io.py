@@ -154,14 +154,20 @@ def load_persistables(executor, dirname, main_program=None, filename=None):
                      predicate=is_persistable, filename=filename)
 
 
-def load_params_from_numpy(scope, params, place: Place = None):
+def load_params_from_numpy(scope, params, place: Place = None,
+                           compiled=None):
     """Write parameters into `scope` on `place` (default CUDAPlace(0)).
 
     `params` is a {name: np.ndarray} mapping, or a directory of the
     per-variable `.npy` / `.npt` files that either package's
     `save_persistables` writes.  This is how weights cross from
     paddle_tpu into the port: the two packages' RNGs never draw the same
-    numbers, so parity runs copy the reference scope's parameters."""
+    numbers, so parity runs copy the reference scope's parameters.
+
+    With `compiled` (a CompiledProgram), the arrays are the GLOBAL ones
+    (as the JAX package's scope holds them) and each is cut to this
+    rank's shard by the program's placement (a ZeRO bucket to the rank's
+    dp slice, a tensor-parallel weight to its tp slice)."""
     from ..core.serialization import tensor_from_bytes
     device = resolve_place(place).torch_device()
     if isinstance(params, (str, os.PathLike)):
@@ -177,6 +183,8 @@ def load_params_from_numpy(scope, params, place: Place = None):
     for name, val in params.items():
         t = val if isinstance(val, torch.Tensor) \
             else _from_stored(np.asarray(val))
+        if compiled is not None:
+            t = compiled.shard_of(name, t)
         scope.set(name, t.to(device))
     return sorted(params)
 

@@ -36,8 +36,19 @@ executor's rule: an input may be a scope buffer a captured step reads).
 
 The sync, wait and comm-init ops are no-ops: torch.distributed orders
 the collectives on the streams itself and forms its communicators at
-`init_process_group`.  The tensor-parallel, point-to-point and elastic
-ops raise: they belong to later slices."""
+`init_process_group`.  The point-to-point and elastic ops raise: they
+belong to later slices.
+
+The tensor-parallel ops (distributed/tensor_parallel.py's Megatron
+layers) run on the group of their ring (TP_RING_ID, 102, under a
+CompiledProgram with tensor_parallel_degree > 1): c_identity is the
+identity with a sum over the ring as its gradient, mp_allreduce_sum the
+sum with the identity as its gradient, c_concat gathers the last axis
+(its gradient the sum's slice), c_split keeps this rank's last-axis
+slice, and c_embedding looks up a vocabulary shard and sums.  Their
+gradients that communicate are explicit: the derived gradient replays
+the forward under torch.func.vjp, which would call the collective again
+and could not differentiate it."""
 from __future__ import annotations
 
 import time
@@ -57,16 +68,24 @@ _LATER = "ROADMAP.md Queue 1, Distribution"
 # ring_id -> process group; ring 0 is the default group unless set
 _RINGS: Dict[int, Any] = {}
 
-# calls (in all and by collective) and bytes of every collective since
-# the last reset; with time_collectives(True), the seconds they took,
+# calls (in all, by collective and by the op or gradient that made them)
+# and bytes of every collective since the last reset; with time_collectives(True), the seconds they took,
 # each synchronised before and after (the host-side cost, overlap removed)
 COMM_STATS: Dict[str, Any] = {"calls": 0, "bytes": 0, "seconds": 0.0,
-                              "calls_by_kind": {}}
+                              "calls_by_kind": {}, "calls_by_op": {}}
 _TIMING = {"on": False}
 
 
 def reset_comm_stats() -> None:
-    COMM_STATS.update(calls=0, bytes=0, seconds=0.0, calls_by_kind={})
+    COMM_STATS.update(calls=0, bytes=0, seconds=0.0, calls_by_kind={},
+                      calls_by_op={})
+
+
+def _count_op(name: str) -> None:
+    """One call of the op `name` on a process group (its collectives are
+    counted by kind too: under gloo a reduce-scatter is an allreduce)."""
+    by_op = COMM_STATS["calls_by_op"]
+    by_op[name] = by_op.get(name, 0) + 1
 
 
 def time_collectives(on: bool):
@@ -261,12 +280,13 @@ def _gather_sparse(x, group):
 def _c_allreduce(name, op):
     @register_op(name, inputs=["X"], outputs=["Out"], grad="auto",
                  side_effect=True)
-    def kernel(ins, attrs, ctx, _op=op):
+    def kernel(ins, attrs, ctx, _op=op, _name=name):
         from ...core.selected_rows import SelectedRows
         x = ins["X"]
         group = ring_group(attrs.get("ring_id", 0))
         if group is None:
             return {"Out": x}
+        _count_op(_name)
         if isinstance(x, SelectedRows):
             if _op != "sum":
                 raise NotImplementedError(
@@ -307,6 +327,7 @@ def c_allgather(ins, attrs, ctx):
     group = ring_group(attrs.get("ring_id", 0))
     if group is None:
         return {"Out": x}
+    _count_op("c_allgather")
     return {"Out": gather_rows(x, group)}
 
 
@@ -317,6 +338,7 @@ def c_reducescatter(ins, attrs, ctx):
     group = ring_group(attrs.get("ring_id", 0))
     if group is None:
         return {"Out": x}
+    _count_op("c_reducescatter")
     return {"Out": reduce_scatter(x, group)}
 
 
@@ -397,22 +419,151 @@ _identity("c_comm_init_all", [], [])
 _identity("c_gen_nccl_id", [], ["Out?"])
 
 
+def _tp_group(attrs, x):
+    """The ring's group, or None (the op is then the identity).  Shape
+    inference runs the kernels on meta tensors, which never communicate."""
+    if x.device.type == "meta":
+        return None
+    return ring_group(attrs.get("ring_id", 0))
+
+
+def _mp_allreduce_grad(ins, attrs, ctx):
+    """The Megatron g-operator's backward: identity (the forward's sum
+    leaves a replicated cotangent, and each shard's input contributed
+    once)."""
+    return {"X@GRAD": ins["Out@GRAD"]}
+
+
+@register_op("mp_allreduce_sum", inputs=["X"], outputs=["Out"],
+             grad=_mp_allreduce_grad, side_effect=True)
+def mp_allreduce_sum(ins, attrs, ctx):
+    """Sum of the partial products over the ring, identity backward."""
+    x = ins["X"]
+    group = _tp_group(attrs, x)
+    if group is None:
+        return {"Out": x}
+    _count_op("mp_allreduce_sum")
+    return {"Out": all_reduce(x, "sum", group)}
+
+
+def _c_identity_grad(ins, attrs, ctx):
+    """The Megatron f-operator's backward: the sum over the ring."""
+    g = ins["Out@GRAD"]
+    group = _tp_group(attrs, g)
+    if group is None:
+        return {"X@GRAD": g}
+    _count_op("c_identity_grad")
+    return {"X@GRAD": all_reduce(g, "sum", group)}
+
+
+@register_op("c_identity", inputs=["X"], outputs=["Out"],
+             grad=_c_identity_grad, side_effect=True)
+def c_identity(ins, attrs, ctx):
+    return {"Out": ins["X"]}
+
+
+def _last_chunk(x, w, r):
+    n = x.shape[-1] // w
+    return x.narrow(x.dim() - 1, r * n, n)
+
+
+@register_op("c_split", inputs=["X"], outputs=["Out"], side_effect=True)
+def c_split(ins, attrs, ctx):
+    """This rank's slice of the last axis (no communication; its derived
+    gradient places the cotangent in that slice, zeros elsewhere, as the
+    JAX package's derived gradient of its slice does)."""
+    x = ins["X"]
+    group = _tp_group(attrs, x)
+    if group is None:
+        return {"Out": x}
+    return {"Out": _last_chunk(x, world_of(group), rank_of(group))}
+
+
+def _gather_last(x, group):
+    """Every rank's `x` concatenated along the last axis in rank order."""
+    w = world_of(group)
+    g = gather_rows(x.movedim(-1, 0), group)
+    n = x.shape[-1]
+    return torch.cat([g[i * n:(i + 1) * n] for i in range(w)]) \
+        .movedim(0, -1).contiguous()
+
+
+def _c_concat_grad(ins, attrs, ctx):
+    """The transpose of the gather: this rank's last-axis slice of the
+    cotangent summed over the ring (the JAX package's derived gradient of
+    all_gather, a reduce-scatter)."""
+    g = ins["Out@GRAD"]
+    group = _tp_group(attrs, g)
+    if group is None:
+        return {"X@GRAD": g}
+    _count_op("c_concat_grad")
+    s = all_reduce(g, "sum", group)
+    return {"X@GRAD": _last_chunk(s, world_of(group), rank_of(group))
+            .contiguous()}
+
+
+@register_op("c_concat", inputs=["X"], outputs=["Out"],
+             grad=_c_concat_grad, side_effect=True)
+def c_concat(ins, attrs, ctx):
+    """The all-gather along the last axis (tensor-parallel output)."""
+    x = ins["X"]
+    group = _tp_group(attrs, x)
+    if group is None:
+        return {"Out": x}
+    _count_op("c_concat")
+    return {"Out": _gather_last(x, group)}
+
+
+def _embedding_rows(w, ids, attrs):
+    start = attrs.get("start_index", 0)
+    local = ids.long() - start
+    valid = (local >= 0) & (local < w.shape[0])
+    return local.clamp(0, w.shape[0] - 1), valid
+
+
+def _c_embedding_grad(ins, attrs, ctx):
+    """Rows of this shard get the cotangent summed over the ring (the
+    derived gradient of the JAX op, whose sum transposes to a sum)."""
+    w, ids, g = ins["W"], ins["Ids"], ins["Out@GRAD"]
+    group = _tp_group(attrs, g)
+    if group is not None:
+        _count_op("c_embedding_grad")
+        g = all_reduce(g, "sum", group)
+    rows, valid = _embedding_rows(w, ids, attrs)
+    g = torch.where(valid[..., None], g, torch.zeros_like(g))
+    dw = torch.zeros(w.shape, dtype=g.dtype, device=g.device)
+    dw.index_add_(0, rows.reshape(-1), g.reshape(-1, w.shape[1]))
+    return {"W@GRAD": dw.to(w.dtype)}
+
+
+@register_op("c_embedding", inputs=["W", "Ids!"], outputs=["Out"],
+             grad=_c_embedding_grad, side_effect=True)
+def c_embedding(ins, attrs, ctx):
+    """A vocabulary-sharded lookup: rows [start_index, start_index + n)
+    live on this rank, ids outside give zeros, and the ring sums the
+    ranks' lookups."""
+    w, ids = ins["W"], ins["Ids"]
+    rows, valid = _embedding_rows(w, ids, attrs)
+    out = w[rows]
+    out = torch.where(valid[..., None], out, torch.zeros_like(out))
+    group = _tp_group(attrs, out)
+    if group is not None:
+        _count_op("c_embedding")
+        out = all_reduce(out, "sum", group)
+    return {"Out": out}
+
+
 def _later(name, ins_spec, outs_spec):
     @register_op(name, inputs=ins_spec, outputs=outs_spec, grad=None,
                  side_effect=True)
     def kernel(ins, attrs, ctx, _name=name):
         raise NotImplementedError(
-            f"op {_name!r} (tensor parallel, point-to-point or elastic) is "
-            f"not ported yet ({_LATER})")
+            f"op {_name!r} (point-to-point or elastic) is not ported yet "
+            f"({_LATER})")
     return kernel
 
 
 for _name, _ins, _outs in (
-        ("c_identity", ["X"], ["Out"]),
-        ("mp_allreduce_sum", ["X"], ["Out"]),
-        ("c_embedding", ["W", "Ids!"], ["Out"]),
-        ("c_concat", ["X"], ["Out"]),
-        ("c_split", ["X"], ["Out"]),
         ("p_send", ["X"], ["Out?"]),
         ("p_recv", ["X"], ["Out"]),
         ("partial_allgather", ["X"], ["Out"]),

@@ -105,3 +105,47 @@ def fill_any_like(ins, attrs, ctx):
     dt = x.dtype if dt in (None, -1) else torch_dtype(dt)
     return {"Out": torch.full(tuple(x.shape), attrs.get("value", 0.0),
                               dtype=dt, device=x.device)}
+
+
+# the ZeRO bucket plumbing (distributed/sharding.py): flatten, concat,
+# pad, slice and reshape the gradient and parameter buckets
+@register_op("reshape", inputs=["X", "Shape?!"], outputs=["Out"])
+def reshape(ins, attrs, ctx):
+    x = ins["X"]
+    return {"Out": x.reshape(_resolve_shape(attrs.get("shape", []), x))}
+
+
+@register_op("concat", inputs=["X*", "AxisTensor?!"], outputs=["Out"])
+def concat(ins, attrs, ctx):
+    return {"Out": torch.cat(list(ins["X"]), dim=attrs.get("axis", 0))}
+
+
+@register_op("slice", inputs=["Input", "StartsTensor?!", "EndsTensor?!"],
+             outputs=["Out"])
+def slice_op(ins, attrs, ctx):
+    """A view of `Input` cut along `axes` (negative bounds count from the
+    end, as the JAX package's); `decrease_axis` drops those dims."""
+    x = ins["Input"]
+    out = x
+    for a, s, e in zip(attrs["axes"], attrs.get("starts", []),
+                       attrs.get("ends", [])):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        out = out.narrow(a, s, max(e - s, 0))
+    for a in sorted(attrs.get("decrease_axis", []), reverse=True):
+        out = out.squeeze(a)
+    return {"Out": out}
+
+
+@register_op("pad", inputs=["X"], outputs=["Out"])
+def pad(ins, attrs, ctx):
+    """`paddings` = [before_0, after_0, before_1, ...], filled with
+    `pad_value`."""
+    x = ins["X"]
+    p = attrs["paddings"]
+    widths = []
+    for i in reversed(range(x.dim())):  # torch lists the last dim first
+        widths += [int(p[2 * i]), int(p[2 * i + 1])]
+    return {"Out": torch.nn.functional.pad(
+        x, widths, value=float(attrs.get("pad_value", 0.0)))}

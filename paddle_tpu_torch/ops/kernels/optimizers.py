@@ -143,10 +143,6 @@ def adamw(ins, attrs, ctx):
                       "Beta2PowOut"],
              grad=None, side_effect=True)
 def lamb(ins, attrs, ctx):
-    if attrs.get("reduce_norms_ring_id") is not None:
-        raise NotImplementedError(
-            "lamb over a ZeRO-sharded parameter (reduce_norms_ring_id) "
-            "needs the distribution slice (ROADMAP.md Queue 1, Distribution)")
     p = ins["Param"].float()
     g = ins["Grad"].float()
     m1 = ins["Moment1"].float()
@@ -162,8 +158,21 @@ def lamb(ins, attrs, ctx):
     m1_hat = m1_out / (1 - b1p)
     m2_hat = m2_out / (1 - b2p)
     r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
-    p_norm = torch.sqrt(torch.sum(torch.square(p)))
-    r_norm = torch.sqrt(torch.sum(torch.square(r)))
+    sq = torch.stack([torch.sum(torch.square(p)),
+                      torch.sum(torch.square(r))])
+    # ZeRO (distributed/sharding.py): p and r are this rank's shard of one
+    # flat parameter, and the trust ratio is defined on the whole
+    # parameter's norms: sum the squared norms over the ring, both in one
+    # collective.  Zero bucket padding adds zero to both sums.
+    ring = attrs.get("reduce_norms_ring_id")
+    if ring is not None and sq.device.type != "meta":
+        from .collective import ring_group, all_reduce, _count_op
+        group = ring_group(ring)
+        if group is not None:
+            _count_op("lamb_norms")
+            sq = all_reduce(sq, "sum", group)
+    p_norm = torch.sqrt(sq[0])
+    r_norm = torch.sqrt(sq[1])
     trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
                         torch.ones_like(p_norm))
     p_out = p - _lr(ins) * trust * r

@@ -201,9 +201,25 @@ def _is_diff(x):
 def _grad_infer_shape(fwd: OpInfo):
     """Build-time shapes of a grad op: "<in>@GRAD" has the shape and dtype
     of the floating forward input <in> (what the JAX package's
-    jax.eval_shape of the vjp gives), without replaying the forward."""
+    jax.eval_shape of the vjp gives), without replaying the forward.
+
+    A tensor-parallel builder's op (stamped ``mp_axis``) may pair a local
+    shard with a global declared shape (a row-parallel product of the
+    local per-head context and the global weight); there the JAX
+    package's eval of the replay fails and leaves the shapes unset, so
+    the forward is tried on the meta inputs first and a failure sets
+    none here too."""
 
     def infer(ins, attrs):
+        if attrs.get("mp_axis") is not None:
+            fwd_ins = {s.name: ins.get(s.name) for s in fwd.inputs}
+            try:
+                if fwd.infer_shape is not None:
+                    fwd.infer_shape(fwd_ins, attrs)
+                else:
+                    fwd.kernel(fwd_ins, attrs, OpContext(seed=0))
+            except Exception:  # noqa: BLE001 — as the eval's failure
+                return {}
         outs = {}
         for slot in fwd.inputs:
             v = ins.get(slot.name)

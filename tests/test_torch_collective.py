@@ -266,14 +266,19 @@ def test_later_ops_raise():
     import torch
     from paddle_tpu_torch.ops.registry import OpContext as TCtx, \
         run_kernel as trun
-    for op in ("c_identity", "mp_allreduce_sum", "c_concat", "c_split",
-               "p_recv", "partial_allgather"):
+    for op in ("p_recv", "partial_allgather"):
         with pytest.raises(NotImplementedError,
                            match="Queue 1, Distribution"):
             trun(op, {"X": torch.ones(2)}, {}, TCtx())
     for fn in (lambda: tdist.send(torch.ones(1)),
-               lambda: tdist.recv(torch.ones(1)),
-               lambda: tdist.split(None, 4, "linear")):
+               lambda: tdist.recv(torch.ones(1))):
         with pytest.raises(NotImplementedError,
                            match="Queue 1, Distribution"):
             fn()
+    # the tensor-parallel ops are ported: off a process group each is
+    # the identity; split stays refused, as in the JAX package
+    x = torch.ones(2)
+    for op in ("c_identity", "mp_allreduce_sum", "c_concat", "c_split"):
+        assert trun(op, {"X": x}, {"ring_id": 102}, TCtx())["Out"] is x
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+        tdist.split(None, 4, "linear")

@@ -18,7 +18,9 @@ and the dygraph training path: backward through the flash kernels from a
 MultiHeadAttention (fp32 and bf16, D = 64) against the same module on the
 CPU, F.cross_entropy through the fused kernel and its gradient against
 torch ops, the dropout Function's gradient equal to grad * Mask / (1 - p)
-bit for bit, and GradScaler over CUDA gradients.
+bit for bit, and GradScaler over CUDA gradients; ZeRO-3 run_steps under
+NCCL at world 1 against eager runs, bit for bit, and the tensor-parallel
+ops on CUDA tensors against their CPU results.
 
 Tolerances against the plain versions: fp32 1e-4 (summation order;
 3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
@@ -1765,3 +1767,129 @@ def test_spec_engine_rollback_on_card():
             assert list(a[:p.size]) == list(p) and \
                 p.size < a.size <= p.size + 12 and 0 <= a.min() and \
                 a.max() < 64
+
+
+# -- ZeRO and tensor parallelism under NCCL at world 1 ----------------------
+def _nccl_world_one():
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed.spawn import get_free_ports
+    port = get_free_ports(1)[0]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0)
+
+
+def test_zero3_run_steps_matches_eager_at_world_one():
+    """A ZeRO-3 program (sharded for 2 ranks) under NCCL at world 1: one
+    run_steps call of K = 3 (a captured graph holding the reduce-scatters
+    and all-gathers) against 3 eager CompiledProgram runs and 3 plain
+    Executor runs from the same start: losses and every persistable
+    equal to the last bit."""
+    _need_cuda()
+    import torch.distributed as tdist
+    import paddle_tpu_torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from torch_dist_worker import build_zero_mlp
+    _nccl_world_one()
+    try:
+        _reset_unique_names()
+        main, startup, loss, plan = build_zero_mlp(
+            paddle_tpu_torch, opt="adam", stage=3, dp=2, bucket=300)
+        assert plan.param_bucket_names()
+        rng = np.random.RandomState(0)
+        xs = rng.rand(3, 8, 8).astype(np.float32)
+        ys = rng.rand(3, 8, 1).astype(np.float32)
+        init_scope = static.Scope()
+        with static.scope_guard(init_scope):
+            static.Executor().run(startup)
+        init = {n: t.clone() for n, t in init_scope.vars.items()}
+
+        def fresh():
+            s = static.Scope()
+            for n, t in init.items():
+                s.set(n, t.clone())
+            return s
+        runs = {}
+        for kind in ("plain", "eager", "replay"):
+            exe, scope = static.Executor(), fresh()
+            cp = static.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name)
+            with static.scope_guard(scope):
+                if kind == "replay":
+                    kc.reset_comm_stats()
+                    (lv,) = exe.run_steps(cp, feed={"x": xs, "y": ys},
+                                          fetch_list=[loss])
+                    calls = dict(kc.COMM_STATS["calls_by_kind"])
+                    assert exe.cache_stats()["traces"] == 1
+                    exe.close()
+                else:
+                    prog = main if kind == "plain" else cp
+                    lv = [exe.run(prog, feed={"x": xs[i], "y": ys[i]},
+                                  fetch_list=[loss])[0] for i in range(3)]
+            runs[kind] = (np.asarray(lv, np.float32).reshape(-1),
+                          {n: scope.vars[n] for n in init})
+        # the capture's warm-up and captured step reached the group
+        n_ag = sum(op.type == "c_allgather" for op in main.global_block().ops)
+        assert calls.get("reduce_scatter") == 2 * len(plan.buckets)
+        assert calls.get("all_gather") == 2 * n_ag
+        for kind in ("eager", "replay"):
+            np.testing.assert_array_equal(runs[kind][0], runs["plain"][0])
+            for n, t in runs["plain"][1].items():
+                assert torch.equal(runs[kind][1][n], t), (kind, n)
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_tp_ops_on_cuda_match_cpu():
+    """The five tensor-parallel ops and their gradients on CUDA tensors,
+    ring 102 bound to an NCCL group of one, against the same ops on CPU
+    copies with no group (at world 1 each is its identity, its lookup):
+    equal to the last bit."""
+    _need_cuda()
+    import torch.distributed as tdist
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from paddle_tpu_torch.ops.registry import OpContext, run_kernel
+    _nccl_world_one()
+    try:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(6, 8, generator=g)
+        dout = torch.randn(6, 8, generator=g)
+        w = torch.randn(10, 4, generator=g)
+        ids = torch.randint(0, 10, (3, 2), generator=g)
+        demb = torch.randn(3, 2, 4, generator=g)
+        a = {"ring_id": 102}
+
+        def run(dev):
+            ctx = OpContext(device=dev)
+            out = {}
+            for op in ("c_identity", "mp_allreduce_sum", "c_concat",
+                       "c_split"):
+                xd, gd = x.to(dev), dout.to(dev)
+                f = run_kernel(op, {"X": xd}, a, ctx)["Out"]
+                out[op] = (f, run_kernel(op + "_grad", {
+                    "X": xd, "Out": f, "Out@GRAD": gd}, a, ctx)["X@GRAD"])
+            ea = dict(a, start_index=0)
+            e = run_kernel("c_embedding", {"W": w.to(dev),
+                                           "Ids": ids.to(dev)}, ea, ctx)
+            out["c_embedding"] = (e["Out"], run_kernel(
+                "c_embedding_grad", {"W": w.to(dev), "Ids": ids.to(dev),
+                                     "Out": e["Out"],
+                                     "Out@GRAD": demb.to(dev)},
+                ea, ctx)["W@GRAD"])
+            return out
+        kc.register_ring(102, tdist.group.WORLD)
+        kc.reset_comm_stats()
+        on_card = run(torch.device("cuda"))
+        assert kc.COMM_STATS["calls_by_op"] == {
+            "mp_allreduce_sum": 1, "c_identity_grad": 1, "c_concat": 1,
+            "c_concat_grad": 1, "c_embedding": 1, "c_embedding_grad": 1}
+        kc.register_ring(102, None)
+        on_cpu = run(torch.device("cpu"))
+        for op, (f, gr) in on_cpu.items():
+            assert on_card[op][0].is_cuda
+            assert torch.equal(on_card[op][0].cpu(), f), op
+            assert torch.equal(on_card[op][1].cpu(), gr), op
+    finally:
+        kc.clear_rings()
+        tdist.destroy_process_group()

@@ -12,9 +12,10 @@ CompiledProgram runs, with its 1/W scale) equal too.  At a world of one
 no process group is formed.  Strategies: amp, recompute, gradient_merge,
 fp16_allreduce, lars, lamb, localsgd, adaptive_localsgd, dgc, and
 combinations (amp with gradient merge and fp16 allreduce; amp with lamb,
-where lamb wins and amp is dropped, as in the JAX package).  The
-strategies that are not ported (sharding, pipeline, the parameter
-server) raise naming ROADMAP.md Queue 1, Distribution.
+where lamb wins and amp is dropped, as in the JAX package; sharding at
+stages 1-3, with amp and gradient merge).  The strategies that are not
+ported (pipeline, the parameter server) raise naming ROADMAP.md Queue 1,
+Distribution.
 """
 import numpy as np
 import pytest
@@ -78,6 +79,15 @@ STRATEGIES = {
         amp=True, fp16_allreduce=True, gradient_merge=True,
         gradient_merge_configs={"k_steps": 2, "avg": True})),
     "amp+lamb": (_adam, _set(amp=True, lamb=True)),
+    "sharding": (_adam, _set(sharding=True, sharding_configs={
+        "stage": 1, "dp_degree": 2})),
+    "sharding_stage3": (_adam, _set(sharding=True, sharding_configs={
+        "stage": 3, "dp_degree": 4, "bucket_mb": 0.01})),
+    "amp+sharding+gradient_merge": (_adam, _set(
+        amp=True, sharding=True, sharding_configs={"stage": 2,
+                                                   "dp_degree": 2},
+        gradient_merge=True, gradient_merge_configs={"k_steps": 2,
+                                                     "avg": True})),
     "none": (_adam, _set()),
 }
 
@@ -165,6 +175,14 @@ def test_amp_and_lamb_resolve_as_jax():
 
 @pytest.mark.parametrize("what", ["sharding", "pipeline"])
 def test_unported_strategies_raise(what):
+    """The pipeline raises.  Sharding (ZeRO) is ported now: its case
+    builds the JAX package's programs, its meta-optimizer in the chain."""
+    if what == "sharding":
+        (jm, js, _, jmeta), (tm, ts, _, tmeta) = _both("sharding")
+        assert "ShardingOptimizer" in tmeta and tmeta == jmeta
+        assert tm.to_dict() == jm.to_dict() and ts.to_dict() == js.to_dict()
+        return
+
     def configure(s, ckpts):
         setattr(s, what, True)
     torch_reset_names()

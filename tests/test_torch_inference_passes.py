@@ -26,6 +26,8 @@ import torch
 
 import paddle_tpu.static as jstatic
 from paddle_tpu.core.program import _reset_unique_names as jax_reset_names
+from paddle_tpu_torch.core.program import (_reset_unique_names as
+                                           torch_reset_names)
 from paddle_tpu.inference import Config as JConfig, create_predictor as jpred
 from paddle_tpu.io.framework_io import save_inference_model as jsave_model
 
@@ -192,6 +194,9 @@ def test_bf16_predictor_tiny_flash_bert(tmp_path):
     d = str(tmp_path)
     with flash_mode(True):
         jax_reset_names()
+        # the AMP rewrite names its casts by unique_name: both counters
+        # fresh, whatever an earlier test in this process built
+        torch_reset_names()
         main, startup, out = build_ref_bert(**SMALL)
         _save_reference(d, main, startup, ["ids", "pos"], out)
         ref16, port16 = _ref(d, bf16=True), _port(d, bf16=True)

@@ -248,13 +248,23 @@ def env_dump(out_dir):
 def fail_or_wait(bad_rank, out_dir):
     """Rank `bad_rank` raises at once; the others wait (as a rank waits in
     a collective for a dead peer) and record that they were still
-    running."""
+    running.  The failing rank first waits (30 s at most) until every
+    other rank has written its file: under load a rank can take seconds
+    to start, and one stopped before it writes leaves nothing to check."""
     import time
     r = int(os.environ["PADDLE_TRAINER_ID"])
     if r == bad_rank:
+        w = int(os.environ["PADDLE_TRAINERS_NUM"])
+        deadline = time.time() + 30
+        while time.time() < deadline and not all(
+                os.path.exists(os.path.join(out_dir, f"alive{i}"))
+                for i in range(w) if i != r):
+            time.sleep(0.05)
         raise RuntimeError(f"rank {r} fails on purpose")
-    with open(os.path.join(out_dir, f"alive{r}"), "w") as f:
+    tmp = os.path.join(out_dir, f"alive{r}.tmp")
+    with open(tmp, "w") as f:
         f.write(str(os.getpid()))
+    os.replace(tmp, os.path.join(out_dir, f"alive{r}"))
     time.sleep(120)
 
 
@@ -306,5 +316,173 @@ def localsgd_steps(data_path, rank):
 def localsgd_rank(init_file, out_dir, data_path):
     r, _ = _init(init_file)
     out = localsgd_steps(data_path, r)
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO and tensor parallelism (tests/test_torch_sharding.py,
+# tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+OPTIMIZERS = ("sgd", "momentum", "adam", "adamw", "lamb")
+
+
+def build_zero_mlp(pkg, opt="adam", stage=1, dp=2, bucket=None, gm=1,
+                   tp=1, amp=False, shard=True, fp16_allreduce=None):
+    """The two-layer regression of tests/test_sharding.py from either
+    package (`pkg` is paddle_tpu or paddle_tpu_torch): fc layers (col /
+    row parallel at tp > 1), `opt`, optional bf16 AMP, ZeRO `stage` for
+    `dp` ranks (with `shard`; `fp16_allreduce` casts the bucket
+    reduce-scatter to bf16), then gradient merge over `gm` steps.
+    Returns (main, startup, loss, plan or None)."""
+    static = pkg.static
+    layers = static.layers
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 8])
+        y = layers.data("y", [-1, 1])
+        if tp > 1:
+            from importlib import import_module
+            tpm = import_module(pkg.__name__ + ".distributed.tensor_parallel")
+            h = tpm.col_parallel_fc(x, 16, act="relu", tp_degree=tp)
+            pred = tpm.row_parallel_fc(h, 1, tp_degree=tp)
+        else:
+            h = layers.fc(x, 16, act="relu")
+            h = layers.fc(h, 12, act="gelu")
+            pred = layers.fc(h, 1)
+        loss = layers.mean(layers.square(layers.elementwise_sub(pred, y)))
+        o = {"sgd": lambda: static.SGD(0.05),
+             "momentum": lambda: static.Momentum(0.05, 0.9),
+             "adam": lambda: static.Adam(0.01),
+             "adamw": lambda: static.AdamW(0.01),
+             "lamb": lambda: static.Lamb(0.01)}[opt]()
+        if amp:
+            o = pkg.amp.decorate(o, init_loss_scaling=1.0,
+                                 use_dynamic_loss_scaling=False,
+                                 dest_dtype="bfloat16")
+        _, params_grads = o.minimize(loss)
+    return _shard_and_merge(pkg, main, startup, loss, params_grads, shard,
+                            dp, stage, bucket, gm, fp16_allreduce)
+
+
+def build_tp_lm(pkg, tp=2, dp=2, stage=0, vocab=64, hidden=32, layers=2,
+                heads=4, seq=8):
+    """models/static_lm.py's transformer LM at `tp`, trained by Adam,
+    then ZeRO `stage` for `dp` ranks (0: none).  (main, startup, loss,
+    plan or None)."""
+    from importlib import import_module
+    static = pkg.static
+    lm = import_module(pkg.__name__ + ".models.static_lm")
+    main, startup, loss, _ = lm.build_transformer_lm(
+        vocab, hidden, layers, heads, seq, tensor_parallel_degree=tp)
+    with static.program_guard(main, startup):
+        _, params_grads = static.Adam(0.01).minimize(loss)
+    return _shard_and_merge(pkg, main, startup, loss, params_grads,
+                            stage > 0, dp, stage, None, 1)
+
+
+def _shard_and_merge(pkg, main, startup, loss, params_grads, shard, dp,
+                     stage, bucket, gm, fp16_allreduce=None):
+    static = pkg.static
+    plan = None
+    if shard:
+        from importlib import import_module
+        sh = import_module(pkg.__name__ + ".distributed.sharding")
+        plan = sh.shard_optimizer_states(main, startup, dp_degree=dp,
+                                         stage=stage, bucket_bytes=bucket,
+                                         fp16_allreduce=fp16_allreduce)
+    if gm > 1:
+        static.gradient_merge(main, gm, startup, params_grads=params_grads)
+    return main, startup, loss, plan
+
+
+def zero_train(init_file, out_dir, cases):
+    """Every case of `cases` ({name: cfg}) on this rank: cfg holds the
+    builder (`model`: "lm" for build_tp_lm, else build_zero_mlp) and its
+    kwargs (`build`), `state` (npz of the GLOBAL persistables to start
+    from, carried in through the program's placement), `feeds` (npz of
+    <feed name><i>: the global batches) with `feed_names`, and
+    `steps`.  Writes, per case, the fetched losses, the global state
+    after the last step (CompiledProgram.global_state), the bytes of
+    this rank's scope and the collective calls of the last step by op."""
+    r, w = _init(init_file)
+    import paddle_tpu_torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.distributed.compiled_program import (
+        CompiledProgram, BuildStrategy)
+    from paddle_tpu_torch.io import load_params_from_numpy
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    out = {}
+    for name, cfg in cases.items():
+        _reset_unique_names()
+        builder = build_tp_lm if cfg.get("model") == "lm" else \
+            build_zero_mlp
+        main, startup, loss, _ = builder(paddle_tpu_torch, **cfg["build"])
+        bs = BuildStrategy()
+        bs.tensor_parallel_degree = cfg["build"].get("tp", 1)
+        cp = CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+        exe = static.Executor(static.CPUPlace())
+        scope = static.Scope()
+        feeds = np.load(cfg["feeds"])
+        with static.scope_guard(scope):
+            exe.run(startup)
+            load_params_from_numpy(scope, dict(np.load(cfg["state"])),
+                                   static.CPUPlace(), compiled=cp)
+            losses = []
+            for i in range(cfg["steps"]):
+                kc.reset_comm_stats()
+                lv, = exe.run(cp, feed={n: feeds[f"{n}{i}"]
+                                        for n in cfg["feed_names"]},
+                              fetch_list=[loss])
+                losses.append(float(np.asarray(lv).reshape(-1)[0]))
+            calls = dict(kc.COMM_STATS["calls_by_op"])
+            out[name + "/scope_bytes"] = np.array(sum(
+                t.numel() * t.element_size() for t in scope.vars.values()
+                if t is not None))
+            for n, v in cp.global_state(scope).items():
+                out[name + "/state/" + n] = v.float().numpy()
+        out[name + "/losses"] = np.asarray(losses)
+        out[name + "/calls"] = np.array(json.dumps(calls, sort_keys=True))
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def tp_ops(init_file, in_path, out_dir):
+    """The five tensor-parallel ops and their gradients on ring 102 bound
+    to the world, on this rank's slice (dim 0) of the global inputs."""
+    r, w = _init(init_file)
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    import torch.distributed as tdist
+    data = np.load(in_path)
+
+    def mine(name):
+        a = data[name]
+        n = a.shape[0] // w
+        return torch.from_numpy(np.ascontiguousarray(a[r * n:(r + 1) * n]))
+
+    kc.register_ring(102, tdist.group.WORLD)
+    a = {"ring_id": 102}
+    out = {}
+    x, g = mine("x"), mine("g")
+    for op in ("c_identity", "mp_allreduce_sum", "c_concat", "c_split"):
+        fwd = _kernel(op, {"X": x}, a)["Out"]
+        gin = g if op != "c_concat" else mine("g_wide")
+        if op == "c_split":
+            gin = mine("g_narrow")
+        grad = _kernel(op + "_grad", {"X": x, "Out": fwd, "Out@GRAD": gin},
+                       a)["X@GRAD"]
+        out[op + "/out"] = fwd.numpy()
+        out[op + "/grad"] = grad.numpy()
+    ea = dict(a, start_index=r * data["w"].shape[0] // w)
+    wl, ids = mine("w"), torch.from_numpy(data["ids"])
+    emb = _kernel("c_embedding", {"W": wl, "Ids": ids}, ea)["Out"]
+    demb = _kernel("c_embedding_grad", {"W": wl, "Ids": ids, "Out": emb,
+                                        "Out@GRAD": torch.from_numpy(
+                                            data["g_emb"])}, ea)["W@GRAD"]
+    out["c_embedding/out"] = emb.numpy()
+    out["c_embedding/grad"] = demb.numpy()
+    kc.clear_rings()
     _finish()
     np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
