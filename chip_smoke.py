@@ -15,7 +15,10 @@ the training API (recompute, the other optimizers, EMA, ModelAverage,
 Lookahead, sparse embedding gradients, graph-safe random ops, static
 O2), and train it data-parallel (fleet, CompiledProgram, DataParallel
 over gloo ranks, and NCCL at world size 1 with a captured step), with
-ZeRO stages 1-3, and train the static transformer LM tensor-parallel.
+ZeRO stages 1-3, and train the static transformer LM tensor-parallel,
+and serve GPT /generate tp-sharded, train with sequence parallelism
+(ring attention) and expert parallelism (switch MoE), and replay the
+gradient-merge window with its commit hoisted.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -338,7 +341,9 @@ is present.  Phases:
                steps and one run_steps call, every flash and fused-CE
                launch bf16, losses finite.
  13. dp      - data parallel over torch.distributed, bench.py's step at
-               a global batch of 8.  2 ranks (paddle_tpu_torch.distributed
+               a global batch of 8, cut to DIST_LAYERS (4) layers as
+               phase 14 and phase 15's hoist (PR 21; 12 through PR 20:
+               the whole run must keep inside its limit).  2 ranks (paddle_tpu_torch.distributed
                .spawn, both on cuda:0, gloo: NCCL refuses two ranks on one
                device), each: (d) the collective API on CUDA tensors
                (all_reduce sum / max / min / prod, broadcast, all_gather,
@@ -354,8 +359,8 @@ is present.  Phases:
                steps of its half batch, with BERT's hidden dropout 0.1,
                then every dropout 0, sound and with the planted fault.
                Gates: the ranks' parameters bitwise equal after every
-               step; a rank-step's launches: 24 / 12 / 12 / 2 (static)
-               and 12 / 12 / 12 / 2 (dygraph) flash forward / dQ / dK/dV /
+               step; a rank-step's launches: 8 / 4 / 4 / 2 (static)
+               and 4 / 4 / 4 / 2 (dygraph) flash forward / dQ / dK/dV /
                fused CE, all bf16, 25 dropouts with hidden dropout on,
                else 0, no random draw; its collective calls: one
                allreduce a gradient and one for the loss (and the start
@@ -376,19 +381,20 @@ is present.  Phases:
                ms beside phase 6's.
  14. zero_tp - ZeRO stages 1-3 and Megatron tensor parallelism over
                torch.distributed, 2 gloo ranks on cuda:0 as phase 13,
-               global batch 8.  (a) phase 13 (a)'s fleet step with
+               global batch 8, DIST_LAYERS layers.  (a) phase 13 (a)'s
+               fleet step with
                strategy.sharding at stage 1, stage 2 with gradient merge
                k = 2, and stage 3 (distributed/sharding.py), 3 Executor
                .run steps each, sound and with rank 1's gradient buckets
                zeroed before their reduce-scatter (a planted fault);
-               (b) models.build_transformer_lm(30522, 768, 12, 12, 512,
+               (b) models.build_transformer_lm(30522, 768, 4, 12, 512,
                tensor_parallel_degree=2) with AMP bf16 and Adam, the tp =
                1 program's startup carried in through the placement
                (io.load_params_from_numpy(..., compiled=)), 3 steps.
                Gates: the ranks' replicated state bitwise equal after
                every step and their gathered global state
                (CompiledProgram.global_state) after the last; a rank-step's
-               launches 24 / 12 / 12 / 2 flash forward / dQ / dK/dV /
+               launches 8 / 4 / 4 / 2 flash forward / dQ / dK/dV /
                fused CE, all bf16, no random draw; its collective calls
                by op as the program holds (one reduce-scatter a bucket,
                one all-gather a bucket at stages 1-2, one a bucket and
@@ -408,6 +414,46 @@ is present.  Phases:
                the plain Executor's, the reduce-scatters and all-gathers
                of each eager step and of the capture reaching the NCCL
                group, none in the replaying call.  Prints its seconds.
+ 15. parallel_axes - the remaining parallel axes over torch.distributed.
+               First the flash-composed ring (each ring step a flash
+               forward; dQ and dK/dV with the merged lse) against the
+               plain ring (the JAX step arithmetic) at [8, 12, 512, 64]
+               cut in 1 and 2 blocks, causal and not, bf16 and fp32
+               (RING_TOL of max(1, max |plain|)).  Then one spawn of 2
+               gloo ranks on cuda:0: (a) phase 7's GPT-2-small model
+               under TPShardedDecoder at tp = 2 (rank 0 leads an engine
+               with a tp-2 plan and the radix cache, rank 1 follows),
+               phase 7's first 8 posts with 32 new tokens, plain, with
+               the 2-layer speculative draft (k = 4) and with int8
+               weights; (b) bench.py's AMP BERT-base step with use_ring
+               and build_transformer_lm(30522, 768, 12, 12, 512,
+               sequence_parallel=True) at sp = 2, 3 steps, BERT also with
+               rank 1's K block zeroed before its first send (a planted
+               fault); (c) a 4-layer static encoder at Switch-Base-8's
+               widths (d_model 768, d_ff 3072, 8 experts, capacity factor
+               1.25; flash attention, switch_moe), tokens 8 x 512, fp32,
+               Adam, at ep = 2 (tokens and experts split).  (d) in this
+               process under NCCL at world 1: phase 14's ZeRO-2 step with
+               gradient merge k = 2, run_steps K = 4 twice, hoisted and
+               with PADDLE_TPU_SCAN_HOIST=0.  Gates: (a) replies equal to
+               the tp = 1 engine's (or a greedy near tie; int8 reported
+               with the fp32 top-2 margin), the pools drained, the
+               follower fed half the K/V bytes and each rank holding half
+               the sharded weight bytes, no hand kernel on the path; (b)
+               launches 48 / 24 / 24 / 2 flash forward / dQ / dK/dV /
+               fused CE a rank-step (bf16), the ranks' state bitwise
+               equal, step 1's loss within SP_LOSS_RTOL and the update
+               gap within SP_UPDATE_TOL of the same program in one
+               process (the ring op one flash call), the fault's gap
+               above; (c) each rank holding 4 experts, 24 all-to-alls and
+               8 / 4 / 4 fp32 flash launches a rank-step, step 1's loss,
+               aux loss and update gap within EP_LOSS_RTOL / EP_AUX_RTOL
+               / EP_UPDATE_TOL of the dense run in one process, each
+               run's dropped tokens equal to a recount from its routing
+               (reported beside each other); (d) losses and the final
+               global state bitwise equal, the replays issuing one
+               publish all-gather a bucket a window hoisted against one a
+               step unhoisted.  Prints its seconds.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -2391,6 +2437,10 @@ DYGRAPH_VARIANTS = (("published", 0.1, "O1", "float32"),
                     ("flash", 0.0, "O1", "float32"),
                     ("flash_o2", 0.0, "O2", "bfloat16"))
 DYGRAPH_HIDDEN_DROPOUTS = 1 + 2 * BERT["layers_n"]  # embeddings, 2 a layer
+# phases 13-14 (and phase 15's hoist, on phase 14's program) train BERT-base
+# cut to DIST_LAYERS layers, widths unchanged, so that the whole run keeps
+# inside its time limit with phase 15 (PR 21; 12 layers through PR 20)
+DIST_LAYERS = 4
 
 
 def dygraph_batch(torch, seed):
@@ -2404,11 +2454,11 @@ def dygraph_batch(torch, seed):
         rng.randint(0, 2, (b,)).astype(np.int64)))
 
 
-def dygraph_model(seed, attn_dropout, hidden_dropout=0.1):
+def dygraph_model(seed, attn_dropout, hidden_dropout=0.1, layers=None):
     """BertForPretraining(BertModel(BertConfig())) at the JAX package's
     defaults (google-research/bert base: hidden and attention dropout 0.1)
-    with the dropouts given, weights from `seed`, on CUDAPlace(0); and its
-    criterion."""
+    with the dropouts given (and `layers` encoder layers where given),
+    weights from `seed`, on CUDAPlace(0); and its criterion."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.core.program import _reset_unique_names
     from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
@@ -2422,6 +2472,8 @@ def dygraph_model(seed, attn_dropout, hidden_dropout=0.1):
             BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
             BERT["seq"]):
         raise AssertionError("BertConfig() is not BERT-base")
+    if layers is not None:
+        cfg.num_hidden_layers = layers
     return (BertForPretraining(BertModel(cfg)),
             BertPretrainingCriterion(cfg.vocab_size))
 
@@ -3676,7 +3728,8 @@ BREADTH_OPTIMIZERS = (
 
 
 def bench_program(make_opt, use_amp=True, is_sparse=False, o2=False,
-                  recompute_picks=False, outer=None, after=None):
+                  recompute_picks=False, outer=None, after=None,
+                  layers_n=None):
     """A copy of models.build_bert_pretrain (bench.build_bert_base) at
     BERT-base width, flash on, from a fresh unique-name state, with the
     optimizer `make_opt(static)`: `is_sparse` on the word embedding; `o2`
@@ -3704,7 +3757,7 @@ def bench_program(make_opt, use_amp=True, is_sparse=False, o2=False,
                                  is_sparse=is_sparse),
                 layers.embedding(pos, size=[seq, hidden]))
             h = layers.layer_norm(h, begin_norm_axis=2)
-            for _ in range(BERT["layers_n"]):
+            for _ in range(layers_n or BERT["layers_n"]):
                 q = layers.fc(h, hidden, num_flatten_dims=2)
                 k = layers.fc(h, hidden, num_flatten_dims=2)
                 v = layers.fc(h, hidden, num_flatten_dims=2)
@@ -4663,15 +4716,16 @@ def dp_read(counters):
 
 
 def dp_want(dygraph=False, dropout=False):
-    """Launches a step on each rank: bench.py's static step 24 flash
-    forwards (12, and 12 replayed by the vjp), the dygraph step 12
-    (autograd keeps the forward's outputs); 12 dQ, 12 dK/dV, 2 fused CE,
-    every one bf16; DYGRAPH_HIDDEN_DROPOUTS dropouts where BERT's hidden
-    dropout is on (the static step has none); no random op."""
-    n = BERT["layers_n"]
+    """Launches a step on each rank: bench.py's static step 2 flash
+    forwards a layer (one, and one replayed by the vjp), the dygraph step
+    one (autograd keeps the forward's outputs); a dQ, a dK/dV a layer, 2
+    fused CE,
+    every one bf16; an embeddings' and 2 a layer's dropouts where BERT's
+    hidden dropout is on (the static step has none); no random op; at
+    DIST_LAYERS layers."""
+    n = DIST_LAYERS
     return dict(zip(DP_COUNTED, (n if dygraph else 2 * n, n, n, 2,
-                                 DYGRAPH_HIDDEN_DROPOUTS if dropout else 0,
-                                 0)))
+                                 1 + 2 * n if dropout else 0, 0)))
 
 
 def dp_check_launches(tag, launches, by_dtype, want):
@@ -4696,7 +4750,8 @@ def dp_program():
         strategy.amp_configs.update(DP_AMP)
         return fleet.distributed_optimizer(opt, strategy)
     main, startup, loss, _ = bench_program(lambda s: s.Adam(1e-4),
-                                           use_amp=False, outer=outer)
+                                           use_amp=False, outer=outer,
+                                           layers_n=DIST_LAYERS)
     if fleet.applied_meta_list() != ["AMPOptimizer",
                                      "GraphExecutionOptimizer"]:
         raise AssertionError(f"fleet chose {fleet.applied_meta_list()}")
@@ -4986,7 +5041,7 @@ def dp_dygraph_run(torch, seed, batch, counters, hidden_dropout,
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch.ops.kernels import collective as kc
     dp_zero(counters)
-    net, crit = dygraph_model(seed, 0.0, hidden_dropout)
+    net, crit = dygraph_model(seed, 0.0, hidden_dropout, DIST_LAYERS)
     torch.cuda.synchronize()
     rec = {"philox_at_start": counters["philox_random"].launches,
            "trainable": sum(bool(p.requires_grad) for p in net.parameters()),
@@ -5162,7 +5217,8 @@ def dp_static_check(torch, static, fx, rnd, seed, tmp, ranks):
     for r in ranks:
         a = r["static"]["sound"]["allreduce"]
         a["share_of_step"] = a["collective_ms"] / a["step_ms"]
-    res = {"config": "bert-base pretrain, fleet amp (bf16) + Adam 1e-4, "
+    res = {"config": f"bert-base pretrain at {DIST_LAYERS} layers, fleet "
+                     "amp (bf16) + Adam 1e-4, "
                      "flash + fused CE, CompiledProgram.with_data_"
                      f"parallel over {DP_RANKS} gloo ranks on one card",
            "global_batch": TRAIN_BATCH, "losses": dp["losses"],
@@ -5210,7 +5266,7 @@ def dp_dygraph_check(torch, attn, fx, seed, tmp, ranks):
     attn.enable_flash_attention(True)
     fx.enable_fused_xent(True)
     try:
-        net, crit = dygraph_model(seed, 0.0, 0.0)
+        net, crit = dygraph_model(seed, 0.0, 0.0, DIST_LAYERS)
         before = {k: p.detach().clone() for k, p in net.named_parameters()}
         opt = dygraph_optimizer(net)
         scaler = amp.GradScaler()
@@ -5230,7 +5286,8 @@ def dp_dygraph_check(torch, attn, fx, seed, tmp, ranks):
     dp = ranks[0]["dygraph"]["sound"]
     rel, gaps = dp_gate(torch, "dygraph DataParallel", "dygraph", tmp, before,
                         want, dp["losses"], losses)
-    res = {"config": "BertForPretraining (bert-base), flash, auto_cast O2, "
+    res = {"config": f"BertForPretraining (bert-base at {DIST_LAYERS} "
+                     "layers), flash, auto_cast O2, "
                      "AdamW + GradScaler, DataParallel over "
                      f"{DP_RANKS} gloo ranks on one card; runs: hidden "
                      "dropout 0.1 (phase 9's variant (c)), every dropout "
@@ -5356,7 +5413,8 @@ def dp_nccl_steps(torch, static, attn, dr, fx, rnd, seed):
     check_equal("NCCL run_steps replaying call collective calls",
                 calls[DP_EAGER + 1], {})
     check_equal("NCCL run_steps captures", stats["traces"], 1)
-    res = {"config": "bert-base pretrain, fleet amp (bf16) + Adam 1e-4, "
+    res = {"config": f"bert-base pretrain at {DIST_LAYERS} layers, fleet "
+                     "amp (bf16) + Adam 1e-4, "
                      "flash + fused CE, CompiledProgram under NCCL, world "
                      "size 1", "batch": TRAIN_BATCH,
            "eager_losses": eager, "replayed_losses": replayed.tolist(),
@@ -5425,7 +5483,8 @@ def zt_program(stage, gm):
         # buckets read the unscaled gradients), as the JAX package does
         warnings.simplefilter("ignore", RuntimeWarning)
         main, startup, loss, _ = bench_program(lambda s: s.Adam(1e-4),
-                                               use_amp=False, outer=outer)
+                                               use_amp=False, outer=outer,
+                                               layers_n=DIST_LAYERS)
     want = ["AMPOptimizer", "ShardingOptimizer"] + (
         ["GradientMergeOptimizer"] if gm > 1 else []) + \
         ["GraphExecutionOptimizer"]
@@ -5448,7 +5507,7 @@ def zt_tp_program(tp):
     try:
         _reset_unique_names()
         main, startup, loss, _ = build_transformer_lm(
-            BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
+            BERT["vocab"], BERT["hidden"], DIST_LAYERS, BERT["heads"],
             BERT["seq"], tensor_parallel_degree=tp)
         with static.program_guard(main, startup):
             amp.decorate(static.Adam(1e-4), init_loss_scaling=1.0,
@@ -5870,7 +5929,8 @@ def zt_zero_check(torch, static, fx, rnd, seed, tmp, ranks, tag, stage, gm):
     rel, gaps = zt_gate(torch, f"ZeRO {tag}", tmp, f"zero_{tag}", before,
                         want, dp["losses"], losses, DP_LOSS_RTOL["static"],
                         DP_UPDATE_TOL["static"])
-    res = {"config": "bert-base pretrain, fleet amp (bf16) + sharding "
+    res = {"config": f"bert-base pretrain at {DIST_LAYERS} layers, fleet "
+                     "amp (bf16) + sharding "
                      f"(ZeRO stage {stage}"
                      + (f", gradient merge k = {gm}" if gm > 1 else "")
                      + f") + Adam 1e-4, flash + fused CE, {DP_RANKS} gloo "
@@ -5930,7 +5990,8 @@ def zt_tp_check(torch, static, fx, rnd, seed, tmp, ranks):
     rel, gaps = zt_gate(torch, "tensor parallel", tmp, "tp", before, want,
                         tp["losses"], losses, TP_LOSS_RTOL, TP_UPDATE_TOL,
                         runs=("sound",))
-    res = {"config": "models.build_transformer_lm(30522, 768, 12, 12, 512, "
+    res = {"config": f"models.build_transformer_lm(30522, 768, "
+                     f"{DIST_LAYERS}, 12, 512, "
                      f"tensor_parallel_degree={TP_DEGREE}), AMP bf16 + Adam "
                      "1e-4, flash + fused CE, 2 gloo ranks on one card, "
                      "weights carried from the tp = 1 program",
@@ -6052,7 +6113,8 @@ def zt_nccl(torch, static, attn, dr, fx, rnd, seed):
     check_equal("ZeRO-3 NCCL run_steps replaying call collective calls",
                 calls[DP_EAGER + 1], {})
     check_equal("ZeRO-3 NCCL run_steps captures", stats["traces"], 1)
-    res = {"config": "bert-base pretrain, fleet amp (bf16) + sharding (ZeRO "
+    res = {"config": f"bert-base pretrain at {DIST_LAYERS} layers, fleet "
+                     "amp (bf16) + sharding (ZeRO "
                      f"stage 3, dp_degree {DP_RANKS}) + Adam 1e-4, flash + "
                      "fused CE, CompiledProgram under NCCL, world size 1",
            "batch": TRAIN_BATCH, "eager_losses": eager,
@@ -6074,6 +6136,968 @@ def zt_nccl(torch, static, attn, dr, fx, rnd, seed):
         "zero3_nccl_capturing_call": {"launches": launches[DP_EAGER],
                                       "by_dtype": by_dtype[DP_EAGER],
                                       **at_start}}
+
+
+
+# phase 15: the remaining parallel axes over torch.distributed: tp-sharded
+# /generate, sequence parallelism (ring attention), expert parallelism
+# (switch MoE) and the gradient-merge commit hoist
+PX_RANKS = 2            # gloo ranks on the one card, as phases 13-14
+PX_TP = 2               # (a)'s tensor-parallel degree
+PX_POSTS = 8            # (a) phase 7's first posts ...
+PX_NEW = 32             # ... with 32 new tokens each
+# (a): (variant, weight dtype, speculative) of the tp = 2 engine's runs
+PX_TP_VARIANTS = (("plain", "float32", None), ("spec", "float32", "auto"),
+                  ("int8", "int8", None))
+SP_DEGREE = 2
+SP_STEPS = 3            # (b)'s steps of each run and of its reference
+# (b) against the same program in one process, where the ring op is one
+# flash call: the ring merges two bf16 block outputs (each rounded to bf16
+# before the merge) where one process rounds one output, so step 1's loss
+# may move by a few bf16 roundings over 4096 tokens: phase 14's tp
+# tolerance.  The update gap: Adam's sign noise on tiny gradients, which
+# read 0.161 for phase 13's two-rank step on the card, so 0.3; a planted
+# fault (rank 1's K block zeroed before its first send of every forward
+# ring, the backward ring sending the true one) must land above it
+SP_LOSS_RTOL = TP_LOSS_RTOL
+SP_UPDATE_TOL = 0.3
+# the flash-composed ring against the plain ring (the JAX step arithmetic)
+# on the same inputs, max |kernel - plain| over max(1, max |plain|): bf16
+# as the kernels against their plain versions (2e-2), plus the block
+# outputs' and block gradients' bf16 rounding before the fp32 merge; fp32
+# 3xTF32's
+RING_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+RING_SHAPE = (TRAIN_BATCH, BERT["heads"], BERT["seq"],
+              BERT["hidden"] // BERT["heads"])
+# (c) Switch-Base-8's widths (Fedus et al., "Switch Transformers", 2021)
+# in a 4-layer static encoder block, tokens 8 x 512, fp32, Adam
+SWITCH = dict(d_model=768, d_ff=3072, experts=8, capacity_factor=1.25,
+              layers=4, heads=12, batch=8, seq=512, aux_weight=0.01)
+EP_DEGREE = 2
+EP_RING_ID = 7
+EP_STEPS = 3
+# against the dense run in one process: the MSE part of the loss is the
+# mean of the ranks' means (equal token counts), the aux loss the mean of
+# the ranks' aux losses, which is not the aux loss of all tokens (a mean of
+# products of means), so step 1's loss 1e-3 and the aux loss 1e-2
+# relative; the update gap as (b)'s (Adam)
+EP_LOSS_RTOL = 1e-3
+EP_AUX_RTOL = 1e-2
+EP_UPDATE_TOL = DP_UPDATE_TOL["static"]
+HOIST_K = 4             # (d) run_steps K, twice, over gradient merge k = 2
+
+
+def px_ring_kernels(torch, attn):
+    """The flash-composed ring (forward, dQ and dK/dV kernels with the
+    global lse) against the plain ring, forward and backward, at the sp =
+    2 shape of (b) (the global sequence cut in 1 and 2 blocks), causal and
+    not, in bf16 and fp32.  The launches here compare and count nowhere."""
+    from paddle_tpu_torch.ops.attention import (_ring_bwd_rank,
+                                                _ring_fwd_rank, ring_blocks)
+    res = {}
+    gen = torch.Generator(device=CARD).manual_seed(15)
+    scale = RING_SHAPE[3] ** -0.5
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn(RING_SHAPE, device=CARD,
+                                   generator=gen).to(dt) for _ in range(4))
+        for causal in (False, True):
+            for n in (1, SP_DEGREE):
+                sl = RING_SHAPE[2] // n
+
+                def cut(t):
+                    return [t[:, :, i * sl:(i + 1) * sl].contiguous()
+                            for i in range(n)]
+
+                def ring(kernels):
+                    fw = ring_blocks([
+                        _ring_fwd_rank(*b, i, n, causal, scale, kernels)
+                        for i, b in enumerate(zip(cut(q), cut(k), cut(v)))])
+                    bw = ring_blocks([
+                        _ring_bwd_rank(*b, i, n, causal, scale, kernels)
+                        for i, b in enumerate(zip(
+                            cut(q), cut(k), cut(v), [o for o, _ in fw],
+                            [lse for _, lse in fw], cut(do)))])
+                    return [torch.cat([o for o, _ in fw], 2)] + [
+                        torch.cat([g[j] for g in bw], 2) for j in range(3)]
+                got, want = ring(True), ring(False)
+                torch.cuda.synchronize()
+                # max |kernel - plain| over max(1, max |plain|)
+                errs = {name: float((a.float() - b.float()).abs().max()) /
+                        max(1.0, float(b.float().abs().max()))
+                        for name, a, b in zip(("out", "dq", "dk", "dv"),
+                                              got, want)}
+                tag = f"{dtype_name(dt)}_{'causal' if causal else 'full'}" \
+                    f"_{n}block"
+                if not max(errs.values()) <= RING_TOL[dtype_name(dt)] or \
+                        not all(np.isfinite(list(errs.values()))):
+                    raise AssertionError(
+                        f"flash-composed ring {tag}: max abs errors {errs} "
+                        f"against the plain ring (tolerance "
+                        f"{RING_TOL[dtype_name(dt)]})")
+                res[tag] = errs
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    sl = RING_SHAPE[2] // SP_DEGREE
+
+    def fwd(kernels):
+        return ring_blocks([
+            _ring_fwd_rank(qb[:, :, i * sl:(i + 1) * sl],
+                           kb[:, :, i * sl:(i + 1) * sl],
+                           vb[:, :, i * sl:(i + 1) * sl], i, SP_DEGREE,
+                           False, scale, kernels)
+            for i in range(SP_DEGREE)])
+    times = {"ring_fwd_bf16_2block_ms": cuda_time_ms(lambda: fwd(True), 3),
+             "plain_ring_fwd_bf16_2block_ms":
+                 cuda_time_ms(lambda: fwd(False), 3)}
+    log({"phase": "parallel_axes_ring_kernels", "shape": list(RING_SHAPE),
+         "tolerance_normalised": RING_TOL, "max_err_normalised": res,
+         **times})
+    return res
+
+
+def px_counters():
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    return dp_counters(attn, dr, fx, rnd)
+
+
+def px_sp_want():
+    """Launches of a rank-step of (b): each layer's ring forward runs
+    SP_DEGREE flash forwards, and again in the gradient's replay; its
+    backward ring SP_DEGREE dQ and dK/dV; 2 fused CE; all bf16."""
+    n = BERT["layers_n"] * SP_DEGREE
+    return dict(zip(DP_COUNTED, (2 * n, n, n, 2, 0, 0)))
+
+
+def px_bert_sp():
+    """bench.py's AMP BERT-base step with use_ring (models
+    .build_bert_pretrain(use_ring=True)): (main, startup, loss)."""
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import build_bert_pretrain
+    _reset_unique_names()
+    return build_bert_pretrain(BERT["vocab"], BERT["seq"], BERT["hidden"],
+                               BERT["layers_n"], BERT["heads"],
+                               TRAIN_BATCH, use_amp=True, use_ring=True)
+
+
+def px_lm_sp():
+    """models.build_transformer_lm(30522, 768, 12, 12, 512,
+    sequence_parallel=True) with AMP bf16 and Adam 1e-4: (main, startup,
+    loss)."""
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import build_transformer_lm
+    _reset_unique_names()
+    main, startup, loss, _ = build_transformer_lm(
+        BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
+        BERT["seq"], sequence_parallel=True)
+    with static.program_guard(main, startup):
+        amp.decorate(static.Adam(1e-4), init_loss_scaling=1.0,
+                     use_dynamic_loss_scaling=False,
+                     dest_dtype="bfloat16").minimize(loss)
+    return main, startup, loss
+
+
+PX_SP_PROGRAMS = (("bert", px_bert_sp, ("sound", "fault")),
+                  ("lm", px_lm_sp, ("sound",)))
+
+
+def px_zero_k_first_send(attn):
+    """A planted fault on this rank: its K block zeroed before its first
+    send of every forward ring (the ring generator wrapped)."""
+    real = attn._ring_fwd_rank
+
+    def faulty(q, k, v, me, n, causal, scale, flash):
+        gen = real(q, k, v, me, n, causal, scale, flash)
+        try:
+            ks, vs = next(gen)
+            wait = yield (ks.new_zeros(ks.shape), vs)
+            out = gen.send(wait)
+            while True:
+                out = gen.send((yield out))
+        except StopIteration as e:
+            return e.value
+    return faulty
+
+
+def px_sp_rank(torch, seed, rank, out_dir):
+    """(b) on one rank: each PX_SP_PROGRAMS program under a CompiledProgram
+    with sequence_parallel_degree SP_DEGREE, SP_STEPS steps of the global
+    batch (zt_run: launches, collective calls, the ranks' state), the K/V
+    bytes this rank sent a step; rank 0 saves the gathered parameters."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.compiled_program import (
+        BuildStrategy, CompiledProgram)
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    out = {}
+    counters = px_counters()
+    fx.enable_fused_xent(True)
+    try:
+        for tag, build, runs in PX_SP_PROGRAMS:
+            main, startup, loss = build()
+            bs = BuildStrategy()
+            bs.sequence_parallel_degree = SP_DEGREE
+            compiled = CompiledProgram(main, bs).with_data_parallel(
+                loss_name=loss.name)
+            params = [p.name for p in main.all_parameters()]
+            out[tag] = {}
+            for run in runs:
+                real = attn._ring_fwd_rank
+                if run == "fault" and rank == 1:
+                    attn._ring_fwd_rank = px_zero_k_first_send(attn)
+                zero_wide(attn)
+                attn.RING_STATS.update(bytes_sent=0, steps=0)
+                try:
+                    rec, scope = zt_run(torch, static, compiled, startup,
+                                        loss, seed, rank, counters,
+                                        steps=SP_STEPS)
+                finally:
+                    attn._ring_fwd_rank = real
+                rec["ring"] = {k: v / SP_STEPS
+                               for k, v in attn.RING_STATS.items()}
+                rec["wide"] = read_wide(attn)
+                got = compiled.global_state(scope, params)
+                if rank == 0:
+                    torch.save({n: t.cpu() for n, t in got.items()},
+                               os.path.join(out_dir, f"sp_{tag}_{run}.pt"))
+                out[tag][run] = rec
+                del scope, got
+                torch.cuda.empty_cache()
+            out[tag]["program_comms"] = zt_program_comms(compiled)
+            out[tag]["philox_in_startup"] = sum(
+                op.type in ("uniform_random", "gaussian_random")
+                for op in startup.global_block().ops)
+    finally:
+        fx.enable_fused_xent(False)
+    return out
+
+
+def px_sp_check(torch, seed, tmp, ranks):
+    """(b) gated: each run's records (launches px_sp_want(), the ranks'
+    state bitwise equal, the same losses), then against the same program
+    in one process (the ring op unbound: one flash call a layer), step 1's
+    loss within SP_LOSS_RTOL and the update gap within SP_UPDATE_TOL, the
+    fault's gap above."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    out = {}
+    for tag, build, runs in PX_SP_PROGRAMS:
+        main, startup, loss = build()
+        for run in runs:
+            zt_check_ranks(f"sp {tag} ({run})", ranks,
+                           lambda r: r["sp"][tag][run],
+                           lambda r: r["sp"][tag]["program_comms"],
+                           px_sp_want(),
+                           ranks[0]["sp"][tag]["philox_in_startup"])
+        params = [p.name for p in main.all_parameters()]
+        fx.enable_fused_xent(True)
+        try:
+            init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+            losses, scope, ms, _ = eager_run(torch, static, main, loss,
+                                             init, train_feed(seed),
+                                             SP_STEPS)
+        finally:
+            fx.enable_fused_xent(False)
+        want = {n: scope.vars[n] for n in params}
+        before = {n: init[n] for n in params}
+        sound = ranks[0]["sp"][tag]["sound"]
+        rel, gaps = zt_gate(torch, f"sp {tag}", tmp, f"sp_{tag}", before,
+                            want, sound["losses"], losses, SP_LOSS_RTOL,
+                            SP_UPDATE_TOL, runs=runs)
+        del init, scope, want, before
+        res = {"config": ("bench.py's BERT-base AMP step with use_ring"
+                          if tag == "bert" else
+                          "models.build_transformer_lm(30522, 768, 12, 12, "
+                          "512, sequence_parallel=True), AMP bf16 + Adam "
+                          "1e-4") + f", global batch {TRAIN_BATCH}, sp "
+                          f"{SP_DEGREE} x dp 1 on {PX_RANKS} gloo ranks, "
+                          "flash + fused CE",
+               "losses": sound["losses"], "single_process_losses": losses,
+               "step1_loss_rel_diff": rel, "loss_rtol": SP_LOSS_RTOL,
+               "update_gap": gaps["sound"][0],
+               "update_tol": SP_UPDATE_TOL,
+               "param_max_abs_diff": gaps["sound"][1],
+               "rank_step_ms": [r["sp"][tag]["sound"]["step_ms"]
+                                for r in ranks],
+               "single_process_step_ms": ms,
+               "kv_bytes_sent_per_rank_step": sound["ring"]["bytes_sent"],
+               "ring_steps_per_rank_step": sound["ring"]["steps"],
+               "collective_calls_per_step":
+                   sound["collective_calls"][-1],
+               "launches_per_rank_step": sound["launches"][-1]}
+        if "fault" in gaps:
+            res.update(fault_losses=ranks[0]["sp"][tag]["fault"]["losses"],
+                       fault_update_gap=gaps["fault"][0])
+        log({"phase": f"parallel_axes_sp_{tag}", **res})
+        out[tag] = res
+    return out
+
+
+def px_moe_program():
+    """A static encoder at SWITCH's widths: per layer pre-LN attention
+    (q, k, v, out projections; the flash op) and a pre-LN switch_moe
+    feed-forward (layers.switch_moe, its experts parallel over
+    EP_RING_ID when that ring is bound), residuals; loss MSE against y
+    plus aux_weight x the layers' aux losses; Adam 1e-4, fp32.  Returns
+    (main, startup, loss, aux, the expert parameters)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.static import layers, nets
+    s = SWITCH
+    attn.enable_flash_attention(True)
+    try:
+        _reset_unique_names()
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            x = layers.data("x", [-1, s["seq"], s["d_model"]])
+            y = layers.data("y", [-1, s["seq"], s["d_model"]])
+            h, aux = x, None
+            for _ in range(s["layers"]):
+                a = layers.layer_norm(h, begin_norm_axis=2)
+                q, k, v = (layers.fc(a, s["d_model"], num_flatten_dims=2)
+                           for _ in range(3))
+                ctx = nets.scaled_dot_product_attention(
+                    q, k, v, num_heads=s["heads"])
+                h = layers.elementwise_add(
+                    h, layers.fc(ctx, s["d_model"], num_flatten_dims=2))
+                m = layers.layer_norm(h, begin_norm_axis=2)
+                o, a_l = layers.switch_moe(
+                    m, s["experts"], s["d_ff"],
+                    capacity_factor=s["capacity_factor"],
+                    ep_ring_id=EP_RING_ID)
+                h = layers.elementwise_add(h, o)
+                aux = a_l if aux is None else layers.elementwise_add(aux,
+                                                                     a_l)
+            mse = layers.mean(layers.square(layers.elementwise_sub(h, y)))
+            loss = layers.elementwise_add(
+                mse, layers.scale(aux, scale=s["aux_weight"]))
+            static.Adam(1e-4).minimize(loss)
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+    experts = [op.inputs[slot][0] for op in main.global_block().ops
+               if op.type == "switch_moe"
+               for slot in ("W1", "B1", "W2", "B2")]
+    return main, startup, loss, aux, experts
+
+
+def px_ep_grads(main, experts, world):
+    """Expert parallelism's gradients, written into the program: an
+    expert's gradient already holds every rank's tokens (the backward
+    all-to-all brought them), so it is scaled by 1 / world (each rank's
+    loss is the mean over its tokens); every other gradient is averaged
+    over the ranks (c_allreduce_sum, scale_by_world_size)."""
+    from paddle_tpu_torch.core.program import OpDesc, OpRole, unique_name
+    block = main.global_block()
+    new_ops = []
+    for op in block.ops:
+        if op.attrs.get(OpRole.KEY) == OpRole.Optimize and \
+                "Grad" in op.inputs:
+            g = op.inputs["Grad"][0]
+            out = unique_name(g + "@EP")
+            block.create_var(name=out, stop_gradient=True)
+            attrs = {OpRole.KEY: OpRole.Dist, "op_uid": main._next_uid()}
+            if op.inputs["Param"][0] in experts:
+                new_ops.append(OpDesc("scale", {"X": [g]}, {"Out": [out]},
+                                      {**attrs, "scale": 1.0 / world,
+                                       "bias": 0.0}))
+            else:
+                red = unique_name(g + "@ALLREDUCE")
+                block.create_var(name=red, stop_gradient=True)
+                new_ops.append(OpDesc("c_allreduce_sum", {"X": [g]},
+                                      {"Out": [red]},
+                                      {**attrs, "ring_id": 0}))
+                new_ops.append(OpDesc("scale_by_world_size", {"X": [red]},
+                                      {"Out": [out]},
+                                      {OpRole.KEY: OpRole.Dist,
+                                       "op_uid": main._next_uid(),
+                                       "ring_id": 0}))
+            op.inputs["Grad"] = [out]
+        new_ops.append(op)
+    block.ops = new_ops
+    main._fingerprint_cache = None
+
+
+def px_moe_feed(seed):
+    rng = np.random.RandomState(seed + 15)
+    s = SWITCH
+    shape = (s["batch"], s["seq"], s["d_model"])
+    return {"x": rng.randn(*shape).astype(np.float32),
+            "y": rng.randn(*shape).astype(np.float32)}
+
+
+def px_expert_slots(main, experts):
+    """{expert parameter or one of its Adam moments: its parameter}."""
+    out = {}
+    for op in main.global_block().ops:
+        if op.type == "adam" and op.inputs["Param"][0] in experts:
+            for slot in ("Param", "Moment1", "Moment2"):
+                out[op.inputs[slot][0]] = op.inputs["Param"][0]
+    return out
+
+
+def px_recount_dropped(torch, xs, gates, cf):
+    """The tokens a switch layer must drop, recounted from its inputs:
+    each token's top-1 expert under its gate, and per expert the tokens
+    past the capacity C = max(1, int(cf * N / E)) of this rank's N."""
+    total = 0
+    for x, gw in zip(xs, gates):
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        e = gw.shape[1]
+        idx = torch.softmax(x2 @ gw.float(), dim=-1).argmax(dim=-1)
+        per_expert = torch.bincount(idx, minlength=e)
+        cap = max(1, int(cf * x2.shape[0] / e))
+        total += int((per_expert - cap).clamp_min(0).sum())
+    return total
+
+
+def px_moe_run(torch, seed, rank, world, counters):
+    """EP_STEPS steps of px_moe_program: dense (world 1, every expert
+    here) or this rank's token rows and E / world experts with
+    EP_RING_ID bound to the world.  Returns (record, the parameters after
+    the last step: this rank's expert shards, the replicated ones)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.incubate import moe
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    main, startup, loss, aux, experts = px_moe_program()
+    if world > 1:
+        px_ep_grads(main, experts, world)
+    feed = px_moe_feed(seed)
+    b = SWITCH["batch"] // world
+    feed = {n: v[rank * b:(rank + 1) * b] for n, v in feed.items()}
+    startup.random_seed = seed
+    exe, scope = static.Executor(), static.Scope()
+    e_loc = SWITCH["experts"] // world
+    with static.scope_guard(scope):
+        exe.run(startup)
+    for n in px_expert_slots(main, experts):
+        scope.set(n, scope.vars[n][rank * e_loc:(rank + 1) * e_loc]
+                  .contiguous())
+    group = kc.ring_group(0) if world > 1 else None
+    moe_ops = [op for op in main.global_block().ops
+               if op.type == "switch_moe"]
+    moe_x = [op.inputs["X"][0] for op in moe_ops]
+    moe_gate = [op.inputs["GateW"][0] for op in moe_ops]
+    rec = {"losses": [], "aux": [], "step_ms": [], "launches": [],
+           "launches_by_dtype": [], "collective_calls": [], "dropped": [],
+           "dropped_recount": [],
+           "expert_rows_held": {n: list(scope.vars[n].shape)[:1]
+                                for n in experts}}
+    if group is not None:
+        kc.register_ring(EP_RING_ID, group)
+    try:
+        with static.scope_guard(scope):
+            for _ in range(EP_STEPS):
+                gates = [scope.vars[g].clone() for g in moe_gate]
+                dp_zero(counters)
+                kc.reset_comm_stats()
+                moe.reset_moe_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lv, av, *xs = exe.run(main, feed=feed,
+                                      fetch_list=[loss, aux] + moe_x,
+                                      return_numpy=False)
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                dropped = torch.as_tensor(moe.MOE_STATS["dropped"],
+                                          device=lv.device).reshape(1)
+                recount = torch.tensor([px_recount_dropped(
+                    torch, xs, gates, SWITCH["capacity_factor"])],
+                    device=lv.device)
+                if group is not None:  # the mean (sum) over the ranks
+                    lv = kc.all_reduce(lv, "sum", group) / world
+                    av = kc.all_reduce(av, "sum", group) / world
+                    dropped = kc.all_reduce(dropped, "sum", group)
+                    recount = kc.all_reduce(recount, "sum", group)
+                rec["dropped_recount"].append(int(recount.reshape(-1)[0]))
+                rec["losses"].append(float(lv.reshape(-1)[0]))
+                rec["aux"].append(float(av.reshape(-1)[0]))
+                rec["dropped"].append(int(dropped.reshape(-1)[0]))
+                launches, by_dtype = dp_read(counters)
+                rec["launches"].append(launches)
+                rec["launches_by_dtype"].append(by_dtype)
+                rec["collective_calls"].append(
+                    dict(kc.COMM_STATS["calls_by_op"]))
+    finally:
+        kc._RINGS.pop(EP_RING_ID, None)
+    params = {p.name: scope.vars[p.name] for p in main.all_parameters()}
+    return rec, params, experts
+
+
+def px_ep_rank(torch, seed, rank, out_dir):
+    """(c) on one rank: the ep run; saves this rank's parameters."""
+    rec, params, _ = px_moe_run(torch, seed, rank, PX_RANKS, px_counters())
+    torch.save({n: t.cpu() for n, t in params.items()},
+               os.path.join(out_dir, f"ep_rank{rank}.pt"))
+    return rec
+
+
+def px_ep_want():
+    """Launches of an ep rank-step (and of a dense step): 4 layers' flash
+    forward (and its replay), dQ, dK/dV, fp32; no fused CE (the loss is
+    an MSE); all-to-alls: 2 a layer forward, 2 in the replay, 2 backward."""
+    n = SWITCH["layers"]
+    return dict(zip(DP_COUNTED, (2 * n, n, n, 0, 0, 0)))
+
+
+def px_ep_check(torch, seed, tmp, ranks):
+    """(c) gated: each rank holds E / EP_DEGREE experts' weights, its
+    launches (fp32) and all-to-all calls; against the dense run in one
+    process: step 1's loss and aux loss, the update gap; the tokens each
+    run dropped for capacity equal to a recount from its routing, and
+    reported beside each other (they differ where a rank's share of an
+    expert's tokens overflows the rank's capacity while the whole batch
+    does not overflow the dense one's)."""
+    counters = px_counters()
+    dense, dparams, experts = px_moe_run(torch, seed, 0, 1, counters)
+    want = px_ep_want()
+    n_a2a = 6 * SWITCH["layers"]
+    for r in ranks:
+        rec = r["ep"]
+        for n, rows in rec["expert_rows_held"].items():
+            check_equal(f"ep rank {r['rank']} {n} experts held", rows,
+                        [SWITCH["experts"] // EP_DEGREE])
+        for i, (got, dt, calls) in enumerate(zip(
+                rec["launches"], rec["launches_by_dtype"],
+                rec["collective_calls"])):
+            check_equal(f"ep rank {r['rank']} step {i} launches", got, want)
+            check_equal(f"ep rank {r['rank']} step {i} launches by dtype",
+                        dt, {n: ({"float32": want[n]} if want[n] else {})
+                             for n in DP_KERNELS})
+            check_equal(f"ep rank {r['rank']} step {i} all-to-alls",
+                        calls.get("switch_moe_all_to_all"), n_a2a)
+    for i, got in enumerate(dense["launches"]):
+        check_equal(f"dense MoE step {i} launches", got, want)
+    ep = ranks[0]["ep"]
+    if [r["ep"]["losses"] for r in ranks][1:] != [ep["losses"]]:
+        raise AssertionError("ep: the ranks fetched different losses")
+    rel = abs(ep["losses"][0] - dense["losses"][0]) / abs(dense["losses"][0])
+    aux_rel = abs(ep["aux"][0] - dense["aux"][0]) / abs(dense["aux"][0])
+    shards = [torch.load(os.path.join(tmp, f"ep_rank{r}.pt"))
+              for r in range(EP_DEGREE)]
+    got = {n: (torch.cat([s[n] for s in shards]) if n in experts
+               else shards[0][n]) for n in dparams}
+    for n in dparams:
+        if n not in experts and not torch.equal(shards[0][n],
+                                                shards[1][n]):
+            raise AssertionError(f"ep: replicated {n} differs across the "
+                                 "ranks")
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import random as rnd
+    main, startup, _, _, _ = px_moe_program()
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    before = {n: init[n] for n in dparams}
+    gap, worst = dp_update_gap(torch, before, got, dparams)
+    if not (rel <= EP_LOSS_RTOL and aux_rel <= EP_AUX_RTOL and
+            gap <= EP_UPDATE_TOL and np.isfinite(ep["losses"]).all()):
+        raise AssertionError(
+            f"ep against dense: losses {ep['losses']} / {dense['losses']} "
+            f"(rel {rel}, tolerance {EP_LOSS_RTOL}), aux {ep['aux']} / "
+            f"{dense['aux']} (rel {aux_rel}, tolerance {EP_AUX_RTOL}), "
+            f"update gap {gap} (tolerance {EP_UPDATE_TOL})")
+    # the ep run computes each expert's capacity from a rank's tokens,
+    # as the JAX package does, so its drops equal dense's only where no
+    # capacity overflows: each run's count is held to its routing
+    check_equal("tokens dropped for capacity, ep (recounted from its "
+                "routing)", ep["dropped"], ep["dropped_recount"])
+    check_equal("tokens dropped for capacity, dense (recounted)",
+                dense["dropped"], dense["dropped_recount"])
+    res = {"config": f"static encoder, {SWITCH['layers']} layers of pre-LN "
+                     "attention (flash) + switch MoE at Switch-Base-8's "
+                     f"widths (d_model {SWITCH['d_model']}, d_ff "
+                     f"{SWITCH['d_ff']}, {SWITCH['experts']} experts, "
+                     f"capacity factor {SWITCH['capacity_factor']}), "
+                     f"tokens {SWITCH['batch']} x {SWITCH['seq']}, fp32, "
+                     f"Adam 1e-4; dp 1 x ep {EP_DEGREE} on {PX_RANKS} gloo "
+                     "ranks against dense in one process",
+           "losses": ep["losses"], "dense_losses": dense["losses"],
+           "step1_loss_rel_diff": rel, "loss_rtol": EP_LOSS_RTOL,
+           "aux": ep["aux"], "dense_aux": dense["aux"],
+           "step1_aux_rel_diff": aux_rel, "aux_rtol": EP_AUX_RTOL,
+           "update_gap": gap, "update_tol": EP_UPDATE_TOL,
+           "param_max_abs_diff": worst,
+           "tokens_dropped": ep["dropped"],
+           "dense_tokens_dropped": dense["dropped"],
+           "tokens_dropped_equal_to_dense": ep["dropped"] ==
+           dense["dropped"],
+           "all_to_alls_per_rank_step": n_a2a,
+           "rank_step_ms": [r["ep"]["step_ms"] for r in ranks],
+           "dense_step_ms": dense["step_ms"],
+           "launches_per_rank_step": ep["launches"][-1]}
+    log({"phase": "parallel_axes_ep", **res})
+    return res, dense
+
+
+def px_tp_rank(torch, seed, rank, bodies):
+    """(a) on one rank: phase 7's model (--seed) under a TPShardedDecoder
+    for each PX_TP_VARIANTS run; the leader (rank 0) serves `bodies`
+    through an engine with a tp-2 plan and the radix cache, the other rank
+    follows.  Returns each run's record."""
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          TPShardedDecoder)
+    generator.seed(seed)
+    with dygraph.guard(CUDAPlace(0)):
+        model = GPTForGeneration(GPTModel(GPTConfig(**GPT2))).eval()
+    out = {}
+    for variant, wd, spec in PX_TP_VARIANTS:
+        dec = TPShardedDecoder(model, PX_TP, weight_dtype=wd)
+        if rank:
+            rec = {"steps_followed": dec.follow(),
+                   "bytes_received": dec.bytes_received,
+                   "weights": dec.shard_bytes()}
+            out[variant] = rec
+            continue
+        plan = dict(GEN_PLAN, tp_degree=PX_TP, weight_dtype=wd)
+        eng = ContinuousBatchingEngine(dec, max_slots=GEN_PLAN["max_slots"],
+                                       kv_pool=plan, prefix_cache="auto",
+                                       speculative=spec)
+        eng.start()
+        counters = px_counters()
+        try:
+            # ---- the main path: counts from 0 just before, read just after
+            dp_zero(counters)
+            zero_wide(attn)
+            t0 = time.perf_counter()
+            futs = [eng.submit(
+                np.asarray(b["input_ids"], np.int64), max_length=PX_NEW,
+                decode_strategy=b.get("decode_strategy", "greedy_search"),
+                top_k=b.get("top_k", 0),
+                temperature=b.get("temperature", 1.0),
+                seed=b.get("seed", 0)) for b in bodies]
+            outs = [np.asarray(f.result(timeout=600)) for f in futs]
+            wall = time.perf_counter() - t0
+            launches, by_dtype = dp_read(counters)
+            wide = read_wide(attn)
+            # ---- end of the main path
+        finally:
+            eng.stop()
+        eng.prefix_cache.clear()
+        eng.kv_pool.assert_drained()
+        dec.stop()
+        steps = list(eng.step_log)
+        new = sum(int(o.size) - len(b["input_ids"])
+                  for b, o in zip(bodies, outs))
+        out[variant] = {
+            "outs": [o.tolist() for o in outs], "wall_s": wall,
+            "generated_tokens_per_s": new / wall,
+            "decode_step_ms_p50": pct([s["ms"] for s in steps], 50),
+            "forwards": dec.steps,
+            "bytes_sent_per_forward": dec.bytes_sent / dec.steps,
+            "cache_bytes": dec.cache_bytes, "bytes_sent": dec.bytes_sent,
+            "weights": dec.shard_bytes(), "launches": launches,
+            "by_dtype": by_dtype, "wide": wide,
+            "pool_tp_degree": eng.kv_pool.tp_degree,
+            "page_bytes_per_chip": eng.kv_pool.page_bytes_per_chip,
+            "page_bytes": eng.kv_pool.page_bytes}
+    return out
+
+
+def px_tp_check(torch, seed, bodies, ranks):
+    """(a) gated: each run's replies against the tp = 1 engine in this
+    process (equal, or a greedy near tie of the fp32 model: spec_divergences'
+    rule; int8 reported with the fp32 top-2 margin), the pools drained
+    (in the ranks), the follower's K/V feed 1 / tp of the whole and each
+    rank's sharded weights 1 / tp of theirs."""
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine
+    generator.seed(seed)
+    with dygraph.guard(CUDAPlace(0)):
+        model = GPTForGeneration(GPTModel(GPTConfig(**GPT2))).eval()
+    eng = ContinuousBatchingEngine(model, max_slots=GEN_PLAN["max_slots"],
+                                   kv_pool=dict(GEN_PLAN),
+                                   prefix_cache="auto").start()
+    try:
+        t0 = time.perf_counter()
+        futs = [eng.submit(
+            np.asarray(b["input_ids"], np.int64), max_length=PX_NEW,
+            decode_strategy=b.get("decode_strategy", "greedy_search"),
+            top_k=b.get("top_k", 0), temperature=b.get("temperature", 1.0),
+            seed=b.get("seed", 0)) for b in bodies]
+        ref = [np.asarray(f.result(timeout=600)) for f in futs]
+        ref_wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    ref_steps = list(eng.step_log)
+    leader, follower = ranks[0]["tp"], ranks[1]["tp"]
+    res = {}
+    for variant, wd, spec in PX_TP_VARIANTS:
+        lead, fol = leader[variant], follower[variant]
+        outs = [np.asarray(o, np.int64) for o in lead["outs"]]
+        if wd == "int8":
+            diverged = compare_posts(torch, model, bodies, outs, ref,
+                                     f"tp {variant}")
+        else:
+            diverged = spec_divergences(torch, model, bodies, outs, ref,
+                                        f"tp {variant}")
+        check_equal(f"tp {variant} forwards followed", fol["steps_followed"],
+                    lead["forwards"])
+        if fol["bytes_received"] * PX_TP != lead["cache_bytes"]:
+            raise AssertionError(
+                f"tp {variant}: the follower received "
+                f"{fol['bytes_received']} bytes of K/V feeds, the whole "
+                f"feeds were {lead['cache_bytes']}")
+        for who, rec in (("leader", lead), ("follower", fol)):
+            w = rec["weights"]
+            if w["sharded"] * PX_TP != w["sharded_whole"]:
+                raise AssertionError(f"tp {variant} {who}: holds "
+                                     f"{w['sharded']} of "
+                                     f"{w['sharded_whole']} sharded weight "
+                                     "bytes")
+        check_equal(f"tp {variant} pool tp degree", lead["pool_tp_degree"],
+                    PX_TP)
+        # the decode program is the score-matrix graph (the JAX
+        # package's): no hand kernel runs on this path
+        check_equal(f"tp {variant} hand-kernel launches",
+                    lead["launches"], {n: 0 for n in DP_COUNTED})
+        res[variant] = {
+            "posts_equal_to_tp1": len(bodies) - len(diverged),
+            "divergences": diverged,
+            "generated_tokens_per_s": lead["generated_tokens_per_s"],
+            "decode_step_ms_p50": lead["decode_step_ms_p50"],
+            "forwards": lead["forwards"],
+            "kv_bytes_sent_to_follower_per_forward":
+                lead["bytes_sent_per_forward"],
+            "sharded_weight_bytes_per_rank": lead["weights"]["sharded"],
+            "sharded_weight_bytes_whole": lead["weights"]["sharded_whole"],
+            "replicated_weight_bytes_per_rank":
+                lead["weights"]["replicated"],
+            "page_bytes_per_chip": lead["page_bytes_per_chip"],
+            "page_bytes": lead["page_bytes"]}
+    res["tp1_generated_tokens_per_s"] = sum(
+        int(o.size) - len(b["input_ids"]) for b, o in zip(bodies, ref)) \
+        / ref_wall
+    res["tp1_decode_step_ms_p50"] = pct([s["ms"] for s in ref_steps], 50)
+    log({"phase": "parallel_axes_tp_generate",
+         "config": f"GPT-2 small widths (random weights from --seed), fp32, "
+                   f"tp {PX_TP} on {PX_RANKS} gloo ranks on one card (rank "
+                   "0 leads the engine, rank 1 follows), the radix cache, "
+                   f"phase 7's first {PX_POSTS} posts with {PX_NEW} new "
+                   "tokens each; plain, speculative (2-layer stamp, k = 4) "
+                   "and int8 weights", **res})
+    return res
+
+
+def px_rank(seed, out_dir, bodies, prepare=None):
+    """One rank of phase 15 (a) - (c) (a `spawn` worker): a gloo process
+    group on cuda:0; writes rank<r>.json (and the parameter files)."""
+    import torch
+    import torch.distributed as tdist
+    if prepare is not None:
+        prepare()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.core import kernel_build
+    kernel_build.build_libraries(KERNEL_SOURCES)  # the parent built them
+    env = pdist.init_parallel_env(backend="gloo")
+    try:
+        torch.cuda.set_device(env.device_id)
+        res = {"rank": env.rank, "world": env.world_size}
+        t0 = time.perf_counter()
+        res["tp"] = px_tp_rank(torch, seed, env.rank, bodies)
+        res["tp_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["sp"] = px_sp_rank(torch, seed, env.rank, out_dir)
+        res["sp_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["ep"] = px_ep_rank(torch, seed, env.rank, out_dir)
+        res["ep_s"] = time.perf_counter() - t0
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def px_hoist(torch, seed):
+    """(d) phase 14's stage-2 ZeRO step with gradient merge k = 2 under
+    NCCL at world 1 in this process: run_steps K = HOIST_K, twice, hoisted
+    (the commit tail once a window: two captured graphs) and with
+    PADDLE_TPU_SCAN_HOIST=0, each from the same weights.  Gates: the
+    losses and the final global state bitwise equal; the replaying call's
+    replays issue 1 publish all-gather a bucket a window hoisted, 1 a step
+    unhoisted; no collective called outside a capture then."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.spawn import get_free_ports
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    port = get_free_ports(1)[0]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0)
+    fx.enable_fused_xent(True)
+    counters = px_counters()
+    runs = {}
+    try:
+        init = None
+        feed = train_feed(seed)
+        stacked = {k: np.stack([v] * HOIST_K) for k, v in feed.items()}
+        for mode in ("hoisted", "unhoisted"):
+            os.environ["PADDLE_TPU_SCAN_HOIST"] = "1" if mode == "hoisted" \
+                else "0"
+            main, startup, loss, compiled = zt_program(2, 2)
+            if init is None:
+                init, _, _ = startup_weights(torch, static, rnd, startup,
+                                             seed)
+            buckets = sum(op.type == "c_allgather"
+                          for op in compiled._get_program()
+                          .global_block().ops)
+            exe, scope = static.Executor(), scope_of(static, init)
+            rec = {"buckets": buckets, "losses": [], "calls": [],
+                   "replayed": []}
+            with static.scope_guard(scope):
+                for call in range(2):
+                    kc.reset_comm_stats()
+                    dp_zero(counters)
+                    zero_wide(attn)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = exe.run_steps(compiled, feed=stacked,
+                                        fetch_list=[loss])[0]
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3 / HOIST_K
+                    rec["losses"] += np.asarray(out, np.float32) \
+                        .reshape(-1).tolist()
+                    rec["calls"].append(dict(kc.COMM_STATS["calls_by_op"]))
+                    rec["replayed"].append(
+                        dict(kc.COMM_STATS["replayed_by_op"]))
+                    if call == 0:
+                        rec["capturing_launches"], rec["capturing_by_dtype"] \
+                            = dp_read(counters)
+                        rec["wide"] = read_wide(attn)
+                    else:
+                        rec["replayed_step_ms"] = ms
+                rec["hoisted"] = compiled._last_hoisted
+                rec["state"] = {n: t.clone() for n, t in
+                                compiled.global_state(scope).items()}
+            rec["cache_stats"] = exe.cache_stats()
+            exe.close()
+            runs[mode] = rec
+    finally:
+        os.environ.pop("PADDLE_TPU_SCAN_HOIST", None)
+        fx.enable_fused_xent(False)
+        tdist.destroy_process_group()
+    h, u = runs["hoisted"], runs["unhoisted"]
+    check_equal("hoist: hoisted / unhoisted", (h["hoisted"], u["hoisted"]),
+                (True, False))
+    if h["losses"] != u["losses"] or \
+            not np.isfinite(h["losses"]).all():
+        raise AssertionError(f"hoist: losses {h['losses']} hoisted against "
+                             f"{u['losses']} unhoisted")
+    differing = [n for n in u["state"] if not torch.equal(h["state"][n],
+                                                           u["state"][n])]
+    if sorted(h["state"]) != sorted(u["state"]) or differing:
+        raise AssertionError(f"hoist: the global state differs: "
+                             f"{differing[:5]}")
+    windows = HOIST_K // 2
+    for mode, rec, per_call in (("hoisted", h, windows),
+                                ("unhoisted", u, HOIST_K)):
+        check_equal(f"hoist {mode}: the replaying call's eager collectives",
+                    rec["calls"][1], {})
+        check_equal(f"hoist {mode}: publish all-gathers replayed a call",
+                    rec["replayed"][1].get("c_allgather"),
+                    per_call * rec["buckets"])
+        check_equal(f"hoist {mode}: captures", rec["cache_stats"]["traces"],
+                    1)
+    res = {"config": f"bench.py's BERT-base step at {DIST_LAYERS} layers "
+                     "(phase 14's), fleet amp (bf16) + "
+                     "sharding (ZeRO stage 2) + gradient merge k = 2, flash "
+                     "+ fused CE, CompiledProgram under NCCL, world size 1, "
+                     f"run_steps K = {HOIST_K} twice",
+           "losses": h["losses"], "bitwise_equal": True,
+           "buckets": h["buckets"],
+           "publish_allgathers_per_call": {
+               "hoisted": h["replayed"][1].get("c_allgather"),
+               "unhoisted": u["replayed"][1].get("c_allgather")},
+           "collectives_replayed_per_call": {"hoisted": h["replayed"][1],
+                                             "unhoisted": u["replayed"][1]},
+           "replayed_step_ms": {"hoisted": h["replayed_step_ms"],
+                                "unhoisted": u["replayed_step_ms"]},
+           "launches_in_capturing_call": {
+               "hoisted": h["capturing_launches"],
+               "unhoisted": u["capturing_launches"]}}
+    log({"phase": "parallel_axes_hoist", **res})
+    return res, h, u
+
+
+def px_phase(torch, seed, prepare=None):
+    """(15) the remaining parallel axes: the flash-composed ring's kernel
+    checks; (a) tp /generate, (b) sp training, (c) ep training on PX_RANKS
+    gloo ranks sharing the card (one spawn); (d) the hoist under NCCL at
+    world 1 here.  Returns the records, with each path's launches."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.ops import attention as attn
+    t_phase = time.perf_counter()
+    ring = px_ring_kernels(torch, attn)
+    bodies = gen_requests(seed)[:PX_POSTS]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_px_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pdist.spawn(px_rank, args=(seed, tmp, bodies, prepare),
+                    nprocs=PX_RANKS,
+                    selected_devices=",".join(["0"] * PX_RANKS))
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(PX_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        tp = px_tp_check(torch, seed, bodies, ranks)
+        sp = px_sp_check(torch, seed, tmp, ranks)
+        ep, dense = px_ep_check(torch, seed, tmp, ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    hoist, h, u = px_hoist(torch, seed)
+    for r in ranks:
+        for variant in ("plain", "spec", "int8"):
+            if r["rank"] == 0:
+                record_wide(f"px_tp_{variant}", r["tp"][variant]["wide"])
+        for tag, _, runs in PX_SP_PROGRAMS:
+            for run in runs:
+                record_wide(f"px_sp_{tag}_{run}_rank{r['rank']}",
+                            r["sp"][tag][run]["wide"])
+    record_wide("px_hoist_hoisted", h["wide"])
+    record_wide("px_hoist_unhoisted", u["wide"])
+    r0 = ranks[0]
+    launches = {f"sp_{tag}_gloo": dp_path_launches(r0["sp"][tag]["sound"])
+                for tag, _, _ in PX_SP_PROGRAMS}
+    for variant, _, _ in PX_TP_VARIANTS:
+        launches[f"tp_{variant}_leader"] = {
+            "launches": r0["tp"][variant]["launches"],
+            "by_dtype": r0["tp"][variant]["by_dtype"], "philox_at_start": 0}
+    launches["ep_gloo"] = {"launches": r0["ep"]["launches"][-1],
+                           "by_dtype": r0["ep"]["launches_by_dtype"][-1],
+                           "philox_at_start": 0}
+    launches["ep_dense"] = {"launches": dense["launches"][-1],
+                            "by_dtype": dense["launches_by_dtype"][-1],
+                            "philox_at_start": 0}
+    for mode, rec in (("hoisted", h), ("unhoisted", u)):
+        launches[f"hoist_{mode}_capturing_call"] = {
+            "launches": rec["capturing_launches"],
+            "by_dtype": rec["capturing_by_dtype"], "philox_at_start": 0}
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "parallel_axes", "ranks_process_s": spawn_s,
+         "rank_part_s": {k: r0[k + "_s"] for k in ("tp", "sp", "ep")},
+         "seconds": seconds})
+    return {"ring": ring, "tp": tp, "sp": sp, "ep": ep, "hoist": hoist,
+            "launches": launches, "seconds": seconds}
 
 
 def main():
@@ -6182,6 +7206,7 @@ def main():
     breadth = breadth_phase(torch, args.seed)
     dp = dp_phase(torch, args.seed)
     zt = zt_phase(torch, args.seed)
+    px = px_phase(torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -6269,7 +7294,11 @@ def main():
                      "breadth", "dp_static", "dp_dygraph", "dp_nccl") + tuple(
                  f"zero_{tag}_rank{r}" for tag, _, _ in ZT_STAGES
                  for r in range(DP_RANKS)) + tuple(
-                 f"tp_rank{r}" for r in range(DP_RANKS)) + ("zero_nccl",)
+                 f"tp_rank{r}" for r in range(DP_RANKS)) + ("zero_nccl",) + \
+        tuple(f"px_tp_{v}" for v, _, _ in PX_TP_VARIANTS) + tuple(
+            f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
+            for run in runs for r in range(PX_RANKS)) + (
+            "px_hoist_hoisted", "px_hoist_unhoisted")
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -6360,6 +7389,24 @@ def main():
             got = {p: extra["launches_by_path_all_dtypes"][p]
                    for p in wide_zt}
         extra["phase14_launches"] = got
+    # phase 15: the same on its paths: the leader's burst of each (a) run
+    # (the score-matrix decode program: 0, gated), a rank-step of (b)'s sp
+    # runs and of (c)'s ep run, a dense MoE step, the capturing calls of
+    # (d)
+    px_paths = px["launches"]
+    wide_px = tuple(p for p in paths if p.startswith("px_"))
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {p: r["by_dtype"][base].get(dt, 0)
+                   for p, r in px_paths.items()}
+        elif name in ("dropout_philox", "philox_random"):
+            got = {p: r["launches"][name] for p, r in px_paths.items()}
+        else:  # head dims above 128: over each whole path, all dtypes
+            got = {p: extra["launches_by_path_all_dtypes"][p]
+                   for p in wide_px}
+        extra["phase15_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

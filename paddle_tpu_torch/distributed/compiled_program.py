@@ -27,23 +27,38 @@ What each rank does on `Executor.run(compiled, feed, fetch_list)`:
     raises where it does not divide, as the JAX package's scan does.
   * **Seed.** The step seed plus the dp index, as the JAX package
     decorrelates the replicas' draws (the tp ranks of one dp index draw
-    alike).
+    alike); under dp × sp that times 7919 plus the sp index.
   * **Fetches.** BuildStrategy.fetch_aggregation "reduce": float fetches
-    are the mean over the dp ranks, others the max; "concat": gathered
-    along dim 0 in rank order, a scalar stacked to [W].
+    are the mean over the dp ranks (under dp × sp over the whole world),
+    others the max; "concat": gathered along dim 0 in rank order, a
+    scalar stacked to [W] (under dp × sp a sequence-sharded fetch first
+    gathered along dim 1 over sp, other floats averaged over sp).
 
 `Executor.run_steps(compiled, ...)` under NCCL captures one step, its
 collectives and the fetch reduction included, as a CUDA graph and
 replays it K times; a failed capture raises.  Under gloo (host
 collectives, which a graph cannot hold) and on the CPU the K steps run
-eagerly, one `run` each.
+eagerly, one `run` each.  A gradient-merge window runs HOISTED where
+distributed/scan_window.py can split it and K is a whole number of
+windows starting on a window boundary: the commit-free body every step,
+the commit tail (optimizer update, ZeRO publish all-gathers, merged
+allreduce) once a window, as two captured steps over one set of state
+buffers under NCCL, eagerly otherwise; bitwise the unhoisted losses and
+state.  PADDLE_TPU_SCAN_HOIST=0 forces the unhoisted form.
 
 The world is a dp × tp grid (BuildStrategy.tensor_parallel_degree = tp,
 dp = W / tp): rank r has dp index r // tp and tp index r % tp, the JAX
 mesh's `devs.reshape(dp, tp)` order.  Ring 0 is the rank's dp group
 (the ranks of its tp index) and TP_RING_ID (102) its tp group (the ranks
 of its dp index); every rank makes every group, in the same order.  At
-tp = 1 ring 0 is the whole world and TP_RING_ID the identity.
+tp = 1 ring 0 is the whole world and TP_RING_ID the identity.  Or it is
+a dp × sp grid (BuildStrategy.sequence_parallel_degree = sp): rank r has
+dp index r // sp and sp index r % sp, ring 0 is the WHOLE world (the
+gradients are partial over batch and sequence shards), SP_RING_ID (101)
+the rank's sp group (ring attention's) and TP_RING_ID the identity; a
+feed whose declared dim 1 is longer than 1 and divides by sp is cut on
+dim 1 over sp too.  sp with tp, and ZeRO under sp, raise as in the JAX
+package.
 
 State lives sharded, as the JAX package's `shard_map` places it
 (partition_spec.state_partition_specs decides): after the start
@@ -56,16 +71,16 @@ the JAX package's scope holds.  A scope already holding shards (the
 carry function, io.load_params_from_numpy(..., compiled=)) is synced
 within the ranks that share each shard.
 
-Not ported (ROADMAP.md Queue 1, Distribution; each raises):
-sequence_parallel_degree above 1, elastic programs (`_elastic_meta`)
-and sync_batch_norm.  The BuildStrategy knobs the JAX package leaves to XLA
-(fusions, memory options, debug_graphviz_path) are accepted and do
-nothing here either.
+Not ported (ROADMAP.md Queue 1, Distribution; each raises): elastic
+programs (`_elastic_meta`) and sync_batch_norm.  The BuildStrategy knobs
+the JAX package leaves to XLA (fusions, memory options,
+debug_graphviz_path) are accepted and do nothing here either.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import os
 import weakref
 from typing import Any, Dict, List
 
@@ -273,37 +288,59 @@ def _shard_rows(v, axis: int, w: int, r: int):
         np.take(v, np.arange(r * n, (r + 1) * n), axis=axis))
 
 
-class _World:
-    """One rank's place in the dp × tp grid and its groups (None where
-    no process group is initialised)."""
+def _reduce(v: torch.Tensor, group) -> torch.Tensor:
+    """A fetch across `group`: floats averaged, others the max."""
+    if v.is_floating_point():
+        return _kc.all_reduce(v, "sum", group) / torch.full(
+            (), _kc.world_of(group), dtype=v.dtype, device=v.device)
+    if v.dtype == torch.bool:
+        return _kc.all_reduce(v.to(torch.uint8), "max", group).bool()
+    return _kc.all_reduce(v, "max", group)
 
-    def __init__(self, tp: int):
+
+class _World:
+    """One rank's place in the dp × tp or dp × sp grid and its groups
+    (None where no process group is initialised)."""
+
+    def __init__(self, tp: int, sp: int = 1):
         import torch.distributed as dist
-        self.tp = max(1, int(tp))
+        self.tp, self.sp = max(1, int(tp)), max(1, int(sp))
+        if self.tp > 1 and self.sp > 1:
+            raise NotImplementedError(
+                "sequence_parallel_degree and tensor_parallel_degree "
+                "cannot both exceed 1 in one CompiledProgram")
+        # the model axis: "sp" (sequence shards) or "tp" (weight shards)
+        self.axis = "sp" if self.sp > 1 else "tp"
+        m = self.sp if self.sp > 1 else self.tp
         self.whole = None
         w, r = 1, 0
         if dist.is_available() and dist.is_initialized():
             self.whole = dist.group.WORLD
             w, r = dist.get_world_size(), dist.get_rank()
-        if w % self.tp:
+        if w % m:
+            knob = "sequence" if self.sp > 1 else "tensor"
             raise ValueError(
-                f"BuildStrategy.tensor_parallel_degree={self.tp} does not "
+                f"BuildStrategy.{knob}_parallel_degree={m} does not "
                 f"divide the world of {w} ranks")
         self.size = w
-        self.dp = w // self.tp
-        self.dp_index, self.tp_index = r // self.tp, r % self.tp
-        self.dp_group, self.tp_group = self.whole, None
-        if self.whole is not None and self.tp > 1:
+        self.dp = w // m
+        self.dp_index, m_index = r // m, r % m
+        self.tp_index = m_index if self.axis == "tp" else 0
+        self.sp_index = m_index if self.axis == "sp" else 0
+        self.dp_group, model_group = self.whole, None
+        if self.whole is not None and m > 1:
             # every rank makes every group, in the same order
-            for t in range(self.tp):
-                g = dist.new_group([d * self.tp + t for d in range(self.dp)])
-                if t == self.tp_index:
+            for t in range(m):
+                g = dist.new_group([d * m + t for d in range(self.dp)])
+                if t == m_index:
                     self.dp_group = g
             for d in range(self.dp):
-                g = dist.new_group([d * self.tp + t for t in range(self.tp)])
+                g = dist.new_group([d * m + t for t in range(m)])
                 if d == self.dp_index:
-                    self.tp_group = g
-        self.mesh = Mesh({"dp": self.dp, "tp": self.tp} if self.tp > 1
+                    model_group = g
+        self.tp_group = model_group if self.axis == "tp" else None
+        self.sp_group = model_group if self.axis == "sp" else None
+        self.mesh = Mesh({"dp": self.dp, self.axis: m} if m > 1
                          else {"dp": self.dp})
 
     def __deepcopy__(self, memo):
@@ -313,24 +350,55 @@ class _World:
         return self
 
     def index(self, axis):
-        return self.dp_index if axis == "dp" else self.tp_index
+        return {"dp": self.dp_index, "tp": self.tp_index,
+                "sp": self.sp_index}[axis]
 
     def degree(self, axis):
-        return self.dp if axis == "dp" else self.tp
+        return {"dp": self.dp, "tp": self.tp, "sp": self.sp}[axis]
 
     def group(self, axis):
-        return self.dp_group if axis == "dp" else self.tp_group
+        return {"dp": self.dp_group, "tp": self.tp_group,
+                "sp": self.sp_group}[axis]
 
     def sharers(self, axis):
         """The group of the ranks that hold the same `axis` shard."""
-        return self.tp_group if axis == "dp" else self.dp_group
+        return (self.tp_group or self.sp_group) if axis == "dp" \
+            else self.dp_group
+
+    @property
+    def reduce_group(self):
+        """The ranks a gradient (and a "reduce" fetch) is partial over:
+        the dp group, or under dp × sp the whole world (batch and
+        sequence shards)."""
+        return self.whole if self.sp > 1 else self.dp_group
+
+    def seed(self, step_seed: int) -> int:
+        """This rank's seed of a step: the step seed plus the dp index
+        (the tp ranks of one dp index draw alike); under dp × sp that
+        times 7919 plus the sp index, wrapped to 32 bits (the JAX
+        package's uint32 rule)."""
+        s = int(step_seed) + self.dp_index
+        if self.sp > 1:
+            s = (s * 7919 + self.sp_index) % (2 ** 32)
+        return s
 
     @contextlib.contextmanager
     def bind(self):
-        """Ring 0 and TP_RING_ID bound to this rank's dp and tp groups
-        while a step runs (the bindings before are restored after)."""
-        rings = {0: self.dp_group, TP_RING_ID: self.tp_group} \
-            if self.tp > 1 else {TP_RING_ID: None}
+        """Ring 0, TP_RING_ID and SP_RING_ID bound to this rank's groups
+        while a step runs (the bindings before are restored after): under
+        dp × tp ring 0 is the dp group and TP_RING_ID the tp group; under
+        dp × sp ring 0 is the whole world and SP_RING_ID the sp group; an
+        axis the grid lacks binds to None (its ops are the identity, the
+        ring op plain attention)."""
+        from ..ops.attention import SP_RING_ID
+        if self.sp > 1:
+            rings = {0: self.whole, SP_RING_ID: self.sp_group,
+                     TP_RING_ID: None}
+        elif self.tp > 1:
+            rings = {0: self.dp_group, TP_RING_ID: self.tp_group,
+                     SP_RING_ID: None}
+        else:
+            rings = {TP_RING_ID: None, SP_RING_ID: None}
         saved = {k: _kc._RINGS[k] for k in rings if k in _kc._RINGS}
         for k, g in rings.items():
             _kc.register_ring(k, g)
@@ -376,16 +444,14 @@ class CompiledProgram:
     def _get_world(self) -> _World:
         if self._world is None:
             self._check_supported()
-            self._world = _World(int(getattr(
-                self._build_strategy, "tensor_parallel_degree", 1)))
+            bs = self._build_strategy
+            self._world = _World(
+                int(getattr(bs, "tensor_parallel_degree", 1)),
+                int(getattr(bs, "sequence_parallel_degree", 1)))
         return self._world
 
     def _check_supported(self):
         bs = self._build_strategy
-        if int(getattr(bs, "sequence_parallel_degree", 1)) > 1:
-            raise NotImplementedError(
-                f"BuildStrategy.sequence_parallel_degree > 1 (sequence "
-                f"parallel) is not ported yet ({_LATER})")
         if bs.sync_batch_norm:
             raise NotImplementedError(
                 f"BuildStrategy.sync_batch_norm is not ported yet "
@@ -410,6 +476,15 @@ class CompiledProgram:
                     f"with_data_parallel(places=...) names "
                     f"{len(self._places)} places, the process group has "
                     f"{n} ranks (one process and one place a rank)")
+            if world.sp > 1 and any(
+                    v.attrs.get("dp_shard") for b in self._program.blocks
+                    for v in b.vars.values()):
+                raise NotImplementedError(
+                    "ZeRO-1 sharded programs (shard_optimizer_states) "
+                    "compose with dp or dp×tp meshes only; the bucket "
+                    "reduce-scatter rides ring 0's dp axis, but under "
+                    "dp×sp gradients are partial over both axes "
+                    "(sequence_parallel_degree must be 1)")
             if self._is_data_parallel:
                 scale = (self._build_strategy.gradient_scale_strategy ==
                          GradientScaleStrategy.CoeffNumDevice and n > 1)
@@ -500,25 +575,42 @@ class CompiledProgram:
                 if g is not None else t
         return out
 
-    def _aggregate(self, fetched, group):
-        """The fetches across the dp ranks
-        (BuildStrategy.fetch_aggregation)."""
-        w = _kc.world_of(group)
+    def _aggregate(self, fetched, world, fetch_names):
+        """The fetches across the ranks (BuildStrategy.fetch_aggregation):
+        "reduce" averages floats (others the max) over the ranks a
+        gradient is partial over (world.reduce_group); "concat" gathers
+        along dim 0 over dp, after, under dp × sp, gathering a
+        sequence-sharded fetch along dim 1 over sp (averaging other
+        floats over sp, the max of the rest)."""
+        agg = self._build_strategy.fetch_aggregation
         out = []
-        for v in fetched:
+        for n, v in zip(fetch_names, fetched):
             if not isinstance(v, torch.Tensor):
                 out.append(v)
-            elif self._build_strategy.fetch_aggregation == "concat":
-                out.append(_kc.gather_rows(v, group))
-            elif v.is_floating_point():
-                out.append(_kc.all_reduce(v, "sum", group) / torch.full(
-                    (), w, dtype=v.dtype, device=v.device))
-            elif v.dtype == torch.bool:
-                out.append(_kc.all_reduce(v.to(torch.uint8), "max", group)
-                           .bool())
+            elif agg == "concat":
+                if world.sp > 1:
+                    v = self._over_sp(n, v, world)
+                out.append(_kc.gather_rows(v, world.dp_group))
             else:
-                out.append(_kc.all_reduce(v, "max", group))
+                out.append(_reduce(v, world.reduce_group))
         return out
+
+    def _over_sp(self, name, v, world):
+        """A "concat" fetch across the sp ranks: a sequence-sharded one
+        (declared dim 1 cut by the feed rule) gathered along dim 1, other
+        floats averaged (per-example reductions are partial means), the
+        rest the max."""
+        if v.dim() >= 2 and self._sp_sharded(name, world.sp):
+            return _kc.gather_rows(v.movedim(1, 0), world.sp_group) \
+                .movedim(0, 1).contiguous()
+        return _reduce(v, world.sp_group)
+
+    def _sp_sharded(self, name, sp):
+        """Whether var `name`'s dim 1 rides the sp axis: declared longer
+        than 1 and divisible by sp (the JAX package's feed rule)."""
+        shape = self._declared(name) or ()
+        return len(shape) >= 2 and shape[1] is not None and \
+            int(shape[1]) > 1 and int(shape[1]) % sp == 0
 
     def _prepare(self, scope):
         from ..static.executor import _persistable_names
@@ -551,6 +643,12 @@ class CompiledProgram:
                         "run() shards axis 0)")
                 if v.shape[dim] % deg == 0:
                     v = _shard_rows(v, dim, deg, world.index(axis))
+            if world.sp > 1 and self._sp_sharded(n, world.sp) and \
+                    v.ndim >= 2 + axis_offset and \
+                    v.shape[1 + axis_offset] % world.sp == 0:
+                # the sequence (dim 1) over sp
+                v = _shard_rows(v, 1 + axis_offset, world.sp,
+                                world.sp_index)
             local[n] = v
         return local
 
@@ -565,33 +663,93 @@ class CompiledProgram:
                 fetch_list), scope, world)
         return as_numpy(fetched) if return_numpy else fetched
 
+    def _run_local(self, executor, local, fetch_names, scope):
+        """One step from feeds already cut to this rank (a caller that
+        distributes the shards itself: serving/tp_decode.py's leader and
+        followers): the aggregated fetched tensors."""
+        program, world = self._prepare(scope)
+        with world.bind():
+            return self._step(executor, program, local, fetch_names, scope,
+                              world)
+
     def _step(self, executor, program, feed, fetch_names, scope, world):
-        seed = executor._seed_for_step(program) + world.dp_index
+        seed = world.seed(executor._seed_for_step(program))
         fetched = executor._run_program(program, feed, fetch_names, scope,
                                         seed)
         executor._step += 1
-        return self._aggregate(fetched, world.dp_group)
+        return self._aggregate(fetched, world, fetch_names)
+
+    def _window_split(self, program, fetch_names):
+        """scan_window.split_commit_tail, memoized per (fingerprint,
+        fetches): the split walks and clones the whole program."""
+        key = (program.fingerprint(), tuple(fetch_names))
+        cached = getattr(self, "_scan_split_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from .scan_window import split_commit_tail
+        split = split_commit_tail(program, fetch_names)
+        self._scan_split_cache = (key, split)
+        return split
+
+    def _hoist_split(self, program, k, fetch_names, scope):
+        """The WindowSplit to run K steps hoisted, or None: a splittable
+        gradient-merge window, K a whole number of windows, the counter
+        on a window boundary (a start mid-window replays the masked
+        per-step form), and PADDLE_TPU_SCAN_HOIST not 0 / false / off."""
+        if os.environ.get("PADDLE_TPU_SCAN_HOIST", "1").lower() in \
+                ("0", "false", "off"):
+            return None
+        split = self._window_split(program, fetch_names)
+        if split is None or k % split.k:
+            return None
+        cval = scope.get(split.counter)
+        if cval is None or int(torch.as_tensor(cval).reshape(-1)[0]) \
+                % split.k:
+            return None
+        return split
 
     def _run_steps(self, executor, stacked, k, fetch_names, scope):
         """K steps from feeds stacked [K, global batch, ...] (device
         tensors): the stacked fetches.  NCCL (or no process group) on
-        CUDA: one captured step replayed; gloo or CPU: K eager steps."""
+        CUDA: one captured step replayed; gloo or CPU: K eager steps.
+        A gradient-merge window runs hoisted where it can
+        (`_hoist_split`): the commit-free body each micro-step, the
+        commit tail once a window (two captured steps on CUDA, eager
+        otherwise), bitwise the per-step form's losses and state with the
+        tail's collectives (the ZeRO publish all-gathers, the merged
+        allreduce) run once a window instead of once a step."""
+        from ..static.executor import _persistable_names
         program, world = self._prepare(scope)
         local = self._local_feed(program, stacked, world, axis_offset=1)
+        split = self._hoist_split(program, k, fetch_names, scope)
+        self._last_hoisted = split is not None
         import torch.distributed as dist
         gloo = world.whole is not None and \
             dist.get_backend(world.whole) == "gloo"
         with world.bind():
             if executor.device.type == "cuda" and not gloo:
                 agg = self._build_strategy.fetch_aggregation
-                return executor._replay_steps(
-                    program, local, k, fetch_names, scope,
-                    seed_offset=world.dp_index,
-                    finish=lambda f: self._aggregate(f, world.dp_group),
-                    key_extra=("data_parallel", agg, world.size, world.tp))
-            steps = [self._step(executor, program,
-                                {n: v[i] for n, v in local.items()},
-                                fetch_names, scope, world)
-                     for i in range(k)]
+                kw = dict(seed_of=world.seed,
+                          finish=lambda f: self._aggregate(f, world,
+                                                           fetch_names),
+                          key_extra=("data_parallel", agg, world.size,
+                                     world.tp, world.sp))
+                if split is not None:
+                    state_names = [n for n in _persistable_names(program)
+                                   if scope.get(n) is not None]
+                    return executor._replay_windows(
+                        split, state_names, local, k, fetch_names, scope,
+                        **kw)
+                return executor._replay_steps(program, local, k,
+                                              fetch_names, scope, **kw)
+            steps = []
+            for i in range(k):
+                steps.append(self._step(
+                    executor, split.body if split else program,
+                    {n: v[i] for n, v in local.items()}, fetch_names,
+                    scope, world))
+                if split is not None and (i + 1) % split.k == 0:
+                    # the commit: no feeds, no fetches, no draws
+                    executor._run_program(split.tail, {}, [], scope, 0)
         return [torch.stack([s[j] for s in steps])
                 for j in range(len(fetch_names))]

@@ -36,8 +36,8 @@ class GraphExecutionOptimizer(MetaOptimizerBase):
             bs.trainer_id = self.role_maker.worker_index()
             bs.trainers_endpoints = self.role_maker.get_trainer_endpoints()
         # DistributedStrategy parallelism degrees flow into the
-        # BuildStrategy (CompiledProgram refuses a sequence-parallel degree
-        # above 1: not ported); only a degree the user actually set (> 1) overrides — a bare
+        # BuildStrategy; only a degree the user actually set (> 1)
+        # overrides — a bare
         # flag with default configs must not clobber a degree already on
         # a user-supplied BuildStrategy
         if getattr(strategy, "sequence_parallel", False):

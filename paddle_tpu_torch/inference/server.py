@@ -242,7 +242,7 @@ class InferenceServer:
                  request_timeout_s: float = 30.0, generator=None,
                  place=None, gen_slots: Optional[int] = None,
                  gen_kv_pool=None, gen_prefix_cache=None,
-                 gen_speculative=None):
+                 gen_speculative=None, gen_tp_degree: Optional[int] = None):
         from . import Config, create_predictor
         from ..core.place import CPUPlace, CUDAPlace
         from ..serving import DynamicBatcher
@@ -264,7 +264,8 @@ class InferenceServer:
             self.attach_generator(generator, max_slots=gen_slots,
                                   kv_pool=gen_kv_pool,
                                   prefix_cache=gen_prefix_cache,
-                                  speculative=gen_speculative)
+                                  speculative=gen_speculative,
+                                  tp_degree=gen_tp_degree)
         self._inflight = 0
         self._inflight_mu = threading.Lock()
         self._inflight_zero = threading.Condition(self._inflight_mu)
@@ -278,7 +279,7 @@ class InferenceServer:
     def attach_generator(self, model, max_slots: Optional[int] = None,
                          max_queue: int = 64, timeout_s: float = 120.0,
                          kv_pool=None, prefix_cache=None,
-                         speculative=None):
+                         speculative=None, tp_degree: Optional[int] = None):
         """Enable /generate: wrap ``model`` in a ContinuousBatchingEngine
         (started with the server).  ``kv_pool`` (a plan dict or a
         ``PagedKVPool``) serves decode through the block-paged KV pool on
@@ -288,14 +289,18 @@ class InferenceServer:
         int8 pages and int8 decode matmuls.  ``prefix_cache="auto"``
         retains hot prompt prefixes across requests;
         ``speculative="auto"`` decodes through a stamped 2-layer draft
-        (both need paged KV).  ``kv_pool="auto"`` raises (ROADMAP.md
-        Queue 1, Analysis and planner tiers); so does a plan with
-        ``tp_degree`` > 1 (ROADMAP.md Queue 1, Distribution)."""
+        (both need paged KV).  ``tp_degree`` > 1 serves decode tp-sharded
+        (``serving.TPShardedDecoder``: this server is the leader, rank 0,
+        and the other ranks of the process group run the decoder's
+        ``follow()``); a plan passed as ``kv_pool`` carries its own
+        degree, an explicit arg wins.  ``kv_pool="auto"`` raises
+        (ROADMAP.md Queue 1, Analysis and planner tiers)."""
         from ..serving import ContinuousBatchingEngine
         self._engine = ContinuousBatchingEngine(
             model, max_slots=max_slots, max_queue=max_queue,
             default_timeout_s=timeout_s, kv_pool=kv_pool,
-            prefix_cache=prefix_cache, speculative=speculative)
+            prefix_cache=prefix_cache, speculative=speculative,
+            tp_degree=tp_degree)
         if self._status == "ok":
             self._engine.start()
         return self._engine

@@ -49,7 +49,8 @@ def build_bert_pretrain(vocab=30522, seq=512, hidden=768, layers_n=12,
     """bench.build_bert_base: returns (main, startup, loss).  Feeds: ids,
     pos [B, seq] int64 and labels [B, seq, 1] int64.  `batch` is accepted
     for signature parity (the batch dim is dynamic); `use_ring=True`
-    raises in nets.scaled_dot_product_attention (distribution slice)."""
+    emits the ring_attention op for every layer's attention (run it under
+    a CompiledProgram with BuildStrategy.sequence_parallel_degree)."""
     from .. import amp, static
     from ..static import layers
 
@@ -78,8 +79,7 @@ def build_bert_base(vocab=30522, seq=512, hidden=768, layers_n=12, heads=12,
     """The forward part of bench.build_bert_base (build_bert_pretrain is
     the whole): returns (main, startup, sequence_output).  `batch` is
     accepted for signature parity; `use_amp=True` raises (the encoder is
-    served in fp32); `use_ring=True` raises in
-    nets.scaled_dot_product_attention (distribution slice)."""
+    served in fp32); `use_ring=True` emits the ring_attention op."""
     from .. import static
     from ..static import layers
 

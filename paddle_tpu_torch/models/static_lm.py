@@ -1,9 +1,8 @@
 """Static-graph transformer LM builder with optional tensor parallelism.
 
 Counterpart of paddle_tpu/models/static_lm.py; it builds the JAX
-package's program op for op.  In the port `sequence_parallel=True`
-raises (ring attention is not ported: static/nets.py); the
-tensor-parallel program runs under CompiledProgram with one process a
+package's program op for op.  The tensor-parallel and the
+sequence-parallel programs run under CompiledProgram with one process a
 rank.  The text below is the JAX package's.
 
 The v5e-32-scale rehearsal config: assembles embedding → N pre-LN

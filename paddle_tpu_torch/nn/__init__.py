@@ -9,7 +9,8 @@ Counterpart of paddle_tpu/nn/: `Layer`, `Sequential`, `LayerList`,
 `LayerNorm` (layer/norm.py), `ReLU`, `Tanh`, `GELU`, `Softmax`,
 `LogSoftmax` (layer/activation.py), `CrossEntropyLoss`, `MSELoss`
 (layer/loss.py), `MultiHeadAttention`, `TransformerEncoderLayer`,
-`TransformerEncoder` (layer/transformer.py), the default initializers
+`TransformerEncoder`, `SwitchMoE` (layer/transformer.py), the default
+initializers
 (initializer.py) and, as paddle 2.0 exports them here, the gradient clips
 `ClipGradByValue` / `ByNorm` / `ByGlobalNorm`.  The other layer families
 (the other convolutions, pools and norms, rnn, the transformer decoder,

@@ -20,7 +20,8 @@ them (`:88-104`):
     dropout on the attention weights in training.  GPT always passes a
     mask and takes this route.
 A bool or integer mask (1 = keep) becomes an additive one of 0 / -1e4,
-as in the JAX package.  The decoder classes wait for ROADMAP.md Queue
+as in the JAX package.  `SwitchMoE` is the switch Mixture-of-Experts
+block (incubate/moe.py).  The decoder classes wait for ROADMAP.md Queue
 1, The rest.
 """
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .common import Dropout, Linear
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "SwitchMoE"]
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -201,3 +202,41 @@ class TransformerEncoder(Layer):
         if self.norm is not None:
             output = self.norm(output)
         return output if cache is None else (output, new_caches)
+
+
+class SwitchMoE(Layer):
+    """Switch (top-1) Mixture-of-Experts feed-forward block (the JAX
+    package's `:338`): the switch_moe op's core (incubate/moe.py), with
+    `ep_ring_id` naming the ring of the expert group.
+
+    forward(x [..., d_model]) -> (out [..., d_model], aux_loss scalar);
+    add `aux_weight * aux_loss` to the training loss."""
+
+    def __init__(self, d_model, d_hidden, num_experts,
+                 capacity_factor=1.25, ep_ring_id=None, weight_attr=None,
+                 name=None):
+        super().__init__()
+        from ...static.initializer import Normal
+        from ...static.param_attr import ParamAttr
+        self.capacity_factor = capacity_factor
+        self.ep_ring_id = ep_ring_id
+
+        def _sub_attr(suffix):
+            return ParamAttr.derive(weight_attr, suffix)
+
+        self.gate_w = self.create_parameter(
+            [d_model, num_experts], attr=_sub_attr("_gate"),
+            default_initializer=Normal(0.0, 0.02))
+        self.w1 = self.create_parameter([num_experts, d_model, d_hidden],
+                                        attr=_sub_attr("_w1"))
+        self.b1 = self.create_parameter([num_experts, d_hidden],
+                                        is_bias=True)
+        self.w2 = self.create_parameter([num_experts, d_hidden, d_model],
+                                        attr=_sub_attr("_w2"))
+        self.b2 = self.create_parameter([num_experts, d_model],
+                                        is_bias=True)
+
+    def forward(self, x):
+        from ...ops.kernels.sparse_feature import switch_moe_nd
+        return switch_moe_nd(x, self.gate_w, self.w1, self.b1, self.w2,
+                             self.b2, self.capacity_factor, self.ep_ring_id)

@@ -80,6 +80,18 @@ meaningful; callers must not consume those rows.
 The TPU kernel falls back to `reference_attention` for sequence lengths
 that do not tile (`_fit_block`); the Hopper kernels mask ragged tiles and
 take any length, so the port has no such fallback.
+
+`ring_attention(q, k, v, group, causal)` is sequence-parallel attention
+over a process group (the JAX package's over a mesh axis, `ppermute`
+there, point-to-point sends here): each rank holds a [B, H, S/n, D]
+shard, K/V rotate around the ring, causal masking uses global positions.
+Each rank's ring is a generator that yields what it passes on
+(`_ring_fwd_rank`, `_ring_bwd_rank`): `_drive` runs one over a group,
+`ring_blocks` runs n of them in one process (the kernel checks).  On CUDA
+every step is a flash kernel launch: the forward's (out, lse) merged in
+fp32, the backward's dQ and dK/dV from the merged lse, the dK/dV sums
+riding with their K/V block and one more hop home; on the CPU the plain
+ring (the JAX step arithmetic) and the plain backward kernels.
 """
 from __future__ import annotations
 
@@ -97,7 +109,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda",
            "reference_attention", "enable_flash_attention", "use_flash_for",
            "set_flash_min_seq_len", "FLASH_HEAD_DIMS", "kernel_head_dim",
-           "kernel_operands", "tma_accepts", "LAUNCH_COUNTS"]
+           "kernel_operands", "tma_accepts", "LAUNCH_COUNTS",
+           "ring_attention", "ring_blocks", "SP_RING_ID", "RING_STATS"]
 
 # same defaults as paddle_tpu: "auto" takes flash only from 8192 up (a
 # threshold that paddle_tpu measured on its TPU, kept so both packages
@@ -611,3 +624,257 @@ for _wrapper in (flash_attention, flash_attention_bwd_dq_cuda,
         setattr(_wrapper, _count, 0)
     _wrapper.dtype_launches = collections.Counter()
 flash_attention.view_copies = 0
+
+
+# ---------------------------------------------------------------------------
+# ring attention (sequence parallel)
+# ---------------------------------------------------------------------------
+# the ring id of the sequence-parallel group (user groups from
+# distributed.new_group start at 1 and must not collide), as in paddle_tpu
+SP_RING_ID = 101
+# K/V bytes this process sent around a ring, and the ring steps it ran
+# (each step one block of work, live or skipped); callers reset them
+RING_STATS = {"bytes_sent": 0, "steps": 0}
+
+
+def _ring_fwd_rank(q, k, v, me, n, causal, scale, flash):
+    """One rank's forward ring as a generator: it yields the K/V block to
+    pass on (and gets back a function that waits for the next one), and
+    returns (out in q.dtype, lse fp32 [B, H, S]).
+
+    `flash=False` is the JAX package's step arithmetic (fp32 scores, P
+    rounded to V's dtype, an unnormalised fp32 accumulator divided at the
+    end).  `flash=True` composes each step from the forward kernel:
+    (out, lse) of the block, merged into fp32 running statistics; a block
+    whose keys all lie after the queries (causal, src > me) is skipped,
+    the diagonal block (src == me) runs causal."""
+    b, h, s_loc, d = q.shape
+    dev = q.device
+    m = torch.full((b, h, s_loc, 1), -math.inf, device=dev)
+    l = torch.zeros((b, h, s_loc, 1), device=dev)
+    acc = torch.zeros((b, h, s_loc, d), device=dev)
+    qf = q.float()
+    qpos = me * s_loc + torch.arange(s_loc, device=dev)[:, None]
+    ks, vs = k, v
+    for step in range(n):
+        src = (me - step) % n
+        wait = (yield (ks, vs)) if step < n - 1 else None
+        RING_STATS["steps"] += 1
+        if not (causal and src > me):
+            if flash:
+                ob, lb = _flash_fwd(q, ks, vs, causal and src == me, scale)
+                lb = lb[..., None]
+                m_new = torch.maximum(m, lb)
+                a = torch.where(torch.isfinite(m), torch.exp(m - m_new),
+                                torch.zeros_like(m))
+                w = torch.where(torch.isfinite(lb), torch.exp(lb - m_new),
+                                torch.zeros_like(lb))
+                l = l * a + w
+                acc = acc * a + ob.float() * w
+            else:
+                s = torch.matmul(qf, ks.float().transpose(-1, -2)) * scale
+                if causal:
+                    kpos = src * s_loc + torch.arange(s_loc,
+                                                      device=dev)[None]
+                    s = s.masked_fill(qpos < kpos, -math.inf)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                live = torch.isfinite(m_new)
+                safe = torch.where(live, m_new, torch.zeros_like(m_new))
+                p = torch.where(live, torch.exp(s - safe),
+                                torch.zeros_like(s))
+                a = torch.where(torch.isfinite(m), torch.exp(m - safe),
+                                torch.zeros_like(m))
+                l = a * l + p.sum(dim=-1, keepdim=True)
+                acc = a * acc + torch.matmul(p.to(vs.dtype).float(),
+                                             vs.float())
+            m = m_new
+        if wait is not None:
+            ks, vs = wait()
+    # (with flash the statistics merged are the blocks' lse: m and l are
+    # then the running max and sum of exp(lse_b - m), and m + log l the
+    # global lse either way)
+    denom = l.clamp_min(1e-30)
+    lse = torch.where(torch.isfinite(m), m + torch.log(denom),
+                      torch.full_like(m, -math.inf))
+    return (acc / denom).to(q.dtype), lse.squeeze(-1)
+
+
+def _ring_bwd_rank(q, k, v, out, lse, do, me, n, causal, scale, kernels):
+    """One rank's backward ring as a generator (the forward's protocol):
+    D = rowsum(dO * O) once, then per step the dQ and dK/dV of the block
+    held, both from the GLOBAL lse (a block's own lse would give a wrong
+    gradient that still looks plausible): the kernels of
+    csrc/flash_attn_bwd.cu (`kernels=True`) or their plain versions.  dQ
+    sums in fp32 here; the dK/dV sums (fp32) travel with their K/V block
+    and take one more hop home after the last step.  Returns (dq, dk, dv)
+    in the input dtypes."""
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dd = (do.float() * out.float()).sum(-1)
+    lse = lse.contiguous()
+    if kernels:
+        dq_fn, dkv_fn = flash_attention_bwd_dq_cuda, \
+            flash_attention_bwd_dkv_cuda
+    else:
+        dq_fn, dkv_fn = flash_attention_bwd_dq_plain, \
+            flash_attention_bwd_dkv_plain
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dvs = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    ks, vs = k, v
+    for step in range(n):
+        src = (me - step) % n
+        if not (causal and src > me):
+            c = causal and src == me
+            dq = dq + dq_fn(q, ks, vs, do, lse, dd, c, scale).float()
+            dk_b, dv_b = dkv_fn(q, ks, vs, do, lse, dd, c, scale)
+            dks = dks + dk_b.float()
+            dvs = dvs + dv_b.float()
+        if step < n - 1:
+            ks, vs, dks, dvs = (yield (ks, vs, dks, dvs))()
+    if n > 1:
+        # the sums of the block that came from rank me + 1 go home
+        dks, dvs = (yield (dks, dvs))()
+    return dq.to(q.dtype), dks.to(k.dtype), dvs.to(v.dtype)
+
+
+def _drive(gen, group):
+    """Run one rank's ring generator over `group`: each yielded list of
+    tensors goes to the next rank while the previous rank's arrives,
+    send and receive posted together (batch_isend_irecv, so the ring
+    cannot deadlock).  Under gloo CUDA tensors go through host copies."""
+    import torch.distributed as dist
+    from .kernels.collective import rank_of, world_of
+    if group is None:
+        return ring_blocks([gen])[0]
+    n, me = world_of(group), rank_of(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    stage = dist.get_backend(group) == "gloo"
+    try:
+        outgoing = next(gen)
+        while True:
+            sends = [t.contiguous() for t in outgoing]
+            devs = [t.device for t in sends]
+            if stage:
+                sends = [t.cpu() for t in sends]
+            recvs = [torch.empty_like(t) for t in sends]
+            ops = [dist.P2POp(dist.isend, t, nxt, group, tag=i)
+                   for i, t in enumerate(sends)] + \
+                [dist.P2POp(dist.irecv, t, prv, group, tag=i)
+                 for i, t in enumerate(recvs)]
+            reqs = dist.batch_isend_irecv(ops)
+            RING_STATS["bytes_sent"] += sum(t.numel() * t.element_size()
+                                            for t in sends)
+
+            def wait(reqs=reqs, recvs=recvs, devs=devs):
+                for r in reqs:
+                    r.wait()
+                return [t.to(dv) for t, dv in zip(recvs, devs)]
+            outgoing = gen.send(wait)
+    except StopIteration as e:
+        return e.value
+
+
+def ring_blocks(gens):
+    """Run n ranks' ring generators in one process, in lockstep: rank i
+    receives what rank i - 1 yielded.  Returns their results in rank
+    order (the n-block decomposition without a process group: the kernel
+    checks, and a ring off a process group)."""
+    n = len(gens)
+    outgoing, results = [None] * n, [None] * n
+
+    def advance(i, wait):
+        try:
+            outgoing[i] = gens[i].send(wait)
+            return False
+        except StopIteration as e:
+            results[i] = e.value
+            return True
+
+    done = [advance(i, None) for i in range(n)]
+    while not all(done):
+        sent = list(outgoing)
+        done = [advance(i, lambda i=i: list(sent[(i - 1) % n]))
+                for i in range(n)]
+    return results
+
+
+def _ring_kernels(q):
+    """Whether a ring on `q` runs the flash kernels (CUDA) or the plain
+    versions (CPU); any other device raises."""
+    if q.is_cuda:
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise RuntimeError(f"ring_attention: no kernel for device {q.device}")
+
+
+class _RingAttention(torch.autograd.Function):
+    """Ring attention over the sp group, with a backward that runs the
+    reverse ring (a replay of the forward's point-to-point sends by
+    autograd would post them in the wrong order)."""
+
+    @staticmethod
+    def forward(q, k, v, group, causal, scale):
+        from .kernels.collective import rank_of, world_of
+        flash = _ring_kernels(q)
+        gen = _ring_fwd_rank(q, k, v, rank_of(group), world_of(group),
+                             causal, scale, flash)
+        return _drive(gen, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, group, causal, scale = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.group, ctx.causal, ctx.scale = group, causal, scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _RingAttentionBwd.apply(q, k, v, out, lse, g_out,
+                                             ctx.group, ctx.causal,
+                                             ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+class _RingAttentionBwd(torch.autograd.Function):
+    """The backward ring as a Function of its own (plain tensors for the
+    kernels inside torch.func.vjp, as `_FlashAttentionBwd`)."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, do, group, causal, scale):
+        from .kernels.collective import rank_of, world_of
+        gen = _ring_bwd_rank(q, k, v, out, lse, do, rank_of(group),
+                             world_of(group), causal, scale,
+                             _ring_kernels(q))
+        return _drive(gen, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("ring attention has no double backward")
+
+
+def ring_attention(q, k, v, group, causal=False, scale=None):
+    """Sequence-parallel attention over the process group `group` (the
+    JAX package's `ring_attention` over a mesh axis): each rank holds
+    [B, H, S/n, D] shards of q, k and v (rank r the rows
+    [r S/n, (r+1) S/n)), K/V rotate around the ring, causal masking uses
+    GLOBAL positions and a fully masked block contributes 0.
+    Differentiable.  CUDA tensors compose each step from the flash
+    kernels (forward; dQ and dK/dV with the global lse); CPU tensors run
+    the plain ring (the JAX step arithmetic; the plain backward kernels).
+    In 16 bits the two differ by the rounding of each block's output to
+    the storage dtype before the merge (and of each block's dQ, dK, dV
+    before their fp32 sums) on the kernel path."""
+    cdt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    q, k, v = q.to(cdt), k.to(cdt), v.to(cdt)
+    scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else float(scale)
+    out, _ = _RingAttention.apply(q, k, v, group, bool(causal), scale)
+    return out

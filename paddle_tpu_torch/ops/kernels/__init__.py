@@ -18,5 +18,6 @@ from . import (  # noqa: F401
     op_gaps,
     quantize,
     stragglers,
+    sparse_feature,
     collective,
 )

@@ -1,6 +1,6 @@
-"""Attention ops for the static graph: flash_attention, multihead_matmul
-and fused_embedding_eltwise_layernorm.  Counterparts of the ops of the
-same names in paddle_tpu/ops/kernels/attention.py."""
+"""Attention ops for the static graph: flash_attention, ring_attention,
+multihead_matmul and fused_embedding_eltwise_layernorm.  Counterparts of
+the ops of the same names in paddle_tpu/ops/kernels/attention.py."""
 from __future__ import annotations
 
 import math
@@ -8,7 +8,9 @@ import math
 import torch
 
 from ..registry import register_op
-from ..attention import flash_attention, reference_attention, use_flash_for
+from ..attention import (flash_attention, reference_attention, ring_attention,
+                         use_flash_for, SP_RING_ID)
+from . import collective as _kc
 from .nn import _embedding
 
 
@@ -24,9 +26,47 @@ def flash_attention_op(ins, attrs, ctx):
     (csrc/flash_attn_fwd.cu), CPU tensors run its plain version.  The
     grad op flash_attention_grad replays this under torch.func.vjp, which
     reaches the backward kernels (csrc/flash_attn_bwd.cu) through the
-    autograd Function of ops/attention.py."""
+    autograd Function of ops/attention.py.  Refuses to run under a bound
+    sequence-parallel ring, where shard-local attention would be silently
+    wrong (the ring_attention op is the one for it)."""
+    if ins["Q"].device.type != "meta" and \
+            _kc.bound_group(SP_RING_ID) is not None:
+        raise RuntimeError(
+            "flash_attention op under a sequence-parallel mesh would "
+            "attend only within the local shard; use the ring_attention "
+            "op (ring_id=SP_RING_ID) instead")
     return {"Out": flash_attention(ins["Q"], ins["K"], ins["V"],
                                    causal=attrs.get("causal", False))}
+
+
+@register_op("ring_attention", inputs=["Q", "K", "V"], outputs=["Out"],
+             grad="auto", side_effect=True, infer_shape=_infer_flash)
+def ring_attention_op(ins, attrs, ctx):
+    """Sequence-parallel attention over the group bound to ``ring_id``
+    (SP_RING_ID under a CompiledProgram with sequence_parallel_degree).
+    Q/K/V: [B, S, H*D] with attr num_heads; the head split and merge
+    happen inside the op, where the shapes are the local shard's.  Off a
+    bound ring it is plain attention (a world of one): the flash op's
+    kernel on CUDA, its plain version on the CPU.  The derived gradient
+    replays the forward ring under torch.func.vjp, then runs the reverse
+    ring (ops/attention.py)."""
+    q, k, v = ins["Q"], ins["K"], ins["V"]
+    h = int(attrs.get("num_heads", 1))
+    causal = bool(attrs.get("causal", False))
+
+    def split(x):
+        b, s, hd = x.shape
+        return x.reshape(b, s, h, hd // h).permute(0, 2, 1, 3)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    group = None if q.device.type == "meta" else \
+        _kc.bound_group(attrs.get("ring_id", SP_RING_ID))
+    if group is None:
+        out = flash_attention(qh, kh, vh, causal=causal)
+    else:
+        out = ring_attention(qh, kh, vh, group, causal=causal)
+    b, hh, s, d = out.shape
+    return {"Out": out.permute(0, 2, 1, 3).reshape(b, s, hh * d)}
 
 
 @register_op("multihead_matmul",

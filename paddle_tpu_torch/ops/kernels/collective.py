@@ -58,7 +58,8 @@ import torch
 
 from ..registry import register_op
 
-__all__ = ["register_ring", "clear_rings", "ring_group", "world_of",
+__all__ = ["register_ring", "clear_rings", "ring_group", "bound_group",
+           "world_of",
            "rank_of", "all_reduce", "gather_rows", "broadcast",
            "reduce_scatter", "all_to_all", "COMM_STATS", "reset_comm_stats",
            "time_collectives"]
@@ -70,15 +71,18 @@ _RINGS: Dict[int, Any] = {}
 
 # calls (in all, by collective and by the op or gradient that made them)
 # and bytes of every collective since the last reset; with time_collectives(True), the seconds they took,
-# each synchronised before and after (the host-side cost, overlap removed)
+# each synchronised before and after (the host-side cost, overlap removed);
+# "replayed_by_op": the collectives of captured steps' replays, by op
+# (static/executor.py counts them from each capture)
 COMM_STATS: Dict[str, Any] = {"calls": 0, "bytes": 0, "seconds": 0.0,
-                              "calls_by_kind": {}, "calls_by_op": {}}
+                              "calls_by_kind": {}, "calls_by_op": {},
+                              "replayed_by_op": {}}
 _TIMING = {"on": False}
 
 
 def reset_comm_stats() -> None:
     COMM_STATS.update(calls=0, bytes=0, seconds=0.0, calls_by_kind={},
-                      calls_by_op={})
+                      calls_by_op={}, replayed_by_op={})
 
 
 def _count_op(name: str) -> None:
@@ -124,6 +128,18 @@ def ring_group(ring_id=0):
     if g is None or g == dist.GroupMember.NON_GROUP_MEMBER:
         return None
     return g
+
+
+def bound_group(ring_id):
+    """The process group bound to `ring_id`, or None off a process group
+    and where the ring is unregistered or bound to None: an op that
+    degrades to its one-device form off a ring (ring attention, switch
+    MoE) asks this, not `ring_group`, which refuses an unknown ring."""
+    dist = _dist()
+    if not dist.is_available() or not dist.is_initialized() or \
+            int(ring_id) not in _RINGS:
+        return None
+    return ring_group(ring_id)
 
 
 def world_of(group) -> int:

@@ -16,11 +16,13 @@ HTTP surface (inference/server.py) and the model.
   truncation.
 * int8 decode (int8_decode.py + ``PagedKVPool(kv_dtype="int8")``) —
   weight-only quantized decode matmuls (``Int8Linear`` /
-  ``quantize_decode_model``) over int8 KV pages with fp32 scale sidecars.
+  ``quantize_decode_model`` for tp = 1, ``slim.freeze_weights_int8``
+  stamped inside ``TPShardedDecoder`` for tp > 1) over int8 KV pages
+  with fp32 scale sidecars.
+* ``TPShardedDecoder`` (tp_decode.py) — tp-sharded decode: the engine on
+  rank 0 leads, the other ranks of the process group follow.
 * metrics (metrics.py) — the ``serving.*`` counters, gauges and
   histograms, dumped by ``/stats`` and ``/metrics``.
-
-tp-sharded decode waits for ROADMAP.md Queue 1, Distribution.
 """
 from .batcher import (  # noqa: F401
     DynamicBatcher, BatcherError, QueueFullError, DeadlineExceededError,
@@ -33,6 +35,7 @@ from .kv_pool import (  # noqa: F401
     PagedKVPool, PageTable, PagePoolExhaustedError, budget_drift,
 )
 from .prefix_cache import RadixPrefixCache  # noqa: F401
+from .tp_decode import TPShardedDecoder, build_decode_program  # noqa: F401
 from .int8_decode import Int8Linear, quantize_decode_model  # noqa: F401
 from .speculative import (  # noqa: F401
     SpeculativeDecoder, stamp_draft, longest_accepted,
@@ -43,6 +46,7 @@ __all__ = ["DynamicBatcher", "BatcherError", "QueueFullError",
            "DeadlineExceededError", "BatcherStoppedError",
            "ContinuousBatchingEngine", "GenerationRequest",
            "PagedKVPool", "PageTable", "PagePoolExhaustedError",
-           "budget_drift", "RadixPrefixCache", "Int8Linear",
+           "budget_drift", "RadixPrefixCache", "TPShardedDecoder",
+           "build_decode_program", "Int8Linear",
            "quantize_decode_model", "SpeculativeDecoder", "stamp_draft",
            "longest_accepted", "serving_stats", "reset_serving_stats"]

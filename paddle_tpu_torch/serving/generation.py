@@ -49,9 +49,16 @@ the logits of ``sampling`` rows come down.  ``weight_dtype="int8"``
 of the model (``serving/int8_decode.py``); ``kv_dtype="int8"`` is the
 pool's.
 
-Still raising, each naming its ROADMAP item: ``tp_degree > 1`` (Queue 1,
-Distribution) and ``kv_pool="auto"`` (it sizes the pool with
-``static.planner.page_budget``: Queue 1, Analysis and planner tiers).
+``tp_degree > 1`` (given, or recorded in the pool's plan) serves the
+forward through ``serving/tp_decode.py``'s ``TPShardedDecoder``: this
+engine lives on the leader (rank 0), the other ranks of the process group
+follow; everything else (pool, radix cache, draft, sampling) stays on the
+leader.  A decoder the engine made is stopped (its followers released)
+by the engine's ``stop()``.
+
+Still raising, naming its ROADMAP item: ``kv_pool="auto"`` (it sizes the
+pool with ``static.planner.page_budget``: Queue 1, Analysis and planner
+tiers).
 """
 from __future__ import annotations
 
@@ -148,11 +155,7 @@ class ContinuousBatchingEngine:
             else kv_pool if isinstance(kv_pool, dict) else {}
         if tp_degree is None:
             tp_degree = int(plan_of.get("tp_degree", 1))
-        self.tp_degree = int(tp_degree)
-        if self.tp_degree > 1:
-            raise NotImplementedError(
-                "tp-sharded decode (tp_degree > 1, serving/tp_decode.py) is "
-                "not ported yet (ROADMAP.md Queue 1, Distribution)")
+        self.tp_degree = max(1, int(tp_degree))
         if weight_dtype is None:
             weight_dtype = plan_of.get("weight_dtype", "float32")
         self.weight_dtype = str(weight_dtype)
@@ -160,7 +163,18 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"weight_dtype must be float32 or int8, got "
                 f"{weight_dtype!r}")
-        if self.weight_dtype == "int8":
+        from .tp_decode import TPShardedDecoder
+        # a decoder this engine made is this engine's to stop
+        self._owns_decoder = False
+        if self.tp_degree > 1:
+            # tp-sharded decode: the model's forward runs through the
+            # leader / follower backend (int8 weights by its static stamp)
+            if not isinstance(model, TPShardedDecoder):
+                model = TPShardedDecoder(model, self.tp_degree,
+                                         weight_dtype=self.weight_dtype)
+                self._owns_decoder = True
+        elif self.weight_dtype == "int8" and \
+                not isinstance(model, TPShardedDecoder):
             # a quantized sibling; the float model stays as it is
             from .int8_decode import quantize_decode_model
             model = quantize_decode_model(model)
@@ -200,6 +214,12 @@ class ContinuousBatchingEngine:
                     raise ValueError(
                         f"kv_pool geometry mismatch: model {name}={want} "
                         f"but pool was built for {got}")
+            if self._pool.tp_degree != self.tp_degree:
+                raise ValueError(
+                    f"tp_degree mismatch: engine runs tp={self.tp_degree} "
+                    f"but the pool plan was sized for "
+                    f"tp={self._pool.tp_degree} — per-device page budgets "
+                    "would not match the sharded caches")
             plan_wd = str((self._pool.plan or {}).get(
                 "weight_dtype", self.weight_dtype))
             if plan_wd != self.weight_dtype:
@@ -304,6 +324,8 @@ class ContinuousBatchingEngine:
     def stop(self, drain: bool = True, timeout: float = 60.0):
         with self._mu:
             if not self._running:
+                if self._owns_decoder:
+                    self._model.stop()
                 return
             self._draining = True
             self._work.notify_all()
@@ -335,6 +357,8 @@ class ContinuousBatchingEngine:
                 self._slots[i] = None
         if self._spec is not None:
             self._spec.close_all()
+        if self._owns_decoder:
+            self._model.stop()
 
     # -- admission ----------------------------------------------------------
     def _retry_hint(self, depth: int) -> float:

@@ -1,14 +1,15 @@
 """Dygraph int8 decode: a weight-only quantized Linear and the model
 builder.
 
-Counterpart of paddle_tpu/serving/int8_decode.py (its tp = 1 half; the
-tp-sharded static stamp waits for serving/tp_decode.py, ROADMAP.md Queue
-1, Distribution).  ``Int8Linear`` runs the ``int8_matmul`` op (dynamic
-per-tensor activation quantization, the int8 product into int32 through
-``torch._int_mm`` on the card, one dequant multiply, the bias) over
-weights quantized through ``fake_channel_wise_quantize_abs_max`` with
-``quant_axis=1`` (per out-channel): the same grid as the static
-``slim.freeze_weights_int8``, and bitwise the JAX package's.
+Counterpart of paddle_tpu/serving/int8_decode.py (its tp = 1 half; at
+tp > 1 serving/tp_decode.py stamps the decode programs with
+``slim.freeze_weights_int8`` instead).  ``Int8Linear`` runs the
+``int8_matmul`` op (dynamic per-tensor activation quantization, the int8
+product into int32 through ``torch._int_mm`` on the card, one dequant
+multiply, the bias) over weights quantized through
+``fake_channel_wise_quantize_abs_max`` with ``quant_axis=1`` (per
+out-channel): the same grid as the static ``slim.freeze_weights_int8``,
+and bitwise the JAX package's.
 
 ``quantize_decode_model`` builds a quantized SIBLING: a fresh
 ``GPTModel`` on the model's device from the same config and state_dict,

@@ -163,10 +163,6 @@ class PagedKVPool:
         """Build a pool from a plan dict (num_layers, num_heads, head_dim,
         page_tokens, pages; optional kv_dtype, max_slots, max_context,
         retained_watermarks) and record the plan."""
-        if int(plan.get("tp_degree", 1)) > 1:
-            raise NotImplementedError(
-                "a tp-sharded pool (tp_degree > 1) waits for serving/"
-                "tp_decode.py (ROADMAP.md Queue 1, Distribution)")
         return cls(num_layers=int(plan["num_layers"]),
                    num_heads=int(plan["num_heads"]),
                    head_dim=int(plan["head_dim"]),
@@ -186,6 +182,23 @@ class PagedKVPool:
         if self.is_quantized:
             data += 2 * self.num_layers * self.num_heads * 4
         return data
+
+    @property
+    def tp_degree(self) -> int:
+        """The tensor-parallel degree the recorded plan sized this pool
+        for (1 = one device).  The pool always holds the full head dim on
+        the leader's device (page ids, refcounts and tables are global
+        token geometry), but under tp-sharded decode each rank's part of
+        a page's K/V is ``[L, H/tp, T, Dh]``, so the per-device charge
+        divides."""
+        return int((self.plan or {}).get("tp_degree", 1))
+
+    @property
+    def page_bytes_per_chip(self) -> int:
+        """Bytes of one page a rank of the tp group holds:
+        `page_bytes` over the tp degree (the number the plan carved pages
+        against)."""
+        return self.page_bytes // max(1, self.tp_degree)
 
     @property
     def pool_bytes(self) -> int:
@@ -606,6 +619,8 @@ class PagedKVPool:
                 "pages_retained": self.pages_retained,
                 "page_tokens": self.page_tokens,
                 "page_bytes": self.page_bytes,
+                "tp_degree": self.tp_degree,
+                "page_bytes_per_chip": self.page_bytes_per_chip,
                 "prefix_hits": self.prefix_hits,
                 "cow_copies": self.cow_copies,
                 "kv_dtype": self.kv_dtype,

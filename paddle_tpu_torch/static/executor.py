@@ -234,6 +234,23 @@ def _run_ops(ops, plan, env, ctx):
             env.pop(n, None)
 
 
+def _comm_calls() -> Dict[str, int]:
+    from ..ops.kernels.collective import COMM_STATS
+    return dict(COMM_STATS["calls_by_op"])
+
+
+def _count_replayed(comm: Dict[str, int]) -> None:
+    """Add a captured step's collectives (by op) to COMM_STATS'
+    "replayed_by_op": the Python-side counts move only while capturing,
+    so a replay's collectives are counted from its capture."""
+    if not comm:
+        return
+    from ..ops.kernels.collective import COMM_STATS
+    rep = COMM_STATS.setdefault("replayed_by_op", {})
+    for n, c in comm.items():
+        rep[n] = rep.get(n, 0) + c
+
+
 class _StepGraph:
     """One captured step: the CUDA graph, the static per-step feed buffers
     and the step-seed buffer it reads, the persistable buffers it reads
@@ -244,6 +261,7 @@ class _StepGraph:
                  fetches: List[torch.Tensor]):
         self.graph, self.feeds, self.seed, self.state, self.fetches = \
             graph, feeds, seed, state, fetches
+        self.comm: Dict[str, int] = {}  # collectives by op, per replay
 
     def bind_state(self, scope: "Scope"):
         """Point the scope at the buffers.  `run()` rebinds the scope's
@@ -381,27 +399,51 @@ class Executor:
         self._stats[kind] += 1
         stat_add("executor.graph_cache." + kind)
 
+    def _graph_key(self, program, stacked, fetch_names, state_names,
+                   key_extra):
+        # the flags are part of the key: one read while the ops run
+        # (FLAGS_fused_xent) picks kernels, and a capture bakes them in
+        return (program.fingerprint(),
+                tuple(sorted((n, tuple(v.shape[1:]), str(v.dtype))
+                             for n, v in stacked.items())),
+                tuple(fetch_names), tuple(state_names),
+                tuple(sorted((n, repr(v)) for n, v in _flags._FLAGS.items())),
+                tuple(key_extra))
+
+    def _step_seeds(self, program, k, seed_of=None):
+        """The seeds of K run() calls (each mapped by `seed_of`, a rank's
+        seed rule, where given), uploaded once, copied per step."""
+        seeds = [self._seed_for_step(program) + i for i in range(k)]
+        if seed_of is not None:
+            seeds = [seed_of(v) for v in seeds]
+        return torch.tensor([[v] for v in seeds], dtype=torch.int64,
+                            device=self.device)
+
+    @staticmethod
+    def _replay(entry, stacked=None, i=0, seed=None):
+        """One replay of a captured step: the step's feeds and seed copied
+        into its buffers first; the collectives it holds are counted
+        (collective.COMM_STATS["replayed_by_op"])."""
+        for n, buf in entry.feeds.items():
+            buf.copy_(stacked[n][i])
+        if seed is not None:
+            entry.seed.copy_(seed)
+        entry.graph.replay()
+        _count_replayed(entry.comm)
+
     def _replay_steps(self, program, stacked, k, fetch_names, scope,
-                      seed_offset=0, finish=None, key_extra=()):
-        """K replays of one captured step.  `seed_offset` is added to each
-        step's seed (a data-parallel rank's); `finish(fetches)` runs inside
-        the captured step on its fetches (a data-parallel rank's
-        reduction over the ranks); `key_extra` joins the graph's key."""
+                      seed_of=None, finish=None, key_extra=()):
+        """K replays of one captured step.  `seed_of` maps each step's
+        seed to this rank's (a data-parallel rank's); `finish(fetches)`
+        runs inside the captured step on its fetches (a data-parallel
+        rank's reduction over the ranks); `key_extra` joins the graph's
+        key."""
         block = program.global_block()
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
-        # the flags are part of the key: one read while the ops run
-        # (FLAGS_fused_xent) picks kernels, and a capture bakes them in
-        key = (program.fingerprint(),
-               tuple(sorted((n, tuple(v.shape[1:]), str(v.dtype))
-                            for n, v in stacked.items())),
-               tuple(fetch_names), tuple(state_names),
-               tuple(sorted((n, repr(v)) for n, v in _flags._FLAGS.items())),
-               tuple(key_extra))
-        # the seeds of K run() calls, uploaded once, copied per step
-        seeds = torch.tensor([[self._seed_for_step(program) + i
-                               + seed_offset] for i in range(k)],
-                             dtype=torch.int64, device=self.device)
+        key = self._graph_key(program, stacked, fetch_names, state_names,
+                              key_extra)
+        seeds = self._step_seeds(program, k, seed_of)
         with torch.cuda.device(self.device):
             entry = self._graphs.get(key)
             if entry is None:
@@ -416,11 +458,47 @@ class Executor:
             entry.bind_state(scope)
             steps = []
             for i in range(k):
-                for n, buf in entry.feeds.items():
-                    buf.copy_(stacked[n][i])
-                entry.seed.copy_(seeds[i])
-                entry.graph.replay()
+                self._replay(entry, stacked, i, seeds[i])
                 steps.append([f.clone() for f in entry.fetches])
+        self._step += k
+        return [torch.stack([s[j] for s in steps])
+                for j in range(len(fetch_names))]
+
+    def _replay_windows(self, split, state_names, stacked, k, fetch_names,
+                        scope, seed_of=None, finish=None, key_extra=()):
+        """The hoisted window (distributed/scan_window.py) as two captured
+        steps over ONE set of state buffers: the body (`split.body`, one
+        micro-step without the commit) replayed `split.k` times, then the
+        tail (`split.tail`, the commit, no feeds or fetches) once, for
+        each of the k / split.k windows.  The tail reads what the body
+        wrote through the persistables only (the split's contract), so
+        capturing both against the same buffers is the whole wiring."""
+        key = self._graph_key(split.body, stacked, fetch_names, state_names,
+                              key_extra + ("hoist", split.tail.fingerprint()))
+        seeds = self._step_seeds(split.body, k, seed_of)
+        with torch.cuda.device(self.device):
+            pair = self._graphs.get(key)
+            if pair is None:
+                self._record("misses")
+                body = self._capture(split.body.global_block(), stacked,
+                                     seeds[0], fetch_names, state_names,
+                                     scope, finish)
+                # the scope holds the body's buffers now: the tail's
+                # capture takes the same ones
+                tail = self._capture(split.tail.global_block(), {},
+                                     seeds[0], [], state_names, scope)
+                self._record("traces")
+                pair = self._graphs[key] = (body, tail)
+            else:
+                self._record("hits")
+            body, tail = pair
+            body.bind_state(scope)
+            steps = []
+            for i in range(k):
+                self._replay(body, stacked, i, seeds[i])
+                steps.append([f.clone() for f in body.fetches])
+                if (i + 1) % split.k == 0:
+                    self._replay(tail)
         self._step += k
         return [torch.stack([s[j] for s in steps])
                 for j in range(len(fetch_names))]
@@ -471,6 +549,7 @@ class Executor:
             del env, fetches
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        before = _comm_calls()
         try:
             with torch.cuda.graph(graph):
                 env, fetches = step()
@@ -489,7 +568,11 @@ class Executor:
         except RuntimeError as e:
             raise RuntimeError(
                 f"CUDA graph capture of the step failed: {e}") from e
-        return _StepGraph(graph, feeds, seed_buf, state, fetches)
+        entry = _StepGraph(graph, feeds, seed_buf, state, fetches)
+        after = _comm_calls()
+        entry.comm = {n: c - before.get(n, 0) for n, c in after.items()
+                      if c != before.get(n, 0)}
+        return entry
 
     def _coerce_feed(self, block, name, val):
         if isinstance(val, torch.Tensor):

@@ -26,7 +26,8 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "ones_like", "uniform_random", "gaussian_random", "reduce_sum", "relu", "sqrt", "square",
            "clip", "clip_by_norm", "sums", "reshape", "transpose", "scale",
            "fill_constant", "softmax_with_cross_entropy", "label_smooth",
-           "one_hot", "mean", "cast", "create_global_var", "_binary_op"]
+           "one_hot", "mean", "cast", "create_global_var", "_binary_op",
+           "gelu", "concat", "switch_moe"]
 
 
 def _current_block():
@@ -493,3 +494,54 @@ def transpose(x, perm, name=None):
                      outputs={"Out": out, "XShape": xshape},
                      attrs={"axis": list(perm)})
     return out
+
+
+def gelu(x, approximate=False, name=None):
+    helper = LayerHelper("gelu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("gelu", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"approximate": approximate})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def switch_moe(x, num_experts, d_hidden, capacity_factor=1.25,
+               ep_ring_id=None, param_attr=None, name=None):
+    """Switch (top-1) Mixture-of-Experts feed-forward as a static-graph
+    layer (incubate/moe.py's core through the switch_moe op); with
+    `ep_ring_id` bound to a process group the experts are parallel over
+    it.  x [..., D] -> (out [..., D], aux_loss scalar)."""
+    from .param_attr import ParamAttr
+    helper = LayerHelper("switch_moe", name=name)
+    d_model = int(x.shape[-1])
+
+    def _sub_attr(suffix):
+        return ParamAttr.derive(param_attr, suffix)
+
+    gate_w = helper.create_parameter(_sub_attr("_gate"),
+                                     [d_model, num_experts], x.dtype)
+    w1 = helper.create_parameter(_sub_attr("_w1"),
+                                 [num_experts, d_model, d_hidden], x.dtype)
+    b1 = helper.create_parameter(None, [num_experts, d_hidden], x.dtype,
+                                 is_bias=True)
+    w2 = helper.create_parameter(_sub_attr("_w2"),
+                                 [num_experts, d_hidden, d_model], x.dtype)
+    b2 = helper.create_parameter(None, [num_experts, d_model], x.dtype,
+                                 is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    attrs = {"capacity_factor": capacity_factor}
+    if ep_ring_id is not None:
+        attrs["ep_ring_id"] = int(ep_ring_id)
+    helper.append_op("switch_moe",
+                     {"X": x, "GateW": gate_w, "W1": w1, "B1": b1,
+                      "W2": w2, "B2": b2},
+                     {"Out": out, "AuxLoss": aux}, attrs)
+    return out, aux

@@ -4,6 +4,8 @@
 `ops.attention.use_flash_for(seq)` holds and there is no attention
 dropout, else the score-matrix graph (scale -> matmul -> softmax ->
 [dropout] -> matmul), exactly as the JAX package does.
+`scaled_dot_product_attention(sequence_parallel=True)` emits the
+`ring_attention` op.
 """
 from __future__ import annotations
 
@@ -44,12 +46,32 @@ def attention_core(q, k, v, d_key, dropout_rate=0.0, merge_shape=None):
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
                                  dropout_rate=0.0, sequence_parallel=False,
                                  causal=False):
-    """Multi-head attention built from primitive ops (fluid nets.py:503)."""
+    """Multi-head attention built from primitive ops (fluid nets.py:503).
+
+    ``sequence_parallel=True`` emits the `ring_attention` op on the
+    merged-head [b, t, h*d] tensors instead of the score-matrix graph:
+    under a CompiledProgram whose BuildStrategy sets
+    ``sequence_parallel_degree`` each rank holds a sequence shard and K/V
+    rotate around the ring of its sp group; outside a process group the
+    op is plain attention, so the same program runs on one device."""
     if sequence_parallel:
-        raise NotImplementedError(
-            "scaled_dot_product_attention(sequence_parallel=True) emits "
-            "ring_attention, which belongs to the distribution slice "
-            "(ROADMAP.md Queue 1, Distribution) and is not ported yet")
+        if dropout_rate:
+            raise ValueError(
+                "scaled_dot_product_attention(sequence_parallel=True) "
+                "does not support attention-probability dropout — the "
+                "probs are never materialized")
+        from ..ops.attention import SP_RING_ID
+        helper = layers.LayerHelper("ring_attention")
+        out = helper.create_variable_for_type_inference(queries.dtype)
+        out.shape = tuple(queries.shape) if queries.shape else None
+        helper.append_op("ring_attention",
+                         inputs={"Q": [queries], "K": [keys],
+                                 "V": [values]},
+                         outputs={"Out": [out]},
+                         attrs={"causal": bool(causal),
+                                "ring_id": SP_RING_ID,
+                                "num_heads": int(num_heads)})
+        return out
     if causal:
         raise NotImplementedError(
             "causal masking is only wired for the sequence_parallel "

@@ -19,8 +19,11 @@ MultiHeadAttention (fp32 and bf16, D = 64) against the same module on the
 CPU, F.cross_entropy through the fused kernel and its gradient against
 torch ops, the dropout Function's gradient equal to grad * Mask / (1 - p)
 bit for bit, and GradScaler over CUDA gradients; ZeRO-3 run_steps under
-NCCL at world 1 against eager runs, bit for bit, and the tensor-parallel
-ops on CUDA tensors against their CPU results.
+NCCL at world 1 against eager runs, bit for bit, the tensor-parallel
+ops on CUDA tensors against their CPU results, ring attention composed
+from the flash kernels against the plain ring, and the hoisted
+gradient-merge window of run_steps against the unhoisted one, bit for
+bit.
 
 Tolerances against the plain versions: fp32 1e-4 (summation order;
 3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
@@ -1893,3 +1896,91 @@ def test_tp_ops_on_cuda_match_cpu():
     finally:
         kc.clear_rings()
         tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 2])
+def test_flash_composed_ring_matches_plain_ring(n, causal, dtype):
+    """Ring attention's steps composed from the flash forward, dQ and
+    dK/dV kernels (with the global lse), in one process over n blocks of
+    the sequence, against the plain ring (the JAX step arithmetic and the
+    plain backward kernels) on the same inputs: out, dq, dk, dv within
+    TOL of max(1, max |plain|) (bf16: 3e-2, the blocks' outputs and
+    gradients are rounded to bf16 before their fp32 merge)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(n * 10 + causal)
+    b, h, s, d = 2, 4, 256, 64
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    sl, scale = s // n, d ** -0.5
+
+    def cut(t):
+        return [t[:, :, i * sl:(i + 1) * sl].contiguous() for i in range(n)]
+
+    def ring(kernels):
+        fw = tattn.ring_blocks([
+            tattn._ring_fwd_rank(*blk, i, n, causal, scale, kernels)
+            for i, blk in enumerate(zip(cut(q), cut(k), cut(v)))])
+        bw = tattn.ring_blocks([
+            tattn._ring_bwd_rank(*blk, i, n, causal, scale, kernels)
+            for i, blk in enumerate(zip(cut(q), cut(k), cut(v),
+                                        [o for o, _ in fw],
+                                        [lse for _, lse in fw], cut(do)))])
+        return [torch.cat([o for o, _ in fw], 2)] + [
+            torch.cat([g[j] for g in bw], 2) for j in range(3)]
+    before = (tattn.flash_attention.launches,
+              tattn.flash_attention_bwd_dq_cuda.launches)
+    got, want = ring(True), ring(False)
+    live = n * (n + 1) // 2 if causal else n * n
+    assert tattn.flash_attention.launches - before[0] == live
+    assert tattn.flash_attention_bwd_dq_cuda.launches - before[1] == live
+    tol = 3e-2 if dtype == torch.bfloat16 else TOL[dtype]
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        err = float((a.float() - w.float()).abs().max()) / \
+            max(1.0, float(w.float().abs().max()))
+        assert err <= tol, (name, err)
+
+
+def test_hoisted_run_steps_matches_unhoisted_on_the_card(monkeypatch):
+    """The gradient-merge window hoisted (two captured graphs: the body
+    gm-k times, then the commit tail) against PADDLE_TPU_SCAN_HOIST=0 (one
+    captured step replayed K times), off a process group on the card:
+    losses and every persistable equal to the last bit."""
+    _need_cuda()
+    import paddle_tpu_torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    from torch_dist_worker import build_zero_mlp
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(4, 8, 8).astype(np.float32),
+            "y": rng.rand(4, 8, 1).astype(np.float32)}
+    runs = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("PADDLE_TPU_SCAN_HOIST", mode)
+        _reset_unique_names()
+        main, startup, loss, _ = build_zero_mlp(paddle_tpu_torch, opt="adam",
+                                                stage=2, dp=2, gm=2)
+        cp = static.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        exe, scope = static.Executor(), static.Scope()
+        with static.scope_guard(scope):
+            startup.random_seed = 1
+            exe.run(startup)
+            losses = []
+            for _ in range(2):
+                kc.reset_comm_stats()
+                losses.append(exe.run_steps(cp, feed=feed,
+                                            fetch_list=[loss])[0])
+            assert cp._last_hoisted == (mode == "1")
+            assert exe.cache_stats()["traces"] == 1
+            runs[mode] = (np.concatenate(losses),
+                          {n: t.clone() for n, t in scope.vars.items()
+                           if t is not None})
+            exe.close()
+    (hl, hs), (ul, us) = runs["1"], runs["0"]
+    assert hl.tobytes() == ul.tobytes()
+    assert sorted(hs) == sorted(us)
+    for n in hs:
+        assert torch.equal(hs[n], us[n]), n

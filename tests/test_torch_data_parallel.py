@@ -304,20 +304,21 @@ def test_compiled_program_refuses_what_is_not_ported():
     feed = {k: v.astype(np.int64) for k, v in _feed().items()}
     with tstatic.scope_guard(scope):
         exe.run(ts)
-        for knob in ("sequence_parallel_degree", "sync_batch_norm"):
-            bs = tstatic.BuildStrategy()
-            setattr(bs, knob, 2 if knob.endswith("degree") else True)
-            cp = tstatic.CompiledProgram(tm, bs).with_data_parallel(
-                loss_name=tl.name)
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1, Distribution"):
-                exe.run(cp, feed=feed, fetch_list=[tl])
-        # tensor parallel is ported: a degree the world does not divide
         bs = tstatic.BuildStrategy()
-        bs.tensor_parallel_degree = 2
-        with pytest.raises(ValueError, match="does not divide"):
-            exe.run(tstatic.CompiledProgram(tm, bs).with_data_parallel(
-                loss_name=tl.name), feed=feed, fetch_list=[tl])
+        bs.sync_batch_norm = True
+        cp = tstatic.CompiledProgram(tm, bs).with_data_parallel(
+            loss_name=tl.name)
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1, Distribution"):
+            exe.run(cp, feed=feed, fetch_list=[tl])
+        # tensor and sequence parallelism are ported: a degree the world
+        # does not divide
+        for knob in ("tensor_parallel_degree", "sequence_parallel_degree"):
+            bs = tstatic.BuildStrategy()
+            setattr(bs, knob, 2)
+            with pytest.raises(ValueError, match="does not divide"):
+                exe.run(tstatic.CompiledProgram(tm, bs).with_data_parallel(
+                    loss_name=tl.name), feed=feed, fetch_list=[tl])
         tm._elastic_meta = {"logical_dp": 8}
         try:
             with pytest.raises(NotImplementedError, match="elastic"):

@@ -173,12 +173,14 @@ def test_engine_rejections_match_jax(pair):
     with pytest.raises(ValueError, match="weight_dtype mismatch"):
         ContinuousBatchingEngine(tm, kv_pool=dict(PLAN, weight_dtype="int8"),
                                  weight_dtype="float32")
-    for kw, item in (({"tp_degree": 2}, "Distribution"),
-                     ({"kv_pool": dict(PLAN, tp_degree=2)}, "Distribution"),
-                     ({"kv_pool": "auto"}, "Analysis and planner tiers")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1, {item}"):
+    # tp-sharded decode is ported (tests/test_torch_tp_decode.py): off a
+    # process group the world is 1, which tp 2 does not divide
+    for kw in ({"tp_degree": 2}, {"kv_pool": dict(PLAN, tp_degree=2)}):
+        with pytest.raises(ValueError, match="does not divide"):
             ContinuousBatchingEngine(tm, **kw)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1, Analysis and planner tiers"):
+        ContinuousBatchingEngine(tm, kv_pool="auto")
     with pytest.raises(ValueError, match="geometry mismatch"):
         ContinuousBatchingEngine(tm, kv_pool=dict(PLAN, num_heads=2,
                                                   head_dim=16))

@@ -173,10 +173,11 @@ def test_plan_geometry_drift_and_what_still_raises():
     assert budget_drift(pool) == ["pages: pool has 7, plan records 6"]
     assert budget_drift(PagedKVPool(device="cpu", **GEOM))[0].startswith(
         "pool carries no recorded plan")
-    # int8 pages are ported (tests/test_torch_int8_serving.py); a
-    # tp-sharded pool still raises, naming its ROADMAP item
+    # int8 pages are ported (tests/test_torch_int8_serving.py), and so
+    # is a tp-sharded pool's plan (tests/test_torch_tp_decode.py): each
+    # rank of the tp group holds its heads' share of a page
     pool8 = PagedKVPool(kv_dtype="int8", device="cpu", **GEOM)
     assert pool8.is_quantized and pool8.k.dtype == torch.int8
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, Distribution"):
-        PagedKVPool.from_plan(dict(plan, tp_degree=2), device="cpu")
+    pool2 = PagedKVPool.from_plan(dict(plan, tp_degree=2), device="cpu")
+    assert pool2.tp_degree == 2 and pool.tp_degree == 1
+    assert pool2.page_bytes_per_chip * 2 == pool2.page_bytes

@@ -99,5 +99,8 @@ def test_program_json_round_trip_between_packages():
 def test_builder_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="AMP"):
         build_bert_base(**SMALL)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        build_bert_base(use_amp=False, use_ring=True, **SMALL)
+    # ring attention is ported (tests/test_torch_sequence_parallel.py):
+    # use_ring builds, with a ring_attention op a layer
+    main = build_bert_base(use_amp=False, use_ring=True, **SMALL)[0]
+    assert [op.type for op in main.global_block().ops].count(
+        "ring_attention") == SMALL["layers_n"]

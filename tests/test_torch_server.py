@@ -152,8 +152,8 @@ def test_stop_drains_in_flight_requests(model_dir):
 def test_server_rejects_generator_and_stops_unstarted(model_dir):
     """A generator is served now (tests/test_torch_generation.py); what
     the port has not ported yet still raises, naming its ROADMAP item:
-    kv_pool="auto" (Analysis and planner tiers) and a plan sized for
-    tp-sharded decode (Distribution)."""
+    kv_pool="auto" (Analysis and planner tiers).  A tp degree the world
+    does not divide raises too."""
     from paddle_tpu_torch import dygraph
     from paddle_tpu_torch.models import (GPTConfig, GPTForGeneration,
                                          GPTModel)
@@ -163,10 +163,15 @@ def test_server_rejects_generator_and_stops_unstarted(model_dir):
             max_position=32, dropout=0.0)))
     plan = dict(num_layers=1, num_heads=2, head_dim=8, page_tokens=4,
                 pages=8, tp_degree=2)
-    for kw, item in (({"gen_kv_pool": "auto"}, "Analysis and planner tiers"),
-                     ({"gen_kv_pool": plan}, "Distribution")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1, {item}"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1, Analysis and planner tiers"):
+        InferenceServer(model_dir, place=CPUPlace(), generator=gen,
+                        gen_kv_pool="auto")
+    # a plan sized for tp-sharded decode is served (tests/test_torch_tp_
+    # decode.py): off a process group the world is 1, which tp 2 does not
+    # divide, with the plan's degree or an explicit one
+    for kw in ({"gen_kv_pool": plan}, {"gen_tp_degree": 2}):
+        with pytest.raises(ValueError, match="does not divide"):
             InferenceServer(model_dir, place=CPUPlace(), generator=gen,
                             **kw)
     srv = InferenceServer(model_dir, place=CPUPlace())

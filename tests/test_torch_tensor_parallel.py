@@ -19,8 +19,9 @@ CompiledProgram's dp × tp world) against the JAX package on the CPU.
     ranks' replicated parameters and
     gathered states equal to the last bit, and each tp-sharded weight at
     half its bytes in a rank's scope;
-  * CompiledProgram still refuses sequence parallelism, sync_batch_norm
-    and elastic programs, naming ROADMAP.md Queue 1, Distribution.
+  * CompiledProgram still refuses sync_batch_norm and elastic programs,
+    naming ROADMAP.md Queue 1, Distribution, and sequence parallelism
+    together with tensor parallelism, as the JAX package does.
 """
 import numpy as np
 import pytest
@@ -196,8 +197,11 @@ def test_static_lm_serializes_equal(tp, flash):
         (tp if tp > 1 else 0)
     assert any(op.type == "flash_attention"
                for op in port[0].global_block().ops) == flash
-    with pytest.raises(NotImplementedError):
-        tlm(96, 64, 1, 4, 16, sequence_parallel=True)
+    # sequence parallelism is ported (tests/test_torch_sequence_parallel.py)
+    # but does not combine with tensor parallelism, as in the JAX package
+    with pytest.raises(ValueError, match="cannot combine"):
+        tlm(96, 64, 1, 4, 16, tensor_parallel_degree=2,
+            sequence_parallel=True)
 
 
 def test_tp_training_programs_serialize_equal():
@@ -299,15 +303,19 @@ def test_dp2_tp2_matches_jax(world4, name):
 
 def test_compiled_program_refusals():
     main = build_zero_mlp(paddle_tpu_torch, opt="sgd", shard=False)[0]
-    for knob, val in (("sequence_parallel_degree", 2),
-                      ("sync_batch_norm", True)):
-        bs = tstatic.BuildStrategy()
-        setattr(bs, knob, val)
-        cp = tstatic.CompiledProgram(main, build_strategy=bs) \
-            .with_data_parallel()
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, Distribution"):
-            cp._get_program()
+    bs = tstatic.BuildStrategy()
+    bs.sync_batch_norm = True
+    cp = tstatic.CompiledProgram(main, build_strategy=bs) \
+        .with_data_parallel()
+    with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
+        cp._get_program()
+    # sequence parallelism is ported; with tensor parallelism it refuses,
+    # as in the JAX package
+    bs = tstatic.BuildStrategy()
+    bs.sequence_parallel_degree = bs.tensor_parallel_degree = 2
+    with pytest.raises(NotImplementedError, match="cannot both exceed 1"):
+        tstatic.CompiledProgram(main, build_strategy=bs) \
+            .with_data_parallel()._get_program()
     main._elastic_meta = {"logical_dp": 2}
     with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
         tstatic.CompiledProgram(main).with_data_parallel()._get_program()

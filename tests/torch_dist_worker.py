@@ -486,3 +486,291 @@ def tp_ops(init_file, in_path, out_dir):
     kc.clear_rings()
     _finish()
     np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def tp_decode(init_file, out_dir, cfg):
+    """tp-sharded decode on this rank: the leader (rank 0) runs one
+    forward per case of `cfg["step"]` (npz of ids / caches / offsets),
+    then an engine with the tp pool, the radix cache and a 1-layer draft
+    over `cfg["prompts"]`, first with fp32 weights, then with int8; the
+    other ranks follow.  Writes the leader's logits, new caches, replies,
+    counters and the ranks' scope and wire bytes."""
+    r, w = _init(init_file)
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.core.place import CPUPlace
+    from paddle_tpu_torch.models import (GPTConfig, GPTForGeneration,
+                                         GPTModel)
+    from paddle_tpu_torch.nn import MultiHeadAttention
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          PagedKVPool, RadixPrefixCache,
+                                          SpeculativeDecoder,
+                                          TPShardedDecoder, metrics,
+                                          stamp_draft)
+    with dygraph.guard(CPUPlace()):
+        m = GPTForGeneration(GPTModel(GPTConfig(**cfg["model"])))
+    m.gpt.set_state_dict({k: torch.from_numpy(v) for k, v in
+                          np.load(cfg["weights"]).items()})
+    m.eval()
+    tp, out = cfg["tp"], {}
+    for wd in ("float32", "int8"):
+        dec = TPShardedDecoder(m, tp, weight_dtype=wd)
+        if r:
+            out[wd + "/followed"] = np.array(dec.follow())
+            out[wd + "/bytes_received"] = np.array(dec.bytes_received)
+            out[wd + "/shard_bytes"] = np.array(dec.shard_bytes()["sharded"])
+            continue
+        if wd == "float32":
+            st = np.load(cfg["step"])
+            for case in cfg["step_cases"]:
+                ids = torch.from_numpy(st[case + "/ids"])
+                cache = [MultiHeadAttention.Cache(
+                    torch.from_numpy(st[f"{case}/k{li}"]),
+                    torch.from_numpy(st[f"{case}/v{li}"]))
+                    for li in range(cfg["model"]["num_layers"])]
+                logits, caches = dec.forward(
+                    ids, cache=cache,
+                    pos_offset=torch.from_numpy(st[case + "/off"]),
+                    attn_mask=torch.from_numpy(st[case + "/mask"]))
+                out[case + "/logits"] = logits.numpy()
+                out[case + "/sent"] = np.array(dec.last_step_bytes)
+                for li, c in enumerate(caches):
+                    out[f"{case}/k{li}"] = c.k.numpy()
+                    out[f"{case}/v{li}"] = c.v.numpy()
+        metrics.reset_serving_stats()
+        plan = dict(cfg["plan"], tp_degree=tp, weight_dtype=wd)
+        pool = PagedKVPool.from_plan(plan, device="cpu")
+        radix = RadixPrefixCache(pool, low_watermark=2, high_watermark=4)
+        spec = SpeculativeDecoder(stamp_draft(m, num_layers=1), k=2)
+        eng = ContinuousBatchingEngine(dec, max_slots=2, kv_pool=pool,
+                                       prefix_cache=radix,
+                                       speculative=spec).start()
+        try:
+            replies = [np.asarray(eng.submit(np.asarray(p, np.int64),
+                                             max_length=cfg["max_length"])
+                                  .result(timeout=300))
+                       for p in cfg["prompts"]]
+        finally:
+            eng.stop()
+        pool.assert_drained()
+        radix.clear()
+        pool.assert_drained()
+        dec.stop()
+        for i, rep in enumerate(replies):
+            out[f"{wd}/reply{i}"] = rep
+        out[wd + "/counts"] = np.array(json.dumps({
+            "tp_degree": eng.tp_degree, "weight_dtype": eng.weight_dtype,
+            "radix_hits": radix.hits,
+            "accepted": metrics.counter("spec.accepted"),
+            "rollback_cols": metrics.counter("spec.rollback_cols"),
+            "page_bytes": pool.page_bytes,
+            "page_bytes_per_chip": pool.page_bytes_per_chip,
+            "steps": dec.steps}))
+        out[wd + "/shard_bytes"] = np.array(dec.shard_bytes()["sharded"])
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def scan_window_train(init_file, out_dir, cfg):
+    """`run_steps` of the ZeRO x gradient-merge regression on this rank,
+    hoisted and with PADDLE_TPU_SCAN_HOIST=0: for each mode the stacked
+    losses of `cfg["calls"]` calls of K steps, the global state after
+    them, whether the window was hoisted and the collectives by op."""
+    r, w = _init(init_file)
+    import paddle_tpu_torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.distributed.compiled_program import CompiledProgram
+    from paddle_tpu_torch.io import load_params_from_numpy
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    feeds = np.load(cfg["feeds"])
+    out = {}
+    for mode in ("hoisted", "unhoisted"):
+        os.environ["PADDLE_TPU_SCAN_HOIST"] = "1" if mode == "hoisted" \
+            else "0"
+        _reset_unique_names()
+        main, startup, loss, _ = build_zero_mlp(paddle_tpu_torch,
+                                                **cfg["build"])
+        cp = CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+        exe = static.Executor(static.CPUPlace())
+        scope = static.Scope()
+        with static.scope_guard(scope):
+            exe.run(startup)
+            load_params_from_numpy(scope, dict(np.load(cfg["state"])),
+                                   static.CPUPlace(), compiled=cp)
+            kc.reset_comm_stats()
+            losses = [exe.run_steps(cp, feed={n: feeds[f"{n}{c}"]
+                                              for n in ("x", "y")},
+                                    fetch_list=[loss])[0]
+                      for c in range(cfg["calls"])]
+            out[mode + "/calls"] = np.array(json.dumps(
+                kc.COMM_STATS["calls_by_op"], sort_keys=True))
+            out[mode + "/hoisted"] = np.array(cp._last_hoisted)
+            for n, v in cp.global_state(scope).items():
+                out[f"{mode}/state/{n}"] = v.float().numpy()
+        out[mode + "/losses"] = np.concatenate(losses)
+    os.environ.pop("PADDLE_TPU_SCAN_HOIST", None)
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def build_sp_lm(pkg, vocab=64, hidden=32, layers=2, heads=2, seq=16):
+    """models/static_lm.py's language model with sequence_parallel=True,
+    trained by SGD (its update is linear in the gradient, so a state
+    comparison stays as tight as the gradients'; Adam would turn the
+    rounding noise of near-zero gradients into steps of the lr's
+    order): (main, startup, loss)."""
+    from importlib import import_module
+    lm = import_module(pkg.__name__ + ".models.static_lm")
+    main, startup, loss, _ = lm.build_transformer_lm(
+        vocab, hidden, layers, heads, seq, sequence_parallel=True)
+    with pkg.static.program_guard(main, startup):
+        pkg.static.SGD(0.5).minimize(loss)
+    return main, startup, loss
+
+
+def build_sp_lm_fleet(pkg, sp=2):
+    """`build_sp_lm` minimized through fleet's collective mode with
+    `strategy.sequence_parallel` at degree `sp`: (fleet.main_program, the
+    CompiledProgram, startup, loss)."""
+    from importlib import import_module
+    lm = import_module(pkg.__name__ + ".models.static_lm")
+    fleet = import_module(pkg.__name__ + ".distributed.fleet")
+    main, startup, loss, _ = lm.build_transformer_lm(
+        64, 32, 2, 2, 16, sequence_parallel=True)
+    with pkg.static.program_guard(main, startup):
+        fleet.init(is_collective=True)
+        strategy = fleet.DistributedStrategy()
+        strategy.sequence_parallel = True
+        strategy.sequence_parallel_configs = {"degree": sp,
+                                              "ring_attention": True}
+        fleet.distributed_optimizer(pkg.static.SGD(0.5),
+                                    strategy).minimize(loss)
+    return fleet.main_program, startup, loss
+
+
+def build_ring_op(pkg, B=4, H=2, S=32, D=16):
+    """tests/test_attention.py's one-op program: the ring_attention op
+    (causal, ring 101) on q = k = v, loss the mean of its square."""
+    from importlib import import_module
+    static = pkg.static
+    LayerHelper = import_module(pkg.__name__ +
+                                ".static.layer_helper").LayerHelper
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        q = static.layers.data("q", [-1, S, H * D])
+        helper = LayerHelper("ring_attention")
+        out = helper.create_variable_for_type_inference("float32")
+        out.shape = (-1, S, H * D)
+        helper.append_op("ring_attention",
+                         inputs={"Q": [q], "K": [q], "V": [q]},
+                         outputs={"Out": [out]},
+                         attrs={"causal": True, "ring_id": 101,
+                                "num_heads": H})
+        loss = static.layers.mean(static.layers.square(out))
+    return main, startup, loss
+
+
+def sp_ring(init_file, in_path, out_dir, cfg):
+    """Sequence parallelism on this rank: `ring_attention` forward and
+    gradients on its sequence shard of each case's global q, k, v, dO
+    (the whole world one sp group); then `cfg["programs"]` ({name:
+    {"model": "op" | "lm" | "fleet", "sp": n, "steps": k, "state": npz}})
+    through a CompiledProgram with sequence_parallel_degree (fleet's, for
+    "fleet"), writing the fetched
+    losses (and the global state after the last step)."""
+    r, w = _init(init_file)
+    import paddle_tpu_torch
+    import torch.distributed as tdist
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.distributed.compiled_program import (
+        BuildStrategy, CompiledProgram)
+    from paddle_tpu_torch.io import load_params_from_numpy
+    from paddle_tpu_torch.ops.attention import RING_STATS, ring_attention
+    data = np.load(in_path)
+    out = {}
+    for name in cfg["rings"]:
+        causal = name.startswith("causal")
+        n = data[name + "/q"].shape[2] // w
+
+        def mine(key):
+            a = data[f"{name}/{key}"][:, :, r * n:(r + 1) * n]
+            return torch.from_numpy(np.ascontiguousarray(a))
+        q, k, v = (mine(x).requires_grad_() for x in "qkv")
+        o = ring_attention(q, k, v, tdist.group.WORLD, causal=causal)
+        o.backward(mine("do"))
+        out[name + "/out"] = o.detach().numpy()
+        for x, t in zip("qkv", (q, k, v)):
+            out[f"{name}/d{x}"] = t.grad.numpy()
+    out["ring_bytes"] = np.array(RING_STATS["bytes_sent"])
+    for name, pc in cfg["programs"].items():
+        _reset_unique_names()
+        if pc["model"] == "fleet":
+            cp, startup, loss = build_sp_lm_fleet(paddle_tpu_torch,
+                                                  pc["sp"])
+        else:
+            main, startup, loss = (build_ring_op if pc["model"] == "op"
+                                   else build_sp_lm)(paddle_tpu_torch)
+            bs = BuildStrategy()
+            bs.sequence_parallel_degree = pc["sp"]
+            cp = CompiledProgram(main, bs).with_data_parallel(
+                loss_name=loss.name)
+        exe, scope = static.Executor(static.CPUPlace()), static.Scope()
+        feeds = np.load(pc["feeds"])
+        with static.scope_guard(scope):
+            exe.run(startup)
+            if pc.get("state"):
+                load_params_from_numpy(scope, dict(np.load(pc["state"])),
+                                       static.CPUPlace(), compiled=cp)
+            losses = []
+            for i in range(pc["steps"]):
+                lv, = exe.run(cp, feed={n: feeds[f"{n}{i}"]
+                                        for n in pc["feed_names"]},
+                              fetch_list=[loss])
+                losses.append(np.asarray(lv, np.float32).reshape(()))
+            for n, v in cp.global_state(scope).items():
+                out[f"{name}/state/{n}"] = v.float().numpy()
+        out[name + "/losses"] = np.asarray(losses)
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def moe_ep(init_file, in_path, out_dir):
+    """Expert parallelism on this rank (the whole world one ep group):
+    `incubate.moe.switch_moe` on its token shard (dim 0) with its expert
+    shard of the global weights, forward and the gradients of
+    mean(out ** 2); then the switch_moe op with `ep_ring_id` bound to the
+    world through the ring registry.  Writes out, aux and the gradients,
+    and the all-to-all calls by op."""
+    r, w = _init(init_file)
+    import torch.distributed as tdist
+    from paddle_tpu_torch.incubate.moe import switch_moe
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    data = np.load(in_path)
+    n, e = data["x"].shape[0] // w, data["w1"].shape[0] // w
+
+    def rows(a, m):
+        return torch.from_numpy(np.ascontiguousarray(a[r * m:(r + 1) * m]))
+    x = rows(data["x"], n).requires_grad_()
+    gw = torch.from_numpy(data["gw"]).requires_grad_()
+    ex = [rows(data[k], e).requires_grad_() for k in ("w1", "b1", "w2",
+                                                      "b2")]
+    kc.reset_comm_stats()
+    out, aux = switch_moe(x, gw, *ex, capacity_factor=float(data["cf"]),
+                          group=tdist.group.WORLD)
+    (out ** 2).mean().backward()
+    res = {"out": out.detach().numpy(), "aux": aux.detach().numpy(),
+           "d_gw": gw.grad.numpy(), "d_x": x.grad.numpy()}
+    x = x.detach()
+    for k, t in zip(("w1", "b1", "w2", "b2"), ex):
+        res["d_" + k] = t.grad.numpy()
+    res["calls"] = np.array(json.dumps(kc.COMM_STATS["calls_by_op"]))
+    kc.register_ring(7, tdist.group.WORLD)
+    op = _kernel("switch_moe", {"X": x[None], "GateW": gw.detach(),
+                                "W1": ex[0].detach(), "B1": ex[1].detach(),
+                                "W2": ex[2].detach(), "B2": ex[3].detach()},
+                 {"capacity_factor": float(data["cf"]), "ep_ring_id": 7})
+    res["op_out"] = op["Out"][0].numpy()
+    kc.clear_rings()
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **res)
