@@ -17,8 +17,9 @@ O2), and train it data-parallel (fleet, CompiledProgram, DataParallel
 over gloo ranks, and NCCL at world size 1 with a captured step), with
 ZeRO stages 1-3, and train the static transformer LM tensor-parallel,
 and serve GPT /generate tp-sharded, train with sequence parallelism
-(ring attention) and expert parallelism (switch MoE), and replay the
-gradient-merge window with its commit hoisted.
+(ring attention) and expert parallelism (switch MoE), replay the
+gradient-merge window with its commit hoisted, and train it elastically:
+killed, shrunk and regrown through checkpoints, bitwise.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -350,12 +351,12 @@ is present.  Phases:
                the c_reducescatter op, alltoall, barrier) equal to numpy;
                (a) fleet.init(is_collective=True) + amp strategy (bf16,
                the bench's loss scale) + distributed_optimizer(Adam) and
-               fleet.main_program (CompiledProgram.with_data_parallel), 3
+               fleet.main_program (CompiledProgram.with_data_parallel), 2
                Executor.run steps of the global batch from a startup of
                seed + rank (the start broadcast makes rank 1 rank 0's),
                sound, then with rank 1's gradients zeroed before their
                allreduce (a planted fault); (c) phase 9's variant (c)
-               under DataParallel (scale_loss, apply_collective_grads), 3
+               under DataParallel (scale_loss, apply_collective_grads), 2
                steps of its half batch, with BERT's hidden dropout 0.1,
                then every dropout 0, sound and with the planted fault.
                Gates: the ranks' parameters bitwise equal after every
@@ -384,13 +385,13 @@ is present.  Phases:
                global batch 8, DIST_LAYERS layers.  (a) phase 13 (a)'s
                fleet step with
                strategy.sharding at stage 1, stage 2 with gradient merge
-               k = 2, and stage 3 (distributed/sharding.py), 3 Executor
+               k = 2, and stage 3 (distributed/sharding.py), 2 Executor
                .run steps each, sound and with rank 1's gradient buckets
                zeroed before their reduce-scatter (a planted fault);
                (b) models.build_transformer_lm(30522, 768, 4, 12, 512,
                tensor_parallel_degree=2) with AMP bf16 and Adam, the tp =
                1 program's startup carried in through the placement
-               (io.load_params_from_numpy(..., compiled=)), 3 steps.
+               (io.load_params_from_numpy(..., compiled=)), 2 steps.
                Gates: the ranks' replicated state bitwise equal after
                every step and their gathered global state
                (CompiledProgram.global_state) after the last; a rank-step's
@@ -423,11 +424,12 @@ is present.  Phases:
                gloo ranks on cuda:0: (a) phase 7's GPT-2-small model
                under TPShardedDecoder at tp = 2 (rank 0 leads an engine
                with a tp-2 plan and the radix cache, rank 1 follows),
-               phase 7's first 8 posts with 32 new tokens, plain, with
+               phase 7's first 4 posts with 8 new tokens, plain, with
                the 2-layer speculative draft (k = 4) and with int8
                weights; (b) bench.py's AMP BERT-base step with use_ring
-               and build_transformer_lm(30522, 768, 12, 12, 512,
-               sequence_parallel=True) at sp = 2, 3 steps, BERT also with
+               (12 layers) and build_transformer_lm(30522, 768, 4, 12,
+               512, sequence_parallel=True) (DIST_LAYERS layers) at sp =
+               2, 2 steps, BERT also with
                rank 1's K block zeroed before its first send (a planted
                fault); (c) a 4-layer static encoder at Switch-Base-8's
                widths (d_model 768, d_ff 3072, 8 experts, capacity factor
@@ -440,8 +442,9 @@ is present.  Phases:
                with the fp32 top-2 margin), the pools drained, the
                follower fed half the K/V bytes and each rank holding half
                the sharded weight bytes, no hand kernel on the path; (b)
-               launches 48 / 24 / 24 / 2 flash forward / dQ / dK/dV /
-               fused CE a rank-step (bf16), the ranks' state bitwise
+               launches 48 / 24 / 24 / 2 (BERT; the LM 16 / 8 / 8 / 2)
+               flash forward / dQ / dK/dV / fused CE a rank-step
+               (bf16), the ranks' state bitwise
                equal, step 1's loss within SP_LOSS_RTOL and the update
                gap within SP_UPDATE_TOL of the same program in one
                process (the ring op one flash call), the fault's gap
@@ -454,6 +457,46 @@ is present.  Phases:
                global state bitwise equal, the replays issuing one
                publish all-gather a bucket a window hoisted against one a
                step unhoisted.  Prints its seconds.
+ 16. elastic - elastic data parallelism and its recovery tier:
+               bench.py's BERT-base AMP step (12 layers, flash + fused
+               CE) elasticized at logical dp 2 (distributed/elastic.py),
+               micro-batch 4 of the global batch 8.  (a) here, under NCCL
+               at world 1 (K = 2): 4 global steps eagerly, then the same
+               from the same weights through Executor.run_steps, one
+               window a call; and 4 global steps at DIST_LAYERS layers,
+               (c)'s reference.  (b) `launch --elastic --nproc_per_node
+               2` (2 gloo ranks on cuda:0, each running this script with
+               --elastic-rank), a checkpoint every global step
+               (CheckpointManager, every rank stages, rank 0 commits):
+               chaos SIGKILLs rank 1 after global step 2, the supervisor
+               tears the pod down and re-forms it at world 1 under NCCL,
+               which restores the world-2 checkpoint rank-merged and is
+               SIGTERM'd mid-window (its preemption save staged); a
+               fresh 2-rank launch restores that (rounded down to the
+               window) and finishes global step 4.  (c) two
+               `--fleet_dir` launchers (hosts 0 and 1, one rank each,
+               DIST_LAYERS layers, 3 global steps), started with (b)'s
+               regrow launch (the kill and the shrink run alone):
+               chaos `lose_host` takes host 1 down after global step 2,
+               host 0 agrees members {0} and the newest mutual
+               checkpoint from the journals, re-forms and finishes.
+               Gates: (a) run_steps bitwise eager (losses and
+               parameters), one capture; (b) every global step's
+               `loss@ELASTIC_AVG` and every final parameter bitwise (a)'s,
+               the backends gloo / NCCL, the journals holding the merged
+               restore and the re-anchor; (c) the same against its
+               reference, the re-formed fleet {0} at world 1 restored at
+               global step 2; on every path 24 / 12 / 12 / 2 flash
+               forward / dQ / dK/dV / fused CE a micro-step (8 / 4 / 4 /
+               2 at DIST_LAYERS), bf16, none for head dims above 128.
+               Reports the global-step ms (eager, replayed, world 2;
+               without the checkpoint and its barrier wait, which are
+               reported apart), the recovery seconds (kill to the
+               re-formed pod's first step; the ranks parse the program
+               the parent serialized, so no program build is in it),
+               each rank's checkpoint bytes and save / restore seconds,
+               the fold's gathered bytes a micro-step, the fleet's
+               agreement seconds, epoch and restore step.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -485,7 +528,10 @@ step and the capturing call of (b), in the row's dtype; the random
 kernel's also at each path's start; the kernels for head dims above 128
 over each whole path), and on phase 14's (`phase14_launches`: a
 rank-step of each ZeRO run and of the tp run, an eager step and the
-capturing call of the stage-3 NCCL run);
+capturing call of the stage-3 NCCL run), phase 15's and phase 16's
+(`phase16_launches`: a micro-step of (a)'s eager run and (a)'s
+capturing call, a micro-step of each launched rank);
+every phase's seconds on a line of its own ({"phase_seconds": ...});
 the last line
 {"ok": true, "device": {...}}.
 """
@@ -2437,9 +2483,9 @@ DYGRAPH_VARIANTS = (("published", 0.1, "O1", "float32"),
                     ("flash", 0.0, "O1", "float32"),
                     ("flash_o2", 0.0, "O2", "bfloat16"))
 DYGRAPH_HIDDEN_DROPOUTS = 1 + 2 * BERT["layers_n"]  # embeddings, 2 a layer
-# phases 13-14 (and phase 15's hoist, on phase 14's program) train BERT-base
-# cut to DIST_LAYERS layers, widths unchanged, so that the whole run keeps
-# inside its time limit with phase 15 (PR 21; 12 layers through PR 20)
+# phases 13-14, phase 15's hoist (on phase 14's program) and sp LM, and
+# phase 16's fleet train BERT-base cut to DIST_LAYERS layers, widths
+# unchanged, so that the whole run keeps inside its time limit
 DIST_LAYERS = 4
 
 
@@ -3480,8 +3526,7 @@ def spec_burst(torch, attn, model, model_dir, bodies, speculative, path):
              {"input_ids": bodies[1]["input_ids"][:16], "max_length": 4})
         torch.cuda.synchronize()
         steps0, reqs0 = len(eng.step_log), len(eng.request_log)
-        c0 = {n: metrics.counter(n) for n in (
-            "spec.proposed", "spec.accepted", "spec.rollback_cols")}
+        c0 = {n: metrics.counter(n) for n in SPEC_COUNTERS}
         # ---- the main path: counts from 0 just before, read just after
         attn.flash_attention.launches = 0
         zero_wide(attn)
@@ -3514,6 +3559,21 @@ def spec_divergences(torch, model, bodies, outs, plain, tag):
     return diverged
 
 
+def own_weights_draft(torch, model, seed, scale=2.0):
+    """A 2-layer k = SPEC_K draft of `model` with weights of its own
+    (from the seed, block weights times `scale`): its proposals part from
+    the target's chain at some positions (see generate_spec)."""
+    from paddle_tpu_torch.core import generator
+    from paddle_tpu_torch.serving import SpeculativeDecoder, stamp_draft
+    generator.seed(seed + 17)
+    draft = stamp_draft(model, 2, copy_weights=False)
+    with torch.no_grad():
+        for p in draft.gpt.blocks.parameters():
+            if p.dim() == 2:
+                p.mul_(scale)
+    return SpeculativeDecoder(draft, k=SPEC_K)
+
+
 def generate_spec(torch, attn, model, model_dir, bodies, plain, seed):
     """(d) phase 7's engine and posts with gen_speculative="auto" (a
     2-layer stamp, k = 4): tokens equal to phase 7's post by post (or a
@@ -3521,7 +3581,6 @@ def generate_spec(torch, attn, model, model_dir, bodies, plain, seed):
     of its own weights (from the seed, block weights doubled), whose
     rejected proposals must roll columns back; then a full-depth stamp over SPEC_FULL_POSTS accepts
     every proposal."""
-    from paddle_tpu_torch.core import generator
     from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
                                           SpeculativeDecoder, metrics,
                                           stamp_draft)
@@ -3535,13 +3594,7 @@ def generate_spec(torch, attn, model, model_dir, bodies, plain, seed):
     # the init scale guesses every proposal.  Block weights at twice
     # their init scale let the blocks outweigh the copy at some positions
     # and not at others: some proposals are accepted, some rolled back.
-    generator.seed(seed + 17)
-    draft = stamp_draft(model, 2, copy_weights=False)
-    with torch.no_grad():
-        for p in draft.gpt.blocks.parameters():
-            if p.dim() == 2:
-                p.mul_(2.0)
-    own = SpeculativeDecoder(draft, k=SPEC_K)
+    own = own_weights_draft(torch, model, seed)
     o_outs, o_stats, o_counts, _, o_flash = spec_burst(
         torch, attn, model, model_dir, bodies, own,
         "generate_spec_own_draft")
@@ -4664,7 +4717,7 @@ def breadth_o2(torch, static, attn, fx, rnd, seed, feed):
 # phase 13: data-parallel training over torch.distributed, bench.py's
 # step at the global batch TRAIN_BATCH
 DP_RANKS = 2            # gloo ranks on the one card (NCCL refuses two)
-DP_STEPS = 3            # steps of each two-rank run and of its reference
+DP_STEPS = 2            # steps of each two-rank run and of its reference
 DP_EAGER, DP_K = 2, 4   # NCCL at world 1: eager steps, then run_steps K
 # step 1's mean loss against one process at batch TRAIN_BATCH (the
 # forward alone: nothing is updated yet).  The static fetch is fp32, the
@@ -4831,17 +4884,14 @@ def dp_tensors_differing(torch, tensors):
     return int(total.item())
 
 
-def dp_rank(seed, out_dir, prepare=None):
+def dp_rank(seed, out_dir):
     """One rank of phases 13 (a), (c) and (d) (a `spawn` worker): a gloo
     process group over the PADDLE_* contract, the collective API on CUDA
     tensors, the static data-parallel runs, then the dygraph ones; writes
     rank<r>.json and, on rank 0, the parameters after each run held
-    against one process.  `prepare()`, when given, runs first (a CPU
-    rehearsal patches the device there)."""
+    against one process."""
     import torch
     import torch.distributed as tdist
-    if prepare is not None:
-        prepare()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as pdist
@@ -5137,7 +5187,7 @@ def dp_path_launches(rec, step=-1):
             "philox_at_start": rec["philox_at_start"]}
 
 
-def dp_phase(torch, seed, prepare=None):
+def dp_phase(torch, seed):
     """(13) Data parallel at BERT-base width, global batch TRAIN_BATCH:
     (a) static (fleet + CompiledProgram) and (c) dygraph DataParallel on
     DP_RANKS gloo ranks sharing the card, against one process at the
@@ -5155,7 +5205,7 @@ def dp_phase(torch, seed, prepare=None):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        pdist.spawn(dp_rank, args=(seed, tmp, prepare), nprocs=DP_RANKS,
+        pdist.spawn(dp_rank, args=(seed, tmp), nprocs=DP_RANKS,
                     selected_devices=",".join(["0"] * DP_RANKS))
         spawn_s = time.perf_counter() - t0
         ranks = []
@@ -5584,15 +5634,13 @@ def zt_check_bytes(tag, got, world):
                 f"global buckets {padded}, the unsharded {unsharded}")
 
 
-def zt_rank(seed, out_dir, prepare=None):
+def zt_rank(seed, out_dir):
     """One rank of phase 14 (a) and (b) (a `spawn` worker): a gloo
     process group; (a) each ZT_STAGES run, sound and with a planted fault;
     (b) the tp = 2 language model.  Writes rank<r>.json and, on rank 0,
     the gathered parameters after each run."""
     import torch
     import torch.distributed as tdist
-    if prepare is not None:
-        prepare()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as pdist
@@ -5793,7 +5841,7 @@ def zt_tp_rank(torch, seed, rank, out_dir):
     return rec
 
 
-def zt_phase(torch, seed, prepare=None):
+def zt_phase(torch, seed):
     """(14) ZeRO and tensor parallelism at BERT-base width, global batch
     TRAIN_BATCH, on DP_RANKS gloo ranks sharing the card: (a) each
     ZT_STAGES run and (b) the tp = 2 language model against one process;
@@ -5811,7 +5859,7 @@ def zt_phase(torch, seed, prepare=None):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        pdist.spawn(zt_rank, args=(seed, tmp, prepare), nprocs=DP_RANKS,
+        pdist.spawn(zt_rank, args=(seed, tmp), nprocs=DP_RANKS,
                     selected_devices=",".join(["0"] * DP_RANKS))
         spawn_s = time.perf_counter() - t0
         ranks = []
@@ -6144,13 +6192,20 @@ def zt_nccl(torch, static, attn, dr, fx, rnd, seed):
 # (switch MoE) and the gradient-merge commit hoist
 PX_RANKS = 2            # gloo ranks on the one card, as phases 13-14
 PX_TP = 2               # (a)'s tensor-parallel degree
-PX_POSTS = 8            # (a) phase 7's first posts ...
-PX_NEW = 32             # ... with 32 new tokens each
-# (a): (variant, weight dtype, speculative) of the tp = 2 engine's runs
+PX_POSTS = 4            # (a) phase 7's first posts ...
+PX_NEW = 8              # ... with 8 new tokens each
+# (a): (variant, weight dtype, speculative) of the tp = 2 engine's runs.
+# The stamp accepts every proposal (a random GPT-2 is a copy model, see
+# generate_spec), so "own", a draft of its own weights, drives the
+# rejections and the rollback (gated); its block weights are tripled
+# (phase 7 doubles them over 16 posts of 64 new tokens) so that these
+# few short posts meet rejections within PX_NEW tokens
+PX_DRAFT_SCALE = 3.0
 PX_TP_VARIANTS = (("plain", "float32", None), ("spec", "float32", "auto"),
-                  ("int8", "int8", None))
+                  ("spec_own", "float32", "own"), ("int8", "int8", None))
+SPEC_COUNTERS = ("spec.proposed", "spec.accepted", "spec.rollback_cols")
 SP_DEGREE = 2
-SP_STEPS = 3            # (b)'s steps of each run and of its reference
+SP_STEPS = 2            # (b)'s steps of each run and of its reference
 # (b) against the same program in one process, where the ring op is one
 # flash call: the ring merges two bf16 block outputs (each rounded to bf16
 # before the merge) where one process rounds one output, so step 1's loss
@@ -6175,7 +6230,7 @@ SWITCH = dict(d_model=768, d_ff=3072, experts=8, capacity_factor=1.25,
               layers=4, heads=12, batch=8, seq=512, aux_weight=0.01)
 EP_DEGREE = 2
 EP_RING_ID = 7
-EP_STEPS = 3
+EP_STEPS = 2
 # against the dense run in one process: the MSE part of the loss is the
 # mean of the ranks' means (equal token counts), the aux loss the mean of
 # the ranks' aux losses, which is not the aux loss of all tokens (a mean of
@@ -6262,11 +6317,12 @@ def px_counters():
     return dp_counters(attn, dr, fx, rnd)
 
 
-def px_sp_want():
-    """Launches of a rank-step of (b): each layer's ring forward runs
-    SP_DEGREE flash forwards, and again in the gradient's replay; its
-    backward ring SP_DEGREE dQ and dK/dV; 2 fused CE; all bf16."""
-    n = BERT["layers_n"] * SP_DEGREE
+def px_sp_want(tag):
+    """Launches of a rank-step of (b)'s program `tag`: each layer's ring
+    forward runs SP_DEGREE flash forwards, and again in the gradient's
+    replay; its backward ring SP_DEGREE dQ and dK/dV; 2 fused CE; all
+    bf16."""
+    n = px_sp_layers(tag) * SP_DEGREE
     return dict(zip(DP_COUNTED, (2 * n, n, n, 2, 0, 0)))
 
 
@@ -6277,12 +6333,12 @@ def px_bert_sp():
     from paddle_tpu_torch.models import build_bert_pretrain
     _reset_unique_names()
     return build_bert_pretrain(BERT["vocab"], BERT["seq"], BERT["hidden"],
-                               BERT["layers_n"], BERT["heads"],
+                               px_sp_layers("bert"), BERT["heads"],
                                TRAIN_BATCH, use_amp=True, use_ring=True)
 
 
 def px_lm_sp():
-    """models.build_transformer_lm(30522, 768, 12, 12, 512,
+    """models.build_transformer_lm(30522, 768, DIST_LAYERS, 12, 512,
     sequence_parallel=True) with AMP bf16 and Adam 1e-4: (main, startup,
     loss)."""
     from paddle_tpu_torch import amp, static
@@ -6290,7 +6346,7 @@ def px_lm_sp():
     from paddle_tpu_torch.models import build_transformer_lm
     _reset_unique_names()
     main, startup, loss, _ = build_transformer_lm(
-        BERT["vocab"], BERT["hidden"], BERT["layers_n"], BERT["heads"],
+        BERT["vocab"], BERT["hidden"], px_sp_layers("lm"), BERT["heads"],
         BERT["seq"], sequence_parallel=True)
     with static.program_guard(main, startup):
         amp.decorate(static.Adam(1e-4), init_loss_scaling=1.0,
@@ -6301,6 +6357,13 @@ def px_lm_sp():
 
 PX_SP_PROGRAMS = (("bert", px_bert_sp, ("sound", "fault")),
                   ("lm", px_lm_sp, ("sound",)))
+
+
+def px_sp_layers(tag):
+    """(b)'s depth: BERT at its 12 layers (at 4, its planted fault moved
+    the update by 0.20, under the gate's 0.3: the gate needs the depth),
+    the LM (no fault run) at DIST_LAYERS."""
+    return BERT["layers_n"] if tag == "bert" else DIST_LAYERS
 
 
 def px_zero_k_first_send(attn):
@@ -6376,7 +6439,7 @@ def px_sp_rank(torch, seed, rank, out_dir):
 
 
 def px_sp_check(torch, seed, tmp, ranks):
-    """(b) gated: each run's records (launches px_sp_want(), the ranks'
+    """(b) gated: each run's records (launches px_sp_want(tag), the ranks'
     state bitwise equal, the same losses), then against the same program
     in one process (the ring op unbound: one flash call a layer), step 1's
     loss within SP_LOSS_RTOL and the update gap within SP_UPDATE_TOL, the
@@ -6391,7 +6454,7 @@ def px_sp_check(torch, seed, tmp, ranks):
             zt_check_ranks(f"sp {tag} ({run})", ranks,
                            lambda r: r["sp"][tag][run],
                            lambda r: r["sp"][tag]["program_comms"],
-                           px_sp_want(),
+                           px_sp_want(tag),
                            ranks[0]["sp"][tag]["philox_in_startup"])
         params = [p.name for p in main.all_parameters()]
         fx.enable_fused_xent(True)
@@ -6411,9 +6474,10 @@ def px_sp_check(torch, seed, tmp, ranks):
         del init, scope, want, before
         res = {"config": ("bench.py's BERT-base AMP step with use_ring"
                           if tag == "bert" else
-                          "models.build_transformer_lm(30522, 768, 12, 12, "
-                          "512, sequence_parallel=True), AMP bf16 + Adam "
-                          "1e-4") + f", global batch {TRAIN_BATCH}, sp "
+                          f"models.build_transformer_lm(30522, 768, "
+                          f"{px_sp_layers('lm')}, 12, 512, "
+                          "sequence_parallel=True), AMP bf16 + Adam 1e-4") +
+                          f", global batch {TRAIN_BATCH}, sp "
                           f"{SP_DEGREE} x dp 1 on {PX_RANKS} gloo ranks, "
                           "flash + fused CE",
                "losses": sound["losses"], "single_process_losses": losses,
@@ -6744,7 +6808,7 @@ def px_tp_rank(torch, seed, rank, bodies):
     from paddle_tpu_torch.models import GPTConfig, GPTForGeneration, GPTModel
     from paddle_tpu_torch.ops import attention as attn
     from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
-                                          TPShardedDecoder)
+                                          TPShardedDecoder, metrics)
     generator.seed(seed)
     with dygraph.guard(CUDAPlace(0)):
         model = GPTForGeneration(GPTModel(GPTConfig(**GPT2))).eval()
@@ -6758,11 +6822,14 @@ def px_tp_rank(torch, seed, rank, bodies):
             out[variant] = rec
             continue
         plan = dict(GEN_PLAN, tp_degree=PX_TP, weight_dtype=wd)
+        if spec == "own":
+            spec = own_weights_draft(torch, model, seed, PX_DRAFT_SCALE)
         eng = ContinuousBatchingEngine(dec, max_slots=GEN_PLAN["max_slots"],
                                        kv_pool=plan, prefix_cache="auto",
                                        speculative=spec)
         eng.start()
         counters = px_counters()
+        c0 = {n: metrics.counter(n) for n in SPEC_COUNTERS}
         try:
             # ---- the main path: counts from 0 just before, read just after
             dp_zero(counters)
@@ -6796,6 +6863,8 @@ def px_tp_rank(torch, seed, rank, bodies):
             "cache_bytes": dec.cache_bytes, "bytes_sent": dec.bytes_sent,
             "weights": dec.shard_bytes(), "launches": launches,
             "by_dtype": by_dtype, "wide": wide,
+            "spec_counts": {n: metrics.counter(n) - v
+                            for n, v in c0.items()},
             "pool_tp_degree": eng.kv_pool.tp_degree,
             "page_bytes_per_chip": eng.kv_pool.page_bytes_per_chip,
             "page_bytes": eng.kv_pool.page_bytes}
@@ -6858,6 +6927,12 @@ def px_tp_check(torch, seed, bodies, ranks):
                                      "bytes")
         check_equal(f"tp {variant} pool tp degree", lead["pool_tp_degree"],
                     PX_TP)
+        counts = lead["spec_counts"]
+        if spec == "own" and (counts["spec.rollback_cols"] < 1 or
+                              counts["spec.accepted"] >=
+                              counts["spec.proposed"]):
+            raise AssertionError(f"tp {variant}: {counts} (want rejections "
+                                 "rolled back)")
         # the decode program is the score-matrix graph (the JAX
         # package's): no hand kernel runs on this path
         check_equal(f"tp {variant} hand-kernel launches",
@@ -6865,6 +6940,9 @@ def px_tp_check(torch, seed, bodies, ranks):
         res[variant] = {
             "posts_equal_to_tp1": len(bodies) - len(diverged),
             "divergences": diverged,
+            "spec_proposed": counts["spec.proposed"],
+            "spec_accepted": counts["spec.accepted"],
+            "spec_rollback_cols": counts["spec.rollback_cols"],
             "generated_tokens_per_s": lead["generated_tokens_per_s"],
             "decode_step_ms_p50": lead["decode_step_ms_p50"],
             "forwards": lead["forwards"],
@@ -6885,18 +6963,18 @@ def px_tp_check(torch, seed, bodies, ranks):
                    f"tp {PX_TP} on {PX_RANKS} gloo ranks on one card (rank "
                    "0 leads the engine, rank 1 follows), the radix cache, "
                    f"phase 7's first {PX_POSTS} posts with {PX_NEW} new "
-                   "tokens each; plain, speculative (2-layer stamp, k = 4) "
+                   "tokens each; plain, speculative (2-layer stamp, k = 4), "
+                   "speculative with an own-weights draft (k = 4, block "
+                   f"weights x{PX_DRAFT_SCALE}) "
                    "and int8 weights", **res})
     return res
 
 
-def px_rank(seed, out_dir, bodies, prepare=None):
+def px_rank(seed, out_dir, bodies):
     """One rank of phase 15 (a) - (c) (a `spawn` worker): a gloo process
     group on cuda:0; writes rank<r>.json (and the parameter files)."""
     import torch
     import torch.distributed as tdist
-    if prepare is not None:
-        prepare()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch import distributed as pdist
@@ -7036,7 +7114,7 @@ def px_hoist(torch, seed):
     return res, h, u
 
 
-def px_phase(torch, seed, prepare=None):
+def px_phase(torch, seed):
     """(15) the remaining parallel axes: the flash-composed ring's kernel
     checks; (a) tp /generate, (b) sp training, (c) ep training on PX_RANKS
     gloo ranks sharing the card (one spawn); (d) the hoist under NCCL at
@@ -7051,7 +7129,7 @@ def px_phase(torch, seed, prepare=None):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        pdist.spawn(px_rank, args=(seed, tmp, bodies, prepare),
+        pdist.spawn(px_rank, args=(seed, tmp, bodies),
                     nprocs=PX_RANKS,
                     selected_devices=",".join(["0"] * PX_RANKS))
         spawn_s = time.perf_counter() - t0
@@ -7066,7 +7144,7 @@ def px_phase(torch, seed, prepare=None):
         shutil.rmtree(tmp, ignore_errors=True)
     hoist, h, u = px_hoist(torch, seed)
     for r in ranks:
-        for variant in ("plain", "spec", "int8"):
+        for variant, _, _ in PX_TP_VARIANTS:
             if r["rank"] == 0:
                 record_wide(f"px_tp_{variant}", r["tp"][variant]["wide"])
         for tag, _, runs in PX_SP_PROGRAMS:
@@ -7100,18 +7178,704 @@ def px_phase(torch, seed, prepare=None):
             "launches": launches, "seconds": seconds}
 
 
+# phase 16: elastic data-parallel training and its recovery tier
+# (distributed/elastic.py, checkpoint/, observability/, testing/chaos.py,
+# launch --elastic / --fleet_dir): bench.py's BERT-base AMP step
+# elasticized at logical dp EL_LOGICAL (micro-batch TRAIN_BATCH /
+# EL_LOGICAL rows), a checkpoint every global step
+EL_LOGICAL = 2
+EL_STEPS = 4            # global steps of every run
+EL_KILL_AT = 2          # (b) rank 1 SIGKILLed after its 2nd micro-step
+EL_TERM_AT = 3          # (b) the re-formed world-1 pod SIGTERM'd after its
+                        # 3rd micro-step: mid-window (K = 2 at world 1)
+EL_LOSE_AT = 4          # (c) host 1 lost after its 4th micro-step (global
+                        # step 2 at K = 2)
+EL_KEEP = 2             # checkpoints kept: 2 x ~2.1 GB a writer rank
+EL_GRACE = 2            # seconds between the teardown's SIGTERM and SIGKILL
+EL_MEMBER_TIMEOUT = 3   # (c) seconds before a silent fleet host is lost
+EL_FLEET_STEPS = 3      # (c)'s global steps: host 1 lost after the 2nd
+EL_BARRIER_S = 300      # (c) the fleet barrier's patience (a lost peer is
+                        # noticed by the launcher long before)
+# the paths whose launches of the kernels for head dims above 128 phase 16
+# reads (each gated at 0)
+EL_PATHS = ("elastic_eager", "elastic_graph", "elastic_fleet_reference",
+            "elastic_b1_rank0_r0", "elastic_b1_rank1_r0",
+            "elastic_b1_rank0_r1", "elastic_b2_rank0_r0",
+            "elastic_b2_rank1_r0", "elastic_fleet_host0_e0",
+            "elastic_fleet_host1_e0", "elastic_fleet_host0_e1")
+
+
+def el_want(layers):
+    """Launches a micro-step: phase 6's eager AMP step at `layers` layers
+    (2 flash forwards a layer, a dQ and a dK/dV a layer, 2 fused CE, all
+    bf16; no dropout, no random op)."""
+    return dict(zip(DP_COUNTED, (2 * layers, layers, layers, 2, 0, 0)))
+
+
+def el_program(layers):
+    """bench.py's AMP BERT-base step (build_bert_pretrain, flash on, at
+    `layers` layers, widths unchanged) elasticized at EL_LOGICAL with its
+    loss folded: (main, startup, loss, meta)."""
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.distributed.elastic import elasticize
+    from paddle_tpu_torch.models import build_bert_pretrain
+    from paddle_tpu_torch.ops import attention as attn
+    attn.enable_flash_attention(True)
+    try:
+        _reset_unique_names()
+        main, startup, loss = build_bert_pretrain(
+            use_amp=True, batch=TRAIN_BATCH,
+            **dict(BERT, layers_n=layers))
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+    meta = elasticize(main, startup, EL_LOGICAL, loss_name=loss)
+    return main, startup, loss, meta
+
+
+def el_save_program(d, program):
+    """Write (main, startup, loss, meta) under `d` as the JSON wire format
+    and the meta, for the launched ranks: parsing takes a tenth of a
+    second where building the program (its shape inference) takes ~10 s
+    on the card's host.  Returns the path of the record."""
+    main, startup, loss, meta = program
+    os.makedirs(d, exist_ok=True)
+    for name, prog in (("main", main), ("startup", startup)):
+        with open(os.path.join(d, f"{name}.json"), "wb") as f:
+            f.write(prog.serialize_to_string())
+    path = os.path.join(d, "program.json")
+    with open(path, "w") as f:
+        json.dump({"loss": loss.name, "meta": meta}, f)
+    return path
+
+
+def el_load_program(path):
+    """The (main, startup, loss name, meta) `el_save_program` wrote; the
+    elastic meta goes back on the parsed main program (it is not part of
+    the wire format)."""
+    from paddle_tpu_torch.core.program import Program
+    d = os.path.dirname(path)
+    with open(path) as f:
+        rec = json.load(f)
+    progs = []
+    for name in ("main", "startup"):
+        with open(os.path.join(d, f"{name}.json"), "rb") as f:
+            progs.append(Program.parse_from_string(f.read()))
+    progs[0]._elastic_meta = rec["meta"]
+    return progs[0], progs[1], rec["loss"], rec["meta"]
+
+
+def el_feeds(seed):
+    """EL_STEPS global batches (TRAIN_BATCH rows each) from --seed."""
+    return [train_feed(seed + g) for g in range(EL_STEPS)]
+
+
+def el_params(main, scope):
+    """The parameters on the host, by name."""
+    return {p.name: scope.get(p.name).detach().cpu()
+            for p in main.all_parameters()}
+
+
+def el_reference(torch, seed, program, graph=False, steps=EL_STEPS):
+    """The uninterrupted run in this process under NCCL at world 1 (K =
+    EL_LOGICAL micro-steps a global step): `steps` global steps eagerly,
+    each micro-step's launches counted; with `graph`, the same steps
+    again from the same weights through Executor.run_steps, one window a
+    call.  Returns the record, the final parameters and the run_steps
+    call's.  `program` is el_program's (main, startup, loss, meta)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.elastic import rebucket_feeds
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    main, startup, loss, meta = program
+    layers = sum(op.type == "flash_attention"
+                 for op in main.global_block().ops)
+    init, philox, _ = startup_weights(torch, static, rnd, startup, seed)
+    counters = dp_counters(attn, dr, fx, rnd)
+    feeds = el_feeds(seed)[:steps]
+    rec = {"layers": layers, "losses": [], "global_step_ms": [],
+           "launches": [], "by_dtype": []}
+    exe, scope = static.Executor(), scope_of(static, init)
+    zero_wide(attn)
+    with static.scope_guard(scope):
+        cp = static.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        for f in feeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for mf in rebucket_feeds(f, EL_LOGICAL, 1):
+                dp_zero(counters)
+                out = exe.run(cp, feed=mf, fetch_list=[meta["loss_avg"]])
+                got, dt = dp_read(counters)
+                rec["launches"].append(got)
+                rec["by_dtype"].append(dt)
+            torch.cuda.synchronize()
+            rec["global_step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(np.asarray(out[0]).reshape(-1)[0]))
+        params = el_params(main, scope)
+    rec["wide"] = read_wide(attn)
+    exe.close()
+    del exe, scope
+    want = el_want(layers)
+    for i, (got, dt) in enumerate(zip(rec["launches"], rec["by_dtype"])):
+        dp_check_launches(f"elastic eager micro-step {i} ({layers} layers)",
+                          got, dt, want)
+    if not graph:
+        return rec, params, None
+    exe, scope = static.Executor(), scope_of(static, init)
+    zero_wide(attn)
+    replayed, calls = [], []
+    with static.scope_guard(scope):
+        cp = static.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        for i, f in enumerate(feeds):
+            micro = rebucket_feeds(f, EL_LOGICAL, 1)
+            stacked = {n: np.stack([m[n] for m in micro]) for n in f}
+            dp_zero(counters)
+            kc.reset_comm_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run_steps(cp, feed=stacked,
+                                fetch_list=[meta["loss_avg"]])[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            calls.append(dict(kc.COMM_STATS["calls_by_op"]))
+            if i == 0:
+                rec["capturing_launches"], rec["capturing_by_dtype"] = \
+                    dp_read(counters)
+            else:
+                rec.setdefault("replayed_global_step_ms", []).append(ms)
+            replayed.append(float(np.asarray(out).reshape(-1)[-1]))
+        graph_params = el_params(main, scope)
+    rec["graph_wide"] = read_wide(attn)
+    rec["graph_losses"] = replayed
+    rec["cache_stats"] = exe.cache_stats()
+    exe.close()
+    dp_check_launches("elastic run_steps capturing call", 
+                      rec["capturing_launches"], rec["capturing_by_dtype"],
+                      {n: 2 * v for n, v in want.items()})
+    folds = sum(op.type == "c_elastic_fold"
+                for op in main.global_block().ops)
+    check_equal("elastic run_steps capturing call's eager folds", calls[0],
+                {"c_elastic_fold": 2 * folds})
+    for i, c in enumerate(calls[1:], 1):
+        check_equal(f"elastic run_steps call {i}'s eager collectives", c,
+                    {})
+    check_equal("elastic run_steps captures", rec["cache_stats"]["traces"],
+                1)
+    rec["folds_per_micro_step"] = folds
+    return rec, params, graph_params
+
+
+def el_compare(tag, losses, params, ref_losses, ref_params):
+    """Every global-step loss and every parameter bitwise equal."""
+    import torch
+    if [np.float32(v) for v in losses] != \
+            [np.float32(v) for v in ref_losses]:
+        raise AssertionError(f"{tag}: global-step losses {losses} against "
+                             f"{ref_losses}")
+    differing = [n for n in ref_params
+                 if not torch.equal(params[n], ref_params[n])]
+    if sorted(params) != sorted(ref_params) or differing:
+        raise AssertionError(f"{tag}: parameters differ: {differing[:5]}")
+
+
+def el_timed_manager(*args, **kw):
+    """A CheckpointManager whose save / wait / commit seconds (the
+    train-side cost of a checkpoint) add up in its `seconds`."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        seconds = 0.0
+
+        def _timed(self, fn, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        def save(self, *a, **k):
+            return self._timed(lambda: super(Timed, self).save(*a, **k))
+
+        def wait(self):
+            return self._timed(super().wait)
+
+        def commit(self, step):
+            return self._timed(super().commit, step)
+    return Timed(*args, **kw)
+
+
+def el_rank(cfg_path):
+    """One launched rank of phase 16 (`python3 chip_smoke.py
+    --elastic-rank <cfg.json>`, started by paddle_tpu_torch.distributed
+    .launch): the launcher's env picks rank, world, restart and fleet
+    (elastic.LaunchedRank, which also runs the resume, checkpoint and
+    train loop).  NCCL at world 1, gloo at world 2 (two ranks share the
+    card); the elastic step at cfg["layers"] as the parent serialized it,
+    the startup of --seed (every process draws the same weights), a
+    checkpoint every global step, training to cfg["steps"]; writes
+    out_<tag>.json after every global step and, when done, rank 0's
+    parameters (final_<tag>.pt).  A global step's ms leaves out its
+    checkpoint (save, wait, commit) and its barrier wait, each reported
+    on its own."""
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    import torch
+    import torch.distributed as tdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import kernel_build, monitor
+    from paddle_tpu_torch.distributed.elastic import LaunchedRank
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    t_start = time.time()
+    t_mark = time.perf_counter()
+    setup = {}
+
+    def mark(what):
+        nonlocal t_mark
+        now = time.perf_counter()
+        setup[what] = now - t_mark
+        t_mark = now
+    kernel_build.build_libraries(KERNEL_SOURCES)  # the parent built them
+    fx.enable_fused_xent(True)
+    lr = LaunchedRank(barrier_timeout_s=EL_BARRIER_S)
+    world = lr.world
+    tag = lr.tag if lr.fleet else f"{cfg['tag']}_{lr.tag}"
+    torch.cuda.set_device(lr.device_id)
+    tdist.init_process_group("nccl" if world == 1 else "gloo",
+                             init_method=f"tcp://{lr.endpoint}",
+                             world_size=world,
+                             rank=0 if lr.fleet else lr.rank)
+    out_json = os.path.join(cfg["dir"], f"out_{tag}.json")
+    rec = {"tag": tag, "rank": lr.rank, "world": world,
+           "restart": lr.restart, "backend": tdist.get_backend(),
+           "losses": {}, "step_ms": {}, "checkpoint_s": {},
+           "barrier_s": {}, "micro_steps": 0, "process_start_t": t_start}
+    waited = {"barrier_s": 0.0}
+    if lr.barrier is not None:
+        barrier = lr.barrier
+
+        def timed_barrier():
+            t0 = time.perf_counter()
+            try:
+                return barrier()
+            finally:
+                waited["barrier_s"] += time.perf_counter() - t0
+        lr.barrier = timed_barrier
+
+    def report(**kw):
+        rec.update(kw)
+        with open(out_json + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(out_json + ".tmp", out_json)
+
+    mark("imports_and_group")
+    try:
+        main, startup, loss_name, meta = el_load_program(cfg["program"])
+        mark("program")
+        init, _, _ = startup_weights(torch, static, rnd, startup,
+                                     cfg["seed"])
+        mark("startup")
+        exe, scope = static.Executor(), scope_of(static, init)
+        del init
+        mgr = lr.checkpoint_manager(os.path.join(cfg["dir"], "ckpt"),
+                                    EL_KEEP, cls=el_timed_manager)
+        counters = dp_counters(attn, dr, fx, rnd)
+        step = {"ms": 0.0, "ck": 0.0, "barrier": 0.0}
+
+        def run(mf):
+            kc.reset_comm_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if "first_step_t" not in rec:
+                rec["first_step_t"] = time.time()
+            out = exe.run(cp, feed=mf, fetch_list=[meta["loss_avg"]])
+            torch.cuda.synchronize()
+            step["ms"] += (time.perf_counter() - t0) * 1e3
+            rec["micro_steps"] += 1
+            rec["fold_calls"] = kc.COMM_STATS["calls_by_op"].get(
+                "c_elastic_fold", 0)
+            rec["fold_gathered_bytes"] = kc.COMM_STATS["bytes"] * world \
+                if rec["fold_calls"] else 0
+            return out
+
+        def step_done(gi, loss_value):
+            ck = mgr.seconds - step["ck"]
+            wait = waited["barrier_s"] - step["barrier"]
+            rec["losses"][gi] = loss_value
+            rec["step_ms"][gi] = step["ms"] - (ck + wait) * 1e3
+            rec["checkpoint_s"][gi] = ck
+            rec["barrier_s"][gi] = wait
+            step.update(ms=0.0, ck=mgr.seconds, barrier=waited["barrier_s"])
+            launches, by_dtype = dp_read(counters)
+            report(launches=launches, by_dtype=by_dtype,
+                   wide=read_wide(attn),
+                   save_s=monitor.hist_snapshot("checkpoint.save_seconds"))
+
+        with static.scope_guard(scope):
+            cp = static.CompiledProgram(main).with_data_parallel(
+                loss_name=loss_name)
+            t0 = time.perf_counter()
+            g = lr.resume(exe, mgr, main, scope, restore_program=cp)
+            torch.cuda.synchronize()
+            rec["restore_s"] = time.perf_counter() - t0
+            mark("restore")
+            rec["setup_s"] = setup
+            report(resumed_global=g)
+            dp_zero(counters)
+            zero_wide(attn)
+            feeds = el_feeds(cfg["seed"])[:cfg.get("steps", EL_STEPS)]
+            lr.train(run, feeds, EL_LOGICAL, start=g,
+                     on_global_step=step_done)
+            mgr.wait()
+            if lr.rank == 0:
+                torch.save(el_params(main, scope), os.path.join(
+                    cfg["dir"], f"final_{tag}.pt"))
+        mgr.close()
+        report(done=True, save_s=monitor.hist_snapshot(
+            "checkpoint.save_seconds"),
+            checkpoint_bytes=monitor.stat_get("checkpoint.bytes_written"))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def el_launch(cfg, args, chaos=None, timeout=300, wait=True):
+    """`python -m paddle_tpu_torch.distributed.launch <args> chip_smoke.py
+    --elastic-rank <cfg>` from this checkout, journals under cfg["dir"]:
+    its Popen, waited for (`timeout` seconds) unless not `wait`, then
+    with the launcher's stderr as `stderr_text`."""
+    tmp = cfg["dir"]
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, f"cfg_{cfg['tag']}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ)
+    env.pop("PADDLE_TPU_CHAOS", None)
+    env.pop("PADDLE_TPU_FLEET_DIR", None)
+    if chaos:
+        env["PADDLE_TPU_CHAOS"] = chaos
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch"] + \
+        list(args) + ["--journal_dir", os.path.join(tmp, "journal"),
+                      "--term_grace", str(EL_GRACE), "--log_dir",
+                      os.path.join(tmp, "logs_" + cfg["tag"]),
+                      os.path.abspath(__file__), "--elastic-rank", path]
+    # its stderr to <dir>/launcher_<tag>.err; a session of its own, so
+    # that a failed phase stops the launcher and its trainers together
+    # (el_stop)
+    err_path = os.path.join(tmp, f"launcher_{cfg['tag']}.err")
+    with open(err_path, "w") as err:
+        pr = subprocess.Popen(cmd, cwd=here, env=env, stderr=err,
+                              start_new_session=True)
+    if not wait:
+        return pr
+    try:
+        pr.wait(timeout)
+    finally:
+        el_stop([pr])
+    with open(err_path) as f:
+        pr.stderr_text = f.read()
+    return pr
+
+
+def el_stop(procs):
+    """SIGKILL each still-running launcher's session (it and its
+    trainers)."""
+    import signal
+    for pr in procs:
+        if pr.poll() is None:
+            try:
+                os.killpg(pr.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            pr.wait()
+
+
+def el_out(tmp, tag):
+    with open(os.path.join(tmp, f"out_{tag}.json")) as f:
+        return json.load(f)
+
+
+def el_check_rank(rec, layers, want_steps):
+    """A launched rank's launches: phase 6's a micro-step in bf16, nothing
+    for head dims above 128, over the micro-steps it ran."""
+    n = rec["micro_steps"]
+    check_equal(f"{rec['tag']} global steps run", sorted(
+        int(g) for g in rec["losses"]), want_steps)
+    want = {k: v * n for k, v in el_want(layers).items()}
+    dp_check_launches(f"{rec['tag']} ({n} micro-steps)", rec["launches"],
+                      rec["by_dtype"], want)
+
+
+def el_phase(torch, seed):
+    """(16) elastic training, the checkpoint tier and the launcher's
+    re-form, on bench.py's BERT-base AMP step elasticized at logical dp
+    EL_LOGICAL.  (a) here, under NCCL at world 1: EL_STEPS global steps
+    eagerly, then again through run_steps one window a call (bitwise
+    equal); the same at DIST_LAYERS layers for (c).  (b) launch --elastic
+    with 2 gloo ranks on the card, rank 1 SIGKILLed, the pod re-formed at
+    world 1 under NCCL and SIGTERM'd mid-window, then a fresh 2-rank
+    launch finishing: every global step's loss and every final parameter
+    bitwise (a)'s.  (c) two --fleet_dir launchers at DIST_LAYERS layers,
+    host 1 lost, host 0 re-forming alone from the newest mutual checkpoint
+    and finishing bitwise (a)'s reference at that depth; they start with
+    (b)'s regrow launch and run beside it, after the kill and the shrink
+    ran alone.  The launched ranks parse the program the parent
+    serialized, so the recovery seconds leave out the program build
+    (~10 s on the card's host) that a relaunched trainer which builds
+    its program pays."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed.fleet_control import read_commit
+    from paddle_tpu_torch.distributed.spawn import get_free_ports
+    from paddle_tpu_torch.observability import read_rank_journals
+    t_phase = time.perf_counter()
+    port = get_free_ports(1)[0]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0)
+    from paddle_tpu_torch.ops import fused_xent as fx
+    fx.enable_fused_xent(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    d_b, d_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
+    try:
+        program = el_program(BERT["layers_n"])
+        program_b = el_save_program(d_b, program)
+        ref, ref_params, graph_params = el_reference(torch, seed, program,
+                                                     graph=True)
+        program = el_program(DIST_LAYERS)
+        program_c = el_save_program(d_c, program)
+        fref, fref_params, _ = el_reference(torch, seed, program,
+                                            steps=EL_FLEET_STEPS)
+        del program
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    finally:
+        fx.enable_fused_xent(False)
+        tdist.destroy_process_group()
+    el_compare("(a) run_steps against eager", ref["graph_losses"],
+               graph_params, ref["losses"], ref_params)
+    del graph_params
+    record_wide("elastic_eager", ref["wide"])
+    record_wide("elastic_graph", ref["graph_wide"])
+    record_wide("elastic_fleet_reference", fref["wide"])
+    t_a = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    procs = []
+    try:
+        base = dict(dir=d_b, seed=seed, layers=BERT["layers_n"],
+                    program=program_b)
+        # (b) kill at world 2, shrink to world 1, SIGTERM mid-window: alone
+        # on the card and the host, so its step, checkpoint, restore and
+        # recovery seconds are the path's own
+        t0 = time.perf_counter()
+        p = el_launch(dict(base, tag="b1"),
+                      ["--elastic", "--max_restarts", "1",
+                       "--nproc_per_node", "2", "--selected_gpus", "0,0"],
+                      chaos=f"kill@{EL_KILL_AT}:rank=1;"
+                            f"kill@{EL_TERM_AT}:rank=0:signal=term")
+        b1_s = time.perf_counter() - t0
+        if p.returncode != 1 or "re-forming pod 2 -> 1" not in \
+                p.stderr_text or "{0: 143}" not in p.stderr_text:
+            raise AssertionError(f"(b) elastic launch: rc {p.returncode}, "
+                                 f"{p.stderr_text[-3000:]}")
+        # (c) the fleet: two hosts, host 1 lost.  Its launchers run beside
+        # (b)'s regrow launch (the phase keeps to its time), so the regrow's
+        # and the fleet's seconds are taken with the other on the card
+        t_c = time.perf_counter()
+        fbase = dict(base, dir=d_c, layers=DIST_LAYERS,
+                     program=program_c, steps=EL_FLEET_STEPS)
+        procs = [el_launch(dict(fbase, tag=f"c{h}"),
+                           ["--elastic", "--ips", "127.0.0.1,127.0.0.1",
+                            "--host_rank", str(h), "--nproc_per_node", "1",
+                            "--selected_gpus", "0", "--fleet_dir",
+                            os.path.join(d_c, "fleet"), "--member_timeout",
+                            str(EL_MEMBER_TIMEOUT)],
+                           chaos=f"lose_host@{EL_LOSE_AT}:host=1",
+                           wait=False) for h in (0, 1)]
+        # a fresh two-rank launch regrows and finishes
+        t0 = time.perf_counter()
+        p = el_launch(dict(base, tag="b2"),
+                      ["--nproc_per_node", "2", "--selected_gpus", "0,0"])
+        b2_s = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"(b) regrow launch: rc {p.returncode}, "
+                                 f"{p.stderr_text[-3000:]}")
+        w2 = [el_out(d_b, f"b1_rank{r}_r0") for r in range(2)]
+        w1 = el_out(d_b, "b1_rank0_r1")
+        rg = [el_out(d_b, f"b2_rank{r}_r0") for r in range(2)]
+        check_equal("(b) world 2 backend", w2[0]["backend"], "gloo")
+        check_equal("(b) re-formed backend and world",
+                    (w1["backend"], w1["world"]), ("nccl", 1))
+        el_check_rank(w2[0], BERT["layers_n"], [0, 1])
+        el_check_rank(w2[1], BERT["layers_n"], [0])
+        el_check_rank(w1, BERT["layers_n"], [2])
+        # the re-formed pod's last report is global step 2's (2
+        # micro-steps); its 3rd micro-step ended in the SIGTERM, whose
+        # preemption save the regrown pod resumes from, rounded down to
+        # global step 3 (the partial window replays)
+        check_equal("(b) re-formed micro-steps reported", w1["micro_steps"],
+                    2)
+        for r in rg:
+            check_equal(f"(b) {r['tag']} resumed at", r["resumed_global"],
+                        3)
+            el_check_rank(r, BERT["layers_n"], [3])
+        losses = [w2[0]["losses"]["0"], w2[0]["losses"]["1"],
+                  w1["losses"]["2"], rg[0]["losses"]["3"]]
+        final = torch.load(os.path.join(d_b, "final_b2_rank0_r0.pt"))
+        el_compare("(b) kill / shrink / regrow against (a)", losses, final,
+                   ref["losses"], ref_params)
+        del final
+        journals = read_rank_journals(os.path.join(d_b, "journal"))
+        kill_t = next(e["t"] for e in journals[1]
+                      if e["kind"] == "chaos")
+        recovery_s = w1["first_step_t"] - kill_t
+        kinds = [e["kind"] for e in journals[0]]
+        for want in ("restore_merged", "reanchor", "checkpoint_commit"):
+            if want not in kinds:
+                raise AssertionError(f"(b) rank 0's journal lacks {want}")
+        for w in w2 + [w1] + rg:
+            record_wide(f"elastic_{w['tag']}", w["wide"])
+        # readings of the kill and the shrink (b1: alone) and of the regrow
+        # (beside (c)) under names of their own
+        b = {"recovery_s": recovery_s, "elastic_launch_s": b1_s,
+             "regrow_launch_s": b2_s,
+             "world2_global_step_ms": [w2[0]["step_ms"][g]
+                                        for g in ("0", "1")],
+             "world1_global_step_ms": w1["step_ms"]["2"],
+             "regrown_world2_global_step_ms": rg[0]["step_ms"]["3"],
+             "checkpoint_barrier_s": {w["tag"]: w["barrier_s"]
+                                      for w in w2 + [w1] + rg},
+             # each rank's staged bytes a save, from the journals
+             "checkpoint_bytes": {r: sorted({e["bytes"] for e in evs
+                                             if e["kind"] ==
+                                             "checkpoint_save"})
+                                  for r, evs in journals.items()},
+             "checkpoint_train_side_s": {w["tag"]: w["checkpoint_s"]
+                                         for w in w2 + [w1] + rg},
+             "checkpoint_save_s": {w["tag"]: w.get("save_s")
+                                   for w in w2 + [w1] + rg},
+             "restore_s": {w["tag"]: w["restore_s"] for w in [w1] + rg},
+             "process_setup_s": {w["tag"]: w.get("setup_s")
+                                 for w in w2 + [w1] + rg},
+             "fold_calls_per_micro_step": w2[0]["fold_calls"],
+             "fold_gathered_bytes_per_micro_step":
+                 w2[0]["fold_gathered_bytes"],
+             "resumed_global": {"reformed": w1["resumed_global"],
+                                "regrown": rg[0]["resumed_global"]},
+             "losses": losses, "bitwise_equal": True}
+        # (c), started beside (b)'s regrow: wait for the fleet
+        try:
+            rc0 = procs[0].wait(300)
+            rc1 = procs[1].wait(60)
+        finally:
+            el_stop(procs)
+        with open(os.path.join(d_c, "launcher_c0.err")) as f:
+            err0 = f.read()
+        c_s = time.perf_counter() - t_c
+        if rc0 != 0 or rc1 != -9 or "host(s) lost [1]" not in err0:
+            raise AssertionError(f"(c) fleet: host 0 rc {rc0}, host 1 rc "
+                                 f"{rc1}: {err0[-3000:]}")
+        commit = read_commit(os.path.join(d_c, "fleet"), 1)
+        check_equal("(c) the re-formed fleet", (commit.members,
+                                                commit.world), ([0], 1))
+        h0 = el_out(d_c, "host0_e0")
+        h1 = el_out(d_c, "host1_e0")
+        hr = el_out(d_c, "host0_e1")
+        # host 1 went down inside its 4th micro-step: it reported global
+        # step 0
+        el_check_rank(h1, DIST_LAYERS, [0])
+        el_check_rank(hr, DIST_LAYERS, list(range(hr["resumed_global"],
+                                                  EL_FLEET_STEPS)))
+        check_equal("(c) restored global step", hr["resumed_global"], 2)
+        fl_losses = [h0["losses"][str(g)] for g in range(2)] + \
+            [hr["losses"][str(g)] for g in range(2, EL_FLEET_STEPS)]
+        final = torch.load(os.path.join(d_c, "final_host0_e1.pt"))
+        el_compare("(c) fleet re-form against its reference", fl_losses,
+                   final, fref["losses"], fref_params)
+        del final
+        journals = read_rank_journals(os.path.join(d_c, "journal"))
+        from paddle_tpu_torch.distributed.fleet_control import \
+            CONTROLLER_RANK_BASE
+        reforms = [e for e in journals[CONTROLLER_RANK_BASE]
+                   if e["kind"] == "reform"]
+        lose_t = next(e["t"] for e in journals.get(1, [])
+                      if e["kind"] == "chaos")
+        agreed_t = next(e["t"] for e in reforms if e["epoch"] == 1)
+        for w in (h0, h1, hr):
+            record_wide(f"elastic_fleet_{w['tag']}", w["wide"])
+        c = {"agreement_s": agreed_t - lose_t, "epoch": commit.epoch,
+             "restore_step": commit.restore_step,
+             "restored_global": hr["resumed_global"],
+             "recovery_s": hr["first_step_t"] - lose_t,
+             "fleet_launch_s": c_s, "losses": fl_losses,
+             "process_setup_s": {w["tag"]: w.get("setup_s")
+                                 for w in (h0, h1, hr)},
+             "bitwise_equal": True}
+    finally:
+        el_stop(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {
+        "elastic_eager_micro_step": {"launches": ref["launches"][-1],
+                                     "by_dtype": ref["by_dtype"][-1],
+                                     "philox_at_start": 0},
+        "elastic_graph_capturing_call": {
+            "launches": ref["capturing_launches"],
+            "by_dtype": ref["capturing_by_dtype"], "philox_at_start": 0}}
+    for w, tag in ((w2[0], "gloo_world2_rank0"),
+                   (w1, "nccl_reformed_world1"),
+                   (rg[0], "gloo_regrown_world2_rank0"),
+                   (hr, "fleet_reformed_host0")):
+        n = max(1, w["micro_steps"])
+        launches[f"elastic_{tag}_micro_step"] = {
+            "launches": {k: v // n for k, v in w["launches"].items()},
+            "by_dtype": {k: {d: c // n for d, c in v.items()}
+                         for k, v in w["by_dtype"].items()},
+            "philox_at_start": 0}
+    seconds = time.perf_counter() - t_phase
+    res = {"config": "bench.py's BERT-base AMP step (12 layers, hidden 768, "
+                     "12 heads, seq 512, vocab 30522, global batch "
+                     f"{TRAIN_BATCH}), flash + fused CE, elasticized at "
+                     f"logical dp {EL_LOGICAL} (micro-batch "
+                     f"{TRAIN_BATCH // EL_LOGICAL}), a checkpoint every "
+                     f"global step; (c) at {DIST_LAYERS} layers",
+           "a": {"losses": ref["losses"],
+                 "global_step_ms_eager": ref["global_step_ms"],
+                 "global_step_ms_replayed": ref["replayed_global_step_ms"],
+                 "phase6_replayed_amp_step_ms": GRAPH_STEP_MS.get("amp"),
+                 "folds_per_micro_step": ref["folds_per_micro_step"],
+                 "cache_stats": ref["cache_stats"],
+                 "bitwise_equal": True, "seconds": t_a},
+           "b": b, "c": c, "seconds": seconds}
+    log({"phase": "elastic", **res})
+    return {**res, "launches": launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch and one training "
                     "step")
+    ap.add_argument("--elastic-rank", metavar="CFG", default=None,
+                    help="run one launched rank of phase 16 (internal: "
+                    "the phase starts these through the launcher)")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.elastic_rank:
+        return el_rank(args.elastic_rank)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.core import kernel_build
     from paddle_tpu_torch.ops import attention as attn
     from paddle_tpu_torch.ops import dropout as dr
@@ -7130,6 +7894,15 @@ def main():
          "kind": torch.cuda.get_device_name(0),
          "count": torch.cuda.device_count()})
 
+    t_run = time.perf_counter()
+
+    def timed(name, fn, *a):
+        """fn(*a), its seconds printed on a line of their own."""
+        t = time.perf_counter()
+        out = fn(*a)
+        log({"phase_seconds": name, "seconds": time.perf_counter() - t})
+        return out
+
     t0 = time.perf_counter()
     kernel_build.build_libraries(KERNEL_SOURCES)  # one nvcc each, at once
     for name in KERNEL_SOURCES:
@@ -7141,9 +7914,10 @@ def main():
                        or "spill" in ln or "warning" in ln.lower()
                        or "Performance" in ln]})
     log({"phase": "build", "build_and_load_s": time.perf_counter() - t0})
+    log({"phase_seconds": "build", "seconds": time.perf_counter() - t0})
 
-    fwd = kernel_phase(torch, attn)
-    bwd = bwd_kernel_phase(torch, attn)
+    fwd = timed("kernel_fwd", kernel_phase, torch, attn)
+    bwd = timed("kernel_bwd", bwd_kernel_phase, torch, attn)
     # the redesigned kernels against their library yardsticks at the
     # training / serving shape (PERF.md: bf16 forward <= 2x SDPA, dQ <=
     # 0.75x and dK/dV <= 1x the whole SDPA backward, fp32 forward <= 1x
@@ -7182,31 +7956,36 @@ def main():
             ("flash_bwd_dq_tf32_split_d_fp32_d256", bwd["d256_fp32"]["dq"]),
             ("flash_bwd_dkv_tf32_split_d_fp32_d256",
              bwd["d256_fp32"]["dkv"]))}})
-    xent = xent_kernel_phase(torch, fx)
-    drop = dropout_kernel_phase(torch, dr)
-    device_names_phase(torch, attn)
-    view_copy_phase(torch, attn)
-    mha_launches = mha_route_phase(torch, attn, args.seed)
+    xent = timed("kernel_xent", xent_kernel_phase, torch, fx)
+    drop = timed("kernel_dropout", dropout_kernel_phase, torch, dr)
+    timed("kernel_device_names", device_names_phase, torch, attn)
+    timed("kernel_view_copy", view_copy_phase, torch, attn)
+    mha_launches = timed("mha_flash_route", mha_route_phase, torch, attn,
+                         args.seed)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        serve_launches = slice_phase(torch, args.seed, tmp, args.profile)
-        amp, fp32 = train_phase(torch, args.seed, args.profile)
-        graph = train_graph_phase(torch, args.seed)
-        recipe = recipe_phase(torch, args.seed)
+        serve_launches = timed("4_slice", slice_phase, torch, args.seed,
+                               tmp, args.profile)
+        amp, fp32 = timed("5_train", train_phase, torch, args.seed,
+                          args.profile)
+        graph = timed("6_train_graph", train_graph_phase, torch, args.seed)
+        recipe = timed("8_recipe", recipe_phase, torch, args.seed)
         # phase 7 serves /predict from phase 4's model beside /generate
-        gen = generate_phase(torch, args.seed,
-                             os.path.join(tmp, "bert_flash"), args.profile)
+        gen = timed("7_generate", generate_phase, torch, args.seed,
+                    os.path.join(tmp, "bert_flash"), args.profile)
         # phase 11 reads phase 4's model dir and phase 7's replies
-        remainders = remainders_phase(torch, attn, args.seed, tmp, gen)
+        remainders = timed("11_remainders", remainders_phase, torch, attn,
+                           args.seed, tmp, gen)
         del gen
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    dygraph = dygraph_phase(torch, args.seed)
-    baseline = baseline_phase(torch, args.seed)
-    breadth = breadth_phase(torch, args.seed)
-    dp = dp_phase(torch, args.seed)
-    zt = zt_phase(torch, args.seed)
-    px = px_phase(torch, args.seed)
+    dygraph = timed("9_dygraph", dygraph_phase, torch, args.seed)
+    baseline = timed("10_baseline", baseline_phase, torch, args.seed)
+    breadth = timed("12_breadth", breadth_phase, torch, args.seed)
+    dp = timed("13_data_parallel", dp_phase, torch, args.seed)
+    zt = timed("14_zero_tp", zt_phase, torch, args.seed)
+    px = timed("15_parallel_axes", px_phase, torch, args.seed)
+    el = timed("16_elastic", el_phase, torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -7298,7 +8077,7 @@ def main():
         tuple(f"px_tp_{v}" for v, _, _ in PX_TP_VARIANTS) + tuple(
             f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
             for run in runs for r in range(PX_RANKS)) + (
-            "px_hoist_hoisted", "px_hoist_unhoisted")
+            "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -7407,6 +8186,23 @@ def main():
             got = {p: extra["launches_by_path_all_dtypes"][p]
                    for p in wide_px}
         extra["phase15_launches"] = got
+    # phase 16: the same on its paths: a micro-step of (a)'s eager run
+    # and (a)'s capturing call, a micro-step of each launched rank (2
+    # gloo ranks, the re-formed NCCL world 1, the regrown ranks, the
+    # fleet's re-formed host)
+    el_paths = el["launches"]
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {p: r["by_dtype"][base].get(dt, 0)
+                   for p, r in el_paths.items()}
+        elif name in ("dropout_philox", "philox_random"):
+            got = {p: r["launches"][name] for p, r in el_paths.items()}
+        else:  # head dims above 128: over each whole path, all dtypes
+            got = {p: extra["launches_by_path_all_dtypes"][p]
+                   for p in EL_PATHS}
+        extra["phase16_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]
@@ -7422,6 +8218,7 @@ def main():
         if "fma_bound_ms" in r:
             summary[-1]["fma_bound_ms"] = r["fma_bound_ms"]
     log({"kernels": summary})
+    log({"phase_seconds": "total", "seconds": time.perf_counter() - t_run})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

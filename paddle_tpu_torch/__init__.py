@@ -20,7 +20,9 @@ BASELINE configs LeNet-5, ResNet-50 and Transformer-big
 (`models.build_lenet` / `build_resnet50` / `build_transformer_big`, on
 the conv2d, pool2d, batch_norm, relu, one_hot_v2 and label_smooth ops)
 and `vision.models` (LeNet, ResNet) on the dygraph `nn` vision layers;
-every Pallas kernel of the JAX package as a hand-written Hopper kernel
+data, ZeRO, tensor, sequence, expert and elastic parallelism over
+torch.distributed (`distributed`), with the checkpoint tier
+(`checkpoint`, `observability`, `testing.chaos`); every Pallas kernel of the JAX package as a hand-written Hopper kernel
 under csrc/.  ROADMAP.md lists what comes next.
 
 The top-level names: `seed`, `to_tensor`, `matmul`, `grad`, `no_grad`,

@@ -10,14 +10,18 @@ parallelism, dp×sp sequence parallelism, the hoisted gradient-merge
 window of `run_steps`), the commit-tail split (scan_window.py), the ZeRO
 rewrite (sharding.py) with its rule engine (partition_spec.py), the
 Megatron layers (tensor_parallel.py) and fleet's collective mode with its
-meta-optimizers (fleet/).  Ring attention lives in ops/attention.py,
-tp-sharded decode in serving/tp_decode.py and expert parallelism in
-incubate/moe.py.  The JAX package is one controller over a mesh; the
-port runs one process a rank over torch.distributed: NCCL for CUDA
-tensors where each rank has a device of its own, gloo otherwise.
+meta-optimizers (fleet/), elastic training (elastic.py: one logical
+schedule on any world that divides it, with the launcher's `--elastic`
+re-form), the multi-host fleet control plane (fleet_control.py, the
+launcher's `--fleet_dir`) and the host-side gloo rendezvous (gloo.py).
+Ring attention lives in ops/attention.py, tp-sharded decode in
+serving/tp_decode.py and expert parallelism in incubate/moe.py.  The JAX
+package is one controller over a mesh; the port runs one process a rank
+over torch.distributed: NCCL for CUDA tensors where each rank has a
+device of its own, gloo otherwise.
 
-Not ported yet (ROADMAP.md Queue 1, Distribution): elastic training and
-fleet_control, pipeline/ and the parameter-server tier.
+Not ported yet (ROADMAP.md Queue 1, Distribution): pipeline/ and the
+parameter-server tier.
 """
 from .collective import (  # noqa: F401
     ReduceOp, broadcast, all_reduce, reduce, all_gather, scatter, barrier,
@@ -44,3 +48,13 @@ from .scan_window import (  # noqa: F401
     scan_window_wire_bytes,
 )
 from . import fleet  # noqa: F401
+from .elastic import (  # noqa: F401
+    elasticize, rebucket_feeds, rederive_schedule, reanchor_topology,
+    elastic_meta, micro_steps_per_global,
+)
+from .fleet_control import (  # noqa: F401
+    FleetController, FleetBarrier, FleetCommit, fleet_env, fleet_rank,
+    fleet_world_size, newest_mutual_checkpoint_step,
+)
+from . import fleet_control  # noqa: F401
+from . import gloo  # noqa: F401

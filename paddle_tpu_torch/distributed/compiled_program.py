@@ -71,8 +71,20 @@ the JAX package's scope holds.  A scope already holding shards (the
 carry function, io.load_params_from_numpy(..., compiled=)) is synced
 within the ranks that share each shard.
 
-Not ported (ROADMAP.md Queue 1, Distribution; each raises): elastic
-programs (`_elastic_meta`) and sync_batch_norm.  The BuildStrategy knobs
+Elastic programs (distributed/elastic.py): a run is one micro-step of
+the window; K = logical_dp / W is resolved from the process group at
+each run (`_anchor_elastic`, which also re-anchors the executor's
+counters after a topology-shifted restore).  A micro-step's seed is the
+GLOBAL step's (one stream a global step) plus its logical rank j W + r,
+so every world draws alike; the folded fetches (`<loss>@ELASTIC_AVG`,
+the accumulators) are the same on every rank and are handed back as they
+are, never averaged over the ranks (that would round differently per
+world).  `run_steps` runs K micro-steps a call: one captured micro-step
+replayed under NCCL, eager steps under gloo; never hoisted.  Elastic
+programs compose with plain dp only: under sp or tp they raise.
+
+Not ported (ROADMAP.md Queue 1, Distribution; raises): sync_batch_norm.
+The BuildStrategy knobs
 the JAX package leaves to XLA (fusions, memory options,
 debug_graphviz_path) are accepted and do nothing here either.
 """
@@ -457,9 +469,20 @@ class CompiledProgram:
                 f"BuildStrategy.sync_batch_norm is not ported yet "
                 f"({_LATER})")
         if getattr(self._program, "_elastic_meta", None) is not None:
-            raise NotImplementedError(
-                f"elastic programs (elasticize) are not ported yet "
-                f"({_LATER})")
+            if int(getattr(bs, "sequence_parallel_degree", 1)) > 1:
+                raise NotImplementedError(
+                    "elastic programs (distributed/elastic.elasticize) "
+                    "compose with a dp world only; the ordered fold "
+                    "reduces ring 0's dp axis, but under dp×sp gradients "
+                    "are partial over both axes "
+                    "(sequence_parallel_degree must be 1)")
+            if int(getattr(bs, "tensor_parallel_degree", 1)) > 1:
+                # the JAX package composes elastic with dp×tp (the fold
+                # on the dp sub-axis); the port does not have that yet
+                raise NotImplementedError(
+                    f"elastic programs under tensor parallelism are not "
+                    f"ported yet (tensor_parallel_degree must be 1; "
+                    f"{_LATER})")
         if bs.fetch_aggregation not in ("reduce", "concat"):
             raise ValueError(
                 f"BuildStrategy.fetch_aggregation must be 'reduce' or "
@@ -575,7 +598,13 @@ class CompiledProgram:
                 if g is not None else t
         return out
 
-    def _aggregate(self, fetched, world, fetch_names):
+    def _holds_shards(self, names) -> bool:
+        """Whether any of the persistables `names` lives sharded (a ZeRO
+        bucket, a tp slice) rather than whole on every rank."""
+        places = self._placements(list(names))
+        return any(p != PLACE_REPLICATED for p in places.values())
+
+    def _aggregate(self, fetched, world, fetch_names, keep=()):
         """The fetches across the ranks (BuildStrategy.fetch_aggregation):
         "reduce" averages floats (others the max) over the ranks a
         gradient is partial over (world.reduce_group); "concat" gathers
@@ -585,7 +614,7 @@ class CompiledProgram:
         agg = self._build_strategy.fetch_aggregation
         out = []
         for n, v in zip(fetch_names, fetched):
-            if not isinstance(v, torch.Tensor):
+            if not isinstance(v, torch.Tensor) or n in keep:
                 out.append(v)
             elif agg == "concat":
                 if world.sp > 1:
@@ -652,15 +681,86 @@ class CompiledProgram:
             local[n] = v
         return local
 
+    # -- the elastic schedule -----------------------------------------------
+    @staticmethod
+    def _elastic_kept(elastic):
+        """The fetches an elastic step hands back as they are: the folded
+        loss and the accumulators, the same on every rank."""
+        if elastic is None:
+            return ()
+        return (elastic.get("loss_avg"),) + tuple(elastic.get("accs", ()))
+
+    def _anchor_elastic(self, executor, scope, elastic, world) -> int:
+        """K = logical_dp / W for this process group; after a
+        topology-shifted restore (which left the position in GLOBAL
+        steps) the executor's micro-step counters and the persistable
+        counter are re-anchored to it.  Returns K."""
+        n_logical = int(elastic["logical_dp"])
+        n_dev = int(world.dp)
+        if n_logical % n_dev != 0:
+            raise ValueError(
+                f"elastic logical_dp={n_logical} is not divisible by "
+                f"the mesh dp degree {n_dev}")
+        micro_k = n_logical // n_dev
+        rebase = getattr(executor, "_elastic_rebase_global", None)
+        if rebase is not None:
+            from ..observability.journal import emit as _jemit
+            _jemit("reanchor", world=int(n_dev), k=int(micro_k),
+                   global_step=int(rebase))
+            executor._step = int(rebase) * micro_k
+            executor._elastic_steps = int(rebase) * micro_k
+            cnt = scope.get(elastic["counter"])
+            scope.set(elastic["counter"], torch.full(
+                (1,), int(rebase) * micro_k, dtype=torch.int32,
+                device=cnt.device if cnt is not None else executor.device))
+            executor._elastic_rebase_global = None
+        executor._last_elastic_world = n_dev
+        executor._last_elastic_k = micro_k
+        return micro_k
+
+    @staticmethod
+    def _elastic_seed(program, executor, micro_k, world, i=0) -> int:
+        """The seed of elastic micro-step `_elastic_steps + i` on this rank:
+        the global step's seed plus the logical rank j W + r (j the
+        micro-step within the window), as the JAX package draws."""
+        e = executor._elastic_steps + i
+        base = (int(program.random_seed) * 1000003 + e // micro_k) \
+            % (2 ** 31)
+        return (base + (e % micro_k) * world.dp + world.dp_index) \
+            % (2 ** 32)
+
+    def _chaos_dispatch(self, executor, program):
+        """The chaos collective-failure hook before a training dispatch
+        (step numbering as the kill hook's: the n-th training run)."""
+        from ..testing import chaos as _chaos
+        if not _chaos.enabled():
+            return
+        from ..static.executor import _training_cached
+        if _training_cached(program):
+            _chaos.collective_hook(executor._train_runs + 1)
+
     # -- Executor.run / run_steps ------------------------------------------
     def _run(self, executor, feed, fetch_list, scope, return_numpy):
         from ..static.executor import global_scope, as_numpy, _fetch_names
         scope = scope or global_scope()
         program, world = self._prepare(scope)
         local = self._local_feed(program, feed or {}, world)
+        elastic = getattr(program, "_elastic_meta", None)
+        self._chaos_dispatch(executor, program)
+        fetch_names = _fetch_names(fetch_list)
         with world.bind():
-            fetched = self._step(executor, program, local, _fetch_names(
-                fetch_list), scope, world)
+            if elastic is None:
+                fetched = self._step(executor, program, local, fetch_names,
+                                     scope, world)
+            else:
+                k = self._anchor_elastic(executor, scope, elastic, world)
+                fetched = executor._run_program(
+                    program, local, fetch_names, scope,
+                    self._elastic_seed(program, executor, k, world))
+                executor._step += 1
+                executor._elastic_steps += 1
+                fetched = self._aggregate(fetched, world, fetch_names,
+                                          keep=self._elastic_kept(elastic))
         return as_numpy(fetched) if return_numpy else fetched
 
     def _run_local(self, executor, local, fetch_names, scope):
@@ -721,11 +821,14 @@ class CompiledProgram:
         from ..static.executor import _persistable_names
         program, world = self._prepare(scope)
         local = self._local_feed(program, stacked, world, axis_offset=1)
+        elastic = getattr(program, "_elastic_meta", None)
+        if elastic is not None:
+            return self._run_elastic_steps(executor, program, world, local,
+                                           k, fetch_names, scope, elastic)
         split = self._hoist_split(program, k, fetch_names, scope)
         self._last_hoisted = split is not None
-        import torch.distributed as dist
-        gloo = world.whole is not None and \
-            dist.get_backend(world.whole) == "gloo"
+        self._chaos_dispatch(executor, program)
+        gloo = self._gloo(world)
         with world.bind():
             if executor.device.type == "cuda" and not gloo:
                 agg = self._build_strategy.fetch_aggregation
@@ -751,5 +854,46 @@ class CompiledProgram:
                 if split is not None and (i + 1) % split.k == 0:
                     # the commit: no feeds, no fetches, no draws
                     executor._run_program(split.tail, {}, [], scope, 0)
+        return [torch.stack([s[j] for s in steps])
+                for j in range(len(fetch_names))]
+
+    @staticmethod
+    def _gloo(world) -> bool:
+        import torch.distributed as dist
+        return world.whole is not None and \
+            dist.get_backend(world.whole) == "gloo"
+
+    def _run_elastic_steps(self, executor, program, world, local, k,
+                           fetch_names, scope, elastic):
+        """K elastic micro-steps (any K; a whole window when K is the
+        program's): one captured micro-step replayed K times under NCCL
+        (or on one CUDA device), each replay with its micro-step's seed;
+        K eager steps under gloo and on the CPU.  Bitwise the looped
+        `run` form."""
+        self._last_hoisted = False
+        self._chaos_dispatch(executor, program)
+        keep = self._elastic_kept(elastic)
+        with world.bind():
+            micro_k = self._anchor_elastic(executor, scope, elastic, world)
+            seeds = [self._elastic_seed(program, executor, micro_k, world, i)
+                     for i in range(k)]
+            if executor.device.type == "cuda" and not self._gloo(world):
+                agg = self._build_strategy.fetch_aggregation
+                out = executor._replay_steps(
+                    program, local, k, fetch_names, scope, seeds=seeds,
+                    finish=lambda f: self._aggregate(f, world, fetch_names,
+                                                     keep=keep),
+                    key_extra=("elastic", agg, world.size))
+                executor._elastic_steps += k
+                return out
+            steps = []
+            for i in range(k):
+                fetched = executor._run_program(
+                    program, {n: v[i] for n, v in local.items()},
+                    fetch_names, scope, seeds[i])
+                executor._step += 1
+                executor._elastic_steps += 1
+                steps.append(self._aggregate(fetched, world, fetch_names,
+                                             keep=keep))
         return [torch.stack([s[j] for s in steps])
                 for j in range(len(fetch_names))]

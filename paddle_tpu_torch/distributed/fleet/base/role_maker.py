@@ -5,9 +5,10 @@ collective role: PaddleCloudRoleMaker reads PADDLE_TRAINER_ID and
 PADDLE_TRAINER_ENDPOINTS (the launcher's contract); UserDefinedRoleMaker
 takes them as arguments.  The parameter-server roles (TRAINING_ROLE=
 PSERVER, server endpoints) are not ported (ROADMAP.md Queue 1,
-Distribution) and raise.  Barrier and all-gather go through
-torch.distributed when a process group is initialised (a world of one
-otherwise).
+Distribution) and raise.  Barrier and all-gather go through the gloo
+rendezvous store (distributed/gloo.py) when the launcher configured one
+(PADDLE_GLOO_RENDEZVOUS), else through torch.distributed when a process
+group is initialised (a world of one otherwise).
 """
 from __future__ import annotations
 
@@ -85,11 +86,27 @@ class RoleMakerBase:
         return (self.worker_index() if self.is_worker()
                 else self.server_index())
 
+    # cached per instance: each role maker has its own role, and the env
+    # may be set after an earlier role maker was made
+    def _get_gloo(self):
+        if not getattr(self, "_gloo_checked", False):
+            from ...gloo import gloo_from_env
+            self._gloo = gloo_from_env("worker")
+            self._gloo_checked = True
+        return self._gloo
+
     def _barrier(self, comm_world=None):
+        g = self._get_gloo()
+        if g is not None:
+            g.barrier(comm_world or "worker")
+            return
         from .util_factory import UtilBase
         UtilBase().barrier()
 
     def _all_gather(self, input, comm_world=None):
+        g = self._get_gloo()
+        if g is not None:
+            return g.all_gather(input, comm_world or "worker")
         from .util_factory import UtilBase
         return UtilBase().all_gather(input)
 

@@ -36,8 +36,21 @@ executor's rule: an input may be a scope buffer a captured step reads).
 
 The sync, wait and comm-init ops are no-ops: torch.distributed orders
 the collectives on the streams itself and forms its communicators at
-`init_process_group`.  The point-to-point and elastic ops raise: they
-belong to later slices.
+`init_process_group`.  The point-to-point ops raise: they belong to a
+later slice.
+
+The elastic schedule's two ops (distributed/elastic.py):
+elastic_commit_mask is True where the post-increment micro-step counter
+completes a window of K = logical_dp / world micro-steps (the world is
+ring 0's group, 1 off a process group); c_elastic_fold gathers every
+rank's value and continues an explicit left fold from the accumulator,
+`a + b` in rank order, one add at a time (never a library reduction,
+whose order the library picks), so micro-step j of a world of M adds
+logical ranks jM .. jM+M-1 and a whole window adds every rank of the
+logical world in the same order for every M.  With `pre_reduced` X is
+already a reduce-scattered shard and is added without a gather.  Under
+NCCL the gather is NCCL's all-gather (capturable); under gloo it goes
+through a host copy.
 
 The tensor-parallel ops (distributed/tensor_parallel.py's Megatron
 layers) run on the group of their ring (TP_RING_ID, 102, under a
@@ -582,7 +595,40 @@ def _later(name, ins_spec, outs_spec):
 for _name, _ins, _outs in (
         ("p_send", ["X"], ["Out?"]),
         ("p_recv", ["X"], ["Out"]),
-        ("partial_allgather", ["X"], ["Out"]),
-        ("elastic_commit_mask", ["X"], ["Out"]),
-        ("c_elastic_fold", ["X", "Acc"], ["Out"])):
+        ("partial_allgather", ["X"], ["Out"])):
     _later(_name, _ins, _outs)
+
+
+@register_op("elastic_commit_mask", inputs=["X"], outputs=["Out"],
+             grad=None, side_effect=True)
+def elastic_commit_mask(ins, attrs, ctx):
+    """True when the post-increment micro-step counter completes a window
+    of K = logical_dp / world micro-steps; off a process group the world
+    is 1 and one process walks all N logical micro-steps."""
+    cnt = ins["X"]
+    n = int(attrs["logical_dp"])
+    m = world_of(ring_group(attrs.get("ring_id", 0)))
+    if m < 1 or n % m != 0:
+        raise ValueError(
+            f"elastic logical_dp={n} is not divisible by the mesh dp "
+            f"degree {m}; an elastic mesh must be a divisor of the "
+            "logical world")
+    return {"Out": torch.remainder(cnt, n // m) == 0}
+
+
+@register_op("c_elastic_fold", inputs=["X", "Acc"], outputs=["Out"],
+             grad=None, side_effect=True)
+def c_elastic_fold(ins, attrs, ctx):
+    """acc + x_0 + x_1 + ... + x_{M-1}, added one at a time in rank order
+    (the values gathered over ring 0); acc + x off a process group and
+    with `pre_reduced` (X already a reduce-scattered shard)."""
+    x, acc = ins["X"], ins["Acc"]
+    group = ring_group(attrs.get("ring_id", 0))
+    if attrs.get("pre_reduced") or group is None:
+        return {"Out": acc + x}
+    _count_op("c_elastic_fold")
+    gathered = gather_rows(x.unsqueeze(0), group)
+    out = acc
+    for i in range(gathered.shape[0]):
+        out = out + gathered[i]
+    return {"Out": out}

@@ -56,12 +56,29 @@ collectives run on the host and cannot be captured, it runs the K steps
 eagerly, one `run` each, as on the CPU.  Neither takes the other's
 place: a failed NCCL capture raises.
 
-Not ported yet: checkpoint hooks, per-step telemetry (later slices,
-ROADMAP.md).
+Checkpointing (checkpoint/, as in the JAX package): `enable_checkpointing
+(manager, every_n_steps=...)` snapshots the persistables of the training
+program (parameters and optimizer state), the executor step, the RNG
+state and the sidecars a world change needs (the ZeRO plan, the elastic
+schedule position, the gradient-merge counter) every N steps, after a
+`run` or a whole `run_steps` call (so a replayed window is snapshotted at
+its boundary only), and hands them to the manager's async writer.
+`restore_from_checkpoint` loads the newest valid step, converts a ZeRO
+layout to the target program's plan, and re-derives the elastic and
+gradient-merge schedules for the world and program it resumes in.
+`run_prefetched` drives `run` from a feed iterator whose placement rides
+a worker thread (reader/prefetcher.py); its position rides the snapshot.
+Every training run also counts toward the chaos fault injector's step
+index (testing/chaos.py), beats the rank's heartbeat and writes a `step`
+journal event when those are armed (observability/).  The rest of the
+JAX executor's per-step telemetry (tokens/s, MFU, HBM gauges) is not
+ported (ROADMAP.md Queue 1, The rest).
 """
 from __future__ import annotations
 
 import threading
+import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -73,6 +90,7 @@ from ..core.monitor import stat_add
 from ..core.place import Place, resolve_place
 from ..core.program import Program, default_main_program
 from ..ops.registry import get_op_info, OpContext
+from ..testing import chaos as _chaos
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
 
@@ -180,6 +198,71 @@ def _run_op(op, env: Dict[str, Any], ctx: OpContext):
                     env[n] = v
         elif names[0]:
             env[names[0]] = val
+
+
+_OPTIMIZER_OP_TYPES = frozenset(
+    ("sgd", "momentum", "adam", "adamw", "adagrad", "rmsprop", "lamb",
+     "lars_momentum", "dgc_momentum", "ftrl", "adamax", "adadelta"))
+
+
+def _is_training(program: Program) -> bool:
+    """A program that updates state: has backward or optimizer ops (the
+    training program, not a startup or an eval program)."""
+    return any(op.type.endswith("_grad") or op.type in _OPTIMIZER_OP_TYPES
+               for b in program.blocks for op in b.ops)
+
+
+def _training_cached(program: Program) -> bool:
+    cached = getattr(program, "_chaos_is_training", None)
+    if cached is None:
+        cached = isinstance(program, Program) and _is_training(program)
+        program._chaos_is_training = cached
+    return cached
+
+
+def _unwrap_program(program):
+    """The Program under a CompiledProgram (or the Program itself)."""
+    if program is None or isinstance(program, Program):
+        return program
+    return getattr(program, "_program", program)
+
+
+def _is_startup(program: Program) -> bool:
+    """The startup program: marked by program_guard, else every op an
+    initializer."""
+    if program._role is not None:
+        return program._role == "startup"
+    init_types = {"fill_constant", "uniform_random", "gaussian_random",
+                  "truncated_gaussian_random", "assign_value", "eye",
+                  "c_broadcast", "broadcast", "seed", "range", "linspace"}
+    ops = program.global_block().ops
+    return len(ops) > 0 and all(op.type in init_types for op in ops)
+
+
+class _CkptHook:
+    """Periodic-checkpoint registration (enable_checkpointing): `program`
+    is latched onto the first training program run when None; `compiled`
+    is the CompiledProgram it last ran through (its global_state gathers a
+    sharded scope); `run_scope` the scope it last ran in; `last` the
+    executor step of the latest save."""
+
+    __slots__ = ("manager", "program", "every", "scope", "last",
+                 "run_scope", "compiled")
+
+    def __init__(self, manager, program, every, scope, last):
+        self.manager, self.program, self.every = manager, program, every
+        self.scope, self.last = scope, last
+        self.run_scope = None
+        self.compiled = None
+
+
+def _to_tensor(value, device) -> torch.Tensor:
+    """A restored value (a CPU tensor, or a numpy array from a layout
+    conversion) as a tensor on `device`, owning its memory."""
+    if not isinstance(value, torch.Tensor):
+        a = np.asarray(value)
+        value = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
+    return value.to(device, copy=True)
 
 
 def _fetch_names(fetch_list) -> List[str]:
@@ -290,20 +373,86 @@ class Executor:
         self._step = 0
         self._graphs: Dict[Tuple, _StepGraph] = {}
         self._stats = {"hits": 0, "misses": 0, "traces": 0}
+        # training runs only (run_steps calls count once): the chaos step
+        # index, "kill@<n>" meaning after the n-th training run
+        self._train_runs = 0
+        # elastic micro-steps run (elastic CompiledProgram runs only, so
+        # global step = _elastic_steps // K survives startup/eval runs)
+        self._elastic_steps = 0
+        self._last_elastic_k = 1
+        self._last_elastic_world = 1
+        self._elastic_rebase_global = None
+        self._ckpt: Optional[_CkptHook] = None
+        self._ckpt_barrier = None
+        self._active_prefetcher = None
+        self.last_restored_extra = None  # the sidecar of the last resume
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         program = program if program is not None else default_main_program()
+        t0 = time.perf_counter()
         if _is_compiled(program):
-            return program._run(self, feed, fetch_list, scope, return_numpy)
+            results = program._run(self, feed, fetch_list, scope,
+                                   return_numpy)
+            self._after_train_run(program, scope or global_scope(),
+                                  time.perf_counter() - t0, 1)
+            return results
         scope = scope or global_scope()
-        fetched = self._run_program(program, feed or {},
-                                    _fetch_names(fetch_list), scope,
-                                    self._seed_for_step(program))
-        self._step += 1
+        if not _is_startup(program):
+            from ..incubate.checkpoint.auto_checkpoint import \
+                _auto_checkpoint
+            _auto_checkpoint(self, program)
+        fetched = self._run_one(program, feed or {},
+                                _fetch_names(fetch_list), scope)
+        self._after_train_run(program, scope, time.perf_counter() - t0, 1)
         if return_numpy:
             return [as_numpy(f) for f in fetched]
         return fetched
+
+    def _run_one(self, program, feed, fetch_names, scope):
+        """One step of a Program (no hooks): the fetched tensors."""
+        fetched = self._run_program(program, feed, fetch_names, scope,
+                                    self._seed_for_step(program))
+        self._step += 1
+        return fetched
+
+    def _after_train_run(self, program, scope, dt, steps):
+        """The hooks of a finished run / run_steps call: telemetry (the
+        heartbeat and the journal's step event), the periodic checkpoint
+        and the chaos step, each for training programs only."""
+        training = _training_cached(_unwrap_program(program))
+        if training:
+            self._observe_step(dt, steps)
+        self._maybe_checkpoint(program, scope)
+        if training:
+            self._chaos_step()
+
+    def _observe_step(self, dt, steps):
+        """One heartbeat and one `step` journal event (each a no-op when
+        unarmed); the metrics sidecar starts at the first training step
+        where PADDLE_TPU_METRICS_PORT is set.  Telemetry never fails a
+        run: an error here skips the observation."""
+        try:
+            from ..observability import heartbeat as _hb
+            from ..observability import journal as _journal
+            from ..observability.sidecar import maybe_start_from_env
+            maybe_start_from_env()
+            step_ms = round(dt * 1e3 / max(1, steps), 3)
+            stat_add("train.steps", steps)
+            _hb.maybe_beat(self._step, wall_ms=step_ms)
+            if _journal.journal_enabled():
+                ev = {"step": self._step, "wall_ms": step_ms}
+                if steps > 1:
+                    ev["micro_steps"] = steps
+                _journal.emit("step", **ev)
+        except Exception:
+            pass
+
+    def _chaos_step(self):
+        if not _chaos.enabled():
+            return
+        self._train_runs += 1
+        _chaos.step_hook(self._train_runs)
 
     def _run_program(self, program, feed, fetch_names, scope, seed):
         """One step of `program` with the step seed `seed`: the fetched
@@ -364,6 +513,7 @@ class Executor:
                     f"feed {n!r} leading (steps) dim {v.shape[0]} != {k}")
         if k == 0:
             raise ValueError("run_steps feeds have 0 steps")
+        t0 = time.perf_counter()
         if compiled is not None:
             fetched = compiled._run_steps(self, stacked, k, fetch_names,
                                           scope)
@@ -371,8 +521,9 @@ class Executor:
             fetched = self._replay_steps(program, stacked, k, fetch_names,
                                          scope)
         else:
-            steps = [self.run(program, {n: v[i] for n, v in stacked.items()},
-                              fetch_names, scope, return_numpy=False)
+            steps = [self._run_one(program,
+                                   {n: v[i] for n, v in stacked.items()},
+                                   fetch_names, scope)
                      for i in range(k)]
             fetched = [torch.stack([s[j] for s in steps])
                        for j in range(len(fetch_names))]
@@ -380,7 +531,367 @@ class Executor:
             _flags.flag("check_nan_inf", False) else None
         if _flags.flag("check_nan_inf", False):
             _check_nan_inf(program, fetch_names, arrays, scope, k)
+        self._after_train_run(compiled if compiled is not None else program,
+                              scope, time.perf_counter() - t0, k)
         return arrays if return_numpy else fetched
+
+    # -- the prefetch-driven step loop ------------------------------------
+    def run_prefetched(self, program, feeds, fetch_list=None, scope=None,
+                       return_numpy=True, prefetch_depth=2):
+        """Generator over `feeds` (an iterable of feed dicts) whose
+        placement on the executor's device rides a worker thread
+        (reader/prefetcher.py) while the previous batch computes.  Yields
+        each step's fetch list; a checkpoint taken meanwhile records the
+        batches consumed (`extra["dataset_position"]`)::
+
+            for out in exe.run_prefetched(main, batches, fetch_list=[loss]):
+                ...
+        """
+        from ..reader.prefetcher import Prefetcher
+        pf = Prefetcher(feeds, depth=prefetch_depth, device=self.device)
+        self._active_prefetcher = pf
+        try:
+            for feed in pf:
+                yield self.run(program, feed=feed, fetch_list=fetch_list,
+                               scope=scope, return_numpy=return_numpy)
+        finally:
+            self._active_prefetcher = None
+            pf.close()
+
+    # -- checkpointing (checkpoint/) ---------------------------------------
+    def enable_checkpointing(self, manager, program=None, every_n_steps=100,
+                             scope=None, barrier=None):
+        """Periodic async checkpoints of `program`'s persistable state.
+
+        After every run() / run_steps() that advances the executor step
+        across an ``every_n_steps`` boundary, the persistables (params AND
+        optimizer accumulators), the executor step and the RNG state are
+        snapshotted and handed to `manager`.  Also registers the manager's
+        preemption state provider (CheckpointManager.
+        install_preemption_handler).
+
+        With ``program=None`` the hook binds to the first TRAINING program
+        run after enabling; startup and eval programs neither trigger
+        saves nor hijack the snapshot.  With a ``world_size > 1`` manager,
+        `barrier` (e.g. ``paddle_tpu_torch.distributed.barrier``) lets the
+        hook publish each staged checkpoint during the run: save → wait →
+        barrier → rank-0 commit.  Without one, stages stay pending until
+        the next rank-0 startup recovers them."""
+        if every_n_steps < 1:
+            raise ValueError("every_n_steps must be >= 1")
+        self._ckpt = _CkptHook(manager=manager, program=program,
+                               every=int(every_n_steps), scope=scope,
+                               last=self._step)
+        self._ckpt_barrier = barrier
+        if getattr(manager, "world_size", 1) > 1 and barrier is None:
+            warnings.warn(
+                "multi-host CheckpointManager without barrier=: periodic "
+                "checkpoints are only STAGED during the run and get "
+                "committed at the next rank-0 startup; pass barrier= "
+                "(e.g. paddle_tpu_torch.distributed.barrier) to publish "
+                "them as training goes", RuntimeWarning, stacklevel=2)
+
+        def _provider():
+            # the preemption save runs in a signal handler: no collective
+            # there (the peers are not in it), so a sharded scope is saved
+            # as this rank's shards
+            hook = self._ckpt
+            prog = (hook.program if hook else None) or program
+            sc = (hook.scope or hook.run_scope) if hook else scope
+            return self.checkpoint_snapshot(prog, sc)
+
+        manager.set_state_provider(_provider)
+
+    def disable_checkpointing(self):
+        if self._ckpt is not None:
+            self._ckpt.manager.set_state_provider(None)
+        self._ckpt = None
+
+    def checkpoint_snapshot(self, program=None, scope=None, compiled=None):
+        """(step, state, extra) for CheckpointManager.save: the persistable
+        scope values, the executor step, the RNG state and the sidecars
+        of a world change (ZeRO plan, elastic schedule, gradient merge,
+        dataset position).  `program` may be a CompiledProgram; with one
+        (or `compiled=`) whose scope holds shards, the state is its
+        `global_state` (a collective: every rank must snapshot)."""
+        program = program or default_main_program()
+        if compiled is None and _is_compiled(program):
+            compiled = program
+        program = _unwrap_program(program)
+        scope = scope or global_scope()
+        names = [n for n in _persistable_names(program)
+                 if scope.get(n) is not None]
+        if compiled is not None and compiled._world is not None and \
+                compiled._world.size > 1 and compiled._holds_shards(names):
+            state = compiled.global_state(scope, names)
+        else:
+            state = {n: scope.get(n) for n in names}
+        from ..core.generator import get_rng_state
+        extra = {"executor_step": self._step, "rng": get_rng_state(),
+                 "program_fingerprint": program.fingerprint()}
+        plan = getattr(program, "_zero_shard_plan", None)
+        if plan is not None and getattr(plan, "buckets", None):
+            extra["zero_shard_plan"] = plan.to_dict()
+            extra["dp_degree"] = int(plan.dp_degree)
+        el = getattr(program, "_elastic_meta", None)
+        if el is not None:
+            cnt = scope.get(el["counter"])
+            extra["elastic"] = {
+                "logical_dp": int(el["logical_dp"]),
+                "k": int(self._last_elastic_k),
+                "world": int(self._last_elastic_world),
+                "counter": el["counter"], "accs": list(el["accs"]),
+                # the program's persistable micro counter is the
+                # authoritative schedule position
+                "counter_value": int(cnt.reshape(-1)[0])
+                if cnt is not None else self._elastic_steps}
+        gm = getattr(program, "_gm_meta", None)
+        if gm is not None:
+            extra["gradient_merge"] = dict(gm)
+        pf = self._active_prefetcher
+        if pf is not None:
+            extra["dataset_position"] = pf.position
+        return self._step, state, extra
+
+    def _maybe_checkpoint(self, program, scope):
+        hook = self._ckpt
+        if hook is None:
+            return
+        run_p = _unwrap_program(program)
+        if hook.program is None:
+            if not (isinstance(run_p, Program) and _training_cached(run_p)):
+                return
+            hook.program = run_p
+        if run_p is not _unwrap_program(hook.program):
+            return
+        hook.run_scope = scope
+        if _is_compiled(program):
+            hook.compiled = program
+        if self._step - hook.last < hook.every:
+            return
+        step, state, extra = self.checkpoint_snapshot(
+            hook.program, hook.scope or scope, compiled=hook.compiled)
+        hook.manager.save(step, state, extra=extra)
+        if getattr(hook.manager, "world_size", 1) > 1 and \
+                self._ckpt_barrier is not None:
+            # every rank staged and fsync'd, then rank 0 publishes
+            hook.manager.wait()
+            self._ckpt_barrier()
+            hook.manager.commit(step)
+        hook.last = self._step
+
+    def restore_from_checkpoint(self, manager, program=None, scope=None,
+                                step=None, world=None,
+                                on_mismatch="convert"):
+        """Auto-resume: load the newest VALID checkpoint (the manager skips
+        corrupt ones), write the state into the scope on this executor's
+        device, and restore the executor step and RNG state so the step
+        seeds replay.  Returns the restored step, or None when the root
+        holds no checkpoint.
+
+        A fingerprint mismatch with `program` (a CompiledProgram or a
+        Program) is a topology shift: a ZeRO layout is converted through
+        ``unshard_state`` → ``reshard_state`` for the target plan; an
+        elastic program's micro-step counter and executor step are
+        re-derived for K = logical_dp / `world` (default: this process's
+        world; the CompiledProgram re-anchors for its own group at its
+        first run); a gradient-merge counter is re-denominated for the
+        target k.  ``on_mismatch``: "convert" (default), "error" (raise
+        CheckpointError on an unconvertible mismatch) or "warn".  The
+        sidecar stays on ``self.last_restored_extra``; its
+        ``dataset_position`` is where the feed source resumes."""
+        if on_mismatch not in ("convert", "error", "warn"):
+            raise ValueError(
+                f"on_mismatch must be 'convert', 'error' or 'warn', "
+                f"got {on_mismatch!r}")
+        import inspect
+        load_kwargs = {"step": step}
+        try:
+            if "on_mismatch" in inspect.signature(
+                    manager.load).parameters:
+                load_kwargs["on_mismatch"] = on_mismatch
+        except (TypeError, ValueError):
+            pass
+        ckpt = manager.load(**load_kwargs)
+        if ckpt is None:
+            self.last_restored_extra = None
+            return None
+        scope = scope or global_scope()
+        compiled = program if program is not None and \
+            _is_compiled(program) else None
+        extra = dict(ckpt.extra)
+        state = dict(ckpt.state)
+        target = _unwrap_program(program) if program is not None else None
+        saved_fp = extra.get("program_fingerprint")
+        if target is not None and saved_fp is not None and \
+                target.fingerprint() != saved_fp:
+            state = self._convert_topology_shift(
+                state, extra, target, on_mismatch)
+        for name, val in state.items():
+            scope.set(name, _to_tensor(val, self.device))
+        if compiled is not None:
+            # the scope holds global arrays now: the next run re-syncs and
+            # cuts them to this rank's shards
+            compiled._synced.discard(scope)
+        self._step = int(extra.get("executor_step", ckpt.step))
+        self._rederive_elastic(target, scope, extra, world)
+        self._rederive_gradient_merge(target, scope, extra)
+        if self._ckpt is not None:
+            # the next run must not re-save the state just loaded
+            self._ckpt.last = self._step
+        if "rng" in extra:
+            from ..core.generator import set_rng_state
+            set_rng_state(extra["rng"])
+        self.last_restored_extra = dict(extra)
+        from ..observability.journal import emit as _jemit
+        _jemit("restore", step=int(ckpt.step),
+               executor_step=int(self._step),
+               global_step=extra.get("global_step"))
+        return ckpt.step
+
+    def _convert_topology_shift(self, state, extra, target, on_mismatch):
+        """Fingerprint mismatch triage: convert ZeRO layouts when the plans
+        are recorded, otherwise warn (or raise under 'error')."""
+        saved_plan = extra.get("zero_shard_plan")
+        tgt_plan = getattr(target, "_zero_shard_plan", None)
+        if tgt_plan is not None and not getattr(tgt_plan, "buckets", None):
+            tgt_plan = None
+        if saved_plan or tgt_plan is not None:
+            from ..distributed.sharding import (reshard_state,
+                                                unshard_state)
+            src_dp = (saved_plan or {}).get("dp_degree", 1)
+            tgt_dp = tgt_plan.dp_degree if tgt_plan is not None else 1
+            try:
+                converted = state
+                if saved_plan:
+                    converted = unshard_state(converted, saved_plan)
+                if tgt_plan is not None:
+                    converted = reshard_state(converted, tgt_plan)
+            except (ValueError, KeyError) as e:
+                if on_mismatch == "error":
+                    from ..checkpoint import CheckpointError
+                    raise CheckpointError(
+                        "fingerprint mismatch is not a pure ZeRO-1 "
+                        f"shard-count change (layout conversion failed: "
+                        f"{e}) — refusing the chimera restore "
+                        "(on_mismatch='error')") from e
+                warnings.warn(
+                    "restoring a checkpoint saved from a DIFFERENT "
+                    f"program (fingerprint mismatch): ZeRO-1 layout "
+                    f"conversion dp={src_dp} -> dp={tgt_dp} FAILED "
+                    f"({e}); loading the unconverted state — resumed "
+                    "training may diverge (pass on_mismatch='error' "
+                    "to refuse)", RuntimeWarning, stacklevel=3)
+                return state
+            state = converted
+            missing = [n for n in _persistable_names(target)
+                       if n not in state]
+            if missing:
+                if on_mismatch == "error":
+                    from ..checkpoint import CheckpointError
+                    raise CheckpointError(
+                        "fingerprint mismatch is not a pure ZeRO-1 "
+                        "shard-count change: after layout conversion "
+                        f"the checkpoint still lacks {missing[:8]}"
+                        f"{'...' if len(missing) > 8 else ''} — "
+                        "refusing the chimera restore "
+                        "(on_mismatch='error')")
+                warnings.warn(
+                    "restoring a checkpoint saved from a DIFFERENT "
+                    "program (fingerprint mismatch): converted the "
+                    f"ZeRO-1 layout dp={src_dp} -> dp={tgt_dp}, but "
+                    f"{len(missing)} target vars are still absent and "
+                    "keep their fresh-init values — resumed training "
+                    "may diverge (pass on_mismatch='error' to refuse)",
+                    RuntimeWarning, stacklevel=3)
+                return state
+            warnings.warn(
+                "restoring a checkpoint saved from a DIFFERENT program "
+                "(fingerprint mismatch): automatically converted the "
+                f"ZeRO-1 optimizer-state layout dp={src_dp} -> "
+                f"dp={tgt_dp} (unshard_state -> reshard_state); "
+                "training resumes on the re-bucketed state",
+                RuntimeWarning, stacklevel=3)
+            return state
+        if on_mismatch == "error":
+            from ..checkpoint import CheckpointError
+            raise CheckpointError(
+                "checkpoint program fingerprint does not match the "
+                "target program and no recorded sharding plan makes the "
+                "difference convertible; pass on_mismatch='warn' to "
+                "force the (diverging) chimera restore")
+        warnings.warn(
+            "restoring a checkpoint saved from a DIFFERENT "
+            "program (fingerprint mismatch): vars absent from "
+            "the checkpoint keep their fresh-init values and "
+            "orphan checkpoint vars are still written — resumed "
+            "training may diverge from the original run "
+            "(pass on_mismatch='error' to refuse chimera loads)",
+            RuntimeWarning, stacklevel=3)
+        return state
+
+    def _rederive_elastic(self, target, scope, extra, world):
+        """The elastic schedule position in the new world's denomination:
+        K = logical_dp / `world` (default: this process's world)."""
+        el_meta = getattr(target, "_elastic_meta", None) \
+            if target is not None else None
+        if el_meta is None or "elastic" not in extra:
+            return
+        from ..distributed.elastic import rederive_schedule, _world_now
+        new_world = int(world) if world else _world_now()
+        red = rederive_schedule(extra, new_world)
+        if red is None:
+            return
+        self._step = red["executor_step"]
+        self._elastic_steps = red["executor_step"]
+        self._last_elastic_k = red["k_new"]
+        self._last_elastic_world = new_world
+        # a CompiledProgram re-anchors for its ACTUAL group on its first run
+        self._elastic_rebase_global = red["global_step"]
+        scope.set(el_meta["counter"], torch.full(
+            (1,), red["counter_value"], dtype=torch.int32,
+            device=self.device))
+        if red["replayed_micro"]:
+            for acc in el_meta["accs"]:
+                v = scope.get(acc)
+                if v is not None:
+                    scope.set(acc, torch.zeros_like(v))
+        if "dataset_position" in extra:
+            # GLOBAL batches, the unit rebucket_feeds consumes
+            extra["dataset_position"] = red["global_batches_consumed"]
+        extra["global_step"] = red["global_step"]
+
+    def _rederive_gradient_merge(self, target, scope, extra):
+        """gradient_merge counter k_old -> k_new (a mid-window position
+        rounds down to the last commit; that window replays)."""
+        tgt_gm = getattr(target, "_gm_meta", None) \
+            if target is not None else None
+        saved_gm = extra.get("gradient_merge")
+        if tgt_gm is None or not saved_gm:
+            return
+        k_old = max(1, int(saved_gm.get("k", 1)))
+        k_new = max(1, int(tgt_gm.get("k", 1)))
+        same_names = saved_gm.get("counter") == tgt_gm.get("counter")
+        if k_old == k_new and same_names:
+            return
+        cnt = scope.get(saved_gm.get("counter")) \
+            if saved_gm.get("counter") else None
+        old_count = int(cnt.reshape(-1)[0]) if cnt is not None else 0
+        commits, j = divmod(old_count, k_old)
+        if j:
+            warnings.warn(
+                f"gradient_merge resume mid-window (micro {j}/{k_old}): "
+                f"rounding down to commit {commits}; the partial window "
+                "replays and its accumulators are reset", RuntimeWarning,
+                stacklevel=3)
+        scope.set(tgt_gm["counter"], torch.full(
+            (1,), commits * k_new, dtype=torch.int32, device=self.device))
+        for acc in tgt_gm.get("accs", []):
+            v = scope.get(acc)
+            if v is not None and (j or not same_names):
+                scope.set(acc, torch.zeros_like(v))
+        if "dataset_position" in extra:
+            extra["dataset_position"] = commits * k_new
 
     def cache_stats(self) -> Dict[str, int]:
         """The step-graph cache of this executor: `hits`, `misses` and
@@ -432,18 +943,22 @@ class Executor:
         _count_replayed(entry.comm)
 
     def _replay_steps(self, program, stacked, k, fetch_names, scope,
-                      seed_of=None, finish=None, key_extra=()):
+                      seed_of=None, finish=None, key_extra=(), seeds=None):
         """K replays of one captured step.  `seed_of` maps each step's
-        seed to this rank's (a data-parallel rank's); `finish(fetches)`
-        runs inside the captured step on its fetches (a data-parallel
-        rank's reduction over the ranks); `key_extra` joins the graph's
-        key."""
+        seed to this rank's (a data-parallel rank's), or `seeds` gives
+        the K seeds (an elastic window's); `finish(fetches)` runs inside
+        the captured step on its fetches (a data-parallel rank's
+        reduction over the ranks); `key_extra` joins the graph's key."""
         block = program.global_block()
         state_names = [n for n in _persistable_names(program)
                        if scope.get(n) is not None]
         key = self._graph_key(program, stacked, fetch_names, state_names,
                               key_extra)
-        seeds = self._step_seeds(program, k, seed_of)
+        if seeds is None:
+            seeds = self._step_seeds(program, k, seed_of)
+        else:
+            seeds = torch.tensor([[v] for v in seeds], dtype=torch.int64,
+                                 device=self.device)
         with torch.cuda.device(self.device):
             entry = self._graphs.get(key)
             if entry is None:

@@ -291,8 +291,17 @@ def test_launch_failing_rank_tears_the_pod_down(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--elastic", "--run_mode=ps"])
-def test_launch_refuses_what_is_not_ported(tmp_path, flag):
+def test_launch_refuses_what_is_not_ported(tmp_path, flag, capsys,
+                                           monkeypatch):
     from paddle_tpu_torch.distributed import launch
+    if flag == "--elastic":
+        # --elastic is ported; a multi-host pod without the fleet's
+        # rendezvous dir is still refused, as in the JAX package
+        monkeypatch.delenv("PADDLE_TPU_FLEET_DIR", raising=False)
+        assert launch.main([flag, "--ips", "10.0.0.1,10.0.0.2",
+                            "train.py"]) == 2
+        assert "needs --fleet_dir" in capsys.readouterr().err
+        return
     with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
         launch.main([flag, "train.py"])
 
@@ -319,13 +328,17 @@ def test_compiled_program_refuses_what_is_not_ported():
             with pytest.raises(ValueError, match="does not divide"):
                 exe.run(tstatic.CompiledProgram(tm, bs).with_data_parallel(
                     loss_name=tl.name), feed=feed, fetch_list=[tl])
+        # elastic programs are ported; under tensor parallelism they
+        # still refuse
         tm._elastic_meta = {"logical_dp": 8}
         try:
+            bs = tstatic.BuildStrategy()
+            bs.tensor_parallel_degree = 2
             with pytest.raises(NotImplementedError, match="elastic"):
-                exe.run_steps(tstatic.CompiledProgram(tm).with_data_parallel(
-                    loss_name=tl.name), feed={k: v[None] for k, v in
-                                               feed.items()},
-                    fetch_list=[tl])
+                exe.run_steps(tstatic.CompiledProgram(tm, bs)
+                              .with_data_parallel(loss_name=tl.name),
+                              feed={k: v[None] for k, v in feed.items()},
+                              fetch_list=[tl])
         finally:
             del tm._elastic_meta
         with pytest.raises(ValueError, match="places"):

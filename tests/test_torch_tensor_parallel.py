@@ -19,7 +19,8 @@ CompiledProgram's dp × tp world) against the JAX package on the CPU.
     ranks' replicated parameters and
     gathered states equal to the last bit, and each tp-sharded weight at
     half its bytes in a rank's scope;
-  * CompiledProgram still refuses sync_batch_norm and elastic programs,
+  * CompiledProgram still refuses sync_batch_norm and elastic programs
+    under tensor parallelism,
     naming ROADMAP.md Queue 1, Distribution, and sequence parallelism
     together with tensor parallelism, as the JAX package does.
 """
@@ -316,9 +317,13 @@ def test_compiled_program_refusals():
     with pytest.raises(NotImplementedError, match="cannot both exceed 1"):
         tstatic.CompiledProgram(main, build_strategy=bs) \
             .with_data_parallel()._get_program()
+    # elastic programs are ported, but not under tensor parallelism
     main._elastic_meta = {"logical_dp": 2}
+    bs = tstatic.BuildStrategy()
+    bs.tensor_parallel_degree = 2
     with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
-        tstatic.CompiledProgram(main).with_data_parallel()._get_program()
+        tstatic.CompiledProgram(main, build_strategy=bs) \
+            .with_data_parallel()._get_program()
     bs = tstatic.BuildStrategy()
     bs.tensor_parallel_degree = 2
     main._elastic_meta = None
