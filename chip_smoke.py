@@ -19,7 +19,9 @@ ZeRO stages 1-3, and train the static transformer LM tensor-parallel,
 and serve GPT /generate tp-sharded, train with sequence parallelism
 (ring attention) and expert parallelism (switch MoE), replay the
 gradient-merge window with its commit hoisted, and train it elastically:
-killed, shrunk and regrown through checkpoints, bitwise.
+killed, shrunk and regrown through checkpoints, bitwise, and train it
+cut into pipeline stages, and train PaddleRec's CTR-DNN on a launched
+parameter-server job and split into heterogeneous CPU / device sections.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -497,6 +499,38 @@ is present.  Phases:
                each rank's checkpoint bytes and save / restore seconds,
                the fold's gathered bytes a micro-step, the fleet's
                agreement seconds, epoch and restore step.
+ 17. pp_ps   - the pipeline and the parameter-server tier: (a) the
+               AMP bench step at 12 layers cut into 2 pipeline stages
+               under device_guard (the embeddings and layers 0-5 on
+               "gpu:0", layers 6-11, the MLM head and the loss on
+               "gpu:1"; both stages wrap onto the card), trained by
+               PipelineOptimizer(Adam, M = 4) on a batch of 8 (one 2 x 512
+               block tiled 4 times), 2 steps against 2 plain Executor.run
+               steps from the same startup weights: losses within 1e-2,
+               the update gap under PP_UPDATE_TOL, and a planted fault
+               (the boundary activation's gradient zeroed into stage 0's
+               backward) above it; each stage's launches a step (stage 0
+               48 / 24 / 24 / 0, stage 1 48 / 24 / 24 / 8 forward, the
+               vjp replay included / dQ / dK/dV / fused CE, bf16), the
+               pipelined and plain step ms and peaks.  (b) `python -m
+               paddle_tpu_torch.distributed.launch --run_mode ps
+               --server_num 2 --worker_num 2 chip_smoke.py --ps-rank
+               <cfg>`: PaddleRec's CTR-DNN at its widths (26 slots into a
+               [1000001, 9] table row-sharded over the servers, 13 dense
+               features, fc 512-256-128-32, softmax CE, SGD, sync, batch
+               512 a trainer, synthetic data from --seed), 3 steps, the
+               dense tower on the card in each trainer; every trainer's
+               parameters (the table pulled from the servers) within an
+               update gap of 1e-4 and 1e-5 an element of one process of
+               SGD on the concatenated batch on the card (fp32); step ms,
+               KV bytes pushed and pulled a step and the KV plane's share
+               (contended: the processes share the card and host).  (c)
+               the same program transpiled in heter mode and cut by
+               split_heter_program at the slots' embeddings: the CPU
+               section in a launched CPU process (`--heter-cpu <spec>`),
+               the device section here on the card, over a KV server of
+               this process; 3 steps' losses within 1e-5 and the
+               parameters within the same gates of the unsplit program.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -530,7 +564,9 @@ over each whole path), and on phase 14's (`phase14_launches`: a
 rank-step of each ZeRO run and of the tp run, an eager step and the
 capturing call of the stage-3 NCCL run), phase 15's and phase 16's
 (`phase16_launches`: a micro-step of (a)'s eager run and (a)'s
-capturing call, a micro-step of each launched rank);
+capturing call, a micro-step of each launched rank), and phase 17's
+(`phase17_launches`: a pipelined step of (a), both stages, and each
+stage's; (b) and (c) launch no hand kernel);
 every phase's seconds on a line of its own ({"phase_seconds": ...});
 the last line
 {"ok": true, "device": {...}}.
@@ -3755,6 +3791,14 @@ def remainders_phase(torch, attn, seed, tmp, gen):
 # gradients, graph-safe random ops, static O2)
 BREADTH_STEPS = 4       # eager steps; run_steps calls of K = 4
 BREADTH_K = 4
+# (b)'s optimizer sweep trains the bench program at DIST_LAYERS layers
+# (12 before PR 23; widths unchanged): eleven optimizers, each with a
+# program build, a startup and a captured run_steps call, were most of the
+# phase.  Its gate (the replayed losses equal the eager ones, else within
+# BREADTH_RTOL) is shown to fail on a planted fault at that depth: the
+# replay fed step 2's labels rolled by one token
+BREADTH_OPT_LAYERS = DIST_LAYERS
+BREADTH_RTOL = 2e-3
 BREADTH_TIMED_CALLS = 2  # recompute: run_steps calls timed after the capture
 BREADTH_RECIPE_STEPS = 2  # the dropout variant, with and without recompute
 LOOKAHEAD_K = 5
@@ -3782,7 +3826,7 @@ BREADTH_OPTIMIZERS = (
 
 def bench_program(make_opt, use_amp=True, is_sparse=False, o2=False,
                   recompute_picks=False, outer=None, after=None,
-                  layers_n=None):
+                  layers_n=None, stages=None):
     """A copy of models.build_bert_pretrain (bench.build_bert_base) at
     BERT-base width, flash on, from a fresh unique-name state, with the
     optimizer `make_opt(static)`: `is_sparse` on the word embedding; `o2`
@@ -3790,43 +3834,60 @@ def bench_program(make_opt, use_amp=True, is_sparse=False, o2=False,
     `recompute_picks` wraps the optimizer in RecomputeOptimizer at
     select_layer_checkpoints' picks; `outer(static, opt)` wraps the
     (decorated) optimizer; `after(static)` runs after minimize inside the
-    program guard.  Returns (main, startup, loss, extra: what `outer` or
-    `after` returned)."""
+    program guard; `stages` cuts the forward into that many pipeline
+    stages under device_guard ("gpu:0": the embeddings and the first
+    layers, ..., the last: the last layers, the MLM head and the loss).
+    Returns (main, startup, loss, extra: what `outer` or `after`
+    returned)."""
     from paddle_tpu_torch import amp, static
     from paddle_tpu_torch.core.program import _reset_unique_names
     from paddle_tpu_torch.ops import attention as attn
     from paddle_tpu_torch.static import layers, nets
+    import contextlib
     vocab, seq, hidden = BERT["vocab"], BERT["seq"], BERT["hidden"]
+    n_layers = layers_n or BERT["layers_n"]
+
+    def stage(i):
+        """device_guard of the stage holding layer i (-1: the
+        embeddings, n_layers: the head)."""
+        if not stages:
+            return contextlib.nullcontext()
+        s = min(max(i, 0) * stages // n_layers, stages - 1)
+        return static.device_guard(f"gpu:{s}")
     attn.enable_flash_attention(True)
     try:
         _reset_unique_names()
         main, startup = static.Program(), static.Program()
         with static.program_guard(main, startup):
-            ids = layers.data("ids", [-1, seq], dtype="int64")
-            pos = layers.data("pos", [-1, seq], dtype="int64")
-            labels = layers.data("labels", [-1, seq, 1], dtype="int64")
-            h = layers.elementwise_add(
-                layers.embedding(ids, size=[vocab, hidden],
-                                 is_sparse=is_sparse),
-                layers.embedding(pos, size=[seq, hidden]))
-            h = layers.layer_norm(h, begin_norm_axis=2)
-            for _ in range(layers_n or BERT["layers_n"]):
-                q = layers.fc(h, hidden, num_flatten_dims=2)
-                k = layers.fc(h, hidden, num_flatten_dims=2)
-                v = layers.fc(h, hidden, num_flatten_dims=2)
-                ctx = nets.scaled_dot_product_attention(
-                    q, k, v, num_heads=BERT["heads"])
-                attn_out = layers.fc(ctx, hidden, num_flatten_dims=2)
-                h = layers.layer_norm(layers.elementwise_add(h, attn_out),
-                                      begin_norm_axis=2)
-                ffn = layers.fc(h, hidden * 4, num_flatten_dims=2,
-                                act="gelu")
-                ffn = layers.fc(ffn, hidden, num_flatten_dims=2)
-                h = layers.layer_norm(layers.elementwise_add(h, ffn),
-                                      begin_norm_axis=2)
-            logits = layers.fc(h, vocab, num_flatten_dims=2)
-            loss = layers.mean(
-                layers.softmax_with_cross_entropy(logits, labels))
+            with stage(-1):
+                ids = layers.data("ids", [-1, seq], dtype="int64")
+                pos = layers.data("pos", [-1, seq], dtype="int64")
+                labels = layers.data("labels", [-1, seq, 1], dtype="int64")
+                h = layers.elementwise_add(
+                    layers.embedding(ids, size=[vocab, hidden],
+                                     is_sparse=is_sparse),
+                    layers.embedding(pos, size=[seq, hidden]))
+                h = layers.layer_norm(h, begin_norm_axis=2)
+            for i in range(n_layers):
+                with stage(i):
+                    q = layers.fc(h, hidden, num_flatten_dims=2)
+                    k = layers.fc(h, hidden, num_flatten_dims=2)
+                    v = layers.fc(h, hidden, num_flatten_dims=2)
+                    ctx = nets.scaled_dot_product_attention(
+                        q, k, v, num_heads=BERT["heads"])
+                    attn_out = layers.fc(ctx, hidden, num_flatten_dims=2)
+                    h = layers.layer_norm(
+                        layers.elementwise_add(h, attn_out),
+                        begin_norm_axis=2)
+                    ffn = layers.fc(h, hidden * 4, num_flatten_dims=2,
+                                    act="gelu")
+                    ffn = layers.fc(ffn, hidden, num_flatten_dims=2)
+                    h = layers.layer_norm(layers.elementwise_add(h, ffn),
+                                          begin_norm_axis=2)
+            with stage(n_layers):
+                logits = layers.fc(h, vocab, num_flatten_dims=2)
+                loss = layers.mean(
+                    layers.softmax_with_cross_entropy(logits, labels))
             if o2:
                 amp.cast_model_to_fp16(main)
                 if loss.dtype != "float32":
@@ -3949,8 +4010,11 @@ def breadth_phase(torch, seed):
 
     def part(name, fn, *args):
         rnd.random_cuda.launches = 0  # this path: counts from 0
+        t0 = time.perf_counter()
         out[name] = fn(*args)
         philox[name] = rnd.random_cuda.launches  # read just after
+        log({"phase_seconds": f"12_breadth/{name}",
+             "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
 
     part("random", breadth_random, torch, static, rnd, seed)
@@ -4170,7 +4234,8 @@ def breadth_optimizers(torch, static, rnd, seed, feed):
     out = {"ops": breadth_optimizer_ops(torch, rnd),
            "dpsgd_noise": breadth_dpsgd_noise(torch, static, rnd)}
     for name, make in BREADTH_OPTIMIZERS:
-        main, startup, loss, _ = bench_program(make)
+        main, startup, loss, _ = bench_program(make,
+                                               layers_n=BREADTH_OPT_LAYERS)
         init, _, _ = startup_weights(torch, static, rnd, startup, seed)
         accs = [v.name for v in main.global_block().vars.values()
                 if v.attrs.get("accum_of") and "pow" not in v.name]
@@ -4186,12 +4251,16 @@ def breadth_optimizers(torch, static, rnd, seed, feed):
         graph, scope, exe, _ = replayed_run(torch, static, main, loss, init,
                                             feed, BREADTH_K)
         exe.close()
-        del scope, init
+        del scope
+        if name == BREADTH_OPTIMIZERS[-1][0]:
+            out["planted_fault"] = breadth_fault(torch, static, main, loss,
+                                                 init, feed, eager)
+        del init
         if accs and not any(moved.values()):
             raise AssertionError(f"{name}: accumulators all zero after the "
                                  f"first step: {moved}")
         bitwise, max_rel = same_losses(f"{name} run_steps vs eager", graph,
-                                       eager, 2e-3)
+                                       eager, BREADTH_RTOL)
         out[name] = {"losses": eager, "run_steps_losses": graph,
                      "bitwise_equal": bitwise, "max_rel_diff": max_rel,
                      "accumulators": len(accs),
@@ -4206,10 +4275,33 @@ def breadth_optimizers(torch, static, rnd, seed, feed):
     torch.cuda.empty_cache()
     out["lookahead"] = breadth_lookahead(torch, static, rnd, seed, feed)
     log({"phase": "breadth_optimizers",
-         "config": "bert-base pretrain, AMP bf16, flash + fused CE, "
-                   "4 eager steps and run_steps K=4 per optimizer",
+         "config": f"bert-base pretrain at {BREADTH_OPT_LAYERS} layers, "
+                   "AMP bf16, flash + fused CE, 4 eager steps and "
+                   "run_steps K=4 per optimizer",
          **out})
     return out
+
+
+def breadth_fault(torch, static, main, loss, init, feed, eager):
+    """The sweep's gate on a planted fault: one run_steps call of K steps
+    from `init` whose step 2 is fed the labels rolled by one token; its
+    losses against `eager` must fail same_losses.  Returns the fault's
+    losses and largest relative difference."""
+    stacked = {n: np.stack([v] * BREADTH_K) for n, v in feed.items()}
+    stacked["labels"][1] = np.roll(stacked["labels"][1], 1, axis=1)
+    exe = static.Executor()
+    with static.scope_guard(scope_of(static, init)):
+        out = exe.run_steps(main, feed=stacked, fetch_list=[loss])
+    exe.close()
+    got = np.asarray(out[0], np.float32).reshape(-1).tolist()
+    try:
+        same_losses("planted fault", got, eager, BREADTH_RTOL)
+    except AssertionError:
+        rel = float(np.max(np.abs(np.float32(got) - np.float32(eager))
+                           / np.abs(np.float32(eager))))
+        return {"losses": got, "max_rel_diff": rel, "gate": BREADTH_RTOL}
+    raise AssertionError(f"the sweep's gate passed a planted fault: {got} "
+                         f"against {eager}")
 
 
 def opt_op_inputs(rng, op):
@@ -7859,6 +7951,551 @@ def el_phase(torch, seed):
     return {**res, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: pipeline parallelism and the parameter-server tier
+# ---------------------------------------------------------------------------
+PP_STAGES = 2
+PP_M = 4                # micro-batches a step
+PP_STEPS = 2
+# the pipelined step against the plain one on the same batch (one 2 x 512
+# block tiled 4 times: every micro-batch the same, so the mean of the
+# micro-batch gradients is the batch's): each step's loss within 1e-2
+# relative (bf16 GEMMs of 2 and 8 rows a token block round apart), and
+# the update gap ||update - update_plain|| / ||update_plain|| over
+# PP_STEPS Adam steps under PP_UPDATE_TOL, set between the sound run's
+# reading and the planted fault's (stage 1's gradient of the boundary
+# activation zeroed before stage 0's backward: stage 0's parameters get
+# no gradient), which every run measures and requires above it
+PP_LOSS_RTOL = 1e-2
+PP_UPDATE_TOL = 0.3
+# (b) PaddleRec models/rank/dnn on Criteo: 26 sparse slots of one id into
+# one [1000001, 9] table, 13 dense features, fc 512-256-128-32 with relu,
+# a 2-way softmax and cross-entropy; synthetic ids and features from
+# --seed; SGD; a trainer's batch 512
+PS_SLOTS, PS_VOCAB, PS_EMB, PS_DENSE = 26, 1000001, 9, 13
+PS_FC = (512, 256, 128, 32)
+PS_BATCH = 512
+PS_STEPS = 3
+PS_SERVERS = PS_TRAINERS = 2
+PS_LR = 0.05
+# the trainers' parameters against one process of plain SGD on the
+# concatenated batch, fp32 both (the servers apply the mean of the two
+# trainers' gradients: the batch's gradient up to the order of the sums):
+# the update gap under 1e-4 and every element within 1e-5
+PS_UPDATE_TOL = 1e-4
+PS_ELEM_TOL = 1e-5
+
+
+def pp_counters():
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    return dp_counters(attn, dr, fx, rnd)
+
+
+def pp_stage_counts(pp, counters):
+    """Wrap every phase of the pipeline `pp` to add its kernels' launches
+    to its stage's counter; returns {stage: {kernel: launches}}."""
+    import collections
+    import torch
+    pp._build(torch.device("cuda", 0))  # the executor's device
+    per = {s: collections.Counter() for s in range(pp._n_stages)}
+    for phases in pp._phases.values():
+        for s, ph in enumerate(phases):
+            def run(env, seed, _orig=ph.run, _s=s):
+                before = {k: c.launches for k, c in counters.items()}
+                out = _orig(env, seed)
+                for k, c in counters.items():
+                    per[_s][k] += c.launches - before[k]
+                return out
+            ph.run = run
+    return per
+
+
+def pp_plant_fault(pp):
+    """The planted fault: stage 0's backward sees zeros for the gradient
+    of the boundary activation that stage 1's backward hands it."""
+    import torch
+    pp._build(torch.device("cuda", 0))  # the executor's device
+    bwd0, bwd1 = pp._phases["bwd"][0], pp._phases["bwd"][1]
+    cut = [n for n in bwd0.in_names if n in set(bwd1.out_names)]
+    if not cut:
+        raise AssertionError("no gradient crosses the pipeline's cut")
+
+    def run(env, seed, _orig=bwd0.run):
+        for n in cut:
+            env[n] = torch.zeros_like(env[n])
+        return _orig(env, seed)
+    bwd0.run = run
+    return cut
+
+
+def pp_run(torch, static, program, loss, init, feed, steps):
+    """`steps` exe.run calls of `program` (a Program or the pipeline)
+    from a copy of `init`: (losses, scope, step ms, peak bytes)."""
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with static.scope_guard(scope):
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(program, feed=feed, fetch_list=[loss])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+    return losses, scope, ms, torch.cuda.max_memory_allocated()
+
+
+def pp_part(torch, seed):
+    """(a) bench.py's BERT-base AMP step (flash, fused CE) cut into 2
+    stages under device_guard (gpu:0: the embeddings and layers 0-5;
+    gpu:1: layers 6-11, the MLM head and the loss), trained by
+    PipelineOptimizer(Adam(1e-4), M = 4) on a batch of 8 (one 2 x 512
+    block tiled 4 times); both stages wrap onto the card.  PP_STEPS steps
+    against PP_STEPS plain Executor.run steps of the unstaged program
+    from the same startup weights, then the planted fault's run."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    from paddle_tpu_torch.pipeline import PipelineOptimizer
+    block = {k: v[:2] for k, v in train_feed(seed).items()}
+    feed = {k: np.concatenate([v] * PP_M) for k, v in block.items()}
+    main, startup, loss, _ = bench_program(lambda s: s.Adam(1e-4))
+    init, _, _ = startup_weights(torch, static, rnd, startup, seed)
+    pmain, _, ploss, popt = bench_program(
+        lambda s: s.Adam(1e-4), stages=PP_STAGES,
+        outer=lambda s, opt: PipelineOptimizer(opt, num_microbatches=PP_M))
+    pp = pmain._pipeline_compiled
+    check_equal("pipeline persistables",
+                sorted(v.name for v in pmain.list_vars() if v.persistable),
+                sorted(v.name for v in main.list_vars() if v.persistable))
+    params = [p.name for p in main.all_parameters()]
+    counters = pp_counters()
+    fx.enable_fused_xent(True)
+    try:
+        plain_losses, pscope, plain_ms, plain_peak = pp_run(
+            torch, static, main, loss, init, feed, PP_STEPS)
+        want = {n: pscope.vars[n] for n in params}
+        counts = pp_stage_counts(pp, counters)
+        dp_zero(counters)
+        zero_wide(attn)
+        losses, scope, ms, peak = pp_run(torch, static, pp, ploss, init,
+                                         feed, PP_STEPS)
+        launches, by_dtype = dp_read(counters)
+        record_wide("pp_pipeline", read_wide(attn))
+        got = {n: scope.vars[n] for n in params}
+        stages = {s: dict(c) for s, c in counts.items()}
+        # the planted fault, on a pipeline of its own
+        fmain, _, floss, _ = bench_program(
+            lambda s: s.Adam(1e-4), stages=PP_STAGES,
+            outer=lambda s, opt: PipelineOptimizer(opt,
+                                                   num_microbatches=PP_M))
+        cut = pp_plant_fault(fmain._pipeline_compiled)
+        f_losses, fscope, _, _ = pp_run(torch, static,
+                                        fmain._pipeline_compiled, floss,
+                                        init, feed, PP_STEPS)
+        fault = {n: fscope.vars[n] for n in params}
+    finally:
+        fx.enable_fused_xent(False)
+    before = {n: init[n] for n in params}
+    gap, worst = dp_update_gap(torch, before, got, want)
+    f_gap, _ = dp_update_gap(torch, before, fault, want)
+    same_losses("pipeline vs plain", losses, plain_losses, PP_LOSS_RTOL)
+    if not gap < PP_UPDATE_TOL < f_gap:
+        raise AssertionError(
+            f"pipeline update gap {gap} (fault {f_gap}) against "
+            f"{PP_UPDATE_TOL}")
+    # a step's launches: M micro-batches of the plain step's (phase 5b:
+    # 24 forward, the vjp replay included, 12 dQ, 12 dK/dV, 2 fused CE),
+    # the layers split evenly, the loss on stage 1
+    n = BERT["layers_n"] // PP_STAGES
+    want_stage = {0: dict(zip(DP_COUNTED, (2 * n * PP_M, n * PP_M,
+                                           n * PP_M, 0, 0, 0))),
+                  1: dict(zip(DP_COUNTED, (2 * n * PP_M, n * PP_M,
+                                           n * PP_M, 2 * PP_M, 0, 0)))}
+    for s in range(PP_STAGES):
+        check_equal(f"pipeline stage {s} launches a step",
+                    {k: v // PP_STEPS for k, v in stages[s].items()},
+                    want_stage[s])
+    per_step = {k: v // PP_STEPS for k, v in launches.items()}
+    dp_check_launches("pipeline step", per_step,
+                      {k: {d: c // PP_STEPS for d, c in v.items()}
+                       for k, v in by_dtype.items()},
+                      {k: want_stage[0][k] + want_stage[1][k]
+                       for k in DP_COUNTED})
+    out = {"config": "bert-base AMP bf16, flash + fused CE, 2 stages "
+                     "(embeddings + layers 0-5 | layers 6-11 + head), "
+                     f"M={PP_M}, batch {TRAIN_BATCH}",
+           "losses": losses, "plain_losses": plain_losses,
+           "update_gap": gap, "max_abs_diff": worst,
+           "fault_update_gap": f_gap, "fault_losses": f_losses,
+           "fault_cut": cut, "update_tol": PP_UPDATE_TOL,
+           "step_ms": ms, "plain_step_ms": plain_ms,
+           "peak_bytes": peak, "plain_peak_bytes": plain_peak,
+           "stage_launches": stages, "launches": per_step,
+           "by_dtype": {k: {d: c // PP_STEPS for d, c in v.items()}
+                        for k, v in by_dtype.items()}}
+    log({"phase": "pipeline", **out})
+    return out
+
+
+def ps_program(distributed, lr=PS_LR):
+    """The CTR-DNN program (PS_* widths) with the table `is_distributed`
+    (row-sharded over the servers) or local; (main, startup, loss,
+    the boundary var: the slots' embeddings flattened [B, 26 x 9])."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.static import layers
+    _reset_unique_names()
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        ids = layers.data("ids", [-1, PS_SLOTS], dtype="int64")
+        dense = layers.data("dense", [-1, PS_DENSE])
+        label = layers.data("label", [-1, 1], dtype="int64")
+        emb = layers.embedding(ids, size=[PS_VOCAB, PS_EMB], is_sparse=True,
+                               is_distributed=distributed,
+                               param_attr=static.ParamAttr(name="ctr_emb"))
+        flat = layers.reshape(emb, [-1, PS_SLOTS * PS_EMB])
+        h = layers.concat([flat, dense], axis=1)
+        for width in PS_FC:
+            h = layers.fc(h, width, act="relu")
+        pred = layers.fc(h, 2, act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        static.SGD(learning_rate=lr).minimize(loss)
+    return main, startup, loss, flat
+
+
+def ps_batch(seed, step, rows):
+    """A global batch of the synthetic Criteo-shaped data: ids uniform
+    over the table, features in [0, 1), a label from both."""
+    rng = np.random.RandomState(seed * 1000 + step)
+    ids = rng.randint(0, PS_VOCAB, (rows, PS_SLOTS)).astype(np.int64)
+    dense = rng.rand(rows, PS_DENSE).astype(np.float32)
+    label = ((ids[:, 0] % 2) ^ (dense[:, 0] > 0.5)).astype(np.int64)
+    return {"ids": ids, "dense": dense, "label": label[:, None]}
+
+
+def ps_kv_stats():
+    """The KV-plane counters of this process's clients, summed."""
+    from paddle_tpu_torch.ops.kernels import distributed_ops as dops
+    tot = {"calls": 0, "bytes_sent": 0, "bytes_recv": 0, "seconds": 0.0}
+    for c in dops.clients().values():
+        for k in tot:
+            tot[k] += c.stats[k]
+    return tot
+
+
+def ps_rank(cfg_path):
+    """One launched process of phase 17 (b) (`python3 chip_smoke.py
+    --ps-rank <cfg.json>`, started by `paddle_tpu_torch.distributed.launch
+    --run_mode ps`): fleet's role maker reads the launcher's env; a server
+    serves its shard of the KV store until trainer 0 shuts the servers
+    down; a trainer transpiles ps_program (graph ops, sync, the table
+    row-sharded) and trains PS_STEPS steps on its half of each global
+    batch on the card, timing each step and its KV traffic, and writes
+    its losses, timings and final parameters (the table pulled whole
+    from the servers) to trainer<i>.npz."""
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    import paddle_tpu_torch.distributed.fleet as fleet
+    fleet.init()
+    if fleet.is_server():
+        fleet.init_server()
+        fleet.run_server()
+        return 0
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.ps.ps_optimizer import (
+        DistributeTranspiler, DistributeTranspilerConfig)
+    i, n = fleet.worker_index(), fleet.worker_num()
+    main, startup, loss, _ = ps_program(True)
+    startup.random_seed = cfg["seed"]
+    fleet.init_worker()
+    tc = DistributeTranspilerConfig()
+    tc.use_graph_ops = True
+    tc.sync_mode = True
+    t = DistributeTranspiler(tc)
+    t.transpile(trainer_id=i, program=main,
+                pservers=fleet.server_endpoints(to_string=True),
+                trainers=n, startup_program=startup)
+    prog = t.get_trainer_program()
+    exe = static.Executor()
+    scope = static.Scope()
+    losses, ms, kv = [], [], []
+    with static.scope_guard(scope):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        for step in range(cfg["steps"]):
+            full = ps_batch(cfg["seed"], step, PS_BATCH * n)
+            mine = {k: v[i * PS_BATCH:(i + 1) * PS_BATCH]
+                    for k, v in full.items()}
+            s0 = ps_kv_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(prog, feed=mine, fetch_list=[loss])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            s1 = ps_kv_stats()
+            kv.append({k: s1[k] - s0[k] for k in s0})
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    client = fleet._fleet_singleton._ps_client
+    out = {"losses": np.asarray(losses), "step_ms": np.asarray(ms),
+           "kv_bytes_sent": np.asarray([k["bytes_sent"] for k in kv]),
+           "kv_bytes_recv": np.asarray([k["bytes_recv"] for k in kv]),
+           "kv_seconds": np.asarray([k["seconds"] for k in kv]),
+           "kv_calls": np.asarray([k["calls"] for k in kv]),
+           "startup_s": np.asarray(startup_s),
+           "ctr_emb": client.pull_sparse("ctr_emb", np.arange(PS_VOCAB))}
+    for p in main.all_parameters():
+        if p.name != "ctr_emb":
+            out[p.name] = static.as_numpy(scope.get(p.name))
+    np.savez(os.path.join(cfg["out_dir"], f"trainer{i}.npz"), **out)
+    client.barrier()  # every trainer has read its parameters
+    if i == 0:
+        fleet.stop_worker()
+    return 0
+
+
+def ps_reference(torch, static, seed, batches):
+    """One process of plain SGD (the table local) on the card, fp32, over
+    `batches`: (losses, {parameter: tensor}, startup weights)."""
+    main, startup, loss, _ = ps_program(False)
+    startup.random_seed = seed
+    exe = static.Executor()
+    scope = static.Scope()
+    losses = []
+    with static.scope_guard(scope):
+        exe.run(startup)
+        init = {p.name: scope.vars[p.name].clone()
+                for p in main.all_parameters()}
+        for b in batches:
+            (lv,) = exe.run(main, feed=b, fetch_list=[loss])
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+    return losses, {p.name: scope.vars[p.name]
+                    for p in main.all_parameters()}, init
+
+
+def ps_start(seed, tmp):
+    """(b) Start `python -m paddle_tpu_torch.distributed.launch --run_mode
+    ps --server_num 2 --worker_num 2 chip_smoke.py --ps-rank <cfg>`: sync
+    PS training of the CTR-DNN program at its published widths, the
+    [1000001, 9] table row-sharded over the two servers, the dense tower
+    on the card in each trainer.  Returns (its Popen, its start time)."""
+    cfg = {"seed": seed, "steps": PS_STEPS, "out_dir": tmp}
+    path = os.path.join(tmp, "ps_cfg.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--run_mode", "ps", "--server_num", str(PS_SERVERS),
+           "--worker_num", str(PS_TRAINERS), "--term_grace", "5",
+           "--log_dir", os.path.join(tmp, "ps_logs"),
+           os.path.abspath(__file__), "--ps-rank", path]
+    return subprocess.Popen(cmd, cwd=here, start_new_session=True), \
+        time.perf_counter()
+
+
+def ps_finish(torch, seed, tmp, pr, t0):
+    """(b) Wait for the PS job ps_start began and hold its trainers'
+    parameters against ps_reference on the concatenated batches.  The
+    trainers share the card and the host with each other, the servers
+    and phase 17 (c): their step times are contended."""
+    from paddle_tpu_torch import static
+    try:
+        rc = pr.wait(300)
+    finally:
+        el_stop([pr])
+    job_s = time.perf_counter() - t0
+    if rc != 0:
+        logs = os.path.join(tmp, "ps_logs")
+        tails = {n: open(os.path.join(logs, n)).read()[-2000:]
+                 for n in sorted(os.listdir(logs))}
+        raise AssertionError(f"the PS job exited {rc}: {tails}")
+    ranks = [dict(np.load(os.path.join(tmp, f"trainer{i}.npz")))
+             for i in range(PS_TRAINERS)]
+    batches = [ps_batch(seed, s, PS_BATCH * PS_TRAINERS)
+               for s in range(PS_STEPS)]
+    want_losses, want, init = ps_reference(torch, static, seed, batches)
+    res = {}
+    for i, r in enumerate(ranks):
+        got = {n: torch.from_numpy(r[n]) for n in want}
+        gap, worst = dp_update_gap(torch, init, got, want)
+        if not (gap < PS_UPDATE_TOL and worst < PS_ELEM_TOL):
+            raise AssertionError(
+                f"PS trainer {i}: update gap {gap}, largest difference "
+                f"{worst} against one process (tolerances "
+                f"{PS_UPDATE_TOL}, {PS_ELEM_TOL})")
+        res[f"trainer{i}"] = {
+            "update_gap": gap, "max_abs_diff": worst,
+            "losses": r["losses"].tolist(), "step_ms": r["step_ms"].tolist(),
+            "kv_bytes_sent_per_step": r["kv_bytes_sent"].tolist(),
+            "kv_bytes_recv_per_step": r["kv_bytes_recv"].tolist(),
+            "kv_calls_per_step": r["kv_calls"].tolist(),
+            "kv_share_of_step": (r["kv_seconds"] * 1e3
+                                 / r["step_ms"]).tolist(),
+            "startup_s": float(r["startup_s"])}
+    mean_loss = np.mean([r["losses"] for r in ranks], axis=0)
+    out = {"config": "PaddleRec rank/dnn widths (26 x [1000001, 9] table, "
+                     "13 dense, fc 512-256-128-32, softmax CE), SGD, sync, "
+                     f"{PS_SERVERS} servers x {PS_TRAINERS} trainers, batch "
+                     f"{PS_BATCH} a trainer",
+           "job_seconds": job_s, "reference_losses": want_losses,
+           "trainers_mean_losses": mean_loss.tolist(),
+           "update_tol": PS_UPDATE_TOL, "elem_tol": PS_ELEM_TOL,
+           "contended": "trainers, servers and launcher share the card "
+                        "and host with each other and with (c)", **res}
+    log({"phase": "parameter_server", **out})
+    return out
+
+
+def heter_cpu(spec_path):
+    """The CPU section of phase 17 (c) (`python3 chip_smoke.py --heter-cpu
+    <spec.json>`): the startup program and PS_STEPS steps of the section
+    on the host (CPUPlace) against the KV tier."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import Program
+    startup = Program.from_dict(spec["startup"])
+    cpu = Program.from_dict(spec["cpu_program"])
+    exe = static.Executor(static.CPUPlace())
+    with static.scope_guard(static.Scope()):
+        exe.run(startup)
+        for step in range(spec["steps"]):
+            b = ps_batch(spec["seed"], step, PS_BATCH)
+            exe.run(cpu, feed={"ids": b["ids"]}, fetch_list=[])
+    return 0
+
+
+def heter_part(torch, seed, tmp):
+    """(c) The CTR-DNN program transpiled in heter mode and cut by
+    split_heter_program at the slots' flattened embeddings: the CPU
+    section (lookup, the table's gradient and sparse push) in a launched
+    CPU process, the device section (the dense tower, its backward and
+    SGD) here on the card, bridged by heter_send / heter_recv over a
+    KVServer of this process; PS_STEPS steps against the unsplit program
+    (the table local) on the card from the same weights and batches."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.heter import split_heter_program
+    from paddle_tpu_torch.distributed.ps.kv_server import KVClient, KVServer
+    from paddle_tpu_torch.distributed.ps.ps_optimizer import (
+        DistributeTranspiler, DistributeTranspilerConfig)
+    from paddle_tpu_torch.ops.kernels import distributed_ops as dops
+    batches = [ps_batch(seed, s, PS_BATCH) for s in range(PS_STEPS)]
+    want_losses, want, init = ps_reference(torch, static, seed, batches)
+    srv = KVServer("127.0.0.1:0", num_trainers=1)
+    srv.serve_in_thread()
+    proc = None
+    try:
+        seed_client = KVClient([srv.endpoint])
+        # the table's weights first (the init push is first-writer-wins)
+        seed_client.init_sparse_table("ctr_emb",
+                                      init["ctr_emb"].cpu().numpy())
+        main, startup, loss, flat = ps_program(True)
+        startup.random_seed = seed
+        tc = DistributeTranspilerConfig()
+        tc.use_graph_ops = tc.heter_mode = tc.sync_mode = True
+        t = DistributeTranspiler(tc)
+        t.transpile(trainer_id=0, program=main, pservers=srv.endpoint,
+                    trainers=1, startup_program=startup)
+        cpu, dev = split_heter_program(t.get_trainer_program(), [flat],
+                                       [srv.endpoint], batch_size=PS_BATCH,
+                                       timeout=300.0)
+        check_equal("heter feeds", (cpu.feeds, sorted(dev.feeds)),
+                    (["ids"], ["dense", "label"]))
+        spec = {"startup": t.get_startup_program().to_dict(),
+                "cpu_program": cpu.program.to_dict(), "seed": seed,
+                "steps": PS_STEPS}
+        path = os.path.join(tmp, "heter_spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--heter-cpu",
+             path], cwd=here, env=dict(os.environ, PADDLE_TRAINER_ID="0",
+                                       CUDA_VISIBLE_DEVICES=""),
+            start_new_session=True)
+        exe = static.Executor()
+        scope = static.Scope()
+        losses, ms = [], []
+        with static.scope_guard(scope):
+            exe.run(t.get_startup_program())
+            for n, v in init.items():
+                if n != "ctr_emb":
+                    scope.set(n, v.clone())
+            for step in range(PS_STEPS):
+                b = batches[step]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (lv,) = exe.run(dev.program, feed={"dense": b["dense"],
+                                                   "label": b["label"]},
+                                fetch_list=[loss])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(np.asarray(lv).reshape(-1)[0]))
+        if proc.wait(300) != 0:
+            raise AssertionError("the heter CPU section's process failed")
+        got = {n: scope.vars[n] for n in want if n != "ctr_emb"}
+        # the table: wait until the CPU section's last push is applied
+        got["ctr_emb"] = torch.from_numpy(seed_client.pull_sparse(
+            "ctr_emb", np.arange(PS_VOCAB)))
+        seed_client.close()
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        dops._reset_clients()
+        srv.stop()
+    gap, worst = dp_update_gap(torch, init, got, want)
+    same_losses("heter vs unsplit", losses, want_losses, 1e-5)
+    if not (gap < PS_UPDATE_TOL and worst < PS_ELEM_TOL):
+        raise AssertionError(f"heter: update gap {gap}, largest difference "
+                             f"{worst} against the unsplit program")
+    out = {"losses": losses, "unsplit_losses": want_losses,
+           "update_gap": gap, "max_abs_diff": worst,
+           "device_step_ms": ms,
+           "contended": "the CPU section's process shares the host, the "
+                        "card and the host with (b)'s job"}
+    log({"phase": "heter", **out})
+    return out
+
+
+def pp_ps_phase(torch, seed):
+    """(17) The pipeline (a) alone, then the parameter-server job (b) and
+    heter (c) side by side."""
+    out = {}
+    t0 = time.perf_counter()
+    out["pipeline"] = pp_part(torch, seed)
+    out["pipeline"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    pr = None
+    try:
+        t0 = time.perf_counter()
+        pr, t_ps = ps_start(seed, tmp)
+        out["heter"] = heter_part(torch, seed, tmp)
+        out["heter"]["seconds"] = time.perf_counter() - t0
+        out["ps"] = ps_finish(torch, seed, tmp, pr, t_ps)
+        out["ps"]["seconds"] = time.perf_counter() - t0
+    finally:
+        if pr is not None:
+            el_stop([pr])
+        shutil.rmtree(tmp, ignore_errors=True)
+    log({"phase": "pp_ps_seconds", **{k: v["seconds"]
+                                       for k, v in out.items()}})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7868,10 +8505,19 @@ def main():
     ap.add_argument("--elastic-rank", metavar="CFG", default=None,
                     help="run one launched rank of phase 16 (internal: "
                     "the phase starts these through the launcher)")
+    ap.add_argument("--ps-rank", metavar="CFG", default=None,
+                    help="run one launched server or trainer of phase 17 "
+                    "(b) (internal: started by launch --run_mode ps)")
+    ap.add_argument("--heter-cpu", metavar="SPEC", default=None,
+                    help="run phase 17 (c)'s CPU section (internal)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.elastic_rank:
         return el_rank(args.elastic_rank)
+    if args.ps_rank:
+        return ps_rank(args.ps_rank)
+    if args.heter_cpu:
+        return heter_cpu(args.heter_cpu)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7986,6 +8632,7 @@ def main():
     zt = timed("14_zero_tp", zt_phase, torch, args.seed)
     px = timed("15_parallel_axes", px_phase, torch, args.seed)
     el = timed("16_elastic", el_phase, torch, args.seed)
+    pps = timed("17_pipeline_ps", pp_ps_phase, torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -8077,7 +8724,8 @@ def main():
         tuple(f"px_tp_{v}" for v, _, _ in PX_TP_VARIANTS) + tuple(
             f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
             for run in runs for r in range(PX_RANKS)) + (
-            "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS
+            "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS + (
+            "pp_pipeline",)
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -8203,6 +8851,25 @@ def main():
             got = {p: extra["launches_by_path_all_dtypes"][p]
                    for p in EL_PATHS}
         extra["phase16_launches"] = got
+    # phase 17: a pipelined step of (a) (M = 4 micro-batches, both
+    # stages; by stage in `pipeline_stage_launches`); (b) and (c) run no
+    # hand kernel (the CTR tower is cuBLAS, the KV plane host code)
+    pipe = pps["pipeline"]
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {"pp_step": pipe["by_dtype"][base].get(dt, 0)}
+            if dt == "bfloat16":
+                got["pp_stage_step"] = {
+                    s: c[base] // PP_STEPS
+                    for s, c in pipe["stage_launches"].items()}
+        elif name in ("dropout_philox", "philox_random"):
+            got = {"pp_step": pipe["launches"][name]}
+        else:  # head dims above 128: over the whole pipelined run
+            got = {"pp_pipeline":
+                   extra["launches_by_path_all_dtypes"]["pp_pipeline"]}
+        extra["phase17_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -1,4 +1,4 @@
-"""paddle_tpu_torch.distributed: data-parallel training.
+"""paddle_tpu_torch.distributed: distributed training.
 
 Counterpart of paddle_tpu/distributed/: the collective API
 (collective.py, its ops in ops/kernels/collective.py), the process group
@@ -13,15 +13,15 @@ Megatron layers (tensor_parallel.py) and fleet's collective mode with its
 meta-optimizers (fleet/), elastic training (elastic.py: one logical
 schedule on any world that divides it, with the launcher's `--elastic`
 re-form), the multi-host fleet control plane (fleet_control.py, the
-launcher's `--fleet_dir`) and the host-side gloo rendezvous (gloo.py).
-Ring attention lives in ops/attention.py, tp-sharded decode in
-serving/tp_decode.py and expert parallelism in incubate/moe.py.  The JAX
+launcher's `--fleet_dir`), the host-side gloo rendezvous (gloo.py), the
+parameter-server tier (ps/: the KV server, the transpiler, fleet's PS
+runtime; the launcher's `--run_mode ps`), heterogeneous PS training
+(heter.py) and the dataset path (dataset.py).  Ring attention lives in
+ops/attention.py, tp-sharded decode in serving/tp_decode.py, expert
+parallelism in incubate/moe.py and the pipeline in pipeline/.  The JAX
 package is one controller over a mesh; the port runs one process a rank
 over torch.distributed: NCCL for CUDA tensors where each rank has a
 device of its own, gloo otherwise.
-
-Not ported yet (ROADMAP.md Queue 1, Distribution): pipeline/ and the
-parameter-server tier.
 """
 from .collective import (  # noqa: F401
     ReduceOp, broadcast, all_reduce, reduce, all_gather, scatter, barrier,
@@ -58,3 +58,7 @@ from .fleet_control import (  # noqa: F401
 )
 from . import fleet_control  # noqa: F401
 from . import gloo  # noqa: F401
+from .dataset import (  # noqa: F401
+    DatasetFactory, InMemoryDataset, QueueDataset, MultiSlotDataFeed,
+)
+from .heter import HeterSection, split_heter_program  # noqa: F401

@@ -14,8 +14,10 @@ and they are identities.
 A group is a reference `ring_id`: `new_group(ranks)` makes a
 `torch.distributed.new_group` (every rank must call it, in the same
 order, as torch requires) and binds the next ring id to it; ring 0 is
-the default group.  `send`, `recv` and `split` (point-to-point and
-tensor parallel) raise: later slices, ROADMAP.md Queue 1, Distribution.
+the default group.  `send` / `recv` are point-to-point: eagerly
+torch.distributed's send and recv, statically the p_send / p_recv ops.
+`split` raises, as in the JAX package (the tensor-parallel layers are
+distributed/tensor_parallel.py's).
 """
 from __future__ import annotations
 
@@ -31,8 +33,6 @@ __all__ = [
     "scatter", "barrier", "all_to_all", "alltoall", "send", "recv",
     "new_group", "get_group", "wait", "split",
 ]
-
-_LATER = "ROADMAP.md Queue 1, Distribution"
 
 
 class ReduceOp:
@@ -255,15 +255,52 @@ alltoall = all_to_all
 
 
 def send(tensor, dst=0, group=None, use_calc_stream=True):
-    raise NotImplementedError(
-        f"send / recv (point-to-point, the pipeline path) are not ported "
-        f"yet ({_LATER})")
+    """Point-to-point send to group rank `dst`.  Static: the p_send op (the
+    identity; its p_recv moves the data, as in the JAX package).  Eager:
+    torch.distributed's send of the tensor (a no-op off a process
+    group); returns None."""
+    if _is_static(tensor):
+        return _static("p_send", tensor, {"ring_id": _ring_id(group),
+                                          "use_calc_stream": True,
+                                          "peer": dst})
+    g = _kc.ring_group(_ring_id(group))
+    if g is not None:
+        _p2p(tensor, dst, g, send=True)
+    return None
 
 
 def recv(tensor, src=0, group=None, use_calc_stream=True):
-    raise NotImplementedError(
-        f"send / recv (point-to-point, the pipeline path) are not ported "
-        f"yet ({_LATER})")
+    """Point-to-point receive from group rank `src` into `tensor`.  Static:
+    the p_recv op (`peer` = src; its output var).  Eager:
+    torch.distributed's recv into the tensor (a no-op off a process
+    group); returns None."""
+    if _is_static(tensor):
+        return _static("p_recv", tensor, {"ring_id": _ring_id(group),
+                                          "use_calc_stream": True,
+                                          "peer": src})
+    g = _kc.ring_group(_ring_id(group))
+    if g is not None:
+        _p2p(tensor, src, g, send=False)
+    return None
+
+
+def _p2p(tensor, peer, group, send):
+    """send / recv of `tensor` with group rank `peer` (gloo's CUDA path has
+    neither: a host copy)."""
+    import torch.distributed as dist
+    peer = dist.get_global_rank(group, int(peer))
+    host = _kc._gloo(group) and tensor.is_cuda
+    buf = tensor.detach().cpu() if host else tensor.detach()
+    if not buf.is_contiguous():
+        buf = buf.contiguous()
+    with _kc._Comm(buf, "send" if send else "recv"):
+        if send:
+            dist.send(buf, peer, group=group)
+        else:
+            dist.recv(buf, peer, group=group)
+    if not send and buf.data_ptr() != tensor.data_ptr():
+        with torch.no_grad():
+            tensor.copy_(buf)
 
 
 def wait(tensor, group=None, use_calc_stream=True):

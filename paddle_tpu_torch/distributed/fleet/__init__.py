@@ -1,4 +1,4 @@
-"""paddle.distributed.fleet, collective mode.
+"""paddle.distributed.fleet.
 
 Counterpart of paddle_tpu/distributed/fleet/__init__.py:
 
@@ -14,8 +14,13 @@ Counterpart of paddle_tpu/distributed/fleet/__init__.py:
 process group (one process a rank).  The meta-optimizers: lars, lamb,
 dgc, recompute, amp, fp16_allreduce, sharding (ZeRO stages 1-3),
 gradient_merge, localsgd and adaptive_localsgd; strategy.tensor_parallel
-sets the CompiledProgram's tensor_parallel_degree.  The pipeline and the
-parameter server raise (ROADMAP.md Queue 1, Distribution).
+sets the CompiledProgram's tensor_parallel_degree; strategy.pipeline
+makes it a PipelineCompiledProgram.  Off collective mode, with server
+endpoints in the environment, minimize makes a parameter-server trainer
+program (strategy.a_sync: sync, async or geo) and init_server /
+run_server / init_worker / stop_worker drive the PS runtime.  The data
+generators (data_generator.py) write the MultiSlot format the dataset
+path reads.
 """
 from .base.distributed_strategy import DistributedStrategy  # noqa: F401
 from .base.role_maker import (  # noqa: F401
@@ -25,6 +30,9 @@ from .base.fleet_base import Fleet, fleet as _fleet_singleton  # noqa: F401
 from .base.util_factory import UtilBase  # noqa: F401
 from . import meta_optimizers  # noqa: F401
 from . import metrics  # noqa: F401
+from .data_generator import (  # noqa: F401
+    DataGenerator, MultiSlotDataGenerator, MultiSlotStringDataGenerator,
+)
 
 # the singleton's methods at module scope, as the reference's
 # fleet/__init__.py has them

@@ -2,13 +2,17 @@
 
 Counterpart of paddle_tpu/distributed/fleet/base/fleet_base.py:
 `fleet.init(role_maker, is_collective)` forms the process group
-(`init_parallel_env`), the worker queries, and
-`fleet.distributed_optimizer(opt, strategy).minimize(loss)`, which
+(`init_parallel_env`) in collective mode, the worker and server queries,
+and `fleet.distributed_optimizer(opt, strategy).minimize(loss)`, which
 chains the applicable meta-optimizers (StrategyCompiler) and leaves
-`fleet.main_program` a CompiledProgram with data parallel
-(GraphExecutionOptimizer).  The parameter-server runtime (init_worker,
-init_server, run_server, stop_worker, a server role) and the pipeline
-strategy are not ported (ROADMAP.md Queue 1, Distribution) and raise.
+`fleet.main_program` the program to run: a CompiledProgram with data
+parallel (GraphExecutionOptimizer), a PipelineCompiledProgram under
+`strategy.pipeline` (FleetPipelineOptimizer), or, off collective mode
+with server endpoints, a PSCompiledProgram (ParameterServerOptimizer;
+sync, async or geo from `strategy.a_sync` / `a_sync_configs`).  The
+parameter-server runtime: `init_server` / `run_server` serve this
+server's KV store, `init_worker` connects a client, `stop_worker` shuts
+the servers down (distributed/ps/the_one_ps.py).
 """
 from __future__ import annotations
 
@@ -22,14 +26,6 @@ from .strategy_compiler import StrategyCompiler
 from .util_factory import UtilFactory
 
 __all__ = ["Fleet", "fleet"]
-
-_LATER = "ROADMAP.md Queue 1, Distribution"
-
-
-def _no_ps(what):
-    raise NotImplementedError(
-        f"fleet.{what}: the parameter-server runtime is not ported yet "
-        f"({_LATER})")
 
 
 class Fleet:
@@ -100,16 +96,20 @@ class Fleet:
         self._util.barrier("worker")
 
     def init_worker(self):
-        _no_ps("init_worker")
+        from ...ps.the_one_ps import ps_runtime
+        ps_runtime().init_worker(self)
 
     def init_server(self, *args, **kwargs):
-        _no_ps("init_server")
+        from ...ps.the_one_ps import ps_runtime
+        ps_runtime().init_server(self, *args, **kwargs)
 
     def run_server(self):
-        _no_ps("run_server")
+        from ...ps.the_one_ps import ps_runtime
+        ps_runtime().run_server(self)
 
     def stop_worker(self):
-        _no_ps("stop_worker")
+        from ...ps.the_one_ps import ps_runtime
+        ps_runtime().stop_worker(self)
 
     def distributed_optimizer(self, optimizer, strategy=None):
         self._user_defined_optimizer = optimizer
@@ -122,14 +122,18 @@ class Fleet:
         if self._user_defined_optimizer is None:
             raise RuntimeError("call fleet.distributed_optimizer first")
         strategy = copy.deepcopy(self._user_defined_strategy)
-        if strategy.pipeline:
-            raise NotImplementedError(
-                f"DistributedStrategy.pipeline is not ported yet ({_LATER})")
-        if not self._is_collective and self._role_maker and \
-                self._role_maker.get_pserver_endpoints():
-            _no_ps("minimize with server endpoints")
         candidates = MetaOptimizerFactory()._get_valid_meta_optimizers(
             self._user_defined_optimizer)
+        if strategy.pipeline:
+            from ....pipeline.pipeline_optimizer import \
+                FleetPipelineOptimizer
+            candidates.insert(-1, FleetPipelineOptimizer(
+                self._user_defined_optimizer))
+        if not self._is_collective and self._role_maker and \
+                self._role_maker.get_pserver_endpoints():
+            from ...ps.ps_optimizer import ParameterServerOptimizer
+            candidates = [ParameterServerOptimizer(
+                self._user_defined_optimizer)]
         compiler = StrategyCompiler()
         final_opt, chosen = compiler.generate_optimizer(
             loss, self._role_maker, self._user_defined_optimizer,
@@ -148,8 +152,9 @@ class Fleet:
 
     @property
     def main_program(self):
-        """The program to hand exe.run: the CompiledProgram collective
-        minimize made, else the minimized program."""
+        """The program to hand exe.run: the CompiledProgram, pipeline or
+        parameter-server program minimize made, else the minimized
+        program."""
         return self._compiled_program or self._origin_main_program
 
     @property

@@ -1,13 +1,15 @@
 """RoleMaker: the job's topology from the environment.
 
-Counterpart of paddle_tpu/distributed/fleet/base/role_maker.py, the
-collective role: PaddleCloudRoleMaker reads PADDLE_TRAINER_ID and
-PADDLE_TRAINER_ENDPOINTS (the launcher's contract); UserDefinedRoleMaker
-takes them as arguments.  The parameter-server roles (TRAINING_ROLE=
-PSERVER, server endpoints) are not ported (ROADMAP.md Queue 1,
-Distribution) and raise.  Barrier and all-gather go through the gloo
+Counterpart of paddle_tpu/distributed/fleet/base/role_maker.py.
+PaddleCloudRoleMaker reads the launcher's contract: in collective mode
+PADDLE_TRAINER_ID and PADDLE_TRAINER_ENDPOINTS; in parameter-server mode
+also TRAINING_ROLE (TRAINER or PSERVER), PADDLE_PSERVERS_IP_PORT_LIST and,
+for a server, POD_IP and PADDLE_PORT, whose endpoint's position in the
+server list is the server's index.  UserDefinedRoleMaker takes the same
+topology as arguments.  Barrier and all-gather go through the gloo
 rendezvous store (distributed/gloo.py) when the launcher configured one
-(PADDLE_GLOO_RENDEZVOUS), else through torch.distributed when a process
+(PADDLE_GLOO_RENDEZVOUS), in the role's own comm world (workers and
+servers never share keys), else through torch.distributed when a process
 group is initialised (a world of one otherwise).
 """
 from __future__ import annotations
@@ -17,8 +19,6 @@ from enum import IntEnum
 
 __all__ = ["Role", "RoleMakerBase", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker"]
-
-_LATER = "ROADMAP.md Queue 1, Distribution"
 
 
 class Role(IntEnum):
@@ -91,14 +91,20 @@ class RoleMakerBase:
     def _get_gloo(self):
         if not getattr(self, "_gloo_checked", False):
             from ...gloo import gloo_from_env
-            self._gloo = gloo_from_env("worker")
+            self._gloo = gloo_from_env(
+                "worker" if self.is_worker() else "server")
             self._gloo_checked = True
         return self._gloo
+
+    def _default_world(self):
+        # a server's role maker never lands on the workers' store keys
+        # (different world sizes would alias barriers and gathers)
+        return "worker" if self.is_worker() else "server"
 
     def _barrier(self, comm_world=None):
         g = self._get_gloo()
         if g is not None:
-            g.barrier(comm_world or "worker")
+            g.barrier(comm_world or self._default_world())
             return
         from .util_factory import UtilBase
         UtilBase().barrier()
@@ -106,13 +112,13 @@ class RoleMakerBase:
     def _all_gather(self, input, comm_world=None):
         g = self._get_gloo()
         if g is not None:
-            return g.all_gather(input, comm_world or "worker")
+            return g.all_gather(input, comm_world or self._default_world())
         from .util_factory import UtilBase
         return UtilBase().all_gather(input)
 
 
 class PaddleCloudRoleMaker(RoleMakerBase):
-    """The collective role from PADDLE_TRAINER_ID / PADDLE_TRAINER_ENDPOINTS."""
+    """The role from the launcher's environment (module docstring)."""
 
     def __init__(self, is_collective=False, **kwargs):
         super().__init__()
@@ -120,36 +126,45 @@ class PaddleCloudRoleMaker(RoleMakerBase):
         self._kwargs = kwargs
 
     def _generate_role(self):
-        if not self._is_collective and os.environ.get(
-                "TRAINING_ROLE", "TRAINER").upper() == "PSERVER":
-            raise NotImplementedError(
-                f"the parameter-server role (TRAINING_ROLE=PSERVER) is not "
-                f"ported yet ({_LATER})")
         self._worker_endpoints = [
             e for e in os.environ.get(
                 "PADDLE_TRAINER_ENDPOINTS", "").split(",") if e]
-        self._current_id = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
-        self._role = Role.WORKER
+        if self._is_collective:
+            self._current_id = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+            self._role = Role.WORKER
+        else:
+            role = os.environ.get("TRAINING_ROLE", "TRAINER").upper()
+            self._server_endpoints = [
+                e for e in os.environ.get(
+                    "PADDLE_PSERVERS_IP_PORT_LIST", "").split(",") if e]
+            if role == "PSERVER":
+                self._role = Role.SERVER
+                ep = (f"{os.environ.get('POD_IP', '127.0.0.1')}:"
+                      f"{os.environ.get('PADDLE_PORT', '0')}")
+                self._current_id = (self._server_endpoints.index(ep)
+                                    if ep in self._server_endpoints else 0)
+            else:
+                self._role = Role.WORKER
+                self._current_id = int(os.environ.get(
+                    "PADDLE_TRAINER_ID", "0"))
         if not self._worker_endpoints:
             self._worker_endpoints = ["127.0.0.1:0"]
         self._role_is_generated = True
 
 
 class UserDefinedRoleMaker(RoleMakerBase):
-    """An explicit collective topology."""
+    """An explicit topology, collective or parameter-server."""
 
     def __init__(self, is_collective=False, current_id=0, role=Role.WORKER,
                  worker_num=1, worker_endpoints=None, server_endpoints=None,
                  **kwargs):
         super().__init__()
-        if role != Role.WORKER or server_endpoints:
-            raise NotImplementedError(
-                f"parameter-server roles are not ported yet ({_LATER})")
         self._is_collective = is_collective
         self._current_id = current_id
         self._role = role
         self._worker_endpoints = worker_endpoints or \
             [f"127.0.0.1:{6170 + i}" for i in range(worker_num)]
+        self._server_endpoints = server_endpoints or []
 
     def _generate_role(self):
         self._role_is_generated = True

@@ -14,9 +14,9 @@ implementation with two rendezvous backends:
   * FILE  — a shared directory (single host or NFS): each rank writes
     `<prefix>/<world>/<generation>/<rank>` and polls for its peers —
     byte-for-byte the HdfsStore pattern with local files.
-  * HTTP  — the parameter server's KV server as the store.  It belongs
-    to the PS tier, which is not ported: it raises (ROADMAP.md Queue 1,
-    Distribution).
+  * HTTP  — the parameter server's KV server (distributed/ps/
+    kv_server.py) as the store, over its OP_SET / OP_PULL plane (the
+    reference's http_server.py role).
 
 Generation counters make barriers/gathers reusable (no stale-key
 aliasing between consecutive collectives).
@@ -69,10 +69,33 @@ class _KVStore:
     """The HTTP rendezvous store: the parameter server's KV server."""
 
     def __init__(self, endpoint: str, prefix: str = ""):
-        raise NotImplementedError(
-            "the gloo HTTP rendezvous needs the parameter server's KV "
-            "server (ps/kv_server.py), which is not ported yet "
-            "(ROADMAP.md Queue 1, Distribution); use the FILE rendezvous")
+        from .ps.kv_server import KVClient
+        self._c = KVClient([endpoint])
+        self._prefix = prefix or "gloo"
+
+    def set(self, key: str, blob: bytes):
+        import numpy as np
+        self._c.set_param(f"{self._prefix}/{key}",
+                          np.frombuffer(blob, dtype=np.uint8).copy())
+
+    def get(self, key: str) -> Optional[bytes]:
+        try:
+            arr = self._c.pull(f"{self._prefix}/{key}")
+        except KeyError:
+            return None
+        import numpy as np
+        return np.asarray(arr, dtype=np.uint8).tobytes()
+
+    def delete(self, key: str):
+        # the KV server has no delete: overwrite with an empty value
+        # (get() reads a zero-length value as present, so a stale key
+        # shrinks to nothing rather than going away)
+        import numpy as np
+        try:
+            self._c.set_param(f"{self._prefix}/{key}",
+                              np.zeros((0,), np.uint8))
+        except (ConnectionError, OSError):
+            pass
 
 
 class Gloo:

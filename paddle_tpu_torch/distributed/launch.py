@@ -31,8 +31,18 @@ restore step with the other survivors and relaunches with the
 PADDLE_TPU_FLEET_* contract.  `--journal_dir` is exported to the
 trainers (PADDLE_TPU_JOURNAL_DIR), whose journals the agreement reads.
 
-Not ported: `--run_mode ps` (ROADMAP.md Queue 1, Distribution); it
-raises.
+`--run_mode ps` (or any of `--server_num`, `--servers`) runs
+`launch_ps`: `--server_num` parameter servers (or the `--servers`
+endpoints) and `--worker_num` trainers (or `--workers`), each a process
+of the training script with the PS env contract (TRAINING_ROLE=PSERVER or
+TRAINER, PADDLE_PSERVERS_IP_PORT_LIST, PADDLE_TRAINERS_NUM, a server's
+POD_IP / PADDLE_PORT, a trainer's PADDLE_TRAINER_ID), logs under
+`--log_dir` (serverlog.N, workerlog.N).  The launcher returns when every
+trainer has exited: 0 when all exited 0; a trainer that fails tears the
+job down at once (its peers would wait on the servers' sync rounds).  A
+server is expected to end when a trainer's `fleet.stop_worker()` shuts
+the servers down; one still running `--term_grace` seconds after the
+last trainer is terminated.
 """
 from __future__ import annotations
 
@@ -45,10 +55,8 @@ from .launch_utils import (get_cluster, start_local_trainers,
                            poll_local_trainers, terminate_procs,
                            find_free_ports)
 
-__all__ = ["launch_collective", "launch_collective_fleet", "main",
-           "elastic_world_size"]
-
-_LATER = "ROADMAP.md Queue 1, Distribution"
+__all__ = ["launch_collective", "launch_collective_fleet", "launch_ps",
+           "main", "elastic_world_size"]
 
 
 def _parse_args(argv=None):
@@ -64,6 +72,14 @@ def _parse_args(argv=None):
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--run_mode", type=str, default="collective",
                    choices=["collective", "ps"])
+    p.add_argument("--server_num", type=int, default=None,
+                   help="parameter servers on free local ports (ps mode)")
+    p.add_argument("--worker_num", type=int, default=None,
+                   help="trainers (ps mode)")
+    p.add_argument("--servers", type=str, default="",
+                   help="comma-separated server endpoints (ps mode)")
+    p.add_argument("--workers", type=str, default="",
+                   help="comma-separated trainer endpoints (ps mode)")
     p.add_argument("--elastic", action="store_true",
                    help="supervise: on a lost rank, re-form the pod from "
                         "the survivors and relaunch, resuming from the "
@@ -389,12 +405,89 @@ def launch_collective_fleet(args):
         restarts += 1
 
 
+def launch_ps(args):
+    """The parameter-server job: servers and trainers as processes of the
+    training script with the PS env contract (module docstring)."""
+    import subprocess
+    server_eps = [e for e in args.servers.split(",") if e]
+    worker_eps = [e for e in args.workers.split(",") if e]
+    if not server_eps:
+        n = args.server_num or 1
+        server_eps = [f"127.0.0.1:{p}" for p in find_free_ports(n)]
+    if not worker_eps:
+        n = args.worker_num or 1
+        worker_eps = [f"127.0.0.1:{p}" for p in find_free_ports(n)]
+    base_env = dict(os.environ)
+    base_env["PADDLE_PSERVERS_IP_PORT_LIST"] = ",".join(server_eps)
+    base_env["PADDLE_TRAINERS_NUM"] = str(len(worker_eps))
+    cmd = [sys.executable, "-u", args.training_script] + \
+        args.training_script_args
+    if args.log_dir:
+        os.makedirs(args.log_dir, exist_ok=True)
+
+    def start(env, log_name):
+        out = None
+        if args.log_dir:
+            out = open(os.path.join(args.log_dir, log_name), "w")
+        p = subprocess.Popen(cmd, env=env, stdout=out,
+                             stderr=subprocess.STDOUT if out else None)
+        if out is not None:
+            out.close()
+        return p
+
+    servers, trainers = [], []
+    for i, ep in enumerate(server_eps):
+        ip, port = ep.rsplit(":", 1)
+        servers.append(start(dict(base_env, TRAINING_ROLE="PSERVER",
+                                  PADDLE_PORT=port, POD_IP=ip,
+                                  PADDLE_TRAINER_ID=str(i)),
+                             f"serverlog.{i}"))
+    for i, ep in enumerate(worker_eps):
+        trainers.append(start(dict(base_env, TRAINING_ROLE="TRAINER",
+                                   PADDLE_TRAINER_ID=str(i),
+                                   PADDLE_CURRENT_ENDPOINT=ep),
+                              f"workerlog.{i}"))
+    everyone = servers + trainers
+
+    def teardown(procs):
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        deadline = time.time() + max(0.0, float(args.term_grace))
+        for p in procs:
+            try:
+                p.wait(max(0.1, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    while True:
+        codes = [p.poll() for p in trainers]
+        bad = {i: c for i, c in enumerate(codes) if c not in (None, 0)}
+        dead_servers = {i: p.poll() for i, p in enumerate(servers)
+                        if p.poll() not in (None, 0)}
+        if bad or dead_servers:
+            sys.stderr.write(
+                f"ps launch: trainer(s) {bad} / server(s) {dead_servers} "
+                "exited non-zero; tearing the job down\n")
+            teardown(everyone)
+            return 1
+        if all(c == 0 for c in codes):
+            break
+        time.sleep(0.2)
+    # every trainer exited 0: the servers end on a trainer's stop_worker
+    deadline = time.time() + max(0.0, float(args.term_grace))
+    while time.time() < deadline and any(p.poll() is None
+                                         for p in servers):
+        time.sleep(0.1)
+    teardown(servers)
+    return 0
+
+
 def main(argv=None):
     args = _parse_args(argv)
-    if args.run_mode == "ps":
-        raise NotImplementedError(
-            f"the parameter-server launcher (--run_mode ps) is not ported "
-            f"yet ({_LATER})")
+    if args.run_mode == "ps" or args.server_num or args.servers:
+        return launch_ps(args)
     return launch_collective(args)
 
 

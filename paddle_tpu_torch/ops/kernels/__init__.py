@@ -20,4 +20,5 @@ from . import (  # noqa: F401
     stragglers,
     sparse_feature,
     collective,
+    distributed_ops,
 )

@@ -1,5 +1,6 @@
 """relu, gelu (exact (erf) by default, the tanh form when attr
-`approximate` is set), square and sqrt (the global-norm gradient clip).
+`approximate` is set), square and sqrt (the global-norm gradient clip),
+sigmoid and log.
 Counterpart of paddle_tpu/ops/kernels/activation.py.  relu's grad op
 reads the forward's Out (dX = dOut where Out > 0, else 0: jax.nn.relu's
 gradient, 0 at 0) instead of replaying the forward."""
@@ -37,3 +38,13 @@ def square(ins, attrs, ctx):
 @register_op("sqrt", inputs=["X"], outputs=["Out"])
 def sqrt(ins, attrs, ctx):
     return {"Out": torch.sqrt(ins["X"])}
+
+
+@register_op("sigmoid", inputs=["X"], outputs=["Out"])
+def sigmoid(ins, attrs, ctx):
+    return {"Out": torch.sigmoid(ins["X"])}
+
+
+@register_op("log", inputs=["X"], outputs=["Out"])
+def log(ins, attrs, ctx):
+    return {"Out": torch.log(ins["X"])}

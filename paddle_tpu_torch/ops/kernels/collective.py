@@ -36,8 +36,15 @@ executor's rule: an input may be a scope buffer a captured step reads).
 
 The sync, wait and comm-init ops are no-ops: torch.distributed orders
 the collectives on the streams itself and forms its communicators at
-`init_process_group`.  The point-to-point ops raise: they belong to a
-later slice.
+`init_process_group`.
+
+The point-to-point ops: p_send is the identity and p_recv moves the data
+(the JAX package's send/recv pair is one `ppermute` on the receiving
+side).  With `me`, rank `peer` sends to rank `me`, which receives, and
+every other rank's result is zeros; without `me`, every rank gets
+`peer`'s X, a broadcast (the JAX package lists that permutation, which
+`ppermute` refuses on a ring of more than one rank: sources must be
+unique).  partial_allgather is c_allgather.
 
 The elastic schedule's two ops (distributed/elastic.py):
 elastic_commit_mask is True where the post-increment micro-step counter
@@ -76,8 +83,6 @@ __all__ = ["register_ring", "clear_rings", "ring_group", "bound_group",
            "rank_of", "all_reduce", "gather_rows", "broadcast",
            "reduce_scatter", "all_to_all", "COMM_STATS", "reset_comm_stats",
            "time_collectives"]
-
-_LATER = "ROADMAP.md Queue 1, Distribution"
 
 # ring_id -> process group; ring 0 is the default group unless set
 _RINGS: Dict[int, Any] = {}
@@ -582,21 +587,58 @@ def c_embedding(ins, attrs, ctx):
     return {"Out": out}
 
 
-def _later(name, ins_spec, outs_spec):
-    @register_op(name, inputs=ins_spec, outputs=outs_spec, grad=None,
-                 side_effect=True)
-    def kernel(ins, attrs, ctx, _name=name):
-        raise NotImplementedError(
-            f"op {_name!r} (point-to-point or elastic) is not ported yet "
-            f"({_LATER})")
-    return kernel
+@register_op("p_send", inputs=["X"], outputs=["Out?"], grad=None,
+             side_effect=True)
+def p_send(ins, attrs, ctx):
+    """The send half of a point-to-point pair: the identity, as in the JAX
+    package, whose send/recv pair is one collective permute realised on
+    the receiving side.  Here p_recv moves the data: its `peer` rank
+    sends."""
+    return {"Out": ins["X"]}
 
 
-for _name, _ins, _outs in (
-        ("p_send", ["X"], ["Out?"]),
-        ("p_recv", ["X"], ["Out"]),
-        ("partial_allgather", ["X"], ["Out"])):
-    _later(_name, _ins, _outs)
+@register_op("p_recv", inputs=["X"], outputs=["Out"], grad=None,
+             side_effect=True)
+def p_recv(ins, attrs, ctx):
+    """The JAX package's `ppermute` from `peer` along the ring, one
+    process a rank: with `me`, rank `me` gets `peer`'s X and every other
+    rank zeros (rank `peer` sends; it keeps its own X only where it is
+    `me`); without `me`, every rank gets `peer`'s X, a broadcast from
+    `peer`.  Off a process group it is the identity."""
+    x = ins["X"]
+    group = ring_group(attrs.get("ring_id", 0))
+    if group is None:
+        return {"Out": x}
+    dist, w, r = _dist(), world_of(group), rank_of(group)
+    peer = int(attrs.get("peer", 0)) % w
+    me = attrs.get("me", None)
+    _count_op("p_recv")
+    if me is None:
+        return {"Out": broadcast(x, peer, group)}
+    me = int(me) % w
+    if peer == me:
+        return {"Out": x if r == me else torch.zeros_like(x)}
+    # the CUDA path of the gloo backend has no send / recv: a host copy
+    src = x.contiguous()
+    if _gloo(group) and src.is_cuda:
+        src = src.cpu()
+    if r == peer:
+        with _Comm(src, "send"):
+            dist.send(src, dist.get_global_rank(group, me), group=group)
+        return {"Out": torch.zeros_like(x)}
+    if r == me:
+        buf = torch.empty_like(src)
+        with _Comm(buf, "recv"):
+            dist.recv(buf, dist.get_global_rank(group, peer), group=group)
+        return {"Out": buf.to(x.device)}
+    return {"Out": torch.zeros_like(x)}
+
+
+@register_op("partial_allgather", inputs=["X"], outputs=["Out"],
+             side_effect=True)
+def partial_allgather(ins, attrs, ctx):
+    """c_allgather, as in the JAX package."""
+    return c_allgather(ins, attrs, ctx)
 
 
 @register_op("elastic_commit_mask", inputs=["X"], outputs=["Out"],

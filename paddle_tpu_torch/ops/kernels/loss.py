@@ -1,4 +1,5 @@
-"""Loss ops of the training slice: softmax_with_cross_entropy.
+"""Loss ops of the training slice: softmax_with_cross_entropy, and
+cross_entropy over probabilities (the CTR programs' softmax head).
 
 Counterpart of paddle_tpu/ops/kernels/loss.py, with the same fused hook:
 with FLAGS_fused_xent on, hard labels over the last axis take the fused
@@ -43,3 +44,22 @@ def softmax_with_cross_entropy(ins, attrs, ctx):
         loss = torch.where(lbl == ignore_index, torch.zeros_like(picked),
                            -picked)
     return {"Softmax": sm.to(logits.dtype), "Loss": loss}
+
+
+@register_op("cross_entropy", inputs=["X", "Label!"], outputs=["Y"])
+def cross_entropy(ins, attrs, ctx):
+    """-log(p + 1e-12) of the label's probability (hard labels; rows whose
+    label is ignore_index give 0), or -sum(label * log(x + 1e-12)) over
+    the last axis (soft), as the JAX package computes it."""
+    x, label = ins["X"], ins["Label"]
+    eps = 1e-12
+    if attrs.get("soft_label", False):
+        return {"Y": -(label * torch.log(x + eps)).sum(-1, keepdim=True)}
+    lbl = label
+    if lbl.dim() == x.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.squeeze(-1)
+    lbl = lbl.long().unsqueeze(-1)
+    p = torch.gather(x, -1, lbl.clamp(0, x.shape[-1] - 1))
+    y = -torch.log(p + eps)
+    ignore = attrs.get("ignore_index", -100)
+    return {"Y": torch.where(lbl == ignore, torch.zeros_like(y), y)}

@@ -1,9 +1,11 @@
 """paddle_tpu_torch.static — Program construction, the BERT layer subset,
 append_backward (with recompute), the optimizers with their regularizers,
 gradient clips, gradient merge, EMA, ModelAverage, Lookahead and
-Recompute, checkpoint selection, the eager executor and CompiledProgram
-(data parallel; the `paddle.static` surface of the ported slices)."""
+Recompute, checkpoint selection, device_guard (the pipeline's stage
+annotations), the eager executor and CompiledProgram (data parallel; the
+`paddle.static` surface of the ported slices)."""
 from ..core.program import (  # noqa: F401
+    device_guard,
     Program, Block, OpDesc, VarDesc, OpRole, default_main_program,
     default_startup_program, program_guard, name_scope, unique_name,
 )

@@ -54,7 +54,15 @@ hand it the call.  Its `run_steps` under NCCL captures the step with
 its collectives and replays it like any other; under gloo, whose
 collectives run on the host and cannot be captured, it runs the K steps
 eagerly, one `run` each, as on the CPU.  Neither takes the other's
-place: a failed NCCL capture raises.
+place: a failed NCCL capture raises.  `run` also takes the pipeline
+(pipeline/pipeline_program.py) and the parameter-server trainer program
+(distributed/ps/ps_optimizer.py), each running its own `_run`
+(`run_steps` refuses them, as the JAX package's has no path for them);
+`run` of a transpiler's pserver program serves the KV store.  A program
+holding a parameter-server op (ops/kernels/distributed_ops.py
+`HOST_OPS`: a host round-trip no CUDA graph holds) runs its `run_steps`
+eagerly, one `run` each.  `train_from_dataset` / `infer_from_dataset`
+run one pass over a dataset (distributed/dataset.py), a step a batch.
 
 Checkpointing (checkpoint/, as in the JAX package): `enable_checkpointing
 (manager, every_n_steps=...)` snapshots the persistables of the training
@@ -90,6 +98,7 @@ from ..core.monitor import stat_add
 from ..core.place import Place, resolve_place
 from ..core.program import Program, default_main_program
 from ..ops.registry import get_op_info, OpContext
+from ..ops.kernels.distributed_ops import has_host_ops
 from ..testing import chaos as _chaos
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
@@ -271,18 +280,36 @@ def _fetch_names(fetch_list) -> List[str]:
 
 
 def _is_compiled(program) -> bool:
-    """True for a CompiledProgram; False for a Program; raises for any
-    other kind (pipeline and parameter-server trainer programs, which
-    the JAX package's executor also dispatches, are not ported)."""
+    """True for a CompiledProgram; False for a Program or a runnable
+    wrapper (`_is_wrapper`); raises for any other kind."""
     from ..distributed.compiled_program import CompiledProgram
     if isinstance(program, CompiledProgram):
         return True
-    if isinstance(program, Program):
+    if isinstance(program, Program) or _is_wrapper(program):
         return False
-    raise NotImplementedError(
-        f"the executor takes a Program or a CompiledProgram, got "
-        f"{type(program).__name__}: pipeline and parameter-server programs "
-        "are not ported yet (ROADMAP.md Queue 1, Distribution)")
+    raise TypeError(
+        f"the executor takes a Program, a CompiledProgram, a pipeline or a "
+        f"parameter-server trainer program, got {type(program).__name__}")
+
+
+def _is_wrapper(program) -> bool:
+    """A runnable program wrapper that is not a CompiledProgram: the
+    pipeline (pipeline/pipeline_program.py) and the parameter-server
+    trainer program (distributed/ps/ps_optimizer.py) run through their
+    own `_run(executor, feed, fetch_list, scope, return_numpy)`."""
+    from ..distributed.compiled_program import CompiledProgram
+    return program is not None and not isinstance(
+        program, (Program, CompiledProgram)) and hasattr(program, "_run")
+
+
+def _serve_pserver(program) -> list:
+    """exe.run of a transpiler's pserver program: serve the KV store
+    (listen_and_serv) until a trainer's shutdown rpc."""
+    from ..distributed.ps.kv_server import KVServer
+    cfg = program._ps_server_config
+    KVServer(cfg["endpoint"],
+             num_trainers=cfg.get("num_trainers", 1)).serve()
+    return []
 
 
 def _persistable_names(program: Program) -> List[str]:
@@ -391,12 +418,14 @@ class Executor:
             return_numpy=True):
         program = program if program is not None else default_main_program()
         t0 = time.perf_counter()
-        if _is_compiled(program):
+        if _is_compiled(program) or _is_wrapper(program):
             results = program._run(self, feed, fetch_list, scope,
                                    return_numpy)
             self._after_train_run(program, scope or global_scope(),
                                   time.perf_counter() - t0, 1)
             return results
+        if getattr(program, "_ps_server_config", None):
+            return _serve_pserver(program)
         scope = scope or global_scope()
         if not _is_startup(program):
             from ..incubate.checkpoint.auto_checkpoint import \
@@ -490,6 +519,11 @@ class Executor:
         FLAGS_check_nan_inf raises after the K steps on a non-finite fetch
         or persistable."""
         program = program if program is not None else default_main_program()
+        if _is_wrapper(program):
+            raise TypeError(
+                f"run_steps takes a Program or a CompiledProgram, got "
+                f"{type(program).__name__}: run it a step at a time with "
+                "run()")
         compiled = None
         if _is_compiled(program):
             compiled, program = program, program._get_program()
@@ -517,7 +551,7 @@ class Executor:
         if compiled is not None:
             fetched = compiled._run_steps(self, stacked, k, fetch_names,
                                           scope)
-        elif self.device.type == "cuda":
+        elif self.device.type == "cuda" and not has_host_ops(program):
             fetched = self._replay_steps(program, stacked, k, fetch_names,
                                          scope)
         else:
@@ -534,6 +568,44 @@ class Executor:
         self._after_train_run(compiled if compiled is not None else program,
                               scope, time.perf_counter() - t0, k)
         return arrays if return_numpy else fetched
+
+    # -- dataset-driven training (the reference's MultiTrainer loop) -------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None):
+        """One pass over `dataset` (distributed/dataset.py), a step per
+        batch; returns the last step's fetches."""
+        from ..distributed.dataset import run_from_dataset
+        if fetch_handler is not None:
+            raise NotImplementedError(
+                "fetch_handler callbacks are not supported; poll "
+                "fetch_list/print_period instead")
+        program = program if program is not None else default_main_program()
+        if thread:
+            dataset.set_thread(thread)
+        return run_from_dataset(self, program, dataset, scope,
+                                fetch_list, fetch_info, print_period, debug)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None):
+        """train_from_dataset on a test-mode clone with the backward,
+        optimizer and lr-schedule ops stripped: it leaves the parameters
+        as they were."""
+        from ..core.program import OpRole
+        program = program if program is not None else default_main_program()
+        infer = program.clone(for_test=True)
+        blk = infer.global_block()
+        train_roles = (OpRole.Backward, OpRole.Optimize, OpRole.LRSched,
+                       OpRole.Optimize | OpRole.LRSched)
+        blk.ops = [op for op in blk.ops
+                   if op.attrs.get(OpRole.KEY, OpRole.Forward)
+                   not in train_roles]
+        return self.train_from_dataset(infer, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
 
     # -- the prefetch-driven step loop ------------------------------------
     def run_prefetched(self, program, feeds, fetch_list=None, scope=None,

@@ -353,17 +353,25 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is None:
-        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
-    else:
-        d = dim if isinstance(dim, (list, tuple)) else [dim]
-        attrs = {"reduce_all": False, "dim": list(d), "keep_dim": keep_dim}
-    helper.append_op("reduce_sum", inputs={"X": input}, outputs={"Out": out},
-                     attrs=attrs)
-    return out
+def _make_reduce(op_type):
+    def f(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+        else:
+            d = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"reduce_all": False, "dim": list(d),
+                     "keep_dim": keep_dim}
+        helper.append_op(op_type, inputs={"X": input},
+                         outputs={"Out": out}, attrs=attrs)
+        return out
+    f.__name__ = op_type
+    return f
+
+
+reduce_sum = _make_reduce("reduce_sum")
+reduce_mean = _make_reduce("reduce_mean")
 
 
 def _make_unary(op_type):
@@ -377,8 +385,24 @@ def _make_unary(op_type):
 
 
 relu = _make_unary("relu")
+sigmoid = _make_unary("sigmoid")
 sqrt = _make_unary("sqrt")
 square = _make_unary("square")
+log = _make_unary("log")
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100,
+                  name=None):
+    """-log of the probability `input` gives the label (hard labels, a
+    [N, 1] or [N] int tensor), or -sum(label * log(input)) (soft)."""
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     inputs={"X": input, "Label": label},
+                     outputs={"Y": out},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def clip(x, min, max, name=None):

@@ -56,11 +56,21 @@ CASES = {
     "sync_calc": ("c_sync_calc_stream", {}),
     "sparse": ("sparse", {}),
     "dgc": ("dgc", {"m": 0.9, "sparsity": 0.8}),
+    "p_recv_me": ("p_recv", {"peer": 2, "me": 1}),
+    "p_recv_self": ("p_recv", {"peer": 3, "me": 3}),
+    "p_send": ("p_send", {"peer": 1}),
+    "partial_allgather": ("partial_allgather", {}),
+    "p_recv_bcast": ("p_recv", {"peer": 3}),
 }
+# the JAX package's p_recv without `me` lists a permutation with one
+# source for every rank, which jax.lax.ppermute refuses on a ring of more
+# than one rank: held against numpy (test_point_to_point) instead
+NO_JAX = {"p_recv_bcast"}
 POSITIVE = {"allreduce_sum", "allreduce_prod", "legacy_allreduce",
             "reduce_sum", "reducescatter", "scale"}
 EXACT = {"allreduce_max", "allreduce_min", "broadcast", "legacy_broadcast",
-         "allgather", "scatter", "alltoall", "barrier", "sync_calc"}
+         "allgather", "scatter", "alltoall", "barrier", "sync_calc",
+         "p_recv_me", "p_recv_self", "p_send", "partial_allgather"}
 
 
 def _inputs():
@@ -134,7 +144,8 @@ def _per_rank(a):
 
 
 @pytest.mark.parametrize("name", [n for n, (op, _) in CASES.items()
-                                  if op not in ("sparse", "dgc")])
+                                  if op not in ("sparse", "dgc")
+                                  and n not in NO_JAX])
 def test_collective_op_matches_jax(world, name):
     data, ranks = world
     op, attrs = CASES[name]
@@ -262,22 +273,35 @@ def test_world_of_one_is_identity():
     assert tdist.get_world_size() == 1 and tdist.get_rank() == 0
 
 
-def test_later_ops_raise():
+def test_later_ops_raise(world):
+    """The point-to-point ops, ported: off a process group p_send, p_recv
+    and partial_allgather are the identity and the eager send / recv
+    leave the tensor as it is; in the 4-rank world p_recv without `me` is
+    a broadcast from `peer` (the JAX kernel refuses that permutation on
+    its mesh), and the eager send / recv pass a ring of tensors.  split
+    stays refused, as in the JAX package."""
     import torch
     from paddle_tpu_torch.ops.registry import OpContext as TCtx, \
         run_kernel as trun
-    for op in ("p_recv", "partial_allgather"):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, Distribution"):
-            trun(op, {"X": torch.ones(2)}, {}, TCtx())
-    for fn in (lambda: tdist.send(torch.ones(1)),
-               lambda: tdist.recv(torch.ones(1))):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, Distribution"):
-            fn()
+    x = torch.arange(4.0)
+    for op, attrs in (("p_send", {"peer": 1}), ("p_recv", {"peer": 1}),
+                      ("p_recv", {"peer": 1, "me": 0}),
+                      ("partial_allgather", {})):
+        assert trun(op, {"X": x}, attrs, TCtx())["Out"] is x
+    t = x.clone()
+    assert tdist.send(t, 1) is None and tdist.recv(t, 1) is None
+    assert torch.equal(t, x)
+    data, ranks = world
+    want = _per_rank(data["p_recv_bcast"])[3]
+    for r in range(W):
+        np.testing.assert_array_equal(ranks[r]["p_recv_bcast"], want)
+        np.testing.assert_array_equal(
+            ranks[r]["api/recv"], np.arange(3, dtype=np.float32)
+            + 10 * ((r - 1) % W))
+    with pytest.raises(ValueError, match="unique"):
+        _jax_case("p_recv", CASES["p_recv_bcast"][1], data["p_recv_bcast"])
     # the tensor-parallel ops are ported: off a process group each is
     # the identity; split stays refused, as in the JAX package
-    x = torch.ones(2)
     for op in ("c_identity", "mp_allreduce_sum", "c_concat", "c_split"):
         assert trun(op, {"X": x}, {"ring_id": 102}, TCtx())["Out"] is x
     with pytest.raises(NotImplementedError, match="tensor_parallel"):

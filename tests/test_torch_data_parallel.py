@@ -302,8 +302,27 @@ def test_launch_refuses_what_is_not_ported(tmp_path, flag, capsys,
                             "train.py"]) == 2
         assert "needs --fleet_dir" in capsys.readouterr().err
         return
-    with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
-        launch.main([flag, "train.py"])
+    # --run_mode ps is ported: two servers and two trainers start with the
+    # PS env contract (tests/test_torch_ps_runtime.py trains through it)
+    script = tmp_path / "role.py"
+    script.write_text(
+        "import json, os, sys\n"
+        "keys = ('TRAINING_ROLE', 'PADDLE_TRAINER_ID', 'PADDLE_PORT',\n"
+        "        'PADDLE_PSERVERS_IP_PORT_LIST', 'PADDLE_TRAINERS_NUM')\n"
+        "env = {k: os.environ.get(k) for k in keys}\n"
+        "name = env['TRAINING_ROLE'] + env['PADDLE_TRAINER_ID']\n"
+        "json.dump(env, open(os.path.join(sys.argv[1], name), 'w'))\n")
+    assert launch.main([flag, "--server_num", "2", "--worker_num", "2",
+                        str(script), str(tmp_path)]) == 0
+    envs = {n: json.load(open(tmp_path / n))
+            for n in ("PSERVER0", "PSERVER1", "TRAINER0", "TRAINER1")}
+    servers = envs["PSERVER0"]["PADDLE_PSERVERS_IP_PORT_LIST"].split(",")
+    assert len(servers) == 2
+    for n, e in envs.items():
+        assert e["PADDLE_TRAINERS_NUM"] == "2"
+        assert e["PADDLE_PSERVERS_IP_PORT_LIST"] == ",".join(servers)
+    assert [envs[f"PSERVER{i}"]["PADDLE_PORT"] for i in range(2)] == \
+        [ep.split(":")[1] for ep in servers]
 
 
 def test_compiled_program_refuses_what_is_not_ported():

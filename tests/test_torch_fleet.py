@@ -13,9 +13,9 @@ no process group is formed.  Strategies: amp, recompute, gradient_merge,
 fp16_allreduce, lars, lamb, localsgd, adaptive_localsgd, dgc, and
 combinations (amp with gradient merge and fp16 allreduce; amp with lamb,
 where lamb wins and amp is dropped, as in the JAX package; sharding at
-stages 1-3, with amp and gradient merge).  The strategies that are not
-ported (pipeline, the parameter server) raise naming ROADMAP.md Queue 1,
-Distribution.
+stages 1-3, with amp and gradient merge; the pipeline).  The parameter
+server's role and meta-optimizer are checked here too; its training is
+tests/test_torch_ps_runtime.py's.
 """
 import numpy as np
 import pytest
@@ -175,33 +175,76 @@ def test_amp_and_lamb_resolve_as_jax():
 
 @pytest.mark.parametrize("what", ["sharding", "pipeline"])
 def test_unported_strategies_raise(what):
-    """The pipeline raises.  Sharding (ZeRO) is ported now: its case
-    builds the JAX package's programs, its meta-optimizer in the chain."""
+    """Sharding (ZeRO) and the pipeline are ported: each case builds the
+    JAX package's programs, its meta-optimizer in the chain; the
+    pipeline's fleet.main_program is a PipelineCompiledProgram of M =
+    accumulate_steps in both packages."""
     if what == "sharding":
         (jm, js, _, jmeta), (tm, ts, _, tmeta) = _both("sharding")
         assert "ShardingOptimizer" in tmeta and tmeta == jmeta
         assert tm.to_dict() == jm.to_dict() and ts.to_dict() == js.to_dict()
         return
+    from paddle_tpu_torch.pipeline import PipelineCompiledProgram
+    STRATEGIES["pipeline"] = (_adam, _set(pipeline=True, pipeline_configs={
+        "micro_batch": 2, "accumulate_steps": 2}))
+    try:
+        (jm, js, _, jmeta), (tm, ts, _, tmeta) = _both("pipeline")
+    finally:
+        del STRATEGIES["pipeline"]
+    assert "FleetPipelineOptimizer" in tmeta and tmeta == jmeta
+    assert tm.to_dict() == jm.to_dict() and ts.to_dict() == js.to_dict()
+    assert isinstance(tfleet.main_program, PipelineCompiledProgram)
+    assert tfleet.main_program._M == jfleet.main_program._M == 2
 
-    def configure(s, ckpts):
-        setattr(s, what, True)
-    torch_reset_names()
-    with flash_mode(False), pytest.raises(NotImplementedError,
-                                          match="Queue 1, Distribution"):
-        _build(paddle_tpu_torch, tfleet, _adam, configure)
 
-
-def test_parameter_server_raises():
+def test_parameter_server_raises(monkeypatch):
+    """The parameter server is ported: with TRAINING_ROLE=PSERVER the role
+    maker is a server (index from POD_IP:PADDLE_PORT in the server list)
+    in both packages, as is a UserDefinedRoleMaker(role=SERVER); a
+    trainer's fleet.minimize with server endpoints picks
+    ParameterServerOptimizer and hands back a PSCompiledProgram, as the
+    JAX package does (tests/test_torch_ps_runtime.py trains it)."""
+    from paddle_tpu.distributed.fleet.base import role_maker as jrm
     from paddle_tpu_torch.distributed.fleet import (Role,
                                                     UserDefinedRoleMaker)
-    tfleet.init(is_collective=True)
-    for fn in (tfleet.init_worker, tfleet.init_server, tfleet.run_server,
-               tfleet.stop_worker):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, Distribution"):
-            fn()
-    with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
-        UserDefinedRoleMaker(role=Role.SERVER)
+    from paddle_tpu_torch.distributed.fleet.base import role_maker as trm
+    from paddle_tpu_torch.distributed.ps.ps_optimizer import \
+        PSCompiledProgram
+    eps = "10.0.0.1:7000,10.0.0.2:7001"
+    for k, v in (("TRAINING_ROLE", "PSERVER"), ("POD_IP", "10.0.0.2"),
+                 ("PADDLE_PORT", "7001"),
+                 ("PADDLE_PSERVERS_IP_PORT_LIST", eps),
+                 ("PADDLE_TRAINERS_NUM", "3")):
+        monkeypatch.setenv(k, v)
+    roles = [m.PaddleCloudRoleMaker(is_collective=False)
+             for m in (jrm, trm)]
+    for r in roles:
+        assert r.is_server() and not r.is_worker()
+        assert r.server_index() == 1 and r.server_num() == 2
+        assert r.worker_num() == 3
+        assert r.get_pserver_endpoints() == eps.split(",")
+    u = UserDefinedRoleMaker(role=Role.SERVER, current_id=1,
+                             server_endpoints=eps.split(","))
+    assert u.is_server() and u.server_index() == 1
+    monkeypatch.setenv("TRAINING_ROLE", "TRAINER")
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "2")
+    t = trm.PaddleCloudRoleMaker(is_collective=False)
+    assert t.is_worker() and t.worker_index() == 2
+    static, layers = paddle_tpu_torch.static, paddle_tpu_torch.static.layers
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 4])
+        loss = layers.mean(layers.fc(x, 1))
+        tfleet.init(role_maker=t)
+        strategy = tfleet.DistributedStrategy()
+        strategy.a_sync = True
+        tfleet.distributed_optimizer(static.SGD(learning_rate=0.1),
+                                     strategy)
+        tfleet.minimize(loss)
+    assert tfleet.applied_meta_list() == ["ParameterServerOptimizer"]
+    assert isinstance(tfleet.main_program, PSCompiledProgram)
+    assert tfleet.main_program._mode == "async"
+    assert tfleet.main_program._trainer_id == 2
 
 
 def test_role_and_util_at_world_one(monkeypatch):

@@ -14,8 +14,8 @@ reach the same conclusions from the same directory:
     the same journals; a fleet barrier across the packages; the env
     contract (`fleet_env`) of a commit;
   * the gloo FILE rendezvous: two processes pass a barrier and an
-    all-gather, the role maker's included; the HTTP store refuses,
-    naming the PS tier;
+    all-gather, the role maker's included; the HTTP rendezvous over the
+    PS tier's KV server, each package's Gloo on the other's server;
   * the chaos grammar parses to the same directives, and its hooks fire
     as in the JAX package (a kill in a subprocess, a torn save, an
     injected collective failure with its budget);
@@ -200,10 +200,54 @@ def test_gloo_file_store_two_processes(tmp_path):
 
 
 def test_gloo_http_store_waits_for_the_ps_tier(monkeypatch):
-    monkeypatch.setenv("PADDLE_GLOO_RENDEZVOUS", "3")
-    monkeypatch.setenv("PADDLE_GLOO_HTTP_ENDPOINT", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
-        tgloo.gloo_from_env()
+    """The HTTP rendezvous store is the PS tier's KV server: two ranks
+    (threads) of each package pass a barrier and an all-gather over one
+    server of the other package, as the JAX package's Gloo does over its
+    own (tests/test_gloo.py); gloo_from_env builds it from the env
+    contract, and without a rendezvous it is None."""
+    import numpy as np
+    from paddle_tpu.distributed import gloo as jgloo
+    from paddle_tpu.distributed.ps.kv_server import KVServer as JServer
+    from paddle_tpu_torch.distributed.ps.kv_server import KVServer
+    for gmod, server in ((tgloo, JServer), (jgloo, KVServer)):
+        srv = server("127.0.0.1:0", num_trainers=1)
+        srv.serve_in_thread()
+        try:
+            host, port = srv.endpoint.rsplit(":", 1)
+            got = {}
+
+            def rank(r, gmod=gmod, host=host, port=port):
+                g = gmod.Gloo()
+                g.init(gmod.RENDEZVOUS.HTTP, "worker", r, 2,
+                       kwargs={"http.host": host, "http.port": port,
+                               "store.prefix": "t"})
+                g.barrier()
+                got[r] = (g.all_gather({"rank": r}),
+                          g.all_reduce(np.full(3, r + 1.0), "sum"))
+
+            ts = [threading.Thread(target=rank, args=(r,))
+                  for r in range(2)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(60)
+            for r in range(2):
+                assert got[r][0] == [{"rank": 0}, {"rank": 1}]
+                np.testing.assert_allclose(got[r][1], np.full(3, 3.0))
+        finally:
+            srv.stop()
+    srv = KVServer("127.0.0.1:0", num_trainers=1)
+    srv.serve_in_thread()
+    try:
+        monkeypatch.setenv("PADDLE_GLOO_RENDEZVOUS", "3")
+        monkeypatch.setenv("PADDLE_GLOO_HTTP_ENDPOINT", srv.endpoint)
+        monkeypatch.setenv("PADDLE_TRAINER_ID", "0")
+        monkeypatch.setenv("PADDLE_TRAINERS_NUM", "1")
+        g = tgloo.gloo_from_env()
+        assert isinstance(g._store, tgloo._KVStore)
+        assert g.all_gather("x") == ["x"]
+    finally:
+        srv.stop()
     monkeypatch.delenv("PADDLE_GLOO_RENDEZVOUS")
     assert tgloo.gloo_from_env() is None
 

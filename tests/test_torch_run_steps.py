@@ -189,7 +189,7 @@ def test_run_steps_short_final_chunk_no_capture():
 
 def test_run_steps_refuses_what_is_not_a_program():
     main, loss, exe, scope = _port_fc()
-    with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
+    with pytest.raises(TypeError, match="takes a Program"):
         exe.run_steps(object(), feed={"x": np.zeros((1, 2, 8))})
 
 

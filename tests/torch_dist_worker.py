@@ -125,6 +125,17 @@ def _api(r, w):
                                               np.array([w])))
     out["metric/auc"] = np.asarray(metric.auc(pos, neg))
     out.update(_comm_stats(w))
+    # a ring of point-to-point sends: even ranks send first, odd ranks
+    # receive first (gloo's send waits for its receiver)
+    mine_t = torch.arange(3, dtype=torch.float32) + 10 * r
+    got = torch.zeros(3)
+    if r % 2 == 0:
+        dist.send(mine_t, (r + 1) % w)
+        dist.recv(got, (r - 1) % w)
+    else:
+        dist.recv(got, (r - 1) % w)
+        dist.send(mine_t, (r + 1) % w)
+    out["api/recv"] = got.numpy()
     return out
 
 
