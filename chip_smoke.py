@@ -460,8 +460,9 @@ is present.  Phases:
                publish all-gather a bucket a window hoisted against one a
                step unhoisted.  Prints its seconds.
  16. elastic - elastic data parallelism and its recovery tier:
-               bench.py's BERT-base AMP step (12 layers, flash + fused
-               CE) elasticized at logical dp 2 (distributed/elastic.py),
+               bench.py's BERT-base AMP step (4 layers, widths
+               unchanged, flash + fused CE) elasticized at
+               logical dp 2 (distributed/elastic.py),
                micro-batch 4 of the global batch 8.  (a) here, under NCCL
                at world 1 (K = 2): 4 global steps eagerly, then the same
                from the same weights through Executor.run_steps, one
@@ -531,6 +532,39 @@ is present.  Phases:
                the device section here on the card, over a KV server of
                this process; 3 steps' losses within 1e-5 and the
                parameters within the same gates of the unsplit program.
+ 18. analysis - the analysis and planner tiers (static/verifier.py,
+               layout_analysis.py, memory_analysis.py, flops_analysis.py,
+               planner.py) on bench.py's BERT-base AMP step at full width
+               (batch 8, flash and fused CE), with PADDLE_TPU_VERIFY=strict
+               for the whole phase, run after phase 11 (it reuses phase
+               4's model directory and phase 7's GPT-2 model and posts).
+               (d) kv_pool="auto": phase 7's first 4 posts (8 new tokens
+               each) through a pool that static.page_budget sized from the
+               card's memory against the explicit GEN_PLAN pool (equal, or
+               a greedy near tie), budget_drift empty.  (a) 0 diagnostics
+               at level "all" on the AMP main and startup programs, the
+               fp32 program, the Predictor's post-pipeline program (phase
+               4's model) and phase 14's ZeRO-1 program at world 2 (4
+               layers); a collective planted in a sub-block raises
+               ProgramVerificationError with V205 at the executor's
+               first-run check, a read after donation V302.  (b) the
+               walked FLOPs within 10% of 6 params tokens + 12 L s h
+               tokens; the train.mfu gauge of 20 replayed steps within 1%
+               of walked FLOPs x 20 / measured seconds / the data-sheet
+               peak.  (c) predicted (analyze_program) against measured
+               (max_memory_allocated) peak bytes of the eager, the
+               replayed (its capturing call) and the recompute "always"
+               step: measured / predicted is the port's slack;
+               FLAGS_recompute="auto" at the card's budget builds the plain
+               program, at the midpoint of the plain and "always" walked
+               peaks the "always" program (JSON), 2 replayed steps' losses
+               bitwise.  (e) plan_program at world 1 over batch {8, 16,
+               32} x remat x gradient merge {1, 2}, no calibration; the
+               plan applied (apply_plan) verifies at level "collective",
+               runs 3 replayed steps beside the runner-up's (predicted and
+               measured step ms, tokens/s; the ranking recorded, not
+               gated), and its first loss equals bitwise a hand-applied
+               build's first step.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -566,7 +600,9 @@ capturing call of the stage-3 NCCL run), phase 15's and phase 16's
 (`phase16_launches`: a micro-step of (a)'s eager run and (a)'s
 capturing call, a micro-step of each launched rank), and phase 17's
 (`phase17_launches`: a pipelined step of (a), both stages, and each
-stage's; (b) and (c) launch no hand kernel);
+stage's; (b) and (c) launch no hand kernel), and phase 18's
+(`phase18_launches`: the eager AMP step of (c), the whole phase, in the
+row's dtype);
 every phase's seconds on a line of its own ({"phase_seconds": ...});
 the last line
 {"ok": true, "device": {...}}.
@@ -3791,13 +3827,13 @@ def remainders_phase(torch, attn, seed, tmp, gen):
 # gradients, graph-safe random ops, static O2)
 BREADTH_STEPS = 4       # eager steps; run_steps calls of K = 4
 BREADTH_K = 4
-# (b)'s optimizer sweep trains the bench program at DIST_LAYERS layers
-# (12 before PR 23; widths unchanged): eleven optimizers, each with a
-# program build, a startup and a captured run_steps call, were most of the
-# phase.  Its gate (the replayed losses equal the eager ones, else within
-# BREADTH_RTOL) is shown to fail on a planted fault at that depth: the
-# replay fed step 2's labels rolled by one token
-BREADTH_OPT_LAYERS = DIST_LAYERS
+# (b)'s optimizer sweep trains the bench program at 2 layers (widths
+# unchanged): eleven optimizers, each with a program build, a startup and
+# a captured run_steps call, are most of the phase, so its depth is cut
+# to keep the script inside its time limit.  Its gate (the replayed losses equal the eager ones, else
+# within BREADTH_RTOL) is shown to fail on a planted fault at that depth:
+# the replay fed step 2's labels rolled by one token
+BREADTH_OPT_LAYERS = 2
 BREADTH_RTOL = 2e-3
 BREADTH_TIMED_CALLS = 2  # recompute: run_steps calls timed after the capture
 BREADTH_RECIPE_STEPS = 2  # the dropout variant, with and without recompute
@@ -7276,13 +7312,16 @@ def px_phase(torch, seed):
 # elasticized at logical dp EL_LOGICAL (micro-batch TRAIN_BATCH /
 # EL_LOGICAL rows), a checkpoint every global step
 EL_LOGICAL = 2
+# (a) and (b) train DIST_LAYERS layers (widths unchanged), as (c) does:
+# the gates are bitwise, whatever the depth
+EL_LAYERS = DIST_LAYERS
 EL_STEPS = 4            # global steps of every run
 EL_KILL_AT = 2          # (b) rank 1 SIGKILLed after its 2nd micro-step
 EL_TERM_AT = 3          # (b) the re-formed world-1 pod SIGTERM'd after its
                         # 3rd micro-step: mid-window (K = 2 at world 1)
 EL_LOSE_AT = 4          # (c) host 1 lost after its 4th micro-step (global
                         # step 2 at K = 2)
-EL_KEEP = 2             # checkpoints kept: 2 x ~2.1 GB a writer rank
+EL_KEEP = 2             # checkpoints kept a writer rank
 EL_GRACE = 2            # seconds between the teardown's SIGTERM and SIGKILL
 EL_MEMBER_TIMEOUT = 3   # (c) seconds before a silent fleet host is lost
 EL_FLEET_STEPS = 3      # (c)'s global steps: host 1 lost after the 2nd
@@ -7711,9 +7750,9 @@ def el_check_rank(rec, layers, want_steps):
 def el_phase(torch, seed):
     """(16) elastic training, the checkpoint tier and the launcher's
     re-form, on bench.py's BERT-base AMP step elasticized at logical dp
-    EL_LOGICAL.  (a) here, under NCCL at world 1: EL_STEPS global steps
-    eagerly, then again through run_steps one window a call (bitwise
-    equal); the same at DIST_LAYERS layers for (c).  (b) launch --elastic
+    EL_LOGICAL, at EL_LAYERS layers.  (a) here, under NCCL at world 1:
+    EL_STEPS global steps eagerly, then again through run_steps one window
+    a call (bitwise equal); the same at DIST_LAYERS layers for (c).  (b) launch --elastic
     with 2 gloo ranks on the card, rank 1 SIGKILLed, the pod re-formed at
     world 1 under NCCL and SIGTERM'd mid-window, then a fresh 2-rank
     launch finishing: every global step's loss and every final parameter
@@ -7738,7 +7777,7 @@ def el_phase(torch, seed):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     d_b, d_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
     try:
-        program = el_program(BERT["layers_n"])
+        program = el_program(EL_LAYERS)
         program_b = el_save_program(d_b, program)
         ref, ref_params, graph_params = el_reference(torch, seed, program,
                                                      graph=True)
@@ -7763,7 +7802,7 @@ def el_phase(torch, seed):
     torch.cuda.empty_cache()
     procs = []
     try:
-        base = dict(dir=d_b, seed=seed, layers=BERT["layers_n"],
+        base = dict(dir=d_b, seed=seed, layers=EL_LAYERS,
                     program=program_b)
         # (b) kill at world 2, shrink to world 1, SIGTERM mid-window: alone
         # on the card and the host, so its step, checkpoint, restore and
@@ -7807,9 +7846,9 @@ def el_phase(torch, seed):
         check_equal("(b) world 2 backend", w2[0]["backend"], "gloo")
         check_equal("(b) re-formed backend and world",
                     (w1["backend"], w1["world"]), ("nccl", 1))
-        el_check_rank(w2[0], BERT["layers_n"], [0, 1])
-        el_check_rank(w2[1], BERT["layers_n"], [0])
-        el_check_rank(w1, BERT["layers_n"], [2])
+        el_check_rank(w2[0], EL_LAYERS, [0, 1])
+        el_check_rank(w2[1], EL_LAYERS, [0])
+        el_check_rank(w1, EL_LAYERS, [2])
         # the re-formed pod's last report is global step 2's (2
         # micro-steps); its 3rd micro-step ended in the SIGTERM, whose
         # preemption save the regrown pod resumes from, rounded down to
@@ -7819,7 +7858,7 @@ def el_phase(torch, seed):
         for r in rg:
             check_equal(f"(b) {r['tag']} resumed at", r["resumed_global"],
                         3)
-            el_check_rank(r, BERT["layers_n"], [3])
+            el_check_rank(r, EL_LAYERS, [3])
         losses = [w2[0]["losses"]["0"], w2[0]["losses"]["1"],
                   w1["losses"]["2"], rg[0]["losses"]["3"]]
         final = torch.load(os.path.join(d_b, "final_b2_rank0_r0.pt"))
@@ -7933,8 +7972,8 @@ def el_phase(torch, seed):
                          for k, v in w["by_dtype"].items()},
             "philox_at_start": 0}
     seconds = time.perf_counter() - t_phase
-    res = {"config": "bench.py's BERT-base AMP step (12 layers, hidden 768, "
-                     "12 heads, seq 512, vocab 30522, global batch "
+    res = {"config": f"bench.py's BERT-base AMP step ({EL_LAYERS} layers, "
+                     "hidden 768, 12 heads, seq 512, vocab 30522, global batch "
                      f"{TRAIN_BATCH}), flash + fused CE, elasticized at "
                      f"logical dp {EL_LOGICAL} (micro-batch "
                      f"{TRAIN_BATCH // EL_LOGICAL}), a checkpoint every "
@@ -8496,6 +8535,500 @@ def pp_ps_phase(torch, seed):
     return out
 
 
+# phase 18: the analysis and planner tiers on the card (static/verifier.py,
+# layout_analysis.py, memory_analysis.py, flops_analysis.py, planner.py,
+# PADDLE_TPU_VERIFY, FLAGS_recompute="auto", kv_pool="auto" and the
+# executor's telemetry) on bench.py's BERT-base AMP step at full width
+AN_STEPS = 20            # (b) replayed steps the MFU gauge is read over
+AN_MFU_TOL = 0.01        # the gauge against its own arithmetic
+AN_FLOPS_TOL = 0.10      # walked against analytic FLOPs (the JAX bench's)
+AN_REPLAYS = 2           # (c) replayed steps of "auto" against "always"
+AN_PLAN_KNOBS = {"batch": (8, 16, 32), "remat": (False, True),
+                 "grad_merge": (1, 2)}
+AN_PLAN_STEPS = 3        # (e) replayed steps of the plan and the runner-up
+AN_RECORDED_MFU = "7.1-7.7% (PERF.md section 5: phase 6's replayed AMP step)"
+
+
+def an_build(recompute=""):
+    """build_pretrain(flash, AMP) under FLAGS_recompute=`recompute`, the
+    auto walk's -1 dims bound to the training batch."""
+    from paddle_tpu_torch.core.flags import set_flags
+    set_flags({"recompute": recompute, "hbm_assume_batch": TRAIN_BATCH})
+    try:
+        return build_pretrain(True, True)
+    finally:
+        set_flags({"recompute": "", "hbm_assume_batch": 0})
+
+
+def an_scope(static, startup, init):
+    """A scope from `startup` (the persistables a rewrite added: merge
+    accumulators, step counters) holding copies of `init`'s weights."""
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        static.Executor().run(startup)
+    for n, t in init.items():
+        scope.set(n, t.clone())
+    return scope
+
+
+def an_feed(torch, seed, batch, k=None):
+    """The training feed at `batch` rows (k stacked steps), on the card."""
+    rng = np.random.RandomState(seed)
+    seq, vocab = BERT["seq"], BERT["vocab"]
+    feed = {"ids": rng.randint(0, vocab, (batch, seq)).astype(np.int64),
+            "pos": np.tile(np.arange(seq, dtype=np.int64), (batch, 1)),
+            "labels": rng.randint(0, vocab, (batch, seq, 1))
+            .astype(np.int64)}
+    if k is not None:
+        feed = {n: np.stack([v] * k) for n, v in feed.items()}
+    return {n: torch.as_tensor(v, device="cuda") for n, v in feed.items()}
+
+
+def an_held_bytes(torch, scope):
+    """Bytes of `scope`'s tensors on the card: the persistables a walk's
+    peak counts."""
+    return sum(t.numel() * t.element_size() for t in scope.vars.values()
+               if isinstance(t, torch.Tensor) and t.is_cuda)
+
+
+def an_peak(torch, scope, fn):
+    """The peak bytes of `fn()` as the walk counts them: the allocator's
+    peak over the call above what was allocated when it started, plus
+    `scope`'s tensors; tensors of earlier work that are freed meanwhile
+    (a collected cycle) cannot lower it."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held + \
+        an_held_bytes(torch, scope), out
+
+
+def an_small_sharded(static):
+    """tools/verify_smoke.py's small ZeRO-1 program (dp 8), in the port."""
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.distributed.sharding import shard_optimizer_states
+    layers = static.layers
+    _reset_unique_names()
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 16])
+        y = layers.data("y", [-1, 1])
+        pred = layers.fc(layers.fc(x, 32, act="relu"), 1)
+        loss = layers.mean(layers.square(layers.elementwise_sub(pred, y)))
+        static.Adam(learning_rate=1e-3).minimize(loss)
+    shard_optimizer_states(main, startup, dp_degree=8)
+    return main, startup, loss
+
+
+def an_planted(torch, static, code):
+    """The program with its fault planted (a collective in a sub-block:
+    V205; a forward-role read of a parameter after its commit: V302), run
+    once: the executor's first-run verification must raise, naming
+    `code`."""
+    from paddle_tpu_torch.core.program import OpDesc, OpRole
+    from paddle_tpu_torch.static.verifier import ProgramVerificationError
+    main, startup, loss = an_small_sharded(static)
+    blk = main.global_block()
+    if code == "V205":
+        sub = main.create_block()
+        main.rollback()
+        sub.ops.append(OpDesc("c_allreduce_sum", {"X": ["x"]},
+                              {"Out": ["x"]},
+                              {"ring_id": 0, "op_uid": main._next_uid()}))
+    else:
+        param = main.all_parameters()[0]
+        blk.create_var(name="post_commit_read", shape=param.shape,
+                       dtype=param.dtype, stop_gradient=True)
+        blk.ops.append(OpDesc(
+            "scale", {"X": [param.name]}, {"Out": ["post_commit_read"]},
+            {"scale": 2.0, OpRole.KEY: OpRole.Forward,
+             "op_uid": main._next_uid()}))
+    main._fingerprint_cache = None
+    feed = {"x": np.zeros((8, 16), np.float32),
+            "y": np.zeros((8, 1), np.float32)}
+    try:
+        with static.scope_guard(static.Scope()):
+            static.Executor().run(main, feed=feed, fetch_list=[loss])
+    except ProgramVerificationError as e:
+        codes = e.report.codes()
+        if code not in codes:
+            raise AssertionError(f"planted {code}: raised {codes}")
+        return codes
+    raise AssertionError(f"planted {code}: the first run did not raise")
+
+
+def an_verify(torch, static, amp, tmp):
+    """(a) 0 diagnostics on the clean programs; the planted faults raise."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    t0 = time.perf_counter()
+    main, startup, loss = amp
+    fm, fs, fl = build_pretrain(True, False)
+    # the Predictor self-checks its post-pipeline program at load (strict)
+    pred = create_predictor(Config(os.path.join(tmp, "bert_flash")))
+    zm, zs, zl, _ = zt_program(1, 1)
+    checks = {
+        "amp_main": (main, dict(startup=startup, fetch_list=[loss])),
+        "amp_startup": (startup, {}),
+        "fp32_main": (fm, dict(startup=fs, fetch_list=[fl])),
+        "predictor_post_pipeline": (pred._program,
+                                    dict(fetch_list=pred._fetch_names)),
+        f"zero1_world{DP_RANKS}_{DIST_LAYERS}_layers": (
+            zm, dict(startup=zs, fetch_list=[zl]))}
+    found = {}
+    for tag, (prog, kw) in checks.items():
+        rep = static.check_program(prog, level="all", **kw)
+        found[tag] = len(rep.diagnostics)
+        if rep.diagnostics:
+            raise AssertionError(f"verify {tag}: {rep.render()}")
+    clean_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planted = {code: an_planted(torch, static, code)
+               for code in ("V205", "V302")}
+    return {"diagnostics": found, "planted_raised": planted,
+            "clean_checks_s": clean_s,
+            "planted_s": time.perf_counter() - t0}
+
+
+def an_mfu(torch, static, amp, init, seed):
+    """(b) the walked FLOPs against the analytic count; the MFU gauge of
+    AN_STEPS replayed steps against its own arithmetic.  Returns (record,
+    the replayed step's measured peak bytes: its capturing call's)."""
+    from paddle_tpu_torch.core.monitor import gauge_get
+    from paddle_tpu_torch.static.flops_analysis import peak_flops_per_chip
+    main, startup, loss = amp
+    walked = static.analyze_flops(main, batch=TRAIN_BATCH)["total_flops"]
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    tokens = TRAIN_BATCH * BERT["seq"]
+    analytic = 6 * n_params * tokens + 12 * BERT["layers_n"] * \
+        BERT["seq"] * BERT["hidden"] * tokens
+    drift = walked / analytic - 1.0
+    if abs(drift) >= AN_FLOPS_TOL:
+        raise AssertionError(f"walked FLOPs {walked} against analytic "
+                             f"{analytic}: {drift:+.4f}")
+    stacked = an_feed(torch, seed, TRAIN_BATCH, AN_STEPS)
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    with static.scope_guard(scope):
+        capture_peak, _ = an_peak(torch, scope, lambda: exe.run_steps(
+            main, feed=stacked, fetch_list=[loss]))  # captures
+        t0 = time.perf_counter()
+        (lv,) = exe.run_steps(main, feed=stacked, fetch_list=[loss])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    gauge = gauge_get("train.mfu")
+    want = walked * AN_STEPS / dt / peak_flops_per_chip()
+    if not abs(gauge / want - 1.0) <= AN_MFU_TOL:
+        raise AssertionError(f"train.mfu gauge {gauge} against walked "
+                             f"FLOPs / measured s / peak {want}")
+    lv = np.asarray(lv, np.float32).reshape(-1)
+    if not np.isfinite(lv).all():
+        raise AssertionError(f"replayed losses {lv}")
+    check_equal("(b) captures", exe.cache_stats()["traces"], 1)
+    exe.close()
+    return {"walked_flops": walked, "analytic_flops": analytic,
+            "drift": drift, "mfu_gauge": gauge,
+            "mfu_from_walked_flops_and_measured_s": want,
+            "tokens_per_sec_gauge": gauge_get("train.tokens_per_sec"),
+            "replayed_step_ms": dt * 1e3 / AN_STEPS,
+            "peak_flops_per_s": peak_flops_per_chip(),
+            "recorded_mfu": AN_RECORDED_MFU}, capture_peak
+
+
+def an_memory(torch, static, amp, init, seed, replayed_peak, counters):
+    """(c) predicted against measured peak bytes; FLAGS_recompute="auto"
+    at the card's budget and at the midpoint budget.  The eager AMP step
+    (memory_report's measured step) launches 2 flash forwards a layer
+    (one replayed by the vjp), a dQ, a dK/dV and 2 fused CE, all bf16."""
+    from paddle_tpu_torch.core.pass_framework import has_applied
+    from paddle_tpu_torch.static.memory_analysis import (DEVICE_SLACK,
+                                                        HBM_BUDGET_ENV)
+    main, startup, loss = amp
+    feed = an_feed(torch, seed, TRAIN_BATCH)
+    always = an_build("always")
+    predicted = {
+        tag: static.analyze_program(m, batch=TRAIN_BATCH)["peak_bytes"]
+        for tag, m in (("plain", main), ("always", always[0]))}
+    # the eager step: memory_report's measured step (its own scratch
+    # scope over this one), above what was allocated when it started,
+    # plus the persistables
+    import gc
+    gc.collect()
+    exe = static.Executor()
+    scope = scope_of(static, init)
+    before = dp_read(counters)
+    report = exe.memory_report(main, feed=feed, scope=scope)
+    after = dp_read(counters)
+    eager = report["device"]["max_memory_allocated"] - \
+        report["device"]["allocated_before_step"] + \
+        an_held_bytes(torch, scope)
+    del scope
+    n = BERT["layers_n"]
+    step = {k: after[0][k] - before[0][k] for k in DP_KERNELS}
+    step_bf16 = {k: after[1][k].get("bfloat16", 0) -
+                 before[1][k].get("bfloat16", 0) for k in DP_KERNELS}
+    want = dict(zip(DP_KERNELS, (2 * n, n, n, 2)))
+    check_equal("(c) eager AMP step launches", step, want)
+    check_equal("(c) eager AMP step bf16 launches", step_bf16, want)
+    scope = scope_of(static, init)
+    with static.scope_guard(scope):
+        always_peak, _ = an_peak(torch, scope, lambda: exe.run(
+            always[0], feed=feed, fetch_list=[always[2]]))
+    del scope
+    measured = {"eager": eager, "replayed_capture": replayed_peak,
+                "always_eager": always_peak}
+    slack = {"eager": eager / predicted["plain"],
+             "replayed_capture": replayed_peak / predicted["plain"],
+             "always_eager": always_peak / predicted["always"]}
+    # "auto" at the card's budget: the plain program
+    auto = an_build("auto")
+    card_budget = static.hbm_budget_bytes()
+    if auto[0].to_dict() != main.to_dict() or \
+            auto[1].to_dict() != startup.to_dict():
+        raise AssertionError("auto at the card's budget is not the plain "
+                             "program")
+    # "auto" at the midpoint of the walked peaks: the "always" program
+    mid = (predicted["plain"] + predicted["always"]) // 2
+    prev = os.environ.get(HBM_BUDGET_ENV)
+    os.environ[HBM_BUDGET_ENV] = str(mid)
+    try:
+        tight = an_build("auto")
+    finally:
+        if prev is None:
+            del os.environ[HBM_BUDGET_ENV]
+        else:
+            os.environ[HBM_BUDGET_ENV] = prev
+    if not has_applied(tight[0], "recompute") or \
+            tight[0].to_dict() != always[0].to_dict():
+        raise AssertionError("auto at the midpoint budget is not the "
+                             "\"always\" program")
+    losses = {}
+    for tag, (m, s, l) in (("auto", tight), ("always", always)):
+        scope = scope_of(static, init)
+        rexe = static.Executor()
+        with static.scope_guard(scope):
+            (lv,) = rexe.run_steps(
+                m, feed=an_feed(torch, seed, TRAIN_BATCH, AN_REPLAYS),
+                fetch_list=[l])
+        losses[tag] = np.asarray(lv, np.float32).reshape(-1).tolist()
+        rexe.close()
+        del scope
+    if losses["auto"] != losses["always"]:
+        raise AssertionError(f"auto {losses['auto']} against always "
+                             f"{losses['always']}")
+    return {"predicted_peak_bytes": predicted, "measured_peak_bytes":
+            measured, "measured_over_predicted": slack,
+            "device_slack_in_code": DEVICE_SLACK,
+            "memory_report_device": report["device"],
+            "memory_report_fits": report["fits"],
+            "card_budget_bytes": card_budget, "midpoint_budget_bytes": mid,
+            "always_measured_over_midpoint": always_peak / mid,
+            "auto_losses": losses["auto"], "eager_step_launches": step}
+
+
+def an_kv_pool(torch, gen):
+    """(d) kv_pool="auto" against the explicit pool on phase 7's first
+    PX_POSTS posts."""
+    from paddle_tpu_torch.serving import (ContinuousBatchingEngine,
+                                          budget_drift)
+    model, bodies = gen["model"], gen["bodies"][:PX_POSTS]
+    outs = {}
+    plan = None
+    for tag, kv in (("explicit", dict(GEN_PLAN)), ("auto", "auto")):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        eng = ContinuousBatchingEngine(
+            model, max_slots=GEN_PLAN["max_slots"], kv_pool=kv,
+            prefix_cache="auto").start()
+        try:
+            futs = [eng.submit(
+                np.asarray(b["input_ids"], np.int64), max_length=PX_NEW,
+                decode_strategy=b.get("decode_strategy", "greedy_search"),
+                top_k=b.get("top_k", 0),
+                temperature=b.get("temperature", 1.0),
+                seed=b.get("seed", 0)) for b in bodies]
+            outs[tag] = [np.asarray(f.result(timeout=600)) for f in futs]
+        finally:
+            eng.stop()
+        if tag == "auto":
+            pool = eng.kv_pool
+            plan = dict(pool.plan)
+            drift = budget_drift(pool, model)
+            if drift:
+                raise AssertionError(f"kv_pool auto drift: {drift}")
+            pool_bytes = pool.pool_bytes
+        eng.kv_pool.assert_drained()
+        del eng
+    torch.cuda.empty_cache()
+    diverged = spec_divergences(torch, model, bodies, outs["auto"],
+                                outs["explicit"], "kv_pool auto")
+    return {"posts": len(bodies), "new_tokens": PX_NEW,
+            "posts_equal": len(bodies) - len(diverged),
+            "divergences": diverged, "pages": plan["pages"],
+            "kv_bytes": plan["kv_bytes"], "pool_bytes": pool_bytes,
+            "max_slots": plan["max_slots"],
+            "budget_bytes": plan["hbm_bytes"],
+            "explicit_pages": GEN_PLAN["pages"]}
+
+
+def an_plan(torch, static, amp, init, seed):
+    """(e) plan_program on the AMP program at world 1; the argmax applied,
+    verified, replayed beside the runner-up; its first loss bitwise a
+    hand-applied build's."""
+    from paddle_tpu_torch.distributed.scan_window import mark_scan_hoist
+    from paddle_tpu_torch.static import planner
+    main, startup, loss = amp
+    t0 = time.perf_counter()
+    plan = static.plan_program(main, startup, world=1,
+                               knobs=dict(AN_PLAN_KNOBS))
+    plan_s = time.perf_counter() - t0
+    if plan.predicted_calibrated:
+        raise AssertionError("the plan passed through a calibration")
+    ranked = sorted((c for c in plan.trace if c["fits"]
+                     and c["verdict"].startswith("verified")),
+                    key=lambda c: -c["samples_per_sec"])
+    knob_keys = ("batch", "remat", "grad_merge", "scan_hoist")
+    chosen = {k: plan.knobs[k] for k in knob_keys}
+    runner = next(c for c in ranked
+                  if {k: c[k] for k in knob_keys} != chosen)
+    out = {"plan_s": plan_s, "n_candidates": len(plan.trace),
+           "chosen": plan.knobs,
+           "runner_up_knobs": {k: runner[k] for k in knob_keys},
+           "trace": [{k: c[k] for k in knob_keys + (
+               "peak_bytes", "fits", "step_ms", "samples_per_sec",
+               "verdict")} for c in plan.trace]}
+    first = None
+    runner_knobs = {k: runner[k] for k in planner.KNOB_KEYS}
+    for tag, knobs in (("plan", plan), ("runner_up", runner_knobs)):
+        m, s = main.clone(), startup.clone()
+        static.apply_plan(m, s, knobs)
+        rep = static.check_program(m, level="collective", startup=s,
+                                   fetch_list=[loss])
+        if tag == "plan" and rep.diagnostics:
+            raise AssertionError(f"the plan: {rep.render()}")
+        rec = runner
+        batch = int(plan.batch if tag == "plan" else knobs["batch"])
+        feed = an_feed(torch, seed, batch, AN_PLAN_STEPS)
+        scope = an_scope(static, s, init)
+        exe = static.Executor()
+        with static.scope_guard(scope):
+            (lv,) = exe.run_steps(m, feed=feed, fetch_list=[loss])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run_steps(m, feed=feed, fetch_list=[loss])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / AN_PLAN_STEPS
+        exe.close()
+        del scope
+        lv = np.asarray(lv, np.float32).reshape(-1)
+        if not np.isfinite(lv).all():
+            raise AssertionError(f"{tag}: losses {lv}")
+        if tag == "plan":
+            first = float(lv[0])
+            pm, ps = m, s
+        out[tag] = {
+            "predicted_step_ms": plan.predicted_step_ms
+            if tag == "plan" else rec["step_ms"],
+            "measured_step_ms": step_ms,
+            "tokens_per_s": batch * BERT["seq"] / (step_ms / 1e3),
+            "predicted_peak_bytes": plan.predicted_peak_bytes
+            if tag == "plan" else rec["peak_bytes"],
+            "losses": lv.tolist()}
+    # the same knobs by hand on a build of the plain program
+    hm, hs = main.clone(), startup.clone()
+    if plan.knobs["remat"]:
+        static.apply_recompute(hm)
+    if plan.knobs["grad_merge"] > 1:
+        static.gradient_merge(hm, plan.knobs["grad_merge"], hs)
+    if plan.knobs["scan_hoist"]:
+        mark_scan_hoist(hm)
+    if hm.to_dict() != pm.to_dict() or hs.to_dict() != ps.to_dict():
+        raise AssertionError("the hand-applied knobs give another program")
+    scope = an_scope(static, hs, init)
+    with static.scope_guard(scope):
+        (hl,) = static.Executor().run(
+            hm, feed=an_feed(torch, seed, int(plan.knobs["batch"])),
+            fetch_list=[loss])
+    del scope
+    hand = float(np.asarray(hl, np.float32).reshape(-1)[0])
+    if np.float32(hand).tobytes() != np.float32(first).tobytes():
+        raise AssertionError(f"plan first loss {first} against the "
+                             f"hand-applied build's {hand}")
+    out["first_loss_bitwise_hand_applied"] = True
+    out["measured_ranking_agrees"] = (
+        out["plan"]["measured_step_ms"] / plan.knobs["batch"] <=
+        out["runner_up"]["measured_step_ms"] / runner["batch"])
+    return out
+
+
+def analysis_phase(torch, seed, tmp, gen):
+    """(18) the analysis and planner tiers on the bench step, under
+    PADDLE_TPU_VERIFY=strict.  Returns the record with the launches of
+    the eager AMP step and of the whole phase."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    from paddle_tpu_torch.static.verifier import VERIFY_ENV
+    t_phase = time.perf_counter()
+    prev = os.environ.get(VERIFY_ENV)
+    os.environ[VERIFY_ENV] = "strict"
+    counters = dp_counters(attn, dr, fx, rnd)
+    fx.enable_fused_xent(True)
+    out = {"seconds": {}}
+    try:
+        # ---- phase 18's path: counts from 0 just before, read after
+        dp_zero(counters)
+        zero_wide(attn)
+        t0 = time.perf_counter()
+        out["kv_pool_auto"] = an_kv_pool(torch, gen)
+        out["seconds"]["d_kv_pool"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        amp = an_build()
+        amp[1].random_seed = seed
+        init_scope = static.Scope()
+        with static.scope_guard(init_scope):
+            static.Executor().run(amp[1])
+        init = {n: t for n, t in init_scope.vars.items() if t is not None}
+        out["seconds"]["build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["verify"] = an_verify(torch, static, amp, tmp)
+        out["seconds"]["a_verify"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["flops_mfu"], replayed_peak = an_mfu(torch, static, amp, init,
+                                                 seed)
+        out["seconds"]["b_flops_mfu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["memory"] = an_memory(torch, static, amp, init, seed,
+                                  replayed_peak, counters)
+        out["seconds"]["c_memory"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["plan"] = an_plan(torch, static, amp, init, seed)
+        out["seconds"]["e_plan"] = time.perf_counter() - t0
+        launches, by_dtype = dp_read(counters)
+        record_wide("analysis", read_wide(attn))
+        # ---- end of phase 18's path
+    finally:
+        fx.enable_fused_xent(False)
+        if prev is None:
+            os.environ.pop(VERIFY_ENV, None)
+        else:
+            os.environ[VERIFY_ENV] = prev
+        torch.cuda.empty_cache()
+    out["launches"] = {"phase": {"launches": launches, "by_dtype": by_dtype},
+                       "eager_amp_step": out["memory"]["eager_step_launches"]}
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    log({"phase": "analysis", "config": "bench.py's BERT-base AMP step "
+         "(vocab 30522, seq 512, hidden 768, 12 layers, 12 heads, batch "
+         "8, flash, fused CE), PADDLE_TPU_VERIFY=strict; kv_pool auto "
+         "on phase 7's GPT-2 small", **out})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8622,6 +9155,9 @@ def main():
         # phase 11 reads phase 4's model dir and phase 7's replies
         remainders = timed("11_remainders", remainders_phase, torch, attn,
                            args.seed, tmp, gen)
+        # phase 18 reads phase 4's model dir and phase 7's model and posts
+        analysis = timed("18_analysis", analysis_phase, torch, args.seed,
+                         tmp, gen)
         del gen
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -8725,7 +9261,7 @@ def main():
             f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
             for run in runs for r in range(PX_RANKS)) + (
             "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS + (
-            "pp_pipeline",)
+            "pp_pipeline", "analysis")
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -8870,6 +9406,23 @@ def main():
             got = {"pp_pipeline":
                    extra["launches_by_path_all_dtypes"]["pp_pipeline"]}
         extra["phase17_launches"] = got
+    # phase 18: the eager AMP step of (c) and the whole phase (its steps,
+    # captures and planned runs; the startups' random draws), in the
+    # row's dtype
+    an_paths = analysis["launches"]
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {"phase": an_paths["phase"]["by_dtype"][base].get(dt, 0)}
+            if dt == "bfloat16":
+                got["eager_amp_step"] = an_paths["eager_amp_step"][base]
+        elif name in ("dropout_philox", "philox_random"):
+            got = {"phase": an_paths["phase"]["launches"][name]}
+        else:  # head dims above 128: over the whole phase
+            got = {"analysis": extra["launches_by_path_all_dtypes"][
+                "analysis"]}
+        extra["phase18_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

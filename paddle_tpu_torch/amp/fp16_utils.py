@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from ..core.pass_framework import record_applied
+from ..core.pass_framework import finish_pass
 from ..core.program import Program, OpDesc, OpRole, unique_name
 from .fp16_lists import AutoMixedPrecisionLists
 
@@ -143,7 +143,7 @@ def rewrite_program(main_program: Program, amp_lists=None,
         new_ops.append(op)
     block.ops = new_ops
     main_program._fingerprint_cache = None
-    record_applied(main_program, "amp", dest_dtype=dest_dtype)
+    finish_pass(main_program, "amp", dest_dtype=dest_dtype)
     return main_program
 
 

@@ -2,10 +2,10 @@
 
 Copy of paddle_tpu/core/pass_framework.py (the registry, PassContext,
 apply_passes, the applied-pass history, `built_tp_degree` and
-`finish_pass`, the epilogue of a program rewrite such as gradient merge
-or ZeRO sharding), without the verifier hook
-(static/verifier.py's post-rewrite self-check, ROADMAP.md Queue 1, Analysis and planner tiers).
-Passes walk and rewrite the IR only; no tensor math happens here.
+`finish_pass`, the epilogue of a program rewrite such as AMP, recompute,
+gradient merge, ZeRO sharding or the elastic fold, with its
+PADDLE_TPU_VERIFY post-rewrite self-check).  Passes walk and rewrite the
+IR only; no tensor math happens here.
 """
 from __future__ import annotations
 
@@ -70,11 +70,15 @@ def built_tp_degree(program: Program) -> int:
                 for b in program.blocks for op in b.ops] or [0])
 
 
-def finish_pass(program: Program, name: str, startup=None, **meta) -> dict:
-    """The rewrite-pass epilogue: record the application in the registry.
-    (The reference then runs its env-gated post-rewrite verification,
-    which the port has not ported.)"""
-    return record_applied(program, name, **meta)
+def finish_pass(program: Program, name: str, startup=None, **meta):
+    """The rewrite-pass epilogue every pass shares: record the
+    application in the registry, then run the env-gated post-rewrite
+    verification (static/verifier.py self_check — a no-op unless
+    PADDLE_TPU_VERIFY is set; strict mode raises AT THE REWRITE SITE
+    with `name` in the message)."""
+    record_applied(program, name, **meta)
+    from ..static.verifier import self_check
+    return self_check(program, name, startup=startup)
 
 
 class PassContext:

@@ -748,6 +748,10 @@ class CompiledProgram:
         elastic = getattr(program, "_elastic_meta", None)
         self._chaos_dispatch(executor, program)
         fetch_names = _fetch_names(fetch_list)
+        # env-gated IR verification of this rank's program, once per
+        # (program, fetch set) (PADDLE_TPU_VERIFY, static/verifier.py)
+        from ..static.verifier import verify_first_compile
+        verify_first_compile(program, fetch_list=fetch_names)
         with world.bind():
             if elastic is None:
                 fetched = self._step(executor, program, local, fetch_names,
@@ -819,7 +823,9 @@ class CompiledProgram:
         tail's collectives (the ZeRO publish all-gathers, the merged
         allreduce) run once a window instead of once a step."""
         from ..static.executor import _persistable_names
+        from ..static.verifier import verify_first_compile
         program, world = self._prepare(scope)
+        verify_first_compile(program, fetch_list=fetch_names)
         local = self._local_feed(program, stacked, world, axis_offset=1)
         elastic = getattr(program, "_elastic_meta", None)
         if elastic is not None:

@@ -26,9 +26,9 @@ non-persistable temp (an lr computed in forward, AMP's found_inf, a fetch
 written by the commit), because then "body x K + tail x 1" is no longer
 the original program run K times.
 
-`scan_window_wire_bytes` prices the cut with the JAX package's
-`verifier.entry_wire_bytes`, which the port does not have: it raises,
-naming ROADMAP.md Queue 1, Analysis and planner tiers.
+`scan_window_wire_bytes` prices the cut with the static verifier's
+`entry_wire_bytes`: the looped window's bytes a step against the hoisted
+one's (body + tail / K).
 """
 from __future__ import annotations
 
@@ -172,10 +172,33 @@ def mark_scan_hoist(program) -> WindowSplit:
 
 def scan_window_wire_bytes(program, world: int,
                            batch: Optional[int] = None) -> Dict[str, float]:
-    """The per-step wire bytes of the looped vs hoisted window.  The JAX
-    package prices them with its static verifier's `entry_wire_bytes`,
-    which is not ported: this raises."""
-    raise NotImplementedError(
-        "scan_window_wire_bytes prices the window with the static "
-        "verifier's collective accounting, which is not ported yet "
-        "(ROADMAP.md Queue 1, Analysis and planner tiers)")
+    """Per-step ring-accounted ICI bytes of the looped vs hoisted
+    window, on `verifier.entry_wire_bytes` accounting (the same
+    formulas `collective_wire_bytes` and the planner roofline use):
+
+      * ``per_step_looped``  — every collective runs every micro-step;
+      * ``per_step_hoisted`` — body collectives every micro-step, tail
+        collectives (publish allgather, merged-grad allreduce) once
+        per K-step window: body + tail/K.
+
+    On an unsplittable program both numbers are the looped cost.
+    """
+    from ..static.verifier import (collective_sequence, entry_wire_bytes,
+                                   _ring_degrees_from_seq)
+
+    def _wire(prog):
+        seq = collective_sequence(prog)
+        degrees = _ring_degrees_from_seq(seq)
+        return sum(entry_wire_bytes(e, world, degrees, batch)
+                   for e in seq)
+
+    looped = _wire(program)
+    split = split_commit_tail(program)
+    if split is None:
+        return {"per_step_looped": looped, "per_step_hoisted": looped,
+                "body": looped, "tail": 0.0, "k": 1}
+    body = _wire(split.body)
+    tail = _wire(split.tail)
+    return {"per_step_looped": looped,
+            "per_step_hoisted": body + tail / split.k,
+            "body": body, "tail": tail, "k": split.k}

@@ -51,9 +51,10 @@ TP_RING_ID = 102
 
 # the canonical model-parallel axis name the layout analyzer speaks
 # (the runtime axis is spelled "tp" — same axis, CompiledProgram binds
-# TP_RING_ID to it); the JAX package's core/mesh_axes.py spellings
-MP_AXIS = "mp"
-_TP_AXIS = "tp"
+# TP_RING_ID to it); both spellings come from the shared canonicalizer
+# so the stamp and the runtime mesh can never drift
+from ..core.mesh_axes import MP_AXIS_CANONICAL as MP_AXIS
+from ..core.mesh_axes import MP_AXIS_RUNTIME as _TP_AXIS
 
 
 def shard_param(var: VarDesc, dim: int, axis: str = _TP_AXIS) -> VarDesc:

@@ -17,9 +17,10 @@ bfloat16, so a bf16 fetch comes back as its exact float32 upcast (the
 JAX package returns ml_dtypes bfloat16 arrays: equal values, another
 dtype).
 
-Not ported yet (ROADMAP.md Queue 1, Analysis and planner tiers): the
-PADDLE_TPU_VERIFY post-pipeline self-check (needs the verifier); the
-binary proto model format waits too.  The JAX Predictor's pow2 feed bucketing
+Under PADDLE_TPU_VERIFY the program after the pipeline is self-checked
+(`static.verifier.self_check`, pass name "inference_pipeline"), as in the
+JAX Predictor.  The binary proto model format is not ported yet (ROADMAP.md
+Queue 1).  The JAX Predictor's pow2 feed bucketing
 bounded jit retraces; the eager executor has none to bound, so a request
 batch runs at its own size.
 """
@@ -217,7 +218,15 @@ class Predictor:
                 self._scope.set(w, column_major(self._scope.get(w)))
         if self._config._precision == PrecisionType.Bfloat16:
             from ..amp import rewrite_program
-            rewrite_program(prog)
+            rewrite_program(prog)  # self-checks as pass "amp"
+        else:
+            # env-gated post-pipeline verification (PADDLE_TPU_VERIFY):
+            # the inference folds rewrite weights AND graph together, so
+            # a broken fold should fail at load, not at the first
+            # /predict.  (On the bf16 branch rewrite_program just ran
+            # the same full check — don't walk the IR twice.)
+            from ..static.verifier import self_check
+            self_check(prog, "inference_pipeline")
         self._program = prog
 
     @property

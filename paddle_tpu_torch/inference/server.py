@@ -293,8 +293,8 @@ class InferenceServer:
         (``serving.TPShardedDecoder``: this server is the leader, rank 0,
         and the other ranks of the process group run the decoder's
         ``follow()``); a plan passed as ``kv_pool`` carries its own
-        degree, an explicit arg wins.  ``kv_pool="auto"`` raises
-        (ROADMAP.md Queue 1, Analysis and planner tiers)."""
+        degree, an explicit arg wins.  ``kv_pool="auto"`` sizes the
+        pool with ``static.page_budget`` from the card's memory."""
         from ..serving import ContinuousBatchingEngine
         self._engine = ContinuousBatchingEngine(
             model, max_slots=max_slots, max_queue=max_queue,

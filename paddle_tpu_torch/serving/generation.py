@@ -56,9 +56,8 @@ follow; everything else (pool, radix cache, draft, sampling) stays on the
 leader.  A decoder the engine made is stopped (its followers released)
 by the engine's ``stop()``.
 
-Still raising, naming its ROADMAP item: ``kv_pool="auto"`` (it sizes the
-pool with ``static.planner.page_budget``: Queue 1, Analysis and planner
-tiers).
+``kv_pool="auto"`` sizes the pool with ``static.planner.page_budget``
+from the card's memory budget (``static.hbm_budget_bytes``).
 """
 from __future__ import annotations
 
@@ -133,7 +132,8 @@ class ContinuousBatchingEngine:
         eng.stop()
 
     ``model`` is a ``GPTForGeneration`` (or bare ``GPTModel``).
-    ``kv_pool``: ``None`` keeps the dense fixed-slot cache; a plan dict
+    ``kv_pool``: ``None`` keeps the dense fixed-slot cache; ``"auto"``
+    sizes one with ``static.page_budget``; a plan dict
     or a ready ``PagedKVPool`` (on the model's device) is consumed as-is;
     the plan's ``max_slots`` applies unless given.  ``prefix_cache``:
     ``"auto"`` builds a ``RadixPrefixCache`` with the plan's
@@ -164,6 +164,8 @@ class ContinuousBatchingEngine:
                 f"weight_dtype must be float32 or int8, got "
                 f"{weight_dtype!r}")
         from .tp_decode import TPShardedDecoder
+        # the float model page_budget prices (before any int8 / tp wrap)
+        float_model = getattr(model, "gpt", model)
         # a decoder this engine made is this engine's to stop
         self._owns_decoder = False
         if self.tp_degree > 1:
@@ -184,12 +186,12 @@ class ContinuousBatchingEngine:
         self._pool: Optional[PagedKVPool] = None
         if kv_pool is not None:
             if kv_pool == "auto":
-                raise NotImplementedError(
-                    "kv_pool='auto' sizes the pool with static.planner."
-                    "page_budget, which is not ported yet (ROADMAP.md Queue "
-                    "1, Analysis and planner tiers): pass a plan dict or a "
-                    "PagedKVPool")
-            if isinstance(kv_pool, PagedKVPool):
+                from ..static.planner import page_budget
+                self._pool = PagedKVPool.from_plan(
+                    page_budget(float_model, tp_degree=self.tp_degree,
+                                weight_dtype=self.weight_dtype),
+                    device=self.device)
+            elif isinstance(kv_pool, PagedKVPool):
                 self._pool = kv_pool
             elif isinstance(kv_pool, dict):
                 self._pool = PagedKVPool.from_plan(kv_pool,

@@ -38,9 +38,9 @@ where the scale did not grow), so no column costs a host read.  Any
 element a defensive clamp saturates is counted on the device;
 ``quant_scale_clips`` reads the count (one host read, in ``stats()``).
 
-``budget_drift`` compares the live geometry with the recorded plan; the
-re-derivation through ``static.planner.page_budget`` waits for that
-planner (ROADMAP.md Queue 1, Analysis and planner tiers).
+``budget_drift`` re-derives the recorded plan through
+``static.planner.page_budget`` under its recorded inputs and reports every
+way the live geometry disagrees.
 """
 from __future__ import annotations
 
@@ -661,34 +661,81 @@ class PagedKVPool:
                     f"pages")
 
 
-def budget_drift(pool: PagedKVPool, model=None) -> List[str]:
-    """Every way the live pool disagrees with its recorded plan: dtype and
-    geometry (pages, page_tokens, layers, heads, head_dim), and the model's
-    geometry when one is given.  The JAX package also re-derives the plan
-    through `static.page_budget` under its recorded inputs; that waits
-    for the port's planner (ROADMAP.md Queue 1, Analysis and planner
-    tiers)."""
-    if pool.plan is None:
-        return ["pool carries no recorded plan (hand-built, not "
-                "page_budget-sized)"]
-    plan = pool.plan
+def _recorded_geometry_drift(pool: PagedKVPool, plan: Dict) -> List[str]:
     drift = []
     want_dtype = convert_dtype(str(plan.get("kv_dtype", "float32")))
     if pool.kv_dtype != want_dtype:
         drift.append(f"kv_dtype: pool stores {pool.kv_dtype}, plan records "
                      f"{want_dtype}")
-    live = {"pages": pool.num_pages, "page_tokens": pool.page_tokens,
-            "num_layers": pool.num_layers, "num_heads": pool.num_heads,
-            "head_dim": pool.head_dim}
-    for key, have in live.items():
+    for key, have in (("pages", pool.num_pages),
+                      ("page_tokens", pool.page_tokens),
+                      ("num_layers", pool.num_layers),
+                      ("num_heads", pool.num_heads),
+                      ("head_dim", pool.head_dim)):
         if int(plan[key]) != int(have):
             drift.append(f"{key}: pool has {have}, plan records {plan[key]}")
-    if model is not None:
-        cfg = getattr(getattr(model, "gpt", model), "config")
-        for key, want in (("num_layers", cfg.num_layers),
-                          ("num_heads", cfg.num_heads),
-                          ("head_dim", cfg.hidden_size // cfg.num_heads)):
-            if int(want) != int(live[key]):
-                drift.append(f"{key}: pool has {live[key]}, the model "
-                             f"{want}")
+    return drift
+
+
+def budget_drift(pool: PagedKVPool, model=None) -> List[str]:
+    """Re-derive the pool's recorded ``static.page_budget`` plan and
+    report every way the live geometry disagrees — the serving analog
+    of the verifier's V504 plan-drift check (a hand-resized pool stops
+    matching what the HBM walker sized, and this makes it visible
+    instead of silently mis-budgeted).  A hand-written plan (one that
+    records no ``hbm_bytes``) is held to its own recorded geometry."""
+    if pool.plan is None:
+        return ["pool carries no recorded plan (hand-built, not "
+                "page_budget-sized)"]
+    plan = pool.plan
+    if "hbm_bytes" not in plan:
+        # a hand-written plan records no page_budget inputs to re-derive
+        # from: the live geometry is held to the recorded one instead
+        return _recorded_geometry_drift(pool, plan)
+    from ..static.planner import page_budget
+    fresh = page_budget(
+        model, config=plan.get("config"),
+        page_tokens=int(plan["page_tokens"]),
+        # the PRE-clamp requested context: re-deriving from the clamped
+        # value would shift the workspace split and cry wolf
+        max_context=int(plan.get("max_context_requested",
+                                 plan["max_context"])),
+        hbm_bytes=int(plan["hbm_bytes"]),
+        # weight_bytes_fp32 is the RAW parameter-byte input; feeding the
+        # int8-adjusted resident bytes back would re-quantize them
+        weight_bytes=(int(plan.get("weight_bytes_fp32",
+                                   plan["weight_bytes"]))
+                      if model is None else None),
+        max_slots_cap=int(plan.get("max_slots_cap", 0)) or None,
+        headroom=float(plan.get("headroom", 0.08)),
+        draft_layers=int(plan.get("draft_layers", 0)),
+        tp_degree=int(plan.get("tp_degree", 1)),
+        kv_dtype=str(plan.get("kv_dtype", "float32")),
+        weight_dtype=str(plan.get("weight_dtype", "float32")))
+    drift = []
+    want_dtype = convert_dtype(str(plan.get("kv_dtype", "float32")))
+    if pool.kv_dtype != want_dtype:
+        drift.append(
+            f"kv_dtype: pool stores {pool.kv_dtype}, plan records "
+            f"{want_dtype} — the carve assumed "
+            f"{np.dtype(want_dtype).itemsize}-byte pages")
+    for key, live in (("pages", pool.num_pages),
+                      ("page_tokens", pool.page_tokens),
+                      ("num_layers", pool.num_layers),
+                      ("num_heads", pool.num_heads),
+                      ("head_dim", pool.head_dim)):
+        if int(fresh[key]) != int(live):
+            drift.append(
+                f"{key}: pool has {live}, page_budget derives "
+                f"{fresh[key]} under the recorded inputs")
+    # retention watermarks ride the plan (prefix_cache reads them);
+    # hand-edited watermarks are drift exactly like hand-set pages
+    if plan.get("retained_watermarks") is not None:
+        for key in ("low", "high"):
+            want = int(fresh["retained_watermarks"][key])
+            have = int(plan["retained_watermarks"].get(key, -1))
+            if want != have:
+                drift.append(
+                    f"retained_watermarks.{key}: plan records {have}, "
+                    f"page_budget derives {want}")
     return drift

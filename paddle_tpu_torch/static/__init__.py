@@ -1,7 +1,8 @@
 """paddle_tpu_torch.static — Program construction, the BERT layer subset,
 append_backward (with recompute), the optimizers with their regularizers,
 gradient clips, gradient merge, EMA, ModelAverage, Lookahead and
-Recompute, checkpoint selection, device_guard (the pipeline's stage
+Recompute, checkpoint selection, the analysis tier (the verifier, the
+layout, memory and FLOPs walks, the planner), device_guard (the pipeline's stage
 annotations), the eager executor and CompiledProgram (data parallel; the
 `paddle.static` surface of the ported slices)."""
 from ..core.program import (  # noqa: F401
@@ -23,8 +24,30 @@ from . import initializer  # noqa: F401
 from . import nets  # noqa: F401
 from .layers import data  # noqa: F401
 from .backward import append_backward, gradients  # noqa: F401
-from .memory_analysis import select_layer_checkpoints  # noqa: F401
+from .memory_analysis import (  # noqa: F401
+    estimate_peak_bytes, analyze_program, hbm_budget_bytes,
+    select_layer_checkpoints,
+)
 from . import memory_analysis  # noqa: F401
+from .flops_analysis import (  # noqa: F401
+    analyze_flops, estimate_step_flops, peak_flops_per_chip,
+)
+from . import flops_analysis  # noqa: F401
+from .verifier import (  # noqa: F401
+    check_program, collective_sequence, collective_wire_bytes,
+    collective_wire_bytes_by_axis, program_ring_degrees,
+    VerifyReport, Diagnostic, ProgramVerificationError,
+)
+from . import verifier  # noqa: F401
+from .layout_analysis import (  # noqa: F401
+    propagate_shardings, ShardingLayout, LayoutSpec,
+)
+from . import layout_analysis  # noqa: F401
+from .planner import (  # noqa: F401
+    plan_program, apply_plan, Plan, ici_bytes_per_chip, page_budget,
+    calibrate, Calibration, default_calibration,
+)
+from . import planner  # noqa: F401
 from .recompute_rewrite import apply_recompute  # noqa: F401
 from . import optimizer  # noqa: F401
 from .optimizer import (  # noqa: F401

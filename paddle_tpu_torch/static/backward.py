@@ -13,9 +13,14 @@ through static/recompute_rewrite.py; with `checkpoints=None`,
 FLAGS_recompute="always" checkpoints every transformer layer boundary
 (`memory_analysis.select_layer_checkpoints`), and `checkpoints=[]` forces
 the plain backward whatever the flag says.  FLAGS_recompute="auto"
-(rewrite only when the predicted peak exceeds the HBM budget) needs the
-liveness walk of ROADMAP.md Queue 1, "Analysis and planner tiers", and
-raises.
+builds the plain backward on a clone, walks its liveness
+(`memory_analysis.analyze_program`, with 2x the trainable parameters'
+bytes reserved for the optimizer's moments) and rewrites at the layer
+checkpoints only when the predicted peak exceeds the memory budget.  The
+estimate's backward leaves the unique-name counters as it found them, so
+the program "auto" builds is the plain build's, or the "always" build's,
+exactly (the JAX package's estimate advances them: its "auto" programs
+name their gradients one suffix later).
 
 One difference from the JAX package: `gradients(target_gradients=...)`
 seeds the backward with the given gradient; the JAX package accepts the
@@ -70,21 +75,73 @@ def _find_loss_op_idx(block: Block, loss_name: str) -> int:
     raise ValueError(f"loss var {loss_name!r} is not produced in this block")
 
 
-def _auto_remat_checkpoints(program: Program):
-    """FLAGS_recompute's checkpoints (None = the plain backward):
-    "always" picks every transformer layer boundary; "auto" raises."""
+# reentrancy guard: the auto-remat estimate builds a plain backward on a
+# CLONE of the program; that nested append_backward must not re-enter
+# the auto hook
+_in_auto_remat_estimate = False
+
+
+def _auto_remat_checkpoints(loss, block: Block, no_grad: Set[str]):
+    """FLAGS_recompute-driven checkpoint selection (None = plain
+    backward).  ``always``: checkpoint every transformer-layer boundary.
+    ``auto``: additionally build the UNREWRITTEN backward on a clone,
+    walk its liveness (memory_analysis), and rewrite only when the
+    predicted peak exceeds the HBM budget — so remat's extra FLOPs are
+    paid exactly when the memory is actually needed."""
+    global _in_auto_remat_estimate
+    if _in_auto_remat_estimate:
+        return None
     from ..core.flags import flag
     mode = str(flag("recompute", "") or "").strip().lower()
     if mode in ("", "0", "off", "false", "none"):
         return None
+    from .memory_analysis import select_layer_checkpoints, analyze_program
+    program = block.program
+    ckpts = select_layer_checkpoints(program)
+    if not ckpts:
+        return None
     if mode == "auto":
-        raise NotImplementedError(
-            "FLAGS_recompute=\"auto\" rewrites only when the predicted peak "
-            "exceeds the HBM budget; that needs analyze_program, not ported "
-            "yet (ROADMAP.md Queue 1, Analysis and planner tiers): use "
-            "\"always\" or checkpoints=")
-    from .memory_analysis import select_layer_checkpoints
-    return select_layer_checkpoints(program) or None
+        clone = program.clone()
+        try:
+            clone_loss = clone.global_block().var(loss.name)
+        except KeyError:
+            return None
+        # the estimate's backward must not consume unique names: the real
+        # backward then names its vars as a plain (or "always") build
+        # does, so "auto" gives that build's program exactly
+        from ..core.program import _names
+        saved = dict(_names.counters)
+        _in_auto_remat_estimate = True
+        try:
+            append_backward(clone_loss, None, set(no_grad), checkpoints=())
+        finally:
+            _in_auto_remat_estimate = False
+            _names.counters.clear()
+            _names.counters.update(saved)
+        report = analyze_program(clone)
+        # The decision runs BEFORE minimize() appends optimizer ops, so
+        # the clone walk is missing the optimizer's persistable slots.
+        # Reserve 2x trainable-param bytes for them (Adam/Lamb moments,
+        # the common case) so this verdict matches the post-minimize
+        # walk — without the reserve a config could be declared fitting
+        # here and over-budget after minimize.
+        from ..core.dtype import torch_dtype
+        reserve = 0
+        for p in program.all_parameters():
+            if p.trainable and p.shape is not None and p.dtype is not None:
+                n = 1
+                for d in p.shape:
+                    n *= 1 if d in (-1, None) else int(d)
+                reserve += n * torch_dtype(p.dtype).itemsize
+        # world-size-aware slot accounting: under ZeRO-1 sharding
+        # (FLAGS_hbm_dp_shard, distributed/sharding.py) the moments this
+        # reserve models are split 1/N per chip — the verdict must match
+        # the sharded post-minimize walk, not the replicated one
+        ds = int(flag("hbm_dp_shard", 0)) or 1
+        if report["peak_bytes"] + 2 * reserve // ds \
+                <= report["fits_budget_bytes"]:
+            return None
+    return ckpts
 
 
 def append_backward(loss, parameter_list=None, no_grad_set=None,
@@ -106,7 +163,7 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     no_grad = set(no_grad_set or ())
 
     if checkpoints is None:
-        checkpoints = _auto_remat_checkpoints(program)
+        checkpoints = _auto_remat_checkpoints(loss, block, no_grad)
     if checkpoints:
         from .recompute_rewrite import append_backward_with_checkpoints
         return append_backward_with_checkpoints(

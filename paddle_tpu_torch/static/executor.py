@@ -236,6 +236,15 @@ def _unwrap_program(program):
     return getattr(program, "_program", program)
 
 
+def _wrapper_chips(program) -> int:
+    """Ranks of a CompiledProgram's (already-formed) world — the MFU
+    denominator must scale with the cards that shared the step, since
+    the feed (and the walked FLOPs) is the global batch.  1 when no
+    world is known yet, or for the other wrappers."""
+    world = getattr(program, "_world", None)
+    return world.size if world is not None else 1
+
+
 def _is_startup(program: Program) -> bool:
     """The startup program: marked by program_guard, else every op an
     initializer."""
@@ -413,6 +422,10 @@ class Executor:
         self._ckpt_barrier = None
         self._active_prefetcher = None
         self.last_restored_extra = None  # the sidecar of the last resume
+        # step telemetry: the card's peak rate (resolved once) and the
+        # training steps observed (the device peak is read every 64)
+        self._peak_flops = None
+        self._observed_steps = 0
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -422,7 +435,8 @@ class Executor:
             results = program._run(self, feed, fetch_list, scope,
                                    return_numpy)
             self._after_train_run(program, scope or global_scope(),
-                                  time.perf_counter() - t0, 1)
+                                  time.perf_counter() - t0, 1, feed or {},
+                                  chips=_wrapper_chips(program))
             return results
         if getattr(program, "_ps_server_config", None):
             return _serve_pserver(program)
@@ -431,9 +445,14 @@ class Executor:
             from ..incubate.checkpoint.auto_checkpoint import \
                 _auto_checkpoint
             _auto_checkpoint(self, program)
-        fetched = self._run_one(program, feed or {},
-                                _fetch_names(fetch_list), scope)
-        self._after_train_run(program, scope, time.perf_counter() - t0, 1)
+        fetch_names = _fetch_names(fetch_list)
+        # env-gated IR verification (PADDLE_TPU_VERIFY, static/verifier.py)
+        # of each (program, fetch set) once: a no-op when the env is unset
+        from .verifier import verify_first_compile
+        verify_first_compile(program, fetch_list=fetch_names)
+        fetched = self._run_one(program, feed or {}, fetch_names, scope)
+        self._after_train_run(program, scope, time.perf_counter() - t0, 1,
+                              feed or {})
         if return_numpy:
             return [as_numpy(f) for f in fetched]
         return fetched
@@ -445,37 +464,162 @@ class Executor:
         self._step += 1
         return fetched
 
-    def _after_train_run(self, program, scope, dt, steps):
+    def _after_train_run(self, program, scope, dt, steps, feed_vals,
+                         stacked=False, chips=1):
         """The hooks of a finished run / run_steps call: telemetry (the
-        heartbeat and the journal's step event), the periodic checkpoint
-        and the chaos step, each for training programs only."""
-        training = _training_cached(_unwrap_program(program))
+        gauges, the heartbeat and the journal's step event), the periodic
+        checkpoint and the chaos step, each for training programs only.
+        They run after the call returned, never inside a captured
+        `run_steps` window."""
+        p = _unwrap_program(program)
+        training = _training_cached(p)
         if training:
-            self._observe_step(dt, steps)
+            self._observe_step(p, dt, feed_vals, steps, chips, stacked)
         self._maybe_checkpoint(program, scope)
         if training:
             self._chaos_step()
 
-    def _observe_step(self, dt, steps):
-        """One heartbeat and one `step` journal event (each a no-op when
-        unarmed); the metrics sidecar starts at the first training step
-        where PADDLE_TPU_METRICS_PORT is set.  Telemetry never fails a
-        run: an error here skips the observation."""
+    @staticmethod
+    def _feed_tokens(feed_vals, stacked: bool) -> int:
+        """Tokens processed by one dispatch, inferred from the feed: the
+        largest >=2-D integer feed's numel (ids-style models — the
+        labels feed ties, max() is stable); else batch rows (x-style
+        models).  `stacked` marks run_steps feeds ([K, B, ...]: rows
+        are the two leading dims)."""
+        best_int = 0
+        rows = 0
+        for v in feed_vals.values():
+            shape = tuple(getattr(v, "shape", ()) or ())
+            if not shape:
+                continue
+            dt = getattr(v, "dtype", None)
+            if isinstance(dt, torch.dtype):
+                kind = "i" if not (dt.is_floating_point or dt.is_complex
+                                   or dt == torch.bool) else "f"
+            else:
+                try:
+                    kind = np.dtype(str(dt)).kind if dt is not None \
+                        else "?"
+                except TypeError:  # a dtype numpy can't parse
+                    kind = "?"
+            if kind in ("i", "u") and len(shape) >= 2:
+                n = 1
+                for d in shape:
+                    n *= int(d)
+                best_int = max(best_int, n)
+            lead = int(shape[0])
+            if stacked and len(shape) >= 2:
+                lead *= int(shape[1])
+            rows = max(rows, lead)
+        return best_int or rows
+
+    @staticmethod
+    def _feed_batch(feed_vals, stacked: bool) -> int:
+        """Per-step batch from the feed's leading dims (the -1 binding
+        for the cached FLOPs/HBM walks); `stacked` = run_steps feeds
+        whose per-step batch is axis 1.  The MOST COMMON candidate wins
+        (ties -> largest) so a lone non-batch feed — a fed lr of shape
+        [1], a lookup table — cannot poison the per-program cache."""
+        counts: Dict[int, int] = {}
+        for v in feed_vals.values():
+            shape = tuple(getattr(v, "shape", ()) or ())
+            if len(shape) >= (2 if stacked else 1):
+                b = int(shape[1] if stacked else shape[0])
+                counts[b] = counts.get(b, 0) + 1
+        if not counts:
+            return 0
+        return max(counts, key=lambda b: (counts[b], b))
+
+    def _flops_per_step(self, p, batch) -> Optional[int]:
+        """analyze_flops total for this program at `batch`, cached on
+        the program (one IR walk per distinct batch, then a dict hit)."""
+        cache = p.__dict__.setdefault("_flops_by_batch", {})
+        if batch not in cache:
+            try:
+                from .flops_analysis import analyze_flops
+                cache[batch] = analyze_flops(p, batch=batch)[
+                    "total_flops"]
+            except Exception:
+                cache[batch] = None  # telemetry never kills training
+        return cache[batch]
+
+    def _observe_step(self, p, dt, feed_vals, steps=1, chips=1,
+                      stacked=False):
+        """Per-train-step telemetry: wall time, tokens/s, walked-FLOPs
+        MFU, predicted and measured peak memory into core/monitor; one
+        journal event; one heartbeat.  The metrics sidecar starts at the
+        first training step where PADDLE_TPU_METRICS_PORT is set.  Fully
+        fenced: telemetry must never kill a training run, so ANY failure
+        here degrades to a silently skipped observation."""
         try:
-            from ..observability import heartbeat as _hb
-            from ..observability import journal as _journal
-            from ..observability.sidecar import maybe_start_from_env
-            maybe_start_from_env()
-            step_ms = round(dt * 1e3 / max(1, steps), 3)
-            stat_add("train.steps", steps)
-            _hb.maybe_beat(self._step, wall_ms=step_ms)
-            if _journal.journal_enabled():
-                ev = {"step": self._step, "wall_ms": step_ms}
-                if steps > 1:
-                    ev["micro_steps"] = steps
-                _journal.emit("step", **ev)
+            self._observe_step_inner(p, dt, feed_vals, steps, chips,
+                                     stacked)
         except Exception:
             pass
+
+    def _observe_step_inner(self, p, dt, feed_vals, steps, chips,
+                            stacked):
+        from ..core.monitor import gauge_set, hist_observe
+        from ..observability import heartbeat as _hb
+        from ..observability import journal as _journal
+        from ..observability.sidecar import maybe_start_from_env
+        maybe_start_from_env()
+        self._observed_steps += steps
+        stat_add("train.steps", steps)
+        step_ms = dt * 1e3 / max(1, steps)
+        hist_observe("train.step_ms", step_ms)
+        tokens = self._feed_tokens(feed_vals, stacked=stacked)
+        tps = None
+        if tokens and dt > 0:
+            tps = tokens / dt
+            gauge_set("train.tokens_per_sec", tps)
+        mfu = None
+        if self._peak_flops is None:
+            from .flops_analysis import peak_flops_per_chip
+            try:
+                self._peak_flops = float(peak_flops_per_chip())
+            except Exception:
+                self._peak_flops = 0.0
+        if self._peak_flops and dt > 0:
+            batch = self._feed_batch(feed_vals, stacked=stacked)
+            flops = self._flops_per_step(p, batch) if batch else None
+            if flops:
+                mfu = (flops * steps) / dt / (self._peak_flops
+                                              * max(1, chips))
+                gauge_set("train.mfu", mfu)
+        # predicted-vs-measured peak memory: the estimate once per
+        # program and batch, the allocator's answer every 64 steps
+        if self._observed_steps == steps or \
+                self._observed_steps % 64 < steps:
+            self._observe_hbm(p, feed_vals, stacked)
+        _hb.maybe_beat(self._step, wall_ms=round(step_ms, 3))
+        if _journal.journal_enabled():
+            ev = {"step": self._step, "wall_ms": round(step_ms, 3)}
+            if steps > 1:
+                ev["micro_steps"] = steps
+            if tps is not None:
+                ev["tokens_per_sec"] = round(tps, 1)
+            if mfu is not None:
+                ev["mfu"] = round(mfu, 5)
+            _journal.emit("step", **ev)
+
+    def _observe_hbm(self, p, feed_vals, stacked):
+        from ..core.monitor import gauge_set
+        try:
+            batch = self._feed_batch(feed_vals, stacked=stacked)
+            cache = p.__dict__.setdefault("_hbm_by_batch", {})
+            if batch and batch not in cache:
+                from .memory_analysis import estimate_peak_bytes
+                cache[batch] = estimate_peak_bytes(p, batch=batch)
+            if batch and cache.get(batch):
+                gauge_set("hbm.predicted_peak_bytes", cache[batch])
+            if self.device.type == "cuda":
+                # the caching allocator's counter: a host read, no sync
+                peak = torch.cuda.max_memory_allocated(self.device)
+                if peak:
+                    gauge_set("hbm.device_peak_bytes", int(peak))
+        except Exception:
+            pass  # exotic programs; telemetry never fails a step
 
     def _chaos_step(self):
         if not _chaos.enabled():
@@ -547,6 +691,10 @@ class Executor:
                     f"feed {n!r} leading (steps) dim {v.shape[0]} != {k}")
         if k == 0:
             raise ValueError("run_steps feeds have 0 steps")
+        if compiled is None:
+            # a CompiledProgram verifies on each rank's first run itself
+            from .verifier import verify_first_compile
+            verify_first_compile(program, fetch_list=fetch_names)
         t0 = time.perf_counter()
         if compiled is not None:
             fetched = compiled._run_steps(self, stacked, k, fetch_names,
@@ -566,8 +714,56 @@ class Executor:
         if _flags.flag("check_nan_inf", False):
             _check_nan_inf(program, fetch_names, arrays, scope, k)
         self._after_train_run(compiled if compiled is not None else program,
-                              scope, time.perf_counter() - t0, k)
+                              scope, time.perf_counter() - t0, k, stacked,
+                              stacked=True,
+                              chips=_wrapper_chips(compiled)
+                              if compiled is not None else 1)
         return arrays if return_numpy else fetched
+
+    def memory_report(self, program=None, feed=None, scope=None,
+                      batch=None, dp_shard=None):
+        """Build-time memory accounting for one training step of
+        `program` (static/memory_analysis.py): the op-IR liveness
+        estimate always; on a CUDA device with `feed` given, also one
+        measured step's ``torch.cuda.max_memory_allocated`` (after
+        ``reset_peak_memory_stats``), where the JAX package returns
+        XLA's ``memory_analysis``.  The measured step runs in a scratch
+        scope over the same tensors (the kernels are functional), so the
+        caller's state and the executor's step count do not move.
+
+        Returns ``{"estimate": <analyze_program dict>, "peak_bytes",
+        "budget_bytes", "fits", "device": {...} | None}``.  `batch`
+        binds symbolic -1 dims for the estimate; when omitted it is
+        inferred from the feed's leading dim."""
+        from .memory_analysis import analyze_program
+        program = _unwrap_program(program or default_main_program())
+        if batch is None and feed:
+            for v in feed.values():
+                shape = tuple(getattr(v, "shape", None) or np.shape(v))
+                if len(shape):
+                    batch = int(shape[0])
+                    break
+        est = analyze_program(program, batch=batch, dp_shard=dp_shard)
+        report = {"estimate": est, "peak_bytes": est["peak_bytes"],
+                  "budget_bytes": est["budget_bytes"],
+                  "fits": est["fits"], "device": None}
+        if feed and self.device.type == "cuda":
+            scope = scope or global_scope()
+            scratch = Scope()
+            scratch.vars = dict(scope.vars)
+            torch.cuda.synchronize(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            self._run_program(program, feed, [], scratch,
+                              self._seed_for_step(program))
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            del scratch
+            report["device"] = {
+                "max_memory_allocated": int(peak),
+                "allocated_before_step": int(base),
+                "device_name": torch.cuda.get_device_name(self.device)}
+        return report
 
     # -- dataset-driven training (the reference's MultiTrainer loop) -------
     def train_from_dataset(self, program=None, dataset=None, scope=None,

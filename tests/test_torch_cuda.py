@@ -23,7 +23,8 @@ NCCL at world 1 against eager runs, bit for bit, the tensor-parallel
 ops on CUDA tensors against their CPU results, ring attention composed
 from the flash kernels against the plain ring, and the hoisted
 gradient-merge window of run_steps against the unhoisted one, bit for
-bit.
+bit; the executor's telemetry gauges (tokens/s, walked-FLOPs MFU, the
+walked and the measured peak bytes) after a replayed run_steps call.
 
 Tolerances against the plain versions: fp32 1e-4 (summation order;
 3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
@@ -642,6 +643,48 @@ def test_run_steps_graph_replay_matches_eager_run(use_amp):
     np.testing.assert_array_equal(got.reshape(3), want)
     assert exe.cache_stats() == {"hits": 0, "misses": 1, "traces": 1}
     for n, t in eager_scope.vars.items():
+        assert torch.equal(scope.vars[n], t), n
+    exe.close()
+
+
+def test_step_telemetry_gauges_on_the_card():
+    """The executor's per-step gauges after a replayed run_steps call
+    (K = 3): tokens/s from the feed, the MFU from the walked FLOPs over
+    the step's own seconds and the card's data-sheet peak, the walked
+    peak bytes, and the allocator's peak read after the captured window
+    (the capture happens once: telemetry adds no capture).
+    memory_report measures one step without moving the caller's state."""
+    _need_cuda()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.monitor import gauge_get, hist_snapshot
+    from paddle_tpu_torch.static.flops_analysis import peak_flops_per_chip
+    main, loss, init = _small_pretrain(True)
+    feed = _stacked_feed(3)
+    tfx.enable_fused_xent(True)
+    try:
+        exe, scope = static.Executor(), _gpu_scope(init)
+        with static.scope_guard(scope):
+            exe.run_steps(main, feed=feed, fetch_list=[loss])
+            tps = gauge_get("train.tokens_per_sec")
+            mfu = gauge_get("train.mfu")
+            step_ms = hist_snapshot("train.step_ms")
+            before = {n: t.clone() for n, t in scope.vars.items()}
+            rep = exe.memory_report(main, feed={n: v[0]
+                                                for n, v in feed.items()})
+    finally:
+        tfx.enable_fused_xent(False)
+    assert exe.cache_stats()["traces"] == 1
+    tokens = 3 * 2 * 64
+    flops = static.analyze_flops(main, batch=2)["total_flops"]
+    dt = tokens / tps
+    assert mfu == pytest.approx(flops * 3 / dt / peak_flops_per_chip(),
+                                rel=1e-9)
+    assert step_ms["count"] >= 1
+    assert gauge_get("hbm.predicted_peak_bytes") == \
+        static.estimate_peak_bytes(main, batch=2)
+    assert gauge_get("hbm.device_peak_bytes") > 0
+    assert rep["device"]["max_memory_allocated"] > 0
+    for n, t in before.items():
         assert torch.equal(scope.vars[n], t), n
     exe.close()
 

@@ -24,7 +24,7 @@ from paddle_tpu_torch.core import generator
 from paddle_tpu_torch.core.place import CPUPlace
 from paddle_tpu_torch.models import GPTConfig, GPTModel
 
-from test_torch_gpt import TINY
+from test_torch_gpt import TINY, jax_generator_restored  # noqa: F401
 from test_torch_program import flash_mode
 
 TOL = dict(rtol=1e-5, atol=1e-5)

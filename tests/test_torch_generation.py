@@ -127,7 +127,7 @@ def test_fixed_and_paged_engines_token_equal_to_jax(pair):
         assert eng.kv_buckets <= 6 and len(eng.request_log) == 10
 
 
-def test_engine_rejections_match_jax(pair):
+def test_engine_rejections_match_jax(pair, monkeypatch):
     jm, tm = pair
     small = dict(PLAN, pages=4)
     for eng_cls, m, stopped, deadline, full in (
@@ -178,9 +178,14 @@ def test_engine_rejections_match_jax(pair):
     for kw in ({"tp_degree": 2}, {"kv_pool": dict(PLAN, tp_degree=2)}):
         with pytest.raises(ValueError, match="does not divide"):
             ContinuousBatchingEngine(tm, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, Analysis and planner tiers"):
-        ContinuousBatchingEngine(tm, kv_pool="auto")
+    # kv_pool="auto" sizes the pool with static.page_budget from the
+    # memory budget: the same plan as the JAX engine's, and no drift
+    monkeypatch.setenv("PADDLE_TPU_HBM_BYTES", str(16 * 2 ** 20))
+    auto, jauto = (ContinuousBatchingEngine(tm, kv_pool="auto"),
+                   JEngine(jm, kv_pool="auto"))
+    assert auto.kv_pool.plan == jauto._pool.plan
+    assert auto.kv_pool.num_pages == auto.kv_pool.plan["pages"] > 0
+    assert budget_drift(auto.kv_pool, tm) == []
     with pytest.raises(ValueError, match="geometry mismatch"):
         ContinuousBatchingEngine(tm, kv_pool=dict(PLAN, num_heads=2,
                                                   head_dim=16))

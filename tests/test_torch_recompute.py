@@ -18,8 +18,8 @@ package on the CPU (mirrors tests/test_recompute_rewrite.py).
     without recompute equal bit for bit), and run_steps (the CPU loop)
     equals run() calls;
   * FLAGS_recompute="always" equals manual checkpoints at
-    `select_layer_checkpoints`' picks, and "auto" raises, naming ROADMAP
-    Queue 1, "Analysis and planner tiers".
+    `select_layer_checkpoints`' picks, and "auto" gives the plain program
+    under an ample budget and the "always" one under a tight budget.
 """
 import contextlib
 
@@ -328,12 +328,23 @@ def test_run_steps_with_recompute_equals_run_calls():
         assert torch.equal(results[1][1][n], t), n
 
 
-def test_auto_mode_raises_naming_its_item():
-    with recompute_flag("auto"):
-        with pytest.raises(NotImplementedError,
-                           match="Analysis and planner tiers"):
+def test_auto_mode_raises_naming_its_item(monkeypatch):
+    """FLAGS_recompute="auto" no longer raises: it walks the plain
+    backward on a clone and rewrites only over the budget, so an ample
+    budget gives the plain program and a tight one the "always" program
+    (JSON equal to the JAX package's builds)."""
+    plain, _ = build_pair()
+    with recompute_flag("always"):
+        always, _ = build_pair()
+    peak = tstatic.estimate_peak_bytes(plain[0], batch=1)
+    for budget, want in ((4 * peak, plain), (peak // 4, always)):
+        monkeypatch.setenv("PADDLE_TPU_HBM_BYTES", str(budget))
+        with recompute_flag("auto"):
             torch_reset_names()
-            build_tiny(paddle_tpu_torch)
+            with flash_mode(False):
+                auto = build_tiny(paddle_tpu_torch)
+        assert auto[0].to_dict() == want[0].to_dict()
+    assert _barriers(auto[0]) == _barriers(always[0]) > 0
     # checkpoints=[] forces the plain backward whatever the flag says
     with recompute_flag("always"):
         main, startup = tstatic.Program(), tstatic.Program()

@@ -89,10 +89,15 @@ def test_split_serializes_equal(name):
 
 
 def test_wire_bytes_raises_naming_its_item():
-    _, port = _pair(**SPLITS["zero2_adam"])
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, Analysis and planner tiers"):
-        tsw.scan_window_wire_bytes(port[0], 2)
+    """scan_window_wire_bytes no longer raises: it prices the looped and
+    the hoisted window with the verifier's entry_wire_bytes, equal to the
+    JAX package's at every world."""
+    ref, port = _pair(**SPLITS["zero2_adam"])
+    for world in (2, 8):
+        got = tsw.scan_window_wire_bytes(port[0], world)
+        assert got == jsw.scan_window_wire_bytes(ref[0], world)
+        assert got["k"] == GM and got["tail"] > 0
+        assert got["per_step_hoisted"] < got["per_step_looped"]
 
 
 def _feeds(calls, k=K, batch=8, seed=5):

@@ -149,11 +149,11 @@ def test_stop_drains_in_flight_requests(model_dir):
     assert out["shape"] == [1, 32, 64]
 
 
-def test_server_rejects_generator_and_stops_unstarted(model_dir):
-    """A generator is served now (tests/test_torch_generation.py); what
-    the port has not ported yet still raises, naming its ROADMAP item:
-    kv_pool="auto" (Analysis and planner tiers).  A tp degree the world
-    does not divide raises too."""
+def test_server_rejects_generator_and_stops_unstarted(model_dir,
+                                                     monkeypatch):
+    """A generator is served now (tests/test_torch_generation.py), and so
+    is gen_kv_pool="auto" (the pool sized by static.page_budget from the
+    memory budget).  A tp degree the world does not divide raises."""
     from paddle_tpu_torch import dygraph
     from paddle_tpu_torch.models import (GPTConfig, GPTForGeneration,
                                          GPTModel)
@@ -163,10 +163,13 @@ def test_server_rejects_generator_and_stops_unstarted(model_dir):
             max_position=32, dropout=0.0)))
     plan = dict(num_layers=1, num_heads=2, head_dim=8, page_tokens=4,
                 pages=8, tp_degree=2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, Analysis and planner tiers"):
-        InferenceServer(model_dir, place=CPUPlace(), generator=gen,
-                        gen_kv_pool="auto")
+    monkeypatch.setenv("PADDLE_TPU_HBM_BYTES", str(16 * 2 ** 20))
+    auto = InferenceServer(model_dir, place=CPUPlace(), generator=gen,
+                           gen_kv_pool="auto")
+    pool = auto.engine.kv_pool
+    assert pool is not None and pool.plan["hbm_bytes"] == 16 * 2 ** 20
+    assert pool.num_pages == pool.plan["pages"] > 0
+    auto.stop(drain_timeout_s=1.0)
     # a plan sized for tp-sharded decode is served (tests/test_torch_tp_
     # decode.py): off a process group the world is 1, which tp 2 does not
     # divide, with the plan's degree or an explicit one

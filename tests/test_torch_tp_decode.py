@@ -40,6 +40,7 @@ from paddle_tpu_torch.serving import (ContinuousBatchingEngine, PagedKVPool,
                                       tp_decode)
 
 import torch_dist_worker
+from test_torch_gpt import jax_generator_restored  # noqa: F401
 
 CFG = dict(vocab_size=48, hidden_size=16, num_layers=2, num_heads=4,
            max_position=64, dropout=0.0)

@@ -80,10 +80,11 @@ def test_bench_op_counts():
             {"fill_constant", "uniform_random"}
 
 
-def test_recompute_is_refused():
-    """Only FLAGS_recompute="auto" is refused (it needs the HBM liveness
-    walk of ROADMAP Queue 1, Analysis and planner tiers); checkpoints=
-    and Adam(lazy_mode=True) build (tests/test_torch_recompute.py and
+def test_recompute_is_refused(monkeypatch):
+    """Nothing is refused any more: FLAGS_recompute="auto" walks the
+    plain backward and rewrites only over the memory budget (here an
+    ample one, so the backward stays plain); checkpoints= and
+    Adam(lazy_mode=True) build (tests/test_torch_recompute.py and
     tests/test_torch_sparse.py hold them against the JAX package)."""
     from paddle_tpu_torch import static
     from paddle_tpu_torch.core.flags import set_flags
@@ -93,13 +94,22 @@ def test_recompute_is_refused():
         x = layers.data("x", [-1, 4])
         h = layers.layer_norm(layers.fc(x, 4), begin_norm_axis=1)
         loss = layers.mean(layers.fc(h, 1))
+        probe = main.clone()
+        static.append_backward(probe.global_block().var(loss.name))
+        monkeypatch.setenv("PADDLE_TPU_HBM_BYTES", str(
+            100 * static.estimate_peak_bytes(probe, batch=1)))
         set_flags({"recompute": "auto"})
         try:
-            with pytest.raises(NotImplementedError,
-                               match="Analysis and planner tiers"):
-                static.append_backward(loss)
+            auto = main.clone()
+            static.append_backward(auto.global_block().var(loss.name))
         finally:
             set_flags({"recompute": ""})
+        # the plain backward (the names differ: the probe's backward
+        # took the first unique suffixes)
+        assert [op.type for op in auto.global_block().ops] == \
+            [op.type for op in probe.global_block().ops]
+        assert "optimization_barrier" not in \
+            [op.type for op in auto.global_block().ops]
         pg = static.append_backward(loss, checkpoints=[h])
     assert pg and "optimization_barrier" not in \
         [op.type for op in main.global_block().ops]  # h's segment is fresh
