@@ -184,8 +184,9 @@ is present.  Phases:
                finite, the last below the first; wide launches 0.
   9. dygraph - BertForPretraining(BertModel(BertConfig())) (the JAX
                package's defaults: google-research/bert base, vocab
-               30522, hidden 768, 12 layers, 12 heads, FFN 3072, 512
-               positions, dropout 0.1), batch 8 x seq 512, no padding
+               30522, hidden 768, 12 heads, FFN 3072, 512 positions,
+               dropout 0.1) cut to DYGRAPH_LAYERS = 4 layers (12 before
+               phase 19 took the full-depth step), batch 8 x seq 512, no padding
                mask, weights from --seed, one fixed batch (MLM labels at
                every position, NSP labels); AdamW(weight decay 0.01,
                ClipGradByGlobalNorm(1.0), LinearWarmup(2 steps,
@@ -565,6 +566,48 @@ is present.  Phases:
                measured step ms, tokens/s; the ranking recorded, not
                gated), and its first loss equals bitwise a hand-applied
                build's first step.
+ 19. high_level - the 2.0 high-level path (hapi/, io/, metric/, jit/).
+               (a) Model.fit of dygraph BERT-base pretraining (attention
+               dropout 0, hidden 0.1; AdamW lr 1e-4; amp_configs O2;
+               flash and fused CE forced on) over io.DataLoader of 6
+               batches of 8 (one fixed batch, repeated), with
+               ProgBarLogger and a recording callback; evaluate over 2
+               batches, predict over 1: the 6 fit losses bitwise 6
+               train_batch calls of an identical model from the same draw
+               state; 12 / 12 / 12 flash forward / dQ / dK/dV, 2 fused CE
+               and 25 dropouts a step, the flash and CE ones all bf16;
+               losses finite and falling; save(training=True) -> load
+               into a fresh model -> the next train_batch loss bitwise the
+               unreloaded model's.  (b) prepare(use_jit=True) on vision
+               ResNet-50 (224 x 224, 1000 classes, fp32, batch 32,
+               Momentum 0.01 / 0.9), fused CE on, DataLoader(num_workers=
+               2) over 4 batches, Accuracy(topk=(1, 5)): each jit fit
+               step against a use_jit=False step from a copy of the
+               state it started from, its loss (rtol 1e-5) and the state
+               after it (every weight, batch-norm statistic and Momentum
+               velocity within 1e-3, max |a - b| / max |b| a leaf), a
+               planted fault of each kind (gradients zeroed, the
+               batch-norm write-back left out) above 1e-3; with cuDNN
+               deterministic, a jit fit and a use_jit=False fit of weight
+               copies within both tolerances over the 4 steps (in the
+               default mode the two fits' parting is recorded); fp32
+               fused CE launches measured a step, 2 in the first (its
+               trace, then its replay) and 1 in each later one; the
+               Accuracy values equal to numpy over the logits the metric
+               saw, under the fit's labels and under labels placed in
+               each row's ranking (both strictly between 0 and 1);
+               jit.save -> jit.load ->
+               TranslatedLayer in eval and a Predictor over the same files
+               (ir_optim off) within 1e-5 (normalised) of the eval
+               forward.  (c) dy2static on CUDA tensors: a tensor `if` and
+               the decode loop's `while` with `break`: the recorded
+               program holds cond and while, outputs and the gradient
+               bitwise the eager run's; run_steps over a program holding
+               `while` runs step by step (no capture).
+               Phase 9 runs BERT-base cut to DYGRAPH_LAYERS = 4
+               layers (its three variants, the fp32 check and the hapi
+               check), widths unchanged: (a) carries the full-depth
+               dygraph AMP step.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -602,7 +645,8 @@ capturing call, a micro-step of each launched rank), and phase 17's
 (`phase17_launches`: a pipelined step of (a), both stages, and each
 stage's; (b) and (c) launch no hand kernel), and phase 18's
 (`phase18_launches`: the eager AMP step of (c), the whole phase, in the
-row's dtype);
+row's dtype), and phase 19's (`phase19_launches`: each fit step of (a)
+and each jit fit step of (b), measured, in the row's dtype);
 every phase's seconds on a line of its own ({"phase_seconds": ...});
 the last line
 {"ok": true, "device": {...}}.
@@ -2555,6 +2599,11 @@ DYGRAPH_VARIANTS = (("published", 0.1, "O1", "float32"),
                     ("flash", 0.0, "O1", "float32"),
                     ("flash_o2", 0.0, "O2", "bfloat16"))
 DYGRAPH_HIDDEN_DROPOUTS = 1 + 2 * BERT["layers_n"]  # embeddings, 2 a layer
+# phase 9's variants, fp32 check and hapi check run BERT-base cut to
+# DYGRAPH_LAYERS layers (12 before phase 19), widths unchanged: phase 19 (a)
+# carries the full-depth dygraph BERT-base AMP step, through hapi fit
+DYGRAPH_LAYERS = 4
+DYGRAPH_DROPOUTS = 1 + 2 * DYGRAPH_LAYERS
 # phases 13-14, phase 15's hoist (on phase 14's program) and sp LM, and
 # phase 16's fleet train BERT-base cut to DIST_LAYERS layers, widths
 # unchanged, so that the whole run keeps inside its time limit
@@ -2676,14 +2725,14 @@ def dygraph_config(torch, attn, dr, fx, seed, batch, variant, attn_dropout,
     0; losses finite, the last below the first."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import amp
-    net, crit = dygraph_model(seed, attn_dropout)
+    net, crit = dygraph_model(seed, attn_dropout, layers=DYGRAPH_LAYERS)
     opt = dygraph_optimizer(net)
     scaler = amp.GradScaler()
     n_params = sum(p.numel() for p in net.parameters())
     net.train()
-    n = BERT["layers_n"]
+    n = DYGRAPH_LAYERS
     flash = 0 if attn_dropout else 1
-    want = {"dropout": DYGRAPH_HIDDEN_DROPOUTS + (n if attn_dropout else 0),
+    want = {"dropout": DYGRAPH_DROPOUTS + (n if attn_dropout else 0),
             "flash_attn_fwd": n * flash, "flash_attn_bwd_dq": n * flash,
             "flash_attn_bwd_dkv": n * flash, "fused_xent_fwd": 2}
     losses = [float(dygraph_step(net, crit, opt, scaler, batch,
@@ -2736,7 +2785,8 @@ def dygraph_config(torch, attn, dr, fx, seed, batch, variant, attn_dropout,
     steady = sorted(step_ms)[len(step_ms) // 2]
     result = {"phase": "dygraph", "variant": variant,
               "config": "BertForPretraining(BertModel(BertConfig())) "
-                        f"(bert-base, hidden dropout 0.1, attention "
+                        f"(bert-base cut to {DYGRAPH_LAYERS} layers, "
+                        f"hidden dropout 0.1, attention "
                         f"{attn_dropout}); AdamW wd 0.01, global-norm clip "
                         f"1.0, warmup + linear decay; auto_cast {level} + "
                         "GradScaler; fused CE",
@@ -2776,7 +2826,7 @@ def dygraph_correctness(torch, attn, dr, fx, seed, batch):
     of the word embedding, the first layer's q, k and v projections and
     the MLM transform within a normalised max error of 1e-3."""
     from paddle_tpu_torch.core.generator import get_rng_state, set_rng_state
-    net, crit = dygraph_model(seed, 0.0)
+    net, crit = dygraph_model(seed, 0.0, layers=DYGRAPH_LAYERS)
     net.train()
     attn0 = net.bert.encoder.layers[0].self_attn
     checked = {"word_embedding": net.bert.embeddings.word_embeddings.weight,
@@ -2800,10 +2850,10 @@ def dygraph_correctness(torch, attn, dr, fx, seed, batch):
             fx.enable_fused_xent(False)
         counts = {k: c.launches
                   for k, c in dygraph_counters(attn, dr, fx).items()}
-        expect = {"dropout": DYGRAPH_HIDDEN_DROPOUTS,
+        expect = {"dropout": DYGRAPH_DROPOUTS,
                   **dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
                                    "flash_attn_bwd_dkv"),
-                                  BERT["layers_n"] if tag == "kernels"
+                                  DYGRAPH_LAYERS if tag == "kernels"
                                   else 0),
                   "fused_xent_fwd": 2 if tag == "kernels" else 0}
         if counts != expect:
@@ -2836,7 +2886,7 @@ def dygraph_hapi(torch, seed, batch):
     and every parameter equal to the last bit."""
     from paddle_tpu_torch import amp, hapi
     from paddle_tpu_torch.core.generator import get_rng_state, set_rng_state
-    net, crit = dygraph_model(seed, 0.0)
+    net, crit = dygraph_model(seed, 0.0, layers=DYGRAPH_LAYERS)
     init = {k: v.detach().clone() for k, v in net.state_dict().items()}
     rng = get_rng_state()
     model = hapi.Model(net)
@@ -9029,6 +9079,660 @@ def analysis_phase(torch, seed, tmp, gen):
     return out
 
 
+
+# phase 19: the 2.0 high-level path: hapi Model.fit / evaluate / predict /
+# save / load over io.DataLoader, metric and the callbacks, prepare(use_jit
+# =True) over jit.to_static, and dy2static control flow on the card
+HL_FIT_BATCHES = 6      # (a) fit batches of TRAIN_BATCH; eval 2, predict 1
+HL_EVAL_BATCHES = 2
+HL_PREDICT_BATCHES = 1
+HL_RESNET = dict(batch=32, img=224, classes=1000, batches=4, workers=2)
+# (b)'s gates, written before the chip run that first read them.  Each
+# jit fit step against a use_jit=False step of a copy of the state it
+# started from (weights, batch-norm statistics, Momentum velocities) on
+# the same batch: the loss within HL_JIT_RTOL relative, and every leaf of
+# the state after the step (each parameter, buffer and velocity) within
+# HL_STATE_TOL of the jit step's, as max |a - b| / max |b| over the leaf.
+# Two planted faults must read above HL_STATE_TOL: the step with its
+# gradients zeroed, and the state with the batch-norm write-back left
+# out.  Free-running, a use_jit=False fit of a weight copy is held to
+# both tolerances over all 4 steps with torch.backends.cudnn.deterministic
+# on; in cuDNN's default mode the two fits are recorded, not gated: its
+# weight-gradient sums are not reproducible run to run, and on random
+# labels Momentum amplifies them (NVIDIA H100 80GB HBM3, 700 W: the
+# default-mode losses part by 0 / 3.0e-6 / 9.4e-4 / 2.5e-3 relative over
+# the 4 steps, the deterministic ones agree to the bit; a lockstep state
+# reads 1.9e-5 to 4.1e-5, the planted faults 0.56 and above)
+HL_JIT_RTOL = 1e-5
+HL_STATE_TOL = 1e-3
+HL_SAVE_TOL = 1e-5      # (b) TranslatedLayer / Predictor vs eval forward
+HL_PATHS = ("hl_bert_fit", "hl_resnet_jit_fit")
+
+
+class HLBertData:
+    """(a)'s map-style dataset: sample i is row i % TRAIN_BATCH of one
+    fixed pretraining batch (ids and MLM labels [512], the NSP label), so
+    every batch of 8 is that batch (the memorization of phase 9)."""
+
+    def __init__(self, seed, n):
+        rng = np.random.RandomState(seed)
+        b, seq, vocab = TRAIN_BATCH, BERT["seq"], BERT["vocab"]
+        self.ids = rng.randint(0, vocab, (b, seq)).astype(np.int64)
+        self.labels = rng.randint(0, vocab, (b, seq)).astype(np.int64)
+        self.nsp = rng.randint(0, 2, (b,)).astype(np.int64)
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        r = i % TRAIN_BATCH
+        return self.ids[r], self.labels[r], self.nsp[r]
+
+
+class HLImages:
+    """(b)'s map-style dataset: image i [3, 224, 224] fp32 and its label
+    [1], drawn from (seed, i) in the worker that loads it."""
+
+    def __init__(self, seed, n, img, classes):
+        self.seed, self.n, self.img, self.classes = seed, n, img, classes
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed * 100003 + i)
+        return (rng.rand(3, self.img, self.img).astype(np.float32),
+                np.asarray([rng.randint(self.classes)], np.int64))
+
+
+def hl_callbacks(base, counters=None):
+    """A callback recording each train batch's loss (fit's `logs`), its
+    host ms from the batch's begin to its end (train_batch reads the loss
+    on the host, so its kernels have finished; the first begins after
+    the loader's first batch), and with `counters` the hand kernels'
+    launches between the two ({kernel: n} and {kernel: {dtype: n}})."""
+    class Recording(base):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+            self.step_ms = []
+            self.step_launches = []
+            self.step_by_dtype = []
+            self.epochs = 0
+            self._t0 = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if counters is not None:
+                self._n0 = dp_read(counters)
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+            self.step_ms.append((time.perf_counter() - self._t0) * 1e3)
+            if counters is not None:
+                (l0, d0), (l1, d1) = self._n0, dp_read(counters)
+                self.step_launches.append({k: l1[k] - l0[k] for k in l1})
+                self.step_by_dtype.append({
+                    k: {dt: n - d0[k].get(dt, 0) for dt, n in d1[k].items()
+                        if n != d0[k].get(dt, 0)} for k in d1})
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.epochs += 1
+    return Recording()
+
+
+def hl_state(model):
+    """A copy on the card of a hapi Model's state: ({name: tensor} of its
+    network's parameters and buffers, {name: tensor} of its optimizer's
+    accumulators)."""
+    return ({k: v.detach().clone()
+             for k, v in model.network.state_dict().items()},
+            {k: v.detach().clone()
+             for k, v in model._optimizer.state_dict().items()
+             if hasattr(v, "detach")})
+
+
+def hl_state_err(torch, got, want, keys=None):
+    """{leaf: max |got - want| / max |want|} over the leaves of two
+    hl_state results (both halves, or the names in `keys`); fails unless
+    both hold the same names."""
+    pairs = []
+    for g, w in zip(got, want):
+        names = sorted(w) if keys is None else sorted(keys & set(w))
+        if sorted(g if keys is None else keys & set(g)) != names:
+            raise AssertionError(f"hl (b) state names differ: "
+                                 f"{sorted(set(g) ^ set(w))[:8]}")
+        pairs += [(k, g[k], w[k]) for k in names]
+    if not pairs:
+        return {}
+    diff = torch.stack([(a.to(b.dtype) - b).abs().max().float()
+                        for _, a, b in pairs])
+    scale = torch.stack([b.abs().max().float() for _, _, b in pairs])
+    err = torch.where(scale > 0, diff / scale, diff).tolist()
+    return {k: e for (k, _, _), e in zip(pairs, err)}
+
+
+def hl_bert_model(seed):
+    """phase 9's BERT-base (attention dropout 0, so attention takes
+    flash; hidden dropout 0.1) in a hapi Model, AdamW at lr 1e-4, auto_cast
+    O2."""
+    from paddle_tpu_torch import hapi
+    net, crit = dygraph_model(seed, 0.0)
+    model = hapi.Model(net, inputs=[hapi.Input(
+        [TRAIN_BATCH, BERT["seq"]], "int64", "input_ids")])
+    model.prepare(dygraph_optimizer(net, lr=1e-4), crit,
+                  amp_configs={"level": "O2"})
+    return model
+
+
+def hl_bert(torch, attn, dr, fx, rnd, seed):
+    """(a) Model.fit of BERT-base pretraining, AMP O2 bf16, flash and fused
+    CE forced on, over io.DataLoader of 6 batches of 8, with ProgBarLogger
+    and a recording callback; evaluate over 2 batches, predict over 1.
+    Gates: the fit's 6 losses bitwise 6 train_batch calls of an identical
+    model on the same batches from the same draw state; a step launches
+    12 / 12 / 12 flash forward / dQ / dK/dV and 2 fused CE, all bf16; the
+    losses finite and the last below the first; save(training=True) ->
+    load into a fresh model -> the next train_batch loss bitwise the
+    unreloaded model's."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.generator import get_rng_state, set_rng_state
+    from paddle_tpu_torch.hapi.callbacks import Callback, ProgBarLogger
+    counters = dp_counters(attn, dr, fx, rnd)
+    out = {}
+    n_fit = HL_FIT_BATCHES * TRAIN_BATCH
+    data = HLBertData(seed, n_fit)
+    loader = io.DataLoader(data, batch_size=TRAIN_BATCH, shuffle=False)
+    model = hl_bert_model(seed)
+    rng0 = get_rng_state()
+    rec = hl_callbacks(Callback, counters)
+    torch.cuda.synchronize()
+    # ---- (a)'s path: counts from 0 just before, read after
+    dp_zero(counters)
+    zero_wide(attn)
+    t0 = time.perf_counter()
+    hist = model.fit(loader, epochs=1, verbose=2, log_freq=1,
+                     callbacks=[ProgBarLogger(log_freq=1, verbose=2), rec])
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    launches, by_dtype = dp_read(counters)
+    record_wide("hl_bert_fit", read_wide(attn))
+    # ---- end of (a)'s path
+    losses = rec.losses
+    out["fit_losses"] = losses
+    out["fit_step_ms"] = rec.step_ms
+    n = BERT["layers_n"]
+    want = {"flash_attn_fwd": n, "flash_attn_bwd_dq": n,
+            "flash_attn_bwd_dkv": n, "fused_xent_fwd": 2,
+            "dropout_philox": DYGRAPH_HIDDEN_DROPOUTS, "philox_random": 0}
+    check_equal("hl (a) fit launches", launches,
+                {k: v * HL_FIT_BATCHES for k, v in want.items()})
+    check_equal("hl (a) fit launches a step", rec.step_launches,
+                [want] * HL_FIT_BATCHES)
+    check_equal("hl (a) fit launches by dtype a step", rec.step_by_dtype,
+                [{k: {"bfloat16": want[k]} for k in DP_KERNELS}]
+                * HL_FIT_BATCHES)
+    if len(losses) != HL_FIT_BATCHES or hist[-1]["loss"] != losses[-1] or \
+            not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"hl (a) fit losses {losses} (history "
+                             f"{hist}): not 6, finite and falling")
+    # evaluate over 2 batches, predict over 1 (eval mode: flash forward
+    # and fused CE only)
+    dp_zero(counters)
+    t0 = time.perf_counter()
+    ev = model.evaluate(io.DataLoader(HLBertData(seed, HL_EVAL_BATCHES *
+                                                 TRAIN_BATCH),
+                                      batch_size=TRAIN_BATCH), verbose=0)
+    pred = model.predict(io.DataLoader(
+        HLBertData(seed, HL_PREDICT_BATCHES * TRAIN_BATCH),
+        batch_size=TRAIN_BATCH), stack_outputs=True)
+    torch.cuda.synchronize()
+    out["eval_predict_s"] = time.perf_counter() - t0
+    out["eval_predict_launches"], _ = dp_read(counters)
+    if not np.isfinite(ev["loss"]) or pred[0].shape != (
+            TRAIN_BATCH, BERT["seq"], BERT["vocab"]) or \
+            not np.isfinite(pred[0]).all():
+        raise AssertionError(f"hl (a) evaluate {ev} / predict "
+                             f"{[p.shape for p in pred]}: bad")
+    out["eval_loss"] = ev["loss"]
+    # save -> load -> the next train_batch, against the unreloaded model
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hl_")
+    try:
+        path = os.path.join(tmp, "bert")
+        t0 = time.perf_counter()
+        model.save(path, training=True)
+        out["save_s"] = time.perf_counter() - t0
+        rng1 = get_rng_state()
+        batch = ([data.ids], [data.labels, data.nsp])
+        after = model.train_batch(*batch)[0]
+        del model
+        torch.cuda.empty_cache()
+        fresh = hl_bert_model(seed + 1)  # other weights until the load
+        t0 = time.perf_counter()
+        fresh.load(path)
+        out["load_s"] = time.perf_counter() - t0
+        set_rng_state(rng1)
+        reloaded = fresh.train_batch(*batch)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if reloaded != after:
+        raise AssertionError(f"hl (a) save/load: next loss {reloaded} != "
+                             f"the unreloaded model's {after}")
+    out["after_save_loss"] = after
+    del fresh
+    torch.cuda.empty_cache()
+    # the same 6 batches through train_batch on an identical model
+    twin = hl_bert_model(seed)
+    set_rng_state(rng0)
+    direct = [twin.train_batch([data.ids], [data.labels, data.nsp])[0]
+              for _ in range(HL_FIT_BATCHES)]
+    if direct != losses:
+        raise AssertionError(f"hl (a) fit losses {losses} != train_batch "
+                             f"losses {direct}")
+    del twin
+    torch.cuda.empty_cache()
+    out.update(launches=launches, by_dtype=by_dtype,
+               step_launches=rec.step_launches,
+               step_by_dtype=rec.step_by_dtype)
+    return out
+
+
+def hl_resnet(torch, attn, dr, fx, rnd, seed):
+    """(b) prepare(use_jit=True) on vision ResNet-50 (224 x 224, 1000
+    classes, fp32, batch 32), fused CE on, io.DataLoader(num_workers=2)
+    over 4 batches, metric.Accuracy(topk=(1, 5)).  Gates: each jit fit
+    step against a use_jit=False step from a copy of the state it started
+    from, its loss (HL_JIT_RTOL) and the state after it (HL_STATE_TOL),
+    with a planted fault of each kind above HL_STATE_TOL; a use_jit=False
+    fit of a weight copy against a jit fit, both with cuDNN deterministic
+    (both tolerances); fp32 fused CE launches measured a step: 2 in the
+    first (the trace runs each kernel once, then the program is
+    replayed, as the JAX package's first call traces and then runs its
+    jit), 1 in each later one; the Accuracy values equal a numpy
+    recomputation from the logits the metric saw, under the fit's random
+    labels and under labels placed in each row's own ranking (top 1, 3rd,
+    outside the top 5: both accuracies strictly between 0 and 1);
+    jit.save -> jit.load -> TranslatedLayer in eval, and a port Predictor
+    over the same files, equal the network's eval forward (HL_SAVE_TOL,
+    normalised max error)."""
+    from paddle_tpu_torch import hapi, io, jit, metric, nn, optimizer
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.vision.models import resnet50
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    import paddle_tpu_torch as paddle
+    r = HL_RESNET
+    counters = dp_counters(attn, dr, fx, rnd)
+    out = {}
+
+    class SeenAccuracy(metric.Accuracy):
+        """Accuracy that keeps the logits and labels it computed from."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.seen = []
+
+        def compute(self, pred, label):
+            self.seen.append((np.array(pred), np.array(label)))
+            return super().compute(pred, label)
+
+    def build(use_jit, params=None):
+        _reset_unique_names()
+        paddle.seed(seed)
+        net = resnet50(num_classes=r["classes"])
+        if params is not None:
+            net.set_state_dict(params)
+        model = hapi.Model(net)
+        acc = SeenAccuracy(topk=(1, 5))
+        model.prepare(optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                         parameters=net.parameters()),
+                      nn.CrossEntropyLoss(), acc, use_jit=use_jit)
+        return model, acc
+
+    data = HLImages(seed, r["batch"] * r["batches"], r["img"], r["classes"])
+
+    def loader(workers):
+        return io.DataLoader(data, batch_size=r["batch"], shuffle=False,
+                             num_workers=workers)
+
+    jm, jacc = build(True)
+    buffers = {k for k, v in jm.network.state_dict().items()
+               if not v.requires_grad}
+
+    class Snapshots(Callback):
+        """The state each jit step starts from, copied on the card."""
+
+        def __init__(self):
+            super().__init__()
+            self.states = []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.states.append(hl_state(jm))
+
+    snaps = Snapshots()
+    rec = hl_callbacks(Callback, counters)
+    ld = loader(r["workers"])
+    torch.cuda.synchronize()
+    # ---- (b)'s path: counts from 0 just before, read after
+    dp_zero(counters)
+    zero_wide(attn)
+    t0 = time.perf_counter()
+    hist = jm.fit(ld, epochs=1, verbose=0, callbacks=[snaps, rec])
+    torch.cuda.synchronize()
+    out["jit_fit_s"] = time.perf_counter() - t0
+    launches, by_dtype = dp_read(counters)
+    record_wide("hl_resnet_jit_fit", read_wide(attn))
+    # ---- end of (b)'s path
+    states = snaps.states + [hl_state(jm)]
+    # fused CE only: 2 in the first step (its trace, then its replay), 1
+    # in each later one
+    want = [dict(dict.fromkeys(DP_COUNTED, 0), fused_xent_fwd=n)
+            for n in [2] + [1] * (r["batches"] - 1)]
+    check_equal("hl (b) jit fit launches a step", rec.step_launches, want)
+    check_equal("hl (b) jit fit launches by dtype a step",
+                rec.step_by_dtype,
+                [dict(dict.fromkeys(DP_KERNELS, {}),
+                      fused_xent_fwd={"float32": w["fused_xent_fwd"]})
+                 for w in want])
+    check_equal("hl (b) jit fit launches", launches,
+                {k: sum(w[k] for w in want) for k in DP_COUNTED})
+    jit_losses = rec.losses
+    cp = next(iter(jm._jit_fns[1]._cache.values()))
+    types = [op.type for op in cp.program.global_block().ops]
+    out["recorded_ops"] = {t: types.count(t) for t in sorted(set(types))}
+
+    def batch(step):
+        rows = [data[i] for i in range(step * r["batch"],
+                                       (step + 1) * r["batch"])]
+        return ([np.stack([a for a, _ in rows])],
+                [np.stack([b for _, b in rows])])
+
+    # each jit step again without jit, from a copy of the state it
+    # started from, on the same batch: its loss and the state after it
+    em, _ = build(False)
+
+    def eager_step(step, zero_grads=False):
+        params, opt = states[step]
+        em.network.set_state_dict(params)
+        em._optimizer.set_state_dict({k: v.clone() for k, v in opt.items()})
+        hooks = [p.register_hook(torch.zeros_like)
+                 for p in em.network.parameters()] if zero_grads else []
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = em.train_batch(*batch(step))[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            for h in hooks:
+                h.remove()
+        return loss, ms, hl_state(em)
+
+    eager_losses, eager_ms, state_err, planted_bn = [], [], [], []
+    for step in range(r["batches"]):
+        loss, ms, after = eager_step(step)
+        eager_losses.append(loss)
+        eager_ms.append(ms)
+        err = hl_state_err(torch, after, states[step + 1])
+        state_err.append(max(err.values()))
+        # the jit state had its batch-norm write-back been left out: the
+        # statistics the step started from
+        planted_bn.append(max(hl_state_err(
+            torch, after, states[step], keys=buffers).values()))
+    # a jit step whose gradients never reached the parameters: step 1
+    # (velocities already made) with its gradients zeroed
+    _, _, zeroed = eager_step(1, zero_grads=True)
+    planted_zero = max(hl_state_err(torch, zeroed, states[2]).values())
+    rel = [abs(a - b) / abs(b) for a, b in zip(jit_losses, eager_losses)]
+    out.update(loss_rel_diff=rel, state_err=state_err,
+               planted_bn_writeback_err=planted_bn,
+               planted_zero_grad_err=planted_zero)
+    if len(jit_losses) != r["batches"] or \
+            not all(np.isfinite(jit_losses)) or max(rel) > HL_JIT_RTOL or \
+            max(state_err) > HL_STATE_TOL:
+        raise AssertionError(f"hl (b) jit losses {jit_losses} vs eager "
+                             f"steps from the same states {eager_losses}: "
+                             f"relative {rel}; state after each step "
+                             f"{state_err} (tolerance {HL_STATE_TOL})")
+    if not min(planted_bn) > HL_STATE_TOL or \
+            not planted_zero > HL_STATE_TOL:
+        raise AssertionError(f"hl (b) the state gate misses a planted "
+                             f"fault: batch-norm write-back left out "
+                             f"{planted_bn}, gradients zeroed "
+                             f"{planted_zero} (tolerance {HL_STATE_TOL})")
+    # free-running: in cuDNN's default mode the eager fit of a weight
+    # copy beside the jit fit above (recorded), then with cuDNN
+    # deterministic a jit fit and a use_jit=False fit of weight copies
+    # (gated)
+    del em
+    em, _ = build(False, states[0][0])
+    free = hl_callbacks(Callback)
+    em.fit(loader(0), epochs=1, verbose=0, callbacks=[free])
+    out["free_default_loss_rel"] = [abs(a - b) / abs(b) for a, b in
+                                    zip(jit_losses, free.losses)]
+    out["free_default_state_err"] = max(hl_state_err(
+        torch, hl_state(em), states[-1]).values())
+    del em
+    det = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for use_jit in (True, False):
+            m, _ = build(use_jit, states[0][0])
+            free = hl_callbacks(Callback)
+            m.fit(loader(0), epochs=1, verbose=0, callbacks=[free])
+            det[use_jit] = (free.losses, hl_state(m))
+            del m
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    det_rel = [abs(a - b) / abs(b) for a, b in zip(det[True][0],
+                                                    det[False][0])]
+    det_err = max(hl_state_err(torch, det[False][1], det[True][1]).values())
+    out.update(free_deterministic_loss_rel=det_rel,
+               free_deterministic_state_err=det_err)
+    if len(det_rel) != r["batches"] or max(det_rel) > HL_JIT_RTOL or \
+            det_err > HL_STATE_TOL:
+        raise AssertionError(f"hl (b) cuDNN deterministic: use_jit=False "
+                             f"fit losses {det[False][0]} vs jit fit "
+                             f"{det[True][0]}: relative {det_rel}, final "
+                             f"state {det_err}")
+    del det
+    # Accuracy against numpy over the logits the metric saw, under the
+    # fit's labels and under labels from each row's own ranking
+    preds = np.concatenate([p for p, _ in jacc.seen])
+    labels = np.concatenate([l for _, l in jacc.seen]).reshape(-1)
+    order = np.argsort(-preds, axis=1, kind="stable")
+
+    def numpy_acc(lab):
+        return [float((order[:, :k] == lab[:, None]).any(1).sum())
+                / len(lab) for k in (1, 5)]
+
+    got_acc = [hist[-1][n] for n in jacc.name()]
+    ranked = order[np.arange(len(order)),
+                   np.array([0, 2, 10])[np.arange(len(order)) % 3]]
+    acc2 = metric.Accuracy(topk=(1, 5))
+    acc2.update(acc2.compute(torch.from_numpy(preds).cuda(),
+                             torch.from_numpy(ranked[:, None]).cuda()))
+    got_ranked = acc2.accumulate()
+    want_ranked = numpy_acc(ranked)
+    if got_acc != numpy_acc(labels) or got_ranked != want_ranked or \
+            not all(0 < a < 1 for a in got_ranked) or \
+            len(labels) != r["batch"] * r["batches"]:
+        raise AssertionError(f"hl (b) Accuracy {got_acc} / {got_ranked} "
+                             f"!= numpy {numpy_acc(labels)} / "
+                             f"{want_ranked}")
+    out.update(jit_losses=jit_losses, eager_losses=eager_losses,
+               accuracy=dict(zip(jacc.name(), got_acc)),
+               accuracy_ranked_labels=dict(zip(jacc.name(), got_ranked)),
+               launches=launches, by_dtype=by_dtype,
+               step_launches=rec.step_launches,
+               step_by_dtype=rec.step_by_dtype,
+               jit_step_ms=rec.step_ms, eager_step_ms=eager_ms)
+    del states, snaps
+    # jit.save -> jit.load, and a Predictor over the same files
+    net = jm.network
+    net.eval()
+    first = HLImages(seed, r["batch"], r["img"], r["classes"])
+    x = torch.from_numpy(np.stack([first[i][0]
+                                   for i in range(r["batch"])])).cuda()
+    with torch.no_grad():
+        ref = net(x)
+    scale = float(ref.abs().max())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hl_")
+    try:
+        path = os.path.join(tmp, "resnet50")
+        t0 = time.perf_counter()
+        jit.save(net, path, input_spec=[jit.InputSpec(
+            [r["batch"], 3, r["img"], r["img"]], "float32")])
+        out["jit_save_s"] = time.perf_counter() - t0
+        loaded = jit.load(path)
+        loaded.eval()
+        with torch.no_grad():
+            got = loaded(x)
+        cfg = Config(prog_file=path + ".pdmodel",
+                     params_file=path + ".pdiparams")
+        cfg.switch_ir_optim(False)  # the program as saved: no BN fold
+        pred = create_predictor(cfg)
+        h = pred.get_input_handle(pred.get_input_names()[0])
+        h.copy_from_cpu(x.cpu().numpy())
+        pred.run()
+        served = pred.get_output_handle(
+            pred.get_output_names()[0]).copy_to_cpu()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err_tl = float((got - ref).abs().max()) / scale
+    err_pred = float(np.abs(served - ref.cpu().numpy()).max()) / scale
+    if not err_tl <= HL_SAVE_TOL or not err_pred <= HL_SAVE_TOL:
+        raise AssertionError(f"hl (b) TranslatedLayer {err_tl} / Predictor "
+                             f"{err_pred} against the eval forward > "
+                             f"{HL_SAVE_TOL}")
+    out.update(translated_layer_err=err_tl, predictor_err=err_pred)
+    del jm, net, loaded, pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def hl_decode(seed, buf, i, x, w):
+    """(c)'s function: a tensor `if` on x * w and phase 19's decode loop
+    (tests/test_jit.py's), a bounded `while` with `break`."""
+    h = x * w
+    if h.mean() > 0:
+        y = h * 2.0
+    else:
+        y = h * 0.5
+    while i.sum() < 6:
+        tok = (seed + i).sum() % 5.0
+        if tok > 3.0:
+            break
+        buf = buf + tok
+        i = i + 1
+    return y, buf, i
+
+
+def hl_control_flow(torch, seed):
+    """(c) dy2static control flow on CUDA tensors: hl_decode's recorded
+    program holds `cond` and `while` ops; its outputs and the gradient of
+    w equal the same Python run eagerly (exact); a run_steps call over a
+    static program holding `while` runs step by step (no capture)."""
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.static import layers
+    out = {}
+    rng = np.random.RandomState(seed)
+    xv = rng.rand(4, 8).astype(np.float32) - 0.3
+    sf = jit.to_static(hl_decode)
+    for s in (1.0, 2.0):
+        def args():
+            w = torch.nn.Parameter(torch.full((8,), 0.5, device="cuda"))
+            return (torch.tensor([s], device="cuda"),
+                    torch.zeros(4, device="cuda"),
+                    torch.zeros(1, device="cuda"),
+                    torch.from_numpy(xv).cuda(), w), w
+        a, wa = args()
+        got = sf(*a)
+        got[0].sum().backward()
+        b, wb = args()
+        want = hl_decode(*b)
+        want[0].sum().backward()
+        for g, e in zip(got, want):
+            if g.device.type != "cuda" or not torch.equal(g, e):
+                raise AssertionError(f"hl (c) seed {s}: {g} != eager {e}")
+        if not torch.equal(wa.grad, wb.grad):
+            raise AssertionError(f"hl (c) grad {wa.grad} != eager "
+                                 f"{wb.grad}")
+    cp = next(iter(sf._cache.values()))
+    types = [op.type for bl in cp.program.blocks for op in bl.ops]
+    if "cond" not in types or "while" not in types or len(sf._cache) != 1:
+        raise AssertionError(f"hl (c) program ops {types}")
+    out["program_ops"] = {t: types.count(t) for t in sorted(set(types))}
+    # run_steps over a program holding `while`: step by step, no capture
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, 4])
+        i = layers.fill_constant([1], "int64", 0)
+        n = layers.fill_constant([1], "int64", 3)
+        h = layers.elementwise_add(x, layers.fill_constant([1], "float32",
+                                                           0.0))
+        cond = layers.less_than(i, n)
+        wl = layers.While(cond)
+        with wl.block():
+            layers.assign(layers.scale(h, scale=2.0), output=h)
+            layers.increment(i, value=1)
+            layers.less_than(i, n, cond=cond)
+    exe = static.Executor()
+    scope = static.Scope()
+    feed = rng.rand(3, 2, 4).astype(np.float32)
+    with static.scope_guard(scope):
+        exe.run(startup)
+        res = exe.run_steps(main, feed={"x": feed}, fetch_list=[h])
+    stats = exe.cache_stats()
+    exe.close()
+    if not np.allclose(res[0], feed * 8.0, rtol=1e-6) or stats["traces"]:
+        raise AssertionError(f"hl (c) run_steps over while: {stats}, "
+                             f"max err {np.abs(res[0] - feed * 8).max()}")
+    out["run_steps_cache_stats"] = stats
+    return out
+
+
+def hl_phase(torch, seed):
+    """(19) the 2.0 high-level path on the card: (a) hl_bert, (b)
+    hl_resnet, (c) hl_control_flow.  Returns the record with each path's
+    launches."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    try:
+        attn.enable_flash_attention(True)
+        fx.enable_fused_xent(True)
+        t0 = time.perf_counter()
+        out["a_bert_fit"] = hl_bert(torch, attn, dr, fx, rnd, seed)
+        out["seconds"]["a"] = time.perf_counter() - t0
+        attn._FLASH_STATE["mode"] = "auto"
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["b_resnet_jit"] = hl_resnet(torch, attn, dr, fx, rnd, seed)
+        out["seconds"]["b"] = time.perf_counter() - t0
+    finally:
+        attn._FLASH_STATE["mode"] = "auto"
+        fx.enable_fused_xent(False)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["c_control_flow"] = hl_control_flow(torch, seed)
+    out["seconds"]["c"] = time.perf_counter() - t0
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    log({"phase": "high_level", "config": "(a) hapi Model.fit of "
+         "BertForPretraining (bert-base, hidden dropout 0.1, attention 0), "
+         "AdamW lr 1e-4, auto_cast O2, flash + fused CE, io.DataLoader 6 x "
+         "8; (b) prepare(use_jit=True) vision resnet50 224/1000 fp32 batch "
+         "32, Momentum 0.01/0.9, fused CE, DataLoader(num_workers=2) 4 "
+         "batches, Accuracy(topk=(1, 5)); (c) dy2static cond + while",
+         **out})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9169,6 +9873,7 @@ def main():
     px = timed("15_parallel_axes", px_phase, torch, args.seed)
     el = timed("16_elastic", el_phase, torch, args.seed)
     pps = timed("17_pipeline_ps", pp_ps_phase, torch, args.seed)
+    hl = timed("19_high_level", hl_phase, torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -9261,7 +9966,7 @@ def main():
             f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
             for run in runs for r in range(PX_RANKS)) + (
             "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS + (
-            "pp_pipeline", "analysis")
+            "pp_pipeline", "analysis") + HL_PATHS
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -9423,6 +10128,24 @@ def main():
             got = {"analysis": extra["launches_by_path_all_dtypes"][
                 "analysis"]}
         extra["phase18_launches"] = got
+    # phase 19: each fit step of (a) (BERT-base, O2) and each jit fit
+    # step of (b) (ResNet-50, fp32; the first traces), measured, in the
+    # row's dtype
+    hl_runs = {"bert_fit_steps": hl["a_bert_fit"],
+               "resnet50_jit_fit_steps": hl["b_resnet_jit"]}
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {p: [st[base].get(dt, 0) for st in r["step_by_dtype"]]
+                   for p, r in hl_runs.items()}
+        elif name in ("dropout_philox", "philox_random"):
+            got = {p: [st[name] for st in r["step_launches"]]
+                   for p, r in hl_runs.items()}
+        else:  # head dims above 128: over each whole path, all dtypes
+            got = {p: extra["launches_by_path_all_dtypes"][p]
+                   for p in HL_PATHS}
+        extra["phase19_launches"] = got
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

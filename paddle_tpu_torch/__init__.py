@@ -22,12 +22,17 @@ the conv2d, pool2d, batch_norm, relu, one_hot_v2 and label_smooth ops)
 and `vision.models` (LeNet, ResNet) on the dygraph `nn` vision layers;
 data, ZeRO, tensor, sequence, expert and elastic parallelism over
 torch.distributed (`distributed`), with the checkpoint tier
-(`checkpoint`, `observability`, `testing.chaos`); every Pallas kernel of the JAX package as a hand-written Hopper kernel
+(`checkpoint`, `observability`, `testing.chaos`); the 2.0 high-level
+path (`hapi.Model.fit` / `evaluate` / `predict` / `save` / `load` /
+`summary` over `io.DataLoader`, `metric`, the callbacks, and
+`jit.to_static` with dy2static and the control-flow ops, `static.control_flow`)
+and the binary proto model container; every Pallas kernel of the JAX package as a hand-written Hopper kernel
 under csrc/.  ROADMAP.md lists what comes next.
 
 The top-level names: `seed`, `to_tensor`, `matmul`, `grad`, `no_grad`,
-`Model`, `CPUPlace`, `CUDAPlace` (and the subpackages `amp`, `nn`,
-`optimizer`, `models`, `hapi`, `dygraph`, `static`, `vision`, ...).
+`Model`, `summary`, `CPUPlace`, `CUDAPlace` (and the subpackages `amp`,
+`nn`, `optimizer`, `models`, `hapi`, `dygraph`, `static`, `vision`,
+`io`, `jit`, `metric`, `regularizer`, ...).
 """
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.generator import seed  # noqa: F401
@@ -36,6 +41,7 @@ from .dygraph.engine import grad  # noqa: F401
 from .dygraph.tensor import to_tensor  # noqa: F401
 from .tensor.linalg import matmul  # noqa: F401
 from . import amp, nn, optimizer, vision  # noqa: F401
-from .hapi.model import Model  # noqa: F401
+from . import io, jit, metric, regularizer  # noqa: F401
+from .hapi.model import Model, summary  # noqa: F401
 
 __version__ = "0.1.0"

@@ -10,13 +10,19 @@ kernel on the card, its plain version on the CPU.  So a seed fixes every
 draw, in order, and nothing on the path reads or moves torch's global
 RNG.  The draws are not the JAX package's: parity tests copy weights
 (`Layer.set_state_dict`) instead of comparing draws.
+
+`process_salt()` is per-process OS entropy that only the samplers'
+unseeded shuffles mix in (io/sampler.py), as in the JAX package: a seed
+zeroes it, and it rides the RNG state, so a seeded or resumed run
+shuffles in the same order as the JAX package's for that seed.
 """
 from __future__ import annotations
 
+import os
 import threading
 
-__all__ = ["seed", "global_seed", "next_eager_uid", "get_rng_state",
-           "set_rng_state"]
+__all__ = ["seed", "global_seed", "next_eager_uid", "process_salt",
+           "get_rng_state", "set_rng_state"]
 
 
 class _State:
@@ -24,6 +30,7 @@ class _State:
     type, as the reference's generator.h; not one per thread)."""
     seed = 0
     counter = 0
+    salt = int.from_bytes(os.urandom(4), "little")
 
 
 _state = _State()
@@ -36,6 +43,7 @@ def seed(s: int) -> int:
     with _mu:
         _state.seed = int(s)
         _state.counter = 0
+        _state.salt = 0
     from .program import default_main_program, default_startup_program
     default_main_program().random_seed = int(s)
     default_startup_program().random_seed = int(s)
@@ -44,6 +52,11 @@ def seed(s: int) -> int:
 
 def global_seed() -> int:
     return _state.seed
+
+
+def process_salt() -> int:
+    """OS-entropy part of unseeded sampler draws (0 once seeded)."""
+    return _state.salt
 
 
 def next_eager_uid() -> int:
@@ -55,9 +68,11 @@ def next_eager_uid() -> int:
 
 
 def get_rng_state() -> dict:
-    """Snapshot (seed, draw counter); restore with `set_rng_state`."""
+    """Snapshot (seed, draw counter, salt); restore with
+    `set_rng_state`."""
     with _mu:
-        return {"seed": _state.seed, "counter": _state.counter}
+        return {"seed": _state.seed, "counter": _state.counter,
+                "salt": _state.salt}
 
 
 def set_rng_state(state: dict) -> None:
@@ -66,3 +81,4 @@ def set_rng_state(state: dict) -> None:
     with _mu:
         _state.seed = int(state.get("seed", _state.seed))
         _state.counter = int(state.get("counter", _state.counter))
+        _state.salt = int(state.get("salt", _state.salt))

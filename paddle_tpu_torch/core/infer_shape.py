@@ -50,13 +50,16 @@ def infer_shape_for_op(block, op) -> None:
             return
         ins[slot.name] = metas if slot.duplicable else metas[0]
 
-    if info.infer_shape is not None:
-        outs = info.infer_shape(ins, op.attrs)
-    else:
-        try:
-            outs = info.kernel(ins, op.attrs, OpContext(seed=0))
-        except Exception:  # noqa: BLE001 — inference is best-effort, as in paddle_tpu
-            return
+    # a jit.to_static recorder records none of these meta-tensor ops
+    from ..dygraph.tracer import quiet
+    with quiet():
+        if info.infer_shape is not None:
+            outs = info.infer_shape(ins, op.attrs)
+        else:
+            try:
+                outs = info.kernel(ins, op.attrs, OpContext(seed=0))
+            except Exception:  # noqa: BLE001 — best-effort, as in paddle_tpu
+                return
 
     for slot in info.outputs:
         names = op.outputs.get(slot.name, [])

@@ -10,8 +10,9 @@ Differences from the JAX package's copy:
     kernel on "meta" tensors instead of `jax.eval_shape`;
   * the tensor-like operator sugar on VarDesc is limited to the ops this
     port has kernels for (`+`, unary `-`, `@`);
-  * the framework.proto wire format is not ported: `serialize_to_string`
-    and `parse_from_string` take JSON only.
+  * `serialize_to_string(format="proto")` and `parse_from_string` of
+    the binary form import google.protobuf when called (the JSON form
+    needs nothing).
 """
 from __future__ import annotations
 
@@ -415,13 +416,11 @@ class Program:
         return d
 
     def serialize_to_string(self, format: str = "json") -> bytes:
-        """The JSON wire format (the JAX package's default).  The binary
-        framework.proto format is not ported yet."""
-        if format != "json":
-            raise NotImplementedError(
-                f"serialize_to_string(format={format!r}): only the JSON "
-                "format is ported; the proto container is listed in "
-                "ROADMAP.md")
+        """`format="json"` (default, human-diffable) or `format="proto"`
+        (stable binary, the framework.proto ProgramDesc)."""
+        if format == "proto":
+            from .serialization import serialize_program
+            return serialize_program(self)
         return json.dumps(self.to_dict(), sort_keys=True).encode("utf-8")
 
     @staticmethod
@@ -452,11 +451,11 @@ class Program:
 
     @staticmethod
     def parse_from_string(data: bytes) -> "Program":
-        """JSON wire format only (see serialize_to_string)."""
+        """Auto-detects the wire format: JSON starts with '{', anything
+        else is the framework.proto binary form."""
         if not data.lstrip()[:1] == b"{":
-            raise NotImplementedError(
-                "parse_from_string: only the JSON program format is "
-                "ported; the framework.proto form is listed in ROADMAP.md")
+            from .serialization import deserialize_program
+            return deserialize_program(data)
         return Program.from_dict(json.loads(data.decode("utf-8")))
 
     def __repr__(self):

@@ -49,7 +49,13 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     become float32 and Python ints int64, as paddle.to_tensor makes them;
     numpy arrays keep their dtype."""
     from .base import current_place
+    from .tracer import eager_name, quiet, recording
     from ..core.place import resolve_place
+    if recording():
+        # a constant of a traced function: the JAX package's Tensor()
+        eager_name()
+        with quiet():
+            return to_tensor(data, dtype, place, stop_gradient)
     device = (current_place() if place is None
               else resolve_place(place)).torch_device()
     if isinstance(data, torch.Tensor):

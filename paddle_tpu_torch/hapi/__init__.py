@@ -1,6 +1,10 @@
 """paddle_tpu_torch.hapi — the high-level Model API (counterpart of
-paddle_tpu/hapi/): `Model` with `prepare`, `train_batch`, `eval_batch`,
-`predict_batch` and `parameters`.  `fit` / `evaluate` / `predict` (with
-hapi/callbacks.py and progressbar.py), `save` / `load`, `summary` and
-`prepare(use_jit=True)` raise (ROADMAP.md Queue 1, The rest)."""
-from .model import Model  # noqa: F401
+paddle_tpu/hapi/): `Model` (prepare, fit / evaluate / predict, the
+single-batch ops, save / load, summary), `Input`, `summary`, the
+callbacks (callbacks.py) and the progress bar (progressbar.py)."""
+from .model import Input, Model, summary  # noqa: F401
+from . import callbacks  # noqa: F401
+from .callbacks import (  # noqa: F401
+    Callback, CallbackList, ProgBarLogger, ModelCheckpoint, EarlyStopping,
+    LRSchedulerCallback, config_callbacks,
+)

@@ -9,9 +9,14 @@ direction:
                    (core/serialization.py)
   * combined file: np.savez archive keyed by var name (`filename=`)
   * __model__    : JSON {"program": Program.to_dict(), "feed_names",
-                   "fetch_names"} (`model_format="json"`, the default)
-
-The binary `model_format="proto"` container is not ported yet.
+                   "fetch_names"} (`model_format="json"`, the default),
+                   or with `model_format="proto"` the binary container:
+                   b"PTIM", a 4-byte little-endian length, that many
+                   bytes of JSON {"feed_names", "fetch_names"}, then the
+                   framework.proto ProgramDesc bytes
+                   (core/serialization.py; needs google.protobuf, imported
+                   only then).  `load_inference_model` tells the two
+                   apart by the magic.
 """
 from __future__ import annotations
 
@@ -197,11 +202,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          params_filename=None, export_for_deployment=True,
                          program_only=False, model_format="json"):
     from ..core.program import default_main_program, OpRole
-    if model_format != "json":
-        raise NotImplementedError(
-            f"save_inference_model(model_format={model_format!r}): only "
-            "the JSON format is ported; the proto container is listed in "
-            "ROADMAP.md")
+    if model_format not in ("json", "proto"):
+        raise ValueError(f"save_inference_model: unknown model_format "
+                         f"{model_format!r} (json or proto)")
     prog = main_program or default_main_program()
     fetch_names = [t.name if hasattr(t, "name") else str(t)
                    for t in target_vars]
@@ -217,12 +220,20 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     inference._feed_names = list(feeded_var_names)
     inference._fetch_names = fetch_names
     os.makedirs(dirname, exist_ok=True)
-    payload = {"program": inference.to_dict(),
-               "feed_names": list(feeded_var_names),
-               "fetch_names": fetch_names}
-    with open(os.path.join(dirname, model_filename or "__model__"),
-              "w") as f:
-        json.dump(payload, f, sort_keys=True)
+    model_path = os.path.join(dirname, model_filename or "__model__")
+    if model_format == "proto":
+        header = json.dumps({"feed_names": list(feeded_var_names),
+                             "fetch_names": fetch_names}).encode()
+        body = inference.serialize_to_string(format="proto")
+        with open(model_path, "wb") as f:
+            f.write(b"PTIM" + len(header).to_bytes(4, "little") +
+                    header + body)
+    else:
+        payload = {"program": inference.to_dict(),
+                   "feed_names": list(feeded_var_names),
+                   "fetch_names": fetch_names}
+        with open(model_path, "w") as f:
+            json.dump(payload, f, sort_keys=True)
     if not program_only:
         save_persistables(executor, dirname, inference,
                           filename=params_filename)
@@ -235,12 +246,13 @@ def load_inference_model(dirname, executor, model_filename=None,
     with open(os.path.join(dirname, model_filename or "__model__"),
               "rb") as f:
         raw = f.read()
-    if raw[:4] == b"PTIM":
-        raise NotImplementedError(
-            f"{dirname}: binary (model_format='proto') inference models are "
-            "not ported yet; save with the default JSON format")
-    payload = json.loads(raw.decode())
-    prog = Program.from_dict(payload["program"])
+    if raw[:4] == b"PTIM":  # the binary container (model_format="proto")
+        hlen = int.from_bytes(raw[4:8], "little")
+        payload = json.loads(raw[8:8 + hlen].decode())
+        prog = Program.parse_from_string(raw[8 + hlen:])
+    else:
+        payload = json.loads(raw.decode())
+        prog = Program.from_dict(payload["program"])
     load_persistables(executor, dirname, prog, filename=params_filename)
     block = prog.global_block()
     fetch_targets = [block.var(n) for n in payload["fetch_names"]]

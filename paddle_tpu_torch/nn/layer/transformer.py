@@ -15,7 +15,8 @@ them (`:88-104`):
     the Hopper flash forward, dQ and dK/dV kernels (a CPU tensor their
     plain versions).  No AMP cast is applied to it (the JAX package
     traces it as a raw function): under O1 q, k and v are fp32 (a bf16
-    product plus an fp32 bias), under O2 bf16;
+    product plus an fp32 bias), under O2 bf16.  Under a `to_static`
+    recorder it raises, as the JAX package's raw-function trace does;
   * score matrix — otherwise: softmax(q k^T / sqrt(Dh) + mask) v, with
     dropout on the attention weights in training.  GPT always passes a
     mask and takes this route.
@@ -103,6 +104,11 @@ class MultiHeadAttention(Layer):
         if use_flash_for(int(q.shape[2])) and attn_mask is None and \
                 not self.need_weights and \
                 not (self.dropout and self.training):
+            from ...dygraph.tracer import recording, refuse
+            if recording():
+                # the JAX package's trace_jax site: a raw function the
+                # to_static recorder cannot capture
+                refuse("flash_attention")
             out = self.out_proj(self._merge(flash_attention(q, k, v)))
             if isinstance(cache, self.Cache):
                 return out, cache

@@ -15,6 +15,7 @@ from . import (  # noqa: F401
     decode,
     reduce,
     control,
+    tensor_array,
     op_gaps,
     quantize,
     stragglers,

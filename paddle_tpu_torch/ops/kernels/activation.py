@@ -1,6 +1,6 @@
 """relu, gelu (exact (erf) by default, the tanh form when attr
 `approximate` is set), square and sqrt (the global-norm gradient clip),
-sigmoid and log.
+sigmoid, log, tanh and log_softmax.
 Counterpart of paddle_tpu/ops/kernels/activation.py.  relu's grad op
 reads the forward's Out (dX = dOut where Out > 0, else 0: jax.nn.relu's
 gradient, 0 at 0) instead of replaying the forward."""
@@ -48,3 +48,13 @@ def sigmoid(ins, attrs, ctx):
 @register_op("log", inputs=["X"], outputs=["Out"])
 def log(ins, attrs, ctx):
     return {"Out": torch.log(ins["X"])}
+
+
+@register_op("tanh", inputs=["X"], outputs=["Out"])
+def tanh(ins, attrs, ctx):
+    return {"Out": torch.tanh(ins["X"])}
+
+
+@register_op("log_softmax", inputs=["X"], outputs=["Out"])
+def log_softmax(ins, attrs, ctx):
+    return {"Out": torch.log_softmax(ins["X"], dim=int(attrs.get("axis", -1)))}

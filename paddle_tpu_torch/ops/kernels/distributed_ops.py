@@ -42,8 +42,12 @@ _CLIENTS: Dict[Tuple[str, ...], object] = {}
 
 
 def has_host_ops(program) -> bool:
-    """True when a block of `program` holds one of HOST_OPS."""
-    return any(op.type in HOST_OPS for b in program.blocks for op in b.ops)
+    """True when a block of `program` holds one of HOST_OPS or a control
+    op that reads its predicate on the host (control.HOST_CONTROL_OPS):
+    no CUDA graph holds a host round-trip."""
+    from .control import HOST_CONTROL_OPS
+    return any(op.type in HOST_OPS or op.type in HOST_CONTROL_OPS
+               for b in program.blocks for op in b.ops)
 
 
 def _client(endpoints, trainer_id=None):

@@ -63,3 +63,9 @@ def cross_entropy(ins, attrs, ctx):
     y = -torch.log(p + eps)
     ignore = attrs.get("ignore_index", -100)
     return {"Y": torch.where(lbl == ignore, torch.zeros_like(y), y)}
+
+
+@register_op("mse_loss", inputs=["X", "Y"], outputs=["Out"])
+def mse_loss(ins, attrs, ctx):
+    """The elementwise squared error of `F.mse_loss` (reduced after)."""
+    return {"Out": torch.square(ins["X"] - ins["Y"])}

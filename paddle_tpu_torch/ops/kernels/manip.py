@@ -1,5 +1,6 @@
 """Tensor manipulation ops of the slices: reshape2, transpose2,
-fill_constant, cast, one_hot_v2, gradient merge's where and
+flatten_contiguous_range, gather, fill_constant, cast, one_hot_v2,
+gradient merge's where and
 fill_zeros_like, assign (EMA's and Lookahead's state writes) and
 fill_any_like (the backward seed of a loss with a dynamic shape).
 Counterparts of paddle_tpu/ops/kernels/manip.py.
@@ -149,3 +150,28 @@ def pad(ins, attrs, ctx):
         widths += [int(p[2 * i]), int(p[2 * i + 1])]
     return {"Out": torch.nn.functional.pad(
         x, widths, value=float(attrs.get("pad_value", 0.0)))}
+
+
+@register_op("flatten_contiguous_range", inputs=["X"],
+             outputs=["Out", "XShape"])
+def flatten_contiguous_range(ins, attrs, ctx):
+    """paddle.flatten's op: axes start_axis..stop_axis merged into one."""
+    x = ins["X"]
+    nd = max(x.dim(), 1)
+    start = attrs.get("start_axis", 1) % nd
+    stop = attrs.get("stop_axis", -1) % nd
+    shape = tuple(x.shape[:start]) + (-1,) + tuple(x.shape[stop + 1:])
+    return {"Out": x.reshape(shape), "XShape": _xshape(x)}
+
+
+@register_op("gather", inputs=["X", "Index!", "Axis?!"], outputs=["Out"])
+def gather(ins, attrs, ctx):
+    axis = attrs.get("axis", 0)
+    if ins.get("Axis") is not None:
+        axis = int(ins["Axis"])
+    idx = ins["Index"].long()
+    out = torch.index_select(ins["X"], axis, idx.reshape(-1))
+    return {"Out": out.reshape(tuple(ins["X"].shape[:axis % ins["X"].dim()])
+                               + tuple(idx.shape)
+                               + tuple(ins["X"].shape[
+                                   axis % ins["X"].dim() + 1:]))}

@@ -1,5 +1,6 @@
-"""Math ops of the slices: matmul, mul, scale, sum, mean, and the
-gradient clips' clip and clip_by_norm and gradient merge's increment.
+"""Math ops of the slices: matmul, matmul_v2, mul, scale, sum, mean, abs,
+and the gradient clips' clip and clip_by_norm and gradient merge's
+increment.
 
 Counterparts of paddle_tpu/ops/kernels/math.py.  Large products go to
 torch.matmul, as the JAX package leaves them to XLA.  A float32 product
@@ -114,3 +115,20 @@ def increment(ins, attrs, ctx):
     x = ins["X"]
     return {"Out": x + torch.full((), attrs.get("step", 1.0), dtype=x.dtype,
                                   device=x.device)}
+
+
+@register_op("matmul_v2", inputs=["X", "Y"], outputs=["Out"])
+def matmul_v2(ins, attrs, ctx):
+    """paddle.matmul's op (the dygraph `F.linear` and `paddle.matmul`
+    record it): `trans_x` / `trans_y` swap the last two axes."""
+    x, y = ins["X"], ins["Y"]
+    if attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("trans_y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": torch.matmul(x, y)}
+
+
+@register_op("abs", inputs=["X"], outputs=["Out"])
+def abs_op(ins, attrs, ctx):
+    return {"Out": torch.abs(ins["X"])}

@@ -493,4 +493,12 @@ def _batch_norm_grad(ins, attrs, ctx):
                       "SavedVariance", "ReserveSpace?"],
              grad=_batch_norm_grad)
 def batch_norm(ins, attrs, ctx):
-    return batch_norm_forward(ins, attrs, ctx)
+    # the dygraph Function, so that a to_static replay under autograd
+    # backpropagates through batch_norm_backward; the executor's is_test
+    # is folded into the attrs the Function reads
+    a = dict(attrs, is_test=_bn_global(dict(attrs, use_global_stats=False),
+                                       ctx))
+    outs = BatchNormFn.apply(ins["X"], ins["Scale"], ins["Bias"],
+                             ins["Mean"], ins["Variance"], a)
+    return dict(zip(("Y", "MeanOut", "VarianceOut", "SavedMean",
+                     "SavedVariance"), outs))

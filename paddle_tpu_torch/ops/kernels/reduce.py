@@ -1,5 +1,6 @@
-"""reduce_sum (the global-norm gradient clip's squared norms) and
-reduce_mean.
+"""reduce_sum (the global-norm gradient clip's squared norms),
+reduce_mean, reduce_max and reduce_min (the dygraph Tensor.max / min a
+recorded function calls).
 Counterpart of paddle_tpu/ops/kernels/reduce.py; attrs follow the
 reference: `dim` (list), `keep_dim`, `reduce_all`."""
 from __future__ import annotations
@@ -26,3 +27,5 @@ def _reduce(name, fn):
 
 reduce_sum = _reduce("reduce_sum", torch.sum)
 reduce_mean = _reduce("reduce_mean", torch.mean)
+reduce_max = _reduce("reduce_max", torch.amax)
+reduce_min = _reduce("reduce_min", torch.amin)

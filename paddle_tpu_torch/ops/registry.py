@@ -79,6 +79,9 @@ class OpContext:
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
         self._seed_tensor = seed_tensor
+        # the Program being run: where the sub-block ops (while, cond)
+        # find their blocks; the executor sets it
+        self.program = None
 
     @property
     def seed_tensor(self) -> torch.Tensor:

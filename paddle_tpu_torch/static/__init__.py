@@ -50,6 +50,7 @@ from .planner import (  # noqa: F401
 from . import planner  # noqa: F401
 from .recompute_rewrite import apply_recompute  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import control_flow  # noqa: F401
 from .optimizer import (  # noqa: F401
     Optimizer, SGD, SGDOptimizer, Momentum, MomentumOptimizer, Adam,
     AdamOptimizer, AdamW, Adamax, AdamaxOptimizer, Adagrad,

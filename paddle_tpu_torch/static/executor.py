@@ -21,6 +21,10 @@ reference's eager deletion), so a step holds the live activations, not
 every value it made.  Nothing reads a device value back to the host
 unless it is fetched.
 
+A sub-block op (`while`, `cond`, `conditional_block`,
+ops/kernels/control.py) runs its block through `run_block`, this
+module's op loop, over the program the executor set on the op context.
+
 `run_steps(program, feed, fetch_list)` runs K steps with every feed
 stacked on a leading steps axis and returns each fetch stacked [K, ...],
 the reference's contract (its `lax.scan` amortizes dispatch over K).  On
@@ -60,8 +64,9 @@ place: a failed NCCL capture raises.  `run` also takes the pipeline
 (`run_steps` refuses them, as the JAX package's has no path for them);
 `run` of a transpiler's pserver program serves the KV store.  A program
 holding a parameter-server op (ops/kernels/distributed_ops.py
-`HOST_OPS`: a host round-trip no CUDA graph holds) runs its `run_steps`
-eagerly, one `run` each.  `train_from_dataset` / `infer_from_dataset`
+`HOST_OPS`: a host round-trip no CUDA graph holds), or a `while`,
+`cond`, `print` or `assert` (whose kernels read a device value on the
+host), runs its `run_steps` eagerly, one `run` each.  `train_from_dataset` / `infer_from_dataset`
 run one pass over a dataset (distributed/dataset.py), a step a batch.
 
 Checkpointing (checkpoint/, as in the JAX package): `enable_checkpointing
@@ -101,7 +106,8 @@ from ..ops.registry import get_op_info, OpContext
 from ..ops.kernels.distributed_ops import has_host_ops
 from ..testing import chaos as _chaos
 
-__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
+           "run_block"]
 
 
 class Scope:
@@ -351,6 +357,22 @@ def _run_ops(ops, plan, env, ctx):
         _run_op(op, env, ctx)
         for n in dead:
             env.pop(n, None)
+
+
+def run_block(program: Program, block_idx: int, env: Dict[str, Any],
+              ctx: OpContext) -> Dict[str, Any]:
+    """Run block `block_idx` of `program` over `env` (in place, nothing
+    released) with the op loop of `run`: the entry of the sub-block ops
+    (`while`, `cond`, `conditional_block`), as the JAX package's
+    BlockTracer is, and of a recorded `to_static` program's replay
+    (jit/).  `ctx.program` is set to `program`, where the sub-block ops
+    find their blocks."""
+    ctx.program = program
+    for op in program.blocks[block_idx].ops:
+        if op.type in ("feed", "fetch"):
+            continue
+        _run_op(op, env, ctx)
+    return env
 
 
 def _comm_calls() -> Dict[str, int]:
@@ -640,6 +662,7 @@ class Executor:
             for name, val in feed.items():
                 env[name] = self._coerce_feed(block, name, val)
             ctx = OpContext(seed=seed, is_test=False, device=self.device)
+            ctx.program = program
             _run_ops(block.ops, _release_plan(program, fetch_names), env,
                      ctx)
         # persistables written by the program (startup initializers) stay
@@ -1314,6 +1337,7 @@ class Executor:
             env.update(feeds)
             ctx = OpContext(seed=0, is_test=False, device=self.device,
                             seed_tensor=seed_buf)
+            ctx.program = block.program
             with torch.no_grad():
                 _run_ops(block.ops, plan, env, ctx)
                 missing = [n for n in fetch_names if n not in env]

@@ -27,7 +27,12 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "clip", "clip_by_norm", "sums", "reshape", "transpose", "scale",
            "fill_constant", "softmax_with_cross_entropy", "label_smooth",
            "one_hot", "mean", "cast", "create_global_var", "_binary_op",
-           "gelu", "concat", "switch_moe"]
+           "gelu", "concat", "switch_moe", "increment", "not_equal",
+           "less_than", "less_equal", "greater_than", "greater_equal",
+           "logical_and", "logical_or", "logical_not", "Print",
+           "While", "while_loop", "cond", "case", "switch_case", "Switch",
+           "StaticRNN", "DynamicRNN", "array_write", "array_read",
+           "array_length", "create_array"]
 
 
 def _current_block():
@@ -302,13 +307,70 @@ elementwise_max = _make_elementwise("elementwise_max")
 elementwise_mod = _make_elementwise("elementwise_mod")
 
 
-def equal(x, y, cond=None, axis=-1, name=None):
-    if cond is None:
-        return _binary_op("equal", x, y, axis=axis)
-    helper = LayerHelper("equal", name=name)
-    helper.append_op("equal", inputs={"X": x, "Y": y},
-                     outputs={"Out": cond}, attrs={"axis": axis})
-    return cond
+def _make_compare(op_type, has_force_cpu=False):
+    """Comparison layer; `cond=` writes the result into an existing bool
+    var (the idiom While bodies use to update their loop condition).
+    Only less_than takes force_cpu positionally, as the reference's
+    less_than(x, y, force_cpu=None, cond=None)."""
+
+    def _build(x, y, cond, axis, name):
+        if cond is None:
+            return _binary_op(op_type, x, y, axis=axis)
+        helper = LayerHelper(op_type, name=name)
+        helper.append_op(op_type, inputs={"X": x, "Y": y},
+                         outputs={"Out": cond}, attrs={"axis": axis})
+        return cond
+
+    if has_force_cpu:
+        def f(x, y, force_cpu=None, cond=None, axis=-1, name=None):
+            return _build(x, y, cond, axis, name)
+    else:
+        def f(x, y, cond=None, axis=-1, name=None):
+            return _build(x, y, cond, axis, name)
+    f.__name__ = op_type
+    return f
+
+
+equal = _make_compare("equal")
+not_equal = _make_compare("not_equal")
+less_than = _make_compare("less_than", has_force_cpu=True)
+less_equal = _make_compare("less_equal")
+greater_than = _make_compare("greater_than")
+greater_equal = _make_compare("greater_equal")
+logical_and = _make_elementwise("logical_and")
+logical_or = _make_elementwise("logical_or")
+
+
+def logical_not(x, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op("logical_not", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def increment(x, value=1.0, in_place=True, name=None):
+    helper = LayerHelper("increment", name=name)
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op("increment", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"step": value})
+    return out
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """layers/control_flow.py Print: the print op, which prints each time
+    the program runs."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = tuple(input.shape) if input.shape is not None else None
+    helper.append_op("print", inputs={"In": input},
+                     outputs={"Out": out},
+                     attrs={"message": message or "",
+                            "first_n": first_n, "summarize": summarize})
+    return out
 
 
 def assign(input, output=None):
@@ -569,3 +631,11 @@ def switch_moe(x, num_experts, d_hidden, capacity_factor=1.25,
                       "W2": w2, "B2": b2},
                      {"Out": out, "AuxLoss": aux}, attrs)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# control flow (fluid.layers.control_flow; see static/control_flow.py)
+# ---------------------------------------------------------------------------
+from .control_flow import (  # noqa: E402,F401
+    While, while_loop, cond, case, switch_case, Switch, StaticRNN,
+    DynamicRNN, array_write, array_read, array_length, create_array)

@@ -6,11 +6,15 @@ from __future__ import annotations
 
 import torch
 
-from ..dygraph.tracer import amp_inputs
+from ..dygraph.tracer import amp_inputs, recording
 
 __all__ = ["flatten"]
 
 
 def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    if recording():
+        from ._dispatch import dispatch
+        return dispatch("flatten_contiguous_range", {"X": x},
+                        {"start_axis": start_axis, "stop_axis": stop_axis})
     (x,) = amp_inputs("flatten_contiguous_range", x)
     return torch.flatten(x, start_axis, stop_axis)

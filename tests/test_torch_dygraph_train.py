@@ -555,8 +555,6 @@ def test_hapi_train_batch_equals_bare_loop_and_jax():
         jmodel.eval_batch([ids], [lbl, nsp])[0], rel=1e-5)
     scores, rel = tmodel.predict_batch([ids])
     assert scores.shape == (BATCH, SEQ, TINY["vocab_size"])
-    for what in ("fit", "evaluate", "predict", "save", "load", "summary"):
-        with pytest.raises(NotImplementedError, match="Queue 1, The rest"):
-            getattr(tmodel, what)()
-    with pytest.raises(NotImplementedError, match="jit"):
-        tmodel.prepare(None, tcrit, use_jit=True)
+    # fit / evaluate / predict / save / load / summary and use_jit are
+    # ported (tests/test_torch_hapi.py holds them against the JAX package)
+    assert tmodel.summary() == jmodel.summary()

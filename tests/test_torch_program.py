@@ -92,8 +92,12 @@ def test_program_json_round_trip_between_packages():
         == jm.to_dict()
     assert JProgram.parse_from_string(tm.serialize_to_string()).to_dict() \
         == tm.to_dict()
-    with pytest.raises(NotImplementedError, match="proto"):
-        tm.serialize_to_string(format="proto")
+    # the binary form crosses too (tests/test_torch_serialization.py
+    # holds it message by message)
+    assert TProgram.parse_from_string(
+        jm.serialize_to_string(format="proto")).to_dict() == jm.to_dict()
+    assert JProgram.parse_from_string(
+        tm.serialize_to_string(format="proto")).to_dict() == tm.to_dict()
 
 
 def test_builder_refuses_unported_options():
