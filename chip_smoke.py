@@ -345,9 +345,9 @@ is present.  Phases:
                steps and one run_steps call, every flash and fused-CE
                launch bf16, losses finite.
  13. dp      - data parallel over torch.distributed, bench.py's step at
-               a global batch of 8, cut to DIST_LAYERS (4) layers as
-               phase 14 and phase 15's hoist (PR 21; 12 through PR 20:
-               the whole run must keep inside its limit).  2 ranks (paddle_tpu_torch.distributed
+               a global batch of 8, cut to DIST_LAYERS (2) layers as
+               phase 14 and phase 15's hoist (the whole run must keep
+               inside its limit).  2 ranks (paddle_tpu_torch.distributed
                .spawn, both on cuda:0, gloo: NCCL refuses two ranks on one
                device), each: (d) the collective API on CUDA tensors
                (all_reduce sum / max / min / prod, broadcast, all_gather,
@@ -461,8 +461,8 @@ is present.  Phases:
                publish all-gather a bucket a window hoisted against one a
                step unhoisted.  Prints its seconds.
  16. elastic - elastic data parallelism and its recovery tier:
-               bench.py's BERT-base AMP step (4 layers, widths
-               unchanged, flash + fused CE) elasticized at
+               bench.py's BERT-base AMP step (DIST_LAYERS = 2 layers,
+               widths unchanged, flash + fused CE) elasticized at
                logical dp 2 (distributed/elastic.py),
                micro-batch 4 of the global batch 8.  (a) here, under NCCL
                at world 1 (K = 2): 4 global steps eagerly, then the same
@@ -608,6 +608,35 @@ is present.  Phases:
                layers (its three variants, the fp32 check and the hapi
                check), widths unchanged: (a) carries the full-depth
                dygraph AMP step.
+ 20. tensor    - the paddle.tensor functions (tensor/, the ops they
+               dispatch, the truncated-normal, integer and Bernoulli
+               draws of csrc/philox_random.cu).  (a) dygraph BERT-base
+               (12 layers, full widths, batch 8 x 512), auto_cast O2 +
+               GradScaler, AdamW, flash forced on, fused CE: the word
+               embedding drawn as TruncatedNormal(0.02), then 4 steps
+               whose masking and head are ported tensor functions
+               (bernoulli(full(0.15)) picks, randint replaces, where
+               applies; the padding mask unsqueezed to [8, 1, 1, 512] and
+               dropped, since it keeps every key; nonzero / gather_nd /
+               index_select gather the rows and labels; F.cross_entropy;
+               topk / argmax / equal / cast / mean the accuracy); the
+               same with every hand kernel swapped for its plain version:
+               masks bit for bit, the embedding within 4 ulps, losses
+               within 2e-2; launches a step gated (flash 12 / 12 / 12 and
+               fused CE 1, bf16; Bernoulli 1, randint 1; the truncated
+               normal 1 over the path), none in the plain run.  (b) the
+               encoder and head under jit.to_static, fp32, 4 layers,
+               flash off, fused CE on: each of 3 steps against an eager
+               step from the state it started from (loss 1e-5, the state
+               1e-3 a leaf), a planted fault above the gate; fused CE 2
+               then 1 a step.  (c) every op this slice registers on CUDA
+               and on the CPU, same numpy inputs: integers equal, floats
+               within 1e-5 (normalised), ties and NaNs for top_k_v2 /
+               argsort / arg_max / unique, the draws against their plain
+               versions.  (d) the truncated normal at [30522, 768],
+               randint and Bernoulli at [8, 512] against their plain
+               versions; device ms, plain ms, the library call's ms
+               (trunc_normal_, randint, bernoulli), the byte bound.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -646,7 +675,11 @@ capturing call, a micro-step of each launched rank), and phase 17's
 stage's; (b) and (c) launch no hand kernel), and phase 18's
 (`phase18_launches`: the eager AMP step of (c), the whole phase, in the
 row's dtype), and phase 19's (`phase19_launches`: each fit step of (a)
-and each jit fit step of (b), measured, in the row's dtype);
+and each jit fit step of (b), measured, in the row's dtype), and phase
+20's (`phase20_launches`: each step of (a) and each jit step of (b), in
+the row's dtype); then the rows of the three new Philox distributions
+(truncated normal, randint, Bernoulli: times from phase 20 (d), launches
+over phase 20 (a)'s path);
 every phase's seconds on a line of its own ({"phase_seconds": ...});
 the last line
 {"ok": true, "device": {...}}.
@@ -730,6 +763,16 @@ KERNELS = {
                       "no TPU kernel: `jax.random.uniform` / "
                       "`jax.random.normal` under XLA, "
                       "`paddle_tpu/ops/kernels/random.py:20,40`"),
+    "philox_trunc_normal": ("paddle_tpu_torch/csrc/philox_random.cu",
+                            "no TPU kernel: `jax.random.truncated_normal` "
+                            "under XLA, "
+                            "`paddle_tpu/ops/kernels/random.py:48`"),
+    "philox_randint": ("paddle_tpu_torch/csrc/philox_random.cu",
+                       "no TPU kernel: `jax.random.randint` under XLA, "
+                       "`paddle_tpu/ops/kernels/random.py:64`"),
+    "philox_bernoulli": ("paddle_tpu_torch/csrc/philox_random.cu",
+                         "no TPU kernel: `jax.random.bernoulli` under XLA, "
+                         "`paddle_tpu/ops/kernels/random.py:58`"),
 }
 # the kernels for head dims above 128, by route, kernel and dtype: the
 # 16-bit wgmma forward, dQ and dK/dV at D = 256 (csrc/flash_attn_fwd.cu,
@@ -2605,9 +2648,10 @@ DYGRAPH_HIDDEN_DROPOUTS = 1 + 2 * BERT["layers_n"]  # embeddings, 2 a layer
 DYGRAPH_LAYERS = 4
 DYGRAPH_DROPOUTS = 1 + 2 * DYGRAPH_LAYERS
 # phases 13-14, phase 15's hoist (on phase 14's program) and sp LM, and
-# phase 16's fleet train BERT-base cut to DIST_LAYERS layers, widths
-# unchanged, so that the whole run keeps inside its time limit
-DIST_LAYERS = 4
+# phase 16 train BERT-base cut to DIST_LAYERS layers, widths unchanged,
+# so that the whole run keeps inside its time limit (at 4 layers a slow
+# call read 1,233 s with phase 20 added)
+DIST_LAYERS = 2
 
 
 def dygraph_batch(torch, seed):
@@ -9733,6 +9777,710 @@ def hl_phase(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the paddle.tensor functions on the card
+# ---------------------------------------------------------------------------
+PH20_STEPS = 4            # (a) AdamW steps of each run (kernels, plain)
+PH20_MASK_P = 0.15        # (a) the MLM selection probability
+PH20_LOSS_RTOL = TOL["bfloat16"]  # (a) kernels against plain versions, O2
+PH20_JIT_LAYERS = 4       # (b) BERT-base cut to 4 layers, widths unchanged
+PH20_JIT_STEPS = 3        # (b) to_static steps, each against an eager step
+PH20_JIT_RTOL = 1e-5      # (b) each step's loss against the eager step's
+PH20_LR = 0.01            # (b) Momentum's learning rate (momentum 0.9)
+PH20_STATE_TOL = 1e-3     # (b) the state after it, a leaf (phase 19 (b))
+PH20_OP_TOL = 1e-5        # (c) CUDA against CPU, normalised max error
+PH20_RANDOM = (("philox_trunc_normal", (30522, 768)),
+               ("philox_randint", (8, 512)),
+               ("philox_bernoulli", (8, 512)))
+PH20_KERNELS = tuple(name for name, _ in PH20_RANDOM)
+PH20_PATHS = ("ph20_bert_o2", "ph20_jit")
+
+
+def ph20_counters(attn, dr, fx, rnd):
+    """Every hand kernel a phase 20 path may launch: phase 13's six and the
+    three new Philox distributions (the truncated normal is the random
+    kernel's dist 2; `philox_random` counts its uniform and normal
+    launches only)."""
+    c = dp_counters(attn, dr, fx, rnd)
+
+    class ByDist:
+        def __init__(self, dists):
+            self.dists = dists
+
+        @property
+        def launches(self):
+            return sum(rnd.random_cuda.launches_by_dist[d]
+                       for d in self.dists)
+
+    c["philox_random"] = ByDist((rnd.UNIFORM, rnd.NORMAL))
+    c["philox_trunc_normal"] = ByDist((rnd.TRUNC_NORMAL,))
+    c["philox_randint"] = rnd.randint_cuda
+    c["philox_bernoulli"] = rnd.bernoulli_cuda
+    return c
+
+
+def ph20_zero(attn, counters, rnd):
+    dp_zero({k: c for k, c in counters.items()
+             if k not in ("philox_random", "philox_trunc_normal")})
+    for d in rnd.random_cuda.launches_by_dist:
+        rnd.random_cuda.launches_by_dist[d] = 0
+    rnd.random_cuda.launches = 0
+    zero_wide(attn)
+
+
+def ph20_read(counters):
+    return ({n: c.launches for n, c in counters.items()},
+            {n: dict(counters[n].dtype_launches) for n in DP_KERNELS})
+
+
+def ph20_batch(torch, seed):
+    """ids [8, 512] (every position a real token, as the bench's batch),
+    position and token-type ids [1, 512], the padding mask [8, 512] (all
+    ones), on the card."""
+    rng = np.random.RandomState(seed + 20)
+    b, s = TRAIN_BATCH, BERT["seq"]
+    ids = torch.from_numpy(rng.randint(0, BERT["vocab"], (b, s))
+                           .astype(np.int64)).cuda()
+    pos = torch.arange(s, dtype=torch.int64, device="cuda").reshape(1, s)
+    return ids, pos, torch.zeros_like(pos), torch.ones(b, s, device="cuda")
+
+
+def ph20_masks(T, ids):
+    """The MLM masking, all ported tensor functions: a 0.15 Bernoulli draw
+    picks the positions, randint draws their replacement ids, where
+    applies them; nonzero gives the picked [N, 2] coordinates, and
+    index_select the original ids there (the labels)."""
+    b, s = ids.shape
+    sel = T.cast(T.bernoulli(T.full([b, s], PH20_MASK_P)), "bool")
+    repl = T.randint(0, BERT["vocab"], [b, s])
+    masked = T.where(sel, repl, ids)
+    where_at = T.nonzero(sel)
+    stride = T.to_tensor(np.array([s, 1], np.int64))
+    flat = T.sum(T.multiply(where_at, stride), axis=1)
+    labels = T.index_select(T.reshape(ids, [-1]), flat, 0)
+    return sel, repl, masked, where_at, labels
+
+
+def ph20_forward(T, F, net, masked, pos, types, pad, where_at, labels):
+    """The encoder and the MLM head over the picked rows: the padding mask
+    unsqueezed to [8, 1, 1, 512]; a mask that keeps every key (this
+    batch has no padding) is dropped, so the flash route runs; gather_nd
+    takes the picked rows, F.cross_entropy (fused CE) the loss."""
+    am = T.unsqueeze(pad, [1, 2])
+    mask = None if bool(T.all(am)) else T.scale(am, 1e4, -1e4)
+    h = net.bert.encoder(net.bert.embeddings(masked, types, pos),
+                         src_mask=mask)
+    logits = net.cls(T.gather_nd(h, where_at))
+    return F.cross_entropy(logits, labels), logits
+
+
+def ph20_accuracy(T, logits, labels):
+    """top-1 and top-5 accuracy: topk / argmax / equal / cast / mean."""
+    top5 = T.topk(logits, 5)[1]
+    acc1 = T.mean(T.cast(T.equal(T.argmax(logits, 1), labels), "float32"))
+    acc5 = T.mean(T.cast(T.any(T.equal(top5, T.unsqueeze(labels, 1)), 1),
+                         "float32"))
+    return float(acc1), float(acc5)
+
+
+def ph20_bert(torch, attn, dr, fx, rnd, seed):
+    """(a) BERT-base (12 layers, 768, 12 heads, vocab 30522, seq 512,
+    batch 8), dygraph, auto_cast O2 + GradScaler, AdamW, flash forced on,
+    fused CE: the word embedding drawn anew as BERT's TruncatedNormal(0.02)
+    (google-research/bert's initializer), then PH20_STEPS steps of the
+    masking and head above.  The same run with every hand kernel swapped
+    for its plain version (flash and fused CE off: the score-matrix and
+    torch routes; the Philox draws through their plain versions on the
+    card).  Gates: the masks and the drawn embedding's replacement ids
+    equal bit for bit, the embedding within RANDOM_ULPS, each loss within
+    PH20_LOSS_RTOL; launches a step (flash forward, dQ, dK/dV 12 each,
+    fused CE 1, bf16; Bernoulli and randint 1 each; the truncated normal
+    1 over the path; dropout and uniform / normal 0) and none of them in
+    the plain run."""
+    import paddle_tpu_torch.nn.functional as F
+    import paddle_tpu_torch.tensor as T
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core.generator import get_rng_state, set_rng_state
+    from paddle_tpu_torch.ops.kernels import random as krandom
+    from paddle_tpu_torch.tensor._dispatch import dispatch
+    counters = ph20_counters(attn, dr, fx, rnd)
+    ids, pos, types, pad = ph20_batch(torch, seed)
+    net, _ = dygraph_model(seed, 0.0, hidden_dropout=0.0)
+    base = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    emb = net.bert.embeddings.word_embeddings.weight
+    rng0 = get_rng_state()
+    runs = {}
+    for tag in ("kernels", "plain"):
+        kernels = tag == "kernels"
+        net.set_state_dict(base)
+        set_rng_state(rng0)
+        attn.enable_flash_attention(kernels)
+        fx.enable_fused_xent(kernels)
+        if not kernels:  # the plain versions of the Philox draws, on the card
+            krandom.bernoulli_draw = rnd.bernoulli_plain
+            krandom.randint_draw = rnd.randint_plain
+            krandom.truncated_normal = lambda *a: rnd.random_plain(
+                *a[:2], rnd.TRUNC_NORMAL, *a[2:])
+        try:
+            torch.cuda.synchronize()
+            # ---- (a)'s path: counts from 0 just before, read after
+            ph20_zero(attn, counters, rnd)
+            t0 = time.perf_counter()
+            draw = dispatch("truncated_gaussian_random", {},
+                            {"shape": list(emb.shape), "dtype": "float32",
+                             "mean": 0.0, "std": 0.02})
+            if kernels:
+                init = draw
+            with torch.no_grad():
+                emb.copy_(init)  # both runs train from the kernel's draw
+            opt = dygraph_optimizer(net)
+            scaler = amp.GradScaler()
+            net.train()
+            rec = {"losses": [], "acc": [], "masks": [], "step_ms": [],
+                   "picked": []}
+            steps = []
+            for _ in range(PH20_STEPS):
+                ts = time.perf_counter()
+                before = ph20_read(counters)
+                sel, repl, masked, where_at, labels = ph20_masks(T, ids)
+                with amp.auto_cast(level="O2"):
+                    loss, logits = ph20_forward(T, F, net, masked, pos,
+                                                types, pad, where_at,
+                                                labels)
+                scaler.scale(loss).backward()
+                scaler.minimize(opt, loss)
+                opt.clear_grad()
+                opt._learning_rate.step()
+                rec["acc"].append(ph20_accuracy(T, logits, labels))
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - ts) * 1e3)
+                rec["losses"].append(float(loss.detach()))
+                rec["masks"].append((sel.clone(), repl.clone()))
+                rec["picked"].append(int(where_at.shape[0]))
+                after = ph20_read(counters)
+                steps.append(({k: after[0][k] - before[0][k]
+                               for k in after[0]},
+                              {k: {d: n - before[1][k].get(d, 0)
+                                   for d, n in after[1][k].items()}
+                               for k in DP_KERNELS}))
+            rec["seconds"] = time.perf_counter() - t0
+            rec["launches"], rec["by_dtype"] = ph20_read(counters)
+            if kernels:
+                record_wide("ph20_bert_o2", read_wide(attn))
+            # ---- end of (a)'s path
+        finally:
+            attn._FLASH_STATE["mode"] = "auto"
+            fx.enable_fused_xent(False)
+            krandom.bernoulli_draw = rnd.bernoulli_draw
+            krandom.randint_draw = rnd.randint_draw
+            krandom.truncated_normal = rnd.truncated_normal
+        rec["step_launches"] = [s[0] for s in steps]
+        rec["step_by_dtype"] = [s[1] for s in steps]
+        rec["draw"] = draw
+        runs[tag] = rec
+        del opt, scaler
+        torch.cuda.empty_cache()
+    k, p = runs["kernels"], runs["plain"]
+    n = BERT["layers_n"]
+    want_step = dict(dict.fromkeys(counters, 0), flash_attn_fwd=n,
+                     flash_attn_bwd_dq=n, flash_attn_bwd_dkv=n,
+                     fused_xent_fwd=1, philox_randint=1, philox_bernoulli=1)
+    check_equal("ph20 (a) launches a step", k["step_launches"],
+                [want_step] * PH20_STEPS)
+    check_equal("ph20 (a) launches by dtype a step", k["step_by_dtype"],
+                [{kk: ({"bfloat16": want_step[kk]} if want_step[kk] else {})
+                  for kk in DP_KERNELS}] * PH20_STEPS)
+    check_equal("ph20 (a) launches", k["launches"],
+                {kk: v * PH20_STEPS + (kk == "philox_trunc_normal")
+                 for kk, v in want_step.items()})
+    check_equal("ph20 (a) plain-run launches", p["launches"],
+                dict.fromkeys(counters, 0))
+    for i, ((ks, kr), (ps, pr)) in enumerate(zip(k["masks"], p["masks"])):
+        if not (torch.equal(ks, ps) and torch.equal(kr, pr)):
+            raise AssertionError(f"ph20 (a) step {i}: the kernels' masks "
+                                 "differ from the plain versions'")
+    scale = torch.finfo(torch.float32).eps * torch.clamp(
+        p["draw"].abs(), min=0.02)
+    init_ulps = float(((k["draw"] - p["draw"]).abs() / scale).max())
+    if not init_ulps <= RANDOM_ULPS:
+        raise AssertionError(f"ph20 (a) truncated normal: {init_ulps} ulps "
+                             "from its plain version")
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(k["losses"],
+                                                     p["losses"])]
+    if not all(np.isfinite(k["losses"])) or max(loss_err) > PH20_LOSS_RTOL:
+        raise AssertionError(f"ph20 (a) losses {k['losses']} against plain "
+                             f"{p['losses']}")
+    out = {"losses": k["losses"], "plain_losses": p["losses"],
+           "loss_rel_err": loss_err, "accuracy_top1_top5": k["acc"],
+           "picked_rows": k["picked"], "trunc_normal_init_ulps": init_ulps,
+           "step_ms": k["step_ms"], "plain_step_ms": p["step_ms"],
+           "seconds": k["seconds"], "plain_seconds": p["seconds"],
+           "launches": k["launches"],
+           "step_launches": k["step_launches"],
+           "step_by_dtype": k["step_by_dtype"]}
+    log({"phase": "ph20_bert", **out})
+    del net, runs, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def ph20_jit(torch, attn, dr, fx, rnd, seed):
+    """(b) the same step's encoder and head under jit.to_static, fp32,
+    BERT-base cut to PH20_JIT_LAYERS layers (widths unchanged), flash off
+    (a recorder refuses it, in both packages), fused CE on, Momentum
+    (PH20_LR, 0.9: Adam would turn the rounding noise of near-zero
+    gradients into steps of +-lr); the masks drawn once outside the traced function (each step
+    the same batch: one trace, then replays).  Gates: each step's loss
+    within PH20_JIT_RTOL of an eager step from a copy of the state it
+    started from, and the state after it (weights and velocities) within
+    PH20_STATE_TOL a leaf, the attention key biases within 2 lr
+    absolute; a planted fault (the eager step's gradients zeroed) reads
+    above the gate."""
+    import paddle_tpu_torch.nn.functional as F
+    import paddle_tpu_torch.tensor as T
+    from paddle_tpu_torch import jit, nn, optimizer
+    counters = ph20_counters(attn, dr, fx, rnd)
+    ids, pos, types, pad = ph20_batch(torch, seed)
+    net, _ = dygraph_model(seed, 0.0, hidden_dropout=0.0,
+                           layers=PH20_JIT_LAYERS)
+    net.train()
+
+    class Step(nn.Layer):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, masked, pos, types, pad, where_at, labels):
+            return ph20_forward(T, F, self.net, masked, pos, types, pad,
+                                where_at, labels)[0]
+
+    step = Step(net)
+    eager_fn = step.forward
+    sf = jit.StaticFunction(eager_fn, layer=step)
+    # the jit run's optimizer, and the eager steps' (each loaded with the
+    # state its jit step started from; a fresh one for the planted fault)
+    def momentum():
+        return optimizer.Momentum(learning_rate=PH20_LR, momentum=0.9,
+                                  parameters=net.parameters())
+
+    opt_j, opt_e = momentum(), momentum()
+    # the attention key biases: their gradient is 0 in exact arithmetic
+    # (softmax ignores a per-row constant), so the rounding noise of each
+    # run is all there is: held to 2 lr absolute, and left out of the
+    # relative gate with their velocities
+    key_bias = [f"bert.encoder.layers.{i}.self_attn.k_proj.bias"
+                for i in range(PH20_JIT_LAYERS)]
+    kb_pnames = [layer.self_attn.k_proj.bias.paddle_name
+                 for layer in net.bert.encoder.layers]
+
+    def is_key_bias(k):
+        return k in key_bias or any(k.startswith(n + "_")
+                                    for n in kb_pnames)
+    _, _, masked, where_at, labels = ph20_masks(T, ids)
+    args = (masked, pos, types, pad, where_at, labels)
+
+    def state(opt):
+        return ({k: v.detach().clone() for k, v in net.state_dict().items()},
+                {k: v.detach().clone() for k, v in opt.state_dict().items()
+                 if hasattr(v, "detach")})
+
+    def one(fn, opt, zero_grads=False):
+        hooks = [p.register_hook(torch.zeros_like)
+                 for p in net.parameters()] if zero_grads else []
+        try:
+            loss = fn(*args)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        return float(loss.detach())
+
+    out = {"jit_losses": [], "eager_losses": [], "state_err": [],
+           "jit_step_ms": []}
+    torch.cuda.synchronize()
+    # ---- (b)'s path (the jit steps): counts from 0 just before
+    ph20_zero(attn, counters, rnd)
+    step_launches = []
+    for i in range(PH20_JIT_STEPS):
+        st0 = state(opt_j)
+        before = ph20_read(counters)[0]
+        t0 = time.perf_counter()
+        jl = one(sf, opt_j)
+        out["jit_step_ms"].append((time.perf_counter() - t0) * 1e3)
+        after = ph20_read(counters)[0]
+        step_launches.append({k: after[k] - before[k] for k in after})
+        st_j = state(opt_j)
+        net.set_state_dict(st0[0])
+        opt_e.set_state_dict({k: v.clone() for k, v in st0[1].items()})
+        el = one(eager_fn, opt_e)
+        st_e = state(opt_e)
+        err = hl_state_err(torch, st_e, st_j)
+        kb_err = max(float((st_e[0][k] - st_j[0][k]).abs().max())
+                     for k in key_bias)
+        out["jit_losses"].append(jl)
+        out["eager_losses"].append(el)
+        out["state_err"].append(max(e for k, e in err.items()
+                                    if not is_key_bias(k)))
+        out["key_bias_abs_err"] = max(out.get("key_bias_abs_err", 0.0),
+                                      kb_err)
+        if abs(jl - el) > PH20_JIT_RTOL * abs(el) or \
+                not out["state_err"][-1] <= PH20_STATE_TOL or \
+                not kb_err <= 2 * PH20_LR:
+            raise AssertionError(f"ph20 (b) step {i}: jit loss {jl} vs "
+                                 f"eager {el}, state error "
+                                 f"{out['state_err'][-1]}, key bias "
+                                 f"{kb_err}")
+        if i == 0:  # the planted fault, from the same start
+            net.set_state_dict(st0[0])
+            opt_f = momentum()
+            one(eager_fn, opt_f, zero_grads=True)
+            out["planted_fault_state_err"] = max(
+                e for k, e in hl_state_err(torch, state(opt_f),
+                                           st_j).items()
+                if not is_key_bias(k))
+            del opt_f
+            if not out["planted_fault_state_err"] > PH20_STATE_TOL:
+                raise AssertionError("ph20 (b): the planted fault reads "
+                                     f"{out['planted_fault_state_err']}, "
+                                     "inside the gate")
+        net.set_state_dict(st_j[0])
+    record_wide("ph20_jit", read_wide(attn))
+    out["step_launches"] = step_launches
+    cp = next(iter(sf._cache.values()))
+    types_ = [op.type for op in cp.program.global_block().ops]
+    out["recorded_ops"] = {t: types_.count(t) for t in sorted(set(types_))}
+    # a fused CE (fp32) and the recorded dropout ops (hidden dropout 0:
+    # recorded and run all the same, as in the JAX package) a replay,
+    # twice in the first step (its trace, then its replay); no flash
+    # under a recorder, no other hand kernel
+    per = dict(dict.fromkeys(counters, 0), fused_xent_fwd=1,
+               dropout_philox=out["recorded_ops"].get("dropout", 0))
+    check_equal("ph20 (b) launches a jit step", step_launches,
+                [{k: v * (2 if i == 0 else 1) for k, v in per.items()}
+                 for i in range(PH20_JIT_STEPS)])
+    for op in ("unsqueeze2", "gather_nd", "reduce_all"):
+        if op not in out["recorded_ops"]:
+            raise AssertionError(f"ph20 (b): {op} not recorded")
+    log({"phase": "ph20_jit", **out})
+    del net, opt_j, opt_e, sf, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def ph20_op_cases(rng):
+    """(c) {op: (ins, attrs)} of every op this slice registers, numpy
+    inputs; ties and NaNs for top_k_v2 / argsort / arg_max / unique."""
+    f = lambda *s: rng.uniform(-1, 1, s).astype(np.float32)  # noqa: E731
+    pos = lambda *s: rng.uniform(0.2, 2.0, s).astype(np.float32)  # noqa
+    i64 = lambda hi, *s: rng.randint(0, hi, s).astype(np.int64)  # noqa
+    nan = np.nan
+    ties = np.array([[1.0, nan, 3.0, 3.0, 2.0, -nan, 0.0, -0.0],
+                     [2.0, 2.0, 2.0, 1.0, 1.0, 5.0, 5.0, 0.0]], np.float32)
+    many_ties = rng.randint(0, 4, (64, 300)).astype(np.float32)
+    spd = rng.rand(8, 8)
+    spd = (spd @ spd.T + 8 * np.eye(8)).astype(np.float32)
+    x = f(64, 300)
+    cases = {
+        **{op: ({"X": pos(64, 300) * (0.45 if op in ("asin", "acos")
+                                      else 1.0)}, {})
+           for op in ("exp", "rsqrt", "ceil", "floor", "round", "sin", "cos",
+                      "tan", "asin", "acos", "atan", "sinh", "cosh",
+                      "reciprocal", "erf", "log2", "log10", "log1p",
+                      "sign")},
+        "pow": ({"X": pos(64, 300)}, {"factor": 3.0}),
+        "stanh": ({"X": x}, {"scale_a": 0.67, "scale_b": 1.7159}),
+        "elementwise_min": ({"X": x, "Y": f(300)}, {"axis": -1}),
+        **{op: ({"X": pos(16, 30, 4)}, {"dim": [1], "keep_dim": False})
+           for op in ("reduce_prod",)},
+        **{op: ({"X": f(16, 30) > 0}, {"dim": [0, 1], "keep_dim": True})
+           for op in ("reduce_all", "reduce_any")},
+        "squeeze2": ({"X": f(4, 1, 30, 1)}, {"axes": []}),
+        "unsqueeze2": ({"X": x}, {"axes": [0, 3]}),
+        "split": ({"X": x}, {"axis": 1, "num": 0, "sections": [100, -1]}),
+        "stack": ({"X": [x, x]}, {"axis": 1}),
+        "unstack": ({"X": f(3, 40)}, {"axis": 0, "num": 3}),
+        "unbind": ({"X": f(3, 40)}, {"axis": 1}),
+        "gather_nd": ({"X": f(8, 512, 16),
+                       "Index": np.stack([i64(8, 600), i64(512, 600)], 1)},
+                      {}),
+        "scatter": ({"X": f(64, 30), "Ids": i64(64, 64),
+                     "Updates": f(64, 30)}, {"overwrite": False}),
+        "scatter_nd_add": ({"X": f(8, 512), "Index": np.stack(
+            [i64(8, 900), i64(512, 900)], 1), "Updates": f(900)}, {}),
+        "strided_slice": ({"Input": x}, {"axes": [0, 1], "starts": [1, 299],
+                                         "ends": [60, 0],
+                                         "strides": [3, -2]}),
+        "index_select": ({"X": x, "Index": i64(300, 77)}, {"dim": 1}),
+        "index_sample": ({"X": x, "Index": i64(300, 64, 5)}, {}),
+        "masked_select": ({"X": x, "Mask": f(64, 300) > 0}, {}),
+        "where_index": ({"Condition": f(64, 300) > 0.5}, {}),
+        "expand_v2": ({"X": f(1, 300)}, {"shape": [4, 64, -1]}),
+        "expand_as_v2": ({"X": f(1, 300)}, {"target_shape": [64, 300]}),
+        "tile": ({"X": f(8, 30)}, {"repeat_times": [2, 3, 1]}),
+        "flip": ({"X": x}, {"axis": [0, 1]}),
+        "reverse": ({"X": x}, {"axis": [1]}),
+        "roll": ({"X": x}, {"shifts": [5, -7], "axis": [0, 1]}),
+        "eye": ({}, {"num_rows": 64, "num_columns": 96,
+                     "dtype": "float32"}),
+        "linspace": ({}, {"start": -3.0, "stop": 5.0, "num": 1001,
+                          "dtype": "float32"}),
+        "range": ({}, {"start": 3, "end": 30522, "step": 7,
+                       "dtype": "int64"}),
+        "arg_max": ({"X": many_ties}, {"axis": 1, "dtype": "int64"}),
+        "arg_min": ({"X": ties}, {"axis": 1, "dtype": "int64"}),
+        "argsort": ({"X": many_ties}, {"axis": -1, "descending": True}),
+        "top_k_v2": ({"X": many_ties}, {"k": 5, "axis": -1,
+                                        "largest": True}),
+        "unique": ({"X": many_ties}, {"dtype": "int64"}),
+        "shape": ({"Input": x}, {}),
+        "size": ({"Input": x}, {}),
+        "is_empty": ({"X": x}, {}),
+        "diag_v2": ({"X": f(300)}, {"offset": 1, "padding_value": 2.0}),
+        "diag_embed": ({"Input": f(8, 30)}, {"offset": -1}),
+        "meshgrid": ({"X": [f(30), f(40)]}, {}),
+        "multiplex": ({"X": [f(64, 30), f(64, 30)],
+                       "Ids": i64(2, 64, 1)}, {}),
+        "shard_index": ({"X": i64(30522, 64, 1)},
+                        {"index_num": 30522, "nshards": 4, "shard_id": 1,
+                         "ignore_value": -1}),
+        "assign_value": ({}, {"shape": [2, 3], "dtype": "float32",
+                              "values": [1.0, 2.0, 3.0, 4.0, 5.0, 6.0]}),
+        "bmm": ({"X": f(8, 64, 32), "Y": f(8, 32, 48)}, {}),
+        "mv": ({"X": f(64, 300), "Vec": f(300)}, {}),
+        "dot": ({"X": x, "Y": f(64, 300)}, {}),
+        "kron": ({"X": f(8, 6), "Y": f(5, 7)}, {}),
+        "cumsum": ({"X": x}, {"axis": 1, "exclusive": True,
+                              "reverse": True}),
+        "logsumexp": ({"X": x}, {"axis": [1], "keepdim": False}),
+        "trace": ({"Input": f(4, 30, 30)}, {"offset": 1, "axis1": 1,
+                                            "axis2": 2}),
+        "tril_triu": ({"X": x}, {"diagonal": 2, "lower": False}),
+        "cross": ({"X": f(64, 3), "Y": f(64, 3)}, {"dim": 1}),
+        "p_norm": ({"X": x}, {"porder": 3.0, "axis": 1, "keepdim": True}),
+        "frobenius_norm": ({"X": x}, {"dim": [0, 1], "keep_dim": False}),
+        "dist": ({"X": x, "Y": f(64, 300)}, {"p": 2.0}),
+        "cholesky": ({"X": spd}, {"upper": True}),
+        "inverse": ({"Input": spd}, {}),
+        "histogram": ({"X": x}, {"bins": 50, "min": -1, "max": 1}),
+        "allclose": ({"Input": x, "Other": x + 1e-9}, {"rtol": "1e-5",
+                                                       "atol": "1e-8"}),
+        "isfinite_v2": ({"X": np.array([1.0, np.inf, nan, -np.inf],
+                                       np.float32)}, {}),
+        "isinf_v2": ({"X": np.array([1.0, np.inf, nan, -np.inf],
+                                    np.float32)}, {}),
+        "isnan_v2": ({"X": np.array([1.0, np.inf, nan, -np.inf],
+                                    np.float32)}, {}),
+        "einsum": ({"Operands": [f(8, 30, 16), f(8, 16, 20)]},
+                   {"equation": "bij,bjk->bik"}),
+        "addmm": ({"Input": f(64, 48), "X": f(64, 30), "Y": f(30, 48)},
+                  {"Alpha": 2.0, "Beta": 0.5}),
+        "crop_tensor": ({"X": x}, {"shape": [30, -1], "offsets": [5, 20]}),
+        "get_tensor_from_selected_rows": ({"X": x}, {}),
+        # draws: the card's kernels against the plain versions on the CPU
+        "truncated_gaussian_random": ({}, {"shape": [64, 300], "mean": 0.0,
+                                           "std": 0.02, "seed": 5,
+                                           "op_uid": 3}),
+        "randint": ({}, {"shape": [64, 300], "low": -3, "high": 30522,
+                         "seed": 5, "op_uid": 4}),
+        "bernoulli": ({"X": rng.rand(64, 300).astype(np.float32)},
+                      {"seed": 5, "op_uid": 5}),
+        "randperm": ({}, {"n": 30522, "seed": 5, "op_uid": 6}),
+        "multinomial": ({"X": rng.rand(16, 50).astype(np.float32)},
+                        {"num_samples": 8, "seed": 5, "op_uid": 7}),
+        "sampling_id": ({"X": rng.rand(16, 50).astype(np.float32)},
+                        {"seed": 5, "op_uid": 8}),
+    }
+    cases["argsort_nan"] = ("argsort", {"X": ties},
+                            {"axis": -1, "descending": True})
+    cases["top_k_v2_nan"] = ("top_k_v2", {"X": ties},
+                             {"k": 6, "axis": -1, "largest": False})
+    cases["arg_max_nan"] = ("arg_max", {"X": ties}, {"axis": 1})
+    cases["unique_nan"] = ("unique", {"X": ties}, {"dtype": "int64"})
+    return cases
+
+
+def ph20_ops(torch):
+    """(c) every op this slice registers, through its registry kernel on
+    CUDA tensors and on CPU tensors from the same numpy inputs: integers
+    and booleans equal, floats within PH20_OP_TOL (normalised max error),
+    NaNs at the same places; the draws' kernels against their plain
+    versions (the truncated normal within RANDOM_ULPS)."""
+    from paddle_tpu_torch.ops.registry import OpContext, run_kernel
+    rng = np.random.RandomState(20)
+    cases = ph20_op_cases(rng)
+    worst, n_ops = {}, set()
+
+    def to(v, dev):
+        if isinstance(v, list):
+            return [to(x, dev) for x in v]
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+
+    def flat(o):
+        out = []
+        for slot in sorted(o):
+            v = o[slot]
+            out += list(v) if isinstance(v, list) else [v]
+        return out
+
+    for tag, case in cases.items():
+        op, ins, attrs = (tag, *case) if len(case) == 2 else case
+        n_ops.add(op)
+        got = run_kernel(op, {k: to(v, "cuda") for k, v in ins.items()},
+                         dict(attrs), OpContext(seed=0, device="cuda"))
+        want = run_kernel(op, {k: to(v, "cpu") for k, v in ins.items()},
+                          dict(attrs), OpContext(seed=0, device="cpu"))
+        err = 0.0
+        for g, w in zip(flat(got), flat(want)):
+            g = g.cpu()
+            if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
+                raise AssertionError(f"ph20 (c) {tag}: {tuple(g.shape)} "
+                                     f"{g.dtype} vs {tuple(w.shape)} "
+                                     f"{w.dtype}")
+            if not w.is_floating_point():
+                if not torch.equal(g, w):
+                    raise AssertionError(f"ph20 (c) {tag}: integers differ")
+                continue
+            if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                raise AssertionError(f"ph20 (c) {tag}: NaNs differ")
+            g, w = g.double().nan_to_num(), w.double().nan_to_num()
+            scale = float(w.abs().max()) if w.numel() else 0.0
+            e = float((g - w).abs().max()) if w.numel() else 0.0
+            if op == "truncated_gaussian_random":
+                e = float(((g - w).abs() / (torch.finfo(torch.float32).eps
+                                            * w.abs().clamp(min=0.02)))
+                          .max())
+                if not e <= RANDOM_ULPS:
+                    raise AssertionError(f"ph20 (c) {tag}: {e} ulps")
+            else:
+                e = e / scale if scale > 0 else e
+                if not e <= PH20_OP_TOL:
+                    raise AssertionError(f"ph20 (c) {tag}: normalised max "
+                                         f"error {e}")
+            err = max(err, e)
+        worst[tag] = err
+    out = {"ops": len(n_ops), "cases": len(cases), "max_err": worst}
+    log({"phase": "ph20_ops", **out})
+    return out
+
+
+def ph20_random(torch, rnd, seed):
+    """(d) each new Philox distribution against its plain version (on the
+    card) at [30522, 768] (the truncated normal: a TruncatedNormal(0.02)
+    init of the word embedding) and [8, 512] (randint over the vocabulary,
+    Bernoulli at p = 0.15): the integers and the Bernoulli draw equal bit
+    for bit, the truncated normal within RANDOM_ULPS; times: kernel (device
+    ms), plain version, the library call (torch.nn.init.trunc_normal_,
+    torch.randint, torch.bernoulli), bound = bytes moved over 3.35 TB/s."""
+    seed_t = torch.tensor([seed + 2026], dtype=torch.int64, device="cuda")
+    out = {}
+    for name, shape in PH20_RANDOM:
+        n = int(np.prod(shape))
+        if name == "philox_trunc_normal":
+            buf = torch.empty(shape, device="cuda")
+
+            def kernel():
+                return rnd.truncated_normal(shape, torch.float32, 0.0, 0.02,
+                                            seed_t, 11, "cuda")
+
+            def plain():
+                return rnd.random_plain(shape, torch.float32,
+                                        rnd.TRUNC_NORMAL, 0.0, 0.02, seed_t,
+                                        11, "cuda")
+
+            def lib():
+                return torch.nn.init.trunc_normal_(buf, 0.0, 0.02, -0.04,
+                                                   0.04)
+            nbytes = n * 4
+        elif name == "philox_randint":
+            def kernel():
+                return rnd.randint_cuda(shape, torch.int64, 0,
+                                        BERT["vocab"], seed_t, 12, "cuda")
+
+            def plain():
+                return rnd.randint_plain(shape, torch.int64, 0,
+                                         BERT["vocab"], seed_t, 12, "cuda")
+
+            def lib():
+                return torch.randint(0, BERT["vocab"], shape,
+                                     device="cuda")
+            nbytes = n * 8
+        else:
+            p = torch.full(shape, PH20_MASK_P, device="cuda")
+
+            def kernel():
+                return rnd.bernoulli_cuda(p, seed_t, 13)
+
+            def plain():
+                return rnd.bernoulli_plain(p, seed_t, 13)
+
+            def lib():
+                return torch.bernoulli(p)
+            nbytes = n * 4 * 2
+        got, want = kernel(), plain()
+        if name == "philox_trunc_normal":
+            scale = torch.finfo(torch.float32).eps * torch.clamp(
+                want.abs(), min=0.02)
+            ulps = float(((got - want).abs() / scale).max())
+            if not ulps <= RANDOM_ULPS or float(got.abs().max()) > 0.04:
+                raise AssertionError(f"ph20 (d) {name}: {ulps} ulps, "
+                                     f"max {float(got.abs().max())}")
+            x = got.double()
+            var = 0.02 ** 2 * (1.0 - 4.0 * np.exp(-2.0) / np.sqrt(
+                2.0 * np.pi) / 0.9544997361036416)
+            if abs(float(x.var()) - var) > 5 * var * np.sqrt(2.0 / n):
+                raise AssertionError(f"ph20 (d) {name}: variance "
+                                     f"{float(x.var())} vs {var}")
+        else:
+            if not torch.equal(got, want):
+                raise AssertionError(f"ph20 (d) {name}: kernel differs "
+                                     "from its plain version")
+            ulps = 0.0
+        out[name] = {"shape": list(shape), "max_abs_err": float(
+            (got.double() - want.double()).abs().max()), "max_ulps": ulps,
+            "mean": float(got.double().mean()),
+            "kernel_ms": device_ms(torch, kernel, 20),
+            "plain_ms": cuda_time_ms(plain, 2),
+            "library_ms": device_ms(torch, lib, 20),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        del got, want
+    log({"phase": "ph20_random", **out})
+    return out
+
+
+def tensor_phase(torch, seed):
+    """(20) the paddle.tensor functions on the card: (a) ph20_bert, (b)
+    ph20_jit, (c) ph20_ops, (d) ph20_random.  Returns the record with each
+    path's launches and the new kernels' times."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    for part, fn, args in (("a", ph20_bert, (torch, attn, dr, fx, rnd,
+                                             seed)),
+                           ("b", ph20_jit, (torch, attn, dr, fx, rnd, seed)),
+                           ("c", ph20_ops, (torch,)),
+                           ("d", ph20_random, (torch, rnd, seed))):
+        t0 = time.perf_counter()
+        if part == "b":
+            fx.enable_fused_xent(True)
+            attn.enable_flash_attention(False)
+        try:
+            out[part] = fn(*args)
+        finally:
+            attn._FLASH_STATE["mode"] = "auto"
+            fx.enable_fused_xent(False)
+        out["seconds"][part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    log({"phase": "tensor", "seconds": out["seconds"]})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9874,6 +10622,7 @@ def main():
     el = timed("16_elastic", el_phase, torch, args.seed)
     pps = timed("17_pipeline_ps", pp_ps_phase, torch, args.seed)
     hl = timed("19_high_level", hl_phase, torch, args.seed)
+    ph20 = timed("20_tensor", tensor_phase, torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -9966,7 +10715,7 @@ def main():
             f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
             for run in runs for r in range(PX_RANKS)) + (
             "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS + (
-            "pp_pipeline", "analysis") + HL_PATHS
+            "pp_pipeline", "analysis") + HL_PATHS + PH20_PATHS
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -10146,6 +10895,36 @@ def main():
             got = {p: extra["launches_by_path_all_dtypes"][p]
                    for p in HL_PATHS}
         extra["phase19_launches"] = got
+    # phase 20: each step of (a) (BERT-base, O2) and each jit step of (b)
+    # (4 layers, fp32; the first traces), in the row's dtype
+    ph20_runs = {"bert_o2_steps": (ph20["a"]["step_launches"],
+                                   ph20["a"]["step_by_dtype"]),
+                 "jit_steps": (ph20["b"]["step_launches"], None)}
+    for name, _, _, extra in rows:
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            got = {"bert_o2_steps": [st[base].get(dt, 0) for st in
+                                     ph20_runs["bert_o2_steps"][1]],
+                   "jit_steps": [st[base] if dt == "float32" else 0
+                                 for st in ph20_runs["jit_steps"][0]]}
+        elif name in ("dropout_philox", "philox_random"):
+            got = {p: [st[name] for st in r[0]]
+                   for p, r in ph20_runs.items()}
+        else:  # head dims above 128: over each whole path, all dtypes
+            got = {p: extra["launches_by_path_all_dtypes"][p]
+                   for p in PH20_PATHS}
+        extra["phase20_launches"] = got
+    # the three new Philox distributions: times from phase 20 (d),
+    # launches over phase 20 (a)'s path (the truncated normal: the word
+    # embedding's draw; randint and Bernoulli: one each a step)
+    for name, shape in PH20_RANDOM:
+        rows.append((name, ph20["d"][name], ph20["a"]["launches"][name],
+                     {"case": f"{list(shape)}",
+                      "phase20_launches": {
+                          p: [st[name] for st in r[0]]
+                          for p, r in ph20_runs.items()},
+                      "max_ulps": ph20["d"][name]["max_ulps"]}))
     summary = []
     for name, r, launches, extra in rows:
         source, replaces = KERNELS[name]

@@ -26,20 +26,32 @@ torch.distributed (`distributed`), with the checkpoint tier
 path (`hapi.Model.fit` / `evaluate` / `predict` / `save` / `load` /
 `summary` over `io.DataLoader`, `metric`, the callbacks, and
 `jit.to_static` with dy2static and the control-flow ops, `static.control_flow`)
-and the binary proto model container; every Pallas kernel of the JAX package as a hand-written Hopper kernel
-under csrc/.  ROADMAP.md lists what comes next.
+and the binary proto model container; the paddle.tensor functions
+(`tensor`, dual-mode: eager, recorded under `to_static`, or static with
+`enable_static()`), with the ops they dispatch and truncated-normal,
+integer and Bernoulli draws on the Philox kernel; every Pallas kernel of
+the JAX package as a hand-written Hopper kernel under csrc/.  ROADMAP.md
+lists what comes next.
 
-The top-level names: `seed`, `to_tensor`, `matmul`, `grad`, `no_grad`,
-`Model`, `summary`, `CPUPlace`, `CUDAPlace` (and the subpackages `amp`,
-`nn`, `optimizer`, `models`, `hapi`, `dygraph`, `static`, `vision`,
-`io`, `jit`, `metric`, `regularizer`, ...).
+The top-level names: `seed`, `to_tensor`, `grad`, `no_grad`, `Model`,
+`summary`, `CPUPlace`, `CUDAPlace`, `enable_static` / `disable_static` /
+`in_dynamic_mode`, `get_default_dtype` / `set_default_dtype`, every
+function of `paddle_tpu_torch.tensor` and of `tensor.compat` (as the JAX
+package exports them), and the subpackages `amp`, `nn`, `optimizer`,
+`models`, `hapi`, `dygraph`, `static`, `vision`, `io`, `jit`, `metric`,
+`regularizer`, ...
 """
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.generator import seed  # noqa: F401
-from .dygraph.base import no_grad  # noqa: F401
+from .core.dtype import get_default_dtype, set_default_dtype  # noqa: F401
+from .dygraph.base import (  # noqa: F401
+    no_grad, enable_static, disable_static, in_dynamic_mode,
+    in_dygraph_mode,
+)
 from .dygraph.engine import grad  # noqa: F401
 from .dygraph.tensor import to_tensor  # noqa: F401
-from .tensor.linalg import matmul  # noqa: F401
+from .tensor import *  # noqa: F401,F403
+from .tensor.compat import *  # noqa: F401,F403
 from . import amp, nn, optimizer, vision  # noqa: F401
 from . import io, jit, metric, regularizer  # noqa: F401
 from .hapi.model import Model, summary  # noqa: F401

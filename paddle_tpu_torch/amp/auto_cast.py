@@ -216,3 +216,5 @@ class GradScaler:
         self._decr_every_n_nan_or_inf = d.get("decr_every_n_nan_or_inf",
                                               self._decr_every_n_nan_or_inf)
 
+
+AmpScaler = GradScaler  # fluid dygraph spelling

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["convert_dtype", "torch_dtype", "dtype_name"]
+__all__ = ["convert_dtype", "torch_dtype", "dtype_name", "set_default_dtype",
+           "get_default_dtype"]
 
 _ALIASES = {
     "float": "float32",
@@ -62,3 +63,19 @@ def dtype_name(dtype: torch.dtype) -> str:
         return _NAMES[dtype]
     except KeyError:
         raise TypeError(f"unsupported dtype: {dtype!r}") from None
+
+
+# -- default dtype (paddle.get/set_default_dtype) ---------------------------
+_DEFAULT_DTYPE = "float32"
+
+
+def set_default_dtype(d):
+    global _DEFAULT_DTYPE
+    name = convert_dtype(d)
+    if name not in ("float16", "bfloat16", "float32", "float64"):
+        raise ValueError(f"unsupported default dtype {d!r}")
+    _DEFAULT_DTYPE = name
+
+
+def get_default_dtype():
+    return _DEFAULT_DTYPE

@@ -8,7 +8,8 @@ module system (layers.py).  Eager tensors are `torch.Tensor`s.
 """
 from .base import (  # noqa: F401
     enabled, guard, no_grad, enable_grad, set_grad_enabled,
-    is_grad_enabled, in_dygraph_mode, current_place,
+    is_grad_enabled, in_dygraph_mode, in_dynamic_mode, enable_static,
+    disable_static, current_place,
 )
 from .tensor import (  # noqa: F401
     to_tensor, backward, gradient, clear_grad, clear_gradient, astype,

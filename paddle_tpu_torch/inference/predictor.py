@@ -19,8 +19,7 @@ dtype).
 
 Under PADDLE_TPU_VERIFY the program after the pipeline is self-checked
 (`static.verifier.self_check`, pass name "inference_pipeline"), as in the
-JAX Predictor.  The binary proto model format is not ported yet (ROADMAP.md
-Queue 1).  The JAX Predictor's pow2 feed bucketing
+JAX Predictor.  The JAX Predictor's pow2 feed bucketing
 bounded jit retraces; the eager executor has none to bound, so a request
 batch runs at its own size.
 """

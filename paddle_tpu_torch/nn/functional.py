@@ -11,7 +11,7 @@ for it (`linear` is `matmul_v2` then `elementwise_add`), so under
 
   * `dropout`: the identity in eval ("upscale_in_train") or a scale by
     1 - p ("downgrade_in_infer"), and the identity at p = 0.  In training
-    it is `_DropoutFn`: the forward is `ops.dropout.dropout_fwd` (the
+    it is `ops.dropout.DropoutFn`: the forward is `dropout_fwd` (the
     Philox kernel on a CUDA tensor, its plain version on a CPU one), keyed
     by `global_seed()` and `next_eager_uid()`; the backward is the
     explicit gradient from the saved Mask (`apply_mask`, as the static
@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..dygraph.tracer import amp_inputs, eager_draw_key, recording
-from ..ops.dropout import apply_mask, dropout_fwd
+from ..ops.dropout import DropoutFn as _DropoutFn
 from ..ops.kernels.nn import BatchNormFn, conv2d_forward, pool2d_forward
 
 __all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "tanh",
@@ -248,29 +248,6 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
         return _dispatch("log_softmax", {"X": x}, {"axis": int(axis)})
     (x,) = amp_inputs("log_softmax", x)
     return torch.log_softmax(x, dim=int(axis))
-
-
-class _DropoutFn(torch.autograd.Function):
-    """Dropout in training: (Out, Mask) from the Philox kernel (its plain
-    version on the CPU); the gradient is Out@GRAD through the saved Mask,
-    scaled as the forward was."""
-
-    @staticmethod
-    def forward(x, p, seed, uid, upscale):
-        return dropout_fwd(x.contiguous(), p, seed, uid, upscale)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        _, p, _, _, upscale = inputs
-        ctx.save_for_backward(output[1])
-        ctx.p, ctx.upscale = p, upscale
-        ctx.mark_non_differentiable(output[1])
-
-    @staticmethod
-    def backward(ctx, g_out, g_mask):
-        (mask,) = ctx.saved_tensors
-        return (apply_mask(g_out, mask.bool(), ctx.p, ctx.upscale),
-                None, None, None, None)
 
 
 def dropout_with_mask(x, p=0.5, training=True, mode="upscale_in_train"):

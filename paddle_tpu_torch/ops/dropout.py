@@ -32,6 +32,7 @@ import math
 import torch
 
 __all__ = ["philox4x32", "philox_draws", "keep_threshold", "scale_divisor",
+           "DropoutFn",
            "apply_mask", "dropout_plain", "dropout_cuda", "dropout_fwd"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -183,6 +184,32 @@ def dropout_fwd(x, p: float, seed, uid: int, upscale: bool):
     if x.device.type in ("cpu", "meta"):
         return dropout_plain(x, p, seed, uid, upscale)
     raise RuntimeError(f"dropout: no kernel for device {x.device}")
+
+
+class DropoutFn(torch.autograd.Function):
+    """Dropout in training: (Out, Mask) from `dropout_fwd`; the gradient
+    is Out@GRAD through the saved Mask (`apply_mask`), scaled as the
+    forward was, so nothing is drawn twice.  The dygraph `F.dropout` and
+    the `dropout` op's kernel both run it, so the op stays differentiable
+    where torch autograd replays it (a `jit.to_static` program): the
+    kernel's own output carries no autograd history."""
+
+    @staticmethod
+    def forward(x, p, seed, uid, upscale):
+        return dropout_fwd(x.contiguous(), p, seed, uid, upscale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, p, _, _, upscale = inputs
+        ctx.save_for_backward(output[1])
+        ctx.p, ctx.upscale = p, upscale
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g_out, g_mask):
+        (mask,) = ctx.saved_tensors
+        return (apply_mask(g_out, mask.bool(), ctx.p, ctx.upscale),
+                None, None, None, None)
 
 
 # launches of the Hopper kernel in this process (plain integer; callers

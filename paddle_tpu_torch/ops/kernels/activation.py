@@ -1,6 +1,9 @@
 """relu, gelu (exact (erf) by default, the tanh form when attr
 `approximate` is set), square and sqrt (the global-norm gradient clip),
-sigmoid, log, tanh and log_softmax.
+sigmoid, log, tanh and log_softmax; the unary ops of paddle.tensor's
+math functions (exp, rsqrt, ceil, floor, round, the trigonometric and
+hyperbolic ones, reciprocal, erf, log2 / log10 / log1p), pow (a scalar
+`factor`) and stanh (paddle_tpu/ops/kernels/activation.py:19-66).
 Counterpart of paddle_tpu/ops/kernels/activation.py.  relu's grad op
 reads the forward's Out (dX = dOut where Out > 0, else 0: jax.nn.relu's
 gradient, 0 at 0) instead of replaying the forward."""
@@ -58,3 +61,35 @@ def tanh(ins, attrs, ctx):
 @register_op("log_softmax", inputs=["X"], outputs=["Out"])
 def log_softmax(ins, attrs, ctx):
     return {"Out": torch.log_softmax(ins["X"], dim=int(attrs.get("axis", -1)))}
+
+
+def _act(name, fn, grad="auto"):
+    @register_op(name, inputs=["X"], outputs=["Out"], grad=grad)
+    def kernel(ins, attrs, ctx, _fn=fn):
+        return {"Out": _fn(ins["X"], attrs)}
+    return kernel
+
+
+_act("exp", lambda x, a: torch.exp(x))
+_act("rsqrt", lambda x, a: torch.rsqrt(x))
+# ceil, floor and round have no gradient in the JAX package; round is
+# numpy's (halves to even), as torch.round
+_act("ceil", lambda x, a: torch.ceil(x), grad=None)
+_act("floor", lambda x, a: torch.floor(x), grad=None)
+_act("round", lambda x, a: torch.round(x), grad=None)
+_act("sin", lambda x, a: torch.sin(x))
+_act("cos", lambda x, a: torch.cos(x))
+_act("tan", lambda x, a: torch.tan(x))
+_act("asin", lambda x, a: torch.asin(x))
+_act("acos", lambda x, a: torch.acos(x))
+_act("atan", lambda x, a: torch.atan(x))
+_act("sinh", lambda x, a: torch.sinh(x))
+_act("cosh", lambda x, a: torch.cosh(x))
+_act("reciprocal", lambda x, a: torch.reciprocal(x))
+_act("erf", lambda x, a: torch.erf(x))
+_act("log2", lambda x, a: torch.log2(x))
+_act("log10", lambda x, a: torch.log10(x))
+_act("log1p", lambda x, a: torch.log1p(x))
+_act("pow", lambda x, a: torch.pow(x, a.get("factor", 1.0)))
+_act("stanh", lambda x, a: a.get("scale_b", 1.7159) *
+     torch.tanh(a.get("scale_a", 0.67) * x))

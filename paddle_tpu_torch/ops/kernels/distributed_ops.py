@@ -42,11 +42,15 @@ _CLIENTS: Dict[Tuple[str, ...], object] = {}
 
 
 def has_host_ops(program) -> bool:
-    """True when a block of `program` holds one of HOST_OPS or a control
-    op that reads its predicate on the host (control.HOST_CONTROL_OPS):
-    no CUDA graph holds a host round-trip."""
+    """True when a block of `program` holds one of HOST_OPS, a control
+    op that reads its predicate on the host (control.HOST_CONTROL_OPS) or
+    an op whose output shape depends on the data
+    (manip.DYNAMIC_SHAPE_OPS): no CUDA graph holds a host round-trip, and
+    a captured shape would be frozen."""
     from .control import HOST_CONTROL_OPS
+    from .manip import DYNAMIC_SHAPE_OPS
     return any(op.type in HOST_OPS or op.type in HOST_CONTROL_OPS
+               or op.type in DYNAMIC_SHAPE_OPS
                for b in program.blocks for op in b.ops)
 
 

@@ -1,4 +1,4 @@
-"""elementwise_{add,sub,mul,div,max,mod,floordiv,pow} with Paddle's `axis` broadcast:
+"""elementwise_{add,sub,mul,div,max,min,mod,floordiv,pow} with Paddle's `axis` broadcast:
 Y's dims align to X's starting at `axis` (axis=-1 means numpy-style
 trailing alignment).  `elementwise_mod` is Python's (and jnp.mod's)
 modulo, the sign of the divisor, and has no gradient.
@@ -33,6 +33,7 @@ elementwise_sub = _ew("elementwise_sub", torch.sub)
 elementwise_mul = _ew("elementwise_mul", torch.mul)
 elementwise_div = _ew("elementwise_div", torch.div)
 elementwise_max = _ew("elementwise_max", torch.maximum)
+elementwise_min = _ew("elementwise_min", torch.minimum)
 elementwise_mod = _ew("elementwise_mod", torch.remainder, grad=None)
 elementwise_floordiv = _ew("elementwise_floordiv", torch.floor_divide,
                            grad=None)

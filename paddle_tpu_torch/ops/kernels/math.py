@@ -1,6 +1,9 @@
 """Math ops of the slices: matmul, matmul_v2, mul, scale, sum, mean, abs,
 and the gradient clips' clip and clip_by_norm and gradient merge's
-increment.
+increment; the ops of paddle.tensor's math and linalg functions (bmm,
+mv, dot, kron, cumsum, logsumexp, trace, tril_triu, cross, the norms,
+dist, cholesky, inverse, histogram, allclose, isfinite_v2 / isinf_v2 /
+isnan_v2, einsum, addmm, sign; paddle_tpu/ops/kernels/math.py:63-368).
 
 Counterparts of paddle_tpu/ops/kernels/math.py.  Large products go to
 torch.matmul, as the JAX package leaves them to XLA.  A float32 product
@@ -132,3 +135,196 @@ def matmul_v2(ins, attrs, ctx):
 @register_op("abs", inputs=["X"], outputs=["Out"])
 def abs_op(ins, attrs, ctx):
     return {"Out": torch.abs(ins["X"])}
+
+
+@register_op("bmm", inputs=["X", "Y"], outputs=["Out"])
+def bmm(ins, attrs, ctx):
+    return {"Out": torch.matmul(ins["X"], ins["Y"])}
+
+
+@register_op("mv", inputs=["X", "Vec"], outputs=["Out"])
+def mv(ins, attrs, ctx):
+    return {"Out": torch.matmul(ins["X"], ins["Vec"])}
+
+
+@register_op("dot", inputs=["X", "Y"], outputs=["Out"])
+def dot(ins, attrs, ctx):
+    """Row-wise dot product; the last dim kept as 1 (dot_op.cc)."""
+    return {"Out": torch.sum(ins["X"] * ins["Y"], dim=-1, keepdim=True)}
+
+
+@register_op("addmm", inputs=["Input", "X", "Y"], outputs=["Out"])
+def addmm(ins, attrs, ctx):
+    out = attrs.get("Alpha", 1.0) * torch.matmul(ins["X"], ins["Y"]) + \
+        attrs.get("Beta", 1.0) * ins["Input"]
+    return {"Out": out.to(ins["X"].dtype)}
+
+
+@register_op("kron", inputs=["X", "Y"], outputs=["Out"])
+def kron(ins, attrs, ctx):
+    return {"Out": torch.kron(ins["X"], ins["Y"])}
+
+
+@register_op("sign", inputs=["X"], outputs=["Out"], grad=None)
+def sign(ins, attrs, ctx):
+    return {"Out": torch.sign(ins["X"])}
+
+
+@register_op("cumsum", inputs=["X"], outputs=["Out"])
+def cumsum(ins, attrs, ctx):
+    x = ins["X"]
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - x
+    return {"Out": out}
+
+
+@register_op("logsumexp", inputs=["X"], outputs=["Out"])
+def logsumexp(ins, attrs, ctx):
+    x = ins["X"]
+    axis = attrs.get("axis", None) or attrs.get("dim", None)
+    keep = attrs.get("keepdim", False)
+    if attrs.get("reduce_all", False) or axis is None:
+        axis = tuple(range(x.dim()))
+    elif isinstance(axis, int):
+        axis = (axis,)
+    return {"Out": torch.logsumexp(x, dim=tuple(axis), keepdim=keep)}
+
+
+@register_op("trace", inputs=["Input"], outputs=["Out"])
+def trace(ins, attrs, ctx):
+    return {"Out": torch.diagonal(ins["Input"], attrs.get("offset", 0),
+                                  attrs.get("axis1", 0),
+                                  attrs.get("axis2", 1)).sum(-1)}
+
+
+@register_op("tril_triu", inputs=["X"], outputs=["Out"])
+def tril_triu(ins, attrs, ctx):
+    fn = torch.tril if attrs.get("lower", True) else torch.triu
+    return {"Out": fn(ins["X"], attrs.get("diagonal", 0))}
+
+
+@register_op("cholesky", inputs=["X"], outputs=["Out"])
+def cholesky(ins, attrs, ctx):
+    out = torch.linalg.cholesky(ins["X"])
+    return {"Out": out.transpose(-1, -2) if attrs.get("upper", False)
+            else out}
+
+
+@register_op("inverse", inputs=["Input"], outputs=["Output"])
+def inverse(ins, attrs, ctx):
+    return {"Output": torch.linalg.inv(ins["Input"])}
+
+
+@register_op("cross", inputs=["X", "Y"], outputs=["Out"])
+def cross(ins, attrs, ctx):
+    dim = attrs.get("dim", None)
+    if dim is None or dim == -100:  # the reference's DefaultDim sentinel
+        dim = next(i for i, s in enumerate(ins["X"].shape) if s == 3)
+    return {"Out": torch.linalg.cross(ins["X"], ins["Y"], dim=dim)}
+
+
+@register_op("dist", inputs=["X", "Y"], outputs=["Out"])
+def dist(ins, attrs, ctx):
+    """The p-norm of X - Y over all elements (inf: max |d|, -inf: min,
+    0: the count of nonzeros)."""
+    p = attrs.get("p", 2.0)
+    d = (ins["X"] - ins["Y"]).reshape(-1)
+    if p == math.inf:
+        return {"Out": torch.amax(torch.abs(d))}
+    if p == -math.inf:
+        return {"Out": torch.amin(torch.abs(d))}
+    if p == 0:
+        return {"Out": torch.sum(d != 0).to(d.dtype)}
+    return {"Out": torch.pow(torch.sum(torch.pow(torch.abs(d), p)),
+                             1.0 / p)}
+
+
+@register_op("p_norm", inputs=["X"], outputs=["Out"])
+def p_norm(ins, attrs, ctx):
+    """(sum |x|^p)^(1/p) along `axis` (over all elements when
+    `asvector`), the JAX kernel's formula."""
+    x = ins["X"]
+    p = attrs.get("porder", 2.0)
+    axis = attrs.get("axis", -1)
+    if attrs.get("asvector", False):
+        x, axis = x.reshape(-1), 0
+    return {"Out": torch.pow(torch.sum(torch.pow(torch.abs(x), p), dim=axis,
+                                       keepdim=attrs.get("keepdim", False)),
+                             1.0 / p)}
+
+
+@register_op("frobenius_norm", inputs=["X"], outputs=["Out"])
+def frobenius_norm(ins, attrs, ctx):
+    x = ins["X"]
+    axis = attrs.get("dim", None)
+    if attrs.get("reduce_all", False) or axis is None:
+        axis = tuple(range(x.dim()))
+    return {"Out": torch.sqrt(torch.sum(torch.square(x), dim=tuple(axis),
+                                        keepdim=attrs.get("keep_dim",
+                                                          False)))}
+
+
+def _infer_histogram(ins, attrs):
+    return {"Out": torch.empty((attrs.get("bins", 100),), dtype=torch.int64,
+                               device="meta")}
+
+
+@register_op("histogram", inputs=["X!"], outputs=["Out"], grad=None,
+             infer_shape=_infer_histogram)
+def histogram(ins, attrs, ctx):
+    """Counts in `bins` equal bins over [min, max] (the data's range when
+    both are 0), the last bin closed, as jnp.histogram; int64."""
+    x = ins["X"].reshape(-1)
+    bins = attrs.get("bins", 100)
+    lo, hi = attrs.get("min", 0), attrs.get("max", 0)
+    xd = x.double()
+    if lo == hi == 0:
+        lo, hi = float(xd.min()), float(xd.max())
+        if lo == hi:  # numpy widens an empty range to +-0.5
+            lo, hi = lo - 0.5, hi + 0.5
+    edges = torch.linspace(float(lo), float(hi), bins + 1,
+                           dtype=torch.float64, device=x.device)
+    idx = torch.searchsorted(edges, xd, right=True) - 1
+    idx = torch.where(xd == edges[-1], torch.full_like(idx, bins - 1), idx)
+    inside = (idx >= 0) & (idx < bins)
+    out = torch.zeros(bins, dtype=torch.int64, device=x.device)
+    out.index_add_(0, idx[inside], torch.ones_like(idx[inside]))
+    return {"Out": out}
+
+
+@register_op("allclose", inputs=["Input!", "Other!"], outputs=["Out"],
+             grad=None)
+def allclose(ins, attrs, ctx):
+    a, b = ins["Input"], ins["Other"]
+    close = torch.isclose(a, b, rtol=float(attrs.get("rtol", 1e-5)),
+                          atol=float(attrs.get("atol", 1e-8)),
+                          equal_nan=bool(attrs.get("equal_nan", False)))
+    return {"Out": torch.all(close)}
+
+
+@register_op("isfinite_v2", inputs=["X!"], outputs=["Out"], grad=None)
+def isfinite_v2(ins, attrs, ctx):
+    return {"Out": torch.isfinite(ins["X"])}
+
+
+@register_op("isinf_v2", inputs=["X!"], outputs=["Out"], grad=None)
+def isinf_v2(ins, attrs, ctx):
+    return {"Out": torch.isinf(ins["X"])}
+
+
+@register_op("isnan_v2", inputs=["X!"], outputs=["Out"], grad=None)
+def isnan_v2(ins, attrs, ctx):
+    return {"Out": torch.isnan(ins["X"])}
+
+
+@register_op("einsum", inputs=["Operands*"], outputs=["Out"])
+def einsum_op(ins, attrs, ctx):
+    return {"Out": torch.einsum(attrs["equation"], *ins["Operands"])}

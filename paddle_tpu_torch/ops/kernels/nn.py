@@ -38,7 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..dropout import apply_mask, dropout_fwd
+from ..dropout import DropoutFn, apply_mask
 from ..registry import register_op
 from ...core.selected_rows import SelectedRows
 
@@ -113,7 +113,7 @@ def dropout(ins, attrs, ctx):
             x * float(torch.tensor(1.0 - p, dtype=x.dtype))
         return {"Out": out, "Mask": torch.ones_like(x, dtype=torch.uint8)}
     seed, uid = ctx.draw_key(attrs, ins.get("Seed"))
-    out, mask = dropout_fwd(x.contiguous(), p, seed, uid, upscale)
+    out, mask = DropoutFn.apply(x, p, seed, uid, upscale)
     return {"Out": out, "Mask": mask}
 
 

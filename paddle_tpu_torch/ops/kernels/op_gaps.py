@@ -1,5 +1,6 @@
 """Ops of paddle_tpu/ops/kernels/op_gaps.py that the ported slices run:
-label_smooth (Transformer-big's smoothed one-hot target)."""
+label_smooth (Transformer-big's smoothed one-hot target) and
+get_tensor_from_selected_rows (paddle.get_tensor_from_selected_rows)."""
 from __future__ import annotations
 
 from ..registry import register_op
@@ -15,3 +16,13 @@ def label_smooth(ins, attrs, ctx):
     prior = ins.get("PriorDist")
     p = prior.reshape(1, -1) if prior is not None else 1.0 / x.shape[-1]
     return {"Out": (1.0 - eps) * x + eps * p}
+
+
+@register_op("get_tensor_from_selected_rows", inputs=["X"],
+             outputs=["Out"], grad=None)
+def get_tensor_from_selected_rows(ins, attrs, ctx):
+    """Densify a SelectedRows (rows scatter-added into [height, ...]); a
+    dense tensor passes through."""
+    from ...core.selected_rows import SelectedRows
+    x = ins["X"]
+    return {"Out": x.to_dense() if isinstance(x, SelectedRows) else x}

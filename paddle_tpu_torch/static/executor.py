@@ -64,9 +64,11 @@ place: a failed NCCL capture raises.  `run` also takes the pipeline
 (`run_steps` refuses them, as the JAX package's has no path for them);
 `run` of a transpiler's pserver program serves the KV store.  A program
 holding a parameter-server op (ops/kernels/distributed_ops.py
-`HOST_OPS`: a host round-trip no CUDA graph holds), or a `while`,
+`HOST_OPS`: a host round-trip no CUDA graph holds), a `while`,
 `cond`, `print` or `assert` (whose kernels read a device value on the
-host), runs its `run_steps` eagerly, one `run` each.  `train_from_dataset` / `infer_from_dataset`
+host), or a `masked_select`, `where_index` or `unique` (whose output
+shape depends on the data: ops/kernels/manip.py `DYNAMIC_SHAPE_OPS`),
+runs its `run_steps` eagerly, one `run` each.  `train_from_dataset` / `infer_from_dataset`
 run one pass over a dataset (distributed/dataset.py), a step a batch.
 
 Checkpointing (checkpoint/, as in the JAX package): `enable_checkpointing

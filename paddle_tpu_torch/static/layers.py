@@ -32,7 +32,8 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "logical_and", "logical_or", "logical_not", "Print",
            "While", "while_loop", "cond", "case", "switch_case", "Switch",
            "StaticRNN", "DynamicRNN", "array_write", "array_read",
-           "array_length", "create_array"]
+           "array_length", "create_array", "crop_tensor",
+           "get_tensor_from_selected_rows"]
 
 
 def _current_block():
@@ -374,16 +375,52 @@ def Print(input, first_n=-1, message=None, summarize=20,
 
 
 def assign(input, output=None):
-    """Out = input (a var; array constants need assign_value, not
-    ported)."""
-    if not isinstance(input, VarDesc):
-        raise TypeError("assign of an array constant needs assign_value, "
-                        "not ported yet")
+    """Out = input: a var through `assign`, an array constant through
+    `assign_value` (its values in the op's attrs)."""
     helper = LayerHelper("assign")
-    if output is None:
-        output = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op("assign", inputs={"X": input}, outputs={"Out": output})
+    if isinstance(input, VarDesc):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("assign", inputs={"X": input},
+                         outputs={"Out": output})
+    else:
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                str(arr.dtype))
+        helper.append_op("assign_value", outputs={"Out": output},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": str(arr.dtype),
+                                "values": arr.ravel().tolist()})
     return output
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    """fluid.layers.crop_tensor (crop_tensor_op.h)."""
+    helper = LayerHelper("crop_tensor", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": x}
+    attrs = {}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = list(shape)
+    elif shape is not None:
+        ins["Shape"] = shape
+    if isinstance(offsets, (list, tuple)):
+        attrs["offsets"] = list(offsets)
+    elif offsets is not None:
+        ins["Offsets"] = offsets
+    helper.append_op("crop_tensor", ins, {"Out": out}, attrs)
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """The dense [height, ...] tensor of a SelectedRows var (the JAX
+    package's registry-generated layer)."""
+    helper = LayerHelper("get_tensor_from_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("get_tensor_from_selected_rows", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
 
 
 def ones_like(x, out=None, name=None):

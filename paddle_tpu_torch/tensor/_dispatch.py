@@ -1,27 +1,40 @@
-"""Op recording for `jit.to_static`: the functional ops' `dispatch` and
-the tensor-operator mode.
+"""Dual-mode op dispatch for the paddle-2.0 tensor functions, and op
+recording for `jit.to_static`.
 
-Counterpart of paddle_tpu/tensor/_dispatch.py.  There one `dispatch`
-serves eager (trace_op through the kernel registry) and static mode.  The
-port's eager ops are plain torch ops and record nothing; while a
-`to_static` recorder is active (`dygraph.tracer.recording()`):
+Counterpart of paddle_tpu/tensor/_dispatch.py.  One `dispatch` serves
+every mode, resolved from the inputs as the JAX package resolves it
+(`is_eager`): a torch tensor among them runs the op eagerly, a graph
+`VarDesc` appends it to the current Program, and a function with no
+tensor input (creation, random) follows `dygraph.base.in_dygraph_mode()`
+(`enable_static` / `disable_static`).
 
-  * each functional op calls `dispatch(op_type, ins, attrs, outs)` with
-    the op the JAX package dispatches for it: `dygraph.tracer.trace_op`
-    runs the port registry's kernel and records the op;
-  * `RecordingMode`, a torch function mode active around the traced
-    function, records the tensor operators the JAX package's Tensor
-    defines (`+ - * / ** % //`, `@`, unary `-`, `abs`, the comparisons,
-    `sum` / `mean` / `max` / `min` / `prod`, `reshape`, `permute`,
-    `flatten`, `clone`, `to(dtype)`) as the JAX Tensor's methods record
-    them (a Python scalar operand becomes a 0-d constant of the tensor's
-    dtype).  Reads that concretize a value at trace time (`bool(t)`,
-    `float(t)`, `t.item()`, `t.shape`, ...) pass, as under the JAX
-    trace.  A torch function with no tensor argument (a factory) passes:
-    its result is captured as a constant where an op reads it.  Every
-    other torch operation on a tensor raises (`tracer.refuse`), naming
-    it, rather than record wrongly (indexing among them, as the JAX
-    package's `trace_jax` raises for it).
+  * static: the op is appended to `default_main_program().current_block()`
+    with one new var an output slot (`out_counts` vars for a duplicable
+    one), named `unique_name(name or "<op>.<slot>")` as in the JAX
+    package; `Block.append_op` infers their shapes;
+  * eager: `dygraph.tracer.trace_op` runs the port registry's kernel on
+    the torch tensors, after the AMP cast of the op (torch autograd is
+    the tape).  While a `to_static` recorder is active the same call
+    also records the op.  A random op takes the next eager uid for its
+    draw key (the port advances it on random ops only).
+
+The functions the dygraph training slices ported first (`add`, `scale`,
+`mean`, `matmul`, `flatten`, ...) keep their own eager path (AMP cast,
+then torch ops) and call `dispatch` under a recorder or on `VarDesc`s.
+
+`RecordingMode`, a torch function mode active around a traced function,
+records the tensor operators the JAX package's Tensor defines (`+ - * /
+** % //`, `@`, unary `-`, `abs`, the comparisons, `sum` / `mean` / `max`
+/ `min` / `prod`, `reshape`, `permute`, `flatten`, `squeeze`,
+`unsqueeze`, `clone`, `to(dtype)`) as the JAX Tensor's methods record
+them (a Python scalar operand becomes a 0-d constant of the tensor's
+dtype).  Reads that concretize a value at trace time (`bool(t)`,
+`float(t)`, `t.item()`, `t.shape`, ...) pass, as under the JAX trace.  A
+torch function with no tensor argument (a factory) passes: its result is
+captured as a constant where an op reads it.  Every other torch
+operation on a tensor raises (`tracer.refuse`), naming it, rather than
+record wrongly (indexing among them, as the JAX package's `trace_jax`
+raises for it).
 """
 from __future__ import annotations
 
@@ -30,30 +43,97 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from ..core.dtype import dtype_name
+from ..core.program import VarDesc, default_main_program, unique_name
 from ..dygraph import tracer as _tracer
+from ..dygraph.base import current_place, in_dygraph_mode
 
-__all__ = ["dispatch", "RecordingMode", "OUT"]
+__all__ = ["dispatch", "is_eager", "wrap_data", "RecordingMode", "OUT"]
 
 OUT = ("Out",)
 
+# ops that draw: each eager call takes the next eager uid
+RANDOM_OPS = frozenset((
+    "uniform_random", "gaussian_random", "truncated_gaussian_random",
+    "randint", "randperm", "bernoulli", "multinomial", "sampling_id"))
 
-def dispatch(op_type, ins, attrs=None, outs=OUT, name=None):
-    """Run and record one op (while a recorder is active)."""
-    return _tracer.trace_op(op_type, ins, attrs or {}, list(outs))
+
+def _contains(ins, klass) -> bool:
+    for v in ins.values():
+        if isinstance(v, klass):
+            return True
+        if isinstance(v, (list, tuple)) and any(
+                isinstance(t, klass) for t in v):
+            return True
+    return False
 
 
-def _const(like, value):
-    """A Python scalar operand as a 0-d tensor of `like`'s dtype (the JAX
-    Tensor's `jnp.asarray(other, dtype=self.dtype)`)."""
-    _tracer.eager_name()
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+def is_eager(ins) -> bool:
+    """Mode resolution: explicit tensor types win over the global flag, so
+    static Programs can be built from inside dygraph code and vice versa."""
+    if _contains(ins, torch.Tensor):
+        return True
+    if _contains(ins, VarDesc):
+        return False
+    return in_dygraph_mode()
+
+
+def wrap_data(x, like=None, dtype=None):
+    """Coerce a python scalar / ndarray operand to the mode-matching type,
+    matching `like`'s dtype so scalar operands don't upcast int/bf16
+    tensors through numpy's float64/int64 defaults."""
+    if isinstance(x, (torch.Tensor, VarDesc)) or x is None:
+        return x
+    if like is not None and isinstance(like, VarDesc):
+        from ..static import layers
+        return layers.assign(np.asarray(x, dtype=dtype or like.dtype))
+    if _tracer._PROGRAM_RECORDER is not None:
+        _tracer.eager_name()  # the JAX package's Tensor takes a name
+    if dtype is None and isinstance(like, torch.Tensor):
+        return torch.tensor(x, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(np.asarray(x, dtype=dtype),
+                           device=current_place().torch_device())
+
+
+def _static(op_type, ins, attrs, outs, name, out_counts):
+    from ..ops.registry import get_op_info
+    info = get_op_info(op_type)
+    block = default_main_program().current_block()
+    out_vars, results = {}, []
+    for slot in outs:
+        decl = None if info is None else next(
+            (s for s in info.outputs if s.name == slot), None)
+        dup = decl is not None and decl.duplicable
+        vs = [block.create_var(
+            name=unique_name(name or f"{op_type}.{slot.lower()}"))
+            for _ in range((out_counts or {}).get(slot, 1) if dup else 1)]
+        out_vars[slot] = vs if dup else vs[0]
+        results.append(out_vars[slot])
+    block.append_op(op_type,
+                    inputs={k: v for k, v in ins.items() if v is not None},
+                    outputs=out_vars, attrs=attrs)
+    return results[0] if len(outs) == 1 else tuple(results)
+
+
+def dispatch(op_type, ins, attrs=None, outs=OUT, name=None,
+             out_counts=None):
+    """Run (eager, recorded under a recorder) or append (static) one op;
+    the output of each slot of `outs` (one slot: the output itself).
+    out_counts: for duplicable output slots in STATIC mode, how many vars
+    to create per slot (eager mode learns the count from the kernel)."""
+    attrs = dict(attrs or {})
+    if not is_eager(ins):
+        return _static(op_type, ins, attrs, outs, name, out_counts)
+    if op_type in RANDOM_OPS:
+        from ..core.generator import next_eager_uid
+        attrs.setdefault("op_uid", next_eager_uid())
+    return _tracer.trace_op(op_type, ins, attrs, list(outs))
 
 
 def _op(type_, x, other=None, reverse=False, **attrs):
     ins = {"X": x}
     if other is not None:
         if not isinstance(other, torch.Tensor):
-            other = _const(x, other)
+            other = wrap_data(other, like=x)
         ins = {"X": other, "Y": x} if reverse else {"X": x, "Y": other}
     return dispatch(type_, ins, attrs)
 
@@ -61,7 +141,7 @@ def _op(type_, x, other=None, reverse=False, **attrs):
 def _cmp(type_):
     def f(x, other):
         if not isinstance(other, torch.Tensor):
-            other = _const(x, other)
+            other = wrap_data(other, like=x)
         return dispatch(type_, {"X": x, "Y": other})
     return f
 
@@ -82,18 +162,24 @@ def _axis_keepdim(args, kwargs):
     return axis, bool(keep)
 
 
+def reduce_attrs(axis, keepdim):
+    """The reduce ops' attrs (`dim`, `keep_dim`, `reduce_all`) for a
+    paddle axis (None: every axis)."""
+    attrs = {"keep_dim": bool(keepdim)}
+    if axis is None:
+        attrs["reduce_all"] = True
+        attrs["dim"] = [0]
+    else:
+        attrs["dim"] = [axis] if np.isscalar(axis) else list(axis)
+    return attrs
+
+
 def _reduce(type_):
     def f(x, *args, **kwargs):
         if kwargs.get("dtype") is not None:
             _tracer.refuse(f"{type_} with a dtype")
         axis, keep = _axis_keepdim(args, kwargs)
-        attrs = {"keep_dim": keep}
-        if axis is None:
-            attrs["reduce_all"] = True
-            attrs["dim"] = [0]
-        else:
-            attrs["dim"] = [axis] if isinstance(axis, int) else list(axis)
-        return dispatch(type_, {"X": x}, attrs)
+        return dispatch(type_, {"X": x}, reduce_attrs(axis, keep))
     return f
 
 
@@ -118,6 +204,24 @@ def _flatten(x, start_dim=0, end_dim=-1):
     n = len(shape)
     new = shape[:start_dim % n] + [-1] + shape[end_dim % n + 1:]
     return _reshape(x, new)
+
+
+def _axes_arg(args, kwargs, key):
+    axis = args[0] if args else kwargs.get(key, kwargs.get("axis"))
+    if axis is None:
+        return []
+    return [int(a) for a in axis] if isinstance(axis, (list, tuple)) \
+        else [int(axis)]
+
+
+def _squeeze(x, *args, **kwargs):
+    return dispatch("squeeze2", {"X": x},
+                    {"axes": _axes_arg(args, kwargs, "dim")})
+
+
+def _unsqueeze(x, *args, **kwargs):
+    return dispatch("unsqueeze2", {"X": x},
+                    {"axes": _axes_arg(args, kwargs, "dim")})
 
 
 def _to(x, *args, **kwargs):
@@ -200,6 +304,8 @@ _SUGAR = {
     "view": _reshape,
     "permute": _permute,
     "flatten": _flatten,
+    "squeeze": _squeeze,
+    "unsqueeze": _unsqueeze,
     "clone": lambda x, *a, **k: dispatch("assign", {"X": x}),
     "to": _to,
     "float": _cast_to(torch.float32),

@@ -13,7 +13,11 @@ CPU one, the paged KV pool and the generation engine on the card, a training ste
 `run()` steps (sparse SGD and lazy Adam too), the dropout kernel (csrc/dropout_philox.cu) against
 its plain version, bit for bit, alone and replayed in a captured step,
 the random kernel (csrc/philox_random.cu) against its plain version
-(uniform bit for bit, normal within 4 ulps) and under run_steps,
+(uniform bit for bit, normal within 4 ulps) and under run_steps, its
+truncated-normal (within 4 ulps), integer and Bernoulli draws (bit for
+bit) and the randperm / multinomial built on them, and the paddle.tensor
+ops whose orders a CUDA library leaves open (top_k_v2's ties and NaNs,
+argsort's NaNs, unique's first occurrences) against their CPU results,
 and the dygraph training path: backward through the flash kernels from a
 MultiHeadAttention (fp32 and bf16, D = 64) against the same module on the
 CPU, F.cross_entropy through the fused kernel and its gradient against
@@ -2027,3 +2031,137 @@ def test_hoisted_run_steps_matches_unhoisted_on_the_card(monkeypatch):
     assert sorted(hs) == sorted(us)
     for n in hs:
         assert torch.equal(hs[n], us[n]), n
+
+
+@pytest.mark.parametrize("n", [30522 * 768, 4096, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_philox_truncated_normal_matches_plain_version(n, dtype):
+    """The truncated normal within 4 ulps of the plain version (the
+    card's erfinvf against float64), inside [mean - 2 std, mean + 2
+    std]."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import random as trandom
+    seed_t = torch.tensor([24680], dtype=torch.int64, device="cuda")
+    before = trandom.random_cuda.launches_by_dist[trandom.TRUNC_NORMAL]
+    got = trandom.truncated_normal((n,), dtype, 0.5, 0.02, seed_t, 9,
+                                   "cuda")
+    assert trandom.random_cuda.launches_by_dist[trandom.TRUNC_NORMAL] == \
+        before + 1
+    want = trandom.random_plain((n,), dtype, trandom.TRUNC_NORMAL, 0.5, 0.02,
+                                seed_t.cpu(), 9)
+    got = got.cpu()
+    ulp = torch.finfo(dtype).eps * torch.maximum(want.float().abs(),
+                                                 torch.tensor(0.02))
+    assert ((got.float() - want.float()).abs() <= 4 * ulp).all()
+    assert got.float().min() >= 0.46 - 1e-2 and got.float().max() <= 0.54 + \
+        1e-2
+
+
+@pytest.mark.parametrize("low,high", [(0, 30522), (-5, 5), (0, 1 << 32),
+                                      (-(1 << 40), 1 << 40)])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_philox_randint_matches_plain_version(low, high, dtype):
+    _need_cuda()
+    from paddle_tpu_torch.ops import random as trandom
+    if dtype == torch.int32 and high > (1 << 31):
+        pytest.skip("int32 holds no such range")
+    for seed in (torch.tensor([13579], dtype=torch.int64, device="cuda"),
+                 77):
+        before = trandom.randint_cuda.launches
+        got = trandom.randint_draw((8, 513), dtype, low, high, seed, 4,
+                                   "cuda")
+        assert trandom.randint_cuda.launches == before + 1
+        want = trandom.randint_plain((8, 513), dtype, low, high,
+                                     seed.cpu() if torch.is_tensor(seed)
+                                     else seed, 4)
+        assert torch.equal(got.cpu(), want)
+        assert int(want.min()) >= low and int(want.max()) < high
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_philox_bernoulli_matches_plain_version(dtype):
+    _need_cuda()
+    from paddle_tpu_torch.ops import random as trandom
+    g = torch.Generator().manual_seed(0)
+    p = torch.rand(8, 515, generator=g).to(dtype)
+    seed_t = torch.tensor([11], dtype=torch.int64, device="cuda")
+    before = trandom.bernoulli_cuda.launches
+    got = trandom.bernoulli_draw(p.cuda(), seed_t, 21)
+    assert trandom.bernoulli_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), trandom.bernoulli_plain(p, seed_t.cpu(),
+                                                          21))
+    # an odd-offset view reads element by element
+    got = trandom.bernoulli_cuda(p.cuda()[:, 1:], seed_t, 21)
+    assert torch.equal(got.cpu(), trandom.bernoulli_plain(p[:, 1:],
+                                                          seed_t.cpu(), 21))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        trandom.bernoulli_cuda(p.double().cuda(), seed_t, 21)
+
+
+def test_philox_randperm_and_multinomial_on_the_card():
+    """randperm and multinomial from the kernels' draws equal their CPU
+    runs (the same words; the sort and the argmax are torch's)."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import random as trandom
+    perm = trandom.randperm(30522, torch.int64, 5, 3, "cuda")
+    assert torch.equal(perm.cpu(), trandom.randperm(30522, torch.int64, 5,
+                                                    3, "cpu"))
+    assert torch.equal(perm.sort().values.cpu(), torch.arange(30522))
+    probs = torch.tensor([[0.1, 0.2, 0.7], [0.5, 0.5, 0.0]])
+    got = trandom.categorical(torch.log(probs.cuda() + 1e-12), 64, 8, 2,
+                              "cuda")
+    want = trandom.categorical(torch.log(probs + 1e-12), 64, 8, 2, "cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_tensor_orders_on_the_card_match_the_cpu():
+    """top_k_v2 (ties to the lower index, XLA's total order over NaNs and
+    signed zeros), argsort (stable, NaNs last), arg_max and unique (first
+    occurrences) give the same results on the card as on the CPU."""
+    _need_cuda()
+    from paddle_tpu_torch.core.place import CPUPlace
+    from paddle_tpu_torch.dygraph import guard
+    import paddle_tpu_torch.tensor as T
+    nan = float("nan")
+    base = torch.tensor([[1.0, nan, 3.0, 3.0, 2.0, -nan, 0.0, -0.0],
+                         [2.0, 2.0, 2.0, 1.0, 1.0, 5.0, 5.0, 0.0]])
+    g = torch.Generator().manual_seed(1)
+    ties = torch.randint(0, 4, (16, 300), generator=g).float()
+    for x in (base, ties):
+        with guard(CPUPlace()):
+            want = [*T.topk(x, 5), *T.topk(x, 3, -1, False), T.argsort(x),
+                    T.argsort(x, -1, True), T.argmax(x, 1), T.argmin(x, 1),
+                    *T.unique(x, True, True, True)]
+        xc = x.cuda()
+        got = [*T.topk(xc, 5), *T.topk(xc, 3, -1, False), T.argsort(xc),
+               T.argsort(xc, -1, True), T.argmax(xc, 1), T.argmin(xc, 1),
+               *T.unique(xc, True, True, True)]
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b) or (
+                a.is_floating_point() and torch.allclose(
+                    a.cpu(), b, equal_nan=True)), (a, b)
+
+
+def test_to_static_replay_with_dropout_reaches_every_parameter():
+    """A recorded encoder with hidden dropout replayed on the card: every
+    parameter gets a gradient (the dropout op's kernel is an autograd
+    Function), and the replayed loss equals the eager one for the same
+    draw."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn as tnn
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.core.place import CUDAPlace
+    from paddle_tpu_torch.dygraph import guard
+    with guard(CUDAPlace(0)):
+        pt.seed(4)
+        net = tnn.TransformerEncoderLayer(64, 4, 256, dropout=0.1)
+        net.train()
+        x = torch.randn(2, 16, 64, generator=torch.Generator().manual_seed(
+            0)).cuda()
+        sf = jit.StaticFunction(net.forward, layer=net)
+        sf(x).sum().backward()
+        missing = [n for n, p in net.named_parameters() if p.grad is None]
+        assert not missing, missing
