@@ -21,7 +21,9 @@ and serve GPT /generate tp-sharded, train with sequence parallelism
 gradient-merge window with its commit hoisted, and train it elastically:
 killed, shrunk and regrown through checkpoints, bitwise, and train it
 cut into pipeline stages, and train PaddleRec's CTR-DNN on a launched
-parameter-server job and split into heterogeneous CPU / device sections.
+parameter-server job and split into heterogeneous CPU / device sections,
+and train Transformer-big, VGG-16 and MobileNet-V2 in dygraph with the
+convolution, pooling and norm tier held against the CPU.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -637,6 +639,34 @@ is present.  Phases:
                randint and Bernoulli at [8, 512] against their plain
                versions; device ms, plain ms, the library call's ms
                (trunc_normal_, randint, bernoulli), the byte bound.
+ 21. vision_seq2seq - (a) models.transformer.transformer_big (d_model
+               1024, 16 heads, 6 + 6 layers, d_inner 4096, one shared
+               32000 vocabulary) in dygraph, fp32, batch 16 x 256 source
+               and target tokens: (1) as published (dropout 0.3: every
+               attention on the score matrix), Adam, a warm-up and 3
+               timed steps (ms, target tokens/s, peak memory; launches a
+               step: no flash, 62 dropout); (2) dropout 0, flash forced on,
+               one SGD step with the kernels (the encoder self-attention
+               and decoder cross-attention: flash 12 / 12 / 12, fp32)
+               against the same step through the plain versions (loss
+               1e-4, update gap 1e-2, each flash attention's q / k / v
+               projection 0.1) and two planted faults above their gates
+               (the encoder's gradients zeroed; one dQ kernel's output
+               zeroed); (3) beam_search, beam 4,
+               2 source rows, 16 target tokens, flash on and off: tokens
+               equal or parted at a beam choice within NEAR_TIE.  (b)
+               vision.models.vgg16() and mobilenet_v2() at 224 x 224,
+               1000 classes, batch 32, fp32, Momentum: a warm-up and 3
+               timed steps (ms, images/s), a batch-2 forward against the
+               CPU (1e-4 normalised).  (c) every op type of the slice and
+               its grad op on CUDA and on the CPU (fp32 1e-5 normalised,
+               bf16 2e-2 for the AMP-white convolutions), and every new
+               dygraph layer (forward and gradients, 1e-5).  (d) runs in
+               phase 13: nn.SyncBatchNorm and BuildStrategy.sync_batch_
+               norm on its 2 gloo ranks against one process over the
+               global batch (Y, dX, running stats, the program's state
+               after a step; 1e-5; the ranks' running stats bitwise
+               equal), and SyncBatchNorm under NCCL at world 1.
 
 `--profile` adds one torch.profiler window around a Predictor.run of
 the served batch and one around a step of each training configuration
@@ -677,7 +707,9 @@ stage's; (b) and (c) launch no hand kernel), and phase 18's
 row's dtype), and phase 19's (`phase19_launches`: each fit step of (a)
 and each jit fit step of (b), measured, in the row's dtype), and phase
 20's (`phase20_launches`: each step of (a) and each jit step of (b), in
-the row's dtype); then the rows of the three new Philox distributions
+the row's dtype), and phase 21's (`phase21_launches`: a step of (a) 1,
+the step of (a) 2, (a) 3's beam search, a step of each (b) model); then
+the rows of the three new Philox distributions
 (truncated normal, randint, Bernoulli: times from phase 20 (d), launches
 over phase 20 (a)'s path);
 every phase's seconds on a line of its own ({"phase_seconds": ...});
@@ -685,8 +717,10 @@ the last line
 {"ok": true, "device": {...}}.
 """
 import argparse
+import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2650,7 +2684,8 @@ DYGRAPH_DROPOUTS = 1 + 2 * DYGRAPH_LAYERS
 # phases 13-14, phase 15's hoist (on phase 14's program) and sp LM, and
 # phase 16 train BERT-base cut to DIST_LAYERS layers, widths unchanged,
 # so that the whole run keeps inside its time limit (at 4 layers a slow
-# call read 1,233 s with phase 20 added)
+# call read 1,233 s with phase 20 added; at 1 layer phases 13-16 read
+# 13 s less in all, within a call's spread, so they stay at 2)
 DIST_LAYERS = 2
 
 
@@ -3921,13 +3956,17 @@ def remainders_phase(torch, attn, seed, tmp, gen):
 # gradients, graph-safe random ops, static O2)
 BREADTH_STEPS = 4       # eager steps; run_steps calls of K = 4
 BREADTH_K = 4
-# (b)'s optimizer sweep trains the bench program at 2 layers (widths
+# (b)'s optimizer sweep trains the bench program at 1 layer (widths
 # unchanged): eleven optimizers, each with a program build, a startup and
 # a captured run_steps call, are most of the phase, so its depth is cut
 # to keep the script inside its time limit.  Its gate (the replayed losses equal the eager ones, else
 # within BREADTH_RTOL) is shown to fail on a planted fault at that depth:
 # the replay fed step 2's labels rolled by one token
-BREADTH_OPT_LAYERS = 2
+BREADTH_OPT_LAYERS = 1  # 2 before phase 21
+# (a)'s dropout variant (recompute against plain, bitwise) at 4 layers
+# (12 before phase 21; with the sweep at 1 layer the phase read 92.5 s
+# against 101.6 s, NVIDIA H100 80GB HBM3, 700 W)
+BREADTH_RECIPE_LAYERS = 4
 BREADTH_RTOL = 2e-3
 BREADTH_TIMED_CALLS = 2  # recompute: run_steps calls timed after the capture
 BREADTH_RECIPE_STEPS = 2  # the dropout variant, with and without recompute
@@ -4316,17 +4355,20 @@ def breadth_recompute(torch, static, attn, dr, fx, rnd, seed, feed):
 
 def breadth_recompute_dropout(torch, static, dr, rnd, seed, feed):
     """Phase 8's recipe with attention dropout 0.1 (gradient merge k = 2
-    included), with and without FLAGS_recompute="always": the same
+    included) at BREADTH_RECIPE_LAYERS layers (widths unchanged), with
+    and without FLAGS_recompute="always": the same
     losses to the last bit from the same weights and step seeds (a
     replayed dropout redraws its mask)."""
     from paddle_tpu_torch.core.flags import set_flags
     from paddle_tpu_torch.core.program import _reset_unique_names
     _reset_unique_names()
-    main_p, startup, loss_p, sched_p, _ = build_recipe(0.1)
+    main_p, startup, loss_p, sched_p, _ = build_recipe(
+        0.1, layers_n=BREADTH_RECIPE_LAYERS)
     set_flags({"recompute": "always"})
     try:
         _reset_unique_names()
-        main_r, _, loss_r, sched_r, _ = build_recipe(0.1)
+        main_r, _, loss_r, sched_r, _ = build_recipe(
+            0.1, layers_n=BREADTH_RECIPE_LAYERS)
     finally:
         set_flags({"recompute": ""})
     init, _, _ = startup_weights(torch, static, rnd, startup, seed)
@@ -5128,6 +5170,9 @@ def dp_rank(seed, out_dir):
         res["static"] = dp_static_rank(torch, seed, env.rank, out_dir)
         torch.cuda.empty_cache()
         res["dygraph"] = dp_dygraph_rank(torch, seed, env.rank, out_dir)
+        torch.cuda.empty_cache()
+        res["sync_bn"] = dp_sync_bn_rank(torch, seed, env.rank,
+                                         env.world_size, out_dir)
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{env.rank}.json"), "w") as f:
@@ -5343,14 +5388,15 @@ def dp_dygraph_run(torch, seed, batch, counters, hidden_dropout,
     return rec, {k: p.detach().cpu() for k, p in net.named_parameters()}
 
 
-def dp_update_gap(torch, before, got, want):
+def dp_update_gap(torch, before, got, want, device="cpu"):
     """||(got - before) - (want - before)|| / ||want - before|| over every
-    tensor of `want`, and the largest elementwise difference."""
+    tensor of `want`, and the largest elementwise difference, computed in
+    float64 on `device`."""
     num = den = 0.0
     worst = 0.0
     for n, w in want.items():
-        b = before[n].double().cpu()
-        g, w = got[n].double().cpu(), w.double().cpu()
+        b = before[n].to(device, torch.float64)
+        g, w = got[n].to(device, torch.float64), w.to(device, torch.float64)
         num += float(((g - b) - (w - b)).pow(2).sum())
         den += float((w - b).pow(2).sum())
         worst = max(worst, float((g - w).abs().max()))
@@ -5439,6 +5485,7 @@ def dp_phase(torch, seed):
         static_rec = dp_static_check(torch, static, fx, rnd, seed, tmp,
                                      ranks)
         dygraph_rec = dp_dygraph_check(torch, attn, fx, seed, tmp, ranks)
+        sync_bn_rec = dp_sync_bn_check(torch, seed, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     nccl, nccl_launches = dp_nccl(torch, static, attn, dr, fx, rnd, seed)
@@ -5452,6 +5499,7 @@ def dp_phase(torch, seed):
         r0["dygraph"][run]) for run, _ in DP_DYGRAPH_RUNS})
     launches.update(nccl_launches)
     return {"static": static_rec, "dygraph": dygraph_rec, "nccl": nccl,
+            "sync_bn": {"gloo": sync_bn_rec, "nccl": nccl["sync_bn"]},
             "launches": launches}
 
 
@@ -5599,11 +5647,15 @@ def dp_nccl(torch, static, attn, dr, fx, rnd, seed):
         api = dp_api(torch, CARD)
         log({"phase": "dp_api", "backend": "nccl", "ranks": 1,
              "device": CARD, "cases": api})
+        sync_bn = dp_nccl_sync_bn(torch, seed)
         fx.enable_fused_xent(True)
         try:
-            return dp_nccl_steps(torch, static, attn, dr, fx, rnd, seed)
+            rec, launches = dp_nccl_steps(torch, static, attn, dr, fx, rnd,
+                                          seed)
         finally:
             fx.enable_fused_xent(False)
+        rec["sync_bn"] = sync_bn
+        return rec, launches
     finally:
         tdist.destroy_process_group()
 
@@ -10481,6 +10533,972 @@ def tensor_phase(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: vision and seq2seq
+# ---------------------------------------------------------------------------
+PH21_STEPS = 3            # (a) 1 and (b): timed steps after one warm-up
+PH21_LOSS_RTOL = 1e-4     # (a) 2: the kernels' loss against the plain one
+# (a) 2: the SGD update gap (dp_update_gap) of the kernels' step against
+# the plain versions' step, over nn.Transformer's parameters and over each
+# q / k / v projection weight of the flash attentions (the leaves the dQ
+# and dK/dV kernels' outputs feed).  Both steps are deterministic: 1.115e-3
+# and 2.58e-3 at the largest leaf (NVIDIA H100 80GB HBM3, 700 W; each fp32
+# step is ~1.7e-3 from a float64 step), against 2.9e-3 / 1 with one dQ
+# launch's output zeroed and 5.4e-3 / 1.005e-2 with one dK/dV launch's
+# outputs scaled by 1.01
+PH21_UPDATE_TOL = 2e-3
+PH21_LEAF_TOL = 5e-3
+PH21_LEAF = re.compile(r"^transformer\.(encoder\.layers\.\d+\.self_attn|"
+                       r"decoder\.layers\.\d+\.cross_attn)\."
+                       r"[qkv]_proj\.weight$")
+PH21_LR = 0.1             # (a) 2's SGD learning rate
+PH21_BEAM = dict(beam=4, rows=2, tokens=16)
+PH21_VISION = dict(batch=32, img=224, classes=1000, lr=0.01)
+PH21_FWD_RTOL = 1e-4      # (b) a batch-2 forward on the card vs the CPU
+PH21_OP_TOL = 1e-5        # (c) fp32, CUDA against CPU, normalised max error
+PH21_BF16_TOL = 2e-2      # (c) bf16 (the AMP-white convolutions)
+PH21_PATHS = ("ph21_transformer_big", "ph21_transformer_flash",
+              "ph21_beam_search", "ph21_vgg16", "ph21_mobilenet_v2")
+# every hand kernel a phase 21 path may launch: phase 20's nine
+PH21_COUNTED = DP_COUNTED + PH20_KERNELS
+# dropouts of one transformer_big forward in training: the two positional
+# encodings; a layer's attention-weight dropouts (1 in the encoder, 2 in
+# the decoder) and its residual and activation ones (3 / 4)
+PH21_TRANSFORMER_DROPOUTS = 2 + TRANSFORMER_BIG["n_layers"] * (4 + 6)
+
+
+def ph21_zero(counters):
+    """Every phase 21 count (ph20_counters) set to 0."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import random as rnd
+    ph20_zero(attn, counters, rnd)
+
+
+def ph21_path(attn, counters, path, fn):
+    """fn() as one main path: every count set to 0 just before, read
+    just after; the path's launches and the head-dim-above-128 ones."""
+    ph21_zero(counters)
+    out = fn()
+    launches, by_dtype = dp_read(counters)
+    record_wide(path, read_wide(attn))
+    return out, {"launches": launches, "by_dtype": by_dtype}
+
+
+def ph21_timed(torch, step, counters):
+    """PH21_STEPS calls of step(), each timed to the card's end: (ms,
+    losses, the hand-kernel launches of each)."""
+    ms, losses, per_step = [], [], []
+    for _ in range(PH21_STEPS):
+        before = dp_read(counters)[0]
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = dp_read(counters)[0]
+        per_step.append({k: after[k] - before[k] for k in after})
+    return ms, losses, per_step
+
+
+def ph21_transformer_batch(torch, seed):
+    rng = np.random.RandomState(seed)
+    b, v = TRANSFORMER_BATCH, TRANSFORMER_BIG["vocab"]
+    return tuple(torch.from_numpy(a).cuda() for a in (
+        rng.randint(2, v, (b, TRANSFORMER_BIG["src_len"])).astype(np.int64),
+        rng.randint(2, v, (b, TRANSFORMER_BIG["trg_len"])).astype(np.int64),
+        rng.randint(2, v, (b, TRANSFORMER_BIG["trg_len"])).astype(np.int64)))
+
+
+def ph21_transformer_model(seed, dropout=None):
+    """models.transformer.transformer_big at its published widths (d_model
+    1024, 16 heads, 6 + 6 layers, d_inner 4096, dropout 0.3, one shared
+    32000 vocabulary), weights from `seed`, on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.models import transformer as tr
+    _reset_unique_names()
+    paddle.seed(seed)
+    kw = {} if dropout is None else {"dropout": dropout}
+    model = tr.transformer_big(src_vocab_size=TRANSFORMER_BIG["vocab"],
+                               trg_vocab_size=TRANSFORMER_BIG["vocab"],
+                               max_length=max(TRANSFORMER_BIG["src_len"],
+                                              TRANSFORMER_BIG["trg_len"]),
+                               **kw)
+    cfg = model.config
+    if (cfg.d_model, cfg.n_head, cfg.num_encoder_layers, cfg.d_inner_hid) \
+            != (TRANSFORMER_BIG["d_model"], TRANSFORMER_BIG["heads"],
+                TRANSFORMER_BIG["n_layers"], TRANSFORMER_BIG["d_inner"]):
+        raise AssertionError("transformer_big is not Transformer-big")
+    return model, tr.CrossEntropyCriterion(0.1)
+
+
+def ph21_published(torch, attn, counters, seed):
+    """(a) 1: transformer_big as published (dropout 0.3, attention dropout
+    on, so every attention takes the score matrix), Adam 1e-4, one
+    warm-up step then PH21_STEPS timed: ms a step, target tokens/s, peak
+    memory; launches a step: no flash, PH21_TRANSFORMER_DROPOUTS dropout
+    kernels."""
+    from paddle_tpu_torch import optimizer
+    model, crit = ph21_transformer_model(seed)
+    src, trg, lbl = ph21_transformer_batch(torch, seed)
+    opt = optimizer.Adam(1e-4, parameters=model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    model.train()
+
+    def step():
+        loss = crit(model(src, trg), lbl)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    losses = [step()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    (ms, more, per_step), launches = ph21_path(
+        attn, counters, "ph21_transformer_big",
+        lambda: ph21_timed(torch, step, counters))
+    losses += more
+    want = dict.fromkeys(PH21_COUNTED, 0)
+    want["dropout_philox"] = PH21_TRANSFORMER_DROPOUTS
+    check_equal("ph21 (a) 1 launches a step", per_step, [want] * PH21_STEPS)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ph21 (a) 1 losses {losses}")
+    tokens = TRANSFORMER_BATCH * TRANSFORMER_BIG["trg_len"]
+    med = float(np.median(ms))
+    out = {"losses": losses, "step_ms": ms, "median_step_ms": med,
+           "target_tokens_per_s": tokens / med * 1e3,
+           "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params": int(n_params), "launches_per_step": per_step,
+           **launches}
+    log({"phase": "ph21_transformer_big", **{k: v for k, v in out.items()
+                                             if k != "by_dtype"}})
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ph21_flash_step(torch, attn, counters, seed):
+    """(a) 2: dropout 0, flash forced on (the encoder self-attention and
+    the decoder cross-attention take the flash forward, dQ and dK/dV
+    kernels; the decoder self-attention its causal mask's score matrix),
+    one SGD step with the kernels, the same step from the same weights
+    through the plain versions (flash off: the score matrix), the plain
+    step in float64 (a yardstick for both fp32 steps), and three planted
+    faults in the kernels' step: the encoder's gradients zeroed, the first
+    dQ launch's output zeroed and the first dK/dV launch's outputs scaled
+    by 1.01 (kernel faults in one layer).  Gates: 12 / 12 / 12 launches,
+    fp32, the loss within PH21_LOSS_RTOL; the update gap of
+    nn.Transformer's parameters (the tied embedding's update, which the
+    logits' gradient dominates, left out) within PH21_UPDATE_TOL and the
+    largest update gap of a PH21_LEAF projection within PH21_LEAF_TOL,
+    each fault's above both; the gaps in float64 on the card."""
+    from paddle_tpu_torch import optimizer
+    model, crit = ph21_transformer_model(seed, dropout=0.0)
+    src, trg, lbl = ph21_transformer_batch(torch, seed)
+    base = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    real_bwd = attn.flash_attention_bwd
+
+    def first_bwd(fault):
+        """flash_attention_bwd with `fault` applied to the first call's
+        (dq, dk, dv): the kernels still launch, one layer's output is
+        wrong."""
+        calls = []
+
+        def bwd(*a, **k):
+            out = real_bwd(*a, **k)
+            calls.append(1)
+            return fault(*out) if len(calls) == 1 else out
+        return bwd
+
+    def one_step(flash, fault=None, net=model):
+        net.set_state_dict(base)
+        opt = optimizer.SGD(PH21_LR, parameters=net.parameters())
+        attn.enable_flash_attention(flash)
+        if fault not in (None, "encoder"):
+            attn.flash_attention_bwd = first_bwd(fault)
+        try:
+            loss = crit(net(src, trg), lbl)
+            loss.backward()
+            if fault == "encoder":
+                for p in net.transformer.encoder.parameters():
+                    p.grad.zero_()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+        finally:
+            attn._FLASH_STATE["mode"] = "auto"
+            attn.flash_attention_bwd = real_bwd
+        return float(loss.detach()), {k: v.detach().clone()
+                                      for k, v in net.state_dict().items()}
+
+    (k_loss, k_state), launches = ph21_path(
+        attn, counters, "ph21_transformer_flash", lambda: one_step(True))
+    ph21_zero(counters)
+    p_loss, p_state = one_step(False)
+    plain_launches = dp_read(counters)[0]
+    faults = {
+        "encoder_grads_zeroed": one_step(True, "encoder")[1],
+        "first_dq_zeroed": one_step(
+            True, lambda dq, dk, dv: (torch.zeros_like(dq), dk, dv))[1],
+        "first_dkv_scaled_1.01": one_step(
+            True, lambda dq, dk, dv: (dq, dk * 1.01, dv * 1.01))[1]}
+    net64 = copy.deepcopy(model).double()
+    d_loss, d_state = one_step(False, net=net64)
+    del net64
+    torch.cuda.empty_cache()
+    n = TRANSFORMER_BIG["n_layers"]
+    want = dict.fromkeys(PH21_COUNTED, 0)
+    want.update(flash_attn_fwd=2 * n, flash_attn_bwd_dq=2 * n,
+                flash_attn_bwd_dkv=2 * n)
+    check_equal("ph21 (a) 2 launches a step", launches["launches"], want)
+    check_equal("ph21 (a) 2 launches by dtype", launches["by_dtype"],
+                {k: ({"float32": want[k]} if want[k] else {})
+                 for k in DP_KERNELS})
+    check_equal("ph21 (a) 2 plain launches", plain_launches,
+                dict.fromkeys(PH21_COUNTED, 0))
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    want_state = {k: v for k, v in p_state.items()
+                  if k.startswith("transformer.")}
+    leaves = [k for k in want_state if PH21_LEAF.match(k)]
+    if len(leaves) != 3 * 2 * n:
+        raise AssertionError(f"ph21 (a) 2: {len(leaves)} projection leaves")
+
+    def gaps(state):
+        """`state`'s update gap over want_state against the plain step,
+        its largest elementwise difference, and the largest gap of a
+        PH21_LEAF projection."""
+        by_leaf = {k: dp_update_gap(torch, {k: base[k]}, {k: state[k]},
+                                    {k: want_state[k]}, "cuda")[0]
+                   for k in leaves}
+        top = max(by_leaf, key=by_leaf.get)
+        gap, worst = dp_update_gap(torch, base, state, want_state, "cuda")
+        return {"update_gap": gap, "update_max_abs_diff": worst,
+                "leaf_gap": by_leaf[top], "leaf": top}
+
+    sound = gaps(k_state)
+    gap, leaf_gap = sound["update_gap"], sound["leaf_gap"]
+    fault_gaps = {tag: gaps(st) for tag, st in faults.items()}
+    f64_state = {k: v for k, v in d_state.items() if k in want_state}
+    f64_gaps = {tag: dp_update_gap(torch, base, st, f64_state, "cuda")[0]
+                for tag, st in (("kernels", k_state), ("plain", p_state))}
+    if not loss_err <= PH21_LOSS_RTOL:
+        raise AssertionError(f"ph21 (a) 2 loss {k_loss} vs plain {p_loss}")
+    if not (gap <= PH21_UPDATE_TOL and leaf_gap <= PH21_LEAF_TOL):
+        raise AssertionError(f"ph21 (a) 2 update gap {gap}, leaf gap "
+                             f"{leaf_gap} ({sound['leaf']}); gates "
+                             f"{PH21_UPDATE_TOL} / {PH21_LEAF_TOL}")
+    for tag, f in fault_gaps.items():
+        if not (f["update_gap"] > PH21_UPDATE_TOL
+                and f["leaf_gap"] > PH21_LEAF_TOL):
+            raise AssertionError(f"ph21 (a) 2 planted fault {tag} within a "
+                                 f"gate: {f}")
+    out = {"loss": k_loss, "plain_loss": p_loss, "loss_rel_err": loss_err,
+           **sound, "faults": fault_gaps,
+           "float64_loss": d_loss, "update_gap_to_float64": f64_gaps,
+           **launches}
+    log({"phase": "ph21_transformer_flash", **{
+        k: v for k, v in out.items() if k != "by_dtype"}})
+    del model, base, k_state, p_state, faults, d_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ph21_beam(torch, attn, counters, seed):
+    """(a) 3: beam_search (beam 4, 2 source rows of 256 tokens, 16 target
+    tokens) with flash forced on (the kernels' forward on the
+    encoder and each step's cross-attention: Sq = 1..16 against Sk =
+    256), and again with flash off (the plain versions).  The tokens must
+    be equal, or part only where the step's fp32 beam choice had a margin
+    under NEAR_TIE (the kernels' run recorded by the beam_search op's
+    inputs)."""
+    from paddle_tpu_torch.ops import registry
+    model, _ = ph21_transformer_model(seed, dropout=0.0)
+    model.eval()
+    src = ph21_transformer_batch(torch, seed + 1)[0][:PH21_BEAM["rows"]]
+    real_run = registry.run_kernel
+
+    def run(flash):
+        seen = []
+
+        def spy(op, ins, attrs, ctx):
+            if op == "beam_search":
+                seen.append((ins["pre_scores"].clone(),
+                             ins["scores"].clone()))
+            return real_run(op, ins, attrs, ctx)
+
+        attn.enable_flash_attention(flash)
+        registry.run_kernel = spy
+        try:
+            t0 = time.perf_counter()
+            toks = model.beam_search(src, beam_size=PH21_BEAM["beam"],
+                                     max_len=PH21_BEAM["tokens"] + 1)
+            secs = time.perf_counter() - t0
+        finally:
+            registry.run_kernel = real_run
+            attn._FLASH_STATE["mode"] = "auto"
+        return toks, seen, secs
+
+    (k_toks, k_seen, k_s), launches = ph21_path(
+        attn, counters, "ph21_beam_search", lambda: run(True))
+    ph21_zero(counters)
+    p_toks, p_seen, p_s = run(False)
+    plain_launches = dp_read(counters)[0]
+    steps = len(k_seen)
+    n = TRANSFORMER_BIG["n_layers"]
+    # the encoder once, then each step's decoder: one forward a layer
+    want = dict.fromkeys(PH21_COUNTED, 0)
+    want["flash_attn_fwd"] = n + n * steps
+    check_equal("ph21 (a) 3 launches", launches["launches"], want)
+    check_equal("ph21 (a) 3 plain launches", plain_launches,
+                dict.fromkeys(PH21_COUNTED, 0))
+    diverged = []
+    if not np.array_equal(k_toks, p_toks):
+        W = PH21_BEAM["beam"]
+        for step, ((pre, sc), (_, psc)) in enumerate(zip(k_seen, p_seen)):
+            if torch.equal(sc, psc):
+                continue
+            cand = (pre + sc).float().reshape(PH21_BEAM["rows"], -1) \
+                if step else sc.float().reshape(PH21_BEAM["rows"], W,
+                                                -1)[:, 0]
+            top = torch.topk(cand, W + 1, dim=-1).values
+            margin = float((top[:, :-1] - top[:, 1:]).min())
+            diverged.append({"step": step, "fp32_margin": margin})
+            break
+        if not diverged or diverged[0]["fp32_margin"] >= NEAR_TIE:
+            raise AssertionError(f"ph21 (a) 3 tokens differ from the plain "
+                                 f"run's: {k_toks.tolist()} vs "
+                                 f"{p_toks.tolist()} ({diverged})")
+    out = {"tokens": k_toks.tolist(), "plain_tokens": p_toks.tolist(),
+           "steps": steps, "seconds": k_s, "plain_seconds": p_s,
+           "diverged": diverged, **launches}
+    log({"phase": "ph21_beam_search", **{k: v for k, v in out.items()
+                                         if k != "by_dtype"}})
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ph21_vision(torch, attn, counters, seed, name):
+    """(b) vision.models.<name>() at 224 x 224, 1000 classes, batch 32,
+    fp32, Momentum(0.01, 0.9), F.cross_entropy: one warm-up step, then
+    PH21_STEPS timed (ms, images/s, peak memory); a batch-2 eval forward
+    on the card against the same model's on the CPU (normalised max
+    error within PH21_FWD_RTOL).  Launches a step: the classifier's
+    dropouts only."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import dygraph, nn, optimizer, vision
+    from paddle_tpu_torch.core.place import CPUPlace
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    v = PH21_VISION
+    ctor = getattr(vision.models, name)
+    _reset_unique_names()
+    paddle.seed(seed)
+    net = ctor(num_classes=v["classes"])
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(v["batch"], 3, v["img"], v["img"])
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, v["classes"], (v["batch"], 1))
+                         .astype(np.int64)).cuda()
+    # the forward against the CPU first, from the initial weights
+    net.eval()
+    with torch.no_grad():
+        card = net(x[:2]).cpu()
+    cpu_net = copy.deepcopy(net).to("cpu")  # no CPU initializer run
+    with dygraph.guard(CPUPlace()), torch.no_grad():
+        ref = cpu_net(x[:2].cpu())
+    fwd_err = float((card - ref).abs().max() / ref.abs().max())
+    if not fwd_err <= PH21_FWD_RTOL:
+        raise AssertionError(f"ph21 (b) {name}: card forward {fwd_err} off "
+                             "the CPU's")
+    del cpu_net
+    net.train()
+    opt = optimizer.Momentum(v["lr"], 0.9, parameters=net.parameters())
+
+    def step():
+        loss = nn.functional.cross_entropy(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    losses = [step()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    (ms, more, per_step), launches = ph21_path(
+        attn, counters, f"ph21_{name}",
+        lambda: ph21_timed(torch, step, counters))
+    losses += more
+    want = dict.fromkeys(PH21_COUNTED, 0)
+    want["dropout_philox"] = sum(isinstance(m, nn.Dropout) and m.p > 0
+                                 for m in net.sublayers())
+    check_equal(f"ph21 (b) {name} launches a step", per_step,
+                [want] * PH21_STEPS)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ph21 (b) {name} losses {losses}")
+    med = float(np.median(ms))
+    out = {"losses": losses, "step_ms": ms, "median_step_ms": med,
+           "images_per_s": v["batch"] / med * 1e3,
+           "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params": int(sum(p.numel() for p in net.parameters())),
+           "fwd_vs_cpu_err": fwd_err, "launches_per_step": per_step,
+           **launches}
+    log({"phase": f"ph21_{name}", **{k: v for k, v in out.items()
+                                     if k != "by_dtype"}})
+    del net, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ph21_op_cases(rng):
+    """(c) {tag: (op, ins, attrs, cotangent slots)} of every op type this
+    slice registers, numpy inputs at small shapes; "_bf16" cases of the
+    AMP-white convolutions."""
+    f = lambda *s: rng.uniform(-1, 1, s).astype(np.float32)  # noqa: E731
+    pos = lambda *s: rng.uniform(0.5, 2.0, s).astype(np.float32)  # noqa
+    idx = np.stack([np.stack([rng.permutation(64)[:16].reshape(4, 4)
+                              for _ in range(3)]) for _ in range(2)])
+    conv = lambda op, x, w, **a: (op, {"Input": x, "Filter": w}, a,  # noqa
+                                  ["Output"])
+    bn = {"Scale": f(8), "Bias": f(8), "Mean": f(8), "Variance": pos(8)}
+    cases = {
+        "conv3d": conv("conv3d", f(2, 4, 8, 9, 8), f(8, 4, 3, 3, 3),
+                       strides=[2, 1, 2], paddings=[1, 1, 1]),
+        "depthwise_conv2d": conv("depthwise_conv2d", f(2, 8, 16, 16),
+                                 f(8, 1, 3, 3), paddings=[1, 1]),
+        "conv2d_transpose": conv("conv2d_transpose", f(2, 8, 9, 9),
+                                 f(8, 4, 3, 3), strides=[2, 2],
+                                 paddings=[1, 1], output_size=[18, 18]),
+        "conv3d_transpose": conv("conv3d_transpose", f(2, 4, 5, 5, 5),
+                                 f(4, 4, 2, 2, 2), strides=[2, 2, 2]),
+        "depthwise_conv2d_transpose": conv(
+            "depthwise_conv2d_transpose", f(2, 8, 9, 9), f(8, 1, 3, 3),
+            strides=[2, 2], paddings=[0, 1, 1, 0]),
+        "pool3d": ("pool3d", {"X": f(2, 4, 8, 8, 8)},
+                   {"pooling_type": "avg", "ksize": [3, 3, 3],
+                    "strides": [2, 2, 2], "paddings": [1, 1, 1]}, ["Out"]),
+        "max_pool2d_with_index": ("max_pool2d_with_index",
+                                  {"X": f(2, 4, 16, 16)},
+                                  {"ksize": [2, 2], "strides": [2, 2]},
+                                  ["Out"]),
+        "max_pool3d_with_index": ("max_pool3d_with_index",
+                                  {"X": f(2, 4, 8, 8, 8)},
+                                  {"ksize": [2, 2, 2], "strides": [2, 2, 2],
+                                   "paddings": [1, 1, 1]}, ["Out"]),
+        "spp": ("spp", {"X": f(2, 4, 16, 16)}, {"pyramid_height": 3},
+                ["Out"]),
+        "unpool": ("unpool", {"X": f(2, 3, 4, 4), "Indices": idx}, {},
+                   ["Out"]),
+        "sync_batch_norm": ("sync_batch_norm", {"X": f(4, 8, 6, 6), **bn},
+                            {"momentum": 0.9}, ["Y"]),
+        "instance_norm": ("instance_norm", {"X": f(2, 8, 6, 6),
+                                            "Scale": f(8), "Bias": f(8)},
+                          {}, ["Y"]),
+        "group_norm": ("group_norm", {"X": f(2, 8, 6, 6), "Scale": f(8),
+                                      "Bias": f(8)}, {"groups": 4}, ["Y"]),
+        "lrn": ("lrn", {"X": f(2, 8, 6, 6)}, {"n": 5}, ["Out"]),
+        "data_norm": ("data_norm", {"X": f(16, 8), "BatchSize": pos(8) * 8,
+                                    "BatchSum": f(8),
+                                    "BatchSquareSum": pos(8) * 8}, {},
+                      ["Y"]),
+        "spectral_norm": ("spectral_norm", {"Weight": f(16, 24),
+                                            "U": f(16), "V": f(24)},
+                          {"power_iters": 2}, ["Out"]),
+        "embedding": ("embedding", {"W": f(100, 16), "Ids": rng.randint(
+            0, 100, (4, 8)).astype(np.int64)}, {"padding_idx": 3}, ["Out"]),
+        "add_position_encoding": ("add_position_encoding",
+                                  {"X": f(2, 16, 32)}, {"alpha": 0.5},
+                                  ["Out"]),
+        "pixel_shuffle": ("pixel_shuffle", {"X": f(2, 16, 6, 6)},
+                          {"upscale_factor": 2}, ["Out"]),
+        "space_to_depth": ("space_to_depth", {"X": f(2, 4, 8, 8)},
+                           {"blocksize": 2}, ["Out"]),
+        "temporal_shift": ("temporal_shift", {"X": f(8, 8, 4, 4)},
+                           {"seg_num": 4}, ["Out"]),
+        "shuffle_channel": ("shuffle_channel", {"X": f(2, 8, 4, 4)},
+                            {"group": 2}, ["Out"]),
+        "unfold": ("unfold", {"X": f(2, 4, 9, 9)},
+                   {"kernel_sizes": [3, 3], "strides": [2, 2],
+                    "paddings": [1, 1, 1, 1]}, ["Y"]),
+        "im2sequence": ("im2sequence", {"X": f(2, 4, 9, 9)},
+                        {"kernels": [3, 3], "strides": [2, 2]}, ["Out"]),
+        "pad2d": ("pad2d", {"X": f(2, 4, 6, 6)},
+                  {"paddings": [1, 2, 2, 1], "mode": "reflect"}, ["Out"]),
+        "pad3d": ("pad3d", {"X": f(2, 4, 5, 5, 5)},
+                  {"paddings": [1, 1, 2, 0, 0, 2], "mode": "replicate"},
+                  ["Out"]),
+        "bilinear_tensor_product": ("bilinear_tensor_product",
+                                    {"X": f(8, 6), "Y": f(8, 5),
+                                     "Weight": f(4, 6, 5), "Bias": f(1, 4)},
+                                    {}, ["Out"]),
+        "affine_channel": ("affine_channel", {"X": f(2, 8, 5, 5),
+                                              "Scale": f(8), "Bias": f(8)},
+                           {}, ["Out"]),
+        "affine_grid": ("affine_grid", {"Theta": f(2, 2, 3)},
+                        {"output_shape": [2, 3, 8, 9]}, ["Output"]),
+        "grid_sampler": ("grid_sampler", {"X": f(2, 4, 8, 8),
+                                          "Grid": f(2, 6, 7, 2)}, {},
+                         ["Output"]),
+        "norm": ("norm", {"X": f(4, 16, 8)}, {"axis": 1}, ["Out"]),
+        "relu6": ("relu6", {"X": 8 * f(16, 32)}, {}, ["Out"]),
+    }
+    for m in ("bilinear", "nearest", "bicubic"):
+        for v in ("", "_v2"):
+            for ac in (True, False):
+                cases[f"{m}_interp{v}_ac{int(ac)}"] = (
+                    f"{m}_interp{v}", {"X": f(2, 4, 12, 10)},
+                    {"out_h": 7 if v else 17, "out_w": 15 if v else 6,
+                     "align_corners": ac}, ["Out"])
+    for v in ("", "_v2"):
+        cases["linear_interp" + v] = ("linear_interp" + v,
+                                      {"X": f(2, 4, 20)}, {"out_w": 9},
+                                      ["Out"])
+        cases["trilinear_interp" + v] = ("trilinear_interp" + v,
+                                         {"X": f(2, 4, 6, 5, 7)},
+                                         {"out_d": 9, "out_h": 3,
+                                          "out_w": 7}, ["Out"])
+    for tag in ("conv3d", "depthwise_conv2d", "conv2d_transpose",
+                "conv3d_transpose", "depthwise_conv2d_transpose"):
+        op, ins, attrs, ct = cases[tag]
+        cases[tag + "_bf16"] = (op, {k: (v, "bfloat16")
+                                     for k, v in ins.items()}, attrs, ct)
+    return cases
+
+
+def ph21_compare(torch, tag, got, want, tol, scale_of=None):
+    """Every output of `got` (card) against `want` (CPU): integers equal,
+    floats within `tol` (normalised max error: over the slot's largest
+    magnitude, or `scale_of(slot)` where it gives one); the largest
+    error."""
+    err = 0.0
+    for slot in sorted(want):
+        w, g = want[slot], got.get(slot)
+        if w is None:
+            continue
+        ws = w if isinstance(w, list) else [w]
+        gs = g if isinstance(g, list) else [g]
+        for a, b in zip(gs, ws):
+            a = a.detach().cpu()
+            b = b.detach()
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise AssertionError(f"ph21 (c) {tag} {slot}: "
+                                     f"{tuple(a.shape)} {a.dtype} vs "
+                                     f"{tuple(b.shape)} {b.dtype}")
+            if not b.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"ph21 (c) {tag} {slot}: "
+                                         "integers differ")
+                continue
+            scale = float(b.double().abs().max()) if b.numel() else 0.0
+            if scale_of is not None and scale_of(slot) is not None:
+                scale = scale_of(slot)
+            e = float((a.double() - b.double()).abs().max()) \
+                if b.numel() else 0.0
+            e = e / scale if scale > 0 else e
+            if not e <= tol:
+                raise AssertionError(f"ph21 (c) {tag} {slot}: normalised "
+                                     f"max error {e} (gate {tol})")
+            err = max(err, e)
+    return err
+
+
+def ph21_ops(torch):
+    """(c) every op type of the slice through its registry kernel on CUDA
+    tensors and on CPU tensors from the same numpy inputs, then its grad
+    op fed the same cotangents: fp32 within PH21_OP_TOL, the bf16 cases
+    of the AMP-white convolutions within PH21_BF16_TOL."""
+    from paddle_tpu_torch.ops.registry import OpContext, get_op_info, \
+        run_kernel
+    rng = np.random.RandomState(21)
+    cases = ph21_op_cases(rng)
+    worst, ops = {}, set()
+
+    def to(v, dev):
+        if isinstance(v, tuple):
+            return torch.from_numpy(v[0]).to(dev, torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+
+    for tag, (op, ins, attrs, ct_slots) in cases.items():
+        ops.add(op)
+        tol = PH21_BF16_TOL if tag.endswith("_bf16") else PH21_OP_TOL
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t_ins = {k: to(v, dev) for k, v in ins.items()}
+            fwd = run_kernel(op, t_ins, dict(attrs),
+                             OpContext(seed=0, device=dev))
+            gins = dict(t_ins, **{k: v for k, v in fwd.items()
+                                  if v is not None})
+            crng = np.random.RandomState(1)
+            for slot in ct_slots:
+                ct = crng.uniform(-1, 1, tuple(fwd[slot].shape)) \
+                    .astype(np.float32)
+                gins[slot + "@GRAD"] = torch.from_numpy(ct).to(
+                    dev, fwd[slot].dtype)
+            grads = get_op_info(op + "_grad").kernel(
+                gins, dict(attrs), OpContext(seed=0, device=dev))
+            runs[dev] = (fwd, grads)
+        e_fwd = ph21_compare(torch, tag, runs["cuda"][0], runs["cpu"][0],
+                             tol)
+        e_grad = ph21_compare(torch, tag + "_grad", runs["cuda"][1],
+                              runs["cpu"][1], tol)
+        if not any(v is not None for v in runs["cpu"][1].values()):
+            raise AssertionError(f"ph21 (c) {tag}: no gradient")
+        worst[tag] = max(e_fwd, e_grad)
+    out = {"ops": len(ops), "cases": len(cases), "max_err": worst}
+    log({"phase": "ph21_ops", **out})
+    return out
+
+
+def ph21_layer_cases():
+    """(c) {name: (make(nn), input shapes)} of every new dygraph layer."""
+    return {
+        "Conv1D": (lambda nn: nn.Conv1D(8, 16, 3, padding=1), [(4, 8, 32)]),
+        "Conv3D": (lambda nn: nn.Conv3D(4, 8, 3, padding=1),
+                   [(2, 4, 8, 8, 8)]),
+        "Conv2DTranspose": (lambda nn: nn.Conv2DTranspose(8, 4, 3, stride=2,
+                                                          padding=1),
+                            [(2, 8, 9, 9)]),
+        "Conv3DTranspose": (lambda nn: nn.Conv3DTranspose(4, 4, 2, stride=2),
+                            [(2, 4, 4, 4, 4)]),
+        "BatchNorm1D": (lambda nn: nn.BatchNorm1D(16), [(32, 16)]),
+        "BatchNorm3D": (lambda nn: nn.BatchNorm3D(4), [(2, 4, 4, 4, 4)]),
+        "SyncBatchNorm": (lambda nn: nn.SyncBatchNorm(8), [(4, 8, 6, 6)]),
+        "GroupNorm": (lambda nn: nn.GroupNorm(4, 8), [(2, 8, 6, 6)]),
+        "InstanceNorm1D": (lambda nn: nn.InstanceNorm1D(8), [(2, 8, 16)]),
+        "InstanceNorm2D": (lambda nn: nn.InstanceNorm2D(8), [(2, 8, 6, 6)]),
+        "InstanceNorm3D": (lambda nn: nn.InstanceNorm3D(4),
+                           [(2, 4, 4, 4, 4)]),
+        "LocalResponseNorm": (lambda nn: nn.LocalResponseNorm(5),
+                              [(2, 8, 6, 6)]),
+        "SpectralNorm": (lambda nn: nn.SpectralNorm([16, 24]), [(16, 24)]),
+        "MaxPool2D_mask": (lambda nn: nn.MaxPool2D(2, return_mask=True),
+                           [(2, 4, 16, 16)]),
+        "AdaptiveMaxPool2D": (lambda nn: nn.AdaptiveMaxPool2D(4),
+                              [(2, 4, 16, 16)]),
+        "MaxPool1D": (lambda nn: nn.MaxPool1D(2), [(2, 8, 32)]),
+        "AvgPool1D": (lambda nn: nn.AvgPool1D(3, 2, 1), [(2, 8, 32)]),
+        "Dropout2D": (lambda nn: nn.Dropout2D(0.5), [(2, 8, 6, 6)]),
+        "Flatten": (lambda nn: nn.Flatten(), [(2, 8, 6, 6)]),
+        "Pad2D": (lambda nn: nn.Pad2D([1, 2, 0, 1]), [(2, 8, 6, 6)]),
+        "Upsample": (lambda nn: nn.Upsample(size=[11, 13], mode="bicubic"),
+                     [(2, 4, 6, 6)]),
+        "UpsamplingBilinear2D": (lambda nn: nn.UpsamplingBilinear2D(
+            scale_factor=2), [(2, 4, 6, 6)]),
+        "UpsamplingNearest2D": (lambda nn: nn.UpsamplingNearest2D(
+            size=[9, 9]), [(2, 4, 6, 6)]),
+        "PixelShuffle": (lambda nn: nn.PixelShuffle(2), [(2, 16, 6, 6)]),
+        "CosineSimilarity": (lambda nn: nn.CosineSimilarity(axis=1),
+                             [(8, 32), (8, 32)]),
+        "Bilinear": (lambda nn: nn.Bilinear(6, 5, 4), [(8, 6), (8, 5)]),
+        "ReLU6": (lambda nn: nn.ReLU6(), [(16, 32)]),
+        "TransformerDecoderLayer": (
+            lambda nn: nn.TransformerDecoderLayer(64, 4, 128, dropout=0.0),
+            [(2, 9, 64), (2, 12, 64)]),
+        "TransformerDecoder": (
+            lambda nn: nn.TransformerDecoder(nn.TransformerDecoderLayer(
+                64, 4, 128, dropout=0.0), 2), [(2, 9, 64), (2, 12, 64)]),
+        "Transformer": (lambda nn: nn.Transformer(64, 4, 2, 2, 128,
+                                                  dropout=0.0),
+                        [(2, 12, 64), (2, 9, 64)]),
+    }
+
+
+def ph21_layers(torch, seed):
+    """(c) every new dygraph layer built on the card (weights from
+    `seed`), copied to a CPU twin with set_state_dict: the forward in eval
+    mode (Dropout2D's identity; the batch norms' running statistics) and
+    the gradients of sum(out * ct) for the inputs and parameters, card
+    against CPU within PH21_OP_TOL (normalised max error).  An attention
+    key projection's bias has a gradient of 0 in exact arithmetic (the
+    softmax ignores a constant a row), so both sides hold rounding noise
+    there: it is normalised by the layer's largest gradient instead."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.core.place import CPUPlace
+    rng = np.random.RandomState(seed + 21)
+    worst = {}
+    for name, (make, shapes) in ph21_layer_cases().items():
+        paddle.seed(seed)
+        card = make(nn)
+        with dygraph.guard(CPUPlace()):
+            cpu = make(nn)
+        cpu.set_state_dict({k: v.detach().cpu()
+                            for k, v in card.state_dict().items()})
+        card.eval()
+        cpu.eval()
+        arrays = [rng.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+        res = {}
+        for dev, layer in (("cuda", card), ("cpu", cpu)):
+            xs = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                  for a in arrays]
+            out = layer(*xs)
+            out = out[0] if isinstance(out, tuple) else out
+            ct = torch.from_numpy(np.random.RandomState(2).uniform(
+                -1, 1, tuple(out.shape)).astype(np.float32)).to(dev)
+            (out * ct).sum().backward()
+            res[dev] = {"out": out}
+            res[dev].update({f"x{i}@GRAD": x.grad
+                             for i, x in enumerate(xs)})
+            res[dev].update({k + "@GRAD": p.grad
+                             for k, p in layer.named_parameters()
+                             if p.grad is not None})
+        if set(res["cuda"]) != set(res["cpu"]):
+            raise AssertionError(f"ph21 (c) {name}: gradients on "
+                                 f"{sorted(res['cuda'])} vs "
+                                 f"{sorted(res['cpu'])}")
+        top = max(float(v.double().abs().max())
+                  for k, v in res["cpu"].items() if k.endswith("@GRAD"))
+        worst[name] = ph21_compare(
+            torch, name, res["cuda"], res["cpu"], PH21_OP_TOL,
+            lambda slot, top=top: top if slot.endswith("k_proj.bias@GRAD")
+            else None)
+    out = {"layers": len(worst), "max_err": worst}
+    log({"phase": "ph21_layers", **out})
+    return out
+
+
+def vs_phase(torch, seed):
+    """(21) vision and seq2seq: (a) Transformer-big in dygraph (1 the
+    published recipe, 2 the flash step against its plain versions, 3
+    beam_search), (b) VGG-16 and MobileNet-V2 training, (c) every new op
+    and layer on the card against the CPU.  (d) runs inside phase 13's
+    ranks (dp_sync_bn_rank) and its NCCL world (dp_nccl_sync_bn).
+    Returns the records with each path's launches."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import fused_xent as fx
+    from paddle_tpu_torch.ops import random as rnd
+    counters = ph20_counters(attn, dr, fx, rnd)  # phase 20's nine
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    for part, fn, args in (
+            ("a1", ph21_published, (torch, attn, counters, seed)),
+            ("a2", ph21_flash_step, (torch, attn, counters, seed)),
+            ("a3", ph21_beam, (torch, attn, counters, seed)),
+            ("b_vgg16", ph21_vision, (torch, attn, counters, seed,
+                                      "vgg16")),
+            ("b_mobilenet_v2", ph21_vision, (torch, attn, counters, seed,
+                                             "mobilenet_v2")),
+            ("c_ops", ph21_ops, (torch,)),
+            ("c_layers", ph21_layers, (torch, seed))):
+        t0 = time.perf_counter()
+        out[part] = fn(*args)
+        out["seconds"][part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    out["launches"] = {
+        path: out[part] for path, part in zip(
+            PH21_PATHS, ("a1", "a2", "a3", "b_vgg16", "b_mobilenet_v2"))}
+    log({"phase": "vision_seq2seq", "seconds": out["seconds"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21 (d): SyncBatchNorm and BuildStrategy.sync_batch_norm, run by
+# phase 13's gloo ranks and its NCCL world of 1
+# ---------------------------------------------------------------------------
+SBN = dict(batch=8, channels=64, hw=28, conv=32, lr=0.5)
+SBN_TOL = 1e-5            # normalised max error against one process
+
+
+def sbn_data(seed):
+    """The global batch (split over the ranks by rows) and the weights of
+    (d)'s layer and program."""
+    rng = np.random.RandomState(seed + 21)
+    b, c, hw, k = SBN["batch"], SBN["channels"], SBN["hw"], SBN["conv"]
+    return {"x": rng.randn(b, c, hw, hw).astype(np.float32) + 0.5,
+            "ct": rng.randn(b, c, hw, hw).astype(np.float32),
+            "ct_conv": rng.randn(b, k, hw, hw).astype(np.float32),
+            "weight": rng.randn(c).astype(np.float32),
+            "bias": rng.randn(c).astype(np.float32),
+            "mean": rng.randn(c).astype(np.float32) * 0.1,
+            "var": rng.rand(c).astype(np.float32) + 0.5,
+            "filter": (rng.randn(k, c, 3, 3) * 0.05).astype(np.float32)}
+
+
+def sbn_program():
+    """conv2d (no bias) -> batch_norm -> mean(y * ct), SGD: the static
+    program of (d)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    _reset_unique_names()
+    layers = static.layers
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1, SBN["channels"], SBN["hw"], SBN["hw"]])
+        ct = layers.data("ct", [-1, SBN["conv"], SBN["hw"], SBN["hw"]])
+        h = layers.conv2d(x, SBN["conv"], 3, padding=1, bias_attr=False)
+        y = layers.batch_norm(h, momentum=0.9)
+        loss = layers.mean(layers.elementwise_mul(y, ct))
+        static.SGD(learning_rate=SBN["lr"]).minimize(loss)
+    return main, startup, loss, y
+
+
+def sbn_weights(main, data):
+    """The program's persistables from (d)'s data: the filter, the batch
+    norm's scale / bias / running stats, the learning rate."""
+    conv = [op for op in main.global_block().ops if op.type == "conv2d"][0]
+    bn = [op for op in main.global_block().ops if op.type == "batch_norm"][0]
+    w = {conv.inputs["Filter"][0]: data["filter"]}
+    for slot, key in (("Scale", "weight"), ("Bias", "bias"),
+                      ("Mean", "mean"), ("Variance", "var")):
+        w[bn.inputs[slot][0]] = data[key][:SBN["conv"]]
+    for v in main.global_block().vars.values():
+        if v.name.startswith("learning_rate"):
+            w[v.name] = np.array([SBN["lr"]], np.float32)
+    return w
+
+
+def sbn_dygraph(torch, layer_cls, data, x_np, ct_np):
+    """(Y, dX, dWeight, running mean, running var) of one train-mode call
+    of `layer_cls` over x_np on the card."""
+    layer = layer_cls(SBN["channels"], momentum=0.9)
+    layer.set_state_dict({"weight": data["weight"], "bias": data["bias"],
+                          "_mean": data["mean"], "_variance": data["var"]})
+    layer.train()
+    x = torch.from_numpy(x_np).cuda().requires_grad_(True)
+    y = layer(x)
+    (y * torch.from_numpy(ct_np).cuda()).sum().backward()
+    torch.cuda.synchronize()
+    return {k: v.detach().cpu().numpy() for k, v in (
+        ("y", y), ("x_grad", x.grad), ("weight_grad", layer.weight.grad),
+        ("mean", layer._mean), ("var", layer._variance))}
+
+
+def sbn_static(torch, data, x_np, ct_np, sync):
+    """(fetched Y, the persistables after one SGD step, the op types) of
+    sbn_program over x_np: under a CompiledProgram with
+    BuildStrategy.sync_batch_norm when `sync` (the ranks feed the global
+    batch and keep their rows; Y concatenated over the ranks), else the
+    plain program."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.io import load_params_from_numpy
+    main, _, loss, y = sbn_program()
+    weights = sbn_weights(main, data)
+    scope = static.Scope()
+    load_params_from_numpy(scope, weights, static.CUDAPlace(0))
+    prog = main
+    if sync:
+        bs = static.BuildStrategy()
+        bs.sync_batch_norm = True
+        bs.fetch_aggregation = "concat"
+        prog = static.CompiledProgram(main, build_strategy=bs) \
+            .with_data_parallel(loss_name=loss.name)
+    exe = static.Executor(static.CUDAPlace(0))
+    with static.scope_guard(scope):
+        (yo,) = exe.run(prog, feed={"x": x_np, "ct": ct_np},
+                        fetch_list=[y.name])
+    ops = prog._get_program().global_block().ops if sync \
+        else main.global_block().ops
+    state = {n: scope.vars[n].cpu().numpy() for n in weights}
+    return np.asarray(yo), state, [op.type for op in ops]
+
+
+def dp_sync_bn_rank(torch, seed, rank, world, out_dir):
+    """(21 d) on one gloo rank of phase 13: its rows of the global batch
+    through nn.SyncBatchNorm and through sbn_program under
+    BuildStrategy.sync_batch_norm; saved for dp_sync_bn_check."""
+    from paddle_tpu_torch import nn
+    data = sbn_data(seed)
+    n = SBN["batch"] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    t0 = time.perf_counter()
+    dy = sbn_dygraph(torch, nn.SyncBatchNorm, data, data["x"][rows],
+                     data["ct"][rows])
+    y, state, ops = sbn_static(torch, data, data["x"], data["ct_conv"],
+                               sync=True)
+    np.savez(os.path.join(out_dir, f"sbn_rank{rank}.npz"),
+             **{"dygraph/" + k: v for k, v in dy.items()},
+             **{"static/var/" + k: v for k, v in state.items()},
+             **{"static/y": y, "static/ops": np.array(ops)})
+    return {"seconds": time.perf_counter() - t0,
+            "ops": sorted(set(ops) & {"sync_batch_norm",
+                                      "sync_batch_norm_grad", "batch_norm",
+                                      "batch_norm_grad"})}
+
+
+def sbn_err(got, want):
+    return float(np.abs(got.astype(np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+def dp_sync_bn_check(torch, seed, tmp):
+    """(21 d) gated: each gloo rank's SyncBatchNorm Y, dX and running
+    stats against one process's BatchNorm2D over the global batch (its
+    rows), the ranks' dWeight summing to the global one, the running
+    stats bitwise equal across ranks; the static program rewritten to
+    sync_batch_norm / sync_batch_norm_grad and, after one step, its Y and
+    every persistable equal to the plain program's over the global batch.
+    Normalised max errors within SBN_TOL."""
+    from paddle_tpu_torch import nn
+    data = sbn_data(seed)
+    ranks = [dict(np.load(os.path.join(tmp, f"sbn_rank{r}.npz")))
+             for r in range(DP_RANKS)]
+    ref = sbn_dygraph(torch, nn.BatchNorm2D, data, data["x"], data["ct"])
+    n = SBN["batch"] // DP_RANKS
+    errs = {}
+    for r, got in enumerate(ranks):
+        rows = slice(r * n, (r + 1) * n)
+        for k, want in (("y", ref["y"][rows]),
+                        ("x_grad", ref["x_grad"][rows]),
+                        ("mean", ref["mean"]), ("var", ref["var"])):
+            errs[f"rank{r}/{k}"] = sbn_err(got["dygraph/" + k], want)
+    errs["weight_grad_sum"] = sbn_err(
+        sum(g["dygraph/weight_grad"] for g in ranks), ref["weight_grad"])
+    for k in ("mean", "var"):
+        if not np.array_equal(ranks[0]["dygraph/" + k],
+                              ranks[1]["dygraph/" + k]):
+            raise AssertionError(f"ph21 (d) SyncBatchNorm running {k} "
+                                 "differs across ranks")
+    y, state, _ = sbn_static(torch, data, data["x"], data["ct_conv"],
+                             sync=False)
+    for r, got in enumerate(ranks):
+        ops = list(got["static/ops"])
+        if "sync_batch_norm_grad" not in ops or "batch_norm_grad" in ops:
+            raise AssertionError(f"ph21 (d) rank {r}: the pass left "
+                                 f"{sorted(set(ops))}")
+        errs[f"rank{r}/static_y"] = sbn_err(got["static/y"], y)
+        for name, want in state.items():
+            errs[f"rank{r}/static/{name}"] = sbn_err(
+                got["static/var/" + name], want)
+    for name in state:
+        if not np.array_equal(ranks[0]["static/var/" + name],
+                              ranks[1]["static/var/" + name]):
+            raise AssertionError(f"ph21 (d) static {name} differs across "
+                                 "ranks")
+    bad = {k: e for k, e in errs.items() if not e <= SBN_TOL}
+    if bad:
+        raise AssertionError(f"ph21 (d) gloo ranks against one process: "
+                             f"{bad}")
+    out = {"max_err": max(errs.values()), "errors": errs}
+    log({"phase": "ph21_sync_bn_gloo", "ranks": DP_RANKS, **out})
+    return out
+
+
+def dp_nccl_sync_bn(torch, seed):
+    """(21 d) under NCCL at world 1 (inside dp_nccl's process group): the
+    SyncBatchNorm layer over the global batch equals BatchNorm2D's (its
+    statistics and their gradient sums go through NCCL allreduces: 4
+    counted), and the sync_batch_norm op likewise."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops.kernels import collective as kc
+    data = sbn_data(seed)
+    before = kc.COMM_STATS["calls_by_kind"].get("all_reduce", 0)
+    got = sbn_dygraph(torch, nn.SyncBatchNorm, data, data["x"], data["ct"])
+    calls = kc.COMM_STATS["calls_by_kind"].get("all_reduce", 0) - before
+    ref = sbn_dygraph(torch, nn.BatchNorm2D, data, data["x"], data["ct"])
+    check_equal("ph21 (d) NCCL allreduces of a SyncBatchNorm step", calls, 4)
+    errs = {k: sbn_err(got[k], ref[k]) for k in ref}
+    if not max(errs.values()) <= SBN_TOL:
+        raise AssertionError(f"ph21 (d) NCCL world 1: {errs}")
+    out = {"allreduces": calls, "max_err": max(errs.values()),
+           "errors": errs}
+    log({"phase": "ph21_sync_bn_nccl", **out})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10623,6 +11641,7 @@ def main():
     pps = timed("17_pipeline_ps", pp_ps_phase, torch, args.seed)
     hl = timed("19_high_level", hl_phase, torch, args.seed)
     ph20 = timed("20_tensor", tensor_phase, torch, args.seed)
+    ph21 = timed("21_vision_seq2seq", vs_phase, torch, args.seed)
 
     # each kernel at the shape of the path that runs it, [8, 12, 512, 64]
     # attention on the head-split views: the four bf16 kernels of the AMP
@@ -10715,7 +11734,8 @@ def main():
             f"px_sp_{tag}_{run}_rank{r}" for tag, _, runs in PX_SP_PROGRAMS
             for run in runs for r in range(PX_RANKS)) + (
             "px_hoist_hoisted", "px_hoist_unhoisted") + EL_PATHS + (
-            "pp_pipeline", "analysis") + HL_PATHS + PH20_PATHS
+            "pp_pipeline", "analysis") + HL_PATHS + PH20_PATHS + \
+        PH21_PATHS
     if set(WIDE_LAUNCHES) != set(paths):
         raise AssertionError(f"head-dim-above-128 launches read on "
                              f"{sorted(WIDE_LAUNCHES)}, expected "
@@ -10915,6 +11935,30 @@ def main():
             got = {p: extra["launches_by_path_all_dtypes"][p]
                    for p in PH20_PATHS}
         extra["phase20_launches"] = got
+    # phase 21: a step of (a) 1, the step of (a) 2, (a) 3's beam search,
+    # a step of each (b) model, in the row's dtype
+    ph21_runs = {"transformer_big_step": ("ph21_transformer_big",
+                                          PH21_STEPS),
+                 "transformer_flash_step": ("ph21_transformer_flash", 1),
+                 "beam_search": ("ph21_beam_search", 1),
+                 "vgg16_step": ("ph21_vgg16", PH21_STEPS),
+                 "mobilenet_v2_step": ("ph21_mobilenet_v2", PH21_STEPS)}
+
+    def ph21_column(name, extra):
+        base = name.rsplit("_fp", 1)[0]
+        if base in DP_KERNELS:
+            dt = row_dtype[name[len(base):]]
+            return {k: ph21["launches"][p]["by_dtype"][base].get(dt, 0) / n
+                    for k, (p, n) in ph21_runs.items()}
+        if name in ("dropout_philox", "philox_random") + PH20_KERNELS:
+            return {k: ph21["launches"][p]["launches"][name] / n
+                    for k, (p, n) in ph21_runs.items()}
+        # head dims above 128: over each whole path, all dtypes
+        return {p: extra["launches_by_path_all_dtypes"][p]
+                for p in PH21_PATHS}
+
+    for name, _, _, extra in rows:
+        extra["phase21_launches"] = ph21_column(name, extra)
     # the three new Philox distributions: times from phase 20 (d),
     # launches over phase 20 (a)'s path (the truncated normal: the word
     # embedding's draw; randint and Bernoulli: one each a step)
@@ -10924,6 +11968,7 @@ def main():
                       "phase20_launches": {
                           p: [st[name] for st in r[0]]
                           for p, r in ph20_runs.items()},
+                      "phase21_launches": ph21_column(name, {}),
                       "max_ulps": ph20["d"][name]["max_ulps"]}))
     summary = []
     for name, r, launches, extra in rows:

@@ -4,8 +4,9 @@ Copy of paddle_tpu/core/pass_framework.py (the registry, PassContext,
 apply_passes, the applied-pass history, `built_tp_degree` and
 `finish_pass`, the epilogue of a program rewrite such as AMP, recompute,
 gradient merge, ZeRO sharding or the elastic fold, with its
-PADDLE_TPU_VERIFY post-rewrite self-check).  Passes walk and rewrite the
-IR only; no tensor math happens here.
+PADDLE_TPU_VERIFY post-rewrite self-check, and `sync_batch_norm_pass`,
+which `CompiledProgram` applies for `BuildStrategy.sync_batch_norm`).
+Passes walk and rewrite the IR only; no tensor math happens here.
 """
 from __future__ import annotations
 
@@ -116,4 +117,31 @@ def apply_passes(program: Program, names: List[str],
         program = _PASSES[n](program, ctx)
         record_applied(program, n)
         program._fingerprint_cache = None
+    return program
+
+
+# ---------------------------------------------------------------------------
+# general (training-graph) passes
+# ---------------------------------------------------------------------------
+@register_pass("sync_batch_norm_pass")
+def sync_batch_norm_pass(program: Program, ctx: PassContext) -> Program:
+    """Rewrite every training-mode batch_norm into sync_batch_norm, whose
+    kernel allreduces the batch sums over the ring `ring_id` names (ring
+    0: the data-parallel group), and each batch_norm_grad that reads a
+    rewritten op's outputs into sync_batch_norm_grad in lockstep: the
+    port's batch_norm_grad is explicit and would otherwise use the local
+    statistics (the JAX package's replays its forward under vjp)."""
+    for block in program.blocks:
+        rewritten_outs = set()
+        for op in block.ops:
+            if op.type == "batch_norm" and not op.attrs.get("is_test"):
+                op.type = "sync_batch_norm"
+                op.attrs.setdefault("ring_id", 0)
+                rewritten_outs.update(op.output_names())
+                ctx.hit("sync_batch_norm_pass")
+            elif op.type == "batch_norm_grad" and \
+                    not op.attrs.get("is_test") and \
+                    any(n in rewritten_outs for n in op.input_names()):
+                op.type = "sync_batch_norm_grad"
+                op.attrs.setdefault("ring_id", 0)
     return program

@@ -83,8 +83,11 @@ world).  `run_steps` runs K micro-steps a call: one captured micro-step
 replayed under NCCL, eager steps under gloo; never hoisted.  Elastic
 programs compose with plain dp only: under sp or tp they raise.
 
-Not ported (ROADMAP.md Queue 1, Distribution; raises): sync_batch_norm.
-The BuildStrategy knobs
+`BuildStrategy.sync_batch_norm` applies `sync_batch_norm_pass`
+(core/pass_framework.py) to the data-parallel program when the world
+exceeds 1, as the JAX package does: each training batch_norm and its
+grad op become sync_batch_norm / sync_batch_norm_grad, whose kernels
+allreduce the batch sums over ring 0's group.  The BuildStrategy knobs
 the JAX package leaves to XLA (fusions, memory options,
 debug_graphviz_path) are accepted and do nothing here either.
 """
@@ -464,10 +467,6 @@ class CompiledProgram:
 
     def _check_supported(self):
         bs = self._build_strategy
-        if bs.sync_batch_norm:
-            raise NotImplementedError(
-                f"BuildStrategy.sync_batch_norm is not ported yet "
-                f"({_LATER})")
         if getattr(self._program, "_elastic_meta", None) is not None:
             if int(getattr(bs, "sequence_parallel_degree", 1)) > 1:
                 raise NotImplementedError(
@@ -515,6 +514,13 @@ class CompiledProgram:
                                                         scale=scale)
             else:
                 self._rewritten = self._program
+            if self._build_strategy.sync_batch_norm and \
+                    self._is_data_parallel and n > 1:
+                from ..core.pass_framework import (PassContext,
+                                                   apply_passes)
+                self._rewritten = apply_passes(
+                    self._rewritten, ["sync_batch_norm_pass"],
+                    PassContext())
         return self._rewritten
 
     # -- placement ---------------------------------------------------------

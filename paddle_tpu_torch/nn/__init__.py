@@ -3,18 +3,18 @@
 
 Counterpart of paddle_tpu/nn/: `Layer`, `Sequential`, `LayerList`,
 `ParameterList` (dygraph/layers.py), the functional forms
-(functional.py), `Identity`, `Linear`, `Embedding`, `Dropout`
-(layer/common.py), `Conv2D` (layer/conv.py), `MaxPool2D`, `AvgPool2D`,
-`AdaptiveAvgPool2D` (layer/pooling.py), `BatchNorm`, `BatchNorm2D`,
-`LayerNorm` (layer/norm.py), `ReLU`, `Tanh`, `GELU`, `Softmax`,
-`LogSoftmax` (layer/activation.py), `CrossEntropyLoss`, `MSELoss`
-(layer/loss.py), `MultiHeadAttention`, `TransformerEncoderLayer`,
-`TransformerEncoder`, `SwitchMoE` (layer/transformer.py), the default
-initializers
-(initializer.py) and, as paddle 2.0 exports them here, the gradient clips
-`ClipGradByValue` / `ByNorm` / `ByGlobalNorm`.  The other layer families
-(the other convolutions, pools and norms, rnn, the transformer decoder,
-...) wait for ROADMAP.md Queue 1, The rest.
+(functional.py), the common layers (layer/common.py: Linear,
+Embedding, Dropout, Flatten, Pad2D, Upsample*, PixelShuffle, Bilinear,
+...), the convolutions (layer/conv.py: Conv1D / 2D / 3D and the
+transposed ones), the pools (layer/pooling.py), the norms
+(layer/norm.py: BatchNorm*, SyncBatchNorm, LayerNorm, GroupNorm,
+InstanceNorm*, LocalResponseNorm, SpectralNorm), the activations
+(layer/activation.py), the losses (layer/loss.py), the transformer
+(layer/transformer.py: MultiHeadAttention, the encoder and decoder,
+Transformer, SwitchMoE), the 2.0 initializers (initializer.py) and, as
+paddle 2.0 exports them here, the gradient clips `ClipGradByValue` /
+`ByNorm` / `ByGlobalNorm`.  rnn and the other activation and loss layers
+wait for ROADMAP.md Queue 1, The rest.
 """
 from ..dygraph.layers import (  # noqa: F401
     Layer, Sequential, LayerList, ParameterList,

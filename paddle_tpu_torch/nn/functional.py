@@ -32,7 +32,16 @@ for it (`linear` is `matmul_v2` then `elementwise_add`), so under
     training it writes the new running stats into the buffers it was
     given, as the JAX package's `set_value` does).  Under `auto_cast`
     conv2d is white, batch_norm black and pool2d gray, as listed in
-    amp/fp16_lists.py.
+    amp/fp16_lists.py;
+  * the vision tier: `conv2d_transpose`, `conv3d`, `max_pool2d(
+    return_mask=True)`, `adaptive_max_pool2d`, `instance_norm`,
+    `group_norm`, `normalize`, `cosine_similarity`, `dropout2d`, `pad`,
+    `interpolate` / `upsample`, `pixel_shuffle`, `unfold`, `grid_sample`,
+    `affine_grid`, `temporal_shift` and `relu6` dispatch in every mode
+    (tensor/_dispatch.py: eager through the registry's kernel, recorded
+    under a recorder) the op(s) the JAX function dispatches, with its
+    quirks (`unfold` is im2sequence, `pad` reads no mode; ROADMAP.md
+    Queue 3).
 
 Under a `jit.to_static` recorder (`dygraph.tracer.recording()`) each
 function instead dispatches the op(s) the JAX package's function
@@ -48,14 +57,18 @@ import torch
 
 from ..dygraph.tracer import amp_inputs, eager_draw_key, recording
 from ..ops.dropout import DropoutFn as _DropoutFn
-from ..ops.kernels.nn import BatchNormFn, conv2d_forward, pool2d_forward
+from ..ops.kernels.nn import BatchNormFn, conv_nd, pool_forward
 
-__all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "tanh",
-           "sigmoid",
+__all__ = ["linear", "embedding", "layer_norm", "gelu", "relu", "relu6",
+           "tanh", "sigmoid",
            "softmax", "log_softmax", "dropout", "dropout_with_mask",
            "cross_entropy", "softmax_with_cross_entropy", "mse_loss",
-           "conv2d", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
-           "batch_norm"]
+           "conv2d", "conv2d_transpose", "conv3d", "max_pool2d",
+           "avg_pool2d", "adaptive_avg_pool2d", "adaptive_max_pool2d",
+           "batch_norm", "instance_norm", "group_norm", "normalize",
+           "dropout2d", "pad", "interpolate", "upsample", "pixel_shuffle",
+           "unfold", "grid_sample", "affine_grid", "cosine_similarity",
+           "temporal_shift"]
 
 
 def _dispatch(op_type, ins, attrs=None, outs=("Out",)):
@@ -135,7 +148,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                              else -1})
         return out
     x, weight = amp_inputs("conv2d", x, weight)
-    out = conv2d_forward(x, weight, attrs)
+    out = conv_nd(x, weight, attrs, 2)
     if bias is None:
         return out
     out, bias = amp_inputs("elementwise_add", out, bias)
@@ -147,21 +160,21 @@ def _pool2d(x, attrs):
     if recording():
         return _dispatch("pool2d", {"X": x}, attrs)
     (x,) = amp_inputs("pool2d", x)
-    return pool2d_forward(x, attrs)
+    return pool_forward(x, attrs, 2)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW", name=None):
-    if return_mask:
-        raise NotImplementedError(
-            "max_pool2d(return_mask=True) needs max_pool2d_with_index, not "
-            "ported yet (ROADMAP.md Queue 1, The rest)")
     ks = _pair(kernel_size)
-    return _pool2d(x, {"pooling_type": "max", "ksize": ks,
-                       "strides": _pair(stride) if stride is not None
-                       else ks, "paddings": _pair(padding),
-                       "ceil_mode": ceil_mode, "global_pooling": False,
-                       "data_format": data_format, "exclusive": True})
+    attrs = {"pooling_type": "max", "ksize": ks,
+             "strides": _pair(stride) if stride is not None else ks,
+             "paddings": _pair(padding), "ceil_mode": ceil_mode,
+             "global_pooling": False, "data_format": data_format,
+             "exclusive": True}
+    if return_mask:
+        return _dispatch("max_pool2d_with_index", {"X": x}, attrs,
+                         ("Out", "Mask"))
+    return _pool2d(x, attrs)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -179,6 +192,44 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
                        "adaptive": True, "strides": [1, 1],
                        "paddings": [0, 0], "global_pooling": False,
                        "data_format": data_format, "exclusive": True})
+
+
+def adaptive_max_pool2d(x, output_size, data_format="NCHW", name=None):
+    return _pool2d(x, {"pooling_type": "max", "ksize": _pair(output_size),
+                       "adaptive": True, "strides": [1, 1],
+                       "paddings": [0, 0], "global_pooling": False,
+                       "data_format": data_format, "exclusive": True})
+
+
+def _bias_add(out, bias, data_format):
+    if bias is None:
+        return out
+    return _dispatch("elementwise_add", {"X": out, "Y": bias},
+                     {"axis": 1 if data_format.startswith("NC") else -1})
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCHW", name=None):
+    """The conv2d_transpose op, weight [in, out / groups, kh, kw];
+    `output_padding` and `output_size` are not passed on, as in the JAX
+    package."""
+    attrs = {"strides": _pair(stride), "paddings": _pair(padding),
+             "dilations": _pair(dilation), "groups": groups,
+             "data_format": data_format}
+    out = _dispatch("conv2d_transpose", {"Input": x, "Filter": weight},
+                    attrs, ("Output",))
+    return _bias_add(out, bias, data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    attrs = {"strides": _pair(stride, 3), "paddings": _pair(padding, 3),
+             "dilations": _pair(dilation, 3), "groups": groups,
+             "data_format": data_format}
+    out = _dispatch("conv3d", {"Input": x, "Filter": weight}, attrs,
+                    ("Output",))
+    return _bias_add(out, bias, data_format)
 
 
 def batch_norm(x, running_mean, running_var, weight, bias, training=False,
@@ -204,12 +255,134 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
         return y
     x, weight, bias = amp_inputs("batch_norm", x, weight, bias)
     y, mean_out, var_out, _, _ = BatchNormFn.apply(
-        x, weight, bias, running_mean, running_var, attrs)
+        x, weight, bias, running_mean, running_var, attrs, False)
     if training:
         with torch.no_grad():
             running_mean.copy_(mean_out)
             running_var.copy_(var_out)
     return y
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, eps=1e-5, momentum=0.9, name=None):
+    return _dispatch("instance_norm", {"X": x, "Scale": weight,
+                                       "Bias": bias}, {"epsilon": eps},
+                     ("Y", "SavedMean", "SavedVariance"))[0]
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    return _dispatch("group_norm", {"X": x, "Scale": weight, "Bias": bias},
+                     {"epsilon": epsilon, "groups": num_groups,
+                      "data_format": data_format},
+                     ("Y", "Mean", "Variance"))[0]
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x / ||x||_p along `axis`: the norm op for p = 2 (epsilon inside
+    the square root), else p_norm then a division."""
+    if p == 2:
+        return _dispatch("norm", {"X": x},
+                         {"axis": int(axis), "epsilon": float(epsilon),
+                          "is_test": True}, ("Out", "Norm"))[0]
+    from ..tensor import math as M
+    pn = _dispatch("p_norm", {"X": x},
+                   {"porder": float(p), "axis": int(axis), "keepdim": True,
+                    "epsilon": float(epsilon)})
+    return M.divide(x, pn)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    from ..tensor import math as M
+    return M.sum(M.multiply(normalize(x1, axis=axis, epsilon=eps),
+                            normalize(x2, axis=axis, epsilon=eps)),
+                 axis=axis)
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
+    """The pad op: `pad` of 2 x rank values [before_0, after_0, ...], or
+    fewer, applied from the LAST axis on ([left, right, top, bottom]).
+    The op pads with `value` whatever `mode` says (ROADMAP.md Queue 3)."""
+    nd = len(x.shape)
+    if len(pad) == nd * 2:
+        paddings = [int(p) for p in pad]
+    else:
+        paddings = [0] * (nd * 2)
+        for j, (lo, hi) in enumerate(zip(pad[0::2], pad[1::2])):
+            paddings[2 * (nd - 1 - j)] = int(lo)
+            paddings[2 * (nd - 1 - j) + 1] = int(hi)
+    return _dispatch("pad", {"X": x}, {"paddings": paddings,
+                                       "pad_value": float(value),
+                                       "mode": mode})
+
+
+_INTERP_OPS = {"nearest": "nearest_interp_v2",
+               "bilinear": "bilinear_interp_v2",
+               "bicubic": "bicubic_interp_v2",
+               "trilinear": "trilinear_interp", "linear": "linear_interp"}
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """The interpolation op of `mode` (vision.py's kernels: jax.image's
+    resize arithmetic); `size` sets out_h and out_w, so the 1-d and 3-d
+    modes take their size from `scale_factor` (ROADMAP.md Queue 3)."""
+    attrs = {"align_corners": align_corners, "align_mode": align_mode,
+             "data_layout": data_format}
+    if size is not None:
+        size = _pair(size)
+        attrs["out_h"], attrs["out_w"] = int(size[0]), int(size[1])
+    if scale_factor is not None:
+        attrs["scale"] = (float(scale_factor) if np.isscalar(scale_factor)
+                          else list(scale_factor))
+    return _dispatch(_INTERP_OPS[mode], {"X": x}, attrs)
+
+
+upsample = interpolate
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    return _dispatch("pixel_shuffle", {"X": x},
+                     {"upscale_factor": upscale_factor,
+                      "data_format": data_format})
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """The im2sequence op, as the JAX package dispatches it: [N oh ow,
+    C kh kw] (not paddle's [N, C kh kw, L]); `dilations` is not read
+    (ROADMAP.md Queue 3)."""
+    return _dispatch("im2sequence", {"X": x},
+                     {"kernels": _pair(kernel_sizes),
+                      "strides": _pair(strides),
+                      "paddings": _pair(paddings, 4)})
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    return _dispatch("grid_sampler", {"X": x, "Grid": grid},
+                     {"mode": mode, "padding_mode": padding_mode,
+                      "align_corners": align_corners}, ("Output",))
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    return _dispatch("affine_grid", {"Theta": theta},
+                     {"output_shape": list(out_shape),
+                      "align_corners": align_corners}, ("Output",))
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _dispatch("temporal_shift", {"X": x},
+                     {"seg_num": seg_num, "shift_ratio": shift_ratio})
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    """Element-wise dropout, as the JAX package's (no whole channels)."""
+    return dropout(x, p, training=training)
+
+
+def relu6(x, name=None):
+    return _dispatch("relu6", {"X": x})
 
 
 def _unary(op_type, fn):

@@ -1,13 +1,14 @@
 """paddle.nn activation layers (counterpart of
-paddle_tpu/nn/layer/activation.py): ReLU, Tanh, Sigmoid, GELU, Softmax and
-LogSoftmax over the functional forms.  The other activation layers
+paddle_tpu/nn/layer/activation.py): ReLU, ReLU6, Tanh, Sigmoid, GELU,
+Softmax and LogSoftmax over the functional forms.  The other activation layers
 wait for ROADMAP.md Queue 1, The rest."""
 from __future__ import annotations
 
 from ...dygraph.layers import Layer
 from .. import functional as F
 
-__all__ = ["ReLU", "Tanh", "Sigmoid", "GELU", "Softmax", "LogSoftmax"]
+__all__ = ["ReLU", "ReLU6", "Tanh", "Sigmoid", "GELU", "Softmax",
+           "LogSoftmax"]
 
 
 def _act_layer(name, fn):
@@ -23,6 +24,7 @@ def _act_layer(name, fn):
 
 
 ReLU = _act_layer("ReLU", F.relu)
+ReLU6 = _act_layer("ReLU6", F.relu6)
 Tanh = _act_layer("Tanh", F.tanh)
 Sigmoid = _act_layer("Sigmoid", F.sigmoid)
 

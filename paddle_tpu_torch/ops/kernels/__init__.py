@@ -22,4 +22,6 @@ from . import (  # noqa: F401
     sparse_feature,
     collective,
     distributed_ops,
+    vision,
+    sequence,
 )

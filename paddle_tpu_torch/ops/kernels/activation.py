@@ -27,6 +27,16 @@ def relu(ins, attrs, ctx):
     return {"Out": torch.relu(ins["X"])}
 
 
+@register_op("relu6", inputs=["X"], outputs=["Out"])
+def relu6(ins, attrs, ctx):
+    """min(max(x, 0), threshold): jnp.clip's gradient, which splits a tie
+    (x at 0 or at the threshold: 1/2; torch.clamp passes all of it)."""
+    x = ins["X"]
+    lo = x.new_zeros(())
+    hi = x.new_full((), float(attrs.get("threshold", 6.0)))
+    return {"Out": torch.minimum(torch.maximum(x, lo), hi)}
+
+
 @register_op("gelu", inputs=["X"], outputs=["Out"])
 def gelu(ins, attrs, ctx):
     approx = "tanh" if attrs.get("approximate", False) else "none"

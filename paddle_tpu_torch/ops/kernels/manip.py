@@ -173,6 +173,43 @@ def pad(ins, attrs, ctx):
         x, widths, value=float(attrs.get("pad_value", 0.0)))}
 
 
+_PAD_MODES = {"constant": "constant", "reflect": "reflect",
+              "edge": "replicate", "replicate": "replicate",
+              "circular": "circular"}
+
+
+def _pad_nd(x, widths, mode, value):
+    """F.pad of `x` by `widths` (torch order: the last axis first)."""
+    if mode == "constant":
+        return torch.nn.functional.pad(x, widths, value=float(value))
+    return torch.nn.functional.pad(x, widths, mode=_PAD_MODES[mode])
+
+
+@register_op("pad2d", inputs=["X"], outputs=["Out"])
+def pad2d(ins, attrs, ctx):
+    """`paddings` [top, bottom, left, right] of H and W (NCHW or NHWC);
+    `mode` constant (`pad_value`), reflect or edge."""
+    x = ins["X"]
+    p = [int(v) for v in attrs["paddings"]]
+    mode = attrs.get("mode", "constant")
+    nhwc = attrs.get("data_format", "NCHW") != "NCHW"
+    if nhwc:
+        x = x.movedim(-1, 1)
+    out = _pad_nd(x, [p[2], p[3], p[0], p[1]], mode,
+                  attrs.get("pad_value", 0.0))
+    return {"Out": out.movedim(1, -1) if nhwc else out}
+
+
+@register_op("pad3d", inputs=["X"], outputs=["Out"])
+def pad3d(ins, attrs, ctx):
+    """`paddings` [left, right, top, bottom, front, back] of W, H and D
+    (NCDHW; `data_format` is not read); `mode` constant (`value`),
+    reflect, replicate or circular."""
+    p = [int(v) for v in attrs["paddings"]]
+    return {"Out": _pad_nd(ins["X"], p, attrs.get("mode", "constant"),
+                           attrs.get("value", 0.0))}
+
+
 @register_op("flatten_contiguous_range", inputs=["X"],
              outputs=["Out", "XShape"])
 def flatten_contiguous_range(ins, attrs, ctx):

@@ -328,3 +328,22 @@ def isnan_v2(ins, attrs, ctx):
 @register_op("einsum", inputs=["Operands*"], outputs=["Out"])
 def einsum_op(ins, attrs, ctx):
     return {"Out": torch.einsum(attrs["equation"], *ins["Operands"])}
+
+
+@register_op("norm", inputs=["X"], outputs=["Out", "Norm"])
+def norm(ins, attrs, ctx):
+    """X / sqrt(sum X^2 + epsilon) along `axis`, and that norm."""
+    x = ins["X"]
+    n = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                             keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
+@register_op("bilinear_tensor_product", inputs=["X", "Y", "Weight", "Bias?"],
+             outputs=["Out"])
+def bilinear_tensor_product(ins, attrs, ctx):
+    """Out[b, o] = X[b] Weight[o] Y[b] (+ Bias)."""
+    out = torch.einsum("bi,oij,bj->bo", ins["X"], ins["Weight"], ins["Y"])
+    if ins.get("Bias") is not None:
+        out = out + ins["Bias"]
+    return {"Out": out}

@@ -8,13 +8,19 @@ regularizers and the AMP rewrite use.
 Each function is a copy of its namesake in paddle_tpu/static/layers.py, so
 both packages append the same ops with the same attrs, parameter names
 and initializers; a Program built here serializes equal to the one the
-JAX package builds.  Layers outside this subset come with later slices.
+JAX package builds.  The convolution, pooling, norm and resize builders
+(conv3d, conv2d_transpose, conv3d_transpose, data_norm, pool3d,
+adaptive_pool2d, group_norm, instance_norm, lrn, resize_bilinear,
+resize_nearest, pad2d) came with the vision tier.  Layers outside this
+subset come with later slices.
 """
 from __future__ import annotations
 
+import builtins
+
 import numpy as np
 
-from ..core.program import VarDesc, default_main_program
+from ..core.program import VarDesc, default_main_program, unique_name
 from .initializer import Constant, Normal, Xavier
 from .layer_helper import LayerHelper
 from .param_attr import ParamAttr
@@ -33,7 +39,10 @@ __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "While", "while_loop", "cond", "case", "switch_case", "Switch",
            "StaticRNN", "DynamicRNN", "array_write", "array_read",
            "array_length", "create_array", "crop_tensor",
-           "get_tensor_from_selected_rows"]
+           "get_tensor_from_selected_rows", "conv3d", "conv2d_transpose",
+           "conv3d_transpose", "data_norm", "pool3d", "adaptive_pool2d",
+           "group_norm", "instance_norm", "lrn", "resize_bilinear",
+           "resize_nearest", "pad2d"]
 
 
 def _current_block():
@@ -676,3 +685,277 @@ def switch_moe(x, num_experts, d_hidden, capacity_factor=1.25,
 from .control_flow import (  # noqa: E402,F401
     While, while_loop, cond, case, switch_case, Switch, StaticRNN,
     DynamicRNN, array_write, array_read, array_length, create_array)
+
+
+# ---------------------------------------------------------------------------
+# the convolution, pooling, norm and resize builders (paddle_tpu/static/
+# layers.py:182-555, 1107, 1422-1458)
+# ---------------------------------------------------------------------------
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", name=name)
+    c_in = input.shape[1]
+    ks = _triple(filter_size)
+    w = helper.create_parameter(param_attr,
+                                [num_filters, c_in // groups] + ks,
+                                input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d", inputs={"Input": input, "Filter": w},
+                     outputs={"Output": out},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation), "groups": groups})
+    b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                is_bias=True)
+    if b is not None:
+        pre = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": out, "Y": b},
+                         outputs={"Out": pre}, attrs={"axis": 1})
+        out = pre
+    return helper.append_activation(out, act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name)
+    c_in = input.shape[1]
+    if filter_size is None:
+        # derive kernel size from the requested output size, as the
+        # reference does (layers/nn.py conv2d_transpose)
+        if output_size is None:
+            raise ValueError(
+                "conv2d_transpose: one of output_size / filter_size required")
+        osize = _pair(output_size)
+        strides_, pads_, dils_ = _pair(stride), _pair(padding), _pair(dilation)
+        ks = []
+        for i in builtins.range(2):
+            in_i = input.shape[2 + i]
+            k = ((osize[i] - (in_i - 1) * strides_[i] + 2 * pads_[i] - 1)
+                 // dils_[i] + 1)
+            ks.append(int(k))
+        filter_size = ks
+    ks = _pair(filter_size)
+    w = helper.create_parameter(param_attr, [c_in, num_filters // groups] + ks,
+                                input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs2 = {"strides": _pair(stride), "paddings": _pair(padding),
+              "dilations": _pair(dilation), "groups": groups}
+    if output_size is not None:
+        attrs2["output_size"] = _pair(output_size)
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": input, "Filter": w},
+                     outputs={"Output": out}, attrs=attrs2)
+    b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                is_bias=True)
+    if b is not None:
+        pre = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": out, "Y": b},
+                         outputs={"Out": pre}, attrs={"axis": 1})
+        out = pre
+    return helper.append_activation(out, act)
+
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [int(v)] * 3
+
+
+def conv3d_transpose(input, num_filters, output_size=None,
+                     filter_size=None, stride=1, padding=0, dilation=1,
+                     groups=1, param_attr=None, bias_attr=None, act=None,
+                     name=None):
+    """layers/nn.py conv3d_transpose: NCDHW transpose conv; filter
+    layout [Cin, Cout/groups, kd, kh, kw] like the reference."""
+    helper = LayerHelper("conv3d_transpose", name=name)
+    c_in = input.shape[1]
+    if filter_size is None:
+        # derive the kernel from the requested output size, like
+        # conv2d_transpose (reference layers/nn.py)
+        if output_size is None:
+            raise ValueError(
+                "conv3d_transpose: one of output_size / filter_size "
+                "required")
+        osize = _triple(output_size)
+        strides_, pads_ = _triple(stride), _triple(padding)
+        dils_ = _triple(dilation)
+        ks = []
+        for i in builtins.range(3):
+            in_i = input.shape[2 + i]
+            k = ((osize[i] - (in_i - 1) * strides_[i] + 2 * pads_[i] - 1)
+                 // dils_[i] + 1)
+            ks.append(int(k))
+        filter_size = ks
+    ks = _triple(filter_size)
+    w = helper.create_parameter(
+        param_attr, [c_in, num_filters // groups] + ks, input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs3 = {"strides": _triple(stride), "paddings": _triple(padding),
+              "dilations": _triple(dilation), "groups": groups}
+    if output_size is not None:
+        attrs3["output_size"] = _triple(output_size)
+    helper.append_op("conv3d_transpose",
+                     inputs={"Input": input, "Filter": w},
+                     outputs={"Output": out}, attrs=attrs3)
+    b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                is_bias=True)
+    if b is not None:
+        pre = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": out, "Y": b},
+                         outputs={"Out": pre}, attrs={"axis": 1})
+        out = pre
+    return helper.append_activation(out, act)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=True, slot_dim=-1,
+              sync_stats=False, summary_decay_rate=0.9999999,
+              enable_scale_and_shift=False):
+    """layers/nn.py data_norm: normalization by accumulated batch
+    statistics (persistable BatchSize/BatchSum/BatchSquareSum), the CTR
+    models' input normalizer."""
+    helper = LayerHelper("data_norm", name=name)
+    ndim = len(input.shape)
+    c = input.shape[-1] if (data_layout == "NHWC" or ndim <= 2) \
+        else input.shape[1]
+    stats = {}
+    for key, init in (("BatchSize", 1e4), ("BatchSum", 0.0),
+                      ("BatchSquareSum", 1e4)):
+        v = helper.main_program.global_block().create_var(
+            name=unique_name(f"{helper.name}_{key}"), shape=(c,),
+            dtype=input.dtype, persistable=True, stop_gradient=True)
+        Constant(init)(v, helper.startup_program.global_block())
+        stats[key] = v
+    y = helper.create_variable_for_type_inference(input.dtype)
+    means = helper.create_variable_for_type_inference(input.dtype)
+    scales = helper.create_variable_for_type_inference(input.dtype)
+    dn_inputs = {"X": input, "BatchSize": stats["BatchSize"],
+                 "BatchSum": stats["BatchSum"],
+                 "BatchSquareSum": stats["BatchSquareSum"]}
+    if enable_scale_and_shift:
+        dn_inputs["scale_w"] = helper.create_parameter(
+            param_attr, [c], input.dtype,
+            default_initializer=Constant(1.0))
+        dn_inputs["bias"] = helper.create_parameter(
+            param_attr, [c], input.dtype, is_bias=True,
+            default_initializer=Constant(0.0))
+    helper.append_op("data_norm", inputs=dn_inputs,
+                     outputs={"Y": y, "Means": means, "Scales": scales},
+                     attrs={"epsilon": epsilon,
+                            "data_layout": data_layout})
+    return helper.append_activation(y, act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool3d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": _triple(pool_size),
+               "strides": _triple(pool_stride),
+               "paddings": _triple(pool_padding),
+               "global_pooling": global_pooling})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair(pool_size), "adaptive": True})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    inputs = {"X": input}
+    s = helper.create_parameter(param_attr, [c], "float32",
+                                default_initializer=Constant(1.0))
+    inputs["Scale"] = s
+    b = helper.create_parameter(bias_attr, [c], "float32", is_bias=True)
+    if b is not None:
+        inputs["Bias"] = b
+    y = helper.create_variable_for_type_inference(input.dtype)
+    m = helper.create_variable_for_type_inference("float32", True)
+    v = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": y, "Mean": m, "Variance": v},
+                     attrs={"groups": groups, "epsilon": epsilon,
+                            "data_layout": data_layout})
+    return helper.append_activation(y, act)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    c = input.shape[1]
+    inputs = {"X": input}
+    s = helper.create_parameter(param_attr, [c], "float32",
+                                default_initializer=Constant(1.0))
+    inputs["Scale"] = s
+    b = helper.create_parameter(bias_attr, [c], "float32", is_bias=True)
+    if b is not None:
+        inputs["Bias"] = b
+    y = helper.create_variable_for_type_inference(input.dtype)
+    sm = helper.create_variable_for_type_inference("float32", True)
+    sv = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("instance_norm", inputs=inputs,
+                     outputs={"Y": y, "SavedMean": sm, "SavedVariance": sv},
+                     attrs={"epsilon": epsilon})
+    return y
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pad2d", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": pad_value,
+                            "data_format": data_format})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("lrn", inputs={"X": input},
+                     outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, align_corners=True,
+                    align_mode=1, data_format="NCHW", name=None):
+    helper = LayerHelper("bilinear_interp", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"interp_method": "bilinear", "align_corners": align_corners,
+             "align_mode": align_mode, "data_layout": data_format}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op("bilinear_interp", inputs={"X": input},
+                     outputs={"Out": out}, attrs=attrs)
+    return out
+
+
+def resize_nearest(input, out_shape=None, scale=None, align_corners=True,
+                   data_format="NCHW", name=None):
+    helper = LayerHelper("nearest_interp", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"interp_method": "nearest", "align_corners": align_corners,
+             "data_layout": data_format}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op("nearest_interp", inputs={"X": input},
+                     outputs={"Out": out}, attrs=attrs)
+    return out

@@ -1,4 +1,7 @@
-"""Composite nets: the attention builders of paddle_tpu/static/nets.py.
+"""Composite nets of paddle_tpu/static/nets.py: the image builders
+`simple_img_conv_pool` (conv2d then pool2d) and `img_conv_group` (conv2d
+[+ batch_norm [+ dropout]] a filter count, then pool2d), and the
+attention builders.
 
 `attention_core` emits the `flash_attention` op when
 `ops.attention.use_flash_for(seq)` holds and there is no attention
@@ -11,7 +14,54 @@ from __future__ import annotations
 
 from . import layers
 
-__all__ = ["scaled_dot_product_attention", "attention_core"]
+__all__ = ["simple_img_conv_pool", "img_conv_group",
+           "scaled_dot_product_attention", "attention_core"]
+
+
+def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
+                         pool_stride, pool_padding=0, pool_type="max",
+                         global_pooling=False, conv_stride=1, conv_padding=0,
+                         conv_dilation=1, conv_groups=1, param_attr=None,
+                         bias_attr=None, act=None, use_cudnn=True):
+    conv_out = layers.conv2d(input, num_filters, filter_size,
+                             stride=conv_stride, padding=conv_padding,
+                             dilation=conv_dilation, groups=conv_groups,
+                             param_attr=param_attr, bias_attr=bias_attr,
+                             act=act)
+    return layers.pool2d(conv_out, pool_size=pool_size, pool_type=pool_type,
+                         pool_stride=pool_stride, pool_padding=pool_padding,
+                         global_pooling=global_pooling)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max", use_cudnn=True):
+    tmp = input
+    if isinstance(conv_num_filter, int):
+        conv_num_filter = [conv_num_filter]
+    n = len(conv_num_filter)
+
+    def _expand(v):
+        return v if isinstance(v, (list, tuple)) else [v] * n
+
+    padding = _expand(conv_padding)
+    fsize = _expand(conv_filter_size)
+    with_bn = _expand(conv_with_batchnorm)
+    drop = _expand(conv_batchnorm_drop_rate)
+    pattr = param_attr if isinstance(param_attr, (list, tuple)) \
+        else [param_attr] * n
+    for i in range(n):
+        local_act = conv_act if not with_bn[i] else None
+        tmp = layers.conv2d(tmp, conv_num_filter[i], fsize[i],
+                            padding=padding[i], param_attr=pattr[i],
+                            act=local_act)
+        if with_bn[i]:
+            tmp = layers.batch_norm(tmp, act=conv_act)
+            if drop[i] > 0:
+                tmp = layers.dropout(tmp, dropout_prob=drop[i])
+    return layers.pool2d(tmp, pool_size=pool_size, pool_type=pool_type,
+                         pool_stride=pool_stride)
 
 
 def attention_core(q, k, v, d_key, dropout_rate=0.0, merge_shape=None):

@@ -28,7 +28,10 @@ ops on CUDA tensors against their CPU results, ring attention composed
 from the flash kernels against the plain ring, and the hoisted
 gradient-merge window of run_steps against the unhoisted one, bit for
 bit; the executor's telemetry gauges (tokens/s, walked-FLOPs MFU, the
-walked and the measured peak bytes) after a replayed run_steps call.
+walked and the measured peak bytes) after a replayed run_steps call;
+the convolution, pooling, norm and interpolation tier (every op type and
+its grad op, every new dygraph layer) on the card against the CPU, and
+nn.SyncBatchNorm under NCCL at world 1 against BatchNorm2D.
 
 Tolerances against the plain versions: fp32 1e-4 (summation order;
 3xTF32 keeps an fp32-level error), bf16 2e-2 and fp16 5e-3 (both sides
@@ -1516,13 +1519,13 @@ def test_vision_ops_on_the_card_match_float64_on_the_cpu(case):
 
 
 def test_conv2d_autograd_on_the_card_is_fp32_under_the_tf32_flag():
-    """Conv2dFn's forward and backward (what nn.Conv2D runs) on the card
+    """ConvFn's forward and backward (what nn.Conv2D runs) on the card
     against float64 on the CPU with the TF32 flag on, at ResNet's 3x3 /
     256 channels (sums of 2,304 products): normalised 1e-4.  cuDNN's fp32
     algorithms here (Winograd among them) measured 3.9e-5 on the card;
     TF32 (10-bit operands) errs ~1e-3."""
     _need_cuda()
-    from paddle_tpu_torch.ops.kernels.nn import Conv2dFn
+    from paddle_tpu_torch.ops.kernels.nn import ConvFn
     g = torch.Generator().manual_seed(7)
     x = torch.randn(8, 256, 14, 14, generator=g, dtype=torch.float64)
     w = torch.randn(256, 256, 3, 3, generator=g, dtype=torch.float64)
@@ -1533,7 +1536,7 @@ def test_conv2d_autograd_on_the_card_is_fp32_under_the_tf32_flag():
         for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
             xv = x.to(dev, dt).requires_grad_(True)
             wv = w.to(dev, dt).requires_grad_(True)
-            out = Conv2dFn.apply(xv, wv, [1, 1], [1, 1], [1, 1], 1)
+            out = ConvFn.apply(xv, wv, [1, 1], [1, 1], [1, 1], False, 1)
             (out * out.detach().sin()).sum().backward()
             res[dev] = (out.detach(), xv.grad, wv.grad)
     finally:
@@ -2165,3 +2168,74 @@ def test_to_static_replay_with_dropout_reaches_every_parameter():
         sf(x).sum().backward()
         missing = [n for n, p in net.named_parameters() if p.grad is None]
         assert not missing, missing
+
+
+# ---------------------------------------------------------------------------
+# the convolution, pooling, norm and interpolation tier
+# ---------------------------------------------------------------------------
+def _vision_tier_cases():
+    """(op, inputs, attrs, cotangent slots) of the tier's op types at small
+    shapes (chip_smoke.py's phase 21 (c) table), numpy inputs."""
+    import chip_smoke
+    return chip_smoke.ph21_op_cases(np.random.RandomState(27))
+
+
+def test_vision_tier_ops_on_the_card_match_the_cpu():
+    """Every op type of the convolution, pooling, norm and interpolation
+    tier and its grad op on CUDA tensors against CPU tensors: fp32 within
+    1e-5 (normalised max error), the bf16 convolutions within 2e-2."""
+    _need_cuda()
+    import chip_smoke
+    out = chip_smoke.ph21_ops(torch)
+    assert out["cases"] == len(_vision_tier_cases())
+    assert out["ops"] >= 39
+
+
+def test_vision_tier_layers_on_the_card_match_the_cpu():
+    """Every new dygraph layer (convolutions, pools, norms, Upsample*,
+    Bilinear, the transformer decoder) on the card against its CPU twin:
+    forward and gradients within 1e-5 (normalised)."""
+    _need_cuda()
+    import chip_smoke
+    assert chip_smoke.ph21_layers(torch, 0)["layers"] >= 30
+
+
+def test_sync_batch_norm_under_nccl_at_world_one():
+    """nn.SyncBatchNorm inside a one-rank NCCL process group equals
+    BatchNorm2D over the same batch (1e-5 normalised); its statistics and
+    gradient sums pass through 4 NCCL allreduces."""
+    _need_cuda()
+    import chip_smoke
+    _nccl_world_one()
+    try:
+        out = chip_smoke.dp_nccl_sync_bn(torch, 0)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert out["allreduces"] == 4 and out["max_err"] <= 1e-5
+
+
+def test_batch_norm_eval_backward_on_the_card():
+    """batch_norm's gradient with the running statistics (eval mode,
+    `use_global_stats`) on CUDA tensors: CUDA's native_batch_norm_backward
+    asserts saved statistics there, so the port writes the inference-form
+    gradient out; held against the same on the CPU (1e-5)."""
+    _need_cuda()
+    from paddle_tpu_torch.ops.registry import OpContext, run_kernel
+    rng = np.random.RandomState(3)
+    ins = {"X": rng.randn(4, 6, 5, 5), "Scale": rng.randn(6),
+           "Bias": rng.randn(6), "Mean": rng.randn(6),
+           "Variance": rng.rand(6) + 0.5}
+    g = rng.randn(4, 6, 5, 5)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in ins.items()}
+        fwd = run_kernel("batch_norm", t, {"use_global_stats": True},
+                         OpContext())
+        t.update(fwd)
+        t["Y@GRAD"] = torch.tensor(g, dtype=torch.float32, device=dev)
+        outs[dev] = run_kernel("batch_norm_grad", t,
+                               {"use_global_stats": True}, OpContext())
+    for k in ("X@GRAD", "Scale@GRAD", "Bias@GRAD"):
+        torch.testing.assert_close(outs["cuda"][k].cpu(), outs["cpu"][k],
+                                   rtol=1e-5, atol=1e-5)

@@ -19,7 +19,7 @@ CompiledProgram's dp × tp world) against the JAX package on the CPU.
     ranks' replicated parameters and
     gathered states equal to the last bit, and each tp-sharded weight at
     half its bytes in a rank's scope;
-  * CompiledProgram still refuses sync_batch_norm and elastic programs
+  * CompiledProgram refuses elastic programs
     under tensor parallelism,
     naming ROADMAP.md Queue 1, Distribution, and sequence parallelism
     together with tensor parallelism, as the JAX package does.
@@ -308,8 +308,12 @@ def test_compiled_program_refusals():
     bs.sync_batch_norm = True
     cp = tstatic.CompiledProgram(main, build_strategy=bs) \
         .with_data_parallel()
-    with pytest.raises(NotImplementedError, match="Queue 1, Distribution"):
-        cp._get_program()
+    # sync_batch_norm is ported: off a process group (world 1) the pass
+    # is not applied, as in the JAX package
+    want = tstatic.CompiledProgram(main).with_data_parallel() \
+        ._get_program()
+    assert [op.type for op in cp._get_program().global_block().ops] == \
+        [op.type for op in want.global_block().ops]
     # sequence parallelism is ported; with tensor parallelism it refuses,
     # as in the JAX package
     bs = tstatic.BuildStrategy()

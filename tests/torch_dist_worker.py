@@ -785,3 +785,93 @@ def moe_ep(init_file, in_path, out_dir):
     kc.clear_rings()
     _finish()
     np.savez(os.path.join(out_dir, f"rank{r}.npz"), **res)
+
+
+def build_bn_program(pkg, shape):
+    """x -> conv2d -> batch_norm -> loss = mean((y * ct)) and SGD, in
+    either package (the sync_batch_norm tests)."""
+    static = pkg.static
+    layers = static.layers
+    main, startup = static.Program(), static.Program()
+    with static.program_guard(main, startup):
+        x = layers.data("x", [-1] + list(shape[1:]))
+        ct = layers.data("ct", [-1, 4] + list(shape[2:]))
+        h = layers.conv2d(x, 4, 3, padding=1, bias_attr=False)
+        y = layers.batch_norm(h, momentum=0.8)
+        loss = layers.mean(layers.elementwise_mul(y, ct))
+        static.SGD(learning_rate=0.5).minimize(loss)
+    return main, startup, loss, y
+
+
+def sync_bn(init_file, out_dir, data_path):
+    """This rank's half of the global batch through (a) the
+    sync_batch_norm kernel and its grad op, (b) the dygraph SyncBatchNorm
+    layer (forward, backward, running stats) and (c) a static program
+    with BuildStrategy.sync_batch_norm under a CompiledProgram (one SGD
+    step: Y, the parameters and running stats after it, the rewritten op
+    types)."""
+    r, w = _init(init_file)
+    import paddle_tpu_torch
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.program import _reset_unique_names
+    from paddle_tpu_torch.io import load_params_from_numpy
+    data = dict(np.load(data_path))
+
+    def mine(a):
+        n = a.shape[0] // w
+        return torch.from_numpy(np.ascontiguousarray(a[r * n:(r + 1) * n]))
+
+    out = {}
+    ins = {"X": mine(data["x"]), "Scale": torch.from_numpy(data["scale"]),
+           "Bias": torch.from_numpy(data["bias"]),
+           "Mean": torch.from_numpy(data["mean"]),
+           "Variance": torch.from_numpy(data["var"])}
+    attrs = {"momentum": 0.8, "epsilon": 1e-5}
+    fwd = _kernel("sync_batch_norm", ins, attrs)
+    for k in ("Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        out["a/" + k] = fwd[k].numpy()
+    gins = dict(ins, **fwd)
+    gins["Y@GRAD"] = mine(data["ct"])
+    grads = _kernel("sync_batch_norm_grad", gins, attrs)
+    for k in ("X@GRAD", "Scale@GRAD", "Bias@GRAD"):
+        out["a/" + k] = grads[k].numpy()
+    # (b) the dygraph layer
+    from paddle_tpu_torch import dygraph, nn
+    with dygraph.guard(static.CPUPlace()):
+        bn = nn.SyncBatchNorm(3, momentum=0.8)
+        bn.set_state_dict({"weight": data["scale"], "bias": data["bias"],
+                           "_mean": data["mean"], "_variance": data["var"]})
+        x = mine(data["x"]).requires_grad_(True)
+        y = bn(x)
+        (y * mine(data["ct"])).sum().backward()
+        out["b/Y"] = y.detach().numpy()
+        out["b/X@GRAD"] = x.grad.numpy()
+        out["b/Scale@GRAD"] = bn.weight.grad.numpy()
+        out["b/mean"] = bn._mean.numpy()
+        out["b/var"] = bn._variance.numpy()
+    # (c) the static program, sync_batch_norm through the BuildStrategy
+    _reset_unique_names()
+    main, _, loss, yv = build_bn_program(paddle_tpu_torch,
+                                         data["x"].shape)
+    scope = static.Scope()
+    load_params_from_numpy(scope, {k[5:]: v for k, v in data.items()
+                                   if k.startswith("init/")},
+                           static.CPUPlace())
+    bs = static.BuildStrategy()
+    bs.sync_batch_norm = True
+    bs.fetch_aggregation = "concat"  # Y: the ranks' rows, in rank order
+    cp = static.CompiledProgram(main, build_strategy=bs) \
+        .with_data_parallel(loss_name=loss.name)
+    exe = static.Executor(static.CPUPlace())
+    with static.scope_guard(scope):
+        (yo,) = exe.run(cp, feed={"x": data["x"], "ct": data["ct4"]},
+                        fetch_list=[yv.name])
+    out["c/Y"] = np.asarray(yo)
+    for n, v in scope.vars.items():
+        if v is not None and n in {k[5:] for k in data
+                                   if k.startswith("init/")}:
+            out["c/var/" + n] = v.numpy()
+    out["c/ops"] = np.array([op.type for op in
+                             cp._get_program().global_block().ops])
+    _finish()
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
